@@ -1,0 +1,14 @@
+"""PyTorch + CUDA port of ``distributedpytorch_tpu`` for NVIDIA Hopper.
+
+The JAX package beside it is the reference; this package imports nothing
+of it (nor JAX), keeping its own copies of the framework-free modules it
+needs, with the same module names so each counterpart is easy to find.
+Every Pallas TPU kernel on a ported path becomes a kernel written by hand
+for Hopper under ``csrc/``.
+
+Ported so far: ``python -m distributedpytorch_tpu_torch serve`` for the
+``vit`` model with ``--attention full|flash`` (flash = kernel K1,
+``csrc/flash_fwd.cu``).  Entry points run on ``cuda`` unless the caller
+asks for the CPU (``--device cpu`` / ``device="cpu"``); they never fall
+back to the CPU on their own.
+"""

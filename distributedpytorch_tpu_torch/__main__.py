@@ -1,0 +1,8 @@
+"""``python -m distributedpytorch_tpu_torch serve ...``"""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())
