@@ -26,7 +26,32 @@ result.  Phases, each printing its lines before the last:
      that served it (label, and confidence to 1e-4); the server's
      K1 launch count held against 4 x (batches + warm-up buckets); and the
      model's flash logits held against its full-attention logits;
-  4. one ``{"kernels": [...]}`` JSON line, then the last line
+  4. kernels K2 and K3 (flash-attention backward: dq, and dk/dv) against
+     their plain PyTorch version on the card, at the vit's training shapes
+     and at causal, wider-head and longer sequences: max error of dq, dk
+     and dv relative to the plain version's largest value, against the
+     stated tolerance, with device / call / plain / SDPA-backward
+     (yardstick only) times and the bound;
+  5. one full-width f32 train step (TF32 off) on the card against the
+     same step on the CPU: same weights, batch and affine draws through
+     ``Engine.train_step_affine``; every parameter's gradient compared,
+     relative to its largest value; the step's K1/K2/K3 launches must be
+     exactly 4 each;
+  6. the main path of the training slice: ``python -m
+     distributedpytorch_tpu_torch train --model vit --attention flash
+     --dataset mnist --synthetic-fallback -e 1`` in a subprocess (844
+     steps of 64, then validation); validation accuracy at least twice
+     chance, the mean train loss of the last 10% of steps below that of
+     the first 10%, and the logged K1/K2/K3 launches equal to 4 per train
+     step (K2, K3) and 4 per train step plus 4 per eval batch (K1);
+  7. resume: ``train --debug -e 2`` uninterrupted, and again resumed from
+     its epoch-1 rolling file; the final params and optimizer state must
+     be bit-identical;
+  8. ``test -f`` on the best model of phase 6 in a subprocess; its
+     accuracy must equal an in-process eval of the same checkpoint;
+  9. a profile of the train step at batch 64, bf16: wall and device ms
+     per step, kernels per step, the device's idle share, K1/K2/K3 time;
+ 10. one ``{"kernels": [...]}`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line is printed.  Work
@@ -35,6 +60,7 @@ files go to ``build/chip_smoke/`` in the checkout.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -47,6 +73,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -64,8 +91,24 @@ TOL_LSE = 1e-4                                # f32 in both
 # the server's rounding of the confidence to 6 decimals (5e-7).
 TOL_CONF = 1e-4
 TOL_LOGITS = {"float32": 1e-4, "bfloat16": 5e-2}
-KERNEL_SOURCE = "distributedpytorch_tpu_torch/csrc/flash_fwd.cu"
-KERNEL_REPLACES = "distributedpytorch_tpu/ops/flash_attention.py:79"
+SOURCES = ("flash_fwd", "flash_bwd")      # csrc/<name>.cu, built together
+CSRC = "distributedpytorch_tpu_torch/csrc"
+TPU_KERNELS = "distributedpytorch_tpu/ops/flash_attention.py"
+KERNELS = (  # name, source, the TPU kernel it replaces
+    ("flash_fwd", f"{CSRC}/flash_fwd.cu", f"{TPU_KERNELS}:79"),
+    ("flash_dq", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:189"),
+    ("flash_dkv", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:236"),
+)
+# K2/K3 against their plain version: max error relative to the plain
+# version's largest value.  f32: the same f32 math in another summation
+# order.  bf16: one rounding of the output.
+TOL_GRAD = {"bfloat16": 2e-2, "float32": 1e-5}
+# One full-width f32 train step on the card against the CPU, each
+# parameter's gradient relative to its largest value: f32 sums in other
+# orders through four blocks (cuBLAS and cuDNN against the CPU's kernels,
+# TF32 off), measured at 1e-6..1e-5.
+TOL_STEP_GRAD = 1e-4
+TRAIN_BATCH = 64
 
 
 def fail(msg: str) -> None:
@@ -107,13 +150,17 @@ def phase_environment():
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
     say("env: nvcc " + (ver.stdout.strip().splitlines() or ["?"])[-1])
     t0 = time.perf_counter()
-    lib, compile_s = build.build("flash_fwd")
-    say(f"build: flash_fwd in {time.perf_counter() - t0:.1f}s "
-        f"(nvcc {compile_s:.1f}s) -> {os.path.relpath(lib, ROOT)}")
-    with open(lib + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                say("build: " + line.strip())
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build.build, SOURCES))
+    say(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f}s")
+    for name, (lib, compile_s) in zip(SOURCES, built):
+        say(f"build: {name} nvcc {compile_s:.1f}s -> "
+            f"{os.path.relpath(lib, ROOT)}")
+        with open(lib + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    say(f"build: {name}: " + line.strip())
     return card
 
 
@@ -144,7 +191,6 @@ def device_ms(fn, reps: int = 50, tries: int = 3):
     warm-up.  A trace with no device events is taken again, up to
     ``tries`` times in all; None if every trace came back empty."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -155,8 +201,7 @@ def device_ms(fn, reps: int = 50, tries: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
+        total = sum(e.self_device_time_total for e in device_kernels(prof))
         if total > 0:
             return total / 1e3 / reps
     return None
@@ -164,6 +209,17 @@ def device_ms(fn, reps: int = 50, tries: int = 3):
 
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.5f}"
+
+
+def device_kernels(prof) -> list:
+    """The profiler's device-side averages, kernels and copies only: a
+    user annotation's GPU range (``Optimizer.step#Adam.step``) spans
+    kernels already counted and is left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def bound_ms(b: int, s: int, h: int, d: int, dtype_name: str,
@@ -511,7 +567,6 @@ def phase_profile(ckpt_path: str, device: str = "cuda") -> None:
     unprofiled wall time.  Prints only; the checks are done above."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from distributedpytorch_tpu_torch import checkpoint as ckpt
@@ -540,8 +595,7 @@ def phase_profile(ckpt_path: str, device: str = "cuda") -> None:
                 for _ in range(reps):
                     pred.predict_step(x)
                 torch.cuda.synchronize()
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
+            kernels = device_kernels(prof)
             dev_ms = sum(e.self_device_time_total for e in kernels) \
                 / 1e3 / reps
             n_kern = sum(e.count for e in kernels) / reps
@@ -563,6 +617,401 @@ def phase_profile(ckpt_path: str, device: str = "cuda") -> None:
                 f"x{e.count // reps}" for e in top[:5]))
 
 
+# -- phase 4: K2 and K3 against their plain version -----------------------
+
+def bwd_bound_ms(b: int, s: int, h: int, d: int, dtype_name: str,
+                 causal: bool, kernel: str):
+    """Least time for K2 ("dq") or K3 ("dkv"): each input read once and
+    each output written once (K2 reads q, k, v, dO, lse, delta and writes
+    dq; K3 also writes dv), or its products' operations (K2: 3, K3: 4) at
+    the card's peak for the input type, whichever is larger."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    tensor = b * s * h * d * item
+    rows = b * h * s * 4
+    pairs = s * (s + 1) / 2 if causal else s * s
+    outputs, products = (1, 3) if kernel == "dq" else (2, 4)
+    nbytes = (4 + outputs) * tensor + 2 * rows
+    ops = products * 2 * b * h * pairs * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_err(got, ref) -> tuple:
+    """(max abs error, max abs error / max abs of the reference)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    return err, err / max(scale, 1e-30)
+
+
+def phase_bwd_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from distributedpytorch_tpu_torch.ops import flash_attention as tfa
+
+    cases = [(b, 49, 4, 32, dt, False) for b in (1, 16, 64)
+             for dt in ("bfloat16", "float32")]
+    cases += [(64, 49, 4, 32, "bfloat16", True)]
+    for s, d in ((128, 64), (128, 128), (1000, 64), (1000, 128)):
+        for dt in ("bfloat16", "float32"):
+            for causal in (False, True):
+                cases.append((8 if s == 128 else 2, s, 4, d, dt, causal))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = {}
+    for (b, s, h, d, dt, causal) in cases:
+        dtype = getattr(torch, dt)
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+        delta = tfa.attention_delta(o, do)
+        n_dq, n_dkv = (tfa.flash_attention_dq.launches,
+                       tfa.flash_attention_dkv.launches)
+        dq = tfa.flash_attention_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        if (tfa.flash_attention_dq.launches != n_dq + 1
+                or tfa.flash_attention_dkv.launches != n_dkv + 1):
+            fail(f"K2/K3 wrappers did not count their launches at "
+                 f"{(b, s, h, d)}")
+        pdq, pdk, pdv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      causal)
+        errs = {"dq": rel_err(dq, pdq), "dk": rel_err(dk, pdk),
+                "dv": rel_err(dv, pdv)}
+        tol = TOL_GRAD[dt]
+        if not all(math.isfinite(e[1]) and e[1] <= tol
+                   for e in errs.values()):
+            fail(f"K2/K3 disagree with their plain version at "
+                 f"{(b, s, h, d)} {dt} causal={causal}: "
+                 f"{ {n: e[1] for n, e in errs.items()} } (tol {tol})")
+        # SDPA's backward (yardstick only): dq, dk and dv in one call
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                      .requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        reps = 50 if s < 1000 else 20
+        fns = {"dq": lambda: tfa.flash_attention_dq(q, k, v, do, lse, delta,
+                                                    causal),
+               "dkv": lambda: tfa.flash_attention_dkv(q, k, v, do, lse,
+                                                      delta, causal),
+               "plain": lambda: tfa.flash_attention_bwd_plain(
+                   q, k, v, o, lse, do, causal),
+               "sdpa": lambda: torch.autograd.grad(
+                   out, (qt, kt, vt), dot, retain_graph=True)}
+        call = {n: time_ms(f, reps) for n, f in fns.items()}
+        dev = {n: device_ms(f, reps) for n, f in fns.items()}
+        bounds = {n: bwd_bound_ms(b, s, h, d, dt, causal, n)
+                  for n in ("dq", "dkv")}
+        say(f"K2/K3 {(b, s, h, d)} {dt} causal={causal}: rel err "
+            f"dq={errs['dq'][1]:.3g} dk={errs['dk'][1]:.3g} "
+            f"dv={errs['dv'][1]:.3g} (tol {tol:g}); device_ms "
+            f"K2={fmt_ms(dev['dq'])} K3={fmt_ms(dev['dkv'])} "
+            f"plain={fmt_ms(dev['plain'])} sdpa_bwd={fmt_ms(dev['sdpa'])}; "
+            f"call_ms K2={call['dq']:.5f} K3={call['dkv']:.5f} "
+            f"plain={call['plain']:.5f} sdpa_bwd={call['sdpa']:.5f}; "
+            f"bound_us K2={bounds['dq'][0] * 1e3:.3f} ({bounds['dq'][1]}) "
+            f"K3={bounds['dkv'][0] * 1e3:.3f} ({bounds['dkv'][1]}); "
+            f"launches K2={tfa.flash_attention_dq.launches} "
+            f"K3={tfa.flash_attention_dkv.launches}")
+        for name, key, err in (("flash_dq", "dq", errs["dq"]),
+                               ("flash_dkv", "dkv",
+                                max(errs["dk"], errs["dv"],
+                                    key=lambda e: e[1]))):
+            rows[(name, b, s, h, d, dt, causal)] = dict(
+                max_abs_err=err[0], rel_err=err[1], ms=dev[key],
+                plain_ms=dev["plain"], library_ms=dev["sdpa"],
+                bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                call_ms=call[key], plain_call_ms=call["plain"],
+                library_call_ms=call["sdpa"])
+    return rows
+
+
+# -- phase 5: one train step on the card against the CPU -------------------
+
+def phase_train_step_parity() -> None:
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.cli import kernel_launches
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    policy = PRESETS["f32"]
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    images = ds.splits["train"].images[:TRAIN_BATCH]
+    labels = ds.splits["train"].labels[:TRAIN_BATCH].astype(np.int64)
+    u = np.random.default_rng(SEED).random((TRAIN_BATCH, 5),
+                                           dtype=np.float32)
+    grads, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                          device=device)
+        engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                        device)
+        state = engine.init_state(torch.Generator().manual_seed(SEED))
+        affine = augment.affine_from_uniform(
+            torch.from_numpy(u).to(device), 28, 28)
+        before = kernel_launches()
+        _, m = engine.train_step_affine(
+            state, torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device),
+            torch.ones(TRAIN_BATCH, dtype=torch.bool, device=device), affine)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in kernel_launches().items()}
+            say(f"step: one f32 train step on the card launched {got}")
+            if got != {"flash_fwd": DEPTH, "flash_dq": DEPTH,
+                       "flash_dkv": DEPTH}:
+                fail(f"a train step must launch {DEPTH} K1, {DEPTH} K2 and "
+                     f"{DEPTH} K3 exactly, got {got}")
+        losses[device] = m["loss"].item()
+        grads[device] = {n: p.grad.detach().cpu()
+                         for n, p in model.named_parameters()}
+    worst = max(((n, rel_err(grads["cuda"][n], g)) for n, g in
+                 grads["cpu"].items()), key=lambda t: t[1][1])
+    say(f"step: full-width f32 train step, card vs CPU: loss "
+        f"{losses['cuda']:.7f} vs {losses['cpu']:.7f}; worst gradient "
+        f"{worst[0]}: rel err {worst[1][1]:.3g} (abs {worst[1][0]:.3g}; "
+        f"tol {TOL_STEP_GRAD:g}) over {len(grads['cpu'])} parameters")
+    if not (math.isfinite(worst[1][1]) and worst[1][1] <= TOL_STEP_GRAD):
+        fail(f"the train step's gradients on the card disagree with the "
+             f"CPU's: {worst[0]} rel err {worst[1][1]}")
+
+
+# -- phase 6: the training slice's main path -------------------------------
+
+def run_cli(args, rsl: str, timeout: float = 900.0):
+    """``python -m distributedpytorch_tpu_torch ARGS`` in a subprocess
+    (a fresh process: its kernel counters start at 0); returns (wall s,
+    the text of RSL/test.log)."""
+    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *args,
+           "-d", os.path.join(WORK, "data"), "--rsl_path", rsl,
+           "--dataset", "mnist", "--synthetic-fallback", "--device", "cuda"]
+    say("run: " + " ".join(os.path.relpath(c, ROOT) if c.startswith(ROOT)
+                           else c for c in cmd[1:]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{args[0]} exited with {proc.returncode}:\n"
+             + (proc.stdout + proc.stderr)[-4000:])
+    with open(os.path.join(rsl, "test.log")) as f:
+        return wall, f.read()
+
+
+def parse_launches(log: str, action: str):
+    m = re.search(rf"{action}: kernel launches flash_fwd (\d+), flash_dq "
+                  rf"(\d+), flash_dkv (\d+) over (?:(\d+) train steps and )?"
+                  rf"(\d+) eval batches", log)
+    if m is None:
+        fail(f"{action} did not log its kernel launches")
+    fwd, dq, dkv, steps, evals = (int(x) if x is not None else 0
+                                  for x in m.groups())
+    return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}, steps, evals
+
+
+def phase_train():
+    rsl = os.path.join(WORK, "train_rsl")
+    wall, log = run_cli(["train", "--model", "vit", "--attention", "flash",
+                         "-e", "1"], rsl)
+    launches, steps, evals = parse_launches(log, "train")
+    want_steps = math.ceil(54000 / TRAIN_BATCH)
+    want_evals = math.ceil(6000 / TRAIN_BATCH)
+    want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
+            "flash_dkv": DEPTH * steps}
+    say(f"train: launches {launches} over {steps} steps and {evals} eval "
+        f"batches; formula {want}")
+    if (steps, evals) != (want_steps, want_evals) or launches != want:
+        fail(f"train launches {launches} over {steps} steps / {evals} "
+             f"eval batches do not match the formula {want} at "
+             f"{want_steps} steps / {want_evals} eval batches")
+    valid_acc = float(re.search(r"Validation  \| Loss: [\d.]+ +\| Acc: "
+                                r"([\d.]+)%", log).group(1))
+    train_loss = float(re.search(r"Train       \| Loss: ([\d.]+)",
+                                 log).group(1))
+    sps = float(re.search(r"Throughput  \| ([\d,]+) samples/s/chip",
+                          log).group(1).replace(",", ""))
+    progress = [(int(a), float(b)) for a, b in re.findall(
+        r"epoch:000 nb batches:(\d+) mean train loss:([\d.]+)", log)]
+    (k_first, m_first) = progress[0]
+    (k_last, m_last) = [p for p in progress if p[0] < steps][-1]
+    # the lines are running means: the last 10% is what follows the last
+    last_mean = (steps * train_loss - k_last * m_last) / (steps - k_last)
+    say(f"train: one epoch of {steps} steps in {wall:.1f}s of process "
+        f"wall; train pass {sps:,.0f} samples/s/chip, "
+        f"{sps / TRAIN_BATCH:.1f} steps/s; validation acc {valid_acc:.2f}% "
+        f"(chance 10%); mean train loss first {k_first} steps "
+        f"{m_first:.5f}, last {steps - k_last} steps {last_mean:.5f}")
+    if valid_acc < 20.0:
+        fail(f"validation accuracy {valid_acc}% is under twice chance")
+    if not last_mean < m_first:
+        fail(f"the train loss did not fall: first 10% {m_first}, last 10% "
+             f"{last_mean}")
+    return launches, os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+
+
+# -- phase 7: resume reproduces an uninterrupted run -----------------------
+
+def phase_resume() -> None:
+    import torch
+
+    base = ["train", "--model", "vit", "--attention", "flash", "--debug",
+            "--keep-ckpts", "2", "-e", "2"]
+    rsl_a = os.path.join(WORK, "resume_a")
+    rsl_b = os.path.join(WORK, "resume_b")
+    run_cli(base, rsl_a)
+    os.makedirs(rsl_b, exist_ok=True)
+    first = "checkpoint-mnist-vit-000.ckpt"
+    shutil.copy(os.path.join(rsl_a, first), os.path.join(rsl_b, first))
+    _, log_b = run_cli(base + ["-f", os.path.join(rsl_b, first)], rsl_b)
+    launches, steps, evals = parse_launches(log_b, "train")
+    last = "checkpoint-mnist-vit-001.ckpt"
+    a, b = (torch.load(os.path.join(r, last), map_location="cpu",
+                       weights_only=True)["state"] for r in (rsl_a, rsl_b))
+
+    def tensors(tree, prefix=""):
+        if isinstance(tree, torch.Tensor):
+            yield prefix, tree
+        elif isinstance(tree, dict):
+            for k in sorted(tree, key=str):
+                yield from tensors(tree[k], f"{prefix}/{k}")
+
+    pairs = list(zip(tensors(a), tensors(b)))
+    differ = [na for (na, ta), (nb, tb) in pairs
+              if na != nb or not torch.equal(ta, tb)]
+    say(f"resume: resumed run ({steps} steps, launches {launches}) vs "
+        f"uninterrupted: {len(pairs)} tensors of params and optimizer "
+        f"state, {len(differ)} differ; step {a['step']} vs {b['step']}")
+    if differ or a["step"] != b["step"] or not pairs:
+        fail(f"the resumed run does not reproduce the uninterrupted one: "
+             f"{differ[:5]}")
+
+
+# -- phase 8: test on the trained model -----------------------------------
+
+def phase_test(ckpt_path: str) -> None:
+
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine, TrainState
+
+    _, log = run_cli(["test", "-f", ckpt_path, "--attention", "flash"],
+                     os.path.join(WORK, "test_rsl"))
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", log).group(1)
+    launches, _, evals = parse_launches(log, "test")
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    policy = PRESETS["bf16"]
+    model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                      device="cuda")
+    ckpt.restore_for_serving(ckpt_path, model)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                    "cuda")
+    loader = ResidentLoader(ds.splits["test"], TRAIN_BATCH, False, SEED,
+                            "cuda")
+    correct = n = 0.0
+    for images, labels, valid in loader.epoch(0):
+        m = engine.eval_step(TrainState(model, None), images, labels, valid)
+        correct += m["correct"].item()
+        n += m["valid"].item()
+    acc_here = f"{correct / n * 100:.2f}"
+    say(f"test: `test -f` accuracy {acc_cli}% ({evals} eval batches, "
+        f"launches {launches}); in-process eval {acc_here}% "
+        f"({int(correct)}/{int(n)})")
+    if acc_cli != acc_here or launches["flash_fwd"] != DEPTH * evals \
+            or launches["flash_dq"] or launches["flash_dkv"]:
+        fail("test's accuracy or launches disagree with the in-process "
+             "eval")
+
+
+# -- phase 9: profile of the train step -------------------------------------
+
+def phase_train_profile() -> None:
+    """Where the time goes in one train step at batch 64, bf16: wall time
+    per step (host clock, synchronized, profiler off), then from a second
+    run under torch.profiler the device time by kernel, K1/K2/K3 shares
+    and the device's idle share of the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch import utils
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    loader = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, SEED,
+                            "cuda")
+    reps = 20
+    batches = list(itertools.islice(loader.epoch(0), 5 + 2 * reps))
+    for att in ("flash", "full"):
+        policy = PRESETS["bf16"]
+        model = get_model("vit", ds.nb_classes, policy, attention=att,
+                          device="cuda")
+        engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                        "cuda")
+        state = engine.init_state(torch.Generator().manual_seed(SEED))
+
+        def step(i):
+            gen = utils.step_generator(SEED, 0, i, "cuda")
+            engine.train_step(state, *batches[i], gen)
+
+        for i in range(5):
+            step(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            step(5 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                step(5 + reps + i)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        n_kern = sum(e.count for e in kernels) / reps
+        if dev_ms <= 0:
+            say(f"profile: train step, {att}: wall {wall_ms:.3f} ms/step; "
+                f"device time not measured (no device events)")
+            continue
+
+        def us(tag):
+            return sum(e.self_device_time_total for e in kernels
+                       if tag in e.key) / reps
+
+        parts = "; ".join(
+            f"{n} {us(tag):.2f} us/step ({100 * us(tag) / 1e3 / dev_ms:.1f}%)"
+            for n, tag in (("K1", "flash_fwd_kernel"),
+                           ("K2", "flash_dq_kernel"),
+                           ("K3", "flash_dkv_kernel")))
+        say(f"profile: train step, {att}, batch {TRAIN_BATCH} bf16: wall "
+            f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms in "
+            f"{n_kern:.0f} kernels (idle {100 * (1 - dev_ms / wall_ms):.1f}"
+            f"%); {parts}")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        say("profile:   top: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / reps:.1f}us"
+            f"x{e.count // reps}" for e in top[:6]))
+
+
 def main() -> int:
     try:
         import torch
@@ -581,16 +1030,30 @@ def main() -> int:
     phase_environment()
     rows = phase_kernel()
     main_row = rows[(64, 49, 4, 32, "bfloat16", False)]
-    missing = [k for k in ("ms", "plain_ms", "library_ms")
-               if main_row[k] is None]
-    if missing:
-        fail(f"torch.profiler returned no device events for {missing} at "
-             f"the main path's K1 shape (64, 49, 4, 32) bf16")
-    launches = phase_main_path("cuda")
+    bwd_rows = phase_bwd_kernels()
+    main_rows = {"flash_fwd": main_row}
+    for name in ("flash_dq", "flash_dkv"):
+        main_rows[name] = bwd_rows[(name, 64, 49, 4, 32, "bfloat16", False)]
+    for name, row in main_rows.items():
+        missing = [k for k in ("ms", "plain_ms", "library_ms")
+                   if row[k] is None]
+        if missing:
+            fail(f"torch.profiler returned no device events for {missing} "
+                 f"of {name} at the main path's shape (64, 49, 4, 32) bf16")
+    serve_launches = phase_main_path("cuda")
     phase_profile(os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt"))
-    kernels = [{"name": "flash_fwd", "route": "cuda",
-                "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-                "launches": launches, **main_row}]
+    phase_train_step_parity()
+    launches, best = phase_train()
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the train path")
+    phase_resume()
+    phase_test(best)
+    phase_train_profile()
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                **main_rows[name]} for name, source, replaces in KERNELS]
+    kernels[0]["serve_launches"] = serve_launches
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

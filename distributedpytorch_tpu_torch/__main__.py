@@ -1,4 +1,4 @@
-"""``python -m distributedpytorch_tpu_torch serve ...``"""
+"""``python -m distributedpytorch_tpu_torch {train,test,serve} ...``"""
 
 import sys
 

@@ -1,21 +1,28 @@
-"""Checkpoints for serving: the port's own file, the JAX package's msgpack
-file, and the sha256 lineage ledger.
+"""Checkpoints: the port's own file, the JAX package's msgpack file, the
+sha256 lineage ledger, and the training side (rolling and best files,
+rotation, resume with a loud fallback past a torn head).
 
-Counterpart of ``distributedpytorch_tpu/checkpoint.py``: the lineage
-ledger in the same schema (:135-260), ``verify_checkpoint`` and
-``lineage_info`` (:229-292), ``restore_for_serving`` and
-``get_checkpoint_model_name`` (:970-1064), and the five-field file
-(:368-432).
+Counterpart of ``distributedpytorch_tpu/checkpoint.py``: the file names
+(``checkpoint_path``/``best_model_path``, :107-116), the lineage ledger in
+the same schema (:135-260), ``verify_checkpoint`` and ``lineage_info``
+(:229-292), ``list_checkpoints`` (:295-313),
+``load_checkpoint_with_fallback`` (:332-365), the five-field file
+(:368-432), ``load_checkpoint`` (:957+), ``restore_for_serving`` and
+``get_checkpoint_model_name`` (:970-1064), ``rotate_checkpoint`` (:1067+).
 
 The port's file holds the same five fields (``format_version``,
 ``model_name``, ``epoch``, ``loss``, ``state``) written with
 ``torch.save`` (a zip archive), atomically (tmp + rename), with its
-sha256 recorded in ``ckpt-lineage.json`` beside it; ``state`` is
-``{"params": model.state_dict()}``.  A file that is not a zip archive is
-read as the JAX package's msgpack checkpoint: flax's ndarray extension
-type is decoded with the plain ``msgpack`` package and the params are
-converted by ``models/convert.py``.  Orbax checkpoint directories are
-not ported yet.
+sha256 recorded in ``ckpt-lineage.json`` beside it.  Format version 2:
+``state`` is ``{"params": model.state_dict(), "opt_state":
+optimizer.state_dict() (on the CPU, or None), "step": int}``.  Version-1
+files hold ``{"params"}`` only; ``serve`` and ``test`` still read them.
+A file that is not a zip archive is read as the JAX package's msgpack
+checkpoint: flax's ndarray extension type is decoded with the plain
+``msgpack`` package and the params are converted by ``models/convert.py``;
+``test`` and ``serve`` read it, resuming ``train`` from it is not ported
+yet (it would need optax -> torch optimizer state).  Orbax checkpoint
+directories are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +32,9 @@ import io
 import json
 import logging
 import os
+import re
 import threading
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +43,11 @@ from torch import nn
 from . import faults, telemetry
 from .models.convert import params_from_jax
 
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2
+_READABLE_VERSIONS = (1, 2)     # the port's own files
+_JAX_FORMAT_VERSION = 1
+_NOT_RESUMABLE_JAX = ("not ported yet: resuming a JAX-written checkpoint "
+                      "(test and serve read it)")
 _LINEAGE = "ckpt-lineage.json"
 _ZIP_MAGIC = b"PK\x03\x04"
 # msgpack extension codes of flax.serialization._MsgpackExtType
@@ -76,14 +88,30 @@ def _lineage_record(path: str, epoch: int, checksum: str,
                                                    str(r.get("file"))))]
         records.append({"file": name, "epoch": int(epoch),
                         "sha256": checksum, "bytes": int(nbytes)})
-        tmp = lineage_path(dirname) + ".tmp"
-        try:
-            with open(tmp, "w") as f:
-                json.dump({"records": records}, f, indent=1)
-            os.replace(tmp, lineage_path(dirname))
-        except OSError as e:
-            logging.warning(f"cannot update checkpoint lineage ledger "
-                            f"{lineage_path(dirname)!r}: {e}")
+        _lineage_write(dirname, records)
+
+
+def _lineage_forget(path: str) -> None:
+    """Drop a rotated-away checkpoint's ledger entry."""
+    dirname, name = os.path.split(os.path.abspath(path))
+    with _lineage_lock:
+        doc = _lineage_load(dirname)
+        records = [r for r in doc["records"] if r.get("file") != name]
+        if len(records) != len(doc["records"]):
+            _lineage_write(dirname, records)
+
+
+def _lineage_write(dirname: str, records: list) -> None:
+    """Atomic rewrite of the ledger (caller holds ``_lineage_lock``); a
+    failure is logged, never raised: the checkpoint itself is written."""
+    tmp = lineage_path(dirname) + ".tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump({"records": records}, f, indent=1)
+        os.replace(tmp, lineage_path(dirname))
+    except OSError as e:
+        logging.warning(f"cannot update checkpoint lineage ledger "
+                        f"{lineage_path(dirname)!r}: {e}")
 
 
 def _lineage_entry(path: str) -> Optional[dict]:
@@ -139,17 +167,76 @@ def lineage_info(path: str) -> Optional[dict]:
     return {"file": name, "path": path, "sha256": sha, "epoch": None}
 
 
+# -- file names and the rolling lineage ------------------------------------
+
+def checkpoint_path(rsl_path: str, dataset: str, model_name: str,
+                    epoch: int) -> str:
+    """The rolling per-epoch file: ``checkpoint-{dataset}-{model}-
+    {epoch:03d}.ckpt``, the JAX package's name."""
+    return os.path.join(
+        rsl_path, f"checkpoint-{dataset}-{model_name}-{epoch:03d}.ckpt")
+
+
+def best_model_path(rsl_path: str, dataset: str, model_name: str) -> str:
+    return os.path.join(rsl_path, f"bestmodel-{dataset}-{model_name}.ckpt")
+
+
+def list_checkpoints(rsl_path: str, dataset: str,
+                     model_name: str) -> List[str]:
+    """Rolling checkpoint paths for (dataset, model) under ``rsl_path``,
+    newest epoch first — the fallback candidates."""
+    pat = re.compile(rf"checkpoint-{re.escape(dataset)}-"
+                     rf"{re.escape(model_name)}-(\d+)\.ckpt")
+    try:
+        names = os.listdir(rsl_path)
+    except OSError:
+        return []
+    found = [(int(m.group(1)), os.path.join(rsl_path, name))
+             for name in names for m in [pat.fullmatch(name)] if m]
+    return [p for _, p in sorted(found, reverse=True)]
+
+
+def rotate_checkpoint(rsl_path: str, dataset: str, model_name: str,
+                      epoch: int, keep: int = 1) -> None:
+    """Delete the rolling file ``keep`` epochs back, retaining the newest
+    ``keep`` snapshots (keep=1 is the reference's delete-previous)."""
+    prev = checkpoint_path(rsl_path, dataset, model_name,
+                           epoch - max(1, keep))
+    if not os.path.exists(prev):
+        return
+    os.remove(prev)
+    _lineage_forget(prev)
+
+
 # -- write ---------------------------------------------------------------
 
+def _to_cpu(tree):
+    """Tensors of a (nested) state dict moved to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 def save_checkpoint(path: str, model_name: str, model: nn.Module,
-                    epoch: int, best_valid_loss: float) -> None:
-    """Write the port's five-field file atomically and record its sha256
-    in the lineage ledger."""
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+                    epoch: int, best_valid_loss: float,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    step: int = 0) -> None:
+    """Write the port's five-field file (format version 2) atomically and
+    record its sha256 in the lineage ledger.  ``optimizer`` and ``step``
+    are the trainer's; a file written without them serves and tests but
+    cannot resume training."""
+    state = {"params": _to_cpu(model.state_dict()),
+             "opt_state": (None if optimizer is None
+                           else _to_cpu(optimizer.state_dict())),
+             "step": int(step)}
     buf = io.BytesIO()
     torch.save({"format_version": FORMAT_VERSION, "model_name": model_name,
                 "epoch": int(epoch), "loss": float(best_valid_loss),
-                "state": {"params": state}}, buf)
+                "state": state}, buf)
     blob = buf.getvalue()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
@@ -219,22 +306,32 @@ def _decode_jax(path: str, blob: bytes) -> dict:
     if name != "vit":
         raise ValueError(f"not ported yet: --model {name} ({path} holds a "
                          f"{name} checkpoint)")
+    if payload.get("format_version") != _JAX_FORMAT_VERSION:
+        raise ValueError(f"{path}: unsupported checkpoint format "
+                         f"{payload.get('format_version')!r}")
     payload["state"] = {"params": params_from_jax(payload["state"]["params"])}
     return payload
 
 
 def _decode_port(path: str, blob: bytes) -> dict:
     try:
-        return torch.load(io.BytesIO(blob), map_location="cpu",
-                          weights_only=True)
+        payload = torch.load(io.BytesIO(blob), map_location="cpu",
+                             weights_only=True)
     except Exception as e:  # any decode failure -> CLI-catchable ValueError
         raise ValueError(f"corrupt checkpoint file {path!r}: {e}") from e
+    if not isinstance(payload, dict) \
+            or payload.get("format_version") not in _READABLE_VERSIONS:
+        raise ValueError(f"{path}: unsupported checkpoint format"
+                         + (f" {payload.get('format_version')!r}"
+                            if isinstance(payload, dict) else ""))
+    return payload
 
 
-def read_checkpoint(path: str) -> dict:
+def _read(path: str) -> Tuple[dict, str]:
     """Read, checksum against the lineage ledger, decode either format.
-    Returns the five fields with ``state["params"]`` as a port
-    ``state_dict``.  Every failure is a ValueError."""
+    Returns (the five fields with ``state["params"]`` as a port
+    ``state_dict``, the writer: "port" or "jax").  Every failure is a
+    ValueError."""
     _refuse_dir(path)
 
     def _attempt() -> bytes:
@@ -256,18 +353,27 @@ def read_checkpoint(path: str) -> dict:
                 f"{path}: corrupt checkpoint — content checksum mismatch "
                 f"(lineage records {str(rec.get('sha256'))[:12]}…, found "
                 f"{got[:12]}…)")
-    payload = (_decode_port(path, blob) if blob[:4] == _ZIP_MAGIC
-               else _decode_jax(path, blob))
-    if not isinstance(payload, dict) \
-            or payload.get("format_version") != FORMAT_VERSION:
-        raise ValueError(f"{path}: unsupported checkpoint format"
-                         + (f" {payload.get('format_version')!r}"
-                            if isinstance(payload, dict) else ""))
-    return payload
+    if blob[:4] == _ZIP_MAGIC:
+        return _decode_port(path, blob), "port"
+    return _decode_jax(path, blob), "jax"
+
+
+def read_checkpoint(path: str) -> dict:
+    """Read, checksum against the lineage ledger, decode either format.
+    Returns the five fields with ``state["params"]`` as a port
+    ``state_dict``.  Every failure is a ValueError."""
+    return _read(path)[0]
 
 
 def get_checkpoint_model_name(path: str) -> str:
     return str(read_checkpoint(path)["model_name"])
+
+
+def _load_params(path: str, payload: dict, model: nn.Module) -> None:
+    try:
+        model.load_state_dict(payload["state"]["params"], strict=True)
+    except RuntimeError as e:
+        raise ValueError(f"{path}: params do not fit the model: {e}") from e
 
 
 def restore_for_serving(path: str, model: nn.Module) -> int:
@@ -275,13 +381,79 @@ def restore_for_serving(path: str, model: nn.Module) -> int:
     every shape) and return the last trained epoch.  Records a
     ``serve_restore`` telemetry event."""
     payload = read_checkpoint(path)
-    try:
-        model.load_state_dict(payload["state"]["params"], strict=True)
-    except RuntimeError as e:
-        raise ValueError(f"{path}: params do not fit the model: {e}") from e
+    _load_params(path, payload, model)
     epoch = int(payload["epoch"])
     telemetry.get().event("serve_restore", file=os.path.basename(path),
                           epoch=epoch, layout="blocks")
     logging.info(f"serving checkpoint {path} (trained through epoch "
                  f"{epoch})")
     return epoch
+
+
+# -- training side ---------------------------------------------------------
+
+def load_checkpoint(path: str, model: nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    restore_optimizer: bool = True
+                    ) -> Tuple[int, float, int]:
+    """Restore ``model`` (and, with ``restore_optimizer``, ``optimizer``)
+    in place; returns (next_epoch, best_valid_loss, step).  Resuming needs
+    a format-2 file of the port: a JAX-written file or a params-only file
+    is refused for it (``test`` and ``serve`` read both)."""
+    payload, writer = _read(path)
+    state = payload["state"]
+    if restore_optimizer:
+        if writer == "jax":
+            raise ValueError(_NOT_RESUMABLE_JAX)
+        if state.get("opt_state") is None or optimizer is None:
+            raise ValueError(
+                f"{path}: holds no optimizer state (format version "
+                f"{payload['format_version']}); it cannot resume training "
+                f"(test and serve read it)")
+    _load_params(path, payload, model)
+    if restore_optimizer:
+        try:
+            optimizer.load_state_dict(state["opt_state"])
+        except (ValueError, KeyError) as e:
+            raise ValueError(f"{path}: optimizer state does not fit the "
+                             f"optimizer: {e}") from e
+    epoch = int(payload["epoch"]) + 1
+    logging.info(f"epoch:{epoch:04d}: model loaded from {path}")
+    return epoch, float(payload["loss"]), int(state.get("step", 0))
+
+
+def load_checkpoint_with_fallback(path: str, model: nn.Module,
+                                  optimizer: Optional[torch.optim.Optimizer],
+                                  rsl_path: str, dataset: str,
+                                  model_name: str
+                                  ) -> Tuple[int, float, int]:
+    """``load_checkpoint`` with lineage recovery: when the requested file
+    is torn or corrupt, fall back — loudly (error log + ``ckpt_fallback``
+    telemetry event per skipped snapshot) — to the newest rolling snapshot
+    that verifies.  A JAX-written file is refused, not skipped."""
+    tel = telemetry.get()
+    seen = {os.path.abspath(path)}
+    candidates = [path]
+    for cand in list_checkpoints(rsl_path, dataset, model_name):
+        if os.path.abspath(cand) not in seen:
+            seen.add(os.path.abspath(cand))
+            candidates.append(cand)
+    errors = []
+    for cand in candidates:
+        reason = verify_checkpoint(cand)
+        if reason is None:
+            try:
+                return load_checkpoint(cand, model, optimizer)
+            except ValueError as e:
+                if str(e) == _NOT_RESUMABLE_JAX:
+                    raise
+                reason = str(e)
+        errors.append(f"{cand}: {reason}")
+        logging.error(f"CHECKPOINT REJECTED {cand!r}: {reason}"
+                      + ("; falling back to an earlier snapshot"
+                         if cand != candidates[-1] else ""))
+        tel.event("ckpt_fallback", skipped=os.path.basename(cand),
+                  reason=reason)
+    raise ValueError(
+        f"no valid checkpoint to resume from under {rsl_path!r} "
+        f"(tried {len(candidates)}: {'; '.join(errors)})")

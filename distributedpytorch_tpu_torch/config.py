@@ -1,12 +1,21 @@
-"""Configuration of the ported ``serve`` subcommand.
+"""Configuration of the ported ``train``, ``test`` and ``serve``
+subcommands.
 
 Counterpart of ``distributedpytorch_tpu/config.py`` (``Config`` at
-:62-316, ``build_parser`` at :711-760, ``config_from_argv`` at
-:1110-1252), cut to what ``serve`` reads, with the same flag spellings,
-plus ``--device {cuda,cpu}`` (default ``cuda``).
+:62-316, ``_common_args`` at :394-708, ``build_parser`` at :711-760,
+``config_from_argv`` at :1110-1252), cut to what this slice runs, with the
+same flag spellings and defaults, plus ``--device {cuda,cpu}`` (default
+``cuda``).
 
 A flag of the JAX CLI that this slice does not support fails loudly with
-one line, ``not ported yet: --X`` (``check_ported``); it is never ignored.
+one line, ``not ported yet: --X``; it is never ignored.  The flags that
+only exist to be refused are one table each (``REFUSED_EVERYWHERE``,
+``REFUSED_TRAIN_TEST``) and are not Config fields; the settings a Config
+holds are refused by ``check_ported``.  Two defaults differ because the
+JAX default is not ported: the flight recorder is off (``--flightrec`` is
+refused), and ``test`` takes the model from the checkpoint, so its
+``--model`` defaults to none (the JAX ``test`` reads the checkpoint's too
+and ignores the flag).
 """
 
 from __future__ import annotations
@@ -16,18 +25,28 @@ import dataclasses
 from typing import Optional
 
 DEBUG = False
+MODEL_NAME = "resnet"       # the JAX default (not ported: refused)
+OPTIMIZER = "adam"
+LOSS = "cross_entropy"
 DATA_PATH = "./data"
 RSL_PATH = "./rsl"
 LOG_FILE = "test.log"
+NB_EPOCHS = 2
+BATCH_SIZE = 64
+NUM_WORKERS = 2             # the JAX package's streamed prefetch depth
 SEED = 1234
+FEATURE_EXTRACT = False
 
 VALID_RATIO = 0.9           # ref dataloader.py:23
 DEBUG_SUBSET = 200          # ref dataloader.py:141
+RESIDENT_MAX_BYTES = 512 * 1024 * 1024
 
 MODEL_CHOICES = (
     "cnn", "mlp", "resnet", "alexnet", "vgg", "squeezenet", "densenet",
     "inception", "vit",
 )
+OPTIMIZER_CHOICES = ("adam", "SGD")
+LOSS_CHOICES = ("cross_entropy", "weighted_cross_entropy", "focal_loss")
 DATASET_CHOICES = ("mnist", "fashion_mnist", "cifar10", "synthetic",
                    "synthetic_hard")
 DEVICE_CHOICES = ("cuda", "cpu")
@@ -35,19 +54,30 @@ DEVICE_CHOICES = ("cuda", "cpu")
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """What ``serve`` needs.  The fields below ``device`` exist only so a
-    programmatic Config can be refused the same way the CLI is."""
+    """What ``train``, ``test`` and ``serve`` need."""
 
-    action: str = "serve"
+    action: str = "train"
     data_path: str = DATA_PATH
     rsl_path: str = RSL_PATH
     log_file: str = LOG_FILE
     dataset: str = "mnist"
     # None: the architecture comes from the checkpoint's model_name
     model_name: Optional[str] = None
+    optimizer: str = OPTIMIZER
+    loss: str = LOSS
+    batch_size: int = BATCH_SIZE
+    nb_epochs: int = NB_EPOCHS
+    learning_rate: float = 1e-3
+    momentum: float = 0.9
+    lr_step_gamma: float = 0.1
+    focal_gamma: float = 2.0
     seed: int = SEED
+    feature_extract: bool = FEATURE_EXTRACT
     checkpoint_file: Optional[str] = None
     debug: bool = DEBUG
+    keep_ckpts: int = 1
+    telemetry: bool = False
+    data_mode: str = "auto"
     half_precision: bool = True
     precision: Optional[str] = None
     attention: str = "full"
@@ -59,25 +89,6 @@ class Config:
     serve_request_timeout: float = 30.0
     serve_max_requests: int = 0
     device: str = "cuda"
-    # -- flags of the JAX CLI that are not ported yet ------------------
-    use_pretrained: bool = False
-    remat: str = "none"
-    scan_layers: bool = False
-    moe_experts: int = 0
-    tensor_parallel: bool = False
-    pipeline_parallel: bool = False
-    model_parallel: int = 1
-    seq_parallel: int = 1
-    elastic: bool = False
-    elastic_join: bool = False
-    elastic_dir: Optional[str] = None
-    elastic_target: Optional[str] = None
-    elastic_min_world: Optional[int] = None
-    elastic_join_wait: Optional[float] = None
-    fault_plan: Optional[str] = None
-    metrics_port: int = 0
-    flightrec: bool = False
-    ckpt_format: str = "msgpack"
 
     def precision_policy(self):
         """The resolved precision.PrecisionPolicy for this config."""
@@ -87,31 +98,15 @@ class Config:
 
 
 def not_ported(cfg: Config) -> Optional[str]:
-    """The first flag of ``cfg`` this slice does not support, spelled as
-    on the command line, or None."""
+    """The first setting of ``cfg`` this slice does not support, spelled
+    as on the command line, or None."""
     checks = (
         (cfg.model_name not in (None, "vit"), f"--model {cfg.model_name}"),
         (cfg.attention in ("ring", "ring_flash"),
          f"--attention {cfg.attention}"),
         (cfg.precision not in (None, "bf16", "f32"),
          f"--precision {cfg.precision}"),
-        (cfg.moe_experts != 0, "--moe-experts"),
-        (cfg.tensor_parallel, "--tensor-parallel"),
-        (cfg.pipeline_parallel, "--pipeline-parallel"),
-        (cfg.model_parallel != 1, "--model-parallel"),
-        (cfg.seq_parallel != 1, "--seq-parallel"),
-        (cfg.scan_layers, "--scan-layers"),
-        (cfg.remat != "none", f"--remat {cfg.remat}"),
-        (cfg.elastic, "--elastic"),
-        (cfg.elastic_join, "--elastic-join"),
-        (cfg.elastic_dir is not None, "--elastic-dir"),
-        (cfg.elastic_target is not None, "--elastic-target"),
-        (cfg.elastic_min_world is not None, "--elastic-min-world"),
-        (cfg.elastic_join_wait is not None, "--elastic-join-wait"),
-        (cfg.fault_plan is not None, "--fault-plan"),
-        (cfg.metrics_port != 0, "--metrics-port"),
-        (cfg.flightrec, "--flightrec"),
-        (cfg.ckpt_format != "msgpack", f"--ckpt-format {cfg.ckpt_format}"),
+        (cfg.data_mode == "stream", "--data-mode stream"),
     )
     for refused, flag in checks:
         if refused:
@@ -121,28 +116,187 @@ def not_ported(cfg: Config) -> Optional[str]:
 
 def check_ported(cfg: Config) -> Config:
     """Raise ValueError("not ported yet: --X") for the first unsupported
-    flag; return ``cfg`` otherwise."""
+    setting; return ``cfg`` otherwise."""
     flag = not_ported(cfg)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
-    if cfg.use_pretrained:
-        raise ValueError(
-            "--use-pretrained is not applicable to the serve subcommand: "
-            "weights come from -f FILE")
     if cfg.device not in DEVICE_CHOICES:
         raise ValueError(f"--device must be one of {DEVICE_CHOICES}, got "
                          f"{cfg.device!r}")
     return cfg
 
 
+def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--device", choices=DEVICE_CHOICES, default="cuda",
+                   help=f"device to {what} on (default: cuda; never falls "
+                        "back to the CPU on its own)")
+
+
+_ON = {"action": "store_true"}
+_INT = {"type": int}
+_FLOAT = {"type": float}
+_STR = {"type": str}
+
+# Flags of the JAX CLI that this slice refuses: (flag, how it parses, the
+# value that asks for what the port does anyway).  They have no default,
+# so only a flag given on the command line is looked at; any other value
+# is refused (``refused_flag``), never ignored.
+REFUSED_EVERYWHERE = (
+    ("--use-pretrained", _ON, False),
+    ("--remat", {"choices": ("none", "blocks", "full")}, "none"),
+    ("--scan-layers", _ON, False),
+    ("--moe-experts", _INT, 0),
+    ("--tensor-parallel", _ON, False),
+    ("--pipeline-parallel", _ON, False),
+    ("--model-parallel", _INT, 1),
+    ("--seq-parallel", _INT, 1),
+    ("--elastic", _ON, False),
+    ("--elastic-join", _ON, False),
+    ("--elastic-dir", _STR, None),
+    ("--elastic-target", _STR, None),
+    ("--elastic-min-world", _INT, None),
+    ("--elastic-join-wait", _FLOAT, None),
+    ("--fault-plan", _STR, None),
+    ("--metrics-port", _INT, 0),
+    ("--flightrec", {"action": argparse.BooleanOptionalAction}, False),
+    ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
+)
+REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
+    ("--pretrained-path", _STR, None),
+    ("--prefetch", _INT, NUM_WORKERS),
+    ("--producer-threads", _INT, 1),
+    ("--device-prefetch", _INT, 0),
+    ("--ckpt-async", _ON, False),
+    ("--compilation-cache-dir", _STR, None),
+    ("--no-compile-cache", _ON, False),
+    ("--aot-warmup", _ON, False),
+    ("--fault-seed", _INT, 0),
+    ("--retry-max-attempts", _INT, 3),
+    ("--retry-base-delay", _FLOAT, 0.05),
+    ("--retry-timeout", _FLOAT, 60.0),
+    ("--health-timeout", _FLOAT, 0.0),
+    ("--max-reconfigures", _INT, 3),
+    ("--profile", _ON, False),
+    ("--flightrec-ring", _INT, 4096),
+    ("--anomaly-capture", _ON, False),
+    ("--anomaly-window", _INT, 32),
+    ("--anomaly-mad-k", _FLOAT, 8.0),
+    ("--anomaly-min-excess", _FLOAT, 0.05),
+    ("--anomaly-capture-steps", _INT, 4),
+    ("--anomaly-max-captures", _INT, 2),
+    ("--epochs-per-dispatch", _INT, 1),
+    ("--grad-accum", _INT, 1),
+    ("--pipeline-microbatches", _INT, 0),
+)
+
+
+def _dest(flag: str) -> str:
+    return flag[2:].replace("-", "_")
+
+
+def _refused_args(p: argparse.ArgumentParser, table) -> None:
+    for flag, how, _ok in table:
+        p.add_argument(flag, dest=_dest(flag), default=argparse.SUPPRESS,
+                       help="not ported yet", **how)
+
+
+def refused_flag(args: dict, table) -> Optional[str]:
+    """The first flag of ``table`` given in the parsed ``args`` with a
+    value the port does not run, spelled as on the command line, or
+    None."""
+    for flag, how, ok in table:
+        dest = _dest(flag)
+        if dest in args and args[dest] != ok:
+            return f"{flag} {args[dest]}" if "choices" in how else flag
+    return None
+
+
+def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
+    """The JAX ``_common_args`` of train and test, same spellings and
+    defaults; the ones this slice refuses are parsed so that they can be
+    refused by name."""
+    p.add_argument("--debug", action="store_true", default=DEBUG,
+                   help="debug mode (200-sample subsets)")
+    p.add_argument("-d", "--data_path", metavar="data_path", type=str,
+                   dest="data_path", required=True, help="data path")
+    p.add_argument("-b", "--batchSize", metavar="N", type=int,
+                   dest="batch_size", default=BATCH_SIZE,
+                   help=f"batch size (default: {BATCH_SIZE})")
+    p.add_argument("--dataset", choices=DATASET_CHOICES, default="mnist",
+                   help="dataset to load (default: mnist)")
+    if action == "train":
+        p.add_argument("--model", choices=MODEL_CHOICES, default=MODEL_NAME,
+                       dest="model_name",
+                       help=f"model architecture (default: {MODEL_NAME}; "
+                            "ported: vit)")
+    else:
+        p.add_argument("--model", choices=MODEL_CHOICES, default=None,
+                       dest="model_name",
+                       help="model architecture (default: the "
+                            "checkpoint's; ported: vit)")
+    p.add_argument("--optimizer", choices=OPTIMIZER_CHOICES,
+                   default=OPTIMIZER, help=f"optimizer (default: {OPTIMIZER})")
+    p.add_argument("--loss", choices=LOSS_CHOICES, default=LOSS,
+                   help=f"loss (default: {LOSS})")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"results/checkpoint dir (default: {RSL_PATH})")
+    p.add_argument("--no-bf16", action="store_true",
+                   help="float32 compute (equivalent to --precision f32)")
+    p.add_argument("--precision",
+                   choices=("f32", "bf16", "bf16_full", "f16"), default=None,
+                   help="mixed-precision preset (ported: f32, bf16)")
+    p.add_argument("--data-mode", choices=("auto", "stream", "resident"),
+                   default="auto", dest="data_mode",
+                   help="device-resident batches (auto, resident); stream "
+                        "is not ported yet")
+    p.add_argument("--keep-ckpts", type=int, default=1, dest="keep_ckpts",
+                   metavar="K",
+                   help="rolling-checkpoint lineage depth (default 1)")
+    p.add_argument("--feature-extract", action="store_true",
+                   dest="feature_extract", default=FEATURE_EXTRACT,
+                   help="freeze the backbone, train only the head")
+    p.add_argument("--synthetic-fallback", action="store_true",
+                   dest="synthetic_fallback",
+                   help="use the deterministic synthetic corpus when the "
+                        "real dataset's raw files are absent")
+    p.add_argument("--telemetry", action="store_true",
+                   help="emit structured JSONL telemetry to "
+                        "RSL_PATH/telemetry/rank<N>.jsonl")
+    p.add_argument("--attention",
+                   choices=("full", "ring", "flash", "ring_flash"),
+                   default="full",
+                   help="attention for --model vit: full (plain PyTorch) "
+                        "or flash (the CUDA kernels K1, K2, K3); ring and "
+                        "ring_flash are not ported yet")
+    _device_arg(p, action)
+    _refused_args(p, REFUSED_TRAIN_TEST)
+
+
 def build_parser() -> argparse.ArgumentParser:
-    """The ``serve`` subcommand of the JAX CLI, same spellings."""
+    """The ``train``, ``test`` and ``serve`` subcommands of the JAX CLI,
+    same spellings."""
     parser = argparse.ArgumentParser(
         prog="python -m distributedpytorch_tpu_torch",
         description="PyTorch/CUDA port of the distributed classifier "
-                    "(serve only in this slice)")
+                    "(train, test and serve a vit)")
     sub = parser.add_subparsers(dest="action", required=True,
                                 help="action to execute")
+    p_train = sub.add_parser("train", help="train model")
+    _train_test_args(p_train, "train")
+    p_train.add_argument("-e", "--epochs", metavar="N", type=int,
+                         dest="nb_epochs", default=NB_EPOCHS,
+                         help=f"number of training epochs "
+                              f"(default: {NB_EPOCHS})")
+    p_train.add_argument("-f", "--file", metavar="file_path", type=str,
+                         dest="checkpoint_file", default=None,
+                         help="training checkpoint file (resume)")
+    p_test = sub.add_parser("test", help="test model")
+    _train_test_args(p_test, "test")
+    p_test.add_argument("-f", "--file", metavar="file_path", type=str,
+                        dest="checkpoint_file", required=True,
+                        help="model file: the port's own or a msgpack "
+                             ".ckpt written by the JAX package")
+
     p = sub.add_parser(
         "serve", help="serve a trained checkpoint: micro-batched "
                       "inference over HTTP with warmed batch buckets and "
@@ -150,12 +304,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true", default=DEBUG,
                    help="debug mode (200-sample subsets)")
     p.add_argument("-d", "--data_path", metavar="data_path", type=str,
-                   dest="dataPath", required=True, help="data path")
+                   dest="data_path", required=True, help="data path")
     p.add_argument("--dataset", choices=DATASET_CHOICES, default="mnist",
                    help="dataset whose test split and normalization the "
                         "server uses (default: mnist)")
     p.add_argument("--model", choices=MODEL_CHOICES, default=None,
-                   dest="modelName",
+                   dest="model_name",
                    help="model architecture (ported: vit; default: the "
                         "checkpoint's)")
     p.add_argument("--rsl_path", type=str, default=RSL_PATH,
@@ -172,111 +326,48 @@ def build_parser() -> argparse.ArgumentParser:
                         "or flash (the CUDA kernel K1); ring and "
                         "ring_flash are not ported yet")
     p.add_argument("--synthetic-fallback", action="store_true",
-                   dest="syntheticFallback",
+                   dest="synthetic_fallback",
                    help="use the deterministic synthetic corpus when the "
                         "real dataset's raw files are absent")
-    p.add_argument("--device", choices=DEVICE_CHOICES, default="cuda",
-                   help="device to serve on (default: cuda; never falls "
-                        "back to the CPU on its own)")
+    _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,
-                   dest="checkpointFile", required=True,
+                   dest="checkpoint_file", required=True,
                    help="checkpoint to serve: the port's own file or a "
                         "msgpack .ckpt written by the JAX package")
     p.add_argument("--serve-port", type=int, default=8100,
-                   dest="servePort", metavar="PORT",
+                   dest="serve_port", metavar="PORT",
                    help="HTTP port for /predict (default 8100)")
     p.add_argument("--serve-buckets", type=str, default="1,4,16,64",
-                   dest="serveBuckets", metavar="B1,B2,...",
+                   dest="serve_buckets", metavar="B1,B2,...",
                    help="batch-size buckets warmed at start; every "
                         "micro-batch pads to one of these "
                         "(default 1,4,16,64)")
     p.add_argument("--serve-max-latency-ms", type=float, default=20.0,
-                   dest="serveMaxLatencyMs", metavar="MS",
+                   dest="serve_max_latency_ms", metavar="MS",
                    help="micro-batcher flush deadline (default 20)")
     p.add_argument("--serve-queue", type=int, default=256,
-                   dest="serveQueue", metavar="N",
+                   dest="serve_queue", metavar="N",
                    help="bounded request-queue depth; past it requests "
                         "are shed with 503 (default 256)")
     p.add_argument("--serve-request-timeout", type=float, default=30.0,
-                   dest="serveRequestTimeout", metavar="S",
+                   dest="serve_request_timeout", metavar="S",
                    help="per-request wait before a 504 (default 30)")
     p.add_argument("--serve-max-requests", type=int, default=0,
-                   dest="serveMaxRequests", metavar="N",
+                   dest="serve_max_requests", metavar="N",
                    help="stop after answering N requests (0 = forever)")
-    # Flags of the JAX CLI this slice refuses (check_ported).
-    p.add_argument("--use-pretrained", action="store_true",
-                   dest="usePretrained")
-    p.add_argument("--remat", choices=("none", "blocks", "full"),
-                   default="none")
-    p.add_argument("--scan-layers", action="store_true", dest="scanLayers")
-    p.add_argument("--moe-experts", type=int, default=0, dest="moeExperts")
-    p.add_argument("--tensor-parallel", action="store_true",
-                   dest="tensorParallel")
-    p.add_argument("--pipeline-parallel", action="store_true",
-                   dest="pipelineParallel")
-    p.add_argument("--model-parallel", type=int, default=1,
-                   dest="modelParallel")
-    p.add_argument("--seq-parallel", type=int, default=1,
-                   dest="seqParallel")
-    p.add_argument("--elastic", action="store_true")
-    p.add_argument("--elastic-join", action="store_true",
-                   dest="elasticJoin")
-    p.add_argument("--elastic-dir", type=str, default=None,
-                   dest="elasticDir")
-    p.add_argument("--elastic-target", type=str, default=None,
-                   dest="elasticTarget")
-    p.add_argument("--elastic-min-world", type=int, default=None,
-                   dest="elasticMinWorld")
-    p.add_argument("--elastic-join-wait", type=float, default=None,
-                   dest="elasticJoinWait")
-    p.add_argument("--fault-plan", type=str, default=None, dest="faultPlan")
-    p.add_argument("--metrics-port", type=int, default=0,
-                   dest="metricsPort")
-    p.add_argument("--flightrec", action=argparse.BooleanOptionalAction,
-                   default=False)
-    p.add_argument("--ckpt-format", choices=("msgpack", "orbax"),
-                   default="msgpack", dest="ckptFormat")
+    _refused_args(p, REFUSED_EVERYWHERE)
     return parser
 
 
 def config_from_argv(argv=None) -> Config:
-    """Parse, then refuse what is not ported yet (ValueError)."""
-    args = build_parser().parse_args(argv)
-    return check_ported(Config(
-        action=args.action,
-        data_path=args.dataPath,
-        rsl_path=args.rsl_path,
-        dataset=args.dataset,
-        model_name=args.modelName,
-        checkpoint_file=args.checkpointFile,
-        debug=args.debug,
-        half_precision=not args.no_bf16,
-        precision=args.precision,
-        attention=args.attention,
-        synthetic_fallback=args.syntheticFallback,
-        serve_port=args.servePort,
-        serve_buckets=args.serveBuckets,
-        serve_max_latency_ms=args.serveMaxLatencyMs,
-        serve_queue=args.serveQueue,
-        serve_request_timeout=args.serveRequestTimeout,
-        serve_max_requests=args.serveMaxRequests,
-        device=args.device,
-        use_pretrained=args.usePretrained,
-        remat=args.remat,
-        scan_layers=args.scanLayers,
-        moe_experts=args.moeExperts,
-        tensor_parallel=args.tensorParallel,
-        pipeline_parallel=args.pipelineParallel,
-        model_parallel=args.modelParallel,
-        seq_parallel=args.seqParallel,
-        elastic=args.elastic,
-        elastic_join=args.elasticJoin,
-        elastic_dir=args.elasticDir,
-        elastic_target=args.elasticTarget,
-        elastic_min_world=args.elasticMinWorld,
-        elastic_join_wait=args.elasticJoinWait,
-        fault_plan=args.faultPlan,
-        metrics_port=args.metricsPort,
-        flightrec=args.flightrec,
-        ckpt_format=args.ckptFormat,
-    ))
+    """Parse, then refuse what is not ported yet (ValueError).  Every
+    other argument's dest is the name of its Config field."""
+    args = vars(build_parser().parse_args(argv))
+    flag = refused_flag(args, REFUSED_EVERYWHERE if args["action"] == "serve"
+                        else REFUSED_TRAIN_TEST)
+    if flag is not None:
+        raise ValueError(f"not ported yet: {flag}")
+    fields = {f.name: args[f.name] for f in dataclasses.fields(Config)
+              if f.name in args}
+    fields["half_precision"] = not args["no_bf16"]
+    return check_ported(Config(**fields))

@@ -47,6 +47,15 @@ class Dataset:
     std: float
     nb_classes: int = 10
 
+    def class_weights(self) -> np.ndarray:
+        """Inverse-frequency weights for weighted CE / focal loss:
+        w_c = N / (num_classes * count_c)."""
+        counts = np.bincount(self.splits["train"].labels,
+                             minlength=self.nb_classes).astype(np.float64)
+        counts = np.maximum(counts, 1.0)
+        w = len(self.splits["train"]) / (self.nb_classes * counts)
+        return w.astype(np.float32)
+
     @property
     def channels(self) -> int:
         img = self.splits["train"].images

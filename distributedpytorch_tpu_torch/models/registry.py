@@ -1,8 +1,10 @@
-"""Model registry: name -> module / input size.
+"""Model registry: name -> module / input size, and the head/backbone
+split of ``--feature-extract``.
 
-Counterpart of ``distributedpytorch_tpu/models/registry.py`` (``get_model``
-and ``get_model_input_size``), for ``vit`` with ``attention`` in
-{full, flash}.  Every other model or feature raises "not ported yet".
+Counterpart of ``distributedpytorch_tpu/models/registry.py`` (``get_model``,
+``get_model_input_size`` and ``trainable_mask`` at :290-299), for ``vit``
+with ``attention`` in {full, flash}.  Every other model or feature raises
+"not ported yet".
 """
 
 from __future__ import annotations
@@ -56,3 +58,20 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
 def get_model_input_size(name: str) -> int:
     _check_name(name)
     return _INPUT_SIZES[name]
+
+
+def trainable_mask(model: nn.Module) -> dict:
+    """{parameter name: "head" | "backbone"}: a parameter is in the head
+    when a component of its name is ``head`` or ``aux_head``."""
+    return {name: ("head" if {"head", "aux_head"} & set(name.split("."))
+                   else "backbone")
+            for name, _ in model.named_parameters()}
+
+
+def freeze_backbone(model: nn.Module) -> None:
+    """``--feature-extract``: only the head trains.  ``requires_grad_``
+    off on every backbone parameter leaves it unchanged by the optimizer,
+    as ``optax.set_to_zero`` does in the JAX package."""
+    for name, label in trainable_mask(model).items():
+        if label == "backbone":
+            model.get_parameter(name).requires_grad_(False)

@@ -5,7 +5,10 @@ and ``ViT``, :43-172): pre-LN blocks with GELU MLPs, a strided-conv patch
 embedding, a learned position embedding, mean-pool over tokens and a
 ``head`` classifier.  ``attention_fn`` is injectable, with the public
 (B, S, H, D) layout: ``ops.attention.full_attention`` or
-``ops.flash_attention.flash_attention`` (kernel K1).
+``ops.flash_attention.flash_attention`` (kernel K1 forward, K2 and K3
+backward).  q, k and v are strided views of the qkv projection, so K1
+reads them without a copy, and autograd gathers the kernels' dq, dk and
+dv back into the projection's gradient.
 
 Numerics follow flax at the same rounding points, so logits agree with
 the JAX model: weights are stored in f32 and cast to the compute dtype at
@@ -111,19 +114,26 @@ class ViT(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "ViT":
         """Random weights from ``generator`` with flax's initializers:
         lecun-normal kernels (truncated at 2 sigma), zero biases, unit
-        LayerNorm scales, normal(0.02) position embedding."""
+        LayerNorm scales, normal(0.02) position embedding.  The draws are
+        made on the generator's device and copied to the model's, so one
+        CPU generator gives the same weights on every device."""
+        dev = generator.device
         with torch.no_grad():
             for mod in self.modules():
                 if isinstance(mod, (nn.Linear, nn.Conv2d)):
                     fan_in = mod.weight[0].numel()
                     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                    nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
-                                          b=2 * std, generator=generator)
+                    w = torch.empty(mod.weight.shape, device=dev)
+                    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                          generator=generator)
+                    mod.weight.copy_(w)
                     nn.init.zeros_(mod.bias)
                 elif isinstance(mod, LayerNorm):
                     nn.init.ones_(mod.weight)
                     nn.init.zeros_(mod.bias)
-            nn.init.normal_(self.pos_embed, std=0.02, generator=generator)
+            pos = torch.empty(self.pos_embed.shape, device=dev)
+            nn.init.normal_(pos, std=0.02, generator=generator)
+            self.pos_embed.copy_(pos)
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -5,13 +5,15 @@ is the storage dtype of the weights, ``compute_dtype`` the dtype the
 forward runs in (weights are cast to it at use, as flax casts at apply),
 and ``accum_dtype`` the dtype of sums and of the serving softmax.  The
 logits are f32 in both presets.  ``bf16_full`` and ``f16`` are
-not ported yet.
+not ported yet.  ``cast_grads`` is the grad-cast rule of the JAX engine's
+``_finish_step`` (``train/engine.py:304-305``): gradients reach the
+optimizer in the param dtype, whatever dtype the backward produced.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
@@ -22,6 +24,17 @@ class PrecisionPolicy:
     param_dtype: torch.dtype
     compute_dtype: torch.dtype
     accum_dtype: torch.dtype
+
+    def describe(self) -> dict:
+        """JSON-able summary, recorded in telemetry as
+        ``precision_policy`` (the JAX package's keys)."""
+        def name(dt):
+            return str(dt).replace("torch.", "")
+
+        return {"preset": self.name, "param_dtype": name(self.param_dtype),
+                "compute_dtype": name(self.compute_dtype),
+                "accum_dtype": name(self.accum_dtype),
+                "output_dtype": "float32", "loss_scale": 1.0}
 
 
 PRESETS = {
@@ -57,3 +70,10 @@ def from_flags(precision: Optional[str],
                 "--no-bf16 is the legacy alias for --precision f32; drop one")
         return get_policy(precision)
     return PRESETS["bf16" if half_precision else "f32"]
+
+
+def cast_grads(params: Iterable[torch.nn.Parameter]) -> None:
+    """Cast every gradient to its parameter's dtype, in place."""
+    for p in params:
+        if p.grad is not None and p.grad.dtype != p.dtype:
+            p.grad = p.grad.to(p.dtype)

@@ -10,8 +10,8 @@ offline report functions are not ported yet.
 Zero-cost when disabled: ``get()`` returns a no-op instance until
 ``configure()`` installs an enabled one.  Every line carries ``ts``
 (wall clock, for humans), ``mono`` (the ordering clock) and ``rank``.
-Event kinds: counter, gauge, histogram, event (spans are not ported
-yet).
+Event kinds: counter, gauge, histogram, event, span (a timed context
+manager; nested spans carry their parent's name).
 """
 
 from __future__ import annotations
@@ -153,6 +153,52 @@ class Histogram:
         return out
 
 
+class _Span:
+    """Context manager recording one timed span; nests via a per-instance
+    stack so the event carries its parent's name."""
+
+    __slots__ = ("_tel", "name", "attrs", "_start", "_parent")
+
+    def __init__(self, tel: "Telemetry", name: str, attrs: Dict[str, Any]):
+        self._tel = tel
+        self.name = name
+        self.attrs = attrs
+        self._start = 0.0
+        self._parent: Optional[str] = None
+
+    def __enter__(self) -> "_Span":
+        stack = self._tel._span_stack
+        self._parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        dur = time.perf_counter() - self._start
+        stack = self._tel._span_stack
+        if stack and stack[-1] == self.name:
+            stack.pop()
+        self._tel._emit({"kind": "span", "name": self.name,
+                         "dur_s": dur, "parent": self._parent,
+                         **({"attrs": self.attrs} if self.attrs else {})})
+        return False
+
+
+class _NullSpan:
+    """The disabled span: nothing measured, nothing emitted."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
 class Telemetry:
     """Process-local registry + JSONL sink.
 
@@ -170,6 +216,7 @@ class Telemetry:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        self._span_stack: List[str] = []
         self._buffer: List[str] = []
         # REENTRANT on purpose: the preempt signal handler
         # (utils.GracefulShutdown) calls event() on the main thread and
@@ -200,6 +247,13 @@ class Telemetry:
         if h is None:
             h = self._histograms[name] = Histogram(name)
         return h
+
+    def span(self, name: str, **attrs: Any):
+        """Timed context manager; emits a span event on exit.  The
+        disabled instance returns a shared no-op (no clock reads)."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, attrs)
 
     def event(self, name: str, **attrs: Any) -> None:
         """Point event (preemption, run metadata, ...)."""

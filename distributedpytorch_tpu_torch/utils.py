@@ -1,7 +1,12 @@
-"""Logging and signal handling for the port's entry points.
+"""Logging, signal handling, durations and seeded generators for the
+port's entry points.
 
-Counterpart of ``distributedpytorch_tpu/utils.py`` (``initialize_logging``
-and ``GracefulShutdown``); the JAX PRNG helpers have no counterpart here.
+Counterpart of ``distributedpytorch_tpu/utils.py`` (``initialize_logging``,
+``GracefulShutdown``, ``get_duration`` at :121-126, ``epoch_numpy_rng`` at
+:152-160).  The JAX package's per-step PRNG keys (``fold_key``) become
+``step_generator``: a ``torch.Generator`` on the run's device seeded from
+(seed, epoch, step), so a resumed run draws exactly what an uninterrupted
+one draws.  The draws themselves differ from JAX's (Philox, not threefry).
 """
 
 from __future__ import annotations
@@ -11,6 +16,10 @@ import os
 import signal
 import sys
 import threading
+from typing import Tuple
+
+import numpy as np
+import torch
 
 
 def initialize_logging(rsl_path: str, log_file: str,
@@ -65,3 +74,28 @@ class GracefulShutdown:
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)
         return False
+
+
+def get_duration(start_time: float, end_time: float) -> Tuple[int, int]:
+    """(minutes, seconds) split (ref: getDuration, utils.py:182-186)."""
+    elapsed = end_time - start_time
+    mins = int(elapsed / 60)
+    secs = int(elapsed - mins * 60)
+    return mins, secs
+
+
+def epoch_numpy_rng(seed: int, epoch: int) -> np.random.Generator:
+    """Host-side generator for the sampler permutation, seeded with
+    seed + epoch as DistributedSampler's ``manual_seed(seed + epoch)``."""
+    return np.random.default_rng(np.uint64(seed) + np.uint64(epoch))
+
+
+def step_generator(seed: int, epoch: int, step: int,
+                   device: torch.device | str) -> torch.Generator:
+    """The augmentation generator of one train step: a ``torch.Generator``
+    on ``device`` whose seed is a function of (seed, epoch, step) only."""
+    state = np.random.SeedSequence([seed, epoch, step]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(int(state) & (2 ** 63 - 1))
+    return gen
