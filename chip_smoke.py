@@ -15,17 +15,18 @@ result.  Phases, each printing its lines before the last:
   2. kernel K1 (flash-attention forward) against its plain PyTorch version
      on the card, at the vit's shapes and at causal, wider-head and longer
      sequences: max abs error of O and lse against the stated tolerance,
-     kernel / plain / SDPA (yardstick only) times — device time from
-     torch.profiler, and call time from CUDA events under its own name —
-     and the bound;
+     kernel / plain / SDPA (yardstick only) times — call time from CUDA
+     events, and device time from torch.profiler — and the bound;
   3. the main path: a full-width vit (dim 128, depth 4, 4 heads, S = 49,
      random weights from a seed) saved as a port checkpoint and served by
      ``python -m distributedpytorch_tpu_torch serve --attention flash`` in
-     a subprocess; a burst of HTTP requests large enough to fill bucket 64;
-     every answer held against the in-process predict step at the bucket
-     that served it (label, and confidence to 1e-4); the server's
-     K1 launch count held against 4 x (batches + warm-up buckets); and the
-     model's flash logits held against its full-attention logits;
+     two subprocesses: three waves of 64 concurrent HTTP requests at a
+     100 ms flush deadline (partial buckets served), and one wave of 64 at
+     a 5 s deadline that must come back as one batch of bucket 64; every
+     answer held against the in-process predict step at the bucket that
+     served it (label, and confidence to 1e-4); each server's K1 launch
+     count held against 4 x (batches + warm-up buckets); and the model's
+     flash logits held against its full-attention logits;
   4. kernels K2 and K3 (flash-attention backward: dq, and dk/dv) against
      their plain PyTorch version on the card, at the vit's training shapes
      and at causal, wider-head and longer sequences: max error of dq, dk
@@ -39,23 +40,51 @@ result.  Phases, each printing its lines before the last:
      exactly 4 each;
   6. the main path of the training slice: ``python -m
      distributedpytorch_tpu_torch train --model vit --attention flash
-     --dataset mnist --synthetic-fallback -e 1`` in a subprocess (844
-     steps of 64, then validation); validation accuracy at least twice
-     chance, the mean train loss of the last 10% of steps below that of
-     the first 10%, and the logged K1/K2/K3 launches equal to 4 per train
-     step (K2, K3) and 4 per train step plus 4 per eval batch (K1);
+     --dataset mnist -e 1`` in a subprocess, on the first 16,000 train and
+     2,000 test rows of the synthetic corpus written as MNIST files (225
+     steps of 64, then 25 validation batches; the run's time limit);
+     validation accuracy at least twice chance, the mean train loss of
+     the last 10% of steps below that of the first 10%, and the logged
+     K1/K2/K3 launches equal to 4 per train step (K2, K3) and 4 per train
+     step plus 4 per eval batch (K1);
   7. resume: ``train --debug -e 2`` uninterrupted, and again resumed from
      its epoch-1 rolling file; the final params and optimizer state must
-     be bit-identical;
+     be bit-identical; beside the uninterrupted run,
   8. ``test -f`` on the best model of phase 6 in a subprocess; its
      accuracy must equal an in-process eval of the same checkpoint;
   9. a profile of the train step at batch 64, bf16: wall and device ms
      per step, kernels per step, the device's idle share, K1/K2/K3 time;
- 10. one ``{"kernels": [...]}`` JSON line, then the last line
-     ``{"ok": true, "device": {...}}``.
+ 10. kernel K5 (the conv weight gradient) against its plain PyTorch
+     version at the cnn's three conv shapes at batch 1, 16 and 64 and a
+     ragged shape, bf16 and f32: error relative to the plain version's
+     largest value, two calls bit-identical, device / call / plain /
+     ``conv2d_weight`` (cuDNN, yardstick only) times and the bound;
+ 11. one f32 train step (TF32 off) of the cnn with K5 and of resnet18 on
+     the card against the CPU: gradients and BatchNorm statistics, and
+     exactly 3 K5 launches for the cnn; the max pools' tie routing on the
+     card against the CPU's;
+ 12. the slice's kernel main path: one epoch (844 steps of 64) of
+     Engine-driven cnn training with K5, its count set to 0 before and
+     read after (3 per step), validation accuracy at least twice chance,
+     the loss falling, and the same epoch with the stock dW within the
+     stated spread;
+ 13. the reference's job: ``torchrun --standalone --nproc_per_node 1 -m
+     distributedpytorch_tpu_torch train`` with the default model (resnet
+     at 224) on NCCL for one epoch, then, at once, ``test -f`` on its best
+     model (equal to an in-process eval) and ``train --debug`` of mlp and
+     cnn;
+ 14. two ranks on the one card (gloo over CUDA tensors): three f32 steps
+     of the cnn with K5 and of a resnet at reduced depth (and the resnet's
+     in f64), held against one rank fed the same global batch and draws
+     (all six worlds at once, each rank a ``tests/_torch_ddp_child.py``
+     process, the child that ``tests/test_torch_ddp.py`` runs on the CPU);
+ 15. profiles of the cnn and resnet train steps (batch 64, bf16);
+ 16. the card's name and power limit again, one ``{"kernels": [...]}``
+     JSON line, then the last line ``{"ok": true, "device": {...}}``.
 
-Any failed check exits non-zero before the last line is printed.  Work
-files go to ``build/chip_smoke/`` in the checkout.
+Each phase prints its wall time.  Any failed check exits non-zero before
+the last line is printed.  Work files go to ``build/chip_smoke/`` in the
+checkout.
 """
 
 from __future__ import annotations
@@ -80,8 +109,17 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 1234
 BUCKETS = (1, 4, 16, 64)
 DEPTH = 4                       # vit blocks: one K1 launch each per forward
-BURST_THREADS = 64              # concurrent clients: fills bucket 64
-BURST_WAVES = 3                 # requests per client
+BURST_THREADS = 64              # concurrent clients: one wave fills bucket 64
+BURST_WAVES = 3                 # requests per client in the main burst
+# The flush deadline of the main burst's server: partial buckets are
+# served, and every answer is held against the predict step at its bucket.
+FLUSH_MS = 100
+# A second server answers one wave of 64 at this deadline, which must come
+# back as one batch of bucket 64.  A wave's 64 requests reach the batcher
+# one connection at a time, and at 100 ms one run of three waves served
+# none of them in bucket 64 (27 batches; ROADMAP queue 3): the deadline
+# has to outlast a wave's spread.  A full bucket dispatches at once.
+FILL_FLUSH_MS = 5000
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
 TOL_O = {"bfloat16": 2e-2, "float32": 2e-5}   # bf16: one output rounding
@@ -91,13 +129,14 @@ TOL_LSE = 1e-4                                # f32 in both
 # the server's rounding of the confidence to 6 decimals (5e-7).
 TOL_CONF = 1e-4
 TOL_LOGITS = {"float32": 1e-4, "bfloat16": 5e-2}
-SOURCES = ("flash_fwd", "flash_bwd")      # csrc/<name>.cu, built together
+SOURCES = ("flash_fwd", "flash_bwd", "conv_dw")  # csrc/<name>.cu, together
 CSRC = "distributedpytorch_tpu_torch/csrc"
 TPU_KERNELS = "distributedpytorch_tpu/ops/flash_attention.py"
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_fwd", f"{CSRC}/flash_fwd.cu", f"{TPU_KERNELS}:79"),
     ("flash_dq", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:189"),
     ("flash_dkv", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:236"),
+    ("conv_dw", f"{CSRC}/conv_dw.cu", "distributedpytorch_tpu/ops/conv.py:92"),
 )
 # K2/K3 against their plain version: max error relative to the plain
 # version's largest value.  f32: the same f32 math in another summation
@@ -109,6 +148,7 @@ TOL_GRAD = {"bfloat16": 2e-2, "float32": 1e-5}
 # TF32 off), measured at 1e-6..1e-5.
 TOL_STEP_GRAD = 1e-4
 TRAIN_BATCH = 64
+MAIN_ATTN = (64, 49, 4, 32, "bfloat16", False)   # the vit's attention call
 
 
 def fail(msg: str) -> None:
@@ -185,26 +225,44 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 50, tries: int = 3):
-    """Mean device time per call: the summed duration of the CUDA work
-    ``fn`` launches, from torch.profiler over ``reps`` calls after
-    warm-up.  A trace with no device events is taken again, up to
-    ``tries`` times in all; None if every trace came back empty."""
+def device_ms(fns: dict, reps: int = 50, tries: int = 3) -> dict:
+    """Mean device time per call of each function of ``fns`` (name ->
+    callable): the summed duration of the CUDA work it launches, from one
+    torch.profiler session after warm-up.  Each function's ``reps`` calls
+    run back to back, a ``torch.cuda._sleep`` kernel marks the boundary
+    between two functions, and the device events, in start order on the
+    one stream, are split at the markers.  A trace that lacks a marker or
+    a function's events is taken again, up to ``tries`` times in all;
+    then every time is None."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        fn()
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            for i, fn in enumerate(fns.values()):
+                if i:
+                    torch.cuda._sleep(1000)
+                for _ in range(reps):
+                    fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in device_kernels(prof))
-        if total > 0:
-            return total / 1e3 / reps
-    return None
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
+                        key=lambda e: e.time_range.start)
+        groups = [[]]
+        for e in events:
+            if "spin_kernel" in e.name:
+                groups.append([])
+            else:
+                groups[-1].append(e.time_range.elapsed_us())
+        if len(groups) == len(fns) and all(groups):
+            return {n: sum(g) / 1e3 / reps for n, g in zip(fns, groups)}
+    return dict.fromkeys(fns)
 
 
 def fmt_ms(x) -> str:
@@ -279,7 +337,7 @@ def phase_kernel():
                "sdpa": lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal)}
         call = {n: time_ms(f, reps) for n, f in fns.items()}
-        dev = {n: device_ms(f, reps) for n, f in fns.items()}
+        dev = device_ms(fns, reps)
         b_ms, b_by = bound_ms(b, s, h, d, dt, causal)
         say(f"K1 {(b, s, h, d)} {dt} causal={causal}: err_o={err_o:.3g} "
             f"(tol {TOL_O[dt]:g}) err_lse={err_lse:.3g} (tol {TOL_LSE:g}) "
@@ -331,16 +389,16 @@ def post(port: int, body: bytes, timeout: float = 60.0):
         return e.code, json.loads(e.read()), time.perf_counter() - t0
 
 
-def burst(port: int, images) -> list:
-    """BURST_THREADS clients, each sending BURST_WAVES requests; every
-    wave starts on a barrier so a full bucket of 64 queues at once.
-    Returns (row, status, body, client_s) per request."""
+def burst(port: int, images, waves: int) -> list:
+    """BURST_THREADS clients, each sending ``waves`` requests; every wave
+    starts on a barrier so a full bucket of 64 queues at once.  Returns
+    (row, status, body, client_s) per request."""
     bodies = [json.dumps({"image": img.tolist()}).encode() for img in images]
     barrier = threading.Barrier(BURST_THREADS)
     out = [None] * len(bodies)
 
     def client(t):
-        for w in range(BURST_WAVES):
+        for w in range(waves):
             i = w * BURST_THREADS + t
             barrier.wait(timeout=120)
             try:
@@ -436,16 +494,11 @@ def check_logits(ckpt_path: str, images, device: str) -> None:
                  f"{name}: {err}")
 
 
-def phase_main_path(device: str = "cuda"):
-    import numpy as np
-
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
-
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
-    ckpt_path = os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt")
-    build_checkpoint(ckpt_path)
-    n = BURST_THREADS * BURST_WAVES
+def start_server(ckpt_path: str, n: int, flush_ms: int, device: str):
+    """A ``serve`` subprocess that stops after ``n`` answers (a fresh
+    process: its K1 count starts at 0 right before the main path and is
+    read from its log right after); returns (port, proc, lines, the
+    listening event)."""
     port = free_port()
     cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", "serve",
            "-d", os.path.join(WORK, "data"),
@@ -453,11 +506,9 @@ def phase_main_path(device: str = "cuda"):
            "--attention", "flash", "--synthetic-fallback",
            "--serve-buckets", ",".join(str(b) for b in BUCKETS),
            "--serve-max-requests", str(n), "--serve-port", str(port),
-           "--serve-max-latency-ms", "100", "--device", device]
+           "--serve-max-latency-ms", str(flush_ms), "--device", device]
     say("main: " + " ".join(os.path.relpath(c, ROOT) if c.startswith(ROOT)
                             else c for c in cmd[1:]))
-    # The server is a fresh process: its K1 count starts at 0 right before
-    # the main path and is read from its log right after.
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     lines = []
@@ -469,46 +520,105 @@ def phase_main_path(device: str = "cuda"):
             if "serve: listening on" in line:
                 listening.set()
 
-    rd = threading.Thread(target=reader, daemon=True)
-    rd.start()
+    threading.Thread(target=reader, daemon=True).start()
+    return port, proc, lines, listening
+
+
+def serve_burst(server, images, waves: int) -> tuple:
+    """Waits for ``server`` to listen, sends ``waves`` waves of requests,
+    waits for it to exit; returns (answers, burst seconds)."""
+    port, proc, lines, listening = server
+    t0 = time.perf_counter()
+    while not listening.wait(0.5):
+        if proc.poll() is not None or time.perf_counter() - t0 > 600:
+            fail("the server did not start:\n" + "\n".join(lines[-40:]))
+    t_burst = time.perf_counter()
+    answers = burst(port, images, waves)
+    burst_s = time.perf_counter() - t_burst
     try:
-        t0 = time.perf_counter()
-        while not listening.wait(0.5):
-            if proc.poll() is not None or time.perf_counter() - t0 > 600:
-                fail("the server did not start:\n" + "\n".join(lines[-40:]))
-        say(f"main: server listening after {time.perf_counter() - t0:.1f}s")
-        ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                          synthetic_fallback=True)
-        images = ds.splits["test"].images[:n]
-        t_burst = time.perf_counter()
-        answers = burst(port, images)
-        burst_s = time.perf_counter() - t_burst
         rc = proc.wait(timeout=120)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    rd.join(timeout=10)
+    except subprocess.TimeoutExpired:
+        rc = None
     if rc != 0:
         fail(f"the server exited with {rc}:\n" + "\n".join(lines[-40:]))
+    time.sleep(0.2)         # the reader thread takes the last lines
     for line in lines:
         if line.startswith("serve:"):
             say("server| " + line)
-
     bad = [a for a in answers if a[1] != 200]
     if bad:
-        fail(f"{len(bad)} of {n} requests failed, e.g. {bad[0][1:3]}")
-    buckets_seen = sorted({a[2]["bucket"] for a in answers})
-    if max(BUCKETS) not in buckets_seen:
-        fail(f"the burst never filled bucket {max(BUCKETS)} "
-             f"(buckets used: {buckets_seen})")
-    server_ms = np.array([a[2]["latency_ms"] for a in answers])
-    client_ms = np.array([a[3] * 1e3 for a in answers])
-    say(f"main: {n} answers in {burst_s:.3f}s, buckets used {buckets_seen}; "
-        f"server latency p50 {np.percentile(server_ms, 50):.3f} ms "
-        f"p99 {np.percentile(server_ms, 99):.3f} ms; client latency p50 "
-        f"{np.percentile(client_ms, 50):.3f} ms p99 "
-        f"{np.percentile(client_ms, 99):.3f} ms")
+        fail(f"{len(bad)} of {len(answers)} requests failed, e.g. "
+             f"{bad[0][1:3]}")
+    return answers, burst_s
+
+
+def check_server_launches(lines, n: int) -> tuple:
+    """The server's K1 count against 4 x (batches + warm-up buckets);
+    returns (launches, batches)."""
+    served = stopped = None
+    for line in lines:
+        m = re.search(r"flash_fwd launches (\d+) \((\d+) in warm-up\)", line)
+        if m:
+            served = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"answering (\d+) requests in (\d+) batches", line)
+        if m:
+            stopped = (int(m.group(1)), int(m.group(2)))
+    if served is None or stopped is None:
+        fail("the server did not report its K1 launches and batches")
+    launches, warm = served
+    answered, batches = stopped
+    want = DEPTH * (batches + len(BUCKETS))
+    say(f"main: K1 launches {launches} = {DEPTH} x ({batches} batches + "
+        f"{len(BUCKETS)} warm-up forwards) -> expected {want}")
+    if answered != n or launches <= 0 or launches != want \
+            or warm != DEPTH * len(BUCKETS):
+        fail(f"K1 launch count {launches} (warm-up {warm}) does not match "
+             f"the {batches} batches served")
+    return launches, batches
+
+
+def phase_main_path(device: str = "cuda"):
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    ckpt_path = os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt")
+    build_checkpoint(ckpt_path)
+    n_main = BURST_THREADS * BURST_WAVES
+    n = n_main + BURST_THREADS
+    # both servers start together; the bursts run one after the other
+    servers = [start_server(ckpt_path, n_main, FLUSH_MS, device),
+               start_server(ckpt_path, BURST_THREADS, FILL_FLUSH_MS, device)]
+    try:
+        ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                          synthetic_fallback=True)
+        images = ds.splits["test"].images[:n]
+        main_answers, burst_s = serve_burst(servers[0], images[:n_main],
+                                            BURST_WAVES)
+        fill_answers, fill_s = serve_burst(servers[1], images[n_main:], 1)
+    finally:
+        for _, proc, _, _ in servers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for what, answers, secs, flush in (
+            ("main burst", main_answers, burst_s, FLUSH_MS),
+            ("fill wave", fill_answers, fill_s, FILL_FLUSH_MS)):
+        server_ms = np.array([a[2]["latency_ms"] for a in answers])
+        client_ms = np.array([a[3] * 1e3 for a in answers])
+        say(f"main: {what} (flush {flush} ms): {len(answers)} answers in "
+            f"{secs:.3f}s, buckets used "
+            f"{sorted({a[2]['bucket'] for a in answers})}; server latency "
+            f"p50 {np.percentile(server_ms, 50):.3f} ms p99 "
+            f"{np.percentile(server_ms, 99):.3f} ms; client latency p50 "
+            f"{np.percentile(client_ms, 50):.3f} ms p99 "
+            f"{np.percentile(client_ms, 99):.3f} ms")
+    if {a[2]["bucket"] for a in fill_answers} != {max(BUCKETS)}:
+        fail(f"the fill wave was not served in bucket {max(BUCKETS)}: "
+             f"{sorted({a[2]['bucket'] for a in fill_answers})}")
+    answers = main_answers + [(n_main + a[0],) + a[1:] for a in fill_answers]
 
     got_labels = np.array([a[2]["label"] for a in answers])
     got_confs = np.array([a[2]["confidence"] for a in answers])
@@ -537,26 +647,12 @@ def phase_main_path(device: str = "cuda"):
              "another's: the reference answers are too alike")
     check_logits(ckpt_path, images, device)
 
-    served = stopped = None
-    for line in lines:
-        m = re.search(r"flash_fwd launches (\d+) \((\d+) in warm-up\)", line)
-        if m:
-            served = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"answering (\d+) requests in (\d+) batches", line)
-        if m:
-            stopped = (int(m.group(1)), int(m.group(2)))
-    if served is None or stopped is None:
-        fail("the server did not report its K1 launches and batches")
-    launches, warm = served
-    answered, batches = stopped
-    want = DEPTH * (batches + len(BUCKETS))
-    say(f"main: K1 launches {launches} = {DEPTH} x ({batches} batches + "
-        f"{len(BUCKETS)} warm-up forwards) -> expected {want}")
-    if answered != n or launches <= 0 or launches != want \
-            or warm != DEPTH * len(BUCKETS):
-        fail(f"K1 launch count {launches} (warm-up {warm}) does not match "
-             f"the {batches} batches served")
-    return launches
+    launches, _ = check_server_launches(servers[0][2], n_main)
+    fill_launches, fill_batches = check_server_launches(servers[1][2],
+                                                        BURST_THREADS)
+    if fill_batches != 1:
+        fail(f"the fill wave took {fill_batches} batches, not one")
+    return launches + fill_launches
 
 
 def phase_profile(ckpt_path: str, device: str = "cuda") -> None:
@@ -701,7 +797,7 @@ def phase_bwd_kernels():
                "sdpa": lambda: torch.autograd.grad(
                    out, (qt, kt, vt), dot, retain_graph=True)}
         call = {n: time_ms(f, reps) for n, f in fns.items()}
-        dev = {n: device_ms(f, reps) for n, f in fns.items()}
+        dev = device_ms(fns, reps)
         bounds = {n: bwd_bound_ms(b, s, h, d, dt, causal, n)
                   for n in ("dq", "dkv")}
         say(f"K2/K3 {(b, s, h, d)} {dt} causal={causal}: rel err "
@@ -768,7 +864,7 @@ def phase_train_step_parity() -> None:
             got = {k: v - before[k] for k, v in kernel_launches().items()}
             say(f"step: one f32 train step on the card launched {got}")
             if got != {"flash_fwd": DEPTH, "flash_dq": DEPTH,
-                       "flash_dkv": DEPTH}:
+                       "flash_dkv": DEPTH, "conv_dw": 0}:
                 fail(f"a train step must launch {DEPTH} K1, {DEPTH} K2 and "
                      f"{DEPTH} K3 exactly, got {got}")
         losses[device] = m["loss"].item()
@@ -787,46 +883,112 @@ def phase_train_step_parity() -> None:
 
 # -- phase 6: the training slice's main path -------------------------------
 
-def run_cli(args, rsl: str, timeout: float = 900.0):
-    """``python -m distributedpytorch_tpu_torch ARGS`` in a subprocess
-    (a fresh process: its kernel counters start at 0); returns (wall s,
-    the text of RSL/test.log)."""
-    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *args,
-           "-d", os.path.join(WORK, "data"), "--rsl_path", rsl,
+TORCHRUN = ("-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1")
+
+
+def start_cli(args, rsl: str, launcher=(), data: str = "") -> tuple:
+    """Starts ``python [LAUNCHER] -m distributedpytorch_tpu_torch ARGS`` (a
+    fresh process: its kernel counters start at 0) on the data in ``data``
+    (WORK/data by default), its output going to a file in WORK;
+    ``finish_cli`` waits for it."""
+    cmd = [sys.executable, *launcher, "-m", "distributedpytorch_tpu_torch",
+           *args, "-d", data or os.path.join(WORK, "data"), "--rsl_path", rsl,
            "--dataset", "mnist", "--synthetic-fallback", "--device", "cuda"]
     say("run: " + " ".join(os.path.relpath(c, ROOT) if c.startswith(ROOT)
                            else c for c in cmd[1:]))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=timeout)
+    out = os.path.join(WORK, os.path.basename(rsl) + ".out")
+    with open(out, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT)
+    return args[0], rsl, out, proc, time.perf_counter()
+
+
+def finish_cli(run: tuple, timeout: float = 900.0) -> tuple:
+    """Waits for a ``start_cli`` process (killing it at ``timeout``
+    seconds); returns (wall s, the text of RSL/test.log)."""
+    action, rsl, out, proc, t0 = run
+    try:
+        rc = proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        rc = None
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"{args[0]} exited with {proc.returncode}:\n"
-             + (proc.stdout + proc.stderr)[-4000:])
+    if rc != 0:
+        with open(out) as f:
+            fail(f"{action} exited with {rc}:\n{f.read()[-4000:]}")
     with open(os.path.join(rsl, "test.log")) as f:
         return wall, f.read()
 
 
+def finish_all(runs: list) -> list:
+    """``finish_cli`` of every run in order; no process outlives it."""
+    try:
+        return [finish_cli(run) for run in runs]
+    finally:
+        for *_, proc, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_cli(args, rsl: str, launcher=(), data: str = "") -> tuple:
+    """One CLI process, start to end: (wall s, the text of RSL/test.log)."""
+    return finish_all([start_cli(args, rsl, launcher, data)])[0]
+
+
 def parse_launches(log: str, action: str):
     m = re.search(rf"{action}: kernel launches flash_fwd (\d+), flash_dq "
-                  rf"(\d+), flash_dkv (\d+) over (?:(\d+) train steps and )?"
-                  rf"(\d+) eval batches", log)
+                  rf"(\d+), flash_dkv (\d+), conv_dw (\d+) over "
+                  rf"(?:(\d+) train steps and )?(\d+) eval batches", log)
     if m is None:
         fail(f"{action} did not log its kernel launches")
-    fwd, dq, dkv, steps, evals = (int(x) if x is not None else 0
-                                  for x in m.groups())
-    return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}, steps, evals
+    fwd, dq, dkv, dw, steps, evals = (int(x) if x is not None else 0
+                                      for x in m.groups())
+    return ({"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv,
+             "conv_dw": dw}, steps, evals)
+
+
+# Phase 6's corpus: the first rows of the synthetic one, as MNIST files.
+# 90% of the train rows train: 225 steps of 64, and 25 validation batches.
+VIT_TRAIN_ROWS = 16000
+VIT_TEST_ROWS = 2000
+VIT_DATA = os.path.join(WORK, "vit_data")
+
+
+def write_vit_data() -> None:
+    """VIT_TRAIN_ROWS train and VIT_TEST_ROWS test rows of the synthetic
+    corpus written to VIT_DATA/MNIST/raw in the IDX format, so that
+    ``train`` reads a smaller MNIST."""
+    import struct
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data import io
+
+    raw = os.path.join(VIT_DATA, "MNIST", "raw")
+    os.makedirs(raw, exist_ok=True)
+    tr_x, tr_y, te_x, te_y = io.make_synthetic()
+    for name, a in (("train-images-idx3-ubyte", tr_x[:VIT_TRAIN_ROWS]),
+                    ("train-labels-idx1-ubyte", tr_y[:VIT_TRAIN_ROWS]),
+                    ("t10k-images-idx3-ubyte", te_x[:VIT_TEST_ROWS]),
+                    ("t10k-labels-idx1-ubyte", te_y[:VIT_TEST_ROWS])):
+        with open(os.path.join(raw, name), "wb") as f:
+            f.write(struct.pack(">HBB", 0, 0x08, a.ndim))
+            f.write(struct.pack(">" + "I" * a.ndim, *a.shape))
+            f.write(np.ascontiguousarray(a, np.uint8).tobytes())
 
 
 def phase_train():
+    write_vit_data()
     rsl = os.path.join(WORK, "train_rsl")
     wall, log = run_cli(["train", "--model", "vit", "--attention", "flash",
-                         "-e", "1"], rsl)
+                         "-e", "1"], rsl, data=VIT_DATA)
     launches, steps, evals = parse_launches(log, "train")
-    want_steps = math.ceil(54000 / TRAIN_BATCH)
-    want_evals = math.ceil(6000 / TRAIN_BATCH)
+    n_train = int(VIT_TRAIN_ROWS * 0.9)
+    want_steps = math.ceil(n_train / TRAIN_BATCH)
+    want_evals = math.ceil((VIT_TRAIN_ROWS - n_train) / TRAIN_BATCH)
     want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
-            "flash_dkv": DEPTH * steps}
+            "flash_dkv": DEPTH * steps, "conv_dw": 0}
     say(f"train: launches {launches} over {steps} steps and {evals} eval "
         f"batches; formula {want}")
     if (steps, evals) != (want_steps, want_evals) or launches != want:
@@ -858,20 +1020,38 @@ def phase_train():
     return launches, os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
 
 
-# -- phase 7: resume reproduces an uninterrupted run -----------------------
+# -- phases 7 and 8: resume, and test on the trained model -----------------
 
-def phase_resume() -> None:
+def phase_resume_and_test(ckpt_path: str) -> None:
+    """The uninterrupted run of phase 7 and the ``test`` of phase 8 run at
+    once (neither is timed), then the resumed run."""
     import torch
 
     base = ["train", "--model", "vit", "--attention", "flash", "--debug",
             "--keep-ckpts", "2", "-e", "2"]
     rsl_a = os.path.join(WORK, "resume_a")
     rsl_b = os.path.join(WORK, "resume_b")
-    run_cli(base, rsl_a)
+    _, (_, log) = finish_all([
+        start_cli(base, rsl_a),
+        start_cli(["test", "-f", ckpt_path, "--attention", "flash"],
+                  os.path.join(WORK, "test_rsl"), data=VIT_DATA)])
     os.makedirs(rsl_b, exist_ok=True)
     first = "checkpoint-mnist-vit-000.ckpt"
     shutil.copy(os.path.join(rsl_a, first), os.path.join(rsl_b, first))
     _, log_b = run_cli(base + ["-f", os.path.join(rsl_b, first)], rsl_b)
+
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", log).group(1)
+    launches, _, evals = parse_launches(log, "test")
+    acc_here, correct, n = eval_accuracy(ckpt_path, "vit", VIT_DATA)
+    say(f"test: `test -f` accuracy {acc_cli}% ({evals} eval batches, "
+        f"launches {launches}); in-process eval {acc_here}% "
+        f"({correct}/{n})")
+    if acc_cli != acc_here or launches["flash_fwd"] != DEPTH * evals \
+            or launches["flash_dq"] or launches["flash_dkv"] \
+            or launches["conv_dw"] or n != VIT_TEST_ROWS:
+        fail("test's accuracy or launches disagree with the in-process "
+             "eval")
+
     launches, steps, evals = parse_launches(log_b, "train")
     last = "checkpoint-mnist-vit-001.ckpt"
     a, b = (torch.load(os.path.join(r, last), map_location="cpu",
@@ -893,47 +1073,6 @@ def phase_resume() -> None:
     if differ or a["step"] != b["step"] or not pairs:
         fail(f"the resumed run does not reproduce the uninterrupted one: "
              f"{differ[:5]}")
-
-
-# -- phase 8: test on the trained model -----------------------------------
-
-def phase_test(ckpt_path: str) -> None:
-
-    from distributedpytorch_tpu_torch import checkpoint as ckpt
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
-    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
-    from distributedpytorch_tpu_torch.models import get_model
-    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
-    from distributedpytorch_tpu_torch.precision import PRESETS
-    from distributedpytorch_tpu_torch.train.engine import Engine, TrainState
-
-    _, log = run_cli(["test", "-f", ckpt_path, "--attention", "flash"],
-                     os.path.join(WORK, "test_rsl"))
-    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", log).group(1)
-    launches, _, evals = parse_launches(log, "test")
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
-    policy = PRESETS["bf16"]
-    model = get_model("vit", ds.nb_classes, policy, attention="flash",
-                      device="cuda")
-    ckpt.restore_for_serving(ckpt_path, model)
-    engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
-                    "cuda")
-    loader = ResidentLoader(ds.splits["test"], TRAIN_BATCH, False, SEED,
-                            "cuda")
-    correct = n = 0.0
-    for images, labels, valid in loader.epoch(0):
-        m = engine.eval_step(TrainState(model, None), images, labels, valid)
-        correct += m["correct"].item()
-        n += m["valid"].item()
-    acc_here = f"{correct / n * 100:.2f}"
-    say(f"test: `test -f` accuracy {acc_cli}% ({evals} eval batches, "
-        f"launches {launches}); in-process eval {acc_here}% "
-        f"({int(correct)}/{int(n)})")
-    if acc_cli != acc_here or launches["flash_fwd"] != DEPTH * evals \
-            or launches["flash_dq"] or launches["flash_dkv"]:
-        fail("test's accuracy or launches disagree with the in-process "
-             "eval")
 
 
 # -- phase 9: profile of the train step -------------------------------------
@@ -1012,6 +1151,627 @@ def phase_train_profile() -> None:
             f"x{e.count // reps}" for e in top[:6]))
 
 
+
+# -- phase 10: K5 against its plain version ---------------------------------
+
+# The cnn's convs with K5 (Conv_1..Conv_3): (H, W, Ci, Co) at batch B.
+CNN_CONVS = ((28, 28, 32, 32), (14, 14, 32, 64), (14, 14, 64, 64))
+# K5 against its plain version, relative to the plain version's largest
+# value, in both dtypes: both sum the same f32 products of the same
+# inputs, in other orders.
+TOL_DW = 1e-5
+
+
+def dw_bound_ms(b: int, h: int, w: int, ci: int, co: int, dtype_name: str):
+    """Least time for K5: x and dy read once, the f32 dW written once, or
+    its 2 * B*H*W * 9*Ci*Co operations at the card's peak for the input
+    type, whichever is larger."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    nbytes = b * h * w * (ci + co) * item + 9 * ci * co * 4
+    ops = 2 * b * h * w * 9 * ci * co
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_conv_dw():
+    import torch
+    from torch.nn.grad import conv2d_weight
+
+    from distributedpytorch_tpu_torch.ops import conv
+
+    cases = [(b,) + shape + (dt,) for shape in CNN_CONVS for b in (1, 16, 64)
+             for dt in ("bfloat16", "float32")]
+    cases += [(3, 9, 7, 32, 48, dt) for dt in ("bfloat16", "float32")]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = {}
+    for (b, h, w, ci, co, dt) in cases:
+        dtype = getattr(torch, dt)
+        # channels_last NCHW activations and gradients, as the cnn holds
+        # them; K5 reads their NHWC views without a copy
+        x = torch.randn((b, ci, h, w), generator=gen, device="cuda").to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        dy = torch.randn((b, co, h, w), generator=gen, device="cuda").to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        xn, dyn = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+        before = conv.conv3x3_dw.launches
+        got = conv.conv3x3_dw(xn, dyn)
+        again = conv.conv3x3_dw(xn, dyn)
+        torch.cuda.synchronize()
+        if conv.conv3x3_dw.launches != before + 2:
+            fail(f"K5 wrapper did not count its launches at "
+                 f"{(b, h, w, ci, co)}")
+        if not torch.equal(got, again):
+            fail(f"K5 is not deterministic at {(b, h, w, ci, co)} {dt}")
+        err, rel = rel_err(got, conv.conv3x3_dw_plain(xn, dyn))
+        if not (math.isfinite(rel) and rel <= TOL_DW):
+            fail(f"K5 disagrees with its plain version at "
+                 f"{(b, h, w, ci, co)} {dt}: rel err {rel} (tol {TOL_DW})")
+        fns = {"kernel": lambda: conv.conv3x3_dw(xn, dyn),
+               "plain": lambda: conv.conv3x3_dw_plain(xn, dyn),
+               "cudnn": lambda: conv2d_weight(x, (co, ci, 3, 3), dy,
+                                              padding=1)}
+        call = {n: time_ms(f) for n, f in fns.items()}
+        dev = device_ms(fns)
+        b_ms, b_by = dw_bound_ms(b, h, w, ci, co, dt)
+        say(f"K5 {(b, h, w, ci, co)} {dt}: rel err {rel:.3g} (abs {err:.3g}; "
+            f"tol {TOL_DW:g}), deterministic; device_ms "
+            f"kernel={fmt_ms(dev['kernel'])} plain={fmt_ms(dev['plain'])} "
+            f"conv2d_weight={fmt_ms(dev['cudnn'])}; call_ms "
+            f"kernel={call['kernel']:.5f} plain={call['plain']:.5f} "
+            f"conv2d_weight={call['cudnn']:.5f}; bound_us="
+            f"{b_ms * 1e3:.3f} ({b_by}); splits "
+            f"{conv.split_plan(b * h * w, 9 * ci, co)}")
+        rows[(b, h, w, ci, co, dt)] = dict(
+            max_abs_err=err, rel_err=rel, ms=dev["kernel"],
+            plain_ms=dev["plain"], library_ms=dev["cudnn"], bound_ms=b_ms,
+            bound_by=b_by, call_ms=call["kernel"],
+            plain_call_ms=call["plain"], library_call_ms=call["cudnn"])
+    return rows
+
+
+def conv_dw_main_row(rows) -> dict:
+    """K5's entry of the kernels line: one train step's three launches at
+    batch 64 bf16, summed (times, bounds), the worst error, and the
+    shapes one by one."""
+    parts = [rows[(TRAIN_BATCH,) + shape + ("bfloat16",)]
+             for shape in CNN_CONVS]
+    for key in ("ms", "plain_ms", "library_ms"):
+        if any(p[key] is None for p in parts):
+            fail(f"torch.profiler returned no device events for K5's "
+                 f"{key} at the cnn's shapes")
+    total = {k: sum(p[k] for p in parts) for k in
+             ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
+              "plain_call_ms", "library_call_ms")}
+    return dict(max_abs_err=max(p["max_abs_err"] for p in parts),
+                rel_err=max(p["rel_err"] for p in parts),
+                bound_by="bytes" if all(p["bound_by"] == "bytes"
+                                        for p in parts) else "operations",
+                per_step_of=[list((TRAIN_BATCH,) + s) for s in CNN_CONVS],
+                per_shape_ms=[p["ms"] for p in parts], **total)
+
+
+# -- phase 11: cnn and resnet train steps on the card against the CPU -------
+
+# f32, card against CPU, each gradient relative to its largest value.  The
+# two devices' forwards differ in the last bits, and a ReLU or max-pool
+# decision at a value within that rounding of a tie flips between them:
+# one pixel's rank-1 term of a dW moves, against sums of as few as 16*7*7
+# = 784 terms in resnet18's last stage.  Measured on the card: 3e-3 (cnn,
+# batch 64) and 4.4e-2 (resnet18, batch 16), the same with and without
+# K5.  So f32 is held to these, and two tight checks carry the weight:
+# the same step in f64 on an identity affine (inputs bit-identical on both
+# devices, so no decision can flip), and on the card the cnn's K5 step
+# against its stock-dW step (the same forward, bit for bit).
+TOL_STEP_F32 = {"cnn": 1e-2, "resnet": 1e-1}
+# f64 graph: the loss head still runs in f32 (the logits are f32), where
+# the two devices' softmax differs by an ulp: 2.2e-6 seen on head.weight
+TOL_STEP_F64 = 1e-5
+TOL_K5_STEP = 1e-5      # K5 against cuDNN's wgrad under one forward
+TOL_STATS = 1e-4        # BatchNorm running statistics, f32 and f64
+PARITY_BATCH = {"cnn": TRAIN_BATCH, "resnet": 16}
+
+
+def identity_affine(b: int, device):
+    """No rotation, the whole 28x28 image as the crop: the warp's weights
+    are multiples of 1/16, so with an f64 output the augmented input is
+    the same on both devices."""
+    import torch
+
+    zeros = torch.zeros(b, device=device)
+    return (zeros, zeros, zeros, zeros + 28.0, zeros + 28.0)
+
+
+def f64_policy():
+    import torch
+
+    from distributedpytorch_tpu_torch.precision import PrecisionPolicy
+
+    return PrecisionPolicy(name="f64", param_dtype=torch.float32,
+                           compute_dtype=torch.float64,
+                           accum_dtype=torch.float64)
+
+
+def one_step(name: str, device: str, policy, k5: bool, affine_u) -> tuple:
+    """One train step of the registry's ``name`` from SEED's weights on
+    the first PARITY_BATCH rows of the synthetic train split: (loss,
+    {param: grad}, {buffer: value}, K5 launches).  ``affine_u`` is a
+    (B, 5) uniform draw, or None for the identity affine."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops import conv
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    batch = PARITY_BATCH[name]
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    images = ds.splits["train"].images[:batch]
+    labels = ds.splits["train"].labels[:batch].astype(np.int64)
+    model = get_model(name, ds.nb_classes, policy, device=device,
+                      pallas_dw=k5)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                    get_model_input_size(name), policy, device)
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    affine = (identity_affine(batch, device) if affine_u is None
+              else augment.affine_from_uniform(
+                  torch.from_numpy(affine_u).to(device), 28, 28))
+    before = conv.conv3x3_dw.launches
+    _, m = engine.train_step_affine(
+        state, torch.from_numpy(images).to(device),
+        torch.from_numpy(labels).to(device),
+        torch.ones(batch, dtype=torch.bool, device=device), affine)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (m["loss"].item(),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()},
+            conv.conv3x3_dw.launches - before)
+
+
+def worst(a: dict, b: dict) -> tuple:
+    """(name, relative error) of the tensor of ``a`` furthest from ``b``'s,
+    relative to ``b``'s largest value; ("none", 0.0) for no tensors."""
+    return max(((n, rel_err(a[n], t)[1]) for n, t in b.items()),
+               key=lambda t: t[1], default=("none", 0.0))
+
+
+def phase_cnn_step_parity() -> None:
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    for name in ("cnn", "resnet"):
+        k5 = name == "cnn"
+        u = np.random.default_rng(SEED).random((PARITY_BATCH[name], 5),
+                                               dtype=np.float32)
+        checks = []
+        for label, policy, draws, tol in (
+                ("f32", PRESETS["f32"], u, TOL_STEP_F32[name]),
+                ("f64", f64_policy(), None, TOL_STEP_F64)):
+            card = one_step(name, "cuda", policy, k5 and label == "f32",
+                            draws)
+            cpu = one_step(name, "cpu", policy, k5 and label == "f32",
+                           draws)
+            g, st = worst(card[1], cpu[1]), worst(card[2], cpu[2])
+            checks.append((label, g, st, tol, card, cpu))
+        if k5:
+            stock = one_step(name, "cuda", PRESETS["f32"], False, u)
+            g = worst(checks[0][4][1], stock[1])
+            say(f"step: cnn f32 on the card, K5 vs cuDNN's wgrad under the "
+                f"same forward: worst gradient {g[0]} rel err {g[1]:.3g} "
+                f"(tol {TOL_K5_STEP:g}); K5 launches "
+                f"{checks[0][4][3]} and {stock[3]}")
+            if not g[1] <= TOL_K5_STEP or checks[0][4][3] != 3 \
+                    or stock[3] != 0:
+                fail(f"the cnn step with K5 disagrees with the stock dW on "
+                     f"the card ({g}) or launched K5 "
+                     f"{checks[0][4][3]} times (want 3)")
+        for label, g, st, tol, card, cpu in checks:
+            say(f"step: {name} {label} train step (batch "
+                f"{PARITY_BATCH[name]}"
+                f"{', identity affine' if label == 'f64' else ''}), card vs "
+                f"CPU: loss {card[0]:.9f} vs {cpu[0]:.9f}; worst gradient "
+                f"{g[0]}: rel err {g[1]:.3g} (tol {tol:g}) over "
+                f"{len(cpu[1])} parameters; worst BN statistic {st[0]}: rel "
+                f"err {st[1]:.3g} (tol {TOL_STATS:g}) over {len(cpu[2])} "
+                f"buffers")
+            if not (math.isfinite(g[1]) and g[1] <= tol
+                    and st[1] <= TOL_STATS
+                    and abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])):
+                fail(f"the {name} {label} train step on the card disagrees "
+                     f"with the CPU's: {g}, {st}")
+        if name == "resnet" and not checks[0][5][2]:
+            fail("the resnet step has no BatchNorm statistics to compare")
+    check_pool_ties()
+
+
+def check_pool_ties() -> None:
+    """The max pools' routing on the card equals the CPU's (which
+    tests/test_torch_cnn.py pins to the JAX op), ties included: the 2x2/2
+    pool of the cnn and the 3x3/2 (-inf padded) pool of the resnet, on
+    channels_last inputs, bf16 and f32.  The argmax indices must be equal
+    and the input gradients equal, except that the 3x3/2 pool's
+    overlapping windows sum their gradients at another precision in bf16
+    (one bf16 rounding, 1e-2 of the largest value)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED)
+    x = np.maximum(rng.standard_normal((4, 8, 12, 12)), 0.0)
+    x[:, :, ::3, :] = 1.0                # rows of equal values
+    g = rng.standard_normal((4, 8, 6, 6))
+    for dt in ("bfloat16", "float32"):
+        for k, pad in ((2, 0), (3, 1)):
+            got = []
+            for device in ("cuda", "cpu"):
+                t = torch.from_numpy(x).to(device, getattr(torch, dt)) \
+                    .contiguous(memory_format=torch.channels_last) \
+                    .requires_grad_()
+                y, idx = F.max_pool2d_with_indices(t, k, 2, pad)
+                y.backward(torch.from_numpy(g).to(device, y.dtype))
+                got.append((y.detach().cpu(), idx.cpu(), t.grad.cpu()))
+            (y0, i0, g0), (y1, i1, g1) = got
+            tol = 1e-2 if (k, dt) == (3, "bfloat16") else 0.0
+            ok = torch.equal(y0, y1) and torch.equal(i0, i1) \
+                and rel_err(g0, g1)[1] <= tol \
+                and torch.equal(g0 != 0, g1 != 0)
+            if not ok:
+                fail(f"the {k}x{k}/2 max pool differs on the card in {dt}: "
+                     f"indices equal {torch.equal(i0, i1)}, gradient rel "
+                     f"err {rel_err(g0, g1)[1]}")
+    say(f"step: max pools 2x2/2 and 3x3/2 on the card route as the CPU's "
+        f"(indices and gradient support equal; {int((x == 0).sum())} zeros "
+        f"and rows of equal ones in the input)")
+
+
+# -- phase 12: the cnn path with K5 (the slice's kernel main path) ----------
+
+# Validation accuracy of the K5 epoch against the stock conv's epoch from
+# the same seed: within 2.0 percentage points (the spread used; the stock
+# path's seed-to-seed difference is printed beside it).
+ACC_SPREAD = 2.0
+
+
+def cnn_epoch(pallas_dw: bool, seed: int) -> dict:
+    """One epoch of Engine-driven cnn training (844 steps of 64, bf16),
+    as bench.py drives the JAX one, then validation.  K5's count is set
+    to 0 just before and read just after."""
+    import torch
+
+    from distributedpytorch_tpu_torch import utils
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops import conv
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), seed,
+                      synthetic_fallback=True)
+    policy = PRESETS["bf16"]
+    train = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, seed,
+                           "cuda")
+    valid = ResidentLoader(ds.splits["valid"], TRAIN_BATCH, False, seed,
+                           "cuda")
+    model = get_model("cnn", ds.nb_classes, policy, device="cuda",
+                      pallas_dw=pallas_dw)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                    "cuda", steps_per_epoch=len(train))
+    state = engine.init_state(torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    conv.conv3x3_dw.launches = 0
+    t0 = time.perf_counter()
+    hist = []
+    for i, (images, labels, v) in enumerate(train.epoch(0)):
+        gen = utils.step_generator(seed, 0, i, "cuda")
+        _, m = engine.train_step(state, images, labels, v, gen)
+        hist.append(m["loss"])
+    losses = torch.stack(hist).cpu().numpy()
+    wall = time.perf_counter() - t0
+    correct = n = 0.0
+    for images, labels, v in valid.epoch(0):
+        m = engine.eval_step(state, images, labels, v)
+        correct += m["correct"].item()
+        n += m["valid"].item()
+    launches = conv.conv3x3_dw.launches
+    k = max(1, len(losses) // 10)
+    return dict(steps=len(losses), launches=launches, wall=wall,
+                acc=100.0 * correct / n, first=float(losses[:k].mean()),
+                last=float(losses[-k:].mean()))
+
+
+def phase_cnn_epoch() -> int:
+    runs = {("k5", SEED): cnn_epoch(True, SEED),
+            ("stock", SEED): cnn_epoch(False, SEED),
+            ("stock", SEED + 1): cnn_epoch(False, SEED + 1)}
+    for (path, seed), r in runs.items():
+        say(f"cnn: epoch, {path} dW, seed {seed}: {r['steps']} steps in "
+            f"{r['wall']:.2f}s ({r['steps'] / r['wall']:.1f} steps/s, "
+            f"{r['steps'] * TRAIN_BATCH / r['wall']:,.0f} samples/s), "
+            f"validation acc {r['acc']:.2f}% (chance 10%), mean train loss "
+            f"first 10% {r['first']:.5f} last 10% {r['last']:.5f}, K5 "
+            f"launches {r['launches']}")
+    k5, stock = runs[("k5", SEED)], runs[("stock", SEED)]
+    seed_diff = abs(stock["acc"] - runs[("stock", SEED + 1)]["acc"])
+    say(f"cnn: K5 vs stock dW accuracy {k5['acc']:.2f}% vs "
+        f"{stock['acc']:.2f}% (spread used {ACC_SPREAD} points; the stock "
+        f"path's seed-to-seed difference {seed_diff:.2f} points)")
+    if k5["launches"] != 3 * k5["steps"] or k5["steps"] != math.ceil(
+            54000 / TRAIN_BATCH):
+        fail(f"K5 launches {k5['launches']} over {k5['steps']} steps: "
+             f"expected 3 per step")
+    if stock["launches"]:
+        fail("the stock cnn launched K5")
+    if k5["acc"] < 20.0 or not k5["last"] < k5["first"]:
+        fail(f"the cnn with K5 did not learn: acc {k5['acc']}%, loss "
+             f"{k5['first']} -> {k5['last']}")
+    if abs(k5["acc"] - stock["acc"]) > ACC_SPREAD:
+        fail(f"the cnn with K5 reaches {k5['acc']}% against the stock "
+             f"conv's {stock['acc']}%")
+    return k5["launches"]
+
+
+# -- phase 13: the reference's job under torchrun ---------------------------
+
+def eval_accuracy(ckpt_path: str, name: str, data: str = "") -> tuple:
+    """In-process eval of a checkpoint on the test split of ``data``
+    (WORK/data by default), batch 64 bf16: (accuracy to 2 decimals as
+    `test` logs it, correct, rows)."""
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine, TrainState
+
+    ds = load_dataset("mnist", data or os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    policy = PRESETS["bf16"]
+    model = get_model(name, ds.nb_classes, policy,
+                      attention="flash" if name == "vit" else "full",
+                      device="cuda")
+    ckpt.restore_for_serving(ckpt_path, model)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                    get_model_input_size(name), policy, "cuda")
+    loader = ResidentLoader(ds.splits["test"], TRAIN_BATCH, False, SEED,
+                            "cuda")
+    correct = n = 0.0
+    for images, labels, valid in loader.epoch(0):
+        m = engine.eval_step(TrainState(model, None), images, labels, valid)
+        correct += m["correct"].item()
+        n += m["valid"].item()
+    return f"{correct / n * 100:.2f}", int(correct), int(n)
+
+
+def phase_reference_job() -> None:
+    rsl = os.path.join(WORK, "resnet_rsl")
+    wall, log = run_cli(["train", "-e", "1"], rsl, launcher=TORCHRUN)
+    if "process: 0/1, world size: 1, backend: nccl" not in log:
+        fail("the torchrun launch did not join an NCCL process group")
+    launches, steps, evals = parse_launches(log, "train")
+    valid_acc = float(re.search(r"Validation  \| Loss: [\d.]+ +\| Acc: "
+                                r"([\d.]+)%", log).group(1))
+    train_loss = float(re.search(r"Train       \| Loss: ([\d.]+)",
+                                 log).group(1))
+    sps = float(re.search(r"Throughput  \| ([\d,]+) samples/s/chip",
+                          log).group(1).replace(",", ""))
+    say(f"resnet: `torchrun train` (default model, 224, NCCL): {steps} "
+        f"steps and {evals} eval batches in {wall:.1f}s of process wall; "
+        f"train pass {sps:,.0f} samples/s/chip ({sps / TRAIN_BATCH:.1f} "
+        f"steps/s); mean train loss {train_loss:.5f}, validation acc "
+        f"{valid_acc:.2f}%; launches {launches}")
+    if steps != math.ceil(54000 / TRAIN_BATCH) or any(launches.values()):
+        fail(f"resnet train ran {steps} steps with launches {launches}")
+    best = os.path.join(rsl, "bestmodel-mnist-resnet.ckpt")
+    # `test` and the two short trainings run at once: none is timed here,
+    # and each spends most of its wall starting up on the host.
+    (_, tlog), *debug = finish_all(
+        [start_cli(["test", "-f", best], os.path.join(WORK, "resnet_test"),
+                   launcher=TORCHRUN)]
+        + [start_cli(["train", "--model", name, "--debug", "-e", "1"],
+                     os.path.join(WORK, f"{name}_debug"))
+           for name in ("mlp", "cnn")])
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", tlog).group(1)
+    acc_here, correct, n = eval_accuracy(best, "resnet")
+    say(f"resnet: `torchrun test -f` accuracy {acc_cli}%; in-process eval "
+        f"{acc_here}% ({correct}/{n})")
+    if acc_cli != acc_here:
+        fail("resnet test's accuracy disagrees with the in-process eval")
+    for name, (wall, log) in zip(("mlp", "cnn"), debug):
+        acc = re.search(r"Validation  \| Loss: [\d.]+ +\| Acc: ([\d.]+)%",
+                        log).group(1)
+        say(f"{name}: `train --debug -e 1` finished in {wall:.1f}s (run "
+            f"beside the other two), validation acc {acc}%")
+
+
+# -- phase 14: two ranks on the one card -------------------------------------
+
+# Two ranks (gloo over CUDA tensors) against one rank fed the same global
+# batch and draws, TF32 off, each tensor relative to its largest value.
+# f32: the sums run in other orders (per rank then across ranks, cuDNN at
+# half the batch per call), 1e-4 for the cnn; the resnet's ReLU decisions
+# after BatchNorm flip at f32 rounding as in phase 11 (5.7e-3 seen), so
+# it is held to 5e-2 in f32 and, on an identity affine in f64, to 1e-6
+# (the gradients are still cast to the f32 parameters per rank).
+TOL_DDP = {("cnn", "f32"): 1e-4, ("resnet_shallow", "f32"): 5e-2,
+           ("resnet_shallow", "f64"): 1e-6}
+DDP_CASES = tuple(TOL_DDP)
+DDP_GLOBAL_BATCH = 16
+# one rank of a world: three SGD steps, shared with tests/test_torch_ddp.py
+DDP_CHILD = os.path.join(ROOT, "tests", "_torch_ddp_child.py")
+
+
+def run_worlds(worlds: list) -> dict:
+    """Starts every (model, precision, world size) of ``worlds`` at once:
+    each rank is a ``tests/_torch_ddp_child.py`` process on the card, each
+    world on its own rendezvous port.  Returns each world's per-rank
+    results once all ranks have exited."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT", "LOCAL_WORLD_SIZE")}
+    procs, outs, ports = [], {}, set()
+    try:
+        for name, label, world in worlds:
+            port = free_port()
+            while port in ports:
+                port = free_port()
+            ports.add(port)
+            for rank in range(world):
+                extra = {} if world == 1 else dict(
+                    WORLD_SIZE=str(world), RANK=str(rank),
+                    LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                out = os.path.join(
+                    WORK, f"ddp-{name}-{label}-w{world}-r{rank}.pt")
+                log = out[:-3] + ".log"
+                with open(log, "w") as f:
+                    procs.append((name, world, log, subprocess.Popen(
+                        [sys.executable, DDP_CHILD, name, out, "--device",
+                         "cuda", "--global-batch", str(DDP_GLOBAL_BATCH),
+                         "--precision", label], cwd=ROOT,
+                        env={**env, **extra}, stdout=f,
+                        stderr=subprocess.STDOUT)))
+                outs.setdefault((name, label, world), []).append(out)
+        deadline = time.monotonic() + 300
+        for name, world, log, proc in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                with open(log) as f:
+                    fail(f"ddp child ({name}, world {world}) exited with "
+                         f"{rc}:\n{f.read()[-3000:]}")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    import torch
+
+    return {key: [torch.load(o, weights_only=True) for o in paths]
+            for key, paths in outs.items()}
+
+
+def phase_ddp_one_card() -> None:
+    import torch
+
+    worlds = run_worlds([(name, label, world) for name, label in DDP_CASES
+                         for world in (1, 2)])
+    for name, label in DDP_CASES:
+        one = worlds[(name, label, 1)][0]
+        two = worlds[(name, label, 2)]
+        if [r["backend"] for r in two] != ["gloo", "gloo"] \
+                or one["backend"] is not None:
+            fail(f"backends {[r['backend'] for r in two]}: two ranks on one "
+                 f"card must run gloo, one rank no process group")
+        a = two[0]
+        same = all(torch.equal(v, a["state"][k])
+                   for k, v in two[1]["state"].items())
+        if not same or two[1]["metrics"] != a["metrics"]:
+            fail(f"the two ranks of {name} disagree in {label}")
+        w = worst(a["state"], one["state"])
+        loss_err = max(abs(x[0] - y[0]) for x, y in
+                       zip(a["metrics"], one["metrics"]))
+        counts_equal = [x[1:] for x in a["metrics"]] == \
+            [y[1:] for y in one["metrics"]]
+        k5 = [r["k5"] for r in two] + [one["k5"]]
+        n_stats = sum("running" in k for k in one["state"])
+        tol = TOL_DDP[(name, label)]
+        say(f"ddp: {name}, 2 ranks on one card (gloo) vs 1 rank, 3 {label} "
+            f"steps on a global batch of {DDP_GLOBAL_BATCH}: worst tensor "
+            f"{w[0]} rel err {w[1]:.3g} (tol {tol:g}) over "
+            f"{len(one['state'])} tensors ({n_stats} BN statistics); loss "
+            f"err {loss_err:.3g}; correct/valid counts equal: "
+            f"{counts_equal}; K5 launches per rank {k5}")
+        want_k5 = 9 if name == "cnn" else 0
+        if not (math.isfinite(w[1]) and w[1] <= tol) \
+                or loss_err > 1e-5 or not counts_equal \
+                or k5 != [want_k5] * 3:
+            fail(f"the 2-rank {name} world does not equal 1 rank in "
+                 f"{label}")
+
+
+# -- phase 15: profiles of the cnn and resnet train steps -------------------
+
+def phase_cnn_profile() -> None:
+    """One cnn (K5) and one resnet train step at batch 64 bf16: wall ms
+    per step (host clock, synchronized, profiler off), then from a second
+    run under torch.profiler the device time, kernels per step, the idle
+    share, and K5's share of device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch import utils
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    loader = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, SEED,
+                            "cuda")
+    reps = 20
+    batches = list(itertools.islice(loader.epoch(0), 5 + 2 * reps))
+    for name in ("cnn", "resnet"):
+        policy = PRESETS["bf16"]
+        model = get_model(name, ds.nb_classes, policy, device="cuda",
+                          pallas_dw=name == "cnn")
+        engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                        get_model_input_size(name), policy, "cuda")
+        state = engine.init_state(torch.Generator().manual_seed(SEED))
+
+        def step(i):
+            gen = utils.step_generator(SEED, 0, i, "cuda")
+            engine.train_step(state, *batches[i], gen)
+
+        for i in range(5):
+            step(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            step(5 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                step(5 + reps + i)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        n_kern = sum(e.count for e in kernels) / reps
+        if dev_ms <= 0:
+            say(f"profile: {name} train step: wall {wall_ms:.3f} ms/step; "
+                f"device time not measured (no device events)")
+            continue
+        k5_us = sum(e.self_device_time_total for e in kernels
+                    if "conv_dw" in e.key) / reps
+        say(f"profile: {name} train step, batch {TRAIN_BATCH} bf16: wall "
+            f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms in "
+            f"{n_kern:.0f} kernels (idle {100 * (1 - dev_ms / wall_ms):.1f}"
+            f"%); K5 {k5_us:.2f} us/step "
+            f"({100 * k5_us / 1e3 / dev_ms:.1f}% of device time)")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        say("profile:   top: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / reps:.1f}us"
+            f"x{e.count // reps}" for e in top[:6]))
+
+
 def main() -> int:
     try:
         import torch
@@ -1027,34 +1787,47 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_environment()
-    rows = phase_kernel()
-    main_row = rows[(64, 49, 4, 32, "bfloat16", False)]
-    bwd_rows = phase_bwd_kernels()
+
+    def run(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        say(f"chip_smoke: {fn.__name__} took {time.perf_counter() - t:.1f}s")
+        return out
+
+    card = run(phase_environment)
+    rows = run(phase_kernel)
+    main_row = rows[MAIN_ATTN]
+    bwd_rows = run(phase_bwd_kernels)
     main_rows = {"flash_fwd": main_row}
     for name in ("flash_dq", "flash_dkv"):
-        main_rows[name] = bwd_rows[(name, 64, 49, 4, 32, "bfloat16", False)]
+        main_rows[name] = bwd_rows[(name,) + MAIN_ATTN]
     for name, row in main_rows.items():
         missing = [k for k in ("ms", "plain_ms", "library_ms")
                    if row[k] is None]
         if missing:
             fail(f"torch.profiler returned no device events for {missing} "
                  f"of {name} at the main path's shape (64, 49, 4, 32) bf16")
-    serve_launches = phase_main_path("cuda")
-    phase_profile(os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt"))
-    phase_train_step_parity()
-    launches, best = phase_train()
-    for name, n in launches.items():
-        if n <= 0:
+    serve_launches = run(phase_main_path, "cuda")
+    run(phase_profile, os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt"))
+    run(phase_train_step_parity)
+    launches, best = run(phase_train)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the train path")
-    phase_resume()
-    phase_test(best)
-    phase_train_profile()
+    run(phase_resume_and_test, best)
+    run(phase_train_profile)
+    main_rows["conv_dw"] = conv_dw_main_row(run(phase_conv_dw))
+    run(phase_cnn_step_parity)
+    launches["conv_dw"] = run(phase_cnn_epoch)
+    run(phase_reference_job)
+    run(phase_ddp_one_card)
+    run(phase_cnn_profile)
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **main_rows[name]} for name, source, replaces in KERNELS]
     kernels[0]["serve_launches"] = serve_launches
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
+    say(card)               # name, power limit: beside the numbers above
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

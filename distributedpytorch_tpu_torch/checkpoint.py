@@ -17,12 +17,16 @@ sha256 recorded in ``ckpt-lineage.json`` beside it.  Format version 2:
 ``state`` is ``{"params": model.state_dict(), "opt_state":
 optimizer.state_dict() (on the CPU, or None), "step": int}``.  Version-1
 files hold ``{"params"}`` only; ``serve`` and ``test`` still read them.
-A file that is not a zip archive is read as the JAX package's msgpack
-checkpoint: flax's ndarray extension type is decoded with the plain
-``msgpack`` package and the params are converted by ``models/convert.py``;
-``test`` and ``serve`` read it, resuming ``train`` from it is not ported
-yet (it would need optax -> torch optimizer state).  Orbax checkpoint
-directories are not ported yet.
+BatchNorm's running statistics are buffers of the model and travel in
+``params`` (``model.state_dict()``).  A file that is not a zip archive is
+read as the JAX package's msgpack checkpoint of a vit, cnn, mlp or resnet:
+flax's ndarray extension type is decoded with the plain ``msgpack``
+package and the params, with the ``batch_stats``, are converted by
+``models/convert.py``; ``test`` and ``serve`` read it, resuming ``train``
+from it is not ported yet (it would need optax -> torch optimizer state).
+Orbax checkpoint directories are not ported yet.  In a world of several
+ranks, rank 0 writes (the caller gates on ``runtime.is_main()``) and every
+rank reads.
 """
 
 from __future__ import annotations
@@ -41,11 +45,12 @@ import torch
 from torch import nn
 
 from . import faults, telemetry
-from .models.convert import params_from_jax
+from .models.convert import cnn_params_from_jax, params_from_jax
 
 FORMAT_VERSION = 2
 _READABLE_VERSIONS = (1, 2)     # the port's own files
 _JAX_FORMAT_VERSION = 1
+_JAX_MODELS = ("vit", "cnn", "mlp", "resnet")     # the ported ones
 _NOT_RESUMABLE_JAX = ("not ported yet: resuming a JAX-written checkpoint "
                       "(test and serve read it)")
 _LINEAGE = "ckpt-lineage.json"
@@ -303,13 +308,19 @@ def _decode_jax(path: str, blob: bytes) -> dict:
             payload.get("state"), dict):
         raise ValueError(f"{path}: not a checkpoint of this framework")
     name = payload.get("model_name")
-    if name != "vit":
+    if name not in _JAX_MODELS:
         raise ValueError(f"not ported yet: --model {name} ({path} holds a "
                          f"{name} checkpoint)")
     if payload.get("format_version") != _JAX_FORMAT_VERSION:
         raise ValueError(f"{path}: unsupported checkpoint format "
                          f"{payload.get('format_version')!r}")
-    payload["state"] = {"params": params_from_jax(payload["state"]["params"])}
+    state = payload["state"]
+    if name == "vit":
+        params = params_from_jax(state["params"])
+    else:
+        params = cnn_params_from_jax(state["params"],
+                                     state.get("batch_stats") or {})
+    payload["state"] = {"params": params}
     return payload
 
 

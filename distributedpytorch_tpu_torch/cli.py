@@ -1,32 +1,36 @@
 """The port's entry point: ``python -m distributedpytorch_tpu_torch
 {train,test,serve}``.
 
-Counterpart of ``distributedpytorch_tpu/cli.py`` reduced to one process
-and one world:
+Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
 
   * ``run_train`` follows ``run_train``/``_train_world``/
     ``_run_train_epochs`` (:601-1016, :1208-1335) with ``_run_train_pass``,
     ``_run_eval_pass`` and ``_progress_logs`` (:335-476): no elastic
     world, fault plans, flight recorder, goodput ledger, exporter, roofline
-    or chunked epochs.  The data is device-resident; a step gathers its
-    batch on the device and draws its augmentation from a generator seeded
-    from (seed, epoch, step), and per-step metrics stay on the device until
-    one read per epoch.  The rolling checkpoint is written every epoch and
-    the best model on improvement, with the best loss updated before the
-    save.  cuDNN is set deterministic, so a resumed run reproduces an
+    or chunked epochs.  Under ``torchrun`` (or any env:// launch) every
+    process is one data-parallel rank (``runtime.py``); a plain launch is
+    a world of one.  The data is device-resident; a step gathers its
+    rank's rows on the device and draws the global batch's augmentation
+    from a generator seeded from (seed, epoch, step), and per-step metrics
+    (global sums) stay on the device until one read per epoch.  Rank 0
+    writes ``test.log`` and the checkpoints: the rolling one every epoch
+    and the best model on improvement, with the best loss updated before
+    the save.  cuDNN is set deterministic, so a resumed run reproduces an
     uninterrupted one bit for bit.
-  * ``run_test`` follows ``run_test`` (:1338-1415) and reads the port's
-    checkpoints and the JAX package's msgpack files.
+  * ``run_test`` follows ``run_test`` (:1338-1415): every rank evaluates
+    its shard of the test split and the sums are all-reduced.  It reads
+    the port's checkpoints and the JAX package's msgpack files.
   * ``run_serve`` follows ``_serve_warmup``, ``_serve_build_replica`` and
     ``run_serve`` (:1418-1705) reduced to one replica: no elastic world,
     metrics exporter, flight recorder, goodput ledger or hot-swap
     (``/admin/reload`` answers 501).
 
-The reference's log lines are kept word for word in RSL_PATH/test.log.
-``train`` and ``test`` log the launches of kernels K1 (flash_fwd), K2
-(flash_dq) and K3 (flash_dkv); ``serve`` logs K1's.  The device is
-``cuda`` unless ``--device cpu`` is given; without a GPU the run stops
-with one line instead of running on the CPU.
+The reference's log lines are kept word for word in RSL_PATH/test.log
+(the ``process:`` line adds the backend of a process group).  ``train``
+and ``test`` log the launches of kernels K1 (flash_fwd), K2 (flash_dq),
+K3 (flash_dkv) and K5 (conv_dw) on rank 0; ``serve`` logs K1's.  The
+device is ``cuda`` unless ``--device cpu`` is given; without a GPU the run
+stops with one line instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -41,18 +45,19 @@ import torch
 
 from . import checkpoint as ckpt
 from . import runtime, telemetry, tracing, utils
-from .config import NUM_WORKERS, RESIDENT_MAX_BYTES, Config, \
-    check_ported, config_from_argv
+from .config import NUM_WORKERS, RESIDENT_MAX_BYTES, SERVE_MODELS, \
+    Config, check_ported, config_from_argv
 from .data.datasets import Dataset, Split, load_dataset
 from .data.pipeline import ResidentLoader
 from .models import get_model, get_model_input_size
+from .ops.conv import conv3x3_dw
 from .ops.flash_attention import (flash_attention_dkv, flash_attention_dq,
                                   flash_attention_fwd)
 from .ops.losses import get_loss_fn
 from .train.engine import Engine, Predictor, TrainState
 
 KERNELS = {"flash_fwd": flash_attention_fwd, "flash_dq": flash_attention_dq,
-           "flash_dkv": flash_attention_dkv}
+           "flash_dkv": flash_attention_dkv, "conv_dw": conv3x3_dw}
 
 
 def kernel_launches() -> dict:
@@ -92,40 +97,52 @@ def _make_loader(cfg: Config, split: Split, shuffle: bool,
                          f"{split.images.nbytes} bytes exceed the resident "
                          f"cap of {RESIDENT_MAX_BYTES})")
     return ResidentLoader(split, cfg.batch_size, shuffle=shuffle,
-                          seed=cfg.seed, device=device)
+                          seed=cfg.seed, device=device,
+                          world=runtime.world_size(),
+                          rank=runtime.process_index())
 
 
 def _start(cfg: Config, action: str) -> tuple:
-    """Common start of train and test: refusals, device, logging,
-    telemetry, the run_start event.  Returns (device, telemetry)."""
+    """Common start of train and test: refusals, device, the process
+    world, logging (rank 0 writes RSL_PATH/test.log; the other ranks log
+    warnings only), telemetry, the run_start event.  Returns (device,
+    telemetry)."""
     check_ported(cfg)
     if cfg.batch_size < 1:
         raise ValueError(f"batch size must be >= 1, got {cfg.batch_size}")
-    rank = runtime.process_index()
     device = runtime.resolve_device(cfg.device)
-    utils.initialize_logging(cfg.rsl_path, cfg.log_file, truncate=True)
+    backend = runtime.initialize_distributed(device)
+    rank, world = runtime.process_index(), runtime.world_size()
+    if runtime.is_main():
+        utils.initialize_logging(cfg.rsl_path, cfg.log_file, truncate=True)
+    else:
+        utils.quiet_logging()
     tel = telemetry.configure(cfg.rsl_path, cfg.telemetry, rank=rank)
     tel.event("run_start", action=action, model=cfg.model_name,
-              dataset=cfg.dataset, world=1, processes=1,
-              batch_per_replica=cfg.batch_size, device=str(device))
-    logging.info("process: 0/1, world size: 1")
+              dataset=cfg.dataset, world=world,
+              processes=runtime.process_count(),
+              batch_per_replica=cfg.batch_size, device=str(device),
+              backend=backend)
+    logging.info(f"process: {rank}/{runtime.process_count()}, world size: "
+                 f"{world}" + (f", backend: {backend}" if backend else ""))
     return device, tel
 
 
 def _run_eval_pass(engine: Engine, state: TrainState,
                    loader: ResidentLoader, epoch: int
                    ) -> tuple[float, float]:
-    """One no-grad pass; returns (loss, accuracy) over the valid rows,
-    read from the device once."""
+    """One no-grad pass over this rank's shard; returns (loss, accuracy)
+    over the valid rows of every rank (one all-reduce), read from the
+    device once."""
     with telemetry.get().span("eval_pass", epoch=epoch, steps=len(loader)):
         totals = None
         for images, labels, valid in loader.epoch(epoch):
             m = engine.eval_step(state, images, labels, valid)
             totals = m if totals is None else {k: totals[k] + m[k]
                                                for k in totals}
-        numer, denom, correct, n_valid = torch.stack(
+        numer, denom, correct, n_valid = runtime.all_reduce_sum(torch.stack(
             [totals[k] for k in ("loss_numer", "loss_denom", "correct",
-                                 "valid")]).cpu().tolist()
+                                 "valid")])).cpu().tolist()
     return numer / max(denom, 1e-9), correct / max(n_valid, 1.0)
 
 
@@ -149,11 +166,13 @@ def _run_train_pass(engine: Engine, state: TrainState,
     read once at the end, which also feeds the every-10% log lines."""
     nb_iters = len(loader)
     hist = []
+    main = runtime.is_main()
     for i, (images, labels, valid) in enumerate(loader.epoch(epoch)):
         gen = utils.step_generator(seed, epoch, i, loader.device)
         state, m = engine.train_step(state, images, labels, valid, gen)
         hist.append(torch.stack([m["loss"], m["correct"], m["valid"]]))
-        print(f"\r{epoch:03d} {i / nb_iters * 100:.0f}%", end="\r")
+        if main:
+            print(f"\r{epoch:03d} {i / nb_iters * 100:.0f}%", end="\r")
     metrics = torch.stack(hist).cpu().numpy()      # ONE read per epoch
     losses = metrics[:, 0]
     _progress_logs(epoch, losses)
@@ -166,10 +185,11 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                       valid_loader: ResidentLoader, model_name: str,
                       start_epoch: int, best_valid_loss: float,
                       start_time: float, shutdown) -> dict:
-    """The per-epoch loop (ref classif.py:151-192)."""
+    """The per-epoch loop (ref classif.py:151-192); rank 0 writes the
+    checkpoints."""
     history = []
     tel = telemetry.get()
-    world = 1
+    world = runtime.world_size()
     for epoch in range(start_epoch, cfg.nb_epochs):
         logging.info(f"====================== epoch{epoch + 1:4d} "
                      f"======================")
@@ -205,23 +225,25 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
         logging.info(f"  Throughput  | {sps_chip:,.0f} "
                      f"samples/s/chip "
                      f"({world} chip{'s' if world > 1 else ''})")
-        ckpt.rotate_checkpoint(cfg.rsl_path, cfg.dataset, model_name, epoch,
-                               keep=cfg.keep_ckpts)
-        paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset, model_name,
-                                      epoch)]
-        if improved:
-            paths.append(ckpt.best_model_path(cfg.rsl_path, cfg.dataset,
-                                              model_name))
-        for path in paths:
-            ckpt.save_checkpoint(path, model_name, state.model, epoch,
-                                 best_valid_loss, state.optimizer,
-                                 state.step)
+        if runtime.is_main():
+            ckpt.rotate_checkpoint(cfg.rsl_path, cfg.dataset, model_name,
+                                   epoch, keep=cfg.keep_ckpts)
+            paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
+                                          model_name, epoch)]
+            if improved:
+                paths.append(ckpt.best_model_path(cfg.rsl_path, cfg.dataset,
+                                                  model_name))
+            for path in paths:
+                ckpt.save_checkpoint(path, model_name, state.model, epoch,
+                                     best_valid_loss, state.optimizer,
+                                     state.step)
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "train_acc": train_acc, "valid_loss": valid_loss,
                         "valid_acc": valid_acc,
                         "train_s": train_end - epoch_start})
         tel.flush()
-        if shutdown.requested:
+        # every rank stops after the same epoch
+        if runtime.any_process(shutdown.requested):
             tel.event("preempt", after_epoch=epoch)
             logging.info(f"preempted after epoch {epoch + 1}: "
                          f"checkpoint written, resume with -f")
@@ -239,7 +261,8 @@ def run_train(cfg: Config) -> dict:
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
         logging.info(f"batch size: {cfg.batch_size}/replica "
-                     f"({cfg.batch_size} global), prefetch: {NUM_WORKERS}")
+                     f"({cfg.batch_size * runtime.world_size()} global), "
+                     f"prefetch: {NUM_WORKERS}")
         model_name = cfg.model_name
         if cfg.checkpoint_file:
             try:
@@ -278,6 +301,7 @@ def run_train(cfg: Config) -> dict:
             result = _run_train_epochs(cfg, engine, state, train_loader,
                                        valid_loader, model_name, start_epoch,
                                        best_valid_loss, start_time, shutdown)
+        runtime.barrier()       # every rank returns after rank 0's writes
         steps = state.step - step0
         evals = len(result["history"]) * len(valid_loader)
         logging.info(f"train: kernel launches {_launch_line(before)} over "
@@ -360,6 +384,7 @@ def run_serve(cfg: Config) -> dict:
     from . import serving
 
     check_ported(cfg)
+    runtime.check_single_process("serve")
     rank = runtime.process_index()
     device = runtime.resolve_device(cfg.device)
     buckets = serving.parse_buckets(cfg.serve_buckets)
@@ -380,6 +405,8 @@ def run_serve(cfg: Config) -> dict:
     logging.info(f"serve: one replica on {device}, port {port}")
 
     model_name = ckpt.get_checkpoint_model_name(cfg.checkpoint_file)
+    if model_name not in SERVE_MODELS:
+        raise ValueError(f"not ported yet: --model {model_name} (serve)")
     dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
                            debug=cfg.debug, log=True,
                            synthetic_fallback=cfg.synthetic_fallback)
@@ -435,6 +462,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         logging.error(f"{e}, exiting...")
         return 1
+    finally:
+        runtime.shutdown_distributed()
     print("========================= end ==========================")
     return 0
 

@@ -11,11 +11,14 @@ A flag of the JAX CLI that this slice does not support fails loudly with
 one line, ``not ported yet: --X``; it is never ignored.  The flags that
 only exist to be refused are one table each (``REFUSED_EVERYWHERE``,
 ``REFUSED_TRAIN_TEST``) and are not Config fields; the settings a Config
-holds are refused by ``check_ported``.  Two defaults differ because the
-JAX default is not ported: the flight recorder is off (``--flightrec`` is
-refused), and ``test`` takes the model from the checkpoint, so its
-``--model`` defaults to none (the JAX ``test`` reads the checkpoint's too
-and ignores the flag).
+holds are refused by ``check_ported``.  ``train`` and ``test`` run
+``cnn``, ``mlp``, ``resnet`` (the default, as in the JAX package) and
+``vit``; ``serve`` runs ``vit``.  ``--attention`` other than ``full`` on a
+model without attention is refused with the JAX registry's message.  Two
+defaults differ because the JAX default is not ported: the flight
+recorder is off (``--flightrec`` is refused), and ``test`` takes the model
+from the checkpoint, so its ``--model`` defaults to none (the JAX ``test``
+reads the checkpoint's too and ignores the flag).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import dataclasses
 from typing import Optional
 
 DEBUG = False
-MODEL_NAME = "resnet"       # the JAX default (not ported: refused)
+MODEL_NAME = "resnet"       # the JAX default
 OPTIMIZER = "adam"
 LOSS = "cross_entropy"
 DATA_PATH = "./data"
@@ -50,6 +53,8 @@ LOSS_CHOICES = ("cross_entropy", "weighted_cross_entropy", "focal_loss")
 DATASET_CHOICES = ("mnist", "fashion_mnist", "cifar10", "synthetic",
                    "synthetic_hard")
 DEVICE_CHOICES = ("cuda", "cpu")
+TRAIN_MODELS = ("cnn", "mlp", "resnet", "vit")   # ported for train/test
+SERVE_MODELS = ("vit",)                          # ported for serve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,9 +105,11 @@ class Config:
 def not_ported(cfg: Config) -> Optional[str]:
     """The first setting of ``cfg`` this slice does not support, spelled
     as on the command line, or None."""
+    models = SERVE_MODELS if cfg.action == "serve" else TRAIN_MODELS
     checks = (
-        (cfg.model_name not in (None, "vit"), f"--model {cfg.model_name}"),
-        (cfg.attention in ("ring", "ring_flash"),
+        (cfg.model_name not in (None,) + models, f"--model {cfg.model_name}"),
+        (cfg.attention in ("ring", "ring_flash")
+         and cfg.model_name in (None, "vit"),
          f"--attention {cfg.attention}"),
         (cfg.precision not in (None, "bf16", "f32"),
          f"--precision {cfg.precision}"),
@@ -120,6 +127,10 @@ def check_ported(cfg: Config) -> Config:
     flag = not_ported(cfg)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
+    if cfg.action == "train":       # test and serve: the checkpoint's
+        from .models.registry import check_attention
+
+        check_attention(cfg.model_name, cfg.attention)
     if cfg.device not in DEVICE_CHOICES:
         raise ValueError(f"--device must be one of {DEVICE_CHOICES}, got "
                          f"{cfg.device!r}")
@@ -228,12 +239,13 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
         p.add_argument("--model", choices=MODEL_CHOICES, default=MODEL_NAME,
                        dest="model_name",
                        help=f"model architecture (default: {MODEL_NAME}; "
-                            "ported: vit)")
+                            f"ported: {', '.join(TRAIN_MODELS)})")
     else:
         p.add_argument("--model", choices=MODEL_CHOICES, default=None,
                        dest="model_name",
                        help="model architecture (default: the "
-                            "checkpoint's; ported: vit)")
+                            "checkpoint's; ported: "
+                            f"{', '.join(TRAIN_MODELS)})")
     p.add_argument("--optimizer", choices=OPTIMIZER_CHOICES,
                    default=OPTIMIZER, help=f"optimizer (default: {OPTIMIZER})")
     p.add_argument("--loss", choices=LOSS_CHOICES, default=LOSS,
@@ -278,7 +290,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m distributedpytorch_tpu_torch",
         description="PyTorch/CUDA port of the distributed classifier "
-                    "(train, test and serve a vit)")
+                    "(train and test cnn, mlp, resnet and vit on one or "
+                    "several ranks; serve a vit)")
     sub = parser.add_subparsers(dest="action", required=True,
                                 help="action to execute")
     p_train = sub.add_parser("train", help="train model")

@@ -17,6 +17,9 @@ Counterpart of ``distributedpytorch_tpu/data/augment.py``:
     repeated to 3 channels, then normalize.  The draws come from a
     ``torch.Generator`` (Philox) and match the JAX ones (threefry) in
     distribution only; the parity tests inject the JAX draws.
+
+Both transforms compute in f32, or in the output dtype where it is wider
+(an f64 output, used to compare devices without f32 rounding).
 """
 
 from __future__ import annotations
@@ -57,15 +60,21 @@ def affine_from_uniform(u: torch.Tensor, h: int, w: int) -> Affine:
     return theta, y0, x0, crop_h, crop_w
 
 
+def _work_dtype(out_dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(out_dtype, torch.float32)
+
+
 def _hat_weights(images: torch.Tensor, affine: Affine, out_dim: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(a_y (b, P, H), a_x (b, P, W)) bilinear hat weights of every output
-    pixel p = i * out_dim + j over the source rows and columns."""
+    pixel p = i * out_dim + j over the source rows and columns, in the
+    images' dtype."""
     h, w = images.shape[1], images.shape[2]
-    theta, y0, x0, crop_h, crop_w = (t.to(torch.float32).reshape(-1, 1, 1)
+    dt = images.dtype
+    theta, y0, x0, crop_h, crop_w = (t.to(dt).reshape(-1, 1, 1)
                                      for t in affine)
     dev = images.device
-    ii = torch.arange(out_dim, dtype=torch.float32, device=dev)
+    ii = torch.arange(out_dim, dtype=dt, device=dev)
     ys = y0 + (ii[None, :, None] + 0.5) * crop_h / out_dim - 0.5
     xs = x0 + (ii[None, None, :] + 0.5) * crop_w / out_dim - 0.5
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
@@ -74,8 +83,8 @@ def _hat_weights(images: torch.Tensor, affine: Affine, out_dim: int
         images.shape[0], -1)
     src_x = (sin_t * (ys - cy) + cos_t * (xs - cx) + cx).reshape(
         images.shape[0], -1)
-    rows = torch.arange(h, dtype=torch.float32, device=dev)
-    cols = torch.arange(w, dtype=torch.float32, device=dev)
+    rows = torch.arange(h, dtype=dt, device=dev)
+    cols = torch.arange(w, dtype=dt, device=dev)
     a_y = torch.clamp_min(1.0 - (src_y[..., None] - rows).abs(), 0.0)
     a_x = torch.clamp_min(1.0 - (src_x[..., None] - cols).abs(), 0.0)
     return a_y, a_x
@@ -88,7 +97,7 @@ def train_transform(images: torch.Tensor, mean: float, std: float,
     (B, out, out, 3): rotate + random-resized crop (one bilinear pass with
     the given affine draws) + gray -> 3 channels + normalize."""
     b = images.shape[0]
-    imgs = images.to(torch.float32) / 255.0
+    imgs = images.to(_work_dtype(out_dtype)) / 255.0
     a_y, a_x = _hat_weights(imgs, affine, out_dim)
     if imgs.dim() == 3:
         t = torch.bmm(a_x, imgs.transpose(1, 2))          # (b, P, H)
@@ -108,7 +117,7 @@ def eval_transform(images: torch.Tensor, mean: float, std: float,
     """uint8 (B, H, W) gray or (B, H, W, C) -> float (B, out, out, 3):
     /255, bilinear resize, gray -> 3 channels, normalize, cast."""
     grayscale = images.dim() == 3
-    imgs = images.to(torch.float32) / 255.0
+    imgs = images.to(_work_dtype(out_dtype)) / 255.0
     if grayscale:
         imgs = imgs[..., None]
     if tuple(imgs.shape[1:3]) != (out_dim, out_dim):

@@ -2,11 +2,15 @@
 its batch there.
 
 Counterpart of ``distributedpytorch_tpu/data/pipeline.py::ResidentLoader``
-(:40-102) at world 1: the split's uint8 images and labels are moved to the
-device once, ``epoch_plan(epoch)`` is the sampler's (steps, B) index and
-valid arrays on the device, and ``epoch`` gathers each step's rows there
-with ``index_select``.  The host's only per-epoch work is the sampler's
-permutation.  The streaming loader is not ported yet.
+(:40-108): the split's uint8 images and labels are moved to the rank's
+device once (every rank holds the whole split, as the JAX package
+replicates it over the mesh), ``epoch_plan(epoch)`` is this rank's
+``ShardedSampler`` (steps, B) index and valid arrays on the device, and
+``epoch`` gathers each step's rows there with ``index_select``.  Rank r of
+W takes the sampler's strided slice r::W, so the global batch of a step is
+rank-major, rows [r*B, (r+1)*B) from rank r, as the JAX ``_host_plan``
+concatenates it (:85-89).  The host's only per-epoch work is the
+sampler's permutation.  The streaming loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,19 +25,23 @@ from .sampler import ShardedSampler
 
 
 class ResidentLoader:
-    """One split on one device, batched by ``ShardedSampler`` (world 1)."""
+    """One split on one device, batched by ``ShardedSampler`` for rank
+    ``rank`` of ``world``."""
 
     def __init__(self, split: Split, batch_size: int, shuffle: bool,
-                 seed: int, device: torch.device | str):
+                 seed: int, device: torch.device | str, world: int = 1,
+                 rank: int = 0):
         self.device = torch.device(device)
         self.batch_per_replica = int(batch_size)
-        self.world = 1
+        self.world = int(world)
+        self.rank = int(rank)
         self.images = torch.from_numpy(np.ascontiguousarray(
             split.images)).to(self.device)
         self.labels = torch.from_numpy(split.labels.astype(np.int64)).to(
             self.device)
-        self.sampler = ShardedSampler(num_samples=len(split), world_size=1,
-                                      rank=0, batch_size=batch_size,
+        self.sampler = ShardedSampler(num_samples=len(split),
+                                      world_size=self.world, rank=self.rank,
+                                      batch_size=batch_size,
                                       shuffle=shuffle, seed=seed)
         self.batches_per_epoch = self.sampler.batches_per_epoch
 

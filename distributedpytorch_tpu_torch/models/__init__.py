@@ -1,3 +1,4 @@
-"""Models of the port: vit, its registry, and the flax-params converter."""
+"""Models of the port: cnn, mlp, resnet and vit, their registry, and the
+flax-params converter."""
 
 from .registry import get_model, get_model_input_size  # noqa: F401

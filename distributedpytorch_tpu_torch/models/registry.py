@@ -1,10 +1,13 @@
 """Model registry: name -> module / input size, and the head/backbone
 split of ``--feature-extract``.
 
-Counterpart of ``distributedpytorch_tpu/models/registry.py`` (``get_model``,
-``get_model_input_size`` and ``trainable_mask`` at :290-299), for ``vit``
-with ``attention`` in {full, flash}.  Every other model or feature raises
-"not ported yet".
+Counterpart of ``distributedpytorch_tpu/models/registry.py`` (``get_model``
+at :79-266, ``get_model_input_size`` and ``trainable_mask`` at :269-299),
+for ``cnn``, ``mlp``, ``resnet`` (resnet18) and ``vit`` with ``attention``
+in {full, flash}, and the API-only ``pallas_dw`` knob of ``cnn`` (kernel
+K5; no CLI flag, as in the JAX package).  The validation errors are the
+JAX registry's, word for word; every other model or feature raises "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from ..precision import PrecisionPolicy
 
 KNOWN_MODELS = ("cnn", "mlp", "resnet", "alexnet", "vgg", "squeezenet",
                 "densenet", "inception", "vit")
-_INPUT_SIZES = {"vit": 28}
+# ref getModelInputSize (utils.py:24-36); cnn/mlp/vit run at the native 28
+_INPUT_SIZES = {"cnn": 28, "mlp": 28, "resnet": 224, "vit": 28}
 
 
 def _check_name(name: str) -> None:
@@ -25,6 +29,18 @@ def _check_name(name: str) -> None:
                          f"(choices: {sorted(KNOWN_MODELS)})")
     if name not in _INPUT_SIZES:
         raise ValueError(f"not ported yet: --model {name}")
+
+
+def check_attention(name: str, attention: str) -> None:
+    """The JAX registry's refusal of ``--attention`` other than ``full``
+    on a model without attention (``registry.py:200-206``)."""
+    if attention not in ("full", "ring", "flash", "ring_flash"):
+        raise ValueError(f"attention must be 'full', 'ring', 'flash' or "
+                         f"'ring_flash', got {attention!r}")
+    if attention != "full" and name != "vit":
+        raise ValueError(
+            f"--attention {attention} applies to the attention model "
+            f"family only (--model vit); {name!r} has no attention")
 
 
 def attention_fn(attention: str):
@@ -45,14 +61,42 @@ def attention_fn(attention: str):
 
 def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               attention: str = "full",
-              device: torch.device | str = "cuda") -> nn.Module:
+              device: torch.device | str = "cuda",
+              pallas_dw: bool = False) -> nn.Module:
     """The registry's full-width model, on ``device``, with f32 weights
-    (zeros until restored or ``init_weights``)."""
+    (zeros until restored or ``init_weights``).  ``pallas_dw=True`` gives
+    the cnn whose 3x3 convs with 32+ input channels take their weight
+    gradient from kernel K5."""
     _check_name(name)
-    from .vit import ViT
+    dtype = precision.compute_dtype
+    if pallas_dw:
+        if name != "cnn":
+            raise ValueError(
+                "pallas_dw applies to the cnn model only (the "
+                "patch-reuse conv-dW kernel covers its 3x3/SAME convs)")
+        if attention != "full":
+            raise ValueError(
+                "pallas_dw is exclusive with the vit-family features; got "
+                f"moe_experts=0, attention={attention!r}, "
+                "tensor_parallel=False, pipeline_parallel=False")
+    check_attention(name, attention)
+    if name == "vit":
+        from .vit import ViT
 
-    return ViT(num_classes=num_classes, dtype=precision.compute_dtype,
-               attention_fn=attention_fn(attention), device=device)
+        return ViT(num_classes=num_classes, dtype=dtype,
+                   attention_fn=attention_fn(attention), device=device)
+    if name == "cnn":
+        from .simple import SmallCNN
+
+        return SmallCNN(num_classes=num_classes, dtype=dtype,
+                        pallas_dw=pallas_dw, device=device)
+    if name == "mlp":
+        from .simple import MLP
+
+        return MLP(num_classes=num_classes, dtype=dtype, device=device)
+    from .resnet import resnet18
+
+    return resnet18(num_classes, dtype=dtype, device=device)
 
 
 def get_model_input_size(name: str) -> int:

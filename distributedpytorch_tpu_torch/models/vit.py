@@ -20,7 +20,6 @@ GELU is the tanh approximation; the token mean is taken in f32.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
@@ -28,15 +27,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import full_attention
+from .layers import dense as _dense
+from .layers import lecun_init_
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                        torch.Tensor]
-
-
-def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """flax ``Dense(dtype=x.dtype)``: product in the compute dtype, then
-    the bias added in it."""
-    return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -117,21 +112,13 @@ class ViT(nn.Module):
         LayerNorm scales, normal(0.02) position embedding.  The draws are
         made on the generator's device and copied to the model's, so one
         CPU generator gives the same weights on every device."""
-        dev = generator.device
+        lecun_init_(self, generator)
         with torch.no_grad():
             for mod in self.modules():
-                if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                    fan_in = mod.weight[0].numel()
-                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                    w = torch.empty(mod.weight.shape, device=dev)
-                    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                          generator=generator)
-                    mod.weight.copy_(w)
-                    nn.init.zeros_(mod.bias)
-                elif isinstance(mod, LayerNorm):
+                if isinstance(mod, LayerNorm):
                     nn.init.ones_(mod.weight)
                     nn.init.zeros_(mod.bias)
-            pos = torch.empty(self.pos_embed.shape, device=dev)
+            pos = torch.empty(self.pos_embed.shape, device=generator.device)
             nn.init.normal_(pos, std=0.02, generator=generator)
             self.pos_embed.copy_(pos)
         return self

@@ -1,22 +1,35 @@
-"""Device resolution and process identity for the port.
+"""Device resolution and the data-parallel process world.
 
-Counterpart of ``distributedpytorch_tpu/runtime.py``, cut to what a
-single-process serving replica needs.  The device is ``cuda`` unless the
-caller asks for the CPU, and a missing GPU is an error, never a quiet run
-on the CPU.  This slice is single-process: ``process_index()`` is 0 and a
-multi-process launch (``WORLD_SIZE`` > 1, as torchrun sets it) raises.
+Counterpart of ``distributedpytorch_tpu/runtime.py`` (``initialize_
+distributed`` at :68-138, ``process_index``/``process_count``/``is_main``/
+``world_size``/``barrier`` at :169-259).  The device is ``cuda`` unless
+the caller asks for the CPU, and a missing GPU is an error, never a quiet
+run on the CPU.
+
+A launch by ``torchrun`` (or anything that sets ``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``: the reference's env:// contract, ref
+classif.py:86-87) joins a ``torch.distributed`` world, one rank per
+process; a plain launch is a world of one with no process group.  The
+backend follows the device: gloo for ``cpu``; NCCL for ``cuda`` when
+every local rank has a card of its own (rank ``LOCAL_RANK`` takes card
+``LOCAL_RANK``); gloo over CUDA tensors when the local ranks outnumber the
+cards (NCCL refuses two ranks on one card), the device staying ``cuda``.
 """
 
 from __future__ import annotations
 
 import os
+from datetime import timedelta
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
     """``"cuda"`` or ``"cpu"`` -> torch.device.  Raises ValueError when
-    CUDA is asked for and no CUDA device is available."""
+    CUDA is asked for and no CUDA device is available.  In a world of
+    several ranks on ``cuda``, the rank's own card."""
     if device == "cpu":
         return torch.device("cpu")
     if device == "cuda":
@@ -25,20 +38,130 @@ def resolve_device(device: str = "cuda") -> torch.device:
                 "--device cuda: no CUDA device is available "
                 "(torch.cuda.is_available() is false); pass --device cpu "
                 "to run on the CPU")
-        return torch.device("cuda")
+        index = local_rank() % torch.cuda.device_count()
+        return torch.device("cuda", index)
     raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
 
 
-def check_single_process() -> None:
-    """Raise ValueError under a multi-process launch: this slice ports
-    the one-replica serving path only."""
-    world = os.environ.get("WORLD_SIZE", "1")
-    if world.strip() not in ("", "1"):
-        raise ValueError(f"not ported yet: multi-process launch "
-                         f"(WORLD_SIZE={world})")
+def launched_distributed() -> bool:
+    """True under a multi-process launcher (``WORLD_SIZE`` is set)."""
+    return os.environ.get("WORLD_SIZE", "").strip() != ""
+
+
+def _env_int(name: str, default: Optional[int] = None) -> int:
+    value = os.environ.get(name, "").strip()
+    if not value:
+        if default is None:
+            raise ValueError(f"multi-process launch: {name} is not set "
+                             f"(env:// rendezvous needs WORLD_SIZE, RANK, "
+                             f"MASTER_ADDR and MASTER_PORT)")
+        return default
+    try:
+        return int(value)
+    except ValueError:
+        raise ValueError(f"multi-process launch: {name}={value!r} is not "
+                         f"an integer") from None
+
+
+def local_rank() -> int:
+    return _env_int("LOCAL_RANK", 0) if launched_distributed() else 0
+
+
+def backend_for(device: torch.device) -> str:
+    """gloo on the CPU; on CUDA, NCCL when each local rank has its own
+    card, else gloo over CUDA tensors."""
+    if device.type != "cuda":
+        return "gloo"
+    local_world = _env_int("LOCAL_WORLD_SIZE", 1)
+    return "nccl" if local_world <= torch.cuda.device_count() else "gloo"
+
+
+def initialize_distributed(device: torch.device) -> Optional[str]:
+    """Join the launcher's world (env:// rendezvous) on the backend that
+    ``device`` calls for; returns the backend, or None for a plain launch.
+    Idempotent."""
+    if not launched_distributed():
+        return None
+    if dist.is_initialized():
+        return dist.get_backend()
+    world = _env_int("WORLD_SIZE")
+    rank = _env_int("RANK")
+    for name in ("MASTER_ADDR", "MASTER_PORT"):
+        if not os.environ.get(name, "").strip():
+            _env_int(name)                      # raises, naming it
+    if not 0 <= rank < world:
+        raise ValueError(f"multi-process launch: RANK={rank} outside "
+                         f"WORLD_SIZE={world}")
+    backend = backend_for(device)
+    kwargs = {}
+    if backend == "nccl":
+        torch.cuda.set_device(device)
+        kwargs["device_id"] = device
+    dist.init_process_group(backend, init_method="env://", world_size=world,
+                            rank=rank, timeout=timedelta(minutes=10),
+                            **kwargs)
+    return backend
+
+
+def shutdown_distributed() -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def distributed() -> bool:
+    """True when this process is a rank of a process group."""
+    return dist.is_available() and dist.is_initialized()
 
 
 def process_index() -> int:
-    check_single_process()
-    return 0
+    """Global rank of this process (ref: firstLocalRank+gpu,
+    classif.py:82)."""
+    return dist.get_rank() if distributed() else 0
 
+
+def process_count() -> int:
+    return dist.get_world_size() if distributed() else 1
+
+
+def world_size() -> int:
+    """Data-parallel replicas: one per process."""
+    return process_count()
+
+
+def is_main() -> bool:
+    """Gate for logging and checkpointing: global rank 0."""
+    return process_index() == 0
+
+
+def barrier() -> None:
+    """Block until every rank reaches this point (no-op in a world of
+    one)."""
+    if distributed():
+        dist.barrier()
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks, in place (``t`` itself in a world of
+    one); no gradient."""
+    if distributed() and dist.get_world_size() > 1:
+        dist.all_reduce(t)
+    return t
+
+
+def any_process(flag: bool) -> bool:
+    """True when ``flag`` is true on any rank (one all-reduce)."""
+    if not (distributed() and dist.get_world_size() > 1):
+        return bool(flag)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([int(bool(flag))], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def check_single_process(what: str) -> None:
+    """Raise ValueError under a multi-process launch: ``what`` runs one
+    process (the serving replica)."""
+    if launched_distributed() and _env_int("WORLD_SIZE") != 1:
+        raise ValueError(f"not ported yet: multi-process launch of {what} "
+                         f"(WORLD_SIZE={os.environ['WORLD_SIZE']})")

@@ -4,31 +4,45 @@ Counterpart of ``distributedpytorch_tpu/train/engine.py``: ``make_optimizer``
 (:62-83), ``Engine`` (:86-331) with ``_train_step`` (``train_step``),
 ``_train_step_keys`` (``train_step_affine``), ``_finish_step`` and
 ``_eval_step`` (:612-628), and ``_predict_step`` (:630-648) as
-``Predictor``.  One process, one device: there is no gradient all-reduce
-yet, but the loss is formed as two sums, sum(numer * valid) /
-max(sum(denom * valid), 1e-9) (:227-230), which a data-parallel world
-all-reduces as they are.
+``Predictor``.
 
 PyTorch runs eagerly, so a step is a sequence of launches rather than one
 compiled program; the state is updated in place (``TrainState`` holds the
-model, the optimizer and the step count).  Metrics stay on the device; the
-epoch loop reads them once per epoch.  The optimizers are ``torch.optim``'s:
-Adam(lr=1e-3) has optax's defaults; SGD(lr=1e-3, momentum=0.9) is optax's
-``sgd`` with ``trace``, and its staircase schedule lr = 1e-3 * 0.1 **
-floor(step / steps_per_epoch) is set from the step count before every
-update, as optax's ``exponential_decay(staircase=True)`` does, so a resumed
-run and an uninterrupted one agree at an epoch boundary.
+model, the optimizer, the step count and, in a world of several ranks,
+the ``DistributedDataParallel`` wrapper that averages the gradients).
+BatchNorm's running statistics are the model's buffers: a train step
+moves them, the eval step reads them.  Metrics stay on the device; the
+epoch loop reads them once per epoch.
+
+The loss is one masked mean over the global batch, sum(numer * valid) /
+max(sum(denom * valid), 1e-9) (:227-230).  The denominator does not depend
+on the parameters, so a rank all-reduces it first (with the metric sums,
+one collective) and back-propagates its own numerator sum times world /
+global denominator: DDP's mean of the ranks' gradients is then exactly
+the gradient of the global mean, whatever the number of valid rows on
+each rank.  The affine augmentation of a step is drawn for the whole
+rank-major global batch from the step's generator, which is seeded alike
+on every rank, and rank r keeps rows [r*B, (r+1)*B), as one JAX key
+augments the global batch (:237-251).
+
+The optimizers are ``torch.optim``'s: Adam(lr=1e-3) has optax's defaults;
+SGD(lr=1e-3, momentum=0.9) is optax's ``sgd`` with ``trace``, and its
+staircase schedule lr = 1e-3 * 0.1 ** floor(step / steps_per_epoch) is set
+from the step count before every update, as optax's
+``exponential_decay(staircase=True)`` does, so a resumed run and an
+uninterrupted one agree at an epoch boundary.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import runtime
 from ..data import augment
 from ..models.registry import freeze_backbone
 from ..ops.losses import LossFn
@@ -63,6 +77,8 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # the DistributedDataParallel wrapper of ``model`` in a process group
+    ddp: Optional[nn.Module] = None
 
 
 class Engine:
@@ -89,18 +105,31 @@ class Engine:
         self.lr_step_gamma = float(lr_step_gamma)
         self.steps_per_epoch = int(steps_per_epoch)
         self.feature_extract = bool(feature_extract)
+        self.world = runtime.process_count()
+        self.rank = runtime.process_index()
 
     # -- state ------------------------------------------------------------
 
     def init_state(self, generator: torch.Generator) -> TrainState:
         """Random weights from ``generator`` (flax's initializers), the
-        backbone frozen under ``feature_extract``, a fresh optimizer."""
+        backbone frozen under ``feature_extract``, a fresh optimizer, and
+        in a process group the DDP wrapper (which broadcasts rank 0's
+        parameters; BatchNorm's buffers are alike on every rank, since
+        their statistics are global, and are not broadcast)."""
         self.model.init_weights(generator)
         if self.feature_extract:
             freeze_backbone(self.model)
+        ddp = None
+        if runtime.distributed():
+            from torch.nn.parallel import DistributedDataParallel
+
+            ddp = DistributedDataParallel(
+                self.model, broadcast_buffers=False,
+                device_ids=([self.device] if self.device.type == "cuda"
+                            else None))
         return TrainState(self.model, make_optimizer(
             self.optimizer_name, self.model, self.learning_rate,
-            self.momentum))
+            self.momentum), ddp=ddp)
 
     def lr(self, step: int) -> float:
         return learning_rate_at(self.optimizer_name, step,
@@ -113,10 +142,14 @@ class Engine:
                    labels: torch.Tensor, valid: torch.Tensor,
                    generator: torch.Generator
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Draw the step's affine augmentation from ``generator``, then
-        ``train_step_affine``."""
+        """Draw the step's affine augmentation for the global batch from
+        ``generator``, keep this rank's rows, then ``train_step_affine``."""
         b, h, w = images_u8.shape[:3]
-        affine = augment.sample_affine_batch(generator, b, h, w)
+        affine = augment.sample_affine_batch(generator, self.world * b, h,
+                                             w)
+        if self.world > 1:
+            affine = tuple(t[self.rank * b:(self.rank + 1) * b]
+                           for t in affine)
         return self.train_step_affine(state, images_u8, labels, valid,
                                       affine)
 
@@ -124,9 +157,11 @@ class Engine:
                           labels: torch.Tensor, valid: torch.Tensor,
                           affine: augment.Affine
                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Augment with the given draws, forward, masked loss, backward,
-        grad cast, optimizer update.  The step's gradients stay on the
-        parameters' ``.grad`` until the next step."""
+        """Augment this rank's rows with the given draws, forward, the
+        global masked loss, backward (DDP averages the gradients), grad
+        cast, optimizer update.  The step's gradients stay on the
+        parameters' ``.grad`` until the next step.  The metrics are the
+        global batch's."""
         model = state.model
         model.train()
         imgs = augment.train_transform(
@@ -134,16 +169,19 @@ class Engine:
             out_dtype=self.precision.compute_dtype)
         vmask = valid.to(self.precision.accum_dtype)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(imgs)
+        logits = (model if state.ddp is None else state.ddp)(imgs)
         numer, denom = self.loss_fn(logits, labels)
-        loss = ((numer * vmask).sum()
-                / torch.clamp_min((denom * vmask).sum(), 1e-9))
-        loss.backward()
-        self.apply_gradients(state)
+        numer_sum = (numer * vmask).sum()
         correct = (per_example_correct(logits.detach(), labels)
                    * vmask).sum()
-        return state, {"loss": loss.detach(), "correct": correct,
-                       "valid": vmask.sum()}
+        sums = runtime.all_reduce_sum(torch.stack(
+            [numer_sum.detach(), (denom * vmask).sum(), correct,
+             vmask.sum()]))
+        global_denom = torch.clamp_min(sums[1], 1e-9)
+        (numer_sum * self.world / global_denom).backward()
+        self.apply_gradients(state)
+        return state, {"loss": sums[0] / global_denom, "correct": sums[2],
+                       "valid": sums[3]}
 
     def apply_gradients(self, state: TrainState) -> None:
         """The update tail of a step (``_finish_step``): gradients cast to

@@ -41,6 +41,16 @@ def initialize_logging(rsl_path: str, log_file: str,
     )
 
 
+def quiet_logging() -> None:
+    """A rank other than 0: warnings and errors to stdout, no log file."""
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        root.removeHandler(h)
+        h.close()
+    logging.basicConfig(level=logging.WARNING, format="%(message)s",
+                        handlers=[logging.StreamHandler(sys.stdout)])
+
+
 class GracefulShutdown:
     """SIGTERM/SIGINT set ``requested``; the serving loop checks it between
     batches and stops cleanly.  A second signal restores the previous

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its train step on an NVIDIA GPU, with no
+"""The port's CUDA kernels and its train steps on an NVIDIA GPU, with no
 JAX import, so the file also runs on a machine that has only PyTorch:
 
     DPT_TESTS_ON_TPU=1 python -m pytest -m cuda tests/test_torch_cuda.py
@@ -100,6 +100,58 @@ def test_train_step_runs_each_kernel_once_per_block():
     torch.cuda.synchronize()
     got = {k: v - before[k] for k, v in kernel_launches().items()}
     assert got == {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4}
+    assert torch.isfinite(m["loss"]).item()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_dw_kernel_matches_plain_on_card(dtype):
+    """K5 at the cnn's three shapes (batch 64) and a ragged one, held to
+    its plain version (1e-5 of the largest value: f32 sums in another
+    order, in both dtypes since the kernel sums in f32), deterministic."""
+    _need_card()
+    from distributedpytorch_tpu_torch.ops import conv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    for b, h, w, ci, co in ((64, 28, 28, 32, 32), (64, 14, 14, 32, 64),
+                            (64, 14, 14, 64, 64), (3, 9, 7, 32, 48)):
+        x = torch.randn((b, h, w, ci), generator=gen, device="cuda").to(dt)
+        dy = torch.randn((b, h, w, co), generator=gen, device="cuda").to(dt)
+        before = conv.conv3x3_dw.launches
+        got = conv.conv3x3_dw(x, dy)
+        again = conv.conv3x3_dw(x, dy)
+        torch.cuda.synchronize()
+        assert conv.conv3x3_dw.launches == before + 2
+        assert torch.equal(got, again)
+        ref = conv.conv3x3_dw_plain(x, dy)
+        assert (got - ref).abs().max().item() \
+            <= 1e-5 * ref.abs().max().item()
+
+
+def test_cnn_train_step_launches_k5_three_times():
+    """One bf16 train step of the cnn with pallas_dw=True: 3 K5 launches
+    (Conv_1..Conv_3), finite gradients; none in an eval step."""
+    _need_card()
+    from distributedpytorch_tpu_torch.ops import conv
+
+    policy = PRESETS["bf16"]
+    model = get_model("cnn", 10, policy, device="cuda", pallas_dw=True)
+    engine = Engine(model, cross_entropy, 0.13, 0.31, 28, policy, "cuda")
+    state = engine.init_state(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (64, 28, 28),
+                                           dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 10, 64)).cuda()
+    valid = torch.ones(64, dtype=torch.bool, device="cuda")
+    before = conv.conv3x3_dw.launches
+    _, m = engine.train_step(state, images, labels, valid,
+                             torch.Generator(device="cuda").manual_seed(1))
+    engine.eval_step(state, images, labels, valid)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_dw.launches - before == 3
     assert torch.isfinite(m["loss"]).item()
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name

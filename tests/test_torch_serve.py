@@ -165,13 +165,28 @@ def test_jax_checkpoint_without_msgpack_names_the_package(
 def test_jax_checkpoint_of_a_model_not_ported_is_refused(tmp_path):
     from flax import serialization
 
-    path = tmp_path / "bestmodel-mnist-cnn.ckpt"
+    path = tmp_path / "bestmodel-mnist-alexnet.ckpt"
     path.write_bytes(serialization.msgpack_serialize(
-        {"format_version": 1, "model_name": "cnn", "epoch": 0, "loss": 0.0,
+        {"format_version": 1, "model_name": "alexnet", "epoch": 0,
+         "loss": 0.0,
          "state": {"params": {"Conv_0": {"kernel": np.zeros((3, 3, 3, 8),
                                                              np.float32)}}}}))
-    with pytest.raises(ValueError, match="^not ported yet: --model cnn"):
+    with pytest.raises(ValueError, match="^not ported yet: --model alexnet"):
         ckpt.get_checkpoint_model_name(str(path))
+
+
+def test_serve_of_a_cnn_checkpoint_is_not_ported(tmp_path):
+    """train and test run the cnn; serve stays vit-only, and says so."""
+    path = tmp_path / "bestmodel-mnist-cnn.ckpt"
+    model = get_model("cnn", 10, PRESETS["bf16"], device="cpu")
+    ckpt.save_checkpoint(str(path), "cnn", model, epoch=0,
+                         best_valid_loss=0.0)
+    cfg = tconfig.config_from_argv(
+        ["serve", "-d", str(tmp_path / "data"), "--rsl_path",
+         str(tmp_path / "rsl"), "-f", str(path), "--device", "cpu",
+         "--synthetic-fallback"])
+    with pytest.raises(ValueError, match="^not ported yet: --model cnn"):
+        tcli.run_serve(cfg)
 
 
 # -- the port's own checkpoint ------------------------------------------
@@ -420,8 +435,12 @@ def test_port_imports_no_jax():
         "             ('jax', 'jaxlib', 'flax', 'optax',\n"
         "              'distributedpytorch_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith(p.__name__)))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    imported = set(proc.stdout.split())
+    assert len(imported) >= 20
+    for name in ("ops.conv", "ops.pooling", "models.layers", "models.norm",
+                 "models.simple", "models.resnet", "runtime", "train.engine"):
+        assert f"distributedpytorch_tpu_torch.{name}" in imported, name

@@ -463,8 +463,8 @@ def test_train_writes_the_jax_file_names_and_log_lines(trained):
             r"  Validation  \| Loss: \d+\.\d{5}       \| Acc: \d+\.\d{2}%",
             r"  Throughput  \| [\d,]+ samples/s/chip \(1 chip\)",
             r"epoch:0001: model saved to .*checkpoint-mnist-vit-001\.ckpt",
-            r"train: kernel launches flash_fwd 0, flash_dq 0, flash_dkv 0 "
-            r"over 8 train steps and 8 eval batches"):
+            r"train: kernel launches flash_fwd 0, flash_dq 0, flash_dkv 0, "
+            r"conv_dw 0 over 8 train steps and 8 eval batches"):
         assert re.search(pattern, log), pattern
     payload = ckpt.read_checkpoint(str(rsl / "checkpoint-mnist-vit-001.ckpt"))
     assert payload["format_version"] == 2 and payload["epoch"] == 1
@@ -631,7 +631,7 @@ REFUSED = [
     (["--scan-layers"], "--scan-layers"),
     (["--remat", "full"], "--remat full"),
     (["--attention", "ring"], "--attention ring"),
-    (["--model", "cnn"], "--model cnn"),
+    (["--model", "alexnet"], "--model alexnet"),
 ]
 
 
@@ -650,12 +650,12 @@ def test_refused_flag_fails_loudly(action, extra, flag):
 
 
 def test_train_defaults_follow_the_jax_cli():
+    """The JAX defaults, the model (resnet) included."""
     from distributedpytorch_tpu.config import config_from_argv as jax_argv
 
     want = jax_argv(["train", "-d", "/d"])
-    with pytest.raises(ValueError, match="^not ported yet: --model resnet$"):
-        tconfig.config_from_argv(["train", "-d", "/d"])
-    got = tconfig.config_from_argv(["train", "-d", "/d", "--model", "vit"])
+    got = tconfig.config_from_argv(["train", "-d", "/d"])
+    assert got.model_name == want.model_name == "resnet"
     for field in ("batch_size", "nb_epochs", "optimizer", "loss",
                   "learning_rate", "momentum", "lr_step_gamma",
                   "focal_gamma", "seed", "keep_ckpts", "data_mode",
@@ -666,9 +666,21 @@ def test_train_defaults_follow_the_jax_cli():
 
 
 def test_a_multi_process_launch_is_refused(tmp_path, monkeypatch):
+    """A multi-process launch without the env:// rendezvous variables is
+    refused before anything runs (torchrun sets them all;
+    tests/test_torch_ddp.py runs a complete one), and ``serve`` stays one
+    process."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="not ported yet: multi-process"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="multi-process launch: RANK is "
+                                         "not set"):
         tcli.run_train(tconfig.config_from_argv(_train_argv(tmp_path)))
+    assert not (tmp_path / "rsl").exists()
+    with pytest.raises(ValueError, match="not ported yet: multi-process "
+                                         "launch of serve"):
+        tcli.run_serve(tconfig.config_from_argv(
+            ["serve", "-d", str(tmp_path), "-f", "/x.ckpt", "--device",
+             "cpu"]))
 
 
 def test_train_without_device_cpu_refuses_to_run_without_gpu(tmp_path,
@@ -682,6 +694,28 @@ def test_train_without_device_cpu_refuses_to_run_without_gpu(tmp_path,
     assert not (tmp_path / "rsl").exists()   # nothing ran
 
 
+def test_chip_smoke_and_the_ddp_child_import_no_jax():
+    """The scripts that run the port outside pytest import neither JAX nor
+    the JAX package (the card's machine has no JAX)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import importlib.util, sys\n"
+        "for name, path in (('chip_smoke', 'chip_smoke.py'),\n"
+        "                   ('ddp_child', 'tests/_torch_ddp_child.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "              'distributedpytorch_tpu'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_new_modules_are_in_the_purity_walk():
     """test_torch_serve.py::test_port_imports_no_jax imports every module
     that pkgutil walks; the training slice's modules are among them."""
@@ -693,5 +727,7 @@ def test_new_modules_are_in_the_purity_walk():
                                                    p.__name__ + ".")}
     for mod in ("data.sampler", "data.pipeline", "data.augment",
                 "ops.losses", "ops.metrics", "ops.flash_attention",
-                "train.engine", "checkpoint", "cli", "utils"):
+                "train.engine", "checkpoint", "cli", "utils", "ops.conv",
+                "ops.pooling", "models.norm", "models.layers",
+                "models.simple", "models.resnet", "runtime"):
         assert f"distributedpytorch_tpu_torch.{mod}" in names, mod

@@ -85,7 +85,7 @@ def test_registry_builds_full_width_vit():
     assert registry.get_model_input_size("vit") == 28
 
 
-@pytest.mark.parametrize("name", ["cnn", "resnet", "mlp", "inception"])
+@pytest.mark.parametrize("name", ["alexnet", "vgg", "densenet", "inception"])
 def test_registry_refuses_models_not_ported(name):
     with pytest.raises(ValueError, match=f"not ported yet: --model {name}"):
         registry.get_model(name, 10, PRESETS["f32"], device="cpu")
