@@ -70,16 +70,45 @@ result.  Phases, each printing its lines before the last:
      stated spread;
  13. the reference's job: ``torchrun --standalone --nproc_per_node 1 -m
      distributedpytorch_tpu_torch train`` with the default model (resnet
-     at 224) on NCCL for one epoch, then, at once, ``test -f`` on its best
-     model (equal to an in-process eval) and ``train --debug`` of mlp and
-     cnn;
+     at 224) on NCCL for one epoch of phase 6's corpus (225 steps), then,
+     at once, ``test -f`` on its best model (equal to an in-process eval)
+     and ``train --debug`` of mlp and cnn;
  14. two ranks on the one card (gloo over CUDA tensors): three f32 steps
      of the cnn with K5 and of a resnet at reduced depth (and the resnet's
      in f64), held against one rank fed the same global batch and draws
      (all six worlds at once, each rank a ``tests/_torch_ddp_child.py``
      process, the child that ``tests/test_torch_ddp.py`` runs on the CPU);
  15. profiles of the cnn and resnet train steps (batch 64, bf16);
- 16. the card's name and power limit again, one ``{"kernels": [...]}``
+ 16. kernels K4 (the ring's positional forward, f32 O and lse) and K2p/K3p
+     (its backward, dO in f32, the lse cotangent folded into delta)
+     against their plain PyTorch versions, bf16 and f32: the vit's ring
+     shard at M = 2 (rank 1's queries against rank 0's and its own K/V,
+     kv_valid 49), a block of padded keys only, causal blocks with rotated
+     positions (one all masked), D = 128 and a 500-row shard; errors of O
+     and lse, and of dq/dk/dv with a nonzero dlse; device / call / plain /
+     SDPA with the same boolean mask (yardstick only; it returns no lse)
+     times and the bound at the timed shapes;
+ 17. the ring op on two ranks sharing the card (gloo over CUDA tensors,
+     ``tests/_torch_ring_child.py``), ``ring`` and ``ring_flash``, against
+     one process's ``full_attention`` and ``flash_attention`` on the
+     gathered tensors: outputs and q/k/v gradients at the vit's S = 49 and
+     at a causal S = 1000;
+ 18. the ring slice's main path: ``torchrun --nproc_per_node 2 ... train
+     --model vit --attention ring_flash --model-parallel 2 -e 1`` on phase
+     6's corpus (113 steps, 13 validation batches a rank); validation at
+     least twice chance, the loss falling, K4 launches 8 per step and eval
+     batch, K2p and K3p 8 per step, K1-K3 none; then, at once, ``test -f``
+     under the same launch (within two rows of an in-process flash eval of
+     the file) and ``test -f --attention flash`` in one process (equal to
+     it);
+ 19. three f32 SGD steps (TF32 off) of the full-width vit, the 2-rank
+     ``ring_flash`` and ``ring`` worlds against one process with
+     ``--attention flash`` on the same global batch and draws: every
+     parameter, the loss and the counts;
+ 20. a profile of the ring_flash train step (two ranks, bf16, 128 rows a
+     rank): wall and device ms per step, kernels per step, the idle
+     share, K4/K2p/K3p and the host copies of the gloo transport;
+ 21. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line, then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Any failed check exits non-zero before
@@ -137,6 +166,11 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_dq", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:189"),
     ("flash_dkv", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:236"),
     ("conv_dw", f"{CSRC}/conv_dw.cu", "distributedpytorch_tpu/ops/conv.py:92"),
+    # the same three Pallas kernels with use_pos=True, reached through
+    # flash_attention_partial (:373) and its backward (:400)
+    ("flash_fwd_pos", f"{CSRC}/flash_fwd.cu", f"{TPU_KERNELS}:79"),
+    ("flash_dq_pos", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:189"),
+    ("flash_dkv_pos", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:236"),
 )
 # K2/K3 against their plain version: max error relative to the plain
 # version's largest value.  f32: the same f32 math in another summation
@@ -864,7 +898,8 @@ def phase_train_step_parity() -> None:
             got = {k: v - before[k] for k, v in kernel_launches().items()}
             say(f"step: one f32 train step on the card launched {got}")
             if got != {"flash_fwd": DEPTH, "flash_dq": DEPTH,
-                       "flash_dkv": DEPTH, "conv_dw": 0}:
+                       "flash_dkv": DEPTH, "conv_dw": 0, "flash_fwd_pos": 0,
+                       "flash_dq_pos": 0, "flash_dkv_pos": 0}:
                 fail(f"a train step must launch {DEPTH} K1, {DEPTH} K2 and "
                      f"{DEPTH} K3 exactly, got {got}")
         losses[device] = m["loss"].item()
@@ -995,6 +1030,16 @@ def phase_train():
         fail(f"train launches {launches} over {steps} steps / {evals} "
              f"eval batches do not match the formula {want} at "
              f"{want_steps} steps / {want_evals} eval batches")
+    check_epoch_log("train", log, steps, wall)
+    return launches, os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+
+
+def check_epoch_log(tag: str, log: str, steps: int, wall: float) -> None:
+    """Prints one epoch's throughput, validation accuracy and the mean
+    train loss of its first and last 10% of steps from its test.log; fails
+    unless the accuracy is at least twice chance and the loss fell.
+    samples/s/chip is the global batch (TRAIN_BATCH per rank) a second
+    over the ranks, so over TRAIN_BATCH it is steps/s."""
     valid_acc = float(re.search(r"Validation  \| Loss: [\d.]+ +\| Acc: "
                                 r"([\d.]+)%", log).group(1))
     train_loss = float(re.search(r"Train       \| Loss: ([\d.]+)",
@@ -1007,17 +1052,17 @@ def phase_train():
     (k_last, m_last) = [p for p in progress if p[0] < steps][-1]
     # the lines are running means: the last 10% is what follows the last
     last_mean = (steps * train_loss - k_last * m_last) / (steps - k_last)
-    say(f"train: one epoch of {steps} steps in {wall:.1f}s of process "
+    say(f"{tag}: one epoch of {steps} steps in {wall:.1f}s of process "
         f"wall; train pass {sps:,.0f} samples/s/chip, "
         f"{sps / TRAIN_BATCH:.1f} steps/s; validation acc {valid_acc:.2f}% "
         f"(chance 10%); mean train loss first {k_first} steps "
         f"{m_first:.5f}, last {steps - k_last} steps {last_mean:.5f}")
     if valid_acc < 20.0:
-        fail(f"validation accuracy {valid_acc}% is under twice chance")
+        fail(f"{tag}: validation accuracy {valid_acc}% is under twice "
+             f"chance")
     if not last_mean < m_first:
-        fail(f"the train loss did not fall: first 10% {m_first}, last 10% "
-             f"{last_mean}")
-    return launches, os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+        fail(f"{tag}: the train loss did not fall: first 10% {m_first}, "
+             f"last 10% {last_mean}")
 
 
 # -- phases 7 and 8: resume, and test on the trained model -----------------
@@ -1554,8 +1599,11 @@ def eval_accuracy(ckpt_path: str, name: str, data: str = "") -> tuple:
 
 
 def phase_reference_job() -> None:
+    """On phase 6's corpus (cut from the whole synthetic one for the run's
+    time limit: 225 steps instead of 844)."""
     rsl = os.path.join(WORK, "resnet_rsl")
-    wall, log = run_cli(["train", "-e", "1"], rsl, launcher=TORCHRUN)
+    wall, log = run_cli(["train", "-e", "1"], rsl, launcher=TORCHRUN,
+                        data=VIT_DATA)
     if "process: 0/1, world size: 1, backend: nccl" not in log:
         fail("the torchrun launch did not join an NCCL process group")
     launches, steps, evals = parse_launches(log, "train")
@@ -1570,19 +1618,20 @@ def phase_reference_job() -> None:
         f"train pass {sps:,.0f} samples/s/chip ({sps / TRAIN_BATCH:.1f} "
         f"steps/s); mean train loss {train_loss:.5f}, validation acc "
         f"{valid_acc:.2f}%; launches {launches}")
-    if steps != math.ceil(54000 / TRAIN_BATCH) or any(launches.values()):
+    if steps != math.ceil(int(VIT_TRAIN_ROWS * 0.9) / TRAIN_BATCH) \
+            or any(launches.values()):
         fail(f"resnet train ran {steps} steps with launches {launches}")
     best = os.path.join(rsl, "bestmodel-mnist-resnet.ckpt")
     # `test` and the two short trainings run at once: none is timed here,
     # and each spends most of its wall starting up on the host.
     (_, tlog), *debug = finish_all(
         [start_cli(["test", "-f", best], os.path.join(WORK, "resnet_test"),
-                   launcher=TORCHRUN)]
+                   launcher=TORCHRUN, data=VIT_DATA)]
         + [start_cli(["train", "--model", name, "--debug", "-e", "1"],
                      os.path.join(WORK, f"{name}_debug"))
            for name in ("mlp", "cnn")])
     acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", tlog).group(1)
-    acc_here, correct, n = eval_accuracy(best, "resnet")
+    acc_here, correct, n = eval_accuracy(best, "resnet", VIT_DATA)
     say(f"resnet: `torchrun test -f` accuracy {acc_cli}%; in-process eval "
         f"{acc_here}% ({correct}/{n})")
     if acc_cli != acc_here:
@@ -1611,63 +1660,66 @@ DDP_GLOBAL_BATCH = 16
 DDP_CHILD = os.path.join(ROOT, "tests", "_torch_ddp_child.py")
 
 
-def run_worlds(worlds: list) -> dict:
-    """Starts every (model, precision, world size) of ``worlds`` at once:
-    each rank is a ``tests/_torch_ddp_child.py`` process on the card, each
-    world on its own rendezvous port.  Returns each world's per-rank
-    results once all ranks have exited."""
+def run_worlds(worlds: list) -> list:
+    """Starts every world of ``worlds`` at once, each (name, world size,
+    child script, arguments before OUT, arguments after it): every rank a
+    ``python SCRIPT ... OUT.pt ... --device cuda`` process on the card
+    (several ranks run gloo over CUDA tensors), each world on its own
+    rendezvous port.  Returns each world's per-rank results (the OUT.pt
+    files, which the children write) once all ranks have exited."""
+    import torch
+
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT", "LOCAL_WORLD_SIZE")}
-    procs, outs, ports = [], {}, set()
+    procs, outs, ports = [], [], set()
     try:
-        for name, label, world in worlds:
+        for name, world, script, head, tail in worlds:
             port = free_port()
             while port in ports:
                 port = free_port()
             ports.add(port)
+            outs.append([])
             for rank in range(world):
                 extra = {} if world == 1 else dict(
                     WORLD_SIZE=str(world), RANK=str(rank),
                     LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-                out = os.path.join(
-                    WORK, f"ddp-{name}-{label}-w{world}-r{rank}.pt")
-                log = out[:-3] + ".log"
-                with open(log, "w") as f:
-                    procs.append((name, world, log, subprocess.Popen(
-                        [sys.executable, DDP_CHILD, name, out, "--device",
-                         "cuda", "--global-batch", str(DDP_GLOBAL_BATCH),
-                         "--precision", label], cwd=ROOT,
-                        env={**env, **extra}, stdout=f,
-                        stderr=subprocess.STDOUT)))
-                outs.setdefault((name, label, world), []).append(out)
+                out = os.path.join(WORK, f"{name}-r{rank}.pt")
+                outs[-1].append(out)
+                with open(out[:-3] + ".log", "w") as f:
+                    procs.append((name, out, subprocess.Popen(
+                        [sys.executable, script, *head, out, "--device",
+                         "cuda", *tail], cwd=ROOT, env={**env, **extra},
+                        stdout=f, stderr=subprocess.STDOUT)))
         deadline = time.monotonic() + 300
-        for name, world, log, proc in procs:
+        for name, out, proc in procs:
             try:
                 rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 rc = None
             if rc != 0:
-                with open(log) as f:
-                    fail(f"ddp child ({name}, world {world}) exited with "
-                         f"{rc}:\n{f.read()[-3000:]}")
+                with open(out[:-3] + ".log") as f:
+                    fail(f"child {name} exited with {rc}:\n"
+                         f"{f.read()[-3000:]}")
     finally:
         for *_, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    import torch
-
-    return {key: [torch.load(o, weights_only=True) for o in paths]
-            for key, paths in outs.items()}
+    return [[torch.load(o, weights_only=False) for o in world_outs]
+            for world_outs in outs]
 
 
 def phase_ddp_one_card() -> None:
     import torch
 
-    worlds = run_worlds([(name, label, world) for name, label in DDP_CASES
-                         for world in (1, 2)])
+    keys = [(name, label, world) for name, label in DDP_CASES
+            for world in (1, 2)]
+    worlds = dict(zip(keys, run_worlds([
+        (f"ddp-{name}-{label}-w{world}", world, DDP_CHILD, [name],
+         ["--global-batch", str(DDP_GLOBAL_BATCH), "--precision", label])
+        for name, label, world in keys])))
     for name, label in DDP_CASES:
         one = worlds[(name, label, 1)][0]
         two = worlds[(name, label, 2)]
@@ -1772,6 +1824,442 @@ def phase_cnn_profile() -> None:
             f"x{e.count // reps}" for e in top[:6]))
 
 
+# -- phase 16: K4, K2p and K3p against their plain versions ------------------
+
+# (label, B, S, H, D, causal, q block, k block, kv_valid, timed): q's
+# positions are q_block * S + 0..S-1, k's k_block * S + 0..S-1, as on the
+# ring, where the rank of model index m holds block m and sees block
+# (m - t) mod M at step t.  The vit's shard on a ring of two is S = 25 of
+# its 49 tokens padded to 50 (kv_valid 49), at B = 128 (the data shard's
+# 2 x 64 rows).
+RING_CASES = (
+    ("vit rank-1 q vs rank-0 K/V", 128, 25, 4, 32, False, 1, 0, 49, True),
+    ("vit rank-1 q vs its own K/V", 128, 25, 4, 32, False, 1, 1, 49, False),
+    ("vit keys all padding", 128, 25, 4, 32, False, 0, 2, 50, False),
+    ("causal future block (all masked)", 8, 128, 4, 64, True, 0, 1, None,
+     False),
+    ("causal past block", 8, 128, 4, 64, True, 1, 0, None, False),
+    ("causal diagonal block", 8, 128, 4, 64, True, 1, 1, None, True),
+    ("wide heads D=128", 8, 128, 4, 128, False, 1, 0, None, True),
+    ("long shard", 2, 500, 4, 64, True, 1, 1, None, True),
+)
+RING_MAIN = ("vit rank-1 q vs rank-0 K/V", "bfloat16")
+# K4's O and lse against the plain version: both f32 from the same f32
+# (or exactly widened bf16) inputs, sums in other orders.  K2p/K3p: as
+# K2/K3 (TOL_GRAD), relative to the plain version's largest value.
+TOL_O_POS = 2e-5
+
+
+def ring_bounds(b, s, h, d, dtype_name, pairs):
+    """Least times of K4, K2p and K3p (ms, "bytes" or "operations"): each
+    input read once and each output written once (K4: q, k, v, two (S,)
+    int32 position vectors; O in f32 and lse; K2p/K3p: q, k, v, the f32 dO,
+    lse, delta and the positions; dq, or dk and dv), or the products on
+    the ``pairs`` (q, k) pairs that the masks keep (K4: 2, K2p: 3, K3p: 4
+    products of 2 * D operations a pair and head) at the card's peak for
+    the input type."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    t = b * s * h * d
+    rows = b * h * s * 4
+    pos = 2 * s * 4
+    nbytes = {"flash_fwd_pos": 3 * t * item + pos + 4 * t + rows,
+              "flash_dq_pos": 4 * t * item + 4 * t + 2 * rows + pos,
+              "flash_dkv_pos": 5 * t * item + 4 * t + 2 * rows + pos}
+    products = {"flash_fwd_pos": 2, "flash_dq_pos": 3, "flash_dkv_pos": 4}
+    out = {}
+    for name, nb in nbytes.items():
+        t_bytes = nb / HBM_BYTES_PER_S * 1e3
+        t_ops = (products[name] * 2 * b * h * pairs * d
+                 / PEAK_OPS_PER_S[dtype_name] * 1e3)
+        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+    return out
+
+
+def phase_ring_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from distributedpytorch_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = {}
+    wrappers = {"flash_fwd_pos": tfa.flash_attention_partial_fwd,
+                "flash_dq_pos": tfa.flash_attention_partial_dq,
+                "flash_dkv_pos": tfa.flash_attention_partial_dkv}
+    for (label, b, s, h, d, causal, qb, kb, kv_valid, timed) in RING_CASES:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = (t.reshape(b, s, h, d)
+                       for t in qkv.split(h * d, dim=-1))
+            base = torch.arange(s, dtype=torch.int32, device="cuda")
+            qp, kp = base + qb * s, base + kb * s
+            do = torch.randn((b, s, h, d), generator=gen, device="cuda")
+            dlse = torch.randn((b * h, s), generator=gen, device="cuda")
+            before = {n: w.launches for n, w in wrappers.items()}
+            o, lse = tfa.flash_attention_partial_fwd(q, k, v, qp, kp, causal,
+                                                     kv_valid)
+            delta = tfa.partial_delta(o, do, dlse)
+            dq = tfa.flash_attention_partial_dq(q, k, v, do, lse, delta, qp,
+                                                kp, causal, kv_valid)
+            dk, dv = tfa.flash_attention_partial_dkv(
+                q, k, v, do, lse, delta, qp, kp, causal, kv_valid)
+            torch.cuda.synchronize()
+            if any(w.launches != before[n] + 1 for n, w in wrappers.items()):
+                fail(f"K4/K2p/K3p wrappers did not count their launches at "
+                     f"{label}")
+            po, plse = tfa.flash_attention_partial_plain(q, k, v, qp, kp,
+                                                         causal, kv_valid)
+            pdq, pdk, pdv = tfa.flash_attention_partial_bwd_plain(
+                q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid)
+            err_o = (o - po).abs().max().item()
+            err_lse = (lse - plse).abs().max().item()
+            errs = {"dq": rel_err(dq, pdq), "dk": rel_err(dk, pdk),
+                    "dv": rel_err(dv, pdv)}
+            tol = TOL_GRAD[dt]
+            finite = all(torch.isfinite(x).all().item()
+                         for x in (o, lse, dq, dk, dv))
+            if not (finite and err_o <= TOL_O_POS and err_lse <= TOL_LSE
+                    and all(e[1] <= tol for e in errs.values())):
+                fail(f"K4/K2p/K3p disagree with their plain versions at "
+                     f"{label} {dt}: err_o {err_o} (tol {TOL_O_POS}), "
+                     f"err_lse {err_lse} (tol {TOL_LSE}), rel "
+                     f"{ {n: e[1] for n, e in errs.items()} } (tol {tol}), "
+                     f"finite {finite}")
+            keep = torch.ones((s, s), dtype=torch.bool, device="cuda")
+            if causal:
+                keep &= qp[:, None] >= kp[None, :]
+            if kv_valid is not None:
+                keep &= (kp < kv_valid)[None, :]
+            pairs = int(keep.sum().item())
+            bounds = ring_bounds(b, s, h, d, dt, pairs)
+            line = (f"ring kernels {label} {(b, s, h, d)} {dt} causal="
+                    f"{causal} kv_valid={kv_valid} ({pairs} of {s * s} "
+                    f"pairs kept): err_o={err_o:.3g} err_lse={err_lse:.3g} "
+                    f"(tol {TOL_O_POS:g}, {TOL_LSE:g}); rel err "
+                    f"dq={errs['dq'][1]:.3g} dk={errs['dk'][1]:.3g} "
+                    f"dv={errs['dv'][1]:.3g} (tol {tol:g}, dlse nonzero); "
+                    f"bound_us K4={bounds['flash_fwd_pos'][0] * 1e3:.3f} "
+                    f"K2p={bounds['flash_dq_pos'][0] * 1e3:.3f} "
+                    f"K3p={bounds['flash_dkv_pos'][0] * 1e3:.3f} "
+                    f"({bounds['flash_fwd_pos'][1]})")
+            if not timed:
+                say(line)
+                continue
+            # yardstick only: SDPA with the same boolean mask (it returns
+            # no lse), and its backward for dq, dk and dv in one call
+            qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                          .requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+            dot = do.to(dtype).transpose(1, 2).contiguous()
+            reps = 50 if s < 500 else 20
+            fns = {
+                "K4": lambda: tfa.flash_attention_partial_fwd(
+                    q, k, v, qp, kp, causal, kv_valid),
+                "K4 plain": lambda: tfa.flash_attention_partial_plain(
+                    q, k, v, qp, kp, causal, kv_valid),
+                "sdpa": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=keep),
+                "K2p": lambda: tfa.flash_attention_partial_dq(
+                    q, k, v, do, lse, delta, qp, kp, causal, kv_valid),
+                "K3p": lambda: tfa.flash_attention_partial_dkv(
+                    q, k, v, do, lse, delta, qp, kp, causal, kv_valid),
+                "bwd plain": lambda: tfa.flash_attention_partial_bwd_plain(
+                    q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid),
+                "sdpa bwd": lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True)}
+            call = {n: time_ms(f, reps) for n, f in fns.items()}
+            dev = device_ms(fns, reps)
+            say(line + "; device_ms " + " ".join(
+                f"{n.replace(' ', '_')}={fmt_ms(dev[n])}" for n in fns)
+                + "; call_ms " + " ".join(
+                    f"{n.replace(' ', '_')}={call[n]:.5f}" for n in fns))
+            for name, key, plain, lib, err in (
+                    ("flash_fwd_pos", "K4", "K4 plain", "sdpa",
+                     (err_o, err_o)),
+                    ("flash_dq_pos", "K2p", "bwd plain", "sdpa bwd",
+                     errs["dq"]),
+                    ("flash_dkv_pos", "K3p", "bwd plain", "sdpa bwd",
+                     max(errs["dk"], errs["dv"], key=lambda e: e[1]))):
+                rows[(name, label, dt)] = dict(
+                    max_abs_err=err[0], ms=dev[key], plain_ms=dev[plain],
+                    library_ms=dev[lib], bound_ms=bounds[name][0],
+                    bound_by=bounds[name][1], call_ms=call[key],
+                    plain_call_ms=call[plain], library_call_ms=call[lib])
+    return rows
+
+
+# -- phase 17: the ring op on two ranks sharing the card ----------------------
+
+RING_CHILD = os.path.join(ROOT, "tests", "_torch_ring_child.py")
+# (label, B, S, H, D, dtype, causal): S = 49 is the vit's (padded to 50,
+# the padded key masked); the causal long shape gives each rank 500 rows.
+RING_OP_CASES = (("vit", 128, 49, 4, 32, "float32", False),
+                 ("vit", 128, 49, 4, 32, "bfloat16", False),
+                 ("causal long", 2, 1000, 4, 64, "float32", True))
+# The ring against one process's full_attention (ring) or flash_attention
+# (ring_flash), absolute: f32 outputs 2e-5 and gradients 5e-5 (the JAX
+# package's ring-test tolerances: the same f32 math in other orders);
+# bf16: 2e-2 of the largest value (one rounding of the output, and of
+# each ring step's gradient).
+TOL_RING_OP = {"float32": (2e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
+
+
+def ring_world(mode: str, spec, world: int, name: str, *args) -> tuple:
+    """A ``run_worlds`` entry of ``tests/_torch_ring_child.py MODE`` on
+    ``spec`` (saved to WORK/NAME-in.pt) in ``world`` ranks."""
+    import torch
+
+    inp = os.path.join(WORK, f"{name}-in.pt")
+    torch.save(spec, inp)
+    return name, world, RING_CHILD, [mode, inp], list(args)
+
+
+def phase_ring_op() -> None:
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.ops.attention import full_attention
+    from distributedpytorch_tpu_torch.ops.flash_attention import (
+        flash_attention)
+
+    rng = np.random.default_rng(SEED + 5)
+    spec, refs = [], []
+    for (label, b, s, h, d, dt, causal) in RING_OP_CASES:
+        q, k, v, w = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+                      for _ in range(4))
+        for flash in (False, True):
+            if dt == "bfloat16" and not flash:
+                continue        # the einsum ring computes in f32 anyway
+            spec.append(dict(q=q, k=k, v=v, w=w, causal=causal,
+                             use_flash=flash, ragged=s % 2 != 0, dtype=dt))
+            ts = [torch.from_numpy(x).cuda().to(getattr(torch, dt))
+                  .requires_grad_() for x in (q, k, v)]
+            fn = flash_attention if flash else full_attention
+            o = fn(*ts, causal)
+            (o.float() * torch.from_numpy(w).cuda()).sum().backward()
+            refs.append((label, dt, causal, flash,
+                         [x.detach().float().cpu() for x in
+                          (o, *(t.grad for t in ts))]))
+    t0 = time.perf_counter()
+    got, = run_worlds([ring_world("attn", spec, 2, "ring_op")])
+    wall = time.perf_counter() - t0
+    if [r["backend"] for r in got] != ["gloo", "gloo"]:
+        fail(f"two ranks on one card must run gloo, got "
+             f"{[r['backend'] for r in got]}")
+    for i, (label, dt, causal, flash, ref) in enumerate(refs):
+        tol_o, tol_g = TOL_RING_OP[dt]
+        for r in got:
+            res = [torch.from_numpy(r["cases"][i][n])
+                   for n in ("o", "dq", "dk", "dv")]
+            if dt == "float32":
+                errs = [(a - e).abs().max().item() for a, e in zip(res, ref)]
+            else:
+                errs = [rel_err(a, e)[1] for a, e in zip(res, ref)]
+            ok = all(math.isfinite(e) for e in errs) and errs[0] <= tol_o \
+                and max(errs[1:]) <= tol_g
+            if r["rank"] == 0 or not ok:
+                say(f"ring op {label} {dt} causal={causal} "
+                    f"{'ring_flash vs flash' if flash else 'ring vs full'} "
+                    f"(rank {r['rank']} of 2, gloo): "
+                    f"{'rel ' if dt == 'bfloat16' else ''}err o={errs[0]:.3g} "
+                    f"(tol {tol_o:g}) dq={errs[1]:.3g} dk={errs[2]:.3g} "
+                    f"dv={errs[3]:.3g} (tol {tol_g:g})")
+            if not ok:
+                fail(f"the 2-rank ring disagrees at {label} {dt}")
+    say(f"ring op: {len(refs)} cases on 2 ranks in {wall:.1f}s of process "
+        f"wall (start-up included)")
+
+
+# -- phase 18: the ring slice's main path -------------------------------------
+
+TORCHRUN2 = ("-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2")
+MODEL_PARALLEL = 2
+
+
+def parse_ring_launches(log: str, action: str) -> dict:
+    m = re.search(rf"{action}: ring kernel launches flash_fwd_pos (\d+), "
+                  rf"flash_dq_pos (\d+), flash_dkv_pos (\d+) over", log)
+    if m is None:
+        fail(f"{action} did not log its ring kernel launches")
+    return dict(zip(("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"),
+                    (int(x) for x in m.groups())))
+
+
+def phase_ring_train() -> dict:
+    """``train --attention ring_flash --model-parallel 2`` on two ranks
+    sharing the card, on phase 6's corpus; then ``test -f`` under the same
+    launch and ``test -f --attention flash`` in one process, at once."""
+    ring = ["--attention", "ring_flash", "--model-parallel",
+            str(MODEL_PARALLEL)]
+    rsl = os.path.join(WORK, "ring_rsl")
+    wall, log = run_cli(["train", "--model", "vit", *ring, "-e", "1"], rsl,
+                        launcher=TORCHRUN2, data=VIT_DATA)
+    for line in ("process: 0/2, world size: 2, backend: gloo",
+                 "mesh: data 1 x model 2, ring over the model group on gloo",
+                 "batch size: 64/replica (128 global)"):
+        if line not in log:
+            fail(f"the ring train did not log {line!r}")
+    say("ring train: " + re.search(r"mesh: .*", log).group(0))
+    launches, steps, evals = parse_launches(log, "train")
+    ring_launches = parse_ring_launches(log, "train")
+    n_train = int(VIT_TRAIN_ROWS * 0.9)
+    world = 2
+    want_steps = math.ceil(n_train / world / TRAIN_BATCH)
+    want_evals = math.ceil((VIT_TRAIN_ROWS - n_train) / world / TRAIN_BATCH)
+    per = DEPTH * MODEL_PARALLEL
+    want = {"flash_fwd_pos": per * (steps + evals),
+            "flash_dq_pos": per * steps, "flash_dkv_pos": per * steps}
+    say(f"ring train: launches {ring_launches} and {launches} over {steps} "
+        f"steps and {evals} eval batches; formula {want}, K1-K3 and K5 0")
+    if (steps, evals) != (want_steps, want_evals) or ring_launches != want \
+            or any(launches.values()):
+        fail(f"ring train launches {ring_launches}, {launches} over {steps} "
+             f"steps / {evals} eval batches do not match the formula {want} "
+             f"at {want_steps} steps / {want_evals} eval batches")
+    check_epoch_log("ring train", log, steps, wall)
+    best = os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+    (_, ring_log), (_, flash_log) = finish_all([
+        start_cli(["test", "-f", best, *ring], os.path.join(WORK,
+                                                           "ring_test"),
+                  launcher=TORCHRUN2, data=VIT_DATA),
+        start_cli(["test", "-f", best, "--attention", "flash"],
+                  os.path.join(WORK, "ring_test_flash"), data=VIT_DATA)])
+    acc_here, correct, n = eval_accuracy(best, "vit", VIT_DATA)
+    acc_ring = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                         ring_log).group(1)
+    acc_flash = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                          flash_log).group(1)
+    test_ring = parse_ring_launches(ring_log, "test")
+    _, _, test_evals = parse_launches(ring_log, "test")
+    rows_apart = abs(round(float(acc_ring) * n / 100) - correct)
+    say(f"ring test: `test -f` on 2 ranks (ring_flash) {acc_ring}% "
+        f"({test_evals} eval batches, launches {test_ring}); `test -f "
+        f"--attention flash` on 1 process {acc_flash}%; in-process flash "
+        f"eval {acc_here}% ({correct}/{n}); ring vs flash {rows_apart} rows "
+        f"apart (allowed {RING_TEST_ROWS})")
+    if acc_flash != acc_here or rows_apart > RING_TEST_ROWS \
+            or test_ring != {"flash_fwd_pos": per * test_evals,
+                             "flash_dq_pos": 0, "flash_dkv_pos": 0}:
+        fail("the ring-trained model's test disagrees with the in-process "
+             "eval, or its launches with the formula")
+    return ring_launches
+
+
+# The ring's test against the one-process flash eval of the same file: the
+# two attentions round their bf16 output at other points (the ring merges
+# its f32 partials, then casts once), which may flip the argmax of a row
+# whose two best logits are within a bf16 rounding.
+RING_TEST_ROWS = 2
+
+
+# -- phase 19: three f32 steps, 2-rank rings against 1-process flash ----------
+
+RING_STEP_BATCH = 16
+TOL_RING_STEP = 1e-5
+
+
+def phase_ring_steps() -> None:
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+
+    rng = np.random.default_rng(SEED + 6)
+    steps = []
+    for i in range(3):
+        gb = RING_STEP_BATCH
+        valid = np.ones(gb, bool)
+        if i == 0:
+            valid[gb // 2:gb - 1] = False
+        u = torch.from_numpy(rng.random((gb, 5), dtype=np.float32))
+        steps.append((rng.integers(0, 256, (gb, 28, 28), dtype=np.uint8),
+                      rng.integers(0, 10, gb), valid,
+                      [t.numpy() for t in augment.affine_from_uniform(
+                          u, 28, 28)]))
+    kinds = (("flash", 1), ("ring_flash", 2), ("ring", 2))
+    worlds = dict(zip((a for a, _ in kinds), run_worlds([
+        ring_world("vit", dict(arch={}, attention=attention, seed=SEED,
+                               params=None, steps=steps), world,
+                   f"ring_step_{attention}", "--model-parallel", str(world))
+        for attention, world in kinds])))
+    one = worlds["flash"][0]
+    for attention in ("ring_flash", "ring"):
+        ranks = worlds[attention]
+        same = all(torch.equal(v, ranks[0]["state"][k])
+                   for r in ranks for k, v in r["state"].items())
+        w = worst(ranks[0]["state"], one["state"])
+        loss_err = max(abs(a[0] - b[0]) for a, b in
+                       zip(ranks[0]["metrics"], one["metrics"]))
+        counts = [m[1:] for m in ranks[0]["metrics"]] == \
+            [m[1:] for m in one["metrics"]]
+        launches = ranks[0]["launches"]
+        say(f"ring steps: {attention} on 2 ranks (gloo) vs flash on 1, 3 "
+            f"f32 SGD steps of the full-width vit on a global batch of "
+            f"{RING_STEP_BATCH}: worst tensor {w[0]} rel err {w[1]:.3g} "
+            f"(tol {TOL_RING_STEP:g}) over {len(one['state'])} tensors; "
+            f"loss err {loss_err:.3g}; correct/valid equal: {counts}; ranks "
+            f"equal: {same}; rank 0 launches {launches}")
+        want = (DEPTH * MODEL_PARALLEL * 3 if attention == "ring_flash"
+                else 0)
+        if not (same and counts and math.isfinite(w[1])
+                and w[1] <= TOL_RING_STEP and loss_err <= TOL_RING_STEP) \
+                or launches["flash_fwd_pos"] != want \
+                or launches["flash_dq_pos"] != want:
+            fail(f"the 2-rank {attention} steps disagree with 1-process "
+                 f"flash")
+
+
+# -- phase 20: where the time goes in a ring train step -----------------------
+
+RING_PROFILE_STEPS = 10
+
+
+def phase_ring_profile() -> None:
+    """One ring_flash train step of the full-width vit on two ranks sharing
+    the card, bf16, 64 rows a replica (the data shard's 128 rows on each
+    rank), as in phase 18 but SGD: wall ms per step (host clock,
+    synchronized), then from RING_PROFILE_STEPS steps under torch.profiler
+    the device time, kernels per step, the idle share, K4/K2p/K3p and the
+    host copies of the gloo transport.  Both ranks run it; each reports."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+
+    gb = TRAIN_BATCH * 2
+    rng = np.random.default_rng(SEED + 7)
+    u = torch.from_numpy(rng.random((gb, 5), dtype=np.float32))
+    step = (rng.integers(0, 256, (gb, 28, 28), dtype=np.uint8),
+            rng.integers(0, 10, gb), np.ones(gb, bool),
+            [t.numpy() for t in augment.affine_from_uniform(u, 28, 28)])
+    spec = dict(arch={}, attention="ring_flash", seed=SEED, params=None,
+                steps=[step], precision="bf16", profile=RING_PROFILE_STEPS)
+    ranks, = run_worlds([ring_world("vit", spec, 2, "ring_profile",
+                                    "--model-parallel", "2")])
+    for r in ranks:
+        p = r["profile"]
+        dev = p["device_ms"]
+        if dev <= 0:
+            say(f"profile: ring_flash train step, rank {r['rank']}: wall "
+                f"{p['wall_ms']:.3f} ms/step; device time not measured (no "
+                f"device events)")
+            continue
+        parts = "; ".join(
+            f"{n} {p[k]:.2f} us/step ({100 * p[k] / 1e3 / dev:.1f}%)"
+            for n, k in (("K4", "k4_us"), ("K2p", "k2p_us"),
+                         ("K3p", "k3p_us"), ("host copies", "memcpy_us")))
+        say(f"profile: ring_flash train step, rank {r['rank']} of 2 (gloo, "
+            f"M = 2), {gb} rows a rank, bf16: wall {p['wall_ms']:.3f} "
+            f"ms/step, device {dev:.3f} ms in {p['kernels']:.0f} kernels "
+            f"(idle {100 * (1 - dev / p['wall_ms']):.1f}%); {parts}")
+        say("profile:   top: " + "; ".join(
+            f"{k} {us:.1f}us x{c}" for k, us, c in p["top"]))
+
+
 def main() -> int:
     try:
         import torch
@@ -1822,6 +2310,21 @@ def main() -> int:
     run(phase_reference_job)
     run(phase_ddp_one_card)
     run(phase_cnn_profile)
+    ring_rows = run(phase_ring_kernels)
+    for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
+        main_rows[name] = ring_rows[(name,) + RING_MAIN]
+        missing = [k for k in ("ms", "plain_ms", "library_ms")
+                   if main_rows[name][k] is None]
+        if missing:
+            fail(f"torch.profiler returned no device events for {missing} "
+                 f"of {name} at the ring's main shape")
+    run(phase_ring_op)
+    launches.update(run(phase_ring_train))
+    for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the ring train path")
+    run(phase_ring_steps)
+    run(phase_ring_profile)
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **main_rows[name]} for name, source, replaces in KERNELS]

@@ -25,10 +25,17 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     metrics exporter, flight recorder, goodput ledger or hot-swap
     (``/admin/reload`` answers 501).
 
+Under ``--model-parallel M`` the world is the JAX (world / M, M) mesh
+(``runtime.Mesh``): a rank trains and evaluates its data shard's rows, the
+M ranks of a shard split the vit's tokens in the ring of ``--attention
+ring|ring_flash``, and the loss and metric sums count each shard once.
+
 The reference's log lines are kept word for word in RSL_PATH/test.log
-(the ``process:`` line adds the backend of a process group).  ``train``
-and ``test`` log the launches of kernels K1 (flash_fwd), K2 (flash_dq),
-K3 (flash_dkv) and K5 (conv_dw) on rank 0; ``serve`` logs K1's.  The
+(the ``process:`` line adds the backend of a process group; a ``mesh:``
+line names the ring's transport).  ``train`` and ``test`` log the launches
+of kernels K1 (flash_fwd), K2 (flash_dq), K3 (flash_dkv) and K5 (conv_dw)
+on rank 0, and on a second line those of the ring's K4 (flash_fwd_pos),
+K2p (flash_dq_pos) and K3p (flash_dkv_pos); ``serve`` logs K1's.  The
 device is ``cuda`` unless ``--device cpu`` is given; without a GPU the run
 stops with one line instead of running on the CPU.
 """
@@ -51,13 +58,17 @@ from .data.datasets import Dataset, Split, load_dataset
 from .data.pipeline import ResidentLoader
 from .models import get_model, get_model_input_size
 from .ops.conv import conv3x3_dw
-from .ops.flash_attention import (flash_attention_dkv, flash_attention_dq,
-                                  flash_attention_fwd)
+from .ops import flash_attention as fa
 from .ops.losses import get_loss_fn
 from .train.engine import Engine, Predictor, TrainState
 
-KERNELS = {"flash_fwd": flash_attention_fwd, "flash_dq": flash_attention_dq,
-           "flash_dkv": flash_attention_dkv, "conv_dw": conv3x3_dw}
+KERNELS = {"flash_fwd": fa.flash_attention_fwd,
+           "flash_dq": fa.flash_attention_dq,
+           "flash_dkv": fa.flash_attention_dkv, "conv_dw": conv3x3_dw,
+           "flash_fwd_pos": fa.flash_attention_partial_fwd,
+           "flash_dq_pos": fa.flash_attention_partial_dq,
+           "flash_dkv_pos": fa.flash_attention_partial_dkv}
+RING_KERNELS = ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")
 
 
 def kernel_launches() -> dict:
@@ -65,16 +76,27 @@ def kernel_launches() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def _launch_line(before: dict) -> str:
+def _launch_line(before: dict, ring: bool = False) -> str:
+    """The launches since ``before``: of K1, K2, K3 and K5, or with
+    ``ring`` of K4, K2p and K3p."""
     now = kernel_launches()
-    return ", ".join(f"{name} {now[name] - before[name]}" for name in now)
+    return ", ".join(f"{name} {now[name] - before[name]}" for name in now
+                     if (name in RING_KERNELS) == ring)
+
+
+def _log_launches(action: str, before: dict, over: str) -> None:
+    logging.info(f"{action}: kernel launches {_launch_line(before)} over "
+                 f"{over}")
+    logging.info(f"{action}: ring kernel launches "
+                 f"{_launch_line(before, ring=True)} over {over}")
 
 
 def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
-                  steps_per_epoch: int, device: torch.device) -> Engine:
+                  steps_per_epoch: int, device: torch.device,
+                  mesh: runtime.Mesh) -> Engine:
     policy = cfg.precision_policy()
     model = get_model(model_name, dataset.nb_classes, policy,
-                      attention=cfg.attention, device=device)
+                      attention=cfg.attention, device=device, mesh=mesh)
     class_weights = (dataset.class_weights()
                      if cfg.loss in ("weighted_cross_entropy", "focal_loss")
                      else None)
@@ -85,11 +107,12 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
                   optimizer=cfg.optimizer, learning_rate=cfg.learning_rate,
                   momentum=cfg.momentum, lr_step_gamma=cfg.lr_step_gamma,
                   steps_per_epoch=steps_per_epoch,
-                  feature_extract=cfg.feature_extract)
+                  feature_extract=cfg.feature_extract, mesh=mesh)
 
 
 def _make_loader(cfg: Config, split: Split, shuffle: bool,
-                 device: torch.device) -> ResidentLoader:
+                 device: torch.device, mesh: runtime.Mesh
+                 ) -> ResidentLoader:
     """The device-resident loader; a split over the resident cap would
     need the streaming loader, which is not ported yet."""
     if cfg.data_mode == "auto" and split.images.nbytes > RESIDENT_MAX_BYTES:
@@ -99,14 +122,15 @@ def _make_loader(cfg: Config, split: Split, shuffle: bool,
     return ResidentLoader(split, cfg.batch_size, shuffle=shuffle,
                           seed=cfg.seed, device=device,
                           world=runtime.world_size(),
-                          rank=runtime.process_index())
+                          rank=runtime.process_index(),
+                          model_parallel=mesh.model_parallel)
 
 
 def _start(cfg: Config, action: str) -> tuple:
     """Common start of train and test: refusals, device, the process
-    world, logging (rank 0 writes RSL_PATH/test.log; the other ranks log
-    warnings only), telemetry, the run_start event.  Returns (device,
-    telemetry)."""
+    world and its mesh, logging (rank 0 writes RSL_PATH/test.log; the other
+    ranks log warnings only), telemetry, the run_start event.  Returns
+    (device, telemetry, mesh)."""
     check_ported(cfg)
     if cfg.batch_size < 1:
         raise ValueError(f"batch size must be >= 1, got {cfg.batch_size}")
@@ -125,24 +149,33 @@ def _start(cfg: Config, action: str) -> tuple:
               backend=backend)
     logging.info(f"process: {rank}/{runtime.process_count()}, world size: "
                  f"{world}" + (f", backend: {backend}" if backend else ""))
-    return device, tel
+    mesh = runtime.make_mesh(cfg.model_parallel)
+    if mesh.model_parallel > 1:
+        staged = runtime.staged_through_host(mesh.model_group, device)
+        logging.info(
+            f"mesh: data {mesh.data_parallel} x model {mesh.model_parallel}"
+            f", ring over the model group on {backend}"
+            + (" (CUDA blocks staged through host memory)" if staged
+               else ""))
+    return device, tel, mesh
 
 
 def _run_eval_pass(engine: Engine, state: TrainState,
                    loader: ResidentLoader, epoch: int
                    ) -> tuple[float, float]:
-    """One no-grad pass over this rank's shard; returns (loss, accuracy)
-    over the valid rows of every rank (one all-reduce), read from the
-    device once."""
+    """One no-grad pass over this rank's data shard; returns (loss,
+    accuracy) over the valid rows of every shard (one all-reduce over the
+    data group), read from the device once."""
     with telemetry.get().span("eval_pass", epoch=epoch, steps=len(loader)):
         totals = None
         for images, labels, valid in loader.epoch(epoch):
             m = engine.eval_step(state, images, labels, valid)
             totals = m if totals is None else {k: totals[k] + m[k]
                                                for k in totals}
-        numer, denom, correct, n_valid = runtime.all_reduce_sum(torch.stack(
-            [totals[k] for k in ("loss_numer", "loss_denom", "correct",
-                                 "valid")])).cpu().tolist()
+        numer, denom, correct, n_valid = runtime.all_reduce_sum(
+            torch.stack([totals[k] for k in ("loss_numer", "loss_denom",
+                                             "correct", "valid")]),
+            engine.mesh.data_group).cpu().tolist()
     return numer / max(denom, 1e-9), correct / max(n_valid, 1.0)
 
 
@@ -255,7 +288,7 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
 
 def run_train(cfg: Config) -> dict:
     """ref train() (classif.py:75-192), one process on one device."""
-    device, tel = _start(cfg, "train")
+    device, tel, mesh = _start(cfg, "train")
     try:
         if device.type == "cuda":
             torch.backends.cudnn.deterministic = True
@@ -278,11 +311,11 @@ def run_train(cfg: Config) -> dict:
                                debug=cfg.debug, log=True,
                                synthetic_fallback=cfg.synthetic_fallback)
         train_loader = _make_loader(cfg, dataset.splits["train"], True,
-                                    device)
+                                    device, mesh)
         valid_loader = _make_loader(cfg, dataset.splits["valid"], False,
-                                    device)
+                                    device, mesh)
         engine = _build_engine(cfg, model_name, dataset, len(train_loader),
-                               device)
+                               device, mesh)
         tel.event("precision_policy", remat="none", grad_accum=1,
                   **engine.precision.describe())
         state = engine.init_state(torch.Generator().manual_seed(cfg.seed))
@@ -304,8 +337,8 @@ def run_train(cfg: Config) -> dict:
         runtime.barrier()       # every rank returns after rank 0's writes
         steps = state.step - step0
         evals = len(result["history"]) * len(valid_loader)
-        logging.info(f"train: kernel launches {_launch_line(before)} over "
-                     f"{steps} train steps and {evals} eval batches")
+        _log_launches("train", before,
+                      f"{steps} train steps and {evals} eval batches")
         result["launches"] = {k: v - before[k]
                               for k, v in kernel_launches().items()}
         return result
@@ -315,16 +348,16 @@ def run_train(cfg: Config) -> dict:
 
 def run_test(cfg: Config) -> dict:
     """ref test() (classif.py:197-243), one process on one device."""
-    device, tel = _start(cfg, "test")
+    device, tel, mesh = _start(cfg, "test")
     try:
         model_name = ckpt.get_checkpoint_model_name(cfg.checkpoint_file)
         dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
                                debug=cfg.debug, log=True,
                                synthetic_fallback=cfg.synthetic_fallback)
         test_loader = _make_loader(cfg, dataset.splits["test"], False,
-                                   device)
+                                   device, mesh)
         engine = _build_engine(cfg, model_name, dataset, len(test_loader),
-                               device)
+                               device, mesh)
         state = engine.init_state(torch.Generator().manual_seed(cfg.seed))
         ckpt.load_checkpoint(cfg.checkpoint_file, state.model,
                              restore_optimizer=False)
@@ -335,8 +368,7 @@ def run_test(cfg: Config) -> dict:
     finally:
         tel.close()
     logging.info(f"Time: {mins}m {secs}s, Acc: {acc * 100:.2f}%")
-    logging.info(f"test: kernel launches {_launch_line(before)} over "
-                 f"{len(test_loader)} eval batches")
+    _log_launches("test", before, f"{len(test_loader)} eval batches")
     return {"test_loss": loss, "test_acc": acc, "model_name": model_name}
 
 
@@ -413,14 +445,14 @@ def run_serve(cfg: Config) -> dict:
     images = dataset.splits["test"].images
     sample_shape, sample_dtype = images.shape[1:], images.dtype
 
-    launches0 = flash_attention_fwd.launches
+    launches0 = fa.flash_attention_fwd.launches
     shutdown = utils.GracefulShutdown()
     tier = None
     try:
         with shutdown:
             infer = _serve_build_replica(cfg, model_name, dataset, buckets,
                                          sample_shape, sample_dtype, device)
-            warm_launches = flash_attention_fwd.launches - launches0
+            warm_launches = fa.flash_attention_fwd.launches - launches0
             tier = serving.ServingTier(
                 infer, sample_shape, sample_dtype, buckets,
                 max_queue=cfg.serve_queue,
@@ -433,7 +465,7 @@ def run_serve(cfg: Config) -> dict:
             tier.start()
             answered = tier.run(shutdown=shutdown)
         batches = int(tel.counter("serve/batches").value)
-        launches = flash_attention_fwd.launches - launches0
+        launches = fa.flash_attention_fwd.launches - launches0
         logging.info(f"serve: stopped after answering {answered} requests "
                      f"in {batches} batches")
         logging.info(f"serve: flash_fwd launches {launches} "

@@ -14,7 +14,12 @@ only exist to be refused are one table each (``REFUSED_EVERYWHERE``,
 holds are refused by ``check_ported``.  ``train`` and ``test`` run
 ``cnn``, ``mlp``, ``resnet`` (the default, as in the JAX package) and
 ``vit``; ``serve`` runs ``vit``.  ``--attention`` other than ``full`` on a
-model without attention is refused with the JAX registry's message.  Two
+model without attention is refused with the JAX registry's message.
+``--model-parallel M`` (M >= 2) runs only the ring of ``--attention ring``
+or ``ring_flash`` over the (world / M, M) mesh, with the parameters
+replicated on every rank: the JAX package's placement of parameters over
+'model' (a memory layout that changes no number) is not ported, so with
+any other attention it is refused.  Two
 defaults differ because the JAX default is not ported: the flight
 recorder is off (``--flightrec`` is refused), and ``test`` takes the model
 from the checkpoint, so its ``--model`` defaults to none (the JAX ``test``
@@ -94,6 +99,7 @@ class Config:
     serve_request_timeout: float = 30.0
     serve_max_requests: int = 0
     device: str = "cuda"
+    model_parallel: int = 1
 
     def precision_policy(self):
         """The resolved precision.PrecisionPolicy for this config."""
@@ -106,14 +112,16 @@ def not_ported(cfg: Config) -> Optional[str]:
     """The first setting of ``cfg`` this slice does not support, spelled
     as on the command line, or None."""
     models = SERVE_MODELS if cfg.action == "serve" else TRAIN_MODELS
+    ring = cfg.attention in ("ring", "ring_flash")
     checks = (
         (cfg.model_name not in (None,) + models, f"--model {cfg.model_name}"),
-        (cfg.attention in ("ring", "ring_flash")
-         and cfg.model_name in (None, "vit"),
+        (ring and cfg.action == "serve" and cfg.model_name in (None, "vit"),
          f"--attention {cfg.attention}"),
         (cfg.precision not in (None, "bf16", "f32"),
          f"--precision {cfg.precision}"),
         (cfg.data_mode == "stream", "--data-mode stream"),
+        (cfg.model_parallel > 1 and not ring and cfg.action != "serve",
+         "--model-parallel (parameter sharding over 'model')"),
     )
     for refused, flag in checks:
         if refused:
@@ -124,6 +132,13 @@ def not_ported(cfg: Config) -> Optional[str]:
 def check_ported(cfg: Config) -> Config:
     """Raise ValueError("not ported yet: --X") for the first unsupported
     setting; return ``cfg`` otherwise."""
+    if cfg.action == "serve" and cfg.model_parallel > 1:
+        # the JAX run_serve's refusal (cli.py:1499-1509)
+        raise ValueError(
+            "serve runs replica-local data-parallel inference; "
+            "--model-parallel/--tensor-parallel/--pipeline-parallel/"
+            "--seq-parallel do not apply (model-parallel-trained "
+            "checkpoints convert at load)")
     flag = not_ported(cfg)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
@@ -131,10 +146,44 @@ def check_ported(cfg: Config) -> Config:
         from .models.registry import check_attention
 
         check_attention(cfg.model_name, cfg.attention)
+    check_model_axis(cfg)
     if cfg.device not in DEVICE_CHOICES:
         raise ValueError(f"--device must be one of {DEVICE_CHOICES}, got "
                          f"{cfg.device!r}")
     return cfg
+
+
+def check_model_axis(cfg: Config) -> None:
+    """``--attention ring|ring_flash`` needs ``--model-parallel`` >= 2:
+    ``train`` fails with the JAX ``run_train`` message (cli.py:740-754),
+    before the dataset load; ``test`` with the JAX registry's, which is
+    where the JAX ``test`` fails."""
+    if cfg.action == "serve" or cfg.attention not in ("ring", "ring_flash") \
+            or cfg.model_parallel >= 2:
+        return
+    if cfg.action == "train":
+        raise ValueError(
+            "--attention ring/flash/ring_flash, --tensor-parallel and "
+            "--pipeline-parallel require --model vit, are mutually "
+            "exclusive (except --pipeline-parallel + --attention ring "
+            "with --seq-parallel >= 2), and (except single-chip flash) "
+            "need --model-parallel >= 2; "
+            f"got model={cfg.model_name!r}, "
+            f"model_parallel={cfg.model_parallel}, "
+            f"attention={cfg.attention!r}, "
+            "tensor_parallel=False, "
+            "pipeline_parallel=False")
+    from .models.registry import require_model_axis
+
+    require_model_axis(None, f"--attention {cfg.attention} (token axis)")
+
+
+def _model_parallel_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model-parallel", type=int, default=1,
+                   dest="model_parallel", metavar="N",
+                   help="the N-way 'model' mesh axis of --attention ring "
+                        "and ring_flash (must divide the world; default 1; "
+                        "parameters stay replicated)")
 
 
 def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
@@ -159,7 +208,6 @@ REFUSED_EVERYWHERE = (
     ("--moe-experts", _INT, 0),
     ("--tensor-parallel", _ON, False),
     ("--pipeline-parallel", _ON, False),
-    ("--model-parallel", _INT, 1),
     ("--seq-parallel", _INT, 1),
     ("--elastic", _ON, False),
     ("--elastic-join", _ON, False),
@@ -277,9 +325,11 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
     p.add_argument("--attention",
                    choices=("full", "ring", "flash", "ring_flash"),
                    default="full",
-                   help="attention for --model vit: full (plain PyTorch) "
-                        "or flash (the CUDA kernels K1, K2, K3); ring and "
-                        "ring_flash are not ported yet")
+                   help="attention for --model vit: full (plain PyTorch), "
+                        "flash (the CUDA kernels K1, K2, K3), ring (plain "
+                        "PyTorch) or ring_flash (the CUDA kernels K4, K2p, "
+                        "K3p) over --model-parallel ranks")
+    _model_parallel_arg(p)
     _device_arg(p, action)
     _refused_args(p, REFUSED_TRAIN_TEST)
 
@@ -342,6 +392,7 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="synthetic_fallback",
                    help="use the deterministic synthetic corpus when the "
                         "real dataset's raw files are absent")
+    _model_parallel_arg(p)
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,
                    dest="checkpoint_file", required=True,

@@ -1,4 +1,5 @@
-// Flash-attention backward (kernels K2 and K3) for Hopper, sm_90a.
+// Flash-attention backward (kernels K2, K3, K2p and K3p) for Hopper,
+// sm_90a.
 //
 // K2 replaces distributedpytorch_tpu/ops/flash_attention.py::_dq_kernel and
 // K3 replaces ::_dkv_kernel (use_pos=False), both launched by
@@ -7,6 +8,26 @@
 // delta = rowsum(dO * O) computed by the wrapper:
 //   K2: dq = scale * sum_k [p * (dO V^T - delta)] K
 //   K3: dv = sum_q p^T dO,   dk = scale * sum_q [p * (dO V^T - delta)]^T Q
+//
+// K2p and K3p replace the same two TPU kernels with use_pos=True, launched
+// by _flash_partial_bwd, the backward of flash_attention_partial (K4, one
+// call per ring step).  They are K2 and K3 with kPos set:
+//   - the mask comes from global positions, (!causal || q_pos >= k_pos) &&
+//     k_pos < kv_valid, with no causal early stop and no tile-index start
+//     (positions rotate with the ring's K/V blocks);
+//   - dO is the cotangent of K4's f32 O, so it is read as f32;
+//   - delta arrives as rowsum(dO * O) - dlse, the lse cotangent folded in
+//     by the wrapper (a torch op, as the JAX package computes it outside
+//     its kernels): d lse / d s_j = p_j, so the kernels run unchanged;
+//   - as in the TPU _dkv_kernel, p is not masked again before dv: a masked
+//     entry has p = exp(-1e30 - lse).  That is 0 wherever the row has a
+//     key, and 1 in a row whose keys are all masked, where K4 stored
+//     lse = -1e30.  Such a row's O is 0 and its lse is -1e30, so in the
+//     ring its merge weight exp(-1e30 - lse_merged) is 0 and so is every
+//     cotangent it receives (dO = 0, dlse = 0): its p of 1 meets dO = 0
+//     and adds exactly 0 to dv, and ds is masked to 0.  Called alone with
+//     a nonzero dO, such a row adds its dO to dv of every masked key, as
+//     the TPU kernel does.
 //
 // Numerics kept from the TPU kernels: q is NOT pre-scaled (the score is
 // (q . k) * scale, as the TPU backward computes it, while the forward
@@ -48,20 +69,38 @@
 //      operations, 118 MFLOP, 0.12 us.  Bytes bound it.
 //   K3 reads the same 3.3 MB and writes dk and dv (1.6 MB): 4.9 MB,
 //      1.5 us; 4 products, 157 MFLOP, 0.16 us.  Bytes bound it.
-// At these sizes launch latency bounds both in practice.
+// At these sizes launch latency bounds both in practice.  K2p and K3p at
+// the vit's ring shard (128, 25, 4, 32) bf16 with an f32 dO: K2p reads
+// q, k, v (3 x 0.82 MB), dO (1.6 MB), lse, delta and positions and writes
+// dq (0.82 MB), 5.0 MB, 1.5 us; K3p writes dk and dv, 5.8 MB, 1.7 us;
+// 61 and 82 MFLOP, 0.06-0.08 us.  Bytes bound them.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kRows = 64;          // rows (queries or keys) per thread block
 constexpr int kLanes = 4;          // threads per row
 constexpr int kThreads = kRows * kLanes;
+constexpr float kNeg = -1e30f;     // finite masked-score sentinel
 
 struct Strides {  // element strides of a (B, S, H, D) tensor; D is unit
   int b, s, h;
 };
+
+struct Pos {  // K2p/K3p: (S,) int32 global positions and the ragged limit
+  const int* q;
+  const int* k;
+  int kv_valid;
+};
+
+__device__ __forceinline__ bool pos_mask(int qp, int kp, int causal,
+                                         int kv_valid) {
+  return (!causal || qp >= kp) && kp < kv_valid;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -84,18 +123,20 @@ __device__ __forceinline__ long long offset(const Strides& st, int b, int s,
   return (long long)b * st.b + (long long)s * st.s + (long long)h * st.h;
 }
 
-// K2: one block per (64-row q tile, b*h).
-template <typename T, int D, int KT>
+// K2 (kPos false) and K2p (kPos true, dO of type TO = float): one block
+// per (64-row q tile, b*h).
+template <typename T, typename TO, int D, int KT, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+                const T* __restrict__ v, const TO* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, int S,
                 int H, Strides qs, Strides ks, Strides vs, Strides os,
-                float scale, int causal) {
+                Pos pos, float scale, int causal) {
   constexpr int DPT = D / kLanes;  // dims owned by one thread
   __shared__ float k_t[KT][D];
   __shared__ float v_t[KT][D];
+  __shared__ int kp_t[kPos ? KT : 1];  // the tile's key positions (K2p)
 
   const int tid = threadIdx.x;
   const int g = tid % kLanes;
@@ -116,9 +157,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float lse_r = row_in ? lse[(long long)bh * S + row] : 0.f;
   const float delta_r = row_in ? delta[(long long)bh * S + row] : 0.f;
+  const int qp = kPos && row_in ? pos.q[row] : 0;
 
   int n_tiles = (S + KT - 1) / KT;
-  if (causal) {
+  if (causal && !kPos) {
     // tiles wholly above the diagonal of this block's last row add nothing
     const int last = min((int)(blockIdx.x + 1) * kRows, S);
     n_tiles = min(n_tiles, (last + KT - 1) / KT);
@@ -135,6 +177,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       k_t[j][d] = in ? to_f32(k[offset(ks, b, kj, h) + d]) : 0.f;
       v_t[j][d] = in ? to_f32(v[offset(vs, b, kj, h) + d]) : 0.f;
     }
+    if constexpr (kPos) {
+      for (int j = tid; j < KT; j += kThreads) {
+        kp_t[j] = kv0 + j < S ? pos.k[kv0 + j] : 0;
+      }
+    }
     __syncthreads();
 
 #pragma unroll 4
@@ -148,7 +195,13 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sc = lane_sum(sc);
       dp = lane_sum(dp);
       const int kj = kv0 + j;
-      const bool valid = row_in && kj < S && (!causal || kj <= row);
+      bool valid = row_in && kj < S;
+      if constexpr (kPos) {
+        valid = valid && pos_mask(qp, kp_t[j], causal, pos.kv_valid);
+      } else {
+        valid = valid && (!causal || kj <= row);
+      }
+      // K2p: a masked p only ever meets the ds mask, so 0 is the same
       const float p = valid ? expf(sc * scale - lse_r) : 0.f;
       const float ds = valid ? p * (dp - delta_r) : 0.f;
 #pragma unroll
@@ -163,20 +216,22 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K3: one block per (64-row k tile, b*h).
-template <typename T, int D, int QT>
+// K3 (kPos false) and K3p (kPos true, dO of type TO = float): one block
+// per (64-row k tile, b*h).
+template <typename T, typename TO, int D, int QT, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const T* __restrict__ v, const TO* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk,
                  T* __restrict__ dv, int S, int H, Strides qs, Strides ks,
-                 Strides vs, Strides os, float scale, int causal) {
+                 Strides vs, Strides os, Pos pos, float scale, int causal) {
   constexpr int DPT = D / kLanes;
   __shared__ float q_t[QT][D];
   __shared__ float do_t[QT][D];
   __shared__ float lse_t[QT];
   __shared__ float delta_t[QT];
+  __shared__ int qp_t[kPos ? QT : 1];  // the tile's query positions (K3p)
 
   const int tid = threadIdx.x;
   const int g = tid % kLanes;
@@ -197,9 +252,12 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dv_acc[i] = 0.f;
   }
 
+  const int kp = kPos && col_in ? pos.k[col] : 0;
+
   const int n_tiles = (S + QT - 1) / QT;
-  // rows before the block's first key are all masked when causal
-  const int t0 = causal ? (int)(blockIdx.x * kRows) / QT : 0;
+  // rows before the block's first key are all masked when causal (K3; the
+  // positions of K3p say nothing about tile order)
+  const int t0 = causal && !kPos ? (int)(blockIdx.x * kRows) / QT : 0;
 
   for (int t = t0; t < n_tiles; ++t) {
     const int q0 = t * QT;
@@ -217,6 +275,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool in = qi < S;  // rows past S: never read out of bounds
       lse_t[e] = in ? lse[(long long)bh * S + qi] : 0.f;
       delta_t[e] = in ? delta[(long long)bh * S + qi] : 0.f;
+      if constexpr (kPos) qp_t[e] = in ? pos.q[qi] : 0;
     }
     __syncthreads();
 
@@ -231,9 +290,19 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sc = lane_sum(sc);
       dp = lane_sum(dp);
       const int qi = q0 + i;
-      const bool valid = col_in && qi < S && (!causal || col <= qi);
-      const float p = valid ? expf(sc * scale - lse_t[i]) : 0.f;
-      const float ds = valid ? p * (dp - delta_t[i]) : 0.f;
+      const bool in = col_in && qi < S;
+      float p, ds;
+      if constexpr (kPos) {
+        // p is not masked again before dv, as in the TPU kernel (see the
+        // note at the top): a masked score is -1e30 before the exp
+        const bool keep = pos_mask(qp_t[i], kp, causal, pos.kv_valid);
+        p = in ? expf((keep ? sc * scale : kNeg) - lse_t[i]) : 0.f;
+        ds = in && keep ? p * (dp - delta_t[i]) : 0.f;
+      } else {
+        const bool valid = in && (!causal || col <= qi);
+        p = valid ? expf(sc * scale - lse_t[i]) : 0.f;
+        ds = valid ? p * (dp - delta_t[i]) : 0.f;
+      }
 #pragma unroll
       for (int x = 0; x < DPT; ++x) {
         dv_acc[x] += p * do_t[i][g + kLanes * x];
@@ -258,42 +327,45 @@ struct Args {
   void *out0, *out1;  // dq (K2) or dk, dv (K3)
   int B, S, H;
   Strides qs, ks, vs, os;
+  Pos pos;  // K2p/K3p only
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-template <typename T, int D, int TILE>
+template <typename T, typename TO, int D, int TILE, bool kPos>
 void launch_dq(const Args& a) {
   const dim3 grid((a.S + kRows - 1) / kRows, a.B * a.H);
-  flash_dq_kernel<T, D, TILE><<<grid, kThreads, 0, a.stream>>>(
+  flash_dq_kernel<T, TO, D, TILE, kPos><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      static_cast<const T*>(a.v), static_cast<const TO*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.out0), a.S, a.H, a.qs, a.ks, a.vs, a.os,
-      a.scale, a.causal);
+      a.pos, a.scale, a.causal);
 }
 
-template <typename T, int D, int TILE>
+template <typename T, typename TO, int D, int TILE, bool kPos>
 void launch_dkv(const Args& a) {
   const dim3 grid((a.S + kRows - 1) / kRows, a.B * a.H);
-  flash_dkv_kernel<T, D, TILE><<<grid, kThreads, 0, a.stream>>>(
+  flash_dkv_kernel<T, TO, D, TILE, kPos><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      static_cast<const T*>(a.v), static_cast<const TO*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.H,
-      a.qs, a.ks, a.vs, a.os, a.scale, a.causal);
+      a.qs, a.ks, a.vs, a.os, a.pos, a.scale, a.causal);
 }
 
-// 0 on a launch, 1 for a head dim or dtype the kernels do not take.
-template <bool kDq>
+// 0 on a launch, 1 for a head dim or dtype the kernels do not take.  K2/K3
+// read dO in the input dtype, K2p/K3p in f32.
+template <bool kDq, bool kPos>
 int dispatch(const Args& a, int D, int dtype) {
-#define DPT_CASE(T, DIM, TILE)                              \
-  if (D == DIM) {                                           \
-    if constexpr (kDq) {                                    \
-      launch_dq<T, DIM, TILE>(a);                           \
-    } else {                                                \
-      launch_dkv<T, DIM, TILE>(a);                          \
-    }                                                       \
-    return 0;                                               \
+#define DPT_CASE(T, DIM, TILE)                                         \
+  if (D == DIM) {                                                      \
+    using TO = typename std::conditional<kPos, float, T>::type;        \
+    if constexpr (kDq) {                                               \
+      launch_dq<T, TO, DIM, TILE, kPos>(a);                            \
+    } else {                                                           \
+      launch_dkv<T, TO, DIM, TILE, kPos>(a);                           \
+    }                                                                  \
+    return 0;                                                          \
   }
   if (dtype == 0) {
     DPT_CASE(float, 32, 64)
@@ -311,7 +383,8 @@ int dispatch(const Args& a, int D, int dtype) {
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* out0, void* out1,
                int B, int S, int H, const int* strides, float scale,
-               int causal, void* stream) {
+               int causal, void* stream, const void* q_pos = nullptr,
+               const void* k_pos = nullptr, int kv_valid = 0) {
   Args a;
   a.q = q;
   a.k = k;
@@ -328,6 +401,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   a.ks = {strides[3], strides[4], strides[5]};
   a.vs = {strides[6], strides[7], strides[8]};
   a.os = {strides[9], strides[10], strides[11]};
+  a.pos = {static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+           kv_valid};
   a.scale = scale;
   a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);
@@ -351,7 +426,7 @@ extern "C" int dpt_flash_dq(const void* q, const void* k, const void* v,
                             int causal, int dtype, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, S, H,
                            strides, scale, causal, stream);
-  if (dispatch<true>(a, D, dtype)) {
+  if (dispatch<true, false>(a, D, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -365,7 +440,44 @@ extern "C" int dpt_flash_dkv(const void* q, const void* k, const void* v,
                              void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, B, S, H,
                            strides, scale, causal, stream);
-  if (dispatch<false>(a, D, dtype)) {
+  if (dispatch<false, false>(a, D, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2p and K3p: as above with dO in f32 (the cotangent of K4's f32 O),
+// delta = rowsum(dO * O) - dlse, and q_pos / k_pos the (S,) int32 global
+// positions of K4's call; kv_valid masks keys at positions >= kv_valid
+// (INT_MAX for none).
+
+extern "C" int dpt_flash_dq_pos(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, const void* q_pos,
+                                const void* k_pos, int kv_valid, void* dq,
+                                int B, int S, int H, int D,
+                                const int* strides, float scale, int causal,
+                                int dtype, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, S, H,
+                           strides, scale, causal, stream, q_pos, k_pos,
+                           kv_valid);
+  if (dispatch<true, true>(a, D, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dpt_flash_dkv_pos(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, const void* q_pos,
+                                 const void* k_pos, int kv_valid, void* dk,
+                                 void* dv, int B, int S, int H, int D,
+                                 const int* strides, float scale, int causal,
+                                 int dtype, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                           strides, scale, causal, stream, q_pos, k_pos,
+                           kv_valid);
+  if (dispatch<false, true>(a, D, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

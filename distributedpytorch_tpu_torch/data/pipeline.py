@@ -9,8 +9,12 @@ replicates it over the mesh), ``epoch_plan(epoch)`` is this rank's
 ``epoch`` gathers each step's rows there with ``index_select``.  Rank r of
 W takes the sampler's strided slice r::W, so the global batch of a step is
 rank-major, rows [r*B, (r+1)*B) from rank r, as the JAX ``_host_plan``
-concatenates it (:85-89).  The host's only per-epoch work is the
-sampler's permutation.  The streaming loader is not ported yet.
+concatenates it (:85-89).  Under ``--model-parallel M`` a rank's batch is
+its data shard's: the JAX mesh shards the global batch over 'data' only,
+so data shard d = r // M holds the slices of ranks d*M ... d*M+M-1,
+concatenated (B*M rows, the same on the M model ranks of the shard).  The
+host's only per-epoch work is the sampler's permutation.  The streaming
+loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,12 +29,13 @@ from .sampler import ShardedSampler
 
 
 class ResidentLoader:
-    """One split on one device, batched by ``ShardedSampler`` for rank
-    ``rank`` of ``world``."""
+    """One split on one device, batched by ``ShardedSampler`` for the data
+    shard of rank ``rank`` of ``world`` (rank itself at
+    ``model_parallel`` 1)."""
 
     def __init__(self, split: Split, batch_size: int, shuffle: bool,
                  seed: int, device: torch.device | str, world: int = 1,
-                 rank: int = 0):
+                 rank: int = 0, model_parallel: int = 1):
         self.device = torch.device(device)
         self.batch_per_replica = int(batch_size)
         self.world = int(world)
@@ -39,11 +44,13 @@ class ResidentLoader:
             split.images)).to(self.device)
         self.labels = torch.from_numpy(split.labels.astype(np.int64)).to(
             self.device)
-        self.sampler = ShardedSampler(num_samples=len(split),
-                                      world_size=self.world, rank=self.rank,
-                                      batch_size=batch_size,
-                                      shuffle=shuffle, seed=seed)
-        self.batches_per_epoch = self.sampler.batches_per_epoch
+        first = self.rank - self.rank % model_parallel
+        self.samplers = [
+            ShardedSampler(num_samples=len(split), world_size=self.world,
+                           rank=r, batch_size=batch_size, shuffle=shuffle,
+                           seed=seed)
+            for r in range(first, first + model_parallel)]
+        self.batches_per_epoch = self.samplers[0].batches_per_epoch
 
     def __len__(self) -> int:
         return self.batches_per_epoch
@@ -53,8 +60,11 @@ class ResidentLoader:
         return self.world * self.batch_per_replica
 
     def epoch_plan(self, epoch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(idx int64, valid bool) device tensors of shape (steps, B)."""
-        idx, valid = self.sampler.epoch_indices(epoch)
+        """(idx int64, valid bool) device tensors of shape (steps, B *
+        model_parallel)."""
+        plans = [s.epoch_indices(epoch) for s in self.samplers]
+        idx = np.concatenate([ix for ix, _ in plans], axis=1)
+        valid = np.concatenate([v for _, v in plans], axis=1)
         return (torch.from_numpy(idx.astype(np.int64)).to(self.device),
                 torch.from_numpy(valid).to(self.device))
 

@@ -4,7 +4,8 @@ split of ``--feature-extract``.
 Counterpart of ``distributedpytorch_tpu/models/registry.py`` (``get_model``
 at :79-266, ``get_model_input_size`` and ``trainable_mask`` at :269-299),
 for ``cnn``, ``mlp``, ``resnet`` (resnet18) and ``vit`` with ``attention``
-in {full, flash}, and the API-only ``pallas_dw`` knob of ``cnn`` (kernel
+in {full, flash, ring, ring_flash} (the rings over the model group of a
+``runtime.Mesh``), and the API-only ``pallas_dw`` knob of ``cnn`` (kernel
 K5; no CLI flag, as in the JAX package).  The validation errors are the
 JAX registry's, word for word; every other model or feature raises "not
 ported yet".
@@ -43,8 +44,18 @@ def check_attention(name: str, attention: str) -> None:
             f"family only (--model vit); {name!r} has no attention")
 
 
-def attention_fn(attention: str):
-    """``--attention`` -> the (B, S, H, D) attention function."""
+def require_model_axis(mesh, what: str) -> None:
+    """The JAX registry's ``_require_model_axis`` (``registry.py:69-76``):
+    ``what`` needs a mesh whose model axis has 2 ranks or more."""
+    if mesh is None or mesh.model_parallel < 2:
+        raise ValueError(
+            f"{what} uses the mesh's 'model' axis: pass "
+            "--model-parallel >= 2 (and a mesh)")
+
+
+def attention_fn(attention: str, mesh=None):
+    """``--attention`` -> the (B, S, H, D) attention function; the rings
+    run over ``mesh``'s model group."""
     if attention == "full":
         from ..ops.attention import full_attention
 
@@ -54,7 +65,11 @@ def attention_fn(attention: str):
 
         return flash_attention
     if attention in ("ring", "ring_flash"):
-        raise ValueError(f"not ported yet: --attention {attention}")
+        from ..ops.attention import make_ring_attention
+
+        require_model_axis(mesh, f"--attention {attention} (token axis)")
+        return make_ring_attention(mesh,
+                                   use_flash=attention == "ring_flash")
     raise ValueError(f"attention must be 'full', 'ring', 'flash' or "
                      f"'ring_flash', got {attention!r}")
 
@@ -62,11 +77,13 @@ def attention_fn(attention: str):
 def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               attention: str = "full",
               device: torch.device | str = "cuda",
-              pallas_dw: bool = False) -> nn.Module:
+              pallas_dw: bool = False, mesh=None) -> nn.Module:
     """The registry's full-width model, on ``device``, with f32 weights
     (zeros until restored or ``init_weights``).  ``pallas_dw=True`` gives
     the cnn whose 3x3 convs with 32+ input channels take their weight
-    gradient from kernel K5."""
+    gradient from kernel K5.  ``mesh`` (a ``runtime.Mesh``) is the one of
+    ``--attention ring|ring_flash``; the parameters stay replicated on
+    every rank."""
     _check_name(name)
     dtype = precision.compute_dtype
     if pallas_dw:
@@ -84,7 +101,8 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
         from .vit import ViT
 
         return ViT(num_classes=num_classes, dtype=dtype,
-                   attention_fn=attention_fn(attention), device=device)
+                   attention_fn=attention_fn(attention, mesh),
+                   device=device)
     if name == "cnn":
         from .simple import SmallCNN
 

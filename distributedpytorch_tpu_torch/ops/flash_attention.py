@@ -1,21 +1,28 @@
-"""Flash attention: kernels K1 (forward), K2 and K3 (backward),
+"""Flash attention: kernels K1 (forward), K2 and K3 (backward), and the
+ring's positional kernels K4 (forward), K2p and K3p (backward),
 hand-written in CUDA for Hopper.
 
 Counterpart of ``distributedpytorch_tpu/ops/flash_attention.py``
 (``flash_attention`` -> the ``jax.custom_vjp`` ``_flash``, whose forward
 ``_flash_fwd`` runs the Pallas ``_fwd_kernel`` and whose backward
-``_flash_bwd_impl`` runs ``_dq_kernel`` and ``_dkv_kernel``, use_pos=False).
-The kernels are ``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (K2,
-K3); ``flash_attention_plain`` and ``flash_attention_bwd_plain`` below
-repeat their blockwise math in PyTorch ops.
+``_flash_bwd_impl`` runs ``_dq_kernel`` and ``_dkv_kernel``, use_pos=False;
+``flash_attention_partial``, the same three Pallas kernels with
+use_pos=True, an f32 O and an lse output whose cotangent is folded into
+delta).  The kernels are ``csrc/flash_fwd.cu`` (K1, K4) and
+``csrc/flash_bwd.cu`` (K2, K3, K2p, K3p); ``flash_attention_plain``,
+``flash_attention_bwd_plain``, ``flash_attention_partial_plain`` and
+``flash_attention_partial_bwd_plain`` below repeat their blockwise math in
+PyTorch ops.
 
-``flash_attention_fwd``, ``flash_attention_dq`` and ``flash_attention_dkv``
-are the kernels' wrappers.  For tensors on the CPU they run the plain
-version; for CUDA tensors they launch the kernel (and count the launch) or
-raise — there is no fallback.  ``FlashAttention`` is the autograd Function:
-its forward is K1 and saves q, k, v, o and lse, its backward is K2 and K3.
-Public layout is the JAX package's: q, k, v, the output and its gradient
-are (B, S, H, D); the log-sum-exp is (B*H, S) float32.
+``flash_attention_fwd``, ``flash_attention_dq``, ``flash_attention_dkv``,
+``flash_attention_partial_fwd``, ``flash_attention_partial_dq`` and
+``flash_attention_partial_dkv`` are the kernels' wrappers.  For tensors on
+the CPU they run the plain version; for CUDA tensors they launch the
+kernel (and count the launch) or raise — there is no fallback.
+``FlashAttention`` is the autograd Function of K1 (backward K2 and K3),
+``FlashAttentionPartial`` that of K4 (backward K2p and K3p).  Public layout
+is the JAX package's: q, k, v, the output and its gradient are (B, S, H,
+D); the log-sum-exp is (B*H, S) float32; positions are (S,) int32.
 
 Unlike the JAX wrapper, nothing is moved to (B*H, S, D) and S is not padded
 to a block multiple: the kernel reads the (B, S, H, D) strides directly and
@@ -26,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -41,12 +48,45 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in PyTorch ops: online softmax over key tiles
-    of ``BLOCK_K`` rows, f32 throughout, O cast to the input dtype.
-    (B, S, H, D) q/k/v -> (o (B, S, H, D), lse (B*H, S) f32)."""
+MaskFn = Callable[[int, int], Optional[torch.Tensor]]
+
+
+def _causal_mask(s: int, causal: bool, device) -> MaskFn:
+    """K1-K3's mask of the key tile [k0, k0 + bk): (S, bk) bool of the
+    valid scores, key index <= row index, or None."""
+    rows = torch.arange(s, device=device)[:, None]
+
+    def mask(k0: int, bk: int) -> Optional[torch.Tensor]:
+        if not causal:
+            return None
+        return torch.arange(k0, k0 + bk, device=device)[None, :] <= rows
+    return mask
+
+
+def _pos_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+              kv_valid: Optional[int]) -> MaskFn:
+    """K4/K2p/K3p's mask of a key tile from GLOBAL positions (the TPU
+    kernel's ``_pos_mask``): q_pos >= k_pos when causal, and k_pos <
+    kv_valid; None when neither applies."""
+    rows = q_pos.long()[:, None]
+
+    def mask(k0: int, bk: int) -> Optional[torch.Tensor]:
+        cols = k_pos[k0:k0 + bk].long()[None, :]
+        out = None
+        if causal:
+            out = rows >= cols
+        if kv_valid is not None:
+            kvm = (cols < kv_valid).expand(rows.shape[0], -1)
+            out = kvm if out is None else out & kvm
+        return out
+    return mask
+
+
+def _fwd_blocks(q, k, v, mask_fn: MaskFn, out_dtype: torch.dtype
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernels' function in PyTorch ops: online softmax over
+    key tiles of ``BLOCK_K`` rows, f32 throughout, masked scores at the
+    -1e30 sentinel and their p forced to 0, O cast to ``out_dtype``."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     qf = q.permute(0, 2, 1, 3).float() * scale          # (b, h, s, d)
@@ -55,15 +95,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, s, 1), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, s, 1), dtype=torch.float32, device=q.device)
-    rows = torch.arange(s, device=q.device)[:, None]
     for k0 in range(0, s, BLOCK_K):
         kb = kf[:, :, k0:k0 + BLOCK_K]
         vb = vf[:, :, k0:k0 + BLOCK_K]
         sc = qf @ kb.transpose(-1, -2)                   # (b, h, s, bk)
-        mask = None
-        if causal:
-            cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-            mask = cols[None, :] <= rows
+        mask = mask_fn(k0, kb.shape[2])
+        if mask is not None:
             sc = torch.where(mask, sc, _NEG)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         p = torch.exp(sc - m_new)
@@ -74,16 +111,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha + p @ vb
         m = m_new
     l_safe = torch.clamp_min(l, 1e-30)
-    o = (acc / l_safe).to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    o = (acc / l_safe).to(out_dtype).permute(0, 2, 1, 3).contiguous()
     lse = (m + torch.log(l_safe)).reshape(b * h, s)
     return o, lse
 
 
-def _kernel_fn():
-    lib = build.load("flash_fwd")
-    fn = lib.dpt_flash_fwd
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's function in PyTorch ops, O in the input dtype.  (B, S, H, D)
+    q/k/v -> (o (B, S, H, D), lse (B*H, S) f32)."""
+    return _fwd_blocks(q, k, v, _causal_mask(q.shape[1], causal, q.device),
+                       q.dtype)
+
+
+def _kernel_fn(name: str = "dpt_flash_fwd"):
+    """``dpt_flash_fwd`` (K1) or ``dpt_flash_fwd_pos`` (K4, which also
+    takes the two position pointers and kv_valid)."""
+    fn = getattr(build.load("flash_fwd"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+        n_ptr, n_int = (5, 13) if name == "dpt_flash_fwd" else (7, 14)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -103,41 +151,78 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.device}")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+Pos = Tuple[torch.Tensor, torch.Tensor, Optional[int]]
+
+
+def _check_pos(q: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
+               kv_valid: Optional[int]) -> None:
+    s = q.shape[1]
+    for name, x in (("q_pos", q_pos), ("k_pos", k_pos)):
+        if (x.shape != (s,) or x.dtype != torch.int32
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({s},) int32 "
+                             f"tensor on {q.device}, got {tuple(x.shape)} "
+                             f"{x.dtype} {x.device}")
+    if kv_valid is not None and not 0 <= kv_valid <= _INT_MAX:
+        raise ValueError(f"kv_valid={kv_valid} is not an int32 position")
+
+
+def _check_kernel_inputs(kernel: str, tensors) -> list:
+    """The dtype, head-dim, stride and size limits of the kernels; returns
+    the (batch, seq, head) strides of ``tensors`` ((name, tensor) pairs),
+    flattened."""
+    q = tensors[0][1]
     b, s, h, d = q.shape
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_fwd kernel takes float32 or bfloat16, "
+        raise ValueError(f"{kernel} kernel takes float32 or bfloat16, "
                          f"got {q.dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head dim in {HEAD_DIMS}, "
+        raise ValueError(f"{kernel} kernel takes head dim in {HEAD_DIMS}, "
                          f"got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    strides = []
+    for name, x in tensors:
         if x.stride(3) != 1:
-            raise ValueError(f"flash_fwd kernel needs the head dim of {name} "
-                             f"contiguous, got strides {x.stride()}")
+            raise ValueError(f"{kernel} kernel needs the head dim of {name} "
+                             f"contiguous (unit stride), got strides "
+                             f"{x.stride()}")
         if max(x.stride()) > _INT_MAX:
             raise ValueError(f"{name} strides {x.stride()} exceed int32")
+        strides += [x.stride(0), x.stride(1), x.stride(2)]
     if b * h > 65535 or b * s * h * d > _INT_MAX:
-        raise ValueError(f"flash_fwd kernel grid too large for {tuple(q.shape)}")
-    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+        raise ValueError(f"{kernel} kernel grid too large for "
+                         f"{tuple(q.shape)}")
+    return strides
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, pos: Optional[Pos] = None,
+            wrapper=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1, or K4 when ``pos`` = (q_pos, k_pos, kv_valid) is given (O in
+    f32); counts the launch on ``wrapper`` once it returned 0."""
+    b, s, h, d = q.shape
+    name = "dpt_flash_fwd" if pos is None else "dpt_flash_fwd_pos"
+    strides = _check_kernel_inputs(name[4:], (("q", q), ("k", k),
+                                              ("v", v)))
+    o = torch.empty((b, s, h, d),
+                    dtype=q.dtype if pos is None else torch.float32,
+                    device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     if s == 0 or b * h == 0:
         return o, lse
-    fn = _kernel_fn()
+    fn = _kernel_fn(name)
+    extra = () if pos is None else (
+        pos[0].data_ptr(), pos[1].data_ptr(),
+        _INT_MAX if pos[2] is None else int(pos[2]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), b, s, h, d,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
+                lse.data_ptr(), *extra, b, s, h, d, *strides,
                 1.0 / math.sqrt(d), int(bool(causal)),
                 _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc} "
-                           f"at q {tuple(q.shape)} {q.dtype}")
-    flash_attention_fwd.launches += 1
+        raise RuntimeError(f"{name[4:]} kernel launch failed: CUDA error "
+                           f"{rc} at q {tuple(q.shape)} {q.dtype}")
+    (wrapper or flash_attention_fwd).launches += 1
     return o, lse
 
 
@@ -170,12 +255,15 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return rows.permute(0, 2, 1).reshape(b * h, s).contiguous()
 
 
-def _bwd_blocks(q, k, v, do, lse, delta, causal
+def _bwd_blocks(q, k, v, do, lse, delta, mask_fn: MaskFn,
+                mask_dv: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in PyTorch ops: scores recomputed
     per key tile of ``BLOCK_K`` rows as (q . k) * scale (q not pre-scaled),
-    p = exp(s - lse), ds = p * (dO V^T - delta), masked p and ds forced to
-    0, f32 throughout, dq and dk scaled once at the end."""
+    masked scores at the -1e30 sentinel, p = exp(s - lse), ds = p * (dO
+    V^T - delta) forced to 0 where masked, f32 throughout, dq and dk
+    scaled once at the end.  K3 forces the masked p to 0 before dv too
+    (``mask_dv``); K3p does not, as the TPU ``_dkv_kernel`` does not."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     qf, kf, vf, dof = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, do))
@@ -184,21 +272,19 @@ def _bwd_blocks(q, k, v, do, lse, delta, causal
     dq = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
     dk = torch.zeros_like(dq)
     dv = torch.zeros_like(dq)
-    rows = torch.arange(s, device=q.device)[:, None]
     for k0 in range(0, s, BLOCK_K):
         kb = kf[:, :, k0:k0 + BLOCK_K]
         vb = vf[:, :, k0:k0 + BLOCK_K]
         sc = (qf @ kb.transpose(-1, -2)) * scale          # (b, h, s, bk)
-        mask = None
-        if causal:
-            cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-            mask = cols[None, :] <= rows
+        mask = mask_fn(k0, kb.shape[2])
+        if mask is not None:
             sc = torch.where(mask, sc, _NEG)
         p = torch.exp(sc - lse4)
         dp = dof @ vb.transpose(-1, -2)
         ds = p * (dp - delta4)
         if mask is not None:
-            p = torch.where(mask, p, 0.0)
+            if mask_dv:
+                p = torch.where(mask, p, 0.0)
             ds = torch.where(mask, ds, 0.0)
         dq += ds @ kb
         dk[:, :, k0:k0 + BLOCK_K] = ds.transpose(-1, -2) @ qf
@@ -218,23 +304,32 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                                          torch.Tensor]:
     """K2 and K3 in PyTorch ops: (B, S, H, D) q, k, v, o, dO and the
     (B*H, S) lse of the forward -> (dq, dk, dv) in the inputs' dtypes."""
-    return _bwd_blocks(q, k, v, do, lse, attention_delta(o, do), causal)
+    return _bwd_blocks(q, k, v, do, lse, attention_delta(o, do),
+                       _causal_mask(q.shape[1], causal, q.device))
 
 
 def _bwd_kernel_fn(name: str):
+    """``dpt_flash_dq``/``dpt_flash_dkv`` (K2/K3), or their ``_pos``
+    entry points (K2p/K3p), which take the two position pointers and
+    kv_valid after delta."""
     fn = getattr(build.load("flash_bwd"), name)
     if fn.argtypes is None:
-        n_out = 1 if name == "dpt_flash_dq" else 2
-        fn.argtypes = ([ctypes.c_void_p] * (6 + n_out) + [ctypes.c_int] * 4
+        n_out = 1 if name.startswith("dpt_flash_dq") else 2
+        pos = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+               if name.endswith("_pos") else [])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + pos
+                       + [ctypes.c_void_p] * n_out + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_bwd(q, k, v, do, lse, delta) -> None:
+def _check_bwd(q, k, v, do, lse, delta, do_dtype=None) -> None:
+    """``do_dtype``: dO's dtype, q's by default (K2p/K3p: float32)."""
     _check(q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+    if (do.shape != q.shape or do.dtype != (do_dtype or q.dtype)
+            or do.device != q.device):
         raise ValueError(f"dO must match q's shape, dtype and device: got "
                          f"{tuple(do.shape)} {do.dtype} {do.device} for q "
                          f"{tuple(q.shape)} {q.dtype} {q.device}")
@@ -248,36 +343,25 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
 
 
 def _launch_bwd(name: str, q, k, v, do, lse, delta, causal, outs,
-                wrapper) -> None:
-    """Launch ``name`` and count it in ``wrapper.launches`` once the
-    launch returned 0; an empty problem launches (and counts) nothing."""
+                wrapper, pos: Optional[Pos] = None) -> None:
+    """Launch ``name`` (K2p/K3p: the ``_pos`` entry point, given ``pos``
+    = (q_pos, k_pos, kv_valid)) and count it in ``wrapper.launches`` once
+    the launch returned 0; an empty problem launches (and counts)
+    nothing."""
     b, s, h, d = q.shape
     kernel = name.replace("dpt_", "")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{kernel} kernel takes float32 or bfloat16, "
-                         f"got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{kernel} kernel takes head dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    strides = []
-    for xname, x in (("q", q), ("k", k), ("v", v), ("dO", do)):
-        if x.stride(3) != 1:
-            raise ValueError(f"{kernel} kernel needs the head dim of "
-                             f"{xname} contiguous (unit stride), got "
-                             f"strides {x.stride()}")
-        if max(x.stride()) > _INT_MAX:
-            raise ValueError(f"{xname} strides {x.stride()} exceed int32")
-        strides += [x.stride(0), x.stride(1), x.stride(2)]
-    if b * h > 65535 or b * s * h * d > _INT_MAX:
-        raise ValueError(f"{kernel} kernel grid too large for "
-                         f"{tuple(q.shape)}")
+    strides = _check_kernel_inputs(kernel, (("q", q), ("k", k), ("v", v),
+                                            ("dO", do)))
     if s == 0 or b * h == 0:
         return
     fn = _bwd_kernel_fn(name)
+    extra = () if pos is None else (
+        pos[0].data_ptr(), pos[1].data_ptr(),
+        _INT_MAX if pos[2] is None else int(pos[2]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), *extra,
                 *(x.data_ptr() for x in outs), b, s, h, d,
                 (ctypes.c_int * 12)(*strides), 1.0 / math.sqrt(d),
                 int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
@@ -303,7 +387,8 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in ``flash_attention_dq.launches``) or raise."""
     _check_bwd(q, k, v, do, lse, delta)
     if _device_kind(q) == "cpu":
-        return _bwd_blocks(q, k, v, do, lse, delta, causal)[0]
+        return _bwd_blocks(q, k, v, do, lse, delta,
+                           _causal_mask(q.shape[1], causal, q.device))[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("dpt_flash_dq", q, k, v, do, lse, delta, causal, (dq,),
                 flash_attention_dq)
@@ -322,7 +407,8 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     count the launch in ``flash_attention_dkv.launches``) or raise."""
     _check_bwd(q, k, v, do, lse, delta)
     if _device_kind(q) == "cpu":
-        return _bwd_blocks(q, k, v, do, lse, delta, causal)[1:]
+        return _bwd_blocks(q, k, v, do, lse, delta,
+                           _causal_mask(q.shape[1], causal, q.device))[1:]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("dpt_flash_dkv", q, k, v, do, lse, delta, causal, (dk, dv),
@@ -375,3 +461,163 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     function as ``ops.attention.full_attention`` to float tolerance,
     differentiable through K2 and K3."""
     return FlashAttention.apply(q, k, v, causal)
+
+
+# -- the ring's per-step kernels: K4 forward, K2p and K3p backward ----------
+
+def flash_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, q_pos: torch.Tensor,
+                                  k_pos: torch.Tensor, causal: bool = False,
+                                  kv_valid: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's function in PyTorch ops: ``flash_attention_plain`` masked by
+    global positions, O in f32.  (B, S, H, D) q/k/v, (S,) positions ->
+    (o (B, S, H, D) f32, lse (B*H, S) f32).  A row whose keys are all
+    masked gives O = 0 and lse = -1e30."""
+    return _fwd_blocks(q, k, v, _pos_mask(q_pos, k_pos, causal, kv_valid),
+                       torch.float32)
+
+
+def flash_attention_partial_fwd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, q_pos: torch.Tensor,
+                                k_pos: torch.Tensor, causal: bool = False,
+                                kv_valid: Optional[int] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K4: (o f32, lse) of q against one K/V block, masked by the
+    (S,) int32 global positions of q's rows and k's keys and by
+    ``kv_valid`` (keys at positions >= kv_valid; None for none).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (and
+    count the launch in ``flash_attention_partial_fwd.launches``) or
+    raise."""
+    _check(q, k, v)
+    _check_pos(q, q_pos, k_pos, kv_valid)
+    if _device_kind(q) == "cpu":
+        return flash_attention_partial_plain(q, k, v, q_pos, k_pos, causal,
+                                             kv_valid)
+    return _launch(q, k, v, causal, (q_pos, k_pos, kv_valid),
+                   flash_attention_partial_fwd)
+
+
+flash_attention_partial_fwd.launches = 0
+
+
+def partial_delta(o: torch.Tensor, do: torch.Tensor,
+                  dlse: Optional[torch.Tensor]) -> torch.Tensor:
+    """delta = rowsum(dO * O) - dlse, (B*H, S) f32: the lse cotangent
+    folded into delta, as ``_flash_bwd_impl`` folds it (d lse / d s_j =
+    p_j, so the backward kernels run unchanged)."""
+    delta = attention_delta(o, do)
+    return delta if dlse is None else (delta - dlse.float()).contiguous()
+
+
+def _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos, causal,
+                        kv_valid):
+    """K2p and K3p's function from delta: ``_bwd_blocks`` with the
+    positional mask and, as in the TPU ``_dkv_kernel``, the masked p not
+    forced to 0 before dv (it is exp(-1e30 - lse), 0 unless the whole row
+    is masked, lse = -1e30)."""
+    return _bwd_blocks(q, k, v, do, lse, delta,
+                       _pos_mask(q_pos, k_pos, causal, kv_valid),
+                       mask_dv=False)
+
+
+def flash_attention_partial_bwd_plain(q, k, v, o, lse, do, dlse, q_pos, k_pos,
+                                      causal: bool = False,
+                                      kv_valid: Optional[int] = None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """K2p and K3p in PyTorch ops: the backward of K4 for the cotangents
+    dO (f32, of O) and dlse (of lse; None for zero) -> (dq, dk, dv) in the
+    inputs' dtypes."""
+    return _partial_bwd_blocks(q, k, v, do, lse, partial_delta(o, do, dlse),
+                               q_pos, k_pos, causal, kv_valid)
+
+
+def flash_attention_partial_dq(q, k, v, do, lse, delta, q_pos, k_pos,
+                               causal: bool = False,
+                               kv_valid: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Kernel K2p: dq of K4, (B, S, H, D) in q's dtype, from the f32 dO,
+    lse and ``partial_delta``.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (and count the launch in
+    ``flash_attention_partial_dq.launches``) or raise."""
+    _check_bwd(q, k, v, do, lse, delta, torch.float32)
+    _check_pos(q, q_pos, k_pos, kv_valid)
+    if _device_kind(q) == "cpu":
+        return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
+                                   causal, kv_valid)[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("dpt_flash_dq_pos", q, k, v, do, lse, delta, causal, (dq,),
+                flash_attention_partial_dq, (q_pos, k_pos, kv_valid))
+    return dq
+
+
+flash_attention_partial_dq.launches = 0
+
+
+def flash_attention_partial_dkv(q, k, v, do, lse, delta, q_pos, k_pos,
+                                causal: bool = False,
+                                kv_valid: Optional[int] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K3p: (dk, dv) of K4 in k's and v's dtype.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (and count the
+    launch in ``flash_attention_partial_dkv.launches``) or raise."""
+    _check_bwd(q, k, v, do, lse, delta, torch.float32)
+    _check_pos(q, q_pos, k_pos, kv_valid)
+    if _device_kind(q) == "cpu":
+        return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
+                                   causal, kv_valid)[1:]
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("dpt_flash_dkv_pos", q, k, v, do, lse, delta, causal,
+                (dk, dv), flash_attention_partial_dkv,
+                (q_pos, k_pos, kv_valid))
+    return dk, dv
+
+
+flash_attention_partial_dkv.launches = 0
+
+
+class FlashAttentionPartial(torch.autograd.Function):
+    """(o, lse) = K4 of (q, k, v) at the given positions; the backward
+    takes both cotangents and runs K2p + K3p.  The integer positions take
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal: bool,
+                kv_valid: Optional[int]):
+        o, lse = flash_attention_partial_fwd(q, k, v, q_pos, k_pos, causal,
+                                             kv_valid)
+        ctx.causal = bool(causal)
+        ctx.kv_valid = kv_valid
+        ctx.save_for_backward(q, k, v, o, lse, q_pos, k_pos)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
+        # the kernels read an f32 dO with a unit stride on the head dim
+        do = do.float()
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        delta = partial_delta(o, do, dlse)
+        dq = flash_attention_partial_dq(q, k, v, do, lse, delta, q_pos,
+                                        k_pos, ctx.causal, ctx.kv_valid)
+        dk, dv = flash_attention_partial_dkv(q, k, v, do, lse, delta, q_pos,
+                                             k_pos, ctx.causal, ctx.kv_valid)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, q_pos: torch.Tensor,
+                            k_pos: torch.Tensor, causal: bool = False,
+                            kv_valid: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partial flash attention over one K/V block with GLOBAL positions
+    (the JAX ``flash_attention_partial``): (o f32, lse (B*H, S) f32), the
+    softmax-normalised result and the log-sum-exp over this block's keys.
+    Partials over disjoint key blocks merge exactly
+    (``ops.attention._merge_partials``); differentiable in q, k, v through
+    both outputs."""
+    return FlashAttentionPartial.apply(q, k, v, q_pos, k_pos, causal,
+                                       kv_valid)

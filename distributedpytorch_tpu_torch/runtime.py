@@ -14,13 +14,19 @@ backend follows the device: gloo for ``cpu``; NCCL for ``cuda`` when
 every local rank has a card of its own (rank ``LOCAL_RANK`` takes card
 ``LOCAL_RANK``); gloo over CUDA tensors when the local ranks outnumber the
 cards (NCCL refuses two ranks on one card), the device staying ``cuda``.
+
+``make_mesh`` lays the world out as the JAX ``(data, model)`` mesh
+(``runtime.py:192-220``) with process groups, for ``--model-parallel``:
+``ring_shift`` and ``all_gather_seq`` are the ring attention's traffic
+over a model group.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from datetime import timedelta
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -140,12 +146,106 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks, in place (``t`` itself in a world of
-    one); no gradient."""
-    if distributed() and dist.get_world_size() > 1:
-        dist.all_reduce(t)
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (the world by default), in
+    place (``t`` itself in a world or group of one); no gradient."""
+    if distributed() and dist.get_world_size(group) > 1:
+        dist.all_reduce(t, group=group)
     return t
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The process world as the JAX package's (data, model) mesh
+    (``make_mesh`` at :192-220, ``devs.reshape(dp, mp)``): rank r is data
+    index r // model_parallel and model index r % model_parallel.  The
+    ranks of one data index form its model group (the ring of ``--attention
+    ring|ring_flash``), the ranks of one model index its data group (the
+    sums of the loss and metrics, one per data shard).  With
+    ``model_parallel`` 1 there are no groups: the data group is the
+    world."""
+
+    data_parallel: int = 1
+    model_parallel: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    model_ranks: Tuple[int, ...] = (0,)   # global ranks, in model order
+    model_group: Optional[object] = None
+    data_group: Optional[object] = None   # None: the whole world
+
+
+def make_mesh(model_parallel: int = 1) -> Mesh:
+    """The (world / model_parallel, model_parallel) mesh of the process
+    world.  Raises with the JAX message when ``model_parallel`` does not
+    divide the world.  ``dist.new_group`` is collective: every rank
+    creates every group, in one order."""
+    n = world_size()
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(
+            f"model_parallel={model_parallel} * seq_parallel=1"
+            f" must divide device count {n}")
+    dp, mp = n // model_parallel, model_parallel
+    d, m = divmod(process_index(), mp)
+    model_group = data_group = None
+    if mp > 1:
+        for i in range(dp):
+            group = dist.new_group(list(range(i * mp, (i + 1) * mp)))
+            if i == d:
+                model_group = group
+        for j in range(mp):
+            group = dist.new_group(list(range(j, n, mp)))
+            if j == m:
+                data_group = group
+    return Mesh(dp, mp, d, m, tuple(range(d * mp, (d + 1) * mp)),
+                model_group, data_group)
+
+
+def staged_through_host(group, device: torch.device) -> bool:
+    """True when ``group`` moves tensors on ``device`` through host
+    memory: gloo with a CUDA device (two ranks on one card, where NCCL
+    refuses to run).
+    gloo's send, receive and all-gather read a CUDA tensor's device
+    pointer as host memory and fail ("writev: Bad address", seen on the
+    H100), so the ring copies its CUDA blocks to the host and back."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _outgoing(group, tensors) -> list:
+    """Contiguous copies to send (on the host where
+    ``staged_through_host``), detached."""
+    out = [t.detach().contiguous() for t in tensors]
+    if staged_through_host(group, tensors[0].device):
+        out = [t.cpu() for t in out]
+    return out
+
+
+def ring_shift(mesh: Mesh, tensors, step: int = 1) -> list:
+    """Each tensor of this rank sent to model index (m + step) mod M and
+    the one of model index (m - step) mod M received in its place, all in
+    one ``batch_isend_irecv`` (with two ranks, each sends to and receives
+    from one peer: separate blocking sends would deadlock).  No
+    gradient."""
+    n = mesh.model_parallel
+    dst = mesh.model_ranks[(mesh.model_index + step) % n]
+    src = mesh.model_ranks[(mesh.model_index - step) % n]
+    sends = _outgoing(mesh.model_group, tensors)
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = [dist.P2POp(dist.isend, t, dst, mesh.model_group) for t in sends]
+    ops += [dist.P2POp(dist.irecv, t, src, mesh.model_group) for t in recvs]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
+
+def all_gather_seq(mesh: Mesh, x: torch.Tensor, dim: int = 1
+                   ) -> torch.Tensor:
+    """The model group's ``x`` concatenated along ``dim`` in model order
+    (through host memory where ``staged_through_host``).  No
+    gradient."""
+    src, = _outgoing(mesh.model_group, [x])
+    parts = [torch.empty_like(src) for _ in range(mesh.model_parallel)]
+    dist.all_gather(parts, src, group=mesh.model_group)
+    return torch.cat(parts, dim=dim).to(x.device)
 
 
 def any_process(flag: bool) -> bool:

@@ -15,15 +15,20 @@ moves them, the eval step reads them.  Metrics stay on the device; the
 epoch loop reads them once per epoch.
 
 The loss is one masked mean over the global batch, sum(numer * valid) /
-max(sum(denom * valid), 1e-9) (:227-230).  The denominator does not depend
-on the parameters, so a rank all-reduces it first (with the metric sums,
-one collective) and back-propagates its own numerator sum times world /
-global denominator: DDP's mean of the ranks' gradients is then exactly
-the gradient of the global mean, whatever the number of valid rows on
-each rank.  The affine augmentation of a step is drawn for the whole
-rank-major global batch from the step's generator, which is seeded alike
-on every rank, and rank r keeps rows [r*B, (r+1)*B), as one JAX key
-augments the global batch (:237-251).
+max(sum(denom * valid), 1e-9) (:227-230).  A rank's rows are its data
+shard's (``runtime.Mesh``; the rank's own at ``--model-parallel`` 1), and
+the M model ranks of a shard compute the same loss.  The denominator does
+not depend on the parameters, so a rank all-reduces it over its data
+group first (with the metric sums, one collective: every data shard
+counted once) and back-propagates its shard's numerator sum times
+data_parallel / global denominator.  Each rank's gradient is then its
+shard's share of the global mean's gradient times data_parallel, the same
+on the M ranks of a shard, and DDP's mean over all W = data_parallel * M
+ranks is exactly the gradient of the global mean, whatever the number of
+valid rows in each shard.  The affine augmentation of a step is drawn for
+the whole rank-major global batch from the step's generator, which is
+seeded alike on every rank, and data shard d keeps rows [d*b, (d+1)*b) of
+its b rows, as one JAX key augments the global batch (:237-251).
 
 The optimizers are ``torch.optim``'s: Adam(lr=1e-3) has optax's defaults;
 SGD(lr=1e-3, momentum=0.9) is optax's ``sgd`` with ``trace``, and its
@@ -89,7 +94,8 @@ class Engine:
                  device: torch.device | str, optimizer: str = "adam",
                  learning_rate: float = 1e-3, momentum: float = 0.9,
                  lr_step_gamma: float = 0.1, steps_per_epoch: int = 1,
-                 feature_extract: bool = False):
+                 feature_extract: bool = False,
+                 mesh: Optional[runtime.Mesh] = None):
         if optimizer not in OPTIMIZER_CHOICES:
             raise ValueError(f"Invalid optimizer {optimizer!r}")
         self.model = model
@@ -105,8 +111,9 @@ class Engine:
         self.lr_step_gamma = float(lr_step_gamma)
         self.steps_per_epoch = int(steps_per_epoch)
         self.feature_extract = bool(feature_extract)
-        self.world = runtime.process_count()
-        self.rank = runtime.process_index()
+        # the (data, model) layout; at model_parallel 1 every rank is a
+        # data shard of its own
+        self.mesh = mesh or runtime.make_mesh(1)
 
     # -- state ------------------------------------------------------------
 
@@ -143,13 +150,13 @@ class Engine:
                    generator: torch.Generator
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """Draw the step's affine augmentation for the global batch from
-        ``generator``, keep this rank's rows, then ``train_step_affine``."""
+        ``generator``, keep this data shard's rows, then
+        ``train_step_affine``."""
         b, h, w = images_u8.shape[:3]
-        affine = augment.sample_affine_batch(generator, self.world * b, h,
-                                             w)
-        if self.world > 1:
-            affine = tuple(t[self.rank * b:(self.rank + 1) * b]
-                           for t in affine)
+        dp, d = self.mesh.data_parallel, self.mesh.data_index
+        affine = augment.sample_affine_batch(generator, dp * b, h, w)
+        if dp > 1:
+            affine = tuple(t[d * b:(d + 1) * b] for t in affine)
         return self.train_step_affine(state, images_u8, labels, valid,
                                       affine)
 
@@ -157,9 +164,9 @@ class Engine:
                           labels: torch.Tensor, valid: torch.Tensor,
                           affine: augment.Affine
                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Augment this rank's rows with the given draws, forward, the
-        global masked loss, backward (DDP averages the gradients), grad
-        cast, optimizer update.  The step's gradients stay on the
+        """Augment this data shard's rows with the given draws, forward,
+        the global masked loss, backward (DDP averages the gradients),
+        grad cast, optimizer update.  The step's gradients stay on the
         parameters' ``.grad`` until the next step.  The metrics are the
         global batch's."""
         model = state.model
@@ -176,9 +183,9 @@ class Engine:
                    * vmask).sum()
         sums = runtime.all_reduce_sum(torch.stack(
             [numer_sum.detach(), (denom * vmask).sum(), correct,
-             vmask.sum()]))
+             vmask.sum()]), self.mesh.data_group)
         global_denom = torch.clamp_min(sums[1], 1e-9)
-        (numer_sum * self.world / global_denom).backward()
+        (numer_sum * self.mesh.data_parallel / global_denom).backward()
         self.apply_gradients(state)
         return state, {"loss": sums[0] / global_denom, "correct": sums[2],
                        "valid": sums[3]}

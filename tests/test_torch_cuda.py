@@ -99,7 +99,9 @@ def test_train_step_runs_each_kernel_once_per_block():
                              torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     got = {k: v - before[k] for k, v in kernel_launches().items()}
-    assert got == {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4}
+    assert got == {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4,
+                   "conv_dw": 0, "flash_fwd_pos": 0, "flash_dq_pos": 0,
+                   "flash_dkv_pos": 0}
     assert torch.isfinite(m["loss"]).item()
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name

@@ -635,6 +635,29 @@ REFUSED = [
 ]
 
 
+# Refusals whose message is not "not ported yet: FLAG": --model-parallel
+# with full attention names what is missing (the ring is ported), and a
+# ring without --model-parallel >= 2 fails as the JAX package fails it
+# (train: run_train's check; test: the registry's).
+REFUSED_MESSAGES = {
+    "--model-parallel": dict.fromkeys(("train", "test"), re.escape(
+        "not ported yet: --model-parallel (parameter sharding over "
+        "'model')")),
+    "--attention ring": {
+        "train": re.escape(
+            "--attention ring/flash/ring_flash, --tensor-parallel and "
+            "--pipeline-parallel require --model vit, are mutually "
+            "exclusive (except --pipeline-parallel + --attention ring with "
+            "--seq-parallel >= 2), and (except single-chip flash) need "
+            "--model-parallel >= 2; got model='vit', model_parallel=1, "
+            "attention='ring', tensor_parallel=False, "
+            "pipeline_parallel=False"),
+        "test": re.escape(
+            "--attention ring (token axis) uses the mesh's 'model' axis: "
+            "pass --model-parallel >= 2 (and a mesh)")},
+}
+
+
 @pytest.mark.parametrize("action", ["train", "test"])
 @pytest.mark.parametrize("extra,flag", REFUSED, ids=[f for _, f in REFUSED])
 def test_refused_flag_fails_loudly(action, extra, flag):
@@ -644,7 +667,9 @@ def test_refused_flag_fails_loudly(action, extra, flag):
     else:
         argv += ["--model", "vit"]
     argv += extra
-    with pytest.raises(ValueError, match=f"^not ported yet: {flag}$"):
+    message = REFUSED_MESSAGES.get(flag, {}).get(action,
+                                                 f"not ported yet: {flag}")
+    with pytest.raises(ValueError, match=f"^{message}$"):
         tconfig.config_from_argv(argv)
     assert tcli.main(argv) == 1
 
@@ -695,7 +720,8 @@ def test_train_without_device_cpu_refuses_to_run_without_gpu(tmp_path,
 
 
 def test_chip_smoke_and_the_ddp_child_import_no_jax():
-    """The scripts that run the port outside pytest import neither JAX nor
+    """The scripts that run the port outside pytest (chip_smoke.py and the
+    two rank children it shares with the CPU tests) import neither JAX nor
     the JAX package (the card's machine has no JAX)."""
     import subprocess
     import sys
@@ -704,7 +730,8 @@ def test_chip_smoke_and_the_ddp_child_import_no_jax():
     code = (
         "import importlib.util, sys\n"
         "for name, path in (('chip_smoke', 'chip_smoke.py'),\n"
-        "                   ('ddp_child', 'tests/_torch_ddp_child.py')):\n"
+        "                   ('ddp_child', 'tests/_torch_ddp_child.py'),\n"
+        "                   ('ring_child', 'tests/_torch_ring_child.py')):\n"
         "    spec = importlib.util.spec_from_file_location(name, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"

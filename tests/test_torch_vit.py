@@ -93,9 +93,16 @@ def test_registry_refuses_models_not_ported(name):
 
 @pytest.mark.parametrize("attention", ["ring", "ring_flash"])
 def test_registry_refuses_ring_attention(attention):
-    with pytest.raises(ValueError, match="not ported yet"):
+    """Without a mesh whose model axis has 2 ranks or more, the ring is
+    refused with the JAX registry's message."""
+    from distributedpytorch_tpu.models.registry import _require_model_axis
+
+    with pytest.raises(ValueError) as want:
+        _require_model_axis(None, f"--attention {attention} (token axis)")
+    with pytest.raises(ValueError) as got:
         registry.get_model("vit", 10, PRESETS["f32"], attention=attention,
                            device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_init_weights_is_seeded():
