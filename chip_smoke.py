@@ -5,6 +5,13 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+or, to run some phases only (numbers of the list below; phase 1 always
+runs, and phases 7 and 8 bring in phase 6, whose model they test):
+
+    python3 chip_smoke.py --phases 10,12,15
+
+A partial run skips no check within a phase it runs, ends with a line
+naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
 or without the port's package beside it, it exits non-zero and prints no
 result.  Phases, each printing its lines before the last:
@@ -56,16 +63,21 @@ result.  Phases, each printing its lines before the last:
      per step, kernels per step, the device's idle share, K1/K2/K3 time;
  10. kernel K5 (the conv weight gradient) against its plain PyTorch
      version at the cnn's three conv shapes at batch 1, 16 and 64 and a
-     ragged shape, bf16 and f32: error relative to the plain version's
-     largest value, two calls bit-identical, device / call / plain /
-     ``conv2d_weight`` (cuDNN, yardstick only) times and the bound;
+     ragged shape, bf16 and f32, plus a bf16 shape that the route rule
+     sends to the scalar kernel and a bf16 tensor-core shape with a ragged
+     last chunk: each case's route, and at a tensor-core case the scalar
+     route too (forced); error relative to the plain version's largest value, two calls
+     bit-identical, device time (median, least and most of 3 traces) /
+     call / plain / ``conv2d_weight`` (cuDNN, yardstick only) times and
+     the bound;
  11. one f32 train step (TF32 off) of the cnn with K5 and of resnet18 on
      the card against the CPU: gradients and BatchNorm statistics, and
      exactly 3 K5 launches for the cnn; the max pools' tie routing on the
      card against the CPU's;
  12. the slice's kernel main path: one epoch (844 steps of 64) of
-     Engine-driven cnn training with K5, its count set to 0 before and
-     read after (3 per step), validation accuracy at least twice chance,
+     Engine-driven cnn training with K5, its counts set to 0 before and
+     read after (3 per step, every one on the tensor cores), validation
+     accuracy at least twice chance,
      the loss falling, and the same epoch with the stock dW within the
      stated spread;
  13. the reference's job: ``torchrun --standalone --nproc_per_node 1 -m
@@ -78,7 +90,8 @@ result.  Phases, each printing its lines before the last:
      in f64), held against one rank fed the same global batch and draws
      (all six worlds at once, each rank a ``tests/_torch_ddp_child.py``
      process, the child that ``tests/test_torch_ddp.py`` runs on the CPU);
- 15. profiles of the cnn and resnet train steps (batch 64, bf16);
+ 15. profiles of the cnn and resnet train steps (batch 64, bf16), with
+     K5's time a step and a launch inside the cnn's;
  16. kernels K4 (the ring's positional forward, f32 O and lse) and K2p/K3p
      (its backward, dO in f32, the lse cotangent folded into delta)
      against their plain PyTorch versions, bf16 and f32: the vit's ring
@@ -259,44 +272,60 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fns: dict, reps: int = 50, tries: int = 3) -> dict:
-    """Mean device time per call of each function of ``fns`` (name ->
-    callable): the summed duration of the CUDA work it launches, from one
-    torch.profiler session after warm-up.  Each function's ``reps`` calls
-    run back to back, a ``torch.cuda._sleep`` kernel marks the boundary
-    between two functions, and the device events, in start order on the
-    one stream, are split at the markers.  A trace that lacks a marker or
-    a function's events is taken again, up to ``tries`` times in all;
-    then every time is None."""
+def _device_trace(fns: dict, reps: int):
+    """One torch.profiler session over ``reps`` back-to-back calls of each
+    function of ``fns`` (name -> callable), a ``torch.cuda._sleep`` kernel
+    marking the boundary between two functions: the mean device time per
+    call of each (the summed duration of the CUDA work it launches, the
+    device events in start order on the one stream split at the markers),
+    or None when the trace lacks a marker or a function's events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, fn in enumerate(fns.values()):
+            if i:
+                torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    groups = [[]]
+    for e in events:
+        if "spin_kernel" in e.name:
+            groups.append([])
+        else:
+            groups[-1].append(e.time_range.elapsed_us())
+    if len(groups) == len(fns) and all(groups):
+        return {n: sum(g) / 1e3 / reps for n, g in zip(fns, groups)}
+    return None
+
+
+def device_ms_tries(fns: dict, reps: int = 50, tries: int = 3) -> dict:
+    """The device time per call of each function of ``fns`` in each of
+    ``tries`` traces, after warm-up: name -> the list of the traces that
+    had every function's events (empty when none had); ``spread`` gives
+    their median, least and most."""
+    import torch
 
     for fn in fns.values():
         for _ in range(3):
             fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i, fn in enumerate(fns.values()):
-                if i:
-                    torch.cuda._sleep(1000)
-                for _ in range(reps):
-                    fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == DeviceType.CUDA
-                         and not getattr(e, "is_user_annotation", False)),
-                        key=lambda e: e.time_range.start)
-        groups = [[]]
-        for e in events:
-            if "spin_kernel" in e.name:
-                groups.append([])
-            else:
-                groups[-1].append(e.time_range.elapsed_us())
-        if len(groups) == len(fns) and all(groups):
-            return {n: sum(g) / 1e3 / reps for n, g in zip(fns, groups)}
-    return dict.fromkeys(fns)
+    got = [t for t in (_device_trace(fns, reps) for _ in range(tries)) if t]
+    return {n: [t[n] for t in got] for n in fns}
+
+
+def spread(times: list) -> tuple:
+    """(median, least, most) of a list of times; Nones when empty."""
+    if not times:
+        return None, None, None
+    t = sorted(times)
+    return t[len(t) // 2], t[0], t[-1]
 
 
 def fmt_ms(x) -> str:
@@ -371,7 +400,8 @@ def phase_kernel():
                "sdpa": lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal)}
         call = {n: time_ms(f, reps) for n, f in fns.items()}
-        dev = device_ms(fns, reps)
+        dev = {n: spread(t)[0]
+               for n, t in device_ms_tries(fns, reps).items()}
         b_ms, b_by = bound_ms(b, s, h, d, dt, causal)
         say(f"K1 {(b, s, h, d)} {dt} causal={causal}: err_o={err_o:.3g} "
             f"(tol {TOL_O[dt]:g}) err_lse={err_lse:.3g} (tol {TOL_LSE:g}) "
@@ -616,8 +646,6 @@ def phase_main_path(device: str = "cuda"):
 
     from distributedpytorch_tpu_torch.data.datasets import load_dataset
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
     ckpt_path = os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt")
     build_checkpoint(ckpt_path)
     n_main = BURST_THREADS * BURST_WAVES
@@ -831,7 +859,8 @@ def phase_bwd_kernels():
                "sdpa": lambda: torch.autograd.grad(
                    out, (qt, kt, vt), dot, retain_graph=True)}
         call = {n: time_ms(f, reps) for n, f in fns.items()}
-        dev = device_ms(fns, reps)
+        dev = {n: spread(t)[0]
+               for n, t in device_ms_tries(fns, reps).items()}
         bounds = {n: bwd_bound_ms(b, s, h, d, dt, causal, n)
                   for n in ("dq", "dkv")}
         say(f"K2/K3 {(b, s, h, d)} {dt} causal={causal}: rel err "
@@ -1220,6 +1249,8 @@ def dw_bound_ms(b: int, h: int, w: int, ci: int, co: int, dtype_name: str):
 
 
 def phase_conv_dw():
+    """K5's routes against the plain version: each bf16 case that the rule
+    sends to the tensor cores runs both routes (the scalar one forced)."""
     import torch
     from torch.nn.grad import conv2d_weight
 
@@ -1228,10 +1259,15 @@ def phase_conv_dw():
     cases = [(b,) + shape + (dt,) for shape in CNN_CONVS for b in (1, 16, 64)
              for dt in ("bfloat16", "float32")]
     cases += [(3, 9, 7, 32, 48, dt) for dt in ("bfloat16", "float32")]
+    # bf16 that the rule sends to the scalar kernel (channels not multiples
+    # of 8), and a tensor-core case whose last split ends in a ragged
+    # chunk (715 = 11 x 64 + 11 rows) with tiles wider than the channels
+    cases += [(2, 9, 7, 36, 20, "bfloat16"), (5, 13, 11, 40, 24, "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = {}
     for (b, h, w, ci, co, dt) in cases:
         dtype = getattr(torch, dt)
+        shape = (b, h, w, ci, co)
         # channels_last NCHW activations and gradients, as the cnn holds
         # them; K5 reads their NHWC views without a copy
         x = torch.randn((b, ci, h, w), generator=gen, device="cuda").to(
@@ -1239,46 +1275,68 @@ def phase_conv_dw():
         dy = torch.randn((b, co, h, w), generator=gen, device="cuda").to(
             dtype).contiguous(memory_format=torch.channels_last)
         xn, dyn = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
-        before = conv.conv3x3_dw.launches
+        tc = conv.tensor_core_route(dtype, ci, co, xn.stride(), dyn.stride(),
+                                    xn.data_ptr(), dyn.data_ptr())
+        route = "tensor_core" if tc else "scalar"
+        ref = conv.conv3x3_dw_plain(xn, dyn)
+        before = (conv.conv3x3_dw.launches,
+                  conv.conv3x3_dw.tensor_core_launches)
         got = conv.conv3x3_dw(xn, dyn)
         again = conv.conv3x3_dw(xn, dyn)
         torch.cuda.synchronize()
-        if conv.conv3x3_dw.launches != before + 2:
-            fail(f"K5 wrapper did not count its launches at "
-                 f"{(b, h, w, ci, co)}")
-        if not torch.equal(got, again):
-            fail(f"K5 is not deterministic at {(b, h, w, ci, co)} {dt}")
-        err, rel = rel_err(got, conv.conv3x3_dw_plain(xn, dyn))
-        if not (math.isfinite(rel) and rel <= TOL_DW):
-            fail(f"K5 disagrees with its plain version at "
-                 f"{(b, h, w, ci, co)} {dt}: rel err {rel} (tol {TOL_DW})")
-        fns = {"kernel": lambda: conv.conv3x3_dw(xn, dyn),
-               "plain": lambda: conv.conv3x3_dw_plain(xn, dyn),
-               "cudnn": lambda: conv2d_weight(x, (co, ci, 3, 3), dy,
-                                              padding=1)}
+        if (conv.conv3x3_dw.launches,
+                conv.conv3x3_dw.tensor_core_launches) != (
+                before[0] + 2, before[1] + 2 * tc):
+            fail(f"K5 wrapper did not count its {route} launches at "
+                 f"{shape}")
+        checked = {route: (got, again)}
+        if tc:
+            checked["scalar"] = (conv._launch(xn, dyn, tensor_core=False),
+                                 conv._launch(xn, dyn, tensor_core=False))
+        errs = {}
+        for r, (a, a2) in checked.items():
+            torch.cuda.synchronize()
+            if not torch.equal(a, a2):
+                fail(f"K5's {r} route is not deterministic at {shape} {dt}")
+            errs[r] = rel_err(a, ref)
+            if not (math.isfinite(errs[r][1]) and errs[r][1] <= TOL_DW):
+                fail(f"K5's {r} route disagrees with its plain version at "
+                     f"{shape} {dt}: rel err {errs[r][1]} (tol {TOL_DW})")
+        fns = {"kernel": lambda: conv.conv3x3_dw(xn, dyn)}
+        if tc:
+            fns["scalar"] = lambda: conv._launch(xn, dyn, tensor_core=False)
+        fns["plain"] = lambda: conv.conv3x3_dw_plain(xn, dyn)
+        fns["cudnn"] = lambda: conv2d_weight(x, (co, ci, 3, 3), dy,
+                                             padding=1)
         call = {n: time_ms(f) for n, f in fns.items()}
-        dev = device_ms(fns)
+        dev = {n: spread(t) for n, t in device_ms_tries(fns).items()}
         b_ms, b_by = dw_bound_ms(b, h, w, ci, co, dt)
-        say(f"K5 {(b, h, w, ci, co)} {dt}: rel err {rel:.3g} (abs {err:.3g}; "
-            f"tol {TOL_DW:g}), deterministic; device_ms "
-            f"kernel={fmt_ms(dev['kernel'])} plain={fmt_ms(dev['plain'])} "
-            f"conv2d_weight={fmt_ms(dev['cudnn'])}; call_ms "
-            f"kernel={call['kernel']:.5f} plain={call['plain']:.5f} "
-            f"conv2d_weight={call['cudnn']:.5f}; bound_us="
-            f"{b_ms * 1e3:.3f} ({b_by}); splits "
-            f"{conv.split_plan(b * h * w, 9 * ci, co)}")
+        plan = (conv.mma_plan(b * h * w, ci, co) if tc
+                else conv.split_plan(b * h * w, 9 * ci, co))
+        say(f"K5 {shape} {dt}, {route} route: rel err "
+            + ", ".join(f"{r} {e[1]:.3g} (abs {e[0]:.3g})"
+                        for r, e in errs.items())
+            + f" (tol {TOL_DW:g}), deterministic; device_ms median "
+            f"[least, most of 3 tries] "
+            + " ".join(f"{n}={fmt_ms(d[0])} [{fmt_ms(d[1])}, {fmt_ms(d[2])}]"
+                       for n, d in dev.items())
+            + "; call_ms " + " ".join(f"{n}={c:.5f}" for n, c in call.items())
+            + f"; bound_us={b_ms * 1e3:.3f} ({b_by}); plan {plan}")
         rows[(b, h, w, ci, co, dt)] = dict(
-            max_abs_err=err, rel_err=rel, ms=dev["kernel"],
-            plain_ms=dev["plain"], library_ms=dev["cudnn"], bound_ms=b_ms,
-            bound_by=b_by, call_ms=call["kernel"],
+            route=route, max_abs_err=errs[route][0], rel_err=errs[route][1],
+            ms=dev["kernel"][0], ms_least=dev["kernel"][1],
+            ms_most=dev["kernel"][2],
+            scalar_ms=dev["scalar"][0] if tc else None,
+            plain_ms=dev["plain"][0], library_ms=dev["cudnn"][0],
+            bound_ms=b_ms, bound_by=b_by, call_ms=call["kernel"],
             plain_call_ms=call["plain"], library_call_ms=call["cudnn"])
     return rows
 
 
 def conv_dw_main_row(rows) -> dict:
     """K5's entry of the kernels line: one train step's three launches at
-    batch 64 bf16, summed (times, bounds), the worst error, and the
-    shapes one by one."""
+    batch 64 bf16, summed (times, bounds; each time the median of 3
+    traces), the worst error, the route, and the shapes one by one."""
     parts = [rows[(TRAIN_BATCH,) + shape + ("bfloat16",)]
              for shape in CNN_CONVS]
     for key in ("ms", "plain_ms", "library_ms"):
@@ -1292,8 +1350,14 @@ def conv_dw_main_row(rows) -> dict:
                 rel_err=max(p["rel_err"] for p in parts),
                 bound_by="bytes" if all(p["bound_by"] == "bytes"
                                         for p in parts) else "operations",
+                k5_route="+".join(sorted({p["route"] for p in parts})),
                 per_step_of=[list((TRAIN_BATCH,) + s) for s in CNN_CONVS],
-                per_shape_ms=[p["ms"] for p in parts], **total)
+                per_shape_ms=[p["ms"] for p in parts],
+                per_shape_ms_least=[p["ms_least"] for p in parts],
+                per_shape_ms_most=[p["ms_most"] for p in parts],
+                per_shape_scalar_ms=[p["scalar_ms"] for p in parts],
+                per_shape_library_ms=[p["library_ms"] for p in parts],
+                **total)
 
 
 # -- phase 11: cnn and resnet train steps on the card against the CPU -------
@@ -1513,6 +1577,7 @@ def cnn_epoch(pallas_dw: bool, seed: int) -> dict:
     state = engine.init_state(torch.Generator().manual_seed(seed))
     torch.cuda.synchronize()
     conv.conv3x3_dw.launches = 0
+    conv.conv3x3_dw.tensor_core_launches = 0
     t0 = time.perf_counter()
     hist = []
     for i, (images, labels, v) in enumerate(train.epoch(0)):
@@ -1527,8 +1592,10 @@ def cnn_epoch(pallas_dw: bool, seed: int) -> dict:
         correct += m["correct"].item()
         n += m["valid"].item()
     launches = conv.conv3x3_dw.launches
+    tc_launches = conv.conv3x3_dw.tensor_core_launches
     k = max(1, len(losses) // 10)
-    return dict(steps=len(losses), launches=launches, wall=wall,
+    return dict(steps=len(losses), launches=launches,
+                tc_launches=tc_launches, wall=wall,
                 acc=100.0 * correct / n, first=float(losses[:k].mean()),
                 last=float(losses[-k:].mean()))
 
@@ -1543,7 +1610,8 @@ def phase_cnn_epoch() -> int:
             f"{r['steps'] * TRAIN_BATCH / r['wall']:,.0f} samples/s), "
             f"validation acc {r['acc']:.2f}% (chance 10%), mean train loss "
             f"first 10% {r['first']:.5f} last 10% {r['last']:.5f}, K5 "
-            f"launches {r['launches']}")
+            f"launches {r['launches']} ({r['tc_launches']} on the tensor "
+            f"cores)")
     k5, stock = runs[("k5", SEED)], runs[("stock", SEED)]
     seed_diff = abs(stock["acc"] - runs[("stock", SEED + 1)]["acc"])
     say(f"cnn: K5 vs stock dW accuracy {k5['acc']:.2f}% vs "
@@ -1553,6 +1621,9 @@ def phase_cnn_epoch() -> int:
             54000 / TRAIN_BATCH):
         fail(f"K5 launches {k5['launches']} over {k5['steps']} steps: "
              f"expected 3 per step")
+    if k5["tc_launches"] != k5["launches"]:
+        fail(f"only {k5['tc_launches']} of the cnn's {k5['launches']} K5 "
+             f"launches took the tensor-core route")
     if stock["launches"]:
         fail("the stock cnn launched K5")
     if k5["acc"] < 20.0 or not k5["last"] < k5["first"]:
@@ -1769,6 +1840,7 @@ def phase_cnn_profile() -> None:
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
     from distributedpytorch_tpu_torch.models import (get_model,
                                                      get_model_input_size)
+    from distributedpytorch_tpu_torch.ops import conv
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.engine import Engine
@@ -1799,11 +1871,13 @@ def phase_cnn_profile() -> None:
             step(5 + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        k5_before = conv.conv3x3_dw.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(reps):
                 step(5 + reps + i)
             torch.cuda.synchronize()
+        k5_launches = (conv.conv3x3_dw.launches - k5_before) / reps
         kernels = device_kernels(prof)
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
         n_kern = sum(e.count for e in kernels) / reps
@@ -1817,7 +1891,10 @@ def phase_cnn_profile() -> None:
             f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms in "
             f"{n_kern:.0f} kernels (idle {100 * (1 - dev_ms / wall_ms):.1f}"
             f"%); K5 {k5_us:.2f} us/step "
-            f"({100 * k5_us / 1e3 / dev_ms:.1f}% of device time)")
+            f"({100 * k5_us / 1e3 / dev_ms:.1f}% of device time) in "
+            f"{k5_launches:g} launches"
+            + (f", {k5_us / k5_launches:.2f} us a launch" if k5_launches
+               else ""))
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)
         say("profile:   top: " + "; ".join(
             f"{e.key[:48]} {e.self_device_time_total / reps:.1f}us"
@@ -1971,7 +2048,8 @@ def phase_ring_kernels():
                 "sdpa bwd": lambda: torch.autograd.grad(
                     out, (qt, kt, vt), dot, retain_graph=True)}
             call = {n: time_ms(f, reps) for n, f in fns.items()}
-            dev = device_ms(fns, reps)
+            dev = {n: spread(t)[0]
+                   for n, t in device_ms_tries(fns, reps).items()}
             say(line + "; device_ms " + " ".join(
                 f"{n.replace(' ', '_')}={fmt_ms(dev[n])}" for n in fns)
                 + "; call_ms " + " ".join(
@@ -2260,7 +2338,42 @@ def phase_ring_profile() -> None:
             f"{k} {us:.1f}us x{c}" for k, us, c in p["top"]))
 
 
-def main() -> int:
+# Phases that use another phase's output pull it in: 7 and 8 (one
+# function) test phase 6's model.
+PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
+LAST_PHASE = 21                 # the closing lines; only a full run has it
+
+
+def parse_phases(argv) -> set:
+    """The phases to run: every one (None) with no argument, else those
+    of ``--phases 10,12`` plus phase 1 and the phases they need."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Smoke test of the PyTorch/CUDA port on one GPU. With "
+                    "no argument every phase runs and the last line is the "
+                    "ok line; --phases runs a subset and never prints it.")
+    ap.add_argument("--phases", help="comma-separated phase numbers of the "
+                    f"docstring's list, 2..{LAST_PHASE - 1} (1 always runs)")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    try:
+        chosen = {int(p) for p in args.phases.split(",") if p.strip()}
+    except ValueError:
+        ap.error(f"--phases takes comma-separated integers, got "
+                 f"{args.phases!r}")
+    bad = sorted(p for p in chosen if not 1 <= p < LAST_PHASE)
+    if bad:
+        ap.error(f"no phase {bad}: phases are 1..{LAST_PHASE - 1}")
+    chosen.add(1)
+    for p in sorted(chosen):
+        chosen |= PHASE_NEEDS.get(p, set())
+    return chosen
+
+
+def main(argv=None) -> int:
+    chosen = parse_phases(sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError as e:
@@ -2275,6 +2388,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+
+    def want(n: int) -> bool:
+        return chosen is None or n in chosen
 
     def run(fn, *args):
         t = time.perf_counter()
@@ -2282,53 +2400,91 @@ def main() -> int:
         say(f"chip_smoke: {fn.__name__} took {time.perf_counter() - t:.1f}s")
         return out
 
+    def need_rows(names, where):
+        for name in names:
+            missing = [k for k in ("ms", "plain_ms", "library_ms")
+                       if main_rows[name][k] is None]
+            if missing:
+                fail(f"torch.profiler returned no device events for "
+                     f"{missing} of {name} at {where}")
+
     card = run(phase_environment)
-    rows = run(phase_kernel)
-    main_row = rows[MAIN_ATTN]
-    bwd_rows = run(phase_bwd_kernels)
-    main_rows = {"flash_fwd": main_row}
-    for name in ("flash_dq", "flash_dkv"):
-        main_rows[name] = bwd_rows[(name,) + MAIN_ATTN]
-    for name, row in main_rows.items():
-        missing = [k for k in ("ms", "plain_ms", "library_ms")
-                   if row[k] is None]
-        if missing:
-            fail(f"torch.profiler returned no device events for {missing} "
-                 f"of {name} at the main path's shape (64, 49, 4, 32) bf16")
-    serve_launches = run(phase_main_path, "cuda")
-    run(phase_profile, os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt"))
-    run(phase_train_step_parity)
-    launches, best = run(phase_train)
-    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the train path")
-    run(phase_resume_and_test, best)
-    run(phase_train_profile)
-    main_rows["conv_dw"] = conv_dw_main_row(run(phase_conv_dw))
-    run(phase_cnn_step_parity)
-    launches["conv_dw"] = run(phase_cnn_epoch)
-    run(phase_reference_job)
-    run(phase_ddp_one_card)
-    run(phase_cnn_profile)
-    ring_rows = run(phase_ring_kernels)
-    for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
-        main_rows[name] = ring_rows[(name,) + RING_MAIN]
-        missing = [k for k in ("ms", "plain_ms", "library_ms")
-                   if main_rows[name][k] is None]
-        if missing:
-            fail(f"torch.profiler returned no device events for {missing} "
-                 f"of {name} at the ring's main shape")
-    run(phase_ring_op)
-    launches.update(run(phase_ring_train))
-    for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the ring train path")
-    run(phase_ring_steps)
-    run(phase_ring_profile)
+    main_rows, launches = {}, {}
+    if want(2):
+        main_rows["flash_fwd"] = run(phase_kernel)[MAIN_ATTN]
+        need_rows(["flash_fwd"], "the main path's shape (64, 49, 4, 32) "
+                                 "bf16")
+    if want(4):
+        bwd_rows = run(phase_bwd_kernels)
+        for name in ("flash_dq", "flash_dkv"):
+            main_rows[name] = bwd_rows[(name,) + MAIN_ATTN]
+        need_rows(["flash_dq", "flash_dkv"], "the main path's shape "
+                                             "(64, 49, 4, 32) bf16")
+    serve_launches = None
+    if want(3):
+        serve_launches = run(phase_main_path, "cuda")
+        run(phase_profile, os.path.join(WORK, "rsl",
+                                        "bestmodel-mnist-vit.ckpt"))
+    if want(5):
+        run(phase_train_step_parity)
+    if want(6):
+        train_launches, best = run(phase_train)
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            if train_launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the train path")
+        launches.update(train_launches)
+    elif want(13) or want(18):
+        write_vit_data()
+    if want(7):
+        run(phase_resume_and_test, best)
+    if want(9):
+        run(phase_train_profile)
+    if want(10):
+        main_rows["conv_dw"] = conv_dw_main_row(run(phase_conv_dw))
+    if want(11):
+        run(phase_cnn_step_parity)
+    if want(12):
+        launches["conv_dw"] = run(phase_cnn_epoch)
+    if want(13):
+        run(phase_reference_job)
+    if want(14):
+        run(phase_ddp_one_card)
+    if want(15):
+        run(phase_cnn_profile)
+    if want(16):
+        ring_rows = run(phase_ring_kernels)
+        for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
+            main_rows[name] = ring_rows[(name,) + RING_MAIN]
+        need_rows(["flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"],
+                  "the ring's main shape")
+    if want(17):
+        run(phase_ring_op)
+    if want(18):
+        ring_launches = run(phase_ring_train)
+        for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
+            if ring_launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the ring train "
+                     f"path")
+        launches.update(ring_launches)
+    if want(19):
+        run(phase_ring_steps)
+    if want(20):
+        run(phase_ring_profile)
     kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                **main_rows[name]} for name, source, replaces in KERNELS]
-    kernels[0]["serve_launches"] = serve_launches
+                "replaces": replaces, "launches": launches.get(name),
+                **main_rows[name]} for name, source, replaces in KERNELS
+               if chosen is None or name in main_rows]
+    for row in kernels:
+        if row["name"] == "flash_fwd" and serve_launches is not None:
+            row["serve_launches"] = serve_launches
+    if chosen is not None:
+        say(card)
+        say(json.dumps({"kernels": kernels}))
+        say(f"chip_smoke: partial run: phases {sorted(chosen)} passed in "
+            f"{time.perf_counter() - t0:.1f}s; skipped phases "
+            f"{sorted(set(range(1, LAST_PHASE + 1)) - chosen)}; no ok line "
+            f"(the full run is python3 chip_smoke.py with no argument)")
+        return 0
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     say(card)               # name, power limit: beside the numbers above
     say(json.dumps({"kernels": kernels}))

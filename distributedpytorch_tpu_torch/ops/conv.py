@@ -10,8 +10,15 @@ and ``conv3x3_same(x NHWC, w HWIO)``.
 
 ``conv3x3_dw`` is the kernel's wrapper: for tensors on the CPU it runs
 ``conv3x3_dw_plain`` (nine shifted slices of the padded input contracted
-with dy in f32); for CUDA tensors it launches the kernel (and counts the
-launch in ``conv3x3_dw.launches``) or raises -- there is no fallback.
+with dy in f32); for CUDA tensors it launches K5 (and counts the launch in
+``conv3x3_dw.launches``) or raises -- there is no fallback.  K5 has two
+routes, both hand-written in ``csrc/conv_dw.cu``, and
+``tensor_core_route`` is the rule between them: bf16 with channel counts
+that are multiples of 8, 16-byte-aligned data and (b, h, w) strides that
+are multiples of 8 -- the cnn's main path -- runs on the tensor cores
+(also counted in ``conv3x3_dw.tensor_core_launches``); f32 and every other
+bf16 call run the scalar kernel.  A route that fails raises; neither
+gives way to the other.
 ``Conv3x3Same`` is the autograd Function the models use, in torch's
 layouts (x NCHW, any memory format; weight OIHW): forward ``F.conv2d``,
 dx through the stock transposed conv, dW through the wrapper.  As in the
@@ -30,7 +37,9 @@ from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
-TILE_ROWS = 32           # pixels per chunk of the kernel (kTK)
+TILE_ROWS = 32           # pixels per chunk of the scalar kernel (kTK)
+MMA_CHUNK = 64           # pixels per chunk of the tensor-core kernel
+MMA_TILES = (32, 64)     # its channel tiles (Ci and Co)
 TARGET_BLOCKS = 264      # two blocks per SM of an H100 (132 SMs)
 
 
@@ -73,30 +82,65 @@ def _check(x: torch.Tensor, dy: torch.Tensor) -> None:
                              f"{t.stride()}")
 
 
-def split_plan(n: int, rows: int, cols: int) -> tuple:
+def _splits(n: int, tiles: int, chunk: int) -> tuple:
     """(splits, rows per split) of the B*H*W contraction: enough blocks
-    for about ``TARGET_BLOCKS`` with ``rows`` x ``cols`` output tiles of
-    64 x 32, each split a whole number of ``TILE_ROWS`` chunks.  A
-    function of the shapes only, so the sum order (and the result's bits)
-    is too."""
-    tiles = -(-rows // 64) * -(-cols // 32)
-    splits = max(1, min(-(-TARGET_BLOCKS // tiles), -(-n // TILE_ROWS)))
+    for about ``TARGET_BLOCKS`` with ``tiles`` output tiles, each split a
+    whole number of ``chunk``-pixel chunks.  A function of the shapes
+    only, so the sum order (and the result's bits) is too."""
+    splits = max(1, min(-(-TARGET_BLOCKS // tiles), -(-n // chunk)))
     per = -(-n // splits)
-    per = -(-per // TILE_ROWS) * TILE_ROWS
+    per = -(-per // chunk) * chunk
     return -(-n // per), per
 
 
-def _kernel_fn():
-    fn = build.load("conv_dw").dpt_conv3x3_dw
+def split_plan(n: int, rows: int, cols: int) -> tuple:
+    """The scalar kernel's (splits, rows per split) for a ``rows`` (9 *
+    Ci) x ``cols`` (Co) output in tiles of 64 x 32, ``TILE_ROWS``-pixel
+    chunks."""
+    return _splits(n, -(-rows // 64) * -(-cols // 32), TILE_ROWS)
+
+
+def mma_tile(c: int) -> int:
+    """The tensor-core kernel's tile for ``c`` channels: the one of
+    ``MMA_TILES`` that pads ``c`` least, the larger on a tie."""
+    return min(reversed(MMA_TILES), key=lambda t: -(-c // t) * t)
+
+
+def mma_plan(n: int, ci: int, co: int) -> tuple:
+    """The tensor-core kernel's (Ci tile, Co tile, splits, rows per
+    split): one block per tap, Ci tile, Co tile and split,
+    ``MMA_CHUNK``-pixel chunks."""
+    tci, tco = mma_tile(ci), mma_tile(co)
+    tiles = 9 * -(-ci // tci) * -(-co // tco)
+    return (tci, tco) + _splits(n, tiles, MMA_CHUNK)
+
+
+def tensor_core_route(dtype: torch.dtype, ci: int, co: int, x_strides,
+                      dy_strides, x_ptr: int, dy_ptr: int) -> bool:
+    """The rule between K5's routes: True for the tensor-core kernel
+    (bf16, Ci and Co multiples of 8, x and dy 16-byte aligned, their
+    (b, h, w) strides multiples of 8, so every pixel's channel run is
+    whole 16-byte copies), False for the scalar kernel."""
+    return (dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0
+            and x_ptr % 16 == 0 and dy_ptr % 16 == 0
+            and all(s % 8 == 0 for s in (*x_strides[:3], *dy_strides[:3])))
+
+
+def _kernel_fn(name: str, n_ints: int):
+    fn = getattr(build.load("conv_dw"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_int)]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, dy: torch.Tensor,
+            tensor_core=None) -> torch.Tensor:
+    """One K5 launch on CUDA tensors: the route of ``tensor_core_route``
+    unless ``tensor_core`` names one (a route the call does not fit
+    raises)."""
     b, h, w, ci = x.shape
     co = dy.shape[-1]
     n = b * h * w
@@ -110,27 +154,43 @@ def _launch(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     out = torch.empty((3, 3, ci, co), dtype=torch.float32, device=x.device)
     if n == 0 or ci == 0 or co == 0:
         return out.zero_()
-    splits, per = split_plan(n, 9 * ci, co)
+    if tensor_core is None:
+        tensor_core = tensor_core_route(x.dtype, ci, co, x.stride(),
+                                        dy.stride(), x.data_ptr(),
+                                        dy.data_ptr())
+    if tensor_core:
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"the tensor-core kernel takes bfloat16, got "
+                             f"{x.dtype}")
+        tci, tco, splits, per = mma_plan(n, ci, co)
+        args = (per, splits, tci, tco)
+        fn = _kernel_fn("dpt_conv3x3_dw_mma", 4)
+    else:
+        splits, per = split_plan(n, 9 * ci, co)
+        args = (per, splits, _DTYPE_CODES[x.dtype])
+        fn = _kernel_fn("dpt_conv3x3_dw", 3)
     ws = (torch.empty((splits, 9 * ci, co), dtype=torch.float32,
                       device=x.device) if splits > 1 else out)
-    fn = _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                b, h, w, ci, co, (ctypes.c_int * 6)(*strides), per, splits,
-                _DTYPE_CODES[x.dtype], stream)
+                b, h, w, ci, co, (ctypes.c_int * 6)(*strides), *args, stream)
     if rc != 0:
-        raise RuntimeError(f"conv_dw kernel launch failed: CUDA error {rc} "
-                           f"at x {tuple(x.shape)} dy {tuple(dy.shape)} "
-                           f"{x.dtype}")
+        route = "tensor-core" if tensor_core else "scalar"
+        raise RuntimeError(f"conv_dw {route} kernel launch failed: CUDA "
+                           f"error {rc} at x {tuple(x.shape)} dy "
+                           f"{tuple(dy.shape)} {x.dtype}")
     conv3x3_dw.launches += 1
+    conv3x3_dw.tensor_core_launches += int(tensor_core)
     return out
 
 
 def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Kernel K5: x (B, H, W, Ci), dy (B, H, W, Co) -> dW (3, 3, Ci, Co)
     float32.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (and count the launch in ``conv3x3_dw.launches``) or raise."""
+    kernel of ``tensor_core_route``'s route (and count the launch in
+    ``conv3x3_dw.launches``, and a tensor-core one also in
+    ``conv3x3_dw.tensor_core_launches``) or raise."""
     _check(x, dy)
     if x.device.type == "cpu":
         return conv3x3_dw_plain(x, dy)
@@ -141,6 +201,7 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3_dw.launches = 0
+conv3x3_dw.tensor_core_launches = 0
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:

@@ -146,3 +146,76 @@ def test_split_plan_covers_the_rows_in_whole_chunks():
         assert per % conv.TILE_ROWS == 0 and splits >= 1
         assert (splits - 1) * per < n <= splits * per
     assert conv.split_plan(50176, 288, 32) == (53, 960)
+
+
+def _NHWC(b, h, w, c):
+    """The strides of a contiguous (b, h, w, c) tensor."""
+    return (h * w * c, w * c, c, 1)
+
+
+@pytest.mark.parametrize("dtype,ci,co,xs,ys,xp,yp,want", [
+    (torch.bfloat16, 32, 32, _NHWC(64, 28, 28, 32), _NHWC(64, 28, 28, 32),
+     0, 4096, True),
+    (torch.bfloat16, 64, 64, _NHWC(64, 14, 14, 64), _NHWC(64, 14, 14, 64),
+     256, 512, True),
+    (torch.bfloat16, 40, 24, _NHWC(5, 13, 11, 40), _NHWC(5, 13, 11, 24),
+     16, 32, True),
+    (torch.float32, 32, 32, _NHWC(64, 28, 28, 32), _NHWC(64, 28, 28, 32),
+     0, 4096, False),
+    (torch.bfloat16, 36, 32, _NHWC(2, 9, 7, 36), _NHWC(2, 9, 7, 32),
+     0, 4096, False),
+    (torch.bfloat16, 32, 20, _NHWC(2, 9, 7, 32), _NHWC(2, 9, 7, 20),
+     0, 4096, False),
+    (torch.bfloat16, 32, 32, _NHWC(2, 9, 7, 32), _NHWC(2, 9, 7, 32),
+     2, 4096, False),
+    (torch.bfloat16, 32, 32, _NHWC(2, 9, 7, 32), _NHWC(2, 9, 7, 32),
+     0, 4104, False),
+    # the first 32 of 36 channels: whole pieces, but a row stride of 36
+    (torch.bfloat16, 32, 32, _NHWC(2, 9, 7, 36), _NHWC(2, 9, 7, 32),
+     0, 4096, False),
+    (torch.bfloat16, 32, 32, (2020, 224, 32, 1), _NHWC(2, 9, 7, 32),
+     0, 4096, False),
+], ids=["conv1", "conv3", "ci40-co24", "f32", "ci36", "co20", "x-ptr",
+        "dy-ptr", "x-row-stride", "x-batch-stride"])
+def test_tensor_core_route_rule(dtype, ci, co, xs, ys, xp, yp, want):
+    """The rule between K5's routes is a pure function of dtype, channel
+    counts, strides and alignment: the tensor cores take bf16 whose every
+    pixel's channel run is whole, aligned 16-byte copies."""
+    assert conv.tensor_core_route(dtype, ci, co, xs, ys, xp, yp) is want
+
+
+def test_route_rule_takes_the_cnns_channels_last_views():
+    """The cnn's activations and gradients (channels_last NCHW, read as
+    NHWC views) fit the tensor-core route; a channel slice does not."""
+    for ci, co in ((32, 32), (32, 64), (64, 64)):
+        x = torch.zeros((2, ci, 14, 14), dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        dy = torch.zeros((2, co, 14, 14), dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        assert conv.tensor_core_route(x.dtype, ci, co, x.stride(),
+                                      dy.stride(), 0, 0)
+        assert not conv.tensor_core_route(x.dtype, ci - 4, co,
+                                          x[..., 4:].stride(), dy.stride(),
+                                          0, 0)
+
+
+@pytest.mark.parametrize("n,ci,co", [
+    (50176, 32, 32), (12544, 32, 64), (12544, 64, 64), (784, 32, 32),
+    (189, 32, 48), (715, 40, 24), (126, 32, 32), (64, 96, 96), (1, 8, 8)],
+    ids=str)
+def test_mma_plan_covers_the_rows_in_whole_chunks(n, ci, co):
+    tci, tco, splits, per = conv.mma_plan(n, ci, co)
+    assert tci in conv.MMA_TILES and tco in conv.MMA_TILES
+    assert -(-ci // tci) * tci - ci < 32
+    assert per % conv.MMA_CHUNK == 0 and splits >= 1
+    assert (splits - 1) * per < n <= splits * per
+    tiles = 9 * -(-ci // tci) * -(-co // tco)
+    assert splits == 1 or tiles * (splits - 1) < conv.TARGET_BLOCKS
+
+
+def test_mma_plan_at_the_cnns_shapes():
+    assert conv.mma_plan(50176, 32, 32) == (32, 32, 30, 1728)
+    assert conv.mma_plan(12544, 32, 64) == (32, 64, 28, 448)
+    assert conv.mma_plan(12544, 64, 64) == (64, 64, 28, 448)
+    assert [conv.mma_tile(c) for c in (8, 32, 40, 64, 96, 100)] == \
+        [32, 32, 64, 64, 32, 64]

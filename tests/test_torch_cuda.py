@@ -133,9 +133,48 @@ def test_conv_dw_kernel_matches_plain_on_card(dtype):
             <= 1e-5 * ref.abs().max().item()
 
 
+def test_conv_dw_routes_match_plain_on_card():
+    """K5's two routes in bf16: the cnn's shapes and a ragged one take the
+    tensor cores by the rule (the scalar kernel forced beside them), a
+    shape with channels not multiples of 8 the scalar kernel; each within
+    1e-5 of the plain version's largest value, two calls bit-identical.
+    Forcing the tensor cores on that shape raises."""
+    _need_card()
+    from distributedpytorch_tpu_torch.ops import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, h, w, ci, co in ((64, 28, 28, 32, 32), (64, 14, 14, 32, 64),
+                            (64, 14, 14, 64, 64), (5, 13, 11, 40, 24),
+                            (2, 9, 7, 36, 20)):
+        x = torch.randn((b, h, w, ci), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        dy = torch.randn((b, h, w, co), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        tc = ci % 8 == 0 and co % 8 == 0
+        before = (conv.conv3x3_dw.launches,
+                  conv.conv3x3_dw.tensor_core_launches)
+        runs = {tc: (conv.conv3x3_dw(x, dy), conv.conv3x3_dw(x, dy))}
+        assert (conv.conv3x3_dw.launches,
+                conv.conv3x3_dw.tensor_core_launches) == (
+                    before[0] + 2, before[1] + 2 * tc)
+        if tc:
+            runs[False] = (conv._launch(x, dy, tensor_core=False),
+                           conv._launch(x, dy, tensor_core=False))
+        else:
+            with pytest.raises(RuntimeError, match="tensor-core kernel"):
+                conv._launch(x, dy, tensor_core=True)
+        torch.cuda.synchronize()
+        ref = conv.conv3x3_dw_plain(x, dy)
+        for got, again in runs.values():
+            assert torch.equal(got, again)
+            assert (got - ref).abs().max().item() \
+                <= 1e-5 * ref.abs().max().item()
+
+
 def test_cnn_train_step_launches_k5_three_times():
     """One bf16 train step of the cnn with pallas_dw=True: 3 K5 launches
-    (Conv_1..Conv_3), finite gradients; none in an eval step."""
+    (Conv_1..Conv_3), all on the tensor cores, finite gradients; none in
+    an eval step."""
     _need_card()
     from distributedpytorch_tpu_torch.ops import conv
 
@@ -149,11 +188,13 @@ def test_cnn_train_step_launches_k5_three_times():
     labels = torch.from_numpy(rng.integers(0, 10, 64)).cuda()
     valid = torch.ones(64, dtype=torch.bool, device="cuda")
     before = conv.conv3x3_dw.launches
+    tc_before = conv.conv3x3_dw.tensor_core_launches
     _, m = engine.train_step(state, images, labels, valid,
                              torch.Generator(device="cuda").manual_seed(1))
     engine.eval_step(state, images, labels, valid)
     torch.cuda.synchronize()
     assert conv.conv3x3_dw.launches - before == 3
+    assert conv.conv3x3_dw.tensor_core_launches - tc_before == 3
     assert torch.isfinite(m["loss"]).item()
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
