@@ -23,7 +23,9 @@ result.  Phases, each printing its lines before the last:
      on the card, at the vit's shapes and at causal, wider-head and longer
      sequences: max abs error of O and lse against the stated tolerance,
      kernel / plain / SDPA (yardstick only) times — call time from CUDA
-     events, and device time from torch.profiler — and the bound;
+     events, and device time from torch.profiler, the median of 3 traces
+     at the main shape and one trace elsewhere, where the plain version
+     is not timed — and the bound;
   3. the main path: a full-width vit (dim 128, depth 4, 4 heads, S = 49,
      random weights from a seed) saved as a port checkpoint and served by
      ``python -m distributedpytorch_tpu_torch serve --attention flash`` in
@@ -34,12 +36,17 @@ result.  Phases, each printing its lines before the last:
      served it (label, and confidence to 1e-4); each server's K1 launch
      count held against 4 x (batches + warm-up buckets); and the model's
      flash logits held against its full-attention logits;
-  4. kernels K2 and K3 (flash-attention backward: dq, and dk/dv) against
-     their plain PyTorch version on the card, at the vit's training shapes
-     and at causal, wider-head and longer sequences: max error of dq, dk
-     and dv relative to the plain version's largest value, against the
-     stated tolerance, with device / call / plain / SDPA-backward
-     (yardstick only) times and the bound;
+  4. kernels K2 and K3 (flash-attention backward: delta and dq, and
+     dk/dv) against their plain PyTorch version on the card, at the vit's
+     training shapes and at causal, wider-head and longer sequences: each
+     case's route, and at a tensor-core case the scalar route too
+     (forced); max error of dq, dk and dv relative to the plain version's
+     largest value against the stated tolerance, K2's delta against
+     ``attention_delta``, two calls bit-identical; device / call / plain /
+     SDPA-backward (yardstick only) times of K2, K3, the backward as the
+     step runs it (K2 then K3) and the unfused backward
+     (``attention_delta``, then the scalar K2 and K3), timed as in phase
+     2, and the bounds;
   5. one full-width f32 train step (TF32 off) on the card against the
      same step on the CPU: same weights, batch and affine draws through
      ``Engine.train_step_affine``; every parameter's gradient compared,
@@ -52,24 +59,26 @@ result.  Phases, each printing its lines before the last:
      steps of 64, then 25 validation batches; the run's time limit);
      validation accuracy at least twice chance, the mean train loss of
      the last 10% of steps below that of the first 10%, and the logged
-     K1/K2/K3 launches equal to 4 per train step (K2, K3) and 4 per train
-     step plus 4 per eval batch (K1);
+     K1/K2/K3 launches equal to 4 per train step (K2, K3, every one on the
+     tensor cores) and 4 per train step plus 4 per eval batch (K1);
   7. resume: ``train --debug -e 2`` uninterrupted, and again resumed from
      its epoch-1 rolling file; the final params and optimizer state must
      be bit-identical; beside the uninterrupted run,
   8. ``test -f`` on the best model of phase 6 in a subprocess; its
      accuracy must equal an in-process eval of the same checkpoint;
   9. a profile of the train step at batch 64, bf16: wall and device ms
-     per step, kernels per step, the device's idle share, K1/K2/K3 time;
+     per step, kernels per step, the device's idle share, K1/K2/K3 time
+     and launches a step;
  10. kernel K5 (the conv weight gradient) against its plain PyTorch
      version at the cnn's three conv shapes at batch 1, 16 and 64 and a
      ragged shape, bf16 and f32, plus a bf16 shape that the route rule
      sends to the scalar kernel and a bf16 tensor-core shape with a ragged
      last chunk: each case's route, and at a tensor-core case the scalar
-     route too (forced); error relative to the plain version's largest value, two calls
-     bit-identical, device time (median, least and most of 3 traces) /
-     call / plain / ``conv2d_weight`` (cuDNN, yardstick only) times and
-     the bound;
+     route too (forced); error relative to the plain version's largest
+     value, two calls bit-identical, device time (median, least and most
+     of 3 traces at batch 64 bf16, one trace elsewhere) / call / plain
+     (at batch 64 bf16 only) / ``conv2d_weight`` (cuDNN, yardstick only)
+     times and the bound;
  11. one f32 train step (TF32 off) of the cnn with K5 and of resnet18 on
      the card against the CPU: gradients and BatchNorm statistics, and
      exactly 3 K5 launches for the cnn; the max pools' tie routing on the
@@ -82,9 +91,9 @@ result.  Phases, each printing its lines before the last:
      stated spread;
  13. the reference's job: ``torchrun --standalone --nproc_per_node 1 -m
      distributedpytorch_tpu_torch train`` with the default model (resnet
-     at 224) on NCCL for one epoch of phase 6's corpus (225 steps), then,
-     at once, ``test -f`` on its best model (equal to an in-process eval)
-     and ``train --debug`` of mlp and cnn;
+     at 224) on NCCL for one epoch of phase 6's corpus (225 steps), with
+     ``train --debug`` of mlp and cnn beside it, then ``test -f`` on its
+     best model (equal to an in-process eval);
  14. two ranks on the one card (gloo over CUDA tensors): three f32 steps
      of the cnn with K5 and of a resnet at reduced depth (and the resnet's
      in f64), held against one rank fed the same global batch and draws
@@ -100,7 +109,7 @@ result.  Phases, each printing its lines before the last:
      positions (one all masked), D = 128 and a 500-row shard; errors of O
      and lse, and of dq/dk/dv with a nonzero dlse; device / call / plain /
      SDPA with the same boolean mask (yardstick only; it returns no lse)
-     times and the bound at the timed shapes;
+     times, timed as in phase 2, and the bound at the timed shapes;
  17. the ring op on two ranks sharing the card (gloo over CUDA tensors,
      ``tests/_torch_ring_child.py``), ``ring`` and ``ring_flash``, against
      one process's ``full_attention`` and ``flash_attention`` on the
@@ -126,7 +135,8 @@ result.  Phases, each printing its lines before the last:
 
 Each phase prints its wall time.  Any failed check exits non-zero before
 the last line is printed.  Work files go to ``build/chip_smoke/`` in the
-checkout.
+checkout, and the bytecode of the modules that the run's processes import
+to ``build/pycache/``.
 """
 
 from __future__ import annotations
@@ -221,7 +231,8 @@ def phase_environment():
     say(card)
     say(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
-        f"count {torch.cuda.device_count()}")
+        f"count {torch.cuda.device_count()}; bytecode cache "
+        f"{os.path.relpath(sys.pycache_prefix, ROOT)}")
     try:
         import triton
 
@@ -245,10 +256,35 @@ def phase_environment():
         say(f"build: {name} nvcc {compile_s:.1f}s -> "
             f"{os.path.relpath(lib, ROOT)}")
         with open(lib + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    say(f"build: {name}: " + line.strip())
+            report = f.read().splitlines()
+        names = kernel_names(report)
+        kernel = ""
+        for line in report:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = names.get(m.group(1), m.group(1))
+            if "registers" in line or "spill" in line:
+                say(f"build: {name}: {kernel}: " + line.strip())
     return card
+
+
+def kernel_names(report: list) -> dict:
+    """The mangled kernel names of ptxas' report -> short demangled ones
+    (``flash_dq_mma_kernel<32>``), by ``c++filt`` where it exists."""
+    mangled = sorted({m.group(1) for line in report for m in
+                      [re.search(r"Function properties for (\S+)", line)]
+                      if m})
+    filt = shutil.which("c++filt")
+    if not mangled or filt is None:
+        return {}
+    out = subprocess.run([filt], input="\n".join(mangled),
+                         capture_output=True, text=True).stdout.splitlines()
+    if len(out) != len(mangled):
+        return {}
+    short = [re.sub(r"^void |\(anonymous namespace\)::", "", n)
+             for n in out]
+    return {m: n[:n.index("(")] if "(" in n else n
+            for m, n in zip(mangled, short)}
 
 
 # -- phase 2: K1 against its plain version --------------------------------
@@ -318,6 +354,26 @@ def device_ms_tries(fns: dict, reps: int = 50, tries: int = 3) -> dict:
     torch.cuda.synchronize()
     got = [t for t in (_device_trace(fns, reps) for _ in range(tries)) if t]
     return {n: [t[n] for t in got] for n in fns}
+
+
+def timing_tries(main: bool) -> int:
+    """Traces a time is taken from: the median of 3 at a kernel's main
+    shape, one at a side shape."""
+    return 3 if main else 1
+
+
+def timing_note(main: bool) -> str:
+    return ("main shape, device_ms median of 3 traces" if main
+            else "side shape, device_ms of 1 trace, plain not timed")
+
+
+def times_text(dev: dict, call: dict) -> str:
+    """``device_ms a=.. b=..; call_ms a=.. b=..`` of one case's functions
+    (a space in a name becomes _)."""
+    return ("device_ms " + " ".join(f"{n.replace(' ', '_')}={fmt_ms(t)}"
+                                    for n, t in dev.items())
+            + "; call_ms " + " ".join(f"{n.replace(' ', '_')}={t:.5f}"
+                                      for n, t in call.items()))
 
 
 def spread(times: list) -> tuple:
@@ -395,26 +451,26 @@ def phase_kernel():
                  f"err_lse {err_lse} (tol {TOL_LSE})")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         reps = 50 if s < 1000 else 20
+        main = (b, s, h, d, dt, causal) == MAIN_ATTN
         fns = {"kernel": lambda: flash_attention_fwd(q, k, v, causal),
-               "plain": lambda: flash_attention_plain(q, k, v, causal),
                "sdpa": lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal)}
+        if main:
+            fns["plain"] = lambda: flash_attention_plain(q, k, v, causal)
         call = {n: time_ms(f, reps) for n, f in fns.items()}
-        dev = {n: spread(t)[0]
-               for n, t in device_ms_tries(fns, reps).items()}
+        dev = {n: spread(t)[0] for n, t in
+               device_ms_tries(fns, reps, timing_tries(main)).items()}
         b_ms, b_by = bound_ms(b, s, h, d, dt, causal)
         say(f"K1 {(b, s, h, d)} {dt} causal={causal}: err_o={err_o:.3g} "
             f"(tol {TOL_O[dt]:g}) err_lse={err_lse:.3g} (tol {TOL_LSE:g}) "
-            f"device_ms kernel={fmt_ms(dev['kernel'])} "
-            f"plain={fmt_ms(dev['plain'])} sdpa={fmt_ms(dev['sdpa'])}; "
-            f"call_ms kernel={call['kernel']:.5f} "
-            f"plain={call['plain']:.5f} sdpa={call['sdpa']:.5f}; "
-            f"bound_us={b_ms * 1e3:.3f} ({b_by}) "
+            f"{timing_note(main)}: "
+            + times_text(dev, call)
+            + f"; bound_us={b_ms * 1e3:.3f} ({b_by}) "
             f"launches={flash_attention_fwd.launches}")
         rows[(b, s, h, d, dt, causal)] = dict(
-            max_abs_err=err_o, ms=dev["kernel"], plain_ms=dev["plain"],
+            max_abs_err=err_o, ms=dev["kernel"], plain_ms=dev.get("plain"),
             library_ms=dev["sdpa"], bound_ms=b_ms, bound_by=b_by,
-            call_ms=call["kernel"], plain_call_ms=call["plain"],
+            call_ms=call["kernel"], plain_call_ms=call.get("plain"),
             library_call_ms=call["sdpa"])
     return rows
 
@@ -779,16 +835,20 @@ def phase_profile(ckpt_path: str, device: str = "cuda") -> None:
 
 def bwd_bound_ms(b: int, s: int, h: int, d: int, dtype_name: str,
                  causal: bool, kernel: str):
-    """Least time for K2 ("dq") or K3 ("dkv"): each input read once and
-    each output written once (K2 reads q, k, v, dO, lse, delta and writes
-    dq; K3 also writes dv), or its products' operations (K2: 3, K3: 4) at
-    the card's peak for the input type, whichever is larger."""
+    """Least time for K2 ("dq"), K3 ("dkv") or the whole backward
+    ("bwd"): each input read once and each output written once (K2 reads
+    q, k, v, dO, O and lse and writes dq and delta; K3 reads q, k, v, dO,
+    lse and delta and writes dk and dv; the backward reads q, k, v, dO, O
+    and lse and writes dq, dk and dv), or its products' operations (K2: 3,
+    K3: 4, the backward: 5) at the card's peak for the input type,
+    whichever is larger."""
     item = 2 if dtype_name == "bfloat16" else 4
     tensor = b * s * h * d * item
     rows = b * h * s * 4
     pairs = s * (s + 1) / 2 if causal else s * s
-    outputs, products = (1, 3) if kernel == "dq" else (2, 4)
-    nbytes = (4 + outputs) * tensor + 2 * rows
+    tensors, row_vectors, products = {"dq": (6, 2, 3), "dkv": (6, 2, 4),
+                                      "bwd": (8, 1, 5)}[kernel]
+    nbytes = tensors * tensor + row_vectors * rows
     ops = products * 2 * b * h * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
@@ -802,7 +862,19 @@ def rel_err(got, ref) -> tuple:
     return err, err / max(scale, 1e-30)
 
 
+# K2's delta against attention_delta, relative to its largest value: the
+# same f32 sum of the same exact products in another order.
+TOL_DELTA = 1e-5
+
+
 def phase_bwd_kernels():
+    """K2 and K3 against their plain version: each case on the route the
+    rule picks and, at a tensor-core case, on the scalar route too
+    (forced), both held to TOL_GRAD; K2's delta against
+    ``attention_delta``; two calls bit-identical; times of the backward
+    as the step runs it (K2, which computes delta, then K3) beside the
+    unfused backward (``attention_delta``, then the scalar K2 and K3)
+    and SDPA's backward."""
     import torch
     import torch.nn.functional as F
 
@@ -816,74 +888,116 @@ def phase_bwd_kernels():
             for causal in (False, True):
                 cases.append((8 if s == 128 else 2, s, 4, d, dt, causal))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    counters = (tfa.flash_attention_dq, tfa.flash_attention_dkv)
     rows = {}
     for (b, s, h, d, dt, causal) in cases:
+        shape = (b, s, h, d)
         dtype = getattr(torch, dt)
         qkv = torch.randn((b, s, 3 * h * d), generator=gen,
                           device="cuda").to(dtype)
         q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
         do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
         o, lse = tfa.flash_attention_fwd(q, k, v, causal)
-        delta = tfa.attention_delta(o, do)
-        n_dq, n_dkv = (tfa.flash_attention_dq.launches,
-                       tfa.flash_attention_dkv.launches)
-        dq = tfa.flash_attention_dq(q, k, v, do, lse, delta, causal)
+        tc = tfa._pick_route(None, (q, k, v, do, o))
+        route = "tensor_core" if tc else "scalar"
+        before = [(w.launches, w.tensor_core_launches) for w in counters]
+        dq, delta = tfa.flash_attention_dq(q, k, v, o, do, lse, causal)
         dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+        again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
-        if (tfa.flash_attention_dq.launches != n_dq + 1
-                or tfa.flash_attention_dkv.launches != n_dkv + 1):
-            fail(f"K2/K3 wrappers did not count their launches at "
-                 f"{(b, s, h, d)}")
+        if [(w.launches, w.tensor_core_launches) for w in counters] != [
+                (n + 2, c + 2 * tc) for n, c in before]:
+            fail(f"K2/K3 wrappers did not count their {route} launches at "
+                 f"{shape} {dt}")
+        if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+            fail(f"K2/K3's {route} route is not deterministic at {shape} "
+                 f"{dt} causal={causal}")
+        checked = {route: (delta, dq, dk, dv)}
+        if tc:
+            sdq, sdelta = tfa._dq_launch(q, k, v, o, do, lse, causal,
+                                         tensor_core=False)
+            sdk, sdv = tfa._dkv_launch(q, k, v, do, lse, sdelta, causal,
+                                       tensor_core=False)
+            checked["scalar"] = (sdelta, sdq, sdk, sdv)
+        want_delta = tfa.attention_delta(o, do)
         pdq, pdk, pdv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                       causal)
-        errs = {"dq": rel_err(dq, pdq), "dk": rel_err(dk, pdk),
-                "dv": rel_err(dv, pdv)}
         tol = TOL_GRAD[dt]
-        if not all(math.isfinite(e[1]) and e[1] <= tol
-                   for e in errs.values()):
-            fail(f"K2/K3 disagree with their plain version at "
-                 f"{(b, s, h, d)} {dt} causal={causal}: "
-                 f"{ {n: e[1] for n, e in errs.items()} } (tol {tol})")
+        errs = {}
+        for r, (x_delta, x_dq, x_dk, x_dv) in checked.items():
+            errs[r] = {"delta": rel_err(x_delta, want_delta),
+                       "dq": rel_err(x_dq, pdq), "dk": rel_err(x_dk, pdk),
+                       "dv": rel_err(x_dv, pdv)}
+            bad = {n: e[1] for n, e in errs[r].items()
+                   if not (math.isfinite(e[1])
+                           and e[1] <= (TOL_DELTA if n == "delta" else tol))}
+            if bad:
+                fail(f"K2/K3's {r} route disagrees with the plain version "
+                     f"at {shape} {dt} causal={causal}: {bad} (tol {tol}, "
+                     f"delta {TOL_DELTA})")
         # SDPA's backward (yardstick only): dq, dk and dv in one call
         qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
                       .requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2).contiguous()
         reps = 50 if s < 1000 else 20
-        fns = {"dq": lambda: tfa.flash_attention_dq(q, k, v, do, lse, delta,
+        main = (b, s, h, d, dt, causal) == MAIN_ATTN
+
+        def unfused_bwd():
+            x_delta = tfa.attention_delta(o, do)
+            tfa._dq_launch(q, k, v, o, do, lse, causal, tensor_core=False)
+            tfa._dkv_launch(q, k, v, do, lse, x_delta, causal,
+                            tensor_core=False)
+
+        fns = {"K2": lambda: tfa.flash_attention_dq(q, k, v, o, do, lse,
                                                     causal),
-               "dkv": lambda: tfa.flash_attention_dkv(q, k, v, do, lse,
-                                                      delta, causal),
-               "plain": lambda: tfa.flash_attention_bwd_plain(
-                   q, k, v, o, lse, do, causal),
-               "sdpa": lambda: torch.autograd.grad(
-                   out, (qt, kt, vt), dot, retain_graph=True)}
+               "K3": lambda: tfa.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                     causal),
+               "bwd": lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal)}
+        if tc:
+            fns["scalar K2"] = lambda: tfa._dq_launch(
+                q, k, v, o, do, lse, causal, tensor_core=False)
+            fns["scalar K3"] = lambda: tfa._dkv_launch(
+                q, k, v, do, lse, delta, causal, tensor_core=False)
+            fns["unfused bwd"] = unfused_bwd
+        if main:
+            fns["plain"] = lambda: tfa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal)
+        fns["sdpa bwd"] = lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True)
         call = {n: time_ms(f, reps) for n, f in fns.items()}
-        dev = {n: spread(t)[0]
-               for n, t in device_ms_tries(fns, reps).items()}
+        dev = {n: spread(t)[0] for n, t in
+               device_ms_tries(fns, reps, timing_tries(main)).items()}
         bounds = {n: bwd_bound_ms(b, s, h, d, dt, causal, n)
-                  for n in ("dq", "dkv")}
-        say(f"K2/K3 {(b, s, h, d)} {dt} causal={causal}: rel err "
-            f"dq={errs['dq'][1]:.3g} dk={errs['dk'][1]:.3g} "
-            f"dv={errs['dv'][1]:.3g} (tol {tol:g}); device_ms "
-            f"K2={fmt_ms(dev['dq'])} K3={fmt_ms(dev['dkv'])} "
-            f"plain={fmt_ms(dev['plain'])} sdpa_bwd={fmt_ms(dev['sdpa'])}; "
-            f"call_ms K2={call['dq']:.5f} K3={call['dkv']:.5f} "
-            f"plain={call['plain']:.5f} sdpa_bwd={call['sdpa']:.5f}; "
-            f"bound_us K2={bounds['dq'][0] * 1e3:.3f} ({bounds['dq'][1]}) "
-            f"K3={bounds['dkv'][0] * 1e3:.3f} ({bounds['dkv'][1]}); "
-            f"launches K2={tfa.flash_attention_dq.launches} "
-            f"K3={tfa.flash_attention_dkv.launches}")
-        for name, key, err in (("flash_dq", "dq", errs["dq"]),
-                               ("flash_dkv", "dkv",
-                                max(errs["dk"], errs["dv"],
-                                    key=lambda e: e[1]))):
+                  for n in ("dq", "dkv", "bwd")}
+        say(f"K2/K3 {shape} {dt} causal={causal}, {route} route: rel err "
+            + "; ".join(f"{r} " + " ".join(f"{n}={e[1]:.3g}"
+                                           for n, e in es.items())
+                        for r, es in errs.items())
+            + f" (tol {tol:g}, delta {TOL_DELTA:g}), bit-identical; "
+            f"{timing_note(main)}: " + times_text(dev, call)
+            + "; bound_us " + " ".join(f"{n}={t * 1e3:.3f} ({by})"
+                                       for n, (t, by) in bounds.items())
+            + f"; launches K2={tfa.flash_attention_dq.launches} "
+            f"(tensor-core {tfa.flash_attention_dq.tensor_core_launches}) "
+            f"K3={tfa.flash_attention_dkv.launches} (tensor-core "
+            f"{tfa.flash_attention_dkv.tensor_core_launches})")
+        for name, key, parts in (("flash_dq", "K2", ("delta", "dq")),
+                                 ("flash_dkv", "K3", ("dk", "dv"))):
+            err = max((errs[route][n] for n in parts), key=lambda e: e[1])
             rows[(name, b, s, h, d, dt, causal)] = dict(
                 max_abs_err=err[0], rel_err=err[1], ms=dev[key],
-                plain_ms=dev["plain"], library_ms=dev["sdpa"],
-                bound_ms=bounds[key][0], bound_by=bounds[key][1],
-                call_ms=call[key], plain_call_ms=call["plain"],
-                library_call_ms=call["sdpa"])
+                plain_ms=dev.get("plain"), library_ms=dev["sdpa bwd"],
+                bound_ms=bounds[name[6:]][0], bound_by=bounds[name[6:]][1],
+                call_ms=call[key], plain_call_ms=call.get("plain"),
+                library_call_ms=call["sdpa bwd"], tc_route=route,
+                scalar_ms=dev.get("scalar " + key),
+                scalar_rel_err=(max(errs["scalar"][n][1] for n in parts)
+                                if tc else None),
+                delta_rel_err=errs[route]["delta"][1],
+                bwd_ms=dev["bwd"], unfused_bwd_ms=dev.get("unfused bwd"),
+                bwd_bound_ms=bounds["bwd"][0])
     return rows
 
 
@@ -1012,6 +1126,17 @@ def parse_launches(log: str, action: str):
              "conv_dw": dw}, steps, evals)
 
 
+def parse_tensor_core_launches(log: str, action: str) -> dict:
+    """The ``ACTION: tensor-core launches ...`` line: of each kernel with
+    two routes, its launches on the tensor cores."""
+    m = re.search(rf"{action}: tensor-core launches flash_dq (\d+), "
+                  rf"flash_dkv (\d+), conv_dw (\d+) over", log)
+    if m is None:
+        fail(f"{action} did not log its tensor-core launches")
+    return dict(zip(("flash_dq", "flash_dkv", "conv_dw"),
+                    map(int, m.groups())))
+
+
 # Phase 6's corpus: the first rows of the synthetic one, as MNIST files.
 # 90% of the train rows train: 225 steps of 64, and 25 validation batches.
 VIT_TRAIN_ROWS = 16000
@@ -1048,19 +1173,27 @@ def phase_train():
     wall, log = run_cli(["train", "--model", "vit", "--attention", "flash",
                          "-e", "1"], rsl, data=VIT_DATA)
     launches, steps, evals = parse_launches(log, "train")
+    tensor_core = parse_tensor_core_launches(log, "train")
     n_train = int(VIT_TRAIN_ROWS * 0.9)
     want_steps = math.ceil(n_train / TRAIN_BATCH)
     want_evals = math.ceil((VIT_TRAIN_ROWS - n_train) / TRAIN_BATCH)
     want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
             "flash_dkv": DEPTH * steps, "conv_dw": 0}
+    # the vit's bf16 K2 and K3 all take the tensor cores
+    want_tc = {"flash_dq": DEPTH * steps, "flash_dkv": DEPTH * steps,
+               "conv_dw": 0}
     say(f"train: launches {launches} over {steps} steps and {evals} eval "
-        f"batches; formula {want}")
-    if (steps, evals) != (want_steps, want_evals) or launches != want:
-        fail(f"train launches {launches} over {steps} steps / {evals} "
-             f"eval batches do not match the formula {want} at "
-             f"{want_steps} steps / {want_evals} eval batches")
+        f"batches; formula {want}; on the tensor cores {tensor_core}, "
+        f"formula {want_tc}")
+    if (steps, evals) != (want_steps, want_evals) or launches != want \
+            or tensor_core != want_tc:
+        fail(f"train launches {launches} (tensor-core {tensor_core}) over "
+             f"{steps} steps / {evals} eval batches do not match the "
+             f"formula {want} (tensor-core {want_tc}) at {want_steps} "
+             f"steps / {want_evals} eval batches")
     check_epoch_log("train", log, steps, wall)
-    return launches, os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+    return launches, tensor_core, os.path.join(rsl,
+                                               "bestmodel-mnist-vit.ckpt")
 
 
 def check_epoch_log(tag: str, log: str, steps: int, wall: float) -> None:
@@ -1206,19 +1339,25 @@ def phase_train_profile() -> None:
                 f"device time not measured (no device events)")
             continue
 
-        def us(tag):
+        def us(tags):
             return sum(e.self_device_time_total for e in kernels
-                       if tag in e.key) / reps
+                       if any(t in e.key for t in tags)) / reps
 
+        def count(tags):
+            return sum(e.count for e in kernels
+                       if any(t in e.key for t in tags)) / reps
+
+        # K2 and K3 on either route (the tensor-core kernels are *_mma_*)
         parts = "; ".join(
-            f"{n} {us(tag):.2f} us/step ({100 * us(tag) / 1e3 / dev_ms:.1f}%)"
-            for n, tag in (("K1", "flash_fwd_kernel"),
-                           ("K2", "flash_dq_kernel"),
-                           ("K3", "flash_dkv_kernel")))
+            f"{n} {us(tags):.2f} us/step in {count(tags):.0f} launches "
+            f"({100 * us(tags) / 1e3 / dev_ms:.1f}%)"
+            for n, tags in (("K1", ("flash_fwd_kernel",)),
+                            ("K2", ("flash_dq_kernel", "flash_dq_mma")),
+                            ("K3", ("flash_dkv_kernel", "flash_dkv_mma"))))
         say(f"profile: train step, {att}, batch {TRAIN_BATCH} bf16: wall "
             f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms in "
-            f"{n_kern:.0f} kernels (idle {100 * (1 - dev_ms / wall_ms):.1f}"
-            f"%); {parts}")
+            f"{n_kern:.0f} kernels a step (idle "
+            f"{100 * (1 - dev_ms / wall_ms):.1f}%); {parts}")
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)
         say("profile:   top: " + "; ".join(
             f"{e.key[:48]} {e.self_device_time_total / reps:.1f}us"
@@ -1302,14 +1441,18 @@ def phase_conv_dw():
             if not (math.isfinite(errs[r][1]) and errs[r][1] <= TOL_DW):
                 fail(f"K5's {r} route disagrees with its plain version at "
                      f"{shape} {dt}: rel err {errs[r][1]} (tol {TOL_DW})")
+        main = (b, dt) == (TRAIN_BATCH, "bfloat16") and \
+            (h, w, ci, co) in CNN_CONVS
         fns = {"kernel": lambda: conv.conv3x3_dw(xn, dyn)}
         if tc:
             fns["scalar"] = lambda: conv._launch(xn, dyn, tensor_core=False)
-        fns["plain"] = lambda: conv.conv3x3_dw_plain(xn, dyn)
+        if main:
+            fns["plain"] = lambda: conv.conv3x3_dw_plain(xn, dyn)
         fns["cudnn"] = lambda: conv2d_weight(x, (co, ci, 3, 3), dy,
                                              padding=1)
         call = {n: time_ms(f) for n, f in fns.items()}
-        dev = {n: spread(t) for n, t in device_ms_tries(fns).items()}
+        dev = {n: spread(t) for n, t in
+               device_ms_tries(fns, tries=timing_tries(main)).items()}
         b_ms, b_by = dw_bound_ms(b, h, w, ci, co, dt)
         plan = (conv.mma_plan(b * h * w, ci, co) if tc
                 else conv.split_plan(b * h * w, 9 * ci, co))
@@ -1317,7 +1460,7 @@ def phase_conv_dw():
             + ", ".join(f"{r} {e[1]:.3g} (abs {e[0]:.3g})"
                         for r, e in errs.items())
             + f" (tol {TOL_DW:g}), deterministic; device_ms median "
-            f"[least, most of 3 tries] "
+            f"[least, most of {timing_tries(main)} tries] "
             + " ".join(f"{n}={fmt_ms(d[0])} [{fmt_ms(d[1])}, {fmt_ms(d[2])}]"
                        for n, d in dev.items())
             + "; call_ms " + " ".join(f"{n}={c:.5f}" for n, c in call.items())
@@ -1327,9 +1470,10 @@ def phase_conv_dw():
             ms=dev["kernel"][0], ms_least=dev["kernel"][1],
             ms_most=dev["kernel"][2],
             scalar_ms=dev["scalar"][0] if tc else None,
-            plain_ms=dev["plain"][0], library_ms=dev["cudnn"][0],
-            bound_ms=b_ms, bound_by=b_by, call_ms=call["kernel"],
-            plain_call_ms=call["plain"], library_call_ms=call["cudnn"])
+            plain_ms=dev["plain"][0] if main else None,
+            library_ms=dev["cudnn"][0], bound_ms=b_ms, bound_by=b_by,
+            call_ms=call["kernel"], plain_call_ms=call.get("plain"),
+            library_call_ms=call["cudnn"])
     return rows
 
 
@@ -1671,10 +1815,16 @@ def eval_accuracy(ckpt_path: str, name: str, data: str = "") -> tuple:
 
 def phase_reference_job() -> None:
     """On phase 6's corpus (cut from the whole synthetic one for the run's
-    time limit: 225 steps instead of 844)."""
+    time limit: 225 steps instead of 844).  The two short trainings run
+    beside the resnet's (none of the three is timed here), and `test`
+    after it."""
     rsl = os.path.join(WORK, "resnet_rsl")
-    wall, log = run_cli(["train", "-e", "1"], rsl, launcher=TORCHRUN,
-                        data=VIT_DATA)
+    (wall, log), *debug = finish_all(
+        [start_cli(["train", "-e", "1"], rsl, launcher=TORCHRUN,
+                   data=VIT_DATA)]
+        + [start_cli(["train", "--model", name, "--debug", "-e", "1"],
+                     os.path.join(WORK, f"{name}_debug"))
+           for name in ("mlp", "cnn")])
     if "process: 0/1, world size: 1, backend: nccl" not in log:
         fail("the torchrun launch did not join an NCCL process group")
     launches, steps, evals = parse_launches(log, "train")
@@ -1693,14 +1843,8 @@ def phase_reference_job() -> None:
             or any(launches.values()):
         fail(f"resnet train ran {steps} steps with launches {launches}")
     best = os.path.join(rsl, "bestmodel-mnist-resnet.ckpt")
-    # `test` and the two short trainings run at once: none is timed here,
-    # and each spends most of its wall starting up on the host.
-    (_, tlog), *debug = finish_all(
-        [start_cli(["test", "-f", best], os.path.join(WORK, "resnet_test"),
-                   launcher=TORCHRUN, data=VIT_DATA)]
-        + [start_cli(["train", "--model", name, "--debug", "-e", "1"],
-                     os.path.join(WORK, f"{name}_debug"))
-           for name in ("mlp", "cnn")])
+    _, tlog = run_cli(["test", "-f", best], os.path.join(WORK, "resnet_test"),
+                      launcher=TORCHRUN, data=VIT_DATA)
     acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", tlog).group(1)
     acc_here, correct, n = eval_accuracy(best, "resnet", VIT_DATA)
     say(f"resnet: `torchrun test -f` accuracy {acc_cli}%; in-process eval "
@@ -1711,7 +1855,7 @@ def phase_reference_job() -> None:
         acc = re.search(r"Validation  \| Loss: [\d.]+ +\| Acc: ([\d.]+)%",
                         log).group(1)
         say(f"{name}: `train --debug -e 1` finished in {wall:.1f}s (run "
-            f"beside the other two), validation acc {acc}%")
+            f"beside the resnet's and the other), validation acc {acc}%")
 
 
 # -- phase 14: two ranks on the one card -------------------------------------
@@ -2032,10 +2176,9 @@ def phase_ring_kernels():
             out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
             dot = do.to(dtype).transpose(1, 2).contiguous()
             reps = 50 if s < 500 else 20
+            main = (label, dt) == RING_MAIN
             fns = {
                 "K4": lambda: tfa.flash_attention_partial_fwd(
-                    q, k, v, qp, kp, causal, kv_valid),
-                "K4 plain": lambda: tfa.flash_attention_partial_plain(
                     q, k, v, qp, kp, causal, kv_valid),
                 "sdpa": lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=keep),
@@ -2043,17 +2186,18 @@ def phase_ring_kernels():
                     q, k, v, do, lse, delta, qp, kp, causal, kv_valid),
                 "K3p": lambda: tfa.flash_attention_partial_dkv(
                     q, k, v, do, lse, delta, qp, kp, causal, kv_valid),
-                "bwd plain": lambda: tfa.flash_attention_partial_bwd_plain(
-                    q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid),
                 "sdpa bwd": lambda: torch.autograd.grad(
                     out, (qt, kt, vt), dot, retain_graph=True)}
+            if main:
+                fns["K4 plain"] = lambda: tfa.flash_attention_partial_plain(
+                    q, k, v, qp, kp, causal, kv_valid)
+                fns["bwd plain"] = \
+                    lambda: tfa.flash_attention_partial_bwd_plain(
+                        q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid)
             call = {n: time_ms(f, reps) for n, f in fns.items()}
-            dev = {n: spread(t)[0]
-                   for n, t in device_ms_tries(fns, reps).items()}
-            say(line + "; device_ms " + " ".join(
-                f"{n.replace(' ', '_')}={fmt_ms(dev[n])}" for n in fns)
-                + "; call_ms " + " ".join(
-                    f"{n.replace(' ', '_')}={call[n]:.5f}" for n in fns))
+            dev = {n: spread(t)[0] for n, t in
+                   device_ms_tries(fns, reps, timing_tries(main)).items()}
+            say(line + f"; {timing_note(main)}; " + times_text(dev, call))
             for name, key, plain, lib, err in (
                     ("flash_fwd_pos", "K4", "K4 plain", "sdpa",
                      (err_o, err_o)),
@@ -2062,10 +2206,10 @@ def phase_ring_kernels():
                     ("flash_dkv_pos", "K3p", "bwd plain", "sdpa bwd",
                      max(errs["dk"], errs["dv"], key=lambda e: e[1]))):
                 rows[(name, label, dt)] = dict(
-                    max_abs_err=err[0], ms=dev[key], plain_ms=dev[plain],
+                    max_abs_err=err[0], ms=dev[key], plain_ms=dev.get(plain),
                     library_ms=dev[lib], bound_ms=bounds[name][0],
                     bound_by=bounds[name][1], call_ms=call[key],
-                    plain_call_ms=call[plain], library_call_ms=call[lib])
+                    plain_call_ms=call.get(plain), library_call_ms=call[lib])
     return rows
 
 
@@ -2372,6 +2516,19 @@ def parse_phases(argv) -> set:
     return chosen
 
 
+def use_bytecode_cache() -> None:
+    """Caches the bytecode of every module that this run and its child
+    processes import under build/pycache in the checkout.  A Python whose
+    packages carry no bytecode (a read-only or freshly copied
+    site-packages) otherwise compiles torch's sources anew in each of the
+    run's some 30 processes."""
+    prefix = os.path.join(ROOT, "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
 def main(argv=None) -> int:
     chosen = parse_phases(sys.argv[1:] if argv is None else argv)
     try:
@@ -2385,6 +2542,7 @@ def main(argv=None) -> int:
         import distributedpytorch_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py: {e}")
+    use_bytecode_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -2409,7 +2567,7 @@ def main(argv=None) -> int:
                      f"{missing} of {name} at {where}")
 
     card = run(phase_environment)
-    main_rows, launches = {}, {}
+    main_rows, launches, tc_launches = {}, {}, {}
     if want(2):
         main_rows["flash_fwd"] = run(phase_kernel)[MAIN_ATTN]
         need_rows(["flash_fwd"], "the main path's shape (64, 49, 4, 32) "
@@ -2428,11 +2586,13 @@ def main(argv=None) -> int:
     if want(5):
         run(phase_train_step_parity)
     if want(6):
-        train_launches, best = run(phase_train)
+        train_launches, train_tc, best = run(phase_train)
         for name in ("flash_fwd", "flash_dq", "flash_dkv"):
             if train_launches[name] <= 0:
                 fail(f"kernel {name} was not launched on the train path")
         launches.update(train_launches)
+        tc_launches.update(flash_dq=train_tc["flash_dq"],
+                           flash_dkv=train_tc["flash_dkv"])
     elif want(13) or want(18):
         write_vit_data()
     if want(7):
@@ -2445,6 +2605,8 @@ def main(argv=None) -> int:
         run(phase_cnn_step_parity)
     if want(12):
         launches["conv_dw"] = run(phase_cnn_epoch)
+        # phase 12 fails unless every one of them took the tensor cores
+        tc_launches["conv_dw"] = launches["conv_dw"]
     if want(13):
         run(phase_reference_job)
     if want(14):
@@ -2477,6 +2639,8 @@ def main(argv=None) -> int:
     for row in kernels:
         if row["name"] == "flash_fwd" and serve_launches is not None:
             row["serve_launches"] = serve_launches
+        if row["name"] in tc_launches:
+            row["tensor_core_launches"] = tc_launches[row["name"]]
     if chosen is not None:
         say(card)
         say(json.dumps({"kernels": kernels}))

@@ -69,11 +69,19 @@ KERNELS = {"flash_fwd": fa.flash_attention_fwd,
            "flash_dq_pos": fa.flash_attention_partial_dq,
            "flash_dkv_pos": fa.flash_attention_partial_dkv}
 RING_KERNELS = ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")
+TENSOR_CORE_KERNELS = ("flash_dq", "flash_dkv", "conv_dw")  # two routes
 
 
 def kernel_launches() -> dict:
     """The launch counters of the port's kernels, by kernel name."""
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def tensor_core_launches() -> dict:
+    """Of those launches, the ones on the tensor-core route, by the name
+    of each kernel that has one."""
+    return {name: KERNELS[name].tensor_core_launches
+            for name in TENSOR_CORE_KERNELS}
 
 
 def _launch_line(before: dict, ring: bool = False) -> str:
@@ -84,11 +92,18 @@ def _launch_line(before: dict, ring: bool = False) -> str:
                      if (name in RING_KERNELS) == ring)
 
 
-def _log_launches(action: str, before: dict, over: str) -> None:
+def _log_launches(action: str, before: dict, before_tc: dict,
+                  over: str) -> None:
+    """The launch lines since ``before`` (``kernel_launches``) and
+    ``before_tc`` (``tensor_core_launches``)."""
     logging.info(f"{action}: kernel launches {_launch_line(before)} over "
                  f"{over}")
     logging.info(f"{action}: ring kernel launches "
                  f"{_launch_line(before, ring=True)} over {over}")
+    now = tensor_core_launches()
+    logging.info(f"{action}: tensor-core launches " + ", ".join(
+        f"{name} {now[name] - before_tc[name]}" for name in now)
+        + f" over {over}")
 
 
 def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
@@ -326,7 +341,7 @@ def run_train(cfg: Config) -> dict:
                     cfg.rsl_path, cfg.dataset, model_name)
         else:
             start_epoch, best_valid_loss = 0, math.inf
-        before = kernel_launches()
+        before, before_tc = kernel_launches(), tensor_core_launches()
         step0 = state.step
         start_time = time.monotonic()
         shutdown = utils.GracefulShutdown()
@@ -337,7 +352,7 @@ def run_train(cfg: Config) -> dict:
         runtime.barrier()       # every rank returns after rank 0's writes
         steps = state.step - step0
         evals = len(result["history"]) * len(valid_loader)
-        _log_launches("train", before,
+        _log_launches("train", before, before_tc,
                       f"{steps} train steps and {evals} eval batches")
         result["launches"] = {k: v - before[k]
                               for k, v in kernel_launches().items()}
@@ -361,14 +376,15 @@ def run_test(cfg: Config) -> dict:
         state = engine.init_state(torch.Generator().manual_seed(cfg.seed))
         ckpt.load_checkpoint(cfg.checkpoint_file, state.model,
                              restore_optimizer=False)
-        before = kernel_launches()
+        before, before_tc = kernel_launches(), tensor_core_launches()
         start_time = time.monotonic()
         loss, acc = _run_eval_pass(engine, state, test_loader, epoch=0)
         mins, secs = utils.get_duration(start_time, time.monotonic())
     finally:
         tel.close()
     logging.info(f"Time: {mins}m {secs}s, Acc: {acc * 100:.2f}%")
-    _log_launches("test", before, f"{len(test_loader)} eval batches")
+    _log_launches("test", before, before_tc,
+                  f"{len(test_loader)} eval batches")
     return {"test_loss": loss, "test_acc": acc, "model_name": model_name}
 
 

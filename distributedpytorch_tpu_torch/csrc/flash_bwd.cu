@@ -4,14 +4,16 @@
 // K2 replaces distributedpytorch_tpu/ops/flash_attention.py::_dq_kernel and
 // K3 replaces ::_dkv_kernel (use_pos=False), both launched by
 // _flash_bwd_impl, the backward of the jax.custom_vjp around _flash.  Same
-// functions, with p = exp(s - lse) recomputed from K1's log-sum-exp and
-// delta = rowsum(dO * O) computed by the wrapper:
-//   K2: dq = scale * sum_k [p * (dO V^T - delta)] K
+// functions, with p = exp(s - lse) recomputed from K1's log-sum-exp:
+//   K2: delta = rowsum(dO * O),  dq = scale * sum_k [p * (dO V^T - delta)] K
 //   K3: dv = sum_q p^T dO,   dk = scale * sum_q [p * (dO V^T - delta)]^T Q
+// The TPU wrapper computes delta outside its kernels.  Here K2 computes it
+// for its own rows in f32 from O and dO, uses it, and writes it to a
+// (B*H, S) f32 buffer that K3, launched next on the same stream, reads.
 //
 // K2p and K3p replace the same two TPU kernels with use_pos=True, launched
 // by _flash_partial_bwd, the backward of flash_attention_partial (K4, one
-// call per ring step).  They are K2 and K3 with kPos set:
+// call per ring step).  They are the scalar K2 and K3 with kPos set:
 //   - the mask comes from global positions, (!causal || q_pos >= k_pos) &&
 //     k_pos < kv_valid, with no causal early stop and no tile-index start
 //     (positions rotate with the ring's K/V blocks);
@@ -32,48 +34,77 @@
 // Numerics kept from the TPU kernels: q is NOT pre-scaled (the score is
 // (q . k) * scale, as the TPU backward computes it, while the forward
 // scales q first); masked scores behave as the -1e30 sentinel (p and ds
-// are forced to 0 there); every product is summed in f32 from inputs
-// widened exactly to f32; dq and dk are scaled once at the end; outputs are
+// are forced to 0 there); dq and dk are scaled once at the end; outputs are
 // cast to the input dtype with round-to-nearest-even.
 //
 // Not carried over: the wrapper's moveaxis to (B*H, S, D) and the pad of S
-// to a multiple of 128.  q, k, v and dO are read in their (B, S, H, D)
+// to a multiple of 128.  q, k, v, dO and O are read in their (B, S, H, D)
 // layout through strides (the head dim must be contiguous); lse and delta
 // are (B*H, S) f32; dq, dk, dv are written contiguous (B, S, H, D).  The
 // ragged tail of S is masked here: rows and keys at or past S read zeros,
 // contribute nothing, never read lse or delta out of bounds and are never
-// written.
-//
-// Design.  As in K1, one thread block of 256 threads takes 64 rows, four
-// threads per row; thread g of a row owns the dims d = g, g+4, ... of its
-// row's vectors and f32 accumulators in registers, and a dot product over
-// D is a partial sum reduced across the 4 lanes with two xor shuffles.
-//   K2: a block owns 64 query rows (q, dO, lse, delta in registers) and
-//       streams K/V tiles of KT keys through shared memory; it stops at the
-//       causal diagonal.
-//   K3: a block owns 64 key rows (k, v in registers) and streams Q/dO tiles
-//       of QT rows (plus their lse and delta) through shared memory,
-//       starting at the q tile that holds the block's first key when
-//       causal (the TPU kernel's start_qb).
-// Each block writes only its own rows, so there are no atomics and the
-// result is the same on every run.  KT = QT = 64, or 32 at D = 128, so two
-// f32 tiles stay under 48 KB of static shared memory.  Scalar FMA, no
-// tensor cores: a simple kernel that is right first (wgmma, TMA and folding
-// delta into K2 are later work).
+// written.  Each block writes only its own rows, so there are no atomics
+// and the result is the same on every run.
 //
 // Bound on the H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense) at the vit's
 // training shape (B, S, H, D) = (64, 49, 4, 32) bf16, each input read once
 // and each output written once:
-//   K2 reads q, k, v, dO (4 x 0.80 MB) and lse, delta (2 x 0.05 MB) and
-//      writes dq (0.80 MB): 4.1 MB, 1.2 us; 3 products of 2*B*H*S*S*D
-//      operations, 118 MFLOP, 0.12 us.  Bytes bound it.
-//   K3 reads the same 3.3 MB and writes dk and dv (1.6 MB): 4.9 MB,
-//      1.5 us; 4 products, 157 MFLOP, 0.16 us.  Bytes bound it.
-// At these sizes launch latency bounds both in practice.  K2p and K3p at
-// the vit's ring shard (128, 25, 4, 32) bf16 with an f32 dO: K2p reads
-// q, k, v (3 x 0.82 MB), dO (1.6 MB), lse, delta and positions and writes
-// dq (0.82 MB), 5.0 MB, 1.5 us; K3p writes dk and dv, 5.8 MB, 1.7 us;
-// 61 and 82 MFLOP, 0.06-0.08 us.  Bytes bound them.
+//   K2 reads q, k, v, dO, O (5 x 0.80 MB) and lse (0.05 MB) and writes dq
+//      (0.80 MB) and delta (0.05 MB): 4.9 MB, 1.47 us; 3 products of
+//      2*B*H*S*S*D operations, 118 MFLOP, 0.12 us.  Bytes bound it.
+//   K3 reads q, k, v, dO, lse, delta (3.3 MB) and writes dk and dv
+//      (1.6 MB): 4.9 MB, 1.47 us; 4 products, 157 MFLOP, 0.16 us.  Bytes
+//      bound it.
+// At these sizes launch and memory latency bound both in practice: a
+// block does one 64-key (or 64-query) tile.  K2p and K3p at the vit's ring
+// shard (128, 25, 4, 32) bf16 with an f32 dO: K2p reads q, k, v
+// (3 x 0.82 MB), dO (1.6 MB), lse, delta and positions and writes dq
+// (0.82 MB), 5.0 MB, 1.5 us; K3p writes dk and dv, 5.8 MB, 1.7 us; 61 and
+// 82 MFLOP, 0.06-0.08 us.  Bytes bound them.
+//
+// Two routes, chosen by the wrapper (ops/flash_attention.py::
+// tensor_core_route):
+//
+// 1. bf16 at D = 32 or 64 with 16-byte-aligned rows -- the vit's main
+//    path -- runs flash_dq_mma_kernel (K2) and flash_dkv_mma_kernel (K3)
+//    on the tensor cores, mma.sync.m16n8k16 bf16 x bf16 -> f32.  A block
+//    of 4 warps owns 64 rows, 16 a warp: query rows for K2, key rows for
+//    K3.  Its own rows (Q and dO, or K and V) arrive once by 16-byte
+//    cp.async and go into A fragments by ldmatrix; the other side (K/V
+//    tiles for K2; Q/dO tiles with their lse and delta for K3) streams
+//    through two cp.async stages of 64 rows, tile t + 1 in flight while
+//    tile t multiplies, one barrier a tile.  Shared rows are padded by 16
+//    bytes, so ldmatrix is free of bank conflicts.  A warp walks its tile
+//    16 columns at a time:
+//      K2: S = Q K^T and dP = dO V^T (K and V rows are already the .col B
+//          operand), p = exp(s * scale - lse), ds = p (dp - delta) in f32
+//          registers, masked in the accumulator layout; ds rounded to bf16
+//          is the A fragment of dQ += dS K (the C layout of two n8 tiles is
+//          the A layout of one k16 step), K through ldmatrix .trans.
+//      K3: S^T = K Q^T and dP^T = V dO^T, p^T and ds^T as above with the
+//          column's lse and delta, then dV += P^T dO and dK += dS^T Q, Q and
+//          dO through ldmatrix .trans.
+//    p and ds are rounded to bf16 before the second products, as
+//    FlashAttention-2 and SDPA's backward do; every sum is f32.  K2's
+//    delta: two threads a row sum dO * O in f32 from 16-byte loads while
+//    the first tiles are in flight.  Causal: K2 stops at the diagonal
+//    tile, K3 starts at the block's first key tile, and a warp skips a
+//    16-column step that lies wholly above the diagonal.
+//
+// 2. Every other call -- f32, D = 128, views whose rows are not 16-byte
+//    aligned -- and K2p/K3p run flash_dq_kernel / flash_dkv_kernel, scalar
+//    FMAs: one block of 256 threads takes 64 rows, four threads a row;
+//    thread g of a row owns the dims d = g, g+4, ... of its row's vectors
+//    and f32 accumulators in registers, and a dot product over D is a
+//    partial sum reduced across the 4 lanes with two xor shuffles.  K2 owns
+//    64 query rows (q, dO, lse, delta in registers; delta summed from dO
+//    and O by the same shuffles) and streams K/V tiles of KT keys through
+//    shared memory, stopping at the causal diagonal; K3 owns 64 key rows
+//    and streams Q/dO tiles of QT rows (plus their lse and delta), starting
+//    at the q tile that holds the block's first key when causal (the TPU
+//    kernel's start_qb).  KT = QT = 64, or 32 at D = 128, so two f32 tiles
+//    stay under 48 KB of static shared memory.  Every product is summed in
+//    f32 from inputs widened exactly to f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -123,16 +154,17 @@ __device__ __forceinline__ long long offset(const Strides& st, int b, int s,
   return (long long)b * st.b + (long long)s * st.s + (long long)h * st.h;
 }
 
-// K2 (kPos false) and K2p (kPos true, dO of type TO = float): one block
-// per (64-row q tile, b*h).
+// K2 (kPos false: delta computed from dO and O and written) and K2p (kPos
+// true: delta read; dO of type TO = float): one block per (64-row q tile,
+// b*h).
 template <typename T, typename TO, int D, int KT, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const TO* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int S,
-                int H, Strides qs, Strides ks, Strides vs, Strides os,
-                Pos pos, float scale, int causal) {
+                const T* __restrict__ o, const float* __restrict__ lse,
+                float* __restrict__ delta, T* __restrict__ dq, int S, int H,
+                Strides qs, Strides ks, Strides vs, Strides os,
+                Strides oos, Pos pos, float scale, int causal) {
   constexpr int DPT = D / kLanes;  // dims owned by one thread
   __shared__ float k_t[KT][D];
   __shared__ float v_t[KT][D];
@@ -156,7 +188,19 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc[i] = 0.f;
   }
   const float lse_r = row_in ? lse[(long long)bh * S + row] : 0.f;
-  const float delta_r = row_in ? delta[(long long)bh * S + row] : 0.f;
+  float delta_r;
+  if constexpr (kPos) {
+    delta_r = row_in ? delta[(long long)bh * S + row] : 0.f;
+  } else {
+    const long long out_at = offset(oos, b, row, h);
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      part += row_in ? dor[i] * to_f32(o[out_at + g + kLanes * i]) : 0.f;
+    }
+    delta_r = lane_sum(part);
+    if (row_in && g == 0) delta[(long long)bh * S + row] = delta_r;
+  }
   const int qp = kPos && row_in ? pos.q[row] : 0;
 
   int n_tiles = (S + KT - 1) / KT;
@@ -321,12 +365,455 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+// -- route 1: tensor cores ------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps, 16 of the block's rows each
+constexpr int kMmaRows = 64;      // rows a block owns
+constexpr int kMmaTile = 64;      // rows of a streamed tile (4 steps of 16)
+constexpr int kPad = 8;           // bf16 of padding per shared-memory row
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes and reads
+// nothing.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when src_bytes is 0.
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices, each stored as 8 rows of 8 contiguous elements
+// (row addresses from lanes 8j..8j+7 for matrix j): lane l gets elements
+// 2(l%4), 2(l%4)+1 of stored row l/4.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The same, transposed on the way in: lane l gets stored rows 2(l%4),
+// 2(l%4)+1 of column l/4.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as one register of two bf16 (round to nearest even), the
+// first in the low half: the lower column of an mma fragment.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Accumulator e of an m16n8 fragment: row g (+ 8 for e >= 2), column
+// 2 * (lane % 4) + (e & 1) of the n8 tile, g = lane / 4.  The two n8 tiles
+// of 16 columns, rounded to bf16, are the A fragment of one k16 step over
+// those columns.
+__device__ __forceinline__ void to_a_fragment(unsigned (&a)[4],
+                                              const float (&c)[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+
+// Rows [r0, r0 + kMmaTile) of a (B, S, H, D) bf16 tensor at (b, h) into a
+// shared tile, 16 bytes a copy, rows at or past S zero-filled.  Every
+// thread of the block takes part; the caller commits.
+template <int D>
+__device__ __forceinline__ void load_rows(bf16 (*tile)[D + kPad],
+                                          const bf16* __restrict__ src,
+                                          const Strides& st, int b, int h,
+                                          int r0, int S) {
+  constexpr int CH = D / 8;  // 16-byte pieces a row
+  static_assert(kMmaTile * CH % kMmaThreads == 0, "tile size");
+#pragma unroll
+  for (int n = 0; n < kMmaTile * CH / kMmaThreads; ++n) {
+    const int i = threadIdx.x + n * kMmaThreads;
+    const int r = i / CH;
+    const int c = (i % CH) * 8;
+    const int row = r0 + r;
+    const bool ok = row < S;
+    cp_async16(smem_addr(&tile[r][c]),
+               ok ? src + offset(st, b, row, h) + c : src, ok ? 16 : 0);
+  }
+}
+
+// Lane l's ldmatrix row address inside a 16 x 16 block: matrix j = l / 8
+// at stored row (j % 2) * 8 and column (j / 2) * 8 (the A fragment's
+// order, and that of a .trans B pair over 16 k rows), or at stored row
+// (j / 2) * 8 and column (j % 2) * 8 (a B pair of two n8 tiles stored n
+// rows by k columns).
+__device__ __forceinline__ int frag_a_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int frag_a_col(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int frag_b_row(int lane) {
+  return (lane & 7) + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int frag_b_col(int lane) {
+  return ((lane >> 3) & 1) * 8;
+}
+
+// K2 on the tensor cores: one block per (64 query rows, b*h).  Also writes
+// delta = rowsum(dO * O) of its rows.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const bf16* __restrict__ o,
+                    const float* __restrict__ lse,
+                    float* __restrict__ delta, bf16* __restrict__ dq, int S,
+                    int H, Strides qs, Strides ks, Strides vs, Strides os,
+                    Strides oos, float scale, int causal) {
+  constexpr int LD = D + kPad;
+  constexpr int KS = D / 16;  // k16 steps over D
+  constexpr int ND = D / 8;   // n8 tiles over D
+  // stage 1 first holds this block's Q (k_s) and dO (v_s) rows
+  __shared__ __align__(128) bf16 k_s[2][kMmaTile][LD];
+  __shared__ __align__(128) bf16 v_s[2][kMmaTile][LD];
+  __shared__ float delta_s[kMmaRows];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q0 = blockIdx.x * kMmaRows;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+
+  int n_tiles = (S + kMmaTile - 1) / kMmaTile;
+  if (causal) {
+    // tiles wholly above the diagonal of this block's last row add nothing
+    const int last = min(q0 + kMmaRows, S);
+    n_tiles = min(n_tiles, (last + kMmaTile - 1) / kMmaTile);
+  }
+
+  load_rows<D>(k_s[1], q, qs, b, h, q0, S);
+  load_rows<D>(v_s[1], dout, os, b, h, q0, S);
+  load_rows<D>(k_s[0], k, ks, b, h, 0, S);
+  load_rows<D>(v_s[0], v, vs, b, h, 0, S);
+  cp_async_commit();
+
+  // delta while the copies fly: two threads a row, D / 2 dims each
+  {
+    const int r = tid >> 1;
+    const int row = q0 + r;
+    const int d0 = (tid & 1) * (D / 2);
+    float part = 0.f;
+    if (row < S) {
+      const bf16* po = o + offset(oos, b, row, h) + d0;
+      const bf16* pd = dout + offset(os, b, row, h) + d0;
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(po + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(pd + c);
+        const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 fo = __bfloat1622float2(o2[j]);
+          const float2 fd = __bfloat1622float2(d2[j]);
+          part += fd.x * fo.x;
+          part += fd.y * fo.y;
+        }
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((tid & 1) == 0) {
+      delta_s[r] = part;
+      if (row < S) delta[(long long)bh * S + row] = part;
+    }
+  }
+
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int wrow = warp * 16;  // the warp's first row in the block
+  const int ar = frag_a_row(lane), ac = frag_a_col(lane);
+  const int br = frag_b_row(lane), bc = frag_b_col(lane);
+  unsigned qf[KS][4], df[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    ldmatrix_x4(qf[kk], smem_addr(&k_s[1][wrow + ar][kk * 16 + ac]));
+    ldmatrix_x4(df[kk], smem_addr(&v_s[1][wrow + ar][kk * 16 + ac]));
+  }
+  const int row_lo = q0 + wrow + g;  // this lane's rows: row_lo, + 8
+  const float lse_lo = row_lo < S ? lse[(long long)bh * S + row_lo] : 0.f;
+  const float lse_hi =
+      row_lo + 8 < S ? lse[(long long)bh * S + row_lo + 8] : 0.f;
+  const float delta_lo = delta_s[wrow + g];
+  const float delta_hi = delta_s[wrow + g + 8];
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    const int kv0 = t * kMmaTile;
+    if (t > 0) cp_async_wait_all();
+    // tile t is in shared memory for every thread; every thread is done
+    // with stage s ^ 1 (tile t - 1, or this block's Q and dO)
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      load_rows<D>(k_s[s ^ 1], k, ks, b, h, kv0 + kMmaTile, S);
+      load_rows<D>(v_s[s ^ 1], v, vs, b, h, kv0 + kMmaTile, S);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int c = 0; c < kMmaTile; c += 16) {
+      const int col0 = kv0 + c;
+      if (causal && col0 > q0 + wrow + 15) continue;  // warp-uniform
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned r[4];
+        ldmatrix_x4(r, smem_addr(&k_s[s][c + br][kk * 16 + bc]));
+        mma_bf16_16816(sc[0], qf[kk], r[0], r[1]);
+        mma_bf16_16816(sc[1], qf[kk], r[2], r[3]);
+        ldmatrix_x4(r, smem_addr(&v_s[s][c + br][kk * 16 + bc]));
+        mma_bf16_16816(dp[0], df[kk], r[0], r[1]);
+        mma_bf16_16816(dp[1], df[kk], r[2], r[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row_lo + (e >> 1) * 8;
+          const int col = col0 + n * 8 + 2 * t4 + (e & 1);
+          const bool valid = row < S && col < S && (!causal || col <= row);
+          const float p =
+              valid ? expf(sc[n][e] * scale - (e >> 1 ? lse_hi : lse_lo))
+                    : 0.f;
+          sc[n][e] = valid ? p * (dp[n][e] - (e >> 1 ? delta_hi : delta_lo))
+                           : 0.f;
+        }
+      }
+      unsigned dsa[4];
+      to_a_fragment(dsa, sc);
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, smem_addr(&k_s[s][c + ar][nd * 8 + ac]));
+        mma_bf16_16816(acc[nd], dsa, r[0], r[1]);
+        mma_bf16_16816(acc[nd + 1], dsa, r[2], r[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + half * 8;
+    if (row >= S) continue;
+    bf16* out = dq + (((long long)b * S + row) * H + h) * D + 2 * t4;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(out + nd * 8) =
+          __floats2bfloat162_rn(acc[nd][2 * half] * scale,
+                                acc[nd][2 * half + 1] * scale);
+    }
+  }
+}
+
+// K3 on the tensor cores: one block per (64 key rows, b*h).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int H, Strides qs,
+                     Strides ks, Strides vs, Strides os, float scale,
+                     int causal) {
+  constexpr int LD = D + kPad;
+  constexpr int KS = D / 16;
+  constexpr int ND = D / 8;
+  // stage 1 first holds this block's K (q_s) and V (do_s) rows
+  __shared__ __align__(128) bf16 q_s[2][kMmaTile][LD];
+  __shared__ __align__(128) bf16 do_s[2][kMmaTile][LD];
+  __shared__ __align__(16) float lse_s[2][kMmaTile];
+  __shared__ __align__(16) float delta_s[2][kMmaTile];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int k0 = blockIdx.x * kMmaRows;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+
+  const int n_tiles = (S + kMmaTile - 1) / kMmaTile;
+  // rows before the block's first key are all masked when causal
+  const int t0 = causal ? k0 / kMmaTile : 0;
+
+  // the Q/dO tile from row r0 into stage buf, with its lse and delta
+  auto load_tile = [&](int buf, int r0) {
+    load_rows<D>(q_s[buf], q, qs, b, h, r0, S);
+    load_rows<D>(do_s[buf], dout, os, b, h, r0, S);
+    static_assert(2 * kMmaTile == kMmaThreads, "one row value a thread");
+    const int i = tid & (kMmaTile - 1);
+    const int row = r0 + i;
+    const bool ok = row < S;
+    const float* src = (tid < kMmaTile ? lse : delta) +
+                       (ok ? (long long)bh * S + row : 0);
+    cp_async4(smem_addr(tid < kMmaTile ? &lse_s[buf][i] : &delta_s[buf][i]),
+              src, ok ? 4 : 0);
+    cp_async_commit();
+  };
+
+  load_rows<D>(q_s[1], k, ks, b, h, k0, S);
+  load_rows<D>(do_s[1], v, vs, b, h, k0, S);
+  load_tile(0, t0 * kMmaTile);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int wrow = warp * 16;
+  const int ar = frag_a_row(lane), ac = frag_a_col(lane);
+  const int br = frag_b_row(lane), bc = frag_b_col(lane);
+  unsigned kf[KS][4], vf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    ldmatrix_x4(kf[kk], smem_addr(&q_s[1][wrow + ar][kk * 16 + ac]));
+    ldmatrix_x4(vf[kk], smem_addr(&do_s[1][wrow + ar][kk * 16 + ac]));
+  }
+  const int key_lo = k0 + wrow + g;  // this lane's keys: key_lo, + 8
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int t = t0; t < n_tiles; ++t) {
+    const int s = (t - t0) & 1;
+    const int r0 = t * kMmaTile;
+    if (t > t0) cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < n_tiles) load_tile(s ^ 1, r0 + kMmaTile);
+#pragma unroll
+    for (int c = 0; c < kMmaTile; c += 16) {
+      // every query of these 16 columns before every key of the warp
+      if (causal && r0 + c + 15 < k0 + wrow) continue;  // warp-uniform
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned r[4];
+        ldmatrix_x4(r, smem_addr(&q_s[s][c + br][kk * 16 + bc]));
+        mma_bf16_16816(sc[0], kf[kk], r[0], r[1]);
+        mma_bf16_16816(sc[1], kf[kk], r[2], r[3]);
+        ldmatrix_x4(r, smem_addr(&do_s[s][c + br][kk * 16 + bc]));
+        mma_bf16_16816(dp[0], vf[kk], r[0], r[1]);
+        mma_bf16_16816(dp[1], vf[kk], r[2], r[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_lo + (e >> 1) * 8;
+          const int i = c + n * 8 + 2 * t4 + (e & 1);  // query in the tile
+          const int qi = r0 + i;
+          const bool valid = key < S && qi < S && (!causal || key <= qi);
+          const float p =
+              valid ? expf(sc[n][e] * scale - lse_s[s][i]) : 0.f;
+          sc[n][e] = p;
+          dp[n][e] = valid ? p * (dp[n][e] - delta_s[s][i]) : 0.f;
+        }
+      }
+      unsigned pa[4], dsa[4];
+      to_a_fragment(pa, sc);
+      to_a_fragment(dsa, dp);
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, smem_addr(&do_s[s][c + ar][nd * 8 + ac]));
+        mma_bf16_16816(dv_acc[nd], pa, r[0], r[1]);
+        mma_bf16_16816(dv_acc[nd + 1], pa, r[2], r[3]);
+        ldmatrix_x4_trans(r, smem_addr(&q_s[s][c + ar][nd * 8 + ac]));
+        mma_bf16_16816(dk_acc[nd], dsa, r[0], r[1]);
+        mma_bf16_16816(dk_acc[nd + 1], dsa, r[2], r[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + half * 8;
+    if (key >= S) continue;
+    const long long at = (((long long)b * S + key) * H + h) * D + 2 * t4;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + nd * 8) =
+          __floats2bfloat162_rn(dk_acc[nd][2 * half] * scale,
+                                dk_acc[nd][2 * half + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + nd * 8) =
+          __floats2bfloat162_rn(dv_acc[nd][2 * half],
+                                dv_acc[nd][2 * half + 1]);
+    }
+  }
+}
+
+
 struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const void *q, *k, *v, *dout, *o;
+  const float* lse;
+  float* delta;       // written by K2, read by K3, K2p and K3p
   void *out0, *out1;  // dq (K2) or dk, dv (K3)
   int B, S, H;
-  Strides qs, ks, vs, os;
+  Strides qs, ks, vs, os, oos;  // oos: O's, K2 only
   Pos pos;  // K2p/K3p only
   float scale;
   int causal;
@@ -338,9 +825,9 @@ void launch_dq(const Args& a) {
   const dim3 grid((a.S + kRows - 1) / kRows, a.B * a.H);
   flash_dq_kernel<T, TO, D, TILE, kPos><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const TO*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.out0), a.S, a.H, a.qs, a.ks, a.vs, a.os,
-      a.pos, a.scale, a.causal);
+      static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
+      static_cast<const T*>(a.o), a.lse, a.delta, static_cast<T*>(a.out0),
+      a.S, a.H, a.qs, a.ks, a.vs, a.os, a.oos, a.pos, a.scale, a.causal);
 }
 
 template <typename T, typename TO, int D, int TILE, bool kPos>
@@ -380,18 +867,60 @@ int dispatch(const Args& a, int D, int dtype) {
   return 1;
 }
 
+template <int D>
+void launch_mma(const Args& a, bool dq) {
+  const dim3 grid((a.S + kMmaRows - 1) / kMmaRows, a.B * a.H);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  if (dq) {
+    flash_dq_mma_kernel<D><<<grid, kMmaThreads, 0, a.stream>>>(
+        q, k, v, dout, static_cast<const bf16*>(a.o), a.lse, a.delta,
+        static_cast<bf16*>(a.out0), a.S, a.H, a.qs, a.ks, a.vs, a.os, a.oos,
+        a.scale, a.causal);
+  } else {
+    flash_dkv_mma_kernel<D><<<grid, kMmaThreads, 0, a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.out0),
+        static_cast<bf16*>(a.out1), a.S, a.H, a.qs, a.ks, a.vs, a.os,
+        a.scale, a.causal);
+  }
+}
+
+// The tensor-core route's own check: bf16, D of 32 or 64, every strided
+// tensor 16-byte aligned with (b, s, h) strides that are multiples of 8.
+// 0 on a launch, 1 (nothing launched) for a call it does not take.
+int dispatch_mma(const Args& a, int D, int dtype, bool dq) {
+  const void* ptrs[5] = {a.q, a.k, a.v, a.dout, a.o};
+  const Strides* sts[5] = {&a.qs, &a.ks, &a.vs, &a.os, &a.oos};
+  bool ok = dtype == 1 && (D == 32 || D == 64);
+  for (int i = 0; i < (dq ? 5 : 4); ++i) {
+    ok = ok && reinterpret_cast<unsigned long long>(ptrs[i]) % 16 == 0 &&
+         sts[i]->b % 8 == 0 && sts[i]->s % 8 == 0 && sts[i]->h % 8 == 0;
+  }
+  if (!ok) return 1;
+  if (D == 32) {
+    launch_mma<32>(a, dq);
+  } else {
+    launch_mma<64>(a, dq);
+  }
+  return 0;
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* out0, void* out1,
-               int B, int S, int H, const int* strides, float scale,
-               int causal, void* stream, const void* q_pos = nullptr,
-               const void* k_pos = nullptr, int kv_valid = 0) {
+               const void* o, const void* lse, void* delta, void* out0,
+               void* out1, int B, int S, int H, const int* strides,
+               int n_strided, float scale, int causal, void* stream,
+               const void* q_pos = nullptr, const void* k_pos = nullptr,
+               int kv_valid = 0) {
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.dout = dout;
+  a.o = o;
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  a.delta = static_cast<float*>(delta);
   a.out0 = out0;
   a.out1 = out1;
   a.B = B;
@@ -401,6 +930,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   a.ks = {strides[3], strides[4], strides[5]};
   a.vs = {strides[6], strides[7], strides[8]};
   a.os = {strides[9], strides[10], strides[11]};
+  a.oos = n_strided == 5 ? Strides{strides[12], strides[13], strides[14]}
+                         : Strides{0, 0, 0};
   a.pos = {static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
            kv_valid};
   a.scale = scale;
@@ -409,28 +940,48 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   return a;
 }
 
+int finish(int refused) {
+  return refused ? static_cast<int>(cudaErrorInvalidValue)
+                 : static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  dtype: 0 = float32,
-// 1 = bfloat16.  strides: 12 element strides, (batch, seq, head) of q, k,
-// v and dO in that order; the head dim of each must be contiguous.  lse and
-// delta are (B*H, S) f32.  Outputs are contiguous (B, S, H, D) in the input
-// dtype.  Each returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a head dim or dtype it does not take, without
-// launching).
+// 1 = bfloat16.  lse and delta are (B*H, S) f32.  Outputs are contiguous
+// (B, S, H, D) in the input dtype.  Each returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue, without launching, for a call the
+// kernel does not take).
+//
+// K2: strides are 15 element strides, (batch, seq, head) of q, k, v, dO
+// and O in that order, each with a contiguous head dim.  Writes delta =
+// rowsum(dO * O) and dq.  The _mma entry point is the tensor-core route:
+// bf16, D of 32 or 64, every pointer 16-byte aligned and every stride a
+// multiple of 8; dpt_flash_dq takes every dtype and head dim of the
+// scalar kernel.
 
 extern "C" int dpt_flash_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq, int B, int S, int H,
-                            int D, const int* strides, float scale,
-                            int causal, int dtype, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, S, H,
-                           strides, scale, causal, stream);
-  if (dispatch<true, false>(a, D, dtype)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                            const void* dout, const void* o, const void* lse,
+                            void* delta, void* dq, int B, int S, int H, int D,
+                            const int* strides, float scale, int causal,
+                            int dtype, void* stream) {
+  const Args a = make_args(q, k, v, dout, o, lse, delta, dq, nullptr, B, S,
+                           H, strides, 5, scale, causal, stream);
+  return finish(dispatch<true, false>(a, D, dtype));
 }
+
+extern "C" int dpt_flash_dq_mma(const void* q, const void* k, const void* v,
+                                const void* dout, const void* o,
+                                const void* lse, void* delta, void* dq,
+                                int B, int S, int H, int D,
+                                const int* strides, float scale, int causal,
+                                int dtype, void* stream) {
+  const Args a = make_args(q, k, v, dout, o, lse, delta, dq, nullptr, B, S,
+                           H, strides, 5, scale, causal, stream);
+  return finish(dispatch_mma(a, D, dtype, true));
+}
+
+// K3: strides are 12, those of q, k, v and dO; delta is K2's.
 
 extern "C" int dpt_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
@@ -438,18 +989,28 @@ extern "C" int dpt_flash_dkv(const void* q, const void* k, const void* v,
                              int S, int H, int D, const int* strides,
                              float scale, int causal, int dtype,
                              void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                           strides, scale, causal, stream);
-  if (dispatch<false, false>(a, D, dtype)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Args a = make_args(q, k, v, dout, nullptr, lse,
+                           const_cast<void*>(delta), dk, dv, B, S, H,
+                           strides, 4, scale, causal, stream);
+  return finish(dispatch<false, false>(a, D, dtype));
 }
 
-// K2p and K3p: as above with dO in f32 (the cotangent of K4's f32 O),
-// delta = rowsum(dO * O) - dlse, and q_pos / k_pos the (S,) int32 global
-// positions of K4's call; kv_valid masks keys at positions >= kv_valid
-// (INT_MAX for none).
+extern "C" int dpt_flash_dkv_mma(const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const void* lse, const void* delta,
+                                 void* dk, void* dv, int B, int S, int H,
+                                 int D, const int* strides, float scale,
+                                 int causal, int dtype, void* stream) {
+  const Args a = make_args(q, k, v, dout, nullptr, lse,
+                           const_cast<void*>(delta), dk, dv, B, S, H,
+                           strides, 4, scale, causal, stream);
+  return finish(dispatch_mma(a, D, dtype, false));
+}
+
+// K2p and K3p: as dpt_flash_dkv's arguments (12 strides) with dO in f32
+// (the cotangent of K4's f32 O), delta = rowsum(dO * O) - dlse given, and
+// q_pos / k_pos the (S,) int32 global positions of K4's call; kv_valid
+// masks keys at positions >= kv_valid (INT_MAX for none).
 
 extern "C" int dpt_flash_dq_pos(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -458,13 +1019,11 @@ extern "C" int dpt_flash_dq_pos(const void* q, const void* k, const void* v,
                                 int B, int S, int H, int D,
                                 const int* strides, float scale, int causal,
                                 int dtype, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, S, H,
-                           strides, scale, causal, stream, q_pos, k_pos,
+  const Args a = make_args(q, k, v, dout, nullptr, lse,
+                           const_cast<void*>(delta), dq, nullptr, B, S, H,
+                           strides, 4, scale, causal, stream, q_pos, k_pos,
                            kv_valid);
-  if (dispatch<true, true>(a, D, dtype)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return finish(dispatch<true, true>(a, D, dtype));
 }
 
 extern "C" int dpt_flash_dkv_pos(const void* q, const void* k, const void* v,
@@ -474,11 +1033,9 @@ extern "C" int dpt_flash_dkv_pos(const void* q, const void* k, const void* v,
                                  void* dv, int B, int S, int H, int D,
                                  const int* strides, float scale, int causal,
                                  int dtype, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                           strides, scale, causal, stream, q_pos, k_pos,
+  const Args a = make_args(q, k, v, dout, nullptr, lse,
+                           const_cast<void*>(delta), dk, dv, B, S, H,
+                           strides, 4, scale, causal, stream, q_pos, k_pos,
                            kv_valid);
-  if (dispatch<false, true>(a, D, dtype)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return finish(dispatch<false, true>(a, D, dtype));
 }

@@ -18,7 +18,13 @@ PyTorch ops.
 ``flash_attention_partial_fwd``, ``flash_attention_partial_dq`` and
 ``flash_attention_partial_dkv`` are the kernels' wrappers.  For tensors on
 the CPU they run the plain version; for CUDA tensors they launch the
-kernel (and count the launch) or raise — there is no fallback.
+kernel (and count the launch) or raise — there is no fallback.  K2 also
+computes delta = rowsum(dO * O), which the JAX package computes outside
+its kernels, and returns it for K3.  K2 and K3 have two routes, both
+hand-written: ``tensor_core_route`` sends bf16 at D = 32 or 64 with
+16-byte-aligned rows (the vit's main path) to the tensor-core kernels
+(also counted in ``tensor_core_launches``) and every other call to the
+scalar ones; a route that fails raises, neither gives way to the other.
 ``FlashAttention`` is the autograd Function of K1 (backward K2 and K3),
 ``FlashAttentionPartial`` that of K4 (backward K2p and K3p).  Public layout
 is the JAX package's: q, k, v, the output and its gradient are (B, S, H,
@@ -44,6 +50,7 @@ from . import build
 BLOCK_K = 64
 _NEG = -1e30          # finite masked-score sentinel, as in the TPU kernel
 HEAD_DIMS = (32, 64, 128)
+MMA_HEAD_DIMS = (32, 64)   # K2/K3's tensor-core route
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
@@ -249,7 +256,8 @@ flash_attention_fwd.launches = 0
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in f32, from O as stored: (B, S, H, D) ->
     (B*H, S).  A torch op, as in the JAX package (``_flash_bwd_impl``
-    computes it outside any Pallas kernel)."""
+    computes it outside any Pallas kernel): the plain version of the delta
+    that K2 computes, and the start of the ring's ``partial_delta``."""
     b, s, h, _ = o.shape
     rows = (do.float() * o.float()).sum(dim=-1)          # (b, s, h)
     return rows.permute(0, 2, 1).reshape(b * h, s).contiguous()
@@ -308,13 +316,42 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                        _causal_mask(q.shape[1], causal, q.device))
 
 
+def tensor_core_route(dtype: torch.dtype, d: int, strides, ptrs) -> bool:
+    """The rule between K2's and K3's routes: True for the tensor-core
+    kernels (bf16, D in ``MMA_HEAD_DIMS``, every tensor with a unit head
+    stride, (batch, seq, head) strides that are multiples of 8 and a
+    16-byte-aligned data pointer, so every row is whole 16-byte copies),
+    False for the scalar ones.  ``strides`` and ``ptrs``: those of q, k,
+    v, dO (and O for K2)."""
+    return (dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
+            and all(p % 16 == 0 for p in ptrs)
+            and all(st[3] == 1 and all(x % 8 == 0 for x in st[:3])
+                    for st in strides))
+
+
+def _pick_route(tensor_core: Optional[bool], tensors) -> bool:
+    """The rule's route for ``tensors`` (q, k, v, dO[, O]), or the one
+    ``tensor_core`` forces; forcing the tensor cores on a call that does
+    not fit them raises."""
+    q = tensors[0]
+    fits = tensor_core_route(q.dtype, q.shape[3],
+                             [t.stride() for t in tensors],
+                             [t.data_ptr() for t in tensors])
+    if tensor_core and not fits:
+        raise ValueError(f"the tensor-core K2/K3 take bfloat16 at D in "
+                         f"{MMA_HEAD_DIMS} with 16-byte-aligned rows; "
+                         f"q {tuple(q.shape)} {q.dtype} does not fit")
+    return fits if tensor_core is None else bool(tensor_core)
+
+
 def _bwd_kernel_fn(name: str):
-    """``dpt_flash_dq``/``dpt_flash_dkv`` (K2/K3), or their ``_pos``
-    entry points (K2p/K3p), which take the two position pointers and
-    kv_valid after delta."""
+    """An entry point of ``csrc/flash_bwd.cu``: six input pointers, the
+    ``_pos`` entry points' two position pointers and kv_valid, then the
+    outputs (delta and dq for K2, dk and dv for K3 and K3p, dq for
+    K2p)."""
     fn = getattr(build.load("flash_bwd"), name)
     if fn.argtypes is None:
-        n_out = 1 if name.startswith("dpt_flash_dq") else 2
+        n_out = 1 if name == "dpt_flash_dq_pos" else 2
         pos = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                if name.endswith("_pos") else [])
         fn.argtypes = ([ctypes.c_void_p] * 6 + pos
@@ -325,16 +362,20 @@ def _bwd_kernel_fn(name: str):
     return fn
 
 
-def _check_bwd(q, k, v, do, lse, delta, do_dtype=None) -> None:
-    """``do_dtype``: dO's dtype, q's by default (K2p/K3p: float32)."""
+def _check_bwd(q, k, v, do, rows, do_dtype=None, o=None) -> None:
+    """``rows``: (name, tensor) pairs of the (B*H, S) f32 row vectors;
+    ``do_dtype``: dO's dtype, q's by default (K2p/K3p: float32); ``o``:
+    the forward's output (K2)."""
     _check(q, k, v)
-    if (do.shape != q.shape or do.dtype != (do_dtype or q.dtype)
-            or do.device != q.device):
-        raise ValueError(f"dO must match q's shape, dtype and device: got "
-                         f"{tuple(do.shape)} {do.dtype} {do.device} for q "
-                         f"{tuple(q.shape)} {q.dtype} {q.device}")
+    for name, x, dt in (("dO", do, do_dtype or q.dtype), ("O", o, q.dtype)):
+        if x is not None and (x.shape != q.shape or x.dtype != dt
+                              or x.device != q.device):
+            raise ValueError(f"{name} must match q's shape, dtype and "
+                             f"device: got {tuple(x.shape)} {x.dtype} "
+                             f"{x.device} for q {tuple(q.shape)} {q.dtype} "
+                             f"{q.device}")
     b, s, h, _ = q.shape
-    for name, x in (("lse", lse), ("delta", delta)):
+    for name, x in rows:
         if (x.shape != (b * h, s) or x.dtype != torch.float32
                 or x.device != q.device or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous (B*H, S) = "
@@ -342,33 +383,42 @@ def _check_bwd(q, k, v, do, lse, delta, do_dtype=None) -> None:
                              f"got {tuple(x.shape)} {x.dtype} {x.device}")
 
 
-def _launch_bwd(name: str, q, k, v, do, lse, delta, causal, outs,
-                wrapper, pos: Optional[Pos] = None) -> None:
-    """Launch ``name`` (K2p/K3p: the ``_pos`` entry point, given ``pos``
-    = (q_pos, k_pos, kv_valid)) and count it in ``wrapper.launches`` once
-    the launch returned 0; an empty problem launches (and counts)
-    nothing."""
+_STRIDED = ("q", "k", "v", "dO", "O")
+
+
+def _launch_bwd(name: str, ins, outs, causal, wrapper, n_strided: int = 4,
+                pos: Optional[Pos] = None, tensor_core: bool = False) -> None:
+    """Launch ``name`` (its ``_mma`` entry point when ``tensor_core``) on
+    the six tensors ``ins`` in the entry point's order, of which the first
+    ``n_strided`` (q, k, v, dO and, for K2, O) are read through their
+    strides, writing ``outs``; K2p/K3p take ``pos`` = (q_pos, k_pos,
+    kv_valid).  Counts the launch in ``wrapper.launches``, and a
+    tensor-core one in ``wrapper.tensor_core_launches``, once it returned
+    0; an empty problem launches (and counts) nothing."""
+    q = ins[0]
     b, s, h, d = q.shape
     kernel = name.replace("dpt_", "")
-    strides = _check_kernel_inputs(kernel, (("q", q), ("k", k), ("v", v),
-                                            ("dO", do)))
+    strides = _check_kernel_inputs(kernel, tuple(zip(_STRIDED,
+                                                     ins[:n_strided])))
     if s == 0 or b * h == 0:
         return
-    fn = _bwd_kernel_fn(name)
+    fn = _bwd_kernel_fn(name + "_mma" if tensor_core else name)
     extra = () if pos is None else (
         pos[0].data_ptr(), pos[1].data_ptr(),
         _INT_MAX if pos[2] is None else int(pos[2]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), *extra,
+        rc = fn(*(x.data_ptr() for x in ins), *extra,
                 *(x.data_ptr() for x in outs), b, s, h, d,
-                (ctypes.c_int * 12)(*strides), 1.0 / math.sqrt(d),
+                (ctypes.c_int * len(strides))(*strides), 1.0 / math.sqrt(d),
                 int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
-                           f"at q {tuple(q.shape)} {q.dtype}")
+        route = "tensor-core" if tensor_core else "scalar"
+        raise RuntimeError(f"{kernel} {route} kernel launch failed: CUDA "
+                           f"error {rc} at q {tuple(q.shape)} {q.dtype}")
     wrapper.launches += 1
+    if tensor_core:
+        wrapper.tensor_core_launches += 1
 
 
 def _device_kind(q: torch.Tensor) -> str:
@@ -378,55 +428,83 @@ def _device_kind(q: torch.Tensor) -> str:
     return q.device.type
 
 
-def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       do: torch.Tensor, lse: torch.Tensor,
-                       delta: torch.Tensor, causal: bool = False
-                       ) -> torch.Tensor:
-    """Kernel K2: dq, (B, S, H, D) in q's dtype.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (and count the launch
-    in ``flash_attention_dq.launches``) or raise."""
-    _check_bwd(q, k, v, do, lse, delta)
-    if _device_kind(q) == "cpu":
-        return _bwd_blocks(q, k, v, do, lse, delta,
-                           _causal_mask(q.shape[1], causal, q.device))[0]
+def _dq_launch(q, k, v, o, do, lse, causal: bool = False,
+               tensor_core: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K2 launch on CUDA tensors: (dq, delta), on the route of
+    ``tensor_core_route`` unless ``tensor_core`` names one."""
+    b, s, h, _ = q.shape
+    tensor_core = _pick_route(tensor_core, (q, k, v, do, o))
+    delta = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dpt_flash_dq", q, k, v, do, lse, delta, causal, (dq,),
-                flash_attention_dq)
-    return dq
+    _launch_bwd("dpt_flash_dq", (q, k, v, do, o, lse), (delta, dq), causal,
+                flash_attention_dq, n_strided=5, tensor_core=tensor_core)
+    return dq, delta
+
+
+def _dkv_launch(q, k, v, do, lse, delta, causal: bool = False,
+                tensor_core: Optional[bool] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K3 launch on CUDA tensors: (dk, dv), on the route of
+    ``tensor_core_route`` unless ``tensor_core`` names one."""
+    tensor_core = _pick_route(tensor_core, (q, k, v, do))
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("dpt_flash_dkv", (q, k, v, do, lse, delta), (dk, dv),
+                causal, flash_attention_dkv, tensor_core=tensor_core)
+    return dk, dv
+
+
+def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                       causal: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K2: (dq (B, S, H, D) in q's dtype, delta = rowsum(dO * O)
+    (B*H, S) f32, which K3 takes).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel of ``tensor_core_route``'s route (and
+    count the launch in ``flash_attention_dq.launches``, and a
+    tensor-core one also in ``flash_attention_dq.tensor_core_launches``)
+    or raise."""
+    _check_bwd(q, k, v, do, (("lse", lse),), o=o)
+    if _device_kind(q) == "cpu":
+        delta = attention_delta(o, do)
+        return _bwd_blocks(q, k, v, do, lse, delta,
+                           _causal_mask(q.shape[1], causal, q.device))[0], \
+            delta
+    return _dq_launch(q, k, v, o, do, lse, causal)
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.tensor_core_launches = 0
 
 
 def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor,
                         delta: torch.Tensor, causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K3: (dk, dv), (B, S, H, D) in k's and v's dtype.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``flash_attention_dkv.launches``) or raise."""
-    _check_bwd(q, k, v, do, lse, delta)
+    """Kernel K3: (dk, dv), (B, S, H, D) in k's and v's dtype, from K2's
+    delta.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel of ``tensor_core_route``'s route (and count the launch in
+    ``flash_attention_dkv.launches``, and a tensor-core one also in
+    ``flash_attention_dkv.tensor_core_launches``) or raise."""
+    _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)))
     if _device_kind(q) == "cpu":
         return _bwd_blocks(q, k, v, do, lse, delta,
                            _causal_mask(q.shape[1], causal, q.device))[1:]
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("dpt_flash_dkv", q, k, v, do, lse, delta, causal, (dk, dv),
-                flash_attention_dkv)
-    return dk, dv
+    return _dkv_launch(q, k, v, do, lse, delta, causal)
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.tensor_core_launches = 0
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of ``flash_attention``: delta from the stored O, then
-    K2 and K3."""
-    delta = attention_delta(o, do)
-    dq = flash_attention_dq(q, k, v, do, lse, delta, causal)
+    """The backward of ``flash_attention``: K2, which also gives delta
+    from the stored O, then K3."""
+    dq, delta = flash_attention_dq(q, k, v, o, do, lse, causal)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, causal)
     return dq, dk, dv
 
@@ -541,14 +619,15 @@ def flash_attention_partial_dq(q, k, v, do, lse, delta, q_pos, k_pos,
     lse and ``partial_delta``.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (and count the launch in
     ``flash_attention_partial_dq.launches``) or raise."""
-    _check_bwd(q, k, v, do, lse, delta, torch.float32)
+    _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)),
+               torch.float32)
     _check_pos(q, q_pos, k_pos, kv_valid)
     if _device_kind(q) == "cpu":
         return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
                                    causal, kv_valid)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dpt_flash_dq_pos", q, k, v, do, lse, delta, causal, (dq,),
-                flash_attention_partial_dq, (q_pos, k_pos, kv_valid))
+    _launch_bwd("dpt_flash_dq_pos", (q, k, v, do, lse, delta), (dq,), causal,
+                flash_attention_partial_dq, pos=(q_pos, k_pos, kv_valid))
     return dq
 
 
@@ -562,16 +641,17 @@ def flash_attention_partial_dkv(q, k, v, do, lse, delta, q_pos, k_pos,
     """Kernel K3p: (dk, dv) of K4 in k's and v's dtype.  CPU tensors take
     the plain version; CUDA tensors launch the kernel (and count the
     launch in ``flash_attention_partial_dkv.launches``) or raise."""
-    _check_bwd(q, k, v, do, lse, delta, torch.float32)
+    _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)),
+               torch.float32)
     _check_pos(q, q_pos, k_pos, kv_valid)
     if _device_kind(q) == "cpu":
         return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
                                    causal, kv_valid)[1:]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("dpt_flash_dkv_pos", q, k, v, do, lse, delta, causal,
-                (dk, dv), flash_attention_partial_dkv,
-                (q_pos, k_pos, kv_valid))
+    _launch_bwd("dpt_flash_dkv_pos", (q, k, v, do, lse, delta), (dk, dv),
+                causal, flash_attention_partial_dkv,
+                pos=(q_pos, k_pos, kv_valid))
     return dk, dv
 
 

@@ -41,14 +41,16 @@ def test_backward_kernels_match_plain_on_card(dtype):
         q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
         do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
         o, lse = tfa.flash_attention_fwd(q, k, v, causal)
-        delta = tfa.attention_delta(o, do)
         n_dq, n_dkv = (tfa.flash_attention_dq.launches,
                        tfa.flash_attention_dkv.launches)
-        dq = tfa.flash_attention_dq(q, k, v, do, lse, delta, causal)
+        dq, delta = tfa.flash_attention_dq(q, k, v, o, do, lse, causal)
         dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
         assert tfa.flash_attention_dq.launches == n_dq + 1
         assert tfa.flash_attention_dkv.launches == n_dkv + 1
+        want_delta = tfa.attention_delta(o, do)
+        assert (delta - want_delta).abs().max().item() \
+            <= 1e-5 * want_delta.abs().max().item()
         want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
         for got, ref in zip((dq, dk, dv), want):
             scale = ref.float().abs().max().item()
@@ -62,7 +64,7 @@ def test_backward_wrapper_raises_on_a_strided_head_dim():
     lse = torch.zeros((4, 49), device="cuda")
     bad = torch.zeros((1, 49, 4, 64), device="cuda")[..., ::2]
     with pytest.raises(ValueError, match="head dim of dO contiguous"):
-        tfa.flash_attention_dq(q, q, q, bad, lse, lse)
+        tfa.flash_attention_dq(q, q, q, q, bad, lse)
 
 
 def test_empty_problem_launches_and_counts_nothing():
@@ -75,15 +77,60 @@ def test_empty_problem_launches_and_counts_nothing():
                 tfa.flash_attention_dkv)
     before = [c.launches for c in counters]
     o, _ = tfa.flash_attention_fwd(q, q, q)
-    dq = tfa.flash_attention_dq(q, q, q, q, lse, lse)
+    dq, delta = tfa.flash_attention_dq(q, q, q, q, q, lse)
     dk, dv = tfa.flash_attention_dkv(q, q, q, q, lse, lse)
     assert o.shape == dq.shape == dk.shape == dv.shape == (1, 0, 4, 32)
+    assert delta.shape == (4, 0)
     assert [c.launches for c in counters] == before
+
+
+def test_backward_tensor_core_route_matches_plain_on_card():
+    """bf16 K2 and K3 on the tensor cores at the vit's shape and at a
+    causal, ragged S = 200 with D = 64: the rule picks them, the counters
+    say so, both routes (the scalar one forced) agree with the plain
+    version, two calls are bit-identical, and K2's delta is
+    ``attention_delta`` within 1e-5 of its largest value."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dt = torch.bfloat16
+    for b, s, h, d, causal in ((64, 49, 4, 32, False), (2, 200, 2, 64, True)):
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                          device="cuda").to(dt)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+        assert tfa._pick_route(None, (q, k, v, do, o))
+        before = [(w.launches, w.tensor_core_launches)
+                  for w in (tfa.flash_attention_dq, tfa.flash_attention_dkv)]
+        dq, delta = tfa.flash_attention_dq(q, k, v, o, do, lse, causal)
+        dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+        again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        after = [(w.launches, w.tensor_core_launches)
+                 for w in (tfa.flash_attention_dq, tfa.flash_attention_dkv)]
+        assert after == [(n + 2, c + 2) for n, c in before]
+        for got, rep in zip((dq, dk, dv), again):
+            assert torch.equal(got, rep)
+        want_delta = tfa.attention_delta(o, do)
+        assert (delta - want_delta).abs().max().item() \
+            <= 1e-5 * want_delta.abs().max().item()
+        sdq, sdelta = tfa._dq_launch(q, k, v, o, do, lse, causal,
+                                     tensor_core=False)
+        sdk, sdv = tfa._dkv_launch(q, k, v, do, lse, sdelta, causal,
+                                   tensor_core=False)
+        torch.cuda.synchronize()
+        want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        for got, scalar, ref in zip((dq, dk, dv), (sdq, sdk, sdv), want):
+            scale = ref.float().abs().max().item()
+            for x in (got, scalar):
+                assert (x.float() - ref.float()).abs().max().item() \
+                    <= TOL[dt] * scale
 
 
 def test_train_step_runs_each_kernel_once_per_block():
     """One bf16 train step of the full-width vit: 4 K1, 4 K2 and 4 K3
-    launches, finite gradients on every parameter."""
+    launches, K2 and K3 on the tensor cores, finite gradients on every
+    parameter."""
     _need_card()
     policy = PRESETS["bf16"]
     model = get_model("vit", 10, policy, attention="flash", device="cuda")
@@ -94,6 +141,8 @@ def test_train_step_runs_each_kernel_once_per_block():
                                            dtype=np.uint8)).cuda()
     labels = torch.from_numpy(rng.integers(0, 10, 64)).cuda()
     before = kernel_launches()
+    tc_before = (tfa.flash_attention_dq.tensor_core_launches,
+                 tfa.flash_attention_dkv.tensor_core_launches)
     _, m = engine.train_step(state, images, labels,
                              torch.ones(64, dtype=torch.bool, device="cuda"),
                              torch.Generator(device="cuda").manual_seed(1))
@@ -102,6 +151,9 @@ def test_train_step_runs_each_kernel_once_per_block():
     assert got == {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4,
                    "conv_dw": 0, "flash_fwd_pos": 0, "flash_dq_pos": 0,
                    "flash_dkv_pos": 0}
+    assert (tfa.flash_attention_dq.tensor_core_launches - tc_before[0],
+            tfa.flash_attention_dkv.tensor_core_launches - tc_before[1]) \
+        == (4, 4)
     assert torch.isfinite(m["loss"]).item()
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name

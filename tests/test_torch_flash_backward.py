@@ -93,9 +93,9 @@ def test_backward_matches_autograd_of_full_attention(causal):
 def test_kernel_wrappers_on_cpu_match_the_plain_backward():
     q, k, v, w = (torch.from_numpy(x) for x in _inputs(130, 32, seed=2))
     o, lse = tfa.flash_attention_fwd(q, k, v, True)
-    delta = tfa.attention_delta(o, w)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, w, True)
-    dq = tfa.flash_attention_dq(q, k, v, w, lse, delta, True)
+    dq, delta = tfa.flash_attention_dq(q, k, v, o, w, lse, True)
+    assert torch.equal(delta, tfa.attention_delta(o, w))
     dk, dv = tfa.flash_attention_dkv(q, k, v, w, lse, delta, True)
     for got, ref in zip((dq, dk, dv), want):
         assert torch.equal(got, ref)
@@ -120,12 +120,16 @@ def test_cpu_tensors_leave_every_kernel_counter_unchanged():
     ("dpt_flash_dkv", tfa.flash_attention_dkv)])
 def test_an_empty_problem_is_not_counted_as_a_launch(name, wrapper):
     """The launch helper returns before reaching the card when S = 0, and
-    counts a launch only after one: the counter stays as it was."""
+    counts a launch only after one: the counters stay as they were, on
+    either route."""
     q = torch.zeros((1, 0, 4, 32))
     lse = torch.zeros((4, 0))
-    before = wrapper.launches
-    tfa._launch_bwd(name, q, q, q, q, lse, lse, False, (q,), wrapper)
-    assert wrapper.launches == before
+    n_strided = 5 if name == "dpt_flash_dq" else 4
+    for tensor_core in (False, True):
+        before = (wrapper.launches, wrapper.tensor_core_launches)
+        tfa._launch_bwd(name, (q, q, q, q, q, lse), (lse, q), False, wrapper,
+                        n_strided, tensor_core=tensor_core)
+        assert (wrapper.launches, wrapper.tensor_core_launches) == before
 
 
 def test_gradient_flows_into_strided_qkv_views():
@@ -159,13 +163,15 @@ def test_backward_wrappers_check_their_inputs():
     q = torch.zeros((1, 49, 4, 32))
     lse = torch.zeros((4, 49))
     with pytest.raises(ValueError, match="dO must match"):
-        tfa.flash_attention_dq(q, q, q, q[:, :48], lse, lse)
+        tfa.flash_attention_dq(q, q, q, q, q[:, :48], lse)
+    with pytest.raises(ValueError, match="O must match"):
+        tfa.flash_attention_dq(q, q, q, q.double(), q, lse)
     with pytest.raises(ValueError, match="lse must be a contiguous"):
         tfa.flash_attention_dkv(q, q, q, q, lse[:, :48], lse)
     meta = torch.empty((1, 49, 4, 32), device="meta")
     mlse = torch.empty((4, 49), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tfa.flash_attention_dq(meta, meta, meta, meta, mlse, mlse)
+        tfa.flash_attention_dq(meta, meta, meta, meta, meta, mlse)
 
 
 def test_plain_backward_scales_the_product_not_q():
@@ -181,3 +187,73 @@ def test_plain_backward_scales_the_product_not_q():
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     want = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
     np.testing.assert_allclose(dq.numpy(), want.numpy(), atol=5e-5)
+
+
+# -- K2's delta and the route rule ------------------------------------------
+
+DELTA_S, DELTA_D = 49, 32
+
+
+@pytest.fixture(scope="module")
+def jax_forward():
+    """One causal forward of the JAX package's Pallas flash attention
+    (interpret mode) and the inputs it ran on, shared by this section."""
+    q, k, v, do = _inputs(DELTA_S, DELTA_D, seed=21)
+    o = jfa.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                            causal=True)
+    return q, k, v, do, np.asarray(o, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_delta_matches_the_jax_formula(jax_forward, dtype):
+    """The delta that ``flash_attention_dq`` returns is
+    ``_flash_bwd_impl``'s jnp.sum(do.astype(f32) * o.astype(f32), -1) on
+    the JAX forward's O, laid out (B*H, S)."""
+    q, k, v, do, o = jax_forward
+    jdt = getattr(jnp, dtype)
+    jo, jdo = jnp.asarray(o, jdt), jnp.asarray(do, jdt)
+    want = jnp.sum(jdo.astype(jnp.float32) * jo.astype(jnp.float32), -1)
+    want = np.asarray(want).transpose(0, 2, 1).reshape(B * H, DELTA_S)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    to = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(tdt)
+    tdo = torch.from_numpy(np.array(jdo.astype(jnp.float32))).to(tdt)
+    _, lse = tfa.flash_attention_plain(tq, tk, tv, True)
+    _, delta = tfa.flash_attention_dq(tq, tk, tv, to, tdo, lse, True)
+    assert delta.shape == (B * H, DELTA_S) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _route_case(case):
+    """(dtype, q, k, v, dO, O) of one route-rule case."""
+    b, s, h = 2, 49, 4
+    d = 128 if case == "bf16 D=128" else 64 if case == "bf16 D=64" else 32
+    dtype = torch.float32 if case == "f32 D=32" else torch.bfloat16
+    # q, k, v as views into one (B, S, 3*H*D) projection, as in the vit
+    qkv = torch.zeros((b, s, 3 * h * d), dtype=dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.zeros((b, s, h, d), dtype=dtype)
+    if case == "bf16 dO one element off":
+        do = torch.zeros(b * s * h * d + 1, dtype=dtype)[1:].view(b, s, h, d)
+    return dtype, (q, k, v, do, torch.zeros_like(do))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 D=32", True), ("bf16 D=64", True), ("f32 D=32", False),
+    ("bf16 D=128", False), ("bf16 dO one element off", False)])
+def test_tensor_core_route_rule(case, want):
+    """bf16 at D = 32 or 64 on 16-byte-aligned views (the vit's q, k, v
+    slice one projection) takes the tensor cores; f32, D = 128 and a view
+    offset by one element take the scalar kernels, for K2 (with O) and K3
+    alike."""
+    dtype, tensors = _route_case(case)
+    d = tensors[0].shape[3]
+    for ts in (tensors, tensors[:4]):
+        got = tfa.tensor_core_route(dtype, d, [t.stride() for t in ts],
+                                    [t.data_ptr() for t in ts])
+        assert got is want
+    if not want:
+        with pytest.raises(ValueError, match="tensor-core K2/K3"):
+            tfa._pick_route(True, tensors)
+    assert tfa._pick_route(False, tensors) is False
+    assert tfa._pick_route(None, tensors) is want
