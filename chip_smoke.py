@@ -107,9 +107,14 @@ result.  Phases, each printing its lines before the last:
      shard at M = 2 (rank 1's queries against rank 0's and its own K/V,
      kv_valid 49), a block of padded keys only, causal blocks with rotated
      positions (one all masked), D = 128 and a 500-row shard; errors of O
-     and lse, and of dq/dk/dv with a nonzero dlse; device / call / plain /
-     SDPA with the same boolean mask (yardstick only; it returns no lse)
-     times, timed as in phase 2, and the bound at the timed shapes;
+     and lse, and, on K2p/K3p's route and at a tensor-core case on the
+     scalar route too (forced), of dq/dk/dv with a nonzero dlse, K2p's
+     delta against ``partial_delta``, two calls bit-identical; device /
+     call / plain / SDPA with the same boolean mask (yardstick only; it
+     returns no lse) times of K4, K2p, K3p, the backward as the ring step
+     runs it (K2p, which computes delta and rounds dO to bf16, then K3p)
+     and the old line (``partial_delta``, then the scalar K2p and K3p),
+     timed as in phase 2, and the bounds;
  17. the ring op on two ranks sharing the card (gloo over CUDA tensors,
      ``tests/_torch_ring_child.py``), ``ring`` and ``ring_flash``, against
      one process's ``full_attention`` and ``flash_attention`` on the
@@ -119,17 +124,18 @@ result.  Phases, each printing its lines before the last:
      --model vit --attention ring_flash --model-parallel 2 -e 1`` on phase
      6's corpus (113 steps, 13 validation batches a rank); validation at
      least twice chance, the loss falling, K4 launches 8 per step and eval
-     batch, K2p and K3p 8 per step, K1-K3 none; then, at once, ``test -f``
-     under the same launch (within two rows of an in-process flash eval of
-     the file) and ``test -f --attention flash`` in one process (equal to
-     it);
+     batch, K2p and K3p 8 per step, every one on the tensor cores, K1-K3
+     none; then, at once, ``test -f`` under the same launch (within two
+     rows of an in-process flash eval of the file) and ``test -f
+     --attention flash`` in one process (equal to it);
  19. three f32 SGD steps (TF32 off) of the full-width vit, the 2-rank
      ``ring_flash`` and ``ring`` worlds against one process with
      ``--attention flash`` on the same global batch and draws: every
      parameter, the loss and the counts;
  20. a profile of the ring_flash train step (two ranks, bf16, 128 rows a
      rank): wall and device ms per step, kernels per step, the idle
-     share, K4/K2p/K3p and the host copies of the gloo transport;
+     share, K4/K2p/K3p time, K2p/K3p launches a step (and how many on the
+     tensor cores), and the host copies of the gloo transport;
  21. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -2067,26 +2073,36 @@ RING_CASES = (
 RING_MAIN = ("vit rank-1 q vs rank-0 K/V", "bfloat16")
 # K4's O and lse against the plain version: both f32 from the same f32
 # (or exactly widened bf16) inputs, sums in other orders.  K2p/K3p: as
-# K2/K3 (TOL_GRAD), relative to the plain version's largest value.
+# K2/K3 (TOL_GRAD), relative to the plain version's largest value; K2p's
+# delta against partial_delta as K2's (TOL_DELTA).
 TOL_O_POS = 2e-5
 
 
-def ring_bounds(b, s, h, d, dtype_name, pairs):
-    """Least times of K4, K2p and K3p (ms, "bytes" or "operations"): each
-    input read once and each output written once (K4: q, k, v, two (S,)
-    int32 position vectors; O in f32 and lse; K2p/K3p: q, k, v, the f32 dO,
-    lse, delta and the positions; dq, or dk and dv), or the products on
-    the ``pairs`` (q, k) pairs that the masks keep (K4: 2, K2p: 3, K3p: 4
-    products of 2 * D operations a pair and head) at the card's peak for
-    the input type."""
+def ring_bounds(b, s, h, d, dtype_name, pairs, tensor_core):
+    """Least times of K4, K2p, K3p and the backward as the ring step runs
+    it ("bwd": K2p then K3p, as one function) (ms, "bytes" or
+    "operations"): each input read once and each output written once, or
+    the products on the ``pairs`` (q, k) pairs that the masks keep (K4: 2,
+    K2p: 3, K3p: 4, the backward: 5 products of 2 * D operations a pair
+    and head) at the card's peak for the input type.  K4 reads q, k, v
+    and two (S,) int32 position vectors and writes the f32 O and lse.  K2p
+    reads q, k, v, the f32 dO and O, lse, dlse and the positions, and
+    writes dq and delta, and on the ``tensor_core`` route the bf16 dO;
+    K3p reads q, k, v, that dO (else the f32 one), lse, delta and the
+    positions, and writes dk and dv.  The backward reads q, k, v, the f32
+    dO and O, lse, dlse and the positions and writes dq, dk and dv."""
     item = 2 if dtype_name == "bfloat16" else 4
     t = b * s * h * d
     rows = b * h * s * 4
     pos = 2 * s * 4
+    do_k3 = 2 if tensor_core else 4
     nbytes = {"flash_fwd_pos": 3 * t * item + pos + 4 * t + rows,
-              "flash_dq_pos": 4 * t * item + 4 * t + 2 * rows + pos,
-              "flash_dkv_pos": 5 * t * item + 4 * t + 2 * rows + pos}
-    products = {"flash_fwd_pos": 2, "flash_dq_pos": 3, "flash_dkv_pos": 4}
+              "flash_dq_pos": 4 * t * item + 8 * t + 3 * rows + pos
+              + (2 * t if tensor_core else 0),
+              "flash_dkv_pos": 5 * t * item + do_k3 * t + 2 * rows + pos,
+              "bwd": 6 * t * item + 8 * t + 2 * rows + pos}
+    products = {"flash_fwd_pos": 2, "flash_dq_pos": 3, "flash_dkv_pos": 4,
+                "bwd": 5}
     out = {}
     for name, nb in nbytes.items():
         t_bytes = nb / HBM_BYTES_PER_S * 1e3
@@ -2098,6 +2114,13 @@ def ring_bounds(b, s, h, d, dtype_name, pairs):
 
 
 def phase_ring_kernels():
+    """K4 against its plain version, and K2p/K3p against theirs: each case
+    on the route the rule picks and, at a tensor-core case, on the scalar
+    route too (forced), both held to TOL_GRAD; K2p's delta against
+    ``partial_delta``; two calls bit-identical; at the timed cases times
+    of K4, K2p, K3p and the backward as the ring step runs it (K2p, which
+    computes delta and rounds dO, then K3p) beside the old line
+    (``partial_delta``, then the scalar K2p and K3p) and SDPA's."""
     import torch
     import torch.nn.functional as F
 
@@ -2108,6 +2131,11 @@ def phase_ring_kernels():
     wrappers = {"flash_fwd_pos": tfa.flash_attention_partial_fwd,
                 "flash_dq_pos": tfa.flash_attention_partial_dq,
                 "flash_dkv_pos": tfa.flash_attention_partial_dkv}
+
+    def counts():
+        return {n: (w.launches, getattr(w, "tensor_core_launches", 0))
+                for n, w in wrappers.items()}
+
     for (label, b, s, h, d, causal, qb, kb, kv_valid, timed) in RING_CASES:
         for dt in ("bfloat16", "float32"):
             dtype = getattr(torch, dt)
@@ -2119,53 +2147,82 @@ def phase_ring_kernels():
             qp, kp = base + qb * s, base + kb * s
             do = torch.randn((b, s, h, d), generator=gen, device="cuda")
             dlse = torch.randn((b * h, s), generator=gen, device="cuda")
-            before = {n: w.launches for n, w in wrappers.items()}
+            before = counts()
             o, lse = tfa.flash_attention_partial_fwd(q, k, v, qp, kp, causal,
                                                      kv_valid)
-            delta = tfa.partial_delta(o, do, dlse)
-            dq = tfa.flash_attention_partial_dq(q, k, v, do, lse, delta, qp,
-                                                kp, causal, kv_valid)
+            tc = tfa._pick_route(None, (q, k, v, do, o), positional=True)
+            route = "tensor_core" if tc else "scalar"
+            dq, delta, do_k3 = tfa.flash_attention_partial_dq(
+                q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid)
             dk, dv = tfa.flash_attention_partial_dkv(
-                q, k, v, do, lse, delta, qp, kp, causal, kv_valid)
+                q, k, v, do_k3, lse, delta, qp, kp, causal, kv_valid)
+            again = tfa.flash_attention_partial_bwd(
+                q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid)
             torch.cuda.synchronize()
-            if any(w.launches != before[n] + 1 for n, w in wrappers.items()):
-                fail(f"K4/K2p/K3p wrappers did not count their launches at "
-                     f"{label}")
+            want = {"flash_fwd_pos": (1, 0), "flash_dq_pos": (2, 2 * tc),
+                    "flash_dkv_pos": (2, 2 * tc)}
+            now = counts()
+            if any((now[n][0] - before[n][0], now[n][1] - before[n][1])
+                   != want[n] for n in wrappers):
+                fail(f"K4/K2p/K3p wrappers did not count their {route} "
+                     f"launches at {label} {dt}: {before} -> {now}")
+            if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv),
+                                                         again)):
+                fail(f"K2p/K3p's {route} route is not deterministic at "
+                     f"{label} {dt}")
+            checked = {route: (delta, dq, dk, dv)}
+            if tc:
+                sdq, sdelta, sdo = tfa._dq_pos_launch(
+                    q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid,
+                    tensor_core=False)
+                sdk, sdv = tfa.flash_attention_partial_dkv(
+                    q, k, v, sdo, lse, sdelta, qp, kp, causal, kv_valid)
+                checked["scalar"] = (sdelta, sdq, sdk, sdv)
             po, plse = tfa.flash_attention_partial_plain(q, k, v, qp, kp,
                                                          causal, kv_valid)
+            want_delta = tfa.partial_delta(o, do, dlse)
             pdq, pdk, pdv = tfa.flash_attention_partial_bwd_plain(
                 q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid)
             err_o = (o - po).abs().max().item()
             err_lse = (lse - plse).abs().max().item()
-            errs = {"dq": rel_err(dq, pdq), "dk": rel_err(dk, pdk),
-                    "dv": rel_err(dv, pdv)}
             tol = TOL_GRAD[dt]
             finite = all(torch.isfinite(x).all().item()
-                         for x in (o, lse, dq, dk, dv))
-            if not (finite and err_o <= TOL_O_POS and err_lse <= TOL_LSE
-                    and all(e[1] <= tol for e in errs.values())):
-                fail(f"K4/K2p/K3p disagree with their plain versions at "
-                     f"{label} {dt}: err_o {err_o} (tol {TOL_O_POS}), "
-                     f"err_lse {err_lse} (tol {TOL_LSE}), rel "
-                     f"{ {n: e[1] for n, e in errs.items()} } (tol {tol}), "
-                     f"finite {finite}")
+                         for x in (o, lse, dq, dk, dv, delta))
+            if not (finite and err_o <= TOL_O_POS and err_lse <= TOL_LSE):
+                fail(f"K4 disagrees with its plain version at {label} {dt}: "
+                     f"err_o {err_o} (tol {TOL_O_POS}), err_lse {err_lse} "
+                     f"(tol {TOL_LSE}), finite {finite}")
+            errs = {}
+            for r, (x_delta, x_dq, x_dk, x_dv) in checked.items():
+                errs[r] = {"delta": rel_err(x_delta, want_delta),
+                           "dq": rel_err(x_dq, pdq), "dk": rel_err(x_dk, pdk),
+                           "dv": rel_err(x_dv, pdv)}
+                bad = {n: e[1] for n, e in errs[r].items()
+                       if not (math.isfinite(e[1]) and e[1] <= (
+                           TOL_DELTA if n == "delta" else tol))}
+                if bad:
+                    fail(f"K2p/K3p's {r} route disagrees with the plain "
+                         f"version at {label} {dt}: {bad} (tol {tol}, "
+                         f"delta {TOL_DELTA})")
             keep = torch.ones((s, s), dtype=torch.bool, device="cuda")
             if causal:
                 keep &= qp[:, None] >= kp[None, :]
             if kv_valid is not None:
                 keep &= (kp < kv_valid)[None, :]
             pairs = int(keep.sum().item())
-            bounds = ring_bounds(b, s, h, d, dt, pairs)
+            bounds = ring_bounds(b, s, h, d, dt, pairs, tc)
             line = (f"ring kernels {label} {(b, s, h, d)} {dt} causal="
                     f"{causal} kv_valid={kv_valid} ({pairs} of {s * s} "
-                    f"pairs kept): err_o={err_o:.3g} err_lse={err_lse:.3g} "
-                    f"(tol {TOL_O_POS:g}, {TOL_LSE:g}); rel err "
-                    f"dq={errs['dq'][1]:.3g} dk={errs['dk'][1]:.3g} "
-                    f"dv={errs['dv'][1]:.3g} (tol {tol:g}, dlse nonzero); "
-                    f"bound_us K4={bounds['flash_fwd_pos'][0] * 1e3:.3f} "
-                    f"K2p={bounds['flash_dq_pos'][0] * 1e3:.3f} "
-                    f"K3p={bounds['flash_dkv_pos'][0] * 1e3:.3f} "
-                    f"({bounds['flash_fwd_pos'][1]})")
+                    f"pairs kept), K2p/K3p {route} route: err_o="
+                    f"{err_o:.3g} err_lse={err_lse:.3g} (tol "
+                    f"{TOL_O_POS:g}, {TOL_LSE:g}); rel err "
+                    + "; ".join(f"{r} " + " ".join(f"{n}={e[1]:.3g}"
+                                                   for n, e in es.items())
+                                for r, es in errs.items())
+                    + f" (tol {tol:g}, delta {TOL_DELTA:g}, dlse nonzero), "
+                    "bit-identical; bound_us "
+                    + " ".join(f"{n}={t * 1e3:.3f} ({by})"
+                               for n, (t, by) in bounds.items()))
             if not timed:
                 say(line)
                 continue
@@ -2177,17 +2234,35 @@ def phase_ring_kernels():
             dot = do.to(dtype).transpose(1, 2).contiguous()
             reps = 50 if s < 500 else 20
             main = (label, dt) == RING_MAIN
+
+            def old_bwd():
+                x_delta = tfa.partial_delta(o, do, dlse)
+                _, _, x_do = tfa._dq_pos_launch(
+                    q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid,
+                    tensor_core=False)
+                tfa.flash_attention_partial_dkv(q, k, v, x_do, lse, x_delta,
+                                                qp, kp, causal, kv_valid)
+
             fns = {
                 "K4": lambda: tfa.flash_attention_partial_fwd(
                     q, k, v, qp, kp, causal, kv_valid),
                 "sdpa": lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=keep),
                 "K2p": lambda: tfa.flash_attention_partial_dq(
-                    q, k, v, do, lse, delta, qp, kp, causal, kv_valid),
+                    q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid),
                 "K3p": lambda: tfa.flash_attention_partial_dkv(
-                    q, k, v, do, lse, delta, qp, kp, causal, kv_valid),
+                    q, k, v, do_k3, lse, delta, qp, kp, causal, kv_valid),
+                "bwd": lambda: tfa.flash_attention_partial_bwd(
+                    q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid),
                 "sdpa bwd": lambda: torch.autograd.grad(
                     out, (qt, kt, vt), dot, retain_graph=True)}
+            if tc:
+                fns["scalar K2p"] = lambda: tfa._dq_pos_launch(
+                    q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid,
+                    tensor_core=False)
+                fns["scalar K3p"] = lambda: tfa.flash_attention_partial_dkv(
+                    q, k, v, do, lse, delta, qp, kp, causal, kv_valid)
+                fns["old bwd"] = old_bwd
             if main:
                 fns["K4 plain"] = lambda: tfa.flash_attention_partial_plain(
                     q, k, v, qp, kp, causal, kv_valid)
@@ -2197,19 +2272,36 @@ def phase_ring_kernels():
             call = {n: time_ms(f, reps) for n, f in fns.items()}
             dev = {n: spread(t)[0] for n, t in
                    device_ms_tries(fns, reps, timing_tries(main)).items()}
-            say(line + f"; {timing_note(main)}; " + times_text(dev, call))
+            say(line + f"; {timing_note(main)}; " + times_text(dev, call)
+                + "; launches " + " ".join(
+                    f"{n}={w.launches} (tensor-core "
+                    f"{w.tensor_core_launches})" for n, w in (
+                        ("K2p", tfa.flash_attention_partial_dq),
+                        ("K3p", tfa.flash_attention_partial_dkv))))
             for name, key, plain, lib, err in (
                     ("flash_fwd_pos", "K4", "K4 plain", "sdpa",
                      (err_o, err_o)),
                     ("flash_dq_pos", "K2p", "bwd plain", "sdpa bwd",
-                     errs["dq"]),
+                     max(errs[route]["delta"], errs[route]["dq"],
+                         key=lambda e: e[1])),
                     ("flash_dkv_pos", "K3p", "bwd plain", "sdpa bwd",
-                     max(errs["dk"], errs["dv"], key=lambda e: e[1]))):
-                rows[(name, label, dt)] = dict(
+                     max(errs[route]["dk"], errs[route]["dv"],
+                         key=lambda e: e[1]))):
+                row = dict(
                     max_abs_err=err[0], ms=dev[key], plain_ms=dev.get(plain),
                     library_ms=dev[lib], bound_ms=bounds[name][0],
                     bound_by=bounds[name][1], call_ms=call[key],
                     plain_call_ms=call.get(plain), library_call_ms=call[lib])
+                if name != "flash_fwd_pos":
+                    parts = ("delta", "dq") if key == "K2p" else ("dk", "dv")
+                    row.update(
+                        tc_route=route, scalar_ms=dev.get("scalar " + key),
+                        scalar_rel_err=(max(errs["scalar"][n][1]
+                                            for n in parts) if tc else None),
+                        delta_rel_err=errs[route]["delta"][1],
+                        bwd_ms=dev["bwd"], old_bwd_ms=dev.get("old bwd"),
+                        bwd_bound_ms=bounds["bwd"][0])
+                rows[(name, label, dt)] = row
     return rows
 
 
@@ -2311,6 +2403,17 @@ def parse_ring_launches(log: str, action: str) -> dict:
                     (int(x) for x in m.groups())))
 
 
+def parse_ring_tensor_core_launches(log: str, action: str) -> dict:
+    """The ``ACTION: ring tensor-core launches ...`` line: K2p's and K3p's
+    launches on the tensor cores."""
+    m = re.search(rf"{action}: ring tensor-core launches flash_dq_pos "
+                  rf"(\d+), flash_dkv_pos (\d+) over", log)
+    if m is None:
+        fail(f"{action} did not log its ring tensor-core launches")
+    return dict(zip(("flash_dq_pos", "flash_dkv_pos"),
+                    (int(x) for x in m.groups())))
+
+
 def phase_ring_train() -> dict:
     """``train --attention ring_flash --model-parallel 2`` on two ranks
     sharing the card, on phase 6's corpus; then ``test -f`` under the same
@@ -2328,6 +2431,7 @@ def phase_ring_train() -> dict:
     say("ring train: " + re.search(r"mesh: .*", log).group(0))
     launches, steps, evals = parse_launches(log, "train")
     ring_launches = parse_ring_launches(log, "train")
+    ring_tc = parse_ring_tensor_core_launches(log, "train")
     n_train = int(VIT_TRAIN_ROWS * 0.9)
     world = 2
     want_steps = math.ceil(n_train / world / TRAIN_BATCH)
@@ -2335,13 +2439,17 @@ def phase_ring_train() -> dict:
     per = DEPTH * MODEL_PARALLEL
     want = {"flash_fwd_pos": per * (steps + evals),
             "flash_dq_pos": per * steps, "flash_dkv_pos": per * steps}
+    want_tc = {n: want[n] for n in ring_tc}     # every K2p and K3p
     say(f"ring train: launches {ring_launches} and {launches} over {steps} "
-        f"steps and {evals} eval batches; formula {want}, K1-K3 and K5 0")
+        f"steps and {evals} eval batches, on the tensor cores {ring_tc}; "
+        f"formula {want}, all K2p/K3p on the tensor cores, K1-K3 and K5 0")
     if (steps, evals) != (want_steps, want_evals) or ring_launches != want \
-            or any(launches.values()):
-        fail(f"ring train launches {ring_launches}, {launches} over {steps} "
-             f"steps / {evals} eval batches do not match the formula {want} "
-             f"at {want_steps} steps / {want_evals} eval batches")
+            or ring_tc != want_tc or any(launches.values()):
+        fail(f"ring train launches {ring_launches} (tensor-core {ring_tc}), "
+             f"{launches} over {steps} steps / {evals} eval batches do not "
+             f"match the formula {want} at {want_steps} steps / "
+             f"{want_evals} eval batches, every K2p and K3p on the tensor "
+             f"cores")
     check_epoch_log("ring train", log, steps, wall)
     best = os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
     (_, ring_log), (_, flash_log) = finish_all([
@@ -2368,7 +2476,7 @@ def phase_ring_train() -> dict:
                              "flash_dq_pos": 0, "flash_dkv_pos": 0}:
         fail("the ring-trained model's test disagrees with the in-process "
              "eval, or its launches with the formula")
-    return ring_launches
+    return ring_launches, ring_tc
 
 
 # The ring's test against the one-process flash eval of the same file: the
@@ -2474,6 +2582,9 @@ def phase_ring_profile() -> None:
             f"{n} {p[k]:.2f} us/step ({100 * p[k] / 1e3 / dev:.1f}%)"
             for n, k in (("K4", "k4_us"), ("K2p", "k2p_us"),
                          ("K3p", "k3p_us"), ("host copies", "memcpy_us")))
+        parts += (f"; K2p {p['k2p_launches']:.0f} launches a step "
+                  f"({p['k2p_mma_launches']:.0f} tensor-core), K3p "
+                  f"{p['k3p_launches']:.0f} ({p['k3p_mma_launches']:.0f})")
         say(f"profile: ring_flash train step, rank {r['rank']} of 2 (gloo, "
             f"M = 2), {gb} rows a rank, bf16: wall {p['wall_ms']:.3f} "
             f"ms/step, device {dev:.3f} ms in {p['kernels']:.0f} kernels "
@@ -2622,12 +2733,14 @@ def main(argv=None) -> int:
     if want(17):
         run(phase_ring_op)
     if want(18):
-        ring_launches = run(phase_ring_train)
+        ring_launches, ring_tc = run(phase_ring_train)
         for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
             if ring_launches[name] <= 0:
                 fail(f"kernel {name} was not launched on the ring train "
                      f"path")
         launches.update(ring_launches)
+        # phase 18 fails unless every K2p and K3p took the tensor cores
+        tc_launches.update(ring_tc)
     if want(19):
         run(phase_ring_steps)
     if want(20):

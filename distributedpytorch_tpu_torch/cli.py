@@ -69,7 +69,8 @@ KERNELS = {"flash_fwd": fa.flash_attention_fwd,
            "flash_dq_pos": fa.flash_attention_partial_dq,
            "flash_dkv_pos": fa.flash_attention_partial_dkv}
 RING_KERNELS = ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")
-TENSOR_CORE_KERNELS = ("flash_dq", "flash_dkv", "conv_dw")  # two routes
+TENSOR_CORE_KERNELS = ("flash_dq", "flash_dkv", "conv_dw",  # two routes
+                       "flash_dq_pos", "flash_dkv_pos")
 
 
 def kernel_launches() -> dict:
@@ -84,10 +85,9 @@ def tensor_core_launches() -> dict:
             for name in TENSOR_CORE_KERNELS}
 
 
-def _launch_line(before: dict, ring: bool = False) -> str:
-    """The launches since ``before``: of K1, K2, K3 and K5, or with
-    ``ring`` of K4, K2p and K3p."""
-    now = kernel_launches()
+def _launch_line(now: dict, before: dict, ring: bool = False) -> str:
+    """The counts of ``now`` since ``before``: of K1, K2, K3 and K5, or
+    with ``ring`` of K4, K2p and K3p (those that ``now`` has)."""
     return ", ".join(f"{name} {now[name] - before[name]}" for name in now
                      if (name in RING_KERNELS) == ring)
 
@@ -95,15 +95,15 @@ def _launch_line(before: dict, ring: bool = False) -> str:
 def _log_launches(action: str, before: dict, before_tc: dict,
                   over: str) -> None:
     """The launch lines since ``before`` (``kernel_launches``) and
-    ``before_tc`` (``tensor_core_launches``)."""
-    logging.info(f"{action}: kernel launches {_launch_line(before)} over "
-                 f"{over}")
-    logging.info(f"{action}: ring kernel launches "
-                 f"{_launch_line(before, ring=True)} over {over}")
-    now = tensor_core_launches()
-    logging.info(f"{action}: tensor-core launches " + ", ".join(
-        f"{name} {now[name] - before_tc[name]}" for name in now)
-        + f" over {over}")
+    ``before_tc`` (``tensor_core_launches``), the ring kernels' on lines
+    of their own."""
+    for kind, now, was in (("kernel", kernel_launches(), before),
+                           ("tensor-core", tensor_core_launches(),
+                            before_tc)):
+        for ring in (False, True):
+            logging.info(f"{action}: {'ring ' if ring else ''}{kind} "
+                         f"launches {_launch_line(now, was, ring)} over "
+                         f"{over}")
 
 
 def _build_engine(cfg: Config, model_name: str, dataset: Dataset,

@@ -13,29 +13,32 @@
 //
 // K2p and K3p replace the same two TPU kernels with use_pos=True, launched
 // by _flash_partial_bwd, the backward of flash_attention_partial (K4, one
-// call per ring step).  They are the scalar K2 and K3 with kPos set:
+// call per ring step).  They are K2 and K3 with kPos set:
 //   - the mask comes from global positions, (!causal || q_pos >= k_pos) &&
 //     k_pos < kv_valid, with no causal early stop and no tile-index start
 //     (positions rotate with the ring's K/V blocks);
-//   - dO is the cotangent of K4's f32 O, so it is read as f32;
-//   - delta arrives as rowsum(dO * O) - dlse, the lse cotangent folded in
-//     by the wrapper (a torch op, as the JAX package computes it outside
-//     its kernels): d lse / d s_j = p_j, so the kernels run unchanged;
+//   - dO is the cotangent of K4's f32 O, so K2p reads dO and O as f32;
+//   - K2p computes delta = rowsum(dO * O) - dlse for its rows, the lse
+//     cotangent folded in as the TPU wrapper folds it outside its kernels
+//     (d lse / d s_j = p_j, so the rest runs unchanged; a null dlse is
+//     0), and writes it for K3p;
 //   - as in the TPU _dkv_kernel, p is not masked again before dv: a masked
-//     entry has p = exp(-1e30 - lse).  That is 0 wherever the row has a
-//     key, and 1 in a row whose keys are all masked, where K4 stored
-//     lse = -1e30.  Such a row's O is 0 and its lse is -1e30, so in the
-//     ring its merge weight exp(-1e30 - lse_merged) is 0 and so is every
-//     cotangent it receives (dO = 0, dlse = 0): its p of 1 meets dO = 0
-//     and adds exactly 0 to dv, and ds is masked to 0.  Called alone with
-//     a nonzero dO, such a row adds its dO to dv of every masked key, as
-//     the TPU kernel does.
+//     score is the -1e30 sentinel after the scale, so a masked entry has
+//     p = exp(-1e30 - lse).  That is 0 wherever the row has a key, and 1
+//     in a row whose keys are all masked, where K4 stored lse = -1e30.
+//     Only the ragged tail (row or key >= S) has p = 0.  Such a row's O is
+//     0 and its lse is -1e30, so in the ring its merge weight
+//     exp(-1e30 - lse_merged) is 0 and so is every cotangent it receives
+//     (dO = 0, dlse = 0): its p of 1 meets dO = 0 and adds exactly 0 to
+//     dv, and ds is masked to 0.  Called alone with a nonzero dO, such a
+//     row adds its dO to dv of every masked key, as the TPU kernel does.
 //
 // Numerics kept from the TPU kernels: q is NOT pre-scaled (the score is
 // (q . k) * scale, as the TPU backward computes it, while the forward
 // scales q first); masked scores behave as the -1e30 sentinel (p and ds
-// are forced to 0 there); dq and dk are scaled once at the end; outputs are
-// cast to the input dtype with round-to-nearest-even.
+// are forced to 0 there, but for K3p's p before dv, above); dq and dk are
+// scaled once at the end; outputs are cast to the input dtype with
+// round-to-nearest-even.
 //
 // Not carried over: the wrapper's moveaxis to (B*H, S, D) and the pad of S
 // to a multiple of 128.  q, k, v, dO and O are read in their (B, S, H, D)
@@ -57,25 +60,29 @@
 //      bound it.
 // At these sizes launch and memory latency bound both in practice: a
 // block does one 64-key (or 64-query) tile.  K2p and K3p at the vit's ring
-// shard (128, 25, 4, 32) bf16 with an f32 dO: K2p reads q, k, v
-// (3 x 0.82 MB), dO (1.6 MB), lse, delta and positions and writes dq
-// (0.82 MB), 5.0 MB, 1.5 us; K3p writes dk and dv, 5.8 MB, 1.7 us; 61 and
-// 82 MFLOP, 0.06-0.08 us.  Bytes bound them.
+// shard (128, 25, 4, 32) bf16 on the tensor-core route: K2p reads q, k, v
+// (3 x 0.82 MB), the f32 dO and O (2 x 1.64 MB), lse, dlse and the
+// positions and writes dq, delta and the bf16 dO (0.82 MB): 7.5 MB,
+// 2.25 us; K3p reads q, k, v, the bf16 dO, lse, delta and the positions
+// and writes dk and dv: 5.0 MB, 1.50 us; the pair, as one function (no
+// delta or bf16 dO between them): 8.3 MB, 2.48 us.  61 and 82 MFLOP,
+// 0.06-0.08 us.  Bytes bound them.  A block there holds 25 real rows of
+// its 64, over B*H = 512 blocks.
 //
 // Two routes, chosen by the wrapper (ops/flash_attention.py::
-// tensor_core_route):
+// tensor_core_route for K2/K3, ::partial_tensor_core_route for K2p/K3p):
 //
 // 1. bf16 at D = 32 or 64 with 16-byte-aligned rows -- the vit's main
-//    path -- runs flash_dq_mma_kernel (K2) and flash_dkv_mma_kernel (K3)
-//    on the tensor cores, mma.sync.m16n8k16 bf16 x bf16 -> f32.  A block
-//    of 4 warps owns 64 rows, 16 a warp: query rows for K2, key rows for
-//    K3.  Its own rows (Q and dO, or K and V) arrive once by 16-byte
-//    cp.async and go into A fragments by ldmatrix; the other side (K/V
-//    tiles for K2; Q/dO tiles with their lse and delta for K3) streams
-//    through two cp.async stages of 64 rows, tile t + 1 in flight while
-//    tile t multiplies, one barrier a tile.  Shared rows are padded by 16
-//    bytes, so ldmatrix is free of bank conflicts.  A warp walks its tile
-//    16 columns at a time:
+//    path and the ring's shards -- runs flash_dq_mma_kernel (K2, K2p) and
+//    flash_dkv_mma_kernel (K3, K3p) on the tensor cores,
+//    mma.sync.m16n8k16 bf16 x bf16 -> f32.  A block of 4 warps owns 64
+//    rows, 16 a warp: query rows for K2, key rows for K3.  Its own rows (Q
+//    and dO, or K and V) arrive once by 16-byte cp.async and go into A
+//    fragments by ldmatrix; the other side (K/V tiles for K2; Q/dO tiles
+//    with their lse and delta for K3) streams through two cp.async stages
+//    of 64 rows, tile t + 1 in flight while tile t multiplies, one barrier
+//    a tile.  Shared rows are padded by 16 bytes, so ldmatrix is free of
+//    bank conflicts.  A warp walks its tile 16 columns at a time:
 //      K2: S = Q K^T and dP = dO V^T (K and V rows are already the .col B
 //          operand), p = exp(s * scale - lse), ds = p (dp - delta) in f32
 //          registers, masked in the accumulator layout; ds rounded to bf16
@@ -90,21 +97,38 @@
 //    the first tiles are in flight.  Causal: K2 stops at the diagonal
 //    tile, K3 starts at the block's first key tile, and a warp skips a
 //    16-column step that lies wholly above the diagonal.
+//    K2p/K3p (kPos) run every tile and every step (positions say nothing
+//    of tile order).  Each stage also takes the tile's 64 key positions
+//    (K2p) or query positions (K3p) into shared memory by 4-byte cp.async
+//    beside its rows; a lane's own two rows' positions sit in registers,
+//    and the position mask joins the ragged-tail mask in the accumulator
+//    layout.  K2p's dO: the same two threads a row read their f32 dO and
+//    O by 16-byte loads, sum delta, round dO to bf16 (nearest even, as
+//    torch casts) and store it as 16-byte pieces both into the stage-1
+//    tile that ldmatrix turns into dP's A fragments and to a contiguous
+//    (B, S, H, D) bf16 buffer.  Each dO row belongs to one K2p block, so
+//    the copy is written once, and K3p streams it through the cp.async
+//    stages unchanged (its shared memory stays at K3's, under the 48 KB
+//    static limit).  The rounding adds at most 2^-9 relative to each dO
+//    element before the products dO V^T and P^T dO; delta sums the f32
+//    dO.  Rows of K2p's tile past S are zeros, and their lse and delta
+//    are 0, so no NaN meets a zero-filled load.
 //
 // 2. Every other call -- f32, D = 128, views whose rows are not 16-byte
-//    aligned -- and K2p/K3p run flash_dq_kernel / flash_dkv_kernel, scalar
-//    FMAs: one block of 256 threads takes 64 rows, four threads a row;
-//    thread g of a row owns the dims d = g, g+4, ... of its row's vectors
-//    and f32 accumulators in registers, and a dot product over D is a
-//    partial sum reduced across the 4 lanes with two xor shuffles.  K2 owns
-//    64 query rows (q, dO, lse, delta in registers; delta summed from dO
-//    and O by the same shuffles) and streams K/V tiles of KT keys through
-//    shared memory, stopping at the causal diagonal; K3 owns 64 key rows
-//    and streams Q/dO tiles of QT rows (plus their lse and delta), starting
-//    at the q tile that holds the block's first key when causal (the TPU
-//    kernel's start_qb).  KT = QT = 64, or 32 at D = 128, so two f32 tiles
-//    stay under 48 KB of static shared memory.  Every product is summed in
-//    f32 from inputs widened exactly to f32.
+//    aligned -- runs flash_dq_kernel / flash_dkv_kernel, scalar FMAs: one
+//    block of 256 threads takes 64 rows, four threads a row; thread g of a
+//    row owns the dims d = g, g+4, ... of its row's vectors and f32
+//    accumulators in registers, and a dot product over D is a partial sum
+//    reduced across the 4 lanes with two xor shuffles.  K2 owns 64 query
+//    rows (q, dO, lse, delta in registers; delta summed from dO and O by
+//    the same shuffles, less dlse for K2p) and streams K/V tiles of KT
+//    keys through shared memory, stopping at the causal diagonal; K3 owns
+//    64 key rows and streams Q/dO tiles of QT rows (plus their lse and
+//    delta), starting at the q tile that holds the block's first key when
+//    causal (the TPU kernel's start_qb).  K2p/K3p read the f32 dO.  KT =
+//    QT = 64, or 32 at D = 128, so two f32 tiles stay under 48 KB of
+//    static shared memory.  Every product is summed in f32 from inputs
+//    widened exactly to f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -154,17 +178,18 @@ __device__ __forceinline__ long long offset(const Strides& st, int b, int s,
   return (long long)b * st.b + (long long)s * st.s + (long long)h * st.h;
 }
 
-// K2 (kPos false: delta computed from dO and O and written) and K2p (kPos
-// true: delta read; dO of type TO = float): one block per (64-row q tile,
-// b*h).
+// K2 (kPos false) and K2p (kPos true: dO and O of type TO = float, and
+// dlse subtracted from delta): one block per (64-row q tile, b*h).  Both
+// compute delta from dO and O and write it.
 template <typename T, typename TO, int D, int KT, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const TO* __restrict__ dout,
-                const T* __restrict__ o, const float* __restrict__ lse,
-                float* __restrict__ delta, T* __restrict__ dq, int S, int H,
-                Strides qs, Strides ks, Strides vs, Strides os,
-                Strides oos, Pos pos, float scale, int causal) {
+                const TO* __restrict__ o, const float* __restrict__ lse,
+                const float* __restrict__ dlse, float* __restrict__ delta,
+                T* __restrict__ dq, int S, int H, Strides qs, Strides ks,
+                Strides vs, Strides os, Strides oos, Pos pos, float scale,
+                int causal) {
   constexpr int DPT = D / kLanes;  // dims owned by one thread
   __shared__ float k_t[KT][D];
   __shared__ float v_t[KT][D];
@@ -188,19 +213,18 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc[i] = 0.f;
   }
   const float lse_r = row_in ? lse[(long long)bh * S + row] : 0.f;
-  float delta_r;
-  if constexpr (kPos) {
-    delta_r = row_in ? delta[(long long)bh * S + row] : 0.f;
-  } else {
-    const long long out_at = offset(oos, b, row, h);
-    float part = 0.f;
+  const long long out_at = offset(oos, b, row, h);
+  float part = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      part += row_in ? dor[i] * to_f32(o[out_at + g + kLanes * i]) : 0.f;
-    }
-    delta_r = lane_sum(part);
-    if (row_in && g == 0) delta[(long long)bh * S + row] = delta_r;
+  for (int i = 0; i < DPT; ++i) {
+    part += row_in ? dor[i] * to_f32(o[out_at + g + kLanes * i]) : 0.f;
   }
+  float delta_r = lane_sum(part);
+  // K2p: the lse cotangent folds into delta (d lse / d s_j = p_j)
+  if (kPos && row_in && dlse != nullptr) {
+    delta_r -= dlse[(long long)bh * S + row];
+  }
+  if (row_in && g == 0) delta[(long long)bh * S + row] = delta_r;
   const int qp = kPos && row_in ? pos.q[row] : 0;
 
   int n_tiles = (S + KT - 1) / KT;
@@ -493,17 +517,39 @@ __device__ __forceinline__ int frag_b_col(int lane) {
   return ((lane >> 3) & 1) * 8;
 }
 
-// K2 on the tensor cores: one block per (64 query rows, b*h).  Also writes
-// delta = rowsum(dO * O) of its rows.
-template <int D>
+// Positions [r0, r0 + kMmaTile) of an (S,) int32 vector into shared
+// memory, 4 bytes a copy by the block's first kMmaTile threads, zeros past
+// S.  The caller commits.
+__device__ __forceinline__ void load_pos(int* dst, const int* __restrict__ src,
+                                         int r0, int S) {
+  const int i = threadIdx.x;
+  if (i < kMmaTile) {
+    const bool ok = r0 + i < S;
+    cp_async4(smem_addr(dst + i), ok ? src + r0 + i : src, ok ? 4 : 0);
+  }
+}
+
+// dO and O as K2 reads them (bf16, the input type) and as K2p does (f32:
+// K4's O and its cotangent).
+template <bool kPos>
+using MmaDo = typename std::conditional<kPos, float, bf16>::type;
+
+// K2 (kPos false) and K2p (kPos true) on the tensor cores: one block per
+// (64 query rows, b*h).  Also writes delta = rowsum(dO * O) of its rows,
+// less dlse for K2p.  K2p also writes its dO rows rounded to bf16 to
+// dout16, contiguous (B, S, H, D): the dO that K3p streams.
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const bf16* __restrict__ o,
+                    const bf16* __restrict__ v,
+                    const MmaDo<kPos>* __restrict__ dout,
+                    const MmaDo<kPos>* __restrict__ o,
                     const float* __restrict__ lse,
-                    float* __restrict__ delta, bf16* __restrict__ dq, int S,
-                    int H, Strides qs, Strides ks, Strides vs, Strides os,
-                    Strides oos, float scale, int causal) {
+                    const float* __restrict__ dlse,
+                    float* __restrict__ delta, bf16* __restrict__ dq,
+                    bf16* __restrict__ dout16, int S, int H, Strides qs,
+                    Strides ks, Strides vs, Strides os, Strides oos, Pos pos,
+                    float scale, int causal) {
   constexpr int LD = D + kPad;
   constexpr int KS = D / 16;  // k16 steps over D
   constexpr int ND = D / 8;   // n8 tiles over D
@@ -511,6 +557,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ __align__(128) bf16 k_s[2][kMmaTile][LD];
   __shared__ __align__(128) bf16 v_s[2][kMmaTile][LD];
   __shared__ float delta_s[kMmaRows];
+  __shared__ __align__(16) int kp_s[kPos ? 2 : 1][kMmaTile];  // K2p
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -523,25 +570,57 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int h = bh % H;
 
   int n_tiles = (S + kMmaTile - 1) / kMmaTile;
-  if (causal) {
+  if (causal && !kPos) {
     // tiles wholly above the diagonal of this block's last row add nothing
     const int last = min(q0 + kMmaRows, S);
     n_tiles = min(n_tiles, (last + kMmaTile - 1) / kMmaTile);
   }
 
   load_rows<D>(k_s[1], q, qs, b, h, q0, S);
-  load_rows<D>(v_s[1], dout, os, b, h, q0, S);
+  if constexpr (!kPos) load_rows<D>(v_s[1], dout, os, b, h, q0, S);
   load_rows<D>(k_s[0], k, ks, b, h, 0, S);
   load_rows<D>(v_s[0], v, vs, b, h, 0, S);
+  if constexpr (kPos) load_pos(kp_s[0], pos.k, 0, S);
   cp_async_commit();
 
-  // delta while the copies fly: two threads a row, D / 2 dims each
+  // delta while the copies fly: two threads a row, D / 2 dims each, from
+  // 16-byte loads
   {
     const int r = tid >> 1;
     const int row = q0 + r;
     const int d0 = (tid & 1) * (D / 2);
     float part = 0.f;
-    if (row < S) {
+    if constexpr (kPos) {
+      // the f32 dO, rounded to bf16 (nearest even), also goes into the
+      // stage-1 tile that ldmatrix turns into dP's A fragments and out to
+      // dout16; rows at or past S are zeros in the tile
+      bf16* tile = &v_s[1][r][d0];
+      bf16* out = dout16 + (((long long)b * S + row) * H + h) * D + d0;
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if (row < S) {
+          const float* pd = dout + offset(os, b, row, h) + d0 + c;
+          const float* po = o + offset(oos, b, row, h) + d0 + c;
+          const float4 da = *reinterpret_cast<const float4*>(pd);
+          const float4 db = *reinterpret_cast<const float4*>(pd + 4);
+          const float4 oa = *reinterpret_cast<const float4*>(po);
+          const float4 ob = *reinterpret_cast<const float4*>(po + 4);
+          part += da.x * oa.x;
+          part += da.y * oa.y;
+          part += da.z * oa.z;
+          part += da.w * oa.w;
+          part += db.x * ob.x;
+          part += db.y * ob.y;
+          part += db.z * ob.z;
+          part += db.w * ob.w;
+          w = make_uint4(pack_bf16(da.x, da.y), pack_bf16(da.z, da.w),
+                         pack_bf16(db.x, db.y), pack_bf16(db.z, db.w));
+          *reinterpret_cast<uint4*>(out + c) = w;
+        }
+        *reinterpret_cast<uint4*>(tile + c) = w;
+      }
+    } else if (row < S) {
       const bf16* po = o + offset(oos, b, row, h) + d0;
       const bf16* pd = dout + offset(os, b, row, h) + d0;
 #pragma unroll
@@ -560,6 +639,10 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     part += __shfl_xor_sync(0xffffffffu, part, 1);
+    // K2p: the lse cotangent folds into delta (d lse / d s_j = p_j)
+    if (kPos && row < S && dlse != nullptr) {
+      part -= dlse[(long long)bh * S + row];
+    }
     if ((tid & 1) == 0) {
       delta_s[r] = part;
       if (row < S) delta[(long long)bh * S + row] = part;
@@ -584,6 +667,9 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       row_lo + 8 < S ? lse[(long long)bh * S + row_lo + 8] : 0.f;
   const float delta_lo = delta_s[wrow + g];
   const float delta_hi = delta_s[wrow + g + 8];
+  // K2p: the global positions of this lane's two rows
+  const int qp_lo = kPos && row_lo < S ? pos.q[row_lo] : 0;
+  const int qp_hi = kPos && row_lo + 8 < S ? pos.q[row_lo + 8] : 0;
 
   float acc[ND][4];
 #pragma unroll
@@ -601,12 +687,14 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + 1 < n_tiles) {
       load_rows<D>(k_s[s ^ 1], k, ks, b, h, kv0 + kMmaTile, S);
       load_rows<D>(v_s[s ^ 1], v, vs, b, h, kv0 + kMmaTile, S);
+      if constexpr (kPos) load_pos(kp_s[s ^ 1], pos.k, kv0 + kMmaTile, S);
       cp_async_commit();
     }
 #pragma unroll
     for (int c = 0; c < kMmaTile; c += 16) {
       const int col0 = kv0 + c;
-      if (causal && col0 > q0 + wrow + 15) continue;  // warp-uniform
+      // warp-uniform; K2p's positions say nothing about tile order
+      if (!kPos && causal && col0 > q0 + wrow + 15) continue;
       float sc[2][4], dp[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n)
@@ -627,8 +715,16 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = row_lo + (e >> 1) * 8;
-          const int col = col0 + n * 8 + 2 * t4 + (e & 1);
-          const bool valid = row < S && col < S && (!causal || col <= row);
+          const int j = c + n * 8 + 2 * t4 + (e & 1);  // key in the tile
+          const int col = kv0 + j;
+          bool valid = row < S && col < S;
+          if constexpr (kPos) {
+            // a masked p only ever meets the ds mask, so 0 is the same
+            valid = valid && pos_mask(e >> 1 ? qp_hi : qp_lo, kp_s[s][j],
+                                      causal, pos.kv_valid);
+          } else {
+            valid = valid && (!causal || col <= row);
+          }
           const float p =
               valid ? expf(sc[n][e] * scale - (e >> 1 ? lse_hi : lse_lo))
                     : 0.f;
@@ -662,8 +758,9 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K3 on the tensor cores: one block per (64 key rows, b*h).
-template <int D>
+// K3 (kPos false) and K3p (kPos true, dO the bf16 copy K2p wrote) on the
+// tensor cores: one block per (64 key rows, b*h).
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -671,8 +768,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int S, int H, Strides qs,
-                     Strides ks, Strides vs, Strides os, float scale,
-                     int causal) {
+                     Strides ks, Strides vs, Strides os, Pos pos,
+                     float scale, int causal) {
   constexpr int LD = D + kPad;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
@@ -681,6 +778,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ __align__(128) bf16 do_s[2][kMmaTile][LD];
   __shared__ __align__(16) float lse_s[2][kMmaTile];
   __shared__ __align__(16) float delta_s[2][kMmaTile];
+  __shared__ __align__(16) int qp_s[kPos ? 2 : 1][kMmaTile];  // K3p
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -693,10 +791,12 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int h = bh % H;
 
   const int n_tiles = (S + kMmaTile - 1) / kMmaTile;
-  // rows before the block's first key are all masked when causal
-  const int t0 = causal ? k0 / kMmaTile : 0;
+  // rows before the block's first key are all masked when causal (K3; the
+  // positions of K3p say nothing about tile order)
+  const int t0 = causal && !kPos ? k0 / kMmaTile : 0;
 
-  // the Q/dO tile from row r0 into stage buf, with its lse and delta
+  // the Q/dO tile from row r0 into stage buf, with its lse and delta (and
+  // K3p's query positions)
   auto load_tile = [&](int buf, int r0) {
     load_rows<D>(q_s[buf], q, qs, b, h, r0, S);
     load_rows<D>(do_s[buf], dout, os, b, h, r0, S);
@@ -708,6 +808,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        (ok ? (long long)bh * S + row : 0);
     cp_async4(smem_addr(tid < kMmaTile ? &lse_s[buf][i] : &delta_s[buf][i]),
               src, ok ? 4 : 0);
+    if constexpr (kPos) load_pos(qp_s[buf], pos.q, r0, S);
     cp_async_commit();
   };
 
@@ -727,6 +828,9 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ldmatrix_x4(vf[kk], smem_addr(&do_s[1][wrow + ar][kk * 16 + ac]));
   }
   const int key_lo = k0 + wrow + g;  // this lane's keys: key_lo, + 8
+  // K3p: the global positions of this lane's two keys
+  const int kp_lo = kPos && key_lo < S ? pos.k[key_lo] : 0;
+  const int kp_hi = kPos && key_lo + 8 < S ? pos.k[key_lo + 8] : 0;
 
   float dk_acc[ND][4], dv_acc[ND][4];
 #pragma unroll
@@ -743,7 +847,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kMmaTile; c += 16) {
       // every query of these 16 columns before every key of the warp
-      if (causal && r0 + c + 15 < k0 + wrow) continue;  // warp-uniform
+      if (!kPos && causal && r0 + c + 15 < k0 + wrow) continue;  // uniform
       float sc[2][4], dp[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n)
@@ -766,11 +870,24 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int key = key_lo + (e >> 1) * 8;
           const int i = c + n * 8 + 2 * t4 + (e & 1);  // query in the tile
           const int qi = r0 + i;
-          const bool valid = key < S && qi < S && (!causal || key <= qi);
-          const float p =
-              valid ? expf(sc[n][e] * scale - lse_s[s][i]) : 0.f;
+          const bool in = key < S && qi < S;
+          float p, ds;
+          if constexpr (kPos) {
+            // p is not masked again before dv, as in the TPU kernel (see
+            // the note at the top): a masked score is -1e30 after the
+            // scale, so p is 1 in a row whose keys are all masked
+            const bool keep = pos_mask(qp_s[s][i], e >> 1 ? kp_hi : kp_lo,
+                                       causal, pos.kv_valid);
+            p = in ? expf((keep ? sc[n][e] * scale : kNeg) - lse_s[s][i])
+                   : 0.f;
+            ds = in && keep ? p * (dp[n][e] - delta_s[s][i]) : 0.f;
+          } else {
+            const bool valid = in && (!causal || key <= qi);
+            p = valid ? expf(sc[n][e] * scale - lse_s[s][i]) : 0.f;
+            ds = valid ? p * (dp[n][e] - delta_s[s][i]) : 0.f;
+          }
           sc[n][e] = p;
-          dp[n][e] = valid ? p * (dp[n][e] - delta_s[s][i]) : 0.f;
+          dp[n][e] = ds;
         }
       }
       unsigned pa[4], dsa[4];
@@ -810,10 +927,12 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *dout, *o;
   const float* lse;
-  float* delta;       // written by K2, read by K3, K2p and K3p
-  void *out0, *out1;  // dq (K2) or dk, dv (K3)
+  const float* dlse;  // K2p only; null for a zero lse cotangent
+  float* delta;       // written by K2 and K2p, read by K3 and K3p
+  void *out0, *out1;  // dq (K2, K2p) or dk, dv (K3, K3p)
+  void* dout16;       // K2p's tensor-core route: dO rounded to bf16
   int B, S, H;
-  Strides qs, ks, vs, os, oos;  // oos: O's, K2 only
+  Strides qs, ks, vs, os, oos;  // oos: O's, K2 and K2p only
   Pos pos;  // K2p/K3p only
   float scale;
   int causal;
@@ -826,8 +945,9 @@ void launch_dq(const Args& a) {
   flash_dq_kernel<T, TO, D, TILE, kPos><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
-      static_cast<const T*>(a.o), a.lse, a.delta, static_cast<T*>(a.out0),
-      a.S, a.H, a.qs, a.ks, a.vs, a.os, a.oos, a.pos, a.scale, a.causal);
+      static_cast<const TO*>(a.o), a.lse, a.dlse, a.delta,
+      static_cast<T*>(a.out0), a.S, a.H, a.qs, a.ks, a.vs, a.os, a.oos,
+      a.pos, a.scale, a.causal);
 }
 
 template <typename T, typename TO, int D, int TILE, bool kPos>
@@ -841,7 +961,7 @@ void launch_dkv(const Args& a) {
 }
 
 // 0 on a launch, 1 for a head dim or dtype the kernels do not take.  K2/K3
-// read dO in the input dtype, K2p/K3p in f32.
+// read dO (and K2 O) in the input dtype, K2p/K3p in f32.
 template <bool kDq, bool kPos>
 int dispatch(const Args& a, int D, int dtype) {
 #define DPT_CASE(T, DIM, TILE)                                         \
@@ -867,42 +987,48 @@ int dispatch(const Args& a, int D, int dtype) {
   return 1;
 }
 
-template <int D>
+template <int D, bool kPos>
 void launch_mma(const Args& a, bool dq) {
   const dim3 grid((a.S + kMmaRows - 1) / kMmaRows, a.B * a.H);
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
   if (dq) {
-    flash_dq_mma_kernel<D><<<grid, kMmaThreads, 0, a.stream>>>(
-        q, k, v, dout, static_cast<const bf16*>(a.o), a.lse, a.delta,
-        static_cast<bf16*>(a.out0), a.S, a.H, a.qs, a.ks, a.vs, a.os, a.oos,
-        a.scale, a.causal);
+    using TO = MmaDo<kPos>;
+    flash_dq_mma_kernel<D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
+        q, k, v, static_cast<const TO*>(a.dout),
+        static_cast<const TO*>(a.o), a.lse, a.dlse, a.delta,
+        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.dout16), a.S, a.H,
+        a.qs, a.ks, a.vs, a.os, a.oos, a.pos, a.scale, a.causal);
   } else {
-    flash_dkv_mma_kernel<D><<<grid, kMmaThreads, 0, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.out0),
-        static_cast<bf16*>(a.out1), a.S, a.H, a.qs, a.ks, a.vs, a.os,
-        a.scale, a.causal);
+    flash_dkv_mma_kernel<D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
+        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta,
+        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.S, a.H,
+        a.qs, a.ks, a.vs, a.os, a.pos, a.scale, a.causal);
   }
 }
 
-// The tensor-core route's own check: bf16, D of 32 or 64, every strided
-// tensor 16-byte aligned with (b, s, h) strides that are multiples of 8.
+// The tensor-core route's own check: bf16 q, k, v at D of 32 or 64, every
+// strided tensor 16-byte aligned with (b, s, h) strides that are whole
+// 16-byte pieces (multiples of 8 in bf16; of 4 for K2p's f32 dO and O).
 // 0 on a launch, 1 (nothing launched) for a call it does not take.
+template <bool kPos>
 int dispatch_mma(const Args& a, int D, int dtype, bool dq) {
   const void* ptrs[5] = {a.q, a.k, a.v, a.dout, a.o};
   const Strides* sts[5] = {&a.qs, &a.ks, &a.vs, &a.os, &a.oos};
-  bool ok = dtype == 1 && (D == 32 || D == 64);
+  const int per16 = kPos && dq ? 4 : 8;  // elements of dO and O a piece
+  bool ok = dtype == 1 && (D == 32 || D == 64) &&
+            (!(kPos && dq) || a.dout16 != nullptr);
   for (int i = 0; i < (dq ? 5 : 4); ++i) {
+    const int m = i < 3 ? 8 : per16;
     ok = ok && reinterpret_cast<unsigned long long>(ptrs[i]) % 16 == 0 &&
-         sts[i]->b % 8 == 0 && sts[i]->s % 8 == 0 && sts[i]->h % 8 == 0;
+         sts[i]->b % m == 0 && sts[i]->s % m == 0 && sts[i]->h % m == 0;
   }
   if (!ok) return 1;
   if (D == 32) {
-    launch_mma<32>(a, dq);
+    launch_mma<32, kPos>(a, dq);
   } else {
-    launch_mma<64>(a, dq);
+    launch_mma<64, kPos>(a, dq);
   }
   return 0;
 }
@@ -920,9 +1046,11 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   a.dout = dout;
   a.o = o;
   a.lse = static_cast<const float*>(lse);
+  a.dlse = nullptr;
   a.delta = static_cast<float*>(delta);
   a.out0 = out0;
   a.out1 = out1;
+  a.dout16 = nullptr;
   a.B = B;
   a.S = S;
   a.H = H;
@@ -978,7 +1106,7 @@ extern "C" int dpt_flash_dq_mma(const void* q, const void* k, const void* v,
                                 int dtype, void* stream) {
   const Args a = make_args(q, k, v, dout, o, lse, delta, dq, nullptr, B, S,
                            H, strides, 5, scale, causal, stream);
-  return finish(dispatch_mma(a, D, dtype, true));
+  return finish(dispatch_mma<false>(a, D, dtype, true));
 }
 
 // K3: strides are 12, those of q, k, v and dO; delta is K2's.
@@ -1004,27 +1132,54 @@ extern "C" int dpt_flash_dkv_mma(const void* q, const void* k,
   const Args a = make_args(q, k, v, dout, nullptr, lse,
                            const_cast<void*>(delta), dk, dv, B, S, H,
                            strides, 4, scale, causal, stream);
-  return finish(dispatch_mma(a, D, dtype, false));
+  return finish(dispatch_mma<false>(a, D, dtype, false));
 }
 
-// K2p and K3p: as dpt_flash_dkv's arguments (12 strides) with dO in f32
-// (the cotangent of K4's f32 O), delta = rowsum(dO * O) - dlse given, and
-// q_pos / k_pos the (S,) int32 global positions of K4's call; kv_valid
-// masks keys at positions >= kv_valid (INT_MAX for none).
+// K2p and K3p: q_pos / k_pos are the (S,) int32 global positions of K4's
+// call; kv_valid masks keys at positions >= kv_valid (INT_MAX for none).
+//
+// K2p: as dpt_flash_dq's arguments (15 strides) with dO and O in f32 (K4's
+// O and its cotangent) and dlse, the (B*H, S) f32 cotangent of lse (null
+// for zero).  Writes delta = rowsum(dO * O) - dlse and dq.  The _mma entry
+// point, the tensor-core route (bf16 q, k, v at D of 32 or 64, dO and O
+// with 16-byte-aligned pointers and strides that are multiples of 4),
+// also writes dO rounded to bf16 to dout16, contiguous (B, S, H, D).
 
 extern "C" int dpt_flash_dq_pos(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, const void* q_pos,
-                                const void* k_pos, int kv_valid, void* dq,
-                                int B, int S, int H, int D,
-                                const int* strides, float scale, int causal,
-                                int dtype, void* stream) {
-  const Args a = make_args(q, k, v, dout, nullptr, lse,
-                           const_cast<void*>(delta), dq, nullptr, B, S, H,
-                           strides, 4, scale, causal, stream, q_pos, k_pos,
-                           kv_valid);
+                                const void* dout, const void* o,
+                                const void* lse, const void* dlse,
+                                const void* q_pos, const void* k_pos,
+                                int kv_valid, void* delta, void* dq, int B,
+                                int S, int H, int D, const int* strides,
+                                float scale, int causal, int dtype,
+                                void* stream) {
+  Args a = make_args(q, k, v, dout, o, lse, delta, dq, nullptr, B, S, H,
+                     strides, 5, scale, causal, stream, q_pos, k_pos,
+                     kv_valid);
+  a.dlse = static_cast<const float*>(dlse);
   return finish(dispatch<true, true>(a, D, dtype));
 }
+
+extern "C" int dpt_flash_dq_pos_mma(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* o, const void* lse,
+                                    const void* dlse, const void* q_pos,
+                                    const void* k_pos, int kv_valid,
+                                    void* delta, void* dq, void* dout16,
+                                    int B, int S, int H, int D,
+                                    const int* strides, float scale,
+                                    int causal, int dtype, void* stream) {
+  Args a = make_args(q, k, v, dout, o, lse, delta, dq, nullptr, B, S, H,
+                     strides, 5, scale, causal, stream, q_pos, k_pos,
+                     kv_valid);
+  a.dlse = static_cast<const float*>(dlse);
+  a.dout16 = dout16;
+  return finish(dispatch_mma<true>(a, D, dtype, true));
+}
+
+// K3p: as dpt_flash_dkv's arguments (12 strides) with K2p's delta.  The
+// scalar kernel reads dO in f32; the _mma entry point reads the bf16 dO
+// that dpt_flash_dq_pos_mma wrote, on the same checks as dpt_flash_dkv_mma.
 
 extern "C" int dpt_flash_dkv_pos(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -1038,4 +1193,19 @@ extern "C" int dpt_flash_dkv_pos(const void* q, const void* k, const void* v,
                            strides, 4, scale, causal, stream, q_pos, k_pos,
                            kv_valid);
   return finish(dispatch<false, true>(a, D, dtype));
+}
+
+extern "C" int dpt_flash_dkv_pos_mma(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     const void* q_pos, const void* k_pos,
+                                     int kv_valid, void* dk, void* dv, int B,
+                                     int S, int H, int D,
+                                     const int* strides, float scale,
+                                     int causal, int dtype, void* stream) {
+  const Args a = make_args(q, k, v, dout, nullptr, lse,
+                           const_cast<void*>(delta), dk, dv, B, S, H,
+                           strides, 4, scale, causal, stream, q_pos, k_pos,
+                           kv_valid);
+  return finish(dispatch_mma<true>(a, D, dtype, false));
 }

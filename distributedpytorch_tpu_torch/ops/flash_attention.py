@@ -20,15 +20,19 @@ PyTorch ops.
 the CPU they run the plain version; for CUDA tensors they launch the
 kernel (and count the launch) or raise — there is no fallback.  K2 also
 computes delta = rowsum(dO * O), which the JAX package computes outside
-its kernels, and returns it for K3.  K2 and K3 have two routes, both
-hand-written: ``tensor_core_route`` sends bf16 at D = 32 or 64 with
-16-byte-aligned rows (the vit's main path) to the tensor-core kernels
-(also counted in ``tensor_core_launches``) and every other call to the
-scalar ones; a route that fails raises, neither gives way to the other.
-``FlashAttention`` is the autograd Function of K1 (backward K2 and K3),
-``FlashAttentionPartial`` that of K4 (backward K2p and K3p).  Public layout
-is the JAX package's: q, k, v, the output and its gradient are (B, S, H,
-D); the log-sum-exp is (B*H, S) float32; positions are (S,) int32.
+its kernels, and returns it for K3; K2p likewise computes delta =
+rowsum(dO * O) - dlse, the lse cotangent folded in.  K2/K3 and K2p/K3p
+have two routes each, both hand-written: ``tensor_core_route`` sends bf16
+at D = 32 or 64 with 16-byte-aligned rows (the vit's main path) to the
+tensor-core kernels, and ``partial_tensor_core_route`` does the same for
+the ring's bf16 shards, where K2p also rounds the f32 dO to bf16 once for
+K3p (both also counted in ``tensor_core_launches``); every other call
+takes the scalar kernels.  A route that fails raises, neither gives way to
+the other.  ``FlashAttention`` is the autograd Function of K1 (backward K2
+and K3), ``FlashAttentionPartial`` that of K4 (backward K2p and K3p).
+Public layout is the JAX package's: q, k, v, the output and its gradient
+are (B, S, H, D); the log-sum-exp is (B*H, S) float32; positions are (S,)
+int32.
 
 Unlike the JAX wrapper, nothing is moved to (B*H, S, D) and S is not padded
 to a block multiple: the kernel reads the (B, S, H, D) strides directly and
@@ -50,7 +54,7 @@ from . import build
 BLOCK_K = 64
 _NEG = -1e30          # finite masked-score sentinel, as in the TPU kernel
 HEAD_DIMS = (32, 64, 128)
-MMA_HEAD_DIMS = (32, 64)   # K2/K3's tensor-core route
+MMA_HEAD_DIMS = (32, 64)   # the tensor-core routes of K2/K3 and K2p/K3p
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
@@ -316,6 +320,15 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                        _causal_mask(q.shape[1], causal, q.device))
 
 
+def _whole_16_byte_rows(strides, ptrs, itemsizes) -> bool:
+    """Every tensor has a unit head stride, a 16-byte-aligned data pointer
+    and (batch, seq, head) strides that are whole 16-byte pieces, so every
+    row is whole 16-byte loads."""
+    return (all(p % 16 == 0 for p in ptrs)
+            and all(st[3] == 1 and all(x % (16 // n) == 0 for x in st[:3])
+                    for st, n in zip(strides, itemsizes)))
+
+
 def tensor_core_route(dtype: torch.dtype, d: int, strides, ptrs) -> bool:
     """The rule between K2's and K3's routes: True for the tensor-core
     kernels (bf16, D in ``MMA_HEAD_DIMS``, every tensor with a unit head
@@ -324,37 +337,63 @@ def tensor_core_route(dtype: torch.dtype, d: int, strides, ptrs) -> bool:
     False for the scalar ones.  ``strides`` and ``ptrs``: those of q, k,
     v, dO (and O for K2)."""
     return (dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
-            and all(p % 16 == 0 for p in ptrs)
-            and all(st[3] == 1 and all(x % 8 == 0 for x in st[:3])
-                    for st in strides))
+            and _whole_16_byte_rows(strides, ptrs, [2] * len(strides)))
 
 
-def _pick_route(tensor_core: Optional[bool], tensors) -> bool:
-    """The rule's route for ``tensors`` (q, k, v, dO[, O]), or the one
-    ``tensor_core`` forces; forcing the tensor cores on a call that does
-    not fit them raises."""
+def partial_tensor_core_route(dtypes, d: int, strides, ptrs) -> bool:
+    """The rule between K2p's and K3p's routes: True for the tensor-core
+    kernels, False for the scalar ones.  ``dtypes``, ``strides`` and
+    ``ptrs``: those of q, k, v and dO, and O for K2p.  The tensor cores
+    take bf16 q, k and v at D in ``MMA_HEAD_DIMS`` with K2p's dO and O in
+    f32 (K4's O and its cotangent) or K3p's dO in bf16 (the copy that K2p
+    writes on this route), every tensor with a unit head stride, a
+    16-byte-aligned data pointer and (batch, seq, head) strides that are
+    multiples of 8 in bf16 or 4 in f32, so every row is whole 16-byte
+    loads.  dlse and the positions are contiguous on both routes (the
+    wrappers' checks require it)."""
+    dtypes = list(dtypes)
+    rest = ([torch.float32] * 2 if len(dtypes) == 5 else [torch.bfloat16])
+    return (dtypes == [torch.bfloat16] * 3 + rest and d in MMA_HEAD_DIMS
+            and _whole_16_byte_rows(strides, ptrs,
+                                    [dt.itemsize for dt in dtypes]))
+
+
+def _pick_route(tensor_core: Optional[bool], tensors,
+                positional: bool = False) -> bool:
+    """The rule's route for ``tensors`` (q, k, v, dO[, O]) of K2/K3, or
+    with ``positional`` of K2p/K3p, or the one ``tensor_core`` forces;
+    forcing the tensor cores on a call that does not fit them raises."""
     q = tensors[0]
-    fits = tensor_core_route(q.dtype, q.shape[3],
-                             [t.stride() for t in tensors],
-                             [t.data_ptr() for t in tensors])
+    strides = [t.stride() for t in tensors]
+    ptrs = [t.data_ptr() for t in tensors]
+    if positional:
+        fits = partial_tensor_core_route([t.dtype for t in tensors],
+                                         q.shape[3], strides, ptrs)
+    else:
+        fits = tensor_core_route(q.dtype, q.shape[3], strides, ptrs)
     if tensor_core and not fits:
-        raise ValueError(f"the tensor-core K2/K3 take bfloat16 at D in "
-                         f"{MMA_HEAD_DIMS} with 16-byte-aligned rows; "
-                         f"q {tuple(q.shape)} {q.dtype} does not fit")
+        what = ("K2p/K3p take bfloat16 q, k, v (K2p: float32 dO and O; "
+                "K3p: bfloat16 dO)" if positional else "K2/K3 take bfloat16")
+        raise ValueError(f"the tensor-core {what} at D in {MMA_HEAD_DIMS} "
+                         f"with 16-byte-aligned rows; q {tuple(q.shape)} "
+                         f"{q.dtype} does not fit")
     return fits if tensor_core is None else bool(tensor_core)
 
 
 def _bwd_kernel_fn(name: str):
-    """An entry point of ``csrc/flash_bwd.cu``: six input pointers, the
-    ``_pos`` entry points' two position pointers and kv_valid, then the
-    outputs (delta and dq for K2, dk and dv for K3 and K3p, dq for
-    K2p)."""
+    """An entry point of ``csrc/flash_bwd.cu``: the input pointers (six;
+    K2p's seven: q, k, v, dO, O, lse, dlse), the ``_pos`` entry points'
+    two position pointers and kv_valid, then the outputs (delta and dq for
+    K2 and K2p, dk and dv for K3 and K3p; K2p's tensor-core route also
+    the bf16 dO)."""
     fn = getattr(build.load("flash_bwd"), name)
     if fn.argtypes is None:
-        n_out = 1 if name == "dpt_flash_dq_pos" else 2
+        dq_pos = name.startswith("dpt_flash_dq_pos")
+        n_in = 7 if dq_pos else 6
+        n_out = 3 if name == "dpt_flash_dq_pos_mma" else 2
         pos = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-               if name.endswith("_pos") else [])
-        fn.argtypes = ([ctypes.c_void_p] * 6 + pos
+               if "_pos" in name else [])
+        fn.argtypes = ([ctypes.c_void_p] * n_in + pos
                        + [ctypes.c_void_p] * n_out + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -362,22 +401,28 @@ def _bwd_kernel_fn(name: str):
     return fn
 
 
-def _check_bwd(q, k, v, do, rows, do_dtype=None, o=None) -> None:
-    """``rows``: (name, tensor) pairs of the (B*H, S) f32 row vectors;
-    ``do_dtype``: dO's dtype, q's by default (K2p/K3p: float32); ``o``:
-    the forward's output (K2)."""
+def _check_bwd(q, k, v, do, rows, do_dtypes=None, o=None,
+               o_dtype=None) -> None:
+    """``rows``: (name, tensor) pairs of the (B*H, S) f32 row vectors (a
+    None tensor, a zero dlse, is left out); ``do_dtypes``: dO's dtypes,
+    q's by default (K2p: float32; K3p: float32, or bfloat16 on the
+    tensor-core route); ``o``: the forward's output (K2, K2p), of q's
+    dtype or ``o_dtype`` (K2p: float32)."""
     _check(q, k, v)
-    for name, x, dt in (("dO", do, do_dtype or q.dtype), ("O", o, q.dtype)):
-        if x is not None and (x.shape != q.shape or x.dtype != dt
+    for name, x, dts in (("dO", do, do_dtypes or (q.dtype,)),
+                         ("O", o, (o_dtype or q.dtype,))):
+        if x is not None and (x.shape != q.shape or x.dtype not in dts
                               or x.device != q.device):
-            raise ValueError(f"{name} must match q's shape, dtype and "
-                             f"device: got {tuple(x.shape)} {x.dtype} "
-                             f"{x.device} for q {tuple(q.shape)} {q.dtype} "
-                             f"{q.device}")
+            raise ValueError(f"{name} must match q's shape and device, "
+                             f"with dtype in {[str(d) for d in dts]}: got "
+                             f"{tuple(x.shape)} {x.dtype} {x.device} for q "
+                             f"{tuple(q.shape)} {q.dtype} {q.device}")
     b, s, h, _ = q.shape
     for name, x in rows:
-        if (x.shape != (b * h, s) or x.dtype != torch.float32
-                or x.device != q.device or not x.is_contiguous()):
+        if x is not None and (x.shape != (b * h, s)
+                              or x.dtype != torch.float32
+                              or x.device != q.device
+                              or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous (B*H, S) = "
                              f"{(b * h, s)} float32 tensor on {q.device}, "
                              f"got {tuple(x.shape)} {x.dtype} {x.device}")
@@ -389,12 +434,13 @@ _STRIDED = ("q", "k", "v", "dO", "O")
 def _launch_bwd(name: str, ins, outs, causal, wrapper, n_strided: int = 4,
                 pos: Optional[Pos] = None, tensor_core: bool = False) -> None:
     """Launch ``name`` (its ``_mma`` entry point when ``tensor_core``) on
-    the six tensors ``ins`` in the entry point's order, of which the first
-    ``n_strided`` (q, k, v, dO and, for K2, O) are read through their
-    strides, writing ``outs``; K2p/K3p take ``pos`` = (q_pos, k_pos,
-    kv_valid).  Counts the launch in ``wrapper.launches``, and a
-    tensor-core one in ``wrapper.tensor_core_launches``, once it returned
-    0; an empty problem launches (and counts) nothing."""
+    the tensors ``ins`` in the entry point's order (None for a null
+    pointer: K2p's zero dlse), of which the first ``n_strided`` (q, k, v,
+    dO and, for K2 and K2p, O) are read through their strides, writing
+    ``outs``; K2p/K3p take ``pos`` = (q_pos, k_pos, kv_valid).  Counts the
+    launch in ``wrapper.launches``, and a tensor-core one in
+    ``wrapper.tensor_core_launches``, once it returned 0; an empty problem
+    launches (and counts) nothing."""
     q = ins[0]
     b, s, h, d = q.shape
     kernel = name.replace("dpt_", "")
@@ -408,7 +454,7 @@ def _launch_bwd(name: str, ins, outs, causal, wrapper, n_strided: int = 4,
         _INT_MAX if pos[2] is None else int(pos[2]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*(x.data_ptr() for x in ins), *extra,
+        rc = fn(*(None if x is None else x.data_ptr() for x in ins), *extra,
                 *(x.data_ptr() for x in outs), b, s, h, d,
                 (ctypes.c_int * len(strides))(*strides), 1.0 / math.sqrt(d),
                 int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
@@ -583,7 +629,8 @@ def partial_delta(o: torch.Tensor, do: torch.Tensor,
                   dlse: Optional[torch.Tensor]) -> torch.Tensor:
     """delta = rowsum(dO * O) - dlse, (B*H, S) f32: the lse cotangent
     folded into delta, as ``_flash_bwd_impl`` folds it (d lse / d s_j =
-    p_j, so the backward kernels run unchanged)."""
+    p_j, so the backward kernels run unchanged).  Torch ops: the plain
+    version of the delta that K2p computes."""
     delta = attention_delta(o, do)
     return delta if dlse is None else (delta - dlse.float()).contiguous()
 
@@ -611,51 +658,103 @@ def flash_attention_partial_bwd_plain(q, k, v, o, lse, do, dlse, q_pos, k_pos,
                                q_pos, k_pos, causal, kv_valid)
 
 
-def flash_attention_partial_dq(q, k, v, do, lse, delta, q_pos, k_pos,
+def _dq_pos_launch(q, k, v, o, do, lse, dlse, q_pos, k_pos, causal: bool,
+                   kv_valid: Optional[int],
+                   tensor_core: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One K2p launch on CUDA tensors: (dq, delta, the dO that K3p reads:
+    the bf16 copy that the tensor-core route writes, or the f32 dO), on
+    the route of ``partial_tensor_core_route`` unless ``tensor_core``
+    names one."""
+    b, s, h, _ = q.shape
+    tensor_core = _pick_route(tensor_core, (q, k, v, do, o), positional=True)
+    delta = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    outs, do_k3 = (delta, dq), do
+    if tensor_core:
+        do_k3 = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+        outs += (do_k3,)
+    _launch_bwd("dpt_flash_dq_pos", (q, k, v, do, o, lse, dlse), outs,
+                causal, flash_attention_partial_dq, n_strided=5,
+                pos=(q_pos, k_pos, kv_valid), tensor_core=tensor_core)
+    return dq, delta, do_k3
+
+
+def flash_attention_partial_dq(q, k, v, o, do, lse, dlse, q_pos, k_pos,
                                causal: bool = False,
                                kv_valid: Optional[int] = None
-                               ) -> torch.Tensor:
-    """Kernel K2p: dq of K4, (B, S, H, D) in q's dtype, from the f32 dO,
-    lse and ``partial_delta``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (and count the launch in
-    ``flash_attention_partial_dq.launches``) or raise."""
-    _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)),
-               torch.float32)
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Kernel K2p: (dq of K4 (B, S, H, D) in q's dtype, delta =
+    rowsum(dO * O) - dlse (B*H, S) f32, the dO that K3p takes) from K4's
+    f32 O and lse and the f32 cotangents dO and dlse (None for zero).
+    CPU tensors take the plain version (``partial_delta``, then
+    ``_partial_bwd_blocks``) and return dO as given.  CUDA tensors launch
+    the kernel of ``partial_tensor_core_route``'s route (and count the
+    launch in ``flash_attention_partial_dq.launches``, and a tensor-core
+    one also in ``flash_attention_partial_dq.tensor_core_launches``) or
+    raise; the tensor-core route also writes dO rounded to bf16 and
+    returns that, the scalar one returns the f32 dO."""
+    _check_bwd(q, k, v, do, (("lse", lse), ("dlse", dlse)),
+               (torch.float32,), o=o, o_dtype=torch.float32)
     _check_pos(q, q_pos, k_pos, kv_valid)
     if _device_kind(q) == "cpu":
-        return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
-                                   causal, kv_valid)[0]
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dpt_flash_dq_pos", (q, k, v, do, lse, delta), (dq,), causal,
-                flash_attention_partial_dq, pos=(q_pos, k_pos, kv_valid))
-    return dq
+        delta = partial_delta(o, do, dlse)
+        dq = _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
+                                 causal, kv_valid)[0]
+        return dq, delta, do
+    return _dq_pos_launch(q, k, v, o, do, lse, dlse, q_pos, k_pos, causal,
+                          kv_valid)
 
 
 flash_attention_partial_dq.launches = 0
+flash_attention_partial_dq.tensor_core_launches = 0
 
 
 def flash_attention_partial_dkv(q, k, v, do, lse, delta, q_pos, k_pos,
                                 causal: bool = False,
                                 kv_valid: Optional[int] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K3p: (dk, dv) of K4 in k's and v's dtype.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (and count the
-    launch in ``flash_attention_partial_dkv.launches``) or raise."""
+    """Kernel K3p: (dk, dv) of K4 in k's and v's dtype, from K2p's delta
+    and the dO that K2p returned.  CPU tensors take the plain version.
+    CUDA tensors launch the kernel (and count the launch in
+    ``flash_attention_partial_dkv.launches``, and a tensor-core one also
+    in ``flash_attention_partial_dkv.tensor_core_launches``) or raise: a
+    bf16 dO (K2p's copy) takes the tensor cores, and raises where the call
+    does not fit them; an f32 dO takes the scalar kernel."""
     _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)),
-               torch.float32)
+               (torch.float32, torch.bfloat16))
     _check_pos(q, q_pos, k_pos, kv_valid)
     if _device_kind(q) == "cpu":
         return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
                                    causal, kv_valid)[1:]
+    tensor_core = _pick_route(do.dtype == torch.bfloat16, (q, k, v, do),
+                              positional=True)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("dpt_flash_dkv_pos", (q, k, v, do, lse, delta), (dk, dv),
                 causal, flash_attention_partial_dkv,
-                pos=(q_pos, k_pos, kv_valid))
+                pos=(q_pos, k_pos, kv_valid), tensor_core=tensor_core)
     return dk, dv
 
 
 flash_attention_partial_dkv.launches = 0
+flash_attention_partial_dkv.tensor_core_launches = 0
+
+
+def flash_attention_partial_bwd(q, k, v, o, lse, do, dlse, q_pos, k_pos,
+                                causal: bool = False,
+                                kv_valid: Optional[int] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The backward of ``flash_attention_partial``: K2p, which also gives
+    delta and the dO that K3p reads, then K3p; on CUDA tensors nothing
+    runs between the two launches."""
+    dq, delta, do_k3 = flash_attention_partial_dq(
+        q, k, v, o, do, lse, dlse, q_pos, k_pos, causal, kv_valid)
+    dk, dv = flash_attention_partial_dkv(q, k, v, do_k3, lse, delta, q_pos,
+                                         k_pos, causal, kv_valid)
+    return dq, dk, dv
 
 
 class FlashAttentionPartial(torch.autograd.Function):
@@ -676,15 +775,16 @@ class FlashAttentionPartial(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
-        # the kernels read an f32 dO with a unit stride on the head dim
+        # K2p reads an f32 dO with a unit stride on the head dim and a
+        # contiguous dlse; a cotangent of another layout is copied once
         do = do.float()
         if do.stride(3) != 1:
             do = do.contiguous()
-        delta = partial_delta(o, do, dlse)
-        dq = flash_attention_partial_dq(q, k, v, do, lse, delta, q_pos,
-                                        k_pos, ctx.causal, ctx.kv_valid)
-        dk, dv = flash_attention_partial_dkv(q, k, v, do, lse, delta, q_pos,
-                                             k_pos, ctx.causal, ctx.kv_valid)
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
+        dq, dk, dv = flash_attention_partial_bwd(
+            q, k, v, o, lse, do, dlse, q_pos, k_pos, ctx.causal,
+            ctx.kv_valid)
         return dq, dk, dv, None, None, None, None
 
 

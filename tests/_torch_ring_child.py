@@ -25,7 +25,8 @@ default), then writes its parameters, the steps' metrics and its kernel
 launches to OUT.pt.  With ``profile`` = N (on the card), it then times N
 more steps of the last batch (host clock, synchronized) and N under
 torch.profiler, and writes the per-step wall and device time, kernel
-count and the time of the ring kernels and of the host copies.
+count, the time of the ring kernels and of the host copies, and K2p's and
+K3p's launches (on either route, and on the tensor cores).
 
 ``tests/test_torch_ring.py`` runs it on the CPU (against the JAX
 package), ``chip_smoke.py`` on the card (against one process's flash and
@@ -103,12 +104,21 @@ def profile_steps(step, n: int) -> dict:
         return sum(e.self_device_time_total for e in events
                    if all(t in e.key for t in tags)) / n
 
+    def count(*tags):
+        return sum(e.count for e in events
+                   if all(t in e.key for t in tags)) / n
+
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     return {"wall_ms": wall_ms,
             "device_ms": us() / 1e3,
             "kernels": sum(e.count for e in events) / n,
-            "k4_us": us("flash_fwd_kernel"), "k2p_us": us("flash_dq_kernel"),
-            "k3p_us": us("flash_dkv_kernel"), "memcpy_us": us("Memcpy"),
+            # K2p and K3p on either route (the tensor-core ones are *_mma_*)
+            "k4_us": us("flash_fwd_kernel"), "k2p_us": us("flash_dq_"),
+            "k3p_us": us("flash_dkv_"), "memcpy_us": us("Memcpy"),
+            "k2p_launches": count("flash_dq_"),
+            "k3p_launches": count("flash_dkv_"),
+            "k2p_mma_launches": count("flash_dq_mma"),
+            "k3p_mma_launches": count("flash_dkv_mma"),
             "top": [(e.key[:48], e.self_device_time_total / n,
                      e.count // n) for e in top]}
 

@@ -127,6 +127,71 @@ def test_backward_tensor_core_route_matches_plain_on_card():
                     <= TOL[dt] * scale
 
 
+def test_partial_backward_tensor_core_route_matches_plain_on_card():
+    """bf16 K2p and K3p on the tensor cores at the vit's ring shard (rank
+    1's queries against rank 0's keys, kv_valid 49) and at a causal future
+    block (every key masked) with a random dO and dlse: the rule picks
+    them, the counters say so, K2p's bf16 dO is torch's rounding, both
+    routes (the scalar one forced) agree with the plain version, dv of the
+    all-masked rows is the sum of dO, two calls are bit-identical, and
+    K2p's delta is ``partial_delta`` within 1e-5 of its largest value."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = torch.bfloat16
+    counters = (tfa.flash_attention_partial_dq,
+                tfa.flash_attention_partial_dkv)
+
+    def close(x, ref, tol):
+        scale = ref.float().abs().max().item()
+        return (x.float() - ref.float()).abs().max().item() <= tol * scale
+
+    for b, s, h, d, causal, qb, kb, kv_valid in (
+            (128, 25, 4, 32, False, 1, 0, 49),
+            (8, 128, 4, 64, True, 0, 1, None)):
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                          device="cuda").to(dt)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        base = torch.arange(s, dtype=torch.int32, device="cuda")
+        qp, kp = base + qb * s, base + kb * s
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda")
+        dlse = torch.randn((b * h, s), generator=gen, device="cuda")
+        o, lse = tfa.flash_attention_partial_fwd(q, k, v, qp, kp, causal,
+                                                 kv_valid)
+        assert tfa._pick_route(None, (q, k, v, do, o), positional=True)
+        before = [(w.launches, w.tensor_core_launches) for w in counters]
+        dq, delta, do16 = tfa.flash_attention_partial_dq(
+            q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid)
+        dk, dv = tfa.flash_attention_partial_dkv(q, k, v, do16, lse, delta,
+                                                 qp, kp, causal, kv_valid)
+        again = tfa.flash_attention_partial_bwd(q, k, v, o, lse, do, dlse,
+                                                qp, kp, causal, kv_valid)
+        torch.cuda.synchronize()
+        after = [(w.launches, w.tensor_core_launches) for w in counters]
+        assert after == [(n + 2, c + 2) for n, c in before]
+        assert torch.equal(do16, do.to(dt))
+        for got, rep in zip((dq, dk, dv), again):
+            assert torch.equal(got, rep)
+        want_delta = tfa.partial_delta(o, do, dlse)
+        sdq, sdelta, sdo = tfa._dq_pos_launch(q, k, v, o, do, lse, dlse, qp,
+                                              kp, causal, kv_valid,
+                                              tensor_core=False)
+        assert sdo is do
+        sdk, sdv = tfa.flash_attention_partial_dkv(q, k, v, sdo, lse, sdelta,
+                                                   qp, kp, causal, kv_valid)
+        torch.cuda.synchronize()
+        for x in (delta, sdelta):
+            assert close(x, want_delta, 1e-5)
+        want = tfa.flash_attention_partial_bwd_plain(
+            q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid)
+        for got, scalar, ref in zip((dq, dk, dv), (sdq, sdk, sdv), want):
+            assert close(got, ref, TOL[dt]) and close(scalar, ref, TOL[dt])
+        if causal:
+            # every key masked: p = exp(-1e30 - lse) = 1 in every row
+            assert (lse == -1e30).all() and not dq.any() and not dk.any()
+            sum_do = do.sum(dim=1, keepdim=True).expand(-1, s, -1, -1)
+            assert close(dv, sum_do, TOL[dt])
+
+
 def test_train_step_runs_each_kernel_once_per_block():
     """One bf16 train step of the full-width vit: 4 K1, 4 K2 and 4 K3
     launches, K2 and K3 on the tensor cores, finite gradients on every

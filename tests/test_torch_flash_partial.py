@@ -186,22 +186,27 @@ def test_wrappers_on_cpu_equal_the_plain_versions_and_count_nothing(results):
     qp, kp = torch.from_numpy(q_pos), torch.from_numpy(k_pos)
     counters = (tfa.flash_attention_partial_fwd, tfa.flash_attention_partial_dq,
                 tfa.flash_attention_partial_dkv)
-    before = [c.launches for c in counters]
+    before = [(c.launches, getattr(c, "tensor_core_launches", 0))
+              for c in counters]
     o, lse = tfa.flash_attention_partial_fwd(q, k, v, qp, kp, causal,
                                              kv_valid)
     po, plse = tfa.flash_attention_partial_plain(q, k, v, qp, kp, causal,
                                                  kv_valid)
     assert torch.equal(o, po) and torch.equal(lse, plse)
-    delta = tfa.partial_delta(o, do, dlse)
     want = tfa.flash_attention_partial_bwd_plain(q, k, v, o, lse, do, dlse,
                                                  qp, kp, causal, kv_valid)
-    dq = tfa.flash_attention_partial_dq(q, k, v, do, lse, delta, qp, kp,
-                                        causal, kv_valid)
-    dk, dv = tfa.flash_attention_partial_dkv(q, k, v, do, lse, delta, qp, kp,
-                                             causal, kv_valid)
-    for got, ref in zip((dq, dk, dv), want):
-        assert torch.equal(got, ref)
-    assert [c.launches for c in counters] == before
+    dq, delta, do_k3 = tfa.flash_attention_partial_dq(
+        q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid)
+    assert do_k3 is do               # the plain version reads the f32 dO
+    assert torch.equal(delta, tfa.partial_delta(o, do, dlse))
+    dk, dv = tfa.flash_attention_partial_dkv(q, k, v, do_k3, lse, delta, qp,
+                                             kp, causal, kv_valid)
+    both = tfa.flash_attention_partial_bwd(q, k, v, o, lse, do, dlse, qp, kp,
+                                           causal, kv_valid)
+    for got, again, ref in zip((dq, dk, dv), both, want):
+        assert torch.equal(got, ref) and torch.equal(again, ref)
+    assert [(c.launches, getattr(c, "tensor_core_launches", 0))
+            for c in counters] == before
     # delta = rowsum(dO * O) - dlse, per (b*h, s) row
     want_delta = (torch.einsum("bshd,bshd->bhs", do, o).reshape(B * H, -1)
                   - dlse)
@@ -210,16 +215,27 @@ def test_wrappers_on_cpu_equal_the_plain_versions_and_count_nothing(results):
 
 def test_partial_wrappers_check_positions_and_do():
     q = torch.zeros((1, 8, 2, 32))
+    qb = q.bfloat16()
     pos = torch.arange(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="q_pos must be a contiguous"):
         tfa.flash_attention_partial_fwd(q, q, q, pos[:7], pos)
     with pytest.raises(ValueError, match="k_pos must be a contiguous"):
         tfa.flash_attention_partial_fwd(q, q, q, pos, pos.long())
     lse = torch.zeros((2, 8))
+    # K2p takes K4's f32 O and its f32 cotangent, and a contiguous dlse
     with pytest.raises(ValueError, match="dO must match"):
-        tfa.flash_attention_partial_dq(q.bfloat16(), q.bfloat16(),
-                                       q.bfloat16(), q.bfloat16(), lse, lse,
-                                       pos, pos)
+        tfa.flash_attention_partial_dq(qb, qb, qb, q, qb, lse, None, pos,
+                                       pos)
+    with pytest.raises(ValueError, match="O must match"):
+        tfa.flash_attention_partial_dq(qb, qb, qb, qb, q, lse, None, pos,
+                                       pos)
+    with pytest.raises(ValueError, match="dlse must be a contiguous"):
+        tfa.flash_attention_partial_dq(qb, qb, qb, q, q, lse,
+                                       torch.zeros((8, 2)).t(), pos, pos)
+    # K3p takes the f32 dO or K2p's bf16 copy
+    with pytest.raises(ValueError, match="dO must match"):
+        tfa.flash_attention_partial_dkv(qb, qb, qb, q.double(), lse, lse,
+                                        pos, pos)
 
 
 def test_k1_plain_is_the_positional_plain_at_identity_positions():
@@ -234,3 +250,89 @@ def test_k1_plain_is_the_positional_plain_at_identity_positions():
         po, plse = tfa.flash_attention_partial_plain(q, k, v, pos, pos,
                                                      causal)
         assert torch.equal(o, po) and torch.equal(lse, plse)
+
+
+# -- K2p/K3p's two routes --------------------------------------------------
+
+def _route_case(case):
+    """K2p's tensors (q, k, v, the f32 dO and O) and K3p's (q, k, v and
+    the bf16 dO that K2p's tensor-core route writes) of one route-rule
+    case, at the vit's ring shard."""
+    b, s, h = 2, S_LOCAL, 4
+    d = 128 if case == "bf16 D=128" else 64 if case == "bf16 D=64" else 32
+    dtype = torch.float32 if case == "f32 D=32" else torch.bfloat16
+    # q, k, v as views into one (B, S, 3*H*D) projection, as in the vit
+    qkv = torch.zeros((b, s, 3 * h * d), dtype=dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    n = b * s * h * d
+    off = int(case == "dO one element off")
+    do = torch.zeros(n + off)[off:].view(b, s, h, d)
+    do16 = torch.zeros(n + off, dtype=torch.bfloat16)[off:].view(b, s, h, d)
+    return (q, k, v, do, torch.zeros_like(do)), (q, k, v, do16)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 D=32", True), ("bf16 D=64", True), ("f32 D=32", False),
+    ("bf16 D=128", False), ("dO one element off", False)])
+def test_partial_tensor_core_route_rule(case, want):
+    """bf16 q, k, v at D = 32 or 64 on the vit's views, with K2p's f32 dO
+    and O (or K3p's bf16 dO) on 16-byte-aligned rows, take the tensor
+    cores; f32, D = 128 and a dO offset by one element take the scalar
+    kernels; forcing the tensor cores on a misfit raises."""
+    for ts in _route_case(case):
+        got = tfa.partial_tensor_core_route(
+            [t.dtype for t in ts], ts[0].shape[3], [t.stride() for t in ts],
+            [t.data_ptr() for t in ts])
+        assert got is want
+        assert tfa._pick_route(None, ts, positional=True) is want
+        assert tfa._pick_route(False, ts, positional=True) is False
+        if not want:
+            with pytest.raises(ValueError, match="tensor-core K2p/K3p"):
+                tfa._pick_route(True, ts, positional=True)
+    # K2p reads dO in f32 and K3p in bf16: the other dtype does not fit
+    k2p, k3p = _route_case(case)
+    assert not tfa._pick_route(None, k2p[:3] + (k3p[3], k2p[4]),
+                               positional=True)
+    assert not tfa._pick_route(None, k3p[:3] + (k2p[3],), positional=True)
+
+
+@pytest.mark.parametrize("with_dlse", [True, False])
+def test_k2p_delta_matches_the_jax_formula(results, with_dlse):
+    """The delta that ``flash_attention_partial_dq`` returns is
+    ``_flash_bwd_impl``'s rowsum(dO * O) - dlse, in jnp on the JAX
+    forward's O; without dlse (None) it is rowsum(dO * O)."""
+    (jo, jlse, _), _, args = results[("rank1_q_vs_rank0_kv", "float32")]
+    q, k, v, do, dlse, q_pos, k_pos, causal, kv_valid, _ = args
+    want = jnp.sum(jnp.asarray(_to_bh(do)) * jnp.asarray(_to_bh(jo)), -1)
+    if with_dlse:
+        want = want - jnp.asarray(dlse)
+    t = torch.from_numpy
+    _, delta, _ = tfa.flash_attention_partial_dq(
+        t(q), t(k), t(v), t(np.ascontiguousarray(jo)), t(do),
+        t(np.array(jlse)), t(dlse) if with_dlse else None, t(q_pos),
+        t(k_pos), causal, kv_valid)
+    assert delta.shape == (B * H, BLOCK) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["rank1_q_vs_rank0_kv",
+                                  "causal_future_block"])
+def test_plain_backward_of_a_bf16_rounded_do_matches_jax(results, name):
+    """The tensor-core K2p rounds dO to bf16 for the products dO V^T and
+    P^T dO: the plain backward fed that rounded dO stays within 2e-2 of
+    the largest gradient of JAX's VJP (of the f32 dO), at the vit's shard
+    and where every real row is masked (dv there is the sum of dO)."""
+    (_, _, jgrads), _, args = results[(name, "bfloat16")]
+    q, k, v, do, dlse, q_pos, k_pos, causal, kv_valid, _ = args
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    qp, kp = torch.from_numpy(q_pos), torch.from_numpy(k_pos)
+    o, lse = tfa.flash_attention_partial_plain(tq, tk, tv, qp, kp, causal,
+                                               kv_valid)
+    do16 = torch.from_numpy(do).bfloat16().float()
+    grads = tfa.flash_attention_partial_bwd_plain(
+        tq, tk, tv, o, lse, do16, torch.from_numpy(dlse), qp, kp, causal,
+        kv_valid)
+    for g, w, what in zip(grads, jgrads, ("dq", "dk", "dv")):
+        assert np.abs(g.float().numpy() - w).max() \
+            <= 2e-2 * np.abs(w).max(), what
