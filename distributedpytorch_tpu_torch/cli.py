@@ -35,9 +35,11 @@ The reference's log lines are kept word for word in RSL_PATH/test.log
 line names the ring's transport).  ``train`` and ``test`` log the launches
 of kernels K1 (flash_fwd), K2 (flash_dq), K3 (flash_dkv) and K5 (conv_dw)
 on rank 0, and on a second line those of the ring's K4 (flash_fwd_pos),
-K2p (flash_dq_pos) and K3p (flash_dkv_pos); ``serve`` logs K1's.  The
-device is ``cuda`` unless ``--device cpu`` is given; without a GPU the run
-stops with one line instead of running on the CPU.
+K2p (flash_dq_pos) and K3p (flash_dkv_pos), then the same two lines of
+their launches on the tensor-core route; ``serve`` logs K1's, and how
+many of them took the tensor cores.  The device is ``cuda`` unless
+``--device cpu`` is given; without a GPU the run stops with one line
+instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -69,8 +71,6 @@ KERNELS = {"flash_fwd": fa.flash_attention_fwd,
            "flash_dq_pos": fa.flash_attention_partial_dq,
            "flash_dkv_pos": fa.flash_attention_partial_dkv}
 RING_KERNELS = ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")
-TENSOR_CORE_KERNELS = ("flash_dq", "flash_dkv", "conv_dw",  # two routes
-                       "flash_dq_pos", "flash_dkv_pos")
 
 
 def kernel_launches() -> dict:
@@ -79,10 +79,9 @@ def kernel_launches() -> dict:
 
 
 def tensor_core_launches() -> dict:
-    """Of those launches, the ones on the tensor-core route, by the name
-    of each kernel that has one."""
-    return {name: KERNELS[name].tensor_core_launches
-            for name in TENSOR_CORE_KERNELS}
+    """Of those launches, the ones on the tensor-core route (every kernel
+    has a tensor-core and a scalar route), by kernel name."""
+    return {name: fn.tensor_core_launches for name, fn in KERNELS.items()}
 
 
 def _launch_line(now: dict, before: dict, ring: bool = False) -> str:
@@ -462,6 +461,7 @@ def run_serve(cfg: Config) -> dict:
     sample_shape, sample_dtype = images.shape[1:], images.dtype
 
     launches0 = fa.flash_attention_fwd.launches
+    tc0 = fa.flash_attention_fwd.tensor_core_launches
     shutdown = utils.GracefulShutdown()
     tier = None
     try:
@@ -482,13 +482,16 @@ def run_serve(cfg: Config) -> dict:
             answered = tier.run(shutdown=shutdown)
         batches = int(tel.counter("serve/batches").value)
         launches = fa.flash_attention_fwd.launches - launches0
+        tc_launches = fa.flash_attention_fwd.tensor_core_launches - tc0
         logging.info(f"serve: stopped after answering {answered} requests "
                      f"in {batches} batches")
         logging.info(f"serve: flash_fwd launches {launches} "
-                     f"({warm_launches} in warm-up)")
+                     f"({warm_launches} in warm-up), {tc_launches} on the "
+                     f"tensor cores")
         return {"answered": answered, "port": tier.port,
                 "model_name": model_name, "batches": batches,
                 "flash_launches": launches,
+                "flash_tensor_core_launches": tc_launches,
                 "flash_warmup_launches": warm_launches}
     finally:
         if tier is not None:

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` next to the package (the hash covers
-the source and the flags, so an edited source rebuilds), then bound with
-``ctypes``.  Nothing is built when a module is imported: the CPU tests
-import every module on machines with no ``nvcc``.
+the source, every header under ``csrc/`` and the flags, so an edited
+source or header rebuilds), then bound with ``ctypes``.  Nothing is built
+when a module is imported: the CPU tests import every module on machines
+with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -52,9 +53,22 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
+def header_paths() -> list:
+    """The headers under ``csrc/`` (``*.cuh``, ``*.h``), sorted: any
+    source may include them."""
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cuh", ".h")))
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source,
+    each header's name and text, and the flags."""
+    digest = hashlib.sha256()
+    for path in [source_path(name)] + header_paths():
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -21,15 +21,16 @@ the CPU they run the plain version; for CUDA tensors they launch the
 kernel (and count the launch) or raise — there is no fallback.  K2 also
 computes delta = rowsum(dO * O), which the JAX package computes outside
 its kernels, and returns it for K3; K2p likewise computes delta =
-rowsum(dO * O) - dlse, the lse cotangent folded in.  K2/K3 and K2p/K3p
-have two routes each, both hand-written: ``tensor_core_route`` sends bf16
-at D = 32 or 64 with 16-byte-aligned rows (the vit's main path) to the
-tensor-core kernels, and ``partial_tensor_core_route`` does the same for
-the ring's bf16 shards, where K2p also rounds the f32 dO to bf16 once for
-K3p (both also counted in ``tensor_core_launches``); every other call
-takes the scalar kernels.  A route that fails raises, neither gives way to
-the other.  ``FlashAttention`` is the autograd Function of K1 (backward K2
-and K3), ``FlashAttentionPartial`` that of K4 (backward K2p and K3p).
+rowsum(dO * O) - dlse, the lse cotangent folded in.  Every kernel has two
+routes, both hand-written: ``tensor_core_route`` sends bf16 at D = 32 or
+64 with 16-byte-aligned rows (the vit's main path and the ring's shards)
+to the tensor-core kernels of K1, K4 and K2/K3, and
+``partial_tensor_core_route`` does the same for K2p/K3p, where K2p also
+rounds the f32 dO to bf16 once for K3p (each wrapper also counts these in
+``tensor_core_launches``); every other call takes the scalar kernels.  A
+route that fails raises, neither gives way to the other.
+``FlashAttention`` is the autograd Function of K1 (backward K2 and K3),
+``FlashAttentionPartial`` that of K4 (backward K2p and K3p).
 Public layout is the JAX package's: q, k, v, the output and its gradient
 are (B, S, H, D); the log-sum-exp is (B*H, S) float32; positions are (S,)
 int32.
@@ -93,11 +94,14 @@ def _pos_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return mask
 
 
-def _fwd_blocks(q, k, v, mask_fn: MaskFn, out_dtype: torch.dtype
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _fwd_blocks(q, k, v, mask_fn: MaskFn, out_dtype: torch.dtype,
+                p_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernels' function in PyTorch ops: online softmax over
     key tiles of ``BLOCK_K`` rows, f32 throughout, masked scores at the
-    -1e30 sentinel and their p forced to 0, O cast to ``out_dtype``."""
+    -1e30 sentinel and their p forced to 0, O cast to ``out_dtype``.
+    ``p_bf16`` rounds p to bf16 before the P V product, as the tensor-core
+    K1 and K4 do (l still sums the f32 p): the tests hold that numerics
+    against the JAX kernel; no wrapper passes it."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     qf = q.permute(0, 2, 1, 3).float() * scale          # (b, h, s, d)
@@ -119,6 +123,8 @@ def _fwd_blocks(q, k, v, mask_fn: MaskFn, out_dtype: torch.dtype
             p = torch.where(mask, p, 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if p_bf16:
+            p = p.bfloat16().float()
         acc = acc * alpha + p @ vb
         m = m_new
     l_safe = torch.clamp_min(l, 1e-30)
@@ -138,10 +144,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_fn(name: str = "dpt_flash_fwd"):
     """``dpt_flash_fwd`` (K1) or ``dpt_flash_fwd_pos`` (K4, which also
-    takes the two position pointers and kv_valid)."""
+    takes the two position pointers and kv_valid), or their tensor-core
+    ``_mma`` entry points, which take the same arguments."""
     fn = getattr(build.load("flash_fwd"), name)
     if fn.argtypes is None:
-        n_ptr, n_int = (5, 13) if name == "dpt_flash_fwd" else (7, 14)
+        n_ptr, n_int = (7, 14) if "_pos" in name else (5, 13)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
@@ -206,21 +213,27 @@ def _check_kernel_inputs(kernel: str, tensors) -> list:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, pos: Optional[Pos] = None,
-            wrapper=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            causal: bool, pos: Optional[Pos] = None, wrapper=None,
+            tensor_core: Optional[bool] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1, or K4 when ``pos`` = (q_pos, k_pos, kv_valid) is given (O in
-    f32); counts the launch on ``wrapper`` once it returned 0."""
+    f32), on the route of ``tensor_core_route`` unless ``tensor_core``
+    names one (forcing the tensor cores on a call that does not fit them
+    raises); counts the launch on ``wrapper``, and a tensor-core one also
+    in its ``tensor_core_launches``, once it returned 0."""
     b, s, h, d = q.shape
     name = "dpt_flash_fwd" if pos is None else "dpt_flash_fwd_pos"
     strides = _check_kernel_inputs(name[4:], (("q", q), ("k", k),
                                               ("v", v)))
+    tensor_core = _pick_route(tensor_core, (q, k, v),
+                              kernel="K1" if pos is None else "K4")
     o = torch.empty((b, s, h, d),
                     dtype=q.dtype if pos is None else torch.float32,
                     device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     if s == 0 or b * h == 0:
         return o, lse
-    fn = _kernel_fn(name)
+    fn = _kernel_fn(name + "_mma" if tensor_core else name)
     extra = () if pos is None else (
         pos[0].data_ptr(), pos[1].data_ptr(),
         _INT_MAX if pos[2] is None else int(pos[2]))
@@ -231,18 +244,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 1.0 / math.sqrt(d), int(bool(causal)),
                 _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"{name[4:]} kernel launch failed: CUDA error "
-                           f"{rc} at q {tuple(q.shape)} {q.dtype}")
-    (wrapper or flash_attention_fwd).launches += 1
+        route = "tensor-core" if tensor_core else "scalar"
+        raise RuntimeError(f"{name[4:]} {route} kernel launch failed: CUDA "
+                           f"error {rc} at q {tuple(q.shape)} {q.dtype}")
+    wrapper = wrapper or flash_attention_fwd
+    wrapper.launches += 1
+    if tensor_core:
+        wrapper.tensor_core_launches += 1
     return o, lse
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, H, D) q/k/v -> (o, lse).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (and count the launch in
-    ``flash_attention_fwd.launches``) or raise."""
+    """Kernel K1: (B, S, H, D) q/k/v -> (o, lse).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel of
+    ``tensor_core_route``'s route (and count the launch in
+    ``flash_attention_fwd.launches``, and a tensor-core one also in
+    ``flash_attention_fwd.tensor_core_launches``) or raise."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
@@ -253,6 +272,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tensor_core_launches = 0
 
 
 # -- backward: K2 (dq) and K3 (dk, dv) ------------------------------------
@@ -330,12 +350,12 @@ def _whole_16_byte_rows(strides, ptrs, itemsizes) -> bool:
 
 
 def tensor_core_route(dtype: torch.dtype, d: int, strides, ptrs) -> bool:
-    """The rule between K2's and K3's routes: True for the tensor-core
-    kernels (bf16, D in ``MMA_HEAD_DIMS``, every tensor with a unit head
-    stride, (batch, seq, head) strides that are multiples of 8 and a
-    16-byte-aligned data pointer, so every row is whole 16-byte copies),
-    False for the scalar ones.  ``strides`` and ``ptrs``: those of q, k,
-    v, dO (and O for K2)."""
+    """The rule between the routes of K1, K4, K2 and K3: True for the
+    tensor-core kernels (bf16, D in ``MMA_HEAD_DIMS``, every tensor with a
+    unit head stride, (batch, seq, head) strides that are multiples of 8
+    and a 16-byte-aligned data pointer, so every row is whole 16-byte
+    copies), False for the scalar ones.  ``strides`` and ``ptrs``: those
+    of q, k and v (K1, K4), and dO (K3), and O (K2)."""
     return (dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
             and _whole_16_byte_rows(strides, ptrs, [2] * len(strides)))
 
@@ -359,10 +379,11 @@ def partial_tensor_core_route(dtypes, d: int, strides, ptrs) -> bool:
 
 
 def _pick_route(tensor_core: Optional[bool], tensors,
-                positional: bool = False) -> bool:
-    """The rule's route for ``tensors`` (q, k, v, dO[, O]) of K2/K3, or
-    with ``positional`` of K2p/K3p, or the one ``tensor_core`` forces;
-    forcing the tensor cores on a call that does not fit them raises."""
+                positional: bool = False, kernel: str = "K2/K3") -> bool:
+    """The rule's route for ``tensors`` (q, k, v[, dO[, O]]) of ``kernel``
+    (K1, K4: q, k, v; K2/K3), or with ``positional`` of K2p/K3p, or the
+    one ``tensor_core`` forces; forcing the tensor cores on a call that
+    does not fit them raises."""
     q = tensors[0]
     strides = [t.stride() for t in tensors]
     ptrs = [t.data_ptr() for t in tensors]
@@ -373,7 +394,8 @@ def _pick_route(tensor_core: Optional[bool], tensors,
         fits = tensor_core_route(q.dtype, q.shape[3], strides, ptrs)
     if tensor_core and not fits:
         what = ("K2p/K3p take bfloat16 q, k, v (K2p: float32 dO and O; "
-                "K3p: bfloat16 dO)" if positional else "K2/K3 take bfloat16")
+                "K3p: bfloat16 dO)" if positional
+                else f"{kernel} take{'' if '/' in kernel else 's'} bfloat16")
         raise ValueError(f"the tensor-core {what} at D in {MMA_HEAD_DIMS} "
                          f"with 16-byte-aligned rows; q {tuple(q.shape)} "
                          f"{q.dtype} does not fit")
@@ -610,9 +632,10 @@ def flash_attention_partial_fwd(q: torch.Tensor, k: torch.Tensor,
     """Kernel K4: (o f32, lse) of q against one K/V block, masked by the
     (S,) int32 global positions of q's rows and k's keys and by
     ``kv_valid`` (keys at positions >= kv_valid; None for none).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``flash_attention_partial_fwd.launches``) or
-    raise."""
+    tensors take the plain version; CUDA tensors launch the kernel of
+    ``tensor_core_route``'s route (and count the launch in
+    ``flash_attention_partial_fwd.launches``, and a tensor-core one also
+    in ``flash_attention_partial_fwd.tensor_core_launches``) or raise."""
     _check(q, k, v)
     _check_pos(q, q_pos, k_pos, kv_valid)
     if _device_kind(q) == "cpu":
@@ -623,6 +646,7 @@ def flash_attention_partial_fwd(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_partial_fwd.launches = 0
+flash_attention_partial_fwd.tensor_core_launches = 0
 
 
 def partial_delta(o: torch.Tensor, do: torch.Tensor,

@@ -7,6 +7,8 @@ the world of one:
     python tests/_torch_ring_child.py attn IN.pt OUT.pt [--device cpu|cuda]
     python tests/_torch_ring_child.py vit IN.pt OUT.pt [--device cpu|cuda]
         [--model-parallel M]
+    python tests/_torch_ring_child.py logits IN.pt OUT.pt [--device ...]
+        [--model-parallel M]
 
 ``attn``: the world is one ring (model_parallel = world).  IN.pt holds a
 list of cases, each a dict of q, k, v and the output's cotangent w (numpy
@@ -27,6 +29,12 @@ more steps of the last batch (host clock, synchronized) and N under
 torch.profiler, and writes the per-step wall and device time, kernel
 count, the time of the ring kernels and of the host copies, and K2p's and
 K3p's launches (on either route, and on the tensor cores).
+
+``logits``: IN.pt holds the vit's ``arch``, ``attention``, ``precision``,
+``params`` (a state dict), uint8 ``images`` with their ``mean`` and
+``std``, and a ``batch`` size.  Every rank runs the eval transform and the
+forward on all the rows, ``batch`` at a time, and writes the float32
+logits and its kernel launches to OUT.pt.
 
 ``tests/test_torch_ring.py`` runs it on the CPU (against the JAX
 package), ``chip_smoke.py`` on the card (against one process's flash and
@@ -112,9 +120,12 @@ def profile_steps(step, n: int) -> dict:
     return {"wall_ms": wall_ms,
             "device_ms": us() / 1e3,
             "kernels": sum(e.count for e in events) / n,
-            # K2p and K3p on either route (the tensor-core ones are *_mma_*)
-            "k4_us": us("flash_fwd_kernel"), "k2p_us": us("flash_dq_"),
+            # K4, K2p and K3p on either route (the tensor-core kernels are
+            # *_mma_*)
+            "k4_us": us("flash_fwd_"), "k2p_us": us("flash_dq_"),
             "k3p_us": us("flash_dkv_"), "memcpy_us": us("Memcpy"),
+            "k4_launches": count("flash_fwd_"),
+            "k4_mma_launches": count("flash_fwd_mma"),
             "k2p_launches": count("flash_dq_"),
             "k3p_launches": count("flash_dkv_"),
             "k2p_mma_launches": count("flash_dq_mma"),
@@ -160,9 +171,31 @@ def run_vit(spec, device, mesh) -> dict:
     return result
 
 
+def run_logits(spec, device, mesh) -> dict:
+    from distributedpytorch_tpu_torch.data import augment
+
+    policy = PRESETS[spec["precision"]]
+    model = ViT(dtype=policy.compute_dtype, device=device, num_classes=10,
+                attention_fn=attention_fn(spec["attention"], mesh),
+                **spec["arch"])
+    model.load_state_dict(spec["params"])
+    before = kernel_launches()
+    images, n = spec["images"], spec["batch"]
+    out = []
+    with torch.inference_mode():
+        for i in range(0, len(images), n):
+            x = augment.eval_transform(
+                torch.from_numpy(images[i:i + n]).to(device), spec["mean"],
+                spec["std"], 28, out_dtype=policy.compute_dtype)
+            out.append(model(x).float().cpu())
+    return {"logits": torch.cat(out).numpy(),
+            "launches": {k: v - before[k]
+                         for k, v in kernel_launches().items()}}
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("mode", choices=("attn", "vit"))
+    p.add_argument("mode", choices=("attn", "vit", "logits"))
     p.add_argument("inp")
     p.add_argument("out")
     p.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
@@ -181,6 +214,8 @@ def main() -> None:
     spec = torch.load(args.inp, weights_only=False)
     if args.mode == "attn":
         result = {"cases": run_attn(spec, device, mesh)}
+    elif args.mode == "logits":
+        result = run_logits(spec, device, mesh)
     else:
         result = run_vit(spec, device, mesh)
     result.update(rank=runtime.process_index(), world=runtime.world_size(),

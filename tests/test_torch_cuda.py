@@ -192,9 +192,58 @@ def test_partial_backward_tensor_core_route_matches_plain_on_card():
             assert close(dv, sum_do, TOL[dt])
 
 
+def test_forward_tensor_core_route_matches_plain_on_card():
+    """bf16 K1 and K4 on the tensor cores: K1 at the vit's shape and at a
+    causal, ragged S = 200 with D = 64, K4 at the vit's ring shard (rank 1's
+    queries against rank 0's keys, kv_valid 49) and at a causal future
+    block (every key masked).  The rule picks the tensor cores, the
+    counters say so, two calls are bit-identical, and both routes (the
+    scalar one forced) agree with the plain version: O within 2e-2 (K4's
+    scalar route, whose p stays f32: 2e-5) and lse within 1e-4; a row with
+    no key gives O = 0 and lse = -1e30."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dt = torch.bfloat16
+    cases = ((64, 49, 4, 32, False, None), (2, 200, 2, 64, True, None),
+             (128, 25, 4, 32, False, (1, 0, 49)),
+             (8, 128, 4, 64, True, (0, 1, None)))
+    for b, s, h, d, causal, ring in cases:
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                          device="cuda").to(dt)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        if ring is None:
+            wrapper, pos = tfa.flash_attention_fwd, None
+            call = (lambda: tfa.flash_attention_fwd(q, k, v, causal))
+            plain = tfa.flash_attention_plain(q, k, v, causal)
+        else:
+            base = torch.arange(s, dtype=torch.int32, device="cuda")
+            pos = (base + ring[0] * s, base + ring[1] * s, ring[2])
+            wrapper = tfa.flash_attention_partial_fwd
+            call = (lambda: tfa.flash_attention_partial_fwd(
+                q, k, v, pos[0], pos[1], causal, pos[2]))
+            plain = tfa.flash_attention_partial_plain(q, k, v, *pos[:2],
+                                                      causal, pos[2])
+        assert tfa._pick_route(None, (q, k, v))
+        before = (wrapper.launches, wrapper.tensor_core_launches)
+        (o, lse), again = call(), call()
+        scalar = tfa._launch(q, k, v, causal, pos, wrapper,
+                             tensor_core=False)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.tensor_core_launches) == (
+            before[0] + 3, before[1] + 2)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        for (x_o, x_lse), tol in (((o, lse), 2e-2),
+                                  (scalar, 2e-2 if ring is None else 2e-5)):
+            assert (x_o.float() - plain[0].float()).abs().max().item() <= tol
+            assert (x_lse - plain[1]).abs().max().item() <= 1e-4
+        if ring is not None and causal:
+            # every key masked
+            assert not o.any() and (lse == -1e30).all()
+
+
 def test_train_step_runs_each_kernel_once_per_block():
     """One bf16 train step of the full-width vit: 4 K1, 4 K2 and 4 K3
-    launches, K2 and K3 on the tensor cores, finite gradients on every
+    launches, all on the tensor cores, finite gradients on every
     parameter."""
     _need_card()
     policy = PRESETS["bf16"]
@@ -206,7 +255,8 @@ def test_train_step_runs_each_kernel_once_per_block():
                                            dtype=np.uint8)).cuda()
     labels = torch.from_numpy(rng.integers(0, 10, 64)).cuda()
     before = kernel_launches()
-    tc_before = (tfa.flash_attention_dq.tensor_core_launches,
+    tc_before = (tfa.flash_attention_fwd.tensor_core_launches,
+                 tfa.flash_attention_dq.tensor_core_launches,
                  tfa.flash_attention_dkv.tensor_core_launches)
     _, m = engine.train_step(state, images, labels,
                              torch.ones(64, dtype=torch.bool, device="cuda"),
@@ -216,9 +266,10 @@ def test_train_step_runs_each_kernel_once_per_block():
     assert got == {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4,
                    "conv_dw": 0, "flash_fwd_pos": 0, "flash_dq_pos": 0,
                    "flash_dkv_pos": 0}
-    assert (tfa.flash_attention_dq.tensor_core_launches - tc_before[0],
-            tfa.flash_attention_dkv.tensor_core_launches - tc_before[1]) \
-        == (4, 4)
+    assert (tfa.flash_attention_fwd.tensor_core_launches - tc_before[0],
+            tfa.flash_attention_dq.tensor_core_launches - tc_before[1],
+            tfa.flash_attention_dkv.tensor_core_launches - tc_before[2]) \
+        == (4, 4, 4)
     assert torch.isfinite(m["loss"]).item()
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name

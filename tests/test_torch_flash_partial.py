@@ -15,7 +15,11 @@ the gradients; bf16 inputs, the same on O and lse (both widen bf16
 exactly and compute in f32) and 2e-2 of the largest gradient (one bf16
 rounding of each gradient).  A fully masked row gives O = 0 and lse =
 -1e30 in both, and its dO reaches dv of every masked key in both (the TPU
-``_dkv_kernel`` does not mask p again before dv)."""
+``_dkv_kernel`` does not mask p again before dv).  K4's tensor-core
+numerics (p rounded to bf16 before the P V product) are held to the JAX
+kernel at chip_smoke.py's ``TOL_O_POS_TC``, 2e-2 on O (the rounding moves
+O by at most about 2^-9 max|v|, and the ring casts its merged O to bf16
+anyway), and 1e-4 on lse (``TOL_LSE``: the rounding leaves lse alone)."""
 
 import jax
 import jax.numpy as jnp
@@ -135,6 +139,32 @@ def test_k4_output_and_lse_match_jax(results, name, dtype):
     np.testing.assert_allclose(plse, jlse, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_k4_tensor_core_numerics_match_jax(results, name):
+    """The plain version with the tensor-core route's rounding of p
+    (``_fwd_blocks(p_bf16=True)``) on the bf16 shard against the JAX
+    kernel: O within 2e-2, lse within 1e-4, and a row whose keys are all
+    masked gives O = 0 and lse = -1e30 exactly."""
+    (jo, jlse, _), _, args = results[(name, "bfloat16")]
+    q, k, v, _, _, q_pos, k_pos, causal, kv_valid, _ = args
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    qp, kp = torch.from_numpy(q_pos), torch.from_numpy(k_pos)
+    o, lse = tfa._fwd_blocks(tq, tk, tv,
+                             tfa._pos_mask(qp, kp, causal, kv_valid),
+                             torch.float32, p_bf16=True)
+    np.testing.assert_allclose(o.numpy(), jo, atol=2e-2, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=1e-4, rtol=0)
+    keep = np.ones((BLOCK, BLOCK), bool)
+    if causal:
+        keep &= q_pos[:, None] >= k_pos[None, :]
+    if kv_valid is not None:
+        keep &= (k_pos < kv_valid)[None, :]
+    dead = ~keep.any(axis=1)
+    assert not o.numpy()[:, dead].any()
+    assert (lse.numpy().reshape(B, H, BLOCK)[:, :, dead]
+            == np.float32(-1e30)).all()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", [c[0] for c in CASES])
 def test_k2p_k3p_gradients_match_jax_vjp(results, name, dtype):
@@ -186,8 +216,7 @@ def test_wrappers_on_cpu_equal_the_plain_versions_and_count_nothing(results):
     qp, kp = torch.from_numpy(q_pos), torch.from_numpy(k_pos)
     counters = (tfa.flash_attention_partial_fwd, tfa.flash_attention_partial_dq,
                 tfa.flash_attention_partial_dkv)
-    before = [(c.launches, getattr(c, "tensor_core_launches", 0))
-              for c in counters]
+    before = [(c.launches, c.tensor_core_launches) for c in counters]
     o, lse = tfa.flash_attention_partial_fwd(q, k, v, qp, kp, causal,
                                              kv_valid)
     po, plse = tfa.flash_attention_partial_plain(q, k, v, qp, kp, causal,
@@ -205,7 +234,10 @@ def test_wrappers_on_cpu_equal_the_plain_versions_and_count_nothing(results):
                                            causal, kv_valid)
     for got, again, ref in zip((dq, dk, dv), both, want):
         assert torch.equal(got, ref) and torch.equal(again, ref)
-    assert [(c.launches, getattr(c, "tensor_core_launches", 0))
+    # bf16 at the vit's shard would take the tensor cores on the card
+    tfa.flash_attention_partial_fwd(q.bfloat16(), k.bfloat16(),
+                                    v.bfloat16(), qp, kp, causal, kv_valid)
+    assert [(c.launches, c.tensor_core_launches)
             for c in counters] == before
     # delta = rowsum(dO * O) - dlse, per (b*h, s) row
     want_delta = (torch.einsum("bshd,bshd->bhs", do, o).reshape(B * H, -1)

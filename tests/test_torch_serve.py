@@ -293,7 +293,9 @@ def test_http_round_trip_on_cpu(tmp_path):
     assert all(0 <= b["label"] < 10 and 0 < b["confidence"] <= 1
                for _, b in answers)
     assert "stopped after answering 3 requests" in out
-    assert "flash_fwd launches 0 (0 in warm-up)" in out   # CPU: plain path
+    # CPU: the plain path, no launch on either route
+    assert "flash_fwd launches 0 (0 in warm-up), 0 on the tensor cores" \
+        in out
     report = jax_telemetry.report(str(tmp_path / "rsl"))
     assert "serving: 3 requests — 3 answered" in report
 

@@ -464,7 +464,12 @@ def test_train_writes_the_jax_file_names_and_log_lines(trained):
             r"  Throughput  \| [\d,]+ samples/s/chip \(1 chip\)",
             r"epoch:0001: model saved to .*checkpoint-mnist-vit-001\.ckpt",
             r"train: kernel launches flash_fwd 0, flash_dq 0, flash_dkv 0, "
-            r"conv_dw 0 over 8 train steps and 8 eval batches"):
+            r"conv_dw 0 over 8 train steps and 8 eval batches",
+            # every kernel has a tensor-core route; the CPU takes none
+            r"train: tensor-core launches flash_fwd 0, flash_dq 0, "
+            r"flash_dkv 0, conv_dw 0 over 8 train steps and 8 eval batches",
+            r"train: ring tensor-core launches flash_fwd_pos 0, "
+            r"flash_dq_pos 0, flash_dkv_pos 0 over 8 train steps"):
         assert re.search(pattern, log), pattern
     payload = ckpt.read_checkpoint(str(rsl / "checkpoint-mnist-vit-001.ckpt"))
     assert payload["format_version"] == 2 and payload["epoch"] == 1
