@@ -6,7 +6,12 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 or, to run some phases only (numbers of the list below; phase 1 always
-runs, and phases 7 and 8 bring in phase 6, whose model they test):
+runs, and phases 7 and 8 bring in phase 6, whose model they test), for
+example the zoo's:
+
+    python3 chip_smoke.py --phases 21,22,23
+
+or the K5 slice's:
 
     python3 chip_smoke.py --phases 10,12,15
 
@@ -95,7 +100,7 @@ result.  Phases, each printing its lines before the last:
      stated spread;
  13. the reference's job: ``torchrun --standalone --nproc_per_node 1 -m
      distributedpytorch_tpu_torch train`` with the default model (resnet
-     at 224) on NCCL for one epoch of phase 6's corpus (225 steps), with
+     at 224) on NCCL for one epoch of phase 22's corpus (18 steps), with
      ``train --debug`` of mlp and cnn beside it, then ``test -f`` on its
      best model (equal to an in-process eval);
  14. two ranks on the one card (gloo over CUDA tensors): three f32 steps
@@ -146,7 +151,32 @@ result.  Phases, each printing its lines before the last:
      share, K4/K2p/K3p time a step and a launch, their launches a step
      (and how many on the tensor cores), and the host copies of the gloo
      transport;
- 21. the card's name and power limit again, one ``{"kernels": [...]}``
+ 21. the rest of the torchvision zoo on the card against the CPU:
+     alexnet, vgg11_bn, squeezenet1_0, densenet121 and inception_v3 at
+     full width and their canonical sizes (224; 299 for inception),
+     batch 4, SEED's weights, the same augmented batch and dropout masks
+     (those ``Engine.train_step`` draws), TF32 off: the f32 train-mode
+     logits (and inception's aux logits), the gradients of one step in
+     f64 compute (and in f32, held for alexnet and squeezenet and
+     printed for the BatchNorm models, whose f32 backward amplifies the
+     devices' last-bit differences) and the BatchNorm statistics;
+ 22. the zoo's main path: ``train --model X -e 1`` of the five on the
+     first 1,280 train and 128 test rows of the synthetic corpus as
+     MNIST files (18 steps of 64, 2 validation batches), with ``train
+     --model resnet --use-pretrained --pretrained-path F
+     --feature-extract`` (F a torchvision-layout resnet18 state_dict from
+     ``tests/_torch_zoo.py``) beside them, six processes at once: every
+     logged loss finite, the parameters moved, no kernel of the port
+     launched, the pretrained backbone bit-identical to the file's and
+     the head moved; then ``test -f`` on each best file (equal to an
+     in-process eval) beside ``serve`` of inception's and vgg's, one wave
+     of 16 concurrent requests each, every answer held against the
+     in-process predict step at its bucket as in phase 3;
+ 23. profiles of the five train steps (batch 64, bf16, cuDNN
+     deterministic as ``train`` sets it, 5 steps under torch.profiler):
+     wall and device ms per step, kernels per step, the idle share and
+     the top device operations;
+ 24. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line, then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Any failed check exits non-zero before
@@ -573,56 +603,61 @@ def post(port: int, body: bytes, timeout: float = 60.0):
         return e.code, json.loads(e.read()), time.perf_counter() - t0
 
 
-def burst(port: int, images, waves: int) -> list:
-    """BURST_THREADS clients, each sending ``waves`` requests; every wave
+def burst(port: int, images, waves: int,
+          threads: int = BURST_THREADS) -> list:
+    """``threads`` clients, each sending ``waves`` requests; every wave
     starts on a barrier so a full bucket of 64 queues at once.  Returns
     (row, status, body, client_s) per request."""
     bodies = [json.dumps({"image": img.tolist()}).encode() for img in images]
-    barrier = threading.Barrier(BURST_THREADS)
+    barrier = threading.Barrier(threads)
     out = [None] * len(bodies)
 
     def client(t):
         for w in range(waves):
-            i = w * BURST_THREADS + t
+            i = w * threads + t
             barrier.wait(timeout=120)
             try:
                 out[i] = (i,) + post(port, bodies[i])
             except OSError as e:  # reported with the failed answers below
                 out[i] = (i, None, {"error": repr(e)}, 0.0)
 
-    threads = [threading.Thread(target=client, args=(t,))
-               for t in range(BURST_THREADS)]
-    for th in threads:
+    clients = [threading.Thread(target=client, args=(t,))
+               for t in range(threads)]
+    for th in clients:
         th.start()
-    for th in threads:
+    for th in clients:
         th.join(timeout=300)
-    if any(th.is_alive() for th in threads) or any(o is None for o in out):
+    if any(th.is_alive() for th in clients) or any(o is None for o in out):
         fail("the HTTP burst did not complete")
     return out
 
 
 def reference_predictions(ckpt_path: str, images, served_bucket,
-                          device: str):
-    """The in-process predict step on the same rows, each row in a batch
-    of the bucket the server answered it from (zero-padded, as the server
-    pads), plus each row's softmax (to tell a tie from a wrong label)."""
+                          device: str, name: str = "vit"):
+    """The in-process predict step of the ``name`` checkpoint on the same
+    rows, each row in a batch of the bucket the server answered it from
+    (zero-padded, as the server pads), plus each row's softmax (to tell a
+    tie from a wrong label)."""
     import numpy as np
     import torch
 
     from distributedpytorch_tpu_torch import checkpoint as ckpt
     from distributedpytorch_tpu_torch.data import augment
     from distributedpytorch_tpu_torch.data.datasets import load_dataset
-    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.engine import Predictor
 
     ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
                       synthetic_fallback=True)
     policy = PRESETS["bf16"]
-    model = get_model("vit", ds.nb_classes, policy, attention="flash",
+    size = get_model_input_size(name)
+    model = get_model(name, ds.nb_classes, policy,
+                      attention="flash" if name == "vit" else "full",
                       device=device)
     ckpt.restore_for_serving(ckpt_path, model)
-    pred = Predictor(model, ds.mean, ds.std, 28, policy, device)
+    pred = Predictor(model, ds.mean, ds.std, size, policy, device)
     n = len(images)
     labels = np.zeros(n, np.int64)
     confs = np.zeros(n, np.float64)
@@ -639,7 +674,7 @@ def reference_predictions(ckpt_path: str, images, served_bucket,
             with torch.inference_mode():
                 x = augment.eval_transform(
                     torch.from_numpy(padded).to(device), ds.mean, ds.std,
-                    28, out_dtype=policy.compute_dtype)
+                    size, out_dtype=policy.compute_dtype)
                 probs[idx] = torch.softmax(model(x).float(), dim=-1)[
                     :len(idx)].cpu().numpy()
     return labels, confs, probs
@@ -678,7 +713,8 @@ def check_logits(ckpt_path: str, images, device: str) -> None:
                  f"{name}: {err}")
 
 
-def start_server(ckpt_path: str, n: int, flush_ms: int, device: str):
+def start_server(ckpt_path: str, n: int, flush_ms: int, device: str,
+                 attention: str = "flash"):
     """A ``serve`` subprocess that stops after ``n`` answers (a fresh
     process: its K1 count starts at 0 right before the main path and is
     read from its log right after); returns (port, proc, lines, the
@@ -687,7 +723,7 @@ def start_server(ckpt_path: str, n: int, flush_ms: int, device: str):
     cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", "serve",
            "-d", os.path.join(WORK, "data"),
            "--rsl_path", os.path.join(WORK, "rsl"), "-f", ckpt_path,
-           "--attention", "flash", "--synthetic-fallback",
+           "--attention", attention, "--synthetic-fallback",
            "--serve-buckets", ",".join(str(b) for b in BUCKETS),
            "--serve-max-requests", str(n), "--serve-port", str(port),
            "--serve-max-latency-ms", str(flush_ms), "--device", device]
@@ -708,16 +744,17 @@ def start_server(ckpt_path: str, n: int, flush_ms: int, device: str):
     return port, proc, lines, listening
 
 
-def serve_burst(server, images, waves: int) -> tuple:
-    """Waits for ``server`` to listen, sends ``waves`` waves of requests,
-    waits for it to exit; returns (answers, burst seconds)."""
+def serve_burst(server, images, waves: int,
+                threads: int = BURST_THREADS) -> tuple:
+    """Waits for ``server`` to listen, sends ``waves`` waves of ``threads``
+    requests, waits for it to exit; returns (answers, burst seconds)."""
     port, proc, lines, listening = server
     t0 = time.perf_counter()
     while not listening.wait(0.5):
         if proc.poll() is not None or time.perf_counter() - t0 > 600:
             fail("the server did not start:\n" + "\n".join(lines[-40:]))
     t_burst = time.perf_counter()
-    answers = burst(port, images, waves)
+    answers = burst(port, images, waves, threads)
     burst_s = time.perf_counter() - t_burst
     try:
         rc = proc.wait(timeout=120)
@@ -871,8 +908,7 @@ def phase_profile(ckpt_path: str, device: str = "cuda") -> None:
                 pred.predict_step(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     pred.predict_step(x)
                 torch.cuda.synchronize()
@@ -1213,22 +1249,39 @@ VIT_DATA = os.path.join(WORK, "vit_data")
 
 
 def write_vit_data() -> None:
-    """VIT_TRAIN_ROWS train and VIT_TEST_ROWS test rows of the synthetic
-    corpus written to VIT_DATA/MNIST/raw in the IDX format, so that
-    ``train`` reads a smaller MNIST."""
+    write_corpus(VIT_DATA, VIT_TRAIN_ROWS, VIT_TEST_ROWS)
+
+
+# Phases 13 and 22's corpus: 1,152 train rows (18 steps of 64), 128
+# validation rows (2 batches) and 128 test rows (2 batches), cut from
+# phase 6's for the run's time limit.
+ZOO_TRAIN_ROWS = 1280
+ZOO_TEST_ROWS = 128
+ZOO_DATA = os.path.join(WORK, "zoo_data")
+
+
+def write_zoo_data() -> None:
+    if not os.path.isdir(ZOO_DATA):
+        write_corpus(ZOO_DATA, ZOO_TRAIN_ROWS, ZOO_TEST_ROWS)
+
+
+def write_corpus(root: str, train_rows: int, test_rows: int) -> None:
+    """``train_rows`` train and ``test_rows`` test rows of the synthetic
+    corpus written to ROOT/MNIST/raw in the IDX format, so that ``train``
+    reads a smaller MNIST."""
     import struct
 
     import numpy as np
 
     from distributedpytorch_tpu_torch.data import io
 
-    raw = os.path.join(VIT_DATA, "MNIST", "raw")
+    raw = os.path.join(root, "MNIST", "raw")
     os.makedirs(raw, exist_ok=True)
     tr_x, tr_y, te_x, te_y = io.make_synthetic()
-    for name, a in (("train-images-idx3-ubyte", tr_x[:VIT_TRAIN_ROWS]),
-                    ("train-labels-idx1-ubyte", tr_y[:VIT_TRAIN_ROWS]),
-                    ("t10k-images-idx3-ubyte", te_x[:VIT_TEST_ROWS]),
-                    ("t10k-labels-idx1-ubyte", te_y[:VIT_TEST_ROWS])):
+    for name, a in (("train-images-idx3-ubyte", tr_x[:train_rows]),
+                    ("train-labels-idx1-ubyte", tr_y[:train_rows]),
+                    ("t10k-images-idx3-ubyte", te_x[:test_rows]),
+                    ("t10k-labels-idx1-ubyte", te_y[:test_rows])):
         with open(os.path.join(raw, name), "wb") as f:
             f.write(struct.pack(">HBB", 0, 0x08, a.ndim))
             f.write(struct.pack(">" + "I" * a.ndim, *a.shape))
@@ -1393,8 +1446,7 @@ def phase_train_profile() -> None:
             step(5 + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(reps):
                 step(5 + reps + i)
             torch.cuda.synchronize()
@@ -1884,14 +1936,15 @@ def eval_accuracy(ckpt_path: str, name: str, data: str = "") -> tuple:
 
 
 def phase_reference_job() -> None:
-    """On phase 6's corpus (cut from the whole synthetic one for the run's
-    time limit: 225 steps instead of 844).  The two short trainings run
-    beside the resnet's (none of the three is timed here), and `test`
+    """On phase 22's corpus (cut from the whole synthetic one for the
+    run's time limit: 18 steps instead of 844).  The two short trainings
+    run beside the resnet's (none of the three is timed here), and `test`
     after it."""
+    write_zoo_data()
     rsl = os.path.join(WORK, "resnet_rsl")
     (wall, log), *debug = finish_all(
         [start_cli(["train", "-e", "1"], rsl, launcher=TORCHRUN,
-                   data=VIT_DATA)]
+                   data=ZOO_DATA)]
         + [start_cli(["train", "--model", name, "--debug", "-e", "1"],
                      os.path.join(WORK, f"{name}_debug"))
            for name in ("mlp", "cnn")])
@@ -1909,14 +1962,14 @@ def phase_reference_job() -> None:
         f"train pass {sps:,.0f} samples/s/chip ({sps / TRAIN_BATCH:.1f} "
         f"steps/s); mean train loss {train_loss:.5f}, validation acc "
         f"{valid_acc:.2f}%; launches {launches}")
-    if steps != math.ceil(int(VIT_TRAIN_ROWS * 0.9) / TRAIN_BATCH) \
+    if steps != math.ceil(int(ZOO_TRAIN_ROWS * 0.9) / TRAIN_BATCH) \
             or any(launches.values()):
         fail(f"resnet train ran {steps} steps with launches {launches}")
     best = os.path.join(rsl, "bestmodel-mnist-resnet.ckpt")
     _, tlog = run_cli(["test", "-f", best], os.path.join(WORK, "resnet_test"),
-                      launcher=TORCHRUN, data=VIT_DATA)
+                      launcher=TORCHRUN, data=ZOO_DATA)
     acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", tlog).group(1)
-    acc_here, correct, n = eval_accuracy(best, "resnet", VIT_DATA)
+    acc_here, correct, n = eval_accuracy(best, "resnet", ZOO_DATA)
     say(f"resnet: `torchrun test -f` accuracy {acc_cli}%; in-process eval "
         f"{acc_here}% ({correct}/{n})")
     if acc_cli != acc_here:
@@ -2086,8 +2139,7 @@ def phase_cnn_profile() -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
         k5_before = conv.conv3x3_dw.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(reps):
                 step(5 + reps + i)
             torch.cuda.synchronize()
@@ -2775,8 +2827,391 @@ def phase_ring_profile() -> None:
 
 # Phases that use another phase's output pull it in: 7 and 8 (one
 # function) test phase 6's model.
+# -- phases 21-23: the rest of the torchvision zoo -------------------------
+
+ZOO = ("alexnet", "vgg", "squeezenet", "densenet", "inception")
+ZOO_PARITY_BATCH = 4
+# Phase 21, the card against the CPU on the same weights, batch, affine
+# draws and dropout masks, TF32 off, each tensor relative to its largest
+# value.  f32 train-mode logits (and aux logits): TOL_ZOO_LOGITS.  The
+# gradients of sum(logits * w) (+ sum(aux * w'), w a fixed ramp, so that
+# both devices back-propagate the same exact cotangent): in f64 compute
+# (f32 parameters, whose gradients round to f32) TOL_ZOO_GRAD_F64 for all
+# five; in f32 TOL_ZOO_GRAD_F32 for alexnet and squeezenet, which have no
+# BatchNorm (a ReLU or max-pool decision within rounding of a tie can
+# flip between the devices, as in phase 11: 6.6e-3 seen on alexnet).
+# The f32 backward of the three BatchNorm models at this batch amplifies
+# the devices' last-bit differences of the forward (on the CPU alone
+# densenet's and inception's f32 gradients lie 2-3% from their f64 ones
+# at the median and up to 37% at the worst parameter; vgg's card vs CPU
+# 4.8e-2; ROADMAP queue 3 entry 8), so their f32 gradient error is
+# printed and not held.  vgg's conv biases feed a train-mode BatchNorm,
+# which cancels them: their gradient is zero up to rounding and is held
+# at the scale of its conv's weight gradient.
+TOL_ZOO_LOGITS = 1e-4
+TOL_ZOO_GRAD_F64 = 1e-6
+TOL_ZOO_GRAD_F32 = 1e-2
+ZOO_F32_GRADS_HELD = ("alexnet", "squeezenet")
+TOL_ZOO_STATS = 1e-4
+
+
+def zoo_rel(name: str, got: dict, want: dict) -> dict:
+    """{key: error relative to the largest wanted value}; vgg's conv
+    biases relative to their conv weight's."""
+    out = {}
+    for key, w in want.items():
+        scale = w
+        if name == "vgg" and re.fullmatch(r"Conv_\d+\.bias", key):
+            scale = want[key.replace(".bias", ".weight")]
+        out[key] = ((got[key].double() - w.double()).abs().max()
+                    / max(scale.double().abs().max().item(), 1e-30)).item()
+    return out
+
+
+def zoo_step(name: str, device: str, policy, x, masks) -> dict:
+    """The registry's ``name`` from SEED's weights (drawn on the CPU): one
+    train-mode forward of the augmented batch ``x`` with the keep
+    ``masks``, and the backward of sum(logits * w) (+ sum(aux * w')).
+    Returns the logits, aux logits, gradients and BatchNorm statistics,
+    on the CPU."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.models.layers import set_dropout_masks
+
+    model = get_model(name, 10, policy, device=device)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.train()
+    set_dropout_masks(model, [m.to(device) for m in masks] or None)
+    out = model(x.to(device))
+    logits, aux = out if isinstance(out, tuple) else (out, None)
+    w = torch.linspace(-1.0, 1.0, logits.shape[1], device=device)
+    loss = (logits * w).sum()
+    if aux is not None:
+        loss = loss + (aux * w.flip(0)).sum()
+    loss.backward()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got = {"logits": logits.detach().cpu()}
+    if aux is not None:
+        got["aux"] = aux.detach().cpu()
+    return {"out": got,
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.cpu() for n, b in model.named_buffers()}}
+
+
+def phase_zoo_parity() -> None:
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    b = ZOO_PARITY_BATCH
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    images = torch.from_numpy(ds.splits["train"].images[:b])
+    u = torch.from_numpy(np.random.default_rng(SEED).random(
+        (b, 5), dtype=np.float32))
+    for name in ZOO:
+        size = get_model_input_size(name)
+        # the masks of Engine.train_step, drawn once on the CPU
+        engine = Engine(get_model(name, 10, PRESETS["f32"], device="cpu"),
+                        cross_entropy, ds.mean, ds.std, size,
+                        PRESETS["f32"], "cpu")
+        masks = engine.draw_dropout_masks(
+            torch.Generator().manual_seed(SEED), b)
+        worst = {}
+        for label, policy in (("f32", PRESETS["f32"]), ("f64", f64_policy())):
+            x = augment.train_transform(
+                images, ds.mean, ds.std, size,
+                augment.affine_from_uniform(u, 28, 28),
+                out_dtype=policy.compute_dtype)
+            card = zoo_step(name, "cuda", policy, x, masks)
+            cpu = zoo_step(name, "cpu", policy, x, masks)
+            errs = {k: zoo_rel(name, card[k], cpu[k])
+                    for k in ("out", "grads", "stats")}
+            worst[label] = {k: max(e.items(), key=lambda t: t[1],
+                                   default=("none", 0.0))
+                            for k, e in errs.items()}
+            worst[label]["finite"] = all(
+                bool(torch.isfinite(t).all()) for k in ("out", "grads")
+                for t in card[k].values())
+        f32, f64 = worst["f32"], worst["f64"]
+        held = name in ZOO_F32_GRADS_HELD
+        say(f"zoo: {name} at {size} px, batch {b}, card vs CPU: f32 "
+            f"logits worst {f32['out'][0]} {f32['out'][1]:.3g} (tol "
+            f"{TOL_ZOO_LOGITS:g}); f32 gradient worst {f32['grads'][0]} "
+            f"{f32['grads'][1]:.3g} "
+            + (f"(tol {TOL_ZOO_GRAD_F32:g})" if held else "(printed only)")
+            + f"; f64 gradient worst {f64['grads'][0]} "
+            f"{f64['grads'][1]:.3g} (tol {TOL_ZOO_GRAD_F64:g}); BatchNorm "
+            f"statistic worst {f32['stats'][0]} {f32['stats'][1]:.3g} (tol "
+            f"{TOL_ZOO_STATS:g}); {len(masks)} dropout masks")
+        if not (f32["finite"] and f64["finite"]
+                and f32["out"][1] <= TOL_ZOO_LOGITS
+                and f64["grads"][1] <= TOL_ZOO_GRAD_F64
+                and f32["stats"][1] <= TOL_ZOO_STATS
+                and f64["stats"][1] <= TOL_ZOO_STATS
+                and (not held or f32["grads"][1] <= TOL_ZOO_GRAD_F32)):
+            fail(f"{name}'s step on the card disagrees with the CPU's: "
+                 f"{worst}")
+        if ("aux" in card["out"]) != (name == "inception"):
+            fail(f"{name}'s train-mode forward returned aux logits "
+                 f"{'aux' in card['out']}")
+
+
+ZOO_SERVED = ("inception", "vgg")   # the 299 path, and dropout in eval
+ZOO_WAVE = 16                       # concurrent requests a served model
+
+
+def zoo_log_losses(log: str) -> list:
+    return [float(x) for x in re.findall(
+        r"(?:mean train loss:|Loss: )(\S+)", log)]
+
+
+def moved_params(ckpt_path: str, name: str) -> tuple:
+    """(parameters that moved from SEED's init, parameters, all finite)
+    of a checkpoint of ``name``."""
+    import torch
+
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    got = ckpt.read_checkpoint(ckpt_path)["state"]["params"]
+    init = get_model(name, 10, PRESETS["bf16"], device="cpu")
+    init.init_weights(torch.Generator().manual_seed(SEED))
+    params = dict(init.named_parameters())
+    moved = sum(not torch.equal(got[n], p.detach())
+                for n, p in params.items())
+    finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+    return moved, len(params), finite
+
+
+def serve_zoo(ckpt_path: str, name: str, server, images) -> int:
+    """One wave of ZOO_WAVE concurrent requests to ``server``; every
+    answer held against the in-process predict step at its bucket, as
+    phase 3 holds the vit's.  Returns the batches served."""
+    import numpy as np
+
+    answers, secs = serve_burst(server, images, 1, ZOO_WAVE)
+    labels = np.array([a[2]["label"] for a in answers])
+    confs = np.array([a[2]["confidence"] for a in answers])
+    served_bucket = np.array([a[2]["bucket"] for a in answers])
+    want, want_conf, probs = reference_predictions(
+        ckpt_path, images, served_bucket, "cuda", name)
+    top2 = np.sort(probs, axis=-1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0]) <= TOL_CONF
+    conf_err = float(np.abs(confs - want_conf).max())
+    launches = batches = None
+    for line in server[2]:
+        m = re.search(r"flash_fwd launches (\d+) \(", line)
+        if m:
+            launches = int(m.group(1))
+        m = re.search(r"answering \d+ requests in (\d+) batches", line)
+        if m:
+            batches = int(m.group(1))
+    say(f"zoo: serve {name}: {len(answers)} answers in {secs:.3f}s, "
+        f"buckets {sorted(set(served_bucket.tolist()))}, {batches} batches; "
+        f"vs in-process predict step at the served bucket: "
+        f"{int((labels == want).sum())}/{len(answers)} labels equal "
+        f"({int(tie.sum())} within {TOL_CONF:g} of a tie), max conf err "
+        f"{conf_err:.3g} (tol {TOL_CONF:g}); K1 launches {launches}")
+    if ((labels != want) & ~tie).any() or conf_err > TOL_CONF \
+            or launches != 0:
+        fail(f"served {name} answers disagree with the in-process predict "
+             f"step, or the server launched K1 ({launches})")
+    return batches
+
+
+def phase_zoo_main_path() -> None:
+    """The five zoo models trained one epoch each by ``train`` (and resnet
+    fine-tuned from a torchvision-layout file with ``--use-pretrained
+    --feature-extract``), all six processes at once; then ``test -f`` on
+    each best file beside ``serve`` of inception's and vgg's."""
+    import torch
+
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import get_model, pretrained
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_zoo import TorchResNet18
+
+    write_zoo_data()
+    weights = os.path.join(WORK, "resnet18-torchvision-layout.pth")
+    torch.manual_seed(SEED)
+    torch.save(TorchResNet18(num_classes=10).state_dict(), weights)
+    rsl = {name: os.path.join(WORK, f"zoo_{name}") for name in ZOO}
+    rsl["pretrained"] = os.path.join(WORK, "zoo_pretrained")
+    runs = [start_cli(["train", "--model", name, "-e", "1"], rsl[name],
+                      data=ZOO_DATA) for name in ZOO]
+    runs.append(start_cli(
+        ["train", "--model", "resnet", "-e", "1", "--use-pretrained",
+         "--pretrained-path", weights, "--feature-extract"],
+        rsl["pretrained"], data=ZOO_DATA))
+    results = dict(zip(ZOO + ("pretrained",), finish_all(runs)))
+    want_steps = math.ceil(int(ZOO_TRAIN_ROWS * 0.9) / TRAIN_BATCH)
+    best = {}
+    for name in ZOO:
+        wall, log = results[name]
+        launches, steps, evals = parse_launches(log, "train")
+        losses = zoo_log_losses(log)
+        best[name] = os.path.join(rsl[name], f"bestmodel-mnist-{name}.ckpt")
+        moved, n_params, finite = moved_params(best[name], name)
+        say(f"zoo: `train --model {name}` ({wall:.1f}s of process wall, "
+            f"six trainings at once): {steps} steps, {evals} eval batches, "
+            f"{len(losses)} logged losses, last train loss "
+            f"{losses[-2] if len(losses) > 1 else None}, validation loss "
+            f"{losses[-1] if losses else None}; {moved}/{n_params} "
+            f"parameters moved; launches {launches}")
+        if steps != want_steps or not losses or not all(
+                map(math.isfinite, losses)) or not finite or moved == 0 \
+                or any(launches.values()):
+            fail(f"{name}'s train run: {steps} steps, losses {losses}, "
+                 f"{moved} parameters moved, finite {finite}, launches "
+                 f"{launches}")
+
+    # --use-pretrained --feature-extract: the backbone as loaded, the head
+    # moved
+    _, log = results["pretrained"]
+    if f"pretrained backbone loaded from {weights}" not in log:
+        fail("train --use-pretrained did not log its backbone")
+    loaded = get_model("resnet", 10, PRESETS["bf16"], device="cpu")
+    loaded.init_weights(torch.Generator().manual_seed(SEED))
+    pretrained.load_pretrained("resnet", weights, loaded)
+    tuned = ckpt.read_checkpoint(os.path.join(
+        rsl["pretrained"], "bestmodel-mnist-resnet.ckpt"))["state"]["params"]
+    same = [n for n, p in loaded.named_parameters()
+            if torch.equal(tuned[n], p.detach())]
+    backbone = [n for n, _ in loaded.named_parameters()
+                if not n.startswith("head.")]
+    say(f"zoo: `train --model resnet --use-pretrained --feature-extract`: "
+        f"{len(set(backbone) & set(same))}/{len(backbone)} backbone "
+        f"parameters bit-identical to the loaded file, head moved: "
+        f"{'head.weight' not in same}")
+    if set(backbone) - set(same) or "head.weight" in same:
+        fail("feature extraction changed the pretrained backbone or left "
+             "the head")
+
+    # test -f on every best file, beside the two servers
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    images = ds.splits["test"].images[:ZOO_WAVE]
+    servers = {name: start_server(best[name], ZOO_WAVE, FLUSH_MS, "cuda",
+                                  attention="full") for name in ZOO_SERVED}
+    tests = [start_cli(["test", "-f", best[name]],
+                       os.path.join(WORK, f"zoo_test_{name}"),
+                       data=ZOO_DATA) for name in ZOO]
+    try:
+        for name in ZOO_SERVED:
+            serve_zoo(best[name], name, servers[name], images)
+    finally:
+        for _, proc, _, _ in servers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (_, tlog) in zip(ZOO, finish_all(tests)):
+        acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                            tlog).group(1)
+        acc_here, correct, n = eval_accuracy(best[name], name, ZOO_DATA)
+        say(f"zoo: `test -f` {name}: {acc_cli}%; in-process eval "
+            f"{acc_here}% ({correct}/{n})")
+        if acc_cli != acc_here:
+            fail(f"{name} test's accuracy disagrees with the in-process "
+                 f"eval")
+
+
+# Steps timed on the host clock and then under the profiler, after two
+# of warm-up.  The profiler records the device only: the host-side events
+# of densenet's and inception's 9-11 thousand kernels a step made their
+# traces' processing the phase's largest cost.
+ZOO_PROFILE_STEPS = 5
+
+
+def phase_zoo_profile() -> None:
+    """The five train steps at batch 64, bf16, cuDNN deterministic as in
+    ``train``: wall ms per step (host clock, synchronized, profiler off),
+    then from ZOO_PROFILE_STEPS steps under torch.profiler (device
+    activity only) the device time per step, kernels per step, the idle
+    share, and the top device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch import utils
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    write_zoo_data()
+    ds = load_dataset("mnist", ZOO_DATA, SEED)
+    loader = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, SEED,
+                            "cuda")
+    reps = ZOO_PROFILE_STEPS
+    batches = list(loader.epoch(0))     # 18, taken in turn
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ZOO:
+            policy = PRESETS["bf16"]
+            model = get_model(name, ds.nb_classes, policy, device="cuda")
+            engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                            get_model_input_size(name), policy, "cuda")
+            state = engine.init_state(torch.Generator().manual_seed(SEED))
+
+            def step(i):
+                gen = utils.step_generator(SEED, 0, i, "cuda")
+                engine.train_step(state, *batches[i % len(batches)], gen)
+
+            for i in range(2):
+                step(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(reps):
+                step(2 + i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(reps):
+                    step(2 + reps + i)
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof)
+            dev_ms = sum(e.self_device_time_total for e in kernels) \
+                / 1e3 / reps
+            n_kern = sum(e.count for e in kernels) / reps
+            if dev_ms <= 0:
+                say(f"profile: {name} train step: wall {wall_ms:.3f} "
+                    f"ms/step; device time not measured (no device events)")
+                continue
+            say(f"profile: {name} train step, batch {TRAIN_BATCH} bf16 at "
+                f"{get_model_input_size(name)} px: wall {wall_ms:.3f} "
+                f"ms/step, device {dev_ms:.3f} ms in {n_kern:.0f} kernels "
+                f"(idle {100 * (1 - dev_ms / wall_ms):.1f}%)")
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            say("profile:   top: " + "; ".join(
+                f"{e.key[:48]} {e.self_device_time_total / reps:.1f}us"
+                f"x{e.count // reps}" for e in top[:5]))
+            del model, engine, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+# a phase's checks that need another phase's output (phase 23 writes
+# phase 22's corpus itself when 22 does not run)
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 21                 # the closing lines; only a full run has it
+LAST_PHASE = 24                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -2886,7 +3321,7 @@ def main(argv=None) -> int:
         tc_launches.update(flash_fwd=train_tc["flash_fwd"],
                            flash_dq=train_tc["flash_dq"],
                            flash_dkv=train_tc["flash_dkv"])
-    elif want(13) or want(18):
+    elif want(18):
         write_vit_data()
     if want(7):
         run(phase_resume_and_test, best)
@@ -2927,6 +3362,12 @@ def main(argv=None) -> int:
         run(phase_ring_steps)
     if want(20):
         run(phase_ring_profile)
+    if want(21):
+        run(phase_zoo_parity)
+    if want(22):
+        run(phase_zoo_main_path)
+    if want(23):
+        run(phase_zoo_profile)
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches.get(name),
                 **main_rows[name]} for name, source, replaces in KERNELS

@@ -19,10 +19,10 @@ optimizer.state_dict() (on the CPU, or None), "step": int}``.  Version-1
 files hold ``{"params"}`` only; ``serve`` and ``test`` still read them.
 BatchNorm's running statistics are buffers of the model and travel in
 ``params`` (``model.state_dict()``).  A file that is not a zip archive is
-read as the JAX package's msgpack checkpoint of a vit, cnn, mlp or resnet:
+read as the JAX package's msgpack checkpoint of any of the nine models:
 flax's ndarray extension type is decoded with the plain ``msgpack``
 package and the params, with the ``batch_stats``, are converted by
-``models/convert.py``; ``test`` and ``serve`` read it, resuming ``train``
+``models/convert.py`` (a ``--scan-layers`` layout is refused); ``test`` and ``serve`` read it, resuming ``train``
 from it is not ported yet (it would need optax -> torch optimizer state).
 Orbax checkpoint directories are not ported yet.  In a world of several
 ranks, rank 0 writes (the caller gates on ``runtime.is_main()``) and every
@@ -50,7 +50,8 @@ from .models.convert import cnn_params_from_jax, params_from_jax
 FORMAT_VERSION = 2
 _READABLE_VERSIONS = (1, 2)     # the port's own files
 _JAX_FORMAT_VERSION = 1
-_JAX_MODELS = ("vit", "cnn", "mlp", "resnet")     # the ported ones
+_JAX_MODELS = ("vit", "cnn", "mlp", "resnet", "alexnet", "vgg",
+               "squeezenet", "densenet", "inception")
 _NOT_RESUMABLE_JAX = ("not ported yet: resuming a JAX-written checkpoint "
                       "(test and serve read it)")
 _LINEAGE = "ckpt-lineage.json"

@@ -54,11 +54,11 @@ import torch
 
 from . import checkpoint as ckpt
 from . import runtime, telemetry, tracing, utils
-from .config import NUM_WORKERS, RESIDENT_MAX_BYTES, SERVE_MODELS, \
-    Config, check_ported, config_from_argv
+from .config import NUM_WORKERS, RESIDENT_MAX_BYTES, Config, \
+    check_ported, config_from_argv
 from .data.datasets import Dataset, Split, load_dataset
 from .data.pipeline import ResidentLoader
-from .models import get_model, get_model_input_size
+from .models import get_model, get_model_input_size, pretrained
 from .ops.conv import conv3x3_dw
 from .ops import flash_attention as fa
 from .ops.losses import get_loss_fn
@@ -332,7 +332,15 @@ def run_train(cfg: Config) -> dict:
                                device, mesh)
         tel.event("precision_policy", remat="none", grad_accum=1,
                   **engine.precision.describe())
-        state = engine.init_state(torch.Generator().manual_seed(cfg.seed))
+        load_weights = None
+        if cfg.use_pretrained:
+            def load_weights(model):
+                pretrained.load_pretrained(model_name, cfg.pretrained_path,
+                                           model)
+                logging.info(f"pretrained backbone loaded from "
+                             f"{cfg.pretrained_path}")
+        state = engine.init_state(torch.Generator().manual_seed(cfg.seed),
+                                  load_weights)
         if cfg.checkpoint_file:
             start_epoch, best_valid_loss, state.step = \
                 ckpt.load_checkpoint_with_fallback(
@@ -452,8 +460,6 @@ def run_serve(cfg: Config) -> dict:
     logging.info(f"serve: one replica on {device}, port {port}")
 
     model_name = ckpt.get_checkpoint_model_name(cfg.checkpoint_file)
-    if model_name not in SERVE_MODELS:
-        raise ValueError(f"not ported yet: --model {model_name} (serve)")
     dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
                            debug=cfg.debug, log=True,
                            synthetic_fallback=cfg.synthetic_fallback)

@@ -11,10 +11,13 @@ A flag of the JAX CLI that this slice does not support fails loudly with
 one line, ``not ported yet: --X``; it is never ignored.  The flags that
 only exist to be refused are one table each (``REFUSED_EVERYWHERE``,
 ``REFUSED_TRAIN_TEST``) and are not Config fields; the settings a Config
-holds are refused by ``check_ported``.  ``train`` and ``test`` run
-``cnn``, ``mlp``, ``resnet`` (the default, as in the JAX package) and
-``vit``; ``serve`` runs ``vit``.  ``--attention`` other than ``full`` on a
-model without attention is refused with the JAX registry's message.
+holds are refused by ``check_ported``.  ``train``, ``test`` and ``serve``
+run all nine models of the JAX registry (``resnet`` is the default, as in
+the JAX package); ``train --use-pretrained --pretrained-path FILE`` starts
+from a torchvision ``state_dict``, and ``test``, ``serve`` and a resumed
+``train`` refuse it with the JAX messages.  ``--attention`` other than
+``full`` on a model without attention is refused with the JAX registry's
+message.
 ``--model-parallel M`` (M >= 2) runs only the ring of ``--attention ring``
 or ``ring_flash`` over the (world / M, M) mesh, with the parameters
 replicated on every rank: the JAX package's placement of parameters over
@@ -58,8 +61,6 @@ LOSS_CHOICES = ("cross_entropy", "weighted_cross_entropy", "focal_loss")
 DATASET_CHOICES = ("mnist", "fashion_mnist", "cifar10", "synthetic",
                    "synthetic_hard")
 DEVICE_CHOICES = ("cuda", "cpu")
-TRAIN_MODELS = ("cnn", "mlp", "resnet", "vit")   # ported for train/test
-SERVE_MODELS = ("vit",)                          # ported for serve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +84,9 @@ class Config:
     focal_gamma: float = 2.0
     seed: int = SEED
     feature_extract: bool = FEATURE_EXTRACT
+    use_pretrained: bool = False
+    # a torchvision state_dict file for use_pretrained (never downloaded)
+    pretrained_path: Optional[str] = None
     checkpoint_file: Optional[str] = None
     debug: bool = DEBUG
     keep_ckpts: int = 1
@@ -111,10 +115,8 @@ class Config:
 def not_ported(cfg: Config) -> Optional[str]:
     """The first setting of ``cfg`` this slice does not support, spelled
     as on the command line, or None."""
-    models = SERVE_MODELS if cfg.action == "serve" else TRAIN_MODELS
     ring = cfg.attention in ("ring", "ring_flash")
     checks = (
-        (cfg.model_name not in (None,) + models, f"--model {cfg.model_name}"),
         (ring and cfg.action == "serve" and cfg.model_name in (None, "vit"),
          f"--attention {cfg.attention}"),
         (cfg.precision not in (None, "bf16", "f32"),
@@ -139,6 +141,7 @@ def check_ported(cfg: Config) -> Config:
             "--model-parallel/--tensor-parallel/--pipeline-parallel/"
             "--seq-parallel do not apply (model-parallel-trained "
             "checkpoints convert at load)")
+    check_pretrained(cfg)
     flag = not_ported(cfg)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
@@ -151,6 +154,26 @@ def check_ported(cfg: Config) -> Config:
         raise ValueError(f"--device must be one of {DEVICE_CHOICES}, got "
                          f"{cfg.device!r}")
     return cfg
+
+
+def check_pretrained(cfg: Config) -> None:
+    """The JAX refusals of ``--use-pretrained`` (``cli.py:692-699``,
+    ``:809-812``, ``:1340-1344``, ``:1495-1497``): weights come from the
+    checkpoint on ``test``, ``serve`` and a resumed ``train``, and the
+    architecture and the file are checked before any data is read."""
+    if not cfg.use_pretrained:
+        return
+    if cfg.action in ("test", "serve"):
+        raise ValueError(
+            f"--use-pretrained is not applicable to the {cfg.action} "
+            "subcommand: weights come from -f FILE")
+    if cfg.checkpoint_file:
+        raise ValueError(
+            "--use-pretrained cannot be combined with -f/--file resume: "
+            "all weights come from the checkpoint")
+    from .models.pretrained import validate_request
+
+    validate_request(cfg.model_name, cfg.pretrained_path)
 
 
 def check_model_axis(cfg: Config) -> None:
@@ -202,7 +225,6 @@ _STR = {"type": str}
 # so only a flag given on the command line is looked at; any other value
 # is refused (``refused_flag``), never ignored.
 REFUSED_EVERYWHERE = (
-    ("--use-pretrained", _ON, False),
     ("--remat", {"choices": ("none", "blocks", "full")}, "none"),
     ("--scan-layers", _ON, False),
     ("--moe-experts", _INT, 0),
@@ -221,7 +243,6 @@ REFUSED_EVERYWHERE = (
     ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
 )
 REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
-    ("--pretrained-path", _STR, None),
     ("--prefetch", _INT, NUM_WORKERS),
     ("--producer-threads", _INT, 1),
     ("--device-prefetch", _INT, 0),
@@ -270,6 +291,18 @@ def refused_flag(args: dict, table) -> Optional[str]:
     return None
 
 
+def _pretrained_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--use-pretrained", action="store_true",
+                   dest="use_pretrained",
+                   help="train: initialize the backbone from "
+                        "--pretrained-path (a torchvision state_dict); "
+                        "test and serve refuse it")
+    p.add_argument("--pretrained-path", type=str, default=None,
+                   dest="pretrained_path", metavar="FILE",
+                   help="torch .pth state_dict for --use-pretrained "
+                        "(never downloaded)")
+
+
 def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
     """The JAX ``_common_args`` of train and test, same spellings and
     defaults; the ones this slice refuses are parsed so that they can be
@@ -286,14 +319,12 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
     if action == "train":
         p.add_argument("--model", choices=MODEL_CHOICES, default=MODEL_NAME,
                        dest="model_name",
-                       help=f"model architecture (default: {MODEL_NAME}; "
-                            f"ported: {', '.join(TRAIN_MODELS)})")
+                       help=f"model architecture (default: {MODEL_NAME})")
     else:
         p.add_argument("--model", choices=MODEL_CHOICES, default=None,
                        dest="model_name",
                        help="model architecture (default: the "
-                            "checkpoint's; ported: "
-                            f"{', '.join(TRAIN_MODELS)})")
+                            "checkpoint's)")
     p.add_argument("--optimizer", choices=OPTIMIZER_CHOICES,
                    default=OPTIMIZER, help=f"optimizer (default: {OPTIMIZER})")
     p.add_argument("--loss", choices=LOSS_CHOICES, default=LOSS,
@@ -315,6 +346,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
     p.add_argument("--feature-extract", action="store_true",
                    dest="feature_extract", default=FEATURE_EXTRACT,
                    help="freeze the backbone, train only the head")
+    _pretrained_args(p)
     p.add_argument("--synthetic-fallback", action="store_true",
                    dest="synthetic_fallback",
                    help="use the deterministic synthetic corpus when the "
@@ -340,8 +372,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m distributedpytorch_tpu_torch",
         description="PyTorch/CUDA port of the distributed classifier "
-                    "(train and test cnn, mlp, resnet and vit on one or "
-                    "several ranks; serve a vit)")
+                    "(train and test the nine models on one or several "
+                    "ranks; serve any of them)")
     sub = parser.add_subparsers(dest="action", required=True,
                                 help="action to execute")
     p_train = sub.add_parser("train", help="train model")
@@ -373,8 +405,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "server uses (default: mnist)")
     p.add_argument("--model", choices=MODEL_CHOICES, default=None,
                    dest="model_name",
-                   help="model architecture (ported: vit; default: the "
-                        "checkpoint's)")
+                   help="model architecture (default: the checkpoint's)")
     p.add_argument("--rsl_path", type=str, default=RSL_PATH,
                    help=f"results dir (default: {RSL_PATH})")
     p.add_argument("--no-bf16", action="store_true",
@@ -392,6 +423,7 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="synthetic_fallback",
                    help="use the deterministic synthetic corpus when the "
                         "real dataset's raw files are absent")
+    _pretrained_args(p)
     _model_parallel_arg(p)
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,

@@ -15,20 +15,28 @@ checkpoint decodes.  What changes on the way:
   * the vit's ``pos_embed`` (1, S, dim) f32 is taken as it is.
 
 The vit's modules have names of their own (``params_from_jax``); the cnn,
-mlp and resnet carry flax's names, so their trees convert key by key
-(``cnn_params_from_jax``).  The vit's scan and pipeline layouts are not
-ported yet.
+mlp and the torchvision zoo (resnet, alexnet, vgg, squeezenet, densenet,
+inception) carry flax's names, nested as the flax modules nest
+(``Fire_3.Conv_2``, ``InceptionC_2.BasicConv_4.Conv_0``), so their trees
+convert key by key (``cnn_params_from_jax``); ``cnn_params_to_jax`` is
+its inverse.  The scan layouts of ``--scan-layers`` (``ConvScan_0``,
+``DenseBlockScan_*``, ``InceptionCScan_0``) and the vit's scan and
+pipeline layouts are not ported yet, and are refused.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.conv import hwio_to_oihw
+
+
+# a module that --scan-layers stacks under lax.scan (JAX models/scan.py)
+_SCAN = re.compile(r"[A-Za-z]+Scan_\d+")
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -85,6 +93,9 @@ def cnn_params_from_jax(params: dict, batch_stats: Optional[dict] = None
     def walk(tree: dict, stats: dict, prefix: str) -> None:
         for key, sub in tree.items():
             name = f"{prefix}{key}"
+            if _SCAN.fullmatch(key):
+                raise ValueError("not ported yet: --scan-layers checkpoint "
+                                 "layout")
             if not isinstance(sub, dict):
                 raise ValueError(f"not ported yet: flax param {name!r}")
             if "kernel" in sub:
@@ -111,3 +122,34 @@ def cnn_params_from_jax(params: dict, batch_stats: Optional[dict] = None
 
     walk(params, batch_stats or {}, "")
     return out
+
+
+def cnn_params_to_jax(state_dict: Dict[str, torch.Tensor]
+                      ) -> Tuple[dict, dict]:
+    """The inverse of ``cnn_params_from_jax``: a port model's
+    ``state_dict`` -> flax (``params``, ``batch_stats``) trees of f32
+    numpy arrays (HWIO conv kernels, (in, out) dense kernels)."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: list, leaf: str, value: np.ndarray) -> None:
+        for key in path:
+            tree = tree.setdefault(key, {})
+        tree[leaf] = value
+
+    for name, t in state_dict.items():
+        *path, leaf = name.split(".")
+        a = t.detach().cpu().float().numpy()
+        if leaf == "weight" and a.ndim == 4:
+            put(params, path, "kernel", a.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and a.ndim == 2:
+            put(params, path, "kernel", a.T)
+        elif leaf == "weight":
+            put(params, path, "scale", a)
+        elif leaf == "bias":
+            put(params, path, "bias", a)
+        elif leaf in ("running_mean", "running_var"):
+            put(stats, path, leaf[len("running_"):], a)
+        else:
+            raise ValueError(f"not ported yet: state_dict entry {name!r}")
+    return params, stats

@@ -1,14 +1,20 @@
-"""flax's Dense and Conv numerics, and its initializers, on torch layers.
+"""flax's Dense, Conv and Dropout numerics, and its initializers, on torch
+layers.
 
 The CNN models store their weights in ``nn.Linear``/``nn.Conv2d`` (f32,
 torch's layouts) and apply them the way flax applies ``nn.Dense`` and
 ``nn.Conv`` with ``dtype=compute_dtype``: the weight is cast to the compute
 dtype at use, the product is rounded to it, then the bias is added in it.
+
+``Dropout`` is flax's ``nn.Dropout`` with its keep mask given from
+outside: the train step draws the masks of every dropout layer from its
+generator (``train.engine``), and a parity test can set the JAX masks.
 """
 
 from __future__ import annotations
 
 import math
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -57,3 +63,48 @@ def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(mod, BatchNorm):
                 mod.reset_parameters()
     return model
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in train mode ``where(mask, x / keep,
+    0)`` with keep = 1 - rate and ``mask`` the keep mask (bool, ``x``'s
+    shape) that ``set_dropout_masks`` set before the forward; the identity
+    in eval mode.  It draws nothing itself."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+        self.mask: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        if self.mask is None:
+            raise ValueError("a train-mode dropout needs its keep mask "
+                             "(set_dropout_masks; Engine.train_step draws "
+                             "them)")
+        keep = 1.0 - self.rate
+        return torch.where(self.mask, x / keep, torch.zeros_like(x))
+
+
+def dropout_layers(model: nn.Module) -> List[Dropout]:
+    """The model's dropout layers, in the order its forward calls them
+    (each model registers them in that order)."""
+    return [m for m in model.modules() if isinstance(m, Dropout)]
+
+
+def set_dropout_masks(model: nn.Module,
+                      masks: Optional[Sequence[torch.Tensor]]) -> None:
+    """Give each dropout layer its keep mask, in the JAX layout: (B, F),
+    or (B, H, W, C) for a feature map, which is permuted to the port's
+    (B, C, H, W) view.  ``None`` clears them."""
+    layers = dropout_layers(model)
+    if masks is None:
+        for layer in layers:
+            layer.mask = None
+        return
+    if len(masks) != len(layers):
+        raise ValueError(f"{len(masks)} dropout masks for {len(layers)} "
+                         f"dropout layers")
+    for layer, mask in zip(layers, masks):
+        layer.mask = mask.permute(0, 3, 1, 2) if mask.dim() == 4 else mask

@@ -3,12 +3,15 @@ split of ``--feature-extract``.
 
 Counterpart of ``distributedpytorch_tpu/models/registry.py`` (``get_model``
 at :79-266, ``get_model_input_size`` and ``trainable_mask`` at :269-299),
-for ``cnn``, ``mlp``, ``resnet`` (resnet18) and ``vit`` with ``attention``
-in {full, flash, ring, ring_flash} (the rings over the model group of a
-``runtime.Mesh``), and the API-only ``pallas_dw`` knob of ``cnn`` (kernel
-K5; no CLI flag, as in the JAX package).  The validation errors are the
-JAX registry's, word for word; every other model or feature raises "not
-ported yet".
+for the nine models: ``cnn``, ``mlp``, the torchvision zoo (``resnet``
+(resnet18), ``alexnet``, ``vgg`` (vgg11_bn), ``squeezenet``
+(squeezenet1_0), ``densenet`` (densenet121), ``inception``
+(inception_v3)) and ``vit`` with ``attention`` in {full, flash, ring,
+ring_flash} (the rings over the model group of a ``runtime.Mesh``), and
+the API-only ``pallas_dw`` knob of ``cnn`` (kernel K5; no CLI flag, as in
+the JAX package).  The validation errors are the JAX registry's, word for
+word.  ``--remat`` and ``--scan-layers`` are not ported yet (the CLI
+refuses them).
 """
 
 from __future__ import annotations
@@ -17,19 +20,51 @@ import torch
 from torch import nn
 
 from ..precision import PrecisionPolicy
+from .alexnet import AlexNet
+from .densenet import densenet121
+from .inception import InceptionV3
+from .resnet import resnet18
+from .simple import MLP, SmallCNN
+from .squeezenet import SqueezeNet
+from .vgg import VGG11BN
 
-KNOWN_MODELS = ("cnn", "mlp", "resnet", "alexnet", "vgg", "squeezenet",
-                "densenet", "inception", "vit")
-# ref getModelInputSize (utils.py:24-36); cnn/mlp/vit run at the native 28
-_INPUT_SIZES = {"cnn": 28, "mlp": 28, "resnet": 224, "vit": 28}
+# name -> input resolution (ref getModelInputSize, utils.py:24-36: 224 for
+# all but inception=299; cnn/mlp/vit run at the dataset-native 28)
+_INPUT_SIZES = {
+    "cnn": 28, "mlp": 28, "resnet": 224, "alexnet": 224, "vgg": 224,
+    "squeezenet": 224, "densenet": 224, "inception": 299, "vit": 28,
+}
+KNOWN_MODELS = tuple(_INPUT_SIZES)
+
+# The models without attention: name -> (num_classes, dtype, device) ->
+# module.
+_CNN_ZOO = {
+    "cnn": lambda n, d, dev: SmallCNN(num_classes=n, dtype=d, device=dev),
+    "mlp": lambda n, d, dev: MLP(num_classes=n, dtype=d, device=dev),
+    "resnet": lambda n, d, dev: resnet18(n, dtype=d, device=dev),
+    "alexnet": lambda n, d, dev: AlexNet(num_classes=n, dtype=d,
+                                         device=dev),
+    "vgg": lambda n, d, dev: VGG11BN(num_classes=n, dtype=d, device=dev),
+    "squeezenet": lambda n, d, dev: SqueezeNet(num_classes=n, dtype=d,
+                                               device=dev),
+    "densenet": lambda n, d, dev: densenet121(n, dtype=d, device=dev),
+    "inception": lambda n, d, dev: InceptionV3(num_classes=n, dtype=d,
+                                               device=dev),
+}
+
+# Models whose train-mode forward also returns auxiliary logits
+# (ref classif.py:49-53 special-cases 'inception').
+AUX_LOGIT_MODELS = frozenset({"inception"})
+
+# Models using dropout: their train-mode forward needs the step's keep
+# masks (``models.layers.Dropout``; the engine draws them).
+DROPOUT_MODELS = frozenset({"alexnet", "vgg", "squeezenet", "inception"})
 
 
 def _check_name(name: str) -> None:
     if name not in KNOWN_MODELS:
         raise ValueError(f"Invalid model name {name!r} "
                          f"(choices: {sorted(KNOWN_MODELS)})")
-    if name not in _INPUT_SIZES:
-        raise ValueError(f"not ported yet: --model {name}")
 
 
 def check_attention(name: str, attention: str) -> None:
@@ -103,18 +138,10 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
         return ViT(num_classes=num_classes, dtype=dtype,
                    attention_fn=attention_fn(attention, mesh),
                    device=device)
-    if name == "cnn":
-        from .simple import SmallCNN
-
+    if pallas_dw:
         return SmallCNN(num_classes=num_classes, dtype=dtype,
-                        pallas_dw=pallas_dw, device=device)
-    if name == "mlp":
-        from .simple import MLP
-
-        return MLP(num_classes=num_classes, dtype=dtype, device=device)
-    from .resnet import resnet18
-
-    return resnet18(num_classes, dtype=dtype, device=device)
+                        pallas_dw=True, device=device)
+    return _CNN_ZOO[name](num_classes, dtype, device)
 
 
 def get_model_input_size(name: str) -> int:

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .common import global_mean
 from .layers import conv, dense, lecun_init_
 from .norm import BatchNorm
 
@@ -76,7 +77,7 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, 2, padding=1)
         for i in range(self.n_blocks):
             x = getattr(self, f"BasicBlock_{i}")(x)
-        x = x.float().mean(dim=(2, 3)).to(self.dtype)
+        x = global_mean(x)
         return dense(self.head, x).float()
 
 

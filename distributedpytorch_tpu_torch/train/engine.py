@@ -28,7 +28,17 @@ ranks is exactly the gradient of the global mean, whatever the number of
 valid rows in each shard.  The affine augmentation of a step is drawn for
 the whole rank-major global batch from the step's generator, which is
 seeded alike on every rank, and data shard d keeps rows [d*b, (d+1)*b) of
-its b rows, as one JAX key augments the global batch (:237-251).
+its b rows, as one JAX key augments the global batch (:237-251).  The
+keep masks of a dropout model (alexnet, vgg, squeezenet, inception) are
+drawn the same way, from the same generator after the affine draws:
+uniform draws below keep = 1 - rate, for the global batch, each data
+shard keeping its rows, so a world of several ranks trains as one process
+does.  (The JAX package draws them from the step's dropout key; the
+parity tests inject JAX's masks through ``train_step_affine``.)  A model
+whose train-mode forward returns auxiliary logits (inception) adds their
+loss with weight 0.4, ``loss1 + 0.4 * loss2`` as ``_grads_and_metrics``
+(:274-277): the two numerators over the one global denominator, and the
+correct rows counted from the primary logits.
 
 The optimizers are ``torch.optim``'s: Adam(lr=1e-3) has optax's defaults;
 SGD(lr=1e-3, momentum=0.9) is optax's ``sgd`` with ``trace``, and its
@@ -41,7 +51,7 @@ uninterrupted one agree at an epoch boundary.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +59,14 @@ from torch import nn
 
 from .. import runtime
 from ..data import augment
+from ..models.layers import dropout_layers, set_dropout_masks
 from ..models.registry import freeze_backbone
 from ..ops.losses import LossFn
 from ..ops.metrics import per_example_correct
 from ..precision import PrecisionPolicy, cast_grads
 
 OPTIMIZER_CHOICES = ("adam", "SGD")
+AUX_LOSS_WEIGHT = 0.4       # ref classif.py:49-53
 
 
 def make_optimizer(optimizer: str, model: nn.Module,
@@ -117,13 +129,19 @@ class Engine:
 
     # -- state ------------------------------------------------------------
 
-    def init_state(self, generator: torch.Generator) -> TrainState:
-        """Random weights from ``generator`` (flax's initializers), the
-        backbone frozen under ``feature_extract``, a fresh optimizer, and
-        in a process group the DDP wrapper (which broadcasts rank 0's
-        parameters; BatchNorm's buffers are alike on every rank, since
-        their statistics are global, and are not broadcast)."""
+    def init_state(self, generator: torch.Generator,
+                   load_weights: Optional[Callable[[nn.Module], None]]
+                   = None) -> TrainState:
+        """Random weights from ``generator`` (flax's initializers), then
+        ``load_weights(model)`` if given (``--use-pretrained``'s
+        backbone), the backbone frozen under ``feature_extract``, a fresh
+        optimizer, and in a process group the DDP wrapper (which
+        broadcasts rank 0's parameters; BatchNorm's buffers are alike on
+        every rank, since their statistics are global, and are not
+        broadcast)."""
         self.model.init_weights(generator)
+        if load_weights is not None:
+            load_weights(self.model)
         if self.feature_extract:
             freeze_backbone(self.model)
         ddp = None
@@ -149,26 +167,43 @@ class Engine:
                    labels: torch.Tensor, valid: torch.Tensor,
                    generator: torch.Generator
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Draw the step's affine augmentation for the global batch from
-        ``generator``, keep this data shard's rows, then
-        ``train_step_affine``."""
+        """Draw the step's affine augmentation and then the dropout masks
+        for the global batch from ``generator``, keep this data shard's
+        rows, then ``train_step_affine``."""
         b, h, w = images_u8.shape[:3]
         dp, d = self.mesh.data_parallel, self.mesh.data_index
         affine = augment.sample_affine_batch(generator, dp * b, h, w)
+        masks = self.draw_dropout_masks(generator, dp * b)
         if dp > 1:
             affine = tuple(t[d * b:(d + 1) * b] for t in affine)
+            masks = [m[d * b:(d + 1) * b] for m in masks]
         return self.train_step_affine(state, images_u8, labels, valid,
-                                      affine)
+                                      affine, masks)
+
+    def draw_dropout_masks(self, generator: torch.Generator,
+                           rows: int) -> List[torch.Tensor]:
+        """The keep masks of the model's dropout layers for ``rows``
+        rows, in the JAX layout, drawn from ``generator`` (none for a
+        model without dropout)."""
+        layers = dropout_layers(self.model)
+        if not layers:
+            return []
+        shapes = self.model.dropout_shapes(self.input_size)
+        return [torch.rand((rows,) + tuple(shape), generator=generator,
+                           device=generator.device) < 1.0 - layer.rate
+                for layer, shape in zip(layers, shapes)]
 
     def train_step_affine(self, state: TrainState, images_u8: torch.Tensor,
                           labels: torch.Tensor, valid: torch.Tensor,
-                          affine: augment.Affine
+                          affine: augment.Affine,
+                          dropout_masks: Sequence[torch.Tensor] = ()
                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Augment this data shard's rows with the given draws, forward,
-        the global masked loss, backward (DDP averages the gradients),
-        grad cast, optimizer update.  The step's gradients stay on the
-        parameters' ``.grad`` until the next step.  The metrics are the
-        global batch's."""
+        """Augment this data shard's rows with the given draws, forward
+        with the given dropout keep masks (this shard's rows, in the JAX
+        layout), the global masked loss (with the aux logits' share),
+        backward (DDP averages the gradients), grad cast, optimizer
+        update.  The step's gradients stay on the parameters' ``.grad``
+        until the next step.  The metrics are the global batch's."""
         model = state.model
         model.train()
         imgs = augment.train_transform(
@@ -176,9 +211,17 @@ class Engine:
             out_dtype=self.precision.compute_dtype)
         vmask = valid.to(self.precision.accum_dtype)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = (model if state.ddp is None else state.ddp)(imgs)
+        set_dropout_masks(model, list(dropout_masks) or None)
+        try:
+            out = (model if state.ddp is None else state.ddp)(imgs)
+        finally:
+            set_dropout_masks(model, None)
+        logits, aux = out if isinstance(out, tuple) else (out, None)
         numer, denom = self.loss_fn(logits, labels)
         numer_sum = (numer * vmask).sum()
+        if aux is not None:
+            numer_sum = numer_sum + AUX_LOSS_WEIGHT * (
+                self.loss_fn(aux, labels)[0] * vmask).sum()
         correct = (per_example_correct(logits.detach(), labels)
                    * vmask).sum()
         sums = runtime.all_reduce_sum(torch.stack(

@@ -8,12 +8,15 @@ the world of one:
         [--global-batch N] [--precision f32|f64]
 
 MODEL is ``cnn`` (with K5), ``mlp``, ``resnet_small`` (two stages of
-width 8 at 32) or ``resnet_shallow`` (resnet18's widths, one block a
-stage, at 224).  Every rank builds the same global batch from a numpy seed
-and keeps its rank-major rows, then takes three SGD steps.  In the first
-the valid rows spread unevenly over the ranks (half the batch and the
-last row).  In f32 the first step's affine draws are injected and the
-other two come from a step generator seeded alike on every rank.  In f64
+width 8 at 32), ``resnet_shallow`` (resnet18's widths, one block a
+stage, at 224) or ``vgg64`` (vgg11_bn's widths at 64, with dropout).
+Every rank builds the same global batch from a numpy seed and keeps its
+rank-major rows, then takes three SGD steps.  In the first the valid rows
+spread unevenly over the ranks (half the batch and the last row).  In f32
+the first step's affine draws are injected, with dropout masks drawn for
+the global batch from a generator seeded alike on every rank, and the
+other two steps draw both from a step generator seeded alike on every
+rank.  In f64
 (f64 compute, f32 parameters) every step runs on the identity affine.
 The rank writes its parameters, BatchNorm buffers, the steps' metrics and
 its K5 launches to OUT.pt.  ``tests/test_torch_ddp.py`` runs it on the CPU
@@ -51,6 +54,8 @@ def build(name: str, policy: PrecisionPolicy, device):
         return ResNet((1, 1), width=8, dtype=dtype, device=device), 32
     if name == "resnet_shallow":
         return ResNet((1, 1, 1, 1), dtype=dtype, device=device), 224
+    if name == "vgg64":
+        return registry.get_model("vgg", 10, policy, device=device), 64
     return (registry.get_model(name, 10, policy, device=device,
                                pallas_dw=name == "cnn"),
             registry.get_model_input_size(name))
@@ -98,13 +103,15 @@ def main() -> None:
         valid = valid0 if step == 0 else np.ones(gb, bool)
         batch = tuple(torch.from_numpy(a[rows]).to(device)
                       for a in (images, labels, valid))
+        masks = [mk[rows] for mk in engine.draw_dropout_masks(
+            torch.Generator(device=device).manual_seed(50 + step), gb)]
         if args.precision == "f64":
-            _, m = engine.train_step_affine(state, *batch,
-                                            identity_affine(b, device))
+            _, m = engine.train_step_affine(
+                state, *batch, identity_affine(b, device), masks)
         elif step == 0:
             affine = augment.affine_from_uniform(
                 torch.from_numpy(u[rows]).to(device), 28, 28)
-            _, m = engine.train_step_affine(state, *batch, affine)
+            _, m = engine.train_step_affine(state, *batch, affine, masks)
         else:
             gen = torch.Generator(device=device).manual_seed(100 + step)
             _, m = engine.train_step(state, *batch, gen)

@@ -164,30 +164,22 @@ def test_jax_checkpoint_without_msgpack_names_the_package(
 
 
 def test_jax_checkpoint_of_a_model_not_ported_is_refused(tmp_path):
+    """Every model of the registry is read; a layout that is not ported
+    (a vgg written with --scan-layers stacks its last convs as
+    ConvScan_0) is refused by name."""
     from flax import serialization
 
-    path = tmp_path / "bestmodel-mnist-alexnet.ckpt"
+    path = tmp_path / "bestmodel-mnist-vgg.ckpt"
     path.write_bytes(serialization.msgpack_serialize(
-        {"format_version": 1, "model_name": "alexnet", "epoch": 0,
+        {"format_version": 1, "model_name": "vgg", "epoch": 0,
          "loss": 0.0,
-         "state": {"params": {"Conv_0": {"kernel": np.zeros((3, 3, 3, 8),
-                                                             np.float32)}}}}))
-    with pytest.raises(ValueError, match="^not ported yet: --model alexnet"):
+         "state": {"params": {
+             "Conv_0": {"kernel": np.zeros((3, 3, 3, 8), np.float32)},
+             "ConvScan_0": {"Conv_0": {"kernel": np.zeros(
+                 (2, 3, 3, 8, 8), np.float32)}}}}}))
+    with pytest.raises(ValueError, match="^not ported yet: --scan-layers "
+                                         "checkpoint layout"):
         ckpt.get_checkpoint_model_name(str(path))
-
-
-def test_serve_of_a_cnn_checkpoint_is_not_ported(tmp_path):
-    """train and test run the cnn; serve stays vit-only, and says so."""
-    path = tmp_path / "bestmodel-mnist-cnn.ckpt"
-    model = get_model("cnn", 10, PRESETS["bf16"], device="cpu")
-    ckpt.save_checkpoint(str(path), "cnn", model, epoch=0,
-                         best_valid_loss=0.0)
-    cfg = tconfig.config_from_argv(
-        ["serve", "-d", str(tmp_path / "data"), "--rsl_path",
-         str(tmp_path / "rsl"), "-f", str(path), "--device", "cpu",
-         "--synthetic-fallback"])
-    with pytest.raises(ValueError, match="^not ported yet: --model cnn"):
-        tcli.run_serve(cfg)
 
 
 # -- the port's own checkpoint ------------------------------------------
@@ -391,7 +383,6 @@ NOT_PORTED = [
     (["--ckpt-format", "orbax"], "--ckpt-format orbax"),
     (["--precision", "bf16_full"], "--precision bf16_full"),
     (["--precision", "f16"], "--precision f16"),
-    (["--model", "resnet"], "--model resnet"),
 ]
 
 
@@ -455,5 +446,8 @@ def test_port_imports_no_jax():
     imported = set(proc.stdout.split())
     assert len(imported) >= 20
     for name in ("ops.conv", "ops.pooling", "models.layers", "models.norm",
-                 "models.simple", "models.resnet", "runtime", "train.engine"):
+                 "models.simple", "models.resnet", "runtime", "train.engine",
+                 "models.alexnet", "models.vgg", "models.squeezenet",
+                 "models.densenet", "models.inception", "models.common",
+                 "models.pretrained"):
         assert f"distributedpytorch_tpu_torch.{name}" in imported, name

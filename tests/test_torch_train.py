@@ -618,7 +618,6 @@ REFUSED = [
     (["--compilation-cache-dir", "/x"], "--compilation-cache-dir"),
     (["--no-compile-cache"], "--no-compile-cache"),
     (["--use-pretrained"], "--use-pretrained"),
-    (["--pretrained-path", "/x.pth"], "--pretrained-path"),
     (["--elastic"], "--elastic"),
     (["--elastic-join"], "--elastic-join"),
     (["--health-timeout", "5"], "--health-timeout"),
@@ -636,15 +635,23 @@ REFUSED = [
     (["--scan-layers"], "--scan-layers"),
     (["--remat", "full"], "--remat full"),
     (["--attention", "ring"], "--attention ring"),
-    (["--model", "alexnet"], "--model alexnet"),
 ]
 
 
 # Refusals whose message is not "not ported yet: FLAG": --model-parallel
-# with full attention names what is missing (the ring is ported), and a
-# ring without --model-parallel >= 2 fails as the JAX package fails it
-# (train: run_train's check; test: the registry's).
+# with full attention names what is missing (the ring is ported), a ring
+# without --model-parallel >= 2 fails as the JAX package fails it (train:
+# run_train's check; test: the registry's), and --use-pretrained is ported
+# and refused as the JAX package refuses it (train: a vit has no
+# torchvision converter; test: its weights come from -f).
 REFUSED_MESSAGES = {
+    "--use-pretrained": {
+        "train": re.escape(
+            "use_pretrained is not supported for 'vit' (supported: resnet, "
+            "alexnet, vgg, squeezenet, densenet, inception)"),
+        "test": re.escape(
+            "--use-pretrained is not applicable to the test subcommand: "
+            "weights come from -f FILE")},
     "--model-parallel": dict.fromkeys(("train", "test"), re.escape(
         "not ported yet: --model-parallel (parameter sharding over "
         "'model')")),

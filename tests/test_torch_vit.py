@@ -85,12 +85,6 @@ def test_registry_builds_full_width_vit():
     assert registry.get_model_input_size("vit") == 28
 
 
-@pytest.mark.parametrize("name", ["alexnet", "vgg", "densenet", "inception"])
-def test_registry_refuses_models_not_ported(name):
-    with pytest.raises(ValueError, match=f"not ported yet: --model {name}"):
-        registry.get_model(name, 10, PRESETS["f32"], device="cpu")
-
-
 @pytest.mark.parametrize("attention", ["ring", "ring_flash"])
 def test_registry_refuses_ring_attention(attention):
     """Without a mesh whose model axis has 2 ranks or more, the ring is
