@@ -15,6 +15,11 @@ or the K5 slice's:
 
     python3 chip_smoke.py --phases 10,12,15
 
+or the precision slice's (float16 kernels, f16, grad-accum, bf16_full,
+ckpt-async and the exit test):
+
+    python3 chip_smoke.py --phases 24,25,26,27,28,29,30,31
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -157,9 +162,11 @@ result.  Phases, each printing its lines before the last:
      batch 4, SEED's weights, the same augmented batch and dropout masks
      (those ``Engine.train_step`` draws), TF32 off: the f32 train-mode
      logits (and inception's aux logits), the gradients of one step in
-     f64 compute (and in f32, held for alexnet and squeezenet and
-     printed for the BatchNorm models, whose f32 backward amplifies the
-     devices' last-bit differences) and the BatchNorm statistics;
+     f64 compute (and in f32: alexnet's and squeezenet's against the
+     CPU's, the BatchNorm models', whose f32 backward amplifies the
+     devices' last-bit differences, against the card's own f64 step, no
+     further than twice the CPU's f32 step) and the BatchNorm
+     statistics;
  22. the zoo's main path: ``train --model X -e 1`` of the five on the
      first 1,280 train and 128 test rows of the synthetic corpus as
      MNIST files (18 steps of 64, 2 validation batches), with ``train
@@ -176,10 +183,59 @@ result.  Phases, each printing its lines before the last:
      deterministic as ``train`` sets it, 5 steps under torch.profiler):
      wall and device ms per step, kernels per step, the idle share and
      the top device operations;
- 24. the card's name and power limit again, one ``{"kernels": [...]}``
-     JSON line, then the last line ``{"ok": true, "device": {...}}``.
+ 24. kernels K1, K2, K3 (at the vit's (64, 49, 4, 32)) and K5 (at the
+     cnn's three convs, batch 64) in float16, each on the tensor-core
+     route and on the scalar route (forced), against the plain version
+     within TOL_F16 (K5: TOL_DW) of the largest value, two calls
+     bit-identical; the backward at a dO near float16's range, whose
+     non-finite pattern must equal the plain version's; device / call /
+     plain / float16 library (SDPA, SDPA's backward, cuDNN's wgrad;
+     yardsticks only) times and the bounds;
+ 25. one full-width f16 vit step with flash at the loss scale 2^15, card
+     against CPU, same weights, batch and affine draws: every gradient,
+     the same skip decision and scale, and 4 each of K1/K2/K3 launched,
+     all on the tensor cores;
+ 26. the overflow skip on the card: an f16 resnet (one block a stage, 224
+     px) with Adam, a finite step, then an injected overflow: parameters,
+     Adam state and BatchNorm buffers bit-unchanged, the step advanced,
+     the scale halved;
+ 27. the f16 main path: ``train --model vit --attention flash --precision
+     f16 -e 1`` on phase 6's corpus (validation at least twice chance,
+     the loss falling, K1/K2/K3 launches by phase 6's formula, all on the
+     tensor cores, the skipped steps and final scale logged), ``test -f
+     --precision f16`` equal to an in-process f16 eval, ``serve
+     --precision f16`` (one wave of 16, every answer equal to the f16
+     predict step); then the Engine-driven cnn with K5 in f16 (200 steps,
+     3 K5 launches a step on the tensor cores);
+ 28. ``--grad-accum``: three f32 SGD steps (TF32 off) at K = 4 against K =
+     1 on one global batch, for the vit with flash (K1 4 launches a
+     microbatch) and the cnn with K5 (3 a microbatch); one f64
+     accumulated step of a reduced resnet (chained BatchNorm) and of
+     alexnet at 64 px (per-microbatch masks), card against CPU;
+ 29. ``bf16_full``: ``train --model resnet --precision bf16_full -e 1`` on
+     phase 22's corpus (18 steps): bfloat16 parameters and f32 BatchNorm
+     statistics in its checkpoint, finite losses, ``test -f`` equal to an
+     in-process eval;
+ 30. ``--ckpt-async``: phase 7's runs with it: every checkpoint file of
+     the uninterrupted run byte-identical to a synchronous run's, and the
+     asynchronous resume bit-identical to the uninterrupted run;
+ 31. the accuracy exit test: ``train --model cnn --dataset synthetic_hard
+     --synthetic-fallback -b 64 -e 2`` (Adam) for PARITY.json's five
+     seeds, run at once beside phases 21, 22 and 25-30, then ``test
+     -f`` on each best file: the mean test accuracy within 2.6 pp of the
+     JAX mean,
+     each seed printed beside JAX's;
+ 32. the card's name and power limit again, one ``{"kernels": [...]}``
+     JSON line (the float16 variants of K1, K2, K3 and K5 as their own
+     entries), then the last line ``{"ok": true, "device": {...}}``.
 
-Each phase prints its wall time.  Any failed check exits non-zero before
+Phases run in the order of their numbers but for three changes: 23 and
+24, which time steps and kernels, run before 21; the exit test's five
+trainings (31) start then and run beside 21, 22 and 25-30; the CLI
+trainings of 27, 29 and 30 start after 22 and run beside 25, 26 and 28;
+and the test of 29 and the resume of 30 run beside 27.
+Nothing after 24 is timed for the kernels line or PERF.md.  Each phase
+prints its wall time.  Any failed check exits non-zero before
 the last line is printed.  Work files go to ``build/chip_smoke/`` in the
 checkout, and the bytecode of the modules that the run's processes import
 to ``build/pycache/``.
@@ -219,7 +275,8 @@ FLUSH_MS = 100
 # has to outlast a wave's spread.  A full bucket dispatches at once.
 FILL_FLUSH_MS = 5000
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,   # dense, 700 W
+                  "float32": 67e12}
 TOL_O = {"bfloat16": 2e-2, "float32": 2e-5}   # bf16: one output rounding
 TOL_LSE = 1e-4                                # f32 in both
 # Served answers against the in-process predict step at the same bucket:
@@ -241,6 +298,10 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_dq_pos", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:189"),
     ("flash_dkv_pos", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:236"),
 )
+# their float16 variants: the same kernels at the vit's and the cnn's
+# shapes under --precision f16 (the ring's K4, K2p, K3p take no float16)
+F16_KERNELS = tuple((name + "_f16", source, replaces)
+                    for name, source, replaces in KERNELS[:4])
 # K2/K3 against their plain version: max error relative to the plain
 # version's largest value.  f32: the same f32 math in another summation
 # order.  bf16: one rounding of the output.
@@ -468,7 +529,7 @@ def bound_ms(b: int, s: int, h: int, d: int, dtype_name: str,
     """Least time for the work: each input read once and each output
     written once over HBM, or the two products' operations at the card's
     peak for the input type, whichever is larger."""
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = 4 if dtype_name == "float32" else 2
     nbytes = 4 * b * s * h * d * item + b * h * s * 4     # q, k, v, o, lse
     pairs = s * (s + 1) / 2 if causal else s * s
     ops = 4 * b * h * pairs * d                           # QK^T and PV
@@ -633,7 +694,8 @@ def burst(port: int, images, waves: int,
 
 
 def reference_predictions(ckpt_path: str, images, served_bucket,
-                          device: str, name: str = "vit"):
+                          device: str, name: str = "vit",
+                          precision: str = "bf16"):
     """The in-process predict step of the ``name`` checkpoint on the same
     rows, each row in a batch of the bucket the server answered it from
     (zero-padded, as the server pads), plus each row's softmax (to tell a
@@ -651,7 +713,7 @@ def reference_predictions(ckpt_path: str, images, served_bucket,
 
     ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
                       synthetic_fallback=True)
-    policy = PRESETS["bf16"]
+    policy = PRESETS[precision]
     size = get_model_input_size(name)
     model = get_model(name, ds.nb_classes, policy,
                       attention="flash" if name == "vit" else "full",
@@ -714,7 +776,7 @@ def check_logits(ckpt_path: str, images, device: str) -> None:
 
 
 def start_server(ckpt_path: str, n: int, flush_ms: int, device: str,
-                 attention: str = "flash"):
+                 attention: str = "flash", precision: str = "bf16"):
     """A ``serve`` subprocess that stops after ``n`` answers (a fresh
     process: its K1 count starts at 0 right before the main path and is
     read from its log right after); returns (port, proc, lines, the
@@ -726,7 +788,8 @@ def start_server(ckpt_path: str, n: int, flush_ms: int, device: str,
            "--attention", attention, "--synthetic-fallback",
            "--serve-buckets", ",".join(str(b) for b in BUCKETS),
            "--serve-max-requests", str(n), "--serve-port", str(port),
-           "--serve-max-latency-ms", str(flush_ms), "--device", device]
+           "--serve-max-latency-ms", str(flush_ms), "--device", device,
+           "--precision", precision]
     say("main: " + " ".join(os.path.relpath(c, ROOT) if c.startswith(ROOT)
                             else c for c in cmd[1:]))
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
@@ -945,7 +1008,7 @@ def bwd_bound_ms(b: int, s: int, h: int, d: int, dtype_name: str,
     and lse and writes dq, dk and dv), or its products' operations (K2: 3,
     K3: 4, the backward: 5) at the card's peak for the input type,
     whichever is larger."""
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = 4 if dtype_name == "float32" else 2
     tensor = b * s * h * d * item
     rows = b * h * s * 4
     pairs = s * (s + 1) / 2 if causal else s * s
@@ -1168,14 +1231,15 @@ TORCHRUN = ("-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", "1")
 
 
-def start_cli(args, rsl: str, launcher=(), data: str = "") -> tuple:
+def start_cli(args, rsl: str, launcher=(), data: str = "",
+              dataset: str = "mnist") -> tuple:
     """Starts ``python [LAUNCHER] -m distributedpytorch_tpu_torch ARGS`` (a
     fresh process: its kernel counters start at 0) on the data in ``data``
     (WORK/data by default), its output going to a file in WORK;
     ``finish_cli`` waits for it."""
     cmd = [sys.executable, *launcher, "-m", "distributedpytorch_tpu_torch",
            *args, "-d", data or os.path.join(WORK, "data"), "--rsl_path", rsl,
-           "--dataset", "mnist", "--synthetic-fallback", "--device", "cuda"]
+           "--dataset", dataset, "--synthetic-fallback", "--device", "cuda"]
     say("run: " + " ".join(os.path.relpath(c, ROOT) if c.startswith(ROOT)
                            else c for c in cmd[1:]))
     out = os.path.join(WORK, os.path.basename(rsl) + ".out")
@@ -1381,25 +1445,43 @@ def phase_resume_and_test(ckpt_path: str) -> None:
 
     launches, steps, evals = parse_launches(log_b, "train")
     last = "checkpoint-mnist-vit-001.ckpt"
-    a, b = (torch.load(os.path.join(r, last), map_location="cpu",
-                       weights_only=True)["state"] for r in (rsl_a, rsl_b))
-
-    def tensors(tree, prefix=""):
-        if isinstance(tree, torch.Tensor):
-            yield prefix, tree
-        elif isinstance(tree, dict):
-            for k in sorted(tree, key=str):
-                yield from tensors(tree[k], f"{prefix}/{k}")
-
-    pairs = list(zip(tensors(a), tensors(b)))
-    differ = [na for (na, ta), (nb, tb) in pairs
-              if na != nb or not torch.equal(ta, tb)]
+    n, differ = state_tensors_differ(os.path.join(rsl_a, last),
+                                     os.path.join(rsl_b, last))
     say(f"resume: resumed run ({steps} steps, launches {launches}) vs "
-        f"uninterrupted: {len(pairs)} tensors of params and optimizer "
-        f"state, {len(differ)} differ; step {a['step']} vs {b['step']}")
-    if differ or a["step"] != b["step"] or not pairs:
+        f"uninterrupted: {n} tensors and counts of params, optimizer "
+        f"state, step and updates; {len(differ)} differ")
+    if differ or not n:
         fail(f"the resumed run does not reproduce the uninterrupted one: "
              f"{differ[:5]}")
+
+
+def state_tensors_differ(path_a: str, path_b: str) -> tuple:
+    """(the number of tensors and counts in the two checkpoints' states,
+    the names of those that differ): params, optimizer state, step,
+    updates and loss scale."""
+    import torch
+
+    a, b = (torch.load(p, map_location="cpu", weights_only=True)["state"]
+            for p in (path_a, path_b))
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree, key=str):
+                yield from leaves(tree[k], f"{prefix}/{k}")
+        elif isinstance(tree, (torch.Tensor, int, float)) or tree is None:
+            yield prefix, tree
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            return torch.equal(x, y)
+        return type(x) is type(y) and x == y
+
+    pairs = list(zip(leaves(a), leaves(b)))
+    differ = [na for (na, ta), (nb, tb) in pairs
+              if na != nb or not same(ta, tb)]
+    if len(list(leaves(a))) != len(list(leaves(b))):
+        differ.append("(the number of entries)")
+    return len(pairs), differ
 
 
 # -- phase 9: profile of the train step -------------------------------------
@@ -1501,7 +1583,7 @@ def dw_bound_ms(b: int, h: int, w: int, ci: int, co: int, dtype_name: str):
     """Least time for K5: x and dy read once, the f32 dW written once, or
     its 2 * B*H*W * 9*Ci*Co operations at the card's peak for the input
     type, whichever is larger."""
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = 4 if dtype_name == "float32" else 2
     nbytes = b * h * w * (ci + co) * item + 9 * ci * co * 4
     ops = 2 * b * h * w * 9 * ci * co
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1814,8 +1896,10 @@ def check_pool_ties() -> None:
 ACC_SPREAD = 2.0
 
 
-def cnn_epoch(pallas_dw: bool, seed: int) -> dict:
-    """One epoch of Engine-driven cnn training (844 steps of 64, bf16),
+def cnn_epoch(pallas_dw: bool, seed: int, precision: str = "bf16",
+              max_steps: int = 0) -> dict:
+    """One epoch of Engine-driven cnn training (844 steps of 64, or the
+    first ``max_steps``; bf16 unless ``precision`` names another preset),
     as bench.py drives the JAX one, then validation.  K5's count is set
     to 0 just before and read just after."""
     import torch
@@ -1831,7 +1915,7 @@ def cnn_epoch(pallas_dw: bool, seed: int) -> dict:
 
     ds = load_dataset("mnist", os.path.join(WORK, "data"), seed,
                       synthetic_fallback=True)
-    policy = PRESETS["bf16"]
+    policy = PRESETS[precision]
     train = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, seed,
                            "cuda")
     valid = ResidentLoader(ds.splits["valid"], TRAIN_BATCH, False, seed,
@@ -1847,6 +1931,8 @@ def cnn_epoch(pallas_dw: bool, seed: int) -> dict:
     t0 = time.perf_counter()
     hist = []
     for i, (images, labels, v) in enumerate(train.epoch(0)):
+        if i == max_steps > 0:
+            break
         gen = utils.step_generator(seed, 0, i, "cuda")
         _, m = engine.train_step(state, images, labels, v, gen)
         hist.append(m["loss"])
@@ -1863,7 +1949,10 @@ def cnn_epoch(pallas_dw: bool, seed: int) -> dict:
     return dict(steps=len(losses), launches=launches,
                 tc_launches=tc_launches, wall=wall,
                 acc=100.0 * correct / n, first=float(losses[:k].mean()),
-                last=float(losses[-k:].mean()))
+                last=float(losses[-k:].mean()),
+                skipped=state.step - state.updates,
+                scale=(state.loss_scale.scale if state.loss_scale
+                       else None))
 
 
 def phase_cnn_epoch() -> int:
@@ -1903,10 +1992,11 @@ def phase_cnn_epoch() -> int:
 
 # -- phase 13: the reference's job under torchrun ---------------------------
 
-def eval_accuracy(ckpt_path: str, name: str, data: str = "") -> tuple:
+def eval_accuracy(ckpt_path: str, name: str, data: str = "",
+                  precision: str = "bf16") -> tuple:
     """In-process eval of a checkpoint on the test split of ``data``
-    (WORK/data by default), batch 64 bf16: (accuracy to 2 decimals as
-    `test` logs it, correct, rows)."""
+    (WORK/data by default), batch 64 in the ``precision`` preset:
+    (accuracy to 2 decimals as `test` logs it, correct, rows)."""
     from distributedpytorch_tpu_torch import checkpoint as ckpt
     from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
@@ -1918,7 +2008,7 @@ def eval_accuracy(ckpt_path: str, name: str, data: str = "") -> tuple:
 
     ds = load_dataset("mnist", data or os.path.join(WORK, "data"), SEED,
                       synthetic_fallback=True)
-    policy = PRESETS["bf16"]
+    policy = PRESETS[precision]
     model = get_model(name, ds.nb_classes, policy,
                       attention="flash" if name == "vit" else "full",
                       device="cuda")
@@ -2214,7 +2304,7 @@ def ring_bounds(b, s, h, d, dtype_name, pairs, tensor_core):
     K3p reads q, k, v, that dO (else the f32 one), lse, delta and the
     positions, and writes dk and dv.  The backward reads q, k, v, the f32
     dO and O, lse, dlse and the positions and writes dq, dk and dv."""
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = 4 if dtype_name == "float32" else 2
     t = b * s * h * d
     rows = b * h * s * 4
     pos = 2 * s * 4
@@ -2844,14 +2934,25 @@ ZOO_PARITY_BATCH = 4
 # the devices' last-bit differences of the forward (on the CPU alone
 # densenet's and inception's f32 gradients lie 2-3% from their f64 ones
 # at the median and up to 37% at the worst parameter; vgg's card vs CPU
-# 4.8e-2; ROADMAP queue 3 entry 8), so their f32 gradient error is
-# printed and not held.  vgg's conv biases feed a train-mode BatchNorm,
+# 4.8e-2; ROADMAP queue 3 entry 8), so their f32 gradients are held by
+# the conditioned rule of tests/_torch_zoo_jax.py: against the card's own
+# f64 step, the card's f32 step may be no further than
+# ZOO_CONDITIONED_FACTOR times the CPU's f32 step, at the median and at
+# the largest of the per-tensor errors.  inception's f32 backward through
+# cuDNN's convolutions lies 5x further from the f64 step than the CPU's
+# (median 0.36 against 0.066 per tensor on an H100, TF32 off, with or
+# without cuDNN's deterministic mode; ROADMAP queue 3 entry 10), and with
+# cuDNN off the card's step meets the rule (0.066): so inception's card
+# step is held with cuDNN off (ZOO_F32_WITHOUT_CUDNN) and its cuDNN
+# distance is printed.  vgg's conv biases feed a train-mode BatchNorm,
 # which cancels them: their gradient is zero up to rounding and is held
 # at the scale of its conv's weight gradient.
 TOL_ZOO_LOGITS = 1e-4
 TOL_ZOO_GRAD_F64 = 1e-6
 TOL_ZOO_GRAD_F32 = 1e-2
 ZOO_F32_GRADS_HELD = ("alexnet", "squeezenet")
+ZOO_CONDITIONED_FACTOR = 2.0
+ZOO_F32_WITHOUT_CUDNN = ("inception",)
 TOL_ZOO_STATS = 1e-4
 
 
@@ -2926,14 +3027,15 @@ def phase_zoo_parity() -> None:
                         PRESETS["f32"], "cpu")
         masks = engine.draw_dropout_masks(
             torch.Generator().manual_seed(SEED), b)
-        worst = {}
+        worst, steps, xs = {}, {}, {}
         for label, policy in (("f32", PRESETS["f32"]), ("f64", f64_policy())):
-            x = augment.train_transform(
+            x = xs[label] = augment.train_transform(
                 images, ds.mean, ds.std, size,
                 augment.affine_from_uniform(u, 28, 28),
                 out_dtype=policy.compute_dtype)
             card = zoo_step(name, "cuda", policy, x, masks)
             cpu = zoo_step(name, "cpu", policy, x, masks)
+            steps[label] = (card, cpu)
             errs = {k: zoo_rel(name, card[k], cpu[k])
                     for k in ("out", "grads", "stats")}
             worst[label] = {k: max(e.items(), key=lambda t: t[1],
@@ -2944,11 +3046,35 @@ def phase_zoo_parity() -> None:
                 for t in card[k].values())
         f32, f64 = worst["f32"], worst["f64"]
         held = name in ZOO_F32_GRADS_HELD
+        # the conditioned rule: each device's f32 gradients against the
+        # card's f64 step, per tensor
+        truth = steps["f64"][0]["grads"]
+        card_f32, cpu_f32 = (np.array(list(zoo_rel(
+            name, step["grads"], truth).values()))
+            for step in steps["f32"])
+        cudnn_note = ""
+        if name in ZOO_F32_WITHOUT_CUDNN:
+            cudnn_note = (f"; through cuDNN median {np.median(card_f32):.3g}"
+                          f" and worst {card_f32.max():.3g}, held with "
+                          f"cuDNN off")
+            with torch.backends.cudnn.flags(enabled=False):
+                card_f32 = np.array(list(zoo_rel(name, zoo_step(
+                    name, "cuda", PRESETS["f32"], xs["f32"], masks)[
+                        "grads"], truth).values()))
+        conditioned = (
+            float(np.median(card_f32)) <= ZOO_CONDITIONED_FACTOR
+            * float(np.median(cpu_f32))
+            and card_f32.max() <= ZOO_CONDITIONED_FACTOR * cpu_f32.max())
+        rule = (f"(tol {TOL_ZOO_GRAD_F32:g})" if held else
+                f"(against the card's f64 step: median "
+                f"{np.median(card_f32):.3g} and worst {card_f32.max():.3g}, "
+                f"the CPU f32 step's "
+                f"{np.median(cpu_f32):.3g} and {cpu_f32.max():.3g}, factor "
+                f"{ZOO_CONDITIONED_FACTOR:g}{cudnn_note})")
         say(f"zoo: {name} at {size} px, batch {b}, card vs CPU: f32 "
             f"logits worst {f32['out'][0]} {f32['out'][1]:.3g} (tol "
             f"{TOL_ZOO_LOGITS:g}); f32 gradient worst {f32['grads'][0]} "
-            f"{f32['grads'][1]:.3g} "
-            + (f"(tol {TOL_ZOO_GRAD_F32:g})" if held else "(printed only)")
+            f"{f32['grads'][1]:.3g} " + rule
             + f"; f64 gradient worst {f64['grads'][0]} "
             f"{f64['grads'][1]:.3g} (tol {TOL_ZOO_GRAD_F64:g}); BatchNorm "
             f"statistic worst {f32['stats'][0]} {f32['stats'][1]:.3g} (tol "
@@ -2958,7 +3084,8 @@ def phase_zoo_parity() -> None:
                 and f64["grads"][1] <= TOL_ZOO_GRAD_F64
                 and f32["stats"][1] <= TOL_ZOO_STATS
                 and f64["stats"][1] <= TOL_ZOO_STATS
-                and (not held or f32["grads"][1] <= TOL_ZOO_GRAD_F32)):
+                and (f32["grads"][1] <= TOL_ZOO_GRAD_F32 if held
+                     else conditioned)):
             fail(f"{name}'s step on the card disagrees with the CPU's: "
                  f"{worst}")
         if ("aux" in card["out"]) != (name == "inception"):
@@ -2994,10 +3121,13 @@ def moved_params(ckpt_path: str, name: str) -> tuple:
     return moved, len(params), finite
 
 
-def serve_zoo(ckpt_path: str, name: str, server, images) -> int:
+def serve_zoo(ckpt_path: str, name: str, server, images,
+              precision: str = "bf16") -> int:
     """One wave of ZOO_WAVE concurrent requests to ``server``; every
-    answer held against the in-process predict step at its bucket, as
-    phase 3 holds the vit's.  Returns the batches served."""
+    answer held against the in-process predict step (in the
+    ``precision`` preset) at its bucket, as phase 3 holds the vit's; a
+    zoo model's server launches no K1, the vit's 4 x (batches + warm-up
+    buckets), all on the tensor cores.  Returns the batches served."""
     import numpy as np
 
     answers, secs = serve_burst(server, images, 1, ZOO_WAVE)
@@ -3005,7 +3135,7 @@ def serve_zoo(ckpt_path: str, name: str, server, images) -> int:
     confs = np.array([a[2]["confidence"] for a in answers])
     served_bucket = np.array([a[2]["bucket"] for a in answers])
     want, want_conf, probs = reference_predictions(
-        ckpt_path, images, served_bucket, "cuda", name)
+        ckpt_path, images, served_bucket, "cuda", name, precision)
     top2 = np.sort(probs, axis=-1)[:, -2:]
     tie = (top2[:, 1] - top2[:, 0]) <= TOL_CONF
     conf_err = float(np.abs(confs - want_conf).max())
@@ -3023,10 +3153,13 @@ def serve_zoo(ckpt_path: str, name: str, server, images) -> int:
         f"{int((labels == want).sum())}/{len(answers)} labels equal "
         f"({int(tie.sum())} within {TOL_CONF:g} of a tie), max conf err "
         f"{conf_err:.3g} (tol {TOL_CONF:g}); K1 launches {launches}")
-    if ((labels != want) & ~tie).any() or conf_err > TOL_CONF \
-            or launches != 0:
+    if name == "vit":
+        check_server_launches(server[2], len(answers))
+    elif launches != 0:
+        fail(f"the {name} server launched K1 ({launches})")
+    if ((labels != want) & ~tie).any() or conf_err > TOL_CONF:
         fail(f"served {name} answers disagree with the in-process predict "
-             f"step, or the server launched K1 ({launches})")
+             f"step")
     return batches
 
 
@@ -3208,10 +3341,892 @@ def phase_zoo_profile() -> None:
         torch.backends.cudnn.deterministic = deterministic
 
 
+# -- phase 24: K1, K2, K3 and K5 in float16 ----------------------------------
+
+# float16 against the plain version, relative to the plain version's
+# largest value: one float16 rounding of the output (2^-11 relative) and,
+# on the tensor-core route, p and dS rounded to float16 before the second
+# products, as bf16 is held to TOL_GRAD for its 2^-8.
+TOL_F16 = 5e-3
+F16_ATTN = (64, 49, 4, 32)          # the vit's attention call under f16
+# The overflow case: dO near float16's range (the loss scale of
+# --precision f16 is 2^15), scores that concentrate p on a few keys, so
+# some dS reach 2^15 and past 65504 (kept in range by the tensor-core
+# route's power-of-two shift) and some dq, dk, dv pass 65504 (inf in the
+# plain version's float16 cast).  An element whose plain f32 value lies
+# within TOL_F16 x the largest value of 65520 (where float16 rounding
+# turns to inf) may round either way and is not held; every other
+# element's finiteness must equal the plain version's.
+F16_OVERFLOW = dict(qk_std=2.0, do_std=2.0 ** 14, do_clip=60000.0)
+F16_INF_AT = 65520.0
+
+
+def overflow_mismatch(got, ref32, band: float) -> tuple:
+    """(elements whose finiteness differs from the plain version's f32
+    value cast to float16, elements within ``band`` of F16_INF_AT that are
+    not held, elements the plain version overflows)."""
+    import torch
+
+    a = ref32.abs()
+    sure_inf = a >= F16_INF_AT + band
+    sure_fin = a < F16_INF_AT - band
+    got_inf = ~torch.isfinite(got)
+    bad = (got_inf & sure_fin) | (~got_inf & sure_inf)
+    return (int(bad.sum()), int((~sure_inf & ~sure_fin).sum()),
+            int((~torch.isfinite(ref32.half())).sum()))
+
+
+def phase_f16_kernels() -> dict:
+    """K1, K2 and K3 at the vit's (64, 49, 4, 32) and K5 at the cnn's three
+    conv shapes (batch 64), float16, on the route the rule picks (the
+    tensor cores) and on the scalar route (forced): each against its plain
+    version within TOL_F16 of the largest value, two calls bit-identical;
+    the overflow case's non-finite pattern against the plain version's;
+    device / call times beside the plain version's and the library's
+    float16 call (SDPA, SDPA's backward, cuDNN's wgrad; yardsticks only)
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    from distributedpytorch_tpu_torch.ops import conv
+    from distributedpytorch_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    dt, dtype = "float16", torch.float16
+    b, s, h, d = F16_ATTN
+    rows = {}
+
+    def qkv_views(std: float):
+        qkv = (torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")
+               * std).to(dtype)
+        return [t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1)]
+
+    def routes(fn_tc, fn_scalar, what: str):
+        """Both routes' outputs, each called twice and held
+        bit-identical."""
+        out = {}
+        for route, fn in (("tensor_core", fn_tc), ("scalar", fn_scalar)):
+            first, second = fn(), fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                fail(f"{what}'s {route} route is not deterministic in "
+                     f"float16")
+            out[route] = first
+        return out
+
+    # K1
+    q, k, v = qkv_views(1.0)
+    if not tfa._pick_route(None, (q, k, v), kernel="K1"):
+        fail("the vit's float16 q, k, v do not take K1's tensor cores")
+    before = flash_attention_counts()
+    fwd = routes(lambda: tfa.flash_attention_fwd(q, k, v),
+                 lambda: tfa._launch(q, k, v, False, tensor_core=False), "K1")
+    if flash_attention_counts()["flash_fwd"] != (
+            before["flash_fwd"][0] + 4, before["flash_fwd"][1] + 2):
+        fail("K1's wrapper did not count its float16 launches")
+    po, plse = tfa.flash_attention_plain(q, k, v)
+    errs = {}
+    for route, (o, lse) in fwd.items():
+        errs[route] = (rel_err(o, po), (lse - plse).abs().max().item())
+        if not (o.dtype == dtype and errs[route][0][1] <= TOL_F16
+                and errs[route][1] <= TOL_LSE):
+            fail(f"K1's float16 {route} route disagrees with its plain "
+                 f"version: O rel err {errs[route][0][1]} (tol {TOL_F16}), "
+                 f"lse {errs[route][1]} (tol {TOL_LSE}), O {o.dtype}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fns = {"kernel": lambda: tfa.flash_attention_fwd(q, k, v),
+           "scalar": lambda: tfa._launch(q, k, v, False, tensor_core=False),
+           "plain": lambda: tfa.flash_attention_plain(q, k, v),
+           "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
+    call = {n: time_ms(f) for n, f in fns.items()}
+    dev = {n: spread(t)[0] for n, t in device_ms_tries(fns).items()}
+    b_ms, b_by = bound_ms(b, s, h, d, dt, False)
+    say(f"f16 K1 {F16_ATTN}: rel err O " + "; ".join(
+        f"{r} {e[0][1]:.3g} (lse {e[1]:.3g})" for r, e in errs.items())
+        + f" (tol {TOL_F16:g}, {TOL_LSE:g}), bit-identical; "
+        + times_text(dev, call) + f"; bound_us={b_ms * 1e3:.3f} ({b_by})")
+    rows["flash_fwd_f16"] = dict(
+        max_abs_err=errs["tensor_core"][0][0],
+        rel_err=errs["tensor_core"][0][1], ms=dev["kernel"],
+        plain_ms=dev["plain"], library_ms=dev["sdpa"], bound_ms=b_ms,
+        bound_by=b_by, call_ms=call["kernel"], plain_call_ms=call["plain"],
+        library_call_ms=call["sdpa"], scalar_ms=dev["scalar"],
+        scalar_rel_err=errs["scalar"][0][1])
+
+    # K2 and K3, at unit inputs and in the overflow case
+    for case in ("unit", "overflow"):
+        if case == "unit":
+            q, k, v = qkv_views(1.0)
+            do = torch.randn((b, s, h, d), generator=gen,
+                             device="cuda").to(dtype)
+        else:
+            q, k, v = qkv_views(F16_OVERFLOW["qk_std"])
+            v = (v.float() / F16_OVERFLOW["qk_std"]).to(dtype)
+            do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                  * F16_OVERFLOW["do_std"]).clamp(
+                      -F16_OVERFLOW["do_clip"],
+                      F16_OVERFLOW["do_clip"]).to(dtype)
+        o, lse = tfa.flash_attention_fwd(q, k, v)
+        if not tfa._pick_route(None, (q, k, v, do, o)):
+            fail("the vit's float16 backward does not take the tensor "
+                 "cores")
+
+        def tc_bwd():
+            dq, delta = tfa.flash_attention_dq(q, k, v, o, do, lse)
+            return (dq, delta) + tfa.flash_attention_dkv(q, k, v, do, lse,
+                                                         delta)
+
+        def scalar_bwd():
+            dq, delta = tfa._dq_launch(q, k, v, o, do, lse,
+                                       tensor_core=False)
+            return (dq, delta) + tfa._dkv_launch(q, k, v, do, lse, delta,
+                                                 tensor_core=False)
+
+        before = flash_attention_counts()
+        got = routes(tc_bwd, scalar_bwd, "K2/K3")
+        now = flash_attention_counts()
+        for name in ("flash_dq", "flash_dkv"):
+            if now[name] != (before[name][0] + 4, before[name][1] + 2):
+                fail(f"{name}'s wrapper did not count its float16 "
+                     f"launches")
+        want_delta = tfa.attention_delta(o, do)
+        # the plain version's f32 values before its float16 cast
+        ref32 = tfa._bwd_blocks(q.float(), k.float(), v.float(), do.float(),
+                                lse, want_delta,
+                                tfa._causal_mask(s, False, q.device))
+        pdq, pdk, pdv = (x.to(dtype) for x in ref32)
+        errs = {}
+        for route, (dq, delta, dk, dv) in got.items():
+            e = {"delta": rel_err(delta, want_delta)}
+            for n, x, ref, r32 in (("dq", dq, pdq, ref32[0]),
+                                   ("dk", dk, pdk, ref32[1]),
+                                   ("dv", dv, pdv, ref32[2])):
+                if x.dtype != dtype:
+                    fail(f"K2/K3's {route} route returned {n} in {x.dtype}")
+                fin = torch.isfinite(x) & torch.isfinite(ref)
+                e[n] = rel_err(torch.where(fin, x, 0), torch.where(fin, ref,
+                                                                   0))
+                band = TOL_F16 * r32.abs().max().item()
+                mism, border, n_inf = overflow_mismatch(x, r32, band)
+                e[n + "_pattern"] = (mism, border, n_inf)
+                if mism:
+                    fail(f"float16 {case}: K2/K3's {route} route's "
+                         f"non-finite pattern of {n} differs from the plain "
+                         f"version's at {mism} elements ({border} within "
+                         f"{band:.4g} of {F16_INF_AT:g} not held; plain "
+                         f"overflows {n_inf})")
+            bad = {n: v[1] for n, v in e.items() if not n.endswith("pattern")
+                   and not v[1] <= (TOL_DELTA if n == "delta" else TOL_F16)}
+            if bad:
+                fail(f"float16 {case}: K2/K3's {route} route disagrees with "
+                     f"the plain version: {bad} (tol {TOL_F16}, delta "
+                     f"{TOL_DELTA})")
+            errs[route] = e
+        say(f"f16 K2/K3 {F16_ATTN} {case}: " + "; ".join(
+            f"{r} rel err " + " ".join(
+                f"{n}={v[1]:.3g}" for n, v in e.items()
+                if not n.endswith("pattern"))
+            + " non-finite (differing, not held, plain) " + " ".join(
+                f"{n[:-8]}={v}" for n, v in e.items()
+                if n.endswith("pattern"))
+            for r, e in errs.items())
+            + f" (tol {TOL_F16:g}, delta {TOL_DELTA:g}), bit-identical")
+        if case == "overflow":
+            continue
+        qs_, ks_, vs_ = (t.detach().transpose(1, 2).contiguous()
+                         .requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs_, ks_, vs_)
+        dot = do.transpose(1, 2).contiguous()
+        delta = got["tensor_core"][1]
+        fns = {"K2": lambda: tfa.flash_attention_dq(q, k, v, o, do, lse),
+               "K3": lambda: tfa.flash_attention_dkv(q, k, v, do, lse,
+                                                     delta),
+               "scalar K2": lambda: tfa._dq_launch(q, k, v, o, do, lse,
+                                                   tensor_core=False),
+               "scalar K3": lambda: tfa._dkv_launch(q, k, v, do, lse, delta,
+                                                    tensor_core=False),
+               "plain": lambda: tfa.flash_attention_bwd_plain(q, k, v, o,
+                                                              lse, do),
+               "sdpa bwd": lambda: torch.autograd.grad(
+                   out, (qs_, ks_, vs_), dot, retain_graph=True)}
+        call = {n: time_ms(f) for n, f in fns.items()}
+        dev = {n: spread(t)[0] for n, t in device_ms_tries(fns).items()}
+        bounds = {n: bwd_bound_ms(b, s, h, d, dt, False, n)
+                  for n in ("dq", "dkv")}
+        say(f"f16 K2/K3 {F16_ATTN}: " + times_text(dev, call)
+            + "; bound_us " + " ".join(f"{n}={t * 1e3:.3f} ({by})"
+                                       for n, (t, by) in bounds.items()))
+        for name, key, parts in (("flash_dq", "K2", ("delta", "dq")),
+                                 ("flash_dkv", "K3", ("dk", "dv"))):
+            err = max((errs["tensor_core"][n] for n in parts),
+                      key=lambda e: e[1])
+            rows[name + "_f16"] = dict(
+                max_abs_err=err[0], rel_err=err[1], ms=dev[key],
+                plain_ms=dev["plain"], library_ms=dev["sdpa bwd"],
+                bound_ms=bounds[name[6:]][0], bound_by=bounds[name[6:]][1],
+                call_ms=call[key], plain_call_ms=call["plain"],
+                library_call_ms=call["sdpa bwd"],
+                scalar_ms=dev["scalar " + key],
+                scalar_rel_err=max(errs["scalar"][n][1] for n in parts))
+
+    # K5 at the cnn's three convs, batch 64
+    parts = []
+    for (hh, ww, ci, co) in CNN_CONVS:
+        shape = (TRAIN_BATCH, hh, ww, ci, co)
+        x = torch.randn((TRAIN_BATCH, ci, hh, ww), generator=gen,
+                        device="cuda").to(dtype).contiguous(
+                            memory_format=torch.channels_last)
+        dy = torch.randn((TRAIN_BATCH, co, hh, ww), generator=gen,
+                         device="cuda").to(dtype).contiguous(
+                             memory_format=torch.channels_last)
+        xn, dyn = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+        if not conv.tensor_core_route(dtype, ci, co, xn.stride(),
+                                      dyn.stride(), xn.data_ptr(),
+                                      dyn.data_ptr()):
+            fail(f"K5's float16 call at {shape} does not take the tensor "
+                 f"cores")
+        ref = conv.conv3x3_dw_plain(xn, dyn)
+        before = (conv.conv3x3_dw.launches,
+                  conv.conv3x3_dw.tensor_core_launches)
+        got = routes(lambda: (conv.conv3x3_dw(xn, dyn),),
+                     lambda: (conv._launch(xn, dyn, tensor_core=False),),
+                     "K5")
+        if (conv.conv3x3_dw.launches,
+                conv.conv3x3_dw.tensor_core_launches) != (
+                before[0] + 4, before[1] + 2):
+            fail(f"K5's wrapper did not count its float16 launches at "
+                 f"{shape}")
+        errs = {r: rel_err(g[0], ref) for r, g in got.items()}
+        for r, e in errs.items():
+            if not e[1] <= TOL_DW:
+                fail(f"K5's float16 {r} route disagrees with its plain "
+                     f"version at {shape}: rel err {e[1]} (tol {TOL_DW})")
+        fns = {"kernel": lambda: conv.conv3x3_dw(xn, dyn),
+               "scalar": lambda: conv._launch(xn, dyn, tensor_core=False),
+               "plain": lambda: conv.conv3x3_dw_plain(xn, dyn),
+               "cudnn": lambda: conv2d_weight(x, (co, ci, 3, 3), dy,
+                                              padding=1)}
+        call = {n: time_ms(f) for n, f in fns.items()}
+        dev = {n: spread(t)[0] for n, t in device_ms_tries(fns).items()}
+        b_ms, b_by = dw_bound_ms(*shape, dt)
+        say(f"f16 K5 {shape}: rel err " + ", ".join(
+            f"{r} {e[1]:.3g}" for r, e in errs.items())
+            + f" (tol {TOL_DW:g}), deterministic; " + times_text(dev, call)
+            + f"; bound_us={b_ms * 1e3:.3f} ({b_by})")
+        parts.append(dict(max_abs_err=errs["tensor_core"][0],
+                          rel_err=errs["tensor_core"][1], ms=dev["kernel"],
+                          scalar_ms=dev["scalar"], plain_ms=dev["plain"],
+                          library_ms=dev["cudnn"], bound_ms=b_ms,
+                          call_ms=call["kernel"],
+                          plain_call_ms=call["plain"],
+                          library_call_ms=call["cudnn"]))
+    row = {key: sum(p[key] for p in parts) for key in
+           ("ms", "scalar_ms", "plain_ms", "library_ms", "bound_ms",
+            "call_ms", "plain_call_ms", "library_call_ms")}
+    row.update(max_abs_err=max(p["max_abs_err"] for p in parts),
+               rel_err=max(p["rel_err"] for p in parts), bound_by="bytes",
+               per_step_of=[list((TRAIN_BATCH,) + c) for c in CNN_CONVS],
+               per_shape_ms=[p["ms"] for p in parts])
+    rows["conv_dw_f16"] = row
+    for name, r in rows.items():
+        if any(r[key] is None for key in ("ms", "plain_ms", "library_ms")):
+            fail(f"torch.profiler returned no device events for {name}")
+    return rows
+
+
+def flash_attention_counts() -> dict:
+    """(launches, tensor-core launches) of K1, K2 and K3, by kernel name."""
+    from distributedpytorch_tpu_torch.ops import flash_attention as tfa
+
+    return {name: (fn.launches, fn.tensor_core_launches) for name, fn in
+            (("flash_fwd", tfa.flash_attention_fwd),
+             ("flash_dq", tfa.flash_attention_dq),
+             ("flash_dkv", tfa.flash_attention_dkv))}
+
+
+# -- phase 25: one f16 train step on the card against the CPU ----------------
+
+# The full-width vit, f16 at the loss scale 2^15, card against CPU, each
+# gradient (f32, unscaled) relative to its largest value: float16 rounds
+# at the same points on both devices (casts at use, products rounded to
+# float16, the kernels' p and dS rounded to float16 on the tensor cores,
+# held in f32 by the CPU's plain version), summed in other orders; the
+# narrow vit's f16 step sits within 1.4e-3 of the JAX one on the CPU.
+TOL_F16_STEP = 1e-2
+
+
+def phase_f16_step() -> None:
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    policy = PRESETS["f16"]
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    images = ds.splits["train"].images[:TRAIN_BATCH]
+    labels = ds.splits["train"].labels[:TRAIN_BATCH].astype(np.int64)
+    u = np.random.default_rng(SEED).random((TRAIN_BATCH, 5),
+                                           dtype=np.float32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                          device=device)
+        engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                        device)
+        state = engine.init_state(torch.Generator().manual_seed(SEED))
+        affine = augment.affine_from_uniform(
+            torch.from_numpy(u).to(device), 28, 28)
+        before = flash_attention_counts()
+        _, m = engine.train_step_affine(
+            state, torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device),
+            torch.ones(TRAIN_BATCH, dtype=torch.bool, device=device), affine)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            now = flash_attention_counts()
+            step = {n: (now[n][0] - before[n][0], now[n][1] - before[n][1])
+                    for n in now}
+            say(f"f16 step: one f16 vit step on the card launched "
+                f"(launches, tensor-core) {step}")
+            if any(v != (DEPTH, DEPTH) for v in step.values()):
+                fail(f"an f16 vit step must launch {DEPTH} each of K1, K2 "
+                     f"and K3, all on the tensor cores, got {step}")
+        got[device] = (m["loss"].item(), state.updates, state.loss_scale,
+                       {n: p.grad.detach().cpu()
+                        for n, p in model.named_parameters()})
+    (l_card, u_card, s_card, g_card), (l_cpu, u_cpu, s_cpu, g_cpu) = \
+        got["cuda"], got["cpu"]
+    finite = all(bool(torch.isfinite(g).all()) for g in g_card.values())
+    worst_grad = max(((n, rel_err(g_card[n], g)[1]) for n, g in
+                      g_cpu.items()), key=lambda t: t[1])
+    say(f"f16 step: full-width vit at loss scale "
+        f"{policy.loss_scale:g}, card vs CPU: loss {l_card:.6f} vs "
+        f"{l_cpu:.6f}; updates applied {u_card} vs {u_cpu}, scale after "
+        f"{s_card.scale:g} vs {s_cpu.scale:g}; worst gradient "
+        f"{worst_grad[0]} rel err {worst_grad[1]:.3g} (tol "
+        f"{TOL_F16_STEP:g}) over {len(g_cpu)} parameters, all finite: "
+        f"{finite}")
+    if (u_card, s_card) != (u_cpu, s_cpu) or u_card != 1 or not finite \
+            or not worst_grad[1] <= TOL_F16_STEP \
+            or abs(l_card - l_cpu) > TOL_F16_STEP * abs(l_cpu):
+        fail("the f16 vit step on the card disagrees with the CPU's")
+
+
+# -- phase 26: the overflow skip on the card --------------------------------
+
+def phase_f16_skip() -> None:
+    """resnet18's widths at one block a stage (224 px, batch 16), f16 with
+    Adam on the card: one finite step, then one whose loss numerator is
+    multiplied by 1e38 (finite in f32, not at the scale): parameters, the
+    whole Adam state and BatchNorm's running statistics bit-unchanged, the
+    step count advanced, the update count not, the scale halved."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models.resnet import ResNet
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    b = PARITY_BATCH["resnet"]
+    policy = PRESETS["f16"]
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    batch = (torch.from_numpy(ds.splits["train"].images[:b]).cuda(),
+             torch.from_numpy(ds.splits["train"].labels[:b].astype(
+                 np.int64)).cuda(),
+             torch.ones(b, dtype=torch.bool, device="cuda"))
+    affine = augment.affine_from_uniform(torch.from_numpy(
+        np.random.default_rng(SEED).random((b, 5), dtype=np.float32)).cuda(),
+        28, 28)
+    model = ResNet((1, 1, 1, 1), dtype=policy.compute_dtype, device="cuda")
+    engine = Engine(model, cross_entropy, ds.mean, ds.std, 224, policy,
+                    "cuda", optimizer="adam")
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    engine.train_step_affine(state, *batch, affine)
+    torch.cuda.synchronize()
+    first = (state.step, state.updates, state.loss_scale)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = copy.deepcopy(state.optimizer.state_dict())
+
+    def blowup(logits, labels):
+        numer, denom = cross_entropy(logits, labels)
+        return numer * 1e38, denom
+
+    engine.loss_fn = blowup
+    engine.train_step_affine(state, *batch, affine)
+    torch.cuda.synchronize()
+    moved = [k for k, v in model.state_dict().items()
+             if not torch.equal(v, params[k])]
+    after = state.optimizer.state_dict()["state"]
+    opt_moved = [(i, n) for i, st in opt["state"].items()
+                 for n, t in st.items() if not torch.equal(after[i][n], t)]
+    n_buffers = sum(1 for _ in model.buffers())
+    say(f"skip: f16 resnet (one block a stage, 224 px, batch {b}, Adam) on "
+        f"the card: after a finite step (step, updates, scale) "
+        f"{first[:2]} {first[2]}; after an injected overflow "
+        f"{(state.step, state.updates)} {state.loss_scale}; "
+        f"{len(moved)} of {len(params)} parameters and buffers "
+        f"({n_buffers} BatchNorm buffers) moved, {len(opt_moved)} of "
+        f"{sum(len(s) for s in opt['state'].values())} Adam state tensors "
+        f"moved")
+    if first[:2] != (1, 1) or moved or opt_moved or not opt["state"] \
+            or (state.step, state.updates) != (2, 1) \
+            or state.loss_scale.scale != first[2].scale / 2 \
+            or state.loss_scale.good_steps != 0:
+        fail(f"the overflow skip on the card: moved {moved[:5]}, Adam "
+             f"{opt_moved[:5]}, state {(state.step, state.updates)} "
+             f"{state.loss_scale}")
+
+
+# -- phase 27: the f16 main path ----------------------------------------------
+
+F16_CNN_STEPS = 200     # the Engine-driven cnn with K5 in f16 (of 844)
+
+
+def parse_loss_scale(log: str) -> tuple:
+    m = re.search(r"train: loss scale (\S+) after (\d+) steps, (\d+) "
+                  r"skipped on non-finite gradients", log)
+    if m is None:
+        fail("an f16 train did not log its loss scale and skipped steps")
+    return float(m.group(1)), int(m.group(2)), int(m.group(3))
+
+
+def start_f16_train() -> tuple:
+    """Phase 27's ``train --model vit --attention flash --precision f16
+    -e 1`` on phase 6's corpus, started ahead of the phase."""
+    write_vit_data()
+    return start_cli(["train", "--model", "vit", "--attention", "flash",
+                      "--precision", "f16", "-e", "1"],
+                     os.path.join(WORK, "f16_rsl"), data=VIT_DATA)
+
+
+def phase_f16_main_path(train_run: tuple) -> dict:
+    """The end of ``start_f16_train``'s run, then ``test -f --precision
+    f16`` and ``serve --precision f16`` (one wave of 16) of its best
+    model; then the Engine-driven cnn with K5 in f16 (F16_CNN_STEPS
+    steps).  Returns the launches of K1, K2, K3 and K5 on these runs."""
+    rsl = train_run[1]
+    (wall, log), = finish_all([train_run])
+    launches, steps, evals = parse_launches(log, "train")
+    tensor_core = parse_tensor_core_launches(log, "train")
+    scale, scale_steps, skipped = parse_loss_scale(log)
+    want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
+            "flash_dkv": DEPTH * steps, "conv_dw": 0}
+    say(f"f16 train: launches {launches} over {steps} steps and {evals} "
+        f"eval batches, formula {want}; on the tensor cores {tensor_core} "
+        f"(the vit computes in float16: every launch takes float16); loss "
+        f"scale {scale:g} after {scale_steps} steps, {skipped} skipped")
+    if launches != want or tensor_core != want or scale_steps != steps \
+            or skipped >= steps:
+        fail(f"the f16 train's launches {launches} (tensor-core "
+             f"{tensor_core}) do not match {want}, or its steps were "
+             f"skipped ({skipped} of {steps})")
+    check_epoch_log("f16 train", log, steps, wall)
+    best = os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    images = ds.splits["test"].images[:ZOO_WAVE]
+    server = start_server(best, ZOO_WAVE, FLUSH_MS, "cuda",
+                          precision="f16")
+    test = start_cli(["test", "-f", best, "--attention", "flash",
+                      "--precision", "f16"],
+                     os.path.join(WORK, "f16_test"), data=VIT_DATA)
+    try:
+        batches = serve_zoo(best, "vit", server, images, precision="f16")
+    finally:
+        if server[1].poll() is None:
+            server[1].kill()
+            server[1].wait()
+    (_, tlog), = finish_all([test])
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", tlog).group(1)
+    tlaunch, _, tevals = parse_launches(tlog, "test")
+    acc_here, correct, n = eval_accuracy(best, "vit", VIT_DATA,
+                                         precision="f16")
+    say(f"f16 test: `test -f --precision f16` {acc_cli}% ({tevals} eval "
+        f"batches, launches {tlaunch}); in-process f16 eval {acc_here}% "
+        f"({correct}/{n}); served {ZOO_WAVE} answers in {batches} batches")
+    if acc_cli != acc_here or tlaunch["flash_fwd"] != DEPTH * tevals:
+        fail("the f16 test disagrees with the in-process f16 eval")
+    np.testing.assert_equal(n, VIT_TEST_ROWS)
+    cnn = cnn_epoch(True, SEED, precision="f16", max_steps=F16_CNN_STEPS)
+    say(f"f16 cnn: Engine-driven cnn with K5, f16: {cnn['steps']} steps in "
+        f"{cnn['wall']:.2f}s, validation acc {cnn['acc']:.2f}% (chance "
+        f"10%), mean train loss first 10% {cnn['first']:.5f} last 10% "
+        f"{cnn['last']:.5f}, K5 launches {cnn['launches']} "
+        f"({cnn['tc_launches']} on the tensor cores), {cnn['skipped']} "
+        f"steps skipped, loss scale {cnn['scale']:g}")
+    if cnn["launches"] != 3 * cnn["steps"] or cnn["steps"] != F16_CNN_STEPS \
+            or cnn["tc_launches"] != cnn["launches"] or cnn["acc"] < 20.0 \
+            or not cnn["last"] < cnn["first"]:
+        fail(f"the f16 cnn with K5: {cnn}")
+    return {"flash_fwd_f16": launches["flash_fwd"],
+            "flash_dq_f16": launches["flash_dq"],
+            "flash_dkv_f16": launches["flash_dkv"],
+            "conv_dw_f16": cnn["launches"]}
+
+
+# -- phase 28: --grad-accum on the card ---------------------------------
+
+# K = 4 against K = 1 over three f32 SGD steps (TF32 off): the tests' and
+# the JAX package's bound (the same f32 math, the microbatch gradients
+# summed in another order).  f64 accumulated steps, card against CPU, each
+# tensor relative to its largest value: f64 compute, f32 parameters.
+ACCUM_RTOL, ACCUM_ATOL = 2e-5, 2e-6
+TOL_ACCUM_F64 = 1e-6
+ACCUM_K = 4
+
+
+def accum_steps(name: str, k: int) -> tuple:
+    """Three f32 SGD steps of ``name`` (vit with flash, or cnn with K5) at
+    ``grad_accum`` k on the card, from SEED's weights, on the first global
+    batch of the synthetic train split and three affine draws: (state
+    dict, per-step K1/K5 launches)."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops import conv
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    policy = PRESETS["f32"]
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    model = get_model(name, 10, policy, device="cuda",
+                      attention="flash" if name == "vit" else "full",
+                      pallas_dw=name == "cnn")
+    engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                    "cuda", optimizer="SGD", steps_per_epoch=2,
+                    grad_accum=k)
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    launches = []
+    for step in range(3):
+        rows = slice(step * TRAIN_BATCH, (step + 1) * TRAIN_BATCH)
+        valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device="cuda")
+        if step == 0:
+            valid[-5:] = False
+        affine = augment.affine_from_uniform(torch.from_numpy(
+            rng.random((TRAIN_BATCH, 5), dtype=np.float32)).cuda(), 28, 28)
+        before = (flash_attention_counts()["flash_fwd"][0],
+                  conv.conv3x3_dw.launches)
+        engine.train_step_affine(
+            state, torch.from_numpy(ds.splits["train"].images[rows]).cuda(),
+            torch.from_numpy(ds.splits["train"].labels[rows].astype(
+                np.int64)).cuda(), valid, affine)
+        torch.cuda.synchronize()
+        launches.append((flash_attention_counts()["flash_fwd"][0]
+                         - before[0], conv.conv3x3_dw.launches - before[1]))
+    return ({k_: v.detach().cpu() for k_, v in model.state_dict().items()},
+            launches)
+
+
+def accum_f64_step(name: str, device: str, masks) -> dict:
+    """One f64 accumulated SGD step (K = ACCUM_K, f32 parameters) of the
+    reduced resnet (two stages of width 8, 32 px) or alexnet (64 px) from
+    SEED's weights on the identity affine with the given per-microbatch
+    masks: gradients and BatchNorm statistics on the CPU."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.models.resnet import ResNet
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    policy = f64_policy()
+    b = 16
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    if name == "resnet_small":
+        model, size = ResNet((1, 1), width=8, dtype=torch.float64,
+                             device=device), 32
+    else:
+        model, size = get_model(name, 10, policy, device=device), 64
+    engine = Engine(model, cross_entropy, ds.mean, ds.std, size, policy,
+                    device, optimizer="SGD", grad_accum=ACCUM_K)
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    valid = torch.ones(b, dtype=torch.bool, device=device)
+    valid[-3:] = False
+    engine.train_step_affine(
+        state, torch.from_numpy(ds.splits["train"].images[:b]).to(device),
+        torch.from_numpy(ds.splits["train"].labels[:b].astype(
+            np.int64)).to(device), valid, identity_affine(b, device),
+        [[m.to(device) for m in ms] for ms in masks])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {**{n: p.grad.detach().cpu() for n, p in
+               model.named_parameters()},
+            **{n: v.detach().cpu() for n, v in model.named_buffers()}}
+
+
+def phase_grad_accum() -> None:
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    for name in ("vit", "cnn"):
+        one, l1 = accum_steps(name, 1)
+        four, l4 = accum_steps(name, ACCUM_K)
+        bad = [k for k, v in one.items() if not np.allclose(
+            four[k].numpy(), v.numpy(), rtol=ACCUM_RTOL, atol=ACCUM_ATOL)]
+        worst_ = max(((k, rel_err(four[k], v)[1]) for k, v in one.items()),
+                     key=lambda t: t[1])
+        per_micro = DEPTH if name == "vit" else 3
+        want = [(per_micro * ACCUM_K, 0) if name == "vit"
+                else (0, per_micro * ACCUM_K)] * 3
+        say(f"grad-accum: {name}, three f32 SGD steps at K = {ACCUM_K} vs "
+            f"K = 1 on the card (global batch {TRAIN_BATCH}): worst "
+            f"{worst_[0]} rel err {worst_[1]:.3g}, {len(bad)} tensors "
+            f"outside rtol {ACCUM_RTOL:g} atol {ACCUM_ATOL:g}; (K1, K5) "
+            f"launches a step {l4} at K = {ACCUM_K}, {l1} at K = 1")
+        if bad or l4 != want:
+            fail(f"the accumulated {name} steps disagree: {bad[:5]}, "
+                 f"launches {l4} (want {want})")
+    for name in ("resnet_small", "alexnet"):
+        masks = [[]] * ACCUM_K
+        if name == "alexnet":
+            engine = Engine(get_model(name, 10, f64_policy(), device="cpu"),
+                            cross_entropy, 0.0, 1.0, 64, f64_policy(),
+                            "cpu")
+            gen = torch.Generator().manual_seed(SEED)
+            masks = [engine.draw_dropout_masks(gen, 16 // ACCUM_K)
+                     for _ in range(ACCUM_K)]
+        card = accum_f64_step(name, "cuda", masks)
+        cpu = accum_f64_step(name, "cpu", masks)
+        worst_ = max(((k, rel_err(card[k], v)[1]) for k, v in cpu.items()),
+                     key=lambda t: t[1])
+        say(f"grad-accum: {name}, one f64 accumulated step (K = "
+            f"{ACCUM_K}, batch 16, {sum(len(m) for m in masks)} dropout "
+            f"masks) card vs CPU: worst {worst_[0]} rel err "
+            f"{worst_[1]:.3g} (tol {TOL_ACCUM_F64:g}) over {len(cpu)} "
+            f"tensors")
+        if not worst_[1] <= TOL_ACCUM_F64:
+            fail(f"the f64 accumulated {name} step on the card disagrees "
+                 f"with the CPU's: {worst_}")
+
+
+# -- phase 29: bf16_full ------------------------------------------------------
+
+def start_bf16_full() -> tuple:
+    """Phase 29's ``train --model resnet --precision bf16_full -e 1`` on
+    phase 22's corpus (18 steps), started ahead of the phase."""
+    write_zoo_data()
+    return start_cli(["train", "--model", "resnet", "--precision",
+                      "bf16_full", "-e", "1"],
+                     os.path.join(WORK, "bf16_full_rsl"), data=ZOO_DATA)
+
+
+def start_bf16_full_test(train_run: tuple) -> dict:
+    """The end of ``start_bf16_full``'s run, and ``test -f --precision
+    bf16_full`` of its best model started."""
+    (wall, log), = finish_all([train_run])
+    best = os.path.join(train_run[1], "bestmodel-mnist-resnet.ckpt")
+    return dict(wall=wall, log=log, best=best, run=start_cli(
+        ["test", "-f", best, "--precision", "bf16_full"],
+        os.path.join(WORK, "bf16_full_test"), data=ZOO_DATA))
+
+
+def phase_bf16_full(pending: dict) -> None:
+    """``start_bf16_full_test``'s train run checked (18 finite steps,
+    bfloat16 parameters and f32 statistics in its checkpoint), and its
+    test's end against an in-process eval."""
+    import torch
+
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+
+    wall, log, best = pending["wall"], pending["log"], pending["best"]
+    _, steps, _ = parse_launches(log, "train")
+    losses = zoo_log_losses(log)
+    params = ckpt.read_checkpoint(best)["state"]["params"]
+    dtypes = {}
+    for k, v in params.items():
+        kind = "statistic" if "running" in k else "parameter"
+        dtypes.setdefault(kind, set()).add(str(v.dtype))
+    (_, tlog), = finish_all([pending["run"]])
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", tlog).group(1)
+    acc_here, correct, n = eval_accuracy(best, "resnet", ZOO_DATA,
+                                         precision="bf16_full")
+    say(f"bf16_full: `train --model resnet --precision bf16_full` "
+        f"({wall:.1f}s of process wall): {steps} steps, {len(losses)} "
+        f"logged losses, last train loss {losses[-2]}, validation loss "
+        f"{losses[-1]}; checkpoint dtypes {dtypes}; `test -f` "
+        f"{acc_cli}%, in-process eval {acc_here}% ({correct}/{n})")
+    if dtypes != {"parameter": {str(torch.bfloat16)},
+                  "statistic": {str(torch.float32)}} \
+            or steps != math.ceil(int(ZOO_TRAIN_ROWS * 0.9) / TRAIN_BATCH) \
+            or not all(map(math.isfinite, losses)) or acc_cli != acc_here:
+        fail(f"bf16_full resnet: dtypes {dtypes}, {steps} steps, losses "
+             f"{losses}, test {acc_cli} vs {acc_here}")
+
+
+# -- phase 30: --ckpt-async -----------------------------------------------
+
+ASYNC_BASE = ["train", "--model", "vit", "--attention", "flash", "--debug",
+              "--keep-ckpts", "2", "-e", "2"]
+
+
+def ckpt_async_rsl(name: str) -> str:
+    return os.path.join(WORK, f"async_{name}")
+
+
+def start_ckpt_async() -> list:
+    """Phase 30's uninterrupted runs, with and without ``--ckpt-async``,
+    started ahead of the phase."""
+    return [start_cli(ASYNC_BASE, ckpt_async_rsl("sync")),
+            start_cli(ASYNC_BASE + ["--ckpt-async"], ckpt_async_rsl("async"))]
+
+
+def start_ckpt_async_resume(runs: list) -> dict:
+    """The ends of ``start_ckpt_async``'s uninterrupted runs, their
+    checkpoint files compared byte for byte, and the asynchronous run's
+    resume from its epoch-1 file, itself asynchronous, started."""
+    rsl = {n: ckpt_async_rsl(n) for n in ("sync", "async", "resumed")}
+    finish_all(runs)
+    files = sorted(f for f in os.listdir(rsl["sync"]) if f.endswith(".ckpt"))
+    differ = []
+    for f in files:
+        with open(os.path.join(rsl["sync"], f), "rb") as a, \
+                open(os.path.join(rsl["async"], f), "rb") as b:
+            if a.read() != b.read():
+                differ.append(f)
+    first = "checkpoint-mnist-vit-000.ckpt"
+    os.makedirs(rsl["resumed"], exist_ok=True)
+    shutil.copy(os.path.join(rsl["async"], first),
+                os.path.join(rsl["resumed"], first))
+    return dict(rsl=rsl, files=files, differ=differ, run=start_cli(
+        ASYNC_BASE + ["--ckpt-async", "-f",
+                      os.path.join(rsl["resumed"], first)], rsl["resumed"]))
+
+
+def phase_ckpt_async(pending: dict) -> None:
+    """Phase 7's resume check with ``--ckpt-async``: every checkpoint
+    file of the uninterrupted run byte-identical to the synchronous run's
+    (``start_ckpt_async_resume``), and the asynchronous resume's end
+    against the uninterrupted run (bit for bit)."""
+    rsl, files, differ = pending["rsl"], pending["files"], pending["differ"]
+    finish_all([pending["run"]])
+    last = "checkpoint-mnist-vit-001.ckpt"
+    n, resumed_differ = state_tensors_differ(
+        os.path.join(rsl["sync"], last), os.path.join(rsl["resumed"], last))
+    say(f"ckpt-async: {len(files)} checkpoint files {files}, "
+        f"{len(differ)} differ byte for byte between the synchronous and "
+        f"the asynchronous run; the asynchronous resume against the "
+        f"uninterrupted run: {n} tensors of params and optimizer state, "
+        f"{len(resumed_differ)} differ")
+    if differ or len(files) != 3 or resumed_differ or not n:
+        fail(f"--ckpt-async: files differ {differ}, resumed tensors differ "
+             f"{resumed_differ[:5]}")
+
+
+# -- phase 31: the accuracy exit test -------------------------------------
+
+# PARITY.json: the JAX package's cnn, Adam, batch 64, 2 epochs on
+# synthetic_hard, test accuracy of the best-valid-loss model over five
+# seeds: mean 92.69%, seed sd 1.36 pp.  The port's five-seed mean must lie
+# within 3 sd of the difference of two 5-seed means: 3 x 1.36 x sqrt(2/5)
+# = 2.58, rounded to 2.6 pp.
+EXIT_SEEDS = (1234, 7, 99, 41, 2024)
+EXIT_TOL_PP = 2.6
+EXIT_DATA = os.path.join(WORK, "exit_data")
+
+
+def start_exit_test() -> list:
+    """The five seeds' trainings, started at once (``run_train`` on the
+    argv ``train --model cnn --dataset synthetic_hard --synthetic-fallback
+    -b 64 -e 2`` with the config's seed set: the CLI, like the JAX one,
+    has no seed flag)."""
+    runs = []
+    for seed in EXIT_SEEDS:
+        rsl = os.path.join(WORK, f"exit_{seed}")
+        argv = ["train", "-d", EXIT_DATA, "--rsl_path", rsl, "--model",
+                "cnn", "--dataset", "synthetic_hard",
+                "--synthetic-fallback", "-b", "64", "-e", "2", "--device",
+                "cuda"]
+        code = ("import dataclasses\n"
+                "from distributedpytorch_tpu_torch import cli, config, "
+                "runtime\n"
+                f"cfg = dataclasses.replace(config.config_from_argv("
+                f"{argv!r}), seed={seed})\n"
+                "try:\n"
+                "    cli.run_train(cfg)\n"
+                "finally:\n"
+                "    runtime.shutdown_distributed()\n")
+        out = os.path.join(WORK, f"exit_{seed}.out")
+        say(f"run: train seed {seed}: " + " ".join(argv[1:]))
+        with open(out, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                    stdout=f, stderr=subprocess.STDOUT)
+        runs.append(("train", rsl, out, proc, time.perf_counter()))
+    return runs
+
+
+def phase_exit_test(runs: list) -> None:
+    """The five trainings' ends, then ``test -f`` on each best file (all
+    five at once); the mean test accuracy against PARITY.json's."""
+    with open(os.path.join(ROOT, "PARITY.json")) as f:
+        parity = json.load(f)
+    if tuple(parity["seeds"]) != EXIT_SEEDS:
+        fail(f"PARITY.json's seeds {parity['seeds']} are not {EXIT_SEEDS}")
+    trained = finish_all(runs)
+    tests = [start_cli(["test", "-f", os.path.join(
+        WORK, f"exit_{seed}", "bestmodel-synthetic_hard-cnn.ckpt"), "-b",
+        "64"], os.path.join(WORK, f"exit_test_{seed}"), data=EXIT_DATA,
+        dataset="synthetic_hard") for seed in EXIT_SEEDS]
+    accs = []
+    for seed, (wall, log), (_, tlog) in zip(EXIT_SEEDS, trained,
+                                            finish_all(tests)):
+        acc = float(re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                              tlog).group(1))
+        accs.append(acc)
+        valid = re.findall(r"Validation  \| Loss: ([\d.]+) +\| Acc: "
+                           r"([\d.]+)%", log)
+        say(f"exit: seed {seed}: 2 epochs, collected {wall:.1f}s after "
+            f"the five started together (beside phases 21, 22 and 25-30); "
+            f"validation (loss, acc) {valid}; test "
+            f"accuracy {acc:.2f}% (JAX: "
+            f"{100 * parity['ours_test_acc'][EXIT_SEEDS.index(seed)]:.2f}"
+            f"%)")
+    mean = sum(accs) / len(accs)
+    sd = (sum((a - mean) ** 2 for a in accs) / (len(accs) - 1)) ** 0.5
+    say(f"exit: mean test accuracy {mean:.2f}% (seed sd {sd:.2f} pp) "
+        f"against the JAX mean {parity['mean_ours']:.2f}% (sd "
+        f"{parity['sd_ours_pp']:.2f} pp): difference "
+        f"{mean - parity['mean_ours']:+.2f} pp (tol {EXIT_TOL_PP} pp)")
+    if abs(mean - parity["mean_ours"]) > EXIT_TOL_PP:
+        fail(f"the exit test's mean test accuracy {mean:.2f}% is more than "
+             f"{EXIT_TOL_PP} pp from the JAX mean {parity['mean_ours']}%")
+
+
 # a phase's checks that need another phase's output (phase 23 writes
 # phase 22's corpus itself when 22 does not run)
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 24                 # the closing lines; only a full run has it
+LAST_PHASE = 32                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -3362,15 +4377,63 @@ def main(argv=None) -> int:
         run(phase_ring_steps)
     if want(20):
         run(phase_ring_profile)
-    if want(21):
-        run(phase_zoo_parity)
-    if want(22):
-        run(phase_zoo_main_path)
+    # 23 and 24 time steps and kernels: they run before 21 and 22, and from
+    # there on nothing is timed for the kernels line or PERF.md, so the
+    # exit test's five trainings run beside phases 21, 22 and 25-30, and
+    # the CLI runs of 27, 29 and 30 beside 25, 26 and 28
     if want(23):
         run(phase_zoo_profile)
+    if want(24):
+        main_rows.update(run(phase_f16_kernels))
+    started = []
+
+    def ahead(phase: int, start):
+        runs = start() if want(phase) else None
+        started.extend([runs] if isinstance(runs, tuple) else runs or [])
+        return runs
+
+    exit_runs = ahead(31, start_exit_test)
+    try:
+        if want(21):
+            run(phase_zoo_parity)
+        if want(22):
+            run(phase_zoo_main_path)
+        f16_run = ahead(27, start_f16_train)
+        bf16_run = ahead(29, start_bf16_full)
+        async_runs = ahead(30, start_ckpt_async)
+        if want(25):
+            run(phase_f16_step)
+        if want(26):
+            run(phase_f16_skip)
+        if want(28):
+            run(phase_grad_accum)
+        # the second processes of 29 and 30 run beside 27's
+        bf16_pending = (start_bf16_full_test(bf16_run) if want(29)
+                        else None)
+        async_pending = (start_ckpt_async_resume(async_runs) if want(30)
+                         else None)
+        started.extend(p["run"] for p in (bf16_pending, async_pending)
+                       if p is not None)
+        if want(27):
+            launches.update(run(phase_f16_main_path, f16_run))
+            # phase 27 fails unless every one of them took the tensor cores
+            tc_launches.update({k: v for k, v in launches.items()
+                                if k.endswith("_f16")})
+        if want(29):
+            run(phase_bf16_full, bf16_pending)
+        if want(30):
+            run(phase_ckpt_async, async_pending)
+        if want(31):
+            run(phase_exit_test, exit_runs)
+    finally:
+        for *_, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches.get(name),
-                **main_rows[name]} for name, source, replaces in KERNELS
+                **main_rows[name]} for name, source, replaces in
+               KERNELS + F16_KERNELS
                if chosen is None or name in main_rows]
     for row in kernels:
         if row["name"] == "flash_fwd" and serve_launches is not None:

@@ -7,16 +7,29 @@ Counterpart of ``distributedpytorch_tpu/checkpoint.py``: the file names
 the same schema (:135-260), ``verify_checkpoint`` and ``lineage_info``
 (:229-292), ``list_checkpoints`` (:295-313),
 ``load_checkpoint_with_fallback`` (:332-365), the five-field file
-(:368-432), ``load_checkpoint`` (:957+), ``restore_for_serving`` and
-``get_checkpoint_model_name`` (:970-1064), ``rotate_checkpoint`` (:1067+).
+(:368-432), ``AsyncSaver`` and ``save_checkpoint_async`` (:433-613),
+``load_checkpoint`` (:957+, with the loss-scale rule of :1012-1024),
+``restore_for_serving`` and ``get_checkpoint_model_name`` (:970-1064),
+``rotate_checkpoint`` (:1067+).
 
 The port's file holds the same five fields (``format_version``,
 ``model_name``, ``epoch``, ``loss``, ``state``) written with
 ``torch.save`` (a zip archive), atomically (tmp + rename), with its
-sha256 recorded in ``ckpt-lineage.json`` beside it.  Format version 2:
+sha256 recorded in ``ckpt-lineage.json`` beside it.  Format version 3:
 ``state`` is ``{"params": model.state_dict(), "opt_state":
-optimizer.state_dict() (on the CPU, or None), "step": int}``.  Version-1
-files hold ``{"params"}`` only; ``serve`` and ``test`` still read them.
+optimizer.state_dict() (on the CPU, or None), "step": int, "updates": int
+(the applied optimizer updates, which set the SGD learning rate), "loss_scale":
+{"scale", "good_steps"} (f16) or None}``.  Version-2 files have no
+``updates`` (it is their ``step``: no step of theirs was skipped) and no
+``loss_scale``; version-1 files hold ``{"params"}`` only, which ``serve``
+and ``test`` still read.  The loss scale follows the JAX rule: an f16 file
+restored into a run that scales no loss drops its scale, and a file
+without one restored into an f16 run keeps the run's fresh 2^15.
+``--ckpt-async`` (``AsyncSaver``, ``save_checkpoint_async``): the caller
+takes the snapshot (every tensor copied to the CPU, before the next step
+moves the parameters in place) and a background thread serializes and
+writes it, FIFO with the rotation deletes; the file is byte-identical to
+the synchronous save's.
 BatchNorm's running statistics are buffers of the model and travel in
 ``params`` (``model.state_dict()``).  A file that is not a zip archive is
 read as the JAX package's msgpack checkpoint of any of the nine models:
@@ -37,8 +50,9 @@ import json
 import logging
 import os
 import re
+import queue as queue_mod
 import threading
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,9 +60,10 @@ from torch import nn
 
 from . import faults, telemetry
 from .models.convert import cnn_params_from_jax, params_from_jax
+from .precision import LossScaleState
 
-FORMAT_VERSION = 2
-_READABLE_VERSIONS = (1, 2)     # the port's own files
+FORMAT_VERSION = 3
+_READABLE_VERSIONS = (1, 2, 3)  # the port's own files
 _JAX_FORMAT_VERSION = 1
 _JAX_MODELS = ("vit", "cnn", "mlp", "resnet", "alexnet", "vgg",
                "squeezenet", "densenet", "inception")
@@ -217,9 +232,11 @@ def rotate_checkpoint(rsl_path: str, dataset: str, model_name: str,
 # -- write ---------------------------------------------------------------
 
 def _to_cpu(tree):
-    """Tensors of a (nested) state dict moved to the CPU."""
+    """Tensors of a (nested) state dict copied to the CPU (a copy even
+    where they already are: the snapshot must not move with the next
+    step's in-place update)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -227,30 +244,180 @@ def _to_cpu(tree):
     return tree
 
 
-def save_checkpoint(path: str, model_name: str, model: nn.Module,
-                    epoch: int, best_valid_loss: float,
-                    optimizer: Optional[torch.optim.Optimizer] = None,
-                    step: int = 0) -> None:
-    """Write the port's five-field file (format version 2) atomically and
-    record its sha256 in the lineage ledger.  ``optimizer`` and ``step``
-    are the trainer's; a file written without them serves and tests but
-    cannot resume training."""
+def _payload(model_name: str, model: nn.Module, epoch: int,
+             best_valid_loss: float,
+             optimizer: Optional[torch.optim.Optimizer], step: int,
+             updates: Optional[int],
+             loss_scale: Optional[LossScaleState]) -> dict:
+    """The file's five fields, every tensor copied to the CPU."""
     state = {"params": _to_cpu(model.state_dict()),
              "opt_state": (None if optimizer is None
                            else _to_cpu(optimizer.state_dict())),
-             "step": int(step)}
+             "step": int(step),
+             "updates": int(step if updates is None else updates),
+             "loss_scale": (None if loss_scale is None
+                            else loss_scale.to_dict())}
+    return {"format_version": FORMAT_VERSION, "model_name": model_name,
+            "epoch": int(epoch), "loss": float(best_valid_loss),
+            "state": state}
+
+
+def _write(path: str, payload: dict) -> None:
+    """Serialize, write atomically (tmp + rename) and record the sha256
+    in the lineage ledger: host and file work only, safe on a background
+    thread; a crash at any point leaves the previous file at ``path``."""
     buf = io.BytesIO()
-    torch.save({"format_version": FORMAT_VERSION, "model_name": model_name,
-                "epoch": int(epoch), "loss": float(best_valid_loss),
-                "state": state}, buf)
+    torch.save(payload, buf)
     blob = buf.getvalue()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(blob)
     os.replace(tmp, path)
+    epoch = payload["epoch"]
     _lineage_record(path, epoch, hashlib.sha256(blob).hexdigest(), len(blob))
-    logging.info(f"epoch:{int(epoch):04d}: model saved to {path}")
+    logging.info(f"epoch:{epoch:04d}: model saved to {path}")
+
+
+def save_checkpoint(path: str, model_name: str, model: nn.Module,
+                    epoch: int, best_valid_loss: float,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    step: int = 0, updates: Optional[int] = None,
+                    loss_scale: Optional[LossScaleState] = None) -> None:
+    """Write the port's five-field file (format version 3) atomically and
+    record its sha256 in the lineage ledger.  ``optimizer``, ``step``,
+    ``updates`` (``step`` when None) and ``loss_scale`` are the trainer's;
+    a file written without an optimizer serves and tests but cannot
+    resume training."""
+    _write(path, _payload(model_name, model, epoch, best_valid_loss,
+                          optimizer, step, updates, loss_scale))
+
+
+_SAVER_SHUTDOWN = object()
+
+
+class AsyncSaver:
+    """Ordered background checkpoint I/O (``--ckpt-async``), the JAX
+    package's class.
+
+    One daemon worker thread drains a FIFO job queue, so every submitted
+    job (rolling write, best-model write, rotation delete) runs in the
+    order the caller issued it: a newer save never races an older one onto
+    the same path, and a rotation never deletes a file whose earlier write
+    is still pending.  ``submit`` returns at once.
+
+    A background exception is kept and re-raised from the next
+    ``submit``/``wait``/``close`` on the caller's thread, so a failing write
+    cannot pass silently.  The caller calls ``wait()`` (or ``close()``)
+    before it exits, and before telemetry closes, so the background spans
+    land in the JSONL.
+
+    ``on_error='degrade'`` (what ``train`` passes): instead of
+    re-raising, the first background failure is logged and emitted as a
+    ``ckpt_async_degraded`` telemetry event, and every later job runs
+    synchronously on the caller's thread (a persistent failure then
+    surfaces from the synchronous write itself).  The default, 'raise',
+    keeps the must-not-pass-silently contract for library callers.
+    """
+
+    def __init__(self, on_error: str = "raise"):
+        if on_error not in ("raise", "degrade"):
+            raise ValueError(
+                f"AsyncSaver on_error must be 'raise' or 'degrade', "
+                f"got {on_error!r}")
+        self.on_error = on_error
+        self.degraded = False
+        self._queue = queue_mod.Queue()
+        # set by the worker before task_done(); read by the caller after a
+        # join (ordered by Queue.join) or before one (a miss is re-raised
+        # by the next call)
+        self._exc: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def _worker(self) -> None:
+        while True:
+            fn = self._queue.get()
+            try:
+                if fn is _SAVER_SHUTDOWN:
+                    return
+                fn()
+            except BaseException as e:  # kept for the caller: the next
+                # submit()/wait()/close() re-raises it there
+                self._exc = e
+            finally:
+                self._queue.task_done()
+
+    def _raise_pending(self) -> None:
+        if self._exc is None:
+            return
+        exc, self._exc = self._exc, None
+        if self.on_error != "degrade":
+            raise exc
+        if not self.degraded:
+            self.degraded = True
+            logging.error(
+                f"async checkpoint writer FAILED ({exc!r}); degrading "
+                "to synchronous saves for the rest of the run")
+            telemetry.get().event("ckpt_async_degraded", error=str(exc))
+
+    @property
+    def in_flight(self) -> bool:
+        return self._thread is not None \
+            and self._queue.unfinished_tasks > 0
+
+    def submit(self, fn: Callable[[], None]) -> None:
+        self._raise_pending()
+        if self.degraded:
+            fn()  # synchronous: the order holds, the run goes on
+            return
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._worker,
+                                            name="dpt-ckpt-writer",
+                                            daemon=True)
+            self._thread.start()
+        self._queue.put(fn)
+
+    def wait(self) -> None:
+        """Block until every submitted job finished; re-raise a
+        failure."""
+        if self._thread is not None:
+            self._queue.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        """``wait()`` and retire the worker thread."""
+        if self._thread is not None:
+            self._queue.put(_SAVER_SHUTDOWN)
+            self._queue.join()
+            self._thread.join()
+            self._thread = None
+        self._raise_pending()
+
+
+def save_checkpoint_async(saver: AsyncSaver, path: str, model_name: str,
+                          model: nn.Module, epoch: int,
+                          best_valid_loss: float,
+                          optimizer: Optional[torch.optim.Optimizer] = None,
+                          step: int = 0, updates: Optional[int] = None,
+                          loss_scale: Optional[LossScaleState] = None
+                          ) -> None:
+    """``save_checkpoint`` with only the snapshot on the caller's path:
+    the state dicts copied to the CPU (a ``ckpt_save_blocking`` span),
+    done before the next step's in-place update; the serialization, the
+    tmp + rename and the lineage record run on ``saver``'s thread (a
+    ``ckpt_save_background`` span).  The same bytes as the synchronous
+    save, and the same crash safety."""
+    tel = telemetry.get()
+    attrs = dict(fmt="torch", epoch=int(epoch), file=os.path.basename(path))
+    with tel.span("ckpt_save_blocking", **attrs):
+        payload = _payload(model_name, model, epoch, best_valid_loss,
+                           optimizer, step, updates, loss_scale)
+
+    def write():
+        with telemetry.get().span("ckpt_save_background", **attrs):
+            _write(path, payload)
+
+    saver.submit(write)
 
 
 # -- read ----------------------------------------------------------------
@@ -406,12 +573,15 @@ def restore_for_serving(path: str, model: nn.Module) -> int:
 
 def load_checkpoint(path: str, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    restore_optimizer: bool = True
+                    restore_optimizer: bool = True, train_state=None
                     ) -> Tuple[int, float, int]:
     """Restore ``model`` (and, with ``restore_optimizer``, ``optimizer``)
     in place; returns (next_epoch, best_valid_loss, step).  Resuming needs
-    a format-2 file of the port: a JAX-written file or a params-only file
-    is refused for it (``test`` and ``serve`` read both)."""
+    a format-2 or -3 file of the port: a JAX-written file or a params-only
+    file is refused for it (``test`` and ``serve`` read both).  Given the
+    trainer's ``train_state`` (``updates``, ``loss_scale``), its update
+    count and loss scale are restored too, by the JAX rule of the module
+    docstring."""
     payload, writer = _read(path)
     state = payload["state"]
     if restore_optimizer:
@@ -429,15 +599,21 @@ def load_checkpoint(path: str, model: nn.Module,
         except (ValueError, KeyError) as e:
             raise ValueError(f"{path}: optimizer state does not fit the "
                              f"optimizer: {e}") from e
+    step = int(state.get("step", 0))
+    if train_state is not None:
+        train_state.updates = int(state.get("updates", step))
+        saved = state.get("loss_scale")
+        if train_state.loss_scale is not None and saved is not None:
+            train_state.loss_scale = LossScaleState.from_dict(saved)
     epoch = int(payload["epoch"]) + 1
     logging.info(f"epoch:{epoch:04d}: model loaded from {path}")
-    return epoch, float(payload["loss"]), int(state.get("step", 0))
+    return epoch, float(payload["loss"]), step
 
 
 def load_checkpoint_with_fallback(path: str, model: nn.Module,
                                   optimizer: Optional[torch.optim.Optimizer],
                                   rsl_path: str, dataset: str,
-                                  model_name: str
+                                  model_name: str, train_state=None
                                   ) -> Tuple[int, float, int]:
     """``load_checkpoint`` with lineage recovery: when the requested file
     is torn or corrupt, fall back — loudly (error log + ``ckpt_fallback``
@@ -455,7 +631,8 @@ def load_checkpoint_with_fallback(path: str, model: nn.Module,
         reason = verify_checkpoint(cand)
         if reason is None:
             try:
-                return load_checkpoint(cand, model, optimizer)
+                return load_checkpoint(cand, model, optimizer,
+                                       train_state=train_state)
             except ValueError as e:
                 if str(e) == _NOT_RESUMABLE_JAX:
                     raise

@@ -7,7 +7,12 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     ``_run_train_epochs`` (:601-1016, :1208-1335) with ``_run_train_pass``,
     ``_run_eval_pass`` and ``_progress_logs`` (:335-476): no elastic
     world, fault plans, flight recorder, goodput ledger, exporter, roofline
-    or chunked epochs.  Under ``torchrun`` (or any env:// launch) every
+    or chunked epochs.  ``--precision f16`` scales the loss (skipped steps
+    and the final scale are logged), ``--grad-accum K`` accumulates K
+    microbatches a step, and ``--ckpt-async`` hands rank 0's checkpoint
+    writes and rotation deletes to a background ``AsyncSaver`` (joined
+    before a preemption exit and closed before telemetry).  Under
+    ``torchrun`` (or any env:// launch) every
     process is one data-parallel rank (``runtime.py``); a plain launch is
     a world of one.  The data is device-resident; a step gathers its
     rank's rows on the device and draws the global batch's augmentation
@@ -121,7 +126,8 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
                   optimizer=cfg.optimizer, learning_rate=cfg.learning_rate,
                   momentum=cfg.momentum, lr_step_gamma=cfg.lr_step_gamma,
                   steps_per_epoch=steps_per_epoch,
-                  feature_extract=cfg.feature_extract, mesh=mesh)
+                  feature_extract=cfg.feature_extract, mesh=mesh,
+                  grad_accum=cfg.grad_accum if cfg.action == "train" else 1)
 
 
 def _make_loader(cfg: Config, split: Split, shuffle: bool,
@@ -227,11 +233,37 @@ def _run_train_pass(engine: Engine, state: TrainState,
             float(metrics[:, 1].sum() / max(float(metrics[:, 2].sum()), 1.0)))
 
 
+def _rotate_ckpt(cfg: Config, saver, model_name: str, epoch: int) -> None:
+    """The rolling file's rotation, rank 0, in order with the async
+    writer: an earlier epoch's pending write lands before the delete (a
+    write after it would bring the file back)."""
+    def rotate():
+        ckpt.rotate_checkpoint(cfg.rsl_path, cfg.dataset, model_name,
+                               epoch, keep=cfg.keep_ckpts)
+
+    if saver is None:
+        rotate()
+    else:
+        saver.submit(rotate)
+
+
+def _save_ckpt(saver, path: str, model_name: str, state: TrainState,
+               epoch: int, best_valid_loss: float) -> None:
+    """One checkpoint file of rank 0: written now, or with
+    ``--ckpt-async`` snapshotted now and written by ``saver``."""
+    args = (path, model_name, state.model, epoch, best_valid_loss,
+            state.optimizer, state.step, state.updates, state.loss_scale)
+    if saver is None:
+        ckpt.save_checkpoint(*args)
+    else:
+        ckpt.save_checkpoint_async(saver, *args)
+
+
 def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                       train_loader: ResidentLoader,
                       valid_loader: ResidentLoader, model_name: str,
                       start_epoch: int, best_valid_loss: float,
-                      start_time: float, shutdown) -> dict:
+                      start_time: float, shutdown, saver=None) -> dict:
     """The per-epoch loop (ref classif.py:151-192); rank 0 writes the
     checkpoints."""
     history = []
@@ -273,17 +305,15 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                      f"samples/s/chip "
                      f"({world} chip{'s' if world > 1 else ''})")
         if runtime.is_main():
-            ckpt.rotate_checkpoint(cfg.rsl_path, cfg.dataset, model_name,
-                                   epoch, keep=cfg.keep_ckpts)
+            _rotate_ckpt(cfg, saver, model_name, epoch)
             paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
                                           model_name, epoch)]
             if improved:
                 paths.append(ckpt.best_model_path(cfg.rsl_path, cfg.dataset,
                                                   model_name))
             for path in paths:
-                ckpt.save_checkpoint(path, model_name, state.model, epoch,
-                                     best_valid_loss, state.optimizer,
-                                     state.step)
+                _save_ckpt(saver, path, model_name, state, epoch,
+                           best_valid_loss)
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "train_acc": train_acc, "valid_loss": valid_loss,
                         "valid_acc": valid_acc,
@@ -291,6 +321,8 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
         tel.flush()
         # every rank stops after the same epoch
         if runtime.any_process(shutdown.requested):
+            if saver is not None:
+                saver.wait()    # the rolling file is whole before exit
             tel.event("preempt", after_epoch=epoch)
             logging.info(f"preempted after epoch {epoch + 1}: "
                          f"checkpoint written, resume with -f")
@@ -303,6 +335,7 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
 def run_train(cfg: Config) -> dict:
     """ref train() (classif.py:75-192), one process on one device."""
     device, tel, mesh = _start(cfg, "train")
+    saver = None
     try:
         if device.type == "cuda":
             torch.backends.cudnn.deterministic = True
@@ -330,8 +363,8 @@ def run_train(cfg: Config) -> dict:
                                     device, mesh)
         engine = _build_engine(cfg, model_name, dataset, len(train_loader),
                                device, mesh)
-        tel.event("precision_policy", remat="none", grad_accum=1,
-                  **engine.precision.describe())
+        tel.event("precision_policy", remat="none",
+                  grad_accum=cfg.grad_accum, **engine.precision.describe())
         load_weights = None
         if cfg.use_pretrained:
             def load_weights(model):
@@ -345,27 +378,48 @@ def run_train(cfg: Config) -> dict:
             start_epoch, best_valid_loss, state.step = \
                 ckpt.load_checkpoint_with_fallback(
                     cfg.checkpoint_file, state.model, state.optimizer,
-                    cfg.rsl_path, cfg.dataset, model_name)
+                    cfg.rsl_path, cfg.dataset, model_name,
+                    train_state=state)
         else:
             start_epoch, best_valid_loss = 0, math.inf
+        # rank 0 writes; a background writer failure degrades to
+        # synchronous saves (a ckpt_async_degraded event) instead of
+        # killing the run at the next join
+        if cfg.ckpt_async and runtime.is_main():
+            saver = ckpt.AsyncSaver(on_error="degrade")
         before, before_tc = kernel_launches(), tensor_core_launches()
-        step0 = state.step
+        step0, updates0 = state.step, state.updates
         start_time = time.monotonic()
         shutdown = utils.GracefulShutdown()
         with shutdown:
             result = _run_train_epochs(cfg, engine, state, train_loader,
                                        valid_loader, model_name, start_epoch,
-                                       best_valid_loss, start_time, shutdown)
+                                       best_valid_loss, start_time, shutdown,
+                                       saver)
+        if saver is not None:
+            saver.wait()
         runtime.barrier()       # every rank returns after rank 0's writes
         steps = state.step - step0
         evals = len(result["history"]) * len(valid_loader)
         _log_launches("train", before, before_tc,
                       f"{steps} train steps and {evals} eval batches")
+        if state.loss_scale is not None:
+            skipped = steps - (state.updates - updates0)
+            tel.event("loss_scale", skipped=skipped, steps=steps,
+                      scale=state.loss_scale.scale)
+            logging.info(f"train: loss scale {state.loss_scale.scale:g} "
+                         f"after {steps} steps, {skipped} skipped on "
+                         f"non-finite gradients")
         result["launches"] = {k: v - before[k]
                               for k, v in kernel_launches().items()}
         return result
     finally:
-        tel.close()
+        # pending writes land (and their spans) before telemetry closes
+        try:
+            if saver is not None:
+                saver.close()
+        finally:
+            tel.close()
 
 
 def run_test(cfg: Config) -> dict:

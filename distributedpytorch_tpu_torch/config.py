@@ -18,6 +18,13 @@ from a torchvision ``state_dict``, and ``test``, ``serve`` and a resumed
 ``train`` refuse it with the JAX messages.  ``--attention`` other than
 ``full`` on a model without attention is refused with the JAX registry's
 message.
+``--precision`` takes the four JAX presets: ``f32``, ``bf16``,
+``bf16_full`` (bfloat16 weights) and ``f16`` (float16 compute with the
+dynamic loss scale; with ``--attention ring|ring_flash`` it is not ported
+yet).  ``train`` takes ``--grad-accum K`` (K microbatches a step; K must
+divide the per-replica batch, the JAX message otherwise) and
+``--ckpt-async`` (checkpoint files written by a background thread); ``test``
+accepts and ignores both, as the JAX ``test`` does.
 ``--model-parallel M`` (M >= 2) runs only the ring of ``--attention ring``
 or ``ring_flash`` over the (world / M, M) mesh, with the parameters
 replicated on every rank: the JAX package's placement of parameters over
@@ -104,6 +111,8 @@ class Config:
     serve_max_requests: int = 0
     device: str = "cuda"
     model_parallel: int = 1
+    grad_accum: int = 1
+    ckpt_async: bool = False
 
     def precision_policy(self):
         """The resolved precision.PrecisionPolicy for this config."""
@@ -119,8 +128,8 @@ def not_ported(cfg: Config) -> Optional[str]:
     checks = (
         (ring and cfg.action == "serve" and cfg.model_name in (None, "vit"),
          f"--attention {cfg.attention}"),
-        (cfg.precision not in (None, "bf16", "f32"),
-         f"--precision {cfg.precision}"),
+        (cfg.precision == "f16" and ring,
+         f"--precision f16 with --attention {cfg.attention}"),
         (cfg.data_mode == "stream", "--data-mode stream"),
         (cfg.model_parallel > 1 and not ring and cfg.action != "serve",
          "--model-parallel (parameter sharding over 'model')"),
@@ -145,6 +154,13 @@ def check_ported(cfg: Config) -> Config:
     flag = not_ported(cfg)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
+    if cfg.action == "train" and (cfg.grad_accum < 1
+                                  or cfg.batch_size % cfg.grad_accum):
+        # the JAX run_train's check (cli.py:725-728)
+        raise ValueError(
+            f"--grad-accum must be >= 1 and divide the per-replica batch "
+            f"size ({cfg.batch_size}); got {cfg.grad_accum}")
+    cfg.precision_policy()      # --no-bf16 against another preset
     if cfg.action == "train":       # test and serve: the checkpoint's
         from .models.registry import check_attention
 
@@ -246,7 +262,6 @@ REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
     ("--prefetch", _INT, NUM_WORKERS),
     ("--producer-threads", _INT, 1),
     ("--device-prefetch", _INT, 0),
-    ("--ckpt-async", _ON, False),
     ("--compilation-cache-dir", _STR, None),
     ("--no-compile-cache", _ON, False),
     ("--aot-warmup", _ON, False),
@@ -265,7 +280,6 @@ REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
     ("--anomaly-capture-steps", _INT, 4),
     ("--anomaly-max-captures", _INT, 2),
     ("--epochs-per-dispatch", _INT, 1),
-    ("--grad-accum", _INT, 1),
     ("--pipeline-microbatches", _INT, 0),
 )
 
@@ -335,7 +349,19 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
                    help="float32 compute (equivalent to --precision f32)")
     p.add_argument("--precision",
                    choices=("f32", "bf16", "bf16_full", "f16"), default=None,
-                   help="mixed-precision preset (ported: f32, bf16)")
+                   help="mixed-precision preset: f32, bf16 (f32 weights, "
+                        "bf16 compute; the default), bf16_full (bf16 "
+                        "weights too) or f16 (f16 compute with a dynamic "
+                        "loss scale)")
+    p.add_argument("--grad-accum", type=int, default=1, dest="grad_accum",
+                   metavar="K",
+                   help="accumulate gradients over K microbatches per "
+                        "optimizer step (default 1; test ignores it)")
+    p.add_argument("--ckpt-async", action="store_true", dest="ckpt_async",
+                   help="non-blocking checkpoint saves: serialization and "
+                        "file I/O run on a background writer joined at the "
+                        "next save, preemption or exit (the same bytes; "
+                        "test ignores it)")
     p.add_argument("--data-mode", choices=("auto", "stream", "resident"),
                    default="auto", dest="data_mode",
                    help="device-resident batches (auto, resident); stream "
@@ -412,7 +438,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="float32 compute (equivalent to --precision f32)")
     p.add_argument("--precision",
                    choices=("f32", "bf16", "bf16_full", "f16"), default=None,
-                   help="mixed-precision preset (ported: f32, bf16)")
+                   help="mixed-precision preset: f32, bf16 (the default), "
+                        "bf16_full or f16")
     p.add_argument("--attention",
                    choices=("full", "ring", "flash", "ring_flash"),
                    default="full",

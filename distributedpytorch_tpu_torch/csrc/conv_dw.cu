@@ -32,41 +32,45 @@
 //
 // Two routes, chosen by the wrapper (ops/conv.py::tensor_core_route):
 //
-// 1. bf16 with Ci and Co multiples of 8, 16-byte-aligned x and dy and
-//    (b, h, w) strides that are multiples of 8 -- the cnn's main path --
-//    runs conv_dw_mma_kernel on the tensor cores.  A block owns one tap
-//    (kh, kw), a Ci tile and a Co tile (32 or 64 each) and one split.
+// 1. bf16 or float16 (the cnn under --precision f16) with Ci and Co multiples
+//    of 8, 16-byte-aligned x and dy and (b, h, w) strides that are multiples
+//    of 8 -- the cnn's main path -- runs conv_dw_mma_kernel<T, TM, TN> on the
+//    tensor cores (mma16.cuh's building blocks for either type).  A block owns
+//    one tap (kh, kw), a Ci tile and a Co tile (32 or 64 each) and one split.
 //    For its tap the block's A operand is x[b, h + kh - 1, w + kw - 1,
-//    ci-tile], a plain strided tile whose off-border rows are zero, and its
-//    B operand is dy[b, h, w, co-tile]: dW_tap = A^T B over the split's
-//    pixels.  Both tiles arrive pixel-major with channels contiguous, so
-//    both fragments load with ldmatrix .trans, and each smem row is padded
-//    by 16 bytes (an 80- or 144-byte stride: no bank conflicts).  Chunks
-//    of 64 pixels go through two smem stages by 16-byte cp.async.cg
-//    copies: chunk k + 1 is in flight while chunk k multiplies.  A copy
-//    off the border or past the split's end is the zero-fill form
-//    (src-size 0), not a branch.  The pixel -> (b, h, w) decode of a
-//    chunk is done once, into shared memory, one chunk ahead.  4 warps,
-//    2 x 2 over the tile, mma.sync.m16n8k16 bf16 x bf16 -> f32.  x is
-//    re-read from L2 once per tap (3.2 MB at Conv_1, against 50 MB of
-//    L2): one block for all nine taps over a halo strip would read it once
-//    from DRAM, at the price of a harder loader (later work).  The
-//    tensor core's own f32 accumulation rounds differently from an FMA
-//    chain, so each chunk's mma sums start from zero and are added into
-//    separate f32 registers by ordinary FADDs, as fp8 GEMMs promote
-//    their partial sums.
+//    ci-tile], a plain strided tile whose off-border rows are zero, and its B
+//    operand is dy[b, h, w, co-tile]: dW_tap = A^T B over the split's pixels.
+//    Both tiles arrive pixel-major with channels contiguous, so both fragments
+//    load with ldmatrix .trans, and each smem row is padded by 16 bytes (an
+//    80- or 144-byte stride: no bank conflicts).  Chunks of 64 pixels go
+//    through two smem stages by 16-byte cp.async.cg copies: chunk k + 1 is in
+//    flight while chunk k multiplies.  A copy off the border or past the
+//    split's end is the zero-fill form (src-size 0), not a branch.  The pixel
+//    -> (b, h, w) decode of a chunk is done once, into shared memory, one
+//    chunk ahead.  4 warps, 2 x 2 over the tile, mma.sync.m16n8k16 T x T ->
+//    f32.  x and dy are inputs, so float16 rounds nothing more here: every
+//    product is exact in f32 and dW is summed in f32, as in bf16.  x is
+//    re-read from L2 once per tap (3.2 MB at Conv_1, against 50 MB of L2): one
+//    block for all nine taps over a halo strip would read it once from DRAM,
+//    at the price of a harder loader (later work).  The tensor core's own f32
+//    accumulation rounds differently from an FMA chain, so each chunk's mma
+//    sums start from zero and are added into separate f32 registers by
+//    ordinary FADDs, as fp8 GEMMs promote their partial sums.
 //
-// 2. Every other call -- f32, and bf16 shapes or strides the first route
-//    does not take -- runs conv_dw_partial_kernel, scalar FMAs on the f32
-//    CUDA-core pipe (67 TFLOP/s, 14 us for Conv_1 alone): 256 threads own a
-//    64 (patch rows) x 32 (output channels) tile, 2 x 4 accumulators each,
-//    and walk their split in chunks of 32 pixels staged in shared memory
-//    as f32.  f32 stays here rather than on TF32 tensor cores: TF32 keeps
-//    about three decimal digits, and the f32 cnn steps are held to the CPU
-//    with TF32 off; the main path is bf16.
+// 2. Every other call -- f32, and bf16 or float16 shapes or strides the first
+//    route does not take -- runs conv_dw_partial_kernel, scalar FMAs on the
+//    f32 CUDA-core pipe (67 TFLOP/s, 14 us for Conv_1 alone): 256 threads own
+//    a 64 (patch rows) x 32 (output channels) tile, 2 x 4 accumulators each,
+//    and walk their split in chunks of 32 pixels staged in shared memory as
+//    f32.  f32 stays here rather than on TF32 tensor cores: TF32 keeps about
+//    three decimal digits, and the f32 cnn steps are held to the CPU with TF32
+//    off; the main path is bf16.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include "mma16.cuh"
 
 namespace {
 
@@ -79,6 +83,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -222,61 +227,18 @@ void launch(const void* x, const void* dy, float* ws, float* out, int B,
 
 
 // -- route 1: tensor cores ------------------------------------------------
+// (cp.async, ldmatrix .trans and mma.sync for either 16-bit type are
+// mma16.cuh's; its block of kMmaThreads = 4 warps goes 2 x 2 over the
+// output tile here)
 
-constexpr int kMmaThreads = 128;  // 4 warps, 2 x 2 over the output tile
 constexpr int kMmaTK = 64;        // pixels per chunk (4 mma k-steps of 16)
-constexpr int kPad = 8;           // bf16 of padding per shared-memory row
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes and reads
-// nothing.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices, each stored as 8 rows of 8 contiguous elements
-// (row addresses from lanes 8j..8j+7 for matrix j), transposed on the way
-// in: lane l gets stored rows 2(l%4), 2(l%4)+1 of column l/4.
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const unsigned (&a)[4],
-                                               const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Block (co tile, tap * ci_tiles + ci tile, split).  TM input channels x
 // TN output channels of one tap, over the split's pixels.
-template <int TM, int TN>
+template <typename T, int TM, int TN>
 __global__ void __launch_bounds__(kMmaThreads)
-conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ dy,
+conv_dw_mma_kernel(const T* __restrict__ x,
+                   const T* __restrict__ dy,
                    float* __restrict__ ws, int H, int W, int Ci, int Co,
                    int N, int xs0, int xs1, int xs2, int ys0, int ys1,
                    int ys2, int rows_per_split, int ci_tiles) {
@@ -286,8 +248,8 @@ conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
   static_assert(kMmaTK * AP % kMmaThreads == 0 &&
                     kMmaTK * BP % kMmaThreads == 0 && NI % 2 == 0,
                 "tile sizes");
-  __shared__ __align__(128) __nv_bfloat16 a_s[2][kMmaTK][TM + kPad];
-  __shared__ __align__(128) __nv_bfloat16 b_s[2][kMmaTK][TN + kPad];
+  __shared__ __align__(128) T a_s[2][kMmaTK][TM + kPad];
+  __shared__ __align__(128) T b_s[2][kMmaTK][TN + kPad];
   __shared__ int pix_b[2][kMmaTK];
   __shared__ int pix_h[2][kMmaTK];
   __shared__ int pix_w[2][kMmaTK];
@@ -336,7 +298,7 @@ conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
       const int ww = pix_w[buf][p] + dw;
       const bool ok = b >= 0 && ci < Ci && hh >= 0 && hh < H && ww >= 0 &&
                       ww < W;
-      const __nv_bfloat16* src =
+      const T* src =
           ok ? x + (long long)b * xs0 + (long long)hh * xs1 +
                    (long long)ww * xs2 + ci
              : x;
@@ -350,7 +312,7 @@ conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
       const int co = c0 + (i - p * BP) * 8;
       const int b = pix_b[buf][p];
       const bool ok = b >= 0 && co < Co;
-      const __nv_bfloat16* src =
+      const T* src =
           ok ? dy + (long long)b * ys0 + (long long)pix_h[buf][p] * ys1 +
                    (long long)pix_w[buf][p] * ys2 + co
              : dy;
@@ -392,7 +354,9 @@ conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NI; ++j) mma_bf16_16816(d[i][j], af[i], bf[j]);
+        for (int j = 0; j < NI; ++j) {
+          mma_16816<T>(d[i][j], af[i], bf[j][0], bf[j][1]);
+        }
     }
   };
 
@@ -455,27 +419,28 @@ conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int TM, int TN>
+template <typename T, int TM, int TN>
 void launch_mma(const void* x, const void* dy, float* partial, int B, int H,
                 int W, int Ci, int Co, const int* strides,
                 int rows_per_split, int splits, cudaStream_t stream) {
   const int ci_tiles = (Ci + TM - 1) / TM;
   const dim3 grid((Co + TN - 1) / TN, 9 * ci_tiles, splits);
-  conv_dw_mma_kernel<TM, TN><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), partial, H, W, Ci, Co,
+  conv_dw_mma_kernel<T, TM, TN><<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), partial, H, W,
+      Ci, Co,
       B * H * W, strides[0], strides[1], strides[2], strides[3], strides[4],
       strides[5], rows_per_split, ci_tiles);
 }
 
+template <typename T>
 bool launch_mma_tiles(int tile_ci, int tile_co, const void* x,
                       const void* dy, float* partial, int B, int H, int W,
                       int Ci, int Co, const int* strides, int rows_per_split,
                       int splits, cudaStream_t stream) {
 #define DPT_MMA_CASE(TM, TN)                                             \
   if (tile_ci == TM && tile_co == TN) {                                  \
-    launch_mma<TM, TN>(x, dy, partial, B, H, W, Ci, Co, strides,         \
-                       rows_per_split, splits, stream);                  \
+    launch_mma<T, TM, TN>(x, dy, partial, B, H, W, Ci, Co, strides,      \
+                          rows_per_split, splits, stream);               \
     return true;                                                         \
   }
   DPT_MMA_CASE(32, 32)
@@ -488,7 +453,8 @@ bool launch_mma_tiles(int tile_ci, int tile_co, const void* x,
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.
 // x is (B, H, W, Ci) and dy (B, H, W, Co), read through strides (in
 // elements) {x_b, x_h, x_w, dy_b, dy_h, dy_w}; both channel strides must be
 // 1.  out is (9 * Ci, Co) f32.  ws holds splits * 9 * Ci * Co floats (unused
@@ -512,23 +478,29 @@ extern "C" int dpt_conv3x3_dw(const void* x, const void* dy, void* ws,
   } else if (dtype == 1) {
     launch<__nv_bfloat16>(x, dy, wsf, outf, B, H, W, Ci, Co, strides,
                           rows_per_split, splits, st);
+  } else if (dtype == 2) {
+    launch<__half>(x, dy, wsf, outf, B, H, W, Ci, Co, strides,
+                   rows_per_split, splits, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Route 1, bf16 on the tensor cores: the same arguments and layout as
-// dpt_conv3x3_dw, with tile_ci, tile_co in {32, 64} the block's channel
-// tile.  Refuses (cudaErrorInvalidValue, nothing launched) Ci or Co not a
-// multiple of 8, x or dy not 16-byte aligned, a stride not a multiple of
-// 8, a tile or a split count it does not take.
+// Route 1, bf16 (dtype 1) or float16 (dtype 2) on the tensor cores: the
+// same arguments and layout as dpt_conv3x3_dw, with tile_ci, tile_co in
+// {32, 64} the block's channel tile.  Refuses (cudaErrorInvalidValue,
+// nothing launched) another dtype, Ci or Co not a multiple of 8, x or dy
+// not 16-byte aligned, a stride not a multiple of 8, a tile or a split
+// count it does not take.
 extern "C" int dpt_conv3x3_dw_mma(const void* x, const void* dy, void* ws,
                                   void* out, int B, int H, int W, int Ci,
                                   int Co, const int* strides,
                                   int rows_per_split, int splits,
-                                  int tile_ci, int tile_co, void* stream) {
-  bool ok = splits >= 1 && splits <= 65535 && rows_per_split >= 1 &&
+                                  int tile_ci, int tile_co, int dtype,
+                                  void* stream) {
+  bool ok = (dtype == 1 || dtype == 2) && splits >= 1 && splits <= 65535 &&
+            rows_per_split >= 1 &&
             Ci % 8 == 0 && Co % 8 == 0 &&
             reinterpret_cast<unsigned long long>(x) % 16 == 0 &&
             reinterpret_cast<unsigned long long>(dy) % 16 == 0;
@@ -536,8 +508,14 @@ extern "C" int dpt_conv3x3_dw_mma(const void* x, const void* dy, void* ws,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* partial = static_cast<float*>(splits == 1 ? out : ws);
-  if (!launch_mma_tiles(tile_ci, tile_co, x, dy, partial, B, H, W, Ci, Co,
-                        strides, rows_per_split, splits, st)) {
+  const bool launched =
+      dtype == 1 ? launch_mma_tiles<bf16>(tile_ci, tile_co, x, dy, partial, B,
+                                          H, W, Ci, Co, strides,
+                                          rows_per_split, splits, st)
+                 : launch_mma_tiles<f16>(tile_ci, tile_co, x, dy, partial, B,
+                                         H, W, Ci, Co, strides,
+                                         rows_per_split, splits, st);
+  if (!launched) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (splits > 1) {

@@ -38,7 +38,9 @@
 // scales q first); masked scores behave as the -1e30 sentinel (p and ds
 // are forced to 0 there, but for K3p's p before dv, above); dq and dk are
 // scaled once at the end; outputs are cast to the input dtype with
-// round-to-nearest-even.
+// round-to-nearest-even (a float16 value past 65504 is +-inf, as the TPU
+// kernels' astype gives it).  K2 and K3 take f32, bf16 and float16 (the
+// vit under --precision f16); K2p and K3p f32 and bf16.
 //
 // Not carried over: the wrapper's moveaxis to (B*H, S, D) and the pad of S
 // to a multiple of 128.  q, k, v, dO and O are read in their (B, S, H, D)
@@ -72,27 +74,35 @@
 // Two routes, chosen by the wrapper (ops/flash_attention.py::
 // tensor_core_route for K2/K3, ::partial_tensor_core_route for K2p/K3p):
 //
-// 1. bf16 at D = 32 or 64 with 16-byte-aligned rows -- the vit's main
-//    path and the ring's shards -- runs flash_dq_mma_kernel (K2, K2p) and
-//    flash_dkv_mma_kernel (K3, K3p) on the tensor cores,
-//    mma.sync.m16n8k16 bf16 x bf16 -> f32.  A block of 4 warps owns 64
-//    rows, 16 a warp: query rows for K2, key rows for K3.  Its own rows (Q
-//    and dO, or K and V) arrive once by 16-byte cp.async and go into A
-//    fragments by ldmatrix; the other side (K/V tiles for K2; Q/dO tiles
-//    with their lse and delta for K3) streams through two cp.async stages
-//    of 64 rows, tile t + 1 in flight while tile t multiplies, one barrier
-//    a tile.  Shared rows are padded by 16 bytes, so ldmatrix is free of
-//    bank conflicts.  A warp walks its tile 16 columns at a time:
+// 1. bf16, or float16 for K2/K3, at D = 32 or 64 with 16-byte-aligned rows --
+//    the vit's main path and the ring's shards -- runs flash_dq_mma_kernel
+//    (K2, K2p) and flash_dkv_mma_kernel (K3, K3p) on the tensor cores,
+//    mma.sync.m16n8k16 T x T -> f32 (T the input type). A block of 4 warps
+//    owns 64 rows, 16 a warp: query rows for K2, key rows for K3.  Its own
+//    rows (Q and dO, or K and V) arrive once by 16-byte cp.async and go into A
+//    fragments by ldmatrix; the other side (K/V tiles for K2; Q/dO tiles with
+//    their lse and delta for K3) streams through two cp.async stages of 64
+//    rows, tile t + 1 in flight while tile t multiplies, one barrier a tile.
+//    Shared rows are padded by 16 bytes, so ldmatrix is free of bank
+//    conflicts.  A warp walks its tile 16 columns at a time:
 //      K2: S = Q K^T and dP = dO V^T (K and V rows are already the .col B
 //          operand), p = exp(s * scale - lse), ds = p (dp - delta) in f32
-//          registers, masked in the accumulator layout; ds rounded to bf16
+//          registers, masked in the accumulator layout; ds rounded to T
 //          is the A fragment of dQ += dS K (the C layout of two n8 tiles is
 //          the A layout of one k16 step), K through ldmatrix .trans.
 //      K3: S^T = K Q^T and dP^T = V dO^T, p^T and ds^T as above with the
 //          column's lse and delta, then dV += P^T dO and dK += dS^T Q, Q and
 //          dO through ldmatrix .trans.
-//    p and ds are rounded to bf16 before the second products, as
-//    FlashAttention-2 and SDPA's backward do; every sum is f32.  K2's
+//    p and ds are rounded to T before the second products, as
+//    FlashAttention-2 and SDPA's backward do; every sum is f32.  In
+//    float16 that rounding would turn a |ds| past 65504 into inf where the
+//    TPU kernel, which holds ds in f32, may still give a finite dq or dk
+//    (the loss scale of --precision f16 puts dO near 2^15): a warp whose
+//    16 x 16 block of ds reaches 2^15 rounds it times 2^-e instead, into
+//    zeroed accumulators that it adds times 2^e (mma16.cuh::range_shift,
+//    mma_ranged; both powers of two are exact), so an output overflows
+//    only where its f32 value does.  p <= 1 needs no such care, and bf16
+//    has f32's exponent range.  K2's
 //    delta: two threads a row sum dO * O in f32 from 16-byte loads while
 //    the first tiles are in flight.  Causal: K2 stops at the diagonal
 //    tile, K3 starts at the block's first key tile, and a warp skips a
@@ -132,10 +142,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "mma16.cuh"
 
 namespace {
 
@@ -148,9 +159,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);  // round to nearest even, +-inf past 65504
 }
 
 // Sum of one row's partial dot product over its kLanes threads.
@@ -374,35 +389,35 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // -- route 1: tensor cores ------------------------------------------------
 // (the building blocks -- cp.async, ldmatrix, mma.sync, the fragment maps,
-// load_rows and load_pos -- are in mma_bf16.cuh)
+// load_rows, load_pos and float16's range for dS -- are in mma16.cuh)
 
-// dO and O as K2 reads them (bf16, the input type) and as K2p does (f32:
+// dO and O as K2 reads them (T, the input type) and as K2p does (f32:
 // K4's O and its cotangent).
-template <bool kPos>
-using MmaDo = typename std::conditional<kPos, float, bf16>::type;
+template <typename T, bool kPos>
+using MmaDo = typename std::conditional<kPos, float, T>::type;
 
 // K2 (kPos false) and K2p (kPos true) on the tensor cores: one block per
 // (64 query rows, b*h).  Also writes delta = rowsum(dO * O) of its rows,
 // less dlse for K2p.  K2p also writes its dO rows rounded to bf16 to
 // dout16, contiguous (B, S, H, D): the dO that K3p streams.
-template <int D, bool kPos>
+template <typename T, int D, bool kPos>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const MmaDo<kPos>* __restrict__ dout,
-                    const MmaDo<kPos>* __restrict__ o,
+flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
+                    const MmaDo<T, kPos>* __restrict__ dout,
+                    const MmaDo<T, kPos>* __restrict__ o,
                     const float* __restrict__ lse,
                     const float* __restrict__ dlse,
-                    float* __restrict__ delta, bf16* __restrict__ dq,
-                    bf16* __restrict__ dout16, int S, int H, Strides qs,
+                    float* __restrict__ delta, T* __restrict__ dq,
+                    T* __restrict__ dout16, int S, int H, Strides qs,
                     Strides ks, Strides vs, Strides os, Strides oos, Pos pos,
                     float scale, int causal) {
   constexpr int LD = D + kPad;
   constexpr int KS = D / 16;  // k16 steps over D
   constexpr int ND = D / 8;   // n8 tiles over D
   // stage 1 first holds this block's Q (k_s) and dO (v_s) rows
-  __shared__ __align__(128) bf16 k_s[2][kMmaTile][LD];
-  __shared__ __align__(128) bf16 v_s[2][kMmaTile][LD];
+  __shared__ __align__(128) T k_s[2][kMmaTile][LD];
+  __shared__ __align__(128) T v_s[2][kMmaTile][LD];
   __shared__ float delta_s[kMmaRows];
   __shared__ __align__(16) int kp_s[kPos ? 2 : 1][kMmaTile];  // K2p
 
@@ -441,8 +456,8 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // the f32 dO, rounded to bf16 (nearest even), also goes into the
       // stage-1 tile that ldmatrix turns into dP's A fragments and out to
       // dout16; rows at or past S are zeros in the tile
-      bf16* tile = &v_s[1][r][d0];
-      bf16* out = dout16 + (((long long)b * S + row) * H + h) * D + d0;
+      T* tile = &v_s[1][r][d0];
+      T* out = dout16 + (((long long)b * S + row) * H + h) * D + d0;
 #pragma unroll
       for (int c = 0; c < D / 2; c += 8) {
         uint4 w = make_uint4(0u, 0u, 0u, 0u);
@@ -461,25 +476,25 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           part += db.y * ob.y;
           part += db.z * ob.z;
           part += db.w * ob.w;
-          w = make_uint4(pack_bf16(da.x, da.y), pack_bf16(da.z, da.w),
-                         pack_bf16(db.x, db.y), pack_bf16(db.z, db.w));
+          w = make_uint4(pack2<T>(da.x, da.y), pack2<T>(da.z, da.w),
+                         pack2<T>(db.x, db.y), pack2<T>(db.z, db.w));
           *reinterpret_cast<uint4*>(out + c) = w;
         }
         *reinterpret_cast<uint4*>(tile + c) = w;
       }
     } else if (row < S) {
-      const bf16* po = o + offset(oos, b, row, h) + d0;
-      const bf16* pd = dout + offset(os, b, row, h) + d0;
+      const T* po = o + offset(oos, b, row, h) + d0;
+      const T* pd = dout + offset(os, b, row, h) + d0;
 #pragma unroll
       for (int c = 0; c < D / 2; c += 8) {
         const uint4 ov = *reinterpret_cast<const uint4*>(po + c);
         const uint4 dv = *reinterpret_cast<const uint4*>(pd + c);
-        const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+        const auto* o2 = reinterpret_cast<const Pair<T>*>(&ov);
+        const auto* d2 = reinterpret_cast<const Pair<T>*>(&dv);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float2 fo = __bfloat1622float2(o2[j]);
-          const float2 fd = __bfloat1622float2(d2[j]);
+          const float2 fo = widen2(o2[j]);
+          const float2 fd = widen2(d2[j]);
           part += fd.x * fo.x;
           part += fd.y * fo.y;
         }
@@ -551,11 +566,11 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < KS; ++kk) {
         unsigned r[4];
         ldmatrix_x4(r, smem_addr(&k_s[s][c + br][kk * 16 + bc]));
-        mma_bf16_16816(sc[0], qf[kk], r[0], r[1]);
-        mma_bf16_16816(sc[1], qf[kk], r[2], r[3]);
+        mma_16816<T>(sc[0], qf[kk], r[0], r[1]);
+        mma_16816<T>(sc[1], qf[kk], r[2], r[3]);
         ldmatrix_x4(r, smem_addr(&v_s[s][c + br][kk * 16 + bc]));
-        mma_bf16_16816(dp[0], df[kk], r[0], r[1]);
-        mma_bf16_16816(dp[1], df[kk], r[2], r[3]);
+        mma_16816<T>(dp[0], df[kk], r[0], r[1]);
+        mma_16816<T>(dp[1], df[kk], r[2], r[3]);
       }
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -579,15 +594,16 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            : 0.f;
         }
       }
-      unsigned dsa[4];
-      to_a_fragment(dsa, sc);
+      // dQ += dS K, K through ldmatrix .trans
+      mma_ranged<T>(acc, sc, [&](float (&d)[ND][4], const unsigned (&a)[4]) {
 #pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, smem_addr(&k_s[s][c + ar][nd * 8 + ac]));
-        mma_bf16_16816(acc[nd], dsa, r[0], r[1]);
-        mma_bf16_16816(acc[nd + 1], dsa, r[2], r[3]);
-      }
+        for (int nd = 0; nd < ND; nd += 2) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, smem_addr(&k_s[s][c + ar][nd * 8 + ac]));
+          mma_16816<T>(d[nd], a, r[0], r[1]);
+          mma_16816<T>(d[nd + 1], a, r[2], r[3]);
+        }
+      });
     }
   }
 
@@ -595,34 +611,33 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int row = row_lo + half * 8;
     if (row >= S) continue;
-    bf16* out = dq + (((long long)b * S + row) * H + h) * D + 2 * t4;
+    T* out = dq + (((long long)b * S + row) * H + h) * D + 2 * t4;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(out + nd * 8) =
-          __floats2bfloat162_rn(acc[nd][2 * half] * scale,
-                                acc[nd][2 * half + 1] * scale);
+      store2(out + nd * 8, acc[nd][2 * half] * scale,
+             acc[nd][2 * half + 1] * scale);
     }
   }
 }
 
 // K3 (kPos false) and K3p (kPos true, dO the bf16 copy K2p wrote) on the
 // tensor cores: one block per (64 key rows, b*h).
-template <int D, bool kPos>
+template <typename T, int D, bool kPos>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
+flash_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int S, int H, Strides qs,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int S, int H, Strides qs,
                      Strides ks, Strides vs, Strides os, Pos pos,
                      float scale, int causal) {
   constexpr int LD = D + kPad;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
   // stage 1 first holds this block's K (q_s) and V (do_s) rows
-  __shared__ __align__(128) bf16 q_s[2][kMmaTile][LD];
-  __shared__ __align__(128) bf16 do_s[2][kMmaTile][LD];
+  __shared__ __align__(128) T q_s[2][kMmaTile][LD];
+  __shared__ __align__(128) T do_s[2][kMmaTile][LD];
   __shared__ __align__(16) float lse_s[2][kMmaTile];
   __shared__ __align__(16) float delta_s[2][kMmaTile];
   __shared__ __align__(16) int qp_s[kPos ? 2 : 1][kMmaTile];  // K3p
@@ -704,11 +719,11 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < KS; ++kk) {
         unsigned r[4];
         ldmatrix_x4(r, smem_addr(&q_s[s][c + br][kk * 16 + bc]));
-        mma_bf16_16816(sc[0], kf[kk], r[0], r[1]);
-        mma_bf16_16816(sc[1], kf[kk], r[2], r[3]);
+        mma_16816<T>(sc[0], kf[kk], r[0], r[1]);
+        mma_16816<T>(sc[1], kf[kk], r[2], r[3]);
         ldmatrix_x4(r, smem_addr(&do_s[s][c + br][kk * 16 + bc]));
-        mma_bf16_16816(dp[0], vf[kk], r[0], r[1]);
-        mma_bf16_16816(dp[1], vf[kk], r[2], r[3]);
+        mma_16816<T>(dp[0], vf[kk], r[0], r[1]);
+        mma_16816<T>(dp[1], vf[kk], r[2], r[3]);
       }
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -737,19 +752,26 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dp[n][e] = ds;
         }
       }
-      unsigned pa[4], dsa[4];
-      to_a_fragment(pa, sc);
-      to_a_fragment(dsa, dp);
+      // dV += P^T dO and dK += dS^T Q, dO and Q through ldmatrix .trans
+      unsigned pa[4];
+      to_a_fragment<T>(pa, sc);
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         unsigned r[4];
         ldmatrix_x4_trans(r, smem_addr(&do_s[s][c + ar][nd * 8 + ac]));
-        mma_bf16_16816(dv_acc[nd], pa, r[0], r[1]);
-        mma_bf16_16816(dv_acc[nd + 1], pa, r[2], r[3]);
-        ldmatrix_x4_trans(r, smem_addr(&q_s[s][c + ar][nd * 8 + ac]));
-        mma_bf16_16816(dk_acc[nd], dsa, r[0], r[1]);
-        mma_bf16_16816(dk_acc[nd + 1], dsa, r[2], r[3]);
+        mma_16816<T>(dv_acc[nd], pa, r[0], r[1]);
+        mma_16816<T>(dv_acc[nd + 1], pa, r[2], r[3]);
       }
+      mma_ranged<T>(dk_acc, dp,
+                    [&](float (&d)[ND][4], const unsigned (&a)[4]) {
+#pragma unroll
+        for (int nd = 0; nd < ND; nd += 2) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, smem_addr(&q_s[s][c + ar][nd * 8 + ac]));
+          mma_16816<T>(d[nd], a, r[0], r[1]);
+          mma_16816<T>(d[nd + 1], a, r[2], r[3]);
+        }
+      });
     }
   }
 
@@ -760,12 +782,10 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const long long at = (((long long)b * S + key) * H + h) * D + 2 * t4;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + nd * 8) =
-          __floats2bfloat162_rn(dk_acc[nd][2 * half] * scale,
-                                dk_acc[nd][2 * half + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + nd * 8) =
-          __floats2bfloat162_rn(dv_acc[nd][2 * half],
-                                dv_acc[nd][2 * half + 1]);
+      store2(dk + at + nd * 8, dk_acc[nd][2 * half] * scale,
+             dk_acc[nd][2 * half + 1] * scale);
+      store2(dv + at + nd * 8, dv_acc[nd][2 * half],
+             dv_acc[nd][2 * half + 1]);
     }
   }
 }
@@ -808,7 +828,8 @@ void launch_dkv(const Args& a) {
 }
 
 // 0 on a launch, 1 for a head dim or dtype the kernels do not take.  K2/K3
-// read dO (and K2 O) in the input dtype, K2p/K3p in f32.
+// read dO (and K2 O) in the input dtype, K2p/K3p in f32; K2p/K3p take no
+// float16.
 template <bool kDq, bool kPos>
 int dispatch(const Args& a, int D, int dtype) {
 #define DPT_CASE(T, DIM, TILE)                                         \
@@ -829,42 +850,48 @@ int dispatch(const Args& a, int D, int dtype) {
     DPT_CASE(__nv_bfloat16, 32, 64)
     DPT_CASE(__nv_bfloat16, 64, 64)
     DPT_CASE(__nv_bfloat16, 128, 32)
+  } else if (dtype == 2) {
+    if constexpr (!kPos) {
+      DPT_CASE(__half, 32, 64)
+      DPT_CASE(__half, 64, 64)
+      DPT_CASE(__half, 128, 32)
+    }
   }
 #undef DPT_CASE
   return 1;
 }
 
-template <int D, bool kPos>
+template <typename T, int D, bool kPos>
 void launch_mma(const Args& a, bool dq) {
   const dim3 grid((a.S + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
   if (dq) {
-    using TO = MmaDo<kPos>;
-    flash_dq_mma_kernel<D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
+    using TO = MmaDo<T, kPos>;
+    flash_dq_mma_kernel<T, D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
         q, k, v, static_cast<const TO*>(a.dout),
         static_cast<const TO*>(a.o), a.lse, a.dlse, a.delta,
-        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.dout16), a.S, a.H,
+        static_cast<T*>(a.out0), static_cast<T*>(a.dout16), a.S, a.H,
         a.qs, a.ks, a.vs, a.os, a.oos, a.pos, a.scale, a.causal);
   } else {
-    flash_dkv_mma_kernel<D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
-        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.S, a.H,
+    flash_dkv_mma_kernel<T, D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
+        q, k, v, static_cast<const T*>(a.dout), a.lse, a.delta,
+        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.H,
         a.qs, a.ks, a.vs, a.os, a.pos, a.scale, a.causal);
   }
 }
 
-// The tensor-core route's own check: bf16 q, k, v at D of 32 or 64, every
-// strided tensor 16-byte aligned with (b, s, h) strides that are whole
-// 16-byte pieces (multiples of 8 in bf16; of 4 for K2p's f32 dO and O).
-// 0 on a launch, 1 (nothing launched) for a call it does not take.
+// The tensor-core route's own check: bf16 (K2/K3 also float16) q, k, v at D of
+// 32 or 64, every strided tensor 16-byte aligned with (b, s, h) strides that
+// are whole 16-byte pieces (multiples of 8 in bf16; of 4 for K2p's f32 dO and
+// O). 0 on a launch, 1 (nothing launched) for a call it does not take.
 template <bool kPos>
 int dispatch_mma(const Args& a, int D, int dtype, bool dq) {
   const void* ptrs[5] = {a.q, a.k, a.v, a.dout, a.o};
   const Strides* sts[5] = {&a.qs, &a.ks, &a.vs, &a.os, &a.oos};
   const int per16 = kPos && dq ? 4 : 8;  // elements of dO and O a piece
-  bool ok = dtype == 1 && (D == 32 || D == 64) &&
+  bool ok = (dtype == 1 || (dtype == 2 && !kPos)) && (D == 32 || D == 64) &&
             (!(kPos && dq) || a.dout16 != nullptr);
   for (int i = 0; i < (dq ? 5 : 4); ++i) {
     const int m = i < 3 ? 8 : per16;
@@ -872,10 +899,18 @@ int dispatch_mma(const Args& a, int D, int dtype, bool dq) {
          sts[i]->b % m == 0 && sts[i]->s % m == 0 && sts[i]->h % m == 0;
   }
   if (!ok) return 1;
-  if (D == 32) {
-    launch_mma<32, kPos>(a, dq);
-  } else {
-    launch_mma<64, kPos>(a, dq);
+  if (dtype == 1) {
+    if (D == 32) {
+      launch_mma<bf16, 32, kPos>(a, dq);
+    } else {
+      launch_mma<bf16, 64, kPos>(a, dq);
+    }
+  } else if constexpr (!kPos) {
+    if (D == 32) {
+      launch_mma<f16, 32, false>(a, dq);
+    } else {
+      launch_mma<f16, 64, false>(a, dq);
+    }
   }
   return 0;
 }
@@ -923,16 +958,16 @@ int finish(int refused) {
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  dtype: 0 = float32,
-// 1 = bfloat16.  lse and delta are (B*H, S) f32.  Outputs are contiguous
-// (B, S, H, D) in the input dtype.  Each returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue, without launching, for a call the
-// kernel does not take).
+// 1 = bfloat16, 2 = float16 (K2, K3).  lse and delta are (B*H, S) f32. Outputs
+// are contiguous (B, S, H, D) in the input dtype.  Each returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue, without
+// launching, for a call the kernel does not take).
 //
 // K2: strides are 15 element strides, (batch, seq, head) of q, k, v, dO
 // and O in that order, each with a contiguous head dim.  Writes delta =
 // rowsum(dO * O) and dq.  The _mma entry point is the tensor-core route:
-// bf16, D of 32 or 64, every pointer 16-byte aligned and every stride a
-// multiple of 8; dpt_flash_dq takes every dtype and head dim of the
+// bf16 or float16, D of 32 or 64, every pointer 16-byte aligned and every
+// stride a multiple of 8; dpt_flash_dq takes every dtype and head dim of the
 // scalar kernel.
 
 extern "C" int dpt_flash_dq(const void* q, const void* k, const void* v,

@@ -20,10 +20,12 @@
 // Two routes, chosen by the wrapper (ops/flash_attention.py::
 // tensor_core_route, the rule of K2/K3 on q, k and v):
 //
-// 1. bf16 at D = 32 or 64 with 16-byte-aligned rows -- the vit's q, k, v
-//    (views into one projection) and the ring's shards -- runs
-//    flash_fwd_mma_kernel<D, kPos> on the tensor cores, mma.sync.m16n8k16
-//    bf16 x bf16 -> f32, from the building blocks of mma_bf16.cuh.  A block
+// 1. bf16 (K1 and K4) or float16 (K1: the vit under --precision f16) at
+//    D = 32 or 64 with 16-byte-aligned rows -- the vit's q, k, v (views
+//    into one projection) and the ring's shards -- runs
+//    flash_fwd_mma_kernel<T, D, kPos> on the tensor cores, mma.sync.m16n8k16
+//    T x T -> f32 (T bf16 or, for K1, float16), from the building blocks
+//    of mma16.cuh.  A block
 //    of 4 warps owns 64 query rows, 16 a warp; the grid is (ceil(S / 64),
 //    B*H).  Its Q rows arrive once by 16-byte cp.async (zero-filled past S)
 //    into stage 1's K buffer and go into A fragments by ldmatrix, where
@@ -36,7 +38,7 @@
 //    online softmax once a tile in registers: a thread holds rows g and
 //    g + 8, a row's max reduces over the 4 lanes of a quad with two xor
 //    shuffles, O is rescaled by exp(m - m_new) once, and l is summed per
-//    lane and reduced over the quad at the end.  P rounded to bf16 is the A
+//    lane and reduced over the quad at the end.  P rounded to T is the A
 //    fragment of O += P V (the C layout of two n8 tiles is the A layout of
 //    one k16 step), V through ldmatrix .trans.  K1 causal stops at the
 //    block's diagonal tile, and a warp skips a 16-key step that lies wholly
@@ -45,17 +47,21 @@
 //    Differs from the TPU kernel in two roundings: the score is (q . k) *
 //    scale, the bf16 product summed in f32 and then scaled, where the TPU
 //    kernel scales q in f32 first (the same up to f32 rounding); and p is
-//    rounded to bf16 before the P V product, as FlashAttention-2 and SDPA
-//    do, which moves O by at most about 2^-9 max|v|; l sums the f32 p.
+//    rounded to T before the P V product, as FlashAttention-2 and SDPA
+//    do, which moves O by at most about 2^-9 max|v| in bf16 (2^-12 in
+//    float16, whose p below 2^-14 keeps fewer bits); l sums the f32 p.
 //
 // 2. Every other call -- f32, D = 128, views whose rows are not 16-byte
-//    aligned -- runs flash_fwd_kernel, scalar FMAs (below).
+//    aligned -- runs flash_fwd_kernel, scalar FMAs (below), in f32, bf16 or
+//    (K1) float16.  The ring's K4 takes no float16 (--precision f16 with a
+//    ring is refused).
 //
 // Numerics kept from the TPU kernel on both routes: masked scores take the
 // finite sentinel -1e30 and their p is forced to 0 (in a row whose keys are
 // all masked m stays -1e30, so exp(s - m) would be 1 there); l is clamped
 // at 1e-30 before the division; every sum is f32; K1's O is cast to the
-// input dtype with round-to-nearest-even, K4's is f32.  lse = m + log(l) is
+// input dtype with round-to-nearest-even (a float16 value past 65504 is
+// +-inf, as the TPU kernel's astype gives), K4's is f32.  lse = m + log(l) is
 // stored as (B*H, S) f32 (the TPU kernel's (bh, s, 8) lane broadcast was a
 // Mosaic layout artifact).  The scalar route scales q in f32 before the
 // product, as the TPU kernel does.
@@ -94,10 +100,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "mma16.cuh"
 
 namespace {
 
@@ -110,9 +117,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);  // round to nearest even, +-inf past 65504
 }
 
 // kPos = false: K1 (O in T, causal by index); kPos = true: K4 (O in f32,
@@ -230,17 +241,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // -- route 1: tensor cores ------------------------------------------------
 
-// O as K1 writes it (bf16, the input type) and as K4 does (f32).
-template <bool kPos>
-using MmaOut = typename std::conditional<kPos, float, bf16>::type;
-
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  // round to nearest even, as torch casts
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
+// O as K1 writes it (T, the input type) and as K4 does (f32).
+template <typename T, bool kPos>
+using MmaOut = typename std::conditional<kPos, float, T>::type;
 
 // Blocks an SM must hold at once: four for K4 at D = 32 (at most 128
 // registers a thread, against 137 unbounded), so the ring shard's 512
@@ -252,10 +255,10 @@ constexpr int kFwdMinBlocks = kPos && D == 32 ? 4 : 1;
 
 // K1 (kPos false) and K4 (kPos true) on the tensor cores: one block per
 // (64 query rows, b*h).
-template <int D, bool kPos>
+template <typename T, int D, bool kPos>
 __global__ void __launch_bounds__(kMmaThreads, kFwdMinBlocks<D, kPos>)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, MmaOut<kPos>* __restrict__ o,
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, MmaOut<T, kPos>* __restrict__ o,
                      float* __restrict__ lse, int S, int H, Strides qs,
                      Strides ks, Strides vs, Pos pos, float scale,
                      int causal) {
@@ -264,8 +267,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int ND = D / 8;              // n8 tiles over D
   constexpr int KC = kMmaTile / 16;      // 16-key steps a tile
   // stage 1 first holds this block's Q rows (k_s)
-  __shared__ __align__(128) bf16 k_s[2][kMmaTile][LD];
-  __shared__ __align__(128) bf16 v_s[2][kMmaTile][LD];
+  __shared__ __align__(128) T k_s[2][kMmaTile][LD];
+  __shared__ __align__(128) T v_s[2][kMmaTile][LD];
   __shared__ __align__(16) int kp_s[kPos ? 2 : 1][kMmaTile];  // K4
 
   const int tid = threadIdx.x;
@@ -347,8 +350,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < KS; ++kk) {
         unsigned r[4];
         ldmatrix_x4(r, smem_addr(&k_s[s][c * 16 + br][kk * 16 + bc]));
-        mma_bf16_16816(sc[c][0], qf[kk], r[0], r[1]);
-        mma_bf16_16816(sc[c][1], qf[kk], r[2], r[3]);
+        mma_16816<T>(sc[c][0], qf[kk], r[0], r[1]);
+        mma_16816<T>(sc[c][1], qf[kk], r[2], r[3]);
       }
     }
     // scale, mask (bit 8c + 4n + e of keep: the score counts) and the
@@ -422,18 +425,18 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[nd][2] *= alpha_hi;
       acc[nd][3] *= alpha_hi;
     }
-    // O += P V, P rounded to bf16, V through ldmatrix .trans
+    // O += P V, P rounded to T, V through ldmatrix .trans
 #pragma unroll
     for (int c = 0; c < KC; ++c) {
       if (!live[c]) continue;
       unsigned pa[4];
-      to_a_fragment(pa, sc[c]);
+      to_a_fragment<T>(pa, sc[c]);
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         unsigned r[4];
         ldmatrix_x4_trans(r, smem_addr(&v_s[s][c * 16 + ar][nd * 8 + ac]));
-        mma_bf16_16816(acc[nd], pa, r[0], r[1]);
-        mma_bf16_16816(acc[nd + 1], pa, r[2], r[3]);
+        mma_16816<T>(acc[nd], pa, r[0], r[1]);
+        mma_16816<T>(acc[nd + 1], pa, r[2], r[3]);
       }
     }
   }
@@ -448,7 +451,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row_lo + half * 8;
     if (row >= S) continue;
     const float l_safe = fmaxf(half ? l_hi : l_lo, 1e-30f);
-    MmaOut<kPos>* out = o + (((long long)b * S + row) * H + h) * D + 2 * t4;
+    MmaOut<T, kPos>* out =
+        o + (((long long)b * S + row) * H + h) * D + 2 * t4;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
       store2(out + nd * 8, acc[nd][2 * half] / l_safe,
@@ -484,7 +488,7 @@ void launch(const FwdArgs& a) {
 }
 
 // 0 on a launch, 1 for a head dim or dtype the kernel does not take.  K1
-// writes O in the input dtype, K4 in f32.
+// writes O in the input dtype, K4 in f32; K4 takes no float16.
 template <bool kPos>
 int dispatch(const FwdArgs& a, int D, int dtype) {
 #define DPT_CASE(T, DIM, TILE)                                           \
@@ -501,41 +505,56 @@ int dispatch(const FwdArgs& a, int D, int dtype) {
     DPT_CASE(__nv_bfloat16, 32, 64)
     DPT_CASE(__nv_bfloat16, 64, 64)
     DPT_CASE(__nv_bfloat16, 128, 32)
+  } else if (dtype == 2) {
+    if constexpr (!kPos) {
+      DPT_CASE(__half, 32, 64)
+      DPT_CASE(__half, 64, 64)
+      DPT_CASE(__half, 128, 32)
+    }
   }
 #undef DPT_CASE
   return 1;
 }
 
-template <int D, bool kPos>
+template <typename T, int D, bool kPos>
 void launch_mma(const FwdArgs& a) {
   const dim3 grid((a.S + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  flash_fwd_mma_kernel<D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<MmaOut<kPos>*>(a.o),
+  flash_fwd_mma_kernel<T, D, kPos><<<grid, kMmaThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<MmaOut<T, kPos>*>(a.o),
       static_cast<float*>(a.lse), a.S, a.H,
       Strides{a.q_sb, a.q_ss, a.q_sh}, Strides{a.k_sb, a.k_ss, a.k_sh},
       Strides{a.v_sb, a.v_ss, a.v_sh}, Pos{a.q_pos, a.k_pos, a.kv_valid},
       a.scale, a.causal);
 }
 
-// The tensor-core route's own check: bf16 q, k, v at D of 32 or 64, each
-// 16-byte aligned with (b, s, h) strides that are multiples of 8.  0 on a
-// launch, 1 (nothing launched) for a call it does not take.
+// The tensor-core route's own check: bf16 (or, for K1, float16) q, k, v
+// at D of 32 or 64, each 16-byte aligned with (b, s, h) strides that are
+// multiples of 8.  0 on a launch, 1 (nothing launched) for a call it does
+// not take.
 template <bool kPos>
 int dispatch_mma(const FwdArgs& a, int D, int dtype) {
   const void* ptrs[3] = {a.q, a.k, a.v};
   const int strides[9] = {a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss,
                           a.k_sh, a.v_sb, a.v_ss, a.v_sh};
-  bool ok = dtype == 1 && (D == 32 || D == 64);
+  bool ok = (dtype == 1 || (dtype == 2 && !kPos)) && (D == 32 || D == 64);
   for (int i = 0; i < 3; ++i) {
     ok = ok && reinterpret_cast<unsigned long long>(ptrs[i]) % 16 == 0;
   }
   for (int i = 0; i < 9; ++i) ok = ok && strides[i] % 8 == 0;
   if (!ok) return 1;
-  if (D == 32) {
-    launch_mma<32, kPos>(a);
-  } else {
-    launch_mma<64, kPos>(a);
+  if (dtype == 1) {
+    if (D == 32) {
+      launch_mma<bf16, 32, kPos>(a);
+    } else {
+      launch_mma<bf16, 64, kPos>(a);
+    }
+  } else if constexpr (!kPos) {
+    if (D == 32) {
+      launch_mma<f16, 32, false>(a);
+    } else {
+      launch_mma<f16, 64, false>(a);
+    }
   }
   return 0;
 }
@@ -575,11 +594,11 @@ FwdArgs make_args(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  dtype: 0 = float32,
-// 1 = bfloat16.  Strides are in elements; the last dim of q, k and v must be
-// contiguous.  O and lse are written contiguous: O (B, S, H, D), lse
-// (B*H, S) f32.  Each returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a head dim or dtype the kernel does not take,
-// without launching).
+// 1 = bfloat16, 2 = float16 (K1 only).  Strides are in elements; the last dim
+// of q, k and v must be contiguous.  O and lse are written contiguous: O (B,
+// S, H, D), lse (B*H, S) f32.  Each returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a head dim or dtype the kernel does not
+// take, without launching).
 
 // K1: O in the input dtype.
 extern "C" int dpt_flash_fwd(const void* q, const void* k, const void* v,
@@ -616,7 +635,8 @@ extern "C" int dpt_flash_fwd_pos(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core route of K1 and of K4: the same arguments as
-// dpt_flash_fwd and dpt_flash_fwd_pos; bf16 at D of 32 or 64, every
+// dpt_flash_fwd and dpt_flash_fwd_pos; bf16 (K1 also float16) at D of 32
+// or 64, every
 // pointer 16-byte aligned and every stride a multiple of 8
 // (cudaErrorInvalidValue, without launching, otherwise).
 extern "C" int dpt_flash_fwd_mma(const void* q, const void* k, const void* v,

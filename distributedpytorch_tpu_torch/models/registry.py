@@ -113,12 +113,34 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               attention: str = "full",
               device: torch.device | str = "cuda",
               pallas_dw: bool = False, mesh=None) -> nn.Module:
-    """The registry's full-width model, on ``device``, with f32 weights
-    (zeros until restored or ``init_weights``).  ``pallas_dw=True`` gives
-    the cnn whose 3x3 convs with 32+ input channels take their weight
-    gradient from kernel K5.  ``mesh`` (a ``runtime.Mesh``) is the one of
-    ``--attention ring|ring_flash``; the parameters stay replicated on
-    every rank."""
+    """The registry's full-width model, on ``device``, its parameters
+    stored in the policy's ``param_dtype`` (bfloat16 under ``bf16_full``,
+    f32 otherwise; BatchNorm's running statistics are buffers and stay
+    f32, flax's ``accum_dtype`` guard; zeros until restored or
+    ``init_weights``, which rounds flax's f32 draws to it).
+    ``pallas_dw=True`` gives the cnn whose 3x3 convs with 32+ input
+    channels take their weight gradient from kernel K5.  ``mesh`` (a
+    ``runtime.Mesh``) is the one of ``--attention ring|ring_flash``; the
+    parameters stay replicated on every rank."""
+    return store_params(_build(name, num_classes, precision, attention,
+                               device, pallas_dw, mesh),
+                        precision.param_dtype)
+
+
+def store_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every parameter of ``model`` stored in ``dtype``, in place; the
+    buffers (BatchNorm's running statistics) keep theirs, so this is not
+    ``model.to(dtype)``."""
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype != dtype:
+                p.data = p.data.to(dtype)
+    return model
+
+
+def _build(name: str, num_classes: int, precision: PrecisionPolicy,
+           attention: str, device, pallas_dw: bool, mesh) -> nn.Module:
+    """The module of ``get_model``, its parameters in f32."""
     _check_name(name)
     dtype = precision.compute_dtype
     if pallas_dw:

@@ -15,15 +15,17 @@ with dy in f32); for CUDA tensors it launches K5 (and counts the launch in
 routes, both hand-written in ``csrc/conv_dw.cu``, and
 ``tensor_core_route`` is the rule between them: bf16 with channel counts
 that are multiples of 8, 16-byte-aligned data and (b, h, w) strides that
-are multiples of 8 -- the cnn's main path -- runs on the tensor cores
-(also counted in ``conv3x3_dw.tensor_core_launches``); f32 and every other
-bf16 call run the scalar kernel.  A route that fails raises; neither
+are multiples of 8 -- the cnn's main path -- and float16 under the same
+rules (the cnn under ``--precision f16``) run on the tensor cores (also
+counted in ``conv3x3_dw.tensor_core_launches``); f32 and every other
+16-bit call run the scalar kernel.  A route that fails raises; neither
 gives way to the other.
 ``Conv3x3Same`` is the autograd Function the models use, in torch's
 layouts (x NCHW, any memory format; weight OIHW): forward ``F.conv2d``,
 dx through the stock transposed conv, dW through the wrapper.  As in the
 JAX ``_conv_bwd``, dW is cast to the weight's dtype, so under bf16 the f32
-sum is rounded to bf16 before it reaches the f32 master weight.
+sum is rounded to bf16 before it reaches the f32 master weight (under
+float16 to float16, +-inf past 65504, as the JAX cast gives).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch.nn.functional as F
 
 from . import build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MMA_DTYPES = (torch.bfloat16, torch.float16)   # the tensor-core route's
 _INT_MAX = 2 ** 31 - 1
 TILE_ROWS = 32           # pixels per chunk of the scalar kernel (kTK)
 MMA_CHUNK = 64           # pixels per chunk of the tensor-core kernel
@@ -71,8 +74,9 @@ def _check(x: torch.Tensor, dy: torch.Tensor) -> None:
                          f"Co) of one (B, H, W), got {tuple(x.shape)} and "
                          f"{tuple(dy.shape)}")
     if x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
-        raise ValueError(f"conv3x3_dw takes float32 or bfloat16 x and dy of "
-                         f"one dtype, got {x.dtype} and {dy.dtype}")
+        raise ValueError(f"conv3x3_dw takes float32, bfloat16 or float16 x "
+                         f"and dy of one dtype, got {x.dtype} and "
+                         f"{dy.dtype}")
     if x.device != dy.device:
         raise ValueError(f"x and dy devices differ: {x.device}, {dy.device}")
     for name, t in (("x", x), ("dy", dy)):
@@ -118,10 +122,10 @@ def mma_plan(n: int, ci: int, co: int) -> tuple:
 def tensor_core_route(dtype: torch.dtype, ci: int, co: int, x_strides,
                       dy_strides, x_ptr: int, dy_ptr: int) -> bool:
     """The rule between K5's routes: True for the tensor-core kernel
-    (bf16, Ci and Co multiples of 8, x and dy 16-byte aligned, their
+    (bf16 or float16, Ci and Co multiples of 8, x and dy 16-byte aligned, their
     (b, h, w) strides multiples of 8, so every pixel's channel run is
     whole 16-byte copies), False for the scalar kernel."""
-    return (dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0
+    return (dtype in MMA_DTYPES and ci % 8 == 0 and co % 8 == 0
             and x_ptr % 16 == 0 and dy_ptr % 16 == 0
             and all(s % 8 == 0 for s in (*x_strides[:3], *dy_strides[:3])))
 
@@ -159,12 +163,12 @@ def _launch(x: torch.Tensor, dy: torch.Tensor,
                                         dy.stride(), x.data_ptr(),
                                         dy.data_ptr())
     if tensor_core:
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"the tensor-core kernel takes bfloat16, got "
-                             f"{x.dtype}")
+        if x.dtype not in MMA_DTYPES:
+            raise ValueError(f"the tensor-core kernel takes bfloat16 or "
+                             f"float16, got {x.dtype}")
         tci, tco, splits, per = mma_plan(n, ci, co)
-        args = (per, splits, tci, tco)
-        fn = _kernel_fn("dpt_conv3x3_dw_mma", 4)
+        args = (per, splits, tci, tco, _DTYPE_CODES[x.dtype])
+        fn = _kernel_fn("dpt_conv3x3_dw_mma", 5)
     else:
         splits, per = split_plan(n, 9 * ci, co)
         args = (per, splits, _DTYPE_CODES[x.dtype])

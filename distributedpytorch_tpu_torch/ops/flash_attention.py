@@ -27,7 +27,12 @@ routes, both hand-written: ``tensor_core_route`` sends bf16 at D = 32 or
 to the tensor-core kernels of K1, K4 and K2/K3, and
 ``partial_tensor_core_route`` does the same for K2p/K3p, where K2p also
 rounds the f32 dO to bf16 once for K3p (each wrapper also counts these in
-``tensor_core_launches``); every other call takes the scalar kernels.  A
+``tensor_core_launches``); every other call takes the scalar kernels.
+K1, K2 and K3 take float16 as well (the vit under ``--precision f16``), on
+both routes: the tensor-core route runs the same kernels on float16
+``mma.sync`` and keeps float16's range for dS (``csrc/flash_bwd.cu``); the
+ring's K4, K2p and K3p refuse float16 (``--precision f16`` with a ring is
+not ported yet).  A
 route that fails raises, neither gives way to the other.
 ``FlashAttention`` is the autograd Function of K1 (backward K2 and K3),
 ``FlashAttentionPartial`` that of K4 (backward K2p and K3p).
@@ -56,7 +61,10 @@ BLOCK_K = 64
 _NEG = -1e30          # finite masked-score sentinel, as in the TPU kernel
 HEAD_DIMS = (32, 64, 128)
 MMA_HEAD_DIMS = (32, 64)   # the tensor-core routes of K2/K3 and K2p/K3p
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the 16-bit types of the tensor-core routes of K1, K2 and K3 (K4, K2p and
+# K3p: bfloat16 only)
+MMA_DTYPES = (torch.bfloat16, torch.float16)
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -191,9 +199,12 @@ def _check_kernel_inputs(kernel: str, tensors) -> list:
     flattened."""
     q = tensors[0][1]
     b, s, h, d = q.shape
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{kernel} kernel takes float32 or bfloat16, "
-                         f"got {q.dtype}")
+    positional = kernel.endswith("_pos")
+    if q.dtype not in _DTYPE_CODES or (positional
+                                       and q.dtype == torch.float16):
+        raise ValueError(f"{kernel} kernel takes float32 or bfloat16"
+                         + ("" if positional else " or float16")
+                         + f", got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{kernel} kernel takes head dim in {HEAD_DIMS}, "
                          f"got {d}")
@@ -351,12 +362,13 @@ def _whole_16_byte_rows(strides, ptrs, itemsizes) -> bool:
 
 def tensor_core_route(dtype: torch.dtype, d: int, strides, ptrs) -> bool:
     """The rule between the routes of K1, K4, K2 and K3: True for the
-    tensor-core kernels (bf16, D in ``MMA_HEAD_DIMS``, every tensor with a
+    tensor-core kernels (bf16, or float16 for K1-K3, whose wrappers refuse
+    it for K4 first; D in ``MMA_HEAD_DIMS``, every tensor with a
     unit head stride, (batch, seq, head) strides that are multiples of 8
     and a 16-byte-aligned data pointer, so every row is whole 16-byte
     copies), False for the scalar ones.  ``strides`` and ``ptrs``: those
     of q, k and v (K1, K4), and dO (K3), and O (K2)."""
-    return (dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
+    return (dtype in MMA_DTYPES and d in MMA_HEAD_DIMS
             and _whole_16_byte_rows(strides, ptrs, [2] * len(strides)))
 
 
@@ -395,7 +407,8 @@ def _pick_route(tensor_core: Optional[bool], tensors,
     if tensor_core and not fits:
         what = ("K2p/K3p take bfloat16 q, k, v (K2p: float32 dO and O; "
                 "K3p: bfloat16 dO)" if positional
-                else f"{kernel} take{'' if '/' in kernel else 's'} bfloat16")
+                else f"{kernel} take{'' if '/' in kernel else 's'} "
+                     f"bfloat16 or float16")
         raise ValueError(f"the tensor-core {what} at D in {MMA_HEAD_DIMS} "
                          f"with 16-byte-aligned rows; q {tuple(q.shape)} "
                          f"{q.dtype} does not fit")
@@ -592,7 +605,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # the kernels need a unit stride on the head dim and q's dtype; an
-        # incoming gradient of another layout or dtype is copied once
+        # incoming gradient of another layout or dtype is copied once (a
+        # float16 cast of an f32 gradient past 65504 is +-inf, as the JAX
+        # custom_vjp's cotangent in the primal's dtype is)
         if do.dtype != q.dtype:
             do = do.to(q.dtype)
         if do.stride(3) != 1:

@@ -1,13 +1,22 @@
-"""Mixed-precision policy: the ``bf16`` and ``f32`` presets.
+"""Mixed-precision policy: the ``f32``, ``bf16``, ``bf16_full`` and ``f16``
+presets, and the dynamic loss scale of ``f16``.
 
-Counterpart of ``distributedpytorch_tpu/precision.py``.  ``param_dtype``
-is the storage dtype of the weights, ``compute_dtype`` the dtype the
-forward runs in (weights are cast to it at use, as flax casts at apply),
-and ``accum_dtype`` the dtype of sums and of the serving softmax.  The
-logits are f32 in both presets.  ``bf16_full`` and ``f16`` are
-not ported yet.  ``cast_grads`` is the grad-cast rule of the JAX engine's
+Counterpart of ``distributedpytorch_tpu/precision.py`` (:78-184).
+``param_dtype`` is the storage dtype of the weights (bfloat16 under
+``bf16_full``, f32 otherwise; BatchNorm's running statistics are buffers
+and stay f32 in every preset), ``compute_dtype`` the dtype the forward
+runs in (weights are cast to it at use, as flax casts at apply), and
+``accum_dtype`` the dtype of sums, of the gradient buffers of
+``--grad-accum`` and of the serving softmax.  The logits are f32 in every
+preset.  ``cast_grads`` is the grad-cast rule of the JAX engine's
 ``_finish_step`` (``train/engine.py:304-305``): gradients reach the
 optimizer in the param dtype, whatever dtype the backward produced.
+
+``f16`` scales the loss: ``LossScaleState`` is JAX's state machine, on
+host integers and floats (the scale is a power of two, so its arithmetic
+is exact in any float type).  ``torch.amp.GradScaler`` is not used: it
+starts at 2^16 and has neither the cap at 2^24 nor the floor at 1, so its
+trajectory would differ from the JAX package's.
 """
 
 from __future__ import annotations
@@ -17,13 +26,26 @@ from typing import Iterable, Optional
 
 import torch
 
+MAX_LOSS_SCALE = 2.0 ** 24      # the JAX cap: a clean run cannot reach inf
+
 
 @dataclasses.dataclass(frozen=True)
 class PrecisionPolicy:
+    """One named mixed-precision configuration.  ``loss_scale`` is the
+    initial dynamic loss scale, 0.0 for none (every preset but f16);
+    ``loss_scale_growth`` the number of consecutive finite steps after
+    which the scale doubles."""
+
     name: str
     param_dtype: torch.dtype
     compute_dtype: torch.dtype
     accum_dtype: torch.dtype
+    loss_scale: float = 0.0
+    loss_scale_growth: int = 2000
+
+    @property
+    def scales_loss(self) -> bool:
+        return self.loss_scale > 0.0
 
     def describe(self) -> dict:
         """JSON-able summary, recorded in telemetry as
@@ -34,7 +56,8 @@ class PrecisionPolicy:
         return {"preset": self.name, "param_dtype": name(self.param_dtype),
                 "compute_dtype": name(self.compute_dtype),
                 "accum_dtype": name(self.accum_dtype),
-                "output_dtype": "float32", "loss_scale": 1.0}
+                "output_dtype": "float32",
+                "loss_scale": float(self.loss_scale)}
 
 
 PRESETS = {
@@ -44,14 +67,21 @@ PRESETS = {
     "bf16": PrecisionPolicy(
         name="bf16", param_dtype=torch.float32, compute_dtype=torch.bfloat16,
         accum_dtype=torch.float32),
+    # bf16 weights (and so bf16 optimizer state); updates below about 2^-8
+    # of a weight's magnitude are lost, as in the JAX package
+    "bf16_full": PrecisionPolicy(
+        name="bf16_full", param_dtype=torch.bfloat16,
+        compute_dtype=torch.bfloat16, accum_dtype=torch.float32),
+    # f16's 5-bit exponent underflows small gradients without the scale
+    "f16": PrecisionPolicy(
+        name="f16", param_dtype=torch.float32, compute_dtype=torch.float16,
+        accum_dtype=torch.float32, loss_scale=float(2 ** 15)),
 }
 
 PRESET_NAMES = tuple(PRESETS)
 
 
 def get_policy(name: str) -> PrecisionPolicy:
-    if name in ("bf16_full", "f16"):
-        raise ValueError(f"not ported yet: --precision {name}")
     try:
         return PRESETS[name]
     except KeyError:
@@ -70,6 +100,53 @@ def from_flags(precision: Optional[str],
                 "--no-bf16 is the legacy alias for --precision f32; drop one")
         return get_policy(precision)
     return PRESETS["bf16" if half_precision else "f32"]
+
+
+@dataclasses.dataclass
+class LossScaleState:
+    """The dynamic loss scale of ``f16`` (JAX ``LossScaleState``):
+    ``scale`` multiplies the loss before the backward, and the step divides
+    the gradients back; ``good_steps`` counts consecutive finite steps."""
+
+    scale: float
+    good_steps: int = 0
+
+    @classmethod
+    def create(cls, initial_scale: float) -> "LossScaleState":
+        return cls(scale=float(initial_scale), good_steps=0)
+
+    def adjust(self, grads_finite: bool,
+               growth_interval: int = 2000) -> "LossScaleState":
+        """The next state: a finite step doubles the scale when it
+        completes ``growth_interval`` good steps (and restarts the count),
+        a non-finite one halves it, floored at 1; the scale is capped at
+        2^24."""
+        grew = self.good_steps + 1 >= growth_interval
+        if grads_finite:
+            scale = self.scale * 2.0 if grew else self.scale
+        else:
+            scale = max(self.scale * 0.5, 1.0)
+        good = self.good_steps + 1 if grads_finite and not grew else 0
+        return LossScaleState(scale=min(scale, MAX_LOSS_SCALE),
+                              good_steps=good)
+
+    def to_dict(self) -> dict:
+        return {"scale": float(self.scale),
+                "good_steps": int(self.good_steps)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LossScaleState":
+        return cls(scale=float(d["scale"]), good_steps=int(d["good_steps"]))
+
+
+def all_finite(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
+    """0-dim bool tensor: every element of every given tensor is finite
+    (True for none).  One device reduction; ``None`` entries are
+    skipped."""
+    checks = [torch.isfinite(t).all() for t in tensors if t is not None]
+    if not checks:
+        return torch.tensor(True)
+    return torch.stack(checks).all()
 
 
 def cast_grads(params: Iterable[torch.nn.Parameter]) -> None:

@@ -42,10 +42,36 @@ correct rows counted from the primary logits.
 
 The optimizers are ``torch.optim``'s: Adam(lr=1e-3) has optax's defaults;
 SGD(lr=1e-3, momentum=0.9) is optax's ``sgd`` with ``trace``, and its
-staircase schedule lr = 1e-3 * 0.1 ** floor(step / steps_per_epoch) is set
-from the step count before every update, as optax's
-``exponential_decay(staircase=True)`` does, so a resumed run and an
-uninterrupted one agree at an epoch boundary.
+staircase schedule lr = 1e-3 * 0.1 ** floor(updates / steps_per_epoch) is
+set before every update from the count of updates applied so far, as
+optax's ``exponential_decay(staircase=True)`` counts inside its state, so
+a resumed run and an uninterrupted one agree at an epoch boundary.
+
+Under ``--precision f16`` (``PrecisionPolicy.scales_loss``) the state
+carries a ``LossScaleState`` (``_grads_and_metrics`` / ``_finish_step``,
+:262-331): the backward runs on loss x scale, the gradients (after DDP's
+reduction, so every rank decides alike) are divided by the scale and cast
+to the parameter dtype, and a step whose gradients are not all finite is
+skipped: no optimizer step (parameters and the whole optimizer state,
+Adam's own step count included, stay bit-identical, and so does the
+applied-update count that sets the learning rate), and BatchNorm's running
+statistics, which the forward moved in place, are put back from a copy
+taken before it.  ``state.step`` advances either way and the scale halves;
+a finite step counts toward the scale's growth.
+
+``grad_accum`` K > 1 is ``_train_step_accum`` (:366-467): microbatch j is
+rows j, j+K, j+2K, ... of this data shard's rows (b % K == 0, so the data
+shards' microbatches j together are the JAX stride over the global batch).
+Each microbatch runs forward (its BatchNorm statistics over the global
+microbatch, the running statistics chained from one microbatch to the
+next) and backward of its numerator sum (x the loss scale), outside DDP's
+reduction; its gradients are added, in the accumulation dtype (f32), to
+one flat buffer, whatever the parameter dtype.  After the K microbatches
+the buffer is summed over the ranks once, and divided once by the global
+denominator (x the scale, x the model-parallel copies of each shard):
+the exact gradient of the global masked mean.  The dropout keep masks are
+drawn per microbatch for the global microbatch's rows; inception adds 0.4
+x its aux numerator; ``correct`` counts the primary logits.
 """
 
 from __future__ import annotations
@@ -63,7 +89,8 @@ from ..models.layers import dropout_layers, set_dropout_masks
 from ..models.registry import freeze_backbone
 from ..ops.losses import LossFn
 from ..ops.metrics import per_example_correct
-from ..precision import PrecisionPolicy, cast_grads
+from ..precision import (LossScaleState, PrecisionPolicy, all_finite,
+                         cast_grads)
 
 OPTIMIZER_CHOICES = ("adam", "SGD")
 AUX_LOSS_WEIGHT = 0.4       # ref classif.py:49-53
@@ -96,6 +123,11 @@ class TrainState:
     step: int = 0
     # the DistributedDataParallel wrapper of ``model`` in a process group
     ddp: Optional[nn.Module] = None
+    # optimizer updates applied (step less the skipped ones): the count
+    # that the SGD schedule reads, as optax's state counts it
+    updates: int = 0
+    # the dynamic loss scale (f16); None for every other preset
+    loss_scale: Optional[LossScaleState] = None
 
 
 class Engine:
@@ -107,9 +139,12 @@ class Engine:
                  learning_rate: float = 1e-3, momentum: float = 0.9,
                  lr_step_gamma: float = 0.1, steps_per_epoch: int = 1,
                  feature_extract: bool = False,
-                 mesh: Optional[runtime.Mesh] = None):
+                 mesh: Optional[runtime.Mesh] = None, grad_accum: int = 1):
         if optimizer not in OPTIMIZER_CHOICES:
             raise ValueError(f"Invalid optimizer {optimizer!r}")
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.grad_accum = int(grad_accum)
         self.model = model
         self.loss_fn = loss_fn
         self.mean = float(mean)
@@ -154,7 +189,13 @@ class Engine:
                             else None))
         return TrainState(self.model, make_optimizer(
             self.optimizer_name, self.model, self.learning_rate,
-            self.momentum), ddp=ddp)
+            self.momentum), ddp=ddp, loss_scale=self.fresh_loss_scale())
+
+    def fresh_loss_scale(self) -> Optional[LossScaleState]:
+        """The policy's initial loss scale (f16), or None."""
+        if not self.precision.scales_loss:
+            return None
+        return LossScaleState.create(self.precision.loss_scale)
 
     def lr(self, step: int) -> float:
         return learning_rate_at(self.optimizer_name, step,
@@ -173,12 +214,20 @@ class Engine:
         b, h, w = images_u8.shape[:3]
         dp, d = self.mesh.data_parallel, self.mesh.data_index
         affine = augment.sample_affine_batch(generator, dp * b, h, w)
-        masks = self.draw_dropout_masks(generator, dp * b)
         if dp > 1:
             affine = tuple(t[d * b:(d + 1) * b] for t in affine)
-            masks = [m[d * b:(d + 1) * b] for m in masks]
+        k = self.grad_accum
+        # K = 1: one list for the batch; K > 1: one list per microbatch,
+        # drawn for the global microbatch's dp * b / K rows, of which this
+        # data shard keeps its b / K
+        rows = b // k
+        masks = [self.draw_dropout_masks(generator, dp * rows)
+                 for _ in range(k)]
+        if dp > 1:
+            masks = [[m[d * rows:(d + 1) * rows] for m in ms]
+                     for ms in masks]
         return self.train_step_affine(state, images_u8, labels, valid,
-                                      affine, masks)
+                                      affine, masks[0] if k == 1 else masks)
 
     def draw_dropout_masks(self, generator: torch.Generator,
                            rows: int) -> List[torch.Tensor]:
@@ -200,10 +249,12 @@ class Engine:
                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """Augment this data shard's rows with the given draws, forward
         with the given dropout keep masks (this shard's rows, in the JAX
-        layout), the global masked loss (with the aux logits' share),
-        backward (DDP averages the gradients), grad cast, optimizer
-        update.  The step's gradients stay on the parameters' ``.grad``
-        until the next step.  The metrics are the global batch's."""
+        layout; with ``grad_accum`` K > 1, K lists, one per microbatch, of
+        its b / K rows), the global masked loss (with the aux logits'
+        share), backward (DDP averages the gradients; x the loss scale
+        under f16), the update tail (``apply_gradients``).  The step's
+        gradients stay on the parameters' ``.grad`` until the next step.
+        The metrics are the global batch's."""
         model = state.model
         model.train()
         imgs = augment.train_transform(
@@ -211,11 +262,44 @@ class Engine:
             out_dtype=self.precision.compute_dtype)
         vmask = valid.to(self.precision.accum_dtype)
         state.optimizer.zero_grad(set_to_none=True)
-        set_dropout_masks(model, list(dropout_masks) or None)
+        scale = None if state.loss_scale is None else state.loss_scale.scale
+        # a skipped step puts back what the forward moved in place
+        saved = (None if scale is None else
+                 [b.detach().clone() for b in model.buffers()])
+        if self.grad_accum > 1:
+            sums = self._accumulate(state, imgs, labels, vmask,
+                                    dropout_masks, scale)
+            global_denom = torch.clamp_min(sums[1], 1e-9)
+        else:
+            numer_sum, local = self._forward_sums(
+                model if state.ddp is None else state.ddp, imgs, labels,
+                vmask, dropout_masks)
+            sums = runtime.all_reduce_sum(local, self.mesh.data_group)
+            global_denom = torch.clamp_min(sums[1], 1e-9)
+            target = numer_sum * self.mesh.data_parallel / global_denom
+            (target if scale is None else target * scale).backward()
+        # _accumulate divides by the scale itself, in its one divide
+        unscale = None if self.grad_accum > 1 else scale
+        if not self.apply_gradients(state, unscale) and saved is not None:
+            with torch.no_grad():
+                for b, s in zip(model.buffers(), saved):
+                    b.copy_(s)
+        return state, {"loss": sums[0] / global_denom, "correct": sums[2],
+                       "valid": sums[3]}
+
+    def _forward_sums(self, module: nn.Module, imgs: torch.Tensor,
+                      labels: torch.Tensor, vmask: torch.Tensor,
+                      dropout_masks: Sequence[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One train-mode forward of ``imgs`` with the given keep masks:
+        (the differentiable numerator sum, with 0.4 x the aux logits'; the
+        detached local sums of numerator, denominator, correct and valid
+        rows)."""
+        set_dropout_masks(self.model, list(dropout_masks) or None)
         try:
-            out = (model if state.ddp is None else state.ddp)(imgs)
+            out = module(imgs)
         finally:
-            set_dropout_masks(model, None)
+            set_dropout_masks(self.model, None)
         logits, aux = out if isinstance(out, tuple) else (out, None)
         numer, denom = self.loss_fn(logits, labels)
         numer_sum = (numer * vmask).sum()
@@ -224,25 +308,87 @@ class Engine:
                 self.loss_fn(aux, labels)[0] * vmask).sum()
         correct = (per_example_correct(logits.detach(), labels)
                    * vmask).sum()
-        sums = runtime.all_reduce_sum(torch.stack(
-            [numer_sum.detach(), (denom * vmask).sum(), correct,
-             vmask.sum()]), self.mesh.data_group)
-        global_denom = torch.clamp_min(sums[1], 1e-9)
-        (numer_sum * self.mesh.data_parallel / global_denom).backward()
-        self.apply_gradients(state)
-        return state, {"loss": sums[0] / global_denom, "correct": sums[2],
-                       "valid": sums[3]}
+        return numer_sum, torch.stack([numer_sum.detach(),
+                                       (denom * vmask).sum(), correct,
+                                       vmask.sum()])
 
-    def apply_gradients(self, state: TrainState) -> None:
-        """The update tail of a step (``_finish_step``): gradients cast to
-        the param dtype, the learning rate of this update count, one
-        optimizer step, the count advanced."""
-        cast_grads(state.model.parameters())
-        lr = self.lr(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
+    def _accumulate(self, state: TrainState, imgs: torch.Tensor,
+                    labels: torch.Tensor, vmask: torch.Tensor,
+                    dropout_masks, scale: Optional[float]) -> torch.Tensor:
+        """``grad_accum`` K microbatches (see the module docstring): each
+        one's gradients of numerator x scale summed into one f32 buffer,
+        the buffer summed over the ranks and divided by the global
+        denominator x scale x model_parallel, then set as the parameters'
+        gradients in their dtype.  Returns the global sums of numerator,
+        denominator, correct and valid rows."""
+        k = self.grad_accum
+        b = imgs.shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} not divisible by grad_accum={k}")
+        masks = list(dropout_masks) or [()] * k
+        if len(masks) != k:
+            raise ValueError(f"{len(masks)} dropout mask lists for {k} "
+                             f"microbatches")
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        acc = torch.zeros(sum(p.numel() for p in params),
+                          dtype=self.precision.accum_dtype,
+                          device=imgs.device)
+        sums = None
+        for j in range(k):
+            numer_sum, local = self._forward_sums(
+                state.model, imgs[j::k], labels[j::k], vmask[j::k],
+                masks[j])
+            # outside DDP's reduction: the buffer is summed once below
+            (numer_sum if scale is None else numer_sum * scale).backward()
+            at = 0
+            for p in params:
+                n = p.numel()
+                if p.grad is not None:
+                    acc[at:at + n] += p.grad.reshape(-1)
+                    p.grad = None
+                at += n
+            sums = local if sums is None else sums + local
+        sums = runtime.all_reduce_sum(sums, self.mesh.data_group)
+        runtime.all_reduce_sum(acc)
+        acc /= (torch.clamp_min(sums[1], 1e-9) * (scale or 1.0)
+                * self.mesh.model_parallel)
+        at = 0
+        for p in params:
+            n = p.numel()
+            p.grad = acc[at:at + n].view_as(p).to(p.dtype)
+            at += n
+        return sums
+
+    def apply_gradients(self, state: TrainState,
+                        scale: Optional[float] = None) -> bool:
+        """The update tail of a step (``_finish_step``): under a loss
+        scale the gradients divided by it, then cast to the param dtype;
+        under a loss scale, a step whose gradients are not all finite
+        applies nothing (the scale halves).  Otherwise the learning rate
+        of the applied-update count and one optimizer step.  The step
+        count advances either way.  Returns whether the update was
+        applied."""
+        params = list(state.model.parameters())
+        if scale is not None:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(scale)
+        cast_grads(params)
+        finite = True
+        if state.loss_scale is not None:
+            # one read of the device: the same on every rank, whose
+            # gradients DDP (or _accumulate) reduced alike
+            finite = bool(all_finite(p.grad for p in params))
+            state.loss_scale = state.loss_scale.adjust(
+                finite, self.precision.loss_scale_growth)
+        if finite:
+            lr = self.lr(state.updates)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
+            state.updates += 1
         state.step += 1
+        return finite
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, images_u8: torch.Tensor,

@@ -5,7 +5,7 @@ LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) set, or with none of them for
 the world of one:
 
     python tests/_torch_ddp_child.py MODEL OUT.pt [--device cpu|cuda]
-        [--global-batch N] [--precision f32|f64]
+        [--global-batch N] [--precision f32|f64] [--grad-accum K]
 
 MODEL is ``cnn`` (with K5), ``mlp``, ``resnet_small`` (two stages of
 width 8 at 32), ``resnet_shallow`` (resnet18's widths, one block a
@@ -18,6 +18,9 @@ the global batch from a generator seeded alike on every rank, and the
 other two steps draw both from a step generator seeded alike on every
 rank.  In f64
 (f64 compute, f32 parameters) every step runs on the identity affine.
+With ``--grad-accum K`` each step accumulates K microbatches, and the
+injected dropout masks are drawn per microbatch for the global
+microbatch's rows.
 The rank writes its parameters, BatchNorm buffers, the steps' metrics and
 its K5 launches to OUT.pt.  ``tests/test_torch_ddp.py`` runs it on the CPU
 and ``chip_smoke.py`` on the card (TF32 off).  Imports no JAX.
@@ -74,6 +77,7 @@ def main() -> None:
     p.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--precision", default="f32", choices=("f32", "f64"))
+    p.add_argument("--grad-accum", type=int, default=1)
     args = p.parse_args()
     if args.device == "cpu":
         torch.set_num_threads(1)
@@ -90,8 +94,9 @@ def main() -> None:
     valid0 = (np.arange(gb) < gb // 2) | (np.arange(gb) == gb - 1)
     policy = PRESETS["f32"] if args.precision == "f32" else F64
     model, size = build(args.model, policy, device)
+    k = args.grad_accum
     engine = Engine(model, cross_entropy, 0.13, 0.31, size, policy, device,
-                    optimizer="SGD", steps_per_epoch=2)
+                    optimizer="SGD", steps_per_epoch=2, grad_accum=k)
     state = engine.init_state(torch.Generator().manual_seed(7))
     rng = np.random.default_rng(3)
     conv.conv3x3_dw.launches = 0
@@ -103,8 +108,14 @@ def main() -> None:
         valid = valid0 if step == 0 else np.ones(gb, bool)
         batch = tuple(torch.from_numpy(a[rows]).to(device)
                       for a in (images, labels, valid))
-        masks = [mk[rows] for mk in engine.draw_dropout_masks(
-            torch.Generator(device=device).manual_seed(50 + step), gb)]
+        gen = torch.Generator(device=device).manual_seed(50 + step)
+        if k == 1:
+            masks = [mk[rows] for mk in engine.draw_dropout_masks(gen, gb)]
+        else:   # one list a microbatch, this rank's rows of it
+            mb = slice(rank * b // k, (rank + 1) * b // k)
+            masks = [[mk[mb] for mk in engine.draw_dropout_masks(gen,
+                                                                 gb // k)]
+                     for _ in range(k)]
         if args.precision == "f64":
             _, m = engine.train_step_affine(
                 state, *batch, identity_affine(b, device), masks)

@@ -43,10 +43,11 @@ def test_other_inputs_of_the_build_change_the_library_path(csrc, change):
 
 
 def test_the_flash_sources_share_the_mma_header():
-    """Both flash-attention sources include mma_bf16.cuh, and it is one
-    of the headers every library's hash covers."""
-    header = os.path.join(build.CSRC_DIR, "mma_bf16.cuh")
+    """Both flash-attention sources and the conv weight gradient's include
+    mma16.cuh (the tensor-core building blocks for bf16 and float16), and
+    it is one of the headers every library's hash covers."""
+    header = os.path.join(build.CSRC_DIR, "mma16.cuh")
     assert header in build.header_paths()
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "conv_dw"):
         with open(build.source_path(name)) as f:
-            assert '#include "mma_bf16.cuh"' in f.read(), name
+            assert '#include "mma16.cuh"' in f.read(), name

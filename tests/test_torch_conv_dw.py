@@ -126,7 +126,8 @@ def test_channels_last_view_is_read_without_a_copy():
     (lambda x, dy: (x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
                     dy), "channel dim of x contiguous"),
     (lambda x, dy: (x, dy[..., ::2]), "channel dim of dy contiguous"),
-    (lambda x, dy: (x.double(), dy.double()), "float32 or bfloat16"),
+    (lambda x, dy: (x.double(), dy.double()),
+     "float32, bfloat16 or float16"),
     (lambda x, dy: (x, dy.to(torch.bfloat16)), "of one dtype"),
     (lambda x, dy: (x[:, :4], dy), "of one \\(B, H, W\\)"),
     (lambda x, dy: (x[0], dy[0]), "of one \\(B, H, W\\)"),

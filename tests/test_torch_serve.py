@@ -381,8 +381,9 @@ NOT_PORTED = [
     (["--metrics-port", "9100"], "--metrics-port"),
     (["--flightrec"], "--flightrec"),
     (["--ckpt-format", "orbax"], "--ckpt-format orbax"),
-    (["--precision", "bf16_full"], "--precision bf16_full"),
-    (["--precision", "f16"], "--precision f16"),
+    # ported presets, refused as the JAX package refuses them
+    (["--precision", "bf16_full", "--no-bf16"], "--precision bf16_full"),
+    (["--precision", "f16", "--no-bf16"], "--precision f16"),
 ]
 
 
@@ -390,11 +391,15 @@ NOT_PORTED = [
                          ids=[f for _, f in NOT_PORTED])
 def test_flag_not_ported_fails_loudly(extra, flag, capsys):
     """Each flag fails with one line; --model-parallel with the JAX serve's
-    message (it does not apply to a replica), every other one as not
-    ported yet."""
+    message (it does not apply to a replica), --precision against --no-bf16
+    with the JAX conflict, every other one as not ported yet."""
     argv = ["serve", "-d", "/nonexistent", "-f", "/nonexistent.ckpt",
             "--device", "cpu"] + extra
     message = f"not ported yet: {flag}"
+    if flag.startswith("--precision"):
+        message = re.escape(
+            f"--no-bf16 conflicts with {flag}: --no-bf16 is the legacy "
+            f"alias for --precision f32; drop one")
     if flag == "--model-parallel":
         message = re.escape(
             "serve runs replica-local data-parallel inference; "

@@ -472,9 +472,11 @@ def test_train_writes_the_jax_file_names_and_log_lines(trained):
             r"flash_dq_pos 0, flash_dkv_pos 0 over 8 train steps"):
         assert re.search(pattern, log), pattern
     payload = ckpt.read_checkpoint(str(rsl / "checkpoint-mnist-vit-001.ckpt"))
-    assert payload["format_version"] == 2 and payload["epoch"] == 1
-    assert set(payload["state"]) == {"params", "opt_state", "step"}
-    assert payload["state"]["step"] == 8
+    assert payload["format_version"] == 3 and payload["epoch"] == 1
+    assert set(payload["state"]) == {"params", "opt_state", "step",
+                                     "updates", "loss_scale"}
+    assert payload["state"]["step"] == payload["state"]["updates"] == 8
+    assert payload["state"]["loss_scale"] is None     # bf16 scales no loss
 
 
 def test_train_telemetry_reads_with_the_jax_report(trained):
@@ -603,9 +605,12 @@ def test_test_on_a_jax_written_checkpoint_gives_the_jax_accuracy(tmp_path):
 
 
 REFUSED = [
-    (["--grad-accum", "2"], "--grad-accum"),
-    (["--precision", "f16"], "--precision f16"),
-    (["--precision", "bf16_full"], "--precision bf16_full"),
+    # ported: refused only where the JAX package refuses them, or where a
+    # part of them is not ported (f16 on the ring); --ckpt-async is taken
+    (["--grad-accum", "3"], "--grad-accum"),
+    (["--precision", "f16", "--attention", "ring_flash", "--model-parallel",
+      "2"], "--precision f16"),
+    (["--precision", "bf16_full", "--no-bf16"], "--precision bf16_full"),
     (["--epochs-per-dispatch", "2"], "--epochs-per-dispatch"),
     (["--data-mode", "stream"], "--data-mode stream"),
     (["--producer-threads", "2"], "--producer-threads"),
@@ -643,8 +648,23 @@ REFUSED = [
 # without --model-parallel >= 2 fails as the JAX package fails it (train:
 # run_train's check; test: the registry's), and --use-pretrained is ported
 # and refused as the JAX package refuses it (train: a vit has no
-# torchvision converter; test: its weights come from -f).
+# torchvision converter; test: its weights come from -f).  --grad-accum K
+# that does not divide the batch and --no-bf16 against another preset
+# fail with the JAX messages; f16 on the ring is not ported.  None: the
+# flag is ported and taken (test takes --grad-accum and --ckpt-async and
+# ignores them, as the JAX test does).
 REFUSED_MESSAGES = {
+    "--grad-accum": {
+        "train": re.escape(
+            "--grad-accum must be >= 1 and divide the per-replica batch "
+            "size (64); got 3"),
+        "test": None},
+    "--precision f16": dict.fromkeys(("train", "test"), re.escape(
+        "not ported yet: --precision f16 with --attention ring_flash")),
+    "--precision bf16_full": dict.fromkeys(("train", "test"), re.escape(
+        "--no-bf16 conflicts with --precision bf16_full: --no-bf16 is the "
+        "legacy alias for --precision f32; drop one")),
+    "--ckpt-async": dict.fromkeys(("train", "test"), None),
     "--use-pretrained": {
         "train": re.escape(
             "use_pretrained is not supported for 'vit' (supported: resnet, "
@@ -681,6 +701,11 @@ def test_refused_flag_fails_loudly(action, extra, flag):
     argv += extra
     message = REFUSED_MESSAGES.get(flag, {}).get(action,
                                                  f"not ported yet: {flag}")
+    if message is None:
+        cfg = tconfig.config_from_argv(argv)
+        assert (cfg.grad_accum, cfg.ckpt_async) == (
+            (3, False) if flag == "--grad-accum" else (1, True))
+        return
     with pytest.raises(ValueError, match=f"^{message}$"):
         tconfig.config_from_argv(argv)
     assert tcli.main(argv) == 1
