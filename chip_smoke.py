@@ -97,15 +97,15 @@ result.  Phases, each printing its lines before the last:
      the card against the CPU: gradients and BatchNorm statistics, and
      exactly 3 K5 launches for the cnn; the max pools' tie routing on the
      card against the CPU's;
- 12. the slice's kernel main path: one epoch (844 steps of 64) of
-     Engine-driven cnn training with K5, its counts set to 0 before and
-     read after (3 per step, every one on the tensor cores), validation
-     accuracy at least twice chance,
-     the loss falling, and the same epoch with the stock dW within the
-     stated spread;
+ 12. the slice's kernel main path: the first CNN_EPOCH_STEPS (422 of
+     844) steps of 64 of an epoch of Engine-driven cnn training with K5,
+     its counts set to 0 before and read after (3 per step, every one on
+     the tensor cores), validation accuracy at least twice chance, the
+     loss falling, and the same steps with the stock dW within the stated
+     spread;
  13. the reference's job: ``torchrun --standalone --nproc_per_node 1 -m
      distributedpytorch_tpu_torch train`` with the default model (resnet
-     at 224) on NCCL for one epoch of phase 22's corpus (18 steps), with
+     at 224) on NCCL for one epoch of phase 22's corpus (10 steps), with
      ``train --debug`` of mlp and cnn beside it, then ``test -f`` on its
      best model (equal to an in-process eval);
  14. two ranks on the one card (gloo over CUDA tensors): three f32 steps
@@ -113,8 +113,8 @@ result.  Phases, each printing its lines before the last:
      in f64), held against one rank fed the same global batch and draws
      (all six worlds at once, each rank a ``tests/_torch_ddp_child.py``
      process, the child that ``tests/test_torch_ddp.py`` runs on the CPU);
- 15. profiles of the cnn and resnet train steps (batch 64, bf16), with
-     K5's time a step and a launch inside the cnn's;
+ 15. a profile of the cnn train step (batch 64, bf16), with K5's time a
+     step and a launch inside it (resnet18's step: phase 35);
  16. kernels K4 (the ring's positional forward, f32 O and lse) and K2p/K3p
      (its backward, dO in f32, the lse cotangent folded into delta)
      against their plain PyTorch versions, bf16 and f32: the vit's ring
@@ -136,8 +136,9 @@ result.  Phases, each printing its lines before the last:
      gathered tensors: outputs and q/k/v gradients at the vit's S = 49 and
      at a causal S = 1000;
  18. the ring slice's main path: ``torchrun --nproc_per_node 2 ... train
-     --model vit --attention ring_flash --model-parallel 2 -e 1`` on phase
-     6's corpus (113 steps, 13 validation batches a rank); validation at
+     --model vit --attention ring_flash --model-parallel 2 -e 1`` on the
+     first 10,000 train and 1,000 test rows of the synthetic corpus (71
+     steps, 8 validation batches a rank; cut for time); validation at
      least twice chance, the loss falling, K4 launches 8 per step and eval
      batch, K2p and K3p 8 per step, every one on the tensor cores, K1-K3
      none; then, at once, ``test -f`` under the same launch and ``test -f
@@ -168,8 +169,8 @@ result.  Phases, each printing its lines before the last:
      further than twice the CPU's f32 step) and the BatchNorm
      statistics;
  22. the zoo's main path: ``train --model X -e 1`` of the five on the
-     first 1,280 train and 128 test rows of the synthetic corpus as
-     MNIST files (18 steps of 64, 2 validation batches), with ``train
+     first 704 train and 128 test rows of the synthetic corpus as
+     MNIST files (10 steps of 64, 2 validation batches), with ``train
      --model resnet --use-pretrained --pretrained-path F
      --feature-extract`` (F a torchvision-layout resnet18 state_dict from
      ``tests/_torch_zoo.py``) beside them, six processes at once: every
@@ -179,10 +180,10 @@ result.  Phases, each printing its lines before the last:
      in-process eval) beside ``serve`` of inception's and vgg's, one wave
      of 16 concurrent requests each, every answer held against the
      in-process predict step at its bucket as in phase 3;
- 23. profiles of the five train steps (batch 64, bf16, cuDNN
-     deterministic as ``train`` sets it, 5 steps under torch.profiler):
-     wall and device ms per step, kernels per step, the idle share and
-     the top device operations;
+ 23. profiles of four of the five train steps (densenet121's: phase 35;
+     batch 64, bf16, cuDNN deterministic as ``train`` sets it, 5 steps
+     under torch.profiler): wall and device ms per step, kernels per step,
+     the idle share and the top device operations;
  24. kernels K1, K2, K3 (at the vit's (64, 49, 4, 32)) and K5 (at the
      cnn's three convs, batch 64) in float16, each on the tensor-core
      route and on the scalar route (forced), against the plain version
@@ -200,7 +201,8 @@ result.  Phases, each printing its lines before the last:
      Adam state and BatchNorm buffers bit-unchanged, the step advanced,
      the scale halved;
  27. the f16 main path: ``train --model vit --attention flash --precision
-     f16 -e 1`` on phase 6's corpus (validation at least twice chance,
+     f16 -e 1`` on phase 18's corpus (141 steps; validation at least
+     twice chance,
      the loss falling, K1/K2/K3 launches by phase 6's formula, all on the
      tensor cores, the skipped steps and final scale logged), ``test -f
      --precision f16`` equal to an in-process f16 eval, ``serve
@@ -213,7 +215,7 @@ result.  Phases, each printing its lines before the last:
      accumulated step of a reduced resnet (chained BatchNorm) and of
      alexnet at 64 px (per-microbatch masks), card against CPU;
  29. ``bf16_full``: ``train --model resnet --precision bf16_full -e 1`` on
-     phase 22's corpus (18 steps): bfloat16 parameters and f32 BatchNorm
+     phase 22's corpus (10 steps): bfloat16 parameters and f32 BatchNorm
      statistics in its checkpoint, finite losses, ``test -f`` equal to an
      in-process eval;
  30. ``--ckpt-async``: phase 7's runs with it: every checkpoint file of
@@ -225,16 +227,49 @@ result.  Phases, each printing its lines before the last:
      -f`` on each best file: the mean test accuracy within 2.6 pp of the
      JAX mean,
      each seed printed beside JAX's;
- 32. the card's name and power limit again, one ``{"kernels": [...]}``
-     JSON line (the float16 variants of K1, K2, K3 and K5 as their own
+ 32. kernels K4, K2p and K3p in float16 at the ring's shard (128, 25, 4,
+     32), on the tensor-core route and on the scalar route (forced),
+     against the plain version (K4's f32 O within TOL_O_POS_TC, lse
+     within TOL_LSE, dq/dk/dv within TOL_F16), two calls bit-identical;
+     the backward at q, k scaled by 3 and dO near float16's range, whose
+     non-finite pattern must equal the plain version's; device / call /
+     plain / masked-SDPA (float16, yardstick only) times and the bounds;
+ 33. f16 on the ring: three f16 SGD steps of the full-width vit, the
+     2-rank ``ring_flash`` world against one process with ``flash``
+     (every update within TOL_F16_RING_UPDATE of its largest, the same
+     loss, counts, scale and counters), and again with rank 1's second
+     step overflowing (both ranks skip it); then ``torchrun
+     --nproc_per_node 2 ... train --attention ring_flash
+     --model-parallel 2 --precision f16 -e 1`` on phase 22's corpus: K4,
+     K2p and K3p launches by phase 18's formula, all on the tensor cores,
+     finite losses and the loss-scale line;
+ 34. ``train -f`` on a JAX-written file: phase 13's cnn (``train --debug
+     -e 1`` on the card), its rolling file written again in the JAX
+     package's msgpack format by ``tests/_torch_jax_ckpt.py`` (the
+     converter test's torch writer; no JAX here), and ``train -f`` on both
+     files to epoch 2: the two resumed runs bit-identical;
+ 35. ``--epochs-per-dispatch`` as CUDA Graph replay: the vit with flash
+     in bf16 and in f16, the cnn with K5, resnet18 and densenet121, full
+     width, batch 64, four epochs one at a time and as two chunks of two
+     (the steps captured and replayed), held bit-identical in parameters,
+     statistics, optimizer state, counters, loss scale, every epoch's sums
+     and the launch counts; each path's train step profiled (wall and
+     device ms, kernels a step, the idle share, the port's kernels a step
+     from the trace); and ``train --model vit --attention flash --debug
+     -e 4`` with and without ``--epochs-per-dispatch 2``: the same log
+     lines and the epoch-4 rolling file byte-identical;
+ 36. the card's name and power limit again, one ``{"kernels": [...]}``
+     JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order of their numbers but for three changes: 23 and
-24, which time steps and kernels, run before 21; the exit test's five
-trainings (31) start then and run beside 21, 22 and 25-30; the CLI
-trainings of 27, 29 and 30 start after 22 and run beside 25, 26 and 28;
-and the test of 29 and the resume of 30 run beside 27.
-Nothing after 24 is timed for the kernels line or PERF.md.  Each phase
+Phases run in the order of their numbers but for these changes: 23, 24,
+32 and the in-process part of 35, which time steps and kernels, run
+before 21; the exit test's five trainings (31) start then and run beside
+21, 22 and 25-30; phase 33's three f16 worlds start with phase 19's; the
+CLI runs of 18, 27, 29, 30, 33, 34 and 35 start after 22 and run beside
+25, 26 and 28 (18 is checked after 28); the test of 29 and the resume
+of 30 run beside 27; 33, 34 and 35's CLI check come last.
+Nothing after 35's profiles is timed for the kernels line or PERF.md.  Each phase
 prints its wall time.  Any failed check exits non-zero before
 the last line is printed.  Work files go to ``build/chip_smoke/`` in the
 checkout, and the bytecode of the modules that the run's processes import
@@ -298,10 +333,10 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_dq_pos", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:189"),
     ("flash_dkv_pos", f"{CSRC}/flash_bwd.cu", f"{TPU_KERNELS}:236"),
 )
-# their float16 variants: the same kernels at the vit's and the cnn's
-# shapes under --precision f16 (the ring's K4, K2p, K3p take no float16)
+# their float16 variants: the same kernels at the vit's, the cnn's and
+# the ring's shapes under --precision f16
 F16_KERNELS = tuple((name + "_f16", source, replaces)
-                    for name, source, replaces in KERNELS[:4])
+                    for name, source, replaces in KERNELS)
 # K2/K3 against their plain version: max error relative to the plain
 # version's largest value.  f32: the same f32 math in another summation
 # order.  bf16: one rounding of the output.
@@ -1316,10 +1351,23 @@ def write_vit_data() -> None:
     write_corpus(VIT_DATA, VIT_TRAIN_ROWS, VIT_TEST_ROWS)
 
 
-# Phases 13 and 22's corpus: 1,152 train rows (18 steps of 64), 128
+# Phases 18 and 27's corpus, cut from phase 6's for the run's time limit:
+# 9,000 train rows (71 steps of the ring shard's 128, 141 of 64), 1,000
+# validation rows and 1,000 test rows.
+RING_DATA_TRAIN_ROWS = 10000
+RING_DATA_TEST_ROWS = 1000
+RING_DATA = os.path.join(WORK, "ring_data")
+
+
+def write_ring_data() -> None:
+    if not os.path.isdir(RING_DATA):
+        write_corpus(RING_DATA, RING_DATA_TRAIN_ROWS, RING_DATA_TEST_ROWS)
+
+
+# Phases 13 and 22's corpus: 633 train rows (10 steps of 64), 71
 # validation rows (2 batches) and 128 test rows (2 batches), cut from
 # phase 6's for the run's time limit.
-ZOO_TRAIN_ROWS = 1280
+ZOO_TRAIN_ROWS = 704
 ZOO_TEST_ROWS = 128
 ZOO_DATA = os.path.join(WORK, "zoo_data")
 
@@ -1890,9 +1938,8 @@ def check_pool_ties() -> None:
 
 # -- phase 12: the cnn path with K5 (the slice's kernel main path) ----------
 
-# Validation accuracy of the K5 epoch against the stock conv's epoch from
-# the same seed: within 2.0 percentage points (the spread used; the stock
-# path's seed-to-seed difference is printed beside it).
+# Validation accuracy of the K5 steps against the stock conv's steps from
+# the same seed: within 2.0 percentage points (the spread used).
 ACC_SPREAD = 2.0
 
 
@@ -1950,15 +1997,19 @@ def cnn_epoch(pallas_dw: bool, seed: int, precision: str = "bf16",
                 tc_launches=tc_launches, wall=wall,
                 acc=100.0 * correct / n, first=float(losses[:k].mean()),
                 last=float(losses[-k:].mean()),
-                skipped=state.step - state.updates,
-                scale=(state.loss_scale.scale if state.loss_scale
+                skipped=int(state.step - state.updates),
+                scale=(float(state.loss_scale.scale) if state.loss_scale
                        else None))
 
 
+# phase 12's steps: half an epoch of 844, cut for the run's time limit
+CNN_EPOCH_STEPS = 422
+
+
 def phase_cnn_epoch() -> int:
-    runs = {("k5", SEED): cnn_epoch(True, SEED),
-            ("stock", SEED): cnn_epoch(False, SEED),
-            ("stock", SEED + 1): cnn_epoch(False, SEED + 1)}
+    runs = {("k5", SEED): cnn_epoch(True, SEED, max_steps=CNN_EPOCH_STEPS),
+            ("stock", SEED): cnn_epoch(False, SEED,
+                                       max_steps=CNN_EPOCH_STEPS)}
     for (path, seed), r in runs.items():
         say(f"cnn: epoch, {path} dW, seed {seed}: {r['steps']} steps in "
             f"{r['wall']:.2f}s ({r['steps'] / r['wall']:.1f} steps/s, "
@@ -1968,12 +2019,9 @@ def phase_cnn_epoch() -> int:
             f"launches {r['launches']} ({r['tc_launches']} on the tensor "
             f"cores)")
     k5, stock = runs[("k5", SEED)], runs[("stock", SEED)]
-    seed_diff = abs(stock["acc"] - runs[("stock", SEED + 1)]["acc"])
     say(f"cnn: K5 vs stock dW accuracy {k5['acc']:.2f}% vs "
-        f"{stock['acc']:.2f}% (spread used {ACC_SPREAD} points; the stock "
-        f"path's seed-to-seed difference {seed_diff:.2f} points)")
-    if k5["launches"] != 3 * k5["steps"] or k5["steps"] != math.ceil(
-            54000 / TRAIN_BATCH):
+        f"{stock['acc']:.2f}% (spread used {ACC_SPREAD} points)")
+    if k5["launches"] != 3 * k5["steps"] or k5["steps"] != CNN_EPOCH_STEPS:
         fail(f"K5 launches {k5['launches']} over {k5['steps']} steps: "
              f"expected 3 per step")
     if k5["tc_launches"] != k5["launches"]:
@@ -2185,7 +2233,7 @@ def phase_ddp_one_card() -> None:
 # -- phase 15: profiles of the cnn and resnet train steps -------------------
 
 def phase_cnn_profile() -> None:
-    """One cnn (K5) and one resnet train step at batch 64 bf16: wall ms
+    """One cnn (K5) train step at batch 64 bf16: wall ms
     per step (host clock, synchronized, profiler off), then from a second
     run under torch.profiler the device time, kernels per step, the idle
     share, and K5's share of device time."""
@@ -2208,7 +2256,8 @@ def phase_cnn_profile() -> None:
                             "cuda")
     reps = 20
     batches = list(itertools.islice(loader.epoch(0), 5 + 2 * reps))
-    for name in ("cnn", "resnet"):
+    # resnet18's step: phase 35 profiles it, eager and graphed
+    for name in ("cnn",):
         policy = PRESETS["bf16"]
         model = get_model(name, ds.nb_classes, policy, device="cuda",
                           pallas_dw=name == "cnn")
@@ -2665,15 +2714,25 @@ def parse_ring_tensor_core_launches(log: str, action: str) -> dict:
                     (int(x) for x in m.groups())))
 
 
-def phase_ring_train() -> dict:
+RING = ("--attention", "ring_flash", "--model-parallel", str(MODEL_PARALLEL))
+
+
+def start_ring_train() -> tuple:
     """``train --attention ring_flash --model-parallel 2`` on two ranks
-    sharing the card, on phase 6's corpus; then ``test -f`` under the same
-    launch and ``test -f --attention flash`` in one process, at once."""
-    ring = ["--attention", "ring_flash", "--model-parallel",
-            str(MODEL_PARALLEL)]
+    sharing the card, on RING_DATA."""
+    write_ring_data()
+    return start_cli(["train", "--model", "vit", *RING, "-e", "1"],
+                     os.path.join(WORK, "ring_rsl"), launcher=TORCHRUN2,
+                     data=RING_DATA)
+
+
+def phase_ring_train(train_run: tuple) -> dict:
+    """The ring train of ``start_ring_train``; then ``test -f`` under the
+    same launch and ``test -f --attention flash`` in one process, at
+    once."""
+    ring = list(RING)
     rsl = os.path.join(WORK, "ring_rsl")
-    wall, log = run_cli(["train", "--model", "vit", *ring, "-e", "1"], rsl,
-                        launcher=TORCHRUN2, data=VIT_DATA)
+    wall, log = finish_all([train_run])[0]
     for line in ("process: 0/2, world size: 2, backend: gloo",
                  "mesh: data 1 x model 2, ring over the model group on gloo",
                  "batch size: 64/replica (128 global)"):
@@ -2683,10 +2742,11 @@ def phase_ring_train() -> dict:
     launches, steps, evals = parse_launches(log, "train")
     ring_launches = parse_ring_launches(log, "train")
     ring_tc = parse_ring_tensor_core_launches(log, "train")
-    n_train = int(VIT_TRAIN_ROWS * 0.9)
+    n_train = int(RING_DATA_TRAIN_ROWS * 0.9)
     world = 2
     want_steps = math.ceil(n_train / world / TRAIN_BATCH)
-    want_evals = math.ceil((VIT_TRAIN_ROWS - n_train) / world / TRAIN_BATCH)
+    want_evals = math.ceil((RING_DATA_TRAIN_ROWS - n_train) / world
+                           / TRAIN_BATCH)
     per = DEPTH * MODEL_PARALLEL
     want = {"flash_fwd_pos": per * (steps + evals),
             "flash_dq_pos": per * steps, "flash_dkv_pos": per * steps}
@@ -2707,10 +2767,10 @@ def phase_ring_train() -> dict:
     (_, ring_log), (_, flash_log) = finish_all([
         start_cli(["test", "-f", best, *ring], os.path.join(WORK,
                                                            "ring_test"),
-                  launcher=TORCHRUN2, data=VIT_DATA),
+                  launcher=TORCHRUN2, data=RING_DATA),
         start_cli(["test", "-f", best, "--attention", "flash"],
-                  os.path.join(WORK, "ring_test_flash"), data=VIT_DATA)])
-    acc_here, correct, n = eval_accuracy(best, "vit", VIT_DATA)
+                  os.path.join(WORK, "ring_test_flash"), data=RING_DATA)])
+    acc_here, correct, n = eval_accuracy(best, "vit", RING_DATA)
     acc_ring = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
                          ring_log).group(1)
     acc_flash = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
@@ -2756,7 +2816,7 @@ def ring_vs_flash_rows(ckpt_path: str) -> int:
     from distributedpytorch_tpu_torch.models import get_model
     from distributedpytorch_tpu_torch.precision import PRESETS
 
-    ds = load_dataset("mnist", VIT_DATA, SEED, synthetic_fallback=True)
+    ds = load_dataset("mnist", RING_DATA, SEED, synthetic_fallback=True)
     images = ds.splits["test"].images
     policy = PRESETS["bf16"]
     model = get_model("vit", ds.nb_classes, policy, attention="flash",
@@ -2812,7 +2872,10 @@ RING_STEP_BATCH = 16
 TOL_RING_STEP = 1e-5
 
 
-def phase_ring_steps() -> None:
+def phase_ring_steps(f16_too: bool = False):
+    """Phase 19; with ``f16_too`` phase 33's f16 worlds start at once
+    beside its own (``f16_ring_worlds``), and their results are
+    returned."""
     import numpy as np
     import torch
 
@@ -2831,11 +2894,13 @@ def phase_ring_steps() -> None:
                       [t.numpy() for t in augment.affine_from_uniform(
                           u, 28, 28)]))
     kinds = (("flash", 1), ("ring_flash", 2), ("ring", 2))
-    worlds = dict(zip((a for a, _ in kinds), run_worlds([
+    extra = f16_ring_worlds() if f16_too else []
+    got = run_worlds([
         ring_world("vit", dict(arch={}, attention=attention, seed=SEED,
                                params=None, steps=steps), world,
                    f"ring_step_{attention}", "--model-parallel", str(world))
-        for attention, world in kinds])))
+        for attention, world in kinds] + extra)
+    worlds = dict(zip((a for a, _ in kinds), got))
     one = worlds["flash"][0]
     for attention in ("ring_flash", "ring"):
         ranks = worlds[attention]
@@ -2861,6 +2926,7 @@ def phase_ring_steps() -> None:
                 or launches["flash_dq_pos"] != want:
             fail(f"the 2-rank {attention} steps disagree with 1-process "
                  f"flash")
+    return got[len(kinds):] if f16_too else None
 
 
 # -- phase 20: where the time goes in a ring train step -----------------------
@@ -2938,13 +3004,13 @@ ZOO_PARITY_BATCH = 4
 # the conditioned rule of tests/_torch_zoo_jax.py: against the card's own
 # f64 step, the card's f32 step may be no further than
 # ZOO_CONDITIONED_FACTOR times the CPU's f32 step, at the median and at
-# the largest of the per-tensor errors.  inception's f32 backward through
-# cuDNN's convolutions lies 5x further from the f64 step than the CPU's
-# (median 0.36 against 0.066 per tensor on an H100, TF32 off, with or
-# without cuDNN's deterministic mode; ROADMAP queue 3 entry 10), and with
-# cuDNN off the card's step meets the rule (0.066): so inception's card
-# step is held with cuDNN off (ZOO_F32_WITHOUT_CUDNN) and its cuDNN
-# distance is printed.  vgg's conv biases feed a train-mode BatchNorm,
+# the largest of the per-tensor errors.  inception's f32 convolutions run
+# on a contiguous NCHW input on the card: on the channels_last view that
+# the other models convolve, cuDNN's f32 kernels put its gradients 5x
+# further from the f64 step than the CPU's (median 0.37 against 0.066
+# per tensor on an H100, TF32 off; ROADMAP queue 3 entry 10).  The phase
+# prints that distance and the two layouts' f32 step times beside the
+# held one.  vgg's conv biases feed a train-mode BatchNorm,
 # which cancels them: their gradient is zero up to rounding and is held
 # at the scale of its conv's weight gradient.
 TOL_ZOO_LOGITS = 1e-4
@@ -2952,7 +3018,7 @@ TOL_ZOO_GRAD_F64 = 1e-6
 TOL_ZOO_GRAD_F32 = 1e-2
 ZOO_F32_GRADS_HELD = ("alexnet", "squeezenet")
 ZOO_CONDITIONED_FACTOR = 2.0
-ZOO_F32_WITHOUT_CUDNN = ("inception",)
+INCEPTION_TIMED_BATCH = 64
 TOL_ZOO_STATS = 1e-4
 
 
@@ -2999,6 +3065,81 @@ def zoo_step(name: str, device: str, policy, x, masks) -> dict:
     return {"out": got,
             "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
             "stats": {n: b.cpu() for n, b in model.named_buffers()}}
+
+
+def inception_forward_channels_last(model, x):
+    """inception's train-mode forward with its convolutions on the
+    channels_last view of the NHWC input, as before the f32 input was
+    made contiguous on the card (``InceptionV3.forward`` otherwise)."""
+    import torch.nn.functional as F
+
+    from distributedpytorch_tpu_torch.models.common import global_mean
+    from distributedpytorch_tpu_torch.models.layers import dense
+
+    x = x.permute(0, 3, 1, 2)
+    x = model.c(2, model.c(1, model.c(0, x)))
+    x = F.max_pool2d(x, 3, 2)
+    x = F.max_pool2d(model.c(4, model.c(3, x)), 3, 2)
+    aux = None
+    for name in model.block_names:
+        x = getattr(model, name)(x)
+        if name == "InceptionC_3":
+            aux = model.AuxHead_0(x)
+    x = model.Dropout_0(global_mean(x))
+    return dense(model.head, x).float(), aux.float()
+
+
+def inception_layouts(x, masks, truth: dict, images, ds, u) -> str:
+    """The f32 step of inception on the channels_last view: its distance
+    from the card's f64 step (median and worst per tensor), and the f32
+    train step's wall time at batch INCEPTION_TIMED_BATCH both ways
+    (forward and backward of sum(logits * w), synchronized, 3 steps after
+    one)."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.models.layers import set_dropout_masks
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    model = get_model("inception", 10, PRESETS["f32"], device="cuda")
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.train()
+
+    def step(fn, xb, mb):
+        model.zero_grad(set_to_none=True)
+        set_dropout_masks(model, mb)
+        logits, aux = fn(xb)
+        w = torch.linspace(-1.0, 1.0, logits.shape[1], device="cuda")
+        ((logits * w).sum() + (aux * w.flip(0)).sum()).backward()
+
+    xc = x.cuda()
+    step(lambda t: inception_forward_channels_last(model, t), xc,
+         [m.cuda() for m in masks])
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    err = np.array(list(zoo_rel("inception", grads, truth).values()))
+    b = INCEPTION_TIMED_BATCH
+    big = augment.train_transform(
+        torch.from_numpy(np.tile(images.numpy(), (b // len(images), 1, 1))),
+        ds.mean, ds.std, 299,
+        augment.affine_from_uniform(u.repeat(b // len(u), 1), 28, 28)).cuda()
+    big_masks = [torch.ones((b,) + m.shape[1:], dtype=torch.bool,
+                            device="cuda") for m in masks]
+    times = {}
+    for label, fn in (("contiguous NCHW (held)", model),
+                      ("channels_last", lambda t:
+                       inception_forward_channels_last(model, t))):
+        step(fn, big, big_masks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(fn, big, big_masks)
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) * 1e3 / 3
+    return (f"on the channels_last view median {np.median(err):.3g} and "
+            f"worst {err.max():.3g}; f32 step at batch {b}: " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in times.items()))
 
 
 def phase_zoo_parity() -> None:
@@ -3053,14 +3194,9 @@ def phase_zoo_parity() -> None:
             name, step["grads"], truth).values()))
             for step in steps["f32"])
         cudnn_note = ""
-        if name in ZOO_F32_WITHOUT_CUDNN:
-            cudnn_note = (f"; through cuDNN median {np.median(card_f32):.3g}"
-                          f" and worst {card_f32.max():.3g}, held with "
-                          f"cuDNN off")
-            with torch.backends.cudnn.flags(enabled=False):
-                card_f32 = np.array(list(zoo_rel(name, zoo_step(
-                    name, "cuda", PRESETS["f32"], xs["f32"], masks)[
-                        "grads"], truth).values()))
+        if name == "inception":
+            cudnn_note = "; " + inception_layouts(xs["f32"], masks, truth,
+                                                  images, ds, u)
         conditioned = (
             float(np.median(card_f32)) <= ZOO_CONDITIONED_FACTOR
             * float(np.median(cpu_f32))
@@ -3292,11 +3428,12 @@ def phase_zoo_profile() -> None:
     loader = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, SEED,
                             "cuda")
     reps = ZOO_PROFILE_STEPS
-    batches = list(loader.epoch(0))     # 18, taken in turn
+    batches = list(loader.epoch(0))     # 10, taken in turn
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for name in ZOO:
+        # densenet121's step: phase 35 profiles it, eager and graphed
+        for name in (n for n in ZOO if n != "densenet"):
             policy = PRESETS["bf16"]
             model = get_model(name, ds.nb_classes, policy, device="cuda")
             engine = Engine(model, cross_entropy, ds.mean, ds.std,
@@ -3635,6 +3772,649 @@ def phase_f16_kernels() -> dict:
     return rows
 
 
+# -- phase 32: K4, K2p and K3p in float16 -------------------------------------
+
+# The ring's shard of the vit under --precision f16 (RING_MAIN's case):
+# rank 1's queries against rank 0's K/V, kv_valid 49.  The overflow case
+# scales q and k by 3 and dO by 2^14 (clipped under 65504, as the loss
+# scale puts the ring's cotangents near float16's range), where dS
+# overflows float16 in some tiles.
+F16_RING = RING_CASES[0]
+F16_RING_OVERFLOW = dict(qk_std=3.0, do_std=2.0 ** 14, do_clip=60000.0)
+
+
+def phase_f16_ring_kernels() -> dict:
+    """K4, K2p and K3p in float16 at the ring's shard, on the route the
+    rule picks (the tensor cores) and on the scalar route (forced): K4's
+    f32 O within TOL_O_POS_TC (scalar: TOL_O_POS) and lse within TOL_LSE
+    of the plain version, dq, dk, dv within TOL_F16 of its largest value
+    where both are finite and K2p's delta within TOL_DELTA, two calls
+    bit-identical; the overflow case's non-finite pattern against the
+    plain version's; device / call times beside the plain version's and
+    masked SDPA's in float16 (yardstick only) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributedpytorch_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    dt, dtype = "float16", torch.float16
+    label, b, s, h, d, causal, qb, kb, kv_valid, _ = F16_RING
+    base = torch.arange(s, dtype=torch.int32, device="cuda")
+    qp, kp = base + qb * s, base + kb * s
+    keep = (kp < kv_valid)[None, :].expand(s, s)
+    pairs = int(keep.sum().item())
+    wrappers = {"flash_fwd_pos": tfa.flash_attention_partial_fwd,
+                "flash_dq_pos": tfa.flash_attention_partial_dq,
+                "flash_dkv_pos": tfa.flash_attention_partial_dkv}
+    rows = {}
+    for case in ("unit", "overflow"):
+        std = F16_RING_OVERFLOW if case == "overflow" else dict(
+            qk_std=1.0, do_std=1.0, do_clip=60000.0)
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        q, k = ((t * std["qk_std"]).to(dtype) for t in (q, k))
+        v = v.to(dtype)
+        do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+              * std["do_std"]).clamp(-std["do_clip"], std["do_clip"])
+        dlse = torch.randn((b * h, s), generator=gen, device="cuda")
+        if not tfa._pick_route(None, (q, k, v), kernel="K4"):
+            fail("the ring's float16 q, k, v do not take K4's tensor cores")
+        before = {n: (w.launches, w.tensor_core_launches)
+                  for n, w in wrappers.items()}
+
+        def tc():
+            o, lse = tfa.flash_attention_partial_fwd(q, k, v, qp, kp,
+                                                     causal, kv_valid)
+            dq, delta, do_k3 = tfa.flash_attention_partial_dq(
+                q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid)
+            dk, dv = tfa.flash_attention_partial_dkv(
+                q, k, v, do_k3, lse, delta, qp, kp, causal, kv_valid)
+            return o, lse, delta, dq, dk, dv, do_k3
+
+        def scalar():
+            o, lse = tfa._launch(q, k, v, causal, (qp, kp, kv_valid),
+                                 tfa.flash_attention_partial_fwd,
+                                 tensor_core=False)
+            dq, delta, do_k3 = tfa._dq_pos_launch(
+                q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid,
+                tensor_core=False)
+            dk, dv = tfa.flash_attention_partial_dkv(
+                q, k, v, do_k3, lse, delta, qp, kp, causal, kv_valid)
+            return o, lse, delta, dq, dk, dv, do_k3
+
+        got = {}
+        for route, fn in (("tensor_core", tc), ("scalar", scalar)):
+            first, second = fn(), fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                fail(f"K4/K2p/K3p's float16 {route} route is not "
+                     f"deterministic ({case})")
+            got[route] = first
+        now = {n: (w.launches, w.tensor_core_launches)
+               for n, w in wrappers.items()}
+        if any(now[n] != (before[n][0] + 4, before[n][1] + 2)
+               for n in wrappers):
+            fail(f"K4/K2p/K3p's wrappers did not count their float16 "
+                 f"launches: {before} -> {now}")
+        if got["tensor_core"][6].dtype != dtype:
+            fail(f"K2p's tensor-core route wrote its dO copy in "
+                 f"{got['tensor_core'][6].dtype}")
+        po, plse = tfa.flash_attention_partial_plain(q, k, v, qp, kp,
+                                                     causal, kv_valid)
+        errs = {}
+        for route, (o, lse, delta, dq, dk, dv, _) in got.items():
+            tol_o = TOL_O_POS_TC if route == "tensor_core" else TOL_O_POS
+            want_delta = tfa.partial_delta(o, do, dlse)
+            # the plain version's f32 values, before its float16 cast
+            ref32 = tfa._partial_bwd_blocks(
+                q.float(), k.float(), v.float(), do, lse, want_delta, qp,
+                kp, causal, kv_valid)
+            e = {"o": ((o - po).abs().max().item(), tol_o),
+                 "lse": ((lse - plse).abs().max().item(), TOL_LSE),
+                 "delta": (rel_err(delta, want_delta)[1], TOL_DELTA)}
+            absolute = {"o": e["o"][0],
+                        "delta": rel_err(delta, want_delta)[0]}
+            patterns = {}
+            for n, x, r32 in (("dq", dq, ref32[0]), ("dk", dk, ref32[1]),
+                              ("dv", dv, ref32[2])):
+                if x.dtype != dtype:
+                    fail(f"K2p/K3p's {route} route returned {n} in "
+                         f"{x.dtype}")
+                ref = r32.to(dtype)
+                fin = torch.isfinite(x) & torch.isfinite(ref)
+                absolute[n], rel = rel_err(torch.where(fin, x, 0),
+                                           torch.where(fin, ref, 0))
+                e[n] = (rel, TOL_F16)
+                band = TOL_F16 * r32.abs().max().item()
+                patterns[n] = overflow_mismatch(x, r32, band)
+                if patterns[n][0]:
+                    fail(f"float16 ring {case}: the {route} route's "
+                         f"non-finite pattern of {n} differs from the "
+                         f"plain version's at {patterns[n][0]} elements "
+                         f"({patterns[n][1]} within {band:.4g} of "
+                         f"{F16_INF_AT:g} not held; plain overflows "
+                         f"{patterns[n][2]})")
+            bad = {n: v for n, v in e.items() if not v[0] <= v[1]}
+            if bad or not (torch.isfinite(o).all() and
+                           torch.isfinite(lse).all()):
+                fail(f"float16 ring {case}: K4/K2p/K3p's {route} route "
+                     f"disagrees with the plain version: {bad}")
+            errs[route] = (e, patterns, absolute)
+        if case == "overflow" and not any(
+                p[2] for p in errs["tensor_core"][1].values()):
+            fail("the float16 ring's overflow case overflows nothing")
+        say(f"f16 ring kernels {(b, s, h, d)} {case} (q block {qb}, k "
+            f"block {kb}, kv_valid {kv_valid}): " + "; ".join(
+                f"{r} " + " ".join(f"{n}={v[0]:.3g}" for n, v in e.items())
+                + " non-finite (differing, not held, plain) " + " ".join(
+                    f"{n}={p}" for n, p in pats.items())
+                for r, (e, pats, _) in errs.items())
+            + f" (tol o {TOL_O_POS_TC:g}/{TOL_O_POS:g}, lse {TOL_LSE:g}, "
+            f"grads {TOL_F16:g}, delta {TOL_DELTA:g}), bit-identical")
+        if case == "overflow":
+            continue
+        o, lse, delta, _, _, _, do_k3 = got["tensor_core"]
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                      .requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+        dot = do.to(dtype).transpose(1, 2).contiguous()
+        fns = {"K4": lambda: tfa.flash_attention_partial_fwd(
+                   q, k, v, qp, kp, causal, kv_valid),
+               "K2p": lambda: tfa.flash_attention_partial_dq(
+                   q, k, v, o, do, lse, dlse, qp, kp, causal, kv_valid),
+               "K3p": lambda: tfa.flash_attention_partial_dkv(
+                   q, k, v, do_k3, lse, delta, qp, kp, causal, kv_valid),
+               "scalar K4": lambda: tfa._launch(
+                   q, k, v, causal, (qp, kp, kv_valid),
+                   tfa.flash_attention_partial_fwd, tensor_core=False),
+               "K4 plain": lambda: tfa.flash_attention_partial_plain(
+                   q, k, v, qp, kp, causal, kv_valid),
+               "bwd plain": lambda: tfa.flash_attention_partial_bwd_plain(
+                   q, k, v, o, lse, do, dlse, qp, kp, causal, kv_valid),
+               "sdpa": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=keep),
+               "sdpa bwd": lambda: torch.autograd.grad(
+                   out, (qt, kt, vt), dot, retain_graph=True)}
+        call = {n: time_ms(f) for n, f in fns.items()}
+        dev = {n: spread(t)[0] for n, t in device_ms_tries(fns).items()}
+        bounds = ring_bounds(b, s, h, d, dt, pairs, True)
+        say(f"f16 ring kernels {(b, s, h, d)}: " + times_text(dev, call)
+            + "; bound_us " + " ".join(f"{n}={t * 1e3:.3f} ({by})"
+                                       for n, (t, by) in bounds.items()))
+        absolute = errs["tensor_core"][2]
+        for name, key, plain, lib, parts in (
+                ("flash_fwd_pos", "K4", "K4 plain", "sdpa", ("o",)),
+                ("flash_dq_pos", "K2p", "bwd plain", "sdpa bwd",
+                 ("delta", "dq")),
+                ("flash_dkv_pos", "K3p", "bwd plain", "sdpa bwd",
+                 ("dk", "dv"))):
+            rows[name + "_f16"] = dict(
+                max_abs_err=max(absolute[n] for n in parts),
+                ms=dev[key], plain_ms=dev[plain], library_ms=dev[lib],
+                bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                call_ms=call[key], plain_call_ms=call[plain],
+                library_call_ms=call[lib],
+                scalar_ms=dev["scalar K4"] if key == "K4" else None)
+    for name, r in rows.items():
+        if any(r[key] is None for key in ("ms", "plain_ms", "library_ms")):
+            fail(f"torch.profiler returned no device events for {name}")
+    return rows
+
+
+# -- phase 33: f16 on the ring ------------------------------------------------
+
+F16_RING_STEPS = 3
+# Each tensor's update after 3 f16 SGD steps of the full-width vit, the
+# 2-rank ring_flash world against 1-process flash, relative to its largest
+# update: float16 rounds at the same points in both, but the ring splits
+# the sums over the tokens (TOL_F16_STEP's bound, the f16 step on the card
+# against the CPU).
+TOL_F16_RING_UPDATE = 1e-2
+
+
+def start_f16_ring_train() -> tuple:
+    """``train --attention ring_flash --model-parallel 2 --precision f16
+    -e 1`` on two ranks sharing the card, on phase 22's corpus (5 steps of
+    the shard's 128 rows, 1 validation batch)."""
+    write_zoo_data()
+    return start_cli(["train", "--model", "vit", "--attention", "ring_flash",
+                      "--model-parallel", str(MODEL_PARALLEL), "--precision",
+                      "f16", "-e", "1"], os.path.join(WORK, "f16_ring_rsl"),
+                     launcher=TORCHRUN2, data=ZOO_DATA)
+
+
+def f16_ring_worlds() -> list:
+    """Phase 33's three ``run_worlds`` entries: f16 ``flash`` in one
+    process, ``ring_flash`` on two ranks, and the ring again with rank 1's
+    second step overflowing, on the same initial parameters and steps."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.models.vit import ViT
+
+    init = ViT(dtype=torch.float16, num_classes=10, device="cpu")
+    init.init_weights(torch.Generator().manual_seed(SEED))
+    params = {k: v.numpy() for k, v in init.state_dict().items()}
+    rng = np.random.default_rng(SEED + 33)
+    steps = []
+    for i in range(F16_RING_STEPS):
+        gb = RING_STEP_BATCH
+        valid = np.ones(gb, bool)
+        valid[-2:] = i == 0
+        u = torch.from_numpy(rng.random((gb, 5), dtype=np.float32))
+        steps.append((rng.integers(0, 256, (gb, 28, 28), dtype=np.uint8),
+                      rng.integers(0, 10, gb), valid,
+                      [t.numpy() for t in augment.affine_from_uniform(
+                          u, 28, 28)]))
+    base = dict(arch={}, seed=SEED, params=params, steps=steps,
+                precision="f16")
+    return [ring_world("vit", dict(base, attention="flash"), 1, "f16_flash"),
+            ring_world("vit", dict(base, attention="ring_flash"), 2,
+                       "f16_ring", "--model-parallel", "2"),
+            ring_world("vit", dict(base, attention="ring_flash",
+                                   overflow=(1, 1)), 2, "f16_ring_skip",
+                       "--model-parallel", "2")]
+
+
+def phase_f16_ring(train_run: tuple, worlds=None) -> tuple:
+    """Three f16 SGD steps of the full-width vit at the loss scale 2^15
+    (``worlds``: the results of ``f16_ring_worlds``, which phase 19 starts
+    beside its own; run here when None): ``ring_flash`` on two ranks
+    against ``flash`` in one process (every
+    update within TOL_F16_RING_UPDATE of its largest, the loss, counts,
+    scale and counters equal), and the ring again with rank 1's second
+    step overflowing (both ranks skip it and halve the scale); then the
+    f16 ring train's launches by phase 18's formula, every one on the
+    tensor cores, and its loss-scale line.  Returns its ring launches and
+    those on the tensor cores."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models.vit import ViT
+
+    flash, ring, skip = worlds or run_worlds(f16_ring_worlds())
+    one = flash[0]
+    init = ViT(dtype=torch.float16, num_classes=10, device="cpu")
+    init.init_weights(torch.Generator().manual_seed(SEED))
+    p0 = init.state_dict()
+    worst_update = max(((k, rel_err(ring[0]["state"][k] - v,
+                                    one["state"][k] - v)[1])
+                        for k, v in p0.items()), key=lambda t: t[1])
+    same = all(torch.equal(v, world[0]["state"][k])
+               for world in (ring, skip) for r in world[1:]
+               for k, v in r["state"].items())
+    loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in
+                   zip(ring[0]["metrics"], one["metrics"]))
+    # the valid rows equal; a correct count within one row a step (a
+    # logit pair within float16's rounding of a tie may flip)
+    counts = all(a[2] == b[2] and abs(a[1] - b[1]) <= 1 for a, b in
+                 zip(ring[0]["metrics"], one["metrics"]))
+    want = (F16_RING_STEPS, F16_RING_STEPS)
+    scales = {n: (w[0]["counters"], w[0]["loss_scale"]) for n, w in
+              (("flash", flash), ("ring", ring), ("skip", skip))}
+    say(f"f16 ring steps: ring_flash on 2 ranks vs flash on 1, "
+        f"{F16_RING_STEPS} f16 SGD steps of the full-width vit on a global "
+        f"batch of {RING_STEP_BATCH}: worst update {worst_update[0]} rel "
+        f"err {worst_update[1]:.3g} (tol {TOL_F16_RING_UPDATE:g}); loss rel "
+        f"err {loss_err:.3g}; (correct, valid) a step "
+        f"{[m[1:] for m in ring[0]['metrics']]} vs "
+        f"{[m[1:] for m in one['metrics']]} (held: valid equal, correct "
+        f"within 1) {counts}; ranks equal {same}; (step, updates) and "
+        f"scale {scales}; rank 0 launches {ring[0]['launches']}")
+    if not (same and counts and worst_update[1] <= TOL_F16_RING_UPDATE
+            and loss_err <= TOL_F16_RING_UPDATE
+            and scales["flash"] == scales["ring"] == (
+                want, {"scale": 2.0 ** 15, "good_steps": F16_RING_STEPS})
+            and all(r["counters"] == (F16_RING_STEPS, F16_RING_STEPS - 1)
+                    and r["loss_scale"] == {"scale": 2.0 ** 14,
+                                            "good_steps": 1}
+                    for r in skip)
+            and ring[0]["launches"]["flash_fwd_pos"]
+            == DEPTH * MODEL_PARALLEL * F16_RING_STEPS):
+        fail("the 2-rank f16 ring disagrees with 1-process f16 flash, or an "
+             "overflow on one model rank did not skip the step on both")
+    wall, log = finish_all([train_run])[0]
+    launches, steps_run, evals = parse_launches(log, "train")
+    ring_launches = parse_ring_launches(log, "train")
+    ring_tc = parse_ring_tensor_core_launches(log, "train")
+    scale, scale_steps, skipped = parse_loss_scale(log)
+    per = DEPTH * MODEL_PARALLEL
+    n_train = int(ZOO_TRAIN_ROWS * 0.9)
+    want_steps = math.ceil(n_train / MODEL_PARALLEL / TRAIN_BATCH)
+    want_launches = {"flash_fwd_pos": per * (steps_run + evals),
+                     "flash_dq_pos": per * steps_run,
+                     "flash_dkv_pos": per * steps_run}
+    losses = [float(x) for x in re.findall(r"Train       \| Loss: (\S+)",
+                                           log)]
+    say(f"f16 ring train: {steps_run} steps and {evals} eval batches in "
+        f"{wall:.1f}s of process wall; train loss {losses}; ring launches "
+        f"{ring_launches} (tensor-core {ring_tc}), K1-K3/K5 {launches}; "
+        f"loss scale {scale:g} after {scale_steps} steps, {skipped} skipped")
+    if steps_run != want_steps or ring_launches != want_launches \
+            or ring_tc != want_launches or any(launches.values()) \
+            or scale_steps != steps_run \
+            or not all(math.isfinite(x) for x in losses):
+        fail(f"the f16 ring train's launches {ring_launches} (tensor-core "
+             f"{ring_tc}) over {steps_run} steps do not match "
+             f"{want_launches} at {want_steps} steps, or its loss is not "
+             f"finite")
+    return ({k + "_f16": v for k, v in ring_launches.items()},
+            {k + "_f16": v for k, v in ring_tc.items()})
+
+
+# -- phase 34: train -f on a JAX-written file ---------------------------------
+
+JAX_RESUME_PORT = os.path.join(WORK, "cnn_debug",
+                               "checkpoint-mnist-cnn-000.ckpt")
+JAX_RESUME_FILE = os.path.join(WORK, "jax_file",
+                               "checkpoint-mnist-cnn-000.ckpt")
+JAX_RESUME_ARGS = ("train", "--model", "cnn", "--debug")
+
+
+def start_jax_resume() -> list:
+    """Phase 13's ``train --model cnn --debug -e 1`` rolling file (trained
+    here when phase 13 did not run), written again as the JAX package's
+    msgpack file by ``tests/_torch_jax_ckpt.py`` (torch, numpy and msgpack
+    only: the converter test's writer); then ``train -f`` to ``-e 2`` on
+    the port's file and on the JAX one, at once."""
+    import torch
+
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import (TrainState,
+                                                           make_optimizer)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_jax_ckpt import jax_state_tree, write_jax_checkpoint
+
+    if not os.path.exists(JAX_RESUME_PORT):
+        run_cli(list(JAX_RESUME_ARGS) + ["-e", "1"],
+                os.path.dirname(JAX_RESUME_PORT))
+    model = get_model("cnn", 10, PRESETS["bf16"], device="cpu")
+    state = TrainState(model, make_optimizer("adam", model))
+    epoch, best, step = ckpt.load_checkpoint(JAX_RESUME_PORT, model,
+                                             state.optimizer,
+                                             train_state=state)
+    write_jax_checkpoint(JAX_RESUME_FILE, "cnn", jax_state_tree(
+        model, state.optimizer, step, int(state.updates)), epoch - 1, best)
+    return [start_cli(list(JAX_RESUME_ARGS) + ["-e", "2", "-f", f],
+                      os.path.join(WORK, name))
+            for name, f in (("resume_port", JAX_RESUME_PORT),
+                            ("resume_jax", JAX_RESUME_FILE))]
+
+
+def phase_jax_resume(runs: list) -> None:
+    """The two resumes of ``start_jax_resume`` end bit-identical
+    (parameters, statistics, Adam's state and the counters of their
+    rolling files), the JAX-format file read as the JAX package's."""
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+
+    if ckpt._read(JAX_RESUME_FILE)[1] != "jax":
+        fail("the JAX-format file is not read as the JAX package's")
+    logs = finish_all(runs)
+    step = ckpt.read_checkpoint(JAX_RESUME_PORT)["state"]["step"]
+    files = [os.path.join(WORK, name, "checkpoint-mnist-cnn-001.ckpt")
+             for name in ("resume_port", "resume_jax")]
+    _, differ = state_tensors_differ(*files)
+    a, b = (ckpt.read_checkpoint(f)["state"] for f in files)
+    counters = [(s["step"], s["updates"]) for s in (a, b)]
+    loaded = "model loaded from" in logs[1][1]
+    say(f"jax resume: cnn trained {step} steps on the card, its state "
+        f"written as a JAX msgpack file "
+        f"({os.path.getsize(JAX_RESUME_FILE):,} bytes); train -f on it and "
+        f"on the port's file to epoch 2: tensors differing {differ}, "
+        f"(step, updates) {counters}, loaded {loaded}")
+    if differ or counters[0] != counters[1] or not loaded \
+            or counters[0][0] <= step:
+        fail("train -f on the JAX-format file does not resume as on the "
+             "port's own file")
+
+
+# -- phase 35: --epochs-per-dispatch as CUDA Graph replay ---------------------
+
+# (label, model, precision, attention, K5, train rows): the vit with flash
+# attention in bf16 and f16 (K1, K2 and K3 inside the graph), the cnn with
+# K5, resnet18 (the reference's job) and densenet121 (the most launches a
+# step), at full width and batch 64, each on the first rows of the
+# synthetic corpus and 64 validation rows: GRAPH_EPOCHS epochs one at a
+# time (the eager path), and as GRAPH_EPOCHS / GRAPH_K chunks of GRAPH_K
+# epochs (the train and eval steps captured after 3 eager ones, replayed
+# for the rest).
+GRAPH_RUNS = (("vit flash bf16", "vit", "bf16", "flash", False, 320),
+              ("vit flash f16", "vit", "f16", "flash", False, 320),
+              ("cnn K5 bf16", "cnn", "bf16", "full", True, 320),
+              ("resnet18 bf16", "resnet", "bf16", "full", False, 192),
+              ("densenet121 bf16", "densenet", "bf16", "full", False, 192))
+GRAPH_EPOCHS, GRAPH_K = 4, 2
+GRAPH_PROFILE_STEPS = 5
+# the port's kernels as the profiler names them (either route)
+PROFILED_KERNELS = {"flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
+                    "flash_dkv": "flash_dkv_", "conv_dw": "conv_dw"}
+
+
+def graph_profile(step, reps: int) -> dict:
+    """Wall ms a step (host clock, synchronized, profiler off), then under
+    torch.profiler device ms a step, kernels a step, the idle share of the
+    wall and the port's kernels' launches a step, read from the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    dev = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return dict(wall_ms=wall, device_ms=dev if dev > 0 else None,
+                kernels=sum(e.count for e in kernels) / reps,
+                idle=(1 - dev / wall) if dev > 0 else None,
+                launches={n: sum(e.count for e in kernels if tag in e.key)
+                          / reps for n, tag in PROFILED_KERNELS.items()})
+
+
+def phase_graphs() -> dict:
+    """Each run of GRAPH_RUNS eagerly and graphed from the same seed: the
+    parameters, BatchNorm statistics, optimizer state, counters, loss
+    scale and every epoch's train and validation sums bit-identical; the
+    graphed run's kernel launches counted as one capture's times its
+    replays equal to the eager run's; then a profile of each path's train
+    step (GRAPH_PROFILE_STEPS eager steps, the same number of replays):
+    wall and device ms, kernels a step, the idle share, and the port's
+    kernels a step read from the trace, the graphed ones equal to the
+    eager ones.  Returns the profiles by label."""
+    import torch
+
+    from distributedpytorch_tpu_torch import cli, utils
+    from distributedpytorch_tpu_torch.data.datasets import Split, load_dataset
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.dispatch import ChunkRunner
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    torch.backends.cudnn.deterministic = True   # as train sets it
+    torch.backends.cudnn.benchmark = False
+    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                      synthetic_fallback=True)
+    valid = ResidentLoader(Split(ds.splits["valid"].images[:TRAIN_BATCH],
+                                 ds.splits["valid"].labels[:TRAIN_BATCH]),
+                           TRAIN_BATCH, False, SEED, "cuda")
+    out = {}
+    for label, name, precision, attention, k5, rows in GRAPH_RUNS:
+        split = ds.splits["train"]
+        train = ResidentLoader(Split(split.images[:rows],
+                                     split.labels[:rows]),
+                               TRAIN_BATCH, True, SEED, "cuda")
+        policy = PRESETS[precision]
+
+        def build():
+            model = get_model(name, ds.nb_classes, policy,
+                              attention=attention, device="cuda",
+                              pallas_dw=k5)
+            engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                            get_model_input_size(name), policy, "cuda",
+                            steps_per_epoch=len(train))
+            return engine, engine.init_state(
+                torch.Generator().manual_seed(SEED))
+
+        runs = {}
+        for path in ("eager", "graphed"):
+            engine, state = build()
+            before = cli.kernel_launches()
+            t0 = time.perf_counter()
+            sums = []
+            if path == "eager":
+                for epoch in range(GRAPH_EPOCHS):
+                    _, tl, ta = cli._run_train_pass(engine, state, train,
+                                                    epoch, SEED)
+                    sums.append((tl, ta) + cli._run_eval_pass(
+                        engine, state, valid, epoch))
+                step_fn = None
+            else:
+                runner = ChunkRunner(engine, state, train, valid, SEED,
+                                     GRAPH_K)
+                for first in range(0, GRAPH_EPOCHS, GRAPH_K):
+                    got = runner.run(list(range(first, first + GRAPH_K)))
+                    for m, ev in zip(got["train"], got["eval"]):
+                        n, d, c, v = ev.tolist()
+                        sums.append((float(m[:, 0].mean()),
+                                     float(m[:, 1].sum()
+                                           / max(float(m[:, 2].sum()), 1.0)),
+                                     n / max(d, 1e-9), c / max(v, 1.0)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[path] = dict(
+                engine=engine, state=state, sums=sums, wall=wall,
+                runner=runner if path == "graphed" else None,
+                launches={k: v - before[k] for k, v in
+                          cli.kernel_launches().items() if v - before[k]},
+                model={k: v.detach().clone() for k, v in
+                       state.model.state_dict().items()},
+                opt=state.optimizer.state_dict()["state"],
+                counters=(int(state.step), int(state.updates)),
+                scale=(state.loss_scale.to_dict() if state.loss_scale
+                       else None))
+        eager, graphed = runs["eager"], runs["graphed"]
+        differ = [k for k, v in eager["model"].items()
+                  if not torch.equal(v, graphed["model"][k])]
+        differ += [f"opt/{i}/{n}" for i, st in eager["opt"].items()
+                   for n, t in st.items()
+                   if not torch.equal(t, graphed["opt"][i][n])]
+        same = (not differ and eager["sums"] == graphed["sums"]
+                and eager["counters"] == graphed["counters"]
+                and eager["scale"] == graphed["scale"]
+                and eager["launches"] == graphed["launches"])
+        # the profiles: eager steps on epoch 0's batches, and replays of
+        # the captured step from the chunk plan's first rows
+        engine, state = eager["engine"], eager["state"]
+        batches = list(itertools.islice(train.epoch(0),
+                                        GRAPH_PROFILE_STEPS + 2))
+        it = itertools.cycle(range(len(batches)))
+
+        def eager_step():
+            i = next(it)
+            engine.train_step(state, *batches[i],
+                              utils.step_generator(SEED, 0, i, "cuda"))
+
+        runner = graphed["runner"]
+        plan_rows = GRAPH_K * len(train)
+        replays = itertools.count()
+
+        def graphed_step():
+            # the step counter walks the chunk's plan; start it over
+            if next(replays) % plan_rows == 0:
+                runner.counters[0].zero_()
+            runner.train_step()
+
+        prof = {p: graph_profile(fn, GRAPH_PROFILE_STEPS)
+                for p, fn in (("eager", eager_step),
+                              ("graphed", graphed_step))}
+        per_step = {p: {k: v for k, v in prof[p]["launches"].items() if v}
+                    for p in prof}
+        say(f"graphs: {label}, {len(train)} steps and {len(valid)} eval "
+            f"batch an epoch, {GRAPH_EPOCHS} epochs: eager "
+            f"{eager['wall']:.2f}s, graphed ({GRAPH_EPOCHS // GRAPH_K} "
+            f"chunks of {GRAPH_K}, captures included) {graphed['wall']:.2f}s; bit-identical "
+            f"{same} (differing {differ[:4]}); counters "
+            f"{graphed['counters']}; launches eager {eager['launches']} "
+            f"graphed {graphed['launches']}")
+        for p, r in prof.items():
+            say(f"graphs:   {label} {p} train step: wall "
+                f"{r['wall_ms']:.3f} ms, device "
+                f"{fmt_ms(r['device_ms'])} ms in {r['kernels']:.0f} kernels "
+                f"(idle " + ("not measured" if r["idle"] is None else
+                             f"{100 * r['idle']:.1f}%")
+                + f"); the port's kernels' device launches a step from the "
+            f"trace {per_step[p]} (K5 is two a call: partial sums, then "
+            f"their reduction)")
+        if not same:
+            fail(f"the graphed {label} run is not bit-identical to the "
+                 f"eager one: {differ[:8]}, sums {eager['sums']} vs "
+                 f"{graphed['sums']}, counters {eager['counters']} vs "
+                 f"{graphed['counters']}, launches {eager['launches']} vs "
+                 f"{graphed['launches']}")
+        if prof["graphed"]["device_ms"] is None or \
+                prof["eager"]["device_ms"] is None or \
+                per_step["graphed"] != per_step["eager"]:
+            fail(f"torch.profiler's trace of the graphed {label} step "
+                 f"shows {per_step['graphed']} of the port's kernels a "
+                 f"step against the eager step's {per_step['eager']}")
+        out[label] = prof
+    return out
+
+
+def start_graph_cli() -> list:
+    """``train --model vit --attention flash --debug -e 4`` with
+    ``--epochs-per-dispatch 2`` and without, at once."""
+    base = ["train", "--model", "vit", "--attention", "flash", "--debug",
+            "-e", "4"]
+    return [start_cli(base + extra, os.path.join(WORK, name))
+            for name, extra in (("graph_k1", []),
+                                ("graph_k2", ["--epochs-per-dispatch",
+                                              "2"]))]
+
+
+def phase_graph_cli(runs: list) -> None:
+    """The two runs of ``start_graph_cli``: the same Train and Validation
+    lines, the rolling file of epoch 4 byte-identical, and the chunked
+    run's best file from a chunk's end."""
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+
+    (w1, log1), (w2, log2) = finish_all(runs)
+    keep = re.compile(r"\| (Loss|Acc)|mean train loss")
+
+    def lines(log):
+        return [line.split(" - ")[-1] for line in log.splitlines()
+                if keep.search(line)]
+
+    rolling = [os.path.join(WORK, name, "checkpoint-mnist-vit-003.ckpt")
+               for name in ("graph_k1", "graph_k2")]
+    with open(rolling[0], "rb") as f1, open(rolling[1], "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    best = ckpt.read_checkpoint(os.path.join(
+        WORK, "graph_k2", "bestmodel-mnist-vit.ckpt"))["epoch"]
+    say(f"graphs: train --epochs-per-dispatch 2 --debug -e 4 of the vit "
+        f"(flash) "
+        f"in {w2:.1f}s against -e 4 in {w1:.1f}s of process wall: log "
+        f"lines equal {lines(log1) == lines(log2)} ({len(lines(log1))}), "
+        f"rolling file of epoch 4 byte-identical {same_bytes}, best file "
+        f"from epoch {best + 1}")
+    if not (same_bytes and lines(log1) == lines(log2) and lines(log1)
+            and best in (1, 3)):
+        fail("the chunked train differs from the epoch-at-a-time one")
+
+
 def flash_attention_counts() -> dict:
     """(launches, tensor-core launches) of K1, K2 and K3, by kernel name."""
     from distributedpytorch_tpu_torch.ops import flash_attention as tfa
@@ -3698,7 +4478,8 @@ def phase_f16_step() -> None:
             if any(v != (DEPTH, DEPTH) for v in step.values()):
                 fail(f"an f16 vit step must launch {DEPTH} each of K1, K2 "
                      f"and K3, all on the tensor cores, got {step}")
-        got[device] = (m["loss"].item(), state.updates, state.loss_scale,
+        got[device] = (m["loss"].item(), int(state.updates),
+                       state.loss_scale.to_dict(),
                        {n: p.grad.detach().cpu()
                         for n, p in model.named_parameters()})
     (l_card, u_card, s_card, g_card), (l_cpu, u_cpu, s_cpu, g_cpu) = \
@@ -3709,7 +4490,7 @@ def phase_f16_step() -> None:
     say(f"f16 step: full-width vit at loss scale "
         f"{policy.loss_scale:g}, card vs CPU: loss {l_card:.6f} vs "
         f"{l_cpu:.6f}; updates applied {u_card} vs {u_cpu}, scale after "
-        f"{s_card.scale:g} vs {s_cpu.scale:g}; worst gradient "
+        f"{s_card['scale']:g} vs {s_cpu['scale']:g}; worst gradient "
         f"{worst_grad[0]} rel err {worst_grad[1]:.3g} (tol "
         f"{TOL_F16_STEP:g}) over {len(g_cpu)} parameters, all finite: "
         f"{finite}")
@@ -3756,7 +4537,7 @@ def phase_f16_skip() -> None:
     state = engine.init_state(torch.Generator().manual_seed(SEED))
     engine.train_step_affine(state, *batch, affine)
     torch.cuda.synchronize()
-    first = (state.step, state.updates, state.loss_scale)
+    first = (int(state.step), int(state.updates), state.loss_scale.to_dict())
     params = {k: v.clone() for k, v in model.state_dict().items()}
     opt = copy.deepcopy(state.optimizer.state_dict())
 
@@ -3776,18 +4557,19 @@ def phase_f16_skip() -> None:
     say(f"skip: f16 resnet (one block a stage, 224 px, batch {b}, Adam) on "
         f"the card: after a finite step (step, updates, scale) "
         f"{first[:2]} {first[2]}; after an injected overflow "
-        f"{(state.step, state.updates)} {state.loss_scale}; "
+        f"{(int(state.step), int(state.updates))} "
+        f"{state.loss_scale.to_dict()}; "
         f"{len(moved)} of {len(params)} parameters and buffers "
         f"({n_buffers} BatchNorm buffers) moved, {len(opt_moved)} of "
         f"{sum(len(s) for s in opt['state'].values())} Adam state tensors "
         f"moved")
     if first[:2] != (1, 1) or moved or opt_moved or not opt["state"] \
-            or (state.step, state.updates) != (2, 1) \
-            or state.loss_scale.scale != first[2].scale / 2 \
-            or state.loss_scale.good_steps != 0:
+            or (int(state.step), int(state.updates)) != (2, 1) \
+            or state.loss_scale.to_dict() != {"scale": first[2]["scale"] / 2,
+                                              "good_steps": 0}:
         fail(f"the overflow skip on the card: moved {moved[:5]}, Adam "
-             f"{opt_moved[:5]}, state {(state.step, state.updates)} "
-             f"{state.loss_scale}")
+             f"{opt_moved[:5]}, state {(int(state.step), int(state.updates))} "
+             f"{state.loss_scale.to_dict()}")
 
 
 # -- phase 27: the f16 main path ----------------------------------------------
@@ -3805,11 +4587,11 @@ def parse_loss_scale(log: str) -> tuple:
 
 def start_f16_train() -> tuple:
     """Phase 27's ``train --model vit --attention flash --precision f16
-    -e 1`` on phase 6's corpus, started ahead of the phase."""
-    write_vit_data()
+    -e 1`` on RING_DATA (141 steps), started ahead of the phase."""
+    write_ring_data()
     return start_cli(["train", "--model", "vit", "--attention", "flash",
                       "--precision", "f16", "-e", "1"],
-                     os.path.join(WORK, "f16_rsl"), data=VIT_DATA)
+                     os.path.join(WORK, "f16_rsl"), data=RING_DATA)
 
 
 def phase_f16_main_path(train_run: tuple) -> dict:
@@ -3847,7 +4629,7 @@ def phase_f16_main_path(train_run: tuple) -> dict:
                           precision="f16")
     test = start_cli(["test", "-f", best, "--attention", "flash",
                       "--precision", "f16"],
-                     os.path.join(WORK, "f16_test"), data=VIT_DATA)
+                     os.path.join(WORK, "f16_test"), data=RING_DATA)
     try:
         batches = serve_zoo(best, "vit", server, images, precision="f16")
     finally:
@@ -3857,14 +4639,14 @@ def phase_f16_main_path(train_run: tuple) -> dict:
     (_, tlog), = finish_all([test])
     acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", tlog).group(1)
     tlaunch, _, tevals = parse_launches(tlog, "test")
-    acc_here, correct, n = eval_accuracy(best, "vit", VIT_DATA,
+    acc_here, correct, n = eval_accuracy(best, "vit", RING_DATA,
                                          precision="f16")
     say(f"f16 test: `test -f --precision f16` {acc_cli}% ({tevals} eval "
         f"batches, launches {tlaunch}); in-process f16 eval {acc_here}% "
         f"({correct}/{n}); served {ZOO_WAVE} answers in {batches} batches")
     if acc_cli != acc_here or tlaunch["flash_fwd"] != DEPTH * tevals:
         fail("the f16 test disagrees with the in-process f16 eval")
-    np.testing.assert_equal(n, VIT_TEST_ROWS)
+    np.testing.assert_equal(n, RING_DATA_TEST_ROWS)
     cnn = cnn_epoch(True, SEED, precision="f16", max_steps=F16_CNN_STEPS)
     say(f"f16 cnn: Engine-driven cnn with K5, f16: {cnn['steps']} steps in "
         f"{cnn['wall']:.2f}s, validation acc {cnn['acc']:.2f}% (chance "
@@ -4226,7 +5008,7 @@ def phase_exit_test(runs: list) -> None:
 # a phase's checks that need another phase's output (phase 23 writes
 # phase 22's corpus itself when 22 does not run)
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 32                 # the closing lines; only a full run has it
+LAST_PHASE = 36                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -4336,8 +5118,6 @@ def main(argv=None) -> int:
         tc_launches.update(flash_fwd=train_tc["flash_fwd"],
                            flash_dq=train_tc["flash_dq"],
                            flash_dkv=train_tc["flash_dkv"])
-    elif want(18):
-        write_vit_data()
     if want(7):
         run(phase_resume_and_test, best)
     if want(9):
@@ -4364,17 +5144,9 @@ def main(argv=None) -> int:
                   "the ring's main shape")
     if want(17):
         run(phase_ring_op)
-    if want(18):
-        ring_launches, ring_tc = run(phase_ring_train)
-        for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
-            if ring_launches[name] <= 0:
-                fail(f"kernel {name} was not launched on the ring train "
-                     f"path")
-        launches.update(ring_launches)
-        # phase 18 fails unless every K4, K2p and K3p took the tensor cores
-        tc_launches.update(ring_tc)
+    f16_worlds = None
     if want(19):
-        run(phase_ring_steps)
+        f16_worlds = run(phase_ring_steps, want(33))
     if want(20):
         run(phase_ring_profile)
     # 23 and 24 time steps and kernels: they run before 21 and 22, and from
@@ -4385,6 +5157,10 @@ def main(argv=None) -> int:
         run(phase_zoo_profile)
     if want(24):
         main_rows.update(run(phase_f16_kernels))
+    if want(32):
+        main_rows.update(run(phase_f16_ring_kernels))
+    if want(35):
+        run(phase_graphs)
     started = []
 
     def ahead(phase: int, start):
@@ -4401,6 +5177,10 @@ def main(argv=None) -> int:
         f16_run = ahead(27, start_f16_train)
         bf16_run = ahead(29, start_bf16_full)
         async_runs = ahead(30, start_ckpt_async)
+        ring_run = ahead(18, start_ring_train)
+        f16_ring_run = ahead(33, start_f16_ring_train)
+        graph_cli_runs = ahead(35, start_graph_cli)
+        jax_resume_runs = ahead(34, start_jax_resume)
         if want(25):
             run(phase_f16_step)
         if want(26):
@@ -4414,6 +5194,16 @@ def main(argv=None) -> int:
                          else None)
         started.extend(p["run"] for p in (bf16_pending, async_pending)
                        if p is not None)
+        if want(18):
+            ring_launches, ring_tc = run(phase_ring_train, ring_run)
+            for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
+                if ring_launches[name] <= 0:
+                    fail(f"kernel {name} was not launched on the ring train "
+                         f"path")
+            launches.update(ring_launches)
+            # phase 18 fails unless every K4, K2p and K3p took the tensor
+            # cores
+            tc_launches.update(ring_tc)
         if want(27):
             launches.update(run(phase_f16_main_path, f16_run))
             # phase 27 fails unless every one of them took the tensor cores
@@ -4425,6 +5215,15 @@ def main(argv=None) -> int:
             run(phase_ckpt_async, async_pending)
         if want(31):
             run(phase_exit_test, exit_runs)
+        if want(33):
+            f16_ring, f16_ring_tc = run(phase_f16_ring, f16_ring_run,
+                                        f16_worlds)
+            launches.update(f16_ring)
+            tc_launches.update(f16_ring_tc)
+        if want(34):
+            run(phase_jax_resume, jax_resume_runs)
+        if want(35):
+            run(phase_graph_cli, graph_cli_runs)
     finally:
         for *_, proc, _ in started:
             if proc.poll() is None:

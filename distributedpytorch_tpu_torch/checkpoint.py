@@ -35,8 +35,12 @@ BatchNorm's running statistics are buffers of the model and travel in
 read as the JAX package's msgpack checkpoint of any of the nine models:
 flax's ndarray extension type is decoded with the plain ``msgpack``
 package and the params, with the ``batch_stats``, are converted by
-``models/convert.py`` (a ``--scan-layers`` layout is refused); ``test`` and ``serve`` read it, resuming ``train``
-from it is not ported yet (it would need optax -> torch optimizer state).
+``models/convert.py`` (a ``--scan-layers`` layout is refused); ``test``
+and ``serve`` read it, and ``train -f`` resumes from it: the optax state
+(Adam's or SGD's, ``--feature-extract``'s head) becomes the torch
+optimizer's (``convert.optimizer_state_from_jax``), the optax count the
+applied updates, and ``step``, the epoch, the best loss and the f16 loss
+scale are taken by the rules of the port's own files.
 Orbax checkpoint directories are not ported yet.  In a world of several
 ranks, rank 0 writes (the caller gates on ``runtime.is_main()``) and every
 rank reads.
@@ -59,7 +63,8 @@ import torch
 from torch import nn
 
 from . import faults, telemetry
-from .models.convert import cnn_params_from_jax, params_from_jax
+from .models.convert import (cnn_params_from_jax, optimizer_state_from_jax,
+                             params_from_jax)
 from .precision import LossScaleState
 
 FORMAT_VERSION = 3
@@ -67,8 +72,6 @@ _READABLE_VERSIONS = (1, 2, 3)  # the port's own files
 _JAX_FORMAT_VERSION = 1
 _JAX_MODELS = ("vit", "cnn", "mlp", "resnet", "alexnet", "vgg",
                "squeezenet", "densenet", "inception")
-_NOT_RESUMABLE_JAX = ("not ported yet: resuming a JAX-written checkpoint "
-                      "(test and serve read it)")
 _LINEAGE = "ckpt-lineage.json"
 _ZIP_MAGIC = b"PK\x03\x04"
 # msgpack extension codes of flax.serialization._MsgpackExtType
@@ -488,7 +491,9 @@ def _decode_jax(path: str, blob: bytes) -> dict:
     else:
         params = cnn_params_from_jax(state["params"],
                                      state.get("batch_stats") or {})
-    payload["state"] = {"params": params}
+    # the optax state, the counters and the loss scale stay as decoded,
+    # for a resume (load_checkpoint) to convert against its optimizer
+    payload["state"] = {"params": params, "jax": state}
     return payload
 
 
@@ -577,37 +582,114 @@ def load_checkpoint(path: str, model: nn.Module,
                     ) -> Tuple[int, float, int]:
     """Restore ``model`` (and, with ``restore_optimizer``, ``optimizer``)
     in place; returns (next_epoch, best_valid_loss, step).  Resuming needs
-    a format-2 or -3 file of the port: a JAX-written file or a params-only
-    file is refused for it (``test`` and ``serve`` read both).  Given the
+    a format-2 or -3 file of the port or a JAX-written file with its
+    optimizer state: a params-only file is refused for it (``test`` and
+    ``serve`` read it).  Given the
     trainer's ``train_state`` (``updates``, ``loss_scale``), its update
     count and loss scale are restored too, by the JAX rule of the module
     docstring."""
     payload, writer = _read(path)
     state = payload["state"]
+    if writer == "jax" and restore_optimizer:
+        state = _resume_state_from_jax(path, payload, optimizer)
     if restore_optimizer:
-        if writer == "jax":
-            raise ValueError(_NOT_RESUMABLE_JAX)
         if state.get("opt_state") is None or optimizer is None:
             raise ValueError(
                 f"{path}: holds no optimizer state (format version "
                 f"{payload['format_version']}); it cannot resume training "
                 f"(test and serve read it)")
     _load_params(path, payload, model)
-    if restore_optimizer:
+    if restore_optimizer and writer == "jax":
+        _load_jax_optimizer(path, state["opt_state"], model, optimizer)
+    elif restore_optimizer:
+        capturable = [g.get("capturable") for g in optimizer.param_groups]
         try:
             optimizer.load_state_dict(state["opt_state"])
         except (ValueError, KeyError) as e:
             raise ValueError(f"{path}: optimizer state does not fit the "
                              f"optimizer: {e}") from e
+        _keep_capturable(optimizer, capturable)
     step = int(state.get("step", 0))
     if train_state is not None:
-        train_state.updates = int(state.get("updates", step))
+        train_state.step.fill_(step)
+        train_state.updates.fill_(int(state.get("updates", step)))
         saved = state.get("loss_scale")
         if train_state.loss_scale is not None and saved is not None:
-            train_state.loss_scale = LossScaleState.from_dict(saved)
+            train_state.loss_scale.assign(LossScaleState.from_dict(saved))
     epoch = int(payload["epoch"]) + 1
     logging.info(f"epoch:{epoch:04d}: model loaded from {path}")
     return epoch, float(payload["loss"]), step
+
+
+def _keep_capturable(optimizer: torch.optim.Optimizer,
+                     capturable: list) -> None:
+    """The run's own ``capturable`` setting of each group (Adam's: on the
+    card, its step count on the device), whatever device wrote the file;
+    the step counts follow it."""
+    for group, cap in zip(optimizer.param_groups, capturable):
+        if cap is None:
+            continue
+        group["capturable"] = cap
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(
+                    device=p.device if cap else "cpu", dtype=torch.float32)
+
+
+def _resume_state_from_jax(path: str, payload: dict,
+                           optimizer: Optional[torch.optim.Optimizer]
+                           ) -> dict:
+    """A JAX file's state as the port's format 3 holds it: ``params``,
+    ``opt_state`` (the torch optimizer's state by parameter name, from
+    ``convert.optimizer_state_from_jax``; None when the file has none),
+    ``step``, ``updates`` (the optax count) and ``loss_scale``."""
+    jax_state = payload["state"]["jax"]
+    opt_state = jax_state.get("opt_state")
+    name = type(optimizer).__name__
+    out = {"params": payload["state"]["params"], "opt_state": None,
+           "step": int(np.asarray(jax_state.get("step", 0)))}
+    if opt_state and optimizer is not None:
+        try:
+            out["opt_state"], out["updates"] = optimizer_state_from_jax(
+                opt_state, jax_state["params"],
+                jax_state.get("batch_stats") or {},
+                "adam" if name == "Adam" else name,
+                payload["model_name"] == "vit")
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"{path}: optimizer state does not fit the "
+                             f"optimizer: {e}") from e
+    scale = jax_state.get("loss_scale")
+    if scale:
+        out["loss_scale"] = {"scale": float(np.asarray(scale["scale"])),
+                             "good_steps": int(np.asarray(
+                                 scale["good_steps"]))}
+    return out
+
+
+def _load_jax_optimizer(path: str, by_name: dict, model: nn.Module,
+                        optimizer: torch.optim.Optimizer) -> None:
+    """Set ``optimizer``'s state from ``_resume_state_from_jax``'s: every
+    parameter it trains must have one, in its dtype and on its device
+    (Adam's step on the device when ``capturable``)."""
+    names = {p: n for n, p in model.named_parameters()}
+    trained = sorted(names[p] for group in optimizer.param_groups
+                     for p in group["params"])
+    if trained != sorted(by_name):
+        raise ValueError(
+            f"{path}: optimizer state does not fit the optimizer: the file "
+            f"trains {sorted(by_name)}, the run {trained} "
+            f"(--feature-extract must match)")
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = {}
+            for key, t in by_name[names[p]].items():
+                if key == "step":
+                    st[key] = t.to(p.device if group.get("capturable")
+                                   else "cpu")
+                else:
+                    st[key] = t.to(device=p.device, dtype=p.dtype)
+            optimizer.state[p] = st
 
 
 def load_checkpoint_with_fallback(path: str, model: nn.Module,
@@ -618,7 +700,7 @@ def load_checkpoint_with_fallback(path: str, model: nn.Module,
     """``load_checkpoint`` with lineage recovery: when the requested file
     is torn or corrupt, fall back — loudly (error log + ``ckpt_fallback``
     telemetry event per skipped snapshot) — to the newest rolling snapshot
-    that verifies.  A JAX-written file is refused, not skipped."""
+    that verifies."""
     tel = telemetry.get()
     seen = {os.path.abspath(path)}
     candidates = [path]
@@ -634,8 +716,6 @@ def load_checkpoint_with_fallback(path: str, model: nn.Module,
                 return load_checkpoint(cand, model, optimizer,
                                        train_state=train_state)
             except ValueError as e:
-                if str(e) == _NOT_RESUMABLE_JAX:
-                    raise
                 reason = str(e)
         errors.append(f"{cand}: {reason}")
         logging.error(f"CHECKPOINT REJECTED {cand!r}: {reason}"

@@ -5,9 +5,14 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
 
   * ``run_train`` follows ``run_train``/``_train_world``/
     ``_run_train_epochs`` (:601-1016, :1208-1335) with ``_run_train_pass``,
-    ``_run_eval_pass`` and ``_progress_logs`` (:335-476): no elastic
-    world, fault plans, flight recorder, goodput ledger, exporter, roofline
-    or chunked epochs.  ``--precision f16`` scales the loss (skipped steps
+    ``_run_eval_pass`` and ``_progress_logs`` (:335-476), and
+    ``--epochs-per-dispatch K`` > 1 follows ``_run_train_chunked``
+    (:479-600): K epochs a chunk, each step a replay of a captured CUDA
+    Graph on the card (``train/dispatch.py``), per-epoch log lines from
+    one read at the chunk's end, the rolling checkpoint once a chunk and
+    the best file whenever an epoch of the chunk improved.  No elastic
+    world, fault plans, flight recorder, goodput ledger, exporter or
+    roofline.  ``--precision f16`` scales the loss (skipped steps
     and the final scale are logged), ``--grad-accum K`` accumulates K
     microbatches a step, and ``--ckpt-async`` hands rank 0's checkpoint
     writes and rotation deletes to a background ``AsyncSaver`` (joined
@@ -53,6 +58,7 @@ import logging
 import math
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -64,17 +70,12 @@ from .config import NUM_WORKERS, RESIDENT_MAX_BYTES, Config, \
 from .data.datasets import Dataset, Split, load_dataset
 from .data.pipeline import ResidentLoader
 from .models import get_model, get_model_input_size, pretrained
-from .ops.conv import conv3x3_dw
+from .ops import KERNELS
 from .ops import flash_attention as fa
 from .ops.losses import get_loss_fn
+from .train.dispatch import ChunkRunner
 from .train.engine import Engine, Predictor, TrainState
 
-KERNELS = {"flash_fwd": fa.flash_attention_fwd,
-           "flash_dq": fa.flash_attention_dq,
-           "flash_dkv": fa.flash_attention_dkv, "conv_dw": conv3x3_dw,
-           "flash_fwd_pos": fa.flash_attention_partial_fwd,
-           "flash_dq_pos": fa.flash_attention_partial_dq,
-           "flash_dkv_pos": fa.flash_attention_partial_dkv}
 RING_KERNELS = ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")
 
 
@@ -259,6 +260,31 @@ def _save_ckpt(saver, path: str, model_name: str, state: TrainState,
         ckpt.save_checkpoint_async(saver, *args)
 
 
+def _epoch_logs(epoch: int, improved: bool, epoch_s: float, end: float,
+                start_time: float, train_loss: float, train_acc: float,
+                valid_loss: float, valid_acc: float, sps_chip: float,
+                world: int) -> None:
+    """The reference's four lines after an epoch."""
+    epoch_mins, epoch_secs = utils.get_duration(0.0, epoch_s)
+    mins, _secs = utils.get_duration(start_time, end)
+    logging.info(
+        f"{'*' if improved else ' '} Epoch: {epoch + 1:03}  "
+        f"| Duration: {epoch_mins:03d}m {epoch_secs:02d}s  "
+        f"| Overall duration: {mins / 60:.2f}h")
+    logging.info(f"  Train       | Loss: {train_loss:.5f}     "
+                 f"  | Acc: {train_acc * 100:.2f}%")
+    logging.info(f"  Validation  | Loss: {valid_loss:.5f}     "
+                 f"  | Acc: {valid_acc * 100:.2f}%")
+    logging.info(f"  Throughput  | {sps_chip:,.0f} "
+                 f"samples/s/chip "
+                 f"({world} chip{'s' if world > 1 else ''})")
+
+
+def _epoch_header(epoch: int) -> None:
+    logging.info(f"====================== epoch{epoch + 1:4d} "
+                 f"======================")
+
+
 def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                       train_loader: ResidentLoader,
                       valid_loader: ResidentLoader, model_name: str,
@@ -270,8 +296,7 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
     tel = telemetry.get()
     world = runtime.world_size()
     for epoch in range(start_epoch, cfg.nb_epochs):
-        logging.info(f"====================== epoch{epoch + 1:4d} "
-                     f"======================")
+        _epoch_header(epoch)
         epoch_start = time.monotonic()
         with tel.span("epoch", epoch=epoch):
             with tel.span("train_pass", epoch=epoch,
@@ -282,8 +307,6 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
             valid_loss, valid_acc = _run_eval_pass(engine, state,
                                                    valid_loader, epoch)
         end = time.monotonic()
-        epoch_mins, epoch_secs = utils.get_duration(epoch_start, end)
-        mins, _secs = utils.get_duration(start_time, end)
         train_samples = len(train_loader) * train_loader.global_batch
         sps_chip = train_samples / max(train_end - epoch_start, 1e-9) / world
         tel.gauge("throughput/samples_per_sec_per_chip").set(sps_chip,
@@ -293,17 +316,9 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
         improved = valid_loss < best_valid_loss
         if improved:
             best_valid_loss = valid_loss
-        logging.info(
-            f"{'*' if improved else ' '} Epoch: {epoch + 1:03}  "
-            f"| Duration: {epoch_mins:03d}m {epoch_secs:02d}s  "
-            f"| Overall duration: {mins / 60:.2f}h")
-        logging.info(f"  Train       | Loss: {train_loss:.5f}     "
-                     f"  | Acc: {train_acc * 100:.2f}%")
-        logging.info(f"  Validation  | Loss: {valid_loss:.5f}     "
-                     f"  | Acc: {valid_acc * 100:.2f}%")
-        logging.info(f"  Throughput  | {sps_chip:,.0f} "
-                     f"samples/s/chip "
-                     f"({world} chip{'s' if world > 1 else ''})")
+        _epoch_logs(epoch, improved, end - epoch_start, end, start_time,
+                    train_loss, train_acc, valid_loss, valid_acc, sps_chip,
+                    world)
         if runtime.is_main():
             _rotate_ckpt(cfg, saver, model_name, epoch)
             paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
@@ -325,6 +340,112 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                 saver.wait()    # the rolling file is whole before exit
             tel.event("preempt", after_epoch=epoch)
             logging.info(f"preempted after epoch {epoch + 1}: "
+                         f"checkpoint written, resume with -f")
+            break
+    return {"history": history, "best_valid_loss": best_valid_loss,
+            "model_name": model_name, "state": state,
+            "preempted": shutdown.requested}
+
+
+def _check_chunk(tel, epoch: int, err: Optional[Exception]) -> None:
+    """The chunk boundary's failure agreement (JAX ``_health_boundary``
+    without an elastic world): when any rank failed inside the chunk,
+    every rank records a ``peer_failure`` event; the failed rank raises
+    its own error and the others a RuntimeError naming the epoch, so every
+    rank leaves at the same boundary."""
+    if not runtime.any_process(err is not None):
+        return
+    tel.event("peer_failure", epoch=epoch, local=err is not None,
+              error=repr(err) if err is not None else None)
+    tel.flush()
+    if err is not None:
+        raise err
+    raise RuntimeError(f"a peer process failed during epoch {epoch + 1}; "
+                       f"exiting with it (health agreement)")
+
+
+def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
+                       train_loader: ResidentLoader,
+                       valid_loader: ResidentLoader, model_name: str,
+                       start_epoch: int, best_valid_loss: float,
+                       start_time: float, shutdown, saver=None) -> dict:
+    """--epochs-per-dispatch K > 1 (JAX ``_run_train_chunked``): K train
+    and validation epochs a chunk (``ChunkRunner``), the per-epoch log
+    lines of ``_run_train_epochs`` from one read at the chunk's end; only
+    the chunk's final state exists, so the rolling checkpoint is written
+    once a chunk, and the best file (that state) whenever any epoch of the
+    chunk improved the best validation loss."""
+    history = []
+    tel = telemetry.get()
+    world = runtime.world_size()
+    runner = ChunkRunner(engine, state, train_loader, valid_loader,
+                         cfg.seed, cfg.epochs_per_dispatch)
+    epoch = start_epoch
+    while epoch < cfg.nb_epochs:
+        chunk = list(range(epoch, min(epoch + cfg.epochs_per_dispatch,
+                                      cfg.nb_epochs)))
+        chunk_start = time.monotonic()
+        chunk_err = None
+        try:
+            with tel.span("chunk_dispatch", first_epoch=epoch,
+                          epochs=len(chunk)):
+                out = runner.run(chunk)
+            end = time.monotonic()
+            per_epoch_s = (end - chunk_start) / len(chunk)
+            train_samples = len(train_loader) * train_loader.global_batch
+            sps_chip = train_samples / max(per_epoch_s, 1e-9) / world
+            tel.gauge("throughput/samples_per_sec_per_chip").set(
+                sps_chip, epoch=chunk[-1])
+            chunk_improved = False
+            for k, e in enumerate(chunk):
+                metrics = out["train"][k]
+                losses = metrics[:, 0]
+                train_loss = float(losses.mean())
+                train_acc = float(metrics[:, 1].sum()
+                                  / max(float(metrics[:, 2].sum()), 1.0))
+                numer, denom, correct, n_valid = out["eval"][k].tolist()
+                valid_loss = numer / max(denom, 1e-9)
+                valid_acc = correct / max(n_valid, 1.0)
+                improved = valid_loss < best_valid_loss
+                if improved:
+                    best_valid_loss = valid_loss
+                    chunk_improved = True
+                _epoch_header(e)
+                _progress_logs(e, losses)
+                _epoch_logs(e, improved, per_epoch_s, end, start_time,
+                            train_loss, train_acc, valid_loss, valid_acc,
+                            sps_chip, world)
+                history.append({"epoch": e, "train_loss": train_loss,
+                                "train_acc": train_acc,
+                                "valid_loss": valid_loss,
+                                "valid_acc": valid_acc,
+                                "train_s": per_epoch_s})
+            last = chunk[-1]
+            if runtime.is_main():
+                # the rolling files of this chunk's earlier epochs were
+                # never written; the previous chunk's goes
+                for e in [last] + chunk[:-1]:
+                    _rotate_ckpt(cfg, saver, model_name, e)
+                paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
+                                              model_name, last)]
+                if chunk_improved:
+                    paths.append(ckpt.best_model_path(
+                        cfg.rsl_path, cfg.dataset, model_name))
+                for path in paths:
+                    _save_ckpt(saver, path, model_name, state, last,
+                               best_valid_loss)
+            epoch = last + 1
+        # broad on purpose: any failure of the chunk (a step, a checkpoint
+        # write) reaches the same agreement on every rank
+        except Exception as e:
+            chunk_err = e
+        tel.flush()
+        _check_chunk(tel, chunk[-1], chunk_err)
+        if runtime.any_process(shutdown.requested):
+            if saver is not None:
+                saver.wait()
+            tel.event("preempt", after_epoch=chunk[-1])
+            logging.info(f"preempted after epoch {chunk[-1] + 1}: "
                          f"checkpoint written, resume with -f")
             break
     return {"history": history, "best_valid_loss": best_valid_loss,
@@ -375,7 +496,7 @@ def run_train(cfg: Config) -> dict:
         state = engine.init_state(torch.Generator().manual_seed(cfg.seed),
                                   load_weights)
         if cfg.checkpoint_file:
-            start_epoch, best_valid_loss, state.step = \
+            start_epoch, best_valid_loss, _step = \
                 ckpt.load_checkpoint_with_fallback(
                     cfg.checkpoint_file, state.model, state.optimizer,
                     cfg.rsl_path, cfg.dataset, model_name,
@@ -388,26 +509,28 @@ def run_train(cfg: Config) -> dict:
         if cfg.ckpt_async and runtime.is_main():
             saver = ckpt.AsyncSaver(on_error="degrade")
         before, before_tc = kernel_launches(), tensor_core_launches()
-        step0, updates0 = state.step, state.updates
+        step0, updates0 = int(state.step), int(state.updates)
         start_time = time.monotonic()
         shutdown = utils.GracefulShutdown()
+        loop = (_run_train_chunked if cfg.epochs_per_dispatch > 1
+                else _run_train_epochs)
         with shutdown:
-            result = _run_train_epochs(cfg, engine, state, train_loader,
-                                       valid_loader, model_name, start_epoch,
-                                       best_valid_loss, start_time, shutdown,
-                                       saver)
+            result = loop(cfg, engine, state, train_loader, valid_loader,
+                          model_name, start_epoch, best_valid_loss,
+                          start_time, shutdown, saver)
         if saver is not None:
             saver.wait()
         runtime.barrier()       # every rank returns after rank 0's writes
-        steps = state.step - step0
+        steps = int(state.step) - step0
         evals = len(result["history"]) * len(valid_loader)
         _log_launches("train", before, before_tc,
                       f"{steps} train steps and {evals} eval batches")
         if state.loss_scale is not None:
-            skipped = steps - (state.updates - updates0)
+            skipped = steps - (int(state.updates) - updates0)
+            scale = float(state.loss_scale.scale)
             tel.event("loss_scale", skipped=skipped, steps=steps,
-                      scale=state.loss_scale.scale)
-            logging.info(f"train: loss scale {state.loss_scale.scale:g} "
+                      scale=scale)
+            logging.info(f"train: loss scale {scale:g} "
                          f"after {steps} steps, {skipped} skipped on "
                          f"non-finite gradients")
         result["launches"] = {k: v - before[k]

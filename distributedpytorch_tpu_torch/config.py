@@ -20,11 +20,13 @@ from a torchvision ``state_dict``, and ``test``, ``serve`` and a resumed
 message.
 ``--precision`` takes the four JAX presets: ``f32``, ``bf16``,
 ``bf16_full`` (bfloat16 weights) and ``f16`` (float16 compute with the
-dynamic loss scale; with ``--attention ring|ring_flash`` it is not ported
-yet).  ``train`` takes ``--grad-accum K`` (K microbatches a step; K must
-divide the per-replica batch, the JAX message otherwise) and
-``--ckpt-async`` (checkpoint files written by a background thread); ``test``
-accepts and ignores both, as the JAX ``test`` does.
+dynamic loss scale).  ``train`` takes ``--grad-accum K`` (K microbatches
+a step; K must divide the per-replica batch, the JAX message otherwise),
+``--ckpt-async`` (checkpoint files written by a background thread) and
+``--epochs-per-dispatch K`` (K epochs a chunk, each step a CUDA Graph
+replay on the card; K >= 1, the JAX message otherwise, and K > 1 over
+gloo on the card is refused); ``test`` accepts and ignores all three, as
+the JAX ``test`` does.
 ``--model-parallel M`` (M >= 2) runs only the ring of ``--attention ring``
 or ``ring_flash`` over the (world / M, M) mesh, with the parameters
 replicated on every rank: the JAX package's placement of parameters over
@@ -113,6 +115,7 @@ class Config:
     model_parallel: int = 1
     grad_accum: int = 1
     ckpt_async: bool = False
+    epochs_per_dispatch: int = 1
 
     def precision_policy(self):
         """The resolved precision.PrecisionPolicy for this config."""
@@ -128,8 +131,6 @@ def not_ported(cfg: Config) -> Optional[str]:
     checks = (
         (ring and cfg.action == "serve" and cfg.model_name in (None, "vit"),
          f"--attention {cfg.attention}"),
-        (cfg.precision == "f16" and ring,
-         f"--precision f16 with --attention {cfg.attention}"),
         (cfg.data_mode == "stream", "--data-mode stream"),
         (cfg.model_parallel > 1 and not ring and cfg.action != "serve",
          "--model-parallel (parameter sharding over 'model')"),
@@ -154,6 +155,8 @@ def check_ported(cfg: Config) -> Config:
     flag = not_ported(cfg)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
+    if cfg.action == "train":
+        check_epochs_per_dispatch(cfg)
     if cfg.action == "train" and (cfg.grad_accum < 1
                                   or cfg.batch_size % cfg.grad_accum):
         # the JAX run_train's check (cli.py:725-728)
@@ -170,6 +173,29 @@ def check_ported(cfg: Config) -> Config:
         raise ValueError(f"--device must be one of {DEVICE_CHOICES}, got "
                          f"{cfg.device!r}")
     return cfg
+
+
+def check_epochs_per_dispatch(cfg: Config) -> None:
+    """K < 1 fails with the JAX ``run_train`` message (cli.py:721-724).
+    K > 1 on the card captures the steps as CUDA Graphs, which capture
+    NCCL's collectives but not gloo's: a world of several ranks on
+    ``cuda`` whose launch would take gloo (more local ranks than cards) is
+    refused here, before any work on the device."""
+    k = cfg.epochs_per_dispatch
+    if k < 1:
+        raise ValueError(f"--epochs-per-dispatch must be >= 1, got {k}")
+    if k == 1 or cfg.device != "cuda":
+        return
+    from . import runtime
+
+    if runtime.launched_distributed() and runtime._env_int("WORLD_SIZE") > 1:
+        import torch
+
+        if runtime.backend_for(torch.device("cuda")) == "gloo":
+            raise ValueError(
+                f"not ported yet: --epochs-per-dispatch {k} over gloo (a "
+                f"CUDA Graph captures NCCL's collectives, not gloo's; "
+                f"gloo carries a world with more local ranks than cards)")
 
 
 def check_pretrained(cfg: Config) -> None:
@@ -279,7 +305,6 @@ REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
     ("--anomaly-min-excess", _FLOAT, 0.05),
     ("--anomaly-capture-steps", _INT, 4),
     ("--anomaly-max-captures", _INT, 2),
-    ("--epochs-per-dispatch", _INT, 1),
     ("--pipeline-microbatches", _INT, 0),
 )
 
@@ -362,6 +387,13 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
                         "file I/O run on a background writer joined at the "
                         "next save, preemption or exit (the same bytes; "
                         "test ignores it)")
+    p.add_argument("--epochs-per-dispatch", type=int, default=1,
+                   dest="epochs_per_dispatch", metavar="K",
+                   help="train K epochs (train + validation passes) a "
+                        "dispatch: on the card each step replays a "
+                        "captured CUDA Graph and the epochs' sums are read "
+                        "once a chunk; the rolling checkpoint is written "
+                        "once a chunk (default 1; test ignores it)")
     p.add_argument("--data-mode", choices=("auto", "stream", "resident"),
                    default="auto", dest="data_mode",
                    help="device-resident batches (auto, resident); stream "

@@ -39,8 +39,8 @@
 // are forced to 0 there, but for K3p's p before dv, above); dq and dk are
 // scaled once at the end; outputs are cast to the input dtype with
 // round-to-nearest-even (a float16 value past 65504 is +-inf, as the TPU
-// kernels' astype gives it).  K2 and K3 take f32, bf16 and float16 (the
-// vit under --precision f16); K2p and K3p f32 and bf16.
+// kernels' astype gives it).  All four take f32, bf16 and float16 (the
+// vit and its ring under --precision f16).
 //
 // Not carried over: the wrapper's moveaxis to (B*H, S, D) and the pad of S
 // to a multiple of 128.  q, k, v, dO and O are read in their (B, S, H, D)
@@ -74,7 +74,7 @@
 // Two routes, chosen by the wrapper (ops/flash_attention.py::
 // tensor_core_route for K2/K3, ::partial_tensor_core_route for K2p/K3p):
 //
-// 1. bf16, or float16 for K2/K3, at D = 32 or 64 with 16-byte-aligned rows --
+// 1. bf16 or float16 at D = 32 or 64 with 16-byte-aligned rows --
 //    the vit's main path and the ring's shards -- runs flash_dq_mma_kernel
 //    (K2, K2p) and flash_dkv_mma_kernel (K3, K3p) on the tensor cores,
 //    mma.sync.m16n8k16 T x T -> f32 (T the input type). A block of 4 warps
@@ -113,15 +113,18 @@
 //    beside its rows; a lane's own two rows' positions sit in registers,
 //    and the position mask joins the ragged-tail mask in the accumulator
 //    layout.  K2p's dO: the same two threads a row read their f32 dO and
-//    O by 16-byte loads, sum delta, round dO to bf16 (nearest even, as
+//    O by 16-byte loads, sum delta, round dO to T (nearest even, as
 //    torch casts) and store it as 16-byte pieces both into the stage-1
 //    tile that ldmatrix turns into dP's A fragments and to a contiguous
-//    (B, S, H, D) bf16 buffer.  Each dO row belongs to one K2p block, so
+//    (B, S, H, D) buffer of T.  Each dO row belongs to one K2p block, so
 //    the copy is written once, and K3p streams it through the cp.async
 //    stages unchanged (its shared memory stays at K3's, under the 48 KB
-//    static limit).  The rounding adds at most 2^-9 relative to each dO
-//    element before the products dO V^T and P^T dO; delta sums the f32
-//    dO.  Rows of K2p's tile past S are zeros, and their lse and delta
+//    static limit).  The rounding adds at most 2^-9 (bf16) or 2^-12
+//    (float16) relative to each dO element before the products dO V^T and
+//    P^T dO; delta sums the f32 dO.  In float16 a dO element past 65504
+//    rounds to inf, where the TPU kernel reads the f32 dO: the step's
+//    gradients are then not finite and the loss scale skips it.  dS keeps
+//    range_shift in K2p and K3p as in K2 and K3.  Rows of K2p's tile past S are zeros, and their lse and delta
 //    are 0, so no NaN meets a zero-filled load.
 //
 // 2. Every other call -- f32, D = 128, views whose rows are not 16-byte
@@ -398,7 +401,7 @@ using MmaDo = typename std::conditional<kPos, float, T>::type;
 
 // K2 (kPos false) and K2p (kPos true) on the tensor cores: one block per
 // (64 query rows, b*h).  Also writes delta = rowsum(dO * O) of its rows,
-// less dlse for K2p.  K2p also writes its dO rows rounded to bf16 to
+// less dlse for K2p.  K2p also writes its dO rows rounded to T to
 // dout16, contiguous (B, S, H, D): the dO that K3p streams.
 template <typename T, int D, bool kPos>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -453,7 +456,7 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d0 = (tid & 1) * (D / 2);
     float part = 0.f;
     if constexpr (kPos) {
-      // the f32 dO, rounded to bf16 (nearest even), also goes into the
+      // the f32 dO, rounded to T (nearest even), also goes into the
       // stage-1 tile that ldmatrix turns into dP's A fragments and out to
       // dout16; rows at or past S are zeros in the tile
       T* tile = &v_s[1][r][d0];
@@ -620,7 +623,7 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K3 (kPos false) and K3p (kPos true, dO the bf16 copy K2p wrote) on the
+// K3 (kPos false) and K3p (kPos true, dO the 16-bit copy K2p wrote) on the
 // tensor cores: one block per (64 key rows, b*h).
 template <typename T, int D, bool kPos>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -828,8 +831,7 @@ void launch_dkv(const Args& a) {
 }
 
 // 0 on a launch, 1 for a head dim or dtype the kernels do not take.  K2/K3
-// read dO (and K2 O) in the input dtype, K2p/K3p in f32; K2p/K3p take no
-// float16.
+// read dO (and K2 O) in the input dtype, K2p/K3p in f32.
 template <bool kDq, bool kPos>
 int dispatch(const Args& a, int D, int dtype) {
 #define DPT_CASE(T, DIM, TILE)                                         \
@@ -851,11 +853,9 @@ int dispatch(const Args& a, int D, int dtype) {
     DPT_CASE(__nv_bfloat16, 64, 64)
     DPT_CASE(__nv_bfloat16, 128, 32)
   } else if (dtype == 2) {
-    if constexpr (!kPos) {
-      DPT_CASE(__half, 32, 64)
-      DPT_CASE(__half, 64, 64)
-      DPT_CASE(__half, 128, 32)
-    }
+    DPT_CASE(__half, 32, 64)
+    DPT_CASE(__half, 64, 64)
+    DPT_CASE(__half, 128, 32)
   }
 #undef DPT_CASE
   return 1;
@@ -882,7 +882,7 @@ void launch_mma(const Args& a, bool dq) {
   }
 }
 
-// The tensor-core route's own check: bf16 (K2/K3 also float16) q, k, v at D of
+// The tensor-core route's own check: bf16 or float16 q, k, v at D of
 // 32 or 64, every strided tensor 16-byte aligned with (b, s, h) strides that
 // are whole 16-byte pieces (multiples of 8 in bf16; of 4 for K2p's f32 dO and
 // O). 0 on a launch, 1 (nothing launched) for a call it does not take.
@@ -891,7 +891,7 @@ int dispatch_mma(const Args& a, int D, int dtype, bool dq) {
   const void* ptrs[5] = {a.q, a.k, a.v, a.dout, a.o};
   const Strides* sts[5] = {&a.qs, &a.ks, &a.vs, &a.os, &a.oos};
   const int per16 = kPos && dq ? 4 : 8;  // elements of dO and O a piece
-  bool ok = (dtype == 1 || (dtype == 2 && !kPos)) && (D == 32 || D == 64) &&
+  bool ok = (dtype == 1 || dtype == 2) && (D == 32 || D == 64) &&
             (!(kPos && dq) || a.dout16 != nullptr);
   for (int i = 0; i < (dq ? 5 : 4); ++i) {
     const int m = i < 3 ? 8 : per16;
@@ -905,11 +905,11 @@ int dispatch_mma(const Args& a, int D, int dtype, bool dq) {
     } else {
       launch_mma<bf16, 64, kPos>(a, dq);
     }
-  } else if constexpr (!kPos) {
+  } else {
     if (D == 32) {
-      launch_mma<f16, 32, false>(a, dq);
+      launch_mma<f16, 32, kPos>(a, dq);
     } else {
-      launch_mma<f16, 64, false>(a, dq);
+      launch_mma<f16, 64, kPos>(a, dq);
     }
   }
   return 0;
@@ -958,7 +958,7 @@ int finish(int refused) {
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16 (K2, K3).  lse and delta are (B*H, S) f32. Outputs
+// 1 = bfloat16, 2 = float16.  lse and delta are (B*H, S) f32. Outputs
 // are contiguous (B, S, H, D) in the input dtype.  Each returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, without
 // launching, for a call the kernel does not take).
@@ -1023,9 +1023,10 @@ extern "C" int dpt_flash_dkv_mma(const void* q, const void* k,
 // K2p: as dpt_flash_dq's arguments (15 strides) with dO and O in f32 (K4's
 // O and its cotangent) and dlse, the (B*H, S) f32 cotangent of lse (null
 // for zero).  Writes delta = rowsum(dO * O) - dlse and dq.  The _mma entry
-// point, the tensor-core route (bf16 q, k, v at D of 32 or 64, dO and O
-// with 16-byte-aligned pointers and strides that are multiples of 4),
-// also writes dO rounded to bf16 to dout16, contiguous (B, S, H, D).
+// point, the tensor-core route (bf16 or float16 q, k, v at D of 32 or 64,
+// dO and O with 16-byte-aligned pointers and strides that are multiples of
+// 4), also writes dO rounded to q's type to dout16, contiguous (B, S, H,
+// D).
 
 extern "C" int dpt_flash_dq_pos(const void* q, const void* k, const void* v,
                                 const void* dout, const void* o,
@@ -1060,7 +1061,7 @@ extern "C" int dpt_flash_dq_pos_mma(const void* q, const void* k,
 }
 
 // K3p: as dpt_flash_dkv's arguments (12 strides) with K2p's delta.  The
-// scalar kernel reads dO in f32; the _mma entry point reads the bf16 dO
+// scalar kernel reads dO in f32; the _mma entry point reads the 16-bit dO
 // that dpt_flash_dq_pos_mma wrote, on the same checks as dpt_flash_dkv_mma.
 
 extern "C" int dpt_flash_dkv_pos(const void* q, const void* k, const void* v,

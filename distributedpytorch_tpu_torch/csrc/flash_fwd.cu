@@ -20,11 +20,11 @@
 // Two routes, chosen by the wrapper (ops/flash_attention.py::
 // tensor_core_route, the rule of K2/K3 on q, k and v):
 //
-// 1. bf16 (K1 and K4) or float16 (K1: the vit under --precision f16) at
+// 1. bf16 or float16 (the vit and its ring under --precision f16) at
 //    D = 32 or 64 with 16-byte-aligned rows -- the vit's q, k, v (views
 //    into one projection) and the ring's shards -- runs
 //    flash_fwd_mma_kernel<T, D, kPos> on the tensor cores, mma.sync.m16n8k16
-//    T x T -> f32 (T bf16 or, for K1, float16), from the building blocks
+//    T x T -> f32 (T bf16 or float16), from the building blocks
 //    of mma16.cuh.  A block
 //    of 4 warps owns 64 query rows, 16 a warp; the grid is (ceil(S / 64),
 //    B*H).  Its Q rows arrive once by 16-byte cp.async (zero-filled past S)
@@ -53,8 +53,7 @@
 //
 // 2. Every other call -- f32, D = 128, views whose rows are not 16-byte
 //    aligned -- runs flash_fwd_kernel, scalar FMAs (below), in f32, bf16 or
-//    (K1) float16.  The ring's K4 takes no float16 (--precision f16 with a
-//    ring is refused).
+//    float16.  K4's O is f32 in every input type.
 //
 // Numerics kept from the TPU kernel on both routes: masked scores take the
 // finite sentinel -1e30 and their p is forced to 0 (in a row whose keys are
@@ -488,7 +487,7 @@ void launch(const FwdArgs& a) {
 }
 
 // 0 on a launch, 1 for a head dim or dtype the kernel does not take.  K1
-// writes O in the input dtype, K4 in f32; K4 takes no float16.
+// writes O in the input dtype, K4 in f32.
 template <bool kPos>
 int dispatch(const FwdArgs& a, int D, int dtype) {
 #define DPT_CASE(T, DIM, TILE)                                           \
@@ -506,11 +505,9 @@ int dispatch(const FwdArgs& a, int D, int dtype) {
     DPT_CASE(__nv_bfloat16, 64, 64)
     DPT_CASE(__nv_bfloat16, 128, 32)
   } else if (dtype == 2) {
-    if constexpr (!kPos) {
-      DPT_CASE(__half, 32, 64)
-      DPT_CASE(__half, 64, 64)
-      DPT_CASE(__half, 128, 32)
-    }
+    DPT_CASE(__half, 32, 64)
+    DPT_CASE(__half, 64, 64)
+    DPT_CASE(__half, 128, 32)
   }
 #undef DPT_CASE
   return 1;
@@ -528,7 +525,7 @@ void launch_mma(const FwdArgs& a) {
       a.scale, a.causal);
 }
 
-// The tensor-core route's own check: bf16 (or, for K1, float16) q, k, v
+// The tensor-core route's own check: bf16 or float16 q, k, v
 // at D of 32 or 64, each 16-byte aligned with (b, s, h) strides that are
 // multiples of 8.  0 on a launch, 1 (nothing launched) for a call it does
 // not take.
@@ -537,7 +534,7 @@ int dispatch_mma(const FwdArgs& a, int D, int dtype) {
   const void* ptrs[3] = {a.q, a.k, a.v};
   const int strides[9] = {a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss,
                           a.k_sh, a.v_sb, a.v_ss, a.v_sh};
-  bool ok = (dtype == 1 || (dtype == 2 && !kPos)) && (D == 32 || D == 64);
+  bool ok = (dtype == 1 || dtype == 2) && (D == 32 || D == 64);
   for (int i = 0; i < 3; ++i) {
     ok = ok && reinterpret_cast<unsigned long long>(ptrs[i]) % 16 == 0;
   }
@@ -549,11 +546,11 @@ int dispatch_mma(const FwdArgs& a, int D, int dtype) {
     } else {
       launch_mma<bf16, 64, kPos>(a);
     }
-  } else if constexpr (!kPos) {
+  } else {
     if (D == 32) {
-      launch_mma<f16, 32, false>(a);
+      launch_mma<f16, 32, kPos>(a);
     } else {
-      launch_mma<f16, 64, false>(a);
+      launch_mma<f16, 64, kPos>(a);
     }
   }
   return 0;
@@ -594,7 +591,7 @@ FwdArgs make_args(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16 (K1 only).  Strides are in elements; the last dim
+// 1 = bfloat16, 2 = float16.  Strides are in elements; the last dim
 // of q, k and v must be contiguous.  O and lse are written contiguous: O (B,
 // S, H, D), lse (B*H, S) f32.  Each returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for a head dim or dtype the kernel does not
@@ -635,9 +632,8 @@ extern "C" int dpt_flash_fwd_pos(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core route of K1 and of K4: the same arguments as
-// dpt_flash_fwd and dpt_flash_fwd_pos; bf16 (K1 also float16) at D of 32
-// or 64, every
-// pointer 16-byte aligned and every stride a multiple of 8
+// dpt_flash_fwd and dpt_flash_fwd_pos; bf16 or float16 at D of 32 or 64,
+// every pointer 16-byte aligned and every stride a multiple of 8
 // (cudaErrorInvalidValue, without launching, otherwise).
 extern "C" int dpt_flash_fwd_mma(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int B, int S, int H,

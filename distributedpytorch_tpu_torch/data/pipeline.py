@@ -5,7 +5,8 @@ Counterpart of ``distributedpytorch_tpu/data/pipeline.py::ResidentLoader``
 (:40-108): the split's uint8 images and labels are moved to the rank's
 device once (every rank holds the whole split, as the JAX package
 replicates it over the mesh), ``epoch_plan(epoch)`` is this rank's
-``ShardedSampler`` (steps, B) index and valid arrays on the device, and
+``ShardedSampler`` (steps, B) index and valid arrays on the device
+(``epoch_plan_many``: several epochs' plans one after another), and
 ``epoch`` gathers each step's rows there with ``index_select``.  Rank r of
 W takes the sampler's strided slice r::W, so the global batch of a step is
 rank-major, rows [r*B, (r+1)*B) from rank r, as the JAX ``_host_plan``
@@ -19,7 +20,7 @@ loader is not ported yet.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,9 +63,18 @@ class ResidentLoader:
     def epoch_plan(self, epoch: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(idx int64, valid bool) device tensors of shape (steps, B *
         model_parallel)."""
-        plans = [s.epoch_indices(epoch) for s in self.samplers]
-        idx = np.concatenate([ix for ix, _ in plans], axis=1)
-        valid = np.concatenate([v for _, v in plans], axis=1)
+        return self.epoch_plan_many([epoch])
+
+    def epoch_plan_many(self, epochs: Sequence[int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The plans of ``epochs`` one after another: (idx, valid) of
+        shape (len(epochs) * steps, B * model_parallel), moved to the
+        device at once."""
+        plans = [[s.epoch_indices(e) for s in self.samplers] for e in epochs]
+        idx = np.concatenate([np.concatenate([ix for ix, _ in p], axis=1)
+                              for p in plans])
+        valid = np.concatenate([np.concatenate([v for _, v in p], axis=1)
+                                for p in plans])
         return (torch.from_numpy(idx.astype(np.int64)).to(self.device),
                 torch.from_numpy(valid).to(self.device))
 

@@ -14,6 +14,10 @@ checkpoint decodes.  What changes on the way:
     biased variance, so they are taken as they are);
   * the vit's ``pos_embed`` (1, S, dim) f32 is taken as it is.
 
+``optimizer_state_from_jax`` converts an optax state (Adam's moments,
+SGD's trace, under ``--feature-extract`` the head's) by the same rules,
+for ``train -f`` on a JAX-written file.
+
 The vit's modules have names of their own (``params_from_jax``); the cnn,
 mlp and the torchvision zoo (resnet, alexnet, vgg, squeezenet, densenet,
 inception) carry flax's names, nested as the flax modules nest
@@ -122,6 +126,77 @@ def cnn_params_from_jax(params: dict, batch_stats: Optional[dict] = None
 
     walk(params, batch_stats or {}, "")
     return out
+
+
+def _fill_masked(tree, params, leaf):
+    """``tree`` (an optax per-parameter tree, the params' shape) with the
+    leaves that optax masked out (``{}``, a frozen parameter under
+    ``multi_transform``) and every array replaced by ``leaf(param,
+    masked)``."""
+    if isinstance(params, dict):
+        return {k: _fill_masked(tree.get(k, {}), v, leaf)
+                for k, v in params.items()}
+    masked = isinstance(tree, dict)
+    return leaf(np.asarray(params) if masked else tree, masked)
+
+
+def optimizer_state_from_jax(opt_state: dict, params: dict,
+                             batch_stats: Optional[dict], optimizer: str,
+                             is_vit: bool
+                             ) -> Tuple[Dict[str, Dict[str, torch.Tensor]],
+                                        int]:
+    """An optax state as a msgpack checkpoint decodes it -> (the torch
+    optimizer's state of every trained parameter, by its ``state_dict``
+    name; the count of applied updates).  ``optimizer``: ``adam``
+    (``ScaleByAdamState`` -> ``step``, ``exp_avg``, ``exp_avg_sq``) or
+    ``SGD`` (``TraceState.trace`` -> ``momentum_buffer``; the schedule's
+    count is the update count).  ``--feature-extract``'s
+    ``multi_transform`` holds them under ``inner_states/head``; its
+    ``backbone`` (``set_to_zero``) has no state, and the parameters that
+    optax masked out of the head's are left out.  The moment trees go
+    through the params' converter, so each takes its parameter's layout
+    (HWIO -> OIHW, (in, out) -> (out, in)).  ValueError when the tree is
+    not the one ``optimizer`` builds."""
+    if "inner_states" in opt_state:
+        try:
+            opt_state = opt_state["inner_states"]["head"]["inner_state"]
+        except (KeyError, TypeError):
+            raise ValueError("optax multi_transform state without a 'head' "
+                             "transform") from None
+    keys = {"adam": ("count", "mu", "nu"), "SGD": ("trace",)}[optimizer]
+    first = opt_state.get("0") if isinstance(opt_state, dict) else None
+    if not isinstance(first, dict) or set(first) != set(keys) \
+            or (optimizer == "SGD"
+                and set(opt_state.get("1") or {}) != {"count"}):
+        raise ValueError(f"the optax state {sorted(opt_state)} is not the "
+                         f"{optimizer} chain's")
+    count = int(np.asarray(first["count"] if optimizer == "adam"
+                           else opt_state["1"]["count"]))
+
+    def convert(tree):
+        if is_vit:
+            return params_from_jax(tree)
+        return cnn_params_from_jax(tree, batch_stats)
+
+    trained = convert(_fill_masked(first[keys[-1]], params,
+                                   lambda p, masked: np.full(
+                                       np.shape(p), 0.0 if masked else 1.0)))
+    moments = {key: convert(_fill_masked(
+        first[key], params,
+        lambda p, masked: np.zeros(np.shape(p)) if masked else p))
+        for key in keys if key != "count"}
+    names = {"mu": "exp_avg", "nu": "exp_avg_sq",
+             "trace": "momentum_buffer"}
+    out = {}
+    for name, flag in trained.items():
+        if name.endswith(("running_mean", "running_var")) or not flag.any():
+            continue
+        if not flag.all():
+            raise ValueError(f"the optax state masks part of {name!r}")
+        out[name] = {names[key]: tree[name] for key, tree in moments.items()}
+        if optimizer == "adam":
+            out[name]["step"] = torch.tensor(float(count))
+    return out, count
 
 
 def cnn_params_to_jax(state_dict: Dict[str, torch.Tensor]

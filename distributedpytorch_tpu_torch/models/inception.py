@@ -16,8 +16,9 @@ branches, each holding ``Conv_0`` and ``BatchNorm_0``; the aux classifier
 is ``AuxHead_0.aux_head``.  The 3x3/1 average pools of the blocks count
 the padding (flax's ``avg_pool`` and torch's default), the asymmetric
 kernels are (1, 7)/(7, 1) and (1, 3)/(3, 1).  Input NHWC, convs on its
-channels_last NCHW view, BatchNorm with flax's semantics and global
-statistics.  Logits f32.
+channels_last NCHW view (an f32 input on the card is made contiguous
+NCHW first), BatchNorm with flax's semantics and global statistics.
+Logits f32.
 """
 
 from __future__ import annotations
@@ -208,6 +209,12 @@ class InceptionV3(_Block):
     def forward(self, x: torch.Tensor
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
+        if x.is_cuda and x.dtype == torch.float32:
+            # cuDNN's f32 convolutions of the channels_last view put the
+            # step's gradients 5x the CPU's rounding distance from f64;
+            # of a contiguous NCHW input they meet it (ROADMAP queue 3
+            # entry 10)
+            x = x.contiguous()
         x = self.c(2, self.c(1, self.c(0, x)))
         x = F.max_pool2d(x, 3, 2)
         x = F.max_pool2d(self.c(4, self.c(3, x)), 3, 2)

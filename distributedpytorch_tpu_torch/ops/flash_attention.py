@@ -22,18 +22,18 @@ kernel (and count the launch) or raise — there is no fallback.  K2 also
 computes delta = rowsum(dO * O), which the JAX package computes outside
 its kernels, and returns it for K3; K2p likewise computes delta =
 rowsum(dO * O) - dlse, the lse cotangent folded in.  Every kernel has two
-routes, both hand-written: ``tensor_core_route`` sends bf16 at D = 32 or
-64 with 16-byte-aligned rows (the vit's main path and the ring's shards)
+routes, both hand-written: ``tensor_core_route`` sends bf16 or float16 at
+D = 32 or 64 with 16-byte-aligned rows (the vit's main path and the ring's
+shards)
 to the tensor-core kernels of K1, K4 and K2/K3, and
 ``partial_tensor_core_route`` does the same for K2p/K3p, where K2p also
-rounds the f32 dO to bf16 once for K3p (each wrapper also counts these in
-``tensor_core_launches``); every other call takes the scalar kernels.
-K1, K2 and K3 take float16 as well (the vit under ``--precision f16``), on
-both routes: the tensor-core route runs the same kernels on float16
-``mma.sync`` and keeps float16's range for dS (``csrc/flash_bwd.cu``); the
-ring's K4, K2p and K3p refuse float16 (``--precision f16`` with a ring is
-not ported yet).  A
-route that fails raises, neither gives way to the other.
+rounds the f32 dO to q's 16-bit type once for K3p (each wrapper also
+counts these in ``tensor_core_launches``); every other call takes the
+scalar kernels.  Every kernel takes float16 as well (the vit and its ring
+under ``--precision f16``), on both routes: the tensor-core route runs the
+same kernels on float16 ``mma.sync`` and keeps float16's range for dS
+(``csrc/flash_bwd.cu``).  A route that fails raises, neither gives way to
+the other.
 ``FlashAttention`` is the autograd Function of K1 (backward K2 and K3),
 ``FlashAttentionPartial`` that of K4 (backward K2p and K3p).
 Public layout is the JAX package's: q, k, v, the output and its gradient
@@ -62,8 +62,7 @@ _NEG = -1e30          # finite masked-score sentinel, as in the TPU kernel
 HEAD_DIMS = (32, 64, 128)
 MMA_HEAD_DIMS = (32, 64)   # the tensor-core routes of K2/K3 and K2p/K3p
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the 16-bit types of the tensor-core routes of K1, K2 and K3 (K4, K2p and
-# K3p: bfloat16 only)
+# the 16-bit types of the tensor-core routes
 MMA_DTYPES = (torch.bfloat16, torch.float16)
 _INT_MAX = 2 ** 31 - 1
 
@@ -199,12 +198,9 @@ def _check_kernel_inputs(kernel: str, tensors) -> list:
     flattened."""
     q = tensors[0][1]
     b, s, h, d = q.shape
-    positional = kernel.endswith("_pos")
-    if q.dtype not in _DTYPE_CODES or (positional
-                                       and q.dtype == torch.float16):
-        raise ValueError(f"{kernel} kernel takes float32 or bfloat16"
-                         + ("" if positional else " or float16")
-                         + f", got {q.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{kernel} kernel takes float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{kernel} kernel takes head dim in {HEAD_DIMS}, "
                          f"got {d}")
@@ -362,8 +358,8 @@ def _whole_16_byte_rows(strides, ptrs, itemsizes) -> bool:
 
 def tensor_core_route(dtype: torch.dtype, d: int, strides, ptrs) -> bool:
     """The rule between the routes of K1, K4, K2 and K3: True for the
-    tensor-core kernels (bf16, or float16 for K1-K3, whose wrappers refuse
-    it for K4 first; D in ``MMA_HEAD_DIMS``, every tensor with a
+    tensor-core kernels (bf16 or float16; D in ``MMA_HEAD_DIMS``, every
+    tensor with a
     unit head stride, (batch, seq, head) strides that are multiples of 8
     and a 16-byte-aligned data pointer, so every row is whole 16-byte
     copies), False for the scalar ones.  ``strides`` and ``ptrs``: those
@@ -376,16 +372,17 @@ def partial_tensor_core_route(dtypes, d: int, strides, ptrs) -> bool:
     """The rule between K2p's and K3p's routes: True for the tensor-core
     kernels, False for the scalar ones.  ``dtypes``, ``strides`` and
     ``ptrs``: those of q, k, v and dO, and O for K2p.  The tensor cores
-    take bf16 q, k and v at D in ``MMA_HEAD_DIMS`` with K2p's dO and O in
-    f32 (K4's O and its cotangent) or K3p's dO in bf16 (the copy that K2p
-    writes on this route), every tensor with a unit head stride, a
-    16-byte-aligned data pointer and (batch, seq, head) strides that are
-    multiples of 8 in bf16 or 4 in f32, so every row is whole 16-byte
-    loads.  dlse and the positions are contiguous on both routes (the
+    take bf16 or float16 q, k and v at D in ``MMA_HEAD_DIMS`` with K2p's dO
+    and O in f32 (K4's O and its cotangent) or K3p's dO in q's type (the
+    copy that K2p writes on this route), every tensor with a unit head
+    stride, a 16-byte-aligned data pointer and (batch, seq, head) strides
+    that are multiples of 8 in 16 bits or 4 in f32, so every row is whole
+    16-byte loads.  dlse and the positions are contiguous on both routes (the
     wrappers' checks require it)."""
     dtypes = list(dtypes)
-    rest = ([torch.float32] * 2 if len(dtypes) == 5 else [torch.bfloat16])
-    return (dtypes == [torch.bfloat16] * 3 + rest and d in MMA_HEAD_DIMS
+    rest = [torch.float32] * 2 if len(dtypes) == 5 else dtypes[:1]
+    return (dtypes[0] in MMA_DTYPES and dtypes == dtypes[:1] * 3 + rest
+            and d in MMA_HEAD_DIMS
             and _whole_16_byte_rows(strides, ptrs,
                                     [dt.itemsize for dt in dtypes]))
 
@@ -405,8 +402,8 @@ def _pick_route(tensor_core: Optional[bool], tensors,
     else:
         fits = tensor_core_route(q.dtype, q.shape[3], strides, ptrs)
     if tensor_core and not fits:
-        what = ("K2p/K3p take bfloat16 q, k, v (K2p: float32 dO and O; "
-                "K3p: bfloat16 dO)" if positional
+        what = ("K2p/K3p take bfloat16 or float16 q, k, v (K2p: float32 "
+                "dO and O; K3p: dO in q's dtype)" if positional
                 else f"{kernel} take{'' if '/' in kernel else 's'} "
                      f"bfloat16 or float16")
         raise ValueError(f"the tensor-core {what} at D in {MMA_HEAD_DIMS} "
@@ -420,7 +417,7 @@ def _bwd_kernel_fn(name: str):
     K2p's seven: q, k, v, dO, O, lse, dlse), the ``_pos`` entry points'
     two position pointers and kv_valid, then the outputs (delta and dq for
     K2 and K2p, dk and dv for K3 and K3p; K2p's tensor-core route also
-    the bf16 dO)."""
+    the 16-bit dO)."""
     fn = getattr(build.load("flash_bwd"), name)
     if fn.argtypes is None:
         dq_pos = name.startswith("dpt_flash_dq_pos")
@@ -440,7 +437,7 @@ def _check_bwd(q, k, v, do, rows, do_dtypes=None, o=None,
                o_dtype=None) -> None:
     """``rows``: (name, tensor) pairs of the (B*H, S) f32 row vectors (a
     None tensor, a zero dlse, is left out); ``do_dtypes``: dO's dtypes,
-    q's by default (K2p: float32; K3p: float32, or bfloat16 on the
+    q's by default (K2p: float32; K3p: float32, or q's dtype on the
     tensor-core route); ``o``: the forward's output (K2, K2p), of q's
     dtype or ``o_dtype`` (K2p: float32)."""
     _check(q, k, v)
@@ -702,7 +699,8 @@ def _dq_pos_launch(q, k, v, o, do, lse, dlse, q_pos, k_pos, causal: bool,
                    tensor_core: Optional[bool] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One K2p launch on CUDA tensors: (dq, delta, the dO that K3p reads:
-    the bf16 copy that the tensor-core route writes, or the f32 dO), on
+    the copy in q's dtype that the tensor-core route writes, or the f32
+    dO), on
     the route of ``partial_tensor_core_route`` unless ``tensor_core``
     names one."""
     b, s, h, _ = q.shape
@@ -711,7 +709,7 @@ def _dq_pos_launch(q, k, v, o, do, lse, dlse, q_pos, k_pos, causal: bool,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     outs, do_k3 = (delta, dq), do
     if tensor_core:
-        do_k3 = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+        do_k3 = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         outs += (do_k3,)
     _launch_bwd("dpt_flash_dq_pos", (q, k, v, do, o, lse, dlse), outs,
                 causal, flash_attention_partial_dq, n_strided=5,
@@ -732,7 +730,7 @@ def flash_attention_partial_dq(q, k, v, o, do, lse, dlse, q_pos, k_pos,
     the kernel of ``partial_tensor_core_route``'s route (and count the
     launch in ``flash_attention_partial_dq.launches``, and a tensor-core
     one also in ``flash_attention_partial_dq.tensor_core_launches``) or
-    raise; the tensor-core route also writes dO rounded to bf16 and
+    raise; the tensor-core route also writes dO rounded to q's dtype and
     returns that, the scalar one returns the f32 dO."""
     _check_bwd(q, k, v, do, (("lse", lse), ("dlse", dlse)),
                (torch.float32,), o=o, o_dtype=torch.float32)
@@ -759,15 +757,15 @@ def flash_attention_partial_dkv(q, k, v, do, lse, delta, q_pos, k_pos,
     CUDA tensors launch the kernel (and count the launch in
     ``flash_attention_partial_dkv.launches``, and a tensor-core one also
     in ``flash_attention_partial_dkv.tensor_core_launches``) or raise: a
-    bf16 dO (K2p's copy) takes the tensor cores, and raises where the call
+    16-bit dO (K2p's copy) takes the tensor cores, and raises where the call
     does not fit them; an f32 dO takes the scalar kernel."""
     _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)),
-               (torch.float32, torch.bfloat16))
+               (torch.float32, q.dtype))
     _check_pos(q, q_pos, k_pos, kv_valid)
     if _device_kind(q) == "cpu":
         return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
                                    causal, kv_valid)[1:]
-    tensor_core = _pick_route(do.dtype == torch.bfloat16, (q, k, v, do),
+    tensor_core = _pick_route(do.dtype != torch.float32, (q, k, v, do),
                               positional=True)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)

@@ -13,8 +13,8 @@ preset.  ``cast_grads`` is the grad-cast rule of the JAX engine's
 optimizer in the param dtype, whatever dtype the backward produced.
 
 ``f16`` scales the loss: ``LossScaleState`` is JAX's state machine, on
-host integers and floats (the scale is a power of two, so its arithmetic
-is exact in any float type).  ``torch.amp.GradScaler`` is not used: it
+0-d device tensors (the scale is a power of two, so its arithmetic is
+exact in any float type).  ``torch.amp.GradScaler`` is not used: it
 starts at 2^16 and has neither the cap at 2^24 nor the floor at 1, so its
 trajectory would differ from the JAX package's.
 """
@@ -106,31 +106,56 @@ def from_flags(precision: Optional[str],
 class LossScaleState:
     """The dynamic loss scale of ``f16`` (JAX ``LossScaleState``):
     ``scale`` multiplies the loss before the backward, and the step divides
-    the gradients back; ``good_steps`` counts consecutive finite steps."""
+    the gradients back; ``good_steps`` counts consecutive finite steps.
+    Both are 0-d tensors on the run's device (f32 and int32, JAX's
+    dtypes), so a step reads and moves the scale (``adjust``, then
+    ``assign`` into the trainer's tensors) without a read of the device,
+    and a captured step moves it on every replay; numbers given to the
+    constructor become such tensors, on the CPU."""
 
-    scale: float
-    good_steps: int = 0
+    scale: torch.Tensor
+    good_steps: torch.Tensor = 0
+
+    def __post_init__(self):
+        self.scale = torch.as_tensor(self.scale, dtype=torch.float32)
+        self.good_steps = torch.as_tensor(self.good_steps,
+                                          dtype=torch.int32)
 
     @classmethod
-    def create(cls, initial_scale: float) -> "LossScaleState":
-        return cls(scale=float(initial_scale), good_steps=0)
+    def create(cls, initial_scale: float,
+               device: torch.device | str = "cpu") -> "LossScaleState":
+        return cls(scale=float(initial_scale), good_steps=0).to(device)
 
-    def adjust(self, grads_finite: bool,
-               growth_interval: int = 2000) -> "LossScaleState":
+    def to(self, device: torch.device | str) -> "LossScaleState":
+        """The same state on ``device``."""
+        self.scale = self.scale.to(device)
+        self.good_steps = self.good_steps.to(device)
+        return self
+
+    def adjust(self, grads_finite, growth_interval: int = 2000
+               ) -> "LossScaleState":
         """The next state: a finite step doubles the scale when it
         completes ``growth_interval`` good steps (and restarts the count),
         a non-finite one halves it, floored at 1; the scale is capped at
-        2^24."""
+        2^24.  ``grads_finite``: a bool or a 0-d bool tensor.  Every branch
+        is a ``torch.where`` of powers of two, exact in f32, so the
+        trajectory is JAX's bit for bit, with no read of the device."""
+        finite = torch.as_tensor(grads_finite, device=self.scale.device)
         grew = self.good_steps + 1 >= growth_interval
-        if grads_finite:
-            scale = self.scale * 2.0 if grew else self.scale
-        else:
-            scale = max(self.scale * 0.5, 1.0)
-        good = self.good_steps + 1 if grads_finite and not grew else 0
-        return LossScaleState(scale=min(scale, MAX_LOSS_SCALE),
-                              good_steps=good)
+        grown = torch.where(grew, self.scale * 2.0, self.scale)
+        shrunk = torch.clamp_min(self.scale * 0.5, 1.0)
+        return LossScaleState(
+            scale=torch.clamp_max(torch.where(finite, grown, shrunk),
+                                  MAX_LOSS_SCALE),
+            good_steps=torch.where(finite & ~grew, self.good_steps + 1, 0))
+
+    def assign(self, other: "LossScaleState") -> None:
+        """Take ``other``'s values in place (the tensors stay these)."""
+        self.scale.copy_(other.scale)
+        self.good_steps.copy_(other.good_steps)
 
     def to_dict(self) -> dict:
+        """Plain numbers (a read of the device), as format 3 stores them."""
         return {"scale": float(self.scale),
                 "good_steps": int(self.good_steps)}
 

@@ -40,24 +40,38 @@ loss with weight 0.4, ``loss1 + 0.4 * loss2`` as ``_grads_and_metrics``
 (:274-277): the two numerators over the one global denominator, and the
 correct rows counted from the primary logits.
 
-The optimizers are ``torch.optim``'s: Adam(lr=1e-3) has optax's defaults;
-SGD(lr=1e-3, momentum=0.9) is optax's ``sgd`` with ``trace``, and its
-staircase schedule lr = 1e-3 * 0.1 ** floor(updates / steps_per_epoch) is
-set before every update from the count of updates applied so far, as
-optax's ``exponential_decay(staircase=True)`` counts inside its state, so
-a resumed run and an uninterrupted one agree at an epoch boundary.
+The optimizer state lives in ``torch.optim`` objects: Adam(lr=1e-3) has
+optax's defaults and runs its own step (``capturable`` on the card, so
+that its step count stays on the device); SGD(lr=1e-3, momentum=0.9)
+holds the ``momentum_buffer`` of optax's ``sgd`` with ``trace``, and the
+update is written here in ``torch._foreach`` ops (torch's SGD reads a
+tensor learning rate back to the host): trace = 0.9 * trace + g, then p +
+trace * -lr, optax's order.  Its staircase schedule lr = 1e-3 * 0.1 **
+floor(updates / steps_per_epoch) is computed on the device from the count
+of updates applied so far, as optax's ``exponential_decay(staircase=True)``
+counts inside its state, so a resumed run and an uninterrupted one agree
+at an epoch boundary.  Both optimizers' states exist from the first
+update on (zeros, optax's initial state), whether that update is applied
+or skipped.
+
+A step reads nothing back from the device (``--epochs-per-dispatch``
+captures it as a CUDA Graph, ``train/dispatch.py``): ``TrainState.step``
+and ``.updates`` are 0-d int64 device tensors, the loss scale is two 0-d
+tensors, and a skipped update is a ``torch.where`` between the state
+before and after the optimizer's step.
 
 Under ``--precision f16`` (``PrecisionPolicy.scales_loss``) the state
 carries a ``LossScaleState`` (``_grads_and_metrics`` / ``_finish_step``,
 :262-331): the backward runs on loss x scale, the gradients (after DDP's
 reduction, so every rank decides alike) are divided by the scale and cast
 to the parameter dtype, and a step whose gradients are not all finite is
-skipped: no optimizer step (parameters and the whole optimizer state,
-Adam's own step count included, stay bit-identical, and so does the
-applied-update count that sets the learning rate), and BatchNorm's running
-statistics, which the forward moved in place, are put back from a copy
-taken before it.  ``state.step`` advances either way and the scale halves;
-a finite step counts toward the scale's growth.
+skipped: the optimizer's step runs, and ``torch.where`` puts back the
+parameters and the whole optimizer state (Adam's own step count included)
+from a copy taken before it, bit for bit; the applied-update count that
+sets the learning rate does not move, and BatchNorm's running statistics,
+which the forward moved in place, are put back the same way.
+``state.step`` advances either way and the scale halves; a finite step
+counts toward the scale's growth.
 
 ``grad_accum`` K > 1 is ``_train_step_accum`` (:366-467): microbatch j is
 rows j, j+K, j+2K, ... of this data shard's rows (b % K == 0, so the data
@@ -77,7 +91,7 @@ x its aux numerator; ``correct`` counts the primary logits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -89,8 +103,7 @@ from ..models.layers import dropout_layers, set_dropout_masks
 from ..models.registry import freeze_backbone
 from ..ops.losses import LossFn
 from ..ops.metrics import per_example_correct
-from ..precision import (LossScaleState, PrecisionPolicy, all_finite,
-                         cast_grads)
+from ..precision import LossScaleState, PrecisionPolicy, cast_grads
 
 OPTIMIZER_CHOICES = ("adam", "SGD")
 AUX_LOSS_WEIGHT = 0.4       # ref classif.py:49-53
@@ -99,35 +112,75 @@ AUX_LOSS_WEIGHT = 0.4       # ref classif.py:49-53
 def make_optimizer(optimizer: str, model: nn.Module,
                    learning_rate: float = 1e-3,
                    momentum: float = 0.9) -> torch.optim.Optimizer:
-    """``--optimizer`` over the model's trainable parameters."""
+    """``--optimizer`` over the model's trainable parameters; Adam is
+    ``capturable`` when they are on the card."""
     params = [p for p in model.parameters() if p.requires_grad]
     if optimizer == "adam":
-        return torch.optim.Adam(params, lr=learning_rate)
+        return torch.optim.Adam(params, lr=learning_rate,
+                                capturable=bool(params and params[0].is_cuda))
     if optimizer == "SGD":
         return torch.optim.SGD(params, lr=learning_rate, momentum=momentum)
     raise ValueError(f"Invalid optimizer {optimizer!r}")
 
 
-def learning_rate_at(optimizer: str, step: int, learning_rate: float,
-                     lr_step_gamma: float, steps_per_epoch: int) -> float:
-    """Adam: constant.  SGD: the per-epoch staircase of the update count."""
+def learning_rate_at(optimizer: str, step: Union[int, torch.Tensor],
+                     learning_rate: float, lr_step_gamma: float,
+                     steps_per_epoch: int) -> Union[float, torch.Tensor]:
+    """Adam: constant.  SGD: the per-epoch staircase of the update count;
+    for a tensor count, a 0-d float64 tensor on its device, the number
+    the host computes for the same count."""
     if optimizer != "SGD":
         return learning_rate
-    return learning_rate * lr_step_gamma ** (step // max(1, steps_per_epoch))
+    k = step // max(1, steps_per_epoch)
+    if isinstance(k, torch.Tensor):
+        k = k.double()
+    return learning_rate * lr_step_gamma ** k
+
+
+def init_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
+    """Give every parameter without one the optimizer's initial state,
+    optax's zeros, as torch would create it at its first step (Adam's step
+    count on the device when ``capturable``)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if state:
+                continue
+            if isinstance(optimizer, torch.optim.Adam):
+                state["step"] = torch.zeros(
+                    (), dtype=torch.float32,
+                    device=p.device if group["capturable"] else "cpu")
+                state["exp_avg"] = torch.zeros_like(p)
+                state["exp_avg_sq"] = torch.zeros_like(p)
+            else:
+                state["momentum_buffer"] = torch.zeros_like(p)
 
 
 @dataclasses.dataclass
 class TrainState:
+    """The trainer's state.  ``step`` and ``updates`` are 0-d int64
+    tensors on the model's device (numbers given become such tensors),
+    moved in place by the step: set them with ``fill_``."""
+
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    step: int = 0
+    step: Union[int, torch.Tensor] = 0
     # the DistributedDataParallel wrapper of ``model`` in a process group
     ddp: Optional[nn.Module] = None
     # optimizer updates applied (step less the skipped ones): the count
     # that the SGD schedule reads, as optax's state counts it
-    updates: int = 0
+    updates: Union[int, torch.Tensor] = 0
     # the dynamic loss scale (f16); None for every other preset
     loss_scale: Optional[LossScaleState] = None
+
+    def __post_init__(self):
+        device = next(self.model.parameters()).device
+        self.step = torch.as_tensor(self.step, dtype=torch.int64,
+                                    device=device)
+        self.updates = torch.as_tensor(self.updates, dtype=torch.int64,
+                                       device=device)
+        if self.loss_scale is not None:
+            self.loss_scale.to(device)
 
 
 class Engine:
@@ -197,7 +250,8 @@ class Engine:
             return None
         return LossScaleState.create(self.precision.loss_scale)
 
-    def lr(self, step: int) -> float:
+    def lr(self, step: Union[int, torch.Tensor]
+           ) -> Union[float, torch.Tensor]:
         return learning_rate_at(self.optimizer_name, step,
                                 self.learning_rate, self.lr_step_gamma,
                                 self.steps_per_epoch)
@@ -264,8 +318,9 @@ class Engine:
         state.optimizer.zero_grad(set_to_none=True)
         scale = None if state.loss_scale is None else state.loss_scale.scale
         # a skipped step puts back what the forward moved in place
-        saved = (None if scale is None else
-                 [b.detach().clone() for b in model.buffers()])
+        buffers = list(model.buffers())
+        saved = (torch._foreach_mul(buffers, 1)
+                 if scale is not None and buffers else None)
         if self.grad_accum > 1:
             sums = self._accumulate(state, imgs, labels, vmask,
                                     dropout_masks, scale)
@@ -280,10 +335,11 @@ class Engine:
             (target if scale is None else target * scale).backward()
         # _accumulate divides by the scale itself, in its one divide
         unscale = None if self.grad_accum > 1 else scale
-        if not self.apply_gradients(state, unscale) and saved is not None:
+        finite = self.apply_gradients(state, unscale)
+        if saved is not None:
             with torch.no_grad():
-                for b, s in zip(model.buffers(), saved):
-                    b.copy_(s)
+                for b, s in zip(buffers, saved):
+                    torch.where(finite, b, s, out=b)
         return state, {"loss": sums[0] / global_denom, "correct": sums[2],
                        "valid": sums[3]}
 
@@ -314,7 +370,8 @@ class Engine:
 
     def _accumulate(self, state: TrainState, imgs: torch.Tensor,
                     labels: torch.Tensor, vmask: torch.Tensor,
-                    dropout_masks, scale: Optional[float]) -> torch.Tensor:
+                    dropout_masks, scale: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
         """``grad_accum`` K microbatches (see the module docstring): each
         one's gradients of numerator x scale summed into one f32 buffer,
         the buffer summed over the ranks and divided by the global
@@ -350,7 +407,8 @@ class Engine:
             sums = local if sums is None else sums + local
         sums = runtime.all_reduce_sum(sums, self.mesh.data_group)
         runtime.all_reduce_sum(acc)
-        acc /= (torch.clamp_min(sums[1], 1e-9) * (scale or 1.0)
+        acc /= (torch.clamp_min(sums[1], 1e-9)
+                * (1.0 if scale is None else scale)
                 * self.mesh.model_parallel)
         at = 0
         for p in params:
@@ -360,35 +418,68 @@ class Engine:
         return sums
 
     def apply_gradients(self, state: TrainState,
-                        scale: Optional[float] = None) -> bool:
-        """The update tail of a step (``_finish_step``): under a loss
-        scale the gradients divided by it, then cast to the param dtype;
-        under a loss scale, a step whose gradients are not all finite
-        applies nothing (the scale halves).  Otherwise the learning rate
-        of the applied-update count and one optimizer step.  The step
-        count advances either way.  Returns whether the update was
-        applied."""
+                        scale: Optional[torch.Tensor] = None
+                        ) -> Optional[torch.Tensor]:
+        """The update tail of a step (``_finish_step``), with no read of
+        the device: under a loss scale the gradients divided by it, then
+        cast to the param dtype; the optimizer's step at the
+        applied-update count's learning rate; under a loss scale, a step
+        whose gradients are not all finite is undone (parameters and
+        optimizer state put back from a copy, bit for bit) and the scale
+        halves.  The step count advances either way.  Returns the 0-d bool
+        tensor of whether the update was applied (None without a loss
+        scale: always)."""
         params = list(state.model.parameters())
-        if scale is not None:
-            for p in params:
-                if p.grad is not None:
-                    p.grad.div_(scale)
-        cast_grads(params)
-        finite = True
-        if state.loss_scale is not None:
-            # one read of the device: the same on every rank, whose
-            # gradients DDP (or _accumulate) reduced alike
-            finite = bool(all_finite(p.grad for p in params))
-            state.loss_scale = state.loss_scale.adjust(
-                finite, self.precision.loss_scale_growth)
-        if finite:
-            lr = self.lr(state.updates)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-            state.optimizer.step()
-            state.updates += 1
-        state.step += 1
+        optimizer = state.optimizer
+        init_optimizer_state(optimizer)
+        with torch.no_grad():
+            finite = kept = None
+            if state.loss_scale is not None:
+                # unscaled and checked in one pass: the scale is a power of
+                # two, so g * (1 / scale) is g / scale exactly.  The
+                # decision is the same on every rank, whose gradients DDP
+                # (or _accumulate) reduced alike, data and model groups
+                found = torch.zeros(1, device=state.step.device)
+                inv = (torch.ones_like(found) if scale is None
+                       else torch.reciprocal(scale.float()).reshape(1))
+                torch._amp_foreach_non_finite_check_and_unscale_(
+                    [p.grad for p in params if p.grad is not None], found,
+                    inv)
+                finite = (found == 0).reshape(())
+                state.loss_scale.assign(state.loss_scale.adjust(
+                    finite, self.precision.loss_scale_growth))
+                kept = [t for group in optimizer.param_groups
+                        for p in group["params"] if p.grad is not None
+                        for t in (p, *optimizer.state[p].values())]
+                saved = torch._foreach_mul(kept, 1)
+            cast_grads(params)
+            if self.optimizer_name == "SGD":
+                self._sgd_update(optimizer, self.lr(state.updates))
+            else:
+                optimizer.step()
+            if kept is not None:
+                for t, s in zip(kept, saved):
+                    torch.where(finite, t, s, out=t)
+                state.updates.add_(finite.long())
+            else:
+                state.updates.add_(1)
+            state.step.add_(1)
         return finite
+
+    def _sgd_update(self, optimizer: torch.optim.Optimizer,
+                    lr: torch.Tensor) -> None:
+        """optax's sgd with trace on the parameters that have gradients:
+        trace = momentum * trace + g, p = p + trace * -lr (``lr`` a 0-d
+        tensor)."""
+        params = [p for group in optimizer.param_groups
+                  for p in group["params"] if p.grad is not None]
+        if not params:
+            return
+        trace = [optimizer.state[p]["momentum_buffer"] for p in params]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, [p.grad for p in params])
+        torch._foreach_add_(params, torch._foreach_mul(
+            trace, (-lr).to(torch.float32)))
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, images_u8: torch.Tensor,

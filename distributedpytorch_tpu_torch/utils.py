@@ -100,12 +100,20 @@ def epoch_numpy_rng(seed: int, epoch: int) -> np.random.Generator:
     return np.random.default_rng(np.uint64(seed) + np.uint64(epoch))
 
 
+def step_seed(seed: int, epoch: int, step: int) -> int:
+    """The seed of one train step's generator, a function of (seed,
+    epoch, step) only."""
+    state = np.random.SeedSequence([seed, epoch, step]).generate_state(
+        1, np.uint64)[0]
+    return int(state) & (2 ** 63 - 1)
+
+
 def step_generator(seed: int, epoch: int, step: int,
                    device: torch.device | str) -> torch.Generator:
     """The augmentation generator of one train step: a ``torch.Generator``
-    on ``device`` whose seed is a function of (seed, epoch, step) only."""
-    state = np.random.SeedSequence([seed, epoch, step]).generate_state(
-        1, np.uint64)[0]
+    on ``device`` seeded with ``step_seed``.  (A captured step re-seeds
+    one generator with ``step_seed`` before each replay: the same
+    numbers.)"""
     gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(int(state) & (2 ** 63 - 1))
+    gen.manual_seed(step_seed(seed, epoch, step))
     return gen

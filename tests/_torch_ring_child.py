@@ -23,8 +23,10 @@ weights from ``seed``) and the ``steps``, each the global batch's images,
 labels and valid rows with its affine draws (float32 numpy).  The rank
 keeps its data shard's rows (``runtime.Mesh``) and takes one SGD step per
 entry through ``Engine.train_step_affine`` (in ``precision``, f32 by
-default), then writes its parameters, the steps' metrics and its kernel
-launches to OUT.pt.  With ``profile`` = N (on the card), it then times N
+default; with ``overflow`` = (step, rank), that rank's loss numerator of
+that step is multiplied by inf), then writes its parameters, the steps'
+metrics, its step and applied-update counts, its loss scale (or None)
+and its kernel launches to OUT.pt.  With ``profile`` = N (on the card), it then times N
 more steps of the last batch (host clock, synchronized) and N under
 torch.profiler, and writes the per-step wall and device time, kernel
 count, the time of the ring kernels and of the host copies, and K2p's and
@@ -147,7 +149,16 @@ def run_vit(spec, device, mesh) -> dict:
                 p.copy_(torch.as_tensor(spec["params"][name]))
     before = kernel_launches()
     metrics = []
-    for images, labels, valid, affine in spec["steps"]:
+    loss_fn = engine.loss_fn
+    overflow = spec.get("overflow")
+
+    def blowup(logits, labels):
+        numer, denom = loss_fn(logits, labels)
+        return numer * float("inf"), denom
+
+    for i, (images, labels, valid, affine) in enumerate(spec["steps"]):
+        engine.loss_fn = (blowup if overflow == (i, runtime.process_index())
+                          else loss_fn)
         b = len(images) // mesh.data_parallel
         rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
         batch = [torch.from_numpy(np.asarray(a[rows])).to(device)
@@ -161,6 +172,9 @@ def run_vit(spec, device, mesh) -> dict:
     result = {"state": {k: v.detach().cpu().clone()
                         for k, v in model.state_dict().items()},
               "metrics": metrics,
+              "counters": (int(state.step), int(state.updates)),
+              "loss_scale": (None if state.loss_scale is None
+                             else state.loss_scale.to_dict()),
               "launches": {k: v - before[k]
                            for k, v in kernel_launches().items()}}
     if spec.get("profile"):

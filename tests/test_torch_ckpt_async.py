@@ -8,7 +8,7 @@ bit for bit; the loss scale across checkpoints by the JAX rule (an f16
 file into a run that scales no loss drops the scale, a file without one
 into an f16 run keeps the fresh 2^15); format-2 files still read; and
 ``train --device cpu`` taking ``--precision f16|bf16_full``,
-``--grad-accum`` and ``--ckpt-async``, with f16 on a ring refused.
+``--grad-accum`` and ``--ckpt-async``, and f16 on a ring.
 """
 
 import json
@@ -263,11 +263,11 @@ def test_precision_policy_event_names_the_grad_accum(tmp_path):
 @pytest.mark.parametrize("action", ["train", "test"])
 @pytest.mark.parametrize("attention", ["ring", "ring_flash"])
 def test_f16_with_a_ring_is_not_ported_yet(action, attention, tmp_path):
+    """f16 on the ring is ported: the flags parse into the config."""
     argv = [action, "-d", str(tmp_path), "--device", "cpu", "--precision",
             "f16", "--attention", attention, "--model-parallel", "2"]
     argv += ["-f", str(tmp_path / "c.ckpt")] if action == "test" else \
         ["--model", "vit"]
-    with pytest.raises(ValueError, match=f"^not ported yet: --precision f16 "
-                                         f"with --attention {attention}$"):
-        tconfig.config_from_argv(argv)
-    assert tcli.main(argv) == 1
+    cfg = tconfig.config_from_argv(argv)
+    assert (cfg.precision, cfg.attention, cfg.model_parallel) == (
+        "f16", attention, 2)

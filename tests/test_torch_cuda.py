@@ -366,3 +366,71 @@ def test_cnn_train_step_launches_k5_three_times():
     assert torch.isfinite(m["loss"]).item()
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+def test_graphed_chunks_equal_eager_epochs_on_card(precision):
+    """Two chunks of two epochs of the cnn with K5 (``ChunkRunner``: the
+    steps captured as CUDA Graphs and replayed) against the same four
+    epochs one step at a time from the same seed: parameters, BatchNorm
+    statistics, Adam's state, the counters, the loss scale and every
+    epoch's sums bit-identical, and K5's launches (one capture's times
+    the replays) equal."""
+    _need_card()
+    from distributedpytorch_tpu_torch import utils
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.train.dispatch import ChunkRunner
+
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (448, 28, 28), dtype=np.uint8)
+    labels = rng.integers(0, 10, 448).astype(np.int64)
+    train = ResidentLoader(Split(images[:384], labels[:384]), 64, True, 5,
+                           "cuda")
+    valid = ResidentLoader(Split(images[384:], labels[384:]), 64, False, 5,
+                           "cuda")
+    runs = []
+    for chunked in (False, True):
+        model = get_model("cnn", 10, PRESETS[precision], device="cuda",
+                          pallas_dw=True)
+        engine = Engine(model, cross_entropy, 0.45, 0.2, 28,
+                        PRESETS[precision], "cuda",
+                        steps_per_epoch=len(train))
+        state = engine.init_state(torch.Generator().manual_seed(0))
+        before = kernel_launches()["conv_dw"]
+        sums = []
+        if chunked:
+            runner = ChunkRunner(engine, state, train, valid, 9, 2)
+            for first in (0, 2):
+                out = runner.run([first, first + 1])
+                sums += [(m.tolist(), e.tolist())
+                         for m, e in zip(out["train"], out["eval"])]
+        else:
+            for epoch in range(4):
+                hist, evals = [], torch.zeros(4, device="cuda")
+                for i, batch in enumerate(train.epoch(epoch)):
+                    gen = utils.step_generator(9, epoch, i, "cuda")
+                    _, m = engine.train_step(state, *batch, gen)
+                    hist.append(torch.stack([m["loss"], m["correct"],
+                                             m["valid"]]).tolist())
+                for batch in valid.epoch(epoch):
+                    m = engine.eval_step(state, *batch)
+                    evals += torch.stack([m[k] for k in (
+                        "loss_numer", "loss_denom", "correct", "valid")])
+                sums.append((hist, evals.tolist()))
+        torch.cuda.synchronize()
+        runs.append((state, sums, kernel_launches()["conv_dw"] - before))
+    (eager, eager_sums, n_eager), (graphed, graphed_sums, n_graphed) = runs
+    for (k, v), w in zip(eager.model.state_dict().items(),
+                         graphed.model.state_dict().values()):
+        assert torch.equal(v, w), k
+    for i, st in eager.optimizer.state_dict()["state"].items():
+        for name, t in st.items():
+            assert torch.equal(
+                t, graphed.optimizer.state_dict()["state"][i][name])
+    assert (int(eager.step), int(eager.updates)) == \
+        (int(graphed.step), int(graphed.updates)) == (24, 24)
+    if precision == "f16":
+        assert eager.loss_scale.to_dict() == graphed.loss_scale.to_dict()
+    assert eager_sums == graphed_sums
+    assert n_eager == n_graphed == 3 * 24

@@ -152,15 +152,17 @@ def test_cpu_wrappers_take_float16_without_counting():
 
 
 def test_ring_kernels_refuse_float16_on_the_card():
-    """The ring's K4 takes no float16 (``--precision f16`` with a ring is
-    not ported): a CUDA tensor of float16 raises before any launch.  The
-    check runs before the device is touched, so a meta tensor shows it
-    here."""
+    """The ring's K4, K2p and K3p take float16 like K1-K3 (``--precision
+    f16`` with a ring): the checks that run before the device is touched
+    pass a float16 meta tensor, and float32 or bfloat16 as before."""
     q = torch.empty((1, 49, 2, 32), dtype=torch.float16, device="meta")
-    with pytest.raises(ValueError, match="float32 or bfloat16, got "
-                                         "torch.float16"):
-        tfa._check_kernel_inputs("flash_fwd_pos", (("q", q),))
-    tfa._check_kernel_inputs("flash_fwd", (("q", q),))     # K1 takes it
+    for kernel in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos",
+                   "flash_fwd"):
+        tfa._check_kernel_inputs(kernel, (("q", q),))
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16, "
+                                         "got torch.float64"):
+        tfa._check_kernel_inputs("flash_fwd_pos",
+                                 (("q", q.to(torch.float64)),))
 
 
 # -- K5 -----------------------------------------------------------------------

@@ -149,7 +149,7 @@ def test_overflow_skips_the_update_bit_for_bit():
     params = {k: v.clone() for k, v in state.model.state_dict().items()}
     opt = copy.deepcopy(state.optimizer.state_dict())
     assert opt["state"]               # Adam's moments and step exist
-    scale = state.loss_scale.scale
+    scale = float(state.loss_scale.scale)   # the tensor moves in place
     engine.loss_fn = _blowup(engine.loss_fn)
     engine.train_step_affine(state, *batch, _draws(key, 8, 28, 28))
     assert not bool(all_finite(p.grad for p in state.model.parameters()))

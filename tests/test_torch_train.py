@@ -596,17 +596,20 @@ def test_test_on_a_jax_written_checkpoint_gives_the_jax_accuracy(tmp_path):
     got = tcli.run_test(tconfig.config_from_argv(argv))["test_acc"]
     assert 0.0 < want < 1.0
     assert abs(got - want) < 1e-6      # the same count of 200 rows
-    with pytest.raises(ValueError, match="^not ported yet: resuming a "
-                                         "JAX-written checkpoint"):
-        tcli.run_train(tconfig.config_from_argv(
-            ["train", "-d", str(tmp_path / "data"), "--rsl_path",
-             str(tmp_path / "resume"), "--dataset", "synthetic", "--debug",
-             "--model", "vit", "--device", "cpu", "-f", path]))
+    # train -f takes it too (its optax state converted); at -e 1 the
+    # resumed run has no epoch left to train
+    result = tcli.run_train(tconfig.config_from_argv(
+        ["train", "-d", str(tmp_path / "data"), "--rsl_path",
+         str(tmp_path / "resume"), "--dataset", "synthetic", "--debug",
+         "--model", "vit", "--device", "cpu", "-e", "1", "-f", path]))
+    assert result["history"] == [] and int(result["state"].step) == 0
+    assert "model loaded from" in (tmp_path / "resume" / "test.log"
+                                   ).read_text()
 
 
 REFUSED = [
-    # ported: refused only where the JAX package refuses them, or where a
-    # part of them is not ported (f16 on the ring); --ckpt-async is taken
+    # ported: refused only where the JAX package refuses them; f16 on the
+    # ring, --ckpt-async and --epochs-per-dispatch are taken
     (["--grad-accum", "3"], "--grad-accum"),
     (["--precision", "f16", "--attention", "ring_flash", "--model-parallel",
       "2"], "--precision f16"),
@@ -650,17 +653,17 @@ REFUSED = [
 # and refused as the JAX package refuses it (train: a vit has no
 # torchvision converter; test: its weights come from -f).  --grad-accum K
 # that does not divide the batch and --no-bf16 against another preset
-# fail with the JAX messages; f16 on the ring is not ported.  None: the
-# flag is ported and taken (test takes --grad-accum and --ckpt-async and
-# ignores them, as the JAX test does).
+# fail with the JAX messages.  None: the flag is ported and taken (test
+# takes --grad-accum, --ckpt-async and --epochs-per-dispatch and ignores
+# them, as the JAX test does; f16 on the ring trains and tests).
 REFUSED_MESSAGES = {
     "--grad-accum": {
         "train": re.escape(
             "--grad-accum must be >= 1 and divide the per-replica batch "
             "size (64); got 3"),
         "test": None},
-    "--precision f16": dict.fromkeys(("train", "test"), re.escape(
-        "not ported yet: --precision f16 with --attention ring_flash")),
+    "--precision f16": dict.fromkeys(("train", "test"), None),
+    "--epochs-per-dispatch": dict.fromkeys(("train", "test"), None),
     "--precision bf16_full": dict.fromkeys(("train", "test"), re.escape(
         "--no-bf16 conflicts with --precision bf16_full: --no-bf16 is the "
         "legacy alias for --precision f32; drop one")),
@@ -703,8 +706,12 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                                                  f"not ported yet: {flag}")
     if message is None:
         cfg = tconfig.config_from_argv(argv)
-        assert (cfg.grad_accum, cfg.ckpt_async) == (
-            (3, False) if flag == "--grad-accum" else (1, True))
+        taken = {"--grad-accum": (3, False, 1, None),
+                 "--ckpt-async": (1, True, 1, None),
+                 "--epochs-per-dispatch": (1, False, 2, None),
+                 "--precision f16": (1, False, 1, "f16")}[flag]
+        assert (cfg.grad_accum, cfg.ckpt_async, cfg.epochs_per_dispatch,
+                cfg.precision) == taken
         return
     with pytest.raises(ValueError, match=f"^{message}$"):
         tconfig.config_from_argv(argv)
