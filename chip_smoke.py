@@ -20,6 +20,10 @@ ckpt-async and the exit test):
 
     python3 chip_smoke.py --phases 24,25,26,27,28,29,30,31
 
+or the streaming loader's and ``--remat``'s:
+
+    python3 chip_smoke.py --phases 36,37
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -97,7 +101,7 @@ result.  Phases, each printing its lines before the last:
      the card against the CPU: gradients and BatchNorm statistics, and
      exactly 3 K5 launches for the cnn; the max pools' tie routing on the
      card against the CPU's;
- 12. the slice's kernel main path: the first CNN_EPOCH_STEPS (422 of
+ 12. the slice's kernel main path: the first CNN_EPOCH_STEPS (211 of
      844) steps of 64 of an epoch of Engine-driven cnn training with K5,
      its counts set to 0 before and read after (3 per step, every one on
      the tensor cores), validation accuracy at least twice chance, the
@@ -258,18 +262,47 @@ result.  Phases, each printing its lines before the last:
      from the trace); and ``train --model vit --attention flash --debug
      -e 4`` with and without ``--epochs-per-dispatch 2``: the same log
      lines and the epoch-4 rolling file byte-identical;
- 36. the card's name and power limit again, one ``{"kernels": [...]}``
+ 36. the streaming loader (``--data-mode stream``): the Engine-driven cnn
+     with K5 for STREAM_CNN_STEPS steps from the streaming loader against
+     the resident one (every step's loss and the final state
+     bit-identical, K5 3 a step on the tensor cores, counts set to 0 just
+     before each); the vit (flash) and resnet18 at 224 train steps at
+     batch 64 fed by the resident loader and by the streaming one with no
+     producer thread and with one (the CLI's default): wall ms a step
+     over 5 steps in two rounds of the three, the second in the reverse
+     order, and over 5 steps under torch.profiler the device ms, the idle
+     share, bytes copied to the card a step, whether the copies overlap
+     kernels in the trace, and the telemetry's data/wait_s and
+     data/starved_steps; then through the CLI ``train
+     --model vit --attention flash -e 1`` on phase 18's corpus with
+     ``--data-mode resident``, ``stream`` and ``stream --producer-threads
+     3 --device-prefetch 2`` (the same log lines, launch lines and
+     rolling file byte for byte; launches by phase 6's formula, all on the
+     tensor cores), ``test -f --data-mode stream`` equal to the resident
+     test, ``train --debug -e 1 --data-mode stream`` under torchrun on
+     NCCL, and ``--epochs-per-dispatch 2 --data-mode stream`` failing
+     with JAX's message;
+ 37. ``--remat none|blocks|full``: one Adam step (bf16, batch 64) of the
+     vit with flash at full width, densenet121 and resnet18 at 224 and the
+     cnn with K5 under each setting, the updates, BatchNorm statistics and
+     loss bit-identical across the three, the launches by formula (the
+     vit's K1 8 a step under remat, K2/K3 4; K5 3), the peak memory
+     (``torch.cuda.max_memory_allocated``) and the device time of a step;
+     then the vit under ``--remat blocks``, two epochs on phase 35's 320
+     rows eager and as one graphed chunk of two, bit-identical;
+ 38. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
 Phases run in the order of their numbers but for these changes: 23, 24,
-32 and the in-process part of 35, which time steps and kernels, run
-before 21; the exit test's five trainings (31) start then and run beside
-21, 22 and 25-30; phase 33's three f16 worlds start with phase 19's; the
-CLI runs of 18, 27, 29, 30, 33, 34 and 35 start after 22 and run beside
-25, 26 and 28 (18 is checked after 28); the test of 29 and the resume
-of 30 run beside 27; 33, 34 and 35's CLI check come last.
-Nothing after 35's profiles is timed for the kernels line or PERF.md.  Each phase
+32, the in-process parts of 35 and 36, and 37, which time steps and
+kernels, run before 21; the exit test's five trainings (31) start then
+and run beside 21, 22 and 25-30; phase 33's three f16 worlds start with
+phase 19's; the CLI runs of 18, 27, 29, 30, 33, 34, 35 and 36 start
+after 22 and run beside 25, 26 and 28 (18's and 36's trainings are
+checked after 28, 36's tests then run beside 18 and 27-35); the test of
+29 and the resume of 30 run beside 27; 33, 34, 35 and 36's last checks
+come last.  Nothing after 37 is timed for the kernels line or PERF.md.  Each phase
 prints its wall time.  Any failed check exits non-zero before
 the last line is printed.  Work files go to ``build/chip_smoke/`` in the
 checkout, and the bytecode of the modules that the run's processes import
@@ -291,6 +324,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import functools
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -740,14 +774,12 @@ def reference_predictions(ckpt_path: str, images, served_bucket,
 
     from distributedpytorch_tpu_torch import checkpoint as ckpt
     from distributedpytorch_tpu_torch.data import augment
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import (get_model,
                                                      get_model_input_size)
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.engine import Predictor
 
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     policy = PRESETS[precision]
     size = get_model_input_size(name)
     model = get_model(name, ds.nb_classes, policy,
@@ -902,7 +934,6 @@ def check_server_launches(lines, n: int) -> tuple:
 def phase_main_path(device: str = "cuda"):
     import numpy as np
 
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
 
     ckpt_path = os.path.join(WORK, "rsl", "bestmodel-mnist-vit.ckpt")
     build_checkpoint(ckpt_path)
@@ -912,8 +943,7 @@ def phase_main_path(device: str = "cuda"):
     servers = [start_server(ckpt_path, n_main, FLUSH_MS, device),
                start_server(ckpt_path, BURST_THREADS, FILL_FLUSH_MS, device)]
     try:
-        ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                          synthetic_fallback=True)
+        ds = work_dataset()
         images = ds.splits["test"].images[:n]
         main_answers, burst_s = serve_burst(servers[0], images[:n_main],
                                             BURST_WAVES)
@@ -1210,15 +1240,13 @@ def phase_train_step_parity() -> None:
 
     from distributedpytorch_tpu_torch.cli import kernel_launches
     from distributedpytorch_tpu_torch.data import augment
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import get_model
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.engine import Engine
 
     policy = PRESETS["f32"]
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     images = ds.splits["train"].images[:TRAIN_BATCH]
     labels = ds.splits["train"].labels[:TRAIN_BATCH].astype(np.int64)
     u = np.random.default_rng(SEED).random((TRAIN_BATCH, 5),
@@ -1375,6 +1403,17 @@ ZOO_DATA = os.path.join(WORK, "zoo_data")
 def write_zoo_data() -> None:
     if not os.path.isdir(ZOO_DATA):
         write_corpus(ZOO_DATA, ZOO_TRAIN_ROWS, ZOO_TEST_ROWS)
+
+
+@functools.lru_cache(maxsize=None)
+def work_dataset():
+    """The synthetic corpus of WORK/data as ``load_dataset`` gives it,
+    loaded once for the run's in-process phases (each load draws the
+    corpus anew: seconds of host time)."""
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+
+    return load_dataset("mnist", os.path.join(WORK, "data"), SEED,
+                        synthetic_fallback=True)
 
 
 def write_corpus(root: str, train_rows: int, test_rows: int) -> None:
@@ -1543,18 +1582,16 @@ def phase_train_profile() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from distributedpytorch_tpu_torch import utils
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
     from distributedpytorch_tpu_torch.models import get_model
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.engine import Engine
 
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     loader = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, SEED,
                             "cuda")
-    reps = 20
+    reps = 10                   # cut from 20 for the run's time limit
     batches = list(itertools.islice(loader.epoch(0), 5 + 2 * reps))
     for att in ("flash", "full"):
         policy = PRESETS["bf16"]
@@ -1806,7 +1843,6 @@ def one_step(name: str, device: str, policy, k5: bool, affine_u) -> tuple:
     import torch
 
     from distributedpytorch_tpu_torch.data import augment
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import (get_model,
                                                      get_model_input_size)
     from distributedpytorch_tpu_torch.ops import conv
@@ -1814,8 +1850,7 @@ def one_step(name: str, device: str, policy, k5: bool, affine_u) -> tuple:
     from distributedpytorch_tpu_torch.train.engine import Engine
 
     batch = PARITY_BATCH[name]
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     images = ds.splits["train"].images[:batch]
     labels = ds.splits["train"].labels[:batch].astype(np.int64)
     model = get_model(name, ds.nb_classes, policy, device=device,
@@ -2002,8 +2037,9 @@ def cnn_epoch(pallas_dw: bool, seed: int, precision: str = "bf16",
                        else None))
 
 
-# phase 12's steps: half an epoch of 844, cut for the run's time limit
-CNN_EPOCH_STEPS = 422
+# phase 12's steps: a quarter of an epoch of 844, cut for the run's time
+# limit
+CNN_EPOCH_STEPS = 211
 
 
 def phase_cnn_epoch() -> int:
@@ -2241,7 +2277,6 @@ def phase_cnn_profile() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from distributedpytorch_tpu_torch import utils
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
     from distributedpytorch_tpu_torch.models import (get_model,
                                                      get_model_input_size)
@@ -2250,8 +2285,7 @@ def phase_cnn_profile() -> None:
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.engine import Engine
 
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     loader = ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, SEED,
                             "cuda")
     reps = 20
@@ -2931,7 +2965,7 @@ def phase_ring_steps(f16_too: bool = False):
 
 # -- phase 20: where the time goes in a ring train step -----------------------
 
-RING_PROFILE_STEPS = 10
+RING_PROFILE_STEPS = 5         # cut from 10 for the run's time limit
 
 
 def phase_ring_profile() -> None:
@@ -3147,7 +3181,6 @@ def phase_zoo_parity() -> None:
     import torch
 
     from distributedpytorch_tpu_torch.data import augment
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import (get_model,
                                                      get_model_input_size)
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
@@ -3155,8 +3188,7 @@ def phase_zoo_parity() -> None:
     from distributedpytorch_tpu_torch.train.engine import Engine
 
     b = ZOO_PARITY_BATCH
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     images = torch.from_numpy(ds.splits["train"].images[:b])
     u = torch.from_numpy(np.random.default_rng(SEED).random(
         (b, 5), dtype=np.float32))
@@ -3307,7 +3339,6 @@ def phase_zoo_main_path() -> None:
     import torch
 
     from distributedpytorch_tpu_torch import checkpoint as ckpt
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import get_model, pretrained
     from distributedpytorch_tpu_torch.precision import PRESETS
 
@@ -3371,8 +3402,7 @@ def phase_zoo_main_path() -> None:
              "the head")
 
     # test -f on every best file, beside the two servers
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     images = ds.splits["test"].images[:ZOO_WAVE]
     servers = {name: start_server(best[name], ZOO_WAVE, FLUSH_MS, "cuda",
                                   attention="full") for name in ZOO_SERVED}
@@ -3401,8 +3431,9 @@ def phase_zoo_main_path() -> None:
 # Steps timed on the host clock and then under the profiler, after two
 # of warm-up.  The profiler records the device only: the host-side events
 # of densenet's and inception's 9-11 thousand kernels a step made their
-# traces' processing the phase's largest cost.
-ZOO_PROFILE_STEPS = 5
+# traces' processing the phase's largest cost; so does the device side of
+# a trace, whence two steps.
+ZOO_PROFILE_STEPS = 2
 
 
 def phase_zoo_profile() -> None:
@@ -4187,7 +4218,7 @@ GRAPH_RUNS = (("vit flash bf16", "vit", "bf16", "flash", False, 320),
               ("resnet18 bf16", "resnet", "bf16", "full", False, 192),
               ("densenet121 bf16", "densenet", "bf16", "full", False, 192))
 GRAPH_EPOCHS, GRAPH_K = 4, 2
-GRAPH_PROFILE_STEPS = 5
+GRAPH_PROFILE_STEPS = 2     # a trace's processing grows with its kernels
 # the port's kernels as the profiler names them (either route)
 PROFILED_KERNELS = {"flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
                     "flash_dkv": "flash_dkv_", "conv_dw": "conv_dw"}
@@ -4234,7 +4265,7 @@ def phase_graphs() -> dict:
     import torch
 
     from distributedpytorch_tpu_torch import cli, utils
-    from distributedpytorch_tpu_torch.data.datasets import Split, load_dataset
+    from distributedpytorch_tpu_torch.data.datasets import Split
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
     from distributedpytorch_tpu_torch.models import (get_model,
                                                      get_model_input_size)
@@ -4245,8 +4276,7 @@ def phase_graphs() -> dict:
 
     torch.backends.cudnn.deterministic = True   # as train sets it
     torch.backends.cudnn.benchmark = False
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     valid = ResidentLoader(Split(ds.splits["valid"].images[:TRAIN_BATCH],
                                  ds.splits["valid"].labels[:TRAIN_BATCH]),
                            TRAIN_BATCH, False, SEED, "cuda")
@@ -4441,15 +4471,13 @@ def phase_f16_step() -> None:
     import torch
 
     from distributedpytorch_tpu_torch.data import augment
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import get_model
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.engine import Engine
 
     policy = PRESETS["f16"]
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     images = ds.splits["train"].images[:TRAIN_BATCH]
     labels = ds.splits["train"].labels[:TRAIN_BATCH].astype(np.int64)
     u = np.random.default_rng(SEED).random((TRAIN_BATCH, 5),
@@ -4514,7 +4542,6 @@ def phase_f16_skip() -> None:
     import torch
 
     from distributedpytorch_tpu_torch.data import augment
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models.resnet import ResNet
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
     from distributedpytorch_tpu_torch.precision import PRESETS
@@ -4522,8 +4549,7 @@ def phase_f16_skip() -> None:
 
     b = PARITY_BATCH["resnet"]
     policy = PRESETS["f16"]
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     batch = (torch.from_numpy(ds.splits["train"].images[:b]).cuda(),
              torch.from_numpy(ds.splits["train"].labels[:b].astype(
                  np.int64)).cuda(),
@@ -4620,10 +4646,8 @@ def phase_f16_main_path(train_run: tuple) -> dict:
 
     import numpy as np
 
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
 
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     images = ds.splits["test"].images[:ZOO_WAVE]
     server = start_server(best, ZOO_WAVE, FLUSH_MS, "cuda",
                           precision="f16")
@@ -4684,7 +4708,6 @@ def accum_steps(name: str, k: int) -> tuple:
     import torch
 
     from distributedpytorch_tpu_torch.data import augment
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import get_model
     from distributedpytorch_tpu_torch.ops import conv
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
@@ -4693,8 +4716,7 @@ def accum_steps(name: str, k: int) -> tuple:
     from distributedpytorch_tpu_torch.train.engine import Engine
 
     policy = PRESETS["f32"]
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     model = get_model(name, 10, policy, device="cuda",
                       attention="flash" if name == "vit" else "full",
                       pallas_dw=name == "cnn")
@@ -4732,7 +4754,6 @@ def accum_f64_step(name: str, device: str, masks) -> dict:
     import numpy as np
     import torch
 
-    from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.models import get_model
     from distributedpytorch_tpu_torch.models.resnet import ResNet
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
@@ -4740,8 +4761,7 @@ def accum_f64_step(name: str, device: str, masks) -> dict:
 
     policy = f64_policy()
     b = 16
-    ds = load_dataset("mnist", os.path.join(WORK, "data"), SEED,
-                      synthetic_fallback=True)
+    ds = work_dataset()
     if name == "resnet_small":
         model, size = ResNet((1, 1), width=8, dtype=torch.float64,
                              device=device), 32
@@ -5005,10 +5025,562 @@ def phase_exit_test(runs: list) -> None:
              f"{EXIT_TOL_PP} pp from the JAX mean {parity['mean_ours']}%")
 
 
+# -- phase 36: the streaming loader ------------------------------------------
+
+# phase 36's CLI trainings of the vit on phase 18's corpus (141 steps):
+# (work name, the flags beyond the common ones)
+STREAM_CLI = (("stream_resident", ["--data-mode", "resident"]),
+              ("stream_default", ["--data-mode", "stream"]),
+              ("stream_threads", ["--data-mode", "stream",
+                                  "--producer-threads", "3",
+                                  "--device-prefetch", "2"]))
+STREAM_CNN_STEPS = 100          # the Engine-driven cnn with K5, each loader
+STREAM_PROFILE_STEPS = 5
+# the loaders that feed the profiled steps: the resident one, and the
+# streaming one with no thread and with the CLI's defaults (one producer
+# thread); their walls are taken in two rounds, the second in the
+# reverse order
+STREAM_PROFILE_LOADERS = (
+    ("resident", None),
+    ("stream, producer-threads 0", dict(producer_threads=0)),
+    ("stream, producer-threads 1", dict(producer_threads=1)))
+
+
+def start_stream_cli() -> list:
+    """The three vit trainings of STREAM_CLI, ``train --debug -e 1
+    --data-mode stream`` under torchrun (NCCL, one rank), and ``train
+    --data-mode stream --epochs-per-dispatch 2``, which must fail."""
+    write_ring_data()
+    base = ["train", "--model", "vit", "--attention", "flash", "-e", "1"]
+    runs = [start_cli(base + extra, os.path.join(WORK, name),
+                      data=RING_DATA) for name, extra in STREAM_CLI]
+    runs.append(start_cli(["train", "--debug", "-e", "1", "--data-mode",
+                           "stream"], os.path.join(WORK, "stream_torchrun"),
+                          launcher=TORCHRUN))
+    runs.append(start_cli(["train", "--debug", "-e", "2", "--data-mode",
+                           "stream", "--epochs-per-dispatch", "2"],
+                          os.path.join(WORK, "stream_dispatch")))
+    return runs
+
+
+def stream_cnn(streamed: bool) -> dict:
+    """STREAM_CNN_STEPS Engine-driven steps of the cnn with K5 (bf16) from
+    the resident loader or the streaming one (the CLI's defaults: prefetch
+    2, one producer thread), K5's counts set to 0 just before and read
+    just after: every step's loss, the final state, the launches."""
+    import torch
+
+    from distributedpytorch_tpu_torch import utils
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import (ResidentLoader,
+                                                            ShardedLoader)
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops import conv
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    ds = work_dataset()
+    rows = STREAM_CNN_STEPS * TRAIN_BATCH
+    split = Split(ds.splits["train"].images[:rows],
+                  ds.splits["train"].labels[:rows])
+    loader = (ShardedLoader(split, TRAIN_BATCH, True, SEED, "cuda",
+                            producer_threads=1) if streamed
+              else ResidentLoader(split, TRAIN_BATCH, True, SEED, "cuda"))
+    policy = PRESETS["bf16"]
+    model = get_model("cnn", ds.nb_classes, policy, device="cuda",
+                      pallas_dw=True)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                    "cuda", steps_per_epoch=len(loader))
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    conv.conv3x3_dw.launches = 0
+    conv.conv3x3_dw.tensor_core_launches = 0
+    losses = []
+    for i, batch in enumerate(loader.epoch(0)):
+        _, m = engine.train_step(state, *batch,
+                                 utils.step_generator(SEED, 0, i, "cuda"))
+        losses.append(m["loss"])
+    out = dict(losses=torch.stack(losses).cpu(),
+               launches=conv.conv3x3_dw.launches,
+               tc=conv.conv3x3_dw.tensor_core_launches,
+               state={k: v.detach().clone()
+                      for k, v in model.state_dict().items()})
+    return out
+
+
+def copy_overlap(prof) -> tuple:
+    """(host-to-device copies, how many of them overlap a kernel in time,
+    the copies' device ms a step's worth summed) from a trace: a copy that
+    runs while a kernel runs is on another stream than that kernel."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if "Memcpy HtoD" in e.name]
+    kernels = [e for e in events if "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    overlapping = sum(
+        1 for c in copies if any(
+            k.time_range.start < c.time_range.end
+            and c.time_range.start < k.time_range.end for k in kernels))
+    return (len(copies), overlapping,
+            sum(c.time_range.elapsed_us() for c in copies) / 1e3)
+
+
+def stream_step_profile(name: str, attention: str, ds) -> dict:
+    """The train step of ``name`` at batch 64, bf16, fed by each loader of
+    STREAM_PROFILE_LOADERS (telemetry on): wall ms a step over
+    STREAM_PROFILE_STEPS steps (host clock, synchronized, profiler off)
+    after one of warm-up, in each of two rounds, the second in the
+    reverse order, with the host ms spent taking the batch and in the
+    step's call; then, over STREAM_PROFILE_STEPS steps under
+    torch.profiler, device ms a step and the idle share against the
+    rounds' mean wall; for the streamed steps the bytes copied a step,
+    the copies that overlap a kernel, and the loader's data/wait_s and
+    data/starved_steps over its steps."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch import telemetry, utils
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import (ResidentLoader,
+                                                            ShardedLoader)
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    rows = 4 * STREAM_PROFILE_STEPS * TRAIN_BATCH
+    split = Split(ds.splits["train"].images[:rows],
+                  ds.splits["train"].labels[:rows])
+    policy = PRESETS["bf16"]
+    model = get_model(name, ds.nb_classes, policy, attention=attention,
+                      device="cuda")
+    engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                    get_model_input_size(name), policy, "cuda")
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    tel_dir = tempfile.mkdtemp(dir=WORK)
+    tel = telemetry.configure(tel_dir, True, rank=0)
+    counted = ("data/wait_s", "data/starved_steps", "data/batches")
+
+    def endless(loader):
+        for epoch in itertools.count():
+            yield from loader.epoch(epoch)
+
+    feeds = {}
+    for mode, kw in STREAM_PROFILE_LOADERS:
+        loader = (ResidentLoader(split, TRAIN_BATCH, True, SEED, "cuda")
+                  if kw is None else
+                  ShardedLoader(split, TRAIN_BATCH, True, SEED, "cuda", **kw))
+        feeds[mode] = dict(batches=endless(loader), steps=0, walls=[],
+                           counts=dict.fromkeys(counted, 0.0))
+
+    def step(feed, host=None):
+        t = time.perf_counter()
+        before = {k: tel.counter(k).value for k in counted}
+        batch = next(feed["batches"])
+        feed["bytes"] = sum(x.numel() * x.element_size() for x in batch)
+        t1 = time.perf_counter()
+        engine.train_step(state, *batch, utils.step_generator(
+            SEED, 0, feed["steps"], "cuda"))
+        for k in counted:
+            feed["counts"][k] += tel.counter(k).value - before[k]
+        if host is not None:
+            host[0] += t1 - t
+            host[1] += time.perf_counter() - t1
+        feed["steps"] += 1
+
+    modes = [mode for mode, _ in STREAM_PROFILE_LOADERS]
+    n = STREAM_PROFILE_STEPS
+    for mode in modes + modes[::-1]:
+        feed = feeds[mode]
+        step(feed)                      # warm-up
+        torch.cuda.synchronize()
+        host = [0.0, 0.0]
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(feed, host)
+        torch.cuda.synchronize()
+        feed["walls"].append((time.perf_counter() - t0) * 1e3 / n)
+        feed["host_ms"] = [1e3 * h / n for h in host]
+    out = {}
+    for mode in modes:
+        feed = feeds[mode]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step(feed)
+            torch.cuda.synchronize()
+        feed["batches"].close()         # the epoch's threads stop and join
+        dev = sum(e.self_device_time_total for e in device_kernels(prof)) \
+            / 1e3 / n
+        wall = sum(feed["walls"]) / len(feed["walls"])
+        n_copies, overlapping, copy_ms = copy_overlap(prof)
+        out[mode] = dict(
+            walls=feed["walls"], wall=wall, batch_ms=feed["host_ms"][0],
+            step_ms=feed["host_ms"][1], device=dev if dev > 0 else None,
+            idle=(1 - dev / wall) if dev > 0 else None,
+            bytes=feed["bytes"], copies=n_copies / n,
+            overlapping=overlapping / n, copy_ms=copy_ms / n,
+            wait_s=feed["counts"]["data/wait_s"],
+            starved=feed["counts"]["data/starved_steps"],
+            batches=feed["counts"]["data/batches"])
+    telemetry.configure(tel_dir, False, rank=0)
+    shutil.rmtree(tel_dir, ignore_errors=True)
+    del model, engine, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stream() -> None:
+    """The in-process part of phase 36: the cnn with K5 streamed against
+    resident, bit for bit, then the streamed steps' profiles."""
+    import torch
+
+
+    resident, streamed = stream_cnn(False), stream_cnn(True)
+    same = (torch.equal(resident["losses"], streamed["losses"])
+            and all(torch.equal(v, resident["state"][k])
+                    for k, v in streamed["state"].items()))
+    say(f"stream: cnn with K5, {STREAM_CNN_STEPS} steps of 64 from each "
+        f"loader: per-step losses and final state bit-identical {same}; K5 "
+        f"launches resident {resident['launches']} streamed "
+        f"{streamed['launches']} ({streamed['tc']} on the tensor cores), "
+        f"formula {3 * STREAM_CNN_STEPS}")
+    if not same:
+        fail("the streamed cnn steps differ from the resident ones")
+    for r in (resident, streamed):
+        if r["launches"] != 3 * STREAM_CNN_STEPS or r["tc"] != r["launches"]:
+            fail(f"the cnn launched K5 {r['launches']} times ({r['tc']} on "
+                 f"the tensor cores) in {STREAM_CNN_STEPS} steps")
+    ds = work_dataset()
+    torch.backends.cudnn.deterministic = True   # as train sets it
+    for label, name, attention in (("vit flash", "vit", "flash"),
+                                   ("resnet18 at 224", "resnet", "full")):
+        prof = stream_step_profile(name, attention, ds)
+        for mode, r in prof.items():
+            say(f"stream: {label} train step, batch {TRAIN_BATCH} bf16, "
+                f"{mode}: wall {r['wall']:.3f} ms (rounds "
+                f"{', '.join(f'{w:.3f}' for w in r['walls'])}; host in the "
+                f"second: taking the batch {r['batch_ms']:.3f} ms, the "
+                f"step's call {r['step_ms']:.3f} ms), device "
+                f"{fmt_ms(r['device'])} ms, idle "
+                + ("not measured" if r["idle"] is None
+                   else f"{100 * r['idle']:.1f}%")
+                + f"; {r['copies']:.0f} host-to-device copies a step "
+                f"({r['overlapping']:.1f} overlapping a kernel, "
+                f"{r['copy_ms']:.4f} ms)"
+                + (f", {r['bytes']} bytes copied a step; telemetry "
+                   f"data/wait_s {r['wait_s']:.6f} s and "
+                   f"data/starved_steps {r['starved']:.0f} over "
+                   f"{r['batches']:.0f} batches" if mode != "resident"
+                   else ""))
+        r = prof["resident"]
+        for mode, s in prof.items():
+            if s["device"] is None:
+                fail(f"torch.profiler saw no device time in the {label} "
+                     f"step ({mode})")
+            if mode != "resident":
+                say(f"stream: {label}, {mode}: wall "
+                    f"{s['wall'] / r['wall']:.3f}x the resident step's, "
+                    f"device {s['device'] / r['device']:.3f}x")
+
+
+def phase_stream_cli(runs: list) -> dict:
+    """The CLI trainings of phase 36 (``start_stream_cli``): the two
+    streamed vit runs' log lines, launch lines and rolling files equal to
+    the resident run's, launches by phase 6's formula on the tensor
+    cores; torchrun's streamed run on NCCL.  Starts ``test -f`` of the
+    resident and the streamed best files, the streamed one with
+    ``--data-mode stream``; returns them with the refused run for
+    ``phase_stream_test``."""
+    *trains, refused = runs
+    done = finish_all(trains)
+    keep = re.compile(r"\| (Loss|Acc)|mean train loss|launches")
+
+    def lines(log):
+        return [line.split(" - ")[-1] for line in log.splitlines()
+                if keep.search(line)]
+
+    (w0, log0), *streamed, (wt, logt) = done
+    launches, steps, evals = parse_launches(log0, "train")
+    tensor_core = parse_tensor_core_launches(log0, "train")
+    want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
+            "flash_dkv": DEPTH * steps, "conv_dw": 0}
+    files = []
+    for name, _ in STREAM_CLI:
+        with open(os.path.join(WORK, name, "checkpoint-mnist-vit-000.ckpt"),
+                  "rb") as f:
+            files.append(f.read())
+    for (name, extra), (wall, log), data in zip(STREAM_CLI[1:], streamed,
+                                                files[1:]):
+        say(f"stream: train {' '.join(extra)} of the vit: {steps} steps in "
+            f"{wall:.1f}s of process wall (resident {w0:.1f}s); log lines "
+            f"equal {lines(log) == lines(log0)} ({len(lines(log0))}), "
+            f"rolling file byte-identical {data == files[0]}")
+        if lines(log) != lines(log0) or data != files[0]:
+            fail(f"the streamed vit run ({' '.join(extra)}) differs from "
+                 f"the resident one")
+    say(f"stream: launches {launches} (tensor-core {tensor_core}) over "
+        f"{steps} steps and {evals} eval batches, formula {want}")
+    if launches != want or tensor_core != want or not steps:
+        fail(f"the streamed vit's launches {launches} (tensor-core "
+             f"{tensor_core}) are not the formula {want}")
+    if "backend: nccl" not in logt or "Validation  |" not in logt:
+        fail("the streamed train under torchrun did not run on NCCL")
+    say(f"stream: torchrun train --debug -e 1 --data-mode stream on NCCL in "
+        f"{wt:.1f}s of process wall")
+    tests = [start_cli(
+        ["test", "-f", os.path.join(WORK, name, "bestmodel-mnist-vit.ckpt"),
+         "--attention", "flash", "--data-mode", mode],
+        os.path.join(WORK, f"{name}_test"), data=RING_DATA)
+        for name, mode in (("stream_resident", "resident"),
+                           ("stream_default", "stream"))]
+    return {"tests": tests, "refused": refused, "launches": launches}
+
+
+def phase_stream_test(pending: dict) -> dict:
+    """The end of phase 36: the streamed ``test -f`` equal to the
+    resident one, and the streamed ``--epochs-per-dispatch 2`` refused
+    with JAX's message.  Returns the streamed vit's launches."""
+    from distributedpytorch_tpu_torch.config import STREAM_DISPATCH_MESSAGE
+
+    accs = [re.search(r"Time: \d+m \d+s, (Acc: [\d.]+%)", log).group(1)
+            for _, log in finish_all(pending["tests"])]
+    say(f"stream: test -f resident {accs[0]}, streamed {accs[1]}")
+    if accs[0] != accs[1]:
+        fail("the streamed test differs from the resident one")
+    _, _, out, proc, _ = pending["refused"]
+    rc = proc.wait(timeout=300)
+    with open(out) as f:
+        text = f.read()
+    say(f"stream: train --data-mode stream --epochs-per-dispatch 2 exited "
+        f"{rc}, with JAX's message {STREAM_DISPATCH_MESSAGE in text}")
+    if rc != 1 or STREAM_DISPATCH_MESSAGE not in text:
+        fail(f"the streamed --epochs-per-dispatch 2 did not fail with the "
+             f"JAX message: rc {rc}, {text[-2000:]}")
+    return pending["launches"]
+
+
+# -- phase 37: --remat -----------------------------------------------------
+
+# (label, model, attention, K5); every step at batch 64, bf16, Adam
+REMAT_RUNS = (("vit flash", "vit", "flash", False),
+              ("densenet121 at 224", "densenet", "full", False),
+              ("resnet18 at 224", "resnet", "full", False),
+              ("cnn with K5", "cnn", "full", True))
+REMAT_MODES = ("none", "blocks", "full")
+REMAT_PROFILE_STEPS = 1     # densenet121: 11.5 thousand kernels a step
+
+
+def remat_launch_formula(model: str, mode: str) -> dict:
+    """The port's launches in one train step: the vit's K1 once a block
+    forward, twice under remat (the recompute); K2, K3 once a block; K5
+    three times a cnn step under any setting."""
+    if model == "vit":
+        k1 = DEPTH * (1 if mode == "none" else 2)
+        return {"flash_fwd": k1, "flash_dq": DEPTH, "flash_dkv": DEPTH}
+    return {"conv_dw": 3} if model == "cnn" else {}
+
+
+def remat_step(name: str, attention: str, k5: bool, mode: str, batch,
+               ds) -> dict:
+    """One Adam step under ``mode`` from SEED's weights, the counts set to
+    0 just before and read just after; then the peak memory of a second
+    step (``torch.cuda.max_memory_allocated``) and the device time of
+    REMAT_PROFILE_STEPS more under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch import utils
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops import KERNELS
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    policy = PRESETS["bf16"]
+    model = get_model(name, ds.nb_classes, policy, attention=attention,
+                      device="cuda", pallas_dw=k5, remat=mode)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                    get_model_input_size(name), policy, "cuda", remat=mode)
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = fn.tensor_core_launches = 0
+    _, m = engine.train_step(state, *batch,
+                             utils.step_generator(SEED, 0, 0, "cuda"))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    tc = {k: fn.tensor_core_launches for k, fn in KERNELS.items()
+          if fn.launches}
+    out = dict(loss=m["loss"].item(), launches=launches, tc=tc,
+               state={k: v.detach().clone()
+                      for k, v in model.state_dict().items()})
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.train_step(state, *batch, utils.step_generator(SEED, 0, 1,
+                                                          "cuda"))
+    torch.cuda.synchronize()
+    out["wall"] = (time.perf_counter() - t0) * 1e3
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["transient"] = out["peak"] - before
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(REMAT_PROFILE_STEPS):
+            engine.train_step(state, *batch,
+                              utils.step_generator(SEED, 0, 2 + i, "cuda"))
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in device_kernels(prof)) \
+        / 1e3 / REMAT_PROFILE_STEPS
+    out["device"] = dev if dev > 0 else None
+    del model, engine, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_graphed() -> None:
+    """The vit (flash, bf16) under ``--remat blocks`` on phase 35's 320
+    rows: two epochs eager and one chunk of two epochs as CUDA Graph
+    replay, bit-identical in parameters, Adam's state, counters, every
+    epoch's sums and the launch counts (a capture's launches times its
+    replays)."""
+    import torch
+
+    from distributedpytorch_tpu_torch import cli
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.dispatch import ChunkRunner
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    ds = work_dataset()
+    rows = GRAPH_RUNS[0][-1]
+    train = ResidentLoader(Split(ds.splits["train"].images[:rows],
+                                 ds.splits["train"].labels[:rows]),
+                           TRAIN_BATCH, True, SEED, "cuda")
+    valid = ResidentLoader(Split(ds.splits["valid"].images[:TRAIN_BATCH],
+                                 ds.splits["valid"].labels[:TRAIN_BATCH]),
+                           TRAIN_BATCH, False, SEED, "cuda")
+    policy = PRESETS["bf16"]
+    runs = {}
+    for path in ("eager", "graphed"):
+        model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                          device="cuda", remat="blocks")
+        engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                        "cuda", steps_per_epoch=len(train), remat="blocks")
+        state = engine.init_state(torch.Generator().manual_seed(SEED))
+        before = cli.kernel_launches()
+        if path == "eager":
+            sums = []
+            for epoch in range(2):
+                _, tl, ta = cli._run_train_pass(engine, state, train, epoch,
+                                                SEED)
+                sums.append((tl, ta) + cli._run_eval_pass(engine, state,
+                                                          valid, epoch))
+        else:
+            got = ChunkRunner(engine, state, train, valid, SEED, 2).run(
+                [0, 1])
+            sums = []
+            for m, ev in zip(got["train"], got["eval"]):
+                n, d, c, v = ev.tolist()
+                sums.append((float(m[:, 0].mean()),
+                             float(m[:, 1].sum()
+                                   / max(float(m[:, 2].sum()), 1.0)),
+                             n / max(d, 1e-9), c / max(v, 1.0)))
+        torch.cuda.synchronize()
+        runs[path] = dict(
+            sums=sums, counters=(int(state.step), int(state.updates)),
+            launches={k: v - before[k] for k, v in
+                      cli.kernel_launches().items() if v - before[k]},
+            model={k: v.detach().clone()
+                   for k, v in model.state_dict().items()},
+            opt=state.optimizer.state_dict()["state"])
+    eager, graphed = runs["eager"], runs["graphed"]
+    differ = [k for k, v in eager["model"].items()
+              if not torch.equal(v, graphed["model"][k])]
+    differ += [f"opt/{i}/{n}" for i, st in eager["opt"].items()
+               for n, t in st.items()
+               if not torch.equal(t, graphed["opt"][i][n])]
+    steps = 2 * len(train)
+    want = {"flash_fwd": 2 * DEPTH * steps + DEPTH * 2 * len(valid),
+            "flash_dq": DEPTH * steps, "flash_dkv": DEPTH * steps}
+    same = (not differ and eager["sums"] == graphed["sums"]
+            and eager["counters"] == graphed["counters"]
+            and eager["launches"] == graphed["launches"] == want)
+    say(f"remat: vit flash --remat blocks, 2 epochs of {len(train)} steps "
+        f"and {len(valid)} eval batch: one graphed chunk of 2 bit-identical "
+        f"to the eager epochs {same} (differing {differ[:4]}); launches "
+        f"eager {eager['launches']} graphed {graphed['launches']}, formula "
+        f"{want}")
+    if not same:
+        fail(f"the graphed remat run differs from the eager one: "
+             f"{differ[:8]}, sums {eager['sums']} vs {graphed['sums']}, "
+             f"launches {eager['launches']} vs {graphed['launches']}")
+
+
+def phase_remat() -> None:
+    """One Adam step of each REMAT_RUNS model under each of REMAT_MODES,
+    held bit-identical across the settings (updates, BatchNorm statistics,
+    loss) with the launches by ``remat_launch_formula``; peak memory and
+    device time a step; then ``remat_graphed``."""
+    import torch
+
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+
+    ds = work_dataset()
+    batch = next(ResidentLoader(ds.splits["train"], TRAIN_BATCH, True, SEED,
+                                "cuda").epoch(0))
+    torch.backends.cudnn.deterministic = True   # as train sets it
+    torch.backends.cudnn.benchmark = False
+    for label, name, attention, k5 in REMAT_RUNS:
+        t0 = time.perf_counter()
+        runs = {mode: remat_step(name, attention, k5, mode, batch, ds)
+                for mode in REMAT_MODES}
+        say(f"remat: {label}: the three settings took "
+            f"{time.perf_counter() - t0:.1f}s")
+        base = runs["none"]
+        for mode, r in runs.items():
+            worst = max(((v.float() - base["state"][k].float()).abs().max()
+                         .item() / max(base["state"][k].float().abs().max()
+                                       .item(), 1e-30), k)
+                        for k, v in r["state"].items())
+            identical = worst[0] == 0.0 and r["loss"] == base["loss"]
+            formula = remat_launch_formula(name, mode)
+            say(f"remat: {label}, --remat {mode}: one Adam step bf16 batch "
+                f"{TRAIN_BATCH}: updates, statistics and loss bit-identical "
+                f"to none {identical} (largest difference {worst[0]:.3g} of "
+                f"the largest value, {worst[1]}); launches {r['launches']} "
+                f"(tensor-core {r['tc']}), formula {formula}; peak memory "
+                f"{r['peak'] / 2 ** 20:.1f} MiB ({r['transient'] / 2 ** 20:.1f}"
+                f" MiB above the state), device {fmt_ms(r['device'])} ms a "
+                f"step, wall {r['wall']:.3f} ms")
+            if not identical:
+                fail(f"{label} under --remat {mode} differs from none: "
+                     f"{worst}, loss {r['loss']} vs {base['loss']}")
+            if r["launches"] != formula or r["tc"] != formula:
+                fail(f"{label} under --remat {mode} launched "
+                     f"{r['launches']} (tensor-core {r['tc']}), formula "
+                     f"{formula}")
+            if r["device"] is None:
+                fail(f"torch.profiler saw no device time in {label}'s step")
+        say(f"remat: {label}: peak memory blocks/none "
+            f"{runs['blocks']['peak'] / base['peak']:.3f}, full/none "
+            f"{runs['full']['peak'] / base['peak']:.3f}; device time "
+            f"blocks/none {runs['blocks']['device'] / base['device']:.3f}, "
+            f"full/none {runs['full']['device'] / base['device']:.3f}")
+    remat_graphed()
+
+
 # a phase's checks that need another phase's output (phase 23 writes
 # phase 22's corpus itself when 22 does not run)
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 36                 # the closing lines; only a full run has it
+LAST_PHASE = 38                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -5161,6 +5733,10 @@ def main(argv=None) -> int:
         main_rows.update(run(phase_f16_ring_kernels))
     if want(35):
         run(phase_graphs)
+    if want(36):
+        run(phase_stream)
+    if want(37):
+        run(phase_remat)
     started = []
 
     def ahead(phase: int, start):
@@ -5181,6 +5757,7 @@ def main(argv=None) -> int:
         f16_ring_run = ahead(33, start_f16_ring_train)
         graph_cli_runs = ahead(35, start_graph_cli)
         jax_resume_runs = ahead(34, start_jax_resume)
+        stream_runs = ahead(36, start_stream_cli)
         if want(25):
             run(phase_f16_step)
         if want(26):
@@ -5194,6 +5771,11 @@ def main(argv=None) -> int:
                          else None)
         started.extend(p["run"] for p in (bf16_pending, async_pending)
                        if p is not None)
+        # phase 36's tests run beside 18's and 27-35's checks
+        stream_pending = (run(phase_stream_cli, stream_runs) if want(36)
+                          else None)
+        if stream_pending is not None:
+            started.extend(stream_pending["tests"])
         if want(18):
             ring_launches, ring_tc = run(phase_ring_train, ring_run)
             for name in ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos"):
@@ -5224,6 +5806,8 @@ def main(argv=None) -> int:
             run(phase_jax_resume, jax_resume_runs)
         if want(35):
             run(phase_graph_cli, graph_cli_runs)
+        if want(36):
+            run(phase_stream_test, stream_pending)
     finally:
         for *_, proc, _ in started:
             if proc.poll() is None:

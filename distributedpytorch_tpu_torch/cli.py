@@ -19,8 +19,11 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     before a preemption exit and closed before telemetry).  Under
     ``torchrun`` (or any env:// launch) every
     process is one data-parallel rank (``runtime.py``); a plain launch is
-    a world of one.  The data is device-resident; a step gathers its
-    rank's rows on the device and draws the global batch's augmentation
+    a world of one.  The data is device-resident (a step gathers its
+    rank's rows on the device) or streamed (``--data-mode stream``, or
+    ``auto`` over the budget of ``_resident_budget_bytes``: gathered on
+    the host and copied to the device a step at a time); either way a
+    step draws the global batch's augmentation
     from a generator seeded from (seed, epoch, step), and per-step metrics
     (global sums) stay on the device until one read per epoch.  Rank 0
     writes ``test.log`` and the checkpoints: the rolling one every epoch
@@ -65,10 +68,10 @@ import torch
 
 from . import checkpoint as ckpt
 from . import runtime, telemetry, tracing, utils
-from .config import NUM_WORKERS, RESIDENT_MAX_BYTES, Config, \
+from .config import RESIDENT_MAX_BYTES, STREAM_DISPATCH_MESSAGE, Config, \
     check_ported, config_from_argv
 from .data.datasets import Dataset, Split, load_dataset
-from .data.pipeline import ResidentLoader
+from .data.pipeline import ResidentLoader, ShardedLoader
 from .models import get_model, get_model_input_size, pretrained
 from .ops import KERNELS
 from .ops import flash_attention as fa
@@ -77,6 +80,7 @@ from .train.dispatch import ChunkRunner
 from .train.engine import Engine, Predictor, TrainState
 
 RING_KERNELS = ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")
+RESIDENT_HBM_FRACTION = 0.3
 
 
 def kernel_launches() -> dict:
@@ -116,7 +120,8 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
                   mesh: runtime.Mesh) -> Engine:
     policy = cfg.precision_policy()
     model = get_model(model_name, dataset.nb_classes, policy,
-                      attention=cfg.attention, device=device, mesh=mesh)
+                      attention=cfg.attention, device=device, mesh=mesh,
+                      remat=cfg.remat)
     class_weights = (dataset.class_weights()
                      if cfg.loss in ("weighted_cross_entropy", "focal_loss")
                      else None)
@@ -128,23 +133,43 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
                   momentum=cfg.momentum, lr_step_gamma=cfg.lr_step_gamma,
                   steps_per_epoch=steps_per_epoch,
                   feature_extract=cfg.feature_extract, mesh=mesh,
-                  grad_accum=cfg.grad_accum if cfg.action == "train" else 1)
+                  grad_accum=cfg.grad_accum if cfg.action == "train" else 1,
+                  remat=cfg.remat)
+
+
+def _resident_budget_bytes(device: torch.device) -> int:
+    """The byte cap of one split kept device-resident under ``auto`` (JAX
+    ``_resident_budget_bytes``, cli.py:73-91): RESIDENT_MAX_BYTES, bounded
+    by RESIDENT_HBM_FRACTION of the card's memory (every rank holds the
+    whole split, and train and valid are both resident); on the CPU the
+    cap alone."""
+    budget = RESIDENT_MAX_BYTES
+    memory = runtime.device_memory_limit(device)
+    if memory is not None:
+        budget = min(budget, int(RESIDENT_HBM_FRACTION * memory))
+    return budget
+
+
+def _is_resident(cfg: Config, split: Split, device: torch.device) -> bool:
+    """``resident``, or ``auto`` with the split within the budget."""
+    return (cfg.data_mode == "resident"
+            or (cfg.data_mode == "auto"
+                and split.images.nbytes <= _resident_budget_bytes(device)))
 
 
 def _make_loader(cfg: Config, split: Split, shuffle: bool,
-                 device: torch.device, mesh: runtime.Mesh
-                 ) -> ResidentLoader:
-    """The device-resident loader; a split over the resident cap would
-    need the streaming loader, which is not ported yet."""
-    if cfg.data_mode == "auto" and split.images.nbytes > RESIDENT_MAX_BYTES:
-        raise ValueError(f"not ported yet: --data-mode stream (the split's "
-                         f"{split.images.nbytes} bytes exceed the resident "
-                         f"cap of {RESIDENT_MAX_BYTES})")
-    return ResidentLoader(split, cfg.batch_size, shuffle=shuffle,
-                          seed=cfg.seed, device=device,
-                          world=runtime.world_size(),
-                          rank=runtime.process_index(),
-                          model_parallel=mesh.model_parallel)
+                 device: torch.device, mesh: runtime.Mesh):
+    """The resident loader or the streaming one, picked by
+    ``_is_resident`` as the JAX ``_make_loader`` picks (cli.py:176-188)."""
+    shard = dict(seed=cfg.seed, device=device, world=runtime.world_size(),
+                 rank=runtime.process_index(),
+                 model_parallel=mesh.model_parallel)
+    if _is_resident(cfg, split, device):
+        return ResidentLoader(split, cfg.batch_size, shuffle, **shard)
+    return ShardedLoader(split, cfg.batch_size, shuffle, **shard,
+                         prefetch=cfg.prefetch,
+                         producer_threads=cfg.producer_threads,
+                         device_prefetch=cfg.device_prefetch)
 
 
 def _start(cfg: Config, action: str) -> tuple:
@@ -181,8 +206,7 @@ def _start(cfg: Config, action: str) -> tuple:
     return device, tel, mesh
 
 
-def _run_eval_pass(engine: Engine, state: TrainState,
-                   loader: ResidentLoader, epoch: int
+def _run_eval_pass(engine: Engine, state: TrainState, loader, epoch: int
                    ) -> tuple[float, float]:
     """One no-grad pass over this rank's data shard; returns (loss,
     accuracy) over the valid rows of every shard (one all-reduce over the
@@ -213,11 +237,12 @@ def _progress_logs(epoch: int, losses: np.ndarray) -> None:
                          f"mean train loss:{losses[:i + 1].mean():.5f}")
 
 
-def _run_train_pass(engine: Engine, state: TrainState,
-                    loader: ResidentLoader, epoch: int, seed: int
+def _run_train_pass(engine: Engine, state: TrainState, loader,
+                    epoch: int, seed: int
                     ) -> tuple[TrainState, float, float]:
-    """One optimization pass; per-step metrics stay on the device and are
-    read once at the end, which also feeds the every-10% log lines."""
+    """One optimization pass over either loader; per-step metrics stay on
+    the device and are read once at the end, which also feeds the
+    every-10% log lines."""
     nb_iters = len(loader)
     hist = []
     main = runtime.is_main()
@@ -286,8 +311,7 @@ def _epoch_header(epoch: int) -> None:
 
 
 def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
-                      train_loader: ResidentLoader,
-                      valid_loader: ResidentLoader, model_name: str,
+                      train_loader, valid_loader, model_name: str,
                       start_epoch: int, best_valid_loss: float,
                       start_time: float, shutdown, saver=None) -> dict:
     """The per-epoch loop (ref classif.py:151-192); rank 0 writes the
@@ -463,7 +487,7 @@ def run_train(cfg: Config) -> dict:
             torch.backends.cudnn.benchmark = False
         logging.info(f"batch size: {cfg.batch_size}/replica "
                      f"({cfg.batch_size * runtime.world_size()} global), "
-                     f"prefetch: {NUM_WORKERS}")
+                     f"prefetch: {cfg.prefetch}")
         model_name = cfg.model_name
         if cfg.checkpoint_file:
             try:
@@ -478,13 +502,18 @@ def run_train(cfg: Config) -> dict:
         dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
                                debug=cfg.debug, log=True,
                                synthetic_fallback=cfg.synthetic_fallback)
+        if cfg.epochs_per_dispatch > 1 and not all(
+                _is_resident(cfg, dataset.splits[s], device)
+                for s in ("train", "valid")):
+            # JAX _train_world's refusal, before any work on the device
+            raise ValueError(STREAM_DISPATCH_MESSAGE)
         train_loader = _make_loader(cfg, dataset.splits["train"], True,
                                     device, mesh)
         valid_loader = _make_loader(cfg, dataset.splits["valid"], False,
                                     device, mesh)
         engine = _build_engine(cfg, model_name, dataset, len(train_loader),
                                device, mesh)
-        tel.event("precision_policy", remat="none",
+        tel.event("precision_policy", remat=cfg.remat,
                   grad_accum=cfg.grad_accum, **engine.precision.describe())
         load_weights = None
         if cfg.use_pretrained:

@@ -27,6 +27,13 @@ a step; K must divide the per-replica batch, the JAX message otherwise),
 replay on the card; K >= 1, the JAX message otherwise, and K > 1 over
 gloo on the card is refused); ``test`` accepts and ignores all three, as
 the JAX ``test`` does.
+``--data-mode`` picks the device-resident loader or the streaming one
+(``auto``: resident while the split fits the budget, ``cli._make_loader``),
+with the streaming loader's ``--prefetch``, ``--producer-threads`` and
+``--device-prefetch``; ``--remat none|blocks|full`` recomputes the
+forward in the backward (``models/remat.py``).  ``test`` and ``serve``
+accept all five, as the JAX parser does, and nothing off the train step's
+gradient path reads ``--remat``.
 ``--model-parallel M`` (M >= 2) runs only the ring of ``--attention ring``
 or ``ring_flash`` over the (world / M, M) mesh, with the parameters
 replicated on every rank: the JAX package's placement of parameters over
@@ -54,6 +61,8 @@ LOG_FILE = "test.log"
 NB_EPOCHS = 2
 BATCH_SIZE = 64
 NUM_WORKERS = 2             # the JAX package's streamed prefetch depth
+PRODUCER_THREADS = 1        # the JAX CLI's default (library: 0)
+REMAT_CHOICES = ("none", "blocks", "full")
 SEED = 1234
 FEATURE_EXTRACT = False
 
@@ -101,6 +110,10 @@ class Config:
     keep_ckpts: int = 1
     telemetry: bool = False
     data_mode: str = "auto"
+    prefetch: int = NUM_WORKERS
+    producer_threads: int = PRODUCER_THREADS
+    device_prefetch: int = 0
+    remat: str = "none"
     half_precision: bool = True
     precision: Optional[str] = None
     attention: str = "full"
@@ -131,7 +144,6 @@ def not_ported(cfg: Config) -> Optional[str]:
     checks = (
         (ring and cfg.action == "serve" and cfg.model_name in (None, "vit"),
          f"--attention {cfg.attention}"),
-        (cfg.data_mode == "stream", "--data-mode stream"),
         (cfg.model_parallel > 1 and not ring and cfg.action != "serve",
          "--model-parallel (parameter sharding over 'model')"),
     )
@@ -164,6 +176,10 @@ def check_ported(cfg: Config) -> Config:
             f"--grad-accum must be >= 1 and divide the per-replica batch "
             f"size ({cfg.batch_size}); got {cfg.grad_accum}")
     cfg.precision_policy()      # --no-bf16 against another preset
+    if cfg.remat not in REMAT_CHOICES:
+        # the JAX _validate_precision's check (cli.py:104-106)
+        raise ValueError(
+            f"--remat must be none|blocks|full, got {cfg.remat!r}")
     if cfg.action == "train":       # test and serve: the checkpoint's
         from .models.registry import check_attention
 
@@ -175,8 +191,20 @@ def check_ported(cfg: Config) -> Config:
     return cfg
 
 
+# The JAX _train_world's refusal of a streamed run in chunks
+# (cli.py:941-949), word for word.
+STREAM_DISPATCH_MESSAGE = (
+    "--epochs-per-dispatch > 1 requires device-resident data "
+    "(whole epochs are fused into one XLA program); this run is "
+    "streaming — drop --data-mode stream or lower the corpus size "
+    "below --resident-max-bytes")
+
+
 def check_epochs_per_dispatch(cfg: Config) -> None:
-    """K < 1 fails with the JAX ``run_train`` message (cli.py:721-724).
+    """K < 1 fails with the JAX ``run_train`` message (cli.py:721-724),
+    and K > 1 with ``--data-mode stream`` with its ``_train_world``
+    message (``cli.run_train`` refuses an ``auto`` run that streams the
+    same way, before any work on the device).
     K > 1 on the card captures the steps as CUDA Graphs, which capture
     NCCL's collectives but not gloo's: a world of several ranks on
     ``cuda`` whose launch would take gloo (more local ranks than cards) is
@@ -184,6 +212,8 @@ def check_epochs_per_dispatch(cfg: Config) -> None:
     k = cfg.epochs_per_dispatch
     if k < 1:
         raise ValueError(f"--epochs-per-dispatch must be >= 1, got {k}")
+    if k > 1 and cfg.data_mode == "stream":
+        raise ValueError(STREAM_DISPATCH_MESSAGE)
     if k == 1 or cfg.device != "cuda":
         return
     from . import runtime
@@ -267,7 +297,6 @@ _STR = {"type": str}
 # so only a flag given on the command line is looked at; any other value
 # is refused (``refused_flag``), never ignored.
 REFUSED_EVERYWHERE = (
-    ("--remat", {"choices": ("none", "blocks", "full")}, "none"),
     ("--scan-layers", _ON, False),
     ("--moe-experts", _INT, 0),
     ("--tensor-parallel", _ON, False),
@@ -285,9 +314,6 @@ REFUSED_EVERYWHERE = (
     ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
 )
 REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
-    ("--prefetch", _INT, NUM_WORKERS),
-    ("--producer-threads", _INT, 1),
-    ("--device-prefetch", _INT, 0),
     ("--compilation-cache-dir", _STR, None),
     ("--no-compile-cache", _ON, False),
     ("--aot-warmup", _ON, False),
@@ -328,6 +354,39 @@ def refused_flag(args: dict, table) -> Optional[str]:
         if dest in args and args[dest] != ok:
             return f"{flag} {args[dest]}" if "choices" in how else flag
     return None
+
+
+def _data_remat_args(p: argparse.ArgumentParser) -> None:
+    """The JAX ``_common_args``' --remat, --data-mode and the streaming
+    loader's three flags (config.py:428-456), same defaults."""
+    p.add_argument("--remat", choices=REMAT_CHOICES, default="none",
+                   help="gradient rematerialization: blocks = recompute "
+                        "each vit/densenet/inception block's interior in "
+                        "backward keeping the outputs of matmuls with no "
+                        "batch dimension (the whole forward for the other "
+                        "models), full = save nothing (the backward "
+                        "recomputes the forward)")
+    p.add_argument("--data-mode", choices=("auto", "stream", "resident"),
+                   default="auto", dest="data_mode",
+                   help="device-resident vs streamed batches (default: "
+                        "auto: resident while the split fits the budget)")
+    p.add_argument("--prefetch", type=int, default=NUM_WORKERS,
+                   metavar="N",
+                   help="streamed-mode prefetch depth (the ref NUM_WORKERS "
+                        f"analogue; default {NUM_WORKERS}; 0 = strictly "
+                        "synchronous)")
+    p.add_argument("--producer-threads", type=int, default=PRODUCER_THREADS,
+                   metavar="N", dest="producer_threads",
+                   help="streamed-mode background threads gathering (and "
+                        "copying) batches; order stays byte-identical "
+                        f"(default {PRODUCER_THREADS}; 0 = on the training "
+                        "thread)")
+    p.add_argument("--device-prefetch", type=int, default=0, metavar="N",
+                   dest="device_prefetch",
+                   help="streamed-mode transfer thread that copies the "
+                        "next N batches to the device in step order "
+                        "while the current step computes (default 0 = "
+                        "off)")
 
 
 def _pretrained_args(p: argparse.ArgumentParser) -> None:
@@ -394,10 +453,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
                         "captured CUDA Graph and the epochs' sums are read "
                         "once a chunk; the rolling checkpoint is written "
                         "once a chunk (default 1; test ignores it)")
-    p.add_argument("--data-mode", choices=("auto", "stream", "resident"),
-                   default="auto", dest="data_mode",
-                   help="device-resident batches (auto, resident); stream "
-                        "is not ported yet")
+    _data_remat_args(p)
     p.add_argument("--keep-ckpts", type=int, default=1, dest="keep_ckpts",
                    metavar="K",
                    help="rolling-checkpoint lineage depth (default 1)")
@@ -483,6 +539,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the deterministic synthetic corpus when the "
                         "real dataset's raw files are absent")
     _pretrained_args(p)
+    _data_remat_args(p)
     _model_parallel_arg(p)
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,

@@ -1,7 +1,7 @@
 """DenseNet-121 (ref utils.py:78-85 wraps torchvision densenet121).
 
 Counterpart of ``distributedpytorch_tpu/models/densenet.py`` (:17-103)
-without ``--remat`` and ``--scan-layers``: growth rate 32, blocks (6, 12,
+without ``--scan-layers``: growth rate 32, blocks (6, 12,
 24, 16), bn_size 4; a 7x7/2 stem with BatchNorm and a 3x3/2 max pool
 padded with -inf; each ``DenseLayer`` is BN-ReLU-1x1 conv-BN-ReLU-3x3 conv
 concatenated after its input; each transition is BN, ReLU, a 1x1 conv to
@@ -11,7 +11,9 @@ and the ``head``.  Layer names are flax's: ``DenseLayer_0`` ..
 ``BatchNorm_0``, the transitions' ``BatchNorm_1`` .. ``3`` / ``Conv_1`` ..
 ``3`` and the last norm ``BatchNorm_4``.  Input NHWC, convs on its
 channels_last NCHW view, BatchNorm with flax's semantics and global
-statistics.  Logits f32.
+statistics.  Logits f32.  ``remat_blocks`` (``--remat blocks``, set by
+the registry) checkpoints each ``DenseLayer`` on the gradient path,
+keeping its matmul outputs (``models/remat.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import remat
 from .common import global_mean
 from .layers import conv, dense, lecun_init_
 from .norm import BatchNorm
@@ -52,6 +55,7 @@ class DenseNet(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         self.dtype = dtype
+        self.remat_blocks = False
         self.block_config = tuple(block_config)
         self.Conv_0 = nn.Conv2d(3, num_init_features, 7, 2, padding=3,
                                 bias=False, device=device)
@@ -82,7 +86,8 @@ class DenseNet(nn.Module):
         layer = 0
         for i, n_layers in enumerate(self.block_config):
             for _ in range(n_layers):
-                x = getattr(self, f"DenseLayer_{layer}")(x)
+                x = remat.run_block(self, getattr(
+                    self, f"DenseLayer_{layer}"), x)
                 layer += 1
             if i != len(self.block_config) - 1:
                 x = torch.relu(getattr(self, f"BatchNorm_{i + 1}")(x))

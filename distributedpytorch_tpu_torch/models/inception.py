@@ -1,7 +1,7 @@
 """Inception v3 with auxiliary logits (ref utils.py:87-99).
 
 Counterpart of ``distributedpytorch_tpu/models/inception.py`` without
-``--remat`` and ``--scan-layers``: ``BasicConv`` (a bias-free conv,
+``--scan-layers``: ``BasicConv`` (a bias-free conv,
 BatchNorm with eps 1e-3, ReLU) stem, ``InceptionA_0`` .. ``2``,
 ``InceptionB_0``, ``InceptionC_0`` .. ``3``, ``InceptionD_0``,
 ``InceptionE_0`` .. ``1``, a global mean, dropout and the ``head``; in
@@ -18,7 +18,10 @@ the padding (flax's ``avg_pool`` and torch's default), the asymmetric
 kernels are (1, 7)/(7, 1) and (1, 3)/(3, 1).  Input NHWC, convs on its
 channels_last NCHW view (an f32 input on the card is made contiguous
 NCHW first), BatchNorm with flax's semantics and global statistics.
-Logits f32.
+Logits f32.  ``remat_blocks`` (``--remat blocks``, set by the registry)
+checkpoints each Mixed block (``InceptionA_0`` .. ``InceptionE_1``) on
+the gradient path, keeping its matmul outputs (``models/remat.py``); the
+stem and the aux head stay outside, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import remat
 from .common import adaptive_avg_pool, global_mean
 from .layers import Dropout, conv, dense, lecun_init_
 from .norm import BatchNorm
@@ -177,6 +181,7 @@ class InceptionV3(_Block):
             ("x", 32, 3, 2, 0), (None, 32, 3, 1, 0), (None, 64, 3, 1, 1),
             (None, 80, 1, 1, 0), (None, 192, 3, 1, 0)), device)
         self.dtype = dtype
+        self.remat_blocks = False
         blocks = [("InceptionA_0", InceptionA, (32,)),
                   ("InceptionA_1", InceptionA, (64,)),
                   ("InceptionA_2", InceptionA, (64,)),
@@ -220,7 +225,7 @@ class InceptionV3(_Block):
         x = F.max_pool2d(self.c(4, self.c(3, x)), 3, 2)
         aux = None
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = remat.run_block(self, getattr(self, name), x)
             if name == "InceptionC_3" and self.training:
                 aux = self.AuxHead_0(x)
         x = self.Dropout_0(global_mean(x))

@@ -19,7 +19,10 @@ rank sums x, x^2 and its row count, and the sums are all-reduced with
 ``torch.distributed.nn.functional.all_reduce``, whose backward all-reduces
 the gradient, so every rank's gradient sees every rank's rows.
 ``running_var`` holds flax's ``var`` and ``running_mean`` its ``mean``:
-a JAX checkpoint's ``batch_stats`` load as they are.
+a JAX checkpoint's ``batch_stats`` load as they are.  Under ``--remat``
+the recompute of a forward (``remat.recomputing()``) normalises with the
+same batch statistics and leaves the running ones alone, so they move
+once a step.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from . import remat
 
 
 def _global_sum(t: torch.Tensor) -> torch.Tensor:
@@ -78,10 +83,11 @@ class BatchNorm(nn.Module):
             n = sums[-1]
             mean = sums[:c] / n
             var = torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean.detach())
-                self.running_var.mul_(m).add_((1 - m) * var.detach())
+            if not remat.recomputing():
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+                    self.running_var.mul_(m).add_((1 - m) * var.detach())
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)

@@ -10,8 +10,11 @@ for the nine models: ``cnn``, ``mlp``, the torchvision zoo (``resnet``
 ring_flash} (the rings over the model group of a ``runtime.Mesh``), and
 the API-only ``pallas_dw`` knob of ``cnn`` (kernel K5; no CLI flag, as in
 the JAX package).  The validation errors are the JAX registry's, word for
-word.  ``--remat`` and ``--scan-layers`` are not ported yet (the CLI
-refuses them).
+word.  ``remat="blocks"`` builds vit, densenet and inception with
+``remat_blocks`` (each block checkpointed, ``models/remat.py``; the
+parameter names do not change); the engine checkpoints the other models'
+whole forward, and every model's under ``full``, as the JAX split of the
+work goes.  ``--scan-layers`` is not ported yet (the CLI refuses it).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..precision import PrecisionPolicy
 from .alexnet import AlexNet
 from .densenet import densenet121
 from .inception import InceptionV3
+from .remat import REMAT_BLOCK_MODELS
 from .resnet import resnet18
 from .simple import MLP, SmallCNN
 from .squeezenet import SqueezeNet
@@ -112,7 +116,8 @@ def attention_fn(attention: str, mesh=None):
 def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               attention: str = "full",
               device: torch.device | str = "cuda",
-              pallas_dw: bool = False, mesh=None) -> nn.Module:
+              pallas_dw: bool = False, mesh=None,
+              remat: str = "none") -> nn.Module:
     """The registry's full-width model, on ``device``, its parameters
     stored in the policy's ``param_dtype`` (bfloat16 under ``bf16_full``,
     f32 otherwise; BatchNorm's running statistics are buffers and stay
@@ -121,10 +126,15 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
     ``pallas_dw=True`` gives the cnn whose 3x3 convs with 32+ input
     channels take their weight gradient from kernel K5.  ``mesh`` (a
     ``runtime.Mesh``) is the one of ``--attention ring|ring_flash``; the
-    parameters stay replicated on every rank."""
-    return store_params(_build(name, num_classes, precision, attention,
-                               device, pallas_dw, mesh),
-                        precision.param_dtype)
+    parameters stay replicated on every rank.  ``remat="blocks"`` on a
+    model of REMAT_BLOCK_MODELS checkpoints its blocks."""
+    if remat not in ("none", "blocks", "full"):
+        raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
+    model = _build(name, num_classes, precision, attention, device,
+                   pallas_dw, mesh)
+    if name in REMAT_BLOCK_MODELS:
+        model.remat_blocks = remat == "blocks"
+    return store_params(model, precision.param_dtype)
 
 
 def store_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -16,6 +16,9 @@ use; a dense layer rounds its product and then adds its bias in the
 compute dtype; LayerNorm has eps 1e-6 and computes its statistics
 (E[x^2] - E[x]^2, clipped at 0), scale and bias in f32 before casting;
 GELU is the tanh approximation; the token mean is taken in f32.
+``remat_blocks`` (``--remat blocks``, set by the registry) checkpoints
+each ``TransformerBlock`` on the gradient path, keeping its matmul
+outputs (``models/remat.py``); the parameter names do not change.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import full_attention
+from . import remat
 from .layers import dense as _dense
 from .layers import lecun_init_
 
@@ -94,6 +98,7 @@ class ViT(nn.Module):
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
         self.patch = patch
         self.dtype = dtype
+        self.remat_blocks = False
         attn = attention_fn or full_attention
         self.patch_embed = nn.Conv2d(3, dim, patch, stride=patch,
                                      device=device)
@@ -131,6 +136,6 @@ class ViT(nn.Module):
         b, gh, gw, c = x.shape
         x = x.reshape(b, gh * gw, c) + self.pos_embed.to(dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat.run_block(self, blk, x)
         x = self.norm(x).float().mean(dim=1).to(dtype)  # mean-pool tokens
         return _dense(self.head, x).float()

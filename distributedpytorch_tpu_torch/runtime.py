@@ -49,6 +49,15 @@ def resolve_device(device: str = "cuda") -> torch.device:
     raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
 
 
+def device_memory_limit(device: torch.device) -> Optional[int]:
+    """The device's memory in bytes (the card's total memory), or None on
+    the CPU: the JAX ``device_memory_limit`` (:488-506), which is None
+    where the backend reports nothing."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
 def launched_distributed() -> bool:
     """True under a multi-process launcher (``WORLD_SIZE`` is set)."""
     return os.environ.get("WORLD_SIZE", "").strip() != ""

@@ -86,6 +86,15 @@ denominator (x the scale, x the model-parallel copies of each shard):
 the exact gradient of the global masked mean.  The dropout keep masks are
 drawn per microbatch for the global microbatch's rows; inception adds 0.4
 x its aux numerator; ``correct`` counts the primary logits.
+
+``remat`` (``--remat``, :114-133): a model of REMAT_BLOCK_MODELS built
+with ``remat="blocks"`` checkpoints its own blocks; under ``blocks`` the
+engine checkpoints any other model's whole train-mode forward with the
+matmul outputs saved, and under ``full`` every model's, saving nothing
+(``models/remat.py``).  The dropout keep masks go into the checkpointed
+function as arguments, so the recompute in the backward sees the masks
+of its step.  The checkpoint wraps the model's own forward, inside
+DDP's.
 """
 
 from __future__ import annotations
@@ -99,6 +108,7 @@ from torch import nn
 
 from .. import runtime
 from ..data import augment
+from ..models import remat as remat_mod
 from ..models.layers import dropout_layers, set_dropout_masks
 from ..models.registry import freeze_backbone
 from ..ops.losses import LossFn
@@ -183,6 +193,33 @@ class TrainState:
             self.loss_scale.to(device)
 
 
+def checkpoint_forward(model: nn.Module, save_dots: bool) -> None:
+    """Make ``model``'s train-mode forward on the gradient path one
+    ``remat.call`` (its eval forward stays as it is); the keep masks that
+    its dropout layers hold at the call go in as arguments and are set
+    again for the recompute."""
+    plain = model.forward
+    layers = dropout_layers(model)
+
+    def run(x, *masks):
+        before = [layer.mask for layer in layers]
+        for layer, mask in zip(layers, masks):
+            layer.mask = mask
+        try:
+            return plain(x)
+        finally:
+            for layer, mask in zip(layers, before):
+                layer.mask = mask
+
+    def forward(x):
+        if not remat_mod.active(model):
+            return plain(x)
+        return remat_mod.call(run, x, *[layer.mask for layer in layers],
+                              save_dots=save_dots)
+
+    model.forward = forward
+
+
 class Engine:
     """The steps of one (model, config) pair on one device."""
 
@@ -192,12 +229,24 @@ class Engine:
                  learning_rate: float = 1e-3, momentum: float = 0.9,
                  lr_step_gamma: float = 0.1, steps_per_epoch: int = 1,
                  feature_extract: bool = False,
-                 mesh: Optional[runtime.Mesh] = None, grad_accum: int = 1):
+                 mesh: Optional[runtime.Mesh] = None, grad_accum: int = 1,
+                 remat: str = "none"):
         if optimizer not in OPTIMIZER_CHOICES:
             raise ValueError(f"Invalid optimizer {optimizer!r}")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        if remat not in ("none", "blocks", "full"):
+            raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
         self.grad_accum = int(grad_accum)
+        self.remat = remat
+        handles_blocks = hasattr(model, "remat_blocks")
+        if handles_blocks and model.remat_blocks != (remat == "blocks"):
+            raise ValueError(
+                f"the model was built with remat_blocks="
+                f"{model.remat_blocks} and the engine asked for remat "
+                f"{remat!r}: give get_model the same remat")
+        if remat == "full" or (remat == "blocks" and not handles_blocks):
+            checkpoint_forward(model, save_dots=remat == "blocks")
         self.model = model
         self.loss_fn = loss_fn
         self.mean = float(mean)

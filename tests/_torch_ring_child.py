@@ -9,6 +9,8 @@ the world of one:
         [--model-parallel M]
     python tests/_torch_ring_child.py logits IN.pt OUT.pt [--device ...]
         [--model-parallel M]
+    python tests/_torch_ring_child.py loader IN.pt OUT.pt [--device ...]
+        [--model-parallel M]
 
 ``attn``: the world is one ring (model_parallel = world).  IN.pt holds a
 list of cases, each a dict of q, k, v and the output's cotangent w (numpy
@@ -20,7 +22,8 @@ and q/k/v gradients, as float32 numpy arrays, to OUT.pt.
 ``vit``: IN.pt holds the vit's width (``arch``: dim, depth, heads), its
 ``attention``, initial ``params`` (a state dict, or None for random
 weights from ``seed``) and the ``steps``, each the global batch's images,
-labels and valid rows with its affine draws (float32 numpy).  The rank
+labels and valid rows with its affine draws (float32 numpy), and optionally ``remat`` (none, blocks or
+full: ``--remat``).  The rank
 keeps its data shard's rows (``runtime.Mesh``) and takes one SGD step per
 entry through ``Engine.train_step_affine`` (in ``precision``, f32 by
 default; with ``overflow`` = (step, rank), that rank's loss numerator of
@@ -37,6 +40,12 @@ K3p's launches (on either route, and on the tensor cores).
 ``std``, and a ``batch`` size.  Every rank runs the eval transform and the
 forward on all the rows, ``batch`` at a time, and writes the float32
 logits and its kernel launches to OUT.pt.
+
+``loader``: IN.pt holds uint8 ``images``, int32 ``labels``, the
+per-replica ``batch``, ``seed``, ``epoch`` and ``settings``, a list of
+(prefetch, producer_threads, device_prefetch).  For each setting the rank
+streams the epoch of its data shard through ``ShardedLoader`` and writes
+the batches (images, labels, valid as numpy arrays) to OUT.pt.
 
 ``tests/test_torch_ring.py`` runs it on the CPU (against the JAX
 package), ``chip_smoke.py`` on the card (against one process's flash and
@@ -138,10 +147,13 @@ def profile_steps(step, n: int) -> dict:
 def run_vit(spec, device, mesh) -> dict:
     policy = PRESETS[spec.get("precision", "f32")]
     arch = spec["arch"]
+    remat = spec.get("remat", "none")
     model = ViT(dtype=policy.compute_dtype, device=device, num_classes=10,
                 attention_fn=attention_fn(spec["attention"], mesh), **arch)
+    model.remat_blocks = remat == "blocks"
     engine = Engine(model, cross_entropy, 0.13, 0.31, 28, policy, device,
-                    optimizer="SGD", steps_per_epoch=2, mesh=mesh)
+                    optimizer="SGD", steps_per_epoch=2, mesh=mesh,
+                    remat=remat)
     state = engine.init_state(torch.Generator().manual_seed(spec["seed"]))
     if spec["params"] is not None:
         with torch.no_grad():
@@ -206,9 +218,26 @@ def run_logits(spec, device, mesh) -> dict:
                          for k, v in kernel_launches().items()}}
 
 
+def run_loader(spec, device, mesh) -> dict:
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import ShardedLoader
+
+    split = Split(spec["images"], spec["labels"])
+    out = []
+    for prefetch, threads, device_prefetch in spec["settings"]:
+        loader = ShardedLoader(
+            split, spec["batch"], True, spec["seed"], device,
+            world=runtime.world_size(), rank=runtime.process_index(),
+            model_parallel=mesh.model_parallel, prefetch=prefetch,
+            producer_threads=threads, device_prefetch=device_prefetch)
+        out.append([tuple(t.cpu().numpy() for t in batch)
+                    for batch in loader.epoch(spec["epoch"])])
+    return {"batches": out}
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("mode", choices=("attn", "vit", "logits"))
+    p.add_argument("mode", choices=("attn", "vit", "logits", "loader"))
     p.add_argument("inp")
     p.add_argument("out")
     p.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
@@ -229,6 +258,8 @@ def main() -> None:
         result = {"cases": run_attn(spec, device, mesh)}
     elif args.mode == "logits":
         result = run_logits(spec, device, mesh)
+    elif args.mode == "loader":
+        result = run_loader(spec, device, mesh)
     else:
         result = run_vit(spec, device, mesh)
     result.update(rank=runtime.process_index(), world=runtime.world_size(),

@@ -373,6 +373,7 @@ NOT_PORTED = [
     (["--model-parallel", "2"], "--model-parallel"),
     (["--seq-parallel", "2"], "--seq-parallel"),
     (["--scan-layers"], "--scan-layers"),
+    # ported: taken, as the JAX serve parser takes it
     (["--remat", "blocks"], "--remat blocks"),
     (["--elastic"], "--elastic"),
     (["--elastic-join"], "--elastic-join"),
@@ -392,9 +393,13 @@ NOT_PORTED = [
 def test_flag_not_ported_fails_loudly(extra, flag, capsys):
     """Each flag fails with one line; --model-parallel with the JAX serve's
     message (it does not apply to a replica), --precision against --no-bf16
-    with the JAX conflict, every other one as not ported yet."""
+    with the JAX conflict, every other one as not ported yet; --remat is
+    ported and taken (nothing of serve reads it)."""
     argv = ["serve", "-d", "/nonexistent", "-f", "/nonexistent.ckpt",
             "--device", "cpu"] + extra
+    if flag == "--remat blocks":
+        assert tconfig.config_from_argv(argv).remat == "blocks"
+        return
     message = f"not ported yet: {flag}"
     if flag.startswith("--precision"):
         message = re.escape(

@@ -609,7 +609,8 @@ def test_test_on_a_jax_written_checkpoint_gives_the_jax_accuracy(tmp_path):
 
 REFUSED = [
     # ported: refused only where the JAX package refuses them; f16 on the
-    # ring, --ckpt-async and --epochs-per-dispatch are taken
+    # ring, --ckpt-async, --epochs-per-dispatch, --data-mode stream, the
+    # streaming loader's flags and --remat are taken
     (["--grad-accum", "3"], "--grad-accum"),
     (["--precision", "f16", "--attention", "ring_flash", "--model-parallel",
       "2"], "--precision f16"),
@@ -655,7 +656,8 @@ REFUSED = [
 # that does not divide the batch and --no-bf16 against another preset
 # fail with the JAX messages.  None: the flag is ported and taken (test
 # takes --grad-accum, --ckpt-async and --epochs-per-dispatch and ignores
-# them, as the JAX test does; f16 on the ring trains and tests).
+# them, as the JAX test does; f16 on the ring trains and tests; both take
+# --data-mode stream, --producer-threads, --device-prefetch and --remat).
 REFUSED_MESSAGES = {
     "--grad-accum": {
         "train": re.escape(
@@ -668,6 +670,10 @@ REFUSED_MESSAGES = {
         "--no-bf16 conflicts with --precision bf16_full: --no-bf16 is the "
         "legacy alias for --precision f32; drop one")),
     "--ckpt-async": dict.fromkeys(("train", "test"), None),
+    "--data-mode stream": dict.fromkeys(("train", "test"), None),
+    "--producer-threads": dict.fromkeys(("train", "test"), None),
+    "--device-prefetch": dict.fromkeys(("train", "test"), None),
+    "--remat full": dict.fromkeys(("train", "test"), None),
     "--use-pretrained": {
         "train": re.escape(
             "use_pretrained is not supported for 'vit' (supported: resnet, "
@@ -706,12 +712,18 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                                                  f"not ported yet: {flag}")
     if message is None:
         cfg = tconfig.config_from_argv(argv)
-        taken = {"--grad-accum": (3, False, 1, None),
-                 "--ckpt-async": (1, True, 1, None),
-                 "--epochs-per-dispatch": (1, False, 2, None),
-                 "--precision f16": (1, False, 1, "f16")}[flag]
+        default = (1, False, 1, None, "auto", 1, 0, "none")
+        changed = {"--grad-accum": {0: 3}, "--ckpt-async": {1: True},
+                   "--epochs-per-dispatch": {2: 2},
+                   "--precision f16": {3: "f16"},
+                   "--data-mode stream": {4: "stream"},
+                   "--producer-threads": {5: 2},
+                   "--device-prefetch": {6: 1},
+                   "--remat full": {7: "full"}}[flag]
+        taken = tuple(changed.get(i, v) for i, v in enumerate(default))
         assert (cfg.grad_accum, cfg.ckpt_async, cfg.epochs_per_dispatch,
-                cfg.precision) == taken
+                cfg.precision, cfg.data_mode, cfg.producer_threads,
+                cfg.device_prefetch, cfg.remat) == taken
         return
     with pytest.raises(ValueError, match=f"^{message}$"):
         tconfig.config_from_argv(argv)

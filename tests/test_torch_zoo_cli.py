@@ -258,11 +258,14 @@ def test_train_use_pretrained_feature_extract_moves_only_the_head(tmp_path):
 
 
 def test_remat_and_scan_layers_stay_refused_for_the_zoo(tmp_path):
-    for extra, flag in ((["--remat", "blocks"], "--remat blocks"),
-                        (["--scan-layers"], "--scan-layers")):
-        argv = _argv("train", tmp_path, "--model", "densenet", *extra)
-        with pytest.raises(ValueError, match=f"^not ported yet: {flag}$"):
-            tconfig.config_from_argv(argv)
+    """--scan-layers stays refused; --remat is ported and taken (its
+    steps: tests/test_torch_remat.py)."""
+    argv = _argv("train", tmp_path, "--model", "densenet", "--remat",
+                 "blocks")
+    assert tconfig.config_from_argv(argv).remat == "blocks"
+    argv = _argv("train", tmp_path, "--model", "densenet", "--scan-layers")
+    with pytest.raises(ValueError, match="^not ported yet: --scan-layers$"):
+        tconfig.config_from_argv(argv)
 
 
 @pytest.mark.parametrize("case", ["test", "serve", "resume", "no-path",
