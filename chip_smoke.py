@@ -24,6 +24,10 @@ or the streaming loader's and ``--remat``'s:
 
     python3 chip_smoke.py --phases 36,37
 
+or observability's and the kernel cache's:
+
+    python3 chip_smoke.py --phases 38
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -259,7 +263,8 @@ result.  Phases, each printing its lines before the last:
      statistics, optimizer state, counters, loss scale, every epoch's sums
      and the launch counts; each path's train step profiled (wall and
      device ms, kernels a step, the idle share, the port's kernels a step
-     from the trace); and ``train --model vit --attention flash --debug
+     from the trace, the MFU at the step's wall against the card's peak
+     for the run's type); and ``train --model vit --attention flash --debug
      -e 4`` with and without ``--epochs-per-dispatch 2``: the same log
      lines and the epoch-4 rolling file byte-identical;
  36. the streaming loader (``--data-mode stream``): the Engine-driven cnn
@@ -290,20 +295,45 @@ result.  Phases, each printing its lines before the last:
      (``torch.cuda.max_memory_allocated``) and the device time of a step;
      then the vit under ``--remat blocks``, two epochs on phase 35's 320
      rows eager and as one graphed chunk of two, bit-identical;
- 38. the card's name and power limit again, one ``{"kernels": [...]}``
+ 38. observability and the kernel cache: in process, (f) an anomaly
+     capture (``flightrec.AnomalyDetector``) around real vit steps, one
+     of them slowed on the host: the capture's trace holds K1, K2 and
+     K3 and its manifest names the trigger; (g) the instrumentation's
+     cost, the vit's eager train pass (phase 35's 320 rows, 5 steps)
+     with the defaults (flight recorder on), ``--no-flightrec`` and
+     everything on, wall ms a step in two rounds and device ms a step,
+     with the MFU at that wall; (h) a graphed vit chunk traced and read
+     by the roofline (the replayed kernels costed, or the report's
+     warning that Kineto did not record them); then in the background ``train --model
+     vit --attention flash --debug -e 2 --telemetry --profile
+     --anomaly-capture --aot-warmup`` (a) with ``--metrics-port`` on a
+     fresh ``--compilation-cache-dir`` (cache_hit 0, /metrics and
+     /healthz scraped while it runs), then (b) over the same directory
+     (cache_hit 1, a smaller warmup_s, no new file), (c) with
+     ``--no-compile-cache`` (nothing left in its TMPDIR, build/kernels
+     untouched) and (d) the plain train: (a)'s epoch lines, launch lines
+     and epoch-2 rolling file equal to (d)'s, launches by phase 6's
+     formula, all tensor-core; (e) (a)'s trace holds device kernels,
+     roofline.json names K1, K2 and K3 with FLOPs, bytes and an analytic
+     bound class, ``throughput/mfu`` is non-null against the bf16 peak,
+     and ``telemetry``, ``goodput``, ``timeline`` and ``roofline`` exit 0
+     on its directory;
+ 39. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
 Phases run in the order of their numbers but for these changes: 23, 24,
-32, the in-process parts of 35 and 36, and 37, which time steps and
-kernels, run before 21; the exit test's five trainings (31) start then
-and run beside 21, 22 and 25-30; phase 33's three f16 worlds start with
-phase 19's; the CLI runs of 18, 27, 29, 30, 33, 34, 35 and 36 start
-after 22 and run beside 25, 26 and 28 (18's and 36's trainings are
-checked after 28, 36's tests then run beside 18 and 27-35); the test of
-29 and the resume of 30 run beside 27; 33, 34, 35 and 36's last checks
-come last.  Nothing after 37 is timed for the kernels line or PERF.md.  Each phase
-prints its wall time.  Any failed check exits non-zero before
+32, the in-process parts of 35, 36 and 38, and 37, which time steps and
+kernels, run before 21; the exit test's five trainings (31) and 38's
+five CLI trainings start then and run beside 21, 22 and 25-36; phase
+33's three f16 worlds start with phase 19's; the CLI runs of 18, 27, 29,
+30, 33, 34, 35 and 36 start after 22 and run beside 25, 26 and 28 (18's
+and 36's trainings are checked after 28, 36's tests then run beside 18
+and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
+35, 36 and 38's last checks come last.  Nothing after 38's in-process
+part is timed for the kernels line (38's CLI runs time their warm-ups
+beside the other background runs).  Each phase prints its wall time.
+Any failed check exits non-zero before
 the last line is printed.  Work files go to ``build/chip_smoke/`` in the
 checkout, and the bytecode of the modules that the run's processes import
 to ``build/pycache/``.
@@ -1295,11 +1325,11 @@ TORCHRUN = ("-m", "torch.distributed.run", "--standalone",
 
 
 def start_cli(args, rsl: str, launcher=(), data: str = "",
-              dataset: str = "mnist") -> tuple:
+              dataset: str = "mnist", env=None) -> tuple:
     """Starts ``python [LAUNCHER] -m distributedpytorch_tpu_torch ARGS`` (a
     fresh process: its kernel counters start at 0) on the data in ``data``
-    (WORK/data by default), its output going to a file in WORK;
-    ``finish_cli`` waits for it."""
+    (WORK/data by default), in ``env`` (this process's by default), its
+    output going to a file in WORK; ``finish_cli`` waits for it."""
     cmd = [sys.executable, *launcher, "-m", "distributedpytorch_tpu_torch",
            *args, "-d", data or os.path.join(WORK, "data"), "--rsl_path", rsl,
            "--dataset", dataset, "--synthetic-fallback", "--device", "cuda"]
@@ -1308,7 +1338,7 @@ def start_cli(args, rsl: str, launcher=(), data: str = "",
     out = os.path.join(WORK, os.path.basename(rsl) + ".out")
     with open(out, "w") as f:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
-                                stderr=subprocess.STDOUT)
+                                stderr=subprocess.STDOUT, env=env)
     return args[0], rsl, out, proc, time.perf_counter()
 
 
@@ -4269,6 +4299,7 @@ def phase_graphs() -> dict:
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
     from distributedpytorch_tpu_torch.models import (get_model,
                                                      get_model_input_size)
+    from distributedpytorch_tpu_torch.ops import flops as flops_mod
     from distributedpytorch_tpu_torch.ops.losses import cross_entropy
     from distributedpytorch_tpu_torch.precision import PRESETS
     from distributedpytorch_tpu_torch.train.dispatch import ChunkRunner
@@ -4379,8 +4410,15 @@ def phase_graphs() -> dict:
             f"{same} (differing {differ[:4]}); counters "
             f"{graphed['counters']}; launches eager {eager['launches']} "
             f"graphed {graphed['launches']}")
+        fps = flops_mod.train_flops_per_sample(name, ds.nb_classes)
+        peak = flops_mod.peak_flops(
+            torch.cuda.get_device_name(0),
+            flops_mod.compute_peak_label(policy.compute_dtype))
         for p, r in prof.items():
-            say(f"graphs:   {label} {p} train step: wall "
+            mfu = TRAIN_BATCH / (r["wall_ms"] / 1e3) * fps / peak
+            say(f"graphs:   {label} {p} train step: MFU {100 * mfu:.4f}% "
+                f"of the {flops_mod.compute_peak_label(policy.compute_dtype)}"
+                f" peak at {fps:,.0f} FLOPs a sample; wall "
                 f"{r['wall_ms']:.3f} ms, device "
                 f"{fmt_ms(r['device_ms'])} ms in {r['kernels']:.0f} kernels "
                 f"(idle " + ("not measured" if r["idle"] is None else
@@ -5579,8 +5617,487 @@ def phase_remat() -> None:
 
 # a phase's checks that need another phase's output (phase 23 writes
 # phase 22's corpus itself when 22 does not run)
+# -- phase 38: observability and the kernel cache ----------------------------
+
+OBS_BASE = ["train", "--model", "vit", "--attention", "flash", "--debug",
+            "-e", "2"]
+OBS_FLAGS = ["--telemetry", "--profile", "--anomaly-capture", "--aot-warmup"]
+OBS_CACHE = os.path.join(WORK, "kernel_cache")
+OBS_ROWS = 320                  # phase 35's: 5 steps of 64
+OBS_ROUNDS = 2
+PORT_KERNEL_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def telemetry_gauges(rsl: str) -> dict:
+    """The last value and attributes of each gauge in rank 0's JSONL."""
+    out = {}
+    path = os.path.join(rsl, "telemetry", "rank0.jsonl")
+    with open(path) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev.get("kind") == "gauge":
+                out[ev["name"]] = (ev.get("value"), ev.get("attrs", {}))
+    return out
+
+
+def cache_listing(path: str) -> dict:
+    """{file: (size, mtime ns)} of a directory (empty when absent)."""
+    if not os.path.isdir(path):
+        return {}
+    return {n: (os.stat(os.path.join(path, n)).st_size,
+                os.stat(os.path.join(path, n)).st_mtime_ns)
+            for n in sorted(os.listdir(path))}
+
+
+def scrape(port: int, proc, got: dict) -> None:
+    """Polls /metrics and /healthz on ``port`` while ``proc`` runs, until
+    both answered; ``got`` takes their bodies."""
+    while proc.poll() is None and len(got) < 2:
+        for path in ("/metrics", "/healthz"):
+            if path in got:
+                continue
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=2) as r:
+                    got[path] = r.read().decode()
+            except (OSError, urllib.error.URLError):
+                pass
+        time.sleep(0.2)
+
+
+def start_observability_cli() -> dict:
+    """The CLI runs of phase 38, in the background: (a) the flagged train
+    on a fresh --compilation-cache-dir, then (b) the same over that
+    directory, on a thread that scrapes (a)'s exporter while it runs; (c)
+    --no-compile-cache with a TMPDIR of its own; (d) the plain train."""
+    shutil.rmtree(OBS_CACHE, ignore_errors=True)
+    tmp = os.path.join(WORK, "obs_tmp")
+    os.makedirs(tmp, exist_ok=True)
+    port = free_port()
+    flagged = OBS_BASE + OBS_FLAGS + ["--compilation-cache-dir", OBS_CACHE]
+    pending = dict(
+        port=port, tmp=tmp, kernels=cache_listing(os.path.join(
+            ROOT, "build", "kernels")), scraped={}, runs=[], err=None,
+        lock=threading.Lock(), stop=False,
+        nocache=start_cli(OBS_BASE + ["--telemetry", "--aot-warmup",
+                                      "--no-compile-cache"],
+                          os.path.join(WORK, "obs_c"),
+                          env=dict(os.environ, TMPDIR=tmp)),
+        plain=start_cli(OBS_BASE, os.path.join(WORK, "obs_d")))
+
+    def start(args, name):
+        # no process starts once the run's cleanup has begun
+        with pending["lock"]:
+            if pending["stop"]:
+                raise RuntimeError("the run is ending")
+            run = start_cli(args, os.path.join(WORK, name))
+            pending["runs"].append(run)
+            return run
+
+    def chain():
+        try:
+            cold = start(flagged + ["--metrics-port", str(port)], "obs_a")
+            scrape(port, cold[3], pending["scraped"])
+            pending["cold"] = finish_cli(cold)
+            pending["listing_a"] = cache_listing(OBS_CACHE)
+            warm = start(flagged, "obs_b")
+            pending["warm"] = finish_cli(warm)
+            pending["listing_b"] = cache_listing(OBS_CACHE)
+        except BaseException as e:      # fail() exits: re-raised at check
+            pending["err"] = e
+
+    pending["thread"] = threading.Thread(target=chain, daemon=True)
+    pending["thread"].start()
+    return pending
+
+
+def trace_kernels(path: str) -> list:
+    """The names of the device kernels in a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events
+            if isinstance(e, dict) and e.get("cat") == "kernel"]
+
+
+def phase_observability_cli(pending: dict) -> None:
+    """Phase 38's CLI checks: (a) cold cache_hit 0 with /metrics and
+    /healthz answered, (b) cache_hit 1, a smaller warmup_s, no new file
+    in the directory; (c) nothing left behind, build/kernels untouched;
+    (d) the flagged run's epoch lines, launch lines and epoch-2 rolling
+    file equal to the plain run's, launches by phase 6's formula, all
+    tensor-core; (e) the trace's device kernels, roofline.json naming K1,
+    K2 and K3 with a bound class, a non-null bf16 MFU, and the four
+    offline subcommands."""
+    pending["thread"].join(timeout=900)
+    nocache = finish_cli(pending["nocache"])
+    plain = finish_cli(pending["plain"])
+    if pending["err"] is not None or pending["thread"].is_alive():
+        fail(f"observability: the cached runs failed: {pending['err']!r}")
+    (wall_a, log_a), (wall_b, log_b) = pending["cold"], pending["warm"]
+    rsl_a, rsl_b = (os.path.join(WORK, n) for n in ("obs_a", "obs_b"))
+    ga, gb = telemetry_gauges(rsl_a), telemetry_gauges(rsl_b)
+    gc = telemetry_gauges(os.path.join(WORK, "obs_c"))
+    hit = [g["compile/cache_hit"][0] for g in (ga, gb, gc)]
+    warm_s = [g["compile/warmup_s"][0] for g in (ga, gb, gc)]
+    new_files = sorted(set(pending["listing_b"]) - set(pending["listing_a"]))
+    say(f"observability: (a) cold --compilation-cache-dir: cache_hit "
+        f"{hit[0]:g}, warmup {warm_s[0]:.2f} s, {len(pending['listing_a'])}"
+        f" files built, process wall {wall_a:.1f} s; (b) warm: cache_hit "
+        f"{hit[1]:g}, warmup {warm_s[1]:.2f} s, new files {new_files}, "
+        f"process wall {wall_b:.1f} s; (c) --no-compile-cache: cache_hit "
+        f"{hit[2]:g}, warmup {warm_s[2]:.2f} s")
+    if hit[:2] != [0.0, 1.0] or not warm_s[1] < warm_s[0] or new_files \
+            or not pending["listing_a"]:
+        fail(f"observability: the kernel cache did not go cold -> warm: "
+             f"hits {hit}, warmup {warm_s}, new files {new_files}")
+    # the private build directory is dpt-kernels-*; torch itself leaves
+    # its inductor cache directory (torchinductor_<user>) in TMPDIR on
+    # the import that FlopCounterMode makes
+    in_tmp = os.listdir(pending["tmp"])
+    left = [n for n in in_tmp if n.startswith("dpt-kernels-")]
+    kernels_after = cache_listing(os.path.join(ROOT, "build", "kernels"))
+    say(f"observability: (c) kernel directories left in its TMPDIR {left} "
+        f"(TMPDIR holds {in_tmp}); build/kernels unchanged "
+        f"{kernels_after == pending['kernels']}")
+    if left or kernels_after != pending["kernels"] or hit[2] != 0.0:
+        fail("observability: --no-compile-cache left a directory behind "
+             "or touched build/kernels")
+    scraped = pending["scraped"]
+    health = json.loads(scraped.get("/healthz", "{}"))
+    metrics = scraped.get("/metrics", "")
+    say(f"observability: (a) /healthz {health}; /metrics "
+        f"{len(metrics.splitlines())} lines, dpt_up "
+        f"{'dpt_up 1' in metrics}")
+    if health.get("status") != "ok" or "dpt_up 1" not in metrics:
+        fail("observability: the exporter did not answer /metrics and "
+             "/healthz while the run was alive")
+    keep = re.compile(r"\| (Loss|Acc)|mean train loss|launches")
+
+    def lines(log):
+        return [line.split(" - ")[-1] for line in log.splitlines()
+                if keep.search(line)]
+
+    rolling = [os.path.join(WORK, n, "checkpoint-mnist-vit-001.ckpt")
+               for n in ("obs_a", "obs_d")]
+    with open(rolling[0], "rb") as f1, open(rolling[1], "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    launches, steps, evals = parse_launches(log_a, "train")
+    tc = parse_tensor_core_launches(log_a, "train")
+    formula = {"flash_fwd": 4 * (steps + evals), "flash_dq": 4 * steps,
+               "flash_dkv": 4 * steps, "conv_dw": 0}
+    say(f"observability: (d) flagged against plain (wall {plain[0]:.1f} "
+        f"s): log lines equal {lines(log_a) == lines(plain[1])} "
+        f"({len(lines(log_a))}), epoch-2 rolling file byte-identical "
+        f"{same_bytes}; launches {launches} over {steps} steps and "
+        f"{evals} eval batches (formula {formula}), tensor-core {tc}")
+    if not (same_bytes and lines(log_a) == lines(plain[1]) and lines(log_a)
+            and launches == formula and tc == launches):
+        fail("observability: the flagged run differs from the plain one "
+             "or its launches from the formula")
+    names = trace_kernels(os.path.join(rsl_a, "trace", "rank0.trace.json"))
+    with open(os.path.join(rsl_a, "roofline.json")) as f:
+        roof = json.load(f)
+    rows = {r["opcode"]: r for r in roof["ops"]
+            if r.get("opcode") in PORT_KERNEL_NAMES}
+    for name in PORT_KERNEL_NAMES:
+        r = rows.get(name)
+        if r is not None:
+            say(f"observability: (e) roofline {name}: {r['name']} "
+                f"{r['count']}x, {r['time_us'] / r['count']:.2f} us a "
+                f"launch, {r['flops']:.4g} FLOPs, {r['bytes']:.4g} bytes, "
+                f"AI {r['arithmetic_intensity']:.1f} against the ridge "
+                f"{r['ridge_flops_per_byte']:.1f} ({r['ridge_source']}): "
+                f"{r['bound']}-bound, utilization "
+                + ("-" if r["utilization"] is None
+                   else f"{100 * r['utilization']:.2f}%"))
+    mfu, attrs = ga.get("throughput/mfu", (None, {}))
+    say(f"observability: (e) trace: {len(names)} device kernels; roofline "
+        f"{roof['n_ops']} ops, coverage {100 * roof['coverage']:.1f}%, "
+        f"device {roof['device_kind']}, warnings {roof['warnings']}; "
+        f"throughput/mfu {mfu} ({attrs})")
+    if not names or set(rows) != set(PORT_KERNEL_NAMES) or any(
+            r["flops"] is None or r["bytes"] is None
+            or r["class_source"] != "analytic" for r in rows.values()):
+        fail(f"observability: the trace or roofline.json lacks the port's "
+             f"kernels: {len(names)} kernels, rows {sorted(rows)}")
+    if mfu is None or attrs.get("peak_dtype") != "bf16":
+        fail(f"observability: throughput/mfu is {mfu} ({attrs})")
+    runs = [subprocess.Popen(
+        [sys.executable, "-m", "distributedpytorch_tpu_torch", action,
+         "--rsl_path", rsl_a], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for action in ("telemetry", "goodput", "timeline", "roofline")]
+    outs = [(p.args[3], p.communicate(timeout=300)[0], p.returncode)
+            for p in runs]
+    for action, out, rc in outs:
+        say(f"observability: (e) {action} exited {rc}; "
+            f"{out.strip().splitlines()[:1]}")
+    if any(rc != 0 for *_, rc in outs):
+        fail("observability: an offline subcommand failed")
+    gp = [line for line in next(o for a, o, _ in outs
+                                if a == "goodput").splitlines()
+          if "%" in line]
+    say("observability: (e) goodput of (a): " + " | ".join(
+        line.strip() for line in gp[:8]))
+
+
+def obs_configure(mode: str, rsl: str) -> None:
+    """The process's telemetry, flight recorder (and anomaly detector),
+    goodput ledger and exporter as ``train`` sets them: ``defaults``
+    (the recorder only), ``no-flightrec`` (nothing) or ``all`` (every
+    one of them)."""
+    from distributedpytorch_tpu_torch import flightrec, goodput, telemetry
+
+    everything = mode == "all"
+    os.makedirs(rsl, exist_ok=True)
+    telemetry.configure(rsl, everything, rank=0)
+    rec = flightrec.configure(rsl, mode != "no-flightrec", rank=0)
+    if everything:
+        flightrec.attach_detector(
+            rec, trace_dir=os.path.join(rsl, "anomaly_traces"))
+    goodput.configure(rsl, everything)
+    goodput.stop_exporter()
+    if everything:
+        goodput.start_exporter(free_port())
+
+
+OBS_HOOK_CALLS = 20000
+
+
+def obs_hook_us(mode: str) -> float:
+    """Host µs a step of ``cli._run_train_pass``'s per-step hooks alone
+    (no step between them), as configured by ``obs_configure(mode)``:
+    the clock reads, the ``train_step`` profiler range, the dispatch
+    histogram, goodput's charge, the exporter's stamp and the flight
+    recorder (with its detector), over OBS_HOOK_CALLS steps."""
+    import torch
+
+    from distributedpytorch_tpu_torch import flightrec, goodput, telemetry
+
+    tel, rec, gp = telemetry.get(), flightrec.get(), goodput.get()
+    exporter = goodput.exporter()
+    instrument = tel.enabled or rec.enabled or gp.enabled
+    hist = tel.histogram("step/dispatch_s") if tel.enabled else None
+    gp.begin_steps()
+    prev = time.perf_counter()
+    t_start = prev
+    for i in range(OBS_HOOK_CALLS):
+        if not instrument:
+            continue
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("train_step"):
+            pass
+        dispatch_s = time.perf_counter() - t0
+        if hist is not None:
+            hist.observe(dispatch_s)
+        end = time.perf_counter()
+        category = gp.step(dispatch_s, t0 - prev)
+        if exporter is not None:
+            exporter.note_step()
+        flightrec.observe_step(rec, epoch=0, step=i, step_s=end - prev,
+                               dispatch_s=dispatch_s, wait_s=t0 - prev,
+                               category=category)
+        prev = end
+    gp.end_steps()
+    return (time.perf_counter() - t_start) * 1e6 / OBS_HOOK_CALLS
+
+
+def obs_close() -> None:
+    from distributedpytorch_tpu_torch import flightrec, goodput, telemetry
+
+    flightrec.get().close()
+    goodput.stop_exporter()
+    goodput.get().close()
+    telemetry.get().close()
+
+
+def phase_observability_host() -> dict:
+    """Phase 38's in-process parts: (f) an anomaly capture around real vit
+    steps, one step slowed on the host to trip the detector, its trace
+    holding the flash kernels and its manifest; (g) the instrumentation's
+    cost: the vit's eager train pass (phase 35's 320 rows, 5 steps of 64,
+    bf16) through ``cli._run_train_pass`` with the defaults (the flight
+    recorder on), with ``--no-flightrec`` and with everything on, wall ms
+    a step in two rounds (the second reversed), device ms a step under
+    torch.profiler; and the MFU of the step at that wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch import cli, flightrec, utils
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops import flops as flops_mod
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ds = work_dataset()
+    split = ds.splits["train"]
+    train = ResidentLoader(Split(split.images[:OBS_ROWS],
+                                 split.labels[:OBS_ROWS]),
+                           TRAIN_BATCH, True, SEED, "cuda")
+    policy = PRESETS["bf16"]
+    model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                      device="cuda")
+    engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                    get_model_input_size("vit"), policy, "cuda",
+                    steps_per_epoch=len(train))
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    cli._run_train_pass(engine, state, train, 0, SEED)     # warm
+
+    # (f) the anomaly capture
+    root = os.path.join(WORK, "obs_anomaly")
+    rec = flightrec.FlightRecorder(enabled=True, rsl_path=root)
+    det = flightrec.attach_detector(
+        rec, trace_dir=os.path.join(root, "anomaly_traces"), window=8,
+        capture_steps=3, max_captures=1)
+    batches = list(train.epoch(1))
+    slow_step = 10
+    for i in range(slow_step + 4):
+        t0 = time.perf_counter()
+        engine.train_step(state, *batches[i % len(batches)],
+                          utils.step_generator(SEED, 1, i, "cuda"))
+        torch.cuda.synchronize()
+        if i == slow_step:
+            time.sleep(0.3)             # the straggler
+        flightrec.observe_step(rec, epoch=1, step=i,
+                               step_s=time.perf_counter() - t0)
+    rec.close()
+    capture = os.path.join(root, "anomaly_traces", "capture-0")
+    with open(os.path.join(capture, "manifest.json")) as f:
+        manifest = json.load(f)
+    names = trace_kernels(os.path.join(capture, "rank0.trace.json"))
+    port = {k: sum(1 for n in names if k + "_" in n)
+            for k in PORT_KERNEL_NAMES}
+    say(f"observability: (f) anomaly at step {manifest['step']} "
+        f"({manifest['trigger']['trigger']}, step "
+        f"{manifest['trigger']['step_s'] * 1e3:.1f} ms against the median "
+        f"{manifest['trigger']['median_s'] * 1e3:.1f}); the capture of "
+        f"{manifest['capture_steps']} steps holds {len(names)} device "
+        f"kernels, the port's {port}; {det.anomalies} anomalies, "
+        f"{det.captures_started} capture")
+    if det.captures_started != 1 or not all(port.values()):
+        fail("observability: the anomaly capture holds no device kernels "
+             "of the port")
+
+    # (g) the instrumentation's host cost
+    modes = ("defaults", "no-flightrec", "all")
+    walls = {m: [] for m in modes}
+    epoch = itertools.count(2)
+    for mode in modes + modes[::-1]:
+        rsl = os.path.join(WORK, f"obs_host_{mode}")
+        obs_configure(mode, rsl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli._run_train_pass(engine, state, train, next(epoch), SEED)
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3 / len(train))
+        obs_close()
+    dev = {}
+    for mode in modes:
+        obs_configure(mode, os.path.join(WORK, f"obs_host_{mode}"))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cli._run_train_pass(engine, state, train, next(epoch), SEED)
+            torch.cuda.synchronize()
+        obs_close()
+        dev[mode] = sum(e.self_device_time_total
+                        for e in device_kernels(prof)) / 1e3 / len(train)
+    kind = torch.cuda.get_device_name(0)
+    fps = flops_mod.train_flops_per_sample("vit", ds.nb_classes)
+    peak = flops_mod.peak_flops(kind, "bf16")
+    for mode in modes:
+        wall = sum(walls[mode]) / len(walls[mode])
+        say(f"observability: (g) vit flash eager train pass, {mode}: "
+            f"wall {wall:.3f} ms a step (rounds "
+            f"{', '.join(f'{w:.3f}' for w in walls[mode])}), device "
+            f"{dev[mode]:.5f} ms a step; MFU at that wall "
+            f"{100 * TRAIN_BATCH / (wall / 1e3) * fps / peak:.4f}% of "
+            f"{kind}'s bf16 peak ({fps:,.0f} FLOPs a sample)")
+    base = sum(walls["no-flightrec"]) / OBS_ROUNDS
+    hooks = {}
+    for mode in modes:
+        obs_configure(mode, os.path.join(WORK, f"obs_hooks_{mode}"))
+        hooks[mode] = obs_hook_us(mode)
+        obs_close()
+    say(f"observability: (g) added wall a step against --no-flightrec: "
+        f"defaults {sum(walls['defaults']) / OBS_ROUNDS - base:+.3f} ms, "
+        f"all {sum(walls['all']) / OBS_ROUNDS - base:+.3f} ms; the "
+        f"per-step hooks alone ({OBS_HOOK_CALLS} steps, no step between): "
+        + ", ".join(f"{m} {us:.2f} us" for m, us in hooks.items()))
+    graphed_roofline(ds, train)
+    del model, engine, state
+    torch.cuda.empty_cache()
+    return walls
+
+
+def graphed_roofline(ds, train) -> None:
+    """(h) Whether Kineto records the kernels of a replayed CUDA Graph:
+    the vit (flash, bf16) as graphed chunks of two epochs (the kernels'
+    costs recorded while the first chunk's eager warm-up and capture
+    call the wrappers), the second chunk (replays only) traced and read
+    by the roofline, which must either cost K1, K2 and K3 from the trace
+    or say in its warnings that the graphs' kernels are missing."""
+    import torch
+
+    from distributedpytorch_tpu_torch import costs, flightrec, roofline
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.dispatch import ChunkRunner
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    valid = ResidentLoader(Split(ds.splits["valid"].images[:TRAIN_BATCH],
+                                 ds.splits["valid"].labels[:TRAIN_BATCH]),
+                           TRAIN_BATCH, False, SEED, "cuda")
+    policy = PRESETS["bf16"]
+    model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                      device="cuda")
+    engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                    get_model_input_size("vit"), policy, "cuda",
+                    steps_per_epoch=len(train))
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    runner = ChunkRunner(engine, state, train, valid, SEED, 2)
+    kind = torch.cuda.get_device_name(0)
+    costs.reset(kind)
+    with costs.recording_kernels():
+        runner.run([0, 1])
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(WORK, "obs_graph_trace")
+    prof = flightrec.start_profiler()
+    try:
+        runner.run([2, 3])
+    finally:
+        flightrec.stop_profiler(prof, trace_dir)
+    rep = roofline.analyze(trace_dir, costs_data={
+        "device_kind": kind, "programs": costs.registry()})
+    rows = {r["opcode"]: r for r in rep["ops"]
+            if r.get("opcode") in PORT_KERNEL_NAMES}
+    say(f"observability: (h) a graphed chunk of 2 epochs ({2 * len(train)} "
+        f"replayed steps) traced: {rep['n_events']} events, "
+        f"{sum(r['count'] for r in rep['ops'])} device ops; the port's "
+        f"kernels " + ", ".join(f"{n} {r['count']}x "
+                                f"{r['time_us'] / r['count']:.2f} us "
+                                f"{r['bound']}" for n, r in rows.items())
+        + f"; warnings {rep['warnings']}")
+    recorded = set(rows) == set(PORT_KERNEL_NAMES)
+    said = any("Graph" in w for w in rep["warnings"])
+    if not (recorded or said):
+        fail("observability: the graphed trace neither holds the port's "
+             "kernels nor says that the graphs' kernels are missing")
+    costs.reset()
+    del model, engine, state, runner
+    torch.cuda.empty_cache()
+
+
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 38                 # the closing lines; only a full run has it
+LAST_PHASE = 39                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -5737,6 +6254,8 @@ def main(argv=None) -> int:
         run(phase_stream)
     if want(37):
         run(phase_remat)
+    if want(38):
+        run(phase_observability_host)
     started = []
 
     def ahead(phase: int, start):
@@ -5745,7 +6264,12 @@ def main(argv=None) -> int:
         return runs
 
     exit_runs = ahead(31, start_exit_test)
+    obs_pending = None
     try:
+        # 38's CLI runs (two of them build the kernels cold) beside 21-36
+        if want(38):
+            obs_pending = start_observability_cli()
+            started.extend([obs_pending["nocache"], obs_pending["plain"]])
         if want(21):
             run(phase_zoo_parity)
         if want(22):
@@ -5808,7 +6332,13 @@ def main(argv=None) -> int:
             run(phase_graph_cli, graph_cli_runs)
         if want(36):
             run(phase_stream_test, stream_pending)
+        if want(38):
+            run(phase_observability_cli, obs_pending)
     finally:
+        if obs_pending is not None:
+            with obs_pending["lock"]:
+                obs_pending["stop"] = True
+                started.extend(obs_pending["runs"])
         for *_, proc, _ in started:
             if proc.poll() is None:
                 proc.kill()

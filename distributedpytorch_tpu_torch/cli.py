@@ -1,5 +1,5 @@
 """The port's entry point: ``python -m distributedpytorch_tpu_torch
-{train,test,serve}``.
+{train,test,serve,telemetry,goodput,timeline,roofline}``.
 
 Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
 
@@ -11,8 +11,7 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     Graph on the card (``train/dispatch.py``), per-epoch log lines from
     one read at the chunk's end, the rolling checkpoint once a chunk and
     the best file whenever an epoch of the chunk improved.  No elastic
-    world, fault plans, flight recorder, goodput ledger, exporter or
-    roofline.  ``--precision f16`` scales the loss (skipped steps
+    world or fault plans.  ``--precision f16`` scales the loss (skipped steps
     and the final scale are logged), ``--grad-accum K`` accumulates K
     microbatches a step, and ``--ckpt-async`` hands rank 0's checkpoint
     writes and rotation deletes to a background ``AsyncSaver`` (joined
@@ -30,6 +29,26 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     and the best model on improvement, with the best loss updated before
     the save.  cuDNN is set deterministic, so a resumed run reproduces an
     uninterrupted one bit for bit.
+  * Observability as ``_run_train_pass``/``_run_train_epochs``/
+    ``_run_train_chunked`` carry it in the JAX package (:191-224,
+    :403-476, :479-600, :1215-1271): the flight recorder (on by default)
+    records every step and feeds ``--anomaly-capture``'s detector; the
+    goodput ledger (with ``--telemetry`` or ``--metrics-port``) charges
+    each step's dispatch to ``compute`` and its wait to ``data_wait`` and
+    reconciles at each epoch or chunk; ``--metrics-port`` serves
+    ``/metrics`` and ``/healthz``; ``throughput/mfu`` is written each
+    epoch against the card's peak (``ops/flops.py``); ``--profile``
+    traces the second epoch with ``torch.profiler`` into RSL_PATH/trace
+    and writes its roofline.  With the recorder and telemetry off, the
+    step loop does no added work a step.  ``--aot-warmup``
+    (``_aot_warmup``, JAX :231-330) builds and loads the run's kernel
+    libraries and runs one train step and one eval forward on a
+    throwaway copy of the model before epoch 1, recording
+    ``compile/warmup_s``, ``compile/cache_hit`` (every library found
+    built) and RSL_PATH/costs.json; it leaves the state, the generators
+    and the launch counters as they were.  ``--compilation-cache-dir``
+    and ``--no-compile-cache`` pick the kernels' build directory
+    (``ops/build.py``).
   * ``run_test`` follows ``run_test`` (:1338-1415): every rank evaluates
     its shard of the test split and the sums are all-reduced.  It reads
     the port's checkpoints and the JAX package's msgpack files.
@@ -37,6 +56,9 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     ``run_serve`` (:1418-1705) reduced to one replica: no elastic world,
     metrics exporter, flight recorder, goodput ledger or hot-swap
     (``/admin/reload`` answers 501).
+  * ``telemetry``, ``goodput``, ``timeline`` and ``roofline`` read a run
+    directory offline, as ``main`` dispatches them in the JAX package
+    (:1710-1760).
 
 Under ``--model-parallel M`` the world is the JAX (world / M, M) mesh
 (``runtime.Mesh``): a rank trains and evaluates its data shard's rows, the
@@ -57,27 +79,34 @@ instead of running on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import math
+import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from . import runtime, telemetry, tracing, utils
-from .config import RESIDENT_MAX_BYTES, STREAM_DISPATCH_MESSAGE, Config, \
-    check_ported, config_from_argv
+from . import costs, flightrec, goodput, runtime, telemetry, tracing, utils
+from .config import OFFLINE_ACTIONS, RESIDENT_MAX_BYTES, \
+    STREAM_DISPATCH_MESSAGE, Config, check_ported, config_from_argv
 from .data.datasets import Dataset, Split, load_dataset
 from .data.pipeline import ResidentLoader, ShardedLoader
 from .models import get_model, get_model_input_size, pretrained
 from .ops import KERNELS
+from .ops import build as kbuild
 from .ops import flash_attention as fa
+from .ops import flops as flops_mod
 from .ops.losses import get_loss_fn
+from .train import dispatch
 from .train.dispatch import ChunkRunner
-from .train.engine import Engine, Predictor, TrainState
+from .train.engine import Engine, Predictor, TrainState, make_optimizer
 
 RING_KERNELS = ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")
 RESIDENT_HBM_FRACTION = 0.3
@@ -127,14 +156,18 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
                      else None)
     loss_fn = get_loss_fn(cfg.loss, class_weights, cfg.focal_gamma,
                           device=device)
-    return Engine(model, loss_fn, dataset.mean, dataset.std,
-                  get_model_input_size(model_name), policy, device,
-                  optimizer=cfg.optimizer, learning_rate=cfg.learning_rate,
-                  momentum=cfg.momentum, lr_step_gamma=cfg.lr_step_gamma,
-                  steps_per_epoch=steps_per_epoch,
-                  feature_extract=cfg.feature_extract, mesh=mesh,
-                  grad_accum=cfg.grad_accum if cfg.action == "train" else 1,
-                  remat=cfg.remat)
+    engine = Engine(model, loss_fn, dataset.mean, dataset.std,
+                    get_model_input_size(model_name), policy, device,
+                    optimizer=cfg.optimizer,
+                    learning_rate=cfg.learning_rate, momentum=cfg.momentum,
+                    lr_step_gamma=cfg.lr_step_gamma,
+                    steps_per_epoch=steps_per_epoch,
+                    feature_extract=cfg.feature_extract, mesh=mesh,
+                    grad_accum=(cfg.grad_accum if cfg.action == "train"
+                                else 1),
+                    remat=cfg.remat)
+    engine.num_classes = dataset.nb_classes     # the FLOP count's head
+    return engine
 
 
 def _resident_budget_bytes(device: torch.device) -> int:
@@ -188,6 +221,7 @@ def _start(cfg: Config, action: str) -> tuple:
     else:
         utils.quiet_logging()
     tel = telemetry.configure(cfg.rsl_path, cfg.telemetry, rank=rank)
+    _start_observability(cfg, action, device)
     tel.event("run_start", action=action, model=cfg.model_name,
               dataset=cfg.dataset, world=world,
               processes=runtime.process_count(),
@@ -206,12 +240,58 @@ def _start(cfg: Config, action: str) -> tuple:
     return device, tel, mesh
 
 
+def _start_observability(cfg: Config, action: str,
+                         device: torch.device) -> None:
+    """The flight recorder (and, in ``train``, ``--anomaly-capture``'s
+    detector), the goodput ledger (with ``--telemetry``, or in ``train``
+    ``--metrics-port``), the exporter (``train``), the cost registry and
+    the kernels' build directory, as the JAX ``run_train``/``run_test``
+    set them up (cli.py:620-660, :1367-1373)."""
+    rank = runtime.process_index()
+    rec = flightrec.configure(cfg.rsl_path, cfg.flightrec, rank=rank,
+                              ring_size=cfg.flightrec_ring)
+    train = action == "train"
+    if train and cfg.anomaly_capture:
+        flightrec.attach_detector(
+            rec, trace_dir=os.path.join(cfg.rsl_path, "anomaly_traces"),
+            window=cfg.anomaly_window, mad_k=cfg.anomaly_mad_k,
+            rel_factor=cfg.anomaly_rel_factor,
+            min_excess_s=cfg.anomaly_min_excess,
+            capture_steps=cfg.anomaly_capture_steps,
+            max_captures=cfg.anomaly_max_captures, rank=rank)
+    goodput.configure(cfg.rsl_path,
+                      bool(cfg.telemetry or (train and cfg.metrics_port)),
+                      rank=rank, world=runtime.process_count())
+    if train and cfg.metrics_port:
+        goodput.start_exporter(cfg.metrics_port, rank=rank,
+                               world_size_fn=runtime.world_size)
+    costs.reset(flops_mod.device_kind(device))
+    if cfg.no_compile_cache:
+        kbuild.private_build_dir()
+    else:
+        kbuild.set_build_dir(cfg.compilation_cache_dir)
+
+
+def _close_observability(crashed: bool) -> None:
+    """The flight recorder's last dump, the exporter, the ledger's final
+    reconcile and write, the build directory back to the default (a
+    private one removed): before telemetry closes."""
+    try:
+        flightrec.get().close("crash" if crashed else "run_end")
+        goodput.stop_exporter()
+        goodput.get().close()
+    finally:
+        kbuild.reset_build_dir()
+
+
 def _run_eval_pass(engine: Engine, state: TrainState, loader, epoch: int
                    ) -> tuple[float, float]:
     """One no-grad pass over this rank's data shard; returns (loss,
     accuracy) over the valid rows of every shard (one all-reduce over the
-    data group), read from the device once."""
-    with telemetry.get().span("eval_pass", epoch=epoch, steps=len(loader)):
+    data group), read from the device once; goodput ``compute``."""
+    with goodput.get().timed("compute"), \
+            telemetry.get().span("eval_pass", epoch=epoch,
+                                 steps=len(loader)):
         totals = None
         for images, labels, valid in loader.epoch(epoch):
             m = engine.eval_step(state, images, labels, valid)
@@ -242,17 +322,53 @@ def _run_train_pass(engine: Engine, state: TrainState, loader,
                     ) -> tuple[TrainState, float, float]:
     """One optimization pass over either loader; per-step metrics stay on
     the device and are read once at the end, which also feeds the
-    every-10% log lines."""
+    every-10% log lines.  With the flight recorder, telemetry or the
+    goodput ledger on, each step is timed: its dispatch (the host's
+    enqueue of the eager step, under a ``train_step`` profiler range)
+    and its wait for the loader feed the ``step/dispatch_s`` histogram,
+    goodput's ``compute`` and ``data_wait``, the exporter's last-step
+    stamp and the flight recorder (and its anomaly detector); with all
+    three off the loop does no added work."""
     nb_iters = len(loader)
     hist = []
     main = runtime.is_main()
+    tel = telemetry.get()
+    rec = flightrec.get()
+    gp = goodput.get()
+    exporter = goodput.exporter()
+    instrument = tel.enabled or rec.enabled or gp.enabled
+    step_hist = tel.histogram("step/dispatch_s") if tel.enabled else None
+    prev_end = time.perf_counter() if instrument else 0.0
+    gp.begin_steps()
     for i, (images, labels, valid) in enumerate(loader.epoch(epoch)):
-        gen = utils.step_generator(seed, epoch, i, loader.device)
-        state, m = engine.train_step(state, images, labels, valid, gen)
+        if instrument:
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("train_step"):
+                gen = utils.step_generator(seed, epoch, i, loader.device)
+                state, m = engine.train_step(state, images, labels, valid,
+                                             gen)
+            dispatch_s = time.perf_counter() - t0
+            if step_hist is not None:
+                step_hist.observe(dispatch_s)
+        else:
+            gen = utils.step_generator(seed, epoch, i, loader.device)
+            state, m = engine.train_step(state, images, labels, valid, gen)
         hist.append(torch.stack([m["loss"], m["correct"], m["valid"]]))
         if main:
             print(f"\r{epoch:03d} {i / nb_iters * 100:.0f}%", end="\r")
-    metrics = torch.stack(hist).cpu().numpy()      # ONE read per epoch
+        if instrument:
+            end = time.perf_counter()
+            category = gp.step(dispatch_s, t0 - prev_end)
+            if exporter is not None:
+                exporter.note_step()
+            flightrec.observe_step(
+                rec, epoch=epoch, step=i, step_s=end - prev_end,
+                dispatch_s=dispatch_s, wait_s=t0 - prev_end,
+                category=category)
+            prev_end = end
+    gp.end_steps()
+    with gp.timed("compute"):
+        metrics = torch.stack(hist).cpu().numpy()  # ONE read per epoch
     losses = metrics[:, 0]
     _progress_logs(epoch, losses)
     return (state, float(losses.mean()),
@@ -279,10 +395,11 @@ def _save_ckpt(saver, path: str, model_name: str, state: TrainState,
     ``--ckpt-async`` snapshotted now and written by ``saver``."""
     args = (path, model_name, state.model, epoch, best_valid_loss,
             state.optimizer, state.step, state.updates, state.loss_scale)
-    if saver is None:
-        ckpt.save_checkpoint(*args)
-    else:
-        ckpt.save_checkpoint_async(saver, *args)
+    with goodput.get().timed("ckpt_blocking"):
+        if saver is None:
+            ckpt.save_checkpoint(*args)
+        else:
+            ckpt.save_checkpoint_async(saver, *args)
 
 
 def _epoch_logs(epoch: int, improved: bool, epoch_s: float, end: float,
@@ -310,31 +427,106 @@ def _epoch_header(epoch: int) -> None:
                  f"======================")
 
 
+@functools.lru_cache(maxsize=None)
+def _flops_per_sample(model_name: str, num_classes: int) -> Optional[float]:
+    """``ops/flops.py``'s count, once a process per model; None when the
+    count fails (the gauge is then a recorded null, never a failed
+    run)."""
+    try:
+        return flops_mod.train_flops_per_sample(model_name, num_classes)
+    # broad on purpose: the count is optional (the MFU gauge and
+    # costs.json), as the JAX engine's is (engine.py:177-185)
+    except Exception as e:
+        logging.warning(f"model FLOPs not counted for {model_name}: {e}")
+        return None
+
+
+def _mfu_factors(engine: Engine, model_name: str) -> tuple:
+    """(flops_per_sample, peak_flops_per_chip, peak_dtype) of the MFU
+    gauge (JAX ``_mfu_factors``, cli.py:191-204): the model's FLOPs over
+    the card's peak at the run's compute type (``compute_peak_label``:
+    an f32 run that may take TF32 divides by the TF32 peak); the peak is
+    None on the CPU or an unknown card."""
+    fps = _flops_per_sample(model_name, engine.num_classes)
+    label = flops_mod.compute_peak_label(engine.precision.compute_dtype)
+    peak = flops_mod.peak_flops(flops_mod.device_kind(engine.device), label)
+    return fps, peak, label
+
+
+def _record_throughput(tel, sps_chip: float, fps, peak, epoch: int,
+                       peak_dtype: str = "bf16") -> None:
+    """samples/s/chip, and the MFU as a share of the card's peak when the
+    model FLOPs and the peak are known, else a recorded null with its
+    reason (JAX ``_record_throughput``, cli.py:207-224)."""
+    tel.gauge("throughput/samples_per_sec_per_chip").set(sps_chip,
+                                                         epoch=epoch)
+    if fps and peak:
+        tel.gauge("throughput/mfu").set(sps_chip * fps / peak, epoch=epoch,
+                                        peak_dtype=peak_dtype)
+    else:
+        tel.gauge("throughput/mfu").set(
+            None, epoch=epoch, peak_dtype=peak_dtype,
+            reason="unknown_peak" if fps else "unknown_model_flops")
+
+
+def _finish_profile(cfg: Config, prof, tel) -> None:
+    """Stop the ``--profile`` session, write its trace under
+    RSL_PATH/trace, and (rank 0) costs.json and the trace's roofline.
+    Advisory, as in the JAX package: a failed analysis is logged, the run
+    goes on."""
+    trace_dir = os.path.join(cfg.rsl_path, "trace")
+    flightrec.stop_profiler(prof, trace_dir, runtime.process_index())
+    if not runtime.is_main():
+        return
+    logging.info(f"profiler trace written to {trace_dir}")
+    costs.save(cfg.rsl_path)
+    try:
+        from . import roofline
+
+        rep = roofline.analyze(trace_dir, rsl_path=cfg.rsl_path)
+        roofline.save_report(rep, cfg.rsl_path)
+        roofline.emit_telemetry(rep, tel)
+        logging.info(f"roofline: {rep['coverage'] * 100:.1f}% of step time "
+                     f"attributed to {rep['n_ops']} ops (top: "
+                     f"{rep['ops'][0]['name']})")
+    # advisory post-run analysis: a torn trace or a parse bug must never
+    # fail the run
+    except Exception as e:
+        logging.warning(f"roofline analysis skipped: {e}")
+
+
 def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                       train_loader, valid_loader, model_name: str,
                       start_epoch: int, best_valid_loss: float,
                       start_time: float, shutdown, saver=None) -> dict:
     """The per-epoch loop (ref classif.py:151-192); rank 0 writes the
-    checkpoints."""
+    checkpoints.  ``--profile`` traces the second epoch (its kernels'
+    costs recorded), stopped in a ``finally``."""
     history = []
     tel = telemetry.get()
     world = runtime.world_size()
+    fps, peak, pdt = (_mfu_factors(engine, model_name) if tel.enabled
+                      else (None, None, "bf16"))
     for epoch in range(start_epoch, cfg.nb_epochs):
         _epoch_header(epoch)
         epoch_start = time.monotonic()
-        with tel.span("epoch", epoch=epoch):
-            with tel.span("train_pass", epoch=epoch,
-                          steps=len(train_loader)):
-                state, train_loss, train_acc = _run_train_pass(
-                    engine, state, train_loader, epoch, cfg.seed)
-            train_end = time.monotonic()
-            valid_loss, valid_acc = _run_eval_pass(engine, state,
-                                                   valid_loader, epoch)
+        with contextlib.ExitStack() as stack:
+            if cfg.profile and epoch == start_epoch + 1:
+                stack.callback(_finish_profile, cfg,
+                               flightrec.start_profiler(), tel)
+                stack.enter_context(costs.recording_kernels())
+            with tel.span("epoch", epoch=epoch):
+                with tel.span("train_pass", epoch=epoch,
+                              steps=len(train_loader)):
+                    state, train_loss, train_acc = _run_train_pass(
+                        engine, state, train_loader, epoch, cfg.seed)
+                train_end = time.monotonic()
+                valid_loss, valid_acc = _run_eval_pass(engine, state,
+                                                       valid_loader, epoch)
         end = time.monotonic()
         train_samples = len(train_loader) * train_loader.global_batch
         sps_chip = train_samples / max(train_end - epoch_start, 1e-9) / world
-        tel.gauge("throughput/samples_per_sec_per_chip").set(sps_chip,
-                                                             epoch=epoch)
+        _record_throughput(tel, sps_chip, fps, peak, epoch, pdt)
         # best updated BEFORE the checkpoint write, so the rolling file
         # carries the post-epoch best
         improved = valid_loss < best_valid_loss
@@ -358,6 +550,7 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                         "valid_acc": valid_acc,
                         "train_s": train_end - epoch_start})
         tel.flush()
+        goodput.get().reconcile(epoch)
         # every rank stops after the same epoch
         if runtime.any_process(shutdown.requested):
             if saver is not None:
@@ -402,6 +595,8 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
     history = []
     tel = telemetry.get()
     world = runtime.world_size()
+    fps, peak, pdt = (_mfu_factors(engine, model_name) if tel.enabled
+                      else (None, None, "bf16"))
     runner = ChunkRunner(engine, state, train_loader, valid_loader,
                          cfg.seed, cfg.epochs_per_dispatch)
     epoch = start_epoch
@@ -411,15 +606,15 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
         chunk_start = time.monotonic()
         chunk_err = None
         try:
-            with tel.span("chunk_dispatch", first_epoch=epoch,
-                          epochs=len(chunk)):
+            with goodput.get().timed("compute"), \
+                    tel.span("chunk_dispatch", first_epoch=epoch,
+                             epochs=len(chunk)):
                 out = runner.run(chunk)
             end = time.monotonic()
             per_epoch_s = (end - chunk_start) / len(chunk)
             train_samples = len(train_loader) * train_loader.global_batch
             sps_chip = train_samples / max(per_epoch_s, 1e-9) / world
-            tel.gauge("throughput/samples_per_sec_per_chip").set(
-                sps_chip, epoch=chunk[-1])
+            _record_throughput(tel, sps_chip, fps, peak, chunk[-1], pdt)
             chunk_improved = False
             for k, e in enumerate(chunk):
                 metrics = out["train"][k]
@@ -465,6 +660,7 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
             chunk_err = e
         tel.flush()
         _check_chunk(tel, chunk[-1], chunk_err)
+        goodput.get().reconcile(chunk[-1])
         if runtime.any_process(shutdown.requested):
             if saver is not None:
                 saver.wait()
@@ -477,10 +673,119 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
             "preempted": shutdown.requested}
 
 
+def _run_libraries(cfg: Config, device: torch.device) -> tuple:
+    """The kernel libraries (``csrc/<name>.cu``) that the run's path
+    launches: the flash kernels' two for ``--attention flash`` (K1-K3) or
+    ``ring_flash`` (K4, K2p, K3p); none on the CPU (the plain versions
+    run there) or for any other model or attention (K5 is reachable from
+    the API only)."""
+    if device.type != "cuda" or cfg.attention not in ("flash",
+                                                      "ring_flash"):
+        return ()
+    return ("flash_fwd", "flash_bwd")
+
+
+def _warm_batch(loader, device: torch.device) -> tuple:
+    """A step's (images u8, labels, valid) of ``loader``'s shapes: zeros,
+    every row valid."""
+    rows = loader.batch_per_replica * len(loader.samplers)
+    images = torch.zeros((rows,) + tuple(loader.images.shape[1:]),
+                         dtype=loader.images.dtype, device=device)
+    return (images, torch.zeros(rows, dtype=torch.int64, device=device),
+            torch.ones(rows, dtype=torch.bool, device=device))
+
+
+def _aot_warmup(cfg: Config, engine: Engine, state: TrainState,
+                model_name: str, dataset: Dataset, train_loader,
+                valid_loader, device: torch.device,
+                mesh: runtime.Mesh) -> None:
+    """``--aot-warmup`` (JAX ``_aot_warmup``, cli.py:231-330): before epoch
+    1 build (in parallel) and load every kernel library the run launches,
+    then one train step and one eval forward at the run's batch shapes on
+    a throwaway copy of the model (its own optimizer and loss scale, a
+    generator of its own, the process's generators forked), which fills
+    the libraries' and cuBLAS/cuDNN's workspaces and records the kernels'
+    launch shapes in the cost registry; the launch counters are moved
+    back by the warmup's launches (as ``train/dispatch.py`` does after a
+    capture).  No CUDA Graph is captured: a capture is bound to the live
+    state.  Records ``compile/warmup_s``, ``compile/cache_hit`` (1 when
+    every library was found built), goodput ``compile``, the programs'
+    FLOPs and the MFU denominator in RSL_PATH/costs.json."""
+    from .models.registry import freeze_backbone
+
+    tel = telemetry.get()
+    t0 = time.perf_counter()
+    names = _run_libraries(cfg, device)
+    if names:
+        with ThreadPoolExecutor(len(names)) as pool:
+            built = list(pool.map(kbuild.build, names))
+        for name in names:
+            kbuild.load(name)
+    else:
+        built = []
+    hit = all(seconds == 0.0 for _, seconds in built)
+    counts = dispatch._launch_counts()
+    cuda = device.type == "cuda"
+    try:
+        forked = [device.index if device.index is not None
+                  else torch.cuda.current_device()] if cuda else []
+        with torch.random.fork_rng(devices=forked), \
+                costs.recording_kernels():
+            warm = _build_engine(cfg, model_name, dataset,
+                                 len(train_loader), device, mesh)
+            warm.model.load_state_dict(state.model.state_dict())
+            if cfg.feature_extract:
+                freeze_backbone(warm.model)
+            warm_state = TrainState(
+                warm.model, make_optimizer(warm.optimizer_name, warm.model,
+                                           warm.learning_rate,
+                                           warm.momentum),
+                loss_scale=warm.fresh_loss_scale())
+            gen = (torch.Generator(device=device) if cuda
+                   else torch.Generator()).manual_seed(cfg.seed)
+            warm.train_step(warm_state, *_warm_batch(train_loader, device),
+                            gen)
+            warm.eval_step(warm_state, *_warm_batch(valid_loader, device))
+            if cuda:
+                torch.cuda.synchronize(device)
+    finally:
+        after = dispatch._launch_counts()
+        dispatch._add_launches({k: after[k] - counts[k] for k in counts}, -1)
+    warmup_s = time.perf_counter() - t0
+    goodput.get().add("compile", warmup_s)
+    tel.gauge("compile/warmup_s").set(warmup_s)
+    tel.gauge("compile/cache_hit").set(1.0 if hit else 0.0)
+    fps, peak, pdt = _mfu_factors(engine, model_name)
+    if fps:
+        chunked = cfg.epochs_per_dispatch > 1
+        for program, per_sample in (
+                ("train_graph" if chunked else "train_step", fps),
+                ("eval_graph" if chunked else "eval_step", fps / 3.0)):
+            costs.record(program, flops=per_sample * cfg.batch_size,
+                         note="ops.flops count x the per-replica batch, "
+                              "one step")
+        costs.record_analytic("train_flops_per_sample",
+                              flops_per_sample=fps,
+                              note="FlopCounterMode count of the "
+                                   "attention='full' model (ops.flops); "
+                                   "x global_batch for per-step")
+    if peak:
+        costs.record_mfu_denominator(peak, pdt,
+                                     flops_mod.device_kind(device))
+    if runtime.is_main():
+        costs.save(cfg.rsl_path)
+        logging.info(f"AOT warmup: kernel libraries "
+                     f"{', '.join(names) or 'none'} built and loaded, one "
+                     f"train step and one eval forward run in "
+                     f"{warmup_s:.2f}s "
+                     f"({'kernel-cache hit' if hit else 'cold'})")
+
+
 def run_train(cfg: Config) -> dict:
     """ref train() (classif.py:75-192), one process on one device."""
     device, tel, mesh = _start(cfg, "train")
     saver = None
+    crashed = True
     try:
         if device.type == "cuda":
             torch.backends.cudnn.deterministic = True
@@ -525,13 +830,17 @@ def run_train(cfg: Config) -> dict:
         state = engine.init_state(torch.Generator().manual_seed(cfg.seed),
                                   load_weights)
         if cfg.checkpoint_file:
-            start_epoch, best_valid_loss, _step = \
-                ckpt.load_checkpoint_with_fallback(
-                    cfg.checkpoint_file, state.model, state.optimizer,
-                    cfg.rsl_path, cfg.dataset, model_name,
-                    train_state=state)
+            with goodput.get().timed("ckpt_blocking"):
+                start_epoch, best_valid_loss, _step = \
+                    ckpt.load_checkpoint_with_fallback(
+                        cfg.checkpoint_file, state.model, state.optimizer,
+                        cfg.rsl_path, cfg.dataset, model_name,
+                        train_state=state)
         else:
             start_epoch, best_valid_loss = 0, math.inf
+        if cfg.aot_warmup:
+            _aot_warmup(cfg, engine, state, model_name, dataset,
+                        train_loader, valid_loader, device, mesh)
         # rank 0 writes; a background writer failure degrades to
         # synchronous saves (a ckpt_async_degraded event) instead of
         # killing the run at the next join
@@ -564,19 +873,25 @@ def run_train(cfg: Config) -> dict:
                          f"non-finite gradients")
         result["launches"] = {k: v - before[k]
                               for k, v in kernel_launches().items()}
+        crashed = False
         return result
     finally:
-        # pending writes land (and their spans) before telemetry closes
+        # pending writes land (and their spans) before telemetry closes;
+        # the flight record's dump before it too, so a crash leaves both
         try:
             if saver is not None:
                 saver.close()
         finally:
-            tel.close()
+            try:
+                _close_observability(crashed)
+            finally:
+                tel.close()
 
 
 def run_test(cfg: Config) -> dict:
     """ref test() (classif.py:197-243), one process on one device."""
     device, tel, mesh = _start(cfg, "test")
+    crashed = True
     try:
         model_name = ckpt.get_checkpoint_model_name(cfg.checkpoint_file)
         dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
@@ -593,8 +908,12 @@ def run_test(cfg: Config) -> dict:
         start_time = time.monotonic()
         loss, acc = _run_eval_pass(engine, state, test_loader, epoch=0)
         mins, secs = utils.get_duration(start_time, time.monotonic())
+        crashed = False
     finally:
-        tel.close()
+        try:
+            _close_observability(crashed)
+        finally:
+            tel.close()
     logging.info(f"Time: {mins}m {secs}s, Acc: {acc * 100:.2f}%")
     _log_launches("test", before, before_tc,
                   f"{len(test_loader)} eval batches")
@@ -712,12 +1031,40 @@ def run_serve(cfg: Config) -> dict:
         tel.close()
 
 
+def run_offline(cfg: Config) -> int:
+    """The readers of a run directory (JAX ``main``, cli.py:1710-1760):
+    no banner, no device."""
+    try:
+        if cfg.action == "telemetry":
+            print(telemetry.json_report(cfg.rsl_path) if cfg.report_json
+                  else telemetry.report(cfg.rsl_path))
+        elif cfg.action == "goodput":
+            print(goodput.report(cfg.rsl_path))
+        elif cfg.action == "timeline":
+            from . import timeline
+
+            print(timeline.run_cli(cfg.rsl_path, out=cfg.timeline_out))
+        else:
+            from . import roofline
+
+            print(roofline.run_cli(
+                cfg.rsl_path, trace_dir=cfg.roofline_trace_dir,
+                from_anomaly=cfg.roofline_from_anomaly,
+                top=cfg.roofline_top, as_json=cfg.report_json))
+    except ValueError as e:
+        logging.error(f"{e}, exiting...")
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     try:
         cfg = config_from_argv(argv)
     except ValueError as e:
         logging.error(f"{e}, exiting...")
         return 1
+    if cfg.action in OFFLINE_ACTIONS:
+        return run_offline(cfg)
     print("========================= start =========================")
     run = {"train": run_train, "test": run_test, "serve": run_serve}
     try:

@@ -1,5 +1,6 @@
 """Configuration of the ported ``train``, ``test`` and ``serve``
-subcommands.
+subcommands, and of the offline ``telemetry``, ``goodput``, ``timeline``
+and ``roofline`` readers.
 
 Counterpart of ``distributedpytorch_tpu/config.py`` (``Config`` at
 :62-316, ``_common_args`` at :394-708, ``build_parser`` at :711-760,
@@ -38,11 +39,20 @@ gradient path reads ``--remat``.
 or ``ring_flash`` over the (world / M, M) mesh, with the parameters
 replicated on every rank: the JAX package's placement of parameters over
 'model' (a memory layout that changes no number) is not ported, so with
-any other attention it is refused.  Two
-defaults differ because the JAX default is not ported: the flight
-recorder is off (``--flightrec`` is refused), and ``test`` takes the model
-from the checkpoint, so its ``--model`` defaults to none (the JAX ``test``
-reads the checkpoint's too and ignores the flag).
+any other attention it is refused.
+``train`` and ``test`` take the observability and compile-cache flags
+with the JAX spellings and defaults: the flight recorder is on
+(``--no-flightrec`` turns it off; ``--flightrec-ring``),
+``--metrics-port``, ``--profile``, ``--anomaly-capture`` and its
+``--anomaly-*`` knobs, ``--aot-warmup``, ``--compilation-cache-dir`` and
+``--no-compile-cache`` (the kernels' build directory, ``ops/build.py``;
+its default stays ``build/kernels`` where the JAX default is
+``RSL_PATH/xla_cache``); ``test`` ignores ``--aot-warmup``,
+``--profile`` and ``--metrics-port``, as the JAX ``test`` does.
+``serve`` still refuses ``--metrics-port`` and ``--flightrec``.  One
+default differs: ``test`` takes the model from the checkpoint, so its
+``--model`` defaults to none (the JAX ``test`` reads the checkpoint's
+too and ignores the flag).
 """
 
 from __future__ import annotations
@@ -129,6 +139,28 @@ class Config:
     grad_accum: int = 1
     ckpt_async: bool = False
     epochs_per_dispatch: int = 1
+    # observability (JAX config.py:261-302)
+    profile: bool = False
+    flightrec: bool = True
+    flightrec_ring: int = 4096
+    metrics_port: int = 0
+    anomaly_capture: bool = False
+    anomaly_window: int = 32
+    anomaly_mad_k: float = 8.0
+    anomaly_rel_factor: float = 3.0
+    anomaly_min_excess: float = 0.05
+    anomaly_capture_steps: int = 4
+    anomaly_max_captures: int = 2
+    # the kernels' build directory (ops/build.py) and the warmup
+    compilation_cache_dir: Optional[str] = None
+    no_compile_cache: bool = False
+    aot_warmup: bool = False
+    # the offline readers
+    report_json: bool = False
+    timeline_out: Optional[str] = None
+    roofline_trace_dir: Optional[str] = None
+    roofline_from_anomaly: bool = False
+    roofline_top: int = 20
 
     def precision_policy(self):
         """The resolved precision.PrecisionPolicy for this config."""
@@ -309,28 +341,20 @@ REFUSED_EVERYWHERE = (
     ("--elastic-min-world", _INT, None),
     ("--elastic-join-wait", _FLOAT, None),
     ("--fault-plan", _STR, None),
-    ("--metrics-port", _INT, 0),
-    ("--flightrec", {"action": argparse.BooleanOptionalAction}, False),
     ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
 )
+# serve's exporter and flight recorder belong with the serving fleet
+REFUSED_SERVE = REFUSED_EVERYWHERE + (
+    ("--metrics-port", _INT, 0),
+    ("--flightrec", {"action": argparse.BooleanOptionalAction}, False),
+)
 REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
-    ("--compilation-cache-dir", _STR, None),
-    ("--no-compile-cache", _ON, False),
-    ("--aot-warmup", _ON, False),
     ("--fault-seed", _INT, 0),
     ("--retry-max-attempts", _INT, 3),
     ("--retry-base-delay", _FLOAT, 0.05),
     ("--retry-timeout", _FLOAT, 60.0),
     ("--health-timeout", _FLOAT, 0.0),
     ("--max-reconfigures", _INT, 3),
-    ("--profile", _ON, False),
-    ("--flightrec-ring", _INT, 4096),
-    ("--anomaly-capture", _ON, False),
-    ("--anomaly-window", _INT, 32),
-    ("--anomaly-mad-k", _FLOAT, 8.0),
-    ("--anomaly-min-excess", _FLOAT, 0.05),
-    ("--anomaly-capture-steps", _INT, 4),
-    ("--anomaly-max-captures", _INT, 2),
     ("--pipeline-microbatches", _INT, 0),
 )
 
@@ -387,6 +411,67 @@ def _data_remat_args(p: argparse.ArgumentParser) -> None:
                         "next N batches to the device in step order "
                         "while the current step computes (default 0 = "
                         "off)")
+
+
+def _observability_args(p: argparse.ArgumentParser) -> None:
+    """The JAX ``_common_args``' observability and compile-cache flags
+    (config.py:468-477, :588-648), same spellings and defaults."""
+    p.add_argument("--compilation-cache-dir", type=str, default=None,
+                   dest="compilation_cache_dir", metavar="DIR",
+                   help="build the CUDA kernels' libraries into DIR and "
+                        "look them up there (default build/kernels "
+                        "beside the package)")
+    p.add_argument("--no-compile-cache", action="store_true",
+                   dest="no_compile_cache",
+                   help="build the kernels into a fresh private directory "
+                        "removed at the end of the run")
+    p.add_argument("--aot-warmup", action="store_true", dest="aot_warmup",
+                   help="before epoch 1 build and load every kernel of "
+                        "the run and run one train step and one eval "
+                        "forward on a throwaway copy of the model "
+                        "(records compile/warmup_s, compile/cache_hit and "
+                        "RSL_PATH/costs.json; test ignores it)")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the second epoch "
+                        "to RSL_PATH/trace and its roofline to "
+                        "RSL_PATH/roofline.json (test ignores it)")
+    p.add_argument("--flightrec", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="per-rank ring-buffer flight recorder of the "
+                        "steps, dumped to RSL_PATH/flightrec-rank<N>.json "
+                        "on a crash and at run end (default: on; "
+                        "--no-flightrec disables)")
+    p.add_argument("--flightrec-ring", type=int, default=4096,
+                   dest="flightrec_ring", metavar="N",
+                   help="flight-recorder ring size (default 4096)")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   dest="metrics_port", metavar="PORT",
+                   help="serve /metrics and /healthz on PORT+rank while "
+                        "the run is alive; 0 disables (default; test "
+                        "ignores it)")
+    p.add_argument("--anomaly-capture", action="store_true",
+                   dest="anomaly_capture",
+                   help="when a step goes anomalous capture the next K "
+                        "steps with torch.profiler into "
+                        "RSL_PATH/anomaly_traces/ (requires the flight "
+                        "recorder)")
+    p.add_argument("--anomaly-window", type=int, default=32,
+                   dest="anomaly_window", metavar="W",
+                   help="anomaly baseline: the last W step times "
+                        "(default 32)")
+    p.add_argument("--anomaly-mad-k", type=float, default=8.0,
+                   dest="anomaly_mad_k", metavar="K",
+                   help="anomalous when the excess over the median "
+                        "exceeds K*MAD (default 8.0)")
+    p.add_argument("--anomaly-min-excess", type=float, default=0.05,
+                   dest="anomaly_min_excess", metavar="SEC",
+                   help="absolute floor on the excess (default 0.05)")
+    p.add_argument("--anomaly-capture-steps", type=int, default=4,
+                   dest="anomaly_capture_steps", metavar="K",
+                   help="steps a capture (default 4)")
+    p.add_argument("--anomaly-max-captures", type=int, default=2,
+                   dest="anomaly_max_captures", metavar="N",
+                   help="captures a run at most (default 2)")
 
 
 def _pretrained_args(p: argparse.ArgumentParser) -> None:
@@ -477,6 +562,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
                         "K3p) over --model-parallel ranks")
     _model_parallel_arg(p)
     _device_arg(p, action)
+    _observability_args(p)
     _refused_args(p, REFUSED_TRAIN_TEST)
 
 
@@ -567,19 +653,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-max-requests", type=int, default=0,
                    dest="serve_max_requests", metavar="N",
                    help="stop after answering N requests (0 = forever)")
-    _refused_args(p, REFUSED_EVERYWHERE)
+    _refused_args(p, REFUSED_SERVE)
+    _offline_parsers(sub)
     return parser
+
+
+OFFLINE_ACTIONS = ("telemetry", "goodput", "timeline", "roofline")
+
+
+def _offline_parsers(sub) -> None:
+    """The JAX readers of a run directory (config.py:780-840)."""
+    p = sub.add_parser("telemetry",
+                       help="summarize a run's telemetry JSONL files")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"run directory holding telemetry/ "
+                        f"(default: {RSL_PATH})")
+    p.add_argument("--json", action="store_true", dest="report_json",
+                   help="machine-readable aggregate output")
+    p = sub.add_parser("goodput",
+                       help="summarize a run's goodput ledger: per-rank "
+                            "wall-clock attribution by category")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"run directory holding goodput*.json "
+                        f"(default: {RSL_PATH})")
+    p = sub.add_parser("timeline",
+                       help="merge per-rank telemetry + flight records "
+                            "into a Perfetto-loadable Chrome trace")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"run directory holding telemetry/ and flightrec "
+                        f"dumps (default: {RSL_PATH})")
+    p.add_argument("-o", "--out", type=str, default=None, metavar="FILE",
+                   dest="timeline_out",
+                   help="trace output path (default: "
+                        "RSL_PATH/timeline.json)")
+    p = sub.add_parser("roofline",
+                       help="per-op roofline attribution of a profiler "
+                            "trace: time share, compute- vs memory-bound")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"run directory holding trace/ and costs.json "
+                        f"(default: {RSL_PATH})")
+    p.add_argument("--trace-dir", type=str, default=None, metavar="DIR",
+                   dest="roofline_trace_dir",
+                   help="analyze this torch.profiler capture instead of "
+                        "RSL_PATH/trace")
+    p.add_argument("--from-anomaly", action="store_true",
+                   dest="roofline_from_anomaly",
+                   help="analyze the newest anomaly capture under "
+                        "RSL_PATH/anomaly_traces/ instead")
+    p.add_argument("--top", type=int, default=20, dest="roofline_top",
+                   help="rows in the ranked table (default 20)")
+    p.add_argument("--json", action="store_true", dest="report_json",
+                   help="print the full roofline.json report instead of "
+                        "the table")
 
 
 def config_from_argv(argv=None) -> Config:
     """Parse, then refuse what is not ported yet (ValueError).  Every
     other argument's dest is the name of its Config field."""
     args = vars(build_parser().parse_args(argv))
-    flag = refused_flag(args, REFUSED_EVERYWHERE if args["action"] == "serve"
+    fields = {f.name: args[f.name] for f in dataclasses.fields(Config)
+              if f.name in args}
+    if args["action"] in OFFLINE_ACTIONS:
+        return Config(**fields)
+    flag = refused_flag(args, REFUSED_SERVE if args["action"] == "serve"
                         else REFUSED_TRAIN_TEST)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
-    fields = {f.name: args[f.name] for f in dataclasses.fields(Config)
-              if f.name in args}
     fields["half_precision"] = not args["no_bf16"]
     return check_ported(Config(**fields))

@@ -2,11 +2,19 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``build/kernels/<name>-<hash>.so`` next to the package (the hash covers
-the source, every header under ``csrc/`` and the flags, so an edited
-source or header rebuilds), then bound with ``ctypes``.  Nothing is built
-when a module is imported: the CPU tests import every module on machines
-with no ``nvcc``.
+``<build dir>/<name>-<hash>.so`` (the hash covers the source, every
+header under ``csrc/`` and the flags, so an edited source or header
+rebuilds), then bound with ``ctypes``.  Nothing is built when a module is
+imported: the CPU tests import every module on machines with no ``nvcc``.
+
+The build directory is the port's compilation cache (the counterpart of
+the JAX package's persistent XLA cache, ``runtime.py:355-440``): the
+default is ``build/kernels`` beside the package; ``--compilation-cache-dir
+DIR`` builds into DIR and looks the libraries up there
+(``set_build_dir``), and ``--no-compile-cache`` builds into a fresh
+private directory that ``reset_build_dir`` removes at the end of the run
+(``private_build_dir``).  Loaded libraries are kept by path, so a second
+directory in the same process loads its own file.
 """
 
 from __future__ import annotations
@@ -16,9 +24,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -33,7 +42,46 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--split-compile=0")
 
 _lock = threading.Lock()
+_build_dir = BUILD_DIR
+_private_dir: Optional[str] = None     # --no-compile-cache's, removed at end
+# (build dir, name) -> library path, and library path -> the loaded library
+_paths: Dict[Tuple[str, str], str] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> str:
+    """The directory the libraries are built into and looked up in."""
+    return _build_dir
+
+
+def set_build_dir(path: Optional[str]) -> None:
+    """Build into and look up in ``path`` (None: the default
+    ``BUILD_DIR``); a private directory set earlier is removed first."""
+    global _build_dir
+    reset_build_dir()
+    _build_dir = os.path.abspath(path) if path else BUILD_DIR
+
+
+def private_build_dir() -> str:
+    """``--no-compile-cache``: build into a fresh private directory, which
+    ``reset_build_dir`` removes (so nothing built lasts past the run)."""
+    global _build_dir, _private_dir
+    reset_build_dir()
+    _private_dir = _build_dir = tempfile.mkdtemp(prefix="dpt-kernels-")
+    return _private_dir
+
+
+def reset_build_dir() -> None:
+    """Back to the default directory, removing a private one (its
+    libraries stay mapped in this process; a later load builds anew)."""
+    global _build_dir, _private_dir
+    with _lock:
+        if _private_dir is not None:
+            shutil.rmtree(_private_dir, ignore_errors=True)
+            for key in [k for k in _paths if k[0] == _private_dir]:
+                del _paths[key]
+            _private_dir = None
+        _build_dir = BUILD_DIR
 
 
 def nvcc_path() -> str:
@@ -69,7 +117,8 @@ def library_path(name: str) -> str:
             digest.update(os.path.basename(path).encode() + b"\0"
                           + f.read() + b"\0")
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(_build_dir,
+                        f"{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> Tuple[str, float]:
@@ -81,7 +130,7 @@ def build(name: str) -> Tuple[str, float]:
     lib = library_path(name)
     if os.path.exists(lib):
         return lib, 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
     t0 = time.perf_counter()
@@ -98,10 +147,14 @@ def build(name: str) -> Tuple[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` in the current build
+    directory, built on first use."""
     with _lock:
-        lib = _loaded.get(name)
+        key = (_build_dir, name)
+        path = _paths.get(key)
+        if path is None:
+            path = _paths[key] = build(name)[0]
+        lib = _loaded.get(path)
         if lib is None:
-            path, _ = build(name)
-            lib = _loaded[name] = ctypes.CDLL(path)
+            lib = _loaded[path] = ctypes.CDLL(path)
         return lib

@@ -35,6 +35,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .. import costs
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -196,6 +197,7 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     ``conv3x3_dw.launches``, and a tensor-core one also in
     ``conv3x3_dw.tensor_core_launches``) or raise."""
     _check(x, dy)
+    costs.note_kernel("conv_dw", x, dy)
     if x.device.type == "cpu":
         return conv3x3_dw_plain(x, dy)
     if x.device.type != "cuda":

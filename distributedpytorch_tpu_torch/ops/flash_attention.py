@@ -53,6 +53,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .. import costs
 from . import build
 
 # Key-tile rows of the plain version.  The kernel's tile is 64 rows at
@@ -270,6 +271,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_fwd.launches``, and a tensor-core one also in
     ``flash_attention_fwd.tensor_core_launches``) or raise."""
     _check(q, k, v)
+    costs.note_kernel("flash_fwd", q, k, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     if q.device.type != "cuda":
@@ -544,6 +546,7 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor-core one also in ``flash_attention_dq.tensor_core_launches``)
     or raise."""
     _check_bwd(q, k, v, do, (("lse", lse),), o=o)
+    costs.note_kernel("flash_dq", q, k, causal)
     if _device_kind(q) == "cpu":
         delta = attention_delta(o, do)
         return _bwd_blocks(q, k, v, do, lse, delta,
@@ -566,6 +569,7 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_dkv.launches``, and a tensor-core one also in
     ``flash_attention_dkv.tensor_core_launches``) or raise."""
     _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)))
+    costs.note_kernel("flash_dkv", q, k, causal)
     if _device_kind(q) == "cpu":
         return _bwd_blocks(q, k, v, do, lse, delta,
                            _causal_mask(q.shape[1], causal, q.device))[1:]
@@ -650,6 +654,7 @@ def flash_attention_partial_fwd(q: torch.Tensor, k: torch.Tensor,
     in ``flash_attention_partial_fwd.tensor_core_launches``) or raise."""
     _check(q, k, v)
     _check_pos(q, q_pos, k_pos, kv_valid)
+    costs.note_kernel("flash_fwd_pos", q, k, causal)
     if _device_kind(q) == "cpu":
         return flash_attention_partial_plain(q, k, v, q_pos, k_pos, causal,
                                              kv_valid)
@@ -735,6 +740,7 @@ def flash_attention_partial_dq(q, k, v, o, do, lse, dlse, q_pos, k_pos,
     _check_bwd(q, k, v, do, (("lse", lse), ("dlse", dlse)),
                (torch.float32,), o=o, o_dtype=torch.float32)
     _check_pos(q, q_pos, k_pos, kv_valid)
+    costs.note_kernel("flash_dq_pos", q, k, causal)
     if _device_kind(q) == "cpu":
         delta = partial_delta(o, do, dlse)
         dq = _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
@@ -762,6 +768,7 @@ def flash_attention_partial_dkv(q, k, v, do, lse, delta, q_pos, k_pos,
     _check_bwd(q, k, v, do, (("lse", lse), ("delta", delta)),
                (torch.float32, q.dtype))
     _check_pos(q, q_pos, k_pos, kv_valid)
+    costs.note_kernel("flash_dkv_pos", q, k, causal)
     if _device_kind(q) == "cpu":
         return _partial_bwd_blocks(q, k, v, do, lse, delta, q_pos, k_pos,
                                    causal, kv_valid)[1:]

@@ -5,7 +5,10 @@ Counterpart of ``distributedpytorch_tpu/telemetry.py`` (the emitter,
 :65-468), in the same JSONL schema, so the JAX package's ``telemetry``
 report reads the port's files.  The rank is passed explicitly to
 ``configure`` (the JAX version reads ``jax.process_index()``).  The
-offline report functions are not ported yet.
+offline readers (``load_events``, ``aggregate``, ``render_report``,
+``report``, ``json_report``, JAX :474-789) are copied, so the
+``telemetry`` subcommand prints what the JAX one prints for the same
+files.
 
 Zero-cost when disabled: ``get()`` returns a no-op instance until
 ``configure()`` installs an enabled one.  Every line carries ``ts``
@@ -22,7 +25,7 @@ import math
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 _FLUSH_EVERY = 1024  # buffered events before an automatic flush
 
@@ -248,6 +251,13 @@ class Telemetry:
             h = self._histograms[name] = Histogram(name)
         return h
 
+    def metrics_snapshot(self):
+        """Stable views of the live registries for out-of-band readers
+        (the /metrics exporter's scrape threads): each list() copy is one
+        C-level operation, atomic under the GIL."""
+        return (list(self._counters.values()), list(self._gauges.values()),
+                list(self._histograms.values()))
+
     def span(self, name: str, **attrs: Any):
         """Timed context manager; emits a span event on exit.  The
         disabled instance returns a shared no-op (no clock reads)."""
@@ -355,3 +365,324 @@ def configure(rsl_path: str, enabled: bool, rank: int) -> Telemetry:
         _active.close()
     _active = Telemetry(enabled=enabled, rsl_path=rsl_path, rank=rank)
     return _active
+
+
+# -- report: aggregate per-rank JSONL into a human-readable summary ----
+
+
+def load_events(telemetry_dir: str) -> List[Dict[str, Any]]:
+    """All events from every ``rank*.jsonl`` under ``telemetry_dir``.
+    Lines that fail to parse are skipped (a run killed mid-write leaves
+    at most one torn last line per file)."""
+    events: List[Dict[str, Any]] = []
+    try:
+        names = sorted(os.listdir(telemetry_dir))
+    except OSError as e:
+        raise ValueError(
+            f"no telemetry directory at {telemetry_dir!r} "
+            f"({e.strerror or e}); run with --telemetry first") from e
+    for fn in names:
+        if not (fn.startswith("rank") and fn.endswith(".jsonl")):
+            continue
+        with open(os.path.join(telemetry_dir, fn), encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    ev = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(ev, dict):
+                    events.append(ev)
+    if not events:
+        raise ValueError(f"no telemetry events under {telemetry_dir!r}")
+    return events
+
+
+def aggregate(events: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
+    """Cross-rank aggregation: span stats by name, per-rank epoch means
+    (straggler view), counter totals, latest gauges, starvation fraction.
+    Pure data-in/data-out so tests (and notebooks) can assert on it."""
+    spans: Dict[str, Dict[str, Any]] = {}
+    counters: Dict[str, float] = {}
+    gauges: Dict[str, Dict[int, float]] = {}
+    histograms: Dict[str, List[Dict[str, Any]]] = {}
+    point_events: List[Dict[str, Any]] = []
+    rank_epoch: Dict[int, List[float]] = {}
+    ranks = set()
+    skipped = 0
+    for ev in events:
+        # A rank file can be torn mid-write or hand-edited: an event
+        # with a missing name or a non-numeric value must degrade to a
+        # skipped line, never crash the whole report.
+        try:
+            rank = int(ev.get("rank", 0))
+            kind, name = ev.get("kind"), ev.get("name")
+            if not isinstance(name, str):
+                skipped += 1
+                continue
+            if kind == "span":
+                dur = float(ev.get("dur_s", 0.0))
+                s = spans.setdefault(name, {"count": 0, "total_s": 0.0,
+                                            "max_s": 0.0})
+                s["count"] += 1
+                s["total_s"] += dur
+                s["max_s"] = max(s["max_s"], dur)
+                if name == "epoch":
+                    rank_epoch.setdefault(rank, []).append(dur)
+            elif kind == "counter":
+                counters[name] = counters.get(name, 0.0) \
+                    + float(ev.get("value", 0.0))
+            elif kind == "gauge":
+                if ev.get("value") is not None:  # null = unavailable
+                    gauges.setdefault(name, {})[rank] = float(ev["value"])
+            elif kind == "histogram":
+                histograms.setdefault(name, []).append(ev)
+            elif kind == "event":
+                point_events.append(ev)
+            else:
+                skipped += 1
+                continue
+            ranks.add(rank)
+        except (TypeError, ValueError):
+            skipped += 1
+            continue
+    for s in spans.values():
+        s["mean_s"] = s["total_s"] / max(s["count"], 1)
+
+    # Data-starvation fraction: host time blocked waiting on batches as a
+    # share of the train passes it stalled (both from the same rank set).
+    train_total = (spans.get("train_pass", {}).get("total_s", 0.0)
+                   or spans.get("train_dispatch", {}).get("total_s", 0.0))
+    wait = counters.get("data/wait_s", 0.0)
+    starvation = wait / train_total if train_total > 0 else None
+
+    return {
+        "ranks": sorted(ranks),
+        "skipped_events": skipped,
+        "spans": spans,
+        "counters": counters,
+        "gauges": {name: {"latest_per_rank": per,
+                          "mean": sum(per.values()) / len(per)}
+                   for name, per in gauges.items()},
+        "histograms": histograms,
+        "events": point_events,
+        "epoch_s_per_rank": {r: sum(v) / len(v)
+                             for r, v in rank_epoch.items()},
+        "data_starvation_fraction": starvation,
+    }
+
+
+def render_report(agg: Dict[str, Any]) -> str:
+    """The human-readable summary the ``telemetry`` subcommand prints."""
+    lines = []
+    lines.append(f"telemetry report — {len(agg['ranks'])} rank(s): "
+                 f"{agg['ranks']}")
+    if agg.get("skipped_events"):
+        lines.append(f"({agg['skipped_events']} malformed event(s) "
+                     f"skipped)")
+    # Writer-failure visibility (ISSUE 5 satellite): a rank whose JSONL
+    # sink died mid-run reports a write_errors counter if its final
+    # close-time write landed — and if it didn't, the rank is simply
+    # missing from the files, which the run_start processes attr exposes.
+    werr = agg["counters"].get("telemetry/write_errors")
+    if werr:
+        lines.append(f"WARNING: {int(werr)} telemetry write error(s) — "
+                     f"some events were dropped (see run log)")
+    expected = max((int(e.get("attrs", {}).get("processes", 0))
+                    for e in agg["events"]
+                    if e.get("name") == "run_start"), default=0)
+    # A mid-run joiner announces itself with elastic/join: its stream
+    # starting late (or reusing a departed rank's file) is by design.
+    joined = sorted({int(e["attrs"]["new_rank"]) for e in agg["events"]
+                     if e.get("name") == "elastic/join"
+                     and isinstance(e.get("attrs"), dict)
+                     and isinstance(e["attrs"].get("new_rank"), int)})
+    if joined:
+        lines.append(f"note: rank(s) {joined} joined mid-run in an "
+                     f"elastic grow; their streams starting late is "
+                     f"expected")
+    if expected > len(agg["ranks"]):
+        missing = sorted(set(range(expected)) - set(agg["ranks"]))
+        # An elastic run changes membership by design: every member
+        # emits an elastic/reconfigure (and a joiner an elastic/join)
+        # event carrying its generation's new_world.  The current
+        # world is the NEWEST generation's size — not the minimum over
+        # the run, which a shrink-then-grow history would underread,
+        # mislabeling readmitted rank slots as departed.  Missing rank
+        # slots at/above the current world departed in a reconfigure —
+        # a note, not a writer failure; anything below it really is a
+        # lost/disabled writer.
+        gens: Dict[int, int] = {}
+        for e in agg["events"]:
+            if e.get("name") not in ("elastic/reconfigure",
+                                     "elastic/join"):
+                continue
+            attrs = e.get("attrs")
+            if not isinstance(attrs, dict):
+                continue
+            g, w = attrs.get("generation"), attrs.get("new_world")
+            if isinstance(g, int) and isinstance(w, int):
+                gens[g] = w
+        final_world = gens[max(gens)] if gens else expected
+        departed = [r for r in missing if r >= final_world]
+        missing = [r for r in missing if r < final_world]
+        if departed:
+            lines.append(f"note: rank(s) {departed} departed in an "
+                         f"elastic reconfigure (world now "
+                         f"{final_world}); their files ending early — "
+                         f"or never landing — is expected, not loss")
+        if missing:
+            lines.append(f"WARNING: {expected} process(es) ran but only "
+                         f"{len(agg['ranks'])} rank file(s) readable — "
+                         f"rank(s) {missing} skipped (telemetry writer "
+                         f"disabled or file lost)")
+
+    spans = agg["spans"]
+    if spans:
+        lines.append("")
+        lines.append("slowest spans (by total time):")
+        lines.append(f"  {'span':<16} {'count':>6} {'total_s':>10} "
+                     f"{'mean_s':>10} {'max_s':>10}")
+        for name, s in sorted(spans.items(),
+                              key=lambda kv: -kv[1]["total_s"]):
+            lines.append(f"  {name:<16} {s['count']:>6} "
+                         f"{s['total_s']:>10.3f} {s['mean_s']:>10.3f} "
+                         f"{s['max_s']:>10.3f}")
+
+    hists = agg["histograms"]
+    if hists:
+        lines.append("")
+        lines.append("hot-path duration percentiles (per-step histograms; "
+                     "count-weighted across ranks):")
+        lines.append(f"  {'histogram':<20} {'count':>8} {'p50':>10} "
+                     f"{'p95':>10} {'p99':>10} {'max':>10}")
+        for name in sorted(hists):
+            summaries = [h for h in hists[name] if h.get("count")]
+            if not summaries:
+                continue
+            n = sum(int(h["count"]) for h in summaries)
+
+            def _wq(label, summaries=summaries, n=n):
+                # Exact per-rank quantiles don't merge; the count-weighted
+                # mean is the documented approximation (single-rank runs —
+                # the common case — are exact).  Live sketches DO merge
+                # (Histogram.merge, the fleet collector's path) but the
+                # JSONL summary events here carry only the quantiles, not
+                # the buckets, so the report keeps the approximation.
+                vals = [(float(h.get(label, 0.0)), int(h["count"]))
+                        for h in summaries if label in h]
+                if not vals:
+                    return 0.0
+                return sum(v * c for v, c in vals) / sum(c for _, c in vals)
+
+            mx = max(float(h.get("max", 0.0)) for h in summaries)
+            lines.append(f"  {name:<20} {n:>8} {_wq('p50'):>10.4f} "
+                         f"{_wq('p95'):>10.4f} {_wq('p99'):>10.4f} "
+                         f"{mx:>10.4f}")
+
+    per_rank = agg["epoch_s_per_rank"]
+    if len(per_rank) > 1:
+        slowest = max(per_rank, key=per_rank.get)
+        fastest = min(per_rank, key=per_rank.get)
+        lines.append("")
+        lines.append("stragglers (mean epoch seconds per rank):")
+        for r in sorted(per_rank):
+            tag = (" <- slowest" if r == slowest else
+                   " <- fastest" if r == fastest else "")
+            lines.append(f"  rank {r}: {per_rank[r]:.3f}s{tag}")
+
+    frac = agg["data_starvation_fraction"]
+    if frac is not None:
+        lines.append("")
+        lines.append(f"data starvation: {frac * 100:.1f}% of train time "
+                     f"spent waiting on batches "
+                     f"({agg['counters'].get('data/wait_s', 0.0):.3f}s)")
+    starved = agg["counters"].get("data/starved_steps")
+    batches = agg["counters"].get("data/batches")
+    if starved is not None and batches:
+        lines.append(f"prefetch: {int(starved)}/{int(batches)} steps found "
+                     f"the queue empty")
+    warm = agg["counters"].get("data/warmup_s")
+    if warm is not None:
+        lines.append(f"prefetch warmup (initial fill): {warm:.3f}s "
+                     f"(excluded from wait_s)")
+
+    gauges = agg["gauges"]
+    tput = gauges.get("throughput/samples_per_sec_per_chip")
+    if tput:
+        lines.append("")
+        lines.append(f"throughput: {tput['mean']:,.0f} samples/s/chip "
+                     f"(latest per rank: "
+                     f"{ {r: round(v, 1) for r, v in sorted(tput['latest_per_rank'].items()) } })")
+    mfu = gauges.get("throughput/mfu")
+    if mfu:
+        lines.append(f"MFU: {mfu['mean'] * 100:.1f}%")
+
+    warmup = gauges.get("compile/warmup_s")
+    if warmup:
+        hit = gauges.get("compile/cache_hit", {}).get("mean")
+        lines.append(f"compile warmup: {warmup['mean']:.3f}s"
+                     + (f" (persistent-cache hit: "
+                        f"{'yes' if hit else 'no'})"
+                        if hit is not None else ""))
+
+    ckpt = {n: s for n, s in spans.items()
+            if n in ("ckpt_save", "ckpt_restore", "ckpt_save_blocking",
+                     "ckpt_save_background")}
+    for name, s in sorted(ckpt.items()):
+        lines.append(f"{name}: {s['count']}x, total {s['total_s']:.3f}s, "
+                     f"mean {s['mean_s']:.3f}s")
+    blocking = spans.get("ckpt_save_blocking")
+    background = spans.get("ckpt_save_background")
+    if blocking and background:
+        total = blocking["total_s"] + background["total_s"]
+        if total > 0:
+            lines.append(
+                f"async checkpointing: {blocking['total_s']:.3f}s of "
+                f"{total:.3f}s save time on the critical path "
+                f"({blocking['total_s'] / total * 100:.1f}%)")
+
+    # Serving saturation (ISSUE 15): the tier's one-look health — how
+    # much load arrived, how much was shed at the bounded queue (the
+    # saturation fraction), and how well the micro-batcher filled its
+    # buckets (padding is paid compute).  The latency percentiles are
+    # already in the histogram table above (serve/request_latency_ms).
+    requests = agg["counters"].get("serve/requests")
+    if requests:
+        shed = agg["counters"].get("serve/shed", 0.0)
+        answered = agg["counters"].get("serve/answered", 0.0)
+        failed = agg["counters"].get("serve/failed", 0.0)
+        lines.append("")
+        lines.append(f"serving: {int(requests)} requests — "
+                     f"{int(answered)} answered, {int(failed)} failed, "
+                     f"{int(shed)} shed at the full queue "
+                     f"(saturation {shed / requests * 100:.1f}%)")
+        sbatches = agg["counters"].get("serve/batches")
+        rows = agg["counters"].get("serve/batch_rows", 0.0)
+        padded = agg["counters"].get("serve/padded_rows", 0.0)
+        if sbatches and rows:
+            lines.append(
+                f"  micro-batches: {int(sbatches)} dispatched, mean "
+                f"fill {(rows - padded) / sbatches:.1f} rows, padding "
+                f"overhead {padded / rows * 100:.1f}% of batch rows")
+
+    preempts = [e for e in agg["events"] if e.get("name") == "preempt"]
+    if preempts:
+        lines.append(f"preemption events: {len(preempts)}")
+    return "\n".join(lines)
+
+
+def report(rsl_path: str) -> str:
+    """Load + aggregate + render for a run directory (CLI entry)."""
+    return render_report(aggregate(load_events(
+        os.path.join(rsl_path, "telemetry"))))
+
+
+def json_report(rsl_path: str) -> str:
+    """The same aggregate render_report formats, as JSON — the
+    machine-readable face gate scripts and bench_trend consume instead
+    of scraping the human text (ISSUE 12 satellite)."""
+    agg = aggregate(load_events(os.path.join(rsl_path, "telemetry")))
+    return json.dumps(agg, indent=2, sort_keys=True, default=float)

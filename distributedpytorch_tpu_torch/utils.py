@@ -68,9 +68,13 @@ class GracefulShutdown:
             signal.raise_signal(signum)
             return
         self.requested = True
-        from . import telemetry
+        from . import flightrec, telemetry
 
         telemetry.get().event("preempt_signal", signum=int(signum))
+        # the black box survives a grace window cut short
+        rec = flightrec.get()
+        rec.record_event("preempt_signal", signum=int(signum))
+        rec.dump("preempt_signal")
         logging.warning(f"received signal {signum}: stopping after the "
                         "current batch (repeat to abort immediately)")
 

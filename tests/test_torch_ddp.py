@@ -118,9 +118,11 @@ def test_torchrun_cnn_train_writes_once_from_rank_zero(tmp_path):
              "--synthetic-fallback", "-e", "2"],
             cwd=REPO, env=_env(), stdout=out, stderr=out)
     await_all([proc], [log], timeout=TIMEOUT)
+    # the flight recorder is on by default: each rank dumps its ring
     assert sorted(os.listdir(rsl)) == [
         "bestmodel-mnist-cnn.ckpt", "checkpoint-mnist-cnn-001.ckpt",
-        "ckpt-lineage.json", "test.log"]
+        "ckpt-lineage.json", "flightrec-rank0.json", "flightrec-rank1.json",
+        "test.log"]
     text = (rsl / "test.log").read_text()
     for pattern in (
             r"process: 0/2, world size: 2, backend: gloo",

@@ -610,7 +610,8 @@ def test_test_on_a_jax_written_checkpoint_gives_the_jax_accuracy(tmp_path):
 REFUSED = [
     # ported: refused only where the JAX package refuses them; f16 on the
     # ring, --ckpt-async, --epochs-per-dispatch, --data-mode stream, the
-    # streaming loader's flags and --remat are taken
+    # streaming loader's flags, --remat, and the observability and
+    # compile-cache flags are taken
     (["--grad-accum", "3"], "--grad-accum"),
     (["--precision", "f16", "--attention", "ring_flash", "--model-parallel",
       "2"], "--precision f16"),
@@ -657,7 +658,9 @@ REFUSED = [
 # fail with the JAX messages.  None: the flag is ported and taken (test
 # takes --grad-accum, --ckpt-async and --epochs-per-dispatch and ignores
 # them, as the JAX test does; f16 on the ring trains and tests; both take
-# --data-mode stream, --producer-threads, --device-prefetch and --remat).
+# --data-mode stream, --producer-threads, --device-prefetch, --remat and
+# the observability and compile-cache flags; test ignores --aot-warmup,
+# --profile and --metrics-port as the JAX test does).
 REFUSED_MESSAGES = {
     "--grad-accum": {
         "train": re.escape(
@@ -674,6 +677,10 @@ REFUSED_MESSAGES = {
     "--producer-threads": dict.fromkeys(("train", "test"), None),
     "--device-prefetch": dict.fromkeys(("train", "test"), None),
     "--remat full": dict.fromkeys(("train", "test"), None),
+    **{flag: dict.fromkeys(("train", "test"), None) for flag in (
+        "--aot-warmup", "--profile", "--anomaly-capture",
+        "--anomaly-window", "--compilation-cache-dir", "--no-compile-cache",
+        "--metrics-port", "--flightrec")},
     "--use-pretrained": {
         "train": re.escape(
             "use_pretrained is not supported for 'vit' (supported: resnet, "
@@ -712,18 +719,31 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                                                  f"not ported yet: {flag}")
     if message is None:
         cfg = tconfig.config_from_argv(argv)
-        default = (1, False, 1, None, "auto", 1, 0, "none")
-        changed = {"--grad-accum": {0: 3}, "--ckpt-async": {1: True},
-                   "--epochs-per-dispatch": {2: 2},
-                   "--precision f16": {3: "f16"},
-                   "--data-mode stream": {4: "stream"},
-                   "--producer-threads": {5: 2},
-                   "--device-prefetch": {6: 1},
-                   "--remat full": {7: "full"}}[flag]
-        taken = tuple(changed.get(i, v) for i, v in enumerate(default))
-        assert (cfg.grad_accum, cfg.ckpt_async, cfg.epochs_per_dispatch,
-                cfg.precision, cfg.data_mode, cfg.producer_threads,
-                cfg.device_prefetch, cfg.remat) == taken
+        default = dict(grad_accum=1, ckpt_async=False, epochs_per_dispatch=1,
+                       precision=None, data_mode="auto", producer_threads=1,
+                       device_prefetch=0, remat="none", aot_warmup=False,
+                       profile=False, anomaly_capture=False,
+                       anomaly_window=32, compilation_cache_dir=None,
+                       no_compile_cache=False, metrics_port=0,
+                       flightrec=True)
+        changed = {"--grad-accum": {"grad_accum": 3},
+                   "--ckpt-async": {"ckpt_async": True},
+                   "--epochs-per-dispatch": {"epochs_per_dispatch": 2},
+                   "--precision f16": {"precision": "f16"},
+                   "--data-mode stream": {"data_mode": "stream"},
+                   "--producer-threads": {"producer_threads": 2},
+                   "--device-prefetch": {"device_prefetch": 1},
+                   "--remat full": {"remat": "full"},
+                   "--aot-warmup": {"aot_warmup": True},
+                   "--profile": {"profile": True},
+                   "--anomaly-capture": {"anomaly_capture": True},
+                   "--anomaly-window": {"anomaly_window": 8},
+                   "--compilation-cache-dir": {"compilation_cache_dir": "/x"},
+                   "--no-compile-cache": {"no_compile_cache": True},
+                   "--metrics-port": {"metrics_port": 9100},
+                   "--flightrec": {}}[flag]
+        assert {k: getattr(cfg, k) for k in default} == \
+            {**default, **changed}
         return
     with pytest.raises(ValueError, match=f"^{message}$"):
         tconfig.config_from_argv(argv)
