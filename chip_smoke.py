@@ -28,6 +28,10 @@ or observability's and the kernel cache's:
 
     python3 chip_smoke.py --phases 38
 
+or the phase of fault plans and elastic worlds:
+
+    python3 chip_smoke.py --phases 39
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -318,7 +322,31 @@ result.  Phases, each printing its lines before the last:
      bound class, ``throughput/mfu`` is non-null against the bf16 peak,
      and ``telemetry``, ``goodput``, ``timeline`` and ``roofline`` exit 0
      on its directory;
- 39. the card's name and power limit again, one ``{"kernels": [...]}``
+ 39. fault plans, the bounded health agreement and elastic worlds, all
+     with the full-width vit (``--attention flash``, bf16, ``--debug``)
+     through the CLI: (a) one rank under ``--fault-plan
+     data.read:ioerror:0:2;ckpt.save:preempt:1;ckpt.finalize:torn:1``
+     (two reads retried, a SIGTERM and a torn write at epoch 0's best
+     file: a clean preemption after epoch 1), then ``-f`` the torn file:
+     the fallback to the epoch-0 snapshot, and the final checkpoint's
+     every tensor and count equal to a fault-free run's, K1-K3 on the
+     tensor cores; (b) three rank processes on the one card over gloo
+     with ``--elastic --data-mode stream -b 16``, ``rank_loss`` on rank
+     2 in epoch 1 (exit 113): ranks 0 and 1 reconfigure to a world of 2,
+     resume at epoch 1 and launch K1-K3 by phase 6's formula, all on the
+     tensor cores, read from each rank's ``kernel_launches`` telemetry
+     event; (c) once the shrink shows in rank 0's telemetry a fourth
+     process with ``--elastic-join`` is admitted at a boundary and the
+     world grows back to 3 (every rank again K1-K3 on the tensor cores);
+     the 2-rank world's parameters against an uninterrupted 2-rank run
+     from the same epoch-0 snapshot, the grown world's final ones
+     against a 3-rank run from the grow's snapshot (1e-5), and goodput's
+     ``collective_skew`` and ``elastic_reconfigure`` of ranks 0 and 1;
+     (d) two ranks, rank 0 stalled 8 s in its first save under
+     ``--health-timeout 3``: rank 1 has ``HealthTimeoutError`` within
+     3-5 s of its last event and both exit 1.  It runs on a thread of its
+     own from after phase 22, beside the other CLI phases;
+ 40. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -330,7 +358,8 @@ five CLI trainings start then and run beside 21, 22 and 25-36; phase
 30, 33, 34, 35 and 36 start after 22 and run beside 25, 26 and 28 (18's
 and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
-35, 36 and 38's last checks come last.  Nothing after 38's in-process
+35, 36 and 38's last checks, then 39's, come last.  Nothing after 38's
+in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
 Any failed check exits non-zero before
@@ -6096,8 +6125,320 @@ def graphed_roofline(ds, train) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 39: fault plans, the health agreement and elastic worlds ---------
+
+ELASTIC_CHILD = os.path.join(ROOT, "tests", "_torch_elastic_child.py")
+# (a): the chaos plan's DSL twin at the vit's epoch-0 saves (hit 1 is the
+# rolling file, hit 2 the best one)
+FAULT_PLAN = "data.read:ioerror:0:2;ckpt.save:preempt:1;ckpt.finalize:torn:1"
+ELASTIC_BATCH = 16
+ELASTIC_EPOCHS = 8
+# (b)-(c): world 3, -b 16, --debug: ceil(200 / 3 / 16) = 5 steps a split,
+# so epoch 0 is host-batch hits 1-10 and hit 13 is train step 3 of epoch
+# 1; rank 0 sleeps 0.3 s a host batch from epoch 1 on (numbers untouched)
+# so that the joiner's claim lands while the world still trains
+ELASTIC_PLAN = {"faults": [
+    {"site": "data.host_batch", "kind": "rank_loss", "after_n": 12,
+     "count": 1, "rank": 2},
+    {"site": "data.host_batch", "kind": "stall", "after_n": 10,
+     "count": 100000, "stall_s": 0.3, "rank": 0}]}
+HEALTH_TIMEOUT_S = 3.0
+STALL_S = 8.0                   # (d): rank 0's stall at its first save
+TOL_ELASTIC = 1e-5
+ELASTIC_WAIT_S = 420.0
+ELASTIC_PROCS = []              # phase 39's processes, stopped at the end
+
+
+def elastic_args(rsl: str, epochs: int) -> list:
+    return ["train", "--model", "vit", "--attention", "flash", "--debug",
+            "-e", str(epochs), "-b", str(ELASTIC_BATCH), "--keep-ckpts",
+            str(epochs), "--telemetry", "--data-mode", "stream", "-d",
+            os.path.join(WORK, "data"), "--rsl_path", rsl,
+            "--synthetic-fallback", "--device", "cuda"]
+
+
+def start_ranks(tag: str, args: list, world: int) -> list:
+    """``world`` processes of ``tests/_torch_elastic_child.py -- ARGS``
+    on the card, the env:// variables set by hand (several ranks: gloo
+    over CUDA tensors); ``world`` 0 starts one ``--elastic-join``
+    process with none of them.  Returns [(rank, Popen, log)]."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT", "LOCAL_WORLD_SIZE")}
+    port = free_port()
+    procs = []
+    for rank in range(max(world, 1)):
+        extra = {} if world == 0 else dict(
+            WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+            LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+            MASTER_PORT=str(port))
+        who = rank if world else "join"
+        log = os.path.join(WORK, f"{tag}-{who}.log")
+        with open(log, "w") as f:
+            procs.append((who, subprocess.Popen(
+                [sys.executable, ELASTIC_CHILD, "--settle", "5", "--",
+                 *args], cwd=ROOT, env={**env, **extra}, stdout=f,
+                stderr=subprocess.STDOUT), log))
+    ELASTIC_PROCS.extend(p for _, p, _ in procs)
+    say(f"run: {tag}: {max(world, 1)} process(es) of "
+        f"{os.path.relpath(ELASTIC_CHILD, ROOT)} -- {' '.join(args[:12])}")
+    return procs
+
+
+def wait_ranks(procs: list, want: dict, deadline: float) -> None:
+    """Waits for every process (killed past ``deadline``); fails unless
+    each exited with ``want``'s code (0 where it names none)."""
+    try:
+        for who, proc, log in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != want.get(who, 0):
+                with open(log) as f:
+                    fail(f"{os.path.basename(log)} exited with {rc}, not "
+                         f"{want.get(who, 0)}:\n{f.read()[-3000:]}")
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def rank_events(rsl: str, rank, name: str) -> list:
+    """The ``name`` events of RSL/telemetry/rank<rank>.jsonl (a line
+    being written skipped)."""
+    path = os.path.join(rsl, "telemetry", f"rank{rank}.jsonl")
+    out = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    e = json.loads(line)
+                except ValueError:
+                    continue
+                if e.get("name") == name:
+                    out.append(e)
+    return out
+
+
+def params_err(path_a: str, path_b: str) -> float:
+    """The largest absolute difference of two checkpoints' parameters."""
+    import torch
+
+    a, b = (torch.load(p, map_location="cpu", weights_only=True)["state"]
+            ["params"] for p in (path_a, path_b))
+    if a.keys() != b.keys():
+        return math.inf
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in a)
+
+
+def check_world_launches(tag: str, rsl: str, ranks, generation: int) -> int:
+    """Every rank of ``ranks`` launched K1-K3 in ``generation``'s world,
+    all on the tensor cores, by phase 6's formula (a train step DEPTH of
+    each, an eval batch DEPTH of K1); returns the train steps of rank
+    0's."""
+    steps0 = None
+    for rank in ranks:
+        ev = [e["attrs"] for e in rank_events(rsl, rank, "kernel_launches")
+              if e["attrs"]["generation"] == generation]
+        if len(ev) != 1:
+            fail(f"{tag}: rank {rank} recorded {len(ev)} worlds of "
+                 f"generation {generation}")
+        got, tc, steps = ev[0]["launches"], ev[0]["tensor_core"], \
+            ev[0]["steps"]
+        say(f"{tag}: rank {rank}, generation {generation}: {steps} train "
+            f"steps, launches flash_fwd {got['flash_fwd']}, flash_dq "
+            f"{got['flash_dq']}, flash_dkv {got['flash_dkv']}; tensor-core "
+            f"{tc['flash_fwd']}, {tc['flash_dq']}, {tc['flash_dkv']}")
+        flash = ("flash_fwd", "flash_dq", "flash_dkv")
+        if steps <= 0 or any(got[k] <= 0 or tc[k] != got[k] for k in flash) \
+                or got["flash_dq"] != DEPTH * steps \
+                or got["flash_dkv"] != DEPTH * steps \
+                or got["flash_fwd"] < DEPTH * steps \
+                or (got["flash_fwd"] - DEPTH * steps) % DEPTH:
+            fail(f"{tag}: rank {rank} did not run K1-K3 on the tensor "
+                 f"cores in generation {generation}'s world")
+        steps0 = steps if steps0 is None else steps0
+    return steps0
+
+
+def goodput_categories(rsl: str, rank: int) -> dict:
+    name = "goodput.json" if rank == 0 else f"goodput-rank{rank}.json"
+    with open(os.path.join(rsl, name)) as f:
+        return json.load(f)["categories"]
+
+
+def phase_elastic(card: str) -> None:
+    """Phase 39 (a)-(d); runs beside the other CLI phases."""
+    from distributedpytorch_tpu_torch import checkpoint as tckpt
+
+    deadline = time.monotonic() + ELASTIC_WAIT_S
+    base = ["train", "--model", "vit", "--attention", "flash", "--debug",
+            "-e", "2", "--keep-ckpts", "2", "--telemetry"]
+    rsl_a, rsl_a0 = (os.path.join(WORK, n) for n in ("faults", "faults_ref"))
+    rsl_e, rsl_d = (os.path.join(WORK, n) for n in ("elastic", "stall"))
+    plan = os.path.join(WORK, "elastic_plan.json")
+    with open(plan, "w") as f:
+        json.dump(ELASTIC_PLAN, f)
+    runs_a = [start_cli(base + ["--fault-plan", FAULT_PLAN], rsl_a),
+              start_cli(base, rsl_a0)]
+    ELASTIC_PROCS.extend(run[3] for run in runs_a)
+    world_d = start_ranks("stall", elastic_args(rsl_d, 2) + [
+        "--health-timeout", str(HEALTH_TIMEOUT_S), "--fault-plan",
+        f"ckpt.save:stall:0:1:{STALL_S}"], 2)
+    elastic = elastic_args(rsl_e, ELASTIC_EPOCHS) + [
+        "--elastic", "--health-timeout", "60"]
+    world_e = start_ranks("elastic", elastic + ["--fault-plan", plan], 3)
+    try:
+        # (c)'s joiner starts once the world has shrunk: a claim seen
+        # while rank 2 lives would grow the world to 4
+        t_loss = time.monotonic()
+        while not rank_events(rsl_e, 0, "elastic/reconfigure"):
+            if time.monotonic() > deadline or world_e[0][1].poll() is not None:
+                wait_ranks(world_e, {2: 113}, deadline)
+                fail("elastic: rank 0 never reconfigured")
+            time.sleep(0.5)
+        say(f"elastic: the world shrank {time.monotonic() - t_loss:.1f}s "
+            f"after its start; starting the joiner")
+        world_e += start_ranks("elastic", elastic + [
+            "--elastic-join", "--elastic-join-wait", "300"], 0)
+        # (a): the faulted run and the fault-free one, then the resume
+        (_, log_a), _ = finish_all(runs_a)
+        best = tckpt.best_model_path(rsl_a, "mnist", "vit")
+        torn = tckpt.verify_checkpoint(best)
+        say(f"faults: {log_a.count('transient failure')} retried reads, "
+            f"preempted after epoch 1: {'preempted after epoch 1' in log_a}"
+            f"; the best file torn: {torn}")
+        if log_a.count("transient failure") != 2 or torn is None \
+                or "preempted after epoch 1" not in log_a:
+            fail("faults: the plan did not retry, preempt and tear")
+        resume = start_cli(base + ["-f", best], rsl_a)
+        ELASTIC_PROCS.append(resume[3])
+        _, log_r = finish_all([resume])[0]
+        last = "checkpoint-mnist-vit-001.ckpt"
+        n, differ = state_tensors_differ(os.path.join(rsl_a, last),
+                                         os.path.join(rsl_a0, last))
+        launches, steps, _ = parse_launches(log_r, "train")
+        tc = parse_tensor_core_launches(log_r, "train")
+        rejected = "CHECKPOINT REJECTED" in log_r
+        say(f"faults: resumed past the torn head ({rejected}), {steps} "
+            f"steps, launches {launches}, tensor-core {tc}; final file vs "
+            f"the fault-free run's: {n} tensors and counts, {len(differ)} "
+            f"differ")
+        if not rejected or differ or not n \
+                or launches["flash_dq"] != DEPTH * steps \
+                or tc["flash_fwd"] != launches["flash_fwd"]:
+            fail(f"faults: the resume does not reproduce the fault-free run "
+                 f"{differ[:5]}")
+        # (d): the stalled rank's peer has the verdict within the bound
+        wait_ranks(world_d, {0: 1, 1: 1}, deadline)
+        [late] = rank_events(rsl_d, 1, "health_timeout")
+        before = [e for e in rank_events(rsl_d, 1, "peer_loss")]
+        with open(os.path.join(rsl_d, "telemetry", "rank1.jsonl")) as f:
+            stamps = [json.loads(line) for line in f]
+        prev = max(e["ts"] for e in stamps if e["ts"] < late["ts"]
+                   and e.get("name") != "health_timeout")
+        waited = late["ts"] - prev
+        say(f"health: rank 0 stalled {STALL_S:g}s in its save; rank 1 had "
+            f"HealthTimeoutError {waited:.2f}s after its last event "
+            f"(--health-timeout {HEALTH_TIMEOUT_S:g}), peer_loss "
+            f"{len(before)}; both exited 1")
+        if not HEALTH_TIMEOUT_S - 0.2 <= waited <= HEALTH_TIMEOUT_S + 2.0 \
+                or not before:
+            fail("health: the verdict did not come within the bound")
+        # (b), (c): shrink to 2, grow back to 3
+        wait_ranks(world_e, {2: 113}, deadline)
+    finally:
+        for _, proc, _ in world_e + world_d:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank in (0, 1):
+        worlds = [e["attrs"]["new_world"] for e in rank_events(
+            rsl_e, rank, "elastic/reconfigure")]
+        if worlds != [2, 3]:
+            fail(f"elastic: rank {rank} reconfigured to {worlds}, not "
+                 f"[2, 3]")
+    [join] = rank_events(rsl_e, 2, "elastic/join")
+    if (join["attrs"]["new_rank"], join["attrs"]["new_world"]) != (2, 3):
+        fail(f"elastic: the joiner entered as {join['attrs']}")
+    resumes = [e["attrs"]["epoch"] for e in rank_events(
+        rsl_e, 0, "elastic/resume")]
+    if len(resumes) != 2 or resumes[0] != 1 or resumes[1] < 2 \
+            or resumes[1] >= ELASTIC_EPOCHS:
+        fail(f"elastic: resume epochs {resumes}")
+    grow_at = resumes[1]
+    check_world_launches("elastic", rsl_e, (0, 1), 1)
+    check_world_launches("elastic", rsl_e, (0, 1, 2), 2)
+    # the references: 2 ranks from the epoch-0 snapshot to the grow's,
+    # 3 ranks from there to the end, both at once
+    refs = {}
+    for world, first, epochs in ((2, 0, grow_at),
+                                 (3, grow_at - 1, ELASTIC_EPOCHS)):
+        rsl = os.path.join(WORK, f"elastic_ref{world}")
+        os.makedirs(rsl)
+        name = f"checkpoint-mnist-vit-{first:03d}.ckpt"
+        shutil.copy(os.path.join(rsl_e, name), os.path.join(rsl, name))
+        refs[world] = (rsl, epochs, start_ranks(
+            f"elastic_ref{world}", elastic_args(rsl, epochs)
+            + ["-f", os.path.join(rsl, name)], world))
+    deadline = time.monotonic() + ELASTIC_WAIT_S
+    for rsl, epochs, procs in refs.values():
+        wait_ranks(procs, {}, deadline)
+    errs = {}
+    for world, (rsl, epochs, _) in refs.items():
+        name = f"checkpoint-mnist-vit-{epochs - 1:03d}.ckpt"
+        errs[world] = params_err(os.path.join(rsl_e, name),
+                                 os.path.join(rsl, name))
+    gp = [goodput_categories(rsl_e, r) for r in (0, 1)]
+    say(f"elastic: 3 ranks on one card (gloo), rank 2 lost at epoch 1 "
+        f"(exit 113): ranks 0 and 1 shrank to 2 and resumed at epoch 1, a "
+        f"joiner grew the world to 3 at epoch {grow_at}; the 2-rank world's "
+        f"epoch-{grow_at} parameters vs an uninterrupted 2-rank run from "
+        f"the same snapshot: max abs err {errs[2]:.3g}; the final ones vs "
+        f"a 3-rank run from the grow's snapshot: {errs[3]:.3g} (tol "
+        f"{TOL_ELASTIC:g}); goodput collective_skew "
+        f"{gp[0]['collective_skew']:.3f}s / {gp[1]['collective_skew']:.3f}s,"
+        f" elastic_reconfigure {gp[0]['elastic_reconfigure']:.3f}s / "
+        f"{gp[1]['elastic_reconfigure']:.3f}s (ranks 0 / 1) on {card}")
+    if not all(e <= TOL_ELASTIC for e in errs.values()):
+        fail("elastic: the reconfigured worlds do not match their "
+             "uninterrupted references")
+
+
+def start_elastic_phase(card: str) -> dict:
+    """Phase 39 on a thread of its own, beside the other CLI phases: its
+    failure (``fail``'s exit) is kept for ``finish_elastic_phase``."""
+    pending = {}
+
+    def body():
+        try:
+            phase_elastic(card)
+            pending["ok"] = True
+        except BaseException as e:       # fail()'s SystemExit included
+            pending["error"] = e
+
+    t0 = time.perf_counter()
+    pending["thread"] = threading.Thread(target=body, name="phase39",
+                                         daemon=True)
+    pending["thread"].start()
+    pending["t0"] = t0
+    return pending
+
+
+def finish_elastic_phase(pending: dict) -> None:
+    pending["thread"].join(ELASTIC_WAIT_S * 2)
+    wall = time.perf_counter() - pending["t0"]
+    say(f"chip_smoke: phase_elastic ran {wall:.1f}s beside the other "
+        f"phases")
+    if not pending.get("ok"):
+        fail(f"phase 39 did not pass: {pending.get('error')!r}")
+
+
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 39                 # the closing lines; only a full run has it
+LAST_PHASE = 40                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -6282,6 +6623,8 @@ def main(argv=None) -> int:
         graph_cli_runs = ahead(35, start_graph_cli)
         jax_resume_runs = ahead(34, start_jax_resume)
         stream_runs = ahead(36, start_stream_cli)
+        # 39's faulted, elastic and stalled worlds, on a thread of their own
+        elastic_pending = start_elastic_phase(card) if want(39) else None
         if want(25):
             run(phase_f16_step)
         if want(26):
@@ -6334,12 +6677,14 @@ def main(argv=None) -> int:
             run(phase_stream_test, stream_pending)
         if want(38):
             run(phase_observability_cli, obs_pending)
+        if want(39):
+            finish_elastic_phase(elastic_pending)
     finally:
         if obs_pending is not None:
             with obs_pending["lock"]:
                 obs_pending["stop"] = True
                 started.extend(obs_pending["runs"])
-        for *_, proc, _ in started:
+        for proc in [p for *_, p, _ in started] + ELASTIC_PROCS:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

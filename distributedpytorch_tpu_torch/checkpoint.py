@@ -10,7 +10,7 @@ the same schema (:135-260), ``verify_checkpoint`` and ``lineage_info``
 (:368-432), ``AsyncSaver`` and ``save_checkpoint_async`` (:433-613),
 ``load_checkpoint`` (:957+, with the loss-scale rule of :1012-1024),
 ``restore_for_serving`` and ``get_checkpoint_model_name`` (:970-1064),
-``rotate_checkpoint`` (:1067+).
+``rotate_checkpoint`` (:1067+), ``newest_checkpoint`` (:314-330).
 
 The port's file holds the same five fields (``format_version``,
 ``model_name``, ``epoch``, ``loss``, ``state``) written with
@@ -76,7 +76,8 @@ _LINEAGE = "ckpt-lineage.json"
 _ZIP_MAGIC = b"PK\x03\x04"
 # msgpack extension codes of flax.serialization._MsgpackExtType
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
-_READ_TRANSIENT = (PermissionError, InterruptedError, TimeoutError)
+_READ_TRANSIENT = (PermissionError, InterruptedError, TimeoutError,
+                   faults.InjectedIOError)
 
 
 # -- lineage ledger (same schema as the JAX package) -------------------
@@ -220,6 +221,17 @@ def list_checkpoints(rsl_path: str, dataset: str,
     return [p for _, p in sorted(found, reverse=True)]
 
 
+def newest_checkpoint(rsl_path: str, dataset: str,
+                      model_name: str) -> Optional[str]:
+    """The newest rolling snapshot, or None when there is none: the
+    elastic resume's file (JAX checkpoint.py:314-330).  A file written by
+    a world of N ranks restores into any other world (every rank holds
+    the whole state); verification happens downstream, in
+    ``load_checkpoint_with_fallback``."""
+    ckpts = list_checkpoints(rsl_path, dataset, model_name)
+    return ckpts[0] if ckpts else None
+
+
 def rotate_checkpoint(rsl_path: str, dataset: str, model_name: str,
                       epoch: int, keep: int = 1) -> None:
     """Delete the rolling file ``keep`` epochs back, retaining the newest
@@ -268,15 +280,26 @@ def _payload(model_name: str, model: nn.Module, epoch: int,
 def _write(path: str, payload: dict) -> None:
     """Serialize, write atomically (tmp + rename) and record the sha256
     in the lineage ledger: host and file work only, safe on a background
-    thread; a crash at any point leaves the previous file at ``path``."""
+    thread; a crash at any point leaves the previous file at ``path``.
+    The write is retried under the process retry policy (fault site
+    ``ckpt.save``); ``ckpt.finalize`` fires on the final path after the
+    rename, before the ledger records it, as in the JAX ``_write_msgpack``
+    (checkpoint.py:394-402): a ``torn`` fault there leaves a file whose
+    checksum no longer verifies."""
     buf = io.BytesIO()
     torch.save(payload, buf)
     blob = buf.getvalue()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(blob)
-    os.replace(tmp, path)
+
+    def _attempt():
+        faults.fire("ckpt.save", path=path)
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, path)
+
+    faults.retry(_attempt, "ckpt.save")
+    faults.fire("ckpt.finalize", path=path)
     epoch = payload["epoch"]
     _lineage_record(path, epoch, hashlib.sha256(blob).hexdigest(), len(blob))
     logging.info(f"epoch:{epoch:04d}: model saved to {path}")

@@ -1,7 +1,7 @@
 """The port's entry point: ``python -m distributedpytorch_tpu_torch
 {train,test,serve,telemetry,goodput,timeline,roofline}``.
 
-Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
+Counterpart of ``distributedpytorch_tpu/cli.py``:
 
   * ``run_train`` follows ``run_train``/``_train_world``/
     ``_run_train_epochs`` (:601-1016, :1208-1335) with ``_run_train_pass``,
@@ -10,9 +10,9 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     (:479-600): K epochs a chunk, each step a replay of a captured CUDA
     Graph on the card (``train/dispatch.py``), per-epoch log lines from
     one read at the chunk's end, the rolling checkpoint once a chunk and
-    the best file whenever an epoch of the chunk improved.  No elastic
-    world or fault plans.  ``--precision f16`` scales the loss (skipped steps
-    and the final scale are logged), ``--grad-accum K`` accumulates K
+    the best file whenever an epoch of the chunk improved.
+    ``--precision f16`` scales the loss (skipped steps and the final
+    scale are logged), ``--grad-accum K`` accumulates K
     microbatches a step, and ``--ckpt-async`` hands rank 0's checkpoint
     writes and rotation deletes to a background ``AsyncSaver`` (joined
     before a preemption exit and closed before telemetry).  Under
@@ -49,11 +49,29 @@ Counterpart of ``distributedpytorch_tpu/cli.py`` with a fixed world:
     and the launch counters as they were.  ``--compilation-cache-dir``
     and ``--no-compile-cache`` pick the kernels' build directory
     (``ops/build.py``).
+  * Faults and elastic worlds as the JAX ``run_train`` carries them
+    (:601-918, :1019-1205): ``--fault-plan`` is installed before the
+    process group's init; every epoch (or chunk) ends at
+    ``_health_boundary``, one ``runtime.agree_health`` all-gather of the
+    failed, shutdown and grow flags (goodput ``collective_skew``),
+    bounded by ``--health-timeout``; a failure anywhere inside the epoch,
+    a DDP backward whose peer died included, reaches it.  Without
+    ``--elastic`` a failed or vanished peer ends every rank together
+    (``faults.PeerFailureError``, exit 1); with it the healthy ranks
+    raise ``elastic.WorldChangedError`` and ``run_train``'s loop tears the
+    world down, rendezvouses (``elastic.reconfigure``), reshards the
+    loaders and reruns ``_train_world`` from the newest checkpoint, at
+    most ``--max-reconfigures`` times; join claims scanned at the
+    boundary grow the world the same way, and ``--elastic-join`` enters a
+    running world.  Launch ``--elastic`` ranks one process each with the
+    env:// variables set by hand: torchrun's agent ends every rank when
+    one exits non-zero.
   * ``run_test`` follows ``run_test`` (:1338-1415): every rank evaluates
     its shard of the test split and the sums are all-reduced.  It reads
     the port's checkpoints and the JAX package's msgpack files.
   * ``run_serve`` follows ``_serve_warmup``, ``_serve_build_replica`` and
-    ``run_serve`` (:1418-1705) reduced to one replica: no elastic world,
+    ``run_serve`` (:1418-1705) reduced to one replica (``--fault-plan``
+    installed, its serve.* sites live): no elastic world,
     metrics exporter, flight recorder, goodput ledger or hot-swap
     (``/admin/reload`` answers 501).
   * ``telemetry``, ``goodput``, ``timeline`` and ``roofline`` read a run
@@ -93,7 +111,8 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from . import costs, flightrec, goodput, runtime, telemetry, tracing, utils
+from . import (costs, elastic, faults, flightrec, goodput, runtime,
+               telemetry, tracing, utils)
 from .config import OFFLINE_ACTIONS, RESIDENT_MAX_BYTES, \
     STREAM_DISPATCH_MESSAGE, Config, check_ported, config_from_argv
 from .data.datasets import Dataset, Split, load_dataset
@@ -206,15 +225,25 @@ def _make_loader(cfg: Config, split: Split, shuffle: bool,
 
 
 def _start(cfg: Config, action: str) -> tuple:
-    """Common start of train and test: refusals, device, the process
-    world and its mesh, logging (rank 0 writes RSL_PATH/test.log; the other
-    ranks log warnings only), telemetry, the run_start event.  Returns
-    (device, telemetry, mesh)."""
+    """Common start of train and test: refusals, the fault plan (before
+    the process group's init, whose ``runtime.init`` site it may target),
+    device, the process world (``train --elastic-join``: entered as a
+    joiner) and its mesh, logging (rank 0 writes RSL_PATH/test.log; the
+    other ranks log warnings only), telemetry, the run_start event.
+    Returns (device, telemetry, mesh, the join info or None)."""
     check_ported(cfg)
     if cfg.batch_size < 1:
         raise ValueError(f"batch size must be >= 1, got {cfg.batch_size}")
+    faults.configure(cfg.fault_plan, cfg.fault_seed, cfg.retry_max_attempts,
+                     cfg.retry_base_delay, cfg.retry_timeout)
     device = runtime.resolve_device(cfg.device)
-    backend = runtime.initialize_distributed(device)
+    join_info = None
+    if action == "train" and cfg.elastic_join:
+        join_info = runtime.join_distributed(_elastic_dir(cfg), device,
+                                             timeout_s=cfg.elastic_join_wait)
+        backend = runtime.backend()
+    else:
+        backend = runtime.initialize_distributed(device)
     rank, world = runtime.process_index(), runtime.world_size()
     if runtime.is_main():
         utils.initialize_logging(cfg.rsl_path, cfg.log_file, truncate=True)
@@ -229,15 +258,26 @@ def _start(cfg: Config, action: str) -> tuple:
               backend=backend)
     logging.info(f"process: {rank}/{runtime.process_count()}, world size: "
                  f"{world}" + (f", backend: {backend}" if backend else ""))
+    mesh = _make_mesh(cfg, device)
+    return device, tel, mesh, join_info
+
+
+def _make_mesh(cfg: Config, device: torch.device) -> runtime.Mesh:
+    """The world's (data, model) mesh, its ``mesh:`` line logged when it
+    has a model axis."""
     mesh = runtime.make_mesh(cfg.model_parallel)
     if mesh.model_parallel > 1:
         staged = runtime.staged_through_host(mesh.model_group, device)
         logging.info(
             f"mesh: data {mesh.data_parallel} x model {mesh.model_parallel}"
-            f", ring over the model group on {backend}"
+            f", ring over the model group on {runtime.backend()}"
             + (" (CUDA blocks staged through host memory)" if staged
                else ""))
-    return device, tel, mesh
+    return mesh
+
+
+def _elastic_dir(cfg: Config) -> str:
+    return cfg.elastic_dir or elastic.default_elastic_dir(cfg.rsl_path)
 
 
 def _start_observability(cfg: Config, action: str,
@@ -264,7 +304,8 @@ def _start_observability(cfg: Config, action: str,
                       rank=rank, world=runtime.process_count())
     if train and cfg.metrics_port:
         goodput.start_exporter(cfg.metrics_port, rank=rank,
-                               world_size_fn=runtime.world_size)
+                               world_size_fn=runtime.world_size,
+                               generation_fn=elastic.generation)
     costs.reset(flops_mod.device_kind(device))
     if cfg.no_compile_cache:
         kbuild.private_build_dir()
@@ -501,84 +542,189 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                       start_time: float, shutdown, saver=None) -> dict:
     """The per-epoch loop (ref classif.py:151-192); rank 0 writes the
     checkpoints.  ``--profile`` traces the second epoch (its kernels'
-    costs recorded), stopped in a ``finally``."""
+    costs recorded), stopped in a ``finally``.  Any failure inside an
+    epoch is carried to ``_health_boundary``, where every rank agrees."""
     history = []
     tel = telemetry.get()
     world = runtime.world_size()
     fps, peak, pdt = (_mfu_factors(engine, model_name) if tel.enabled
                       else (None, None, "bf16"))
     for epoch in range(start_epoch, cfg.nb_epochs):
-        _epoch_header(epoch)
-        epoch_start = time.monotonic()
-        with contextlib.ExitStack() as stack:
-            if cfg.profile and epoch == start_epoch + 1:
-                stack.callback(_finish_profile, cfg,
-                               flightrec.start_profiler(), tel)
-                stack.enter_context(costs.recording_kernels())
-            with tel.span("epoch", epoch=epoch):
-                with tel.span("train_pass", epoch=epoch,
-                              steps=len(train_loader)):
-                    state, train_loss, train_acc = _run_train_pass(
-                        engine, state, train_loader, epoch, cfg.seed)
-                train_end = time.monotonic()
-                valid_loss, valid_acc = _run_eval_pass(engine, state,
-                                                       valid_loader, epoch)
-        end = time.monotonic()
-        train_samples = len(train_loader) * train_loader.global_batch
-        sps_chip = train_samples / max(train_end - epoch_start, 1e-9) / world
-        _record_throughput(tel, sps_chip, fps, peak, epoch, pdt)
-        # best updated BEFORE the checkpoint write, so the rolling file
-        # carries the post-epoch best
-        improved = valid_loss < best_valid_loss
-        if improved:
-            best_valid_loss = valid_loss
-        _epoch_logs(epoch, improved, end - epoch_start, end, start_time,
-                    train_loss, train_acc, valid_loss, valid_acc, sps_chip,
-                    world)
-        if runtime.is_main():
-            _rotate_ckpt(cfg, saver, model_name, epoch)
-            paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
-                                          model_name, epoch)]
+        epoch_err = None
+        try:
+            _epoch_header(epoch)
+            epoch_start = time.monotonic()
+            with contextlib.ExitStack() as stack:
+                if cfg.profile and epoch == start_epoch + 1:
+                    stack.callback(_finish_profile, cfg,
+                                   flightrec.start_profiler(), tel)
+                    stack.enter_context(costs.recording_kernels())
+                with tel.span("epoch", epoch=epoch):
+                    with tel.span("train_pass", epoch=epoch,
+                                  steps=len(train_loader)):
+                        state, train_loss, train_acc = _run_train_pass(
+                            engine, state, train_loader, epoch, cfg.seed)
+                    train_end = time.monotonic()
+                    valid_loss, valid_acc = _run_eval_pass(
+                        engine, state, valid_loader, epoch)
+            end = time.monotonic()
+            train_samples = len(train_loader) * train_loader.global_batch
+            sps_chip = (train_samples / max(train_end - epoch_start, 1e-9)
+                        / world)
+            _record_throughput(tel, sps_chip, fps, peak, epoch, pdt)
+            # best updated BEFORE the checkpoint write, so the rolling file
+            # carries the post-epoch best
+            improved = valid_loss < best_valid_loss
             if improved:
-                paths.append(ckpt.best_model_path(cfg.rsl_path, cfg.dataset,
-                                                  model_name))
-            for path in paths:
-                _save_ckpt(saver, path, model_name, state, epoch,
-                           best_valid_loss)
-        history.append({"epoch": epoch, "train_loss": train_loss,
-                        "train_acc": train_acc, "valid_loss": valid_loss,
-                        "valid_acc": valid_acc,
-                        "train_s": train_end - epoch_start})
-        tel.flush()
+                best_valid_loss = valid_loss
+            _epoch_logs(epoch, improved, end - epoch_start, end, start_time,
+                        train_loss, train_acc, valid_loss, valid_acc,
+                        sps_chip, world)
+            if runtime.is_main():
+                _rotate_ckpt(cfg, saver, model_name, epoch)
+                paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
+                                              model_name, epoch)]
+                if improved:
+                    paths.append(ckpt.best_model_path(
+                        cfg.rsl_path, cfg.dataset, model_name))
+                for path in paths:
+                    _save_ckpt(saver, path, model_name, state, epoch,
+                               best_valid_loss)
+            history.append({"epoch": epoch, "train_loss": train_loss,
+                            "train_acc": train_acc, "valid_loss": valid_loss,
+                            "valid_acc": valid_acc,
+                            "train_s": train_end - epoch_start})
+        # broad on purpose: any failure of the epoch (a step, a peer gone
+        # in DDP's backward, a checkpoint write, an injected fault)
+        # reaches the same agreement on every rank
+        except Exception as e:
+            epoch_err = e
+        stop = _health_boundary(cfg, tel, shutdown, epoch, epoch_err, saver)
+        # after the agreement, so the window holds its collective_skew
         goodput.get().reconcile(epoch)
-        # every rank stops after the same epoch
-        if runtime.any_process(shutdown.requested):
-            if saver is not None:
-                saver.wait()    # the rolling file is whole before exit
-            tel.event("preempt", after_epoch=epoch)
-            logging.info(f"preempted after epoch {epoch + 1}: "
-                         f"checkpoint written, resume with -f")
+        if stop:
             break
     return {"history": history, "best_valid_loss": best_valid_loss,
             "model_name": model_name, "state": state,
             "preempted": shutdown.requested}
 
 
-def _check_chunk(tel, epoch: int, err: Optional[Exception]) -> None:
-    """The chunk boundary's failure agreement (JAX ``_health_boundary``
-    without an elastic world): when any rank failed inside the chunk,
-    every rank records a ``peer_failure`` event; the failed rank raises
-    its own error and the others a RuntimeError naming the epoch, so every
-    rank leaves at the same boundary."""
-    if not runtime.any_process(err is not None):
-        return
-    tel.event("peer_failure", epoch=epoch, local=err is not None,
-              error=repr(err) if err is not None else None)
+def _peer_loss_exit(tel, epoch: int, err, elastic_on: bool):
+    """A peer is GONE (a dead transport mid-collective, or a timed-out
+    health agreement): under ``--elastic`` the reconfigure signal,
+    otherwise the coordinated exit (JAX ``_peer_loss_exit``,
+    cli.py:1062-1080).  Always raises."""
+    tel.event("peer_loss", epoch=epoch, elastic=elastic_on,
+              error=repr(err))
     tel.flush()
-    if err is not None:
-        raise err
-    raise RuntimeError(f"a peer process failed during epoch {epoch + 1}; "
-                       f"exiting with it (health agreement)")
+    if elastic_on:
+        raise elastic.WorldChangedError(
+            f"peer lost during epoch {epoch + 1}: {err}") from err
+    flightrec.get().dump("peer_failure")
+    raise faults.PeerFailureError(
+        f"a peer process vanished during epoch {epoch + 1} ({err}); "
+        "exiting") from err
+
+
+def _health_boundary(cfg: Config, tel, shutdown, epoch: int, err,
+                     saver=None) -> bool:
+    """The epoch or chunk boundary's agreement (JAX ``_health_boundary``,
+    cli.py:1083-1175): ONE ``runtime.agree_health`` all-gather of the
+    failed flag, the shutdown flag and the elastic grow vote, timed under
+    goodput ``collective_skew`` and bounded by ``--health-timeout``.  A
+    rank that failed re-raises its own error and its peers raise
+    ``faults.PeerFailureError`` (under ``--elastic``,
+    ``elastic.WorldChangedError``); an epoch that died inside a
+    collective, or an agreement that timed out, is a peer loss
+    (``_peer_loss_exit``); an admissible join claim becomes
+    ``WorldChangedError(grow=True)``.  Failure and preemption outrank a
+    grow.  Returns True when the run should stop cleanly (preemption),
+    after the async writer drained."""
+    elastic_on = cfg.elastic
+    tel.flush()  # boundary: buffered events hit the disk
+    if elastic.is_peer_loss(err):
+        # the epoch died inside a collective: the agreement would ride
+        # the same broken transport; the local error is the verdict
+        _peer_loss_exit(tel, epoch, err, elastic_on)
+    admit_ids = _scan_grow(cfg, tel, epoch) if elastic_on else []
+    timeout_s = cfg.health_timeout or None
+    try:
+        with goodput.get().timed("collective_skew"):
+            any_failed, any_shutdown, any_grow = runtime.agree_health(
+                err is not None, shutdown.requested, timeout_s=timeout_s,
+                grow=bool(admit_ids))
+    except faults.HealthTimeoutError as timeout_err:
+        tel.event("health_timeout", epoch=epoch, timeout_s=timeout_s)
+        tel.flush()
+        if err is not None:
+            raise err  # the local failure outranks the missing peer
+        _peer_loss_exit(tel, epoch, timeout_err, elastic_on)
+    # broad on purpose: the transport surfaces a dead peer as a
+    # RuntimeError whose text names it; anything else re-raises
+    except Exception as agree_err:
+        if err is None and elastic.is_peer_loss(agree_err):
+            _peer_loss_exit(tel, epoch, agree_err, elastic_on)
+        raise err if err is not None else agree_err
+    # returned at (nearly) the same instant on every rank: the timeline's
+    # cross-rank alignment point
+    tel.event("health_boundary", epoch=epoch)
+    if any_failed:
+        tel.event("peer_failure", epoch=epoch, local=err is not None,
+                  error=repr(err) if err is not None else None)
+        tel.flush()
+        flightrec.get().dump("peer_failure")
+        if err is not None:
+            raise err
+        if elastic_on:
+            raise elastic.WorldChangedError(
+                f"a peer reported failure during epoch {epoch + 1}")
+        raise faults.PeerFailureError(
+            f"a peer process failed during epoch {epoch + 1}; exiting "
+            "with it (health agreement)")
+    if any_shutdown:
+        shutdown.requested = True
+        if saver is not None:
+            saver.wait()    # the rolling file is whole before exit
+        tel.event("preempt", after_epoch=epoch)
+        logging.info(f"preempted after epoch {epoch + 1}: "
+                     f"checkpoint written, resume with -f")
+        return True
+    if any_grow and elastic_on:
+        tel.event("elastic/grow", epoch=epoch, joiners=admit_ids)
+        tel.flush()
+        raise elastic.WorldChangedError(
+            f"join claim(s) admitted at the epoch {epoch + 1} boundary;"
+            " growing the world", grow=True)
+    return False
+
+
+def _scan_grow(cfg: Config, tel, epoch: int) -> list:
+    """The boundary's join poll (JAX ``_scan_grow``, cli.py:1176-1205):
+    pending claims through the ``--elastic-target`` policy; rank 0
+    answers declines at once, admissions only raise this rank's grow
+    vote.  A filesystem hiccup skips the scan (the next boundary
+    retries)."""
+    elastic_dir = _elastic_dir(cfg)
+    try:
+        admit, declined = elastic.scan_joins(
+            elastic_dir, runtime.process_count(), cfg.elastic_target,
+            cfg.elastic_min_world)
+        if declined and runtime.is_main():
+            elastic.decline_joins(elastic_dir, declined,
+                                  elastic.generation() + 1)
+            for jid, reason in declined:
+                tel.event("elastic/join_declined", epoch=epoch,
+                          join_id=jid, reason=reason,
+                          target=cfg.elastic_target,
+                          min_world=cfg.elastic_min_world)
+    except OSError as e:
+        logging.warning(f"elastic: join scan failed at the epoch "
+                        f"{epoch + 1} boundary (retrying next): {e}")
+        return []
+    if admit:
+        tel.event("elastic/join_admit", epoch=epoch, joiners=admit,
+                  target=cfg.elastic_target)
+    return admit
 
 
 def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
@@ -658,15 +804,10 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
         # write) reaches the same agreement on every rank
         except Exception as e:
             chunk_err = e
-        tel.flush()
-        _check_chunk(tel, chunk[-1], chunk_err)
+        stop = _health_boundary(cfg, tel, shutdown, chunk[-1], chunk_err,
+                                saver)
         goodput.get().reconcile(chunk[-1])
-        if runtime.any_process(shutdown.requested):
-            if saver is not None:
-                saver.wait()
-            tel.event("preempt", after_epoch=chunk[-1])
-            logging.info(f"preempted after epoch {chunk[-1] + 1}: "
-                         f"checkpoint written, resume with -f")
+        if stop:
             break
     return {"history": history, "best_valid_loss": best_valid_loss,
             "model_name": model_name, "state": state,
@@ -782,8 +923,10 @@ def _aot_warmup(cfg: Config, engine: Engine, state: TrainState,
 
 
 def run_train(cfg: Config) -> dict:
-    """ref train() (classif.py:75-192), one process on one device."""
-    device, tel, mesh = _start(cfg, "train")
+    """ref train() (classif.py:75-192) on the world of this process, with
+    the JAX ``run_train``'s elastic loop (cli.py:601-918): one
+    ``_train_world`` per world, a reconfigure between two."""
+    device, tel, mesh, join_info = _start(cfg, "train")
     saver = None
     crashed = True
     try:
@@ -793,6 +936,18 @@ def run_train(cfg: Config) -> dict:
         logging.info(f"batch size: {cfg.batch_size}/replica "
                      f"({cfg.batch_size * runtime.world_size()} global), "
                      f"prefetch: {cfg.prefetch}")
+        if join_info is not None:
+            # the joiner's birth certificate: its stream (perhaps a
+            # departed rank's file, reopened in append) restarts here
+            tel.event("elastic/join", generation=join_info["generation"],
+                      new_world=join_info["new_world"],
+                      new_rank=join_info["new_rank"],
+                      coordinator=join_info["coordinator"])
+            tel.gauge("elastic/world_size").set(join_info["new_world"])
+            tel.flush()
+            flightrec.get().record_event(
+                "elastic_join", generation=join_info["generation"],
+                new_world=join_info["new_world"])
         model_name = cfg.model_name
         if cfg.checkpoint_file:
             try:
@@ -816,63 +971,69 @@ def run_train(cfg: Config) -> dict:
                                     device, mesh)
         valid_loader = _make_loader(cfg, dataset.splits["valid"], False,
                                     device, mesh)
-        engine = _build_engine(cfg, model_name, dataset, len(train_loader),
-                               device, mesh)
-        tel.event("precision_policy", remat=cfg.remat,
-                  grad_accum=cfg.grad_accum, **engine.precision.describe())
-        load_weights = None
-        if cfg.use_pretrained:
-            def load_weights(model):
-                pretrained.load_pretrained(model_name, cfg.pretrained_path,
-                                           model)
-                logging.info(f"pretrained backbone loaded from "
-                             f"{cfg.pretrained_path}")
-        state = engine.init_state(torch.Generator().manual_seed(cfg.seed),
-                                  load_weights)
-        if cfg.checkpoint_file:
-            with goodput.get().timed("ckpt_blocking"):
-                start_epoch, best_valid_loss, _step = \
-                    ckpt.load_checkpoint_with_fallback(
-                        cfg.checkpoint_file, state.model, state.optimizer,
-                        cfg.rsl_path, cfg.dataset, model_name,
-                        train_state=state)
-        else:
-            start_epoch, best_valid_loss = 0, math.inf
-        if cfg.aot_warmup:
-            _aot_warmup(cfg, engine, state, model_name, dataset,
-                        train_loader, valid_loader, device, mesh)
-        # rank 0 writes; a background writer failure degrades to
+        # rank 0 writes (and stays rank 0 across reconfigures: losing it
+        # loses the world); a background writer failure degrades to
         # synchronous saves (a ckpt_async_degraded event) instead of
         # killing the run at the next join
         if cfg.ckpt_async and runtime.is_main():
             saver = ckpt.AsyncSaver(on_error="degrade")
-        before, before_tc = kernel_launches(), tensor_core_launches()
-        step0, updates0 = int(state.step), int(state.updates)
         start_time = time.monotonic()
         shutdown = utils.GracefulShutdown()
-        loop = (_run_train_chunked if cfg.epochs_per_dispatch > 1
-                else _run_train_epochs)
+        resume_file = cfg.checkpoint_file
+        if join_info is not None and not resume_file:
+            # the snapshot the grown world's members restore too
+            resume_file = ckpt.newest_checkpoint(cfg.rsl_path, cfg.dataset,
+                                                 model_name)
+        reconfigures = 0
         with shutdown:
-            result = loop(cfg, engine, state, train_loader, valid_loader,
-                          model_name, start_epoch, best_valid_loss,
-                          start_time, shutdown, saver)
+            while True:
+                try:
+                    result = _train_world(
+                        cfg, model_name, dataset, device, mesh,
+                        train_loader, valid_loader, resume_file,
+                        start_time, shutdown, saver)
+                    break
+                except elastic.WorldChangedError as e:
+                    grow = e.grow
+                    reconfigures += 1
+                    if reconfigures > cfg.max_reconfigures:
+                        raise faults.PeerFailureError(
+                            f"world changed {reconfigures} times, over the "
+                            f"--max-reconfigures {cfg.max_reconfigures} "
+                            "cap; exiting with the last failure") from e
+                    # drop what pins the old group (the tracebacks' frames
+                    # hold its DDP wrapper and state, the mesh its groups,
+                    # the loaders their threads) so that the teardown
+                    # closes its sockets
+                    exc = e
+                    while exc is not None:
+                        exc.__traceback__ = None
+                        exc = exc.__cause__ or exc.__context__
+                    mesh = None
+                    if isinstance(train_loader, ShardedLoader):
+                        train_loader.release()
+                        valid_loader.release()
+                    else:
+                        train_loader = valid_loader = None
+                # outside the except block, whose exception state would
+                # hold the traceback until it exits
+                with goodput.get().timed("elastic_reconfigure"):
+                    mesh = _elastic_reconfigure(cfg, tel, saver, device, grow)
+                    if isinstance(train_loader, ShardedLoader):
+                        train_loader = train_loader.reshard(mesh)
+                        valid_loader = valid_loader.reshard(mesh)
+                    else:
+                        train_loader = _make_loader(
+                            cfg, dataset.splits["train"], True, device, mesh)
+                        valid_loader = _make_loader(
+                            cfg, dataset.splits["valid"], False, device,
+                            mesh)
+                    # None (no snapshot yet) restarts from initialization
+                    resume_file = ckpt.newest_checkpoint(
+                        cfg.rsl_path, cfg.dataset, model_name)
         if saver is not None:
             saver.wait()
         runtime.barrier()       # every rank returns after rank 0's writes
-        steps = int(state.step) - step0
-        evals = len(result["history"]) * len(valid_loader)
-        _log_launches("train", before, before_tc,
-                      f"{steps} train steps and {evals} eval batches")
-        if state.loss_scale is not None:
-            skipped = steps - (int(state.updates) - updates0)
-            scale = float(state.loss_scale.scale)
-            tel.event("loss_scale", skipped=skipped, steps=steps,
-                      scale=scale)
-            logging.info(f"train: loss scale {scale:g} "
-                         f"after {steps} steps, {skipped} skipped on "
-                         f"non-finite gradients")
-        result["launches"] = {k: v - before[k]
-                              for k, v in kernel_launches().items()}
         crashed = False
         return result
     finally:
@@ -888,9 +1049,119 @@ def run_train(cfg: Config) -> dict:
                 tel.close()
 
 
+def _train_world(cfg: Config, model_name: str, dataset: Dataset,
+                 device: torch.device, mesh: runtime.Mesh, train_loader,
+                 valid_loader, resume_file: Optional[str],
+                 start_time: float, shutdown, saver) -> dict:
+    """Engine, DDP, state and resume for ONE world, then its epochs (JAX
+    ``_train_world``, cli.py:919-1016): ``resume_file`` is ``-f`` in the
+    first world and the newest rolling snapshot after a reconfigure (None:
+    fresh initialization).  The launch lines count this world's
+    launches."""
+    tel = telemetry.get()
+    if runtime.distributed():
+        # the agreement's group, created while every rank is here
+        runtime.health_group(cfg.health_timeout)
+    engine = _build_engine(cfg, model_name, dataset, len(train_loader),
+                           device, mesh)
+    tel.event("precision_policy", remat=cfg.remat,
+              grad_accum=cfg.grad_accum, **engine.precision.describe())
+    load_weights = None
+    if cfg.use_pretrained:
+        def load_weights(model):
+            pretrained.load_pretrained(model_name, cfg.pretrained_path,
+                                       model)
+            logging.info(f"pretrained backbone loaded from "
+                         f"{cfg.pretrained_path}")
+    state = engine.init_state(torch.Generator().manual_seed(cfg.seed),
+                              load_weights)
+    if resume_file:
+        with goodput.get().timed("ckpt_blocking"):
+            start_epoch, best_valid_loss, _step = \
+                ckpt.load_checkpoint_with_fallback(
+                    resume_file, state.model, state.optimizer,
+                    cfg.rsl_path, cfg.dataset, model_name,
+                    train_state=state)
+    else:
+        start_epoch, best_valid_loss = 0, math.inf
+    if cfg.elastic and elastic.generation() > 0:
+        # where this generation's world picked up
+        tel.event("elastic/resume", generation=elastic.generation(),
+                  epoch=start_epoch, world=runtime.world_size())
+        tel.flush()
+    if cfg.aot_warmup:
+        _aot_warmup(cfg, engine, state, model_name, dataset,
+                    train_loader, valid_loader, device, mesh)
+    before, before_tc = kernel_launches(), tensor_core_launches()
+    step0, updates0 = int(state.step), int(state.updates)
+    loop = (_run_train_chunked if cfg.epochs_per_dispatch > 1
+            else _run_train_epochs)
+    try:
+        result = loop(cfg, engine, state, train_loader, valid_loader,
+                      model_name, start_epoch, best_valid_loss, start_time,
+                      shutdown, saver)
+    finally:
+        # every rank's record of this world's launches (only rank 0 logs
+        # them), a world left by a reconfigure included
+        steps = int(state.step) - step0
+        now, now_tc = kernel_launches(), tensor_core_launches()
+        tel.event("kernel_launches", steps=steps,
+                  generation=elastic.generation(),
+                  launches={k: v - before[k] for k, v in now.items()},
+                  tensor_core={k: v - before_tc[k]
+                               for k, v in now_tc.items()})
+    evals = len(result["history"]) * len(valid_loader)
+    _log_launches("train", before, before_tc,
+                  f"{steps} train steps and {evals} eval batches")
+    if state.loss_scale is not None:
+        skipped = steps - (int(state.updates) - updates0)
+        scale = float(state.loss_scale.scale)
+        tel.event("loss_scale", skipped=skipped, steps=steps, scale=scale)
+        logging.info(f"train: loss scale {scale:g} "
+                     f"after {steps} steps, {skipped} skipped on "
+                     f"non-finite gradients")
+    result["launches"] = {k: v - before[k] for k, v in now.items()}
+    return result
+
+
+def _elastic_reconfigure(cfg: Config, tel, saver, device: torch.device,
+                         grow: bool = False) -> runtime.Mesh:
+    """Shrink into the surviving world, or grow into the admitted one,
+    and return its mesh (JAX ``_elastic_reconfigure``, cli.py:1019-1061):
+    the async writer drained (the newest snapshot is what the new world
+    resumes from), the flight record dumped with reason ``reconfigure``,
+    then ``elastic.reconfigure``; an ``elastic/reconfigure`` event and the
+    ``elastic/world_size`` gauge.  Telemetry keeps its original rank
+    file."""
+    if saver is not None:
+        try:
+            saver.wait()
+        except Exception as e:
+            # lineage verification skips a bad file on restore
+            logging.error(f"async checkpoint flush failed during "
+                          f"reconfigure (continuing): {e}")
+    flightrec.get().dump("reconfigure")
+    old_rank = runtime.process_index()
+    old_world = runtime.process_count()
+    info = elastic.reconfigure(_elastic_dir(cfg), old_rank, old_world,
+                               device, grow=grow, target=cfg.elastic_target,
+                               min_world=cfg.elastic_min_world)
+    tel.event("elastic/reconfigure", generation=info["generation"],
+              old_world=old_world, new_world=info["new_world"],
+              old_rank=old_rank, new_rank=info["new_rank"], grow=grow,
+              joined=info["joiners"], coordinator=info["coordinator"],
+              purpose=info["purpose"])
+    tel.gauge("elastic/world_size").set(info["new_world"])
+    tel.flush()
+    flightrec.get().record_event("elastic_reconfigure",
+                                 generation=info["generation"],
+                                 new_world=info["new_world"])
+    return _make_mesh(cfg, device)
+
+
 def run_test(cfg: Config) -> dict:
     """ref test() (classif.py:197-243), one process on one device."""
-    device, tel, mesh = _start(cfg, "test")
+    device, tel, mesh, _ = _start(cfg, "test")
     crashed = True
     try:
         model_name = ckpt.get_checkpoint_model_name(cfg.checkpoint_file)
@@ -965,6 +1236,8 @@ def run_serve(cfg: Config) -> dict:
 
     check_ported(cfg)
     runtime.check_single_process("serve")
+    faults.configure(cfg.fault_plan, cfg.fault_seed, cfg.retry_max_attempts,
+                     cfg.retry_base_delay, cfg.retry_timeout)
     rank = runtime.process_index()
     device = runtime.resolve_device(cfg.device)
     buckets = serving.parse_buckets(cfg.serve_buckets)
@@ -1071,6 +1344,11 @@ def main(argv=None) -> int:
         run[cfg.action](cfg)
     except ValueError as e:
         logging.error(f"{e}, exiting...")
+        return 1
+    except (faults.FatalFaultError, faults.PeerFailureError,
+            faults.HealthTimeoutError) as e:
+        # the agreed exit: every rank takes it at the same boundary
+        logging.error(f"fatal failure: {e}, exiting...")
         return 1
     finally:
         runtime.shutdown_distributed()

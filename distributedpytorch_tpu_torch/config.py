@@ -49,7 +49,19 @@ with the JAX spellings and defaults: the flight recorder is on
 its default stays ``build/kernels`` where the JAX default is
 ``RSL_PATH/xla_cache``); ``test`` ignores ``--aot-warmup``,
 ``--profile`` and ``--metrics-port``, as the JAX ``test`` does.
-``serve`` still refuses ``--metrics-port`` and ``--flightrec``.  One
+``serve`` still refuses ``--metrics-port`` and ``--flightrec``.
+``train`` and ``test`` take the JAX fault, retry, health and elastic
+families with the JAX spellings, defaults and checks (``--fault-plan``,
+``--fault-seed``, ``--retry-max-attempts``, ``--retry-base-delay``,
+``--retry-timeout``, ``--health-timeout``, ``--max-reconfigures``,
+``--elastic``, ``--elastic-join``, ``--elastic-dir``, ``--elastic-target``,
+``--elastic-min-world``, ``--elastic-join-wait``): ``train --elastic-join``
+without ``--elastic`` and a malformed ``--elastic-target`` fail before
+any work, with the JAX ``run_train`` messages (cli.py:608-623); ``test``
+configures the fault plan and ignores the elastic flags, as the JAX
+``test`` does.  ``serve`` takes the fault and retry flags and refuses the
+elastic family and ``--health-timeout``/``--max-reconfigures`` (the
+serving fleet is not ported).  One
 default differs: ``test`` takes the model from the checkpoint, so its
 ``--model`` defaults to none (the JAX ``test`` reads the checkpoint's
 too and ignores the flag).
@@ -155,6 +167,21 @@ class Config:
     compilation_cache_dir: Optional[str] = None
     no_compile_cache: bool = False
     aot_warmup: bool = False
+    # fault injection and the retry policy (JAX config.py:202-215)
+    fault_plan: Optional[str] = None
+    fault_seed: int = 0
+    retry_max_attempts: int = 3
+    retry_base_delay: float = 0.05
+    retry_timeout: float = 60.0
+    # the elastic world (JAX config.py:216-241)
+    elastic: bool = False
+    elastic_dir: Optional[str] = None
+    health_timeout: float = 0.0
+    max_reconfigures: int = 3
+    elastic_target: str = "capacity"
+    elastic_min_world: int = 1
+    elastic_join: bool = False
+    elastic_join_wait: float = 600.0
     # the offline readers
     report_json: bool = False
     timeline_out: Optional[str] = None
@@ -201,6 +228,7 @@ def check_ported(cfg: Config) -> Config:
         raise ValueError(f"not ported yet: {flag}")
     if cfg.action == "train":
         check_epochs_per_dispatch(cfg)
+        check_elastic(cfg)
     if cfg.action == "train" and (cfg.grad_accum < 1
                                   or cfg.batch_size % cfg.grad_accum):
         # the JAX run_train's check (cli.py:725-728)
@@ -258,6 +286,23 @@ def check_epochs_per_dispatch(cfg: Config) -> None:
                 f"not ported yet: --epochs-per-dispatch {k} over gloo (a "
                 f"CUDA Graph captures NCCL's collectives, not gloo's; "
                 f"gloo carries a world with more local ranks than cards)")
+
+
+def check_elastic(cfg: Config) -> None:
+    """The JAX ``run_train``'s launch-time checks (cli.py:608-623):
+    ``--elastic-join`` needs ``--elastic``, and the admission policy is
+    parsed now, so a malformed ``--elastic-target`` fails at launch rather
+    than at the first health boundary."""
+    if cfg.elastic_join and not cfg.elastic:
+        raise ValueError(
+            "--elastic-join requires --elastic: a joiner becomes a "
+            "normal elastic member and must keep reconfiguring with "
+            "its world")
+    if cfg.elastic:
+        from .elastic import evaluate_join_policy
+
+        evaluate_join_policy(1, [], cfg.elastic_target,
+                             cfg.elastic_min_world)
 
 
 def check_pretrained(cfg: Config) -> None:
@@ -334,27 +379,23 @@ REFUSED_EVERYWHERE = (
     ("--tensor-parallel", _ON, False),
     ("--pipeline-parallel", _ON, False),
     ("--seq-parallel", _INT, 1),
+    ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
+)
+# serve's exporter, flight recorder and elastic membership belong with
+# the serving fleet
+REFUSED_SERVE = REFUSED_EVERYWHERE + (
+    ("--metrics-port", _INT, 0),
+    ("--flightrec", {"action": argparse.BooleanOptionalAction}, False),
     ("--elastic", _ON, False),
     ("--elastic-join", _ON, False),
     ("--elastic-dir", _STR, None),
     ("--elastic-target", _STR, None),
     ("--elastic-min-world", _INT, None),
     ("--elastic-join-wait", _FLOAT, None),
-    ("--fault-plan", _STR, None),
-    ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
-)
-# serve's exporter and flight recorder belong with the serving fleet
-REFUSED_SERVE = REFUSED_EVERYWHERE + (
-    ("--metrics-port", _INT, 0),
-    ("--flightrec", {"action": argparse.BooleanOptionalAction}, False),
-)
-REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
-    ("--fault-seed", _INT, 0),
-    ("--retry-max-attempts", _INT, 3),
-    ("--retry-base-delay", _FLOAT, 0.05),
-    ("--retry-timeout", _FLOAT, 60.0),
     ("--health-timeout", _FLOAT, 0.0),
     ("--max-reconfigures", _INT, 3),
+)
+REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
     ("--pipeline-microbatches", _INT, 0),
 )
 
@@ -474,6 +515,101 @@ def _observability_args(p: argparse.ArgumentParser) -> None:
                    help="captures a run at most (default 2)")
 
 
+def _fault_args(p: argparse.ArgumentParser) -> None:
+    """The JAX ``_common_args``' fault and retry flags (config.py:
+    480-509), same spellings and defaults."""
+    p.add_argument("--fault-plan", type=str, default=None,
+                   dest="fault_plan", metavar="PLAN",
+                   help="fault-injection plan: "
+                        "'site:kind:after_n[:count[:stall_s]]' "
+                        "(';'-separated, e.g. 'data.read:ioerror:2') or a "
+                        "JSON plan file; sites: data.read data.host_batch "
+                        "ckpt.save ckpt.finalize ckpt.restore runtime.init "
+                        "elastic.reinit elastic.join elastic.grow_reinit "
+                        "telemetry.write; kinds: ioerror fatal preempt "
+                        "torn stall rank_loss rank_join (default: no "
+                        "faults, zero overhead)")
+    p.add_argument("--fault-seed", type=int, default=0, dest="fault_seed",
+                   metavar="S",
+                   help="seed for the fault plan + deterministic retry "
+                        "jitter (default 0)")
+    p.add_argument("--retry-max-attempts", type=int, default=3,
+                   dest="retry_max_attempts", metavar="N",
+                   help="attempts per transient-failure site (dataset "
+                        "reads, checkpoint I/O, distributed init) before "
+                        "giving up (default 3)")
+    p.add_argument("--retry-base-delay", type=float, default=0.05,
+                   dest="retry_base_delay", metavar="SEC",
+                   help="first retry backoff delay in seconds; doubles "
+                        "per attempt with deterministic jitter "
+                        "(default 0.05)")
+    p.add_argument("--retry-timeout", type=float, default=60.0,
+                   dest="retry_timeout", metavar="SEC",
+                   help="per-site wall-clock retry deadline: no new "
+                        "attempt starts after this many seconds "
+                        "(default 60)")
+
+
+def _elastic_args(p: argparse.ArgumentParser) -> None:
+    """The JAX ``_common_args``' health and elastic flags (config.py:
+    510-564), same spellings and defaults."""
+    p.add_argument("--elastic", action="store_true",
+                   help="survive rank loss: on peer failure the healthy "
+                        "ranks tear the process group down, re-elect a "
+                        "coordinator, join the smaller surviving world and "
+                        "resume from the newest verified checkpoint (see "
+                        "elastic.py; coordinator loss is not survivable; "
+                        "launch one process per rank, not under torchrun)")
+    p.add_argument("--elastic-dir", type=str, default=None,
+                   dest="elastic_dir", metavar="DIR",
+                   help="shared rendezvous directory for --elastic "
+                        "(claim files + world.json; default "
+                        "RSL_PATH/elastic — already shared, the "
+                        "checkpoints live there)")
+    p.add_argument("--health-timeout", type=float, default=0.0,
+                   dest="health_timeout", metavar="SEC",
+                   help="bound the boundary health agreement: if the "
+                        "agree_health all-gather does not complete in "
+                        "SEC seconds, treat it as a peer loss locally "
+                        "(reconfigure under --elastic, exit loudly "
+                        "otherwise) instead of hanging on a dead rank "
+                        "(default 0 = unbounded)")
+    p.add_argument("--max-reconfigures", type=int, default=3,
+                   dest="max_reconfigures", metavar="N",
+                   help="cap on elastic reconfigure rounds (shrink or "
+                        "grow) per process; exceeding it exits with the "
+                        "underlying error (default 3)")
+    p.add_argument("--elastic-target", type=str, default="capacity",
+                   dest="elastic_target", metavar="POLICY",
+                   help="autoscaling admission policy for join claims "
+                        "at each health boundary: 'capacity' admits "
+                        "every claim (scale to whatever shows up), "
+                        "'fixed:N' admits only up to a world of N "
+                        "(default capacity)")
+    p.add_argument("--elastic-min-world", type=int, default=1,
+                   dest="elastic_min_world", metavar="N",
+                   help="floor for elastic grow admissions: a join "
+                        "batch whose admission would still leave the "
+                        "world below N is declined whole — the "
+                        "reconfigure window is not worth paying "
+                        "(default 1)")
+    p.add_argument("--elastic-join", action="store_true",
+                   dest="elastic_join",
+                   help="join a running --elastic world instead of "
+                        "initializing one: drop a join claim in "
+                        "--elastic-dir, wait for the coordinator's "
+                        "admit/decline verdict, and enter the grown "
+                        "world at the rank it assigns (fresh capacity "
+                        "or a departed rank restarting)")
+    p.add_argument("--elastic-join-wait", type=float, default=600.0,
+                   dest="elastic_join_wait", metavar="S",
+                   help="how long a joiner waits for the coordinator's "
+                        "admit/decline verdict before emitting "
+                        "elastic/join_wait_timeout and giving up; must "
+                        "dominate an epoch plus a reconfigure window "
+                        "(default 600)")
+
+
 def _pretrained_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--use-pretrained", action="store_true",
                    dest="use_pretrained",
@@ -563,6 +699,8 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
     _model_parallel_arg(p)
     _device_arg(p, action)
     _observability_args(p)
+    _fault_args(p)
+    _elastic_args(p)
     _refused_args(p, REFUSED_TRAIN_TEST)
 
 
@@ -653,6 +791,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-max-requests", type=int, default=0,
                    dest="serve_max_requests", metavar="N",
                    help="stop after answering N requests (0 = forever)")
+    _fault_args(p)
     _refused_args(p, REFUSED_SERVE)
     _offline_parsers(sub)
     return parser

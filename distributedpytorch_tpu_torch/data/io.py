@@ -183,7 +183,8 @@ def load_raw(dataset: str, data_path: str, synthetic_fallback: bool = False):
     try:
         out = faults.retry(
             _dispatch, "data.read",
-            transient=(PermissionError, InterruptedError, TimeoutError))
+            transient=(PermissionError, InterruptedError,
+                       faults.InjectedIOError, TimeoutError))
         if out is not None:
             return out
     except FileNotFoundError as e:

@@ -24,8 +24,9 @@ takes a fresh one from PyTorch's caching host allocator, which hands a
 block out again only after the events of the copies that read it have
 completed; the device tensors are marked used on the consumer's stream
 (``record_stream``).  On the CPU the copy is the identity and the threads
-and queues run as on the card.  ``reshard`` (elastic) and the
-``data.host_batch`` fault hook are not ported yet.
+and queues run as on the card.  ``reshard`` builds the loader of a new
+elastic world, and the ``data.host_batch`` fault site wraps the host
+gather only while a fault plan targets it (``_host_batch_fn``).
 
 Both loaders shard alike.  Rank r of W takes the sampler's strided slice
 r::W, so the global batch of a step is rank-major, rows [r*B, (r+1)*B)
@@ -49,7 +50,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import faults, telemetry
 from .datasets import Split
 from .sampler import ShardedSampler
 
@@ -142,6 +143,10 @@ class ShardedLoader:
                  rank: int = 0, model_parallel: int = 1, prefetch: int = 2,
                  producer_threads: int = 0, device_prefetch: int = 0):
         self.device = torch.device(device)
+        self.split = split
+        self.shuffle = bool(shuffle)
+        self.seed = seed
+        self.model_parallel = int(model_parallel)
         self.batch_per_replica = int(batch_size)
         self.world = int(world)
         self.rank = int(rank)
@@ -210,6 +215,24 @@ class ShardedLoader:
         for run in runs:
             self._shutdown_run(run)
 
+    def reshard(self, mesh) -> "ShardedLoader":
+        """A fresh loader over the same split and settings for the world
+        of ``mesh`` (``runtime.Mesh``): the elastic reconfigure's (JAX
+        pipeline.py:280-297).  A rank's slices are a function of
+        (num_samples, world, rank, seed, epoch) only, so the new loader
+        enumerates exactly what a loader born at that world would.  No
+        state carries over: the old world's threads and queues are
+        released first."""
+        self.release()
+        return ShardedLoader(
+            self.split, self.batch_per_replica, self.shuffle, self.seed,
+            self.device,
+            world=mesh.data_parallel * mesh.model_parallel,
+            rank=mesh.data_index * mesh.model_parallel + mesh.model_index,
+            model_parallel=mesh.model_parallel, prefetch=self.prefetch,
+            producer_threads=self.producer_threads,
+            device_prefetch=self.device_prefetch)
+
     # -- one step's batch ----------------------------------------------------
 
     def _host_batch(self, per_rank, step: int):
@@ -228,9 +251,26 @@ class ShardedLoader:
             out.append(torch.index_select(src, 0, idx, out=dst))
         return out[0], out[1], valid
 
+    def _host_batch_fn(self):
+        """``self._host_batch``, or its fault-firing and retrying twin
+        when the installed fault plan targets ``data.host_batch`` (JAX
+        pipeline.py:313-330): resolved once an epoch, so without a plan
+        the per-step path carries no fault plumbing."""
+        if not faults.targets("data.host_batch"):
+            return self._host_batch
+
+        def faulty(per_rank, step):
+            def attempt():
+                faults.fire("data.host_batch")
+                return self._host_batch(per_rank, step)
+
+            return faults.retry(attempt, "data.host_batch")
+
+        return faulty
+
     def _host_batches(self, epoch: int):
         per_rank = [s.epoch_indices(epoch) for s in self.samplers]
-        host_batch = self._host_batch
+        host_batch = self._host_batch_fn()
         for step in range(self.batches_per_epoch):
             yield host_batch(per_rank, step)
 
@@ -393,7 +433,7 @@ class ShardedLoader:
         ``copy``): (threads, queues)."""
         n = self.producer_threads
         per_rank = [s.epoch_indices(epoch) for s in self.samplers]
-        host_batch = self._host_batch
+        host_batch = self._host_batch_fn()
         queues = [queue_mod.Queue(maxsize=max(1, self.prefetch))
                   for _ in range(n)]
         put = self._putter(stop)
@@ -453,7 +493,7 @@ class ShardedLoader:
 
             def host_stream():
                 per_rank = [s.epoch_indices(epoch) for s in self.samplers]
-                host_batch = self._host_batch
+                host_batch = self._host_batch_fn()
                 for step in range(nb):
                     if stop.is_set():
                         return

@@ -19,6 +19,17 @@ cards (NCCL refuses two ranks on one card), the device staying ``cuda``.
 (``runtime.py:192-220``) with process groups, for ``--model-parallel``:
 ``ring_shift`` and ``all_gather_seq`` are the ring attention's traffic
 over a model group.
+
+``agree_health`` is the JAX bounded health agreement (``runtime.py:
+275-350``): one all-gather of three flags at each epoch boundary.  It runs
+on host memory over a gloo group kept for it alone (``health_group``),
+even in an NCCL world, created once a world with the ``--health-timeout``
+as its timeout, so that a peer that never arrives surfaces as gloo's own
+timeout error (``faults.HealthTimeoutError``) and nothing is left blocked
+on a thread.  A world after an elastic reconfigure is joined through a
+``TCPStore`` at the address its coordinator published (``init_world``,
+``elastic.py``); ``teardown_distributed`` aborts an NCCL communicator
+before it destroys the group.
 """
 
 from __future__ import annotations
@@ -30,6 +41,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from . import faults
+
+# The process group's own timeout (a blocked collective on a live peer).
+GROUP_TIMEOUT = timedelta(minutes=10)
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -94,7 +110,9 @@ def backend_for(device: torch.device) -> str:
 def initialize_distributed(device: torch.device) -> Optional[str]:
     """Join the launcher's world (env:// rendezvous) on the backend that
     ``device`` calls for; returns the backend, or None for a plain launch.
-    Idempotent."""
+    Idempotent.  The init runs under the process retry policy at fault
+    site ``runtime.init`` (JAX runtime.py:122-136): a coordinator that is
+    not up yet is the canonical transient failure."""
     if not launched_distributed():
         return None
     if dist.is_initialized():
@@ -112,13 +130,99 @@ def initialize_distributed(device: torch.device) -> Optional[str]:
     if backend == "nccl":
         torch.cuda.set_device(device)
         kwargs["device_id"] = device
-    dist.init_process_group(backend, init_method="env://", world_size=world,
-                            rank=rank, timeout=timedelta(minutes=10),
-                            **kwargs)
+
+    def _init():
+        faults.fire("runtime.init")
+        dist.init_process_group(backend, init_method="env://",
+                                world_size=world, rank=rank,
+                                timeout=GROUP_TIMEOUT, **kwargs)
+
+    faults.retry(_init, "runtime.init",
+                 transient=(OSError, TimeoutError, RuntimeError))
     return backend
 
 
+_store = None   # the TCPStore of an elastic generation's world
+
+
+def init_world(coordinator: str, world: int, rank: int, backend: str,
+               device: torch.device, store=None) -> None:
+    """Join an elastic generation's world: a ``TCPStore`` at
+    ``coordinator`` ("host:port"; rank 0 passes the server ``store`` it
+    opened before publishing the address), then the process group of
+    ``world`` ranks on ``backend``."""
+    global _store
+    host, port = coordinator.rsplit(":", 1)
+    if store is None:
+        store = dist.TCPStore(host, int(port), world, is_master=False,
+                              timeout=GROUP_TIMEOUT)
+    kwargs = {}
+    if backend == "nccl":
+        torch.cuda.set_device(device)
+        kwargs["device_id"] = device
+    dist.init_process_group(backend, store=store, world_size=world,
+                            rank=rank, timeout=GROUP_TIMEOUT, **kwargs)
+    _store = store
+
+
+def open_store(world: int):
+    """The server of the next generation's ``TCPStore``, on a port the
+    system picks (read back from ``store.port``): bound before its
+    address is published, so no follower can race its start."""
+    host = os.environ.get("DPT_ELASTIC_HOST", "127.0.0.1")
+    return dist.TCPStore(host, 0, world, is_master=True,
+                         timeout=GROUP_TIMEOUT, wait_for_workers=False), host
+
+
+def join_distributed(elastic_dir: str, device: torch.device,
+                     timeout_s: Optional[float] = None) -> dict:
+    """Enter a running ``--elastic`` world as a joiner (JAX
+    runtime.py:141-166): drop a join claim in the rendezvous directory,
+    wait for the world's coordinator to admit it at a health boundary,
+    and join at the rank the admit marker assigns
+    (``elastic.join_world``).  Returns the join info."""
+    if distributed():
+        raise RuntimeError("join_distributed: the process group is "
+                           "already initialized in this process")
+    from . import elastic
+
+    return elastic.join_world(elastic_dir, device, timeout_s)
+
+
+def teardown_distributed() -> None:
+    """End this process's part in the current world, whatever state its
+    peers are in: the health group dropped, an NCCL communicator aborted
+    first (destroying one whose peer is gone can hang), then the group
+    destroyed.  Closing this process's gloo sockets is what wakes a peer
+    still blocked in a collective on a live neighbour (``elastic.py``)."""
+    global _health, _store
+    _health = None
+    if not distributed():
+        _store = None
+        return
+    if dist.get_backend() == "nccl":
+        from torch.distributed import distributed_c10d as c10d
+
+        abort = getattr(c10d, "_abort_process_group", None)
+        try:
+            if abort is not None:
+                abort()
+            else:
+                dist.group.WORLD.abort()
+        # broad on purpose: the communicator is being thrown away, and a
+        # failed abort must not stop the teardown
+        except Exception as e:
+            import logging
+
+            logging.warning(f"NCCL abort during teardown: {e}")
+    if distributed():
+        dist.destroy_process_group()
+    _store = None
+
+
 def shutdown_distributed() -> None:
+    global _health, _store
+    _health = _store = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -126,6 +230,11 @@ def shutdown_distributed() -> None:
 def distributed() -> bool:
     """True when this process is a rank of a process group."""
     return dist.is_available() and dist.is_initialized()
+
+
+def backend() -> Optional[str]:
+    """The live process group's backend, or None without one."""
+    return dist.get_backend() if distributed() else None
 
 
 def process_index() -> int:
@@ -257,15 +366,58 @@ def all_gather_seq(mesh: Mesh, x: torch.Tensor, dim: int = 1
     return torch.cat(parts, dim=dim).to(x.device)
 
 
-def any_process(flag: bool) -> bool:
-    """True when ``flag`` is true on any rank (one all-reduce)."""
-    if not (distributed() and dist.get_world_size() > 1):
-        return bool(flag)
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if dist.get_backend() == "nccl" else torch.device("cpu"))
-    t = torch.tensor([int(bool(flag))], device=device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return bool(t.item())
+_health = None      # (timeout seconds or None, the gloo group)
+
+
+def health_group(timeout_s: Optional[float] = None):
+    """The gloo group of ``agree_health``, created on the first call of a
+    world (collective: every rank calls it at the same point, as the
+    world's first boundary or its start) with ``timeout_s`` as its
+    timeout (None or 0: ``GROUP_TIMEOUT``), and again when the timeout
+    asked for changes."""
+    global _health
+    timeout_s = timeout_s or None
+    if _health is None or _health[0] != timeout_s:
+        timeout = (GROUP_TIMEOUT if timeout_s is None
+                   else timedelta(seconds=timeout_s))
+        _health = (timeout_s, dist.new_group(backend="gloo",
+                                             timeout=timeout))
+    return _health[1]
+
+
+def agree_health(failed: bool, shutdown: bool,
+                 timeout_s: Optional[float] = None,
+                 grow: bool = False) -> tuple:
+    """(any_failed, any_shutdown, any_grow) across every rank, from ONE
+    all-gather of the three flags (JAX runtime.py:275-350): a rank that
+    failed reports it here instead of raising out of the loop, so its
+    peers learn of it through a collective they all reach; a rank that
+    saw an admissible join claim votes to grow, and one vote suffices.
+
+    The exchange runs on host memory over ``health_group(timeout_s)``:
+    a peer that never reaches the boundary makes gloo time out after
+    ``timeout_s`` (--health-timeout), raised here as
+    ``faults.HealthTimeoutError``; a peer whose process is gone surfaces
+    as gloo's connection error, raised as it is.  One process: no
+    communication."""
+    if process_count() == 1:
+        return bool(failed), bool(shutdown), bool(grow)
+    group = health_group(timeout_s)
+    mine = torch.tensor([bool(failed), bool(shutdown), bool(grow)],
+                        dtype=torch.uint8)
+    flags = [torch.empty_like(mine) for _ in range(process_count())]
+    try:
+        dist.all_gather(flags, mine, group=group)
+    except RuntimeError as e:
+        if "timed out" in str(e).lower():
+            raise faults.HealthTimeoutError(
+                f"health agreement did not complete within {timeout_s}s"
+                f" — a peer died or wedged before reaching the boundary "
+                f"({e})") from e
+        raise
+    flags = torch.stack(flags)
+    return (bool(flags[:, 0].any()), bool(flags[:, 1].any()),
+            bool(flags[:, 2].any()))
 
 
 def check_single_process(what: str) -> None:

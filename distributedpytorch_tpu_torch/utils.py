@@ -52,9 +52,16 @@ def quiet_logging() -> None:
 
 
 class GracefulShutdown:
-    """SIGTERM/SIGINT set ``requested``; the serving loop checks it between
-    batches and stops cleanly.  A second signal restores the previous
-    handler and re-raises.  No-op outside the main thread."""
+    """SIGTERM/SIGINT set ``requested``; the training loop agrees on it at
+    the next epoch (or chunk) boundary, after the rolling checkpoint, and
+    stops every rank there; the serving loop checks it between batches.
+    A second signal restores the previous handler and re-raises, so a
+    hung step stays abortable.  No-op outside the main thread.  The JAX
+    ``GracefulShutdown`` (utils.py:49-119), driven by the ``preempt``
+    fault kind as by a real signal: the handler's audit writes go through
+    the telemetry and flight-recorder sinks, whose locks are re-entrant
+    (the handler may interrupt a frame holding them), and a failed write
+    is logged, never raised into the interrupted frame."""
 
     def __init__(self):
         self.requested = False
@@ -70,13 +77,19 @@ class GracefulShutdown:
         self.requested = True
         from . import flightrec, telemetry
 
-        telemetry.get().event("preempt_signal", signum=int(signum))
-        # the black box survives a grace window cut short
-        rec = flightrec.get()
-        rec.record_event("preempt_signal", signum=int(signum))
-        rec.dump("preempt_signal")
-        logging.warning(f"received signal {signum}: stopping after the "
-                        "current batch (repeat to abort immediately)")
+        try:
+            telemetry.get().event("preempt_signal", signum=int(signum))
+            # the black box survives a grace window cut short
+            rec = flightrec.get()
+            rec.record_event("preempt_signal", signum=int(signum))
+            rec.dump("preempt_signal")
+        # broad on purpose: an exception escaping a signal handler is
+        # raised into the interrupted frame
+        except Exception:
+            logging.exception("preempt handler: audit write failed")
+        logging.warning(
+            f"received signal {signum}: finishing the current epoch, "
+            "then checkpointing and exiting (repeat to abort immediately)")
 
     def __enter__(self):
         if threading.current_thread() is threading.main_thread():

@@ -378,6 +378,7 @@ NOT_PORTED = [
     (["--elastic"], "--elastic"),
     (["--elastic-join"], "--elastic-join"),
     (["--elastic-dir", "/x"], "--elastic-dir"),
+    # ported: taken, its serve.* sites live
     (["--fault-plan", "data.read:ioerror:0"], "--fault-plan"),
     (["--metrics-port", "9100"], "--metrics-port"),
     (["--flightrec"], "--flightrec"),
@@ -394,11 +395,16 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
     """Each flag fails with one line; --model-parallel with the JAX serve's
     message (it does not apply to a replica), --precision against --no-bf16
     with the JAX conflict, every other one as not ported yet; --remat is
-    ported and taken (nothing of serve reads it)."""
+    ported and taken (nothing of serve reads it), and so is --fault-plan
+    (the serve.* sites fire under it)."""
     argv = ["serve", "-d", "/nonexistent", "-f", "/nonexistent.ckpt",
             "--device", "cpu"] + extra
     if flag == "--remat blocks":
         assert tconfig.config_from_argv(argv).remat == "blocks"
+        return
+    if flag == "--fault-plan":
+        assert tconfig.config_from_argv(argv).fault_plan == \
+            "data.read:ioerror:0"
         return
     message = f"not ported yet: {flag}"
     if flag.startswith("--precision"):

@@ -610,8 +610,9 @@ def test_test_on_a_jax_written_checkpoint_gives_the_jax_accuracy(tmp_path):
 REFUSED = [
     # ported: refused only where the JAX package refuses them; f16 on the
     # ring, --ckpt-async, --epochs-per-dispatch, --data-mode stream, the
-    # streaming loader's flags, --remat, and the observability and
-    # compile-cache flags are taken
+    # streaming loader's flags, --remat, the observability and
+    # compile-cache flags, and the fault, health and elastic ones are
+    # taken
     (["--grad-accum", "3"], "--grad-accum"),
     (["--precision", "f16", "--attention", "ring_flash", "--model-parallel",
       "2"], "--precision f16"),
@@ -681,6 +682,14 @@ REFUSED_MESSAGES = {
         "--aot-warmup", "--profile", "--anomaly-capture",
         "--anomaly-window", "--compilation-cache-dir", "--no-compile-cache",
         "--metrics-port", "--flightrec")},
+    **{flag: dict.fromkeys(("train", "test"), None) for flag in (
+        "--elastic", "--health-timeout", "--max-reconfigures",
+        "--fault-plan")},
+    "--elastic-join": {
+        "train": re.escape(
+            "--elastic-join requires --elastic: a joiner becomes a normal "
+            "elastic member and must keep reconfiguring with its world"),
+        "test": None},
     "--use-pretrained": {
         "train": re.escape(
             "use_pretrained is not supported for 'vit' (supported: resnet, "
@@ -725,7 +734,9 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                        profile=False, anomaly_capture=False,
                        anomaly_window=32, compilation_cache_dir=None,
                        no_compile_cache=False, metrics_port=0,
-                       flightrec=True)
+                       flightrec=True, elastic=False, elastic_join=False,
+                       health_timeout=0.0, max_reconfigures=3,
+                       fault_plan=None)
         changed = {"--grad-accum": {"grad_accum": 3},
                    "--ckpt-async": {"ckpt_async": True},
                    "--epochs-per-dispatch": {"epochs_per_dispatch": 2},
@@ -741,7 +752,13 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                    "--compilation-cache-dir": {"compilation_cache_dir": "/x"},
                    "--no-compile-cache": {"no_compile_cache": True},
                    "--metrics-port": {"metrics_port": 9100},
-                   "--flightrec": {}}[flag]
+                   "--flightrec": {},
+                   "--elastic": {"elastic": True},
+                   "--elastic-join": {"elastic_join": True},
+                   "--health-timeout": {"health_timeout": 5.0},
+                   "--max-reconfigures": {"max_reconfigures": 1},
+                   "--fault-plan": {
+                       "fault_plan": "data.read:ioerror:0"}}[flag]
         assert {k: getattr(cfg, k) for k in default} == \
             {**default, **changed}
         return
