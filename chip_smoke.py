@@ -32,6 +32,11 @@ or the phase of fault plans and elastic worlds:
 
     python3 chip_smoke.py --phases 39
 
+or the phase of ``serve`` as an elastic world of replicas and the fleet
+collector:
+
+    python3 chip_smoke.py --phases 40
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -346,19 +351,48 @@ result.  Phases, each printing its lines before the last:
      ``--health-timeout 3``: rank 1 has ``HealthTimeoutError`` within
      3-5 s of its last event and both exit 1.  It runs on a thread of its
      own from after phase 22, beside the other CLI phases;
- 40. the card's name and power limit again, one ``{"kernels": [...]}``
+ 40. ``serve`` as an elastic world of replicas: the full-width vit
+     (``--attention flash``, bf16) from a port checkpoint A, two replicas
+     as a 2-rank ``--elastic`` gloo world on the one card, each on
+     ``--serve-port`` + its rank with ``--metrics-port`` and the flight
+     recorder, and a ``fleet`` collector under an error-rate
+     ``--slo-spec``; every wave a full bucket of 64 (one batch at a 5 s
+     flush deadline, so the fault plan's batch counts are known): (a)
+     concurrent waves to both replicas, each replica's K1 launches read
+     from its telemetry gauges on ``/metrics`` and held to 4 x (batches +
+     warm-up buckets), all on the tensor cores, then a wave to replica 0
+     from clients that connect and send with one ``sendall`` each; (b) ``/admin/reload`` to
+     a second checkpoint B (another seed) on replica 0, the lineage sha
+     changed on ``/livez`` and in the exporter's ``/healthz`` ``serve``
+     block, and a wave of B's answers; (c) no incident over the clean
+     traffic, then a ``serve.infer`` ioerror burst of two waves sent
+     together to replica 1 (two batches back to back, one episode
+     however slow the host): exactly one incident bundle, naming rank 1
+     and at least a batch of its failed request ids; (d) a ``serve.infer`` ``rank_loss`` on replica 1:
+     replica 0 logs ``elastic/reconfigure`` with ``purpose: "serve"`` and
+     a world of 1, answers on the same port with B's predictions, the
+     fleet's ``dpt_up`` drops to 1, and SIGTERM drains it to exit 0, its
+     K1 launches held to 4 x (batches + 3 builds x warm-up buckets); each
+     request's ``admit()`` offset from its wave's first send (ROADMAP
+     queue 3 entry 4), the swap's warm-up and ``elastic_reconfigure``
+     printed.  Every answer is held against the in-process predict step
+     of its checkpoint at its bucket (label, and confidence to 1e-4) at
+     the end of the run, when no other phase counts launches.  It runs
+     on a thread of its own from before phase 21, beside phase 21;
+ 41. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
 Phases run in the order of their numbers but for these changes: 23, 24,
 32, the in-process parts of 35, 36 and 38, and 37, which time steps and
 kernels, run before 21; the exit test's five trainings (31) and 38's
-five CLI trainings start then and run beside 21, 22 and 25-36; phase
+five CLI trainings start then and run beside 21, 22 and 25-36, and 40's
+world of replicas beside 21; 39's thread starts after 22; phase
 33's three f16 worlds start with phase 19's; the CLI runs of 18, 27, 29,
 30, 33, 34, 35 and 36 start after 22 and run beside 25, 26 and 28 (18's
 and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
-35, 36 and 38's last checks, then 39's, come last.  Nothing after 38's
+35, 36 and 38's last checks, then 39's and 40's, come last.  Nothing after 38's
 in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
@@ -376,6 +410,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -766,9 +801,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def build_checkpoint(path: str) -> None:
-    """The registry's full-width vit with random weights from SEED, saved
-    in the port's checkpoint format."""
+def build_checkpoint(path: str, seed: int = SEED) -> None:
+    """The registry's full-width vit with random weights from ``seed``,
+    saved in the port's checkpoint format."""
     import torch
 
     from distributedpytorch_tpu_torch import checkpoint as ckpt
@@ -777,7 +812,8 @@ def build_checkpoint(path: str) -> None:
 
     model = get_model("vit", 10, PRESETS["bf16"], attention="flash",
                       device="cpu")
-    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.init_weights(torch.Generator().manual_seed(seed))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     ckpt.save_checkpoint(path, "vit", model, epoch=0, best_valid_loss=0.0)
 
 
@@ -6146,7 +6182,8 @@ HEALTH_TIMEOUT_S = 3.0
 STALL_S = 8.0                   # (d): rank 0's stall at its first save
 TOL_ELASTIC = 1e-5
 ELASTIC_WAIT_S = 420.0
-ELASTIC_PROCS = []              # phase 39's processes, stopped at the end
+ELASTIC_PROCS = []              # phases 39's and 40's processes, stopped
+                                # at the end
 
 
 def elastic_args(rsl: str, epochs: int) -> list:
@@ -6437,8 +6474,453 @@ def finish_elastic_phase(pending: dict) -> None:
         fail(f"phase 39 did not pass: {pending.get('error')!r}")
 
 
+# -- phase 40: serve as an elastic world of replicas, and the fleet ---------
+
+SERVE_WAVE = 64                 # one full bucket: one batch a wave
+# every wave of this phase is a full bucket, which dispatches at once; a
+# partial one would wait out this deadline, so a wave is one batch and the
+# fault plan's serve.infer hits (batches) are known in advance
+SERVE_FLUSH_MS = 5000
+SERVE_WAVES_A = 2               # (a): waves a replica
+SERVE_BURST = 2                 # (c): replica 1's failed waves
+# replica 1's serve.infer hits: (a)'s waves, then the burst, then the loss
+SERVE_PLAN = {"faults": [
+    {"site": "serve.infer", "kind": "ioerror", "after_n": SERVE_WAVES_A,
+     "count": SERVE_BURST, "rank": 1},
+    {"site": "serve.infer", "kind": "rank_loss",
+     "after_n": SERVE_WAVES_A + SERVE_BURST, "count": 1, "rank": 1}]}
+SERVE_SLO = {"slos": [{
+    "name": "serve-errors", "kind": "ratio",
+    "bad": "dpt_serve_failed_total", "total": "dpt_serve_requests_total",
+    "target": 0.9,
+    "windows": [{"seconds": 2.0, "burn": 2.0},
+                {"seconds": 8.0, "burn": 1.0}]}]}
+SERVE_WAIT_S = 300.0
+
+
+def free_ports(n: int) -> int:
+    """The first of ``n`` consecutive free ports (a replica's port is the
+    base plus its rank)."""
+    for _ in range(50):
+        base = free_port()
+        try:
+            for p in range(base, base + n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+    fail("no run of free ports")
+
+
+def http_json(port: int, path: str, doc=None, timeout: float = 30.0):
+    """GET (``doc`` None) or POST ``doc``; (status, parsed body, the
+    X-DPT-Request-Id header)."""
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read().decode()
+            return (r.status, body if path == "/metrics" else
+                    json.loads(body), r.headers.get("X-DPT-Request-Id"))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get(
+            "X-DPT-Request-Id")
+
+
+def raw_request(port: int, request: bytes) -> tuple:
+    """One HTTP exchange on a socket of its own, the request sent with one
+    ``sendall``: (status, parsed body, X-DPT-Request-Id)."""
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as sk:
+        sk.sendall(request)
+        data = b""
+        while True:
+            chunk = sk.recv(65536)
+            if not chunk:
+                break
+            data += chunk
+    head, _, payload = data.partition(b"\r\n\r\n")
+    lines = head.decode().split("\r\n")
+    rid = next((line.split(":", 1)[1].strip() for line in lines[1:]
+                if line.lower().startswith("x-dpt-request-id:")), None)
+    return int(lines[0].split()[1]), json.loads(payload), rid
+
+
+def serve_wave(port: int, images, raw: bool = False) -> dict:
+    """One wave of ``len(images)`` concurrent requests released by a
+    barrier: each request's status, body, id and monotonic send time, and
+    the wave's start (the first send).  A request whose connection dies
+    has status None.  ``raw``: each client connects and sends its
+    pre-built request with one ``sendall`` (the least client work), else
+    through urllib."""
+    n = len(images)
+    bodies = [json.dumps({"image": img.tolist()}).encode() for img in images]
+    requests = [(f"POST /predict HTTP/1.1\r\nHost: localhost\r\n"
+                 f"Content-Length: {len(b)}\r\nConnection: close\r\n\r\n"
+                 ).encode() + b for b in bodies]
+    barrier = threading.Barrier(n)
+    out = [None] * n
+
+    def client(i):
+        barrier.wait(timeout=120)
+        sent = time.monotonic()
+        try:
+            if raw:
+                out[i] = raw_request(port, requests[i]) + (sent,)
+                return
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=bodies[i])
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out[i] = (r.status, json.loads(r.read()),
+                          r.headers.get("X-DPT-Request-Id"), sent)
+        except urllib.error.HTTPError as e:
+            out[i] = (e.code, json.loads(e.read()),
+                      e.headers.get("X-DPT-Request-Id"), sent)
+        except OSError as e:
+            out[i] = (None, {"error": repr(e)}, None, sent)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if any(th.is_alive() for th in threads):
+        fail(f"serve world: a wave to :{port} did not complete")
+    return {"answers": out, "start": min(o[3] for o in out)}
+
+
+def serve_gauges(mport: int) -> dict:
+    """A replica's telemetry gauges and counters, from its exporter's
+    /metrics (the port's fleet parser)."""
+    from distributedpytorch_tpu_torch import fleet
+
+    _, text, _ = http_json(mport, "/metrics")
+    parsed = fleet.parse_metrics(text)
+    return {**parsed["counters"], **parsed["gauges"]}
+
+
+def wait_for(what: str, fn, timeout_s: float = SERVE_WAIT_S):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            got = fn()
+        except (OSError, ValueError, TypeError, KeyError):
+            got = None
+        if got:
+            return got
+        time.sleep(0.25)
+    fail(f"serve world: {what} within {timeout_s:g}s")
+
+
+def phase_serve_world(card: str) -> dict:
+    """Phase 40 (a)-(d) on a thread of its own; returns what the closing
+    check (``finish_serve_world_phase``) holds against the in-process
+    predict step, which must not launch K1 while other phases count."""
+    from distributedpytorch_tpu_torch import tracing
+
+    rsl = os.path.join(WORK, "serve_world")
+    os.makedirs(rsl)
+    ckpt_a = os.path.join(WORK, "serve_a", "bestmodel-mnist-vit.ckpt")
+    ckpt_b = os.path.join(WORK, "serve_b", "bestmodel-mnist-vit.ckpt")
+    build_checkpoint(ckpt_a)
+    build_checkpoint(ckpt_b, seed=SEED + 1)
+    plan, spec = (os.path.join(WORK, n) for n in ("serve_plan.json",
+                                                  "serve_slo.json"))
+    with open(plan, "w") as f:
+        json.dump(SERVE_PLAN, f)
+    with open(spec, "w") as f:
+        json.dump(SERVE_SLO, f)
+    port, mport, fport = free_ports(2), free_ports(2), free_port()
+    args = ["serve", "-d", os.path.join(WORK, "data"), "--rsl_path", rsl,
+            "-f", ckpt_a, "--attention", "flash", "--precision", "bf16",
+            "--synthetic-fallback", "--device", "cuda",
+            "--serve-buckets", ",".join(str(b) for b in BUCKETS),
+            "--serve-max-latency-ms", str(SERVE_FLUSH_MS),
+            "--serve-port", str(port), "--metrics-port", str(mport),
+            "--elastic", "--health-timeout", "30", "--fault-plan", plan]
+    world = start_ranks("serve_world", args, 2)
+    logs = [log for _, _, log in world]
+    flog = os.path.join(WORK, "serve_fleet.log")
+    with open(flog, "w") as f:
+        coll = subprocess.Popen(
+            [sys.executable, "-m", "distributedpytorch_tpu_torch", "fleet",
+             "--rsl_path", rsl, "--metrics-port", str(mport), "--ranks",
+             "2", "--fleet-port", str(fport), "--interval", "0.25",
+             "--stale-after", "4", "--slo-spec", spec], cwd=ROOT,
+            stdout=f, stderr=subprocess.STDOUT)
+    ELASTIC_PROCS.append(coll)
+    got = {"ckpts": (ckpt_a, ckpt_b), "waves": []}
+    t_live = time.monotonic()
+    for r in (0, 1):
+        wait_for(f"replica {r} live", lambda: http_json(
+            port + r, "/livez")[1]["ok"])
+    wait_for("the collector seeing both replicas", lambda: http_json(
+        fport, "/fleet")[1]["alive"] == [0, 1])
+    say(f"serve world: 2 replicas (gloo, one card) and the collector live "
+        f"{time.monotonic() - t_live:.1f}s after their start")
+    ds = work_dataset()
+    images = got["images"] = ds.splits["test"].images
+    row = 0
+
+    rows_lock = threading.Lock()
+
+    def wave(r, ckpt, phase, raw=False):
+        nonlocal row
+        with rows_lock:  # waves are sent from threads of their own
+            rows = list(range(row, row + SERVE_WAVE))
+            row += SERVE_WAVE
+        out = serve_wave(port + r, images[rows], raw)
+        got["waves"].append({"replica": r, "ckpt": ckpt, "phase": phase,
+                             "rows": rows, **out})
+        return out
+
+    # (a) concurrent waves to both replicas, then K1's launches of each
+    for _ in range(SERVE_WAVES_A):
+        done = [None, None]
+        clients = [threading.Thread(target=lambda r=r: done.__setitem__(
+            r, wave(r, ckpt_a, "a"))) for r in (0, 1)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+    bad = [(w["replica"], a[:2]) for w in got["waves"]
+           for a in w["answers"] if a[0] != 200]
+    if bad:
+        fail(f"serve world (a): {len(bad)} requests failed, e.g. {bad[0]}")
+    lineage = {}
+    for r in (0, 1):
+        g = serve_gauges(mport + r)
+        launches = g["dpt_kernel_flash_fwd_launches"]
+        tc = g["dpt_kernel_flash_fwd_tensor_core_launches"]
+        warm = g["dpt_kernel_flash_fwd_warmup_launches"]
+        batches = g["dpt_serve_batches_total"]
+        want = DEPTH * (batches + len(BUCKETS))
+        say(f"serve world (a): replica {r}: K1 launches {launches:g} = "
+            f"{DEPTH} x ({batches:g} batches + {len(BUCKETS)} warm-up "
+            f"forwards) -> expected {want:g}; {tc:g} on the tensor cores, "
+            f"{warm:g} in warm-up (telemetry gauges on /metrics)")
+        if batches != SERVE_WAVES_A or launches != want or tc != launches \
+                or warm != DEPTH * len(BUCKETS):
+            fail(f"serve world (a): replica {r}'s K1 launches do not match "
+                 f"its batches on the tensor cores")
+        lineage[r] = http_json(port + r, "/livez")[1]["checkpoint"]["sha256"]
+    # entry 4's control: a wave whose clients connect and send with the
+    # least client work (one sendall each)
+    wave(0, ckpt_a, "raw", raw=True)
+    if any(a[0] != 200 for a in got["waves"][-1]["answers"]):
+        fail("serve world (a): the raw wave failed")
+    # (b) the hot-swap to B on replica 0, then a wave of B's answers
+    t0 = time.perf_counter()
+    status, body, _ = http_json(port, "/admin/reload",
+                                {"checkpoint": ckpt_b}, timeout=180)
+    reload_s = time.perf_counter() - t0
+    if status != 200 or not body.get("reloaded"):
+        fail(f"serve world (b): /admin/reload answered {status}: {body}")
+    live = http_json(port, "/livez")[1]["checkpoint"]["sha256"]
+    health = http_json(mport, "/healthz")[1]["serve"]["checkpoint"]["sha256"]
+    warm_s = serve_gauges(mport)["dpt_compile_warmup_s"]
+    say(f"serve world (b): replica 0 hot-swapped A -> B in {reload_s:.3f}s "
+        f"(the swap's warm-up {warm_s:.3f}s); lineage sha "
+        f"{lineage[0][:12]} -> {live[:12]} on /livez, {health[:12]} on "
+        f"/healthz")
+    if live == lineage[0] or health != live \
+            or live != body["checkpoint"]["sha256"]:
+        fail("serve world (b): the lineage did not follow the swap")
+    got["swap"] = (reload_s, warm_s)
+    wave(0, ckpt_b, "b")
+    # (c) a clean control window wrote nothing; the burst writes one bundle
+    from distributedpytorch_tpu_torch import slo
+
+    time.sleep(1.0)
+    if slo.load_incidents(rsl):
+        fail("serve world (c): an incident on clean traffic")
+    # the burst's waves go together, so its batches fail back to back and
+    # the 2 s window sees one episode however slow the clients are
+    burst = [None] * SERVE_BURST
+    clients = [threading.Thread(target=lambda i=i: burst.__setitem__(
+        i, wave(1, ckpt_a, "burst"))) for i in range(SERVE_BURST)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=600)
+    codes = {a[0] for w in burst for a in (w or {"answers": [(None,)]})[
+        "answers"]}
+    if codes != {500}:
+        fail(f"serve world (c): the burst answered {codes}")
+    bundles = wait_for("the incident bundle", lambda: slo.load_incidents(
+        rsl), 30)
+    time.sleep(2.0)
+    bundles = slo.load_incidents(rsl)
+    failed = {rec["id"] for rec in tracing.load_records(rsl)
+              if rec["outcome"] == "failed"}
+    offenders = set(bundles[0]["offending_requests"]) if bundles else set()
+    # the bundle names the failed requests inside its triggering window:
+    # all of the burst's when the collector evaluates after the last
+    # batch, the first batch's when it fires between the two (a failed
+    # batch's records land before its failures are counted)
+    say(f"serve world (c): {len(bundles)} incident bundle(s) for a burst of "
+        f"{SERVE_BURST * SERVE_WAVE} failed requests on replica 1: slo "
+        f"{bundles[0]['slo']}, suspect ranks {bundles[0]['suspect_ranks']}, "
+        f"{len(offenders)} offending request ids "
+        f"({len(offenders & failed)} of them failed ones)")
+    if len(bundles) != 1 or bundles[0]["suspect_ranks"] != [1] \
+            or len(offenders) < SERVE_WAVE or not offenders <= failed \
+            or not all(o.startswith("r1-") for o in offenders):
+        fail("serve world (c): not exactly one bundle naming rank 1 and its "
+             "failed requests")
+    # (d) the rank loss on replica 1; replica 0 reconfigures and serves B
+    t_loss = time.monotonic()
+    w = serve_wave(port + 1, images[:SERVE_WAVE])
+    if any(a[0] is not None for a in w["answers"]):
+        fail("serve world (d): a request to the lost replica was answered")
+    try:
+        rc1 = world[1][1].wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        rc1 = None
+    rec = wait_for("replica 0's reconfigure", lambda: [
+        e["attrs"] for e in rank_events(rsl, 0, "elastic/reconfigure")
+        if e["attrs"].get("purpose") == "serve"], 120)
+    if rc1 != 113 or [r["new_world"] for r in rec] != [1]:
+        fail(f"serve world (d): replica 1 exited {rc1}; replica 0 "
+             f"reconfigured to {rec}")
+    wait_for("replica 0 rebuilt", lambda: http_json(port, "/livez")[1][
+        "checkpoint"]["sha256"] == live and http_json(
+        mport, "/healthz")[1]["elastic_generation"] == 1, 120)
+    wave(0, ckpt_b, "d")
+    if any(a[0] != 200 for a in got["waves"][-1]["answers"]):
+        fail("serve world (d): replica 0 did not answer after the "
+             "reconfigure")
+    fleet_doc = wait_for("rank 1 aging out of the fleet", lambda: (
+        lambda d: d if d["alive"] == [0] else None)(
+        http_json(fport, "/fleet")[1]), 60)
+    _, fleet_text, _ = http_json(fport, "/metrics")
+    say(f"serve world (d): replica 1 lost (exit {rc1}); replica 0 "
+        f"reconfigured to a world of 1 (purpose serve) and answered on "
+        f":{port} {time.monotonic() - t_loss:.1f}s after the loss; the "
+        f"fleet's alive ranks {fleet_doc['alive']}, "
+        f"{fleet_text.strip().splitlines()[-1]!r}")
+    if not fleet_text.endswith("dpt_up 1\n") or "1" in fleet_doc["targets"] \
+            or len(slo.load_incidents(rsl)) != 1:
+        fail("serve world (d): the fleet did not age rank 1 out cleanly")
+    world[0][1].send_signal(signal.SIGTERM)
+    try:
+        rc0 = world[0][1].wait(timeout=90)
+    except subprocess.TimeoutExpired:
+        rc0 = None
+    coll.terminate()
+    coll.wait(timeout=30)
+    if rc0 != 0:
+        with open(logs[0]) as f:
+            fail(f"serve world: replica 0 exited {rc0} on SIGTERM:\n"
+                 f"{f.read()[-3000:]}")
+    [k1] = [e["attrs"] for e in rank_events(rsl, 0, "kernel_launches")]
+    builds = 3                  # A, the swap to B, the rebuild after (d)
+    launches, tc = k1["launches"]["flash_fwd"], k1["tensor_core"]["flash_fwd"]
+    want = DEPTH * (k1["batches"] + builds * len(BUCKETS))
+    reconf = goodput_categories(rsl, 0)["elastic_reconfigure"]
+    say(f"serve world: replica 0 over its run: K1 launches {launches} = "
+        f"{DEPTH} x ({k1['batches']} batches + {builds} builds x "
+        f"{len(BUCKETS)} warm-up forwards) -> expected {want}; {tc} on the "
+        f"tensor cores; goodput elastic_reconfigure {reconf:.3f}s; exit 0 "
+        f"on SIGTERM")
+    if launches != want or tc != launches or k1["batches"] != 5 \
+            or k1["warmup"]["flash_fwd"] != DEPTH * builds * len(BUCKETS):
+        fail("serve world: replica 0's K1 launches do not match its batches "
+             "and builds on the tensor cores")
+    with open(os.path.join(rsl, "flightrec-rank0.json")) as f:
+        reasons = json.load(f)["reasons"]
+    if not {"reconfigure", "run_end"} <= set(reasons):
+        fail(f"serve world: replica 0's flight record reasons {reasons}")
+    # entry 4: each request's admit() against its wave's start
+    admits = {rec["id"]: rec["mono_admit"]
+              for rec in tracing.load_records(rsl)}
+    for w in got["waves"]:
+        offs = sorted(1e3 * (admits[a[2]] - w["start"])
+                      for a in w["answers"] if a[2] in admits)
+        sends = [1e3 * (a[3] - w["start"]) for a in w["answers"]]
+        w["admit_ms"] = (offs[len(offs) // 2], offs[-1], max(sends))
+    spreads = ", ".join(f"{w['phase']}/r{w['replica']} "
+                        f"{w['admit_ms'][0]:.1f}/{w['admit_ms'][1]:.1f}/"
+                        f"{w['admit_ms'][2]:.1f}" for w in got["waves"])
+    say(f"serve world: admit offsets from each wave's first send, p50/max "
+        f"ms, and the clients' last send: {spreads} on {card}")
+    got["reconfigure_s"] = reconf
+    say(f"serve world: (a)-(d) took {time.monotonic() - t_live:.1f}s from "
+        f"the replicas' start")
+    return got
+
+
+def finish_serve_world_checks(got: dict) -> None:
+    """Every answer of phase 40 held against the in-process predict step
+    of its checkpoint at its bucket (label, and confidence to TOL_CONF),
+    A's and B's told apart."""
+    import numpy as np
+
+    images = got["images"]
+    checked = mismatched = 0
+    for ckpt in got["ckpts"]:
+        waves = [w for w in got["waves"] if w["ckpt"] == ckpt
+                 and w["phase"] != "burst"]
+        rows = [r for w in waves for r in w["rows"]]
+        answers = [a for w in waves for a in w["answers"]]
+        served = np.array([a[1]["bucket"] for a in answers])
+        labels, confs, probs = reference_predictions(
+            ckpt, images[rows], served, "cuda")
+        got_labels = np.array([a[1]["label"] for a in answers])
+        got_confs = np.array([a[1]["confidence"] for a in answers])
+        top2 = np.sort(probs, axis=-1)[:, -2:]
+        tie = (top2[:, 1] - top2[:, 0]) <= TOL_CONF
+        err = float(np.abs(got_confs - confs).max())
+        bad = int(((got_labels != labels) & ~tie).sum())
+        say(f"serve world: {len(rows)} answers of "
+            f"{os.path.basename(os.path.dirname(ckpt))} vs its in-process "
+            f"predict step at bucket {sorted(set(served.tolist()))}: "
+            f"{int((got_labels == labels).sum())} labels equal "
+            f"({int(tie.sum())} within {TOL_CONF:g} of a tie), max conf err "
+            f"{err:.3g} (tol {TOL_CONF:g})")
+        checked += len(rows)
+        mismatched += bad + int(err > TOL_CONF)
+    a_ref = reference_predictions(got["ckpts"][0], images[:SERVE_WAVE],
+                                  np.full(SERVE_WAVE, SERVE_WAVE), "cuda")
+    b_ref = reference_predictions(got["ckpts"][1], images[:SERVE_WAVE],
+                                  np.full(SERVE_WAVE, SERVE_WAVE), "cuda")
+    differ = int((a_ref[0] != b_ref[0]).sum())
+    say(f"serve world: checkpoints A and B label {differ} of {SERVE_WAVE} "
+        f"rows differently")
+    if mismatched or not checked or not differ:
+        fail("serve world: the served answers disagree with their "
+             "checkpoints' predict steps")
+
+
+def start_serve_world_phase(card: str) -> dict:
+    """Phase 40 on a thread of its own, beside the other CLI phases: its
+    failure (``fail``'s exit) is kept for ``finish_serve_world_phase``."""
+    pending = {"t0": time.perf_counter()}
+
+    def body():
+        try:
+            pending["got"] = phase_serve_world(card)
+        except BaseException as e:       # fail()'s SystemExit included
+            pending["error"] = e
+
+    pending["thread"] = threading.Thread(target=body, name="phase40",
+                                         daemon=True)
+    pending["thread"].start()
+    return pending
+
+
+def finish_serve_world_phase(pending: dict) -> None:
+    pending["thread"].join(SERVE_WAIT_S * 3)
+    say(f"chip_smoke: phase_serve_world ran "
+        f"{time.perf_counter() - pending['t0']:.1f}s beside the other "
+        f"phases")
+    if "got" not in pending:
+        fail(f"phase 40 did not pass: {pending.get('error')!r}")
+    finish_serve_world_checks(pending["got"])
+
+
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 40                 # the closing lines; only a full run has it
+LAST_PHASE = 41                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -6611,6 +7093,11 @@ def main(argv=None) -> int:
         if want(38):
             obs_pending = start_observability_cli()
             started.extend([obs_pending["nocache"], obs_pending["plain"]])
+        # 40's world of replicas on a thread of its own beside 21 (in
+        # process, small on the card), so that it is done before 39's
+        # thread starts and the two do not lengthen the run's tail
+        serve_pending = (start_serve_world_phase(card) if want(40)
+                         else None)
         if want(21):
             run(phase_zoo_parity)
         if want(22):
@@ -6623,7 +7110,7 @@ def main(argv=None) -> int:
         graph_cli_runs = ahead(35, start_graph_cli)
         jax_resume_runs = ahead(34, start_jax_resume)
         stream_runs = ahead(36, start_stream_cli)
-        # 39's faulted, elastic and stalled worlds, on a thread of their own
+        # 39's faulted, elastic and stalled worlds on a thread of its own
         elastic_pending = start_elastic_phase(card) if want(39) else None
         if want(25):
             run(phase_f16_step)
@@ -6679,6 +7166,8 @@ def main(argv=None) -> int:
             run(phase_observability_cli, obs_pending)
         if want(39):
             finish_elastic_phase(elastic_pending)
+        if want(40):
+            finish_serve_world_phase(serve_pending)
     finally:
         if obs_pending is not None:
             with obs_pending["lock"]:

@@ -7,9 +7,10 @@ Every Pallas TPU kernel on a ported path becomes a kernel written by hand
 for Hopper under ``csrc/``.
 
 Ported so far: ``python -m distributedpytorch_tpu_torch {train,test,serve}``
-for the ``vit`` model with ``--attention full|flash``, on one process and
-one device (flash = kernel K1, ``csrc/flash_fwd.cu``, forward, and kernels
-K2/K3, ``csrc/flash_bwd.cu``, backward).  Entry points run on ``cuda`` unless the caller
-asks for the CPU (``--device cpu`` / ``device="cpu"``); they never fall
-back to the CPU on their own.
+for the nine models of the JAX registry on one rank or several (``serve``
+as a world of replicas), and the ``fleet`` collector with the offline
+readers (``cli.py`` lists them).  The Pallas kernels are K1-K5 and the
+ring's K4/K2p/K3p, in ``csrc/``.  Entry points run on ``cuda`` unless the
+caller asks for the CPU (``--device cpu`` / ``device="cpu"``); they never
+fall back to the CPU on their own.
 """

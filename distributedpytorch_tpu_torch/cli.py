@@ -1,5 +1,5 @@
 """The port's entry point: ``python -m distributedpytorch_tpu_torch
-{train,test,serve,telemetry,goodput,timeline,roofline}``.
+{train,test,serve,fleet,telemetry,goodput,timeline,roofline,incidents}``.
 
 Counterpart of ``distributedpytorch_tpu/cli.py``:
 
@@ -70,13 +70,21 @@ Counterpart of ``distributedpytorch_tpu/cli.py``:
     its shard of the test split and the sums are all-reduced.  It reads
     the port's checkpoints and the JAX package's msgpack files.
   * ``run_serve`` follows ``_serve_warmup``, ``_serve_build_replica`` and
-    ``run_serve`` (:1418-1705) reduced to one replica (``--fault-plan``
-    installed, its serve.* sites live): no elastic world,
-    metrics exporter, flight recorder, goodput ledger or hot-swap
-    (``/admin/reload`` answers 501).
-  * ``telemetry``, ``goodput``, ``timeline`` and ``roofline`` read a run
+    ``run_serve`` (:1418-1705): one replica a rank process, on
+    ``--serve-port`` + its initial rank, with the fault plan, the flight
+    recorder, the goodput ledger and, with ``--metrics-port``, the
+    exporter on ``--metrics-port`` + rank, whose ``/healthz`` carries the
+    tier's ``serve`` block; ``/admin/reload`` hot-swaps the served
+    checkpoint (a port file or a JAX-written one) between batches; a
+    world of several replicas (or ``--elastic``) agrees on health between
+    batches, and under ``--elastic`` survives the loss of a replica as
+    ``run_train`` does, rebuilding the replica from the checkpoint it
+    serves.  Launch several replicas one process each with the env://
+    variables set by hand, as ``--elastic`` training ranks are launched.
+  * ``fleet`` runs the collector (``fleet.py``) and ``telemetry``,
+    ``goodput``, ``timeline``, ``roofline`` and ``incidents`` read a run
     directory offline, as ``main`` dispatches them in the JAX package
-    (:1710-1760).
+    (:1710-1790).
 
 Under ``--model-parallel M`` the world is the JAX (world / M, M) mesh
 (``runtime.Mesh``): a rank trains and evaluates its data shard's rows, the
@@ -1125,7 +1133,8 @@ def _train_world(cfg: Config, model_name: str, dataset: Dataset,
 
 
 def _elastic_reconfigure(cfg: Config, tel, saver, device: torch.device,
-                         grow: bool = False) -> runtime.Mesh:
+                         grow: bool = False,
+                         purpose: str = "train") -> runtime.Mesh:
     """Shrink into the surviving world, or grow into the admitted one,
     and return its mesh (JAX ``_elastic_reconfigure``, cli.py:1019-1061):
     the async writer drained (the newest snapshot is what the new world
@@ -1145,7 +1154,8 @@ def _elastic_reconfigure(cfg: Config, tel, saver, device: torch.device,
     old_world = runtime.process_count()
     info = elastic.reconfigure(_elastic_dir(cfg), old_rank, old_world,
                                device, grow=grow, target=cfg.elastic_target,
-                               min_world=cfg.elastic_min_world)
+                               min_world=cfg.elastic_min_world,
+                               purpose=purpose)
     tel.event("elastic/reconfigure", generation=info["generation"],
               old_world=old_world, new_world=info["new_world"],
               old_rank=old_rank, new_rank=info["new_rank"], grow=grow,
@@ -1210,14 +1220,15 @@ def _serve_warmup(predictor: Predictor, buckets, sample_shape,
                  f"{warmup_s:.2f}s on {predictor.device}")
 
 
-def _serve_build_replica(cfg: Config, model_name: str, dataset, buckets,
-                         sample_shape, sample_dtype, device: torch.device):
-    """model -> lineage-verified restore -> device -> warmup; returns the
-    tier's ``infer`` closure."""
+def _serve_build_replica(cfg: Config, path: str, model_name: str, dataset,
+                         buckets, sample_shape, sample_dtype,
+                         device: torch.device):
+    """model -> lineage-verified restore of ``path`` -> device -> warmup;
+    returns the tier's ``infer`` closure."""
     policy = cfg.precision_policy()
     model = get_model(model_name, dataset.nb_classes, policy,
                       attention=cfg.attention, device=device)
-    ckpt.restore_for_serving(cfg.checkpoint_file, model)
+    ckpt.restore_for_serving(path, model)
     predictor = Predictor(model, dataset.mean, dataset.std,
                           get_model_input_size(model_name), policy, device)
     _serve_warmup(predictor, buckets, sample_shape, sample_dtype)
@@ -1230,85 +1241,250 @@ def _serve_build_replica(cfg: Config, model_name: str, dataset, buckets,
     return infer
 
 
+class _ServeLaunches:
+    """K1's launches since the replica started, split into warm-up and
+    batches, kept in telemetry gauges (``kernel/flash_fwd_launches``,
+    ``kernel/flash_fwd_tensor_core_launches`` and
+    ``kernel/flash_fwd_warmup_launches``, on ``/metrics`` with
+    ``--metrics-port``) after every build and every batch."""
+
+    def __init__(self, tel):
+        self._tel = tel
+        self._k1 = fa.flash_attention_fwd
+        self._base = (self._k1.launches, self._k1.tensor_core_launches)
+        self.warmup = 0
+
+    def counts(self) -> tuple:
+        """(launches, tensor-core launches, warm-up launches)."""
+        return (self._k1.launches - self._base[0],
+                self._k1.tensor_core_launches - self._base[1], self.warmup)
+
+    def note(self) -> None:
+        launches, tensor_core, warmup = self.counts()
+        self._tel.gauge("kernel/flash_fwd_launches").set(launches)
+        self._tel.gauge("kernel/flash_fwd_tensor_core_launches").set(
+            tensor_core)
+        self._tel.gauge("kernel/flash_fwd_warmup_launches").set(warmup)
+
+    def build(self, build_infer):
+        """``build_infer()``'s closure, its warm-up counted, wrapped to
+        note the gauges after each batch."""
+        before = self._k1.launches
+        infer = build_infer()
+        self.warmup += self._k1.launches - before
+        self.note()
+
+        def counted(arr):
+            out = infer(arr)
+            self.note()
+            return out
+
+        return counted
+
+
 def run_serve(cfg: Config) -> dict:
-    """Batched inference from a checkpoint over HTTP, one replica."""
+    """Batched, elastic inference from a checkpoint over HTTP (JAX
+    ``run_serve``, cli.py:1489-1705): each process is one replica,
+    answering on ``--serve-port`` + its initial rank, bound once and kept
+    across reconfigures.  Under a multi-process launch or ``--elastic`` the
+    dispatcher ticks ``_health_boundary`` between batches (the replica's
+    predict step has no collective); a lost peer under ``--elastic``
+    tears the world down, reconfigures (``purpose: "serve"``) and rebuilds
+    the replica from the checkpoint it serves, the hot-swapped one
+    included, while the listener keeps admitting requests."""
     from . import serving
 
     check_ported(cfg)
-    runtime.check_single_process("serve")
-    faults.configure(cfg.fault_plan, cfg.fault_seed, cfg.retry_max_attempts,
-                     cfg.retry_base_delay, cfg.retry_timeout)
-    rank = runtime.process_index()
-    device = runtime.resolve_device(cfg.device)
     buckets = serving.parse_buckets(cfg.serve_buckets)
     if cfg.serve_queue < max(buckets):
         raise ValueError(
             f"--serve-queue {cfg.serve_queue} is smaller than the "
             f"largest bucket {max(buckets)}: the queue could never "
             "fill a full batch")
-    utils.initialize_logging(cfg.rsl_path, cfg.log_file, truncate=True)
+    faults.configure(cfg.fault_plan, cfg.fault_seed, cfg.retry_max_attempts,
+                     cfg.retry_base_delay, cfg.retry_timeout)
+    device = runtime.resolve_device(cfg.device)
+    join_info = None
+    if cfg.elastic_join:
+        join_info = runtime.join_distributed(_elastic_dir(cfg), device,
+                                             timeout_s=cfg.elastic_join_wait)
+        backend = runtime.backend()
+    else:
+        backend = runtime.initialize_distributed(device)
+    rank = runtime.process_index()
+    utils.initialize_logging(cfg.rsl_path, cfg.log_file,
+                             truncate=runtime.is_main())
     # Telemetry and request tracing are always on in serve mode: they are
     # the tier's operational surface, as in the JAX package.
     tel = telemetry.configure(cfg.rsl_path, True, rank=rank)
     tracing.configure(cfg.rsl_path, True, rank=rank)
-    port = cfg.serve_port
-    tel.event("run_start", action="serve", dataset=cfg.dataset, world=1,
-              processes=1, buckets=list(buckets), port=port,
-              device=str(device))
-    logging.info(f"serve: one replica on {device}, port {port}")
+    flightrec.configure(cfg.rsl_path, cfg.flightrec, rank=rank,
+                        ring_size=cfg.flightrec_ring)
+    goodput.configure(cfg.rsl_path, True, rank=rank,
+                      world=runtime.process_count())
+    if cfg.metrics_port:
+        goodput.start_exporter(cfg.metrics_port, rank=rank,
+                               world_size_fn=runtime.world_size,
+                               generation_fn=elastic.generation)
+    # bound once from the INITIAL rank: ranks renumber at every
+    # reconfigure, and a port that moved with them would break every
+    # client mid-incident
+    port = cfg.serve_port + rank
+    tel.event("run_start", action="serve", dataset=cfg.dataset,
+              world=runtime.world_size(), processes=runtime.process_count(),
+              buckets=list(buckets), port=port, device=str(device),
+              backend=backend)
+    if join_info is not None:
+        tel.event("elastic/join", generation=join_info["generation"],
+                  new_world=join_info["new_world"],
+                  new_rank=join_info["new_rank"],
+                  coordinator=join_info["coordinator"])
+        tel.gauge("elastic/world_size").set(join_info["new_world"])
+        tel.flush()
+    logging.info(f"serve: process {rank}/{runtime.process_count()} on "
+                 f"{device}" + (f", backend: {backend}" if backend else "")
+                 + f", replica port {port}")
 
-    model_name = ckpt.get_checkpoint_model_name(cfg.checkpoint_file)
-    dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
-                           debug=cfg.debug, log=True,
-                           synthetic_fallback=cfg.synthetic_fallback)
-    images = dataset.splits["test"].images
-    sample_shape, sample_dtype = images.shape[1:], images.dtype
-
-    launches0 = fa.flash_attention_fwd.launches
-    tc0 = fa.flash_attention_fwd.tensor_core_launches
-    shutdown = utils.GracefulShutdown()
+    crashed = True
     tier = None
     try:
+        model_name = ckpt.get_checkpoint_model_name(cfg.checkpoint_file)
+        dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
+                               debug=cfg.debug, log=runtime.is_main(),
+                               synthetic_fallback=cfg.synthetic_fallback)
+        images = dataset.splits["test"].images
+        sample_shape, sample_dtype = images.shape[1:], images.dtype
+        k1 = _ServeLaunches(tel)
+
+        def build(path):
+            return k1.build(functools.partial(
+                _serve_build_replica, cfg, path, model_name, dataset,
+                buckets, sample_shape, sample_dtype, device))
+
+        shutdown = utils.GracefulShutdown()
+        reconfigures = 0
         with shutdown:
-            infer = _serve_build_replica(cfg, model_name, dataset, buckets,
-                                         sample_shape, sample_dtype, device)
-            warm_launches = fa.flash_attention_fwd.launches - launches0
+            if runtime.distributed():
+                # the agreement's group, created while every rank is here
+                runtime.health_group(cfg.health_timeout)
             tier = serving.ServingTier(
-                infer, sample_shape, sample_dtype, buckets,
-                max_queue=cfg.serve_queue,
+                build(cfg.checkpoint_file), sample_shape, sample_dtype,
+                buckets, max_queue=cfg.serve_queue,
                 max_latency_s=cfg.serve_max_latency_ms / 1000.0,
-                port=port,
-                request_timeout_s=cfg.serve_request_timeout,
+                port=port, request_timeout_s=cfg.serve_request_timeout,
                 max_requests=cfg.serve_max_requests)
+            # the served-model identity rides /livez, the exporter's
+            # /healthz serve block and every trace record; current_ckpt
+            # follows hot-swaps, so that a rebuild after a reconfigure
+            # restores what is actually served
+            current_ckpt = [cfg.checkpoint_file]
             tier.set_checkpoint(ckpt.lineage_info(cfg.checkpoint_file))
             tracing.get().set_lineage((tier.checkpoint or {}).get("sha256"))
+
+            def swap_fn(path):
+                # the /admin/reload seam: lineage-verify, rebuild the
+                # predict closure (restore and warm-up), hand it back to
+                # the dispatcher
+                new_name = ckpt.get_checkpoint_model_name(path)
+                if new_name != model_name:
+                    raise ValueError(
+                        f"checkpoint {path!r} holds model {new_name!r}; "
+                        f"this replica serves {model_name!r}")
+                reason = ckpt.verify_checkpoint(path)
+                if reason is not None:
+                    raise ValueError(f"lineage verification failed for "
+                                     f"{path!r}: {reason}")
+                new_infer = build(path)
+                current_ckpt[0] = path
+                return new_infer, ckpt.lineage_info(path)
+
+            tier.set_swap_fn(swap_fn)
+            goodput.set_health_extra(tier.stats)
             tier.start()
-            answered = tier.run(shutdown=shutdown)
+
+            def health_fn():
+                # the training boundary as it is: ONE agreement of the
+                # failure, shutdown and grow flags; a peer loss under
+                # --elastic raises WorldChangedError, a clean stop
+                # returns True
+                return _health_boundary(cfg, tel, shutdown, 0, None)
+
+            multi = runtime.process_count() > 1 or cfg.elastic
+            while True:
+                try:
+                    answered = tier.run(health_fn=health_fn if multi
+                                        else None, shutdown=shutdown)
+                    break
+                except elastic.WorldChangedError as e:
+                    grow = e.grow
+                    reconfigures += 1
+                    if reconfigures > cfg.max_reconfigures:
+                        raise faults.PeerFailureError(
+                            f"world changed {reconfigures} times, over the "
+                            f"--max-reconfigures {cfg.max_reconfigures} "
+                            "cap; exiting with the last failure") from e
+                    # run_train's release discipline: the old predict
+                    # step and the exception chain's frames go before
+                    # the teardown
+                    tier.set_infer(None)
+                    exc = e
+                    while exc is not None:
+                        exc.__traceback__ = None
+                        exc = exc.__cause__ or exc.__context__
+                # outside the except block, whose exception state would
+                # hold the traceback; the listener keeps admitting into
+                # the bounded queue through the window
+                with goodput.get().timed("elastic_reconfigure"):
+                    _elastic_reconfigure(cfg, tel, None, device, grow,
+                                         purpose="serve")
+                    if runtime.distributed():
+                        runtime.health_group(cfg.health_timeout)
+                    tier.set_infer(build(current_ckpt[0]))
+                logging.info(f"serve: replica rebuilt for generation "
+                             f"{elastic.generation()}; resuming with "
+                             f"{tier.batcher.depth()} queued requests")
         batches = int(tel.counter("serve/batches").value)
-        launches = fa.flash_attention_fwd.launches - launches0
-        tc_launches = fa.flash_attention_fwd.tensor_core_launches - tc0
+        launches, tc_launches, warm_launches = k1.counts()
+        tel.event("kernel_launches", batches=batches,
+                  generation=elastic.generation(),
+                  launches={"flash_fwd": launches},
+                  tensor_core={"flash_fwd": tc_launches},
+                  warmup={"flash_fwd": warm_launches})
         logging.info(f"serve: stopped after answering {answered} requests "
                      f"in {batches} batches")
         logging.info(f"serve: flash_fwd launches {launches} "
                      f"({warm_launches} in warm-up), {tc_launches} on the "
                      f"tensor cores")
+        crashed = False
         return {"answered": answered, "port": tier.port,
                 "model_name": model_name, "batches": batches,
                 "flash_launches": launches,
                 "flash_tensor_core_launches": tc_launches,
-                "flash_warmup_launches": warm_launches}
+                "flash_warmup_launches": warm_launches,
+                "reconfigures": reconfigures}
     finally:
-        if tier is not None:
-            tier.close()
-        tracing.get().close()
-        tel.close()
+        try:
+            if tier is not None:
+                tier.close()
+            tracing.get().close()
+            _close_observability(crashed)
+        finally:
+            tel.close()
 
 
 def run_offline(cfg: Config) -> int:
-    """The readers of a run directory (JAX ``main``, cli.py:1710-1760):
-    no banner, no device."""
+    """The readers of a run directory and the fleet collector (JAX
+    ``main``, cli.py:1710-1790): no banner, no device."""
+    if cfg.action == "fleet":
+        from . import fleet
+
+        return fleet.run_cli(cfg)
     try:
-        if cfg.action == "telemetry":
+        if cfg.action == "incidents":
+            from . import slo
+
+            print(slo.incidents_report(cfg.rsl_path))
+        elif cfg.action == "telemetry":
             print(telemetry.json_report(cfg.rsl_path) if cfg.report_json
                   else telemetry.report(cfg.rsl_path))
         elif cfg.action == "goodput":

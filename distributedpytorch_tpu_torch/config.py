@@ -1,6 +1,6 @@
 """Configuration of the ported ``train``, ``test`` and ``serve``
-subcommands, and of the offline ``telemetry``, ``goodput``, ``timeline``
-and ``roofline`` readers.
+subcommands, of the offline ``telemetry``, ``goodput``, ``timeline``,
+``roofline`` and ``incidents`` readers, and of the ``fleet`` collector.
 
 Counterpart of ``distributedpytorch_tpu/config.py`` (``Config`` at
 :62-316, ``_common_args`` at :394-708, ``build_parser`` at :711-760,
@@ -49,7 +49,8 @@ with the JAX spellings and defaults: the flight recorder is on
 its default stays ``build/kernels`` where the JAX default is
 ``RSL_PATH/xla_cache``); ``test`` ignores ``--aot-warmup``,
 ``--profile`` and ``--metrics-port``, as the JAX ``test`` does.
-``serve`` still refuses ``--metrics-port`` and ``--flightrec``.
+``serve`` takes ``--metrics-port``, ``--flightrec`` (on by default) and
+``--flightrec-ring``.
 ``train`` and ``test`` take the JAX fault, retry, health and elastic
 families with the JAX spellings, defaults and checks (``--fault-plan``,
 ``--fault-seed``, ``--retry-max-attempts``, ``--retry-base-delay``,
@@ -59,12 +60,12 @@ families with the JAX spellings, defaults and checks (``--fault-plan``,
 without ``--elastic`` and a malformed ``--elastic-target`` fail before
 any work, with the JAX ``run_train`` messages (cli.py:608-623); ``test``
 configures the fault plan and ignores the elastic flags, as the JAX
-``test`` does.  ``serve`` takes the fault and retry flags and refuses the
-elastic family and ``--health-timeout``/``--max-reconfigures`` (the
-serving fleet is not ported).  One
-default differs: ``test`` takes the model from the checkpoint, so its
-``--model`` defaults to none (the JAX ``test`` reads the checkpoint's
-too and ignores the flag).
+``test`` does.  ``serve`` takes the whole family, with the JAX
+``run_serve``'s check that ``--elastic-join`` needs ``--elastic``
+(cli.py:1519-1524).  ``fleet`` takes the JAX collector's flags and
+defaults (config.py:859-905).  One default differs: ``test`` takes the
+model from the checkpoint, so its ``--model`` defaults to none (the JAX
+``test`` reads the checkpoint's too and ignores the flag).
 """
 
 from __future__ import annotations
@@ -188,6 +189,13 @@ class Config:
     roofline_trace_dir: Optional[str] = None
     roofline_from_anomaly: bool = False
     roofline_top: int = 20
+    # the fleet collector (JAX config.py:317-331)
+    fleet_ranks: int = 1
+    fleet_port: int = 9200
+    fleet_interval: float = 1.0
+    fleet_stale_after: int = 3
+    fleet_max_cycles: int = 0
+    slo_spec: Optional[str] = None
 
     def precision_policy(self):
         """The resolved precision.PrecisionPolicy for this config."""
@@ -228,6 +236,7 @@ def check_ported(cfg: Config) -> Config:
         raise ValueError(f"not ported yet: {flag}")
     if cfg.action == "train":
         check_epochs_per_dispatch(cfg)
+    if cfg.action in ("train", "serve"):
         check_elastic(cfg)
     if cfg.action == "train" and (cfg.grad_accum < 1
                                   or cfg.batch_size % cfg.grad_accum):
@@ -289,13 +298,16 @@ def check_epochs_per_dispatch(cfg: Config) -> None:
 
 
 def check_elastic(cfg: Config) -> None:
-    """The JAX ``run_train``'s launch-time checks (cli.py:608-623):
-    ``--elastic-join`` needs ``--elastic``, and the admission policy is
-    parsed now, so a malformed ``--elastic-target`` fails at launch rather
-    than at the first health boundary."""
+    """The JAX ``run_train``'s and ``run_serve``'s launch-time checks
+    (cli.py:608-623, :1519-1531): ``--elastic-join`` needs ``--elastic``
+    (each with its own wording), and the admission policy is parsed now,
+    so a malformed ``--elastic-target`` fails at launch rather than at the
+    first health boundary."""
     if cfg.elastic_join and not cfg.elastic:
+        joiner = ("a joining replica" if cfg.action == "serve"
+                  else "a joiner")
         raise ValueError(
-            "--elastic-join requires --elastic: a joiner becomes a "
+            f"--elastic-join requires --elastic: {joiner} becomes a "
             "normal elastic member and must keep reconfiguring with "
             "its world")
     if cfg.elastic:
@@ -366,8 +378,6 @@ def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
 
 _ON = {"action": "store_true"}
 _INT = {"type": int}
-_FLOAT = {"type": float}
-_STR = {"type": str}
 
 # Flags of the JAX CLI that this slice refuses: (flag, how it parses, the
 # value that asks for what the port does anyway).  They have no default,
@@ -380,20 +390,6 @@ REFUSED_EVERYWHERE = (
     ("--pipeline-parallel", _ON, False),
     ("--seq-parallel", _INT, 1),
     ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
-)
-# serve's exporter, flight recorder and elastic membership belong with
-# the serving fleet
-REFUSED_SERVE = REFUSED_EVERYWHERE + (
-    ("--metrics-port", _INT, 0),
-    ("--flightrec", {"action": argparse.BooleanOptionalAction}, False),
-    ("--elastic", _ON, False),
-    ("--elastic-join", _ON, False),
-    ("--elastic-dir", _STR, None),
-    ("--elastic-target", _STR, None),
-    ("--elastic-min-world", _INT, None),
-    ("--elastic-join-wait", _FLOAT, None),
-    ("--health-timeout", _FLOAT, 0.0),
-    ("--max-reconfigures", _INT, 3),
 )
 REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
     ("--pipeline-microbatches", _INT, 0),
@@ -791,13 +787,78 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-max-requests", type=int, default=0,
                    dest="serve_max_requests", metavar="N",
                    help="stop after answering N requests (0 = forever)")
+    p.add_argument("--flightrec", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="per-rank ring-buffer flight recorder of the "
+                        "batches, dumped to RSL_PATH/flightrec-rank<N>.json "
+                        "on a crash and at run end (default: on; "
+                        "--no-flightrec disables)")
+    p.add_argument("--flightrec-ring", type=int, default=4096,
+                   dest="flightrec_ring", metavar="N",
+                   help="flight-recorder ring size (default 4096)")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   dest="metrics_port", metavar="PORT",
+                   help="serve /metrics and /healthz (with the replica's "
+                        "serve block) on PORT+rank while the replica is "
+                        "alive; 0 disables (default)")
     _fault_args(p)
-    _refused_args(p, REFUSED_SERVE)
+    _elastic_args(p)
+    _refused_args(p, REFUSED_EVERYWHERE)
+    _fleet_parser(sub)
     _offline_parsers(sub)
     return parser
 
 
-OFFLINE_ACTIONS = ("telemetry", "goodput", "timeline", "roofline")
+def _fleet_parser(sub) -> None:
+    """The JAX ``fleet`` collector's parser (config.py:859-905), same
+    flags and defaults."""
+    p = sub.add_parser(
+        "fleet", help="run the fleet metrics collector: scrape all "
+                      "rank /metrics+/healthz exporters, merge into "
+                      "fleet-level series (elastic-aware), re-export "
+                      "/metrics + /fleet, evaluate --slo-spec "
+                      "burn-rate objectives into incident bundles")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"run directory shared with the serve world: "
+                        f"fleet-metrics.jsonl and incident-*.json land "
+                        f"here, trace records are mined from here "
+                        f"(default: {RSL_PATH})")
+    p.add_argument("--metrics-port", type=int, default=9100,
+                   dest="metrics_port", metavar="PORT",
+                   help="base port of the per-rank exporters to scrape "
+                        "(rank r answers on PORT + r; default 9100)")
+    p.add_argument("--ranks", type=int, default=1, dest="fleet_ranks",
+                   metavar="N",
+                   help="candidate rank count: ports PORT..PORT+N-1 are "
+                        "probed every cycle, so elastic joiners appear "
+                        "within one interval (default 1)")
+    p.add_argument("--fleet-port", type=int, default=9200,
+                   dest="fleet_port", metavar="PORT",
+                   help="serve the merged fleet /metrics (Prom text) and "
+                        "/fleet (JSON) here (default 9200; 0 disables "
+                        "re-export)")
+    p.add_argument("--interval", type=float, default=1.0,
+                   dest="fleet_interval", metavar="S",
+                   help="scrape cycle period in seconds (default 1.0)")
+    p.add_argument("--stale-after", type=int, default=3,
+                   dest="fleet_stale_after", metavar="N",
+                   help="consecutive failed scrapes before a rank ages "
+                        "out of the merged series (default 3)")
+    p.add_argument("--max-cycles", type=int, default=0,
+                   dest="fleet_max_cycles", metavar="N",
+                   help="stop after N scrape cycles (0 = run until "
+                        "interrupted; gates use N)")
+    p.add_argument("--slo-spec", type=str, default=None, dest="slo_spec",
+                   metavar="FILE",
+                   help="JSON file declaring SLO objectives (slo.py "
+                        "schema); firing objectives write "
+                        "incident-*.json bundles")
+
+
+# the readers of a run directory, and the fleet collector: no device, no
+# model, no refusals
+OFFLINE_ACTIONS = ("telemetry", "goodput", "timeline", "roofline",
+                   "incidents", "fleet")
 
 
 def _offline_parsers(sub) -> None:
@@ -844,6 +905,12 @@ def _offline_parsers(sub) -> None:
     p.add_argument("--json", action="store_true", dest="report_json",
                    help="print the full roofline.json report instead of "
                         "the table")
+    p = sub.add_parser(
+        "incidents", help="report the SLO incident bundles a fleet "
+                          "collector wrote for this run")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"run directory holding incident-*.json "
+                        f"(default: {RSL_PATH})")
 
 
 def config_from_argv(argv=None) -> Config:
@@ -854,8 +921,8 @@ def config_from_argv(argv=None) -> Config:
               if f.name in args}
     if args["action"] in OFFLINE_ACTIONS:
         return Config(**fields)
-    flag = refused_flag(args, REFUSED_SERVE if args["action"] == "serve"
-                        else REFUSED_TRAIN_TEST)
+    flag = refused_flag(args, REFUSED_EVERYWHERE
+                        if args["action"] == "serve" else REFUSED_TRAIN_TEST)
     if flag is not None:
         raise ValueError(f"not ported yet: {flag}")
     fields["half_precision"] = not args["no_bf16"]

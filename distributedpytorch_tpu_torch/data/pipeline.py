@@ -67,8 +67,14 @@ class ResidentLoader:
         self.batch_per_replica = int(batch_size)
         self.world = int(world)
         self.rank = int(rank)
-        self.images = torch.from_numpy(np.ascontiguousarray(
-            split.images)).to(self.device)
+        images = split.images
+        if not images.flags.writeable:
+            # torch would wrap the read-only buffer, and on the CPU the
+            # loader would alias it: copy, as the JAX loader's device_put
+            # does
+            images = images.copy()
+        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(
+            self.device)
         self.labels = torch.from_numpy(split.labels.astype(np.int64)).to(
             self.device)
         first = self.rank - self.rank % model_parallel

@@ -22,11 +22,10 @@ PyTorch's idiom takes its place:
   neighbour leaves).  Destruction is by reference count, so the caller
   first drops everything that pins the old group: the DDP wrapper and
   its reducer, ``runtime.Mesh``'s groups, the loaders and the exception
-  tracebacks (``cli.run_train``).  One pin is out of reach: a world in
-  which a ``DistributedDataParallel`` was built keeps its gloo pairs open
-  after every Python object of it is gone, until the process exits, so
-  such a blocked peer can miss the generation and exit loudly (ROADMAP
-  queue 3).
+  tracebacks (``cli.run_train``), and ``runtime`` imports
+  ``torch.distributed.nn.functional`` before the first world, whose
+  ``group=group.WORLD`` defaults would otherwise pin the group that was
+  live when ``DistributedDataParallel`` first imported it.
 * A generation's world is joined through a ``TCPStore``: the elected
   coordinator opens the store's server on a port the system picks and
   only then publishes its address in ``world.json``

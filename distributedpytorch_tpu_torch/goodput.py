@@ -425,6 +425,8 @@ class MetricsExporter:
         self.rank = int(rank)
         self._world_size_fn = world_size_fn or (lambda: 1)
         self._generation_fn = generation_fn or (lambda: 0)
+        self._health_extra_fn: Optional[Callable[[], Dict[str, Any]]] \
+            = None
         self._lock = threading.Lock()
         self._last_step_mono: Optional[float] = None  # guarded by _lock
         exporter = self
@@ -539,6 +541,14 @@ class MetricsExporter:
             "elastic_generation": generation,
             "last_step_age_s": round(age, 3) if age is not None else None,
         }
+        extra = self._health_extra_fn
+        if extra is not None:
+            try:
+                doc["serve"] = extra()
+            # broad on purpose: a failing stats callback must not break
+            # /healthz
+            except Exception:
+                pass
         return doc
 
     def close(self) -> None:
@@ -586,3 +596,11 @@ def stop_exporter() -> None:
     if _exporter is not None:
         _exporter.close()
         _exporter = None
+
+
+def set_health_extra(fn: Optional[Callable[[], Dict[str, Any]]]) -> None:
+    """Attach an extra payload callable to /healthz (the serving tier
+    reports queue depth, answered count and the served lineage there,
+    as the ``serve`` block).  No-op when the exporter is disabled."""
+    if _exporter is not None:
+        _exporter._health_extra_fn = fn

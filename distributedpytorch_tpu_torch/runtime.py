@@ -41,6 +41,13 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+# Imported before any process group exists: its functions take
+# ``group=group.WORLD`` as default arguments, evaluated at import, and
+# DistributedDataParallel imports it.  Imported after a world is up, it
+# pins that world's group, and with it the group's gloo sockets, for the
+# life of the process: ``destroy_process_group`` then closes nothing, and
+# a peer blocked in a collective on this process is never woken.
+import torch.distributed.nn.functional  # noqa: F401
 
 from . import faults
 
@@ -419,10 +426,3 @@ def agree_health(failed: bool, shutdown: bool,
     return (bool(flags[:, 0].any()), bool(flags[:, 1].any()),
             bool(flags[:, 2].any()))
 
-
-def check_single_process(what: str) -> None:
-    """Raise ValueError under a multi-process launch: ``what`` runs one
-    process (the serving replica)."""
-    if launched_distributed() and _env_int("WORLD_SIZE") != 1:
-        raise ValueError(f"not ported yet: multi-process launch of {what} "
-                         f"(WORLD_SIZE={os.environ['WORLD_SIZE']})")

@@ -1,19 +1,33 @@
 """The serving replica: HTTP front end + micro-batch dispatcher loop.
 
 A copy of ``distributedpytorch_tpu/serving/server.py`` (:68-480); its
-``faults``/``telemetry``/``tracing`` imports are the port's copies.
+``faults``/``telemetry``/``tracing`` imports are the port's copies, and
+its listener sizes its accept backlog to the batcher's queue.
 
 Handler threads (ThreadingHTTPServer) parse and validate a request,
 ``admit()`` it into the bounded micro-batcher (503 on refusal) and block
 on the request's event.  The dispatcher thread (``run()``, the caller's
 thread) is the only one that touches the device: it coalesces pending
 requests into the largest ready bucket (batcher.py), pads to the bucket
-size, calls the injected ``infer_fn`` and fans the results back out.
+size, calls the injected ``infer_fn``, fans the results back out, and
+ticks the elastic health boundary between batches.
 
 ``infer_fn`` is injected (a closure over the predict step, built in
-cli.run_serve), so this module stays framework-free.  ``POST
-/admin/drain`` starts a graceful retirement.  Hot-swap is not ported yet:
-``POST /admin/reload`` answers 501.  ``stats()`` is the ``/livez`` body.
+cli.run_serve), so this module stays framework-free.  Elastic contract:
+``run()`` lets ``WorldChangedError`` (raised by the injected
+``health_fn``) propagate after the current batch resolved, so the caller
+can reconfigure the world, rebuild the predict step, ``set_infer()`` it
+and call ``run()`` again; the listener and the queued requests (host-side
+numpy) persist across the reconfigure.
+
+``POST /admin/drain`` starts a graceful retirement.  ``POST /admin/reload
+{"checkpoint": PATH}`` is the hot-swap: the handler parks a swap request,
+and the dispatcher applies it between batches through the injected
+``swap_fn(path) -> (infer_fn, lineage_info)`` (built in cli.run_serve), so
+the predict step is replaced with no listener restart and no mid-batch
+tear; without a ``swap_fn`` it answers 501.  ``stats()`` is the ``/livez``
+body and the exporter's ``/healthz`` ``serve`` block, with the served
+checkpoint's lineage.
 """
 
 from __future__ import annotations
@@ -29,8 +43,8 @@ import numpy as np
 from .. import faults, telemetry, tracing
 from .batcher import MicroBatcher, Request
 
-# Dispatcher poll granularity: the upper bound on how stale a shutdown
-# check can go while the queue is empty.
+# Dispatcher poll granularity: the upper bound on how stale a shutdown /
+# health check can go while the queue is empty.
 _TICK_S = 0.25
 
 
@@ -55,13 +69,22 @@ class ServingTier:
         self.checkpoint: Optional[dict] = None  # lineage of the served ckpt
         self._stop = threading.Event()
         self._draining = threading.Event()
+        self._swap_fn: Optional[Callable[[str], Tuple]] = None
+        self._swap_lock = threading.Lock()
+        self._pending_swap: Optional[dict] = None
+        self.swap_timeout_s = 180.0
         self._server = None
         self._http_thread = None
+        # /predict handlers still running: each writes its trace record
+        # after its answer, and close() waits for them
+        self._handlers = 0
+        self._handlers_idle = threading.Condition()
 
     # -- lifecycle -----------------------------------------------------
 
     def start(self) -> None:
-        """Bind the port and start answering; close() takes it down."""
+        """Bind the port and start answering.  The listener outlives
+        elastic reconfigures — only close() takes it down."""
         import http.server
 
         tier = self
@@ -76,12 +99,24 @@ class ServingTier:
                                                   tier.batcher.depth()})
                     return
                 if path == "/admin/reload":
-                    tier._respond(self, 501, {
-                        "error": "not ported yet: /admin/reload"})
+                    try:
+                        tier._handle_reload(self)
+                    # broad on purpose: a reload failure must become
+                    # the caller's 500, never take the listener down
+                    except Exception as e:
+                        logging.error(f"serve: reload handler "
+                                      f"failed: {e}")
+                        try:
+                            tier._respond(self, 500,
+                                          {"error": repr(e)})
+                        except Exception:
+                            pass  # caller already gone mid-answer
                     return
                 if path != "/predict":
                     self.send_error(404)
                     return
+                with tier._handlers_idle:
+                    tier._handlers += 1
                 try:
                     tier._handle_predict(self)
                 except BrokenPipeError:
@@ -98,6 +133,10 @@ class ServingTier:
                     # listener thread for everyone else
                     except Exception:
                         pass
+                finally:
+                    with tier._handlers_idle:
+                        tier._handlers -= 1
+                        tier._handlers_idle.notify_all()
 
             def do_GET(self):  # noqa: N802 - http.server API
                 if self.path.rstrip("/") == "/livez":
@@ -129,11 +168,22 @@ class ServingTier:
             f"{self.batcher.max_queue}, flush "
             f"{self.batcher.max_latency_s * 1000:.0f}ms)")
 
+    def set_infer(self, infer_fn: Callable[[np.ndarray], Tuple]) -> None:
+        """Swap the predict step (post-reconfigure rebuild)."""
+        self._infer = infer_fn
+
     def set_checkpoint(self, info: Optional[dict]) -> None:
         """Record the served checkpoint's lineage (sha256/epoch/path) —
         surfaced on /livez and the exporter /healthz serve block, the
         identity the front door's canary verdict compares."""
         self.checkpoint = info
+
+    def set_swap_fn(self, fn: Callable[[str], Tuple]) -> None:
+        """Install the hot-swap function: ``fn(path) -> (infer_fn,
+        lineage_info)`` — rebuilds the predict closure for a new
+        checkpoint (restore + warmup).  Without one, /admin/reload
+        answers 501."""
+        self._swap_fn = fn
 
     def drain(self) -> None:
         """Graceful retirement: stop admitting, flush in-flight, let
@@ -161,6 +211,11 @@ class ServingTier:
             server.shutdown()
             server.server_close()
             self._http_thread.join(timeout=5.0)
+        # the handlers of the last batch write their trace records after
+        # their answers: let them, before the caller closes the trace file
+        with self._handlers_idle:
+            self._handlers_idle.wait_for(lambda: self._handlers == 0,
+                                         timeout=5.0)
 
     # -- handler side (HTTP threads) ----------------------------------
 
@@ -174,6 +229,44 @@ class ServingTier:
         handler.send_header("Content-Length", str(len(body)))
         handler.end_headers()
         handler.wfile.write(body)
+
+    def _handle_reload(self, handler) -> None:
+        """The /admin/reload endpoint: park a swap request for the
+        dispatcher thread and wait for it to apply between batches."""
+        if self._swap_fn is None:
+            # the JAX body but for its parenthesis, which names the JAX
+            # package's history
+            self._respond(handler, 501,
+                          {"error": "no swap_fn installed "
+                                    "(stub tier or a replica without "
+                                    "hot-swap)"})
+            return
+        try:
+            n = int(handler.headers.get("Content-Length", 0))
+            doc = json.loads(handler.rfile.read(n) or b"{}")
+            path = doc["checkpoint"]
+        except (KeyError, TypeError, ValueError) as e:
+            self._respond(handler, 400,
+                          {"error": f"bad reload request: {e}"})
+            return
+        swap = {"path": str(path), "done": threading.Event(),
+                "error": None, "info": None}
+        with self._swap_lock:
+            if self._pending_swap is not None:
+                self._respond(handler, 409,
+                              {"error": "a swap is already in flight"})
+                return
+            self._pending_swap = swap
+        if not swap["done"].wait(self.swap_timeout_s):
+            self._respond(handler, 504,
+                          {"error": f"swap did not apply within "
+                                    f"{self.swap_timeout_s:g}s"})
+            return
+        if swap["error"] is not None:
+            self._respond(handler, 500, {"error": swap["error"]})
+            return
+        self._respond(handler, 200, {"reloaded": True,
+                                     "checkpoint": swap["info"]})
 
     def _handle_predict(self, handler) -> None:
         tel = telemetry.get()
@@ -256,15 +349,21 @@ class ServingTier:
 
     # -- dispatcher side (run() caller's thread) --------------------------
 
-    def run(self, shutdown: Optional[Any] = None) -> int:
+    def run(self, health_fn: Optional[Callable[[], bool]] = None,
+            health_tick_s: float = 0.5,
+            shutdown: Optional[Any] = None) -> int:
         """The micro-batch loop.  Returns the number of requests
-        answered when stopped (stop()/close(), a shutdown request, or
-        --serve-max-requests reached)."""
+        answered when stopped (stop()/close(), a shutdown request, a
+        health tick returning True, or --serve-max-requests reached).
+        WorldChangedError from ``health_fn`` propagates to the caller's
+        elastic loop with the queue intact."""
         tel = telemetry.get()
+        next_health = time.monotonic() + health_tick_s
         while not self._stop.is_set():
             if shutdown is not None and getattr(shutdown, "requested",
-                                                False):
-                break
+                                                False) \
+                    and health_fn is None:
+                break  # single-replica SIGTERM: no agreement needed
             if self.max_requests and self.answered >= self.max_requests:
                 break
             if self._draining.is_set() and self.batcher.depth() == 0:
@@ -272,10 +371,55 @@ class ServingTier:
                 logging.info(f"serve: drained after answering "
                              f"{self.answered} requests")
                 break
+            self._apply_swap(tel)
             batch = self.batcher.next_batch(_TICK_S)
             if batch is not None:
                 self._run_batch(tel, *batch)
+            if health_fn is not None \
+                    and time.monotonic() >= next_health:
+                # Between batches, never mid-dispatch: the boundary's
+                # collective must not interleave with a device step.
+                if health_fn():
+                    break
+                next_health = time.monotonic() + health_tick_s
         return self.answered
+
+    def _apply_swap(self, tel) -> None:
+        """Dispatcher-thread-only: apply a parked /admin/reload between
+        batches.  The swap function runs on the one thread that owns
+        dispatch, so the predict step is never replaced mid-batch;
+        queued requests wait out the restore and warm-up and are answered
+        by the NEW predict step."""
+        with self._swap_lock:
+            swap = self._pending_swap
+        if swap is None:
+            return
+        try:
+            infer_fn, info = self._swap_fn(swap["path"])
+            self._infer = infer_fn
+            self.checkpoint = info
+            tracing.get().set_lineage(
+                (info or {}).get("sha256"))
+            swap["info"] = info
+            tel.event("serve/swap",
+                      checkpoint=(info or {}).get("file"),
+                      sha=str((info or {}).get("sha256"))[:12],
+                      epoch=(info or {}).get("epoch"))
+            logging.info(f"serve: hot-swapped to "
+                         f"{(info or {}).get('file')} "
+                         f"(sha {str((info or {}).get('sha256'))[:12]})")
+        # broad on purpose: a bad candidate (torn file, wrong model)
+        # must fail THIS reload and leave the serving program untouched
+        except Exception as e:
+            swap["error"] = repr(e)
+            tel.event("serve/swap_failed", path=swap["path"],
+                      error=repr(e))
+            logging.error(f"serve: hot-swap to {swap['path']!r} "
+                          f"failed: {e}")
+        finally:
+            with self._swap_lock:
+                self._pending_swap = None
+            swap["done"].set()
 
     def _run_batch(self, tel, reqs: List[Request], bucket: int) -> None:
         arr = np.zeros((bucket,) + self.sample_shape, self.sample_dtype)
@@ -291,14 +435,20 @@ class ServingTier:
         except Exception as e:
             # One bad batch (an injected ioerror, a device hiccup) fails
             # ITS requests and the tier keeps serving — dying here would
-            # turn a transient into an outage.
+            # turn a transient into an outage.  The batch's trace records
+            # land before serve/failed counts it, so a collector that
+            # fires on the counter finds every record of the batch it saw
+            # fail (the handler's own finish is then a no-op).
+            code = 503 if self._stop.is_set() else 500
+            for r in reqs:
+                if r.trace is not None:
+                    r.trace.mark_infer_end()
+                    r.trace.finish(code, "failed", error=repr(e))
             tel.counter("serve/failed").add(len(reqs))
             tel.counter("serve/batches").add()
             self.answered += len(reqs)
             logging.error(f"serve: micro-batch of {len(reqs)} failed: {e}")
             for r in reqs:
-                if r.trace is not None:
-                    r.trace.mark_infer_end()
                 r.fail(e)
             return
         infer_ms = (time.perf_counter() - t0) * 1000.0

@@ -155,6 +155,41 @@ class Histogram:
             out[label] = self.quantile(q)
         return out
 
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Fold another sketch into this one, in place.  Bucket-wise
+        addition is EXACT for the sketch: both sides bucket values by
+        the same geometric boundaries, so the merged sketch is
+        identical to one that observed both streams directly — the
+        merged quantile carries the same <=1% representative error as
+        a single-rank sketch, never more.  This is what makes fleet
+        p95s possible at all: raw per-rank quantiles don't merge, the
+        sketches they came from do (fleet.py's core primitive)."""
+        self.count += other.count
+        self.sum += other.sum
+        self.min = min(self.min, other.min)
+        self.max = max(self.max, other.max)
+        self._nonpos += other._nonpos
+        for idx, n in other._buckets.items():
+            self._buckets[idx] = self._buckets.get(idx, 0) + n
+        return self
+
+    @classmethod
+    def from_parts(cls, name: str, count: int, total: float,
+                   lo: float, hi: float, buckets: Dict[int, int],
+                   nonpos: int = 0) -> "Histogram":
+        """Rebuild a sketch from its serialized state (the fleet
+        collector reconstructs per-rank sketches from the Prometheus
+        ``_bucket{le=...}`` exposition, then merge()s them)."""
+        h = cls(name)
+        h.count = int(count)
+        h.sum = float(total)
+        h.min = float(lo) if count else math.inf
+        h.max = float(hi) if count else -math.inf
+        h._nonpos = int(nonpos)
+        h._buckets = {int(k): int(v) for k, v in buckets.items()
+                      if int(v) > 0}
+        return h
+
 
 class _Span:
     """Context manager recording one timed span; nests via a per-instance

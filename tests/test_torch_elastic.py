@@ -5,7 +5,10 @@ JAX's ``reshard`` and against a loader born at that world, the
 filesystem rendezvous and the join claims, ``is_peer_loss`` on the texts
 a killed gloo peer really produces, and ``agree_health``'s flags and its
 bound over 2-rank gloo worlds (``tests/_torch_elastic_child.py``).  Then
-the CLI's elastic flags with the JAX defaults and launch-time checks."""
+the CLI's elastic flags with the JAX defaults and launch-time checks,
+and a DDP world's teardown releasing its group (ROADMAP queue 3 entry
+21): in one process, and in three ranks where a survivor blocked on a
+live peer joins the new world."""
 
 import json
 import os
@@ -344,9 +347,9 @@ ELASTIC_FLAGS = {
 }
 
 
-@pytest.mark.parametrize("action", ["train", "test"])
+@pytest.mark.parametrize("action", ["train", "test", "serve"])
 def test_elastic_flags_parse_with_jax_defaults(action):
-    base = [action, "-d", "/d"] + (["-f", "/x.ckpt"] if action == "test"
+    base = [action, "-d", "/d"] + (["-f", "/x.ckpt"] if action != "train"
                                    else [])
     want = jax_argv(base)
     cfg = tconfig.config_from_argv(base + ["--device", "cpu"])
@@ -380,6 +383,26 @@ def test_elastic_launch_checks_fail_with_jax_messages(extra, capsys):
         ["test", "-d", "/d", "-f", "/x", "--device", "cpu"] + extra)
 
 
+@pytest.mark.parametrize("extra", [["--elastic-join"],
+                                   ["--elastic", "--elastic-target", "x"]])
+def test_serve_elastic_launch_checks_fail_with_jax_messages(extra):
+    """serve fails before any work, with the JAX run_serve's messages
+    (cli.py:1519-1531): its --elastic-join wording names a replica."""
+    argv = ["serve", "-d", "/nonexistent", "-f", "/x.ckpt", "--device",
+            "cpu"] + extra
+    if extra == ["--elastic-join"]:
+        message = ("--elastic-join requires --elastic: a joining replica "
+                   "becomes a normal elastic member and must keep "
+                   "reconfiguring with its world")
+    else:
+        with pytest.raises(ValueError) as e:
+            jelastic.evaluate_join_policy(1, [], extra[-1], 1)
+        message = str(e.value)
+    with pytest.raises(ValueError, match=f"^{re.escape(message)}$"):
+        tconfig.config_from_argv(argv)
+    assert tcli.main(argv) == 1
+
+
 def test_max_reconfigures_ends_in_peer_failure(tmp_path, monkeypatch):
     """Past --max-reconfigures the world change ends the run with the
     JAX message (a PeerFailureError: exit 1)."""
@@ -410,3 +433,111 @@ def test_coordinator_loss_is_a_clean_error(tmp_path, fast_settle):
                 "whose process holds its world's store, was lost (claims "
                 "[1, 2]) — not survivable; exiting")):
             elastic._rendezvous(str(tmp_path), 1, rank, 3, "gloo")
+
+
+# -- queue 3 entry 21: the DDP world's group is released at teardown ------
+
+PIN_PROBE = """
+import gc, sys, weakref
+from distributedpytorch_tpu_torch import runtime
+import torch, torch.distributed as dist
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d",
+                        world_size=1, rank=0)
+model = torch.nn.parallel.DistributedDataParallel(torch.nn.Linear(4, 2))
+model(torch.randn(3, 4)).sum().backward()
+group = weakref.ref(dist.group.WORLD)
+del model
+runtime.teardown_distributed()
+gc.collect()
+sys.exit(0 if group() is None else 3)
+"""
+
+
+def test_teardown_releases_a_ddp_world_group():
+    """A world on which DistributedDataParallel was built is freed by the
+    teardown, and with it its gloo sockets: torch.distributed.nn.functional
+    (imported by DDP) evaluates ``group=group.WORLD`` defaults when it is
+    first imported, which ``runtime`` does before any world exists."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run([sys.executable, "-c", PIN_PROBE % port],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+
+
+STALL_S = 8.0
+# ranks 0 and 1 reconfigure within this of rank 1's stall starting: the
+# stall, the rendezvous and the new world's init; the blocked collective's
+# own timeout (runtime.GROUP_TIMEOUT) is 10 minutes
+RECONFIGURE_BOUND_S = STALL_S + 45.0
+
+
+def test_survivor_blocked_on_a_live_peer_joins_the_new_world(tmp_path):
+    """Three --elastic ranks (tiny vit, streamed): rank 1's producer
+    stalls STALL_S at the host batch of train step 3 of epoch 1 (hit 13),
+    so ranks 0 and 2 enter step 3's all-reduce and wait on it; rank 2's
+    producer then stalls 2 s at hit 14 and loses the rank at hit 15, while
+    its step 3 is in the collective.  Rank 0 stays blocked on the live,
+    stalled rank 1 until rank 1 finds rank 2 gone and tears its world
+    down; then both reconfigure into a world of 2 within
+    RECONFIGURE_BOUND_S of the stall and finish the run."""
+    rsl = str(tmp_path / "rsl")
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps({"faults": [
+        {"site": "data.host_batch", "kind": "stall", "after_n": 12,
+         "count": 1, "stall_s": STALL_S, "rank": 1},
+        {"site": "data.host_batch", "kind": "stall", "after_n": 13,
+         "count": 1, "stall_s": 2.0, "rank": 2},
+        {"site": "data.host_batch", "kind": "rank_loss", "after_n": 14,
+         "count": 1, "rank": 2}]}))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args = ["train", "-d", str(tmp_path / "data"), "--rsl_path", rsl,
+            "--model", "vit", "--attention", "full", "--device", "cpu",
+            "--debug", "--synthetic-fallback", "--dataset", "synthetic",
+            "-e", "3", "-b", "16", "--telemetry", "--data-mode", "stream",
+            "--elastic", "--health-timeout", "30", "--fault-plan",
+            str(plan)]
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+        "MASTER_ADDR", "MASTER_PORT", "XLA_FLAGS")}
+    procs = []
+    for rank in range(3):
+        log = str(tmp_path / f"rank{rank}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, CHILD, "--tiny-vit", "--settle", "3", "--",
+                 *args], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                env={**env, "OMP_NUM_THREADS": "1", "WORLD_SIZE": "3",
+                     "RANK": str(rank), "LOCAL_RANK": str(rank),
+                     "LOCAL_WORLD_SIZE": "3", "MASTER_ADDR": "127.0.0.1",
+                     "MASTER_PORT": str(port)}), log))
+    rcs = []
+    try:
+        for proc, log in procs:
+            try:
+                rcs.append(proc.wait(timeout=240))
+            except subprocess.TimeoutExpired:
+                pytest.fail(f"{log} hung:\n{open(log).read()[-3000:]}")
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert rcs == [0, 0, faults.RANK_LOSS_EXIT], \
+        [open(log).read()[-3000:] for _, log in procs]
+
+    def events(rank, name):
+        with open(os.path.join(rsl, "telemetry", f"rank{rank}.jsonl")) as f:
+            return [e for e in map(json.loads, f) if e.get("name") == name]
+
+    [stall] = [e for e in events(1, "fault_injected")
+               if e["attrs"]["kind"] == "stall"]
+    for rank in (0, 1):
+        [rec] = events(rank, "elastic/reconfigure")
+        assert (rec["attrs"]["new_world"], rec["attrs"]["new_rank"]) == \
+            (2, rank)
+        assert rec["ts"] - stall["ts"] <= RECONFIGURE_BOUND_S

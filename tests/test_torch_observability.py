@@ -329,7 +329,16 @@ def test_test_takes_the_flags(runs):
 
 
 def test_serve_still_refuses_the_exporter_and_the_recorder():
-    for flag in (["--metrics-port", "1"], ["--flightrec"]):
-        with pytest.raises(ValueError, match=f"^not ported yet: {flag[0]}$"):
-            tconfig.config_from_argv(["serve", "-d", "/d", "-f", "/c",
-                                      "--device", "cpu", *flag])
+    """Named when serve refused them: serve now takes --metrics-port,
+    --flightrec/--no-flightrec and --flightrec-ring (a replica's exporter
+    and flight recorder), with the JAX serve parser's defaults and
+    values."""
+    from distributedpytorch_tpu.config import config_from_argv as jax_argv
+
+    base = ["serve", "-d", "/d", "-f", "/c"]
+    for extra in ([], ["--metrics-port", "1"], ["--no-flightrec"],
+                  ["--flightrec", "--flightrec-ring", "64"]):
+        got = tconfig.config_from_argv(base + ["--device", "cpu", *extra])
+        want = jax_argv(base + extra)
+        assert (got.metrics_port, got.flightrec, got.flightrec_ring) == \
+            (want.metrics_port, want.flightrec, want.flightrec_ring)

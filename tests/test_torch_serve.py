@@ -2,8 +2,9 @@
 transform, the datasets, the predict step on a checkpoint the JAX package
 wrote, the port's own checkpoint file and lineage ledger, an HTTP round
 trip through ``python -m distributedpytorch_tpu_torch serve --device
-cpu``, the refusal of every flag that is not ported yet, the no-GPU
-refusal, and the purity of the port's imports.  Inputs come from numpy
+cpu``, ``/admin/reload`` without a swap function, the refusal of every
+flag that is not ported yet, the no-GPU refusal, and the purity of the
+port's imports.  Inputs come from numpy
 with a seed and go to both sides."""
 
 import json
@@ -333,9 +334,9 @@ def test_tier_answers_a_burst_of_concurrent_connections():
     assert [s for s, _ in results] == [200] * 64, results[:3]
 
 
-def test_admin_reload_is_not_ported():
-    """Hot-swap is not ported yet: /admin/reload answers 501 with one
-    line, and the tier keeps answering /predict."""
+def test_admin_reload_without_swap_fn_answers_501():
+    """A tier with no swap function answers /admin/reload with 501 and
+    one line naming the missing seam, and keeps answering /predict."""
     import threading
 
     from distributedpytorch_tpu_torch.serving import ServingTier
@@ -355,12 +356,100 @@ def test_admin_reload_is_not_ported():
             urllib.request.urlopen(req, timeout=30)
         assert e.value.code == 501
         assert json.loads(e.value.read()) == {
-            "error": "not ported yet: /admin/reload"}
+            "error": "no swap_fn installed (stub tier or a replica without "
+                     "hot-swap)"}
         status, body = _post(tier.port, np.zeros((4, 4), int).tolist())
         dispatcher.join(timeout=10)
     finally:
         tier.close()
     assert status == 200 and body["confidence"] == 0.5
+
+
+def test_close_waits_for_the_last_answers_records(tmp_path, monkeypatch):
+    """A /predict handler writes its trace record after its answer;
+    close() returns only once it has, so a replica that exits right after
+    close() keeps the records of its last batch."""
+    import threading
+
+    from distributedpytorch_tpu_torch import tracing
+    from distributedpytorch_tpu_torch.serving import ServingTier
+
+    rsl = str(tmp_path)
+    tracer = tracing.configure(rsl, True, 0)
+    write = tracer._write
+
+    def slow_write(*args, **kwargs):
+        time.sleep(0.5)
+        write(*args, **kwargs)
+
+    monkeypatch.setattr(tracer, "_write", slow_write)
+    tier = ServingTier(lambda arr: (np.zeros(arr.shape[0], np.int32),
+                                    np.full(arr.shape[0], 0.5)),
+                       (4, 4), np.uint8, (1,), max_queue=4,
+                       max_latency_s=0.01, port=0, max_requests=1)
+    tier.start()
+    answers = []
+    client = threading.Thread(target=lambda: answers.append(
+        _post(tier.port, np.zeros((4, 4), int).tolist())))
+    try:
+        client.start()
+        tier.run()
+        client.join(timeout=30)
+        tier.close()
+        records = tracing.load_records(rsl)
+    finally:
+        tier.close()
+        tracing.configure(rsl, False, 0)
+    assert [status for status, _ in answers] == [200]
+    assert [r["outcome"] for r in records] == ["answered"]
+
+
+def test_failed_batch_records_land_before_its_count(tmp_path, monkeypatch):
+    """A batch whose infer raises has its requests' trace records on disk
+    by the time ``serve/failed`` counts them, so a collector that fires on
+    the counter names every request of that batch in its bundle."""
+    import threading
+
+    from distributedpytorch_tpu_torch import telemetry, tracing
+    from distributedpytorch_tpu_torch.serving import ServingTier
+
+    def infer(arr):
+        raise OSError("injected")
+
+    rsl = str(tmp_path)
+    tel = telemetry.configure(rsl, True, 0)
+    tracing.configure(rsl, True, 0)
+    seen = []
+    counter = tel.counter
+
+    class Probe:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def add(self, n=1):
+            seen.append((n, sum(r["outcome"] == "failed"
+                                for r in tracing.load_records(rsl))))
+            self.inner.add(n)
+
+    monkeypatch.setattr(tel, "counter", lambda name: Probe(counter(name))
+                        if name == "serve/failed" else counter(name))
+    tier = ServingTier(infer, (4, 4), np.uint8, (1,), max_queue=4,
+                       max_latency_s=0.01, port=0, max_requests=1)
+    tier.start()
+    dispatcher = threading.Thread(target=tier.run, daemon=True)
+    dispatcher.start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(tier.port, np.zeros((4, 4), int).tolist())
+        dispatcher.join(timeout=10)
+    finally:
+        tier.close()
+        tracing.configure(rsl, False, 0)
+        telemetry.configure(rsl, False, 0)
+    assert e.value.code == 500
+    assert seen == [(1, 1)]
+    [rec] = tracing.load_records(rsl)
+    assert rec["outcome"] == "failed" and rec["status"] == 500
     assert not dispatcher.is_alive()
 
 
@@ -375,13 +464,15 @@ NOT_PORTED = [
     (["--scan-layers"], "--scan-layers"),
     # ported: taken, as the JAX serve parser takes it
     (["--remat", "blocks"], "--remat blocks"),
+    # ported: taken, a replica of an elastic world with its exporter and
+    # flight recorder (--elastic-join needs --elastic)
     (["--elastic"], "--elastic"),
     (["--elastic-join"], "--elastic-join"),
     (["--elastic-dir", "/x"], "--elastic-dir"),
-    # ported: taken, its serve.* sites live
-    (["--fault-plan", "data.read:ioerror:0"], "--fault-plan"),
     (["--metrics-port", "9100"], "--metrics-port"),
     (["--flightrec"], "--flightrec"),
+    # ported: taken, its serve.* sites live
+    (["--fault-plan", "data.read:ioerror:0"], "--fault-plan"),
     (["--ckpt-format", "orbax"], "--ckpt-format orbax"),
     # ported presets, refused as the JAX package refuses them
     (["--precision", "bf16_full", "--no-bf16"], "--precision bf16_full"),
@@ -394,19 +485,30 @@ NOT_PORTED = [
 def test_flag_not_ported_fails_loudly(extra, flag, capsys):
     """Each flag fails with one line; --model-parallel with the JAX serve's
     message (it does not apply to a replica), --precision against --no-bf16
-    with the JAX conflict, every other one as not ported yet; --remat is
-    ported and taken (nothing of serve reads it), and so is --fault-plan
-    (the serve.* sites fire under it)."""
+    with the JAX conflict, --elastic-join without --elastic with the JAX
+    run_serve's, every other one as not ported yet; --remat is ported and
+    taken (nothing of serve reads it), and so are --fault-plan (the serve.*
+    sites fire under it), --elastic, --elastic-dir, --metrics-port and
+    --flightrec (the world of replicas, tests/test_torch_serve_world.py)."""
     argv = ["serve", "-d", "/nonexistent", "-f", "/nonexistent.ckpt",
             "--device", "cpu"] + extra
-    if flag == "--remat blocks":
-        assert tconfig.config_from_argv(argv).remat == "blocks"
-        return
-    if flag == "--fault-plan":
-        assert tconfig.config_from_argv(argv).fault_plan == \
-            "data.read:ioerror:0"
+    taken = {"--remat blocks": ("remat", "blocks"),
+             "--fault-plan": ("fault_plan", "data.read:ioerror:0"),
+             "--elastic": ("elastic", True),
+             "--elastic-dir": ("elastic_dir", "/x"),
+             "--metrics-port": ("metrics_port", 9100),
+             "--flightrec": ("flightrec", True)}
+    if flag in taken:
+        field, value = taken[flag]
+        assert getattr(tconfig.config_from_argv(argv), field) == value
         return
     message = f"not ported yet: {flag}"
+    if flag == "--elastic-join":
+        # taken, and refused without --elastic as the JAX run_serve does
+        message = re.escape(
+            "--elastic-join requires --elastic: a joining replica becomes "
+            "a normal elastic member and must keep reconfiguring with its "
+            "world")
     if flag.startswith("--precision"):
         message = re.escape(
             f"--no-bf16 conflicts with {flag}: --no-bf16 is the legacy "
@@ -465,5 +567,5 @@ def test_port_imports_no_jax():
                  "models.simple", "models.resnet", "runtime", "train.engine",
                  "models.alexnet", "models.vgg", "models.squeezenet",
                  "models.densenet", "models.inception", "models.common",
-                 "models.pretrained"):
+                 "models.pretrained", "deadline", "slo", "fleet"):
         assert f"distributedpytorch_tpu_torch.{name}" in imported, name

@@ -16,6 +16,8 @@ JAX package's ``ShardedLoader`` and against the port's resident loader.
     gives the resident run's losses and parameters bit for bit on the
     CPU; ``--epochs-per-dispatch 2`` on a streamed run fails with JAX's
     message, word for word.
+  * A read-only split is copied into the resident loader (ROADMAP queue 3
+    entry 22).
 """
 
 import itertools
@@ -375,3 +377,24 @@ def test_streamed_epochs_per_dispatch_fails_with_the_jax_message(
     with pytest.raises(ValueError) as err:
         tcli.run_train(tconfig.config_from_argv(argv))
     assert str(err.value) == want and made == []
+
+
+def test_resident_loader_copies_a_read_only_split():
+    """A read-only split (as a memory-mapped corpus comes) is copied, not
+    wrapped (ROADMAP queue 3 entry 22): no "not writable" UserWarning, and
+    on the CPU, where ``.to()`` returns the same tensor, writing into the
+    loader's images leaves the split's untouched, as the JAX loader's
+    ``device_put`` copy does."""
+    import warnings
+
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (20, 6, 6), dtype=np.uint8)
+    images.flags.writeable = False
+    split = Split(images, rng.integers(0, 10, 20).astype(np.int32))
+    before = images.copy()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        loader = ResidentLoader(split, BATCH, True, SEED, "cpu")
+    loader.images += 1
+    np.testing.assert_array_equal(split.images, before)
+    np.testing.assert_array_equal(loader.images.numpy(), before + 1)

@@ -786,19 +786,21 @@ def test_train_defaults_follow_the_jax_cli():
 def test_a_multi_process_launch_is_refused(tmp_path, monkeypatch):
     """A multi-process launch without the env:// rendezvous variables is
     refused before anything runs (torchrun sets them all;
-    tests/test_torch_ddp.py runs a complete one), and ``serve`` stays one
-    process."""
+    tests/test_torch_ddp.py runs a complete one), for ``serve``'s world of
+    replicas as for ``train`` (tests/test_torch_serve_world.py runs a
+    complete one)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.delenv("RANK", raising=False)
     with pytest.raises(ValueError, match="multi-process launch: RANK is "
                                          "not set"):
         tcli.run_train(tconfig.config_from_argv(_train_argv(tmp_path)))
     assert not (tmp_path / "rsl").exists()
-    with pytest.raises(ValueError, match="not ported yet: multi-process "
-                                         "launch of serve"):
+    with pytest.raises(ValueError, match="multi-process launch: RANK is "
+                                         "not set"):
         tcli.run_serve(tconfig.config_from_argv(
             ["serve", "-d", str(tmp_path), "-f", "/x.ckpt", "--device",
-             "cpu"]))
+             "cpu", "--rsl_path", str(tmp_path / "rsl")]))
+    assert not (tmp_path / "rsl").exists()
 
 
 def test_train_without_device_cpu_refuses_to_run_without_gpu(tmp_path,
