@@ -33,9 +33,9 @@ or the phase of fault plans and elastic worlds:
     python3 chip_smoke.py --phases 39
 
 or the phase of ``serve`` as an elastic world of replicas and the fleet
-collector:
+collector, and the front door's and the simulator's after it:
 
-    python3 chip_smoke.py --phases 40
+    python3 chip_smoke.py --phases 40,41
 
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
@@ -379,7 +379,36 @@ result.  Phases, each printing its lines before the last:
      of its checkpoint at its bucket (label, and confidence to 1e-4) at
      the end of the run, when no other phase counts launches.  It runs
      on a thread of its own from before phase 21, beside phase 21;
- 41. the card's name and power limit again, one ``{"kernels": [...]}``
+ 41. the fleet's front door and the simulator, on phase 40's thread after
+     it (``--phases 41`` brings in 40): phase 40's checkpoints A and B
+     copied into one directory whose lineage ledger names A alone; two
+     replicas of A as a fresh 2-rank ``--elastic`` gloo world on the one
+     card with ``--metrics-port``, and ``python -m
+     distributedpytorch_tpu_torch frontdoor`` in front of them with
+     ``--rollout`` over that ledger and ``--autoscale --min-world 2``,
+     its ``--launch-cmd`` replica 1's ``--elastic-join`` command on B;
+     every wave 128 concurrent requests to the front door's one port,
+     which its least-pending pick splits into a full bucket of 64 a
+     replica: (a) two waves, every answer 200 with ``X-DPT-Request-Id``
+     and ``X-DPT-Upstream``, both replicas answering, each replica's K1
+     launches from its ``/metrics`` held to 4 x (batches + warm-up
+     buckets), all on the tensor cores; (b) B enters the ledger: the
+     front door canaries it on replica 0, a wave is answered by B there
+     and A on replica 1, and after a 2 s hold B is promoted to both; a
+     wave of B; (c) half a wave queued on each replica (5 s flush), then
+     SIGKILL of replica 1: every request answered 200 by replica 0
+     through the retry-once path, slot 1 ejected, one ``min_world``
+     scale-up launching the join command, the joiner back at rank 1 of
+     2 on its old port serving B (``/livez``) and answering a wave; the
+     times from the kill to the ejection, to the joiner's readmission
+     and to its first answer printed; the front door and replica 0 exit
+     0 on SIGTERM and the joiner with them; (d) ``sim --scenario
+     control`` twice on the host (no device), started with the phase:
+     zero scale actions, zero incidents, equal ``event_log_sha256``.
+     Every answer is held against the in-process predict step of the
+     checkpoint its upstream served (label, and confidence to 1e-4) at
+     the end of the run, with phase 40's;
+ 42. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -387,12 +416,13 @@ Phases run in the order of their numbers but for these changes: 23, 24,
 32, the in-process parts of 35, 36 and 38, and 37, which time steps and
 kernels, run before 21; the exit test's five trainings (31) and 38's
 five CLI trainings start then and run beside 21, 22 and 25-36, and 40's
-world of replicas beside 21; 39's thread starts after 22; phase
+world of replicas, then 41's, beside 21; 39's thread starts after 22;
+phase
 33's three f16 worlds start with phase 19's; the CLI runs of 18, 27, 29,
 30, 33, 34, 35 and 36 start after 22 and run beside 25, 26 and 28 (18's
 and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
-35, 36 and 38's last checks, then 39's and 40's, come last.  Nothing after 38's
+35, 36 and 38's last checks, then 39's, 40's and 41's, come last.  Nothing after 38's
 in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
@@ -419,6 +449,8 @@ import time
 import urllib.error
 import urllib.request
 import functools
+import hashlib
+import shlex
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -4314,6 +4346,14 @@ GRAPH_RUNS = (("vit flash bf16", "vit", "bf16", "flash", False, 320),
               ("densenet121 bf16", "densenet", "bf16", "full", False, 192))
 GRAPH_EPOCHS, GRAPH_K = 4, 2
 GRAPH_PROFILE_STEPS = 2     # a trace's processing grows with its kernels
+GRAPH_TRACE_TRIES = 3
+
+
+def traces_agree(prof: dict, per_step: dict) -> bool:
+    """Both traces of a graph_profile pair have device time, and the
+    graphed step's launches of the port's kernels equal the eager's."""
+    return (all(r["device_ms"] is not None for r in prof.values())
+            and per_step["graphed"] == per_step["eager"])
 # the port's kernels as the profiler names them (either route)
 PROFILED_KERNELS = {"flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
                     "flash_dkv": "flash_dkv_", "conv_dw": "conv_dw"}
@@ -4322,8 +4362,11 @@ PROFILED_KERNELS = {"flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
 def graph_profile(step, reps: int) -> dict:
     """Wall ms a step (host clock, synchronized, profiler off), then under
     torch.profiler device ms a step, kernels a step, the idle share of the
-    wall and the port's kernels' launches a step, read from the trace."""
+    wall and the port's kernels' launches a step, read from the device
+    events after the trace's lead-in and marker (``_device_trace``'s:
+    a trace can lose its first events, once a whole graph replay)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -4334,17 +4377,26 @@ def graph_profile(step, reps: int) -> dict:
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
+    lead = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            lead.add_(1.0)
+        torch.cuda._sleep(1000)
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    dev = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    kernels = events[marks[0] + 1:] if marks else []
+    dev = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
     return dict(wall_ms=wall, device_ms=dev if dev > 0 else None,
-                kernels=sum(e.count for e in kernels) / reps,
+                kernels=len(kernels) / reps,
                 idle=(1 - dev / wall) if dev > 0 else None,
-                launches={n: sum(e.count for e in kernels if tag in e.key)
-                          / reps for n, tag in PROFILED_KERNELS.items()})
+                launches={n: sum(tag in e.name for e in kernels) / reps
+                          for n, tag in PROFILED_KERNELS.items()})
 
 
 def phase_graphs() -> dict:
@@ -4463,11 +4515,19 @@ def phase_graphs() -> dict:
                 runner.counters[0].zero_()
             runner.train_step()
 
-        prof = {p: graph_profile(fn, GRAPH_PROFILE_STEPS)
-                for p, fn in (("eager", eager_step),
-                              ("graphed", graphed_step))}
-        per_step = {p: {k: v for k, v in prof[p]["launches"].items() if v}
-                    for p in prof}
+        # a trace that lost events is taken again, GRAPH_TRACE_TRIES at most
+        for attempt in range(1, GRAPH_TRACE_TRIES + 1):
+            prof = {p: graph_profile(fn, GRAPH_PROFILE_STEPS)
+                    for p, fn in (("eager", eager_step),
+                                  ("graphed", graphed_step))}
+            per_step = {p: {k: v for k, v in prof[p]["launches"].items()
+                            if v} for p in prof}
+            if traces_agree(prof, per_step):
+                break
+            say(f"graphs: {label}: trace {attempt} of {GRAPH_TRACE_TRIES} "
+                f"lost events: the port's kernels a step {per_step}, "
+                "kernels a step "
+                + str({p: r["kernels"] for p, r in prof.items()}))
         say(f"graphs: {label}, {len(train)} steps and {len(valid)} eval "
             f"batch an epoch, {GRAPH_EPOCHS} epochs: eager "
             f"{eager['wall']:.2f}s, graphed ({GRAPH_EPOCHS // GRAPH_K} "
@@ -4497,9 +4557,7 @@ def phase_graphs() -> dict:
                  f"{graphed['sums']}, counters {eager['counters']} vs "
                  f"{graphed['counters']}, launches {eager['launches']} vs "
                  f"{graphed['launches']}")
-        if prof["graphed"]["device_ms"] is None or \
-                prof["eager"]["device_ms"] is None or \
-                per_step["graphed"] != per_step["eager"]:
+        if not traces_agree(prof, per_step):
             fail(f"torch.profiler's trace of the graphed {label} step "
                  f"shows {per_step['graphed']} of the port's kernels a "
                  f"step against the eager step's {per_step['eager']}")
@@ -5476,6 +5534,7 @@ REMAT_RUNS = (("vit flash", "vit", "flash", False),
               ("cnn with K5", "cnn", "full", True))
 REMAT_MODES = ("none", "blocks", "full")
 REMAT_PROFILE_STEPS = 1     # densenet121: 11.5 thousand kernels a step
+REMAT_TRACE_TRIES = 3
 
 
 def remat_launch_formula(model: str, mode: str) -> dict:
@@ -5493,9 +5552,8 @@ def remat_step(name: str, attention: str, k5: bool, mode: str, batch,
     """One Adam step under ``mode`` from SEED's weights, the counts set to
     0 just before and read just after; then the peak memory of a second
     step (``torch.cuda.max_memory_allocated``) and the device time of
-    REMAT_PROFILE_STEPS more under torch.profiler."""
+    REMAT_PROFILE_STEPS more under torch.profiler (``_device_trace``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from distributedpytorch_tpu_torch import utils
     from distributedpytorch_tpu_torch.models import (get_model,
@@ -5532,14 +5590,18 @@ def remat_step(name: str, attention: str, k5: bool, mode: str, batch,
     out["wall"] = (time.perf_counter() - t0) * 1e3
     out["peak"] = torch.cuda.max_memory_allocated()
     out["transient"] = out["peak"] - before
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(REMAT_PROFILE_STEPS):
-            engine.train_step(state, *batch,
-                              utils.step_generator(SEED, 0, 2 + i, "cuda"))
-        torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in device_kernels(prof)) \
-        / 1e3 / REMAT_PROFILE_STEPS
-    out["device"] = dev if dev > 0 else None
+    steps = itertools.count(2)
+
+    def step():
+        engine.train_step(state, *batch, utils.step_generator(
+            SEED, 0, next(steps), "cuda"))
+
+    # _device_trace's lead-in takes the first device events a trace can
+    # lose, which were the whole of a cnn step's; a trace lacking the
+    # step's events is taken again, at most REMAT_TRACE_TRIES times
+    traces = (_device_trace({"step": step}, REMAT_PROFILE_STEPS)
+              for _ in range(REMAT_TRACE_TRIES))
+    out["device"] = next((t["step"] for t in traces if t), None)
     del model, engine, state
     torch.cuda.empty_cache()
     return out
@@ -6548,11 +6610,12 @@ def raw_request(port: int, request: bytes) -> tuple:
 
 def serve_wave(port: int, images, raw: bool = False) -> dict:
     """One wave of ``len(images)`` concurrent requests released by a
-    barrier: each request's status, body, id and monotonic send time, and
-    the wave's start (the first send).  A request whose connection dies
-    has status None.  ``raw``: each client connects and sends its
-    pre-built request with one ``sendall`` (the least client work), else
-    through urllib."""
+    barrier: each request's status, body, id, monotonic send time, the
+    X-DPT-Upstream header (a front door's; None from a replica) and
+    monotonic answer time, and the wave's start (the first send).  A
+    request whose connection dies has status None.  ``raw``: each client
+    connects and sends its pre-built request with one ``sendall`` (the
+    least client work), else through urllib."""
     n = len(images)
     bodies = [json.dumps({"image": img.tolist()}).encode() for img in images]
     requests = [(f"POST /predict HTTP/1.1\r\nHost: localhost\r\n"
@@ -6566,18 +6629,22 @@ def serve_wave(port: int, images, raw: bool = False) -> dict:
         sent = time.monotonic()
         try:
             if raw:
-                out[i] = raw_request(port, requests[i]) + (sent,)
+                out[i] = raw_request(port, requests[i]) + (
+                    sent, None, time.monotonic())
                 return
             req = urllib.request.Request(
                 f"http://127.0.0.1:{port}/predict", data=bodies[i])
             with urllib.request.urlopen(req, timeout=120) as r:
                 out[i] = (r.status, json.loads(r.read()),
-                          r.headers.get("X-DPT-Request-Id"), sent)
+                          r.headers.get("X-DPT-Request-Id"), sent,
+                          r.headers.get("X-DPT-Upstream"), time.monotonic())
         except urllib.error.HTTPError as e:
             out[i] = (e.code, json.loads(e.read()),
-                      e.headers.get("X-DPT-Request-Id"), sent)
+                      e.headers.get("X-DPT-Request-Id"), sent,
+                      e.headers.get("X-DPT-Upstream"), time.monotonic())
         except OSError as e:
-            out[i] = (None, {"error": repr(e)}, None, sent)
+            out[i] = (None, {"error": repr(e)}, None, sent, None,
+                      time.monotonic())
 
     threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
     for th in threads:
@@ -6850,19 +6917,22 @@ def phase_serve_world(card: str) -> dict:
     return got
 
 
-def finish_serve_world_checks(got: dict) -> None:
-    """Every answer of phase 40 held against the in-process predict step
-    of its checkpoint at its bucket (label, and confidence to TOL_CONF),
-    A's and B's told apart."""
+def check_served_answers(tag: str, got: dict) -> None:
+    """Every answer of ``got["waves"]`` (a burst's failures left out) held
+    against the in-process predict step of the checkpoint that served it
+    at its bucket (label, and confidence to TOL_CONF), A's and B's told
+    apart."""
     import numpy as np
 
     images = got["images"]
     checked = mismatched = 0
-    for ckpt in got["ckpts"]:
+    for name, ckpt in zip("AB", got["ckpts"]):
         waves = [w for w in got["waves"] if w["ckpt"] == ckpt
                  and w["phase"] != "burst"]
         rows = [r for w in waves for r in w["rows"]]
         answers = [a for w in waves for a in w["answers"]]
+        if not rows:
+            continue
         served = np.array([a[1]["bucket"] for a in answers])
         labels, confs, probs = reference_predictions(
             ckpt, images[rows], served, "cuda")
@@ -6872,8 +6942,7 @@ def finish_serve_world_checks(got: dict) -> None:
         tie = (top2[:, 1] - top2[:, 0]) <= TOL_CONF
         err = float(np.abs(got_confs - confs).max())
         bad = int(((got_labels != labels) & ~tie).sum())
-        say(f"serve world: {len(rows)} answers of "
-            f"{os.path.basename(os.path.dirname(ckpt))} vs its in-process "
+        say(f"{tag}: {len(rows)} answers of {name} vs its in-process "
             f"predict step at bucket {sorted(set(served.tolist()))}: "
             f"{int((got_labels == labels).sum())} labels equal "
             f"({int(tie.sum())} within {TOL_CONF:g} of a tie), max conf err "
@@ -6885,21 +6954,301 @@ def finish_serve_world_checks(got: dict) -> None:
     b_ref = reference_predictions(got["ckpts"][1], images[:SERVE_WAVE],
                                   np.full(SERVE_WAVE, SERVE_WAVE), "cuda")
     differ = int((a_ref[0] != b_ref[0]).sum())
-    say(f"serve world: checkpoints A and B label {differ} of {SERVE_WAVE} "
+    say(f"{tag}: checkpoints A and B label {differ} of {SERVE_WAVE} "
         f"rows differently")
     if mismatched or not checked or not differ:
-        fail("serve world: the served answers disagree with their "
-             "checkpoints' predict steps")
+        fail(f"{tag}: the served answers disagree with their checkpoints' "
+             f"predict steps")
 
 
-def start_serve_world_phase(card: str) -> dict:
-    """Phase 40 on a thread of its own, beside the other CLI phases: its
-    failure (``fail``'s exit) is kept for ``finish_serve_world_phase``."""
+# -- phase 41: the front door over a world of replicas, and the simulator --
+
+FD_WAVE = 2 * SERVE_WAVE        # through the front door: a full bucket a
+#                                 replica (least-pending alternates them)
+FD_WAVES_A = 2                  # (a): waves through the front door
+FD_CANARY_HOLD_S = 2.0          # (b): the canary's soak
+FD_LEDGER = ("checkpoint-mnist-vit-000.ckpt", "checkpoint-mnist-vit-001.ckpt")
+
+
+def record_lineage(dirname: str, names) -> str:
+    """The lineage ledger of ``dirname`` naming ``names`` (oldest first)
+    at epochs 0, 1, ... with their sha256, in the schema the port's
+    ``checkpoint.py`` writes and its ``serving/rollout.py`` reads.
+    Returns the newest entry's sha256."""
+    records = []
+    for epoch, name in enumerate(names):
+        with open(os.path.join(dirname, name), "rb") as f:
+            blob = f.read()
+        records.append({"file": name, "epoch": epoch,
+                        "sha256": hashlib.sha256(blob).hexdigest(),
+                        "bytes": len(blob)})
+    path = os.path.join(dirname, "ckpt-lineage.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump({"records": records}, f, indent=1)
+    os.replace(path + ".tmp", path)
+    return records[-1]["sha256"]
+
+
+def pids_naming(marker: str) -> list:
+    """Live processes whose command line holds ``marker`` (the front
+    door's joiners are its children, not this script's)."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().decode(errors="replace").split("\0")
+            with open(f"/proc/{d}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if marker in cmd and state != "Z":
+            pids.append(int(d))
+    return pids
+
+
+def fd_status(fdp: int) -> dict:
+    return http_json(fdp, "/healthz", timeout=10)[1]
+
+
+def phase_frontdoor(card: str, ckpts: tuple) -> dict:
+    """Phase 41 (a)-(d) on phase 40's thread, after it; returns what the
+    closing check holds against the in-process predict step."""
+    rsl = os.path.join(WORK, "fd_world")
+    ledger = os.path.join(WORK, "fd_ledger")
+    fd_rsl = os.path.join(WORK, "fd")
+    os.makedirs(ledger)
+    a_path, b_path = (os.path.join(ledger, n) for n in FD_LEDGER)
+    shutil.copy2(ckpts[0], a_path)
+    record_lineage(ledger, FD_LEDGER[:1])
+    shutil.copy2(ckpts[1], b_path)          # in the ledger from (b) on
+    got = {"ckpts": (a_path, b_path), "waves": []}
+    t_start = time.monotonic()
+    # (d)'s two replays touch no device: they run beside the rest
+    sims = []
+    for i in range(2):
+        out = os.path.join(WORK, f"sim{i}.json")
+        with open(out, "w") as f:
+            sims.append((out, time.monotonic(), subprocess.Popen(
+                [sys.executable, "-m", "distributedpytorch_tpu_torch", "sim",
+                 "--scenario", "control", "--rsl_path",
+                 os.path.join(WORK, f"sim{i}")], cwd=ROOT, stdout=f,
+                stderr=subprocess.DEVNULL)))
+    ELASTIC_PROCS.extend(p for *_, p in sims)
+    port, mport, fdp = free_ports(2), free_ports(2), free_port()
+    serve = ["serve", "-d", os.path.join(WORK, "data"), "--rsl_path", rsl,
+             "--attention", "flash", "--precision", "bf16",
+             "--synthetic-fallback", "--device", "cuda",
+             "--serve-buckets", ",".join(str(b) for b in BUCKETS),
+             "--serve-max-latency-ms", str(SERVE_FLUSH_MS),
+             "--serve-request-timeout", "120", "--serve-port", str(port),
+             "--metrics-port", str(mport), "--elastic", "--health-timeout",
+             "30"]
+    world = start_ranks("fd_world", serve + ["-f", a_path], 2)
+    logs = [log for _, _, log in world]
+    join_cmd = [sys.executable, ELASTIC_CHILD, "--settle", "5", "--",
+                *serve, "-f", b_path, "--elastic-join"]
+    try:
+        for r in (0, 1):
+            wait_for(f"front door: replica {r} live", lambda: http_json(
+                port + r, "/livez")[1]["ok"])
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                            "MASTER_PORT", "LOCAL_WORLD_SIZE")}
+        flog = os.path.join(WORK, "frontdoor.log")
+        with open(flog, "w") as f:
+            fd = subprocess.Popen(
+                [sys.executable, "-m", "distributedpytorch_tpu_torch",
+                 "frontdoor", "--rsl_path", fd_rsl, "--port", str(fdp),
+                 "--ranks", "2", "--serve-port", str(port),
+                 "--metrics-port", str(mport), "--interval", "0.25",
+                 "--upstream-timeout", "120", "--pending-budget",
+                 str(4 * FD_WAVE), "--stale-after", "3", "--rollout",
+                 "--watch-dir", ledger, "--canary-hold",
+                 str(FD_CANARY_HOLD_S), "--canary-min-requests",
+                 str(SERVE_WAVE), "--autoscale", "--min-world", "2",
+                 "--max-world", "2", "--queue-high", "1000000",
+                 "--queue-low", "0", "--up-hold", "2", "--down-hold",
+                 "3600", "--cooldown", "600", "--launch-cmd",
+                 shlex.join(join_cmd)],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+        ELASTIC_PROCS.append(fd)
+        logs.append(flog)
+        wait_for("the front door probing both replicas", lambda: all(
+            fd_status(fdp)["upstreams"][str(r)]["alive"] for r in (0, 1)))
+        say(f"front door: 2 replicas (gloo, one card) and the front door "
+            f"live {time.monotonic() - t_start:.1f}s after their start")
+        images = got["images"] = work_dataset().splits["test"].images
+        row = [0]
+
+        def wave(phase, ckpt_of, n=FD_WAVE):
+            """``n`` concurrent requests through the front door; the
+            answers kept by upstream, with the checkpoint it served."""
+            rows = list(range(row[0], row[0] + n))
+            row[0] += n
+            out = serve_wave(fdp, images[rows])
+            bad = [a[:2] for a in out["answers"] if a[0] != 200
+                   or not a[2] or a[4] not in ("0", "1")]
+            if bad:
+                fail(f"front door ({phase}): {len(bad)} of {n} requests "
+                     f"not answered 200 with a request id and an "
+                     f"upstream, e.g. {bad[0]}")
+            for up in ("0", "1"):
+                mine = [(r, a) for r, a in zip(rows, out["answers"])
+                        if a[4] == up]
+                if mine:
+                    got["waves"].append({
+                        "phase": phase, "replica": int(up),
+                        "ckpt": ckpt_of[int(up)],
+                        "rows": [r for r, _ in mine],
+                        "answers": [a for _, a in mine]})
+            return out
+
+        # (a) routing: waves of full buckets through the one port
+        for _ in range(FD_WAVES_A):
+            out = wave("a", (a_path, a_path))
+            ups = {a[4] for a in out["answers"]}
+            if ups != {"0", "1"}:
+                fail(f"front door (a): a wave answered by {ups} only")
+        for r in (0, 1):
+            g = serve_gauges(mport + r)
+            launches = g["dpt_kernel_flash_fwd_launches"]
+            tc = g["dpt_kernel_flash_fwd_tensor_core_launches"]
+            batches = g["dpt_serve_batches_total"]
+            want = DEPTH * (batches + len(BUCKETS))
+            say(f"front door (a): replica {r}: {batches:g} batches, K1 "
+                f"launches {launches:g} = {DEPTH} x ({batches:g} + "
+                f"{len(BUCKETS)} warm-up forwards) -> expected {want:g}; "
+                f"{tc:g} on the tensor cores (its /metrics)")
+            if batches != FD_WAVES_A or launches != want or tc != launches:
+                fail(f"front door (a): replica {r}'s K1 launches do not "
+                     f"match its batches on the tensor cores")
+        # (b) rollout: B enters the ledger; canary, soak, promote
+        sha_b = record_lineage(ledger, FD_LEDGER)
+        t_b = time.monotonic()
+        canary = wait_for("the canary", lambda: (lambda r: r if r[
+            "phase"] == "canary" else None)(fd_status(fdp)["rollout"]), 60)
+        if canary["canary_ids"] != [0]:
+            fail(f"front door (b): canary on {canary['canary_ids']}")
+        say(f"front door (b): canary of B on replica 0 "
+            f"{time.monotonic() - t_b:.2f}s after B entered the ledger")
+        wave("b-canary", (b_path, a_path))
+        doc = wait_for("the promotion to both replicas", lambda: (
+            lambda d: d if d["rollout"]["promotions"] == 1 and all(
+                (d["upstreams"][str(r)]["lineage"] or {}).get("sha256")
+                == sha_b for r in (0, 1)) else None)(fd_status(fdp)), 60)
+        if doc["rollout"]["rollbacks"] or doc["rollout"]["phase"] != \
+                "stable":
+            fail(f"front door (b): {doc['rollout']}")
+        say(f"front door (b): B promoted to both replicas "
+            f"{time.monotonic() - t_b:.2f}s after it entered the ledger "
+            f"(hold {FD_CANARY_HOLD_S:g}s)")
+        wave("b", (b_path, b_path))
+        # (c) repair: replica 1 killed with half a wave queued on each
+        w_rows = list(range(row[0], row[0] + SERVE_WAVE))
+        row[0] += SERVE_WAVE
+        pending = {}
+
+        def half_wave():
+            pending["out"] = serve_wave(fdp, images[w_rows])
+
+        sender = threading.Thread(target=half_wave)
+        sender.start()
+        wait_for("half a wave queued on each replica", lambda: all(
+            fd_status(fdp)["upstreams"][str(r)]["pending"] ==
+            SERVE_WAVE // 2 for r in (0, 1)), 60)
+        world[1][1].kill()
+        t_kill = time.monotonic()
+        sender.join(timeout=300)
+        if "out" not in pending:
+            fail("front door (c): the wave around the kill did not end")
+        answers = pending["out"]["answers"]
+        if any(a[0] != 200 or a[4] != "0" for a in answers):
+            fail(f"front door (c): the wave around the kill: "
+                 f"{sorted({(a[0], a[4]) for a in answers}, key=str)}")
+        got["waves"].append({"phase": "c", "replica": 0, "ckpt": b_path,
+                             "rows": w_rows, "answers": answers})
+        wait_for("slot 1's ejection", lambda: fd_status(fdp)["upstreams"][
+            "1"]["ejected"], 60)
+        t_eject = time.monotonic() - t_kill
+        doc = wait_for("slot 1 back", lambda: (lambda d: d if d[
+            "scale_events"] >= 1 and d["upstreams"]["1"]["alive"]
+            and not d["upstreams"]["1"]["ejected"] else None)(
+            fd_status(fdp)), 240)
+        joined = wait_for("the joiner answering /livez", lambda: http_json(
+            port + 1, "/livez")[1]["checkpoint"], 120)
+        t_back = time.monotonic() - t_kill
+        health1 = http_json(mport + 1, "/healthz")[1]
+        if joined["sha256"] != sha_b or health1["rank"] != 1 \
+                or health1["world_size"] != 2:
+            fail(f"front door (c): the joiner serves {joined} as rank "
+                 f"{health1['rank']} of {health1['world_size']}")
+        out = wave("c-rejoined", (b_path, b_path))
+        mine = [a[5] for a in out["answers"] if a[4] == "1"]
+        if not mine:
+            fail("front door (c): the joiner answered none of a wave")
+        first = min(mine) - t_kill
+        got["repair_s"] = (t_eject, t_back, first)
+        say(f"front door (c): all {SERVE_WAVE} requests of the wave around "
+            f"the kill answered 200 by replica 0 (retry-once); slot 1 "
+            f"ejected {t_eject:.2f}s after the SIGKILL, the joiner "
+            f"readmitted at rank 1 on :{port + 1} after {t_back:.2f}s "
+            f"({doc['scale_events']} scale event), its first answer "
+            f"{first:.2f}s after the kill, on {card}")
+        if doc["scale_events"] != 1:
+            fail(f"front door (c): {doc['scale_events']} scale events")
+        events = [e for e in rank_events(fd_rsl, 90, "controller/scale_up")]
+        if len(events) != 1 or "min_world" not in events[0]["attrs"][
+                "reason"]:
+            fail(f"front door (c): the scale-up events {events}")
+        fd.send_signal(signal.SIGTERM)
+        rc_fd = fd.wait(timeout=60)
+        world[0][1].send_signal(signal.SIGTERM)
+        try:
+            rc0 = world[0][1].wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc0 = None
+        wait_for("the joiner's exit", lambda: not pids_naming(rsl), 120)
+        if rc_fd != 0 or rc0 != 0:
+            fail(f"front door: exit codes front door {rc_fd}, replica 0 "
+                 f"{rc0} on SIGTERM")
+        # (d) the two replays of the control scenario
+        reports = []
+        for out_path, t0, proc in sims:
+            rc = proc.wait(timeout=300)
+            with open(out_path) as f:
+                text = f.read()
+            if rc != 0:
+                fail(f"front door (d): sim exited {rc}: {text[-2000:]}")
+            reports.append(json.loads(text))
+        shas = {r["event_log_sha256"] for r in reports}
+        say(f"front door (d): sim --scenario control twice on the host: "
+            f"{[r['scale']['actions'] for r in reports]} scale actions, "
+            f"{[r['incidents'] for r in reports]} incidents, event log "
+            f"sha256 {sorted(s[:12] for s in shas)}")
+        if len(shas) != 1 or any(r["scale"]["actions"] or r["incidents"]
+                                 for r in reports):
+            fail("front door (d): the two replays differ or acted")
+    finally:
+        for pid in pids_naming(rsl):
+            os.kill(pid, signal.SIGKILL)
+    say(f"front door: (a)-(d) took {time.monotonic() - t_start:.1f}s")
+    return got
+
+
+def start_serve_world_phase(card: str, frontdoor: bool) -> dict:
+    """Phase 40, then with ``frontdoor`` phase 41, on a thread of their
+    own beside the other CLI phases: a failure (``fail``'s exit) is kept
+    for ``finish_serve_world_phase``."""
     pending = {"t0": time.perf_counter()}
 
     def body():
         try:
             pending["got"] = phase_serve_world(card)
+            if frontdoor:
+                pending["fd"] = phase_frontdoor(card,
+                                                pending["got"]["ckpts"])
         except BaseException as e:       # fail()'s SystemExit included
             pending["error"] = e
 
@@ -6909,18 +7258,22 @@ def start_serve_world_phase(card: str) -> dict:
     return pending
 
 
-def finish_serve_world_phase(pending: dict) -> None:
-    pending["thread"].join(SERVE_WAIT_S * 3)
-    say(f"chip_smoke: phase_serve_world ran "
-        f"{time.perf_counter() - pending['t0']:.1f}s beside the other "
-        f"phases")
-    if "got" not in pending:
-        fail(f"phase 40 did not pass: {pending.get('error')!r}")
-    finish_serve_world_checks(pending["got"])
+def finish_serve_world_phase(pending: dict, frontdoor: bool) -> None:
+    pending["thread"].join(SERVE_WAIT_S * 5)
+    names = "phase_serve_world" + (" and phase_frontdoor" if frontdoor
+                                   else "")
+    say(f"chip_smoke: {names} ran {time.perf_counter() - pending['t0']:.1f}s "
+        f"beside the other phases")
+    if "got" not in pending or (frontdoor and "fd" not in pending):
+        fail(f"phase 40{' or 41' if frontdoor else ''} did not pass: "
+             f"{pending.get('error')!r}")
+    check_served_answers("serve world", pending["got"])
+    if frontdoor:
+        check_served_answers("front door", pending["fd"])
 
 
-PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}}
-LAST_PHASE = 41                 # the closing lines; only a full run has it
+PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}}
+LAST_PHASE = 42                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -7096,8 +7449,8 @@ def main(argv=None) -> int:
         # 40's world of replicas on a thread of its own beside 21 (in
         # process, small on the card), so that it is done before 39's
         # thread starts and the two do not lengthen the run's tail
-        serve_pending = (start_serve_world_phase(card) if want(40)
-                         else None)
+        serve_pending = (start_serve_world_phase(card, want(41))
+                         if want(40) else None)
         if want(21):
             run(phase_zoo_parity)
         if want(22):
@@ -7167,7 +7520,7 @@ def main(argv=None) -> int:
         if want(39):
             finish_elastic_phase(elastic_pending)
         if want(40):
-            finish_serve_world_phase(serve_pending)
+            finish_serve_world_phase(serve_pending, want(41))
     finally:
         if obs_pending is not None:
             with obs_pending["lock"]:

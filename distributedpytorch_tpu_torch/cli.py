@@ -1473,13 +1473,22 @@ def run_serve(cfg: Config) -> dict:
 
 
 def run_offline(cfg: Config) -> int:
-    """The readers of a run directory and the fleet collector (JAX
-    ``main``, cli.py:1710-1790): no banner, no device."""
+    """The readers of a run directory, the fleet collector, the front
+    door and the simulator (JAX ``main``, cli.py:1710-1800): no banner, no
+    device, never a member of a world."""
     if cfg.action == "fleet":
         from . import fleet
 
         return fleet.run_cli(cfg)
+    if cfg.action == "frontdoor":
+        from .serving import frontdoor
+
+        return frontdoor.run_cli(cfg)
     try:
+        if cfg.action == "sim":
+            from .sim import runner
+
+            return runner.run_cli(cfg)
         if cfg.action == "incidents":
             from . import slo
 

@@ -1,6 +1,7 @@
 """Configuration of the ported ``train``, ``test`` and ``serve``
 subcommands, of the offline ``telemetry``, ``goodput``, ``timeline``,
-``roofline`` and ``incidents`` readers, and of the ``fleet`` collector.
+``roofline`` and ``incidents`` readers, of the ``fleet`` collector, the
+``frontdoor`` and the ``sim`` simulator.
 
 Counterpart of ``distributedpytorch_tpu/config.py`` (``Config`` at
 :62-316, ``_common_args`` at :394-708, ``build_parser`` at :711-760,
@@ -63,9 +64,11 @@ configures the fault plan and ignores the elastic flags, as the JAX
 ``test`` does.  ``serve`` takes the whole family, with the JAX
 ``run_serve``'s check that ``--elastic-join`` needs ``--elastic``
 (cli.py:1519-1524).  ``fleet`` takes the JAX collector's flags and
-defaults (config.py:859-905).  One default differs: ``test`` takes the
-model from the checkpoint, so its ``--model`` defaults to none (the JAX
-``test`` reads the checkpoint's too and ignores the flag).
+defaults (config.py:859-905), ``frontdoor`` the JAX front door's
+(:906-1050) and ``sim`` the JAX simulator's (:1062-1092).  One default
+differs: ``test`` takes the model from the checkpoint, so its ``--model``
+defaults to none (the JAX ``test`` reads the checkpoint's too and ignores
+the flag).
 """
 
 from __future__ import annotations
@@ -196,6 +199,38 @@ class Config:
     fleet_stale_after: int = 3
     fleet_max_cycles: int = 0
     slo_spec: Optional[str] = None
+    # the fleet front door (JAX config.py:333-373)
+    fd_port: int = 8080
+    fd_ranks: int = 1
+    fd_min_world: int = 1
+    fd_max_world: int = 0
+    fd_interval: float = 0.5
+    fd_upstream_timeout: float = 10.0
+    fd_pending_budget: int = 64
+    fd_retry_after: float = 1.0
+    fd_eject_after: int = 3
+    fd_max_step_age: float = 0.0
+    fd_max_cycles: int = 0
+    fd_autoscale: bool = False
+    fd_queue_high: float = 8.0
+    fd_queue_low: float = 1.0
+    fd_up_hold: float = 2.0
+    fd_down_hold: float = 10.0
+    fd_cooldown: float = 5.0
+    fd_launch_cmd: Optional[str] = None
+    fd_rollout: bool = False
+    fd_watch_dir: Optional[str] = None
+    fd_canary_fraction: float = 0.34
+    fd_canary_hold: float = 5.0
+    fd_canary_min_requests: int = 20
+    fd_canary_max_error: float = 0.05
+    fd_canary_p95_factor: float = 3.0
+    # the fleet simulator (JAX config.py:256-260)
+    sim_scenario: str = "control"
+    sim_seed: int = 0
+    sim_replicas: int = 0
+    sim_duration: float = 0.0
+    sim_model: Optional[str] = None
 
     def precision_policy(self):
         """The resolved precision.PrecisionPolicy for this config."""
@@ -805,6 +840,7 @@ def build_parser() -> argparse.ArgumentParser:
     _elastic_args(p)
     _refused_args(p, REFUSED_EVERYWHERE)
     _fleet_parser(sub)
+    _frontdoor_parser(sub)
     _offline_parsers(sub)
     return parser
 
@@ -855,10 +891,146 @@ def _fleet_parser(sub) -> None:
                         "incident-*.json bundles")
 
 
-# the readers of a run directory, and the fleet collector: no device, no
-# model, no refusals
+def _frontdoor_parser(sub) -> None:
+    """The JAX ``frontdoor`` parser (config.py:906-1050), same flags,
+    defaults and help; ``--launch-cmd`` names this package's ``serve``."""
+    p = sub.add_parser(
+        "frontdoor", help="run the fleet front door: route client "
+                          "/predict traffic across the serve replicas "
+                          "with health-aware admission, autoscale on "
+                          "queue/SLO pressure, and canary-roll out "
+                          "newer lineage-verified checkpoints")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"run directory shared with the serve world: "
+                        f"telemetry events and join logs land here "
+                        f"(default: {RSL_PATH})")
+    p.add_argument("--port", type=int, default=8080, dest="fd_port",
+                   metavar="PORT",
+                   help="the one client-facing port (default 8080)")
+    p.add_argument("--ranks", type=int, default=1, dest="fd_ranks",
+                   metavar="N",
+                   help="initial replica count: predict ports "
+                        "serve-port..serve-port+N-1 (default 1)")
+    p.add_argument("--serve-port", type=int, default=8100,
+                   dest="serve_port", metavar="PORT",
+                   help="base /predict port of the replicas (replica i "
+                        "answers on PORT + i; default 8100)")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   dest="metrics_port", metavar="PORT",
+                   help="base port of the per-rank exporters: health "
+                        "probes hit PORT + i /healthz and the embedded "
+                        "fleet collector scrapes them (0 = probe /livez "
+                        "on the predict port instead, no collector; "
+                        "default 0)")
+    p.add_argument("--interval", type=float, default=0.5,
+                   dest="fd_interval", metavar="S",
+                   help="control-loop period: probe + scrape + "
+                        "autoscale/rollout decisions (default 0.5)")
+    p.add_argument("--upstream-timeout", type=float, default=10.0,
+                   dest="fd_upstream_timeout", metavar="S",
+                   help="per-attempt deadline on a proxied /predict; a "
+                        "hung replica is cut off and the request retried "
+                        "once on another (default 10.0)")
+    p.add_argument("--pending-budget", type=int, default=64,
+                   dest="fd_pending_budget", metavar="N",
+                   help="fleet-wide in-flight request budget past which "
+                        "admission sheds with 503 + Retry-After "
+                        "(default 64)")
+    p.add_argument("--retry-after", type=float, default=1.0,
+                   dest="fd_retry_after", metavar="S",
+                   help="Retry-After hint on shed responses (default 1.0)")
+    p.add_argument("--eject-after", type=int, default=3,
+                   dest="fd_eject_after", metavar="N",
+                   help="consecutive probe/transport failures before a "
+                        "replica is ejected from routing (readmitted on "
+                        "recovery; default 3)")
+    p.add_argument("--max-step-age", type=float, default=0.0,
+                   dest="fd_max_step_age", metavar="S",
+                   help="eject a replica whose /healthz last_step_age_s "
+                        "exceeds S (0 disables the staleness check; "
+                        "default 0)")
+    p.add_argument("--max-cycles", type=int, default=0,
+                   dest="fd_max_cycles", metavar="N",
+                   help="stop after N control cycles (0 = run until "
+                        "interrupted; gates use N)")
+    p.add_argument("--slo-spec", type=str, default=None, dest="slo_spec",
+                   metavar="FILE",
+                   help="SLO objectives (slo.py schema) evaluated by the "
+                        "embedded collector; firing verdicts are "
+                        "scale-up pressure")
+    p.add_argument("--stale-after", type=int, default=3,
+                   dest="fleet_stale_after", metavar="N",
+                   help="collector scrapes before a silent rank ages out "
+                        "of the merged series (default 3)")
+    p.add_argument("--autoscale", action="store_true", dest="fd_autoscale",
+                   help="enable the autoscale controller")
+    p.add_argument("--min-world", type=int, default=1, dest="fd_min_world",
+                   metavar="N",
+                   help="never drain below N replicas; a world below N is "
+                        "repaired by launching (default 1)")
+    p.add_argument("--max-world", type=int, default=0, dest="fd_max_world",
+                   metavar="N",
+                   help="never launch above N replicas (0 = --ranks; "
+                        "default 0)")
+    p.add_argument("--queue-high", type=float, default=8.0,
+                   dest="fd_queue_high", metavar="D",
+                   help="scale up when every replica's queue depth holds "
+                        "at/above D (default 8.0)")
+    p.add_argument("--queue-low", type=float, default=1.0,
+                   dest="fd_queue_low", metavar="D",
+                   help="scale down only when every queue depth holds "
+                        "at/below D (default 1.0)")
+    p.add_argument("--up-hold", type=float, default=2.0, dest="fd_up_hold",
+                   metavar="S",
+                   help="pressure must hold S seconds before a scale-up "
+                        "(default 2.0)")
+    p.add_argument("--down-hold", type=float, default=10.0,
+                   dest="fd_down_hold", metavar="S",
+                   help="calm must hold S seconds before a scale-down "
+                        "(default 10.0)")
+    p.add_argument("--cooldown", type=float, default=5.0,
+                   dest="fd_cooldown", metavar="S",
+                   help="minimum spacing between scale actions "
+                        "(default 5.0)")
+    p.add_argument("--launch-cmd", type=str, default=None,
+                   dest="fd_launch_cmd", metavar="CMD",
+                   help="shell-ish command launched (Popen, no shell) to "
+                        "add a replica on scale-up — typically python -m "
+                        "distributedpytorch_tpu_torch serve --elastic "
+                        "--elastic-join")
+    p.add_argument("--rollout", action="store_true", dest="fd_rollout",
+                   help="enable canary rollout of newer lineage-verified "
+                        "checkpoints")
+    p.add_argument("--watch-dir", type=str, default=None,
+                   dest="fd_watch_dir", metavar="DIR",
+                   help="directory whose ckpt-lineage.json is watched for "
+                        "new checkpoints (default: rsl_path)")
+    p.add_argument("--canary-fraction", type=float, default=0.34,
+                   dest="fd_canary_fraction", metavar="F",
+                   help="fraction of routable replicas given the "
+                        "candidate (always >=1, never all; default 0.34)")
+    p.add_argument("--canary-hold", type=float, default=5.0,
+                   dest="fd_canary_hold", metavar="S",
+                   help="canary soak time before promotion (default 5.0)")
+    p.add_argument("--canary-min-requests", type=int, default=20,
+                   dest="fd_canary_min_requests", metavar="N",
+                   help="canary answers required before a "
+                        "promote/rollback verdict (default 20)")
+    p.add_argument("--canary-max-error", type=float, default=0.05,
+                   dest="fd_canary_max_error", metavar="R",
+                   help="canary error ratio above which (and above "
+                        "stable's) the candidate is rolled back "
+                        "(default 0.05)")
+    p.add_argument("--canary-p95-factor", type=float, default=3.0,
+                   dest="fd_canary_p95_factor", metavar="X",
+                   help="roll back when canary p95 exceeds stable p95 by "
+                        "this factor (default 3.0)")
+
+
+# the readers of a run directory, the fleet collector, the front door and
+# the simulator: no device, no model, no refusals
 OFFLINE_ACTIONS = ("telemetry", "goodput", "timeline", "roofline",
-                   "incidents", "fleet")
+                   "incidents", "fleet", "frontdoor", "sim")
 
 
 def _offline_parsers(sub) -> None:
@@ -911,6 +1083,32 @@ def _offline_parsers(sub) -> None:
     p.add_argument("--rsl_path", type=str, default=RSL_PATH,
                    help=f"run directory holding incident-*.json "
                         f"(default: {RSL_PATH})")
+    # the JAX ``sim`` parser (config.py:1062-1092)
+    p = sub.add_parser(
+        "sim", help="run a seeded fleet-scale scenario through the real "
+                    "control-plane policies and emit live-run JSONL "
+                    "artifacts")
+    p.add_argument("--rsl_path", type=str, default=RSL_PATH,
+                   help=f"artifact output directory (default: {RSL_PATH})")
+    p.add_argument("--scenario", type=str, default="control",
+                   dest="sim_scenario", metavar="NAME|PATH",
+                   help="built-in scenario name (control, diurnal, burst, "
+                        "preemption_wave, chaos) or a scenario JSON path "
+                        "(default control)")
+    p.add_argument("--seed", type=int, default=0, dest="sim_seed",
+                   metavar="N",
+                   help="simulation seed — same seed + same scenario = "
+                        "byte-identical event log (default 0)")
+    p.add_argument("--replicas", type=int, default=0, dest="sim_replicas",
+                   metavar="N",
+                   help="fleet size override (0 = scenario default)")
+    p.add_argument("--duration", type=float, default=0.0,
+                   dest="sim_duration", metavar="S",
+                   help="virtual-seconds override (0 = scenario default)")
+    p.add_argument("--model", type=str, default=None, dest="sim_model",
+                   metavar="PATH",
+                   help="latency-model JSON in the JAX package's format "
+                        "(default: built-in calibration)")
 
 
 def config_from_argv(argv=None) -> Config:

@@ -91,9 +91,8 @@ SITES = ("data.read", "data.host_batch", "ckpt.save", "ckpt.finalize",
          "ckpt.restore", "runtime.init", "elastic.reinit",
          "elastic.join", "elastic.grow_reinit", "telemetry.write",
          "serve.request", "serve.infer", "serve.admit", "sim.step")
-# "sim.step" belongs to the JAX package's fleet simulator; it parses here
-# so that the same plans do, and fire() never targets it in a live
-# process.
+# "sim.step" belongs to the fleet simulator (sim/), which reads it under
+# its virtual clock; fire() never targets it in a live process.
 
 # Exit code of a rank killed by kind=rank_loss: distinguishable in the
 # harness from a crash (1), a fatal-agreement exit (CHILD_EXIT) and a

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from datetime import timedelta
 from typing import Optional, Tuple
 
@@ -62,11 +63,16 @@ def resolve_device(device: str = "cuda") -> torch.device:
     if device == "cpu":
         return torch.device("cpu")
     if device == "cuda":
-        if not torch.cuda.is_available():
+        # a failed CUDA initialization shows only as a warning
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            available = torch.cuda.is_available()
+        if not available:
+            why = "".join(f"; {w.message}" for w in caught)
             raise ValueError(
                 "--device cuda: no CUDA device is available "
-                "(torch.cuda.is_available() is false); pass --device cpu "
-                "to run on the CPU")
+                f"(torch.cuda.is_available() is false{why}); pass "
+                "--device cpu to run on the CPU")
         index = local_rank() % torch.cuda.device_count()
         return torch.device("cuda", index)
     raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")

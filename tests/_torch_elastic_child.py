@@ -1,6 +1,7 @@
 """One process of a port CLI run under a fault plan or in an elastic world.
 
-    python tests/_torch_elastic_child.py [--tiny-vit] [--settle S] -- ARGS
+    python tests/_torch_elastic_child.py [--tiny-vit] [--settle S]
+        [--claim-after FILE] -- ARGS
 
 runs ``python -m distributedpytorch_tpu_torch ARGS`` in this process,
 after shrinking the elastic module's waits (``SETTLE_S``, ``WORLD_WAIT_S``
@@ -9,7 +10,10 @@ and with ``--tiny-vit`` after narrowing the registry's vit to 2 blocks of
 width 32 (2 heads).  The parent sets the env:// variables (WORLD_SIZE,
 RANK, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) for a rank
 of a launched world, and none of them for an ``--elastic-join`` process.
-Exits with the CLI's code.
+``--claim-after FILE`` holds an ``--elastic-join`` process's claim back
+until FILE exists: the process can start with the world, and only its
+claim, not its start-up, races the world's epochs.  Exits with the CLI's
+code.
 
     python tests/_torch_elastic_child.py --probe flags|timeout OUT.json
 
@@ -100,6 +104,7 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--tiny-vit", action="store_true")
     p.add_argument("--settle", type=float, default=2.0)
+    p.add_argument("--claim-after", metavar="FILE")
     p.add_argument("--probe", nargs=2, metavar=("MODE", "OUT"))
     p.add_argument("args", nargs=argparse.REMAINDER)
     a = p.parse_args()
@@ -109,6 +114,15 @@ def main() -> int:
     elastic.SETTLE_S = a.settle
     elastic.WORLD_WAIT_S = 60.0
     elastic.RENDEZVOUS_DEADLINE_S = 60.0
+    if a.claim_after:
+        claim = elastic.request_join
+
+        def held_claim(elastic_dir):
+            while not os.path.exists(a.claim_after):
+                time.sleep(0.05)
+            return claim(elastic_dir)
+
+        elastic.request_join = held_claim
     if a.tiny_vit:
         vit.ViT.__init__ = functools.partialmethod(vit.ViT.__init__,
                                                    **TINY_VIT)

@@ -14,7 +14,8 @@ the port, through its CLI, at a tiny vit (2 blocks of width 32,
      0 and 1 reconfigure to a world of 2, whose last snapshot is allclose
      (1e-6) to an uninterrupted 2-rank run resumed from a copy of the
      same epoch-0 snapshot;
-  F. in the same run, a fourth process with ``--elastic-join`` then grows
+  F. in the same run, a fourth process with ``--elastic-join``, started
+     with the world and holding its claim until the shrink, then grows
      the world back to 3, whose final state is checked the same way
      against a 3-rank run from the grow's snapshot.
 
@@ -110,9 +111,10 @@ def _assert_close(a: str, b: str) -> None:
 
 
 def _launch(args: list, logs: str, tag: str, world: int = 0,
-            port: int = 0) -> list:
+            port: int = 0, child: tuple = ()) -> list:
     """``world`` rank processes of the CLI (a joiner with world 0), each
-    its own log; returns [(rank, Popen, log)]."""
+    its own log, ``child`` the child's own options; returns
+    [(rank, Popen, log)]."""
     env = {k: v for k, v in os.environ.items() if k not in (
         "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
         "MASTER_ADDR", "MASTER_PORT", "XLA_FLAGS")}
@@ -127,8 +129,8 @@ def _launch(args: list, logs: str, tag: str, world: int = 0,
         with open(log, "w") as f:
             procs.append((rank if world else "join", subprocess.Popen(
                 [sys.executable, CHILD, "--tiny-vit", "--settle", "3",
-                 "--", *args], cwd=ROOT, env={**env, **extra}, stdout=f,
-                stderr=subprocess.STDOUT), log))
+                 *child, "--", *args], cwd=ROOT, env={**env, **extra},
+                stdout=f, stderr=subprocess.STDOUT), log))
     return procs
 
 
@@ -219,25 +221,33 @@ def test_stage_d_fatal_fault_ends_both_ranks(tmp_path):
 @pytest.fixture(scope="module")
 def elastic_world(tmp_path_factory):
     """Stages E and F's one run: three --elastic ranks lose rank 2 in
-    epoch 1 and shrink to 2; once rank 0's telemetry shows the shrink, a
-    joiner grows the world back to 3.  Then, at once, the references:
-    2 ranks from the epoch-0 snapshot to the grow's snapshot, and 3 ranks
-    from the grow's snapshot to the end."""
+    epoch 1 and shrink to 2; a joiner, started with the world, drops its
+    claim once rank 0's telemetry shows the shrink and grows the world
+    back to 3.  Then, at once, the references: 2 ranks from the epoch-0
+    snapshot to the grow's snapshot, and 3 ranks from the grow's snapshot
+    to the end."""
     work = tmp_path_factory.mktemp("elastic")
     data, rsl = str(work / "data"), str(work / "rsl")
     plan = work / "plan.json"
     plan.write_text(json.dumps({"faults": [RANK_LOSS, STALL]}))
+    shrunk = work / "shrunk"
     args = _args(data, rsl, EPOCHS) + ["--elastic", "--health-timeout", "20"]
     procs = _launch(args + ["--fault-plan", str(plan)], str(work), "world",
                     world=3, port=_free_port())
+    # the joiner's Python and torch start-up runs beside the world's
+    # epoch 0; only its claim waits for the shrink
+    joiner = _launch(args + ["--elastic-join", "--elastic-join-wait", "60"],
+                     str(work), "world", child=("--claim-after",
+                                                str(shrunk)))
     deadline = time.monotonic() + DEADLINE_S
     while not _events(rsl, 0, "elastic/reconfigure"):
         if time.monotonic() > deadline or procs[0][1].poll() is not None:
-            _wait(procs)
+            joiner[0][1].kill()
+            _wait(procs + joiner)
             pytest.fail("no shrink:\n" + open(procs[0][2]).read()[-3000:])
-        time.sleep(0.2)
-    procs += _launch(args + ["--elastic-join", "--elastic-join-wait", "60"],
-                     str(work), "world")
+        time.sleep(0.05)
+    shrunk.write_text("")
+    procs += joiner
     rcs = _wait(procs)
     _check_rcs(rcs, procs, {2: RANK_LOSS_EXIT})
     resumes = [e["attrs"]["epoch"] for e in _events(rsl, 0, "elastic/resume")]

@@ -567,5 +567,7 @@ def test_port_imports_no_jax():
                  "models.simple", "models.resnet", "runtime", "train.engine",
                  "models.alexnet", "models.vgg", "models.squeezenet",
                  "models.densenet", "models.inception", "models.common",
-                 "models.pretrained", "deadline", "slo", "fleet"):
+                 "models.pretrained", "deadline", "slo", "fleet",
+                 "serving.controller", "serving.rollout",
+                 "serving.frontdoor", "sim.engine"):
         assert f"distributedpytorch_tpu_torch.{name}" in imported, name
