@@ -37,6 +37,10 @@ collector, and the front door's and the simulator's after it:
 
     python3 chip_smoke.py --phases 40,41
 
+or the switch mixture-of-experts vit's (``--moe-experts``):
+
+    python3 chip_smoke.py --phases 42
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -408,21 +412,44 @@ result.  Phases, each printing its lines before the last:
      Every answer is held against the in-process predict step of the
      checkpoint its upstream served (label, and confidence to 1e-4) at
      the end of the run, with phase 40's;
- 42. the card's name and power limit again, one ``{"kernels": [...]}``
+ 42. the switch mixture-of-experts vit (``--moe-experts 8``, full width,
+     batch 64: 16 rows a dispatch group, capacity 123): (a) in process,
+     one f32 train step (TF32 off) with flash on the card against the
+     CPU's from one CPU generator's weights, every gradient within
+     TOL_STEP_GRAD and the sown load-balance loss within 1e-5, each
+     layer's routes equal wherever the CPU's top-2 router probabilities
+     lie more than MOE_MARGIN apart (the tokens below it printed), then a
+     bf16 step by the conditioned rule (each gradient within TOL_GRAD of
+     the CPU's, or no further from the f32 step than twice the CPU's;
+     its routes printed: its router inputs differ by bf16 roundings),
+     K1, K2 and K3 4 a step each, all on the tensor cores, and the device
+     ms of the bf16 step beside the dense vit's from a ``_device_trace``
+     (printed, not a gate); (b) two epochs of MOE_GRAPH_ROWS rows eagerly
+     and as one graphed chunk of two (``--epochs-per-dispatch 2``),
+     bit-identical; (c) in the background beside the other CLI phases,
+     ``train --model vit --attention flash --moe-experts 8 -e 1`` on phase
+     22's corpus (K1-K3 by phase 6's formula, all on the tensor cores,
+     finite losses), then ``test -f`` equal to an in-process eval and
+     (d) in process a ``serving.ServingTier`` over its best file
+     answering one wave of 64 in one batch, every answer equal to the
+     predict step of the batch the tier formed (label, and confidence to
+     TOL_CONF).  (a) and (b) run before phase 21 with the other timed
+     in-process phases, (c) and (d) after 38's checks;
+ 43. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
 Phases run in the order of their numbers but for these changes: 23, 24,
-32, the in-process parts of 35, 36 and 38, and 37, which time steps and
-kernels, run before 21; the exit test's five trainings (31) and 38's
+32, the in-process parts of 35, 36, 38 and 42, and 37, which time steps
+and kernels, run before 21; the exit test's five trainings (31) and 38's
 five CLI trainings start then and run beside 21, 22 and 25-36, and 40's
 world of replicas, then 41's, beside 21; 39's thread starts after 22;
 phase
 33's three f16 worlds start with phase 19's; the CLI runs of 18, 27, 29,
-30, 33, 34, 35 and 36 start after 22 and run beside 25, 26 and 28 (18's
+30, 33, 34, 35, 36 and 42 start after 22 and run beside 25, 26 and 28 (18's
 and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
-35, 36 and 38's last checks, then 39's, 40's and 41's, come last.  Nothing after 38's
+35, 36 and 38's last checks, then 42's, 39's, 40's and 41's, come last.  Nothing after 38's
 in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
@@ -2204,10 +2231,11 @@ def phase_cnn_epoch() -> int:
 # -- phase 13: the reference's job under torchrun ---------------------------
 
 def eval_accuracy(ckpt_path: str, name: str, data: str = "",
-                  precision: str = "bf16") -> tuple:
+                  precision: str = "bf16", moe_experts: int = 0) -> tuple:
     """In-process eval of a checkpoint on the test split of ``data``
-    (WORK/data by default), batch 64 in the ``precision`` preset:
-    (accuracy to 2 decimals as `test` logs it, correct, rows)."""
+    (WORK/data by default), batch 64 in the ``precision`` preset, a vit
+    with ``moe_experts``: (accuracy to 2 decimals as `test` logs it,
+    correct, rows)."""
     from distributedpytorch_tpu_torch import checkpoint as ckpt
     from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
@@ -2222,7 +2250,7 @@ def eval_accuracy(ckpt_path: str, name: str, data: str = "",
     policy = PRESETS[precision]
     model = get_model(name, ds.nb_classes, policy,
                       attention="flash" if name == "vit" else "full",
-                      device="cuda")
+                      device="cuda", moe_experts=moe_experts)
     ckpt.restore_for_serving(ckpt_path, model)
     engine = Engine(model, cross_entropy, ds.mean, ds.std,
                     get_model_input_size(name), policy, "cuda")
@@ -7272,8 +7300,401 @@ def finish_serve_world_phase(pending: dict, frontdoor: bool) -> None:
         check_served_answers("front door", pending["fd"])
 
 
+# -- phase 42: the switch mixture-of-experts vit (--moe-experts) ----------
+
+# E at the full width: batch 64 of 49 tokens, 16 rows a dispatch group
+# (G = 4, 784 tokens), capacity ceil(784 / 8 x 1.25) = 123
+MOE_EXPERTS = 8
+# the card's routes held equal to the CPU's where the CPU's top-2 router
+# probabilities lie further apart than this
+MOE_MARGIN = 1e-5
+MOE_TRACE_REPS = 5
+MOE_TRACE_TRIES = 3
+MOE_GRAPH_ROWS = 320            # phase 35's: 5 steps of 64 an epoch
+MOE_ARGS = ["train", "--model", "vit", "--attention", "flash",
+            "--moe-experts", str(MOE_EXPERTS), "-e", "1"]
+
+
+def moe_step(device: str, precision: str, batch: tuple,
+             moe_experts: int = MOE_EXPERTS) -> dict:
+    """One train step of the full-width vit (``--attention flash``, SEED's
+    weights from one CPU generator) with ``moe_experts`` on ``device`` at
+    ``batch`` (images, labels, uniform affine draws): its loss, its
+    gradients (f64 on the host), the blocks' sown loss, each MoE layer's
+    routes (the expert and the top-2 probability margin of each token,
+    from the router input the layer saw) and the port's kernel launches
+    (all, and on the tensor cores); with the engine, state and inputs of
+    the step for a trace."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributedpytorch_tpu_torch.cli import (kernel_launches,
+                                                  tensor_core_launches)
+    from distributedpytorch_tpu_torch.data import augment
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    ds = work_dataset()
+    policy = PRESETS[precision]
+    images, labels, u = batch
+    model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                      device=device, moe_experts=moe_experts)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                    device)
+    state = engine.init_state(torch.Generator().manual_seed(SEED))
+    routes, sown = [], []
+
+    def hook(mod, inp, out):
+        with torch.no_grad():
+            x = inp[0].reshape(-1, inp[0].shape[-1]).float()
+            probs = torch.softmax(F.linear(x, mod.router.weight.float())
+                                  + mod.router.bias.float(), dim=-1)
+            top2 = probs.topk(2, dim=-1).values
+            routes.append((probs.argmax(dim=-1).cpu(),
+                           (top2[:, 0] - top2[:, 1]).cpu()))
+            sown.append(out[1].item())
+
+    hooks = ([blk.moe.register_forward_hook(hook) for blk in model.blocks]
+             if moe_experts else [])
+    args = (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device),
+            torch.ones(len(images), dtype=torch.bool, device=device),
+            augment.affine_from_uniform(torch.from_numpy(u).to(device),
+                                        28, 28))
+    before, before_tc = kernel_launches(), tensor_core_launches()
+    _, m = engine.train_step_affine(state, *args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    tc = {k: v - before_tc[k] for k, v in tensor_core_launches().items()}
+    for h in hooks:
+        h.remove()
+    return dict(loss=m["loss"].item(), sown=sum(sown), routes=routes,
+                grads={n: p.grad.detach().double().cpu()
+                       for n, p in model.named_parameters()},
+                launches={k: v for k, v in launches.items() if v},
+                tc={k: v for k, v in tc.items() if v},
+                step=lambda: engine.train_step_affine(state, *args))
+
+
+def moe_routes(tag: str, card: dict, cpu: dict, held: bool) -> None:
+    """The card's expert of every token against the CPU's, layer by
+    layer: the tokens routed apart above MOE_MARGIN of the CPU's top-2
+    margin, and those below it (how many, and how many of them route
+    apart), printed; with ``held`` (the f32 step, whose router inputs
+    agree to f32 rounding) none may route apart above the margin."""
+    apart, below, apart_below = [], 0, 0
+    for (e_card, _), (e_cpu, margin) in zip(card["routes"], cpu["routes"]):
+        sure = margin > MOE_MARGIN
+        below += int((~sure).sum())
+        apart.append(int(((e_card != e_cpu) & sure).sum()))
+        apart_below += int(((e_card != e_cpu) & ~sure).sum())
+    tokens = len(cpu["routes"][0][1]) if cpu["routes"] else 0
+    say(f"moe: {tag} routes over {len(card['routes'])} layers x {tokens} "
+        f"tokens: apart above the {MOE_MARGIN:g} top-2 margin by layer "
+        f"{apart}; {below} tokens below it ({apart_below} of them routed "
+        "apart)")
+    if len(card["routes"]) != DEPTH or (held and sum(apart)):
+        fail(f"moe: {tag}: {sum(apart)} tokens above the margin routed to "
+             f"another expert on the card than on the CPU")
+
+
+def phase_moe() -> None:
+    """(a) and (b) of phase 42: the MoE vit's f32 and bf16 train steps
+    card against CPU (gradients, loss, the sown loss, routes, K1-K3
+    launches), the device ms of its bf16 step beside the dense vit's, and
+    a graphed chunk of two epochs against the eager epochs."""
+    import numpy as np
+    import torch
+
+    ds = work_dataset()
+    batch = (ds.splits["train"].images[:TRAIN_BATCH],
+             ds.splits["train"].labels[:TRAIN_BATCH].astype(np.int64),
+             np.random.default_rng(SEED + 42).random((TRAIN_BATCH, 5),
+                                                     dtype=np.float32))
+    # the CPU's steps on a thread of their own (their ops release the GIL)
+    # while the card takes its steps and the graphed chunk
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        jobs = {prec: pool.submit(moe_step, "cpu", prec, batch)
+                for prec in ("f32", "bf16")}
+        steps = {("cuda", prec): moe_step("cuda", prec, batch)
+                 for prec in ("f32", "bf16")}
+        t_card = time.perf_counter() - t0
+        moe_graphed()
+        t_graph = time.perf_counter() - t0
+        steps.update({("cpu", prec): job.result()
+                      for prec, job in jobs.items()})
+    say(f"moe: the card's steps done at {t_card:.1f}s, its graphed chunk "
+        f"at {t_graph:.1f}s, the CPU's steps at "
+        f"{time.perf_counter() - t0:.1f}s")
+    card, cpu = steps["cuda", "f32"], steps["cpu", "f32"]
+    worst = max(((n, rel_err(card["grads"][n], g)) for n, g in
+                 cpu["grads"].items()), key=lambda t: t[1][1])
+    sown_err = abs(card["sown"] - cpu["sown"])
+    say(f"moe: full-width MoE vit (E = {MOE_EXPERTS}, batch {TRAIN_BATCH})"
+        f" f32 step, card vs CPU: loss {card['loss']:.7f} vs "
+        f"{cpu['loss']:.7f}; sown loss {card['sown']:.7f} vs "
+        f"{cpu['sown']:.7f}; worst gradient {worst[0]}: rel err "
+        f"{worst[1][1]:.3g} (tol {TOL_STEP_GRAD:g}) over "
+        f"{len(cpu['grads'])} parameters")
+    moe_routes("f32", card, cpu, held=True)
+    if not (math.isfinite(worst[1][1]) and worst[1][1] <= TOL_STEP_GRAD) \
+            or sown_err > 1e-5 * abs(cpu["sown"]):
+        fail(f"moe: the f32 step on the card disagrees with the CPU's: "
+             f"{worst[0]} rel err {worst[1][1]}, sown loss err {sown_err}")
+    b_card, b_cpu = steps["cuda", "bf16"], steps["cpu", "bf16"]
+    # bf16 router inputs differ by the blocks' bf16 roundings on either
+    # side (the flash kernels against their plain versions): the routes
+    # are printed, the gradients held by the conditioned rule
+    moe_routes("bf16", b_card, b_cpu, held=False)
+    bad, shown = [], []
+    for n, g in b_cpu["grads"].items():
+        direct = rel_err(b_card["grads"][n], g)[1]
+        mine = rel_err(b_card["grads"][n], card["grads"][n])[1]
+        theirs = rel_err(g, card["grads"][n])[1]
+        shown.append((direct, n, mine, theirs))
+        if direct > TOL_GRAD["bfloat16"] and \
+                mine > ZOO_CONDITIONED_FACTOR * theirs:
+            bad.append(n)
+    direct, n, mine, theirs = max(shown)
+    say(f"moe: bf16 step, card vs CPU: worst gradient {n}: rel err "
+        f"{direct:.3g} (tol {TOL_GRAD['bfloat16']:g}; from the f32 step: "
+        f"card {mine:.3g}, CPU {theirs:.3g}); sown loss "
+        f"{b_card['sown']:.6f} vs {b_cpu['sown']:.6f}; {len(bad)} "
+        "gradients outside the conditioned rule")
+    want = {"flash_fwd": DEPTH, "flash_dq": DEPTH, "flash_dkv": DEPTH}
+    say(f"moe: the bf16 step's launches {b_card['launches']}, on the "
+        f"tensor cores {b_card['tc']}; the f32 step's {card['launches']}")
+    if bad or b_card["launches"] != want or b_card["tc"] != want \
+            or card["launches"] != want:
+        fail(f"moe: the bf16 step disagrees ({bad[:4]}) or its launches "
+             f"{b_card['launches']} (tensor-core {b_card['tc']}) are not "
+             f"{want}")
+    dense = moe_step("cuda", "bf16", batch, moe_experts=0)
+    for attempt in range(1, MOE_TRACE_TRIES + 1):
+        ms = device_ms_tries({"moe": b_card["step"], "dense": dense["step"]},
+                             reps=MOE_TRACE_REPS, tries=1)
+        if all(ms.values()):
+            break
+        say(f"moe: trace {attempt} of {MOE_TRACE_TRIES} lost events")
+    say("moe: device ms of one bf16 train step at batch 64 (the step's "
+        "kernels between _device_trace's markers, "
+        f"{MOE_TRACE_REPS} steps): MoE vit "
+        + " / ".join(fmt_ms(t) for t in (ms["moe"][:1] or [None]))
+        + ", dense vit "
+        + " / ".join(fmt_ms(t) for t in (ms["dense"][:1] or [None])))
+
+
+def moe_graphed() -> None:
+    """(b): MOE_GRAPH_ROWS train rows and one validation batch, two
+    epochs eagerly and as one chunk of two (``--epochs-per-dispatch 2``:
+    each step a CUDA Graph replay) from the same seed: parameters,
+    optimizer state, counters and both epochs' sums bit-identical."""
+    import torch
+
+    from distributedpytorch_tpu_torch import cli
+    from distributedpytorch_tpu_torch.data.datasets import Split
+    from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.dispatch import ChunkRunner
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    torch.backends.cudnn.deterministic = True   # as train sets it
+    torch.backends.cudnn.benchmark = False
+    ds = work_dataset()
+    split, vsplit = ds.splits["train"], ds.splits["valid"]
+    train = ResidentLoader(Split(split.images[:MOE_GRAPH_ROWS],
+                                 split.labels[:MOE_GRAPH_ROWS]),
+                           TRAIN_BATCH, True, SEED, "cuda")
+    valid = ResidentLoader(Split(vsplit.images[:TRAIN_BATCH],
+                                 vsplit.labels[:TRAIN_BATCH]),
+                           TRAIN_BATCH, False, SEED, "cuda")
+    policy = PRESETS["bf16"]
+    runs = {}
+    for path in ("eager", "graphed"):
+        model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                          device="cuda", moe_experts=MOE_EXPERTS)
+        engine = Engine(model, cross_entropy, ds.mean, ds.std, 28, policy,
+                        "cuda", steps_per_epoch=len(train))
+        state = engine.init_state(torch.Generator().manual_seed(SEED))
+        t0 = time.perf_counter()
+        if path == "eager":
+            sums = []
+            for epoch in range(GRAPH_K):
+                _, tl, ta = cli._run_train_pass(engine, state, train, epoch,
+                                                SEED)
+                sums.append((tl, ta) + cli._run_eval_pass(engine, state,
+                                                          valid, epoch))
+        else:
+            got = ChunkRunner(engine, state, train, valid, SEED,
+                              GRAPH_K).run(list(range(GRAPH_K)))
+            sums = []
+            for m, ev in zip(got["train"], got["eval"]):
+                n, d, c, v = ev.tolist()
+                sums.append((float(m[:, 0].mean()),
+                             float(m[:, 1].sum()
+                                   / max(float(m[:, 2].sum()), 1.0)),
+                             n / max(d, 1e-9), c / max(v, 1.0)))
+        torch.cuda.synchronize()
+        runs[path] = dict(sums=sums, wall=time.perf_counter() - t0,
+                          model={k: v.detach().clone() for k, v in
+                                 state.model.state_dict().items()},
+                          opt=state.optimizer.state_dict()["state"],
+                          counters=(int(state.step), int(state.updates)))
+    eager, graphed = runs["eager"], runs["graphed"]
+    differ = [k for k, v in eager["model"].items()
+              if not torch.equal(v, graphed["model"][k])]
+    differ += [f"opt/{i}/{n}" for i, st in eager["opt"].items()
+               for n, t in st.items()
+               if not torch.equal(t, graphed["opt"][i][n])]
+    same = (not differ and eager["sums"] == graphed["sums"]
+            and eager["counters"] == graphed["counters"])
+    say(f"moe: {GRAPH_K} epochs of {len(train)} steps and {len(valid)} eval"
+        f" batch: eager {eager['wall']:.2f}s, one graphed chunk (captures "
+        f"included) {graphed['wall']:.2f}s; bit-identical {same} "
+        f"(differing {differ[:4]}); sums {graphed['sums']}")
+    if not same:
+        fail(f"moe: the graphed chunk is not bit-identical to the eager "
+             f"epochs: {differ[:8]}, sums {eager['sums']} vs "
+             f"{graphed['sums']}, counters {eager['counters']} vs "
+             f"{graphed['counters']}")
+
+
+def start_moe_cli() -> tuple:
+    """(c): ``train --model vit --attention flash --moe-experts 8 -e 1``
+    on phase 22's corpus, in the background."""
+    write_zoo_data()
+    return start_cli(MOE_ARGS, os.path.join(WORK, "moe_rsl"), data=ZOO_DATA)
+
+
+def phase_moe_cli(train_run: tuple) -> None:
+    """(c) and (d): the MoE train's launches by phase 6's formula, all on
+    the tensor cores; then at once ``test -f`` of its best file (equal to
+    an in-process eval) and, in process, a ``serving.ServingTier`` over
+    it answering one wave of 64 (``moe_serve``)."""
+    wall, log = finish_cli(train_run)
+    launches, steps, evals = parse_launches(log, "train")
+    tensor_core = parse_tensor_core_launches(log, "train")
+    want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
+            "flash_dkv": DEPTH * steps, "conv_dw": 0}
+    say(f"moe: train --moe-experts {MOE_EXPERTS}: launches {launches} over "
+        f"{steps} steps and {evals} eval batches, formula {want}; on the "
+        f"tensor cores {tensor_core}")
+    if not steps or launches != want or tensor_core != want:
+        fail(f"moe: train launches {launches} (tensor-core {tensor_core}) "
+             f"do not match the formula {want}")
+    losses = [float(x) for x in re.findall(r"\| Loss: ([\d.a-z]+)", log)]
+    acc = re.search(r"Validation  \| Loss: [\d.]+ +\| Acc: ([\d.]+)%", log)
+    say(f"moe: the epoch in {wall:.1f}s of process wall: train and "
+        f"validation losses {losses}, validation acc "
+        f"{acc.group(1) if acc else None}%")
+    if not losses or not all(math.isfinite(x) for x in losses) or not acc:
+        fail("moe: the MoE train logged no finite losses")
+    best = os.path.join(WORK, "moe_rsl", "bestmodel-mnist-vit.ckpt")
+    test_run = start_cli(["test", "-f", best, "--attention", "flash",
+                          "--moe-experts", str(MOE_EXPERTS)],
+                         os.path.join(WORK, "moe_test_rsl"), data=ZOO_DATA)
+    try:
+        moe_serve(best)
+        [(_, test_log)] = finish_all([test_run])
+    finally:
+        if test_run[3].poll() is None:
+            test_run[3].kill()
+            test_run[3].wait()
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                        test_log).group(1)
+    t_launches, _, t_evals = parse_launches(test_log, "test")
+    acc_here, correct, n = eval_accuracy(best, "vit", ZOO_DATA,
+                                         moe_experts=MOE_EXPERTS)
+    say(f"moe: `test -f` accuracy {acc_cli}% ({t_evals} eval batches, "
+        f"launches {t_launches}); in-process eval {acc_here}% "
+        f"({correct}/{n})")
+    if acc_cli != acc_here or t_launches["flash_fwd"] != DEPTH * t_evals \
+            or t_launches["flash_dq"] or t_launches["flash_dkv"]:
+        fail("moe: test's accuracy or launches disagree with the "
+             "in-process eval")
+
+
+def moe_serve(best: str) -> None:
+    """(d): a ``serving.ServingTier`` over the MoE checkpoint in process,
+    one wave of SERVE_WAVE requests, every answer held against the
+    predict step of the batch the tier formed."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch import cli, serving
+    from distributedpytorch_tpu_torch.config import config_from_argv
+    from distributedpytorch_tpu_torch.data.datasets import load_dataset
+    from distributedpytorch_tpu_torch.models import get_model
+    from distributedpytorch_tpu_torch.precision import PRESETS
+    from distributedpytorch_tpu_torch.train.engine import Predictor
+
+    started = time.perf_counter()
+    ds = load_dataset("mnist", ZOO_DATA, SEED, synthetic_fallback=True)
+    images = ds.splits["test"].images[:SERVE_WAVE]
+    cfg = config_from_argv(["serve", "-d", ZOO_DATA, "-f", best,
+                            "--attention", "flash", "--moe-experts",
+                            str(MOE_EXPERTS), "--serve-buckets",
+                            str(SERVE_WAVE)])
+    infer = cli._serve_build_replica(cfg, best, "vit", ds, (SERVE_WAVE,),
+                                     images.shape[1:], images.dtype,
+                                     torch.device("cuda"))
+    batches = []
+
+    def recording(arr):
+        batches.append(np.array(arr))
+        return infer(arr)
+
+    port = free_port()
+    tier = serving.ServingTier(recording, images.shape[1:], images.dtype,
+                               (SERVE_WAVE,), max_queue=256,
+                               max_latency_s=SERVE_FLUSH_MS / 1000.0,
+                               port=port, request_timeout_s=120,
+                               max_requests=SERVE_WAVE)
+    tier.start()
+    runner = threading.Thread(target=tier.run, daemon=True)
+    runner.start()
+    try:
+        wave = serve_wave(port, images)
+        runner.join(timeout=120)
+    finally:
+        tier.close()
+    answers = wave["answers"]
+    if any(a[0] != 200 for a in answers) or len(batches) != 1:
+        fail(f"moe: the tier answered {[a[0] for a in answers][:8]} in "
+             f"{len(batches)} batches (one wave of {SERVE_WAVE} is one "
+             "batch)")
+    [batch] = batches
+    policy = PRESETS["bf16"]
+    model = get_model("vit", ds.nb_classes, policy, attention="flash",
+                      device="cuda", moe_experts=MOE_EXPERTS)
+    ckpt.restore_for_serving(best, model)
+    labels, confs = Predictor(model, ds.mean, ds.std, 28, policy,
+                              "cuda").predict_step(batch)
+    labels, confs = labels.cpu().numpy(), confs.float().cpu().numpy()
+    row_of = {batch[r].tobytes(): r for r in range(len(batch))}
+    rows = [row_of[img.tobytes()] for img in images]
+    got_labels = np.array([a[1]["label"] for a in answers])
+    got_confs = np.array([a[1]["confidence"] for a in answers])
+    err = float(np.abs(got_confs - confs[rows]).max())
+    equal = int((got_labels == labels[rows]).sum())
+    say(f"moe: a served wave of {SERVE_WAVE} in one batch of bucket "
+        f"{SERVE_WAVE}: {equal} labels equal to the predict step of that "
+        f"batch, max conf err {err:.3g} (tol {TOL_CONF:g}); the tier took "
+        f"{time.perf_counter() - started:.1f}s with its build")
+    if equal != SERVE_WAVE or err > TOL_CONF \
+            or sorted(rows) != list(range(SERVE_WAVE)):
+        fail("moe: the served answers disagree with the predict step")
+
+
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}}
-LAST_PHASE = 42                 # the closing lines; only a full run has it
+LAST_PHASE = 43                 # the closing lines; only a full run has it
 
 
 def parse_phases(argv) -> set:
@@ -7432,6 +7853,8 @@ def main(argv=None) -> int:
         run(phase_remat)
     if want(38):
         run(phase_observability_host)
+    if want(42):
+        run(phase_moe)
     started = []
 
     def ahead(phase: int, start):
@@ -7463,6 +7886,7 @@ def main(argv=None) -> int:
         graph_cli_runs = ahead(35, start_graph_cli)
         jax_resume_runs = ahead(34, start_jax_resume)
         stream_runs = ahead(36, start_stream_cli)
+        moe_run = ahead(42, start_moe_cli)
         # 39's faulted, elastic and stalled worlds on a thread of its own
         elastic_pending = start_elastic_phase(card) if want(39) else None
         if want(25):
@@ -7517,6 +7941,8 @@ def main(argv=None) -> int:
             run(phase_stream_test, stream_pending)
         if want(38):
             run(phase_observability_cli, obs_pending)
+        if want(42):
+            run(phase_moe_cli, moe_run)
         if want(39):
             finish_elastic_phase(elastic_pending)
         if want(40):

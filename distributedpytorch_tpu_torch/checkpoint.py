@@ -31,7 +31,11 @@ moves the parameters in place) and a background thread serializes and
 writes it, FIFO with the rotation deletes; the file is byte-identical to
 the synchronous save's.
 BatchNorm's running statistics are buffers of the model and travel in
-``params`` (``model.state_dict()``).  A file that is not a zip archive is
+``params`` (``model.state_dict()``), and a MoE vit's experts under their
+module names (``blocks.{i}.moe.{router.weight, router.bias, w_up, b_up,
+w_down, b_down}``); a file whose expert count differs from the model's
+(``--moe-experts``, 0 for dense MLPs) is refused with one line naming
+the flag.  A file that is not a zip archive is
 read as the JAX package's msgpack checkpoint of any of the nine models:
 flax's ndarray extension type is decoded with the plain ``msgpack``
 package and the params, with the ``batch_stats``, are converted by
@@ -576,7 +580,27 @@ def get_checkpoint_model_name(path: str) -> str:
     return str(read_checkpoint(path)["model_name"])
 
 
+def _experts(params) -> int:
+    """Experts a block of a MoE vit's params (0: dense MLPs)."""
+    router = params.get("blocks.0.moe.router.weight")
+    return 0 if router is None else int(router.shape[0])
+
+
 def _load_params(path: str, payload: dict, model: nn.Module) -> None:
+    """Strict load of the file's params; a file and a model that differ
+    in ``--moe-experts`` fail with one line naming it, as JAX's layout
+    check does (``checkpoint.py:735-752``)."""
+    saved, wanted = _experts(payload["state"]["params"]), _experts(
+        model.state_dict())
+    if saved != wanted:
+        def side(e: int) -> str:
+            return (f"{e}-expert mixture-of-experts blocks" if e
+                    else "dense MLPs")
+
+        raise ValueError(
+            f"checkpoint at {path} holds {side(saved)}, the requested "
+            f"model {side(wanted)} — load with a matching --moe-experts "
+            f"(--moe-experts {saved})")
     try:
         model.load_state_dict(payload["state"]["params"], strict=True)
     except RuntimeError as e:

@@ -122,7 +122,8 @@ from . import checkpoint as ckpt
 from . import (costs, elastic, faults, flightrec, goodput, runtime,
                telemetry, tracing, utils)
 from .config import OFFLINE_ACTIONS, RESIDENT_MAX_BYTES, \
-    STREAM_DISPATCH_MESSAGE, Config, check_ported, config_from_argv
+    STREAM_DISPATCH_MESSAGE, Config, check_moe, check_ported, \
+    config_from_argv
 from .data.datasets import Dataset, Split, load_dataset
 from .data.pipeline import ResidentLoader, ShardedLoader
 from .models import get_model, get_model_input_size, pretrained
@@ -177,7 +178,7 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
     policy = cfg.precision_policy()
     model = get_model(model_name, dataset.nb_classes, policy,
                       attention=cfg.attention, device=device, mesh=mesh,
-                      remat=cfg.remat)
+                      remat=cfg.remat, moe_experts=cfg.moe_experts)
     class_weights = (dataset.class_weights()
                      if cfg.loss in ("weighted_cross_entropy", "focal_loss")
                      else None)
@@ -193,7 +194,9 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
                     grad_accum=(cfg.grad_accum if cfg.action == "train"
                                 else 1),
                     remat=cfg.remat)
-    engine.num_classes = dataset.nb_classes     # the FLOP count's head
+    # the FLOP count's head and experts
+    engine.num_classes = dataset.nb_classes
+    engine.moe_experts = cfg.moe_experts
     return engine
 
 
@@ -252,6 +255,7 @@ def _start(cfg: Config, action: str) -> tuple:
         backend = runtime.backend()
     else:
         backend = runtime.initialize_distributed(device)
+    _enter_world(cfg)
     rank, world = runtime.process_index(), runtime.world_size()
     if runtime.is_main():
         utils.initialize_logging(cfg.rsl_path, cfg.log_file, truncate=True)
@@ -268,6 +272,17 @@ def _start(cfg: Config, action: str) -> tuple:
                  f"{world}" + (f", backend: {backend}" if backend else ""))
     mesh = _make_mesh(cfg, device)
     return device, tel, mesh, join_info
+
+
+def _enter_world(cfg: Config) -> None:
+    """The first collective of every member of a world, made as soon as
+    the world forms and before any set-up of the member's own: the
+    agreement's group (``runtime.health_group``), whose creation waits
+    ``--health-timeout`` for every member.  A joiner's set-up (its
+    dataset, its engine or replica) then runs after the group exists,
+    and its lateness is no longer charged to the survivors' bound."""
+    if runtime.distributed():
+        runtime.health_group(cfg.health_timeout)
 
 
 def _make_mesh(cfg: Config, device: torch.device) -> runtime.Mesh:
@@ -477,12 +492,14 @@ def _epoch_header(epoch: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _flops_per_sample(model_name: str, num_classes: int) -> Optional[float]:
+def _flops_per_sample(model_name: str, num_classes: int,
+                      moe_experts: int = 0) -> Optional[float]:
     """``ops/flops.py``'s count, once a process per model; None when the
     count fails (the gauge is then a recorded null, never a failed
     run)."""
     try:
-        return flops_mod.train_flops_per_sample(model_name, num_classes)
+        return flops_mod.train_flops_per_sample(model_name, num_classes,
+                                                moe_experts=moe_experts)
     # broad on purpose: the count is optional (the MFU gauge and
     # costs.json), as the JAX engine's is (engine.py:177-185)
     except Exception as e:
@@ -496,7 +513,8 @@ def _mfu_factors(engine: Engine, model_name: str) -> tuple:
     the card's peak at the run's compute type (``compute_peak_label``:
     an f32 run that may take TF32 divides by the TF32 peak); the peak is
     None on the CPU or an unknown card."""
-    fps = _flops_per_sample(model_name, engine.num_classes)
+    fps = _flops_per_sample(model_name, engine.num_classes,
+                            engine.moe_experts)
     label = flops_mod.compute_peak_label(engine.precision.compute_dtype)
     peak = flops_mod.peak_flops(flops_mod.device_kind(engine.device), label)
     return fps, peak, label
@@ -967,6 +985,7 @@ def run_train(cfg: Config) -> dict:
                 logging.warning(f"cannot read model name from "
                                 f"{cfg.checkpoint_file!r} ({e}); using "
                                 f"--model {cfg.model_name}")
+        check_moe(cfg, model_name)
         dataset = load_dataset(cfg.dataset, cfg.data_path, cfg.seed,
                                debug=cfg.debug, log=True,
                                synthetic_fallback=cfg.synthetic_fallback)
@@ -1003,12 +1022,7 @@ def run_train(cfg: Config) -> dict:
                     break
                 except elastic.WorldChangedError as e:
                     grow = e.grow
-                    reconfigures += 1
-                    if reconfigures > cfg.max_reconfigures:
-                        raise faults.PeerFailureError(
-                            f"world changed {reconfigures} times, over the "
-                            f"--max-reconfigures {cfg.max_reconfigures} "
-                            "cap; exiting with the last failure") from e
+                    reconfigures = _count_reconfigure(cfg, reconfigures, e)
                     # drop what pins the old group (the tracebacks' frames
                     # hold its DDP wrapper and state, the mesh its groups,
                     # the loaders their threads) so that the teardown
@@ -1026,7 +1040,9 @@ def run_train(cfg: Config) -> dict:
                 # outside the except block, whose exception state would
                 # hold the traceback until it exits
                 with goodput.get().timed("elastic_reconfigure"):
-                    mesh = _elastic_reconfigure(cfg, tel, saver, device, grow)
+                    mesh, reconfigures = _reconfigure_world(
+                        cfg, tel, saver, device, grow, "train",
+                        reconfigures)
                     if isinstance(train_loader, ShardedLoader):
                         train_loader = train_loader.reshard(mesh)
                         valid_loader = valid_loader.reshard(mesh)
@@ -1067,9 +1083,6 @@ def _train_world(cfg: Config, model_name: str, dataset: Dataset,
     fresh initialization).  The launch lines count this world's
     launches."""
     tel = telemetry.get()
-    if runtime.distributed():
-        # the agreement's group, created while every rank is here
-        runtime.health_group(cfg.health_timeout)
     engine = _build_engine(cfg, model_name, dataset, len(train_loader),
                            device, mesh)
     tel.event("precision_policy", remat=cfg.remat,
@@ -1166,7 +1179,46 @@ def _elastic_reconfigure(cfg: Config, tel, saver, device: torch.device,
     flightrec.get().record_event("elastic_reconfigure",
                                  generation=info["generation"],
                                  new_world=info["new_world"])
+    try:
+        _enter_world(cfg)
+    # broad on purpose: only a peer loss is caught, anything else re-raises
+    except Exception as e:
+        if not elastic.is_peer_loss(e):
+            raise
+        # a member of the new world is gone before its first collective
+        tel.event("peer_loss", generation=info["generation"],
+                  elastic=True, error=repr(e))
+        tel.flush()
+        raise elastic.WorldChangedError(
+            f"a member of generation {info['generation']} did not reach "
+            f"its health group: {e}") from e
     return _make_mesh(cfg, device)
+
+
+def _count_reconfigure(cfg: Config, reconfigures: int, err) -> int:
+    """One more reconfigure for ``err``; over ``--max-reconfigures`` the
+    agreed exit."""
+    reconfigures += 1
+    if reconfigures > cfg.max_reconfigures:
+        raise faults.PeerFailureError(
+            f"world changed {reconfigures} times, over the "
+            f"--max-reconfigures {cfg.max_reconfigures} cap; exiting with "
+            "the last failure") from err
+    return reconfigures
+
+
+def _reconfigure_world(cfg: Config, tel, saver, device: torch.device,
+                       grow: bool, purpose: str, reconfigures: int) -> tuple:
+    """``_elastic_reconfigure`` until a world forms whole (a member lost
+    on the way is a shrink more, counted); returns (mesh,
+    reconfigures)."""
+    while True:
+        try:
+            return (_elastic_reconfigure(cfg, tel, saver, device, grow,
+                                         purpose), reconfigures)
+        except elastic.WorldChangedError as e:
+            grow = False
+            reconfigures = _count_reconfigure(cfg, reconfigures, e)
 
 
 def run_test(cfg: Config) -> dict:
@@ -1227,7 +1279,8 @@ def _serve_build_replica(cfg: Config, path: str, model_name: str, dataset,
     returns the tier's ``infer`` closure."""
     policy = cfg.precision_policy()
     model = get_model(model_name, dataset.nb_classes, policy,
-                      attention=cfg.attention, device=device)
+                      attention=cfg.attention, device=device,
+                      moe_experts=cfg.moe_experts)
     ckpt.restore_for_serving(path, model)
     predictor = Predictor(model, dataset.mean, dataset.std,
                           get_model_input_size(model_name), policy, device)
@@ -1311,6 +1364,7 @@ def run_serve(cfg: Config) -> dict:
         backend = runtime.backend()
     else:
         backend = runtime.initialize_distributed(device)
+    _enter_world(cfg)
     rank = runtime.process_index()
     utils.initialize_logging(cfg.rsl_path, cfg.log_file,
                              truncate=runtime.is_main())
@@ -1364,9 +1418,6 @@ def run_serve(cfg: Config) -> dict:
         shutdown = utils.GracefulShutdown()
         reconfigures = 0
         with shutdown:
-            if runtime.distributed():
-                # the agreement's group, created while every rank is here
-                runtime.health_group(cfg.health_timeout)
             tier = serving.ServingTier(
                 build(cfg.checkpoint_file), sample_shape, sample_dtype,
                 buckets, max_queue=cfg.serve_queue,
@@ -1417,12 +1468,7 @@ def run_serve(cfg: Config) -> dict:
                     break
                 except elastic.WorldChangedError as e:
                     grow = e.grow
-                    reconfigures += 1
-                    if reconfigures > cfg.max_reconfigures:
-                        raise faults.PeerFailureError(
-                            f"world changed {reconfigures} times, over the "
-                            f"--max-reconfigures {cfg.max_reconfigures} "
-                            "cap; exiting with the last failure") from e
+                    reconfigures = _count_reconfigure(cfg, reconfigures, e)
                     # run_train's release discipline: the old predict
                     # step and the exception chain's frames go before
                     # the teardown
@@ -1435,10 +1481,8 @@ def run_serve(cfg: Config) -> dict:
                 # hold the traceback; the listener keeps admitting into
                 # the bounded queue through the window
                 with goodput.get().timed("elastic_reconfigure"):
-                    _elastic_reconfigure(cfg, tel, None, device, grow,
-                                         purpose="serve")
-                    if runtime.distributed():
-                        runtime.health_group(cfg.health_timeout)
+                    _, reconfigures = _reconfigure_world(
+                        cfg, tel, None, device, grow, "serve", reconfigures)
                     tier.set_infer(build(current_ckpt[0]))
                 logging.info(f"serve: replica rebuilt for generation "
                              f"{elastic.generation()}; resuming with "

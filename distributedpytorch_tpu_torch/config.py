@@ -41,6 +41,11 @@ or ``ring_flash`` over the (world / M, M) mesh, with the parameters
 replicated on every rank: the JAX package's placement of parameters over
 'model' (a memory layout that changes no number) is not ported, so with
 any other attention it is refused.
+``train``, ``test`` and ``serve`` take ``--moe-experts E`` (the vit's
+MLPs as switch mixtures of E experts, replicated on every rank, with any
+attention, precision and train option); ``train`` checks it with the JAX
+``run_train``'s messages before the dataset load (``check_moe``), and
+``test`` and ``serve`` fail with the registry's.
 ``train`` and ``test`` take the observability and compile-cache flags
 with the JAX spellings and defaults: the flight recorder is on
 (``--no-flightrec`` turns it off; ``--flightrec-ring``),
@@ -152,6 +157,9 @@ class Config:
     serve_max_requests: int = 0
     device: str = "cuda"
     model_parallel: int = 1
+    # > 0: the vit's MLPs as switch mixtures of that many experts
+    # (models/moe.py), replicated on every rank (JAX config.py:198-201)
+    moe_experts: int = 0
     grad_accum: int = 1
     ckpt_async: bool = False
     epochs_per_dispatch: int = 1
@@ -405,6 +413,33 @@ def _model_parallel_arg(p: argparse.ArgumentParser) -> None:
                         "parameters stay replicated)")
 
 
+def _moe_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--moe-experts", type=int, default=0,
+                   dest="moe_experts", metavar="E",
+                   help="replace the vit MLPs with E-expert switch "
+                        "mixture-of-experts layers (the experts replicated "
+                        "on every rank; default 0 = dense MLPs)")
+
+
+def check_moe(cfg: Config, model_name: str) -> None:
+    """The JAX ``run_train``'s checks of ``--moe-experts`` (cli.py:768-783),
+    word for word, against the model the run trains (the checkpoint's
+    under ``-f``), before the dataset load; ``--tensor-parallel`` and
+    ``--pipeline-parallel`` are refused before it as not ported."""
+    if cfg.moe_experts and (model_name != "vit" or cfg.moe_experts < 2):
+        raise ValueError(
+            "--moe-experts needs --model vit, E >= 2, and is exclusive "
+            "with --tensor-parallel/--pipeline-parallel; got "
+            f"model={model_name!r}, moe_experts={cfg.moe_experts}, "
+            "tensor_parallel=False, pipeline_parallel=False")
+    if (cfg.moe_experts and cfg.model_parallel >= 2
+            and cfg.moe_experts % cfg.model_parallel):
+        raise ValueError(
+            f"--moe-experts {cfg.moe_experts} must be divisible by "
+            f"--model-parallel {cfg.model_parallel} for expert "
+            "parallelism (each device holds E/mp experts)")
+
+
 def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument("--device", choices=DEVICE_CHOICES, default="cuda",
                    help=f"device to {what} on (default: cuda; never falls "
@@ -420,7 +455,6 @@ _INT = {"type": int}
 # is refused (``refused_flag``), never ignored.
 REFUSED_EVERYWHERE = (
     ("--scan-layers", _ON, False),
-    ("--moe-experts", _INT, 0),
     ("--tensor-parallel", _ON, False),
     ("--pipeline-parallel", _ON, False),
     ("--seq-parallel", _INT, 1),
@@ -728,6 +762,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
                         "PyTorch) or ring_flash (the CUDA kernels K4, K2p, "
                         "K3p) over --model-parallel ranks")
     _model_parallel_arg(p)
+    _moe_arg(p)
     _device_arg(p, action)
     _observability_args(p)
     _fault_args(p)
@@ -796,6 +831,7 @@ def build_parser() -> argparse.ArgumentParser:
     _pretrained_args(p)
     _data_remat_args(p)
     _model_parallel_arg(p)
+    _moe_arg(p)
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,
                    dest="checkpoint_file", required=True,

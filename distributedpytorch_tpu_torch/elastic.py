@@ -34,9 +34,10 @@ PyTorch's idiom takes its place:
   the JAX package: a shrink whose settled claims lack rank 0 fails on
   every survivor.
 * ``is_peer_loss`` knows torch's texts and types for a dead peer as well
-  as the JAX markers: ``DistBackendError``, and gloo's "Connection closed
-  by peer", "Connection reset by peer" and "Read error" (the first two
-  JAX markers already).
+  as the JAX markers: ``DistBackendError``, gloo's "Connection closed by
+  peer", "Connection reset by peer" and "Read error" (the first two JAX
+  markers already), and the store's "wait timeout" of a group's creation
+  that a member never reached.
 * No ``quiesce_exit``: the JAX exit barrier exists for a parked XLA
   service whose socket close is fatal to its peers; a departed
   ``TCPStore`` server fails no call of a peer that has finished its
@@ -88,11 +89,12 @@ RENDEZVOUS_DEADLINE_S = 120.0
 # claim; `--elastic-join-wait` overrides it per run.
 JOIN_WAIT_S = 600.0
 
-# Texts of a dead peer: the JAX package's markers and torch's gloo ones.
+# Texts of a dead peer: the JAX package's markers, torch's gloo ones and
+# the store's "wait timeout" of a group whose member never arrived.
 PEER_LOSS_MARKERS = (
     "Gloo ", "Connection closed by peer", "Connection reset",
     "Socket closed", "connection refused", "Broken pipe",
-    "peer is unavailable", "Read error")
+    "peer is unavailable", "Read error", "wait timeout")
 
 
 class WorldChangedError(RuntimeError):

@@ -12,7 +12,10 @@ checkpoint decodes.  What changes on the way:
     ``weight``/``bias``; ``batch_stats`` ``mean``/``var`` ->
     ``running_mean``/``running_var`` (the port's BatchNorm keeps flax's
     biased variance, so they are taken as they are);
-  * the vit's ``pos_embed`` (1, S, dim) f32 is taken as it is.
+  * the vit's ``pos_embed`` (1, S, dim) f32 is taken as it is;
+  * a MoE block's ``moe`` (``--moe-experts``): ``router`` is a Dense,
+    and the experts' ``w_up`` (E, D, H), ``b_up``, ``w_down`` (E, H, D)
+    and ``b_down`` are taken as they are.
 
 ``optimizer_state_from_jax`` converts an optax state (Adam's moments,
 SGD's trace, under ``--feature-extract`` the head's) by the same rules,
@@ -77,10 +80,24 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         _dense(blk["qkv"], f"blocks.{i}.qkv", out)
         _dense(blk["proj"], f"blocks.{i}.proj", out)
         _norm(blk["LayerNorm_1"], f"blocks.{i}.ln2", out)
-        _dense(blk["mlp_up"], f"blocks.{i}.mlp_up", out)
-        _dense(blk["mlp_down"], f"blocks.{i}.mlp_down", out)
+        if "moe" in blk:
+            out.update(moe_params_from_jax(blk["moe"], f"blocks.{i}.moe."))
+        else:
+            _dense(blk["mlp_up"], f"blocks.{i}.mlp_up", out)
+            _dense(blk["mlp_down"], f"blocks.{i}.mlp_down", out)
     _norm(params["LayerNorm_0"], "norm", out)
     _dense(params["head"], "head", out)
+    return out
+
+
+def moe_params_from_jax(tree: dict, prefix: str = ""
+                        ) -> Dict[str, torch.Tensor]:
+    """flax ``SwitchMLP`` params -> ``models.moe.SwitchMLP.state_dict()``
+    entries under ``prefix``."""
+    out: Dict[str, torch.Tensor] = {}
+    _dense(tree["router"], f"{prefix}router", out)
+    for key in ("w_up", "b_up", "w_down", "b_down"):
+        out[f"{prefix}{key}"] = _t(tree[key])
     return out
 
 

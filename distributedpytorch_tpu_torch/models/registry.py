@@ -9,8 +9,11 @@ for the nine models: ``cnn``, ``mlp``, the torchvision zoo (``resnet``
 (inception_v3)) and ``vit`` with ``attention`` in {full, flash, ring,
 ring_flash} (the rings over the model group of a ``runtime.Mesh``), and
 the API-only ``pallas_dw`` knob of ``cnn`` (kernel K5; no CLI flag, as in
-the JAX package).  The validation errors are the JAX registry's, word for
-word.  ``remat="blocks"`` builds vit, densenet and inception with
+the JAX package), and ``moe_experts`` (``--moe-experts``: the vit's MLPs
+as switch mixtures of experts, ``models/moe.py``, replicated on every
+rank; the data group of ``mesh`` holds the global batch its dispatch
+groups are cut from).  The validation errors are the JAX registry's, word
+for word.  ``remat="blocks"`` builds vit, densenet and inception with
 ``remat_blocks`` (each block checkpointed, ``models/remat.py``; the
 parameter names do not change); the engine checkpoints the other models'
 whole forward, and every model's under ``full``, as the JAX split of the
@@ -117,7 +120,7 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               attention: str = "full",
               device: torch.device | str = "cuda",
               pallas_dw: bool = False, mesh=None,
-              remat: str = "none") -> nn.Module:
+              remat: str = "none", moe_experts: int = 0) -> nn.Module:
     """The registry's full-width model, on ``device``, its parameters
     stored in the policy's ``param_dtype`` (bfloat16 under ``bf16_full``,
     f32 otherwise; BatchNorm's running statistics are buffers and stay
@@ -125,13 +128,14 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
     ``init_weights``, which rounds flax's f32 draws to it).
     ``pallas_dw=True`` gives the cnn whose 3x3 convs with 32+ input
     channels take their weight gradient from kernel K5.  ``mesh`` (a
-    ``runtime.Mesh``) is the one of ``--attention ring|ring_flash``; the
-    parameters stay replicated on every rank.  ``remat="blocks"`` on a
+    ``runtime.Mesh``) is the one of ``--attention ring|ring_flash`` and of
+    a MoE vit's global batch; the parameters stay replicated on every
+    rank.  ``remat="blocks"`` on a
     model of REMAT_BLOCK_MODELS checkpoints its blocks."""
     if remat not in ("none", "blocks", "full"):
         raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
     model = _build(name, num_classes, precision, attention, device,
-                   pallas_dw, mesh)
+                   pallas_dw, mesh, moe_experts)
     if name in REMAT_BLOCK_MODELS:
         model.remat_blocks = remat == "blocks"
     return store_params(model, precision.param_dtype)
@@ -148,8 +152,36 @@ def store_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
+def check_moe(name: str, moe_experts: int) -> None:
+    """The JAX registry's refusals of ``--moe-experts``
+    (``registry.py:156-172``; ``--tensor-parallel`` and
+    ``--pipeline-parallel``, which it is exclusive with, are not ported)."""
+    if not moe_experts:
+        return
+    if name != "vit":
+        raise ValueError(
+            "--moe-experts applies to the attention model family "
+            f"only (--model vit); {name!r} has no MLP blocks to "
+            "replace")
+    if moe_experts < 2:
+        raise ValueError(f"--moe-experts must be >= 2, got {moe_experts}")
+
+
+def check_moe_model_axis(moe_experts: int, mesh) -> None:
+    """JAX's expert-parallel divisibility (``registry.py:247-259``): with a
+    model axis of 2 ranks or more, E must divide by it, although the port
+    replicates the experts."""
+    if moe_experts and mesh is not None and mesh.model_parallel >= 2 \
+            and moe_experts % mesh.model_parallel:
+        raise ValueError(
+            f"--moe-experts {moe_experts} must be divisible "
+            f"by --model-parallel {mesh.model_parallel} for expert "
+            "parallelism (each device holds E/mp experts)")
+
+
 def _build(name: str, num_classes: int, precision: PrecisionPolicy,
-           attention: str, device, pallas_dw: bool, mesh) -> nn.Module:
+           attention: str, device, pallas_dw: bool, mesh,
+           moe_experts: int = 0) -> nn.Module:
     """The module of ``get_model``, its parameters in f32."""
     _check_name(name)
     dtype = precision.compute_dtype
@@ -158,18 +190,20 @@ def _build(name: str, num_classes: int, precision: PrecisionPolicy,
             raise ValueError(
                 "pallas_dw applies to the cnn model only (the "
                 "patch-reuse conv-dW kernel covers its 3x3/SAME convs)")
-        if attention != "full":
+        if moe_experts or attention != "full":
             raise ValueError(
                 "pallas_dw is exclusive with the vit-family features; got "
-                f"moe_experts=0, attention={attention!r}, "
+                f"moe_experts={moe_experts}, attention={attention!r}, "
                 "tensor_parallel=False, pipeline_parallel=False")
+    check_moe(name, moe_experts)
     check_attention(name, attention)
     if name == "vit":
         from .vit import ViT
 
-        return ViT(num_classes=num_classes, dtype=dtype,
-                   attention_fn=attention_fn(attention, mesh),
-                   device=device)
+        attn = attention_fn(attention, mesh)
+        check_moe_model_axis(moe_experts, mesh)
+        return ViT(num_classes=num_classes, dtype=dtype, attention_fn=attn,
+                   moe_experts=moe_experts, moe_mesh=mesh, device=device)
     if pallas_dw:
         return SmallCNN(num_classes=num_classes, dtype=dtype,
                         pallas_dw=True, device=device)

@@ -19,6 +19,14 @@ GELU is the tanh approximation; the token mean is taken in f32.
 ``remat_blocks`` (``--remat blocks``, set by the registry) checkpoints
 each ``TransformerBlock`` on the gradient path, keeping its matmul
 outputs (``models/remat.py``); the parameter names do not change.
+
+``moe_experts`` E > 0 (``--moe-experts``; JAX ``TransformerBlock`` at
+:43-100) replaces each block's ``mlp_up``/``mlp_down`` with a
+``models/moe.py`` ``SwitchMLP`` named ``moe`` (``blocks.{i}.moe.*``).
+Such a block returns its load-balance loss beside its output, and the
+train-mode forward returns ``{"logits": ..., "sown": the blocks' losses
+summed}``, what JAX's ``mutable=["losses"]`` collects; the eval forward
+returns the logits alone.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from ..ops.attention import full_attention
 from . import remat
 from .layers import dense as _dense
 from .layers import lecun_init_
+from .moe import SwitchMLP
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                        torch.Tensor]
@@ -58,7 +67,8 @@ class LayerNorm(nn.Module):
 
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: int,
-                 attention_fn: AttentionFn, device=None):
+                 attention_fn: AttentionFn, moe_experts: int = 0,
+                 moe_mesh=None, device=None):
         super().__init__()
         self.dim = dim
         self.heads = heads
@@ -67,10 +77,16 @@ class TransformerBlock(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
         self.ln2 = LayerNorm(dim, device=device)
-        self.mlp_up = nn.Linear(dim, mlp_ratio * dim, device=device)
-        self.mlp_down = nn.Linear(mlp_ratio * dim, dim, device=device)
+        if moe_experts > 0:
+            self.moe = SwitchMLP(dim, mlp_ratio * dim, moe_experts,
+                                 mesh=moe_mesh, device=device)
+        else:
+            self.mlp_up = nn.Linear(dim, mlp_ratio * dim, device=device)
+            self.mlp_down = nn.Linear(mlp_ratio * dim, dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        """The block's output; a MoE block's (output, its load-balance
+        loss share in train mode, else None)."""
         b, s, _ = x.shape
         head_dim = self.dim // self.heads
         qkv = _dense(self.qkv, self.ln1(x))
@@ -79,6 +95,9 @@ class TransformerBlock(nn.Module):
                    for t in qkv.split(self.dim, dim=-1))
         attn = self.attention_fn(q, k, v).reshape(b, s, self.dim)
         x = x + _dense(self.proj, attn)
+        if hasattr(self, "moe"):
+            h, aux = self.moe(self.ln2(x))
+            return x + h, aux
         h = _dense(self.mlp_up, self.ln2(x))
         h = _dense(self.mlp_down, F.gelu(h, approximate="tanh"))
         return x + h
@@ -92,7 +111,8 @@ class ViT(nn.Module):
                  depth: int = 4, heads: int = 4, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16,
                  attention_fn: Optional[AttentionFn] = None,
-                 input_size: int = 28, device=None):
+                 input_size: int = 28, moe_experts: int = 0, moe_mesh=None,
+                 device=None):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
@@ -105,8 +125,11 @@ class ViT(nn.Module):
         tokens = (input_size // patch) ** 2
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, dim,
                                                   device=device))
+        self.moe_experts = moe_experts
         self.blocks = nn.ModuleList(
-            TransformerBlock(dim, heads, mlp_ratio, attn, device=device)
+            TransformerBlock(dim, heads, mlp_ratio, attn,
+                             moe_experts=moe_experts, moe_mesh=moe_mesh,
+                             device=device)
             for _ in range(depth))
         self.norm = LayerNorm(dim, device=device)
         self.head = nn.Linear(dim, num_classes, device=device)
@@ -123,19 +146,31 @@ class ViT(nn.Module):
                 if isinstance(mod, LayerNorm):
                     nn.init.ones_(mod.weight)
                     nn.init.zeros_(mod.bias)
+                elif isinstance(mod, SwitchMLP):
+                    mod.init_experts(generator)
             pos = torch.empty(self.pos_embed.shape, device=generator.device)
             nn.init.normal_(pos, std=0.02, generator=generator)
             self.pos_embed.copy_(pos)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        """f32 logits; in train mode a MoE vit's ``{"logits", "sown"}``
+        (see the module docstring)."""
         dtype = self.dtype
         x = F.conv2d(x.to(dtype).permute(0, 3, 1, 2),
                      self.patch_embed.weight.to(dtype), stride=self.patch)
         x = x.permute(0, 2, 3, 1) + self.patch_embed.bias.to(dtype)
         b, gh, gw, c = x.shape
         x = x.reshape(b, gh * gw, c) + self.pos_embed.to(dtype)
+        sown = None
         for blk in self.blocks:
             x = remat.run_block(self, blk, x)
+            if isinstance(x, tuple):
+                x, aux = x
+                if aux is not None:
+                    sown = aux if sown is None else sown + aux
         x = self.norm(x).float().mean(dim=1).to(dtype)  # mean-pool tokens
-        return _dense(self.head, x).float()
+        logits = _dense(self.head, x).float()
+        if sown is not None:
+            return {"logits": logits, "sown": sown}
+        return logits

@@ -124,14 +124,18 @@ def forward_flops(model: torch.nn.Module, batch: int,
 
 
 def train_flops_per_sample(name: str, num_classes: int,
-                           batch: int = FLOP_COUNT_BATCH) -> float:
+                           batch: int = FLOP_COUNT_BATCH,
+                           moe_experts: int = 0) -> float:
     """Model FLOPs of one training step per sample, 3 x forward / batch,
-    of the registry's model ``name`` in its ``attention="full"`` form."""
+    of the registry's model ``name`` in its ``attention="full"`` form
+    (with ``moe_experts``, the MoE vit's: its router, dispatch, expert
+    and combine products, as JAX counts them)."""
     from ..models.registry import get_model, get_model_input_size
     from ..precision import from_flags
 
     model = get_model(name, num_classes, from_flags("f32", False),
-                      attention="full", device="meta")
+                      attention="full", device="meta",
+                      moe_experts=moe_experts)
     return 3.0 * forward_flops(model, batch,
                                get_model_input_size(name)) / batch
 

@@ -23,10 +23,10 @@ over a model group.
 ``agree_health`` is the JAX bounded health agreement (``runtime.py:
 275-350``): one all-gather of three flags at each epoch boundary.  It runs
 on host memory over a gloo group kept for it alone (``health_group``),
-even in an NCCL world, created once a world with the ``--health-timeout``
-as its timeout, so that a peer that never arrives surfaces as gloo's own
-timeout error (``faults.HealthTimeoutError``) and nothing is left blocked
-on a thread.  A world after an elastic reconfigure is joined through a
+even in an NCCL world, created as the first collective of a world with
+the ``--health-timeout`` as its timeout, so that a peer that never arrives
+surfaces as gloo's own timeout error (``faults.HealthTimeoutError``) and
+nothing is left blocked on a thread.  A world after an elastic reconfigure is joined through a
 ``TCPStore`` at the address its coordinator published (``init_world``,
 ``elastic.py``); ``teardown_distributed`` aborts an NCCL communicator
 before it destroys the group.
@@ -384,17 +384,28 @@ _health = None      # (timeout seconds or None, the gloo group)
 
 def health_group(timeout_s: Optional[float] = None):
     """The gloo group of ``agree_health``, created on the first call of a
-    world (collective: every rank calls it at the same point, as the
-    world's first boundary or its start) with ``timeout_s`` as its
-    timeout (None or 0: ``GROUP_TIMEOUT``), and again when the timeout
-    asked for changes."""
+    world with ``timeout_s`` as its timeout (None or 0:
+    ``GROUP_TIMEOUT``), and again when the timeout asked for changes.
+    The creation is collective and waits ``timeout_s`` for every member,
+    so every rank makes it as the first collective of its world
+    (``cli._enter_world``), before any set-up of its own; a member that
+    does not arrive in time raises ``faults.HealthTimeoutError``, a peer
+    loss, as a late member of an agreement does."""
     global _health
     timeout_s = timeout_s or None
     if _health is None or _health[0] != timeout_s:
         timeout = (GROUP_TIMEOUT if timeout_s is None
                    else timedelta(seconds=timeout_s))
-        _health = (timeout_s, dist.new_group(backend="gloo",
-                                             timeout=timeout))
+        try:
+            group = dist.new_group(backend="gloo", timeout=timeout)
+        except RuntimeError as e:
+            if "timeout" in str(e).lower():
+                raise faults.HealthTimeoutError(
+                    f"the health group did not form within {timeout_s}s"
+                    f" — a member died or wedged before reaching it "
+                    f"({e})") from e
+            raise
+        _health = (timeout_s, group)
     return _health[1]
 
 

@@ -38,7 +38,14 @@ parity tests inject JAX's masks through ``train_step_affine``.)  A model
 whose train-mode forward returns auxiliary logits (inception) adds their
 loss with weight 0.4, ``loss1 + 0.4 * loss2`` as ``_grads_and_metrics``
 (:274-277): the two numerators over the one global denominator, and the
-correct rows counted from the primary logits.
+correct rows counted from the primary logits.  A model that sows a loss
+(the MoE vit's load balance, ``models/moe.py``; JAX ``_apply`` at
+:196-224) returns each data shard's share of it from its train-mode
+forward; the step adds data_parallel x the share to what it
+back-propagates, so that DDP's mean is the gradient of the global mean
+plus the sown loss, and the shares' sum over the data group to the
+reported loss, JAX's ``loss + sown`` (:281).  The eval and predict steps
+add nothing.
 
 The optimizer state lives in ``torch.optim`` objects: Adam(lr=1e-3) has
 optax's defaults and runs its own step (``capturable`` on the card, so
@@ -85,7 +92,10 @@ the buffer is summed over the ranks once, and divided once by the global
 denominator (x the scale, x the model-parallel copies of each shard):
 the exact gradient of the global masked mean.  The dropout keep masks are
 drawn per microbatch for the global microbatch's rows; inception adds 0.4
-x its aux numerator; ``correct`` counts the primary logits.
+x its aux numerator; ``correct`` counts the primary logits; a sown loss
+is added to each microbatch's numerator times the global microbatch's
+denominator (one all-reduce of it over the data group), JAX's
+per-microbatch weighting (:427-432).
 
 ``remat`` (``--remat``, :114-133): a model of REMAT_BLOCK_MODELS built
 with ``remat="blocks"`` checkpoints its own blocks; under ``blocks`` the
@@ -375,12 +385,17 @@ class Engine:
                                     dropout_masks, scale)
             global_denom = torch.clamp_min(sums[1], 1e-9)
         else:
-            numer_sum, local = self._forward_sums(
+            numer_sum, local, sown = self._forward_sums(
                 model if state.ddp is None else state.ddp, imgs, labels,
                 vmask, dropout_masks)
+            if sown is not None:
+                local = torch.cat([local, sown.detach()[None]])
             sums = runtime.all_reduce_sum(local, self.mesh.data_group)
             global_denom = torch.clamp_min(sums[1], 1e-9)
             target = numer_sum * self.mesh.data_parallel / global_denom
+            if sown is not None:
+                # the data shards' shares sum to the global batch's loss
+                target = target + sown * self.mesh.data_parallel
             (target if scale is None else target * scale).backward()
         # _accumulate divides by the scale itself, in its one divide
         unscale = None if self.grad_accum > 1 else scale
@@ -389,33 +404,49 @@ class Engine:
             with torch.no_grad():
                 for b, s in zip(buffers, saved):
                     torch.where(finite, b, s, out=b)
-        return state, {"loss": sums[0] / global_denom, "correct": sums[2],
-                       "valid": sums[3]}
+        loss = sums[0] / global_denom
+        if sums.shape[0] > 4:
+            loss = loss + sums[4]       # JAX's loss + sown
+        return state, {"loss": loss, "correct": sums[2], "valid": sums[3]}
 
     def _forward_sums(self, module: nn.Module, imgs: torch.Tensor,
                       labels: torch.Tensor, vmask: torch.Tensor,
-                      dropout_masks: Sequence[torch.Tensor]
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      dropout_masks: Sequence[torch.Tensor],
+                      microbatch: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor]]:
         """One train-mode forward of ``imgs`` with the given keep masks:
         (the differentiable numerator sum, with 0.4 x the aux logits'; the
         detached local sums of numerator, denominator, correct and valid
-        rows)."""
+        rows; this data shard's share of what the model sowed (a MoE vit's
+        load-balance loss, differentiable), else None).  A ``microbatch``
+        of ``_accumulate`` adds the sown share x the global microbatch's
+        denominator to its numerator instead (JAX ``engine.py:427-432``)
+        and returns None for it."""
         set_dropout_masks(self.model, list(dropout_masks) or None)
         try:
             out = module(imgs)
         finally:
             set_dropout_masks(self.model, None)
+        sown = None
+        if isinstance(out, dict):
+            out, sown = out["logits"], out["sown"]
         logits, aux = out if isinstance(out, tuple) else (out, None)
         numer, denom = self.loss_fn(logits, labels)
         numer_sum = (numer * vmask).sum()
         if aux is not None:
             numer_sum = numer_sum + AUX_LOSS_WEIGHT * (
                 self.loss_fn(aux, labels)[0] * vmask).sum()
+        denom_sum = (denom * vmask).sum()
+        if sown is not None and microbatch:
+            global_denom = runtime.all_reduce_sum(denom_sum.clone(),
+                                                  self.mesh.data_group)
+            numer_sum = numer_sum + sown * global_denom
+            sown = None
         correct = (per_example_correct(logits.detach(), labels)
                    * vmask).sum()
-        return numer_sum, torch.stack([numer_sum.detach(),
-                                       (denom * vmask).sum(), correct,
-                                       vmask.sum()])
+        return numer_sum, torch.stack([numer_sum.detach(), denom_sum,
+                                       correct, vmask.sum()]), sown
 
     def _accumulate(self, state: TrainState, imgs: torch.Tensor,
                     labels: torch.Tensor, vmask: torch.Tensor,
@@ -441,9 +472,9 @@ class Engine:
                           device=imgs.device)
         sums = None
         for j in range(k):
-            numer_sum, local = self._forward_sums(
+            numer_sum, local, _ = self._forward_sums(
                 state.model, imgs[j::k], labels[j::k], vmask[j::k],
-                masks[j])
+                masks[j], microbatch=True)
             # outside DDP's reduction: the buffer is summed once below
             (numer_sum if scale is None else numer_sum * scale).backward()
             at = 0
@@ -556,7 +587,9 @@ class Predictor:
     images go through the eval transform and an eval-mode forward, then
     ``argmax`` of the logits (int32, first maximum on ties) and the max of
     ``softmax(logits)`` in the accumulation dtype.  Every output row is a
-    function of its own input row only, so padded rows are inert."""
+    function of its own input row only, so padded rows are inert; but a
+    MoE vit's, whose expert capacity is shared by the rows of a dispatch
+    group, depends on its batch-mates too (as in the JAX package)."""
 
     def __init__(self, model: nn.Module, mean: float, std: float,
                  input_size: int, precision: PrecisionPolicy,

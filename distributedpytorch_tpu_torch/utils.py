@@ -1,9 +1,9 @@
-"""Logging, signal handling, durations and seeded generators for the
-port's entry points.
+"""Logging, signal handling, durations, seeded generators and static
+shape sizing for the port's entry points.
 
 Counterpart of ``distributedpytorch_tpu/utils.py`` (``initialize_logging``,
 ``GracefulShutdown``, ``get_duration`` at :121-126, ``epoch_numpy_rng`` at
-:152-160).  The JAX package's per-step PRNG keys (``fold_key``) become
+:152-160, ``largest_divisor_leq`` at :168-176).  The JAX package's per-step PRNG keys (``fold_key``) become
 ``step_generator``: a ``torch.Generator`` on the run's device seeded from
 (seed, epoch, step), so a resumed run draws exactly what an uninterrupted
 one draws.  The draws themselves differ from JAX's (Philox, not threefry).
@@ -134,3 +134,12 @@ def step_generator(seed: int, epoch: int, step: int,
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(step_seed(seed, epoch, step))
     return gen
+
+
+def largest_divisor_leq(n: int, limit: int) -> int:
+    """Largest divisor of ``n`` that is <= ``limit`` (at least 1): the
+    static size of the MoE dispatch groups (``models/moe.py``)."""
+    d = max(1, min(n, limit))
+    while n % d:
+        d -= 1
+    return d

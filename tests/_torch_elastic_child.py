@@ -1,7 +1,7 @@
 """One process of a port CLI run under a fault plan or in an elastic world.
 
     python tests/_torch_elastic_child.py [--tiny-vit] [--settle S]
-        [--claim-after FILE] -- ARGS
+        [--claim-after FILE] [--await-claim] [--setup-stall S] -- ARGS
 
 runs ``python -m distributedpytorch_tpu_torch ARGS`` in this process,
 after shrinking the elastic module's waits (``SETTLE_S``, ``WORLD_WAIT_S``
@@ -12,8 +12,12 @@ RANK, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) for a rank
 of a launched world, and none of them for an ``--elastic-join`` process.
 ``--claim-after FILE`` holds an ``--elastic-join`` process's claim back
 until FILE exists: the process can start with the world, and only its
-claim, not its start-up, races the world's epochs.  Exits with the CLI's
-code.
+claim, not its start-up, races the world's epochs.  ``--await-claim``
+makes the first health boundary's join scan wait (up to 60 s) until a
+join claim is pending, so that the world grows at its first boundary.
+``--setup-stall S`` sleeps S seconds at the start of the process's
+dataset load, after its world has formed: a member whose own set-up
+outlasts ``--health-timeout``.  Exits with the CLI's code.
 
     python tests/_torch_elastic_child.py --probe flags|timeout OUT.json
 
@@ -105,6 +109,8 @@ def main() -> int:
     p.add_argument("--tiny-vit", action="store_true")
     p.add_argument("--settle", type=float, default=2.0)
     p.add_argument("--claim-after", metavar="FILE")
+    p.add_argument("--await-claim", action="store_true")
+    p.add_argument("--setup-stall", type=float, default=0.0)
     p.add_argument("--probe", nargs=2, metavar=("MODE", "OUT"))
     p.add_argument("args", nargs=argparse.REMAINDER)
     a = p.parse_args()
@@ -123,6 +129,26 @@ def main() -> int:
             return claim(elastic_dir)
 
         elastic.request_join = held_claim
+    if a.await_claim:
+        scan = elastic.scan_joins
+
+        def awaited_scan(elastic_dir, *rest):
+            deadline = time.monotonic() + 60.0
+            while not elastic.pending_joins(elastic_dir) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            elastic.scan_joins = scan
+            return scan(elastic_dir, *rest)
+
+        elastic.scan_joins = awaited_scan
+    if a.setup_stall:
+        load = cli.load_dataset
+
+        def stalled_load(*args, **kwargs):
+            time.sleep(a.setup_stall)
+            return load(*args, **kwargs)
+
+        cli.load_dataset = stalled_load
     if a.tiny_vit:
         vit.ViT.__init__ = functools.partialmethod(vit.ViT.__init__,
                                                    **TINY_VIT)

@@ -29,7 +29,14 @@ entry through ``Engine.train_step_affine`` (in ``precision``, f32 by
 default; with ``overflow`` = (step, rank), that rank's loss numerator of
 that step is multiplied by inf), then writes its parameters, the steps'
 metrics, its step and applied-update counts, its loss scale (or None)
-and its kernel launches to OUT.pt.  With ``profile`` = N (on the card), it then times N
+and its kernel launches to OUT.pt.  An ``arch`` with ``moe_experts`` E
+builds the switch MoE vit over the world's mesh (``models/moe.py``: the
+data group's global batch), a ``grad_accum`` K accumulates K microbatches
+a step, and ``eval`` (uint8 images of the global batch, with ``mean`` and
+``std``) adds the rank's eval-mode logits of its data shard's rows after
+the steps.  IN.pt may hold a list of such specs, each with its own
+``model_parallel`` (default: the command line's): they run one after
+another in the one world, and OUT.pt holds a list of results.  With ``profile`` = N (on the card), it then times N
 more steps of the last batch (host clock, synchronized) and N under
 torch.profiler, and writes the per-step wall and device time, kernel
 count, the time of the ring kernels and of the host copies, and K2p's and
@@ -146,14 +153,16 @@ def profile_steps(step, n: int) -> dict:
 
 def run_vit(spec, device, mesh) -> dict:
     policy = PRESETS[spec.get("precision", "f32")]
-    arch = spec["arch"]
+    arch = dict(spec["arch"])
+    if arch.get("moe_experts"):
+        arch["moe_mesh"] = mesh
     remat = spec.get("remat", "none")
     model = ViT(dtype=policy.compute_dtype, device=device, num_classes=10,
                 attention_fn=attention_fn(spec["attention"], mesh), **arch)
     model.remat_blocks = remat == "blocks"
     engine = Engine(model, cross_entropy, 0.13, 0.31, 28, policy, device,
                     optimizer="SGD", steps_per_epoch=2, mesh=mesh,
-                    remat=remat)
+                    remat=remat, grad_accum=spec.get("grad_accum", 1))
     state = engine.init_state(torch.Generator().manual_seed(spec["seed"]))
     if spec["params"] is not None:
         with torch.no_grad():
@@ -189,6 +198,18 @@ def run_vit(spec, device, mesh) -> dict:
                              else state.loss_scale.to_dict()),
               "launches": {k: v - before[k]
                            for k, v in kernel_launches().items()}}
+    if spec.get("eval") is not None:
+        from distributedpytorch_tpu_torch.data import augment
+
+        images = spec["eval"]
+        b = len(images) // mesh.data_parallel
+        x = augment.eval_transform(
+            torch.from_numpy(images[mesh.data_index * b:
+                                    (mesh.data_index + 1) * b]).to(device),
+            spec["mean"], spec["std"], 28, out_dtype=policy.compute_dtype)
+        model.eval()
+        with torch.no_grad():
+            result["eval_logits"] = model(x).float().cpu().numpy()
     if spec.get("profile"):
         result["profile"] = profile_steps(
             lambda: engine.train_step_affine(state, *batch, draws),
@@ -254,6 +275,20 @@ def main() -> None:
     backend = runtime.initialize_distributed(device)
     mesh = runtime.make_mesh(args.model_parallel or runtime.world_size())
     spec = torch.load(args.inp, weights_only=False)
+    if args.mode == "vit" and isinstance(spec, list):
+        meshes = {}
+        results = []
+        for one in spec:
+            mp = one.get("model_parallel", mesh.model_parallel)
+            if mp not in meshes:
+                meshes[mp] = (mesh if mp == mesh.model_parallel
+                              else runtime.make_mesh(mp))
+            results.append(dict(run_vit(one, device, meshes[mp]),
+                                data_index=meshes[mp].data_index,
+                                model_index=meshes[mp].model_index))
+        torch.save(results, args.out)
+        runtime.shutdown_distributed()
+        return
     if args.mode == "attn":
         result = {"cases": run_attn(spec, device, mesh)}
     elif args.mode == "logits":

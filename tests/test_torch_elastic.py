@@ -541,3 +541,127 @@ def test_survivor_blocked_on_a_live_peer_joins_the_new_world(tmp_path):
         assert (rec["attrs"]["new_world"], rec["attrs"]["new_rank"]) == \
             (2, rank)
         assert rec["ts"] - stall["ts"] <= RECONFIGURE_BOUND_S
+
+
+# -- queue 3 entry 29: a joiner later than --health-timeout ---------------
+
+JOIN_HEALTH_TIMEOUT_S = 3
+JOIN_SETUP_STALL_S = 8.0
+
+
+def test_joiner_set_up_past_the_health_timeout_keeps_the_survivor(
+        tmp_path):
+    """A world of one --elastic rank grows at its first boundary by a
+    joiner whose set-up (its dataset load, after the world formed) takes
+    JOIN_SETUP_STALL_S, past --health-timeout JOIN_HEALTH_TIMEOUT_S.  The
+    new world's health group is its members' first collective, made
+    before that set-up, so the survivor waits for the joiner in DDP's
+    first collective (the group's 10 minutes) and both finish the run
+    in a world of 2; before, the survivor created the group after its
+    own set-up and died when the joiner reached it late."""
+    rsl = str(tmp_path / "rsl")
+    args = ["train", "-d", str(tmp_path / "data"), "--rsl_path", rsl,
+            "--model", "vit", "--attention", "full", "--device", "cpu",
+            "--debug", "--synthetic-fallback", "--dataset", "synthetic",
+            "-e", "3", "-b", "16", "--telemetry", "--data-mode", "stream",
+            "--elastic", "--health-timeout", str(JOIN_HEALTH_TIMEOUT_S)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+        "MASTER_ADDR", "MASTER_PORT", "XLA_FLAGS")}
+    env["OMP_NUM_THREADS"] = "1"
+    rank0 = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+             "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port)}
+    procs = []
+    for tag, child, extra, more in (
+            ("rank0", ["--await-claim"], rank0, []),
+            ("joiner", ["--setup-stall", str(JOIN_SETUP_STALL_S)], {},
+             ["--elastic-join", "--elastic-join-wait", "60"])):
+        log = str(tmp_path / f"{tag}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, CHILD, "--tiny-vit", "--settle", "3",
+                 *child, "--", *args, *more], cwd=ROOT,
+                stdout=f, stderr=subprocess.STDOUT,
+                env={**env, **extra}), log))
+    rcs = []
+    try:
+        for proc, log in procs:
+            try:
+                rcs.append(proc.wait(timeout=150))
+            except subprocess.TimeoutExpired:
+                pytest.fail(f"{log} hung:\n{open(log).read()[-3000:]}")
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert rcs == [0, 0], [open(log).read()[-3000:] for _, log in procs]
+
+    def events(rank, name):
+        with open(os.path.join(rsl, "telemetry", f"rank{rank}.jsonl")) as f:
+            return [e["attrs"] for e in map(json.loads, f)
+                    if e.get("name") == name]
+
+    [rec] = events(0, "elastic/reconfigure")
+    assert (rec["new_world"], rec["grow"], len(rec["joined"])) == \
+        (2, True, 1)
+    assert not events(0, "peer_loss") and not events(0, "health_timeout")
+    assert [e["epoch"] for e in events(0, "elastic/resume")] == [1]
+    assert [e["epoch"] for e in events(1, "elastic/resume")] == [1]
+    [launches] = [e for e in events(1, "kernel_launches")]
+    assert launches["steps"] > 0
+
+
+def test_a_group_that_does_not_form_is_a_peer_loss(monkeypatch, tmp_path):
+    """The store's timeout while the health group forms is raised as
+    HealthTimeoutError and is a peer loss; on a survivor after a
+    reconfigure it is one more shrink (counted against
+    --max-reconfigures), never an uncaught exit."""
+    import torch.distributed as dist
+
+    def no_group(**kwargs):
+        raise dist.DistStoreError("wait timeout after 3000ms, keys: /0//1")
+
+    monkeypatch.setattr(runtime, "_health", None)
+    monkeypatch.setattr(dist, "new_group", no_group)
+    with pytest.raises(faults.HealthTimeoutError) as err:
+        runtime.health_group(3.0)
+    assert elastic.is_peer_loss(err.value)
+    assert elastic.is_peer_loss(dist.DistStoreError("wait timeout after 1ms"))
+
+    from distributedpytorch_tpu_torch import telemetry
+
+    calls, groups = [], iter([faults.HealthTimeoutError("late"), None])
+
+    def reconfigure(*args, grow=False, **kwargs):
+        calls.append(grow)
+        return {"generation": len(calls), "new_world": 2, "new_rank": 0,
+                "joiners": [], "coordinator": "x:1", "purpose": "serve"}
+
+    def group(timeout_s):
+        failure = next(groups)
+        if failure is not None:
+            raise failure
+
+    monkeypatch.setattr(elastic, "reconfigure", reconfigure)
+    monkeypatch.setattr(runtime, "distributed", lambda: True)
+    monkeypatch.setattr(runtime, "process_index", lambda: 0)
+    monkeypatch.setattr(runtime, "process_count", lambda: 2)
+    monkeypatch.setattr(runtime, "health_group", group)
+    monkeypatch.setattr(tcli, "_make_mesh", lambda cfg, device: "mesh")
+    cfg = tconfig.config_from_argv(
+        ["serve", "-d", str(tmp_path), "-f", str(tmp_path / "x.ckpt"),
+         "--rsl_path", str(tmp_path), "--device", "cpu", "--elastic",
+         "--max-reconfigures", "2"])
+    tel = telemetry.Telemetry(enabled=False)
+    assert tcli._reconfigure_world(cfg, tel, None, "cpu", True, "serve",
+                                   1) == ("mesh", 2)
+    assert calls == [True, False]
+    groups = iter([faults.HealthTimeoutError("late")] * 3)
+    with pytest.raises(faults.PeerFailureError, match="over the "
+                       "--max-reconfigures 2 cap"):
+        tcli._reconfigure_world(cfg, tel, None, "cpu", True, "serve", 2)

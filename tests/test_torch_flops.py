@@ -5,9 +5,9 @@ The JAX count is taken abstractly (``jax.eval_shape`` of the init, then
 its jaxpr walk); the port's with ``FlopCounterMode`` on the meta device.
 Both count 2 x the multiply-adds of every matmul and convolution, so for
 the ``attention="full"`` models they must agree exactly (relative
-1e-12).  The JAX count of the flash vit stops at the ``pallas_call``'s
-one-block body and is lower; the port counts the model, whatever kernel
-computes its attention.
+1e-12), the MoE vit's (``--moe-experts``) too.  The JAX count of the
+flash vit stops at the ``pallas_call``'s one-block body and is lower; the
+port counts the model, whatever kernel computes its attention.
 """
 
 import functools
@@ -31,9 +31,10 @@ JAX_VIT_FLASH = 236_170_752
 
 
 @functools.lru_cache(maxsize=None)
-def jax_train_flops(name: str, attention: str = "full") -> float:
+def jax_train_flops(name: str, attention: str = "full",
+                    moe_experts: int = 0) -> float:
     model = jax_get_model(name, 10, half_precision=False,
-                          attention=attention)
+                          attention=attention, moe_experts=moe_experts)
     size = jax_input_size(name)
     x = jax.ShapeDtypeStruct((2, size, size, 3), jnp.float32)
     v = jax.eval_shape(functools.partial(model.init, train=False),
@@ -59,6 +60,16 @@ def test_the_flash_vit_counts_the_full_model():
     assert jax_train_flops("vit", "full") == JAX_VIT_FULL
     assert jax_train_flops("vit", "flash") == JAX_VIT_FLASH
     assert JAX_VIT_FLASH < JAX_VIT_FULL
+
+
+def test_the_moe_vit_counts_as_jax():
+    """The MoE vit at E = 4 (batch 8: one dispatch group of 392 tokens,
+    capacity 123): the router, the dispatch and combine one-hot products
+    and the experts' batched FFNs count exactly as JAX's jaxpr walk
+    counts them, and more than the dense vit's MLPs."""
+    got = flops.train_flops_per_sample("vit", 10, moe_experts=4)
+    assert got == jax_train_flops("vit", "full", 4)
+    assert got > JAX_VIT_FULL
 
 
 def test_train_flops_is_3x_the_forward_per_sample():

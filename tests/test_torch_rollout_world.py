@@ -53,10 +53,13 @@ SAMPLE = [[(r * 28 + c) % 256 for c in range(28)] for r in range(28)]
 CANARY_FAILS = 12       # replica 0's failed batches; the canary needs 6
 DEADLINE_S = 90.0
 FD_RANK = 90            # the front door's telemetry rank
-# The survivor waits this long at the grow for the joiner to reach the new
-# world's health group after its own set-up (the dataset, the replica's
-# build); a loaded test host needs more than the JAX gate's 5 s (ROADMAP
-# queue 3 entry 29).  A SIGKILLed peer is found by its closed sockets.
+# The survivor's next health agreement after the grow waits this long for
+# the joiner, whose own set-up (the dataset, the replica's build and
+# warm-up) comes before its first agreement.  A loaded test host needs
+# more than the JAX gate's 5 s: there the survivor counts the late joiner
+# as a peer loss and shrinks back to 1 (as the JAX package does; ROADMAP
+# queue 3 entry 29), and stage B wants the world of 2.  A SIGKILLed peer
+# is found by its closed sockets.
 HEALTH_TIMEOUT_S = 20
 
 

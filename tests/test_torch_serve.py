@@ -489,7 +489,8 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
     run_serve's, every other one as not ported yet; --remat is ported and
     taken (nothing of serve reads it), and so are --fault-plan (the serve.*
     sites fire under it), --elastic, --elastic-dir, --metrics-port and
-    --flightrec (the world of replicas, tests/test_torch_serve_world.py)."""
+    --flightrec (the world of replicas, tests/test_torch_serve_world.py)
+    and --moe-experts (the replica's MoE vit, tests/test_torch_moe.py)."""
     argv = ["serve", "-d", "/nonexistent", "-f", "/nonexistent.ckpt",
             "--device", "cpu"] + extra
     taken = {"--remat blocks": ("remat", "blocks"),
@@ -497,7 +498,8 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
              "--elastic": ("elastic", True),
              "--elastic-dir": ("elastic_dir", "/x"),
              "--metrics-port": ("metrics_port", 9100),
-             "--flightrec": ("flightrec", True)}
+             "--flightrec": ("flightrec", True),
+             "--moe-experts": ("moe_experts", 4)}
     if flag in taken:
         field, value = taken[flag]
         assert getattr(tconfig.config_from_argv(argv), field) == value
@@ -569,5 +571,5 @@ def test_port_imports_no_jax():
                  "models.densenet", "models.inception", "models.common",
                  "models.pretrained", "deadline", "slo", "fleet",
                  "serving.controller", "serving.rollout",
-                 "serving.frontdoor", "sim.engine"):
+                 "serving.frontdoor", "sim.engine", "models.moe"):
         assert f"distributedpytorch_tpu_torch.{name}" in imported, name

@@ -661,7 +661,8 @@ REFUSED = [
 # them, as the JAX test does; f16 on the ring trains and tests; both take
 # --data-mode stream, --producer-threads, --device-prefetch, --remat and
 # the observability and compile-cache flags; test ignores --aot-warmup,
-# --profile and --metrics-port as the JAX test does).
+# --profile and --metrics-port as the JAX test does; both take
+# --moe-experts, tests/test_torch_moe.py).
 REFUSED_MESSAGES = {
     "--grad-accum": {
         "train": re.escape(
@@ -684,7 +685,7 @@ REFUSED_MESSAGES = {
         "--metrics-port", "--flightrec")},
     **{flag: dict.fromkeys(("train", "test"), None) for flag in (
         "--elastic", "--health-timeout", "--max-reconfigures",
-        "--fault-plan")},
+        "--fault-plan", "--moe-experts")},
     "--elastic-join": {
         "train": re.escape(
             "--elastic-join requires --elastic: a joiner becomes a normal "
@@ -736,7 +737,7 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                        no_compile_cache=False, metrics_port=0,
                        flightrec=True, elastic=False, elastic_join=False,
                        health_timeout=0.0, max_reconfigures=3,
-                       fault_plan=None)
+                       fault_plan=None, moe_experts=0)
         changed = {"--grad-accum": {"grad_accum": 3},
                    "--ckpt-async": {"ckpt_async": True},
                    "--epochs-per-dispatch": {"epochs_per_dispatch": 2},
@@ -758,7 +759,8 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                    "--health-timeout": {"health_timeout": 5.0},
                    "--max-reconfigures": {"max_reconfigures": 1},
                    "--fault-plan": {
-                       "fault_plan": "data.read:ioerror:0"}}[flag]
+                       "fault_plan": "data.read:ioerror:0"},
+                   "--moe-experts": {"moe_experts": 4}}[flag]
         assert {k: getattr(cfg, k) for k in default} == \
             {**default, **changed}
         return
