@@ -41,6 +41,11 @@ or the switch mixture-of-experts vit's (``--moe-experts``):
 
     python3 chip_smoke.py --phases 42
 
+or placement over 'model', tensor and expert parallelism
+(``--model-parallel`` without a ring, ``--tensor-parallel``):
+
+    python3 chip_smoke.py --phases 43
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -435,7 +440,24 @@ result.  Phases, each printing its lines before the last:
      predict step of the batch the tier formed (label, and confidence to
      TOL_CONF).  (a) and (b) run before phase 21 with the other timed
      in-process phases, (c) and (d) after 38's checks;
- 43. the card's name and power limit again, one ``{"kernels": [...]}``
+ 43. placement over 'model' (``--model-parallel 2`` with no ring),
+     tensor parallelism and expert parallelism, two ranks on the card
+     over gloo (data 1 x model 2), on a thread of its own beside the other
+     CLI phases: (a) ZeRO with ``--attention flash``, (b) the MoE vit
+     (``--moe-experts 8``, expert parallel) and (c) ``--tensor-parallel
+     --attention full``, each as a 2-rank world of
+     ``tests/_torch_ring_child.py`` taking 3 f32 SGD steps of a global
+     batch of 64 against one process fed the same batches (max abs and
+     worst relative error printed, TOL_P43), with each rank's parameter
+     and momentum elements held to the JAX rule's count for (a) and (b)
+     and each rank's ``torch.cuda.max_memory_allocated`` of a step against
+     one process's for (c); then (a) and (b) through the CLI on phase 22's
+     corpus: ``train -e 1 --model-parallel 2`` in bf16 under torchrun, K1,
+     K2 and K3 on each rank by phase 6's formula from its telemetry, all
+     on the tensor cores, the ``mesh:`` line naming what the model group
+     carries; at once ``test -f`` of the best file on 2 ranks equal to an
+     in-process eval, and a 1-process ``train -f`` resume of it;
+ 44. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -449,7 +471,8 @@ phase
 30, 33, 34, 35, 36 and 42 start after 22 and run beside 25, 26 and 28 (18's
 and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
-35, 36 and 38's last checks, then 42's, 39's, 40's and 41's, come last.  Nothing after 38's
+35, 36 and 38's last checks, then 42's, 43's, 39's, 40's and 41's, come
+last; 43's thread starts with the CLI runs of 42.  Nothing after 38's
 in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
@@ -2923,7 +2946,8 @@ def phase_ring_train(train_run: tuple) -> dict:
     rsl = os.path.join(WORK, "ring_rsl")
     wall, log = finish_all([train_run])[0]
     for line in ("process: 0/2, world size: 2, backend: gloo",
-                 "mesh: data 1 x model 2, ring over the model group on gloo",
+                 "mesh: data 1 x model 2, parameters placed and the ring "
+                 "over the model group on gloo",
                  "batch size: 64/replica (128 global)"):
         if line not in log:
             fail(f"the ring train did not log {line!r}")
@@ -7694,7 +7718,234 @@ def moe_serve(best: str) -> None:
 
 
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}}
-LAST_PHASE = 43                 # the closing lines; only a full run has it
+LAST_PHASE = 44                 # the closing lines; only a full run has it
+
+
+# -- phase 43: placement over 'model', tensor and expert parallelism -------
+
+# (a)-(c)'s steps: 3 f32 SGD steps of one global batch of 64 (the first
+# with rows masked), each world against one process fed the same batches
+P43_STEPS = 3
+# (name, ranks, arch, attention): each 2-rank world (data 1 x model 2)
+# beside its one-process reference
+P43_WORLDS = (("zero", 2, {}, "flash"), ("zero_one", 1, {}, "flash"),
+              ("ep", 2, {"moe_experts": MOE_EXPERTS}, "flash"),
+              ("ep_one", 1, {"moe_experts": MOE_EXPERTS}, "flash"),
+              ("tp", 2, {"tensor_parallel": True}, "full"),
+              ("tp_one", 1, {}, "full"))
+# The placed steps against one process's, each tensor relative to its
+# largest value: the same f32 math (ZeRO and EP gather exact copies;
+# TP sums two partial products in another order).
+TOL_P43 = 1e-5
+# (a) and (b) through the CLI: train, test -f and a 1-rank train -f
+P43_CLI = {"zero": [], "ep": ["--moe-experts", str(MOE_EXPERTS)]}
+P43_CARRIES = {"zero": "parameters placed",
+               "ep": "parameters placed and the experts"}
+
+
+def p43_expected_elements(state: dict, experts: bool) -> int:
+    """A rank's parameter elements at M = 2 by the JAX rule
+    (``parallel.leaf_spec`` on each tensor; a MoE vit's experts halved
+    under expert parallelism)."""
+    from distributedpytorch_tpu_torch.parallel import leaf_spec
+
+    n = 0
+    for name, t in state.items():
+        if "running_" in name:
+            continue
+        split = leaf_spec(tuple(t.shape), 2) is not None or (
+            experts and re.search(r"\.w_(up|down)$", name))
+        n += t.numel() // 2 if split else t.numel()
+    return n
+
+
+def placement_worlds() -> dict:
+    """(a)-(c) in process: the six worlds of P43_WORLDS at once on the card
+    (tests/_torch_ring_child.py vit, the placed ranks over gloo), each
+    placed world's gathered parameters after P43_STEPS steps against its
+    one-process run's, a rank's parameter and momentum elements against
+    the rule's count, and under TP each rank's peak of its last step
+    against one process's.  Returns the printed numbers."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+
+    rng = np.random.default_rng(SEED + 43)
+    steps = []
+    for i in range(P43_STEPS):
+        valid = np.ones(TRAIN_BATCH, bool)
+        if i == 0:
+            valid[TRAIN_BATCH // 2:TRAIN_BATCH - 1] = False
+        u = torch.from_numpy(rng.random((TRAIN_BATCH, 5), dtype=np.float32))
+        steps.append((rng.integers(0, 256, (TRAIN_BATCH, 28, 28),
+                                   dtype=np.uint8),
+                      rng.integers(0, 10, TRAIN_BATCH), valid,
+                      [t.numpy() for t in augment.affine_from_uniform(
+                          u, 28, 28)]))
+    got = run_worlds([
+        ring_world("vit", dict(arch=arch, attention=attention, seed=SEED,
+                               params=None, steps=steps, peak_memory=True),
+                   world, f"p43_{name}", "--model-parallel", str(world))
+        for name, world, arch, attention in P43_WORLDS])
+    worlds = {name: ranks for (name, *_), ranks in zip(P43_WORLDS, got)}
+    out = {}
+    for name in ("zero", "ep", "tp"):
+        ranks, one = worlds[name], worlds[name + "_one"][0]
+        same = all(torch.equal(v, ranks[0]["state"][k])
+                   for r in ranks for k, v in r["state"].items())
+        w = worst(ranks[0]["state"], one["state"])
+        abs_err = max(float((v.double() - one["state"][k].double()).abs()
+                            .max()) for k, v in ranks[0]["state"].items())
+        loss_err = max(abs(a[0] - b[0]) for a, b in
+                       zip(ranks[0]["metrics"], one["metrics"]))
+        out[name] = {"abs_err": abs_err, "rel_err": w[1],
+                     "loss_err": loss_err}
+        say(f"placement {name}: 2 ranks (gloo, data 1 x model 2) vs 1 "
+            f"process, {P43_STEPS} f32 SGD steps of the full-width vit on a "
+            f"global batch of {TRAIN_BATCH}: max abs err {abs_err:.3g}, "
+            f"worst tensor {w[0]} rel err {w[1]:.3g} (tol {TOL_P43:g}); loss "
+            f"err {loss_err:.3g}; ranks equal: {same}")
+        if not (same and math.isfinite(w[1]) and w[1] <= TOL_P43
+                and loss_err <= TOL_P43):
+            fail(f"placement {name}: the 2-rank steps disagree with one "
+                 f"process")
+    for name in ("zero", "ep"):
+        one = worlds[name + "_one"][0]
+        full = sum(t.numel() for k, t in one["state"].items()
+                   if "running_" not in k)
+        want = p43_expected_elements(one["state"], name == "ep")
+        held = [r["elements"] for r in worlds[name]]
+        out[name].update(full=full, per_rank=held[0][0])
+        say(f"placement {name}: a rank holds {held} (parameters, momentum) "
+            f"elements of {full} each replicated: {held[0][0] / full:.4f} "
+            f"of it; the JAX rule's count {want}")
+        if any(h != (want, want) for h in held) \
+                or one["elements"] != (full, full):
+            fail(f"placement {name}: a rank's elements {held} are not the "
+                 f"rule's {want}")
+    (peak1, held1) = worlds["tp_one"][0]["peak_memory"]
+    peaks = [r["peak_memory"] for r in worlds["tp"]]
+    out["tp"].update(peaks=peaks, one=(peak1, held1))
+    say(f"placement tp: the last step's torch.cuda.max_memory_allocated "
+        f"(bytes allocated before it) a rank {peaks} against one process's "
+        f"{peak1} ({held1}): {[round(p / peak1, 4) for p, _ in peaks]}; the "
+        f"step's own {[round((p - h) / (peak1 - held1), 4) for p, h in peaks]}"
+        f" of one process's")
+    if any(p >= peak1 for p, _ in peaks):
+        fail("placement tp: a rank's peak is not below one process's")
+    return out
+
+
+def placement_cli() -> dict:
+    """(a) and (b) through the CLI on phase 22's corpus: ``train
+    --attention flash --model-parallel 2 -e 1`` (and with ``--moe-experts
+    8``) under torchrun --nproc_per_node 2, bf16, K1-K3 on each rank by
+    phase 6's formula from its kernel_launches telemetry, all on the
+    tensor cores; then at once ``test -f`` of each best file on 2 ranks
+    (equal to an in-process eval) and a 1-process ``train -f`` resume of
+    it."""
+    write_zoo_data()
+    runs = [start_cli(["train", "--model", "vit", "--attention", "flash",
+                       "--model-parallel", "2", "-e", "1", "--telemetry",
+                       *extra], os.path.join(WORK, f"p43_{key}_rsl"),
+                      launcher=TORCHRUN2, data=ZOO_DATA)
+            for key, extra in P43_CLI.items()]
+    done = finish_all(runs)
+    n_train = int(ZOO_TRAIN_ROWS * 0.9)
+    want_steps = math.ceil(n_train / 2 / TRAIN_BATCH)
+    want_evals = math.ceil((ZOO_TRAIN_ROWS - n_train) / 2 / TRAIN_BATCH)
+    out, pending = {}, []
+    for (key, extra), (wall, log) in zip(P43_CLI.items(), done):
+        rsl = os.path.join(WORK, f"p43_{key}_rsl")
+        line = (f"mesh: data 1 x model 2, {P43_CARRIES[key]} over the model "
+                f"group on gloo")
+        if line not in log:
+            fail(f"placement {key}: the train did not log {line!r}")
+        _, steps, evals = parse_launches(log, "train")
+        want = {"flash_fwd": DEPTH * (steps + evals),
+                "flash_dq": DEPTH * steps, "flash_dkv": DEPTH * steps,
+                "conv_dw": 0}
+        ranks = []
+        for rank in (0, 1):
+            ev = [e["attrs"] for e in rank_events(rsl, rank,
+                                                  "kernel_launches")]
+            if len(ev) != 1:
+                fail(f"placement {key}: rank {rank} recorded {len(ev)} "
+                     f"worlds")
+            ranks.append((ev[0]["launches"], ev[0]["tensor_core"]))
+        say(f"placement {key}: train {' '.join(extra)} -e 1 on 2 ranks "
+            f"in {wall:.1f}s of process wall: {steps} steps and {evals} "
+            f"eval batches; launches by rank {[r[0] for r in ranks]}, on "
+            f"the tensor cores {[r[1] for r in ranks]}; formula {want}")
+        # every other kernel (K5, the ring's) 0
+        want_all = {k: want.get(k, 0) for k in ranks[0][0]}
+        if (steps, evals) != (want_steps, want_evals) or any(
+                got != want_all or {k: tc[k] for k in want} != want
+                for got, tc in ranks):
+            fail(f"placement {key}: launches {ranks} do not match the "
+                 f"formula {want} at {want_steps} steps / {want_evals} eval "
+                 f"batches, all on the tensor cores")
+        best = os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+        out[key] = {"steps": steps, "evals": evals, "launches": ranks[0][0]}
+        pending.append((key, extra, best, start_cli(
+            ["test", "-f", best, "--attention", "flash", "--model-parallel",
+             "2", *extra], os.path.join(WORK, f"p43_{key}_test"),
+            launcher=TORCHRUN2, data=ZOO_DATA), start_cli(
+            ["train", "-f", best, "--model", "vit", "--attention", "flash",
+             "-e", "2", *extra], os.path.join(WORK, f"p43_{key}_resume"),
+            data=ZOO_DATA)))
+    logs = finish_all([r for *_, t, res in pending for r in (t, res)])
+    for i, (key, extra, best, _, _) in enumerate(pending):
+        (_, test_log), (_, resume_log) = logs[2 * i], logs[2 * i + 1]
+        acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                            test_log).group(1)
+        t_launches, _, t_evals = parse_launches(test_log, "test")
+        acc_here, correct, n = eval_accuracy(
+            best, "vit", ZOO_DATA, moe_experts=MOE_EXPERTS if extra else 0)
+        r_launches, r_steps, r_evals = parse_launches(resume_log, "train")
+        loaded = "model loaded from" in resume_log
+        say(f"placement {key}: `test -f` on 2 ranks {acc_cli}% ({t_evals} "
+            f"eval batches, launches {t_launches}); in-process eval "
+            f"{acc_here}% ({correct}/{n}); 1-process `train -f` resumed: "
+            f"{loaded}, {r_steps} steps and {r_evals} eval batches, "
+            f"launches {r_launches}")
+        if acc_cli != acc_here or t_launches["flash_fwd"] != DEPTH * t_evals \
+                or t_launches["flash_dq"] or t_launches["flash_dkv"] \
+                or not loaded or r_steps != math.ceil(n_train / TRAIN_BATCH) \
+                or r_launches["flash_dq"] != DEPTH * r_steps:
+            fail(f"placement {key}: the test of the placed run's file or its "
+                 f"1-process resume disagrees")
+    return out
+
+
+def start_placement_phase() -> dict:
+    """Phase 43 on a thread of its own beside the other CLI phases (its
+    processes share the card; nothing of it is timed): its failure
+    (``fail``'s exit) is kept for ``finish_placement_phase``."""
+    pending = {"t0": time.perf_counter()}
+
+    def body():
+        try:
+            pending["worlds"] = placement_worlds()
+            pending["cli"] = placement_cli()
+            pending["ok"] = True
+        except BaseException as e:       # fail()'s SystemExit included
+            pending["error"] = e
+
+    pending["thread"] = threading.Thread(target=body, name="phase43",
+                                         daemon=True)
+    pending["thread"].start()
+    return pending
+
+
+def finish_placement_phase(pending: dict, card: str) -> None:
+    pending["thread"].join(900)
+    wall = time.perf_counter() - pending["t0"]
+    say(f"chip_smoke: placement ran {wall:.1f}s beside the other phases "
+        f"({card})")
+    if not pending.get("ok"):
+        fail(f"phase 43 did not pass: {pending.get('error')!r}")
 
 
 def parse_phases(argv) -> set:
@@ -7887,6 +8138,8 @@ def main(argv=None) -> int:
         jax_resume_runs = ahead(34, start_jax_resume)
         stream_runs = ahead(36, start_stream_cli)
         moe_run = ahead(42, start_moe_cli)
+        # 43's worlds and CLI runs on a thread of their own
+        placement_pending = start_placement_phase() if want(43) else None
         # 39's faulted, elastic and stalled worlds on a thread of its own
         elastic_pending = start_elastic_phase(card) if want(39) else None
         if want(25):
@@ -7943,6 +8196,8 @@ def main(argv=None) -> int:
             run(phase_observability_cli, obs_pending)
         if want(42):
             run(phase_moe_cli, moe_run)
+        if want(43):
+            finish_placement_phase(placement_pending, card)
         if want(39):
             finish_elastic_phase(elastic_pending)
         if want(40):

@@ -47,7 +47,13 @@ applied updates, and ``step``, the epoch, the best loss and the f16 loss
 scale are taken by the rules of the port's own files.
 Orbax checkpoint directories are not ported yet.  In a world of several
 ranks, rank 0 writes (the caller gates on ``runtime.is_main()``) and every
-rank reads.
+rank reads.  A model placed over a model group (``parallel.place``) is
+written whole: every rank gathers its slices first
+(``parallel.full_state``, a collective made before the gate; with
+``--ckpt-async`` on the caller's thread too) and the file is the one a
+replicated run writes; a placed model takes its slices of the full
+tensors it restores, so one file (the port's or the JAX package's, which
+writes full arrays) loads at any ``--model-parallel``.
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import faults, telemetry
+from . import faults, parallel, telemetry
 from .models.convert import (cnn_params_from_jax, optimizer_state_from_jax,
                              params_from_jax)
 from .precision import LossScaleState
@@ -267,11 +273,20 @@ def _payload(model_name: str, model: nn.Module, epoch: int,
              best_valid_loss: float,
              optimizer: Optional[torch.optim.Optimizer], step: int,
              updates: Optional[int],
-             loss_scale: Optional[LossScaleState]) -> dict:
-    """The file's five fields, every tensor copied to the CPU."""
-    state = {"params": _to_cpu(model.state_dict()),
-             "opt_state": (None if optimizer is None
-                           else _to_cpu(optimizer.state_dict())),
+             loss_scale: Optional[LossScaleState],
+             full: Optional[tuple] = None) -> dict:
+    """The file's five fields, every tensor copied to the CPU; ``full``:
+    the (params, optimizer state) of a placed model, gathered by every
+    rank (``parallel.full_state``), which a placed model needs."""
+    if full is None:
+        if parallel.placement_of(model) is not None:
+            raise ValueError("a placed model's checkpoint needs its state "
+                             "gathered first (parallel.full_state)")
+        full = (_to_cpu(model.state_dict()),
+                None if optimizer is None
+                else _to_cpu(optimizer.state_dict()))
+    state = {"params": full[0],
+             "opt_state": None if optimizer is None else full[1],
              "step": int(step),
              "updates": int(step if updates is None else updates),
              "loss_scale": (None if loss_scale is None
@@ -313,14 +328,15 @@ def save_checkpoint(path: str, model_name: str, model: nn.Module,
                     epoch: int, best_valid_loss: float,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     step: int = 0, updates: Optional[int] = None,
-                    loss_scale: Optional[LossScaleState] = None) -> None:
+                    loss_scale: Optional[LossScaleState] = None,
+                    full: Optional[tuple] = None) -> None:
     """Write the port's five-field file (format version 3) atomically and
     record its sha256 in the lineage ledger.  ``optimizer``, ``step``,
     ``updates`` (``step`` when None) and ``loss_scale`` are the trainer's;
     a file written without an optimizer serves and tests but cannot
-    resume training."""
+    resume training.  ``full``: a placed model's gathered state."""
     _write(path, _payload(model_name, model, epoch, best_valid_loss,
-                          optimizer, step, updates, loss_scale))
+                          optimizer, step, updates, loss_scale, full))
 
 
 _SAVER_SHUTDOWN = object()
@@ -429,8 +445,8 @@ def save_checkpoint_async(saver: AsyncSaver, path: str, model_name: str,
                           best_valid_loss: float,
                           optimizer: Optional[torch.optim.Optimizer] = None,
                           step: int = 0, updates: Optional[int] = None,
-                          loss_scale: Optional[LossScaleState] = None
-                          ) -> None:
+                          loss_scale: Optional[LossScaleState] = None,
+                          full: Optional[tuple] = None) -> None:
     """``save_checkpoint`` with only the snapshot on the caller's path:
     the state dicts copied to the CPU (a ``ckpt_save_blocking`` span),
     done before the next step's in-place update; the serialization, the
@@ -441,7 +457,7 @@ def save_checkpoint_async(saver: AsyncSaver, path: str, model_name: str,
     attrs = dict(fmt="torch", epoch=int(epoch), file=os.path.basename(path))
     with tel.span("ckpt_save_blocking", **attrs):
         payload = _payload(model_name, model, epoch, best_valid_loss,
-                           optimizer, step, updates, loss_scale)
+                           optimizer, step, updates, loss_scale, full)
 
     def write():
         with telemetry.get().span("ckpt_save_background", **attrs):
@@ -601,8 +617,12 @@ def _load_params(path: str, payload: dict, model: nn.Module) -> None:
             f"checkpoint at {path} holds {side(saved)}, the requested "
             f"model {side(wanted)} — load with a matching --moe-experts "
             f"(--moe-experts {saved})")
+    params = payload["state"]["params"]
+    placement = parallel.placement_of(model)
+    if placement is not None:
+        params = placement.local_state_dict(params)
     try:
-        model.load_state_dict(payload["state"]["params"], strict=True)
+        model.load_state_dict(params, strict=True)
     except RuntimeError as e:
         raise ValueError(f"{path}: params do not fit the model: {e}") from e
 
@@ -650,8 +670,13 @@ def load_checkpoint(path: str, model: nn.Module,
         _load_jax_optimizer(path, state["opt_state"], model, optimizer)
     elif restore_optimizer:
         capturable = [g.get("capturable") for g in optimizer.param_groups]
+        opt_state = state["opt_state"]
+        placement = parallel.placement_of(model)
         try:
-            optimizer.load_state_dict(state["opt_state"])
+            if placement is not None:
+                opt_state = placement.local_optimizer_state(
+                    parallel.optimizer_names(model, optimizer), opt_state)
+            optimizer.load_state_dict(opt_state)
         except (ValueError, KeyError) as e:
             raise ValueError(f"{path}: optimizer state does not fit the "
                              f"optimizer: {e}") from e
@@ -727,6 +752,7 @@ def _load_jax_optimizer(path: str, by_name: dict, model: nn.Module,
             f"{path}: optimizer state does not fit the optimizer: the file "
             f"trains {sorted(by_name)}, the run {trained} "
             f"(--feature-extract must match)")
+    placement = parallel.placement_of(model)
     for group in optimizer.param_groups:
         for p in group["params"]:
             st = {}
@@ -735,6 +761,8 @@ def _load_jax_optimizer(path: str, by_name: dict, model: nn.Module,
                     st[key] = t.to(p.device if group.get("capturable")
                                    else "cpu")
                 else:
+                    if placement is not None:
+                        t = placement.take(names[p], t)
                     st[key] = t.to(device=p.device, dtype=p.dtype)
             optimizer.state[p] = st
 

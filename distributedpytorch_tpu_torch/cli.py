@@ -87,15 +87,21 @@ Counterpart of ``distributedpytorch_tpu/cli.py``:
     (:1710-1790).
 
 Under ``--model-parallel M`` the world is the JAX (world / M, M) mesh
-(``runtime.Mesh``): a rank trains and evaluates its data shard's rows, the
-M ranks of a shard split the vit's tokens in the ring of ``--attention
-ring|ring_flash``, and the loss and metric sums count each shard once.
+(``runtime.Mesh``): a rank trains and evaluates its data shard's rows,
+the parameters and optimizer state are placed over the M ranks of a
+shard (``parallel.py``; ``Engine.init_state``, wherever the state is
+built, restored or rebuilt after an elastic reconfigure), which split
+the vit's tokens in the ring of ``--attention ring|ring_flash``, its
+heads under ``--tensor-parallel`` and a MoE vit's experts, and the loss
+and metric sums count each shard once.  Every rank gathers the full
+state before rank 0 writes a checkpoint, the same file a replicated run
+writes, and a rank takes its slices of any file it restores.
 
 The reference's log lines are kept word for word in RSL_PATH/test.log
 (the ``process:`` line adds the backend of a process group; a ``mesh:``
-line names the ring's transport).  ``train`` and ``test`` log the launches
-of kernels K1 (flash_fwd), K2 (flash_dq), K3 (flash_dkv) and K5 (conv_dw)
-on rank 0, and on a second line those of the ring's K4 (flash_fwd_pos),
+line names what the model group carries, and its transport).  ``train``
+and ``test`` log the launches of kernels K1 (flash_fwd), K2 (flash_dq),
+K3 (flash_dkv) and K5 (conv_dw) on rank 0, and on a second line those of the ring's K4 (flash_fwd_pos),
 K2p (flash_dq_pos) and K3p (flash_dkv_pos), then the same two lines of
 their launches on the tensor-core route; ``serve`` logs K1's, and how
 many of them took the tensor cores.  The device is ``cuda`` unless
@@ -119,8 +125,8 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from . import (costs, elastic, faults, flightrec, goodput, runtime,
-               telemetry, tracing, utils)
+from . import (costs, elastic, faults, flightrec, goodput, parallel,
+               runtime, telemetry, tracing, utils)
 from .config import OFFLINE_ACTIONS, RESIDENT_MAX_BYTES, \
     STREAM_DISPATCH_MESSAGE, Config, check_moe, check_ported, \
     config_from_argv
@@ -178,7 +184,8 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
     policy = cfg.precision_policy()
     model = get_model(model_name, dataset.nb_classes, policy,
                       attention=cfg.attention, device=device, mesh=mesh,
-                      remat=cfg.remat, moe_experts=cfg.moe_experts)
+                      remat=cfg.remat, moe_experts=cfg.moe_experts,
+                      tensor_parallel=cfg.tensor_parallel)
     class_weights = (dataset.class_weights()
                      if cfg.loss in ("weighted_cross_entropy", "focal_loss")
                      else None)
@@ -287,14 +294,22 @@ def _enter_world(cfg: Config) -> None:
 
 def _make_mesh(cfg: Config, device: torch.device) -> runtime.Mesh:
     """The world's (data, model) mesh, its ``mesh:`` line logged when it
-    has a model axis."""
+    has a model axis, naming what the model group carries."""
     mesh = runtime.make_mesh(cfg.model_parallel)
     if mesh.model_parallel > 1:
         staged = runtime.staged_through_host(mesh.model_group, device)
+        carries = ["parameters placed"]
+        if cfg.attention in ("ring", "ring_flash"):
+            carries.append("the ring")
+        if cfg.tensor_parallel:
+            carries.append("tensor parallelism")
+        if cfg.moe_experts:
+            carries.append("the experts")
         logging.info(
             f"mesh: data {mesh.data_parallel} x model {mesh.model_parallel}"
-            f", ring over the model group on {runtime.backend()}"
-            + (" (CUDA blocks staged through host memory)" if staged
+            f", {' and '.join(carries)} over the model group on "
+            f"{runtime.backend()}"
+            + (" (CUDA tensors staged through host memory)" if staged
                else ""))
     return mesh
 
@@ -453,12 +468,25 @@ def _rotate_ckpt(cfg: Config, saver, model_name: str, epoch: int) -> None:
         saver.submit(rotate)
 
 
+def _gather_state(state: TrainState) -> Optional[tuple]:
+    """Under a placement, the full parameters and optimizer state on the
+    CPU (``parallel.full_state``: a collective every rank makes before
+    rank 0 writes), else None."""
+    if parallel.placement_of(state.model) is None:
+        return None
+    with goodput.get().timed("ckpt_blocking"):
+        return parallel.full_state(state.model, state.optimizer)
+
+
 def _save_ckpt(saver, path: str, model_name: str, state: TrainState,
-               epoch: int, best_valid_loss: float) -> None:
+               epoch: int, best_valid_loss: float,
+               full: Optional[tuple] = None) -> None:
     """One checkpoint file of rank 0: written now, or with
-    ``--ckpt-async`` snapshotted now and written by ``saver``."""
+    ``--ckpt-async`` snapshotted now and written by ``saver``; ``full``:
+    the gathered state of a placed model (``_gather_state``)."""
     args = (path, model_name, state.model, epoch, best_valid_loss,
-            state.optimizer, state.step, state.updates, state.loss_scale)
+            state.optimizer, state.step, state.updates, state.loss_scale,
+            full)
     with goodput.get().timed("ckpt_blocking"):
         if saver is None:
             ckpt.save_checkpoint(*args)
@@ -606,6 +634,7 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
             _epoch_logs(epoch, improved, end - epoch_start, end, start_time,
                         train_loss, train_acc, valid_loss, valid_acc,
                         sps_chip, world)
+            full = _gather_state(state)
             if runtime.is_main():
                 _rotate_ckpt(cfg, saver, model_name, epoch)
                 paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
@@ -615,7 +644,7 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
                         cfg.rsl_path, cfg.dataset, model_name))
                 for path in paths:
                     _save_ckpt(saver, path, model_name, state, epoch,
-                               best_valid_loss)
+                               best_valid_loss, full)
             history.append({"epoch": epoch, "train_loss": train_loss,
                             "train_acc": train_acc, "valid_loss": valid_loss,
                             "valid_acc": valid_acc,
@@ -812,6 +841,7 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
                                 "valid_acc": valid_acc,
                                 "train_s": per_epoch_s})
             last = chunk[-1]
+            full = _gather_state(state)
             if runtime.is_main():
                 # the rolling files of this chunk's earlier epochs were
                 # never written; the previous chunk's goes
@@ -824,7 +854,7 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
                         cfg.rsl_path, cfg.dataset, model_name))
                 for path in paths:
                     _save_ckpt(saver, path, model_name, state, last,
-                               best_valid_loss)
+                               best_valid_loss, full)
             epoch = last + 1
         # broad on purpose: any failure of the chunk (a step, a checkpoint
         # write) reaches the same agreement on every rank
@@ -900,6 +930,7 @@ def _aot_warmup(cfg: Config, engine: Engine, state: TrainState,
                 costs.recording_kernels():
             warm = _build_engine(cfg, model_name, dataset,
                                  len(train_loader), device, mesh)
+            parallel.place(warm.model, mesh)
             warm.model.load_state_dict(state.model.state_dict())
             if cfg.feature_extract:
                 freeze_backbone(warm.model)
@@ -952,6 +983,8 @@ def run_train(cfg: Config) -> dict:
     """ref train() (classif.py:75-192) on the world of this process, with
     the JAX ``run_train``'s elastic loop (cli.py:601-918): one
     ``_train_world`` per world, a reconfigure between two."""
+    if not cfg.checkpoint_file:     # a resume's model: once the file's read
+        check_moe(cfg, cfg.model_name)
     device, tel, mesh, join_info = _start(cfg, "train")
     saver = None
     crashed = True

@@ -36,16 +36,21 @@ with the streaming loader's ``--prefetch``, ``--producer-threads`` and
 forward in the backward (``models/remat.py``).  ``test`` and ``serve``
 accept all five, as the JAX parser does, and nothing off the train step's
 gradient path reads ``--remat``.
-``--model-parallel M`` (M >= 2) runs only the ring of ``--attention ring``
-or ``ring_flash`` over the (world / M, M) mesh, with the parameters
-replicated on every rank: the JAX package's placement of parameters over
-'model' (a memory layout that changes no number) is not ported, so with
-any other attention it is refused.
+``--model-parallel M`` (M >= 2) lays the world out as the (world / M, M)
+mesh and places every model's parameters and optimizer state over its
+model group (``parallel.py``, the JAX ``_place_state``), under any
+attention; ``--attention ring|ring_flash`` rings over that group, and
+``--tensor-parallel`` (the vit with ``--attention full``) splits heads and
+the MLP hidden axis over it, Megatron style; ``train`` and ``test`` check
+both with the JAX messages (``check_model_axis``).
 ``train``, ``test`` and ``serve`` take ``--moe-experts E`` (the vit's
-MLPs as switch mixtures of E experts, replicated on every rank, with any
-attention, precision and train option); ``train`` checks it with the JAX
-``run_train``'s messages before the dataset load (``check_moe``), and
-``test`` and ``serve`` fail with the registry's.
+MLPs as switch mixtures of E experts, expert parallel over a model group
+of 2 ranks or more, with any attention, precision and train option);
+``train`` checks it with the JAX ``run_train``'s messages before the
+dataset load (``check_moe``), and ``test`` and ``serve`` fail with the
+registry's.  ``serve`` refuses ``--model-parallel`` and
+``--tensor-parallel`` with the JAX ``run_serve``'s message, and serves a
+file of any layout whole.
 ``train`` and ``test`` take the observability and compile-cache flags
 with the JAX spellings and defaults: the flight recorder is on
 (``--no-flightrec`` turns it off; ``--flightrec-ring``),
@@ -157,8 +162,11 @@ class Config:
     serve_max_requests: int = 0
     device: str = "cuda"
     model_parallel: int = 1
+    # Megatron tensor parallelism of the vit over the model group
+    tensor_parallel: bool = False
     # > 0: the vit's MLPs as switch mixtures of that many experts
-    # (models/moe.py), replicated on every rank (JAX config.py:198-201)
+    # (models/moe.py), expert parallel over a model group of 2 ranks or
+    # more (JAX config.py:198-201)
     moe_experts: int = 0
     grad_accum: int = 1
     ckpt_async: bool = False
@@ -251,22 +259,16 @@ def not_ported(cfg: Config) -> Optional[str]:
     """The first setting of ``cfg`` this slice does not support, spelled
     as on the command line, or None."""
     ring = cfg.attention in ("ring", "ring_flash")
-    checks = (
-        (ring and cfg.action == "serve" and cfg.model_name in (None, "vit"),
-         f"--attention {cfg.attention}"),
-        (cfg.model_parallel > 1 and not ring and cfg.action != "serve",
-         "--model-parallel (parameter sharding over 'model')"),
-    )
-    for refused, flag in checks:
-        if refused:
-            return flag
+    if ring and cfg.action == "serve" and cfg.model_name in (None, "vit"):
+        return f"--attention {cfg.attention}"
     return None
 
 
 def check_ported(cfg: Config) -> Config:
     """Raise ValueError("not ported yet: --X") for the first unsupported
     setting; return ``cfg`` otherwise."""
-    if cfg.action == "serve" and cfg.model_parallel > 1:
+    if cfg.action == "serve" and (cfg.model_parallel > 1
+                                  or cfg.tensor_parallel):
         # the JAX run_serve's refusal (cli.py:1499-1509)
         raise ValueError(
             "serve runs replica-local data-parallel inference; "
@@ -381,57 +383,82 @@ def check_pretrained(cfg: Config) -> None:
 
 
 def check_model_axis(cfg: Config) -> None:
-    """``--attention ring|ring_flash`` needs ``--model-parallel`` >= 2:
-    ``train`` fails with the JAX ``run_train`` message (cli.py:740-754),
-    before the dataset load; ``test`` with the JAX registry's, which is
-    where the JAX ``test`` fails."""
-    if cfg.action == "serve" or cfg.attention not in ("ring", "ring_flash") \
-            or cfg.model_parallel >= 2:
+    """``--attention ring|ring_flash`` and ``--tensor-parallel`` need
+    ``--model-parallel`` >= 2, and ``--tensor-parallel`` the vit with
+    ``--attention full``: ``train`` fails with the JAX ``run_train``
+    message (cli.py:735-755), before the dataset load; ``test`` with the
+    JAX registry's (``registry.py:208-212``, ``_require_model_axis``),
+    which is where the JAX ``test`` fails (the checkpoint's model is
+    checked when it is built)."""
+    ring = cfg.attention in ("ring", "ring_flash")
+    tp = cfg.tensor_parallel
+    if cfg.action == "serve" or not (ring or tp):
         return
     if cfg.action == "train":
-        raise ValueError(
-            "--attention ring/flash/ring_flash, --tensor-parallel and "
-            "--pipeline-parallel require --model vit, are mutually "
-            "exclusive (except --pipeline-parallel + --attention ring "
-            "with --seq-parallel >= 2), and (except single-chip flash) "
-            "need --model-parallel >= 2; "
-            f"got model={cfg.model_name!r}, "
-            f"model_parallel={cfg.model_parallel}, "
-            f"attention={cfg.attention!r}, "
-            "tensor_parallel=False, "
-            "pipeline_parallel=False")
-    from .models.registry import require_model_axis
+        if cfg.model_name != "vit" or (tp and cfg.attention != "full") \
+                or cfg.model_parallel < 2:
+            raise ValueError(
+                "--attention ring/flash/ring_flash, --tensor-parallel and "
+                "--pipeline-parallel require --model vit, are mutually "
+                "exclusive (except --pipeline-parallel + --attention ring "
+                "with --seq-parallel >= 2), and (except single-chip flash) "
+                "need --model-parallel >= 2; "
+                f"got model={cfg.model_name!r}, "
+                f"model_parallel={cfg.model_parallel}, "
+                f"attention={cfg.attention!r}, "
+                f"tensor_parallel={tp}, "
+                "pipeline_parallel=False")
+        return
+    from .models.registry import check_tensor_parallel, require_model_axis
 
-    require_model_axis(None, f"--attention {cfg.attention} (token axis)")
+    if tp and cfg.attention != "full":
+        check_tensor_parallel("vit", cfg.attention, None)
+    if cfg.model_parallel < 2:
+        require_model_axis(None, "--tensor-parallel (head/hidden axes)" if tp
+                           else f"--attention {cfg.attention} (token axis)")
 
 
 def _model_parallel_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model-parallel", type=int, default=1,
                    dest="model_parallel", metavar="N",
-                   help="the N-way 'model' mesh axis of --attention ring "
-                        "and ring_flash (must divide the world; default 1; "
-                        "parameters stay replicated)")
+                   help="the N-way 'model' mesh axis (must divide the "
+                        "world; default 1): parameters and optimizer state "
+                        "placed over it, and the axis of --attention ring "
+                        "and ring_flash, --tensor-parallel and expert "
+                        "parallelism")
+
+
+def _tensor_parallel_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--tensor-parallel", action="store_true",
+                   dest="tensor_parallel",
+                   help="Megatron-style tensor parallelism for --model "
+                        "vit: heads + MLP hidden sharded over the 'model' "
+                        "mesh axis with sharded activations (requires "
+                        "--model-parallel >= 2)")
 
 
 def _moe_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--moe-experts", type=int, default=0,
                    dest="moe_experts", metavar="E",
                    help="replace the vit MLPs with E-expert switch "
-                        "mixture-of-experts layers (the experts replicated "
-                        "on every rank; default 0 = dense MLPs)")
+                        "mixture-of-experts layers (expert-parallel "
+                        "over the 'model' axis when --model-parallel "
+                        ">= 2; default 0 = dense MLPs)")
 
 
 def check_moe(cfg: Config, model_name: str) -> None:
     """The JAX ``run_train``'s checks of ``--moe-experts`` (cli.py:768-783),
     word for word, against the model the run trains (the checkpoint's
-    under ``-f``), before the dataset load; ``--tensor-parallel`` and
-    ``--pipeline-parallel`` are refused before it as not ported."""
-    if cfg.moe_experts and (model_name != "vit" or cfg.moe_experts < 2):
+    under ``-f``), before the dataset load; ``--pipeline-parallel`` is
+    refused before it as not ported."""
+    if cfg.moe_experts and (model_name != "vit" or cfg.tensor_parallel
+                            or cfg.moe_experts < 2):
         raise ValueError(
             "--moe-experts needs --model vit, E >= 2, and is exclusive "
             "with --tensor-parallel/--pipeline-parallel; got "
             f"model={model_name!r}, moe_experts={cfg.moe_experts}, "
-            "tensor_parallel=False, pipeline_parallel=False")
+            f"tensor_parallel={cfg.tensor_parallel}, "
+            "pipeline_parallel=False")
     if (cfg.moe_experts and cfg.model_parallel >= 2
             and cfg.moe_experts % cfg.model_parallel):
         raise ValueError(
@@ -455,7 +482,6 @@ _INT = {"type": int}
 # is refused (``refused_flag``), never ignored.
 REFUSED_EVERYWHERE = (
     ("--scan-layers", _ON, False),
-    ("--tensor-parallel", _ON, False),
     ("--pipeline-parallel", _ON, False),
     ("--seq-parallel", _INT, 1),
     ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
@@ -762,6 +788,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
                         "PyTorch) or ring_flash (the CUDA kernels K4, K2p, "
                         "K3p) over --model-parallel ranks")
     _model_parallel_arg(p)
+    _tensor_parallel_arg(p)
     _moe_arg(p)
     _device_arg(p, action)
     _observability_args(p)
@@ -831,6 +858,7 @@ def build_parser() -> argparse.ArgumentParser:
     _pretrained_args(p)
     _data_remat_args(p)
     _model_parallel_arg(p)
+    _tensor_parallel_arg(p)
     _moe_arg(p)
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,

@@ -1,5 +1,5 @@
-"""Switch-style mixture-of-experts MLP (``--moe-experts E``), with the
-experts replicated on every rank.
+"""Switch-style mixture-of-experts MLP (``--moe-experts E``), expert
+parallel over a model group of 2 ranks or more.
 
 Counterpart of ``distributedpytorch_tpu/models/moe.py`` (``SwitchMLP``,
 ``GROUP_TOKENS``, ``_rows_per_group``), at JAX's rounding points and
@@ -42,6 +42,20 @@ A rank's tokens are laid out as the whole groups they touch, the other
 ranks' rows zero and never dispatched.  The forward makes no host sync
 and has no data-dependent shape, so a step captures as a CUDA Graph and
 counts its FLOPs on the meta device.
+
+Expert parallelism (JAX ``moe_constrain``, ``models/moe.py:145-167``):
+with a ``mesh`` of 2 model ranks or more, ``expert_parallel`` is set and
+the placement (``parallel.place`` through the vit's ``local_shards``)
+leaves rank m the experts [m*E/M, (m+1)*E/M) of ``w_up`` and ``w_down``;
+the router and the biases are placed by the ZeRO rule (whole, at the
+vit's widths).  The model ranks of a data shard hold the same tokens, so
+each computes the whole dispatch, takes its experts' slice of the
+expert batches (``parallel.split_to_model``: its backward all-gathers
+the slices' gradients) and of the biases, runs the two ``bmm`` on it,
+and all-gathers the outputs over the model group
+(``parallel.gather_from_model``: its backward keeps the rank's slice of
+the gradient, the same on every rank).  A module whose ``w_up`` holds
+every expert runs them all.
 """
 
 from __future__ import annotations
@@ -54,7 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import runtime
+from .. import parallel, runtime
 from ..utils import largest_divisor_leq
 
 # Target tokens a dispatch group (JAX GROUP_TOKENS): capacity, and so the
@@ -105,6 +119,7 @@ class SwitchMLP(nn.Module):
         self.num_experts = num_experts
         self.capacity_factor = capacity_factor
         self.mesh = mesh
+        self.expert_parallel = mesh is not None and mesh.model_parallel >= 2
         e = num_experts
         self.router = nn.Linear(dim, e, device=device)
         self.w_up = nn.Parameter(torch.zeros(e, dim, hidden, device=device))
@@ -197,10 +212,18 @@ class SwitchMLP(nn.Module):
                               grouped(tokens.view(b, s, d)))
         expert_in = (expert_in.view(parts, e, cap, d).transpose(0, 1)
                      .reshape(e, parts * cap, d))
+        b_up, b_down = self.b_up, self.b_down
+        split = self.w_up.shape[0] != e     # this rank's experts only
+        if split:
+            expert_in, b_up, b_down = (
+                parallel.split_to_model(self.mesh, t, 0)
+                for t in (expert_in, b_up, b_down))
         h = torch.bmm(expert_in, self.w_up.to(cdt))
-        h = F.gelu(h + self.b_up.to(cdt)[:, None, :], approximate="tanh")
+        h = F.gelu(h + b_up.to(cdt)[:, None, :], approximate="tanh")
         out = (torch.bmm(h, self.w_down.to(cdt))
-               + self.b_down.to(cdt)[:, None, :])
+               + b_down.to(cdt)[:, None, :])
+        if split:
+            out = parallel.gather_from_model(self.mesh, out, 0)
         out = (out.view(e, parts, cap, d).transpose(0, 1)
                .reshape(parts, e * cap, d))
         # combine: (G, N, E*C) x (G, E*C, D); a dropped token's row is 0

@@ -9,11 +9,14 @@ for the nine models: ``cnn``, ``mlp``, the torchvision zoo (``resnet``
 (inception_v3)) and ``vit`` with ``attention`` in {full, flash, ring,
 ring_flash} (the rings over the model group of a ``runtime.Mesh``), and
 the API-only ``pallas_dw`` knob of ``cnn`` (kernel K5; no CLI flag, as in
-the JAX package), and ``moe_experts`` (``--moe-experts``: the vit's MLPs
-as switch mixtures of experts, ``models/moe.py``, replicated on every
-rank; the data group of ``mesh`` holds the global batch its dispatch
-groups are cut from).  The validation errors are the JAX registry's, word
-for word.  ``remat="blocks"`` builds vit, densenet and inception with
+the JAX package), ``moe_experts`` (``--moe-experts``: the vit's MLPs
+as switch mixtures of experts, ``models/moe.py``, expert parallel over
+the model group of ``mesh`` when it has 2 ranks or more; its data group
+holds the global batch the dispatch groups are cut from) and
+``tensor_parallel`` (``--tensor-parallel``: the vit's Megatron tensor
+parallelism over the model group, ``models/vit.py``, with ``--attention
+full`` only).  The validation errors are the JAX registry's, word for
+word.  ``remat="blocks"`` builds vit, densenet and inception with
 ``remat_blocks`` (each block checkpointed, ``models/remat.py``; the
 parameter names do not change); the engine checkpoints the other models'
 whole forward, and every model's under ``full``, as the JAX split of the
@@ -120,7 +123,8 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               attention: str = "full",
               device: torch.device | str = "cuda",
               pallas_dw: bool = False, mesh=None,
-              remat: str = "none", moe_experts: int = 0) -> nn.Module:
+              remat: str = "none", moe_experts: int = 0,
+              tensor_parallel: bool = False) -> nn.Module:
     """The registry's full-width model, on ``device``, its parameters
     stored in the policy's ``param_dtype`` (bfloat16 under ``bf16_full``,
     f32 otherwise; BatchNorm's running statistics are buffers and stay
@@ -128,14 +132,15 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
     ``init_weights``, which rounds flax's f32 draws to it).
     ``pallas_dw=True`` gives the cnn whose 3x3 convs with 32+ input
     channels take their weight gradient from kernel K5.  ``mesh`` (a
-    ``runtime.Mesh``) is the one of ``--attention ring|ring_flash`` and of
-    a MoE vit's global batch; the parameters stay replicated on every
-    rank.  ``remat="blocks"`` on a
+    ``runtime.Mesh``) is the one of ``--attention ring|ring_flash``, of
+    ``tensor_parallel`` and of a MoE vit's global batch and experts; the
+    parameters are whole until ``parallel.place`` splits them (the
+    engine's ``init_state``).  ``remat="blocks"`` on a
     model of REMAT_BLOCK_MODELS checkpoints its blocks."""
     if remat not in ("none", "blocks", "full"):
         raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
     model = _build(name, num_classes, precision, attention, device,
-                   pallas_dw, mesh, moe_experts)
+                   pallas_dw, mesh, moe_experts, tensor_parallel)
     if name in REMAT_BLOCK_MODELS:
         model.remat_blocks = remat == "blocks"
     return store_params(model, precision.param_dtype)
@@ -152,10 +157,11 @@ def store_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def check_moe(name: str, moe_experts: int) -> None:
+def check_moe(name: str, moe_experts: int,
+              tensor_parallel: bool = False) -> None:
     """The JAX registry's refusals of ``--moe-experts``
-    (``registry.py:156-172``; ``--tensor-parallel`` and
-    ``--pipeline-parallel``, which it is exclusive with, are not ported)."""
+    (``registry.py:156-172``; ``--pipeline-parallel``, which it is
+    exclusive with too, is not ported)."""
     if not moe_experts:
         return
     if name != "vit":
@@ -165,12 +171,33 @@ def check_moe(name: str, moe_experts: int) -> None:
             "replace")
     if moe_experts < 2:
         raise ValueError(f"--moe-experts must be >= 2, got {moe_experts}")
+    if tensor_parallel:
+        raise ValueError(
+            "--moe-experts is exclusive with --tensor-parallel "
+            "(both shard the MLP over 'model') and "
+            "--pipeline-parallel (the pipelined vit hand-rolls "
+            "dense blocks); it composes with --attention "
+            "full/ring/flash")
+
+
+def check_tensor_parallel(name: str, attention: str, mesh) -> None:
+    """The JAX registry's refusals of ``--tensor-parallel``
+    (``registry.py:200-212``, ``_require_model_axis`` at :69-76)."""
+    if name != "vit":
+        raise ValueError(
+            "--tensor-parallel applies to the attention model family "
+            f"only (--model vit); {name!r} has no attention")
+    if attention != "full":
+        raise ValueError(
+            "--tensor-parallel composes only with --attention full "
+            "(ring shards the same 'model' axis; the flash Pallas "
+            "kernel is not GSPMD-partitionable over heads) — pick one")
+    require_model_axis(mesh, "--tensor-parallel (head/hidden axes)")
 
 
 def check_moe_model_axis(moe_experts: int, mesh) -> None:
     """JAX's expert-parallel divisibility (``registry.py:247-259``): with a
-    model axis of 2 ranks or more, E must divide by it, although the port
-    replicates the experts."""
+    model axis of 2 ranks or more, each rank holds E/M experts."""
     if moe_experts and mesh is not None and mesh.model_parallel >= 2 \
             and moe_experts % mesh.model_parallel:
         raise ValueError(
@@ -181,7 +208,8 @@ def check_moe_model_axis(moe_experts: int, mesh) -> None:
 
 def _build(name: str, num_classes: int, precision: PrecisionPolicy,
            attention: str, device, pallas_dw: bool, mesh,
-           moe_experts: int = 0) -> nn.Module:
+           moe_experts: int = 0, tensor_parallel: bool = False
+           ) -> nn.Module:
     """The module of ``get_model``, its parameters in f32."""
     _check_name(name)
     dtype = precision.compute_dtype
@@ -190,20 +218,24 @@ def _build(name: str, num_classes: int, precision: PrecisionPolicy,
             raise ValueError(
                 "pallas_dw applies to the cnn model only (the "
                 "patch-reuse conv-dW kernel covers its 3x3/SAME convs)")
-        if moe_experts or attention != "full":
+        if moe_experts or attention != "full" or tensor_parallel:
             raise ValueError(
                 "pallas_dw is exclusive with the vit-family features; got "
                 f"moe_experts={moe_experts}, attention={attention!r}, "
-                "tensor_parallel=False, pipeline_parallel=False")
-    check_moe(name, moe_experts)
+                f"tensor_parallel={tensor_parallel}, "
+                "pipeline_parallel=False")
+    check_moe(name, moe_experts, tensor_parallel)
     check_attention(name, attention)
+    if tensor_parallel:
+        check_tensor_parallel(name, attention, mesh)
     if name == "vit":
         from .vit import ViT
 
         attn = attention_fn(attention, mesh)
         check_moe_model_axis(moe_experts, mesh)
         return ViT(num_classes=num_classes, dtype=dtype, attention_fn=attn,
-                   moe_experts=moe_experts, moe_mesh=mesh, device=device)
+                   moe_experts=moe_experts, moe_mesh=mesh,
+                   tp_mesh=mesh if tensor_parallel else None, device=device)
     if pallas_dw:
         return SmallCNN(num_classes=num_classes, dtype=dtype,
                         pallas_dw=True, device=device)

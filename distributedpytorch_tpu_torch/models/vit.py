@@ -27,6 +27,21 @@ Such a block returns its load-balance loss beside its output, and the
 train-mode forward returns ``{"logits": ..., "sown": the blocks' losses
 summed}``, what JAX's ``mutable=["losses"]`` collects; the eval forward
 returns the logits alone.
+
+``tp_mesh`` (``--tensor-parallel``; JAX ``tp_constrain`` at :57-99) is
+Megatron tensor parallelism over its model group: ``local_shards`` gives
+rank m heads [m*H/M, (m+1)*H/M) -- its rows of each of q, k and v in
+``qkv`` (weight and bias) and its rows of ``mlp_up`` -- and the matching
+input columns of ``proj`` and ``mlp_down``, whose biases stay whole.  A
+block's two column-parallel inputs are ``parallel.copy_to_model``
+(identity forward, the gradient summed over the group) and its two
+row-parallel outputs ``parallel.reduce_from_model`` (the partial
+products summed in f32, identity backward), the bias added after the
+sum: one all-reduce per residual sum, as GSPMD places it under JAX's
+constraints.  A block holding the whole qkv (not yet placed) runs
+unsplit.  A MoE vit with a model axis of 2 ranks or more is expert
+parallel (``models/moe.py``), its experts' weights split by
+``local_shards`` too.
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops.attention import full_attention
 from . import remat
 from .layers import dense as _dense
@@ -68,11 +84,12 @@ class LayerNorm(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: int,
                  attention_fn: AttentionFn, moe_experts: int = 0,
-                 moe_mesh=None, device=None):
+                 moe_mesh=None, tp_mesh=None, device=None):
         super().__init__()
         self.dim = dim
         self.heads = heads
         self.attention_fn = attention_fn
+        self.tp_mesh = tp_mesh
         self.ln1 = LayerNorm(dim, device=device)
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
@@ -89,18 +106,35 @@ class TransformerBlock(nn.Module):
         loss share in train mode, else None)."""
         b, s, _ = x.shape
         head_dim = self.dim // self.heads
-        qkv = _dense(self.qkv, self.ln1(x))
+        # this rank's width of q, k and v: dim, or dim / M under TP
+        local = self.qkv.weight.shape[0] // 3
+        tp = self.tp_mesh if local != self.dim else None
+        qkv = _dense(self.qkv, self._column_in(tp, self.ln1(x)))
         # views into qkv: the flash kernel reads these strides directly
-        q, k, v = (t.reshape(b, s, self.heads, head_dim)
-                   for t in qkv.split(self.dim, dim=-1))
-        attn = self.attention_fn(q, k, v).reshape(b, s, self.dim)
-        x = x + _dense(self.proj, attn)
+        q, k, v = (t.reshape(b, s, local // head_dim, head_dim)
+                   for t in qkv.split(local, dim=-1))
+        attn = self.attention_fn(q, k, v).reshape(b, s, local)
+        x = x + self._row_out(tp, self.proj, attn)
         if hasattr(self, "moe"):
             h, aux = self.moe(self.ln2(x))
             return x + h, aux
-        h = _dense(self.mlp_up, self.ln2(x))
-        h = _dense(self.mlp_down, F.gelu(h, approximate="tanh"))
+        h = _dense(self.mlp_up, self._column_in(tp, self.ln2(x)))
+        h = self._row_out(tp, self.mlp_down, F.gelu(h, approximate="tanh"))
         return x + h
+
+    @staticmethod
+    def _column_in(tp, h: torch.Tensor) -> torch.Tensor:
+        return h if tp is None else parallel.copy_to_model(tp, h)
+
+    @staticmethod
+    def _row_out(tp, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+        """flax ``Dense`` of a row-parallel layer: the partial products
+        summed over the model group, then the bias."""
+        if tp is None:
+            return _dense(layer, h)
+        y = parallel.reduce_from_model(tp, F.linear(h, layer.weight.to(
+            h.dtype)))
+        return y + layer.bias.to(h.dtype)
 
 
 class ViT(nn.Module):
@@ -112,10 +146,16 @@ class ViT(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attention_fn: Optional[AttentionFn] = None,
                  input_size: int = 28, moe_experts: int = 0, moe_mesh=None,
-                 device=None):
+                 tp_mesh=None, device=None):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
+        if tp_mesh is not None and heads % tp_mesh.model_parallel:
+            raise ValueError(
+                f"--tensor-parallel splits the {heads} heads over the "
+                f"{tp_mesh.model_parallel} ranks of the model group: they "
+                f"must divide by it")
+        self.tp_mesh = tp_mesh
         self.patch = patch
         self.dtype = dtype
         self.remat_blocks = False
@@ -129,7 +169,7 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, heads, mlp_ratio, attn,
                              moe_experts=moe_experts, moe_mesh=moe_mesh,
-                             device=device)
+                             tp_mesh=tp_mesh, device=device)
             for _ in range(depth))
         self.norm = LayerNorm(dim, device=device)
         self.head = nn.Linear(dim, num_classes, device=device)
@@ -152,6 +192,25 @@ class ViT(nn.Module):
             nn.init.normal_(pos, std=0.02, generator=generator)
             self.pos_embed.copy_(pos)
         return self
+
+    def local_shards(self) -> dict:
+        """{parameter name: ``parallel.Shard``} of what the blocks compute
+        on as a rank's slice (see the module docstring); the placement
+        splits every other parameter by the ZeRO rule."""
+        out = {}
+        col, row = parallel.Shard(0, False), parallel.Shard(1, False)
+        for i, blk in enumerate(self.blocks):
+            pre = f"blocks.{i}."
+            if self.tp_mesh is not None:
+                qkv = parallel.Shard(0, False, groups=3)
+                out.update({pre + "qkv.weight": qkv, pre + "qkv.bias": qkv,
+                            pre + "mlp_up.weight": col,
+                            pre + "mlp_up.bias": col,
+                            pre + "proj.weight": row,
+                            pre + "mlp_down.weight": row})
+            if hasattr(blk, "moe") and blk.moe.expert_parallel:
+                out.update({pre + "moe.w_up": col, pre + "moe.w_down": col})
+        return out
 
     def forward(self, x: torch.Tensor):
         """f32 logits; in train mode a MoE vit's ``{"logits", "sown"}``

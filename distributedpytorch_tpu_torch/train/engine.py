@@ -23,9 +23,16 @@ group first (with the metric sums, one collective: every data shard
 counted once) and back-propagates its shard's numerator sum times
 data_parallel / global denominator.  Each rank's gradient is then its
 shard's share of the global mean's gradient times data_parallel, the same
-on the M ranks of a shard, and DDP's mean over all W = data_parallel * M
-ranks is exactly the gradient of the global mean, whatever the number of
-valid rows in each shard.  The affine augmentation of a step is drawn for
+on the M ranks of a shard, and DDP's mean over the data group is exactly
+the gradient of the global mean, whatever the number of valid rows in
+each shard.  Under a model axis (M >= 2) the parameters are placed over
+the model group (``parallel.place``, the JAX ``_place_state``): a rank
+holds its slice of each sharded tensor, the optimizer steps on the
+slices, and a rank's gradient of a slice is its share of the full
+gradient, which the M ranks of a shard compute alike; so the slices and
+the whole tensors alike are reduced over the data group only, never
+summed over the model group (DDP over the data group, none when it has
+one rank).  The affine augmentation of a step is drawn for
 the whole rank-major global batch from the step's generator, which is
 seeded alike on every rank, and data shard d keeps rows [d*b, (d+1)*b) of
 its b rows, as one JAX key augments the global batch (:237-251).  The
@@ -72,9 +79,11 @@ carries a ``LossScaleState`` (``_grads_and_metrics`` / ``_finish_step``,
 :262-331): the backward runs on loss x scale, the gradients (after DDP's
 reduction, so every rank decides alike) are divided by the scale and cast
 to the parameter dtype, and a step whose gradients are not all finite is
-skipped: the optimizer's step runs, and ``torch.where`` puts back the
-parameters and the whole optimizer state (Adam's own step count included)
-from a copy taken before it, bit for bit; the applied-update count that
+skipped (under a model axis a rank checks its slices and the model group
+sums the findings, so every rank reaches one verdict): the optimizer's
+step runs, and ``torch.where`` puts back the parameters and the whole
+optimizer state (Adam's own step count included) from a copy taken
+before it, bit for bit; the applied-update count that
 sets the learning rate does not move, and BatchNorm's running statistics,
 which the forward moved in place, are put back the same way.
 ``state.step`` advances either way and the scale halves; a finite step
@@ -88,9 +97,9 @@ microbatch, the running statistics chained from one microbatch to the
 next) and backward of its numerator sum (x the loss scale), outside DDP's
 reduction; its gradients are added, in the accumulation dtype (f32), to
 one flat buffer, whatever the parameter dtype.  After the K microbatches
-the buffer is summed over the ranks once, and divided once by the global
-denominator (x the scale, x the model-parallel copies of each shard):
-the exact gradient of the global masked mean.  The dropout keep masks are
+the buffer is summed over the data group once, and divided once by the
+global denominator (x the scale): the exact gradient of the global masked
+mean.  The dropout keep masks are
 drawn per microbatch for the global microbatch's rows; inception adds 0.4
 x its aux numerator; ``correct`` counts the primary logits; a sown loss
 is added to each microbatch's numerator times the global microbatch's
@@ -116,7 +125,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import runtime
+from .. import parallel, runtime
 from ..data import augment
 from ..models import remat as remat_mod
 from ..models.layers import dropout_layers, set_dropout_masks
@@ -281,22 +290,27 @@ class Engine:
                    = None) -> TrainState:
         """Random weights from ``generator`` (flax's initializers), then
         ``load_weights(model)`` if given (``--use-pretrained``'s
-        backbone), the backbone frozen under ``feature_extract``, a fresh
-        optimizer, and in a process group the DDP wrapper (which
-        broadcasts rank 0's parameters; BatchNorm's buffers are alike on
-        every rank, since their statistics are global, and are not
-        broadcast)."""
+        backbone), the backbone frozen under ``feature_extract``, under
+        a model axis the parameters placed over the model group
+        (``parallel.place``), a fresh optimizer over the rank's tensors,
+        and the DDP wrapper over the data group when it has several
+        ranks (which broadcasts its first rank's parameters; BatchNorm's
+        buffers are alike on every rank, since their statistics are
+        global, and are not broadcast)."""
         self.model.init_weights(generator)
         if load_weights is not None:
             load_weights(self.model)
         if self.feature_extract:
             freeze_backbone(self.model)
+        parallel.place(self.model, self.mesh)
         ddp = None
-        if runtime.distributed():
+        if runtime.distributed() and (self.mesh.model_parallel == 1
+                                      or self.mesh.data_parallel > 1):
             from torch.nn.parallel import DistributedDataParallel
 
             ddp = DistributedDataParallel(
                 self.model, broadcast_buffers=False,
+                process_group=self.mesh.data_group,
                 device_ids=([self.device] if self.device.type == "cuda"
                             else None))
         return TrainState(self.model, make_optimizer(
@@ -397,6 +411,7 @@ class Engine:
                 # the data shards' shares sum to the global batch's loss
                 target = target + sown * self.mesh.data_parallel
             (target if scale is None else target * scale).backward()
+        parallel.release(model)
         # _accumulate divides by the scale itself, in its one divide
         unscale = None if self.grad_accum > 1 else scale
         finite = self.apply_gradients(state, unscale)
@@ -453,11 +468,12 @@ class Engine:
                     dropout_masks, scale: Optional[torch.Tensor]
                     ) -> torch.Tensor:
         """``grad_accum`` K microbatches (see the module docstring): each
-        one's gradients of numerator x scale summed into one f32 buffer,
-        the buffer summed over the ranks and divided by the global
-        denominator x scale x model_parallel, then set as the parameters'
-        gradients in their dtype.  Returns the global sums of numerator,
-        denominator, correct and valid rows."""
+        one's gradients of numerator x scale summed into one f32 buffer
+        (of the rank's slices under a model axis), the buffer summed over
+        the data group and divided by the global denominator x scale,
+        then set as the parameters' gradients in their dtype.  Returns
+        the global sums of numerator, denominator, correct and valid
+        rows."""
         k = self.grad_accum
         b = imgs.shape[0]
         if b % k:
@@ -485,11 +501,11 @@ class Engine:
                     p.grad = None
                 at += n
             sums = local if sums is None else sums + local
+        parallel.release(state.model)
         sums = runtime.all_reduce_sum(sums, self.mesh.data_group)
-        runtime.all_reduce_sum(acc)
+        runtime.all_reduce_sum(acc, self.mesh.data_group)
         acc /= (torch.clamp_min(sums[1], 1e-9)
-                * (1.0 if scale is None else scale)
-                * self.mesh.model_parallel)
+                * (1.0 if scale is None else scale))
         at = 0
         for p in params:
             n = p.numel()
@@ -517,14 +533,18 @@ class Engine:
             if state.loss_scale is not None:
                 # unscaled and checked in one pass: the scale is a power of
                 # two, so g * (1 / scale) is g / scale exactly.  The
-                # decision is the same on every rank, whose gradients DDP
-                # (or _accumulate) reduced alike, data and model groups
+                # decision is the same on every rank: DDP (or _accumulate)
+                # reduced the gradients over the data group, and the model
+                # group sums its ranks' findings
                 found = torch.zeros(1, device=state.step.device)
                 inv = (torch.ones_like(found) if scale is None
                        else torch.reciprocal(scale.float()).reshape(1))
                 torch._amp_foreach_non_finite_check_and_unscale_(
                     [p.grad for p in params if p.grad is not None], found,
                     inv)
+                if self.mesh.model_parallel > 1:
+                    # each rank checked its own slices: one verdict
+                    runtime.all_reduce_sum(found, self.mesh.model_group)
                 finite = (found == 0).reshape(())
                 state.loss_scale.assign(state.loss_scale.adjust(
                     finite, self.precision.loss_scale_growth))

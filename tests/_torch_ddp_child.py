@@ -6,6 +6,7 @@ the world of one:
 
     python tests/_torch_ddp_child.py MODEL OUT.pt [--device cpu|cuda]
         [--global-batch N] [--precision f32|f64] [--grad-accum K]
+        [--model-parallel M]
 
 MODEL is ``cnn`` (with K5), ``mlp``, ``resnet_small`` (two stages of
 width 8 at 32), ``resnet_shallow`` (resnet18's widths, one block a
@@ -20,7 +21,9 @@ rank.  In f64
 (f64 compute, f32 parameters) every step runs on the identity affine.
 With ``--grad-accum K`` each step accumulates K microbatches, and the
 injected dropout masks are drawn per microbatch for the global
-microbatch's rows.
+microbatch's rows.  With ``--model-parallel M`` the world is the
+(world / M, M) mesh: a rank keeps its data shard's rows, its state is
+placed over the model group, and it writes the gathered state.
 The rank writes its parameters, BatchNorm buffers, the steps' metrics and
 its K5 launches to OUT.pt.  ``tests/test_torch_ddp.py`` runs it on the CPU
 and ``chip_smoke.py`` on the card (TF32 off).  Imports no JAX.
@@ -36,7 +39,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from distributedpytorch_tpu_torch import runtime  # noqa: E402
+from distributedpytorch_tpu_torch import parallel, runtime  # noqa: E402
 from distributedpytorch_tpu_torch.data import augment  # noqa: E402
 from distributedpytorch_tpu_torch.models import registry  # noqa: E402
 from distributedpytorch_tpu_torch.models.resnet import ResNet  # noqa: E402
@@ -78,6 +81,7 @@ def main() -> None:
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--precision", default="f32", choices=("f32", "f64"))
     p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1)
     args = p.parse_args()
     if args.device == "cpu":
         torch.set_num_threads(1)
@@ -88,15 +92,18 @@ def main() -> None:
     device = runtime.resolve_device(args.device)
     backend = runtime.initialize_distributed(device)
     world, rank = runtime.world_size(), runtime.process_index()
+    mesh = runtime.make_mesh(args.model_parallel)
+    d = mesh.data_index
     gb = args.global_batch
-    b = gb // world
-    rows = slice(rank * b, (rank + 1) * b)
+    b = gb // mesh.data_parallel
+    rows = slice(d * b, (d + 1) * b)
     valid0 = (np.arange(gb) < gb // 2) | (np.arange(gb) == gb - 1)
     policy = PRESETS["f32"] if args.precision == "f32" else F64
     model, size = build(args.model, policy, device)
     k = args.grad_accum
     engine = Engine(model, cross_entropy, 0.13, 0.31, size, policy, device,
-                    optimizer="SGD", steps_per_epoch=2, grad_accum=k)
+                    optimizer="SGD", steps_per_epoch=2, grad_accum=k,
+                    mesh=mesh)
     state = engine.init_state(torch.Generator().manual_seed(7))
     rng = np.random.default_rng(3)
     conv.conv3x3_dw.launches = 0
@@ -112,7 +119,7 @@ def main() -> None:
         if k == 1:
             masks = [mk[rows] for mk in engine.draw_dropout_masks(gen, gb)]
         else:   # one list a microbatch, this rank's rows of it
-            mb = slice(rank * b // k, (rank + 1) * b // k)
+            mb = slice(d * b // k, (d + 1) * b // k)
             masks = [[mk[mb] for mk in engine.draw_dropout_masks(gen,
                                                                  gb // k)]
                      for _ in range(k)]
@@ -128,8 +135,7 @@ def main() -> None:
             _, m = engine.train_step(state, *batch, gen)
         metrics.append([m["loss"].item(), m["correct"].item(),
                         m["valid"].item()])
-    torch.save({"state": {k: v.detach().cpu().clone() for k, v in
-                          model.state_dict().items()},
+    torch.save({"state": parallel.full_state(model)[0],
                 "metrics": metrics, "world": world, "rank": rank,
                 "ddp": state.ddp is not None, "backend": backend,
                 "k5": conv.conv3x3_dw.launches}, args.out)

@@ -22,13 +22,24 @@ and q/k/v gradients, as float32 numpy arrays, to OUT.pt.
 ``vit``: IN.pt holds the vit's width (``arch``: dim, depth, heads), its
 ``attention``, initial ``params`` (a state dict, or None for random
 weights from ``seed``) and the ``steps``, each the global batch's images,
-labels and valid rows with its affine draws (float32 numpy), and optionally ``remat`` (none, blocks or
-full: ``--remat``).  The rank
-keeps its data shard's rows (``runtime.Mesh``) and takes one SGD step per
-entry through ``Engine.train_step_affine`` (in ``precision``, f32 by
-default; with ``overflow`` = (step, rank), that rank's loss numerator of
-that step is multiplied by inf), then writes its parameters, the steps'
-metrics, its step and applied-update counts, its loss scale (or None)
+labels and valid rows with its affine draws (float32 numpy), and
+optionally ``remat`` (none, blocks or full: ``--remat``), ``optimizer``
+(SGD by default), ``resume`` (a checkpoint restored, optimizer state
+too, before the steps; its gathered state is written as ``resumed``),
+``ckpt`` (a file rank 0 writes after the steps, from the gathered state)
+and ``saved_bytes`` (the bytes the first step's forward saves for the
+backward, parameters left out) and, on the card, ``peak_memory`` (the
+last step's ``torch.cuda.max_memory_allocated`` and the bytes allocated
+before it).  An ``arch`` with ``tensor_parallel``
+builds the Megatron vit over the mesh's model group.  The rank keeps its
+data shard's rows (``runtime.Mesh``; under a model axis the parameters
+are placed over the model group, ``parallel.place``: the initial ones go
+in as the rank's slices, and the state written is the gathered whole)
+and takes one optimizer step per entry through
+``Engine.train_step_affine`` (in ``precision``, f32 by default; with
+``overflow`` = (step, rank), that rank's loss numerator of that step is
+multiplied by inf), then writes its parameters, the elements of
+parameters and optimizer state it holds, the steps' metrics, its step and applied-update counts, its loss scale (or None)
 and its kernel launches to OUT.pt.  An ``arch`` with ``moe_experts`` E
 builds the switch MoE vit over the world's mesh (``models/moe.py``: the
 data group's global batch), a ``grad_accum`` K accumulates K microbatches
@@ -70,7 +81,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from distributedpytorch_tpu_torch import runtime  # noqa: E402
+from distributedpytorch_tpu_torch import parallel, runtime  # noqa: E402
 from distributedpytorch_tpu_torch.cli import kernel_launches  # noqa: E402
 from distributedpytorch_tpu_torch.models.registry import (  # noqa: E402
     attention_fn)
@@ -151,23 +162,63 @@ def profile_steps(step, n: int) -> dict:
                      e.count // n) for e in top]}
 
 
+def saved_bytes(model, x) -> int:
+    """Bytes of the distinct tensors a train-mode forward of ``x`` saves
+    for its backward, the parameters (and their slices) left out."""
+    params = {p.data_ptr() for p in model.parameters()}
+    seen = {}
+
+    def pack(t):
+        if t.data_ptr() not in params:
+            seen[t.data_ptr()] = max(seen.get(t.data_ptr(), 0),
+                                     t.numel() * t.element_size())
+        return t
+
+    model.train()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        model(x)
+    parallel.release(model)
+    return sum(seen.values())
+
+
+def local_elements(model, optimizer) -> tuple:
+    """(parameter elements, optimizer-state elements) this rank holds."""
+    moments = sum(t.numel() for st in optimizer.state.values()
+                  for t in st.values()
+                  if isinstance(t, torch.Tensor) and t.dim())
+    return sum(p.numel() for p in model.parameters()), moments
+
+
 def run_vit(spec, device, mesh) -> dict:
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+
     policy = PRESETS[spec.get("precision", "f32")]
     arch = dict(spec["arch"])
     if arch.get("moe_experts"):
         arch["moe_mesh"] = mesh
+    if arch.pop("tensor_parallel", False):
+        arch["tp_mesh"] = mesh
     remat = spec.get("remat", "none")
     model = ViT(dtype=policy.compute_dtype, device=device, num_classes=10,
                 attention_fn=attention_fn(spec["attention"], mesh), **arch)
     model.remat_blocks = remat == "blocks"
     engine = Engine(model, cross_entropy, 0.13, 0.31, 28, policy, device,
-                    optimizer="SGD", steps_per_epoch=2, mesh=mesh,
+                    optimizer=spec.get("optimizer", "SGD"),
+                    steps_per_epoch=2, mesh=mesh,
                     remat=remat, grad_accum=spec.get("grad_accum", 1))
     state = engine.init_state(torch.Generator().manual_seed(spec["seed"]))
+    placement = parallel.placement_of(model)
     if spec["params"] is not None:
         with torch.no_grad():
             for name, p in model.named_parameters():
-                p.copy_(torch.as_tensor(spec["params"][name]))
+                full = torch.as_tensor(spec["params"][name])
+                p.copy_(full if placement is None
+                        else placement.take(name, full))
+    resumed = None
+    if spec.get("resume"):
+        ckpt.load_checkpoint(spec["resume"], model, state.optimizer,
+                             train_state=state)
+        resumed = parallel.full_state(model, state.optimizer)
     before = kernel_launches()
     metrics = []
     loss_fn = engine.loss_fn
@@ -177,6 +228,7 @@ def run_vit(spec, device, mesh) -> dict:
         numer, denom = loss_fn(logits, labels)
         return numer * float("inf"), denom
 
+    saved = peak_memory = None
     for i, (images, labels, valid, affine) in enumerate(spec["steps"]):
         engine.loss_fn = (blowup if overflow == (i, runtime.process_index())
                           else loss_fn)
@@ -187,11 +239,32 @@ def run_vit(spec, device, mesh) -> dict:
         batch[1] = batch[1].long()
         draws = tuple(torch.from_numpy(np.asarray(a[rows])).to(device)
                       for a in affine)
+        if spec.get("saved_bytes") and saved is None:
+            from distributedpytorch_tpu_torch.data import augment
+
+            saved = saved_bytes(model, augment.train_transform(
+                batch[0], 0.13, 0.31, 28, draws,
+                out_dtype=policy.compute_dtype))
+        peak = spec.get("peak_memory") and i == len(spec["steps"]) - 1
+        if peak:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         _, m = engine.train_step_affine(state, *batch, draws)
         metrics.append([m["loss"].item(), m["correct"].item(),
                         m["valid"].item()])
-    result = {"state": {k: v.detach().cpu().clone()
-                        for k, v in model.state_dict().items()},
+        if peak:
+            peak_memory = (torch.cuda.max_memory_allocated(), held)
+    params, opt_state = parallel.full_state(model, state.optimizer)
+    if spec.get("ckpt"):
+        if runtime.is_main():
+            ckpt.save_checkpoint(spec["ckpt"], "vit", model, 0, 1.0,
+                                 state.optimizer, state.step, state.updates,
+                                 state.loss_scale, (params, opt_state))
+        runtime.barrier()
+    result = {"state": params, "resumed": resumed, "saved_bytes": saved,
+              "peak_memory": peak_memory,
+              "elements": local_elements(model, state.optimizer),
               "metrics": metrics,
               "counters": (int(state.step), int(state.updates)),
               "loss_scale": (None if state.loss_scale is None

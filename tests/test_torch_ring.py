@@ -25,6 +25,7 @@ virtual CPU mesh.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -315,8 +316,18 @@ def test_ring_with_a_model_axis_parses(attention):
                                    ["--model", "vit", "--attention",
                                     "flash"]], ids=["cnn", "vit-flash"])
 def test_model_parallel_without_the_ring_is_not_ported(extra):
-    with pytest.raises(ValueError, match=r"^not ported yet: --model-parallel "
-                       r"\(parameter sharding over 'model'\)$"):
-        tconfig.config_from_argv(["train", "-d", "/d", "--model-parallel",
-                                  "2", *extra])
+    """Ported now (the name is kept from when it was refused): without a
+    ring, --model-parallel places the state over 'model' and parses; with
+    --tensor-parallel the cnn and the flash vit fail with the JAX
+    run_train's message (tests/test_torch_parallel.py runs both)."""
+    argv = ["train", "-d", "/d", "--model-parallel", "2", *extra]
+    cfg = tconfig.config_from_argv(argv)
+    assert (cfg.model_parallel, cfg.tensor_parallel) == (2, False)
+    model, attention = ("cnn", "full") if extra[1] == "cnn" else \
+        ("vit", "flash")
+    with pytest.raises(ValueError, match=re.escape(
+            f"got model={model!r}, model_parallel=2, "
+            f"attention={attention!r}, tensor_parallel=True, "
+            f"pipeline_parallel=False")):
+        tconfig.config_from_argv(argv + ["--tensor-parallel"])
 

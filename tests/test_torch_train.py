@@ -649,10 +649,9 @@ REFUSED = [
 ]
 
 
-# Refusals whose message is not "not ported yet: FLAG": --model-parallel
-# with full attention names what is missing (the ring is ported), a ring
-# without --model-parallel >= 2 fails as the JAX package fails it (train:
-# run_train's check; test: the registry's), and --use-pretrained is ported
+# Refusals whose message is not "not ported yet: FLAG": a ring or
+# --tensor-parallel without --model-parallel >= 2 fails as the JAX
+# package fails it (train: run_train's check; test: the registry's), and --use-pretrained is ported
 # and refused as the JAX package refuses it (train: a vit has no
 # torchvision converter; test: its weights come from -f).  --grad-accum K
 # that does not divide the batch and --no-bf16 against another preset
@@ -662,7 +661,8 @@ REFUSED = [
 # --data-mode stream, --producer-threads, --device-prefetch, --remat and
 # the observability and compile-cache flags; test ignores --aot-warmup,
 # --profile and --metrics-port as the JAX test does; both take
-# --moe-experts, tests/test_torch_moe.py).
+# --moe-experts, tests/test_torch_moe.py; both take --model-parallel,
+# which places the state over 'model', tests/test_torch_parallel.py).
 REFUSED_MESSAGES = {
     "--grad-accum": {
         "train": re.escape(
@@ -698,9 +698,22 @@ REFUSED_MESSAGES = {
         "test": re.escape(
             "--use-pretrained is not applicable to the test subcommand: "
             "weights come from -f FILE")},
-    "--model-parallel": dict.fromkeys(("train", "test"), re.escape(
-        "not ported yet: --model-parallel (parameter sharding over "
-        "'model')")),
+    # ported: the state placed over 'model' (tests/test_torch_parallel.py)
+    "--model-parallel": dict.fromkeys(("train", "test"), None),
+    # ported, and refused without a model axis as the JAX package does
+    # (train: run_train's check; test: the registry's)
+    "--tensor-parallel": {
+        "train": re.escape(
+            "--attention ring/flash/ring_flash, --tensor-parallel and "
+            "--pipeline-parallel require --model vit, are mutually "
+            "exclusive (except --pipeline-parallel + --attention ring with "
+            "--seq-parallel >= 2), and (except single-chip flash) need "
+            "--model-parallel >= 2; got model='vit', model_parallel=1, "
+            "attention='full', tensor_parallel=True, "
+            "pipeline_parallel=False"),
+        "test": re.escape(
+            "--tensor-parallel (head/hidden axes) uses the mesh's 'model' "
+            "axis: pass --model-parallel >= 2 (and a mesh)")},
     "--attention ring": {
         "train": re.escape(
             "--attention ring/flash/ring_flash, --tensor-parallel and "
@@ -737,11 +750,12 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                        no_compile_cache=False, metrics_port=0,
                        flightrec=True, elastic=False, elastic_join=False,
                        health_timeout=0.0, max_reconfigures=3,
-                       fault_plan=None, moe_experts=0)
+                       fault_plan=None, moe_experts=0, model_parallel=1)
         changed = {"--grad-accum": {"grad_accum": 3},
                    "--ckpt-async": {"ckpt_async": True},
                    "--epochs-per-dispatch": {"epochs_per_dispatch": 2},
-                   "--precision f16": {"precision": "f16"},
+                   "--precision f16": {"precision": "f16",
+                                       "model_parallel": 2},
                    "--data-mode stream": {"data_mode": "stream"},
                    "--producer-threads": {"producer_threads": 2},
                    "--device-prefetch": {"device_prefetch": 1},
@@ -760,7 +774,8 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                    "--max-reconfigures": {"max_reconfigures": 1},
                    "--fault-plan": {
                        "fault_plan": "data.read:ioerror:0"},
-                   "--moe-experts": {"moe_experts": 4}}[flag]
+                   "--moe-experts": {"moe_experts": 4},
+                   "--model-parallel": {"model_parallel": 2}}[flag]
         assert {k: getattr(cfg, k) for k in default} == \
             {**default, **changed}
         return
