@@ -46,6 +46,11 @@ or placement over 'model', tensor and expert parallelism
 
     python3 chip_smoke.py --phases 43
 
+or the GPipe vit and its ring over 'seq' (``--pipeline-parallel``,
+``--seq-parallel``):
+
+    python3 chip_smoke.py --phases 44
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -457,7 +462,26 @@ result.  Phases, each printing its lines before the last:
      on the tensor cores, the ``mesh:`` line naming what the model group
      carries; at once ``test -f`` of the best file on 2 ranks equal to an
      in-process eval, and a 1-process ``train -f`` resume of it;
- 44. the card's name and power limit again, one ``{"kernels": [...]}``
+ 44. the GPipe vit (``--pipeline-parallel``) and its ring over 'seq'
+     (``--seq-parallel``), no kernel of the port on either, as in JAX:
+     (a) the full-width ``PipelinedViT`` on two ranks on the card over
+     gloo (data 1 x model 2) at M = 2 and M = 4 microbatches and (b) with
+     ``--attention ring --seq-parallel 2`` on four (1 x 2 x 2; 49 tokens
+     padded to 50), each a world of ``tests/_torch_pipeline_child.py``
+     taking 3 f32 SGD steps of a global batch of 64 against one process
+     running the blocks in order on the same batches and weights (max abs
+     and worst relative error printed, TOL_P44), every rank equal, a
+     rank's parameter and momentum elements held to the JAX rule's count
+     (``leaf_spec(prefer_axis0=True)``), K1-K5 and K4/K2p/K3p launched 0
+     times on every rank; a bf16 step's device time a rank beside the
+     dense vit's (printed, not a gate); (c) through the CLI on phase 22's
+     corpus: ``train --pipeline-parallel --model-parallel 2 -e 1`` in bf16
+     under torchrun (finite losses, the ``mesh:`` line, no launch), then
+     at once ``test -f`` of its best file in one process on a plain config
+     (stacked -> blocks at load) and on 2 ranks with the pipeline flags,
+     each equal to an in-process eval of the pipelined model.  It runs on
+     43's thread after it;
+ 45. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -471,8 +495,9 @@ phase
 30, 33, 34, 35, 36 and 42 start after 22 and run beside 25, 26 and 28 (18's
 and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
-35, 36 and 38's last checks, then 42's, 43's, 39's, 40's and 41's, come
-last; 43's thread starts with the CLI runs of 42.  Nothing after 38's
+35, 36 and 38's last checks, then 42's, 43's and 44's, 39's, 40's and
+41's, come last; 43's thread, which runs 44 after 43, starts with the CLI
+runs of 42.  Nothing after 38's
 in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
@@ -2254,11 +2279,12 @@ def phase_cnn_epoch() -> int:
 # -- phase 13: the reference's job under torchrun ---------------------------
 
 def eval_accuracy(ckpt_path: str, name: str, data: str = "",
-                  precision: str = "bf16", moe_experts: int = 0) -> tuple:
+                  precision: str = "bf16", moe_experts: int = 0,
+                  pipelined: bool = False) -> tuple:
     """In-process eval of a checkpoint on the test split of ``data``
     (WORK/data by default), batch 64 in the ``precision`` preset, a vit
-    with ``moe_experts``: (accuracy to 2 decimals as `test` logs it,
-    correct, rows)."""
+    with ``moe_experts`` (``pipelined``: the pipelined vit, its blocks in
+    order): (accuracy to 2 decimals as `test` logs it, correct, rows)."""
     from distributedpytorch_tpu_torch import checkpoint as ckpt
     from distributedpytorch_tpu_torch.data.datasets import load_dataset
     from distributedpytorch_tpu_torch.data.pipeline import ResidentLoader
@@ -2271,9 +2297,18 @@ def eval_accuracy(ckpt_path: str, name: str, data: str = "",
     ds = load_dataset("mnist", data or os.path.join(WORK, "data"), SEED,
                       synthetic_fallback=True)
     policy = PRESETS[precision]
-    model = get_model(name, ds.nb_classes, policy,
-                      attention="flash" if name == "vit" else "full",
-                      device="cuda", moe_experts=moe_experts)
+    if pipelined:
+        from distributedpytorch_tpu_torch.models.registry import store_params
+        from distributedpytorch_tpu_torch.models.vit_pipeline import (
+            PipelinedViT)
+
+        model = store_params(PipelinedViT(
+            ds.nb_classes, dtype=policy.compute_dtype, device="cuda"),
+            policy.param_dtype)
+    else:
+        model = get_model(name, ds.nb_classes, policy,
+                          attention="flash" if name == "vit" else "full",
+                          device="cuda", moe_experts=moe_experts)
     ckpt.restore_for_serving(ckpt_path, model)
     engine = Engine(model, cross_entropy, ds.mean, ds.std,
                     get_model_input_size(name), policy, "cuda")
@@ -7718,7 +7753,7 @@ def moe_serve(best: str) -> None:
 
 
 PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}}
-LAST_PHASE = 44                 # the closing lines; only a full run has it
+LAST_PHASE = 45                 # the closing lines; only a full run has it
 
 
 # -- phase 43: placement over 'model', tensor and expert parallelism -------
@@ -7727,12 +7762,14 @@ LAST_PHASE = 44                 # the closing lines; only a full run has it
 # with rows masked), each world against one process fed the same batches
 P43_STEPS = 3
 # (name, ranks, arch, attention): each 2-rank world (data 1 x model 2)
-# beside its one-process reference
-P43_WORLDS = (("zero", 2, {}, "flash"), ("zero_one", 1, {}, "flash"),
+# beside its one-process reference; the three references run one after
+# another in one process (TP's first: its peak memory is a fresh
+# process's), which spares two process starts beside the other phases
+P43_WORLDS = (("zero", 2, {}, "flash"),
               ("ep", 2, {"moe_experts": MOE_EXPERTS}, "flash"),
-              ("ep_one", 1, {"moe_experts": MOE_EXPERTS}, "flash"),
               ("tp", 2, {"tensor_parallel": True}, "full"),
-              ("tp_one", 1, {}, "full"))
+              ("tp_one", 1, {}, "full"), ("zero_one", 1, {}, "flash"),
+              ("ep_one", 1, {"moe_experts": MOE_EXPERTS}, "flash"))
 # The placed steps against one process's, each tensor relative to its
 # largest value: the same f32 math (ZeRO and EP gather exact copies;
 # TP sums two partial products in another order).
@@ -7760,7 +7797,7 @@ def p43_expected_elements(state: dict, experts: bool) -> int:
 
 
 def placement_worlds() -> dict:
-    """(a)-(c) in process: the six worlds of P43_WORLDS at once on the card
+    """(a)-(c) in process: the worlds of P43_WORLDS at once on the card
     (tests/_torch_ring_child.py vit, the placed ranks over gloo), each
     placed world's gathered parameters after P43_STEPS steps against its
     one-process run's, a rank's parameter and momentum elements against
@@ -7783,12 +7820,20 @@ def placement_worlds() -> dict:
                       rng.integers(0, 10, TRAIN_BATCH), valid,
                       [t.numpy() for t in augment.affine_from_uniform(
                           u, 28, 28)]))
+    def spec(arch, attention):
+        return dict(arch=arch, attention=attention, seed=SEED, params=None,
+                    steps=steps, peak_memory=True)
+
+    placed = [w for w in P43_WORLDS if w[1] == 2]
+    ones = [w for w in P43_WORLDS if w[1] == 1]
     got = run_worlds([
-        ring_world("vit", dict(arch=arch, attention=attention, seed=SEED,
-                               params=None, steps=steps, peak_memory=True),
-                   world, f"p43_{name}", "--model-parallel", str(world))
-        for name, world, arch, attention in P43_WORLDS])
-    worlds = {name: ranks for (name, *_), ranks in zip(P43_WORLDS, got)}
+        ring_world("vit", spec(arch, attention), world, f"p43_{name}",
+                   "--model-parallel", str(world))
+        for name, world, arch, attention in placed] + [
+        ring_world("vit", [spec(arch, attention) for _, _, arch, attention
+                           in ones], 1, "p43_one", "--model-parallel", "1")])
+    worlds = {name: ranks for (name, *_), ranks in zip(placed, got)}
+    worlds.update({name: [r] for (name, *_), r in zip(ones, got[-1][0])})
     out = {}
     for name in ("zero", "ep", "tp"):
         ranks, one = worlds[name], worlds[name + "_one"][0]
@@ -7919,16 +7964,213 @@ def placement_cli() -> dict:
     return out
 
 
-def start_placement_phase() -> dict:
-    """Phase 43 on a thread of its own beside the other CLI phases (its
-    processes share the card; nothing of it is timed): its failure
+# -- phase 44: the GPipe vit and its ring over 'seq' -----------------------
+
+PIPE_CHILD = os.path.join(ROOT, "tests", "_torch_pipeline_child.py")
+# (a) and (b): 3 f32 SGD steps of one global batch of 64 (the first with
+# rows masked), each world against one process running the blocks in
+# order on the same batches and weights (one CPU generator)
+P44_STEPS = 3
+# (name, ranks, mesh (model, seq), spec extras), in three worlds run at
+# once: the specs of one world size one after another in its processes
+P44_WORLDS = (("pp_m2", 2, (2, 1), {"n_micro": 2}),
+              ("pp_m4", 2, (2, 1), {"n_micro": 4}),
+              ("ring_pp", 4, (2, 2), {"ring": True}),
+              ("pp_one", 1, (1, 1), {}))
+# The pipelined steps against one process's, each tensor relative to its
+# largest value: the same f32 math on the same rows (a microbatch's
+# matmuls have fewer rows; the ring merges two key blocks in f32)
+TOL_P44 = 1e-5
+P44_PROFILE_STEPS = 5       # bf16 steps timed a rank, printed only
+
+
+def p44_expected_elements(state: dict) -> int:
+    """A rank's parameter elements at M = 2 by the JAX rule under the
+    pipeline (``leaf_spec(prefer_axis0=True)``: the four stacked kernels
+    split on the block axis, the rest whole)."""
+    from distributedpytorch_tpu_torch.parallel import leaf_spec
+
+    return sum(t.numel() // 2 if leaf_spec(tuple(t.shape), 2,
+                                           prefer_axis0=True) is not None
+               else t.numel() for t in state.values())
+
+
+def pipeline_world(name: str, world: int, specs: list) -> tuple:
+    """A ``run_worlds`` entry of ``tests/_torch_pipeline_child.py`` on
+    ``specs`` (saved to WORK/NAME-in.pt) in ``world`` ranks."""
+    import torch
+
+    inp = os.path.join(WORK, f"{name}-in.pt")
+    torch.save(specs, inp)
+    return name, world, PIPE_CHILD, [inp], []
+
+
+def pipeline_worlds() -> dict:
+    """(a) and (b) in process: the worlds of P44_WORLDS on the card
+    (several ranks over gloo), each world's gathered parameters after
+    P44_STEPS steps against the one-process run's, every rank equal, a
+    rank's parameter and momentum elements against the rule's count, no
+    kernel launched on any rank; after them in the same processes, the
+    pipelined bf16 step's device time a rank beside the dense vit's
+    (``--attention full``, one process; printed, not a gate)."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+
+    rng = np.random.default_rng(SEED + 44)
+    steps = []
+    for i in range(P44_STEPS):
+        valid = np.ones(TRAIN_BATCH, bool)
+        if i == 0:
+            valid[TRAIN_BATCH // 2:TRAIN_BATCH - 1] = False
+        u = torch.from_numpy(rng.random((TRAIN_BATCH, 5), dtype=np.float32))
+        steps.append((rng.integers(0, 256, (TRAIN_BATCH, 28, 28),
+                                   dtype=np.uint8),
+                      rng.integers(0, 10, TRAIN_BATCH), valid,
+                      [t.numpy() for t in augment.affine_from_uniform(
+                          u, 28, 28)]))
+    profile = dict(kind="engine", seed=SEED, steps=steps[-1:],
+                   precision="bf16", profile=P44_PROFILE_STEPS)
+    extra_specs = {2: [dict(profile, mesh=(2, 1))],
+                   1: [dict(profile, mesh=(1, 1), plain=True)]}
+    sizes = sorted({w[1] for w in P44_WORLDS})
+    got = run_worlds([pipeline_world(f"p44_w{size}", size, [
+        dict(kind="engine", mesh=mesh, seed=SEED, steps=steps, **extra)
+        for _, world, mesh, extra in P44_WORLDS if world == size]
+        + extra_specs.get(size, [])) for size in sizes])
+    by_size = dict(zip(sizes, got))
+    worlds, at = {}, dict.fromkeys(sizes, 0)
+    for name, world, *_ in P44_WORLDS:
+        worlds[name] = [r[at[world]] for r in by_size[world]]
+        at[world] += 1
+    one = worlds["pp_one"][0]
+    full = sum(t.numel() for t in one["state"].values())
+    want = p44_expected_elements(one["state"])
+    out = {}
+    for name in ("pp_m2", "pp_m4", "ring_pp"):
+        ranks = worlds[name]
+        apart = sorted({k for r in ranks for part in ("state", "whole")
+                        for k, v in r[part].items()
+                        if not torch.equal(v, ranks[0][part][k])})
+        same = not apart
+        w = worst(ranks[0]["state"], one["state"])
+        abs_err = max(float((v.double() - one["state"][k].double()).abs()
+                            .max()) for k, v in ranks[0]["state"].items())
+        loss_err = max(abs(a[0] - b[0]) for a, b in
+                       zip(ranks[0]["metrics"], one["metrics"]))
+        held = [r["elements"] for r in ranks]
+        launched = [sum(r["launches"].values()) for r in ranks]
+        out[name] = {"abs_err": abs_err, "rel_err": w[1],
+                     "loss_err": loss_err, "per_rank": held[0][0]}
+        mesh = ("data 1 x model 2 x seq 2" if name == "ring_pp"
+                else "data 1 x model 2")
+        say(f"pipeline {name}: {len(ranks)} ranks (gloo, {mesh}) vs 1 "
+            f"process, {P44_STEPS} f32 SGD steps of the full-width vit on a "
+            f"global batch of {TRAIN_BATCH}: max abs err {abs_err:.3g}, "
+            f"worst tensor {w[0]} rel err {w[1]:.3g} (tol {TOL_P44:g}); loss "
+            f"err {loss_err:.3g}; ranks equal: {same or apart}; a rank holds "
+            f"{held} "
+            f"(parameters, momentum) elements of {full}, the JAX rule's "
+            f"{want}; kernel launches by rank {launched}")
+        if not (same and math.isfinite(w[1]) and w[1] <= TOL_P44
+                and loss_err <= TOL_P44):
+            fail(f"pipeline {name}: the steps disagree with one process")
+        if any(h != (want, want) for h in held) \
+                or one["elements"] != (full, full):
+            fail(f"pipeline {name}: a rank's elements {held} are not the "
+                 f"rule's {want}")
+        if any(launched):
+            fail(f"pipeline {name}: a kernel of the port was launched")
+    piped = [r[-1]["profile"] for r in by_size[2]]
+    dense = by_size[1][0][-1]["profile"]
+    out["profile"] = {"pipelined": [(p["device_ms"], p["wall_ms"])
+                                    for p in piped],
+                      "dense": (dense["device_ms"], dense["wall_ms"])}
+    ranks = [(round(dev, 5), round(wall, 3))
+             for dev, wall in out["profile"]["pipelined"]]
+    say(f"pipeline: a bf16 step at batch {TRAIN_BATCH} (M = 2), device / "
+        f"wall ms a rank {ranks}"
+        f" ({[p['kernels'] for p in piped]} kernels); the dense vit "
+        f"(--attention full, 1 process) {dense['device_ms']:.5f} / "
+        f"{dense['wall_ms']:.3f} ({dense['kernels']} kernels); "
+        f"{P44_PROFILE_STEPS} steps each, beside the ring world's steps")
+    return out
+
+
+def pipeline_cli() -> dict:
+    """(c) through the CLI on phase 22's corpus: ``train --model vit
+    --pipeline-parallel --model-parallel 2 -e 1`` in bf16 under torchrun
+    --nproc_per_node 2 (finite losses, the ``mesh:`` line, no kernel
+    launched); then at once ``test -f`` of its best file in one process
+    on a plain config (stacked -> blocks at load) and on 2 ranks with the
+    pipeline flags, each equal to an in-process eval of the pipelined
+    model."""
+    write_zoo_data()
+    rsl = os.path.join(WORK, "p44_rsl")
+    wall, log = finish_all([start_cli(
+        ["train", "--model", "vit", "--pipeline-parallel",
+         "--model-parallel", "2", "-e", "1"], rsl, launcher=TORCHRUN2,
+        data=ZOO_DATA)])[0]
+    line = ("mesh: data 1 x model 2, parameters placed and pipeline stages "
+            "over the model group on gloo")
+    if line not in log:
+        fail(f"pipeline: the train did not log {line!r}")
+    launches, steps, evals = parse_launches(log, "train")
+    launches.update(parse_ring_launches(log, "train"))
+    losses = [float(x) for x in re.findall(r"Loss: ([-\d.naif]+)", log)]
+    say(f"pipeline: train --pipeline-parallel --model-parallel 2 -e 1 on 2 "
+        f"ranks in {wall:.1f}s of process wall: {steps} steps and {evals} "
+        f"eval batches, losses {losses}, launches {launches}")
+    if len(losses) != 2 or not all(map(math.isfinite, losses)) \
+            or any(launches.values()):
+        fail("pipeline: the train's losses are not finite or it launched a "
+             "kernel")
+    best = os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+    logs = finish_all([
+        start_cli(["test", "-f", best], os.path.join(WORK, "p44_test1"),
+                  data=ZOO_DATA),
+        start_cli(["test", "-f", best, "--pipeline-parallel",
+                   "--model-parallel", "2"],
+                  os.path.join(WORK, "p44_test2"), launcher=TORCHRUN2,
+                  data=ZOO_DATA)])
+    accs = [re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%", t).group(1)
+            for _, t in logs]
+    test_launches = [sum({**parse_launches(t, "test")[0],
+                          **parse_ring_launches(t, "test")}.values())
+                     for _, t in logs]
+    converted = ("checkpoint params converted: stacked -> blocks block "
+                 "layout") in logs[0][1]
+    acc_here, correct, n = eval_accuracy(best, "vit", ZOO_DATA,
+                                         pipelined=True)
+    say(f"pipeline: `test -f` in 1 process on a plain config {accs[0]}% "
+        f"(stacked -> blocks at load: {converted}), on 2 ranks with the "
+        f"pipeline flags {accs[1]}%; in-process eval of the pipelined model "
+        f"{acc_here}% ({correct}/{n}); kernel launches {test_launches}")
+    if not converted or accs != [acc_here, acc_here] or any(test_launches):
+        fail("pipeline: a test of the pipeline's file disagrees with the "
+             "in-process eval")
+    return {"steps": steps, "evals": evals, "losses": losses,
+            "acc": acc_here}
+
+
+def start_placement_phase(placement: bool = True,
+                          pipeline: bool = True) -> dict:
+    """Phases 43 and 44 (``placement``, ``pipeline``: which of them) on a
+    thread of their own beside the other CLI phases, 44 after 43 (their
+    processes share the card; nothing of them is timed): a failure
     (``fail``'s exit) is kept for ``finish_placement_phase``."""
     pending = {"t0": time.perf_counter()}
 
     def body():
         try:
-            pending["worlds"] = placement_worlds()
-            pending["cli"] = placement_cli()
+            if placement:
+                pending["worlds"] = placement_worlds()
+                pending["cli"] = placement_cli()
+            pending["t44"] = time.perf_counter()
+            if pipeline:
+                pending["pipeline"] = pipeline_worlds()
+                pending["pipeline_cli"] = pipeline_cli()
             pending["ok"] = True
         except BaseException as e:       # fail()'s SystemExit included
             pending["error"] = e
@@ -7940,12 +8182,16 @@ def start_placement_phase() -> dict:
 
 
 def finish_placement_phase(pending: dict, card: str) -> None:
+    t = time.perf_counter()
     pending["thread"].join(900)
-    wall = time.perf_counter() - pending["t0"]
-    say(f"chip_smoke: placement ran {wall:.1f}s beside the other phases "
-        f"({card})")
+    now = time.perf_counter()
+    wall = now - pending["t0"]
+    split = pending.get("t44", now) - pending["t0"]
+    say(f"chip_smoke: placement and pipeline ran {wall:.1f}s beside the "
+        f"other phases (43 {split:.1f}s, 44 {wall - split:.1f}s), the main "
+        f"thread waited {now - t:.1f}s for them ({card})")
     if not pending.get("ok"):
-        fail(f"phase 43 did not pass: {pending.get('error')!r}")
+        fail(f"phase 43 or 44 did not pass: {pending.get('error')!r}")
 
 
 def parse_phases(argv) -> set:
@@ -8138,8 +8384,9 @@ def main(argv=None) -> int:
         jax_resume_runs = ahead(34, start_jax_resume)
         stream_runs = ahead(36, start_stream_cli)
         moe_run = ahead(42, start_moe_cli)
-        # 43's worlds and CLI runs on a thread of their own
-        placement_pending = start_placement_phase() if want(43) else None
+        # 43's worlds and CLI runs, then 44's, on a thread of their own
+        placement_pending = (start_placement_phase(want(43), want(44))
+                             if want(43) or want(44) else None)
         # 39's faulted, elastic and stalled worlds on a thread of its own
         elastic_pending = start_elastic_phase(card) if want(39) else None
         if want(25):
@@ -8196,7 +8443,7 @@ def main(argv=None) -> int:
             run(phase_observability_cli, obs_pending)
         if want(42):
             run(phase_moe_cli, moe_run)
-        if want(43):
+        if placement_pending is not None:
             finish_placement_phase(placement_pending, card)
         if want(39):
             finish_elastic_phase(elastic_pending)

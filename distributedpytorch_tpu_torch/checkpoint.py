@@ -45,6 +45,12 @@ and ``serve`` read it, and ``train -f`` resumes from it: the optax state
 optimizer's (``convert.optimizer_state_from_jax``), the optax count the
 applied updates, and ``step``, the epoch, the best loss and the f16 loss
 scale are taken by the rules of the port's own files.
+A vit file of either block layout (the pipelined vit's stacked
+blocks, the plain vit's per-block modules; the port's or JAX's) loads
+into a model of either: the params and the optimizer moments are
+converted at load, as JAX's ``_load_checkpoint_inner`` converts them
+(:1025-1045, ``models/vit_pipeline.py`` ``convert_layout``), and
+``serve_restore`` records the model's layout.
 Orbax checkpoint directories are not ported yet.  In a world of several
 ranks, rank 0 writes (the caller gates on ``runtime.is_main()``) and every
 rank reads.  A model placed over a model group (``parallel.place``) is
@@ -73,6 +79,7 @@ import torch
 from torch import nn
 
 from . import faults, parallel, telemetry
+from .models import vit_pipeline
 from .models.convert import (cnn_params_from_jax, optimizer_state_from_jax,
                              params_from_jax)
 from .precision import LossScaleState
@@ -602,10 +609,22 @@ def _experts(params) -> int:
     return 0 if router is None else int(router.shape[0])
 
 
-def _load_params(path: str, payload: dict, model: nn.Module) -> None:
+def _model_layout(model: nn.Module) -> Optional[str]:
+    """The vit layout of ``model``'s parameters ('stacked' | 'blocks'),
+    or None for a model of no vit layout."""
+    return vit_pipeline.params_layout(
+        dict.fromkeys(n for n, _ in model.named_parameters()))
+
+
+def _load_params(path: str, payload: dict, model: nn.Module
+                 ) -> Optional[tuple]:
     """Strict load of the file's params; a file and a model that differ
     in ``--moe-experts`` fail with one line naming it, as JAX's layout
-    check does (``checkpoint.py:735-752``)."""
+    check does (``checkpoint.py:735-752``).  A vit file of the other
+    layout than the model's (the pipeline's stacked blocks, the plain
+    vit's per-block modules) is converted first, as JAX converts at load
+    (:1025-1045).  Returns (the model's layout, the file's depth) when it
+    converted, else None."""
     saved, wanted = _experts(payload["state"]["params"]), _experts(
         model.state_dict())
     if saved != wanted:
@@ -618,6 +637,15 @@ def _load_params(path: str, payload: dict, model: nn.Module) -> None:
             f"model {side(wanted)} — load with a matching --moe-experts "
             f"(--moe-experts {saved})")
     params = payload["state"]["params"]
+    src, dst = vit_pipeline.params_layout(params), _model_layout(model)
+    converted = None
+    if src is not None and dst is not None and src != dst:
+        depth = (int(params["qkv_kernel"].shape[0]) if src == "stacked"
+                 else None)
+        params = vit_pipeline.convert_layout(params, dst)
+        converted = (dst, depth)
+        logging.info(f"checkpoint params converted: {src} -> {dst} block "
+                     f"layout")
     placement = parallel.placement_of(model)
     if placement is not None:
         params = placement.local_state_dict(params)
@@ -625,6 +653,41 @@ def _load_params(path: str, payload: dict, model: nn.Module) -> None:
         model.load_state_dict(params, strict=True)
     except RuntimeError as e:
         raise ValueError(f"{path}: params do not fit the model: {e}") from e
+    return converted
+
+
+def _convert_moments(by_name: dict, converted: tuple) -> dict:
+    """{parameter name: {moment: tensor}} of the file's layout -> of the
+    model's (``_load_params``'s ``converted``)."""
+    dst, depth = converted
+    # in the file's order, the same on every rank (full_state's gathers
+    # follow it)
+    keys = list(dict.fromkeys(k for st in by_name.values() for k in st))
+    moved = {k: vit_pipeline.convert_layout(
+        {n: st[k] for n, st in by_name.items()}, dst, depth) for k in keys}
+    names = next(iter(moved.values())) if moved else {}
+    return {n: {k: moved[k][n] for k in keys} for n in names}
+
+
+def _convert_optimizer_state(opt_state: dict, file_names: list,
+                             model: nn.Module,
+                             optimizer: torch.optim.Optimizer,
+                             converted: tuple) -> dict:
+    """A port file's ``optimizer.state_dict()`` of the other vit layout
+    -> the run's: its moments named by the file's parameter order,
+    converted, and indexed by the run's optimizer.  A state of fewer
+    parameters than the file holds (``--feature-extract``: the head's,
+    named alike in both layouts) is taken as it is."""
+    groups = opt_state["param_groups"]
+    if sum(len(g["params"]) for g in groups) != len(file_names) \
+            or len(groups) != 1:
+        return opt_state
+    by_name = _convert_moments({file_names[i]: st for i, st in
+                                opt_state["state"].items()}, converted)
+    names = parallel.optimizer_names(model, optimizer)
+    return {"state": {i: by_name[n] for i, n in names.items()
+                      if n in by_name},
+            "param_groups": [dict(groups[0], params=sorted(names))]}
 
 
 def restore_for_serving(path: str, model: nn.Module) -> int:
@@ -634,10 +697,12 @@ def restore_for_serving(path: str, model: nn.Module) -> int:
     payload = read_checkpoint(path)
     _load_params(path, payload, model)
     epoch = int(payload["epoch"])
+    # the restored model's layout, a file of the other converted to it
+    layout = _model_layout(model) or "unknown"
     telemetry.get().event("serve_restore", file=os.path.basename(path),
-                          epoch=epoch, layout="blocks")
+                          epoch=epoch, layout=layout)
     logging.info(f"serving checkpoint {path} (trained through epoch "
-                 f"{epoch})")
+                 f"{epoch}, layout {layout})")
     return epoch
 
 
@@ -665,12 +730,19 @@ def load_checkpoint(path: str, model: nn.Module,
                 f"{path}: holds no optimizer state (format version "
                 f"{payload['format_version']}); it cannot resume training "
                 f"(test and serve read it)")
-    _load_params(path, payload, model)
+    converted = _load_params(path, payload, model)
     if restore_optimizer and writer == "jax":
-        _load_jax_optimizer(path, state["opt_state"], model, optimizer)
+        by_name = state["opt_state"]
+        if converted is not None:
+            by_name = _convert_moments(by_name, converted)
+        _load_jax_optimizer(path, by_name, model, optimizer)
     elif restore_optimizer:
         capturable = [g.get("capturable") for g in optimizer.param_groups]
         opt_state = state["opt_state"]
+        if converted is not None:
+            opt_state = _convert_optimizer_state(
+                opt_state, list(payload["state"]["params"]), model,
+                optimizer, converted)
         placement = parallel.placement_of(model)
         try:
             if placement is not None:

@@ -92,10 +92,15 @@ the parameters and optimizer state are placed over the M ranks of a
 shard (``parallel.py``; ``Engine.init_state``, wherever the state is
 built, restored or rebuilt after an elastic reconfigure), which split
 the vit's tokens in the ring of ``--attention ring|ring_flash``, its
-heads under ``--tensor-parallel`` and a MoE vit's experts, and the loss
-and metric sums count each shard once.  Every rank gathers the full
-state before rank 0 writes a checkpoint, the same file a replicated run
-writes, and a rank takes its slices of any file it restores.
+heads under ``--tensor-parallel`` and a MoE vit's experts, and run the
+vit's blocks as GPipe stages under ``--pipeline-parallel``
+(``--seq-parallel S`` adds the third mesh axis, the (world / (M*S), M,
+S) mesh, whose seq groups ring inside the stages; a data shard's rows
+are dealt to its M x S ranks), and the loss and metric sums count each
+shard once.  Every rank gathers the full state before rank 0 writes a
+checkpoint, the same file a replicated run writes, and a rank takes its
+slices of any file it restores (a vit file of the other block layout
+converted first).
 
 The reference's log lines are kept word for word in RSL_PATH/test.log
 (the ``process:`` line adds the backend of a process group; a ``mesh:``
@@ -128,8 +133,8 @@ from . import checkpoint as ckpt
 from . import (costs, elastic, faults, flightrec, goodput, parallel,
                runtime, telemetry, tracing, utils)
 from .config import OFFLINE_ACTIONS, RESIDENT_MAX_BYTES, \
-    STREAM_DISPATCH_MESSAGE, Config, check_moe, check_ported, \
-    config_from_argv
+    STREAM_DISPATCH_MESSAGE, Config, check_moe, check_pipeline_batch, \
+    check_ported, config_from_argv
 from .data.datasets import Dataset, Split, load_dataset
 from .data.pipeline import ResidentLoader, ShardedLoader
 from .models import get_model, get_model_input_size, pretrained
@@ -185,7 +190,9 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
     model = get_model(model_name, dataset.nb_classes, policy,
                       attention=cfg.attention, device=device, mesh=mesh,
                       remat=cfg.remat, moe_experts=cfg.moe_experts,
-                      tensor_parallel=cfg.tensor_parallel)
+                      tensor_parallel=cfg.tensor_parallel,
+                      pipeline_parallel=cfg.pipeline_parallel,
+                      pipeline_microbatches=cfg.pipeline_microbatches)
     class_weights = (dataset.class_weights()
                      if cfg.loss in ("weighted_cross_entropy", "focal_loss")
                      else None)
@@ -230,10 +237,11 @@ def _is_resident(cfg: Config, split: Split, device: torch.device) -> bool:
 def _make_loader(cfg: Config, split: Split, shuffle: bool,
                  device: torch.device, mesh: runtime.Mesh):
     """The resident loader or the streaming one, picked by
-    ``_is_resident`` as the JAX ``_make_loader`` picks (cli.py:176-188)."""
+    ``_is_resident`` as the JAX ``_make_loader`` picks (cli.py:176-188):
+    the rows of each data shard dealt to the M x S ranks of its block."""
     shard = dict(seed=cfg.seed, device=device, world=runtime.world_size(),
                  rank=runtime.process_index(),
-                 model_parallel=mesh.model_parallel)
+                 model_parallel=mesh.shard_ranks)
     if _is_resident(cfg, split, device):
         return ResidentLoader(split, cfg.batch_size, shuffle, **shard)
     return ShardedLoader(split, cfg.batch_size, shuffle, **shard,
@@ -293,22 +301,28 @@ def _enter_world(cfg: Config) -> None:
 
 
 def _make_mesh(cfg: Config, device: torch.device) -> runtime.Mesh:
-    """The world's (data, model) mesh, its ``mesh:`` line logged when it
-    has a model axis, naming what the model group carries."""
-    mesh = runtime.make_mesh(cfg.model_parallel)
+    """The world's (data, model[, seq]) mesh, its ``mesh:`` line logged
+    when it has a model axis, naming what the model group carries (and
+    the seq group: the ring inside the pipeline's stages)."""
+    mesh = runtime.make_mesh(cfg.model_parallel, cfg.seq_parallel)
     if mesh.model_parallel > 1:
         staged = runtime.staged_through_host(mesh.model_group, device)
         carries = ["parameters placed"]
-        if cfg.attention in ("ring", "ring_flash"):
+        if cfg.pipeline_parallel:
+            carries.append("pipeline stages")
+        elif cfg.attention in ("ring", "ring_flash"):
             carries.append("the ring")
         if cfg.tensor_parallel:
             carries.append("tensor parallelism")
         if cfg.moe_experts:
             carries.append("the experts")
+        seq = (f" x seq {mesh.seq_parallel}" if mesh.seq_parallel > 1
+               else "")
         logging.info(
             f"mesh: data {mesh.data_parallel} x model {mesh.model_parallel}"
-            f", {' and '.join(carries)} over the model group on "
-            f"{runtime.backend()}"
+            f"{seq}, {' and '.join(carries)} over the model group"
+            + (" and the ring over seq" if seq else "")
+            + f" on {runtime.backend()}"
             + (" (CUDA tensors staged through host memory)" if staged
                else ""))
     return mesh
@@ -985,6 +999,7 @@ def run_train(cfg: Config) -> dict:
     ``_train_world`` per world, a reconfigure between two."""
     if not cfg.checkpoint_file:     # a resume's model: once the file's read
         check_moe(cfg, cfg.model_name)
+    check_pipeline_batch(cfg)
     device, tel, mesh, join_info = _start(cfg, "train")
     saver = None
     crashed = True

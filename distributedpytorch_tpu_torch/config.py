@@ -48,9 +48,14 @@ MLPs as switch mixtures of E experts, expert parallel over a model group
 of 2 ranks or more, with any attention, precision and train option);
 ``train`` checks it with the JAX ``run_train``'s messages before the
 dataset load (``check_moe``), and ``test`` and ``serve`` fail with the
-registry's.  ``serve`` refuses ``--model-parallel`` and
-``--tensor-parallel`` with the JAX ``run_serve``'s message, and serves a
-file of any layout whole.
+registry's.  ``train`` and ``test`` take ``--pipeline-parallel``,
+``--pipeline-microbatches`` and ``--seq-parallel`` (the GPipe vit and the
+ring inside its stages, ``models/vit_pipeline.py``), checked with the
+JAX ``run_train``'s and ``run_test``'s messages (``check_model_axis``,
+``check_pipeline``, ``check_pipeline_batch``).  ``serve`` refuses
+``--model-parallel``, ``--tensor-parallel``, ``--pipeline-parallel`` and
+``--seq-parallel`` with the JAX ``run_serve``'s message, and serves a
+file of any layout whole (a pipeline file converted at load).
 ``train`` and ``test`` take the observability and compile-cache flags
 with the JAX spellings and defaults: the flight recorder is on
 (``--no-flightrec`` turns it off; ``--flightrec-ring``),
@@ -168,6 +173,12 @@ class Config:
     # (models/moe.py), expert parallel over a model group of 2 ranks or
     # more (JAX config.py:198-201)
     moe_experts: int = 0
+    # GPipe stages of the vit over the model group, M microbatches a step
+    # (0: one a stage), and the seq axis of the ring inside each stage
+    # (JAX config.py:167-196)
+    pipeline_parallel: bool = False
+    pipeline_microbatches: int = 0
+    seq_parallel: int = 1
     grad_accum: int = 1
     ckpt_async: bool = False
     epochs_per_dispatch: int = 1
@@ -268,8 +279,10 @@ def check_ported(cfg: Config) -> Config:
     """Raise ValueError("not ported yet: --X") for the first unsupported
     setting; return ``cfg`` otherwise."""
     if cfg.action == "serve" and (cfg.model_parallel > 1
-                                  or cfg.tensor_parallel):
-        # the JAX run_serve's refusal (cli.py:1499-1509)
+                                  or cfg.tensor_parallel
+                                  or cfg.pipeline_parallel
+                                  or cfg.seq_parallel > 1):
+        # the JAX run_serve's refusal (cli.py:1500-1509)
         raise ValueError(
             "serve runs replica-local data-parallel inference; "
             "--model-parallel/--tensor-parallel/--pipeline-parallel/"
@@ -299,6 +312,7 @@ def check_ported(cfg: Config) -> Config:
 
         check_attention(cfg.model_name, cfg.attention)
     check_model_axis(cfg)
+    check_pipeline(cfg)
     if cfg.device not in DEVICE_CHOICES:
         raise ValueError(f"--device must be one of {DEVICE_CHOICES}, got "
                          f"{cfg.device!r}")
@@ -383,20 +397,24 @@ def check_pretrained(cfg: Config) -> None:
 
 
 def check_model_axis(cfg: Config) -> None:
-    """``--attention ring|ring_flash`` and ``--tensor-parallel`` need
-    ``--model-parallel`` >= 2, and ``--tensor-parallel`` the vit with
-    ``--attention full``: ``train`` fails with the JAX ``run_train``
-    message (cli.py:735-755), before the dataset load; ``test`` with the
-    JAX registry's (``registry.py:208-212``, ``_require_model_axis``),
-    which is where the JAX ``test`` fails (the checkpoint's model is
-    checked when it is built)."""
+    """``--attention ring|ring_flash``, ``--tensor-parallel`` and
+    ``--pipeline-parallel`` need ``--model-parallel`` >= 2 and the vit,
+    and exclude one another but for the ring inside the pipeline
+    (``--seq-parallel`` >= 2): ``train`` fails with the JAX
+    ``run_train`` message (cli.py:731-763), before the dataset load;
+    ``test`` with the JAX registry's (``registry.py:173-212``,
+    ``_require_model_axis``), which is where the JAX ``test`` fails (the
+    checkpoint's model is checked when it is built; the pipeline's there
+    too)."""
     ring = cfg.attention in ("ring", "ring_flash")
-    tp = cfg.tensor_parallel
-    if cfg.action == "serve" or not (ring or tp):
+    tp, pp = cfg.tensor_parallel, cfg.pipeline_parallel
+    if cfg.action == "serve" or not (ring or tp or pp):
         return
     if cfg.action == "train":
-        if cfg.model_name != "vit" or (tp and cfg.attention != "full") \
-                or cfg.model_parallel < 2:
+        ring_pp = pp and cfg.attention == "ring" and cfg.seq_parallel >= 2
+        exclusive = sum((cfg.attention != "full", tp, pp)) > 1 \
+            and not ring_pp
+        if cfg.model_name != "vit" or exclusive or cfg.model_parallel < 2:
             raise ValueError(
                 "--attention ring/flash/ring_flash, --tensor-parallel and "
                 "--pipeline-parallel require --model vit, are mutually "
@@ -407,7 +425,9 @@ def check_model_axis(cfg: Config) -> None:
                 f"model_parallel={cfg.model_parallel}, "
                 f"attention={cfg.attention!r}, "
                 f"tensor_parallel={tp}, "
-                "pipeline_parallel=False")
+                f"pipeline_parallel={pp}")
+        return
+    if pp:
         return
     from .models.registry import check_tensor_parallel, require_model_axis
 
@@ -416,6 +436,57 @@ def check_model_axis(cfg: Config) -> None:
     if cfg.model_parallel < 2:
         require_model_axis(None, "--tensor-parallel (head/hidden axes)" if tp
                            else f"--attention {cfg.attention} (token axis)")
+
+
+def check_pipeline(cfg: Config) -> None:
+    """The JAX ``run_train``'s checks of ``--seq-parallel`` and
+    ``--pipeline-microbatches`` (cli.py:756-767) and ``run_test``'s
+    guard of ``--seq-parallel`` (:1347-1358), word for word."""
+    if cfg.action not in ("train", "test"):
+        return
+    ring_pp = cfg.pipeline_parallel and cfg.attention == "ring"
+    if cfg.action == "train" and cfg.seq_parallel > 1 and not (
+            ring_pp and cfg.seq_parallel >= 2):
+        raise ValueError(
+            "--seq-parallel >= 2 is the ring x pipeline composition's "
+            "third mesh axis: it requires --pipeline-parallel with "
+            "--attention ring (for plain sequence parallelism use "
+            "--attention ring, which rings over the 'model' axis); got "
+            f"seq_parallel={cfg.seq_parallel}, "
+            f"attention={cfg.attention!r}, "
+            f"pipeline_parallel={cfg.pipeline_parallel}")
+    if cfg.action == "test" and cfg.seq_parallel > 1 and not ring_pp:
+        raise ValueError(
+            "--seq-parallel >= 2 is the ring x pipeline composition's "
+            "third mesh axis: it requires --pipeline-parallel with "
+            "--attention ring; got "
+            f"seq_parallel={cfg.seq_parallel}, "
+            f"attention={cfg.attention!r}, "
+            f"pipeline_parallel={cfg.pipeline_parallel}")
+    if cfg.action == "train" and cfg.pipeline_microbatches \
+            and not cfg.pipeline_parallel:
+        raise ValueError(
+            "--pipeline-microbatches requires --pipeline-parallel "
+            "(it sets the GPipe M)")
+
+
+def check_pipeline_batch(cfg: Config) -> None:
+    """The JAX ``run_train``'s check that the pipeline engages
+    (cli.py:784-807): each data shard's rows the model sees (-b x M x
+    S / K) must be a multiple of the microbatches."""
+    if not cfg.pipeline_parallel:
+        return
+    n_micro = cfg.pipeline_microbatches or cfg.model_parallel
+    b_local = (cfg.batch_size * cfg.model_parallel
+               * cfg.seq_parallel // cfg.grad_accum)
+    if b_local < n_micro or b_local % n_micro:
+        raise ValueError(
+            f"--pipeline-parallel needs the per-data-shard batch "
+            f"seen by the model (-b {cfg.batch_size} x "
+            f"model_parallel {cfg.model_parallel} / grad_accum "
+            f"{cfg.grad_accum} = {b_local}) to be a multiple of the "
+            f"{n_micro} pipeline microbatches; raise -b or lower "
+            f"--pipeline-microbatches/--grad-accum")
 
 
 def _model_parallel_arg(p: argparse.ArgumentParser) -> None:
@@ -437,6 +508,29 @@ def _tensor_parallel_arg(p: argparse.ArgumentParser) -> None:
                         "--model-parallel >= 2)")
 
 
+def _pipeline_args(p: argparse.ArgumentParser) -> None:
+    """The JAX ``_common_args``' --seq-parallel, --pipeline-microbatches
+    and --pipeline-parallel (config.py:669-707), same defaults."""
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   dest="seq_parallel", metavar="N",
+                   help="N-way 'seq' mesh axis for --pipeline-parallel "
+                        "+ --attention ring (ring attention inside each "
+                        "pipeline stage; default 1 = 2-D mesh)")
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   dest="pipeline_microbatches", metavar="M",
+                   help="GPipe microbatches per step for "
+                        "--pipeline-parallel (default 0 = one per "
+                        "stage); larger M shrinks the pipeline bubble "
+                        "(P-1)/(M+P-1); per-device batch must divide "
+                        "by M")
+    p.add_argument("--pipeline-parallel", action="store_true",
+                   dest="pipeline_parallel",
+                   help="GPipe stage parallelism for --model vit: "
+                        "transformer blocks sharded over the 'model' "
+                        "mesh axis as pipeline stages (requires "
+                        "--model-parallel >= 2)")
+
+
 def _moe_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--moe-experts", type=int, default=0,
                    dest="moe_experts", metavar="E",
@@ -449,16 +543,16 @@ def _moe_arg(p: argparse.ArgumentParser) -> None:
 def check_moe(cfg: Config, model_name: str) -> None:
     """The JAX ``run_train``'s checks of ``--moe-experts`` (cli.py:768-783),
     word for word, against the model the run trains (the checkpoint's
-    under ``-f``), before the dataset load; ``--pipeline-parallel`` is
-    refused before it as not ported."""
+    under ``-f``), before the dataset load."""
     if cfg.moe_experts and (model_name != "vit" or cfg.tensor_parallel
+                            or cfg.pipeline_parallel
                             or cfg.moe_experts < 2):
         raise ValueError(
             "--moe-experts needs --model vit, E >= 2, and is exclusive "
             "with --tensor-parallel/--pipeline-parallel; got "
             f"model={model_name!r}, moe_experts={cfg.moe_experts}, "
             f"tensor_parallel={cfg.tensor_parallel}, "
-            "pipeline_parallel=False")
+            f"pipeline_parallel={cfg.pipeline_parallel}")
     if (cfg.moe_experts and cfg.model_parallel >= 2
             and cfg.moe_experts % cfg.model_parallel):
         raise ValueError(
@@ -482,13 +576,9 @@ _INT = {"type": int}
 # is refused (``refused_flag``), never ignored.
 REFUSED_EVERYWHERE = (
     ("--scan-layers", _ON, False),
-    ("--pipeline-parallel", _ON, False),
-    ("--seq-parallel", _INT, 1),
     ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
 )
-REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE + (
-    ("--pipeline-microbatches", _INT, 0),
-)
+REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE
 
 
 def _dest(flag: str) -> str:
@@ -789,6 +879,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
                         "K3p) over --model-parallel ranks")
     _model_parallel_arg(p)
     _tensor_parallel_arg(p)
+    _pipeline_args(p)
     _moe_arg(p)
     _device_arg(p, action)
     _observability_args(p)
@@ -859,6 +950,7 @@ def build_parser() -> argparse.ArgumentParser:
     _data_remat_args(p)
     _model_parallel_arg(p)
     _tensor_parallel_arg(p)
+    _pipeline_args(p)
     _moe_arg(p)
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,

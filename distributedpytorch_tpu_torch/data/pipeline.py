@@ -31,10 +31,11 @@ gather only while a fault plan targets it (``_host_batch_fn``).
 Both loaders shard alike.  Rank r of W takes the sampler's strided slice
 r::W, so the global batch of a step is rank-major, rows [r*B, (r+1)*B)
 from rank r, as the JAX ``_host_plan`` concatenates it (:85-89).  Under
-``--model-parallel M`` a rank's batch is its data shard's: the JAX mesh
-shards the global batch over 'data' only, so data shard d = r // M holds
-the slices of ranks d*M ... d*M+M-1, concatenated (B*M rows, the same on
-the M model ranks of the shard).  Each step yields (images u8, labels
+``--model-parallel M`` (and ``--seq-parallel S``) a rank's batch is its
+data shard's: the JAX mesh shards the global batch over 'data' only, so
+data shard d = r // (M*S) holds the slices of ranks d*M*S ...
+d*M*S+M*S-1, concatenated (B*M*S rows, the same on the M*S ranks of the
+shard; the loaders' ``model_parallel`` is that block's M*S).  Each step yields (images u8, labels
 int64, valid bool) on the loader's device.
 """
 
@@ -233,9 +234,10 @@ class ShardedLoader:
         return ShardedLoader(
             self.split, self.batch_per_replica, self.shuffle, self.seed,
             self.device,
-            world=mesh.data_parallel * mesh.model_parallel,
-            rank=mesh.data_index * mesh.model_parallel + mesh.model_index,
-            model_parallel=mesh.model_parallel, prefetch=self.prefetch,
+            world=mesh.data_parallel * mesh.shard_ranks,
+            rank=(mesh.data_index * mesh.shard_ranks
+                  + mesh.model_index * mesh.seq_parallel + mesh.seq_index),
+            model_parallel=mesh.shard_ranks, prefetch=self.prefetch,
             producer_threads=self.producer_threads,
             device_prefetch=self.device_prefetch)
 

@@ -26,9 +26,12 @@ mlp and the torchvision zoo (resnet, alexnet, vgg, squeezenet, densenet,
 inception) carry flax's names, nested as the flax modules nest
 (``Fire_3.Conv_2``, ``InceptionC_2.BasicConv_4.Conv_0``), so their trees
 convert key by key (``cnn_params_from_jax``); ``cnn_params_to_jax`` is
-its inverse.  The scan layouts of ``--scan-layers`` (``ConvScan_0``,
-``DenseBlockScan_*``, ``InceptionCScan_0``) and the vit's scan and
-pipeline layouts are not ported yet, and are refused.
+its inverse.  The pipelined vit's stacked blocks (``qkv_kernel`` (depth,
+in, out), ...) keep their names and layout (``models/vit_pipeline.py``
+converts between the two vit layouts).  The scan layouts of
+``--scan-layers`` (``ConvScan_0``, ``DenseBlockScan_*``,
+``InceptionCScan_0``) and the vit's scan layout are not ported yet, and
+are refused.
 """
 
 from __future__ import annotations
@@ -61,19 +64,26 @@ def _norm(tree: dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 
 
 def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
-    """flax ViT ``params`` tree -> ``ViT.state_dict()``-shaped dict."""
+    """flax ViT or PipelinedViT ``params`` tree -> the ``state_dict`` of
+    the port's ``ViT`` or ``PipelinedViT``: the stacked blocks' twelve
+    tensors are taken as they are."""
+    from .vit_pipeline import STACKED
+
     blocks = sorted((k for k in params if re.fullmatch(r"block\d+", k)),
                     key=lambda k: int(k[5:]))
-    expected = {"patch_embed", "pos_embed", "LayerNorm_0", "head", *blocks}
-    if not blocks or set(params) != expected:
+    ends = {"patch_embed", "pos_embed", "LayerNorm_0", "head"}
+    stacked = set(params) == ends | set(STACKED)
+    if not stacked and (not blocks or set(params) != ends | set(blocks)):
         raise ValueError(f"not ported yet: flax params layout with keys "
-                         f"{sorted(params)} (the plain per-block vit layout "
-                         f"is ported)")
+                         f"{sorted(params)} (the per-block and the stacked "
+                         f"pipeline vit layouts are ported)")
     out: Dict[str, torch.Tensor] = {}
     out["patch_embed.weight"] = hwio_to_oihw(
         _t(params["patch_embed"]["kernel"])).contiguous()
     out["patch_embed.bias"] = _t(params["patch_embed"]["bias"])
     out["pos_embed"] = _t(params["pos_embed"])
+    if stacked:
+        out.update({name: _t(params[name]) for name in STACKED})
     for i, name in enumerate(blocks):
         blk = params[name]
         _norm(blk["LayerNorm_0"], f"blocks.{i}.ln1", out)

@@ -20,7 +20,11 @@ word.  ``remat="blocks"`` builds vit, densenet and inception with
 ``remat_blocks`` (each block checkpointed, ``models/remat.py``; the
 parameter names do not change); the engine checkpoints the other models'
 whole forward, and every model's under ``full``, as the JAX split of the
-work goes.  ``--scan-layers`` is not ported yet (the CLI refuses it).
+work goes.  ``pipeline_parallel`` (``--pipeline-parallel``, with
+``pipeline_microbatches``) builds the GPipe vit over the model group of
+``mesh`` (``models/vit_pipeline.py``), with ``attention`` ``full`` or
+``ring`` (the ring over the mesh's seq group).  ``--scan-layers`` is not
+ported yet (the CLI refuses it).
 """
 
 from __future__ import annotations
@@ -124,7 +128,9 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               device: torch.device | str = "cuda",
               pallas_dw: bool = False, mesh=None,
               remat: str = "none", moe_experts: int = 0,
-              tensor_parallel: bool = False) -> nn.Module:
+              tensor_parallel: bool = False,
+              pipeline_parallel: bool = False,
+              pipeline_microbatches: int = 0) -> nn.Module:
     """The registry's full-width model, on ``device``, its parameters
     stored in the policy's ``param_dtype`` (bfloat16 under ``bf16_full``,
     f32 otherwise; BatchNorm's running statistics are buffers and stay
@@ -139,8 +145,14 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
     model of REMAT_BLOCK_MODELS checkpoints its blocks."""
     if remat not in ("none", "blocks", "full"):
         raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
+    if pipeline_parallel and remat != "none":
+        raise ValueError(
+            "--remat composes with the plain vit, not --pipeline-parallel "
+            "(the pipelined vit hand-rolls its stage loop and manages "
+            "per-stage memory itself)")
     model = _build(name, num_classes, precision, attention, device,
-                   pallas_dw, mesh, moe_experts, tensor_parallel)
+                   pallas_dw, mesh, moe_experts, tensor_parallel,
+                   pipeline_parallel, pipeline_microbatches)
     if name in REMAT_BLOCK_MODELS:
         model.remat_blocks = remat == "blocks"
     return store_params(model, precision.param_dtype)
@@ -157,11 +169,10 @@ def store_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def check_moe(name: str, moe_experts: int,
-              tensor_parallel: bool = False) -> None:
+def check_moe(name: str, moe_experts: int, tensor_parallel: bool = False,
+              pipeline_parallel: bool = False) -> None:
     """The JAX registry's refusals of ``--moe-experts``
-    (``registry.py:156-172``; ``--pipeline-parallel``, which it is
-    exclusive with too, is not ported)."""
+    (``registry.py:156-172``)."""
     if not moe_experts:
         return
     if name != "vit":
@@ -171,7 +182,7 @@ def check_moe(name: str, moe_experts: int,
             "replace")
     if moe_experts < 2:
         raise ValueError(f"--moe-experts must be >= 2, got {moe_experts}")
-    if tensor_parallel:
+    if tensor_parallel or pipeline_parallel:
         raise ValueError(
             "--moe-experts is exclusive with --tensor-parallel "
             "(both shard the MLP over 'model') and "
@@ -206,9 +217,30 @@ def check_moe_model_axis(moe_experts: int, mesh) -> None:
             "parallelism (each device holds E/mp experts)")
 
 
+def check_pipeline(name: str, attention: str, tensor_parallel: bool,
+                   mesh, pipeline_microbatches: int) -> None:
+    """The JAX registry's refusals of ``--pipeline-parallel``
+    (``registry.py:173-191``)."""
+    if name != "vit":
+        raise ValueError(
+            "--pipeline-parallel applies to the attention model "
+            f"family only (--model vit); {name!r} has no stages")
+    if attention not in ("full", "ring") or tensor_parallel:
+        raise ValueError(
+            "--pipeline-parallel is exclusive with --attention "
+            "flash/ring_flash and --tensor-parallel (the pipelined "
+            "vit hand-rolls its blocks); it composes with "
+            "--attention ring on a 3-D mesh (--seq-parallel >= 2)")
+    require_model_axis(mesh, "--pipeline-parallel (stage axis)")
+    if pipeline_microbatches < 0:
+        raise ValueError("--pipeline-microbatches must be >= 0, got "
+                         f"{pipeline_microbatches}")
+
+
 def _build(name: str, num_classes: int, precision: PrecisionPolicy,
            attention: str, device, pallas_dw: bool, mesh,
-           moe_experts: int = 0, tensor_parallel: bool = False
+           moe_experts: int = 0, tensor_parallel: bool = False,
+           pipeline_parallel: bool = False, pipeline_microbatches: int = 0
            ) -> nn.Module:
     """The module of ``get_model``, its parameters in f32."""
     _check_name(name)
@@ -218,13 +250,22 @@ def _build(name: str, num_classes: int, precision: PrecisionPolicy,
             raise ValueError(
                 "pallas_dw applies to the cnn model only (the "
                 "patch-reuse conv-dW kernel covers its 3x3/SAME convs)")
-        if moe_experts or attention != "full" or tensor_parallel:
+        if moe_experts or attention != "full" or tensor_parallel \
+                or pipeline_parallel:
             raise ValueError(
                 "pallas_dw is exclusive with the vit-family features; got "
                 f"moe_experts={moe_experts}, attention={attention!r}, "
                 f"tensor_parallel={tensor_parallel}, "
-                "pipeline_parallel=False")
-    check_moe(name, moe_experts, tensor_parallel)
+                f"pipeline_parallel={pipeline_parallel}")
+    check_moe(name, moe_experts, tensor_parallel, pipeline_parallel)
+    if pipeline_parallel:
+        from .vit_pipeline import PipelinedViT
+
+        check_pipeline(name, attention, tensor_parallel, mesh,
+                       pipeline_microbatches)
+        return PipelinedViT(num_classes=num_classes, dtype=dtype, mesh=mesh,
+                            n_micro=pipeline_microbatches,
+                            ring=attention == "ring", device=device)
     check_attention(name, attention)
     if tensor_parallel:
         check_tensor_parallel(name, attention, mesh)

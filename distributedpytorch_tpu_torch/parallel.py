@@ -21,7 +21,11 @@ has two strategies on its mesh's 'model' axis, and the port keeps both:
    of a tie can differ.
 
 2. **Model-local slices** (``Shard(gathered=False)``), which a model
-   declares through ``local_shards()``: the vit's Megatron tensor
+   declares through ``local_shards()``: the pipelined vit's stacked
+   blocks (``leaf_spec(prefer_axis0=True)``, as JAX's ``_place_state``
+   asks under ``--pipeline-parallel``, ``cli.py:60-69``: stage s holds
+   blocks [s*depth/M, (s+1)*depth/M) of each large stacked tensor,
+   ``models/vit_pipeline.py``), the vit's Megatron tensor
    parallelism (``--tensor-parallel``: qkv and mlp_up split by output
    rows, proj and mlp_down by input columns, qkv's rows taken per head
    from each of q, k and v) and the MoE vit's expert parallelism (the
@@ -55,17 +59,22 @@ from . import runtime
 MIN_SHARD_ELEMENTS = 2 ** 14
 
 
-def leaf_spec(shape, model_parallel: int) -> Optional[int]:
+def leaf_spec(shape, model_parallel: int,
+              prefer_axis0: bool = False) -> Optional[int]:
     """The axis of ``shape`` that JAX's ``leaf_spec`` puts on 'model'
-    (the largest one that ``model_parallel`` divides, the first on
-    ties), or None: replicated (no model axis, a tensor below
-    MIN_SHARD_ELEMENTS, or no divisible axis)."""
+    (the largest one that ``model_parallel`` divides, the first on ties;
+    with ``prefer_axis0``, axis 0 whenever it divides: the pipeline's
+    stacked (depth, ...) blocks, JAX ``parallel.py:55-80``), or None:
+    replicated (no model axis, a tensor below MIN_SHARD_ELEMENTS, or no
+    divisible axis)."""
     if model_parallel <= 1 or math.prod(shape) < MIN_SHARD_ELEMENTS:
         return None
     divisible = [i for i in range(len(shape))
                  if shape[i] % model_parallel == 0]
     if not divisible:
         return None
+    if prefer_axis0 and 0 in divisible:
+        return 0
     return max(divisible, key=lambda i: shape[i])
 
 

@@ -15,10 +15,13 @@ every local rank has a card of its own (rank ``LOCAL_RANK`` takes card
 ``LOCAL_RANK``); gloo over CUDA tensors when the local ranks outnumber the
 cards (NCCL refuses two ranks on one card), the device staying ``cuda``.
 
-``make_mesh`` lays the world out as the JAX ``(data, model)`` mesh
-(``runtime.py:192-220``) with process groups, for ``--model-parallel``:
-``ring_shift`` and ``all_gather_seq`` are the ring attention's traffic
-over a model group.
+``make_mesh`` lays the world out as the JAX ``(data, model)`` mesh, or
+``(data, model, seq)`` under ``--seq-parallel`` (``runtime.py:193-220``),
+with process groups, for ``--model-parallel``: ``ring_shift`` and
+``all_gather_seq`` are the ring attention's traffic over a model group
+(over the seq group inside a pipeline stage: ``Mesh.over_seq``), and
+``stage_handoff`` is the GPipe schedule's neighbour-only traffic from one
+stage of a model group to the next (``models/vit_pipeline.py``).
 
 ``agree_health`` is the JAX bounded health agreement (``runtime.py:
 275-350``): one all-gather of three flags at each epoch boundary.  It runs
@@ -287,14 +290,16 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The process world as the JAX package's (data, model) mesh
-    (``make_mesh`` at :192-220, ``devs.reshape(dp, mp)``): rank r is data
-    index r // model_parallel and model index r % model_parallel.  The
-    ranks of one data index form its model group (the ring of ``--attention
-    ring|ring_flash``), the ranks of one model index its data group (the
-    sums of the loss and metrics, one per data shard).  With
-    ``model_parallel`` 1 there are no groups: the data group is the
-    world."""
+    """The process world as the JAX package's (data, model[, seq]) mesh
+    (``make_mesh`` at :193-220, ``devs.reshape(dp, mp, sp)``): rank r is
+    data index r // (M * S), model index (r // S) % M and seq index
+    r % S.  The ranks of one (data, seq) index form a model group (the
+    ring of ``--attention ring|ring_flash``, the pipeline's stages), the
+    ranks of one (data, model) index a seq group (the ring inside a
+    pipeline stage), and the ranks of one (model, seq) index a data
+    group (the sums of the loss and metrics, one per data shard).  With
+    ``model_parallel`` and ``seq_parallel`` 1 there are no groups: the
+    data group is the world."""
 
     data_parallel: int = 1
     model_parallel: int = 1
@@ -303,32 +308,71 @@ class Mesh:
     model_ranks: Tuple[int, ...] = (0,)   # global ranks, in model order
     model_group: Optional[object] = None
     data_group: Optional[object] = None   # None: the whole world
+    seq_parallel: int = 1
+    seq_index: int = 0
+    seq_ranks: Tuple[int, ...] = (0,)     # global ranks, in seq order
+    seq_group: Optional[object] = None
+
+    @property
+    def shard_ranks(self) -> int:
+        """The ranks of one data shard (its model x seq block), which
+        hold the same rows."""
+        return self.model_parallel * self.seq_parallel
+
+    def over_seq(self) -> "Mesh":
+        """This mesh with its seq group in the model group's place: what
+        the ring inside a pipeline stage rings over (``ring_shift`` and
+        ``all_gather_seq`` take the model group)."""
+        return dataclasses.replace(
+            self, model_parallel=self.seq_parallel,
+            model_index=self.seq_index, model_ranks=self.seq_ranks,
+            model_group=self.seq_group)
 
 
-def make_mesh(model_parallel: int = 1) -> Mesh:
-    """The (world / model_parallel, model_parallel) mesh of the process
-    world.  Raises with the JAX message when ``model_parallel`` does not
-    divide the world.  ``dist.new_group`` is collective: every rank
+def make_mesh(model_parallel: int = 1, seq_parallel: int = 1) -> Mesh:
+    """The (world / (M * S), M[, S]) mesh of the process world.  Raises
+    with the JAX message when ``model_parallel`` x ``seq_parallel`` does
+    not divide the world.  ``dist.new_group`` is collective: every rank
     creates every group, in one order."""
     n = world_size()
-    if model_parallel < 1 or n % model_parallel:
+    mp, sp = model_parallel, seq_parallel
+    if mp < 1 or sp < 1 or n % (mp * sp):
         raise ValueError(
-            f"model_parallel={model_parallel} * seq_parallel=1"
+            f"model_parallel={mp} * seq_parallel={sp}"
             f" must divide device count {n}")
-    dp, mp = n // model_parallel, model_parallel
-    d, m = divmod(process_index(), mp)
-    model_group = data_group = None
+    dp, block = n // (mp * sp), mp * sp
+    r = process_index()
+    d, m, s = r // block, (r // sp) % mp, r % sp
+
+    def ranks(dd, mm, ss):
+        return dd * block + mm * sp + ss
+
+    model_ranks = tuple(ranks(d, j, s) for j in range(mp))
+    seq_ranks = tuple(ranks(d, m, j) for j in range(sp))
+    model_group = data_group = seq_group = None
     if mp > 1:
-        for i in range(dp):
-            group = dist.new_group(list(range(i * mp, (i + 1) * mp)))
-            if i == d:
-                model_group = group
-        for j in range(mp):
-            group = dist.new_group(list(range(j, n, mp)))
-            if j == m:
-                data_group = group
-    return Mesh(dp, mp, d, m, tuple(range(d * mp, (d + 1) * mp)),
-                model_group, data_group)
+        for dd in range(dp):
+            for ss in range(sp):
+                group = dist.new_group([ranks(dd, j, ss)
+                                        for j in range(mp)])
+                if (dd, ss) == (d, s):
+                    model_group = group
+    if block > 1:
+        for mm in range(mp):
+            for ss in range(sp):
+                group = dist.new_group([ranks(j, mm, ss)
+                                        for j in range(dp)])
+                if (mm, ss) == (m, s):
+                    data_group = group
+    if sp > 1:
+        for dd in range(dp):
+            for mm in range(mp):
+                group = dist.new_group([ranks(dd, mm, j)
+                                        for j in range(sp)])
+                if (dd, mm) == (d, m):
+                    seq_group = group
+    return Mesh(dp, mp, d, m, model_ranks, model_group, data_group, sp, s,
+                seq_ranks, seq_group)
 
 
 def staged_through_host(group, device: torch.device) -> bool:
@@ -377,6 +421,38 @@ def all_gather_seq(mesh: Mesh, x: torch.Tensor, dim: int = 1
     parts = [torch.empty_like(src) for _ in range(mesh.model_parallel)]
     dist.all_gather(parts, src, group=mesh.model_group)
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+def stage_handoff(mesh: Mesh, send: Optional[torch.Tensor],
+                  recv: Optional[tuple], forward: bool = True
+                  ) -> Optional[torch.Tensor]:
+    """One tick's neighbour-only exchange over the model group, the
+    counterpart of ``lax.ppermute(y, 'model', [(i, i + 1) ...])`` (JAX
+    ``vit_pipeline.py:146-147``) and of its transpose: ``send`` (or None)
+    goes to model index m + 1 (``forward``; m - 1 backward), and with
+    ``recv`` = (shape, dtype, device) a tensor of that shape comes from m
+    - 1 (m + 1 backward), in one ``batch_isend_irecv``; no wrap at either
+    end.  Staged through host memory where ``staged_through_host``.  No
+    gradient.  Returns the received tensor, or None."""
+    step = 1 if forward else -1
+    ops, got = [], None
+    if send is not None:
+        out, = _outgoing(mesh.model_group, [send])
+        ops.append(dist.P2POp(dist.isend, out,
+                              mesh.model_ranks[mesh.model_index + step],
+                              mesh.model_group))
+    if recv is not None:
+        shape, dtype, device = recv
+        host = staged_through_host(mesh.model_group, device)
+        got = torch.empty(shape, dtype=dtype,
+                          device="cpu" if host else device)
+        ops.append(dist.P2POp(dist.irecv, got,
+                              mesh.model_ranks[mesh.model_index - step],
+                              mesh.model_group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return None if got is None else got.to(recv[2])
 
 
 _health = None      # (timeout seconds or None, the gloo group)

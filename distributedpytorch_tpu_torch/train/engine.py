@@ -32,7 +32,12 @@ slices, and a rank's gradient of a slice is its share of the full
 gradient, which the M ranks of a shard compute alike; so the slices and
 the whole tensors alike are reduced over the data group only, never
 summed over the model group (DDP over the data group, none when it has
-one rank).  The affine augmentation of a step is drawn for
+one rank).  Under ``--pipeline-parallel`` (``models/vit_pipeline.py``)
+the model group's ranks are pipeline stages and, with ``--seq-parallel``,
+the M x S ranks of a data shard hold its rows: the model's own backward
+makes every rank's gradients its shard's (a stage's blocks its own, the
+replicated tensors equal on every rank), so the reduction is the same,
+over the data group only.  The affine augmentation of a step is drawn for
 the whole rank-major global batch from the step's generator, which is
 seeded alike on every rank, and data shard d keeps rows [d*b, (d+1)*b) of
 its b rows, as one JAX key augments the global batch (:237-251).  The
@@ -304,7 +309,7 @@ class Engine:
             freeze_backbone(self.model)
         parallel.place(self.model, self.mesh)
         ddp = None
-        if runtime.distributed() and (self.mesh.model_parallel == 1
+        if runtime.distributed() and (self.mesh.shard_ranks == 1
                                       or self.mesh.data_parallel > 1):
             from torch.nn.parallel import DistributedDataParallel
 

@@ -396,7 +396,11 @@ def test_registry_refuses_as_jax():
              (dict(name="cnn", moe_experts=4, pallas_dw=True), {}),
              (dict(name="vit", moe_experts=3, mesh=jmesh), dict(mesh=mesh)),
              (dict(name="vit", moe_experts=3, mesh=jmesh, attention="ring"),
-              dict(mesh=mesh, attention="ring"))]
+              dict(mesh=mesh, attention="ring")),
+             # exclusive with the pipeline, as with tensor parallelism
+             (dict(name="vit", moe_experts=4, mesh=jmesh,
+                   pipeline_parallel=True),
+              dict(mesh=mesh, pipeline_parallel=True))]
     for jax_kw, port_kw in cases:
         message = _jax_error(**jax_kw)
         kw = {**{k: v for k, v in jax_kw.items() if k != "mesh"}, **port_kw}

@@ -100,9 +100,12 @@ SHAPES = [tuple(int(d) for d in _rng.choice([1, 2, 3, 5, 6, 8, 64, 96, 128,
 @pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
 def test_leaf_spec_is_jaxs(shape):
     for mp in (1, 2, 3, 4):
-        spec = jax_parallel.leaf_spec(shape, mp)
-        want = next((i for i, a in enumerate(spec) if a is not None), None)
-        assert parallel.leaf_spec(shape, mp) == want, (shape, mp)
+        for axis0 in (False, True):     # True: the pipeline's placement
+            spec = jax_parallel.leaf_spec(shape, mp, prefer_axis0=axis0)
+            want = next((i for i, a in enumerate(spec) if a is not None),
+                        None)
+            assert parallel.leaf_spec(shape, mp, prefer_axis0=axis0) == \
+                want, (shape, mp, axis0)
 
 
 def _jax_params(name: str, moe: int = 0):

@@ -483,9 +483,10 @@ NOT_PORTED = [
 @pytest.mark.parametrize("extra,flag", NOT_PORTED,
                          ids=[f for _, f in NOT_PORTED])
 def test_flag_not_ported_fails_loudly(extra, flag, capsys):
-    """Each flag fails with one line; --model-parallel and
-    --tensor-parallel with the JAX serve's message (they do not apply to
-    a replica), --precision against --no-bf16
+    """Each flag fails with one line; --model-parallel,
+    --tensor-parallel, --pipeline-parallel and --seq-parallel with the JAX
+    serve's message (they do not apply to a replica), --precision against
+    --no-bf16
     with the JAX conflict, --elastic-join without --elastic with the JAX
     run_serve's, every other one as not ported yet; --remat is ported and
     taken (nothing of serve reads it), and so are --fault-plan (the serve.*
@@ -516,7 +517,8 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
         message = re.escape(
             f"--no-bf16 conflicts with {flag}: --no-bf16 is the legacy "
             f"alias for --precision f32; drop one")
-    if flag in ("--model-parallel", "--tensor-parallel"):
+    if flag in ("--model-parallel", "--tensor-parallel",
+                "--pipeline-parallel", "--seq-parallel"):
         message = re.escape(
             "serve runs replica-local data-parallel inference; "
             "--model-parallel/--tensor-parallel/--pipeline-parallel/"

@@ -700,6 +700,39 @@ REFUSED_MESSAGES = {
             "weights come from -f FILE")},
     # ported: the state placed over 'model' (tests/test_torch_parallel.py)
     "--model-parallel": dict.fromkeys(("train", "test"), None),
+    # ported (tests/test_torch_pipeline.py), and refused as the JAX
+    # package refuses them: train without a model axis, or the seq axis
+    # without the ring pipeline, by run_train's checks (cli.py:731-767);
+    # test's seq axis by its guard (:1347-1358), its pipeline without a
+    # model axis by the registry once the checkpoint's model is built;
+    # test takes --pipeline-microbatches, as the JAX test does
+    "--pipeline-parallel": {
+        "train": re.escape(
+            "--attention ring/flash/ring_flash, --tensor-parallel and "
+            "--pipeline-parallel require --model vit, are mutually "
+            "exclusive (except --pipeline-parallel + --attention ring with "
+            "--seq-parallel >= 2), and (except single-chip flash) need "
+            "--model-parallel >= 2; got model='vit', model_parallel=1, "
+            "attention='full', tensor_parallel=False, "
+            "pipeline_parallel=True"),
+        "test": None},
+    "--seq-parallel": {
+        "train": re.escape(
+            "--seq-parallel >= 2 is the ring x pipeline composition's "
+            "third mesh axis: it requires --pipeline-parallel with "
+            "--attention ring (for plain sequence parallelism use "
+            "--attention ring, which rings over the 'model' axis); got "
+            "seq_parallel=2, attention='full', pipeline_parallel=False"),
+        "test": re.escape(
+            "--seq-parallel >= 2 is the ring x pipeline composition's "
+            "third mesh axis: it requires --pipeline-parallel with "
+            "--attention ring; got seq_parallel=2, attention='full', "
+            "pipeline_parallel=False")},
+    "--pipeline-microbatches": {
+        "train": re.escape(
+            "--pipeline-microbatches requires --pipeline-parallel (it sets "
+            "the GPipe M)"),
+        "test": None},
     # ported, and refused without a model axis as the JAX package does
     # (train: run_train's check; test: the registry's)
     "--tensor-parallel": {
@@ -750,7 +783,8 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                        no_compile_cache=False, metrics_port=0,
                        flightrec=True, elastic=False, elastic_join=False,
                        health_timeout=0.0, max_reconfigures=3,
-                       fault_plan=None, moe_experts=0, model_parallel=1)
+                       fault_plan=None, moe_experts=0, model_parallel=1,
+                       pipeline_parallel=False, pipeline_microbatches=0)
         changed = {"--grad-accum": {"grad_accum": 3},
                    "--ckpt-async": {"ckpt_async": True},
                    "--epochs-per-dispatch": {"epochs_per_dispatch": 2},
@@ -775,7 +809,10 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                    "--fault-plan": {
                        "fault_plan": "data.read:ioerror:0"},
                    "--moe-experts": {"moe_experts": 4},
-                   "--model-parallel": {"model_parallel": 2}}[flag]
+                   "--model-parallel": {"model_parallel": 2},
+                   "--pipeline-parallel": {"pipeline_parallel": True},
+                   "--pipeline-microbatches": {
+                       "pipeline_microbatches": 2}}[flag]
         assert {k: getattr(cfg, k) for k in default} == \
             {**default, **changed}
         return
