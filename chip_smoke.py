@@ -51,6 +51,11 @@ or the GPipe vit and its ring over 'seq' (``--pipeline-parallel``,
 
     python3 chip_smoke.py --phases 44
 
+or the stacked block runs of ``--scan-layers`` (which bring in phase 43,
+in whose world the stacked ring runs):
+
+    python3 chip_smoke.py --phases 45
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -168,8 +173,8 @@ result.  Phases, each printing its lines before the last:
      at a causal S = 1000;
  18. the ring slice's main path: ``torchrun --nproc_per_node 2 ... train
      --model vit --attention ring_flash --model-parallel 2 -e 1`` on the
-     first 10,000 train and 1,000 test rows of the synthetic corpus (71
-     steps, 8 validation batches a rank; cut for time); validation at
+     first 7,000 train and 1,000 test rows of the synthetic corpus (50
+     steps, 6 validation batches a rank; cut for time); validation at
      least twice chance, the loss falling, K4 launches 8 per step and eval
      batch, K2p and K3p 8 per step, every one on the tensor cores, K1-K3
      none; then, at once, ``test -f`` under the same launch and ``test -f
@@ -232,7 +237,7 @@ result.  Phases, each printing its lines before the last:
      Adam state and BatchNorm buffers bit-unchanged, the step advanced,
      the scale halved;
  27. the f16 main path: ``train --model vit --attention flash --precision
-     f16 -e 1`` on phase 18's corpus (141 steps; validation at least
+     f16 -e 1`` on phase 18's corpus (99 steps; validation at least
      twice chance,
      the loss falling, K1/K2/K3 launches by phase 6's formula, all on the
      tensor cores, the skipped steps and final scale logged), ``test -f
@@ -481,13 +486,42 @@ result.  Phases, each printing its lines before the last:
      (stacked -> blocks at load) and on 2 ranks with the pipeline flags,
      each equal to an in-process eval of the pipelined model.  It runs on
      43's thread after it;
- 45. the card's name and power limit again, one ``{"kernels": [...]}``
+ 45. ``--scan-layers`` (the stacked vit, vgg, densenet and inception,
+     ``models/scan.py``): (a) in process, cuDNN deterministic, the
+     full-width stacked vit (``blocks.block.*``) with ``--attention
+     flash`` against the unrolled vit from SEED's weights: 3 f32 Adam
+     steps of 64 rows, every tensor bit-identical or within TOL_SCAN
+     (the number of differing tensors and the worst error printed), K1,
+     K2 and K3 4 a step each; a bf16 step's launches 4/4/4, all on the
+     tensor cores, and its device time (median of 3 traces), wall time
+     and kernels a step beside the unrolled vit's (printed, not a gate);
+     (d) then
+     densenet121 at 224: one SGD step of 16 rows stacked against
+     unrolled in f64 compute within TOL_SCAN_F64, and in f32 by the
+     conditioned rule against the unrolled f64 step, then a bf16 Adam
+     step at batch 64, its device time and the step's own peak
+     ``max_memory_allocated`` beside the unrolled one's (printed); (b) in
+     phase 43's zero world (2 ranks, data 1 x model 2, the state placed
+     by ZeRO), the ``ring_flash`` vit stacked and unrolled, 3 bf16 SGD
+     steps each: the stacked run's state bit-identical to the unrolled
+     one's, K4, K2p and K3p 8 a step each on both, all on the tensor
+     cores; (c) on a thread of its own started with 43's, ``train
+     --model vit --attention flash --scan-layers -e 1`` on phase 22's
+     corpus (K1-K3 by phase 6's
+     formula, all on the tensor cores, the best file in the scan
+     layout), then ``test -f`` of it on a plain config (scan -> blocks at
+     load) equal to an in-process eval, and in process ``serve
+     --scan-layers``'s replica in a ``serving.ServingTier`` answering one
+     wave of 64 in one batch, every answer equal to the stacked model's
+     predict step of that batch.  (a) and (d) run before phase 21 with
+     the other timed in-process phases;
+ 46. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
 Phases run in the order of their numbers but for these changes: 23, 24,
-32, the in-process parts of 35, 36, 38 and 42, and 37, which time steps
-and kernels, run before 21; the exit test's five trainings (31) and 38's
+32, the in-process parts of 35, 36, 38, 42 and 45, and 37, which time
+steps and kernels, run before 21; the exit test's five trainings (31) and 38's
 five CLI trainings start then and run beside 21, 22 and 25-36, and 40's
 world of replicas, then 41's, beside 21; 39's thread starts after 22;
 phase
@@ -496,15 +530,17 @@ phase
 and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
 35, 36 and 38's last checks, then 42's, 43's and 44's, 39's, 40's and
-41's, come last; 43's thread, which runs 44 after 43, starts with the CLI
-runs of 42.  Nothing after 38's
+41's, come last; 43's thread, which runs 44 after 43 (45's stacked ring
+inside 43's zero world), and 45's CLI thread start with the CLI runs of
+42.  Nothing after 38's
 in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
 Any failed check exits non-zero before
 the last line is printed.  Work files go to ``build/chip_smoke/`` in the
 checkout, and the bytecode of the modules that the run's processes import
-to ``build/pycache/``.
+to ``build/pycache/``.  Child processes run with CHILD_THREADS intra-op
+threads each (``OMP_NUM_THREADS``, unless it is set).
 """
 
 from __future__ import annotations
@@ -1581,10 +1617,11 @@ def write_vit_data() -> None:
     write_corpus(VIT_DATA, VIT_TRAIN_ROWS, VIT_TEST_ROWS)
 
 
-# Phases 18 and 27's corpus, cut from phase 6's for the run's time limit:
-# 9,000 train rows (71 steps of the ring shard's 128, 141 of 64), 1,000
-# validation rows and 1,000 test rows.
-RING_DATA_TRAIN_ROWS = 10000
+# Phases 18, 27 and 36's corpus, cut from phase 6's for the run's time
+# limit (from 10,000 rows to 7,000 to make room for phase 45): 6,300
+# train rows (50 steps of the ring shard's 128, 99 of 64), 700 validation
+# rows and 1,000 test rows.
+RING_DATA_TRAIN_ROWS = 7000
 RING_DATA_TEST_ROWS = 1000
 RING_DATA = os.path.join(WORK, "ring_data")
 
@@ -4861,7 +4898,7 @@ def parse_loss_scale(log: str) -> tuple:
 
 def start_f16_train() -> tuple:
     """Phase 27's ``train --model vit --attention flash --precision f16
-    -e 1`` on RING_DATA (141 steps), started ahead of the phase."""
+    -e 1`` on RING_DATA (99 steps), started ahead of the phase."""
     write_ring_data()
     return start_cli(["train", "--model", "vit", "--attention", "flash",
                       "--precision", "f16", "-e", "1"],
@@ -5275,7 +5312,7 @@ def phase_exit_test(runs: list) -> None:
 
 # -- phase 36: the streaming loader ------------------------------------------
 
-# phase 36's CLI trainings of the vit on phase 18's corpus (141 steps):
+# phase 36's CLI trainings of the vit on phase 18's corpus (99 steps):
 # (work name, the flags beyond the common ones)
 STREAM_CLI = (("stream_resident", ["--data-mode", "resident"]),
               ("stream_default", ["--data-mode", "stream"]),
@@ -7635,7 +7672,7 @@ def phase_moe_cli(train_run: tuple) -> None:
     """(c) and (d): the MoE train's launches by phase 6's formula, all on
     the tensor cores; then at once ``test -f`` of its best file (equal to
     an in-process eval) and, in process, a ``serving.ServingTier`` over
-    it answering one wave of 64 (``moe_serve``)."""
+    it answering one wave of 64 (``tier_serve``)."""
     wall, log = finish_cli(train_run)
     launches, steps, evals = parse_launches(log, "train")
     tensor_core = parse_tensor_core_launches(log, "train")
@@ -7659,7 +7696,9 @@ def phase_moe_cli(train_run: tuple) -> None:
                           "--moe-experts", str(MOE_EXPERTS)],
                          os.path.join(WORK, "moe_test_rsl"), data=ZOO_DATA)
     try:
-        moe_serve(best)
+        tier_serve("moe", best, ["--attention", "flash", "--moe-experts",
+                                 str(MOE_EXPERTS)],
+                   dict(attention="flash", moe_experts=MOE_EXPERTS))
         [(_, test_log)] = finish_all([test_run])
     finally:
         if test_run[3].poll() is None:
@@ -7679,10 +7718,12 @@ def phase_moe_cli(train_run: tuple) -> None:
              "in-process eval")
 
 
-def moe_serve(best: str) -> None:
-    """(d): a ``serving.ServingTier`` over the MoE checkpoint in process,
-    one wave of SERVE_WAVE requests, every answer held against the
-    predict step of the batch the tier formed."""
+def tier_serve(tag: str, best: str, flags: list, model_kw: dict) -> None:
+    """A ``serving.ServingTier`` over the vit checkpoint ``best`` in
+    process, its replica built as ``serve FLAGS`` builds it, answering one
+    wave of SERVE_WAVE requests, every answer held against the predict
+    step (of a vit built with ``model_kw``) of the batch the tier
+    formed."""
     import numpy as np
     import torch
 
@@ -7697,10 +7738,8 @@ def moe_serve(best: str) -> None:
     started = time.perf_counter()
     ds = load_dataset("mnist", ZOO_DATA, SEED, synthetic_fallback=True)
     images = ds.splits["test"].images[:SERVE_WAVE]
-    cfg = config_from_argv(["serve", "-d", ZOO_DATA, "-f", best,
-                            "--attention", "flash", "--moe-experts",
-                            str(MOE_EXPERTS), "--serve-buckets",
-                            str(SERVE_WAVE)])
+    cfg = config_from_argv(["serve", "-d", ZOO_DATA, "-f", best, *flags,
+                            "--serve-buckets", str(SERVE_WAVE)])
     infer = cli._serve_build_replica(cfg, best, "vit", ds, (SERVE_WAVE,),
                                      images.shape[1:], images.dtype,
                                      torch.device("cuda"))
@@ -7726,13 +7765,13 @@ def moe_serve(best: str) -> None:
         tier.close()
     answers = wave["answers"]
     if any(a[0] != 200 for a in answers) or len(batches) != 1:
-        fail(f"moe: the tier answered {[a[0] for a in answers][:8]} in "
+        fail(f"{tag}: the tier answered {[a[0] for a in answers][:8]} in "
              f"{len(batches)} batches (one wave of {SERVE_WAVE} is one "
              "batch)")
     [batch] = batches
     policy = PRESETS["bf16"]
-    model = get_model("vit", ds.nb_classes, policy, attention="flash",
-                      device="cuda", moe_experts=MOE_EXPERTS)
+    model = get_model("vit", ds.nb_classes, policy, device="cuda",
+                      **model_kw)
     ckpt.restore_for_serving(best, model)
     labels, confs = Predictor(model, ds.mean, ds.std, 28, policy,
                               "cuda").predict_step(batch)
@@ -7743,17 +7782,18 @@ def moe_serve(best: str) -> None:
     got_confs = np.array([a[1]["confidence"] for a in answers])
     err = float(np.abs(got_confs - confs[rows]).max())
     equal = int((got_labels == labels[rows]).sum())
-    say(f"moe: a served wave of {SERVE_WAVE} in one batch of bucket "
+    say(f"{tag}: a served wave of {SERVE_WAVE} in one batch of bucket "
         f"{SERVE_WAVE}: {equal} labels equal to the predict step of that "
         f"batch, max conf err {err:.3g} (tol {TOL_CONF:g}); the tier took "
         f"{time.perf_counter() - started:.1f}s with its build")
     if equal != SERVE_WAVE or err > TOL_CONF \
             or sorted(rows) != list(range(SERVE_WAVE)):
-        fail("moe: the served answers disagree with the predict step")
+        fail(f"{tag}: the served answers disagree with the predict step")
 
 
-PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}}
-LAST_PHASE = 45                 # the closing lines; only a full run has it
+# 45 (b) runs in 43's zero world
+PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}, 45: {43}}
+LAST_PHASE = 46                 # the closing lines; only a full run has it
 
 
 # -- phase 43: placement over 'model', tensor and expert parallelism -------
@@ -7796,13 +7836,15 @@ def p43_expected_elements(state: dict, experts: bool) -> int:
     return n
 
 
-def placement_worlds() -> dict:
+def placement_worlds(scan_ring: bool = False) -> dict:
     """(a)-(c) in process: the worlds of P43_WORLDS at once on the card
     (tests/_torch_ring_child.py vit, the placed ranks over gloo), each
     placed world's gathered parameters after P43_STEPS steps against its
     one-process run's, a rank's parameter and momentum elements against
     the rule's count, and under TP each rank's peak of its last step
-    against one process's.  Returns the printed numbers."""
+    against one process's.  With ``scan_ring``, phase 45 (b) in the zero
+    world after its spec (``scan_ring_steps``).  Returns the printed
+    numbers."""
     import numpy as np
     import torch
 
@@ -7824,15 +7866,24 @@ def placement_worlds() -> dict:
         return dict(arch=arch, attention=attention, seed=SEED, params=None,
                     steps=steps, peak_memory=True)
 
+    def specs(name, arch, attention):
+        if name != "zero" or not scan_ring:
+            return spec(arch, attention)
+        return [spec(arch, attention)] + [
+            dict(spec({"scan_layers": stacked}, "ring_flash"),
+                 precision="bf16", peak_memory=False)
+            for stacked in (False, True)]
+
     placed = [w for w in P43_WORLDS if w[1] == 2]
     ones = [w for w in P43_WORLDS if w[1] == 1]
     got = run_worlds([
-        ring_world("vit", spec(arch, attention), world, f"p43_{name}",
+        ring_world("vit", specs(name, arch, attention), world, f"p43_{name}",
                    "--model-parallel", str(world))
         for name, world, arch, attention in placed] + [
         ring_world("vit", [spec(arch, attention) for _, _, arch, attention
                            in ones], 1, "p43_one", "--model-parallel", "1")])
-    worlds = {name: ranks for (name, *_), ranks in zip(placed, got)}
+    worlds = {name: [r[0] if isinstance(r, list) else r for r in ranks]
+              for (name, *_), ranks in zip(placed, got)}
     worlds.update({name: [r] for (name, *_), r in zip(ones, got[-1][0])})
     out = {}
     for name in ("zero", "ep", "tp"):
@@ -7879,7 +7930,49 @@ def placement_worlds() -> dict:
         f" of one process's")
     if any(p >= peak1 for p, _ in peaks):
         fail("placement tp: a rank's peak is not below one process's")
+    if scan_ring:
+        out["scan_ring"] = scan_ring_steps(
+            [r[1:] for r in got[[n for n, *_ in placed].index("zero")]])
     return out
+
+
+def scan_ring_steps(ranks: list) -> dict:
+    """Phase 45 (b): each rank's (unrolled, stacked) ``ring_flash`` vit
+    results at M = 2 in bf16 (P43_STEPS SGD steps of the zero world's
+    batches, the state placed as ZeRO places it): the stacked run's
+    gathered state in the plain layout bit-identical to the unrolled
+    run's, and K4, K2p and K3p 8 a step each on both, all on the tensor
+    cores."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models import scan
+
+    want = {"flash_fwd_pos": 2 * DEPTH * P43_STEPS,
+            "flash_dq_pos": 2 * DEPTH * P43_STEPS,
+            "flash_dkv_pos": 2 * DEPTH * P43_STEPS}
+    bad = []
+    for rank, (plain, stacked) in enumerate(ranks):
+        got = scan.convert_layout(stacked["state"], "blocks")
+        differ = [k for k, v in plain["state"].items()
+                  if not torch.equal(v, got[k])]
+        launches = [{k: v for k, v in r["launches"].items() if v}
+                    for r in (plain, stacked)]
+        tc = [{k: v for k, v in r["tensor_core"].items() if v}
+              for r in (plain, stacked)]
+        say(f"scan ring: rank {rank}: the stacked ring_flash vit at M = 2 "
+            f"against the unrolled one, {P43_STEPS} bf16 SGD steps: "
+            f"{len(differ)} of {len(got)} tensors differ; losses "
+            f"{[m[0] for m in stacked['metrics']]} vs "
+            f"{[m[0] for m in plain['metrics']]}; launches {launches[1]} vs "
+            f"{launches[0]}, on the tensor cores {tc[1]} vs {tc[0]} "
+            f"(formula {want})")
+        if differ or stacked["metrics"] != plain["metrics"] \
+                or any(x != want for x in launches + tc):
+            bad.append(rank)
+    if bad:
+        fail(f"scan ring: ranks {bad}: the stacked ring differs from the "
+             f"unrolled one or its launches are not {want}")
+    return {"launches": want}
 
 
 def placement_cli() -> dict:
@@ -8154,44 +8247,374 @@ def pipeline_cli() -> dict:
             "acc": acc_here}
 
 
+# -- phase 45: --scan-layers ----------------------------------------------
+
+# (a): f32 Adam steps of the stacked vit against the unrolled one from the
+# same weights and batches, cuDNN deterministic as train sets it; each
+# tensor relative to its largest value: the same kernels on bit-equal
+# slices, so bit-identical is expected, and anything else is held to
+# TOL_SCAN with its largest error printed
+SCAN_STEPS = 3
+TOL_SCAN = 1e-6
+SCAN_TIME_STEPS = 10            # (a): bf16 steps on the host clock, twice
+SCAN_TRACE_REPS = 5             # (a): bf16 steps a trace, 3 traces
+# (d): densenet121 at 224: one step of SCAN_DN_BATCH rows, stacked against
+# unrolled, in f64 compute (its 1x1 convs sum the padded channels' zeros
+# in another order) and in f32 by the conditioned rule against the
+# unrolled f64 step (ROADMAP queue 3 entry 8); then the bf16 step at
+# batch 64 timed and its peak memory read
+SCAN_DN_BATCH = 16
+TOL_SCAN_F64 = 1e-6
+SCAN_DN_TRACE_REPS = 2
+SCAN_ARGS = ["train", "--model", "vit", "--attention", "flash",
+             "--scan-layers", "-e", "1"]
+
+
+def scan_batches(n: int, rows: int, seed: int) -> list:
+    """``n`` train batches of ``rows`` rows of WORK/data on the card:
+    (images, labels, valid, affine draws from uniform ones)."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.data import augment
+
+    ds = work_dataset()
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        rows_i = slice(i * rows, (i + 1) * rows)
+        u = torch.from_numpy(rng.random((rows, 5), dtype=np.float32))
+        out.append((
+            torch.from_numpy(ds.splits["train"].images[rows_i]).cuda(),
+            torch.from_numpy(ds.splits["train"].labels[rows_i]
+                             .astype(np.int64)).cuda(),
+            torch.ones(rows, dtype=torch.bool, device="cuda"),
+            augment.affine_from_uniform(u.cuda(), 28, 28)))
+    return out
+
+
+def scan_engine(name: str, policy, scan_layers: bool,
+                optimizer: str = "adam"):
+    """The engine and state of the registry's ``name`` (the vit with
+    ``--attention flash``) on the card, SEED's weights."""
+    import torch
+
+    from distributedpytorch_tpu_torch.models import (get_model,
+                                                     get_model_input_size)
+    from distributedpytorch_tpu_torch.ops.losses import cross_entropy
+    from distributedpytorch_tpu_torch.train.engine import Engine
+
+    ds = work_dataset()
+    model = get_model(name, ds.nb_classes, policy, device="cuda",
+                      attention="flash" if name == "vit" else "full",
+                      scan_layers=scan_layers)
+    engine = Engine(model, cross_entropy, ds.mean, ds.std,
+                    get_model_input_size(name), policy, "cuda",
+                    optimizer=optimizer)
+    return engine, engine.init_state(torch.Generator().manual_seed(SEED))
+
+
+def unstacked(tensors: dict) -> dict:
+    """A state dict or gradients by name in the plain layout (a scanned
+    model's converted), as f64 on the host."""
+    from distributedpytorch_tpu_torch.models import scan
+
+    layout = scan.params_layout(tensors)
+    if layout in ("scan", "vgg_scan", "dense_scan", "inception_scan"):
+        tensors = scan.convert_layout(tensors, scan.scan_layout_for(layout))
+    return {k: v.detach().double().cpu() for k, v in tensors.items()}
+
+
+def phase_scan() -> dict:
+    """(a) and (d) of phase 45, in process before phase 21 with the other
+    timed phases: the stacked vit's f32 steps against the unrolled one's
+    and its launches, its bf16 step's device and wall time beside the
+    unrolled one's; densenet121's stacked step against the unrolled one
+    in f64 and f32, and its bf16 step's device time and peak memory."""
+    import torch
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedpytorch_tpu_torch.cli import (kernel_launches,
+                                                  tensor_core_launches)
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # as train sets it
+    out = {}
+    try:
+        batches = scan_batches(SCAN_STEPS, TRAIN_BATCH, SEED + 45)
+        runs = {}
+        for stacked in (False, True):
+            engine, state = scan_engine("vit", PRESETS["f32"], stacked)
+            before = kernel_launches()
+            losses = [engine.train_step_affine(state, *b)[1]["loss"].item()
+                      for b in batches]
+            torch.cuda.synchronize()
+            runs[stacked] = (unstacked(state.model.state_dict()), losses, {
+                k: v - before[k] for k, v in kernel_launches().items()
+                if v - before[k]})
+        (plain, plain_losses, plain_l), (got, got_losses, got_l) = \
+            runs[False], runs[True]
+        differ = [k for k, v in plain.items() if not torch.equal(v, got[k])]
+        worst = max(((k, rel_err(got[k], v)[1]) for k, v in plain.items()),
+                    key=lambda t: t[1])
+        want = {"flash_fwd": DEPTH * SCAN_STEPS,
+                "flash_dq": DEPTH * SCAN_STEPS,
+                "flash_dkv": DEPTH * SCAN_STEPS}
+        say(f"scan: the stacked vit (blocks.block.*, depth {DEPTH}) against "
+            f"the unrolled one, {SCAN_STEPS} f32 Adam steps of "
+            f"{TRAIN_BATCH} rows from SEED's weights: {len(differ)} of "
+            f"{len(plain)} tensors differ, worst {worst[0]} rel err "
+            f"{worst[1]:.3g} (tol {TOL_SCAN:g}); losses {got_losses} vs "
+            f"{plain_losses}; launches {got_l} vs {plain_l}")
+        if worst[1] > TOL_SCAN or got_l != want or plain_l != want:
+            fail(f"scan: the stacked vit's f32 steps disagree with the "
+                 f"unrolled ones ({differ[:4]}) or its launches {got_l} "
+                 f"are not {want}")
+        out["f32"] = {"differ": len(differ), "worst": worst[1]}
+        steps = {}
+        for stacked in (False, True):
+            engine, state = scan_engine("vit", PRESETS["bf16"], stacked)
+            before, before_tc = kernel_launches(), tensor_core_launches()
+            engine.train_step_affine(state, *batches[0])
+            torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in kernel_launches().items()
+                        if v - before[k]}
+            tc = {k: v - before_tc[k] for k, v in
+                  tensor_core_launches().items() if v - before_tc[k]}
+            steps[stacked] = (functools.partial(
+                engine.train_step_affine, state, *batches[0]), launches, tc)
+        want = {"flash_fwd": DEPTH, "flash_dq": DEPTH, "flash_dkv": DEPTH}
+        say(f"scan: a bf16 step's launches, stacked {steps[True][1]} "
+            f"(tensor-core {steps[True][2]}), unrolled {steps[False][1]}")
+        if any(st[1] != want or st[2] != want for st in steps.values()):
+            fail(f"scan: a bf16 step's launches are not {want}, all on the "
+                 f"tensor cores")
+        wall = {False: [], True: []}
+        for _ in range(2):
+            for stacked in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SCAN_TIME_STEPS):
+                    steps[stacked][0]()
+                torch.cuda.synchronize()
+                wall[stacked].append((time.perf_counter() - t0) * 1e3
+                                     / SCAN_TIME_STEPS)
+        dev = device_ms_tries({"stacked": steps[True][0],
+                               "unrolled": steps[False][0]},
+                              reps=SCAN_TRACE_REPS, tries=3)
+        med = {k: spread(v)[0] for k, v in dev.items()}
+        ratio = (med["stacked"] / med["unrolled"]
+                 if med["stacked"] and med["unrolled"] else None)
+        kernels = {}
+        for stacked in (False, True):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    steps[stacked][0]()
+                torch.cuda.synchronize()
+            kernels[stacked] = {e.key[:40]: e.count // 2
+                                for e in device_kernels(prof)}
+        fewer = {k: n - kernels[True].get(k, 0)
+                 for k, n in kernels[False].items()
+                 if n != kernels[True].get(k, 0)}
+        say(f"scan: a bf16 Adam step of the full-width vit at batch "
+            f"{TRAIN_BATCH}: device ms stacked {fmt_ms(med['stacked'])}, "
+            f"unrolled {fmt_ms(med['unrolled'])} (median of "
+            f"{len(dev['stacked'])} traces of {SCAN_TRACE_REPS} steps; "
+            f"ratio {ratio if ratio is None else round(ratio, 4)}); wall ms "
+            f"stacked {[round(w, 3) for w in wall[True]]}, unrolled "
+            f"{[round(w, 3) for w in wall[False]]} ({SCAN_TIME_STEPS} steps "
+            f"twice, host clock); kernels a step stacked "
+            f"{sum(kernels[True].values())}, unrolled "
+            f"{sum(kernels[False].values())}; the unrolled step's surplus "
+            f"by kernel {fewer}")
+        out["vit_bf16"] = {"device": med, "wall": wall}
+        del steps, engine, state
+        torch.cuda.empty_cache()
+        out["densenet"] = scan_densenet()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def scan_densenet() -> dict:
+    """(d): densenet121 at 224, stacked against unrolled."""
+    import numpy as np
+    import torch
+
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    [batch] = scan_batches(1, SCAN_DN_BATCH, SEED + 46)
+    grads = {}
+    for prec, policy in (("f64", f64_policy()), ("f32", PRESETS["f32"])):
+        for stacked in (False, True):
+            engine, state = scan_engine("densenet", policy, stacked,
+                                        optimizer="SGD")
+            engine.train_step_affine(state, *batch)
+            grads[prec, stacked] = unstacked(
+                {n: p.grad for n, p in state.model.named_parameters()})
+            del engine, state
+    truth = grads["f64", False]
+    f64_worst = max(((k, rel_err(grads["f64", True][k], v)[1])
+                     for k, v in truth.items()), key=lambda t: t[1])
+    mine = np.array([rel_err(grads["f32", True][k], v)[1]
+                     for k, v in truth.items()])
+    theirs = np.array([rel_err(grads["f32", False][k], v)[1]
+                       for k, v in truth.items()])
+    direct = max(rel_err(grads["f32", True][k], v)[1]
+                 for k, v in grads["f32", False].items())
+    say(f"scan: densenet121 at 224, one SGD step of {SCAN_DN_BATCH} rows "
+        f"stacked (DenseBlockScan_0..3) against unrolled: f64 worst "
+        f"{f64_worst[0]} rel err {f64_worst[1]:.3g} (tol "
+        f"{TOL_SCAN_F64:g}); f32 stacked vs unrolled worst {direct:.3g}; "
+        f"from the unrolled f64 step, median / max: stacked f32 "
+        f"{np.median(mine):.3g} / {mine.max():.3g}, unrolled f32 "
+        f"{np.median(theirs):.3g} / {theirs.max():.3g}")
+    if f64_worst[1] > TOL_SCAN_F64 \
+            or np.median(mine) > ZOO_CONDITIONED_FACTOR * np.median(theirs) \
+            or mine.max() > ZOO_CONDITIONED_FACTOR * theirs.max():
+        fail("scan: densenet121's stacked step disagrees with the "
+             "unrolled one")
+    del grads
+    torch.cuda.empty_cache()
+    [batch] = scan_batches(1, TRAIN_BATCH, SEED + 47)
+    steps, peaks = {}, {}
+    for stacked in (False, True):
+        engine, state = scan_engine("densenet", PRESETS["bf16"], stacked)
+        engine.train_step_affine(state, *batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.train_step_affine(state, *batch)
+        torch.cuda.synchronize()
+        peaks[stacked] = (torch.cuda.max_memory_allocated(), held)
+        steps[stacked] = functools.partial(engine.train_step_affine, state,
+                                           *batch)
+    dev = device_ms_tries({"stacked": steps[True],
+                           "unrolled": steps[False]},
+                          reps=SCAN_DN_TRACE_REPS, tries=1)
+    med = {k: spread(v)[0] for k, v in dev.items()}
+    own = {k: (p - h) / 2 ** 20 for k, (p, h) in peaks.items()}
+    say(f"scan: densenet121 at 224, a bf16 Adam step at batch "
+        f"{TRAIN_BATCH}: device ms stacked {fmt_ms(med['stacked'])}, "
+        f"unrolled {fmt_ms(med['unrolled'])} ({SCAN_DN_TRACE_REPS} steps, "
+        f"1 trace); the step's own peak max_memory_allocated above what "
+        f"it held: stacked {own[True]:.1f} MiB, unrolled {own[False]:.1f} "
+        f"MiB (peaks {peaks[True][0]} and {peaks[False][0]} bytes)")
+    return {"f64": f64_worst[1], "device": med, "peak_mib": own}
+
+
+def scan_cli() -> dict:
+    """(c), on a thread of its own: ``train --model vit --attention flash
+    --scan-layers -e 1`` on phase 22's corpus (K1-K3 by phase 6's
+    formula, all on the tensor cores; the best file in the scan layout),
+    then ``test -f`` of it on a plain config (converted at load) equal to
+    an in-process eval, and, in process, ``serve --scan-layers``'s
+    replica answering one wave (``tier_serve``)."""
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch.models import scan
+
+    write_zoo_data()
+    rsl = os.path.join(WORK, "p45_rsl")
+    [(wall, log)] = finish_all([start_cli(SCAN_ARGS, rsl, data=ZOO_DATA)])
+    launches, steps, evals = parse_launches(log, "train")
+    tensor_core = parse_tensor_core_launches(log, "train")
+    want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
+            "flash_dkv": DEPTH * steps, "conv_dw": 0}
+    best = os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+    layout = scan.params_layout(ckpt.read_checkpoint(best)["state"]
+                                ["params"])
+    say(f"scan: train --scan-layers -e 1 in {wall:.1f}s of process wall: "
+        f"{steps} steps and {evals} eval batches, launches {launches}, on "
+        f"the tensor cores {tensor_core}, formula {want}; the file's layout "
+        f"{layout}")
+    if not steps or launches != want or tensor_core != want \
+            or layout != "scan":
+        fail("scan: the stacked vit's train launches or file disagree")
+    test_run = start_cli(["test", "-f", best, "--attention", "flash"],
+                         os.path.join(WORK, "p45_test"), data=ZOO_DATA)
+    try:
+        tier_serve("scan", best, ["--attention", "flash", "--scan-layers"],
+                   dict(attention="flash", scan_layers=True))
+        [(_, test_log)] = finish_all([test_run])
+    finally:
+        if test_run[3].poll() is None:
+            test_run[3].kill()
+            test_run[3].wait()
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                        test_log).group(1)
+    converted = ("checkpoint params converted: scan -> blocks block "
+                 "layout") in test_log
+    t_launches, _, t_evals = parse_launches(test_log, "test")
+    acc_here, correct, n = eval_accuracy(best, "vit", ZOO_DATA)
+    say(f"scan: `test -f` on a plain config {acc_cli}% (scan -> blocks at "
+        f"load: {converted}; {t_evals} eval batches, launches "
+        f"{t_launches}); in-process eval {acc_here}% ({correct}/{n})")
+    if not converted or acc_cli != acc_here \
+            or t_launches["flash_fwd"] != DEPTH * t_evals:
+        fail("scan: the test of the stacked vit's file disagrees with the "
+             "in-process eval")
+    return {"steps": steps, "evals": evals, "acc": acc_here}
+
+
 def start_placement_phase(placement: bool = True,
-                          pipeline: bool = True) -> dict:
+                          pipeline: bool = True,
+                          scan_layers: bool = True) -> dict:
     """Phases 43 and 44 (``placement``, ``pipeline``: which of them) on a
-    thread of their own beside the other CLI phases, 44 after 43 (their
-    processes share the card; nothing of them is timed): a failure
-    (``fail``'s exit) is kept for ``finish_placement_phase``."""
+    thread of their own beside the other CLI phases, 44 after 43, and
+    45 (c) (``scan_layers``) on a second one (their processes share the
+    card; nothing of them is timed; 45 (b) runs in 43's zero world): a
+    failure (``fail``'s exit) is kept for ``finish_placement_phase``."""
+    write_zoo_data()        # the threads' CLI runs read it, from here on
     pending = {"t0": time.perf_counter()}
 
     def body():
         try:
             if placement:
-                pending["worlds"] = placement_worlds()
+                pending["worlds"] = placement_worlds(scan_layers)
                 pending["cli"] = placement_cli()
             pending["t44"] = time.perf_counter()
             if pipeline:
                 pending["pipeline"] = pipeline_worlds()
                 pending["pipeline_cli"] = pipeline_cli()
-            pending["ok"] = True
+            pending["t_end"] = time.perf_counter()
         except BaseException as e:       # fail()'s SystemExit included
             pending["error"] = e
 
-    pending["thread"] = threading.Thread(target=body, name="phase43",
-                                         daemon=True)
-    pending["thread"].start()
+    def scan_body():
+        try:
+            pending["scan_cli"] = scan_cli()
+            pending["t45"] = time.perf_counter()
+        except BaseException as e:
+            pending["scan_error"] = e
+
+    pending["threads"] = [threading.Thread(target=body, name="phase43",
+                                           daemon=True)]
+    if scan_layers:
+        pending["threads"].append(threading.Thread(
+            target=scan_body, name="phase45", daemon=True))
+    for thread in pending["threads"]:
+        thread.start()
     return pending
 
 
 def finish_placement_phase(pending: dict, card: str) -> None:
     t = time.perf_counter()
-    pending["thread"].join(900)
+    for thread in pending["threads"]:
+        thread.join(900)
     now = time.perf_counter()
-    wall = now - pending["t0"]
+    wall = pending.get("t_end", now) - pending["t0"]
     split = pending.get("t44", now) - pending["t0"]
+    scan_s = pending.get("t45", pending["t0"]) - pending["t0"]
     say(f"chip_smoke: placement and pipeline ran {wall:.1f}s beside the "
-        f"other phases (43 {split:.1f}s, 44 {wall - split:.1f}s), the main "
-        f"thread waited {now - t:.1f}s for them ({card})")
-    if not pending.get("ok"):
-        fail(f"phase 43 or 44 did not pass: {pending.get('error')!r}")
+        f"other phases (43 {split:.1f}s, 44 {wall - split:.1f}s), 45's CLI "
+        f"runs {scan_s:.1f}s on a thread of their own; the main thread "
+        f"waited {now - t:.1f}s for them ({card})")
+    errors = [pending[k] for k in ("error", "scan_error") if k in pending]
+    if errors or "t_end" not in pending or (
+            len(pending["threads"]) > 1 and "scan_cli" not in pending):
+        fail(f"phase 43, 44 or 45 did not pass: {errors!r}")
 
 
 def parse_phases(argv) -> set:
@@ -8222,6 +8645,22 @@ def parse_phases(argv) -> set:
     return chosen
 
 
+# Intra-op CPU threads of each child process (OMP_NUM_THREADS): a dozen
+# CLI trainings, worlds and replicas run at once beside this process on
+# the card's host, and a torch process starts one thread per core.
+CHILD_THREADS = 2
+
+
+def limit_child_threads() -> None:
+    """Every child process starts with CHILD_THREADS intra-op threads (an
+    OMP_NUM_THREADS already set is kept); this process keeps its own
+    count, fixed before the variable is set."""
+    import torch
+
+    torch.set_num_threads(torch.get_num_threads())
+    os.environ.setdefault("OMP_NUM_THREADS", str(CHILD_THREADS))
+
+
 def use_bytecode_cache() -> None:
     """Caches the bytecode of every module that this run and its child
     processes import under build/pycache in the checkout.  A Python whose
@@ -8249,6 +8688,7 @@ def main(argv=None) -> int:
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py: {e}")
     use_bytecode_cache()
+    limit_child_threads()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -8352,6 +8792,8 @@ def main(argv=None) -> int:
         run(phase_observability_host)
     if want(42):
         run(phase_moe)
+    if want(45):
+        run(phase_scan)
     started = []
 
     def ahead(phase: int, start):
@@ -8384,9 +8826,11 @@ def main(argv=None) -> int:
         jax_resume_runs = ahead(34, start_jax_resume)
         stream_runs = ahead(36, start_stream_cli)
         moe_run = ahead(42, start_moe_cli)
-        # 43's worlds and CLI runs, then 44's, on a thread of their own
-        placement_pending = (start_placement_phase(want(43), want(44))
-                             if want(43) or want(44) else None)
+        # 43's worlds and CLI runs, then 44's, on a thread of their own,
+        # and 45's CLI runs on another
+        placement_pending = (start_placement_phase(want(43), want(44),
+                                                   want(45))
+                             if want(43) or want(44) or want(45) else None)
         # 39's faulted, elastic and stalled worlds on a thread of its own
         elastic_pending = start_elastic_phase(card) if want(39) else None
         if want(25):

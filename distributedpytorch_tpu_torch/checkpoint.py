@@ -39,18 +39,20 @@ the flag.  A file that is not a zip archive is
 read as the JAX package's msgpack checkpoint of any of the nine models:
 flax's ndarray extension type is decoded with the plain ``msgpack``
 package and the params, with the ``batch_stats``, are converted by
-``models/convert.py`` (a ``--scan-layers`` layout is refused); ``test``
+``models/convert.py`` (the ``--scan-layers`` layouts too); ``test``
 and ``serve`` read it, and ``train -f`` resumes from it: the optax state
 (Adam's or SGD's, ``--feature-extract``'s head) becomes the torch
 optimizer's (``convert.optimizer_state_from_jax``), the optax count the
 applied updates, and ``step``, the epoch, the best loss and the f16 loss
 scale are taken by the rules of the port's own files.
-A vit file of either block layout (the pipelined vit's stacked
-blocks, the plain vit's per-block modules; the port's or JAX's) loads
-into a model of either: the params and the optimizer moments are
-converted at load, as JAX's ``_load_checkpoint_inner`` converts them
-(:1025-1045, ``models/vit_pipeline.py`` ``convert_layout``), and
-``serve_restore`` records the model's layout.
+A file of any of the eight layouts of ``models/scan.py`` (the vit's
+pipelined ``stacked``, per-block ``blocks`` and ``--scan-layers`` ``scan``;
+vgg, densenet and inception plain or scanned; the port's or JAX's) loads
+into a model of its family's other layout: the params with the running
+statistics, and the optimizer moments, are converted at load, as JAX's
+``_load_checkpoint_inner`` converts them (:1025-1045,
+``scan.convert_layout``), and ``serve_restore`` records the model's
+layout (``unknown`` for a model of none).
 Orbax checkpoint directories are not ported yet.  In a world of several
 ranks, rank 0 writes (the caller gates on ``runtime.is_main()``) and every
 rank reads.  A model placed over a model group (``parallel.place``) is
@@ -79,7 +81,7 @@ import torch
 from torch import nn
 
 from . import faults, parallel, telemetry
-from .models import vit_pipeline
+from .models import scan
 from .models.convert import (cnn_params_from_jax, optimizer_state_from_jax,
                              params_from_jax)
 from .precision import LossScaleState
@@ -610,9 +612,9 @@ def _experts(params) -> int:
 
 
 def _model_layout(model: nn.Module) -> Optional[str]:
-    """The vit layout of ``model``'s parameters ('stacked' | 'blocks'),
-    or None for a model of no vit layout."""
-    return vit_pipeline.params_layout(
+    """The layout of ``model``'s parameters (``scan.params_layout``), or
+    None for a model of none."""
+    return scan.params_layout(
         dict.fromkeys(n for n, _ in model.named_parameters()))
 
 
@@ -620,11 +622,10 @@ def _load_params(path: str, payload: dict, model: nn.Module
                  ) -> Optional[tuple]:
     """Strict load of the file's params; a file and a model that differ
     in ``--moe-experts`` fail with one line naming it, as JAX's layout
-    check does (``checkpoint.py:735-752``).  A vit file of the other
-    layout than the model's (the pipeline's stacked blocks, the plain
-    vit's per-block modules) is converted first, as JAX converts at load
-    (:1025-1045).  Returns (the model's layout, the file's depth) when it
-    converted, else None."""
+    check does (``checkpoint.py:735-752``).  A file of the other layout
+    of the model's family is converted first, as JAX converts at load
+    (:1025-1045).  Returns (the model's layout, the file's vit depth or
+    None) when it converted, else None."""
     saved, wanted = _experts(payload["state"]["params"]), _experts(
         model.state_dict())
     if saved != wanted:
@@ -637,12 +638,14 @@ def _load_params(path: str, payload: dict, model: nn.Module
             f"model {side(wanted)} — load with a matching --moe-experts "
             f"(--moe-experts {saved})")
     params = payload["state"]["params"]
-    src, dst = vit_pipeline.params_layout(params), _model_layout(model)
+    src, dst = scan.params_layout(params), _model_layout(model)
     converted = None
     if src is not None and dst is not None and src != dst:
-        depth = (int(params["qkv_kernel"].shape[0]) if src == "stacked"
-                 else None)
-        params = vit_pipeline.convert_layout(params, dst)
+        depth = scan.layout_depth(params, src)
+        try:
+            params = scan.convert_layout(params, dst)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from e
         converted = (dst, depth)
         logging.info(f"checkpoint params converted: {src} -> {dst} block "
                      f"layout")
@@ -663,7 +666,7 @@ def _convert_moments(by_name: dict, converted: tuple) -> dict:
     # in the file's order, the same on every rank (full_state's gathers
     # follow it)
     keys = list(dict.fromkeys(k for st in by_name.values() for k in st))
-    moved = {k: vit_pipeline.convert_layout(
+    moved = {k: scan.convert_layout(
         {n: st[k] for n, st in by_name.items()}, dst, depth) for k in keys}
     names = next(iter(moved.values())) if moved else {}
     return {n: {k: moved[k][n] for k in keys} for n in names}
@@ -673,9 +676,10 @@ def _convert_optimizer_state(opt_state: dict, file_names: list,
                              model: nn.Module,
                              optimizer: torch.optim.Optimizer,
                              converted: tuple) -> dict:
-    """A port file's ``optimizer.state_dict()`` of the other vit layout
-    -> the run's: its moments named by the file's parameter order,
-    converted, and indexed by the run's optimizer.  A state of fewer
+    """A port file's ``optimizer.state_dict()`` of the other layout -> the
+    run's: its moments named by the file's parameter order (its
+    ``state_dict``'s names but the running statistics), converted, and
+    indexed by the run's optimizer.  A state of fewer
     parameters than the file holds (``--feature-extract``: the head's,
     named alike in both layouts) is taken as it is."""
     groups = opt_state["param_groups"]
@@ -741,8 +745,10 @@ def load_checkpoint(path: str, model: nn.Module,
         opt_state = state["opt_state"]
         if converted is not None:
             opt_state = _convert_optimizer_state(
-                opt_state, list(payload["state"]["params"]), model,
-                optimizer, converted)
+                opt_state, [n for n in payload["state"]["params"]
+                            if not n.endswith(("running_mean",
+                                               "running_var"))],
+                model, optimizer, converted)
         placement = parallel.placement_of(model)
         try:
             if placement is not None:

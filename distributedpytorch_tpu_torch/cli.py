@@ -192,7 +192,8 @@ def _build_engine(cfg: Config, model_name: str, dataset: Dataset,
                       remat=cfg.remat, moe_experts=cfg.moe_experts,
                       tensor_parallel=cfg.tensor_parallel,
                       pipeline_parallel=cfg.pipeline_parallel,
-                      pipeline_microbatches=cfg.pipeline_microbatches)
+                      pipeline_microbatches=cfg.pipeline_microbatches,
+                      scan_layers=cfg.scan_layers)
     class_weights = (dataset.class_weights()
                      if cfg.loss in ("weighted_cross_entropy", "focal_loss")
                      else None)
@@ -1328,7 +1329,8 @@ def _serve_build_replica(cfg: Config, path: str, model_name: str, dataset,
     policy = cfg.precision_policy()
     model = get_model(model_name, dataset.nb_classes, policy,
                       attention=cfg.attention, device=device,
-                      moe_experts=cfg.moe_experts)
+                      moe_experts=cfg.moe_experts,
+                      scan_layers=cfg.scan_layers)
     ckpt.restore_for_serving(path, model)
     predictor = Predictor(model, dataset.mean, dataset.std,
                           get_model_input_size(model_name), policy, device)

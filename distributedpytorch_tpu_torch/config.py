@@ -52,7 +52,13 @@ registry's.  ``train`` and ``test`` take ``--pipeline-parallel``,
 ``--pipeline-microbatches`` and ``--seq-parallel`` (the GPipe vit and the
 ring inside its stages, ``models/vit_pipeline.py``), checked with the
 JAX ``run_train``'s and ``run_test``'s messages (``check_model_axis``,
-``check_pipeline``, ``check_pipeline_batch``).  ``serve`` refuses
+``check_pipeline``, ``check_pipeline_batch``).  ``train``, ``test``
+and ``serve`` take ``--scan-layers`` (the stacked block runs of vit, vgg,
+densenet and inception, ``models/scan.py``); on another model, with
+``--pipeline-parallel`` and with ``--moe-experts`` it fails with the JAX
+registry's messages where the model is built, as does ``serve
+--attention ring|ring_flash`` (a replica has no model axis).  ``serve``
+refuses
 ``--model-parallel``, ``--tensor-parallel``, ``--pipeline-parallel`` and
 ``--seq-parallel`` with the JAX ``run_serve``'s message, and serves a
 file of any layout whole (a pipeline file converted at load).
@@ -179,6 +185,9 @@ class Config:
     pipeline_parallel: bool = False
     pipeline_microbatches: int = 0
     seq_parallel: int = 1
+    # the homogeneous block runs of vit, vgg, densenet and inception
+    # stacked (models/scan.py; JAX config.py:457-461)
+    scan_layers: bool = False
     grad_accum: int = 1
     ckpt_async: bool = False
     epochs_per_dispatch: int = 1
@@ -266,15 +275,6 @@ class Config:
         return from_flags(self.precision, self.half_precision)
 
 
-def not_ported(cfg: Config) -> Optional[str]:
-    """The first setting of ``cfg`` this slice does not support, spelled
-    as on the command line, or None."""
-    ring = cfg.attention in ("ring", "ring_flash")
-    if ring and cfg.action == "serve" and cfg.model_name in (None, "vit"):
-        return f"--attention {cfg.attention}"
-    return None
-
-
 def check_ported(cfg: Config) -> Config:
     """Raise ValueError("not ported yet: --X") for the first unsupported
     setting; return ``cfg`` otherwise."""
@@ -289,9 +289,6 @@ def check_ported(cfg: Config) -> Config:
             "--seq-parallel do not apply (model-parallel-trained "
             "checkpoints convert at load)")
     check_pretrained(cfg)
-    flag = not_ported(cfg)
-    if flag is not None:
-        raise ValueError(f"not ported yet: {flag}")
     if cfg.action == "train":
         check_epochs_per_dispatch(cfg)
     if cfg.action in ("train", "serve"):
@@ -531,6 +528,16 @@ def _pipeline_args(p: argparse.ArgumentParser) -> None:
                         "--model-parallel >= 2)")
 
 
+def _scan_layers_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--scan-layers", action="store_true", dest="scan_layers",
+                   help="stack homogeneous repeated-block params on a "
+                        "leading (depth,) axis and run the blocks as a "
+                        "loop over its slices (vgg/densenet/inception/vit "
+                        "family); outputs and gradients match the "
+                        "unscanned model; checkpoints convert across the "
+                        "flag")
+
+
 def _moe_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--moe-experts", type=int, default=0,
                    dest="moe_experts", metavar="E",
@@ -567,7 +574,6 @@ def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
                         "back to the CPU on its own)")
 
 
-_ON = {"action": "store_true"}
 _INT = {"type": int}
 
 # Flags of the JAX CLI that this slice refuses: (flag, how it parses, the
@@ -575,7 +581,6 @@ _INT = {"type": int}
 # so only a flag given on the command line is looked at; any other value
 # is refused (``refused_flag``), never ignored.
 REFUSED_EVERYWHERE = (
-    ("--scan-layers", _ON, False),
     ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
 )
 REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE
@@ -881,6 +886,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
     _tensor_parallel_arg(p)
     _pipeline_args(p)
     _moe_arg(p)
+    _scan_layers_arg(p)
     _device_arg(p, action)
     _observability_args(p)
     _fault_args(p)
@@ -939,9 +945,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention",
                    choices=("full", "ring", "flash", "ring_flash"),
                    default="full",
-                   help="attention for --model vit: full (plain PyTorch) "
-                        "or flash (the CUDA kernel K1); ring and "
-                        "ring_flash are not ported yet")
+                   help="attention implementation for --model vit: full "
+                        "(plain PyTorch; default), sequence-parallel ring "
+                        "attention over the 'model' mesh axis (requires "
+                        "--model-parallel >= 2), the flash-attention "
+                        "kernel K1 (O(S) memory), or ring_flash -- the "
+                        "ring with the kernel K4 inside each shard")
     p.add_argument("--synthetic-fallback", action="store_true",
                    dest="synthetic_fallback",
                    help="use the deterministic synthetic corpus when the "
@@ -952,6 +961,7 @@ def build_parser() -> argparse.ArgumentParser:
     _tensor_parallel_arg(p)
     _pipeline_args(p)
     _moe_arg(p)
+    _scan_layers_arg(p)
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,
                    dest="checkpoint_file", required=True,

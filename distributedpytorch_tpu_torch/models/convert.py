@@ -4,10 +4,11 @@ The flax trees come in as nested dicts of numpy arrays, as a msgpack
 checkpoint decodes.  What changes on the way:
 
   * a flax ``Dense`` kernel is (in, out), a torch ``Linear`` weight
-    (out, in): transposed.  The vit's ``qkv`` kernel keeps its column
-    order, so the port's ``split(dim)`` yields q, k, v exactly as
-    ``jnp.split``;
-  * a conv kernel is HWIO, torch's OIHW: permuted;
+    (out, in): transposed (a stacked one, (L, in, out), per slice).  The
+    vit's ``qkv`` kernel keeps its column order, so the port's
+    ``split(dim)`` yields q, k, v exactly as ``jnp.split``;
+  * a conv kernel is HWIO, torch's OIHW: permuted (a stacked one,
+    (L, H, W, I, O), to (L, O, I, H, W));
   * flax ``LayerNorm``/``BatchNorm`` ``scale``/``bias`` ->
     ``weight``/``bias``; ``batch_stats`` ``mean``/``var`` ->
     ``running_mean``/``running_var`` (the port's BatchNorm keeps flax's
@@ -29,9 +30,11 @@ convert key by key (``cnn_params_from_jax``); ``cnn_params_to_jax`` is
 its inverse.  The pipelined vit's stacked blocks (``qkv_kernel`` (depth,
 in, out), ...) keep their names and layout (``models/vit_pipeline.py``
 converts between the two vit layouts).  The scan layouts of
-``--scan-layers`` (``ConvScan_0``, ``DenseBlockScan_*``,
-``InceptionCScan_0``) and the vit's scan layout are not ported yet, and
-are refused.
+``--scan-layers`` convert by the same rules, their tensors stacked on a
+leading axis: the vit's ``blocks/block`` to ``blocks.block.*`` under the
+port's names, and the zoo's ``ConvScan_0``, ``DenseBlockScan_*`` and
+``InceptionCScan_0`` key by key (``models/scan.py`` converts between a
+model's plain and scanned layouts).
 """
 
 from __future__ import annotations
@@ -45,16 +48,15 @@ import torch
 from ..ops.conv import hwio_to_oihw
 
 
-# a module that --scan-layers stacks under lax.scan (JAX models/scan.py)
-_SCAN = re.compile(r"[A-Za-z]+Scan_\d+")
-
-
 def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def _dense(tree: dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
-    out[f"{prefix}.weight"] = _t(tree["kernel"]).T.contiguous()
+    """A flax ``Dense`` (its kernel (in, out), or (L, in, out) stacked)
+    -> ``prefix.weight`` (out, in) and ``prefix.bias``."""
+    out[f"{prefix}.weight"] = _t(tree["kernel"]).transpose(-1, -2
+                                                            ).contiguous()
     out[f"{prefix}.bias"] = _t(tree["bias"])
 
 
@@ -66,17 +68,24 @@ def _norm(tree: dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """flax ViT or PipelinedViT ``params`` tree -> the ``state_dict`` of
     the port's ``ViT`` or ``PipelinedViT``: the stacked blocks' twelve
-    tensors are taken as they are."""
+    tensors are taken as they are; a ``--scan-layers`` vit's
+    ``blocks/block`` becomes ``blocks.block.*``, each tensor stacked on
+    the blocks' axis."""
     from .vit_pipeline import STACKED
 
     blocks = sorted((k for k in params if re.fullmatch(r"block\d+", k)),
                     key=lambda k: int(k[5:]))
     ends = {"patch_embed", "pos_embed", "LayerNorm_0", "head"}
     stacked = set(params) == ends | set(STACKED)
-    if not stacked and (not blocks or set(params) != ends | set(blocks)):
+    scanned = set(params) == ends | {"blocks"} \
+        and set(params["blocks"]) == {"block"}
+    if scanned:
+        blocks = ["blocks"]
+    elif not stacked and (not blocks or set(params) != ends | set(blocks)):
         raise ValueError(f"not ported yet: flax params layout with keys "
-                         f"{sorted(params)} (the per-block and the stacked "
-                         f"pipeline vit layouts are ported)")
+                         f"{sorted(params)} (the per-block, the scanned "
+                         f"and the stacked pipeline vit layouts are "
+                         f"ported)")
     out: Dict[str, torch.Tensor] = {}
     out["patch_embed.weight"] = hwio_to_oihw(
         _t(params["patch_embed"]["kernel"])).contiguous()
@@ -85,16 +94,17 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     if stacked:
         out.update({name: _t(params[name]) for name in STACKED})
     for i, name in enumerate(blocks):
-        blk = params[name]
-        _norm(blk["LayerNorm_0"], f"blocks.{i}.ln1", out)
-        _dense(blk["qkv"], f"blocks.{i}.qkv", out)
-        _dense(blk["proj"], f"blocks.{i}.proj", out)
-        _norm(blk["LayerNorm_1"], f"blocks.{i}.ln2", out)
+        blk = params[name]["block"] if scanned else params[name]
+        pre = "blocks.block." if scanned else f"blocks.{i}."
+        _norm(blk["LayerNorm_0"], f"{pre}ln1", out)
+        _dense(blk["qkv"], f"{pre}qkv", out)
+        _dense(blk["proj"], f"{pre}proj", out)
+        _norm(blk["LayerNorm_1"], f"{pre}ln2", out)
         if "moe" in blk:
-            out.update(moe_params_from_jax(blk["moe"], f"blocks.{i}.moe."))
+            out.update(moe_params_from_jax(blk["moe"], f"{pre}moe."))
         else:
-            _dense(blk["mlp_up"], f"blocks.{i}.mlp_up", out)
-            _dense(blk["mlp_down"], f"blocks.{i}.mlp_down", out)
+            _dense(blk["mlp_up"], f"{pre}mlp_up", out)
+            _dense(blk["mlp_down"], f"{pre}mlp_down", out)
     _norm(params["LayerNorm_0"], "norm", out)
     _dense(params["head"], "head", out)
     return out
@@ -113,25 +123,25 @@ def moe_params_from_jax(tree: dict, prefix: str = ""
 
 def cnn_params_from_jax(params: dict, batch_stats: Optional[dict] = None
                         ) -> Dict[str, torch.Tensor]:
-    """flax ``params`` (+ ``batch_stats``) of SmallCNN, MLP or ResNet ->
-    the port model's ``state_dict``, key by key: ``Conv_0/kernel`` ->
-    ``Conv_0.weight`` (OIHW), ``Dense_0/kernel`` -> ``Dense_0.weight``
-    (out, in), ``BatchNorm_0/{scale,bias}`` -> ``BatchNorm_0.{weight,
-    bias}``, ``batch_stats`` ``BatchNorm_0/{mean,var}`` ->
-    ``BatchNorm_0.running_{mean,var}``."""
+    """flax ``params`` (+ ``batch_stats``) of the cnn, the mlp or a zoo
+    model -> the port model's ``state_dict``, key by key:
+    ``Conv_0/kernel`` -> ``Conv_0.weight`` (OIHW; a stacked (L, H, W, I,
+    O) one of ``--scan-layers`` -> (L, O, I, H, W)), ``Dense_0/kernel`` ->
+    ``Dense_0.weight`` (out, in), ``BatchNorm_0/{scale,bias}`` ->
+    ``BatchNorm_0.{weight, bias}``, ``batch_stats``
+    ``BatchNorm_0/{mean,var}`` -> ``BatchNorm_0.running_{mean,var}``."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: dict, stats: dict, prefix: str) -> None:
         for key, sub in tree.items():
             name = f"{prefix}{key}"
-            if _SCAN.fullmatch(key):
-                raise ValueError("not ported yet: --scan-layers checkpoint "
-                                 "layout")
             if not isinstance(sub, dict):
                 raise ValueError(f"not ported yet: flax param {name!r}")
             if "kernel" in sub:
                 kernel = _t(sub["kernel"])
-                if kernel.dim() == 4:
+                if kernel.dim() == 5:
+                    kernel = kernel.permute(0, 4, 3, 1, 2)
+                elif kernel.dim() == 4:
                     kernel = hwio_to_oihw(kernel)
                 elif kernel.dim() == 2:
                     kernel = kernel.T
@@ -230,7 +240,10 @@ def cnn_params_to_jax(state_dict: Dict[str, torch.Tensor]
                       ) -> Tuple[dict, dict]:
     """The inverse of ``cnn_params_from_jax``: a port model's
     ``state_dict`` -> flax (``params``, ``batch_stats``) trees of f32
-    numpy arrays (HWIO conv kernels, (in, out) dense kernels)."""
+    numpy arrays (HWIO conv kernels, (L, H, W, I, O) stacked ones, (in,
+    out) dense kernels).  A ``BatchNorm_*`` module's weight is flax's
+    ``scale`` (a stacked one is 2-D, as a dense kernel is), in a moment's
+    mapping too, which holds no running statistics."""
     params: dict = {}
     stats: dict = {}
 
@@ -242,7 +255,11 @@ def cnn_params_to_jax(state_dict: Dict[str, torch.Tensor]
     for name, t in state_dict.items():
         *path, leaf = name.split(".")
         a = t.detach().cpu().float().numpy()
-        if leaf == "weight" and a.ndim == 4:
+        if leaf == "weight" and path[-1].startswith("BatchNorm"):
+            put(params, path, "scale", a)
+        elif leaf == "weight" and a.ndim == 5:
+            put(params, path, "kernel", a.transpose(0, 3, 4, 2, 1))
+        elif leaf == "weight" and a.ndim == 4:
             put(params, path, "kernel", a.transpose(2, 3, 1, 0))
         elif leaf == "weight" and a.ndim == 2:
             put(params, path, "kernel", a.T)

@@ -1,7 +1,7 @@
 """DenseNet-121 (ref utils.py:78-85 wraps torchvision densenet121).
 
-Counterpart of ``distributedpytorch_tpu/models/densenet.py`` (:17-103)
-without ``--scan-layers``: growth rate 32, blocks (6, 12,
+Counterpart of ``distributedpytorch_tpu/models/densenet.py`` (:17-103):
+growth rate 32, blocks (6, 12,
 24, 16), bn_size 4; a 7x7/2 stem with BatchNorm and a 3x3/2 max pool
 padded with -inf; each ``DenseLayer`` is BN-ReLU-1x1 conv-BN-ReLU-3x3 conv
 concatenated after its input; each transition is BN, ReLU, a 1x1 conv to
@@ -13,7 +13,11 @@ and the ``head``.  Layer names are flax's: ``DenseLayer_0`` ..
 channels_last NCHW view, BatchNorm with flax's semantics and global
 statistics.  Logits f32.  ``remat_blocks`` (``--remat blocks``, set by
 the registry) checkpoints each ``DenseLayer`` on the gradient path,
-keeping its matmul outputs (``models/remat.py``).
+keeping its matmul outputs (``models/remat.py``).  ``scan_layers``
+(``--scan-layers``) holds each dense block's layers as
+``DenseBlockScan_{b}``, a ``models/scan.py`` ``DenseBlockScan`` over a
+zero-padded channel buffer (its steps checkpointed under ``--remat
+blocks``); the stem, the transitions and the head keep their names.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from . import remat
 from .common import global_mean
 from .layers import conv, dense, lecun_init_
 from .norm import BatchNorm
+from .scan import DenseBlockScan
 
 
 class DenseLayer(nn.Module):
@@ -52,17 +57,23 @@ class DenseNet(nn.Module):
     def __init__(self, block_config: Sequence[int] = (6, 12, 24, 16),
                  growth: int = 32, bn_size: int = 4,
                  num_init_features: int = 64, num_classes: int = 10,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16,
+                 scan_layers: bool = False, device=None):
         super().__init__()
         self.dtype = dtype
         self.remat_blocks = False
+        self.scan_layers = scan_layers
         self.block_config = tuple(block_config)
         self.Conv_0 = nn.Conv2d(3, num_init_features, 7, 2, padding=3,
                                 bias=False, device=device)
         self.BatchNorm_0 = BatchNorm(num_init_features, device=device)
         channels, layer = num_init_features, 0
         for i, n_layers in enumerate(self.block_config):
-            for _ in range(n_layers):
+            if scan_layers:
+                self.add_module(f"DenseBlockScan_{i}", DenseBlockScan(
+                    n_layers, channels, growth, bn_size, device=device))
+                channels += n_layers * growth
+            for _ in range(0 if scan_layers else n_layers):
                 self.add_module(f"DenseLayer_{layer}", DenseLayer(
                     channels, growth, bn_size, device=device))
                 channels, layer = channels + growth, layer + 1
@@ -85,7 +96,10 @@ class DenseNet(nn.Module):
         x = F.max_pool2d(x, 3, 2, padding=1)
         layer = 0
         for i, n_layers in enumerate(self.block_config):
-            for _ in range(n_layers):
+            if self.scan_layers:
+                x = getattr(self, f"DenseBlockScan_{i}")(
+                    x, checkpoint=self.remat_blocks and remat.active(self))
+            for _ in range(0 if self.scan_layers else n_layers):
                 x = remat.run_block(self, getattr(
                     self, f"DenseLayer_{layer}"), x)
                 layer += 1
@@ -98,5 +112,6 @@ class DenseNet(nn.Module):
 
 
 def densenet121(num_classes: int, dtype: torch.dtype = torch.bfloat16,
-                device=None) -> DenseNet:
-    return DenseNet(num_classes=num_classes, dtype=dtype, device=device)
+                scan_layers: bool = False, device=None) -> DenseNet:
+    return DenseNet(num_classes=num_classes, dtype=dtype,
+                    scan_layers=scan_layers, device=device)

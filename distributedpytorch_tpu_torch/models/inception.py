@@ -1,7 +1,7 @@
 """Inception v3 with auxiliary logits (ref utils.py:87-99).
 
-Counterpart of ``distributedpytorch_tpu/models/inception.py`` without
-``--scan-layers``: ``BasicConv`` (a bias-free conv,
+Counterpart of ``distributedpytorch_tpu/models/inception.py``:
+``BasicConv`` (a bias-free conv,
 BatchNorm with eps 1e-3, ReLU) stem, ``InceptionA_0`` .. ``2``,
 ``InceptionB_0``, ``InceptionC_0`` .. ``3``, ``InceptionD_0``,
 ``InceptionE_0`` .. ``1``, a global mean, dropout and the ``head``; in
@@ -22,6 +22,11 @@ Logits f32.  ``remat_blocks`` (``--remat blocks``, set by the registry)
 checkpoints each Mixed block (``InceptionA_0`` .. ``InceptionE_1``) on
 the gradient path, keeping its matmul outputs (``models/remat.py``); the
 stem and the aux head stay outside, as in the JAX model.
+``scan_layers`` (``--scan-layers``) holds ``InceptionC_1`` and
+``InceptionC_2`` (768 channels in and out, c7 = 160) as
+``InceptionCScan_0``, a ``models/scan.py`` ``ScanRun`` of 2 stacked
+steps (each checkpointed under ``--remat blocks``); ``AuxHead_0`` still
+branches after ``InceptionC_3``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from . import remat
 from .common import adaptive_avg_pool, global_mean
 from .layers import Dropout, conv, dense, lecun_init_
 from .norm import BatchNorm
+from .scan import ScanRun
 
 _H7, _V7 = ((1, 7), (0, 3)), ((7, 1), (3, 0))     # (kernel, padding)
 _H3, _V3 = ((1, 3), (0, 1)), ((3, 1), (1, 0))
@@ -176,7 +182,8 @@ class AuxHead(_Block):
 
 class InceptionV3(_Block):
     def __init__(self, num_classes: int = 10,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16,
+                 scan_layers: bool = False, device=None):
         super().__init__(3, (
             ("x", 32, 3, 2, 0), (None, 32, 3, 1, 0), (None, 64, 3, 1, 1),
             (None, 80, 1, 1, 0), (None, 192, 3, 1, 0)), device)
@@ -191,11 +198,16 @@ class InceptionV3(_Block):
         blocks += [("InceptionD_0", InceptionD, ()),
                    ("InceptionE_0", InceptionE, ()),
                    ("InceptionE_1", InceptionE, ())]
+        if scan_layers:
+            # JAX inception.py:212-217: InceptionC_1 and _2 as one run
+            blocks[5:7] = [("InceptionCScan_0", InceptionC, (160,))]
         channels = 192
         for name, cls, args in blocks:
             block = cls(channels, *args, device=device)
-            self.add_module(name, block)
             channels = block.out_channels
+            if name == "InceptionCScan_0":
+                block = ScanRun(block, 2)
+            self.add_module(name, block)
             if name == "InceptionC_3":
                 self.AuxHead_0 = AuxHead(channels, num_classes,
                                          device=device)
@@ -225,7 +237,11 @@ class InceptionV3(_Block):
         x = F.max_pool2d(self.c(4, self.c(3, x)), 3, 2)
         aux = None
         for name in self.block_names:
-            x = remat.run_block(self, getattr(self, name), x)
+            if name == "InceptionCScan_0":
+                x = self.InceptionCScan_0(
+                    x, checkpoint=self.remat_blocks and remat.active(self))
+            else:
+                x = remat.run_block(self, getattr(self, name), x)
             if name == "InceptionC_3" and self.training:
                 aux = self.AuxHead_0(x)
         x = self.Dropout_0(global_mean(x))

@@ -43,21 +43,35 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, k5: bool = False
     return y
 
 
+def lecun_draw(shape: tuple, generator: torch.Generator) -> torch.Tensor:
+    """flax's lecun-normal draw of one kernel of ``shape`` in torch's
+    layout (fan-in: every axis but the first), truncated at 2 sigma, on
+    the generator's device."""
+    std = math.sqrt(1.0 / math.prod(shape[1:])) / 0.87962566103423978
+    w = torch.empty(shape, device=generator.device)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+    return w
+
+
 def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """flax's defaults: lecun-normal kernels (truncated at 2 sigma), zero
     biases, BatchNorm scale 1, bias 0, running mean 0 and variance 1.  The
     draws are made on the generator's device and copied to the model's,
-    so one CPU generator gives the same weights on every device."""
-    dev = generator.device
+    so one CPU generator gives the same weights on every device.  A
+    ``--scan-layers`` run (``models/scan.py``) draws its stacked kernels
+    itself, step by step, where the unrolled blocks' draws fall."""
     with torch.no_grad():
+        inside = set()
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                fan_in = mod.weight[0].numel()
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                w = torch.empty(mod.weight.shape, device=dev)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                mod.weight.copy_(w)
+            if id(mod) in inside:
+                continue
+            if hasattr(mod, "init_stacked_"):
+                mod.init_stacked_(generator)
+                inside.update(id(m) for m in mod.modules())
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                mod.weight.copy_(lecun_draw(tuple(mod.weight.shape),
+                                            generator))
                 if mod.bias is not None:
                     nn.init.zeros_(mod.bias)
             elif isinstance(mod, BatchNorm):

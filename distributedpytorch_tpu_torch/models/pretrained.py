@@ -21,7 +21,11 @@ model.  So the ``head`` (and inception's ``aux_head``) keep their fresh
 initialisation, as the reference replaces them after the load.
 
 Supported: resnet18, alexnet, vgg11_bn, squeezenet1_0, densenet121 and
-inception_v3; any other architecture raises.
+inception_v3; any other architecture raises.  A vgg, densenet or
+inception built with ``--scan-layers`` holds its block run stacked
+(``models/scan.py``) under names the converted keys do not match, so the
+merge refuses it with JAX's own error (``converted key /Conv_6 not in
+model``, ``/DenseLayer_0``, ``/InceptionC_1``), as the JAX package does.
 """
 
 from __future__ import annotations

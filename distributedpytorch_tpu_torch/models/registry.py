@@ -23,8 +23,12 @@ whole forward, and every model's under ``full``, as the JAX split of the
 work goes.  ``pipeline_parallel`` (``--pipeline-parallel``, with
 ``pipeline_microbatches``) builds the GPipe vit over the model group of
 ``mesh`` (``models/vit_pipeline.py``), with ``attention`` ``full`` or
-``ring`` (the ring over the mesh's seq group).  ``--scan-layers`` is not
-ported yet (the CLI refuses it).
+``ring`` (the ring over the mesh's seq group).  ``scan_layers``
+(``--scan-layers``) stacks the homogeneous block runs of vit, vgg,
+densenet and inception (SCAN_LAYER_MODELS; ``models/scan.py``), with any
+attention, ``tensor_parallel``, ``remat`` and placement, and is refused
+with the JAX registry's messages on another model, with
+``pipeline_parallel`` and with ``moe_experts``, in the JAX order.
 """
 
 from __future__ import annotations
@@ -51,20 +55,26 @@ _INPUT_SIZES = {
 KNOWN_MODELS = tuple(_INPUT_SIZES)
 
 # The models without attention: name -> (num_classes, dtype, device) ->
-# module.
+# module; those of SCAN_LAYER_MODELS take ``scan_layers`` too.
 _CNN_ZOO = {
     "cnn": lambda n, d, dev: SmallCNN(num_classes=n, dtype=d, device=dev),
     "mlp": lambda n, d, dev: MLP(num_classes=n, dtype=d, device=dev),
     "resnet": lambda n, d, dev: resnet18(n, dtype=d, device=dev),
     "alexnet": lambda n, d, dev: AlexNet(num_classes=n, dtype=d,
                                          device=dev),
-    "vgg": lambda n, d, dev: VGG11BN(num_classes=n, dtype=d, device=dev),
+    "vgg": lambda n, d, dev, scan=False: VGG11BN(
+        num_classes=n, dtype=d, scan_layers=scan, device=dev),
     "squeezenet": lambda n, d, dev: SqueezeNet(num_classes=n, dtype=d,
                                                device=dev),
-    "densenet": lambda n, d, dev: densenet121(n, dtype=d, device=dev),
-    "inception": lambda n, d, dev: InceptionV3(num_classes=n, dtype=d,
-                                               device=dev),
+    "densenet": lambda n, d, dev, scan=False: densenet121(
+        n, dtype=d, scan_layers=scan, device=dev),
+    "inception": lambda n, d, dev, scan=False: InceptionV3(
+        num_classes=n, dtype=d, scan_layers=scan, device=dev),
 }
+
+# Models with a homogeneous block run that --scan-layers stacks (JAX
+# registry.py:59).
+SCAN_LAYER_MODELS = frozenset({"vit", "vgg", "densenet", "inception"})
 
 # Models whose train-mode forward also returns auxiliary logits
 # (ref classif.py:49-53 special-cases 'inception').
@@ -81,12 +91,16 @@ def _check_name(name: str) -> None:
                          f"(choices: {sorted(KNOWN_MODELS)})")
 
 
-def check_attention(name: str, attention: str) -> None:
-    """The JAX registry's refusal of ``--attention`` other than ``full``
-    on a model without attention (``registry.py:200-206``)."""
+def _check_attention_name(attention: str) -> None:
     if attention not in ("full", "ring", "flash", "ring_flash"):
         raise ValueError(f"attention must be 'full', 'ring', 'flash' or "
                          f"'ring_flash', got {attention!r}")
+
+
+def check_attention(name: str, attention: str) -> None:
+    """The JAX registry's refusal of ``--attention`` other than ``full``
+    on a model without attention (``registry.py:200-206``)."""
+    _check_attention_name(attention)
     if attention != "full" and name != "vit":
         raise ValueError(
             f"--attention {attention} applies to the attention model "
@@ -130,7 +144,8 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
               remat: str = "none", moe_experts: int = 0,
               tensor_parallel: bool = False,
               pipeline_parallel: bool = False,
-              pipeline_microbatches: int = 0) -> nn.Module:
+              pipeline_microbatches: int = 0,
+              scan_layers: bool = False) -> nn.Module:
     """The registry's full-width model, on ``device``, its parameters
     stored in the policy's ``param_dtype`` (bfloat16 under ``bf16_full``,
     f32 otherwise; BatchNorm's running statistics are buffers and stay
@@ -142,9 +157,15 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
     ``tensor_parallel`` and of a MoE vit's global batch and experts; the
     parameters are whole until ``parallel.place`` splits them (the
     engine's ``init_state``).  ``remat="blocks"`` on a
-    model of REMAT_BLOCK_MODELS checkpoints its blocks."""
+    model of REMAT_BLOCK_MODELS checkpoints its blocks.  ``scan_layers``
+    stacks the block runs of a model of SCAN_LAYER_MODELS."""
+    # the JAX get_model's order of checks (registry.py:96-133)
+    _check_name(name)
+    _check_attention_name(attention)
     if remat not in ("none", "blocks", "full"):
         raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
+    if scan_layers:
+        check_scan_layers(name, pipeline_parallel, moe_experts)
     if pipeline_parallel and remat != "none":
         raise ValueError(
             "--remat composes with the plain vit, not --pipeline-parallel "
@@ -152,7 +173,7 @@ def get_model(name: str, num_classes: int, precision: PrecisionPolicy,
             "per-stage memory itself)")
     model = _build(name, num_classes, precision, attention, device,
                    pallas_dw, mesh, moe_experts, tensor_parallel,
-                   pipeline_parallel, pipeline_microbatches)
+                   pipeline_parallel, pipeline_microbatches, scan_layers)
     if name in REMAT_BLOCK_MODELS:
         model.remat_blocks = remat == "blocks"
     return store_params(model, precision.param_dtype)
@@ -167,6 +188,27 @@ def store_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
             if p.dtype != dtype:
                 p.data = p.data.to(dtype)
     return model
+
+
+def check_scan_layers(name: str, pipeline_parallel: bool = False,
+                      moe_experts: int = 0) -> None:
+    """The JAX registry's refusals of ``--scan-layers``
+    (``registry.py:113-128``), in its order."""
+    if name not in SCAN_LAYER_MODELS:
+        raise ValueError(
+            f"--scan-layers applies to the repeated-block models "
+            f"only ({sorted(SCAN_LAYER_MODELS)}); {name!r} has no "
+            "homogeneous block run to stack")
+    if pipeline_parallel:
+        raise ValueError(
+            "--scan-layers is exclusive with --pipeline-parallel "
+            "(the pipelined vit already stacks its blocks and "
+            "hand-rolls the schedule)")
+    if moe_experts:
+        raise ValueError(
+            "--scan-layers is exclusive with --moe-experts (expert "
+            "dispatch does not stack under lax.scan, and MoE "
+            "checkpoints have no scan layout conversion)")
 
 
 def check_moe(name: str, moe_experts: int, tensor_parallel: bool = False,
@@ -240,10 +282,9 @@ def check_pipeline(name: str, attention: str, tensor_parallel: bool,
 def _build(name: str, num_classes: int, precision: PrecisionPolicy,
            attention: str, device, pallas_dw: bool, mesh,
            moe_experts: int = 0, tensor_parallel: bool = False,
-           pipeline_parallel: bool = False, pipeline_microbatches: int = 0
-           ) -> nn.Module:
+           pipeline_parallel: bool = False, pipeline_microbatches: int = 0,
+           scan_layers: bool = False) -> nn.Module:
     """The module of ``get_model``, its parameters in f32."""
-    _check_name(name)
     dtype = precision.compute_dtype
     if pallas_dw:
         if name != "cnn":
@@ -276,10 +317,13 @@ def _build(name: str, num_classes: int, precision: PrecisionPolicy,
         check_moe_model_axis(moe_experts, mesh)
         return ViT(num_classes=num_classes, dtype=dtype, attention_fn=attn,
                    moe_experts=moe_experts, moe_mesh=mesh,
-                   tp_mesh=mesh if tensor_parallel else None, device=device)
+                   tp_mesh=mesh if tensor_parallel else None,
+                   scan_layers=scan_layers, device=device)
     if pallas_dw:
         return SmallCNN(num_classes=num_classes, dtype=dtype,
                         pallas_dw=True, device=device)
+    if scan_layers:
+        return _CNN_ZOO[name](num_classes, dtype, device, True)
     return _CNN_ZOO[name](num_classes, dtype, device)
 
 

@@ -20,6 +20,9 @@ and lse anew for K2/K3.  Nothing in a forward draws random numbers (the
 dropout masks and the affine draws are made before it), so the RNG state
 is not stashed (``preserve_rng_state=False``): reading it is illegal
 inside a CUDA Graph capture, which ``--epochs-per-dispatch`` makes.
+A ``--scan-layers`` run (``models/scan.py``) checkpoints each of its
+steps through ``call`` with the matmul outputs saved, as ``run_block``
+checkpoints a block (JAX's scan over an ``nn.remat`` block).
 ``recomputing()`` is true inside the recompute, where BatchNorm leaves
 its running statistics alone: they move once a step, as flax discards
 the mutations of ``nn.remat``'s recompute.  BatchNorm's all-reduce of

@@ -20,6 +20,14 @@ GELU is the tanh approximation; the token mean is taken in f32.
 each ``TransformerBlock`` on the gradient path, keeping its matmul
 outputs (``models/remat.py``); the parameter names do not change.
 
+``scan_layers`` (``--scan-layers``; JAX :119-159) holds the blocks as
+one ``models/scan.py`` ``ScanRun`` named ``blocks``: a template
+``TransformerBlock`` whose tensors are stacked on a leading (depth,) axis
+(``blocks.block.qkv.weight`` is (depth, 3d, d)), run on each block's
+slices in turn, with the same attention function (K1-K3 under ``flash``,
+K4/K2p/K3p under ``ring_flash``) and the same launches.  Its weights are
+the unrolled vit's from the same generator, stacked.
+
 ``moe_experts`` E > 0 (``--moe-experts``; JAX ``TransformerBlock`` at
 :43-100) replaces each block's ``mlp_up``/``mlp_down`` with a
 ``models/moe.py`` ``SwitchMLP`` named ``moe`` (``blocks.{i}.moe.*``).
@@ -146,7 +154,7 @@ class ViT(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attention_fn: Optional[AttentionFn] = None,
                  input_size: int = 28, moe_experts: int = 0, moe_mesh=None,
-                 tp_mesh=None, device=None):
+                 tp_mesh=None, scan_layers: bool = False, device=None):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
@@ -166,11 +174,20 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, dim,
                                                   device=device))
         self.moe_experts = moe_experts
-        self.blocks = nn.ModuleList(
-            TransformerBlock(dim, heads, mlp_ratio, attn,
-                             moe_experts=moe_experts, moe_mesh=moe_mesh,
-                             tp_mesh=tp_mesh, device=device)
-            for _ in range(depth))
+        self.scan_layers = scan_layers
+
+        def block():
+            return TransformerBlock(dim, heads, mlp_ratio, attn,
+                                    moe_experts=moe_experts,
+                                    moe_mesh=moe_mesh, tp_mesh=tp_mesh,
+                                    device=device)
+
+        if scan_layers:
+            from .scan import ScanRun
+
+            self.blocks = ScanRun(block(), depth)
+        else:
+            self.blocks = nn.ModuleList(block() for _ in range(depth))
         self.norm = LayerNorm(dim, device=device)
         self.head = nn.Linear(dim, num_classes, device=device)
 
@@ -198,11 +215,15 @@ class ViT(nn.Module):
         on as a rank's slice (see the module docstring); the placement
         splits every other parameter by the ZeRO rule."""
         out = {}
-        col, row = parallel.Shard(0, False), parallel.Shard(1, False)
-        for i, blk in enumerate(self.blocks):
-            pre = f"blocks.{i}."
+        # a scanned vit's tensors carry the (depth,) axis first
+        k = 1 if self.scan_layers else 0
+        col, row = parallel.Shard(k, False), parallel.Shard(k + 1, False)
+        blocks = ([("blocks.block.", self.blocks.block)] if self.scan_layers
+                  else [(f"blocks.{i}.", blk)
+                        for i, blk in enumerate(self.blocks)])
+        for pre, blk in blocks:
             if self.tp_mesh is not None:
-                qkv = parallel.Shard(0, False, groups=3)
+                qkv = parallel.Shard(k, False, groups=3)
                 out.update({pre + "qkv.weight": qkv, pre + "qkv.bias": qkv,
                             pre + "mlp_up.weight": col,
                             pre + "mlp_up.bias": col,
@@ -222,12 +243,16 @@ class ViT(nn.Module):
         b, gh, gw, c = x.shape
         x = x.reshape(b, gh * gw, c) + self.pos_embed.to(dtype)
         sown = None
-        for blk in self.blocks:
-            x = remat.run_block(self, blk, x)
-            if isinstance(x, tuple):
-                x, aux = x
-                if aux is not None:
-                    sown = aux if sown is None else sown + aux
+        if self.scan_layers:
+            x = self.blocks(x, checkpoint=self.remat_blocks
+                            and remat.active(self))
+        else:
+            for blk in self.blocks:
+                x = remat.run_block(self, blk, x)
+                if isinstance(x, tuple):
+                    x, aux = x
+                    if aux is not None:
+                        sown = aux if sown is None else sown + aux
         x = self.norm(x).float().mean(dim=1).to(dtype)  # mean-pool tokens
         logits = _dense(self.head, x).float()
         if sown is not None:

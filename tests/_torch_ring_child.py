@@ -40,7 +40,9 @@ and takes one optimizer step per entry through
 ``overflow`` = (step, rank), that rank's loss numerator of that step is
 multiplied by inf), then writes its parameters, the elements of
 parameters and optimizer state it holds, the steps' metrics, its step and applied-update counts, its loss scale (or None)
-and its kernel launches to OUT.pt.  An ``arch`` with ``moe_experts`` E
+and its kernel launches (all, and on the tensor cores) to OUT.pt.  An
+``arch`` with ``scan_layers`` builds the stacked vit (``models/scan.py``;
+its state is written in the scan layout).  An ``arch`` with ``moe_experts`` E
 builds the switch MoE vit over the world's mesh (``models/moe.py``: the
 data group's global batch), a ``grad_accum`` K accumulates K microbatches
 a step, and ``eval`` (uint8 images of the global batch, with ``mean`` and
@@ -82,7 +84,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from distributedpytorch_tpu_torch import parallel, runtime  # noqa: E402
-from distributedpytorch_tpu_torch.cli import kernel_launches  # noqa: E402
+from distributedpytorch_tpu_torch.cli import (  # noqa: E402
+    kernel_launches, tensor_core_launches)
 from distributedpytorch_tpu_torch.models.registry import (  # noqa: E402
     attention_fn)
 from distributedpytorch_tpu_torch.models.vit import ViT  # noqa: E402
@@ -219,7 +222,7 @@ def run_vit(spec, device, mesh) -> dict:
         ckpt.load_checkpoint(spec["resume"], model, state.optimizer,
                              train_state=state)
         resumed = parallel.full_state(model, state.optimizer)
-    before = kernel_launches()
+    before, before_tc = kernel_launches(), tensor_core_launches()
     metrics = []
     loss_fn = engine.loss_fn
     overflow = spec.get("overflow")
@@ -270,7 +273,9 @@ def run_vit(spec, device, mesh) -> dict:
               "loss_scale": (None if state.loss_scale is None
                              else state.loss_scale.to_dict()),
               "launches": {k: v - before[k]
-                           for k, v in kernel_launches().items()}}
+                           for k, v in kernel_launches().items()},
+              "tensor_core": {k: v - before_tc[k]
+                              for k, v in tensor_core_launches().items()}}
     if spec.get("eval") is not None:
         from distributedpytorch_tpu_torch.data import augment
 

@@ -709,7 +709,8 @@ def test_train_refuses_as_jax_run_train(tmp_path, case):
 def test_test_and_serve_refuse_as_jax(tmp_path):
     """``test``'s seq-parallel guard (cli.py:1347-1358) and ``serve``'s
     refusal of the four flags (:1500-1509), word for word; --scan-layers
-    and orbax stay not ported."""
+    with the pipeline is refused by the registry as JAX's refuses it
+    (registry.py:118-122), and orbax stays not ported."""
     message = _jax_error(jax_cli.run_test, JaxConfig(
         action="test", data_path=str(tmp_path / "nodata"),
         rsl_path=str(tmp_path / "jax"), dataset="synthetic",
@@ -725,10 +726,16 @@ def test_test_and_serve_refuse_as_jax(tmp_path):
         with pytest.raises(ValueError, match=f"^{re.escape(message)}$"):
             tconfig.config_from_argv(["serve", "-d", "/d", "-f", "/x.ckpt",
                                       "--device", "cpu", *flag])
-    for flag, shown in ((["--scan-layers"], "--scan-layers"),
-                        (["--ckpt-format", "orbax"], "--ckpt-format orbax")):
-        with pytest.raises(ValueError, match=f"^not ported yet: {shown}$"):
-            tconfig.config_from_argv(["train", "-d", "/d", "--model", "vit",
-                                      "--model-parallel", "2",
-                                      "--pipeline-parallel", "--device",
-                                      "cpu", *flag])
+    argv = ["train", "-d", "/d", "--model", "vit", "--model-parallel", "2",
+            "--pipeline-parallel", "--device", "cpu"]
+    with pytest.raises(ValueError, match="^not ported yet: --ckpt-format "
+                                         "orbax$"):
+        tconfig.config_from_argv(argv + ["--ckpt-format", "orbax"])
+    cfg = tconfig.config_from_argv(argv + ["--scan-layers"])
+    message = _jax_error(lambda: jax_registry.get_model(
+        "vit", 10, scan_layers=True, pipeline_parallel=True))
+    with pytest.raises(ValueError, match=f"^{re.escape(message)}$"):
+        registry.get_model("vit", 10, PRESETS["f32"], device="meta",
+                           mesh=runtime.Mesh(1, 2, 0, 0, (0, 1)),
+                           scan_layers=cfg.scan_layers,
+                           pipeline_parallel=cfg.pipeline_parallel)

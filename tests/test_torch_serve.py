@@ -165,22 +165,33 @@ def test_jax_checkpoint_without_msgpack_names_the_package(
 
 
 def test_jax_checkpoint_of_a_model_not_ported_is_refused(tmp_path):
-    """Every model of the registry is read; a layout that is not ported
-    (a vgg written with --scan-layers stacks its last convs as
-    ConvScan_0) is refused by name."""
+    """Every model of the registry is read, a layout of --scan-layers too
+    (a vgg's last convs stacked as ConvScan_0, their HWIO kernels (L, H,
+    W, I, O) taken as (L, O, I, H, W)); a model outside the registry is
+    refused by name."""
     from flax import serialization
 
-    path = tmp_path / "bestmodel-mnist-vgg.ckpt"
-    path.write_bytes(serialization.msgpack_serialize(
-        {"format_version": 1, "model_name": "vgg", "epoch": 0,
-         "loss": 0.0,
-         "state": {"params": {
-             "Conv_0": {"kernel": np.zeros((3, 3, 3, 8), np.float32)},
-             "ConvScan_0": {"Conv_0": {"kernel": np.zeros(
-                 (2, 3, 3, 8, 8), np.float32)}}}}}))
-    with pytest.raises(ValueError, match="^not ported yet: --scan-layers "
-                                         "checkpoint layout"):
-        ckpt.get_checkpoint_model_name(str(path))
+    def write(name, params):
+        path = tmp_path / f"bestmodel-mnist-{name}.ckpt"
+        path.write_bytes(serialization.msgpack_serialize(
+            {"format_version": 1, "model_name": name, "epoch": 0,
+             "loss": 0.0, "state": {"params": params}}))
+        return str(path)
+
+    kernel = np.arange(2 * 3 * 3 * 8 * 4, dtype=np.float32).reshape(
+        2, 3, 3, 8, 4)
+    path = write("vgg", {
+        "Conv_0": {"kernel": np.zeros((3, 3, 3, 8), np.float32)},
+        "ConvScan_0": {"Conv_0": {"kernel": kernel}}})
+    assert ckpt.get_checkpoint_model_name(path) == "vgg"
+    got = ckpt.read_checkpoint(path)["state"]["params"][
+        "ConvScan_0.Conv_0.weight"]
+    assert torch.equal(got, torch.from_numpy(kernel).permute(0, 4, 3, 1, 2))
+    path = write("transformer", {
+        "Conv_0": {"kernel": np.zeros((3, 3, 3, 8), np.float32)}})
+    with pytest.raises(ValueError, match="^not ported yet: --model "
+                                         "transformer "):
+        ckpt.get_checkpoint_model_name(path)
 
 
 # -- the port's own checkpoint ------------------------------------------
@@ -454,6 +465,8 @@ def test_failed_batch_records_land_before_its_count(tmp_path, monkeypatch):
 
 
 NOT_PORTED = [
+    # taken: the replica's registry refuses them as JAX's does
+    # (test_serve_ring_fails_as_the_jax_registry)
     (["--attention", "ring"], "--attention ring"),
     (["--attention", "ring_flash"], "--attention ring_flash"),
     (["--moe-experts", "4"], "--moe-experts"),
@@ -461,6 +474,7 @@ NOT_PORTED = [
     (["--pipeline-parallel"], "--pipeline-parallel"),
     (["--model-parallel", "2"], "--model-parallel"),
     (["--seq-parallel", "2"], "--seq-parallel"),
+    # ported: taken, the replica's model stacked (tests/test_torch_scan.py)
     (["--scan-layers"], "--scan-layers"),
     # ported: taken, as the JAX serve parser takes it
     (["--remat", "blocks"], "--remat blocks"),
@@ -492,7 +506,10 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
     taken (nothing of serve reads it), and so are --fault-plan (the serve.*
     sites fire under it), --elastic, --elastic-dir, --metrics-port and
     --flightrec (the world of replicas, tests/test_torch_serve_world.py)
-    and --moe-experts (the replica's MoE vit, tests/test_torch_moe.py)."""
+    and --moe-experts (the replica's MoE vit, tests/test_torch_moe.py),
+    --scan-layers (the replica's stacked model) and --attention ring and
+    ring_flash (refused by the replica's registry as JAX's refuses them,
+    ``test_serve_ring_fails_as_the_jax_registry``)."""
     argv = ["serve", "-d", "/nonexistent", "-f", "/nonexistent.ckpt",
             "--device", "cpu"] + extra
     taken = {"--remat blocks": ("remat", "blocks"),
@@ -501,7 +518,10 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
              "--elastic-dir": ("elastic_dir", "/x"),
              "--metrics-port": ("metrics_port", 9100),
              "--flightrec": ("flightrec", True),
-             "--moe-experts": ("moe_experts", 4)}
+             "--moe-experts": ("moe_experts", 4),
+             "--scan-layers": ("scan_layers", True),
+             "--attention ring": ("attention", "ring"),
+             "--attention ring_flash": ("attention", "ring_flash")}
     if flag in taken:
         field, value = taken[flag]
         assert getattr(tconfig.config_from_argv(argv), field) == value
@@ -527,6 +547,34 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
     with pytest.raises(ValueError, match=f"^{message}$"):
         tconfig.config_from_argv(argv)
     assert tcli.main(argv) == 1
+
+
+@pytest.mark.parametrize("attention", ["ring", "ring_flash"])
+def test_serve_ring_fails_as_the_jax_registry(attention, tmp_path):
+    """``serve --attention ring|ring_flash``: a replica has no 'model'
+    axis (JAX ``runtime.make_serve_mesh``; serve refuses
+    --model-parallel), so the replica's registry fails it with JAX's
+    message, word for word, where JAX's does: building the replica, after
+    the checkpoint's model name and the dataset are read."""
+    from distributedpytorch_tpu import runtime as jax_runtime
+    from distributedpytorch_tpu.models import registry as jax_registry
+
+    with pytest.raises(ValueError) as want:
+        jax_registry.get_model("vit", 10, attention=attention,
+                               mesh=jax_runtime.make_serve_mesh())
+    path = tmp_path / "bestmodel-mnist-vit.ckpt"
+    _port_checkpoint(path)
+    argv = ["serve", "-d", str(tmp_path / "data"), "--rsl_path",
+            str(tmp_path / "rsl"), "-f", str(path), "--device", "cpu",
+            "--debug", "--synthetic-fallback", "--attention", attention,
+            "--serve-port", "0", "--serve-buckets", "1"]
+    with pytest.raises(ValueError, match=f"^{re.escape(str(want.value))}$"):
+        tcli.run_serve(tconfig.config_from_argv(argv))
+    assert str(want.value) == (
+        f"--attention {attention} (token axis) uses the mesh's 'model' "
+        "axis: pass --model-parallel >= 2 (and a mesh)")
+    assert "serve: 1 buckets" not in (tmp_path / "rsl" / "test.log"
+                                      ).read_text()
 
 
 def test_ported_flags_parse():

@@ -679,6 +679,8 @@ REFUSED_MESSAGES = {
     "--producer-threads": dict.fromkeys(("train", "test"), None),
     "--device-prefetch": dict.fromkeys(("train", "test"), None),
     "--remat full": dict.fromkeys(("train", "test"), None),
+    # ported: the stacked block runs (tests/test_torch_scan.py)
+    "--scan-layers": dict.fromkeys(("train", "test"), None),
     **{flag: dict.fromkeys(("train", "test"), None) for flag in (
         "--aot-warmup", "--profile", "--anomaly-capture",
         "--anomaly-window", "--compilation-cache-dir", "--no-compile-cache",
@@ -784,7 +786,8 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                        flightrec=True, elastic=False, elastic_join=False,
                        health_timeout=0.0, max_reconfigures=3,
                        fault_plan=None, moe_experts=0, model_parallel=1,
-                       pipeline_parallel=False, pipeline_microbatches=0)
+                       pipeline_parallel=False, pipeline_microbatches=0,
+                       scan_layers=False)
         changed = {"--grad-accum": {"grad_accum": 3},
                    "--ckpt-async": {"ckpt_async": True},
                    "--epochs-per-dispatch": {"epochs_per_dispatch": 2},
@@ -812,7 +815,8 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                    "--model-parallel": {"model_parallel": 2},
                    "--pipeline-parallel": {"pipeline_parallel": True},
                    "--pipeline-microbatches": {
-                       "pipeline_microbatches": 2}}[flag]
+                       "pipeline_microbatches": 2},
+                   "--scan-layers": {"scan_layers": True}}[flag]
         assert {k: getattr(cfg, k) for k in default} == \
             {**default, **changed}
         return

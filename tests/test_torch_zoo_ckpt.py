@@ -4,8 +4,12 @@ their initial (0, 1)) saved by the JAX checkpoint writer is restored by
 the port's ``serve``/``test`` restore, and the port's eval logits equal
 the flax model's on the same input (f32, 1e-4 of the largest logit; 64
 px, and 299 for inception).  A file in the ``--scan-layers`` layout is
-refused, never half-loaded.
+read into the scanned model and, converted, into the plain one, with the
+same logits; into a model of another family it is refused, never
+half-loaded.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -81,16 +85,34 @@ def test_jax_written_checkpoint_restores_with_equal_logits(name, tmp_path):
 
 
 def test_scan_layout_checkpoint_is_refused(tmp_path):
-    """vgg written with --scan-layers (its ConvScan_0) is refused by name
-    for test and serve, and nothing of it is loaded."""
+    """vgg written with --scan-layers (its ConvScan_0) restores into the
+    port's scanned vgg as it is and into the plain one converted
+    (vgg_scan -> vgg_layers), both with the flax model's eval logits; a
+    model of another family refuses it with JAX's ``convert_layout``
+    error and loads nothing of it."""
+    from distributedpytorch_tpu.models import scan as jax_scan
+
     path = tmp_path / "bestmodel-mnist-vgg.ckpt"
-    _jax_file("vgg", path, scan_layers=True)
-    with pytest.raises(ValueError, match="^not ported yet: --scan-layers "
-                                         "checkpoint layout$"):
-        ckpt.read_checkpoint(str(path))
-    model = registry.get_model("vgg", 10, PRESETS["f32"], device="cpu")
+    jmodel, state = _jax_file("vgg", path, scan_layers=True)
+    x = np.random.default_rng(6).standard_normal(
+        (2, Z.SIZES["vgg"], Z.SIZES["vgg"], 3)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        {"params": state.params, "batch_stats": state.batch_stats}, x))
+    assert ckpt.read_checkpoint(str(path))["state"]["params"][
+        "ConvScan_0.Conv_0.weight"].shape == (2, 512, 512, 3, 3)
+    for scan_layers in (True, False):
+        model = registry.get_model("vgg", 10, PRESETS["f32"], device="cpu",
+                                   scan_layers=scan_layers)
+        assert ckpt.restore_for_serving(str(path), model) == 3
+        model.eval()
+        with torch.no_grad():
+            assert Z.rel(model(torch.from_numpy(x)), want) <= 1e-4
+    model = registry.get_model("densenet", 10, PRESETS["f32"], device="cpu")
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    with pytest.raises(ValueError, match="--scan-layers"):
+    with pytest.raises(ValueError) as jax_error:
+        jax_scan.convert_layout({"ConvScan_0": {}}, "dense_layers")
+    with pytest.raises(ValueError, match=re.escape(
+            f"{path}: {jax_error.value}")):
         ckpt.restore_for_serving(str(path), model)
     path.unlink()
     for k, v in model.state_dict().items():

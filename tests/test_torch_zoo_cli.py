@@ -258,14 +258,25 @@ def test_train_use_pretrained_feature_extract_moves_only_the_head(tmp_path):
 
 
 def test_remat_and_scan_layers_stay_refused_for_the_zoo(tmp_path):
-    """--scan-layers stays refused; --remat is ported and taken (its
-    steps: tests/test_torch_remat.py)."""
+    """--remat and --scan-layers are ported and taken (their steps:
+    tests/test_torch_remat.py, tests/test_torch_scan.py); --scan-layers
+    stays refused on a zoo model with no homogeneous block run, with the
+    JAX registry's message where the model is built, after the data is
+    read."""
+    from distributedpytorch_tpu.models import registry as jax_registry
+
     argv = _argv("train", tmp_path, "--model", "densenet", "--remat",
                  "blocks")
     assert tconfig.config_from_argv(argv).remat == "blocks"
     argv = _argv("train", tmp_path, "--model", "densenet", "--scan-layers")
-    with pytest.raises(ValueError, match="^not ported yet: --scan-layers$"):
-        tconfig.config_from_argv(argv)
+    assert tconfig.config_from_argv(argv).scan_layers
+    with pytest.raises(ValueError) as want:
+        jax_registry.get_model("resnet", 10, scan_layers=True)
+    argv = _argv("train", tmp_path, "--model", "resnet", "--scan-layers")
+    with pytest.raises(ValueError, match=f"^{re.escape(str(want.value))}$"):
+        tcli.run_train(tconfig.config_from_argv(argv))
+    assert "Number of training examples" in (
+        tmp_path / "rsl-train" / "test.log").read_text()
 
 
 @pytest.mark.parametrize("case", ["test", "serve", "resume", "no-path",
