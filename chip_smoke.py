@@ -56,6 +56,11 @@ in whose world the stacked ring runs):
 
     python3 chip_smoke.py --phases 45
 
+or the checkpoint directories of ``--ckpt-format orbax`` (which bring in
+phase 43, in whose world they are first written):
+
+    python3 chip_smoke.py --phases 46
+
 A partial run skips no check within a phase it runs, ends with a line
 naming the skipped phases, and never prints the last line of a full run.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); without a card,
@@ -515,7 +520,27 @@ result.  Phases, each printing its lines before the last:
      wave of 64 in one batch, every answer equal to the stacked model's
      predict step of that batch.  (a) and (d) run before phase 21 with
      the other timed in-process phases;
- 46. the card's name and power limit again, one ``{"kernels": [...]}``
+ 46. ``--ckpt-format orbax`` (checkpoint directories on
+     ``torch.distributed.checkpoint``, each rank writing its own slices):
+     (a) in phase 43's zero world, a directory saved after 2 of its 3
+     f32 SGD steps with ``Placement.join`` and ``full_state`` made to
+     raise, each rank's payload bytes printed against the prediction
+     (every chunk of a sharded tensor in its rank's file, every element
+     once), restored in one process with no placement for the last step:
+     parameters, momentum and counters bit-identical to the world's after
+     3 steps, and read back by the world with no gather, bit-identical
+     to what it saved; (b) on 45 (c)'s thread after it, ``train
+     --model vit --attention flash --model-parallel 2 --ckpt-format orbax
+     -e 1 --telemetry`` under torchrun on phase 22's corpus (K1-K3 on each
+     rank by phase 6's formula, all on the tensor cores; the best
+     directory's payload as in (a), Adam's), then at once ``test -f`` of
+     it in one process equal to an in-process eval, a 1-process ``train
+     -f`` resume, and in process ``serve -f``'s replica in a
+     ``serving.ServingTier`` answering one wave of 64 in one batch, every
+     answer equal to the predict step of that batch; (c) beside (b)'s
+     train, 1-process trainings with and without ``--ckpt-async``, their
+     directories read back bit-identical, no ``.tmp`` left;
+ 47. the card's name and power limit again, one ``{"kernels": [...]}``
      JSON line (the float16 variants of all seven kernels as their own
      entries), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -531,8 +556,8 @@ and 36's trainings are checked after 28, 36's tests then run beside 18
 and 27-35); the test of 29 and the resume of 30 run beside 27; 33, 34,
 35, 36 and 38's last checks, then 42's, 43's and 44's, 39's, 40's and
 41's, come last; 43's thread, which runs 44 after 43 (45's stacked ring
-inside 43's zero world), and 45's CLI thread start with the CLI runs of
-42.  Nothing after 38's
+and 46 (a) inside 43's zero world), and the thread of 45's CLI runs, then
+46's, start with the CLI runs of 42.  Nothing after 38's
 in-process
 part is timed for the kernels line (38's CLI runs time their warm-ups
 beside the other background runs).  Each phase prints its wall time.
@@ -626,8 +651,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_SAY_LOCK = threading.Lock()
+
+
 def say(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's output, whole: the side threads' phases
+    print beside the main thread's."""
+    with _SAY_LOCK:
+        print(msg, flush=True)
 
 
 # -- phase 1: environment ------------------------------------------------
@@ -1784,10 +1815,14 @@ def phase_resume_and_test(ckpt_path: str) -> None:
 def state_tensors_differ(path_a: str, path_b: str) -> tuple:
     """(the number of tensors and counts in the two checkpoints' states,
     the names of those that differ): params, optimizer state, step,
-    updates and loss scale."""
+    updates and loss scale; of a checkpoint directory as the port reads
+    it whole."""
     import torch
 
-    a, b = (torch.load(p, map_location="cpu", weights_only=True)["state"]
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+
+    a, b = (ckpt.read_checkpoint(p)["state"] if os.path.isdir(p) else
+            torch.load(p, map_location="cpu", weights_only=True)["state"]
             for p in (path_a, path_b))
 
     def leaves(tree, prefix=""):
@@ -7791,9 +7826,9 @@ def tier_serve(tag: str, best: str, flags: list, model_kw: dict) -> None:
         fail(f"{tag}: the served answers disagree with the predict step")
 
 
-# 45 (b) runs in 43's zero world
-PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}, 45: {43}}
-LAST_PHASE = 46                 # the closing lines; only a full run has it
+# 45 (b) and 46 (a) run in 43's zero world
+PHASE_NEEDS = {7: {6, 8}, 8: {6, 7}, 41: {40}, 45: {43}, 46: {43}}
+LAST_PHASE = 47                 # the closing lines; only a full run has it
 
 
 # -- phase 43: placement over 'model', tensor and expert parallelism -------
@@ -7836,14 +7871,15 @@ def p43_expected_elements(state: dict, experts: bool) -> int:
     return n
 
 
-def placement_worlds(scan_ring: bool = False) -> dict:
+def placement_worlds(scan_ring: bool = False, orbax: bool = False) -> dict:
     """(a)-(c) in process: the worlds of P43_WORLDS at once on the card
     (tests/_torch_ring_child.py vit, the placed ranks over gloo), each
     placed world's gathered parameters after P43_STEPS steps against its
     one-process run's, a rank's parameter and momentum elements against
     the rule's count, and under TP each rank's peak of its last step
     against one process's.  With ``scan_ring``, phase 45 (b) in the zero
-    world after its spec (``scan_ring_steps``).  Returns the printed
+    world after its spec (``scan_ring_steps``); with ``orbax``, phase 46
+    (a) there after them (``orbax_world``).  Returns the printed
     numbers."""
     import numpy as np
     import torch
@@ -7867,12 +7903,20 @@ def placement_worlds(scan_ring: bool = False) -> dict:
                     steps=steps, peak_memory=True)
 
     def specs(name, arch, attention):
-        if name != "zero" or not scan_ring:
+        if name != "zero" or not (scan_ring or orbax):
             return spec(arch, attention)
-        return [spec(arch, attention)] + [
-            dict(spec({"scan_layers": stacked}, "ring_flash"),
-                 precision="bf16", peak_memory=False)
-            for stacked in (False, True)]
+        out = [spec(arch, attention)]
+        if scan_ring:
+            out += [dict(spec({"scan_layers": stacked}, "ring_flash"),
+                         precision="bf16", peak_memory=False)
+                    for stacked in (False, True)]
+        if orbax:
+            out += [dict(spec(arch, attention),
+                         steps=steps[:P46_SAVED_STEPS], ckpt_dir=P46_DIR,
+                         peak_memory=False),
+                    dict(spec(arch, attention), steps=[], resume=P46_DIR,
+                         peak_memory=False)]
+        return out
 
     placed = [w for w in P43_WORLDS if w[1] == 2]
     ones = [w for w in P43_WORLDS if w[1] == 1]
@@ -7930,9 +7974,13 @@ def placement_worlds(scan_ring: bool = False) -> dict:
         f" of one process's")
     if any(p >= peak1 for p, _ in peaks):
         fail("placement tp: a rank's peak is not below one process's")
+    zero = got[[n for n, *_ in placed].index("zero")]
     if scan_ring:
-        out["scan_ring"] = scan_ring_steps(
-            [r[1:] for r in got[[n for n, *_ in placed].index("zero")]])
+        out["scan_ring"] = scan_ring_steps([r[1:3] for r in zero])
+    if orbax:
+        out["orbax"] = orbax_world([r[0] for r in zero],
+                                   [r[-2:] for r in zero],
+                                   spec(P43_WORLDS[0][2], P43_WORLDS[0][3]))
     return out
 
 
@@ -8558,21 +8606,254 @@ def scan_cli() -> dict:
     return {"steps": steps, "evals": evals, "acc": acc_here}
 
 
+# -- phase 46: --ckpt-format orbax -----------------------------------------
+
+# (a): the zero world saves a directory after P46_SAVED_STEPS of its
+# P43_STEPS steps; one process restores it and takes the last step
+P46_SAVED_STEPS = 2
+P46_DIR = os.path.join(WORK, "p46_zero.ckpt")
+# The prediction (PERF.md, before the first run on the card): the vit at
+# M = 2 under ZeRO holds 807,178 parameters, 786,432 of them in sharded
+# tensors (a rank 393,216) and 20,746 replicated; a directory holds each
+# once, in f32: (a)'s SGD state twice that (the momentum), (b)'s Adam
+# state three times (both moments; Adam's 0-d step counts beside)
+P46_PARAMS, P46_SHARDED = 807178, 786432
+P46_TRAIN = ["train", "--model", "vit", "--attention", "flash",
+             "--model-parallel", "2", "--ckpt-format", "orbax", "-e", "1",
+             "--telemetry"]
+P46_ASYNC = ["train", "--model", "vit", "--attention", "flash", "--debug",
+             "--ckpt-format", "orbax", "-e", "1"]
+P46_REPS = 3            # the in-process saves and loads timed, each format
+
+
+def dir_payload(path: str, copies: int, tag: str) -> dict:
+    """A checkpoint directory written by two ranks: each chunk of a
+    sharded tensor in its own rank's file, every element once; each
+    rank's payload bytes printed against the prediction for ``copies``
+    f32 copies of the state (parameters and the optimizer's moments)."""
+    from distributedpytorch_tpu_torch import dcp_io
+
+    state_dir = os.path.join(path, "state")
+    meta = dcp_io.dcp.FileSystemReader(state_dir).read_metadata()
+    held, own, misplaced = {}, {0: 0, 1: 0}, []
+    for fqn, entry in meta.state_dict_metadata.items():
+        if not dcp_io.is_tensor(entry) or not len(entry.size):
+            continue            # values, and Adam's 0-d step counts
+        for c in entry.chunks:
+            where = meta.storage_data[
+                dcp_io.MetadataIndex(fqn, c.offsets)].relative_path
+            n = math.prod(c.sizes)
+            held[where] = held.get(where, 0) + n
+            if len(entry.chunks) > 1:
+                rank = int(any(c.offsets))
+                own[rank] += n
+                if where != f"__{rank}_0.distcp":
+                    misplaced.append(fqn)
+    files = sorted(os.listdir(state_dir))
+    sizes = {f: os.path.getsize(os.path.join(state_dir, f)) for f in files}
+    mine = copies * P46_SHARDED // 2
+    repl = copies * (P46_PARAMS - P46_SHARDED)
+    say(f"{tag}: {path} holds {files}: bytes {sizes}; elements by file "
+        f"{held} (of them the ranks' own slices {own}); predicted a rank "
+        f"{4 * mine} B of its slices and a share of {4 * repl} B "
+        f"replicated, {4 * copies * P46_PARAMS} B in all")
+    if misplaced or files != [".metadata", "__0_0.distcp", "__1_0.distcp"] \
+            or own != {0: mine, 1: mine} \
+            or sum(held.values()) != copies * P46_PARAMS:
+        fail(f"{tag}: the directory does not hold each rank's slices once "
+             f"(misplaced {misplaced[:4]})")
+    return {"bytes": sizes, "elements": held}
+
+
+def orbax_world(ranks: list, saved: list, base: dict) -> dict:
+    """Phase 46 (a): the directory that 43's zero world wrote after
+    P46_SAVED_STEPS of its steps with no gather (the child's
+    ``Placement.join`` and ``full_state`` raise) holds each rank's slices
+    once (``dir_payload``); the world restores it, each rank its slices
+    with no gather either, to the state it saved (``saved``: each rank's
+    (saving, restoring) results); one process restores it, with no
+    placement, and takes the last step: its parameters, momentum and
+    counters bit-identical to the world's after P43_STEPS."""
+    import torch
+
+    out = dir_payload(P46_DIR, 2, "orbax (a)")
+    back = []
+    for rank, (wrote, read) in enumerate(saved):
+        params, opt = read["resumed"]
+        back.append(sum(not torch.equal(v, wrote["state"][k])
+                        for k, v in params.items()) + sum(
+            not torch.equal(st["momentum_buffer"], wrote["opt_state"][
+                "state"][i]["momentum_buffer"])
+            for i, st in opt["state"].items()))
+    say(f"orbax (a): the zero world restored its directory, each rank "
+        f"reading its slices with no gather: tensors differing from the "
+        f"saved state by rank {back}")
+    if any(back):
+        fail("orbax (a): the placed restore differs from the saved state")
+    [[one]] = run_worlds([ring_world(
+        "vit", dict(base, steps=base["steps"][P46_SAVED_STEPS:],
+                    resume=P46_DIR, peak_memory=False), 1, "p46_one",
+        "--model-parallel", "1")])
+    world = ranks[0]
+    differ = [k for k, v in world["state"].items()
+              if not torch.equal(v, one["state"][k])]
+    differ += [f"momentum {i}" for i, st in world["opt_state"][
+        "state"].items() if not torch.equal(
+            st["momentum_buffer"],
+            one["opt_state"]["state"][i]["momentum_buffer"])]
+    say(f"orbax (a): restored in one process from the zero world's "
+        f"directory after {P46_SAVED_STEPS} of {P43_STEPS} f32 SGD steps, "
+        f"then the last step: {len(differ)} of "
+        f"{len(world['state']) + len(world['opt_state']['state'])} tensors "
+        f"(parameters, momentum) differ from the world's; counters "
+        f"{one['counters']} vs {world['counters']}")
+    if differ or one["counters"] != world["counters"]:
+        fail(f"orbax (a): the resumed step differs from the world's: "
+             f"{differ[:5]}")
+    return out
+
+
+def orbax_times(best: str) -> dict:
+    """In process, one rank: the full-width vit with the Adam state of
+    ``best`` on the card, saved synchronously and loaded back (optimizer
+    state too) as a directory and as a file, P46_REPS times each; the
+    median seconds (host clock, the card synchronized) printed."""
+    import statistics
+
+    import torch
+
+    from distributedpytorch_tpu_torch import checkpoint as ckpt
+    from distributedpytorch_tpu_torch.precision import PRESETS
+
+    _, state = scan_engine("vit", PRESETS["bf16"], False)
+    ckpt.load_checkpoint(best, state.model, state.optimizer,
+                         train_state=state)
+    out = {}
+    for fmt, save in (("orbax", ckpt.save_directory),
+                      ("msgpack", ckpt.save_checkpoint)):
+        path = os.path.join(WORK, f"p46_time_{fmt}.ckpt")
+        saves, loads = [], []
+        for _ in range(P46_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save(path, "vit", state.model, 0, 1.0, state.optimizer,
+                 int(state.step), int(state.updates))
+            saves.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            ckpt.load_checkpoint(path, state.model, state.optimizer,
+                                 train_state=state)
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t)
+        out[fmt] = (statistics.median(saves), statistics.median(loads))
+    say(f"orbax (b): one process, the vit's Adam state: a synchronous "
+        f"save / a load (median of {P46_REPS}, s): directory "
+        f"{out['orbax'][0]:.4f} / {out['orbax'][1]:.4f}, file "
+        f"{out['msgpack'][0]:.4f} / {out['msgpack'][1]:.4f}")
+    return out
+
+
+def orbax_cli() -> dict:
+    """Phase 46 (b) and (c), on 45 (c)'s thread after it: ``train
+    --model-parallel 2 --ckpt-format orbax -e 1`` under torchrun on phase
+    22's corpus (K1-K3 on each rank by phase 6's formula, all on the
+    tensor cores; its directories of each rank's slices), then at once
+    ``test -f`` of the best directory in one process (equal to an
+    in-process eval), a 1-process ``train -f`` resume of it and, in
+    process, ``serve -f``'s replica answering one wave (``tier_serve``);
+    beside the train, 1-process trainings with and without
+    ``--ckpt-async``, whose directories read back bit-identical."""
+    write_zoo_data()
+    rsl = os.path.join(WORK, "p46_rsl")
+    sync_rsl, async_rsl = (os.path.join(WORK, f"p46_{n}")
+                           for n in ("sync", "async"))
+    (wall, log), _, _ = finish_all([
+        start_cli(P46_TRAIN, rsl, launcher=TORCHRUN2, data=ZOO_DATA),
+        start_cli(P46_ASYNC, sync_rsl, data=ZOO_DATA),
+        start_cli(P46_ASYNC + ["--ckpt-async"], async_rsl, data=ZOO_DATA)])
+    line = ("mesh: data 1 x model 2, parameters placed over the model group "
+            "on gloo")
+    _, steps, evals = parse_launches(log, "train")
+    want = {"flash_fwd": DEPTH * (steps + evals), "flash_dq": DEPTH * steps,
+            "flash_dkv": DEPTH * steps, "conv_dw": 0}
+    ranks = []
+    for rank in (0, 1):
+        [ev] = [e["attrs"] for e in rank_events(rsl, rank,
+                                                "kernel_launches")]
+        ranks.append((ev["launches"], ev["tensor_core"]))
+    say(f"orbax (b): train --model-parallel 2 --ckpt-format orbax -e 1 on "
+        f"2 ranks in {wall:.1f}s of process wall: {steps} steps and {evals} "
+        f"eval batches; launches by rank {[r[0] for r in ranks]}, on the "
+        f"tensor cores {[r[1] for r in ranks]}; formula {want}")
+    if line not in log or not steps or any(
+            got != {k: want.get(k, 0) for k in got}
+            or {k: tc[k] for k in want} != want for got, tc in ranks):
+        fail("orbax (b): the placed train's mesh line or launches disagree")
+    best = os.path.join(rsl, "bestmodel-mnist-vit.ckpt")
+    out = {"steps": steps, "evals": evals, "launches": ranks[0][0],
+           "payload": dir_payload(best, 3, "orbax (b)")}
+    test_run = start_cli(["test", "-f", best, "--attention", "flash"],
+                         os.path.join(WORK, "p46_test"), data=ZOO_DATA)
+    resume_run = start_cli(["train", "-f", best, "--model", "vit",
+                            "--attention", "flash", "-e", "2"],
+                           os.path.join(WORK, "p46_resume"), data=ZOO_DATA)
+    try:
+        tier_serve("orbax (b)", best, ["--attention", "flash",
+                                       "--ckpt-format", "orbax"],
+                   dict(attention="flash"))
+        out["times"] = orbax_times(best)
+        (_, test_log), (_, resume_log) = finish_all([test_run, resume_run])
+    finally:
+        for run in (test_run, resume_run):
+            if run[3].poll() is None:
+                run[3].kill()
+                run[3].wait()
+    acc_cli = re.search(r"Time: \d+m \d+s, Acc: ([\d.]+)%",
+                        test_log).group(1)
+    t_launches, _, t_evals = parse_launches(test_log, "test")
+    acc_here, correct, n = eval_accuracy(best, "vit", ZOO_DATA)
+    r_launches, r_steps, _ = parse_launches(resume_log, "train")
+    loaded = "epoch:0001: model loaded from" in resume_log
+    say(f"orbax (b): `test -f` of the directory in one process {acc_cli}% "
+        f"({t_evals} eval batches, launches {t_launches}); in-process eval "
+        f"{acc_here}% ({correct}/{n}); 1-process `train -f` resumed: "
+        f"{loaded}, {r_steps} steps, launches {r_launches}")
+    if acc_cli != acc_here or t_launches["flash_fwd"] != DEPTH * t_evals \
+            or not loaded or not r_steps \
+            or r_launches["flash_dq"] != DEPTH * r_steps:
+        fail("orbax (b): the test or the resume of the directory disagrees")
+    compared = {}
+    for name in ("checkpoint-mnist-vit-000.ckpt", "bestmodel-mnist-vit.ckpt"):
+        n_tensors, differ = state_tensors_differ(
+            os.path.join(sync_rsl, name), os.path.join(async_rsl, name))
+        compared[name] = (n_tensors, differ)
+    leftover = [f for r in (sync_rsl, async_rsl) for f in os.listdir(r)
+                if f.endswith(".tmp")]
+    say(f"orbax (c): --ckpt-async against the synchronous save, 1 process: "
+        f"{ {k: (v[0], len(v[1])) for k, v in compared.items()} } (tensors "
+        f"and counts, differing) read back from the directories; leftover "
+        f".tmp {leftover}")
+    if leftover or any(d or not t for t, d in compared.values()):
+        fail(f"orbax (c): the asynchronous directories differ: {compared}")
+    return out
+
+
 def start_placement_phase(placement: bool = True,
                           pipeline: bool = True,
-                          scan_layers: bool = True) -> dict:
+                          scan_layers: bool = True,
+                          orbax: bool = True) -> dict:
     """Phases 43 and 44 (``placement``, ``pipeline``: which of them) on a
     thread of their own beside the other CLI phases, 44 after 43, and
-    45 (c) (``scan_layers``) on a second one (their processes share the
-    card; nothing of them is timed; 45 (b) runs in 43's zero world): a
-    failure (``fail``'s exit) is kept for ``finish_placement_phase``."""
+    45 (c) (``scan_layers``), then 46 (b) and (c) (``orbax``), on a second
+    one (their processes share the card; nothing of them is timed; 45 (b)
+    and 46 (a) run in 43's zero world): a failure (``fail``'s exit) is
+    kept for ``finish_placement_phase``."""
     write_zoo_data()        # the threads' CLI runs read it, from here on
     pending = {"t0": time.perf_counter()}
 
     def body():
         try:
             if placement:
-                pending["worlds"] = placement_worlds(scan_layers)
+                pending["worlds"] = placement_worlds(scan_layers, orbax)
                 pending["cli"] = placement_cli()
             pending["t44"] = time.perf_counter()
             if pipeline:
@@ -8582,18 +8863,22 @@ def start_placement_phase(placement: bool = True,
         except BaseException as e:       # fail()'s SystemExit included
             pending["error"] = e
 
-    def scan_body():
+    def cli_body():
         try:
-            pending["scan_cli"] = scan_cli()
+            if scan_layers:
+                pending["scan_cli"] = scan_cli()
             pending["t45"] = time.perf_counter()
+            if orbax:
+                pending["orbax_cli"] = orbax_cli()
+            pending["t46"] = time.perf_counter()
         except BaseException as e:
-            pending["scan_error"] = e
+            pending["cli_error"] = e
 
     pending["threads"] = [threading.Thread(target=body, name="phase43",
                                            daemon=True)]
-    if scan_layers:
+    if scan_layers or orbax:
         pending["threads"].append(threading.Thread(
-            target=scan_body, name="phase45", daemon=True))
+            target=cli_body, name="phase45_46", daemon=True))
     for thread in pending["threads"]:
         thread.start()
     return pending
@@ -8607,14 +8892,24 @@ def finish_placement_phase(pending: dict, card: str) -> None:
     wall = pending.get("t_end", now) - pending["t0"]
     split = pending.get("t44", now) - pending["t0"]
     scan_s = pending.get("t45", pending["t0"]) - pending["t0"]
+    orbax_s = pending.get("t46", pending["t0"]) - pending["t0"] - scan_s
     say(f"chip_smoke: placement and pipeline ran {wall:.1f}s beside the "
         f"other phases (43 {split:.1f}s, 44 {wall - split:.1f}s), 45's CLI "
-        f"runs {scan_s:.1f}s on a thread of their own; the main thread "
-        f"waited {now - t:.1f}s for them ({card})")
-    errors = [pending[k] for k in ("error", "scan_error") if k in pending]
+        f"runs {scan_s:.1f}s then 46's {orbax_s:.1f}s on a thread of their "
+        f"own; the main thread waited {now - t:.1f}s for them ({card})")
+    blocking = {}
+    for fmt, rsl in (("msgpack", "p43_zero_rsl"), ("orbax", "p46_rsl")):
+        if os.path.exists(os.path.join(WORK, rsl, "goodput-rank1.json")):
+            blocking[fmt] = [goodput_categories(os.path.join(WORK, rsl),
+                                                rank).get("ckpt_blocking")
+                             for rank in (0, 1)]
+    if blocking:
+        say(f"chip_smoke: the placed vit's train -e 1 on 2 ranks (2 saves): "
+            f"goodput ckpt_blocking s by rank {blocking} ({card})")
+    errors = [pending[k] for k in ("error", "cli_error") if k in pending]
     if errors or "t_end" not in pending or (
-            len(pending["threads"]) > 1 and "scan_cli" not in pending):
-        fail(f"phase 43, 44 or 45 did not pass: {errors!r}")
+            len(pending["threads"]) > 1 and "t46" not in pending):
+        fail(f"phase 43, 44, 45 or 46 did not pass: {errors!r}")
 
 
 def parse_phases(argv) -> set:
@@ -8827,9 +9122,9 @@ def main(argv=None) -> int:
         stream_runs = ahead(36, start_stream_cli)
         moe_run = ahead(42, start_moe_cli)
         # 43's worlds and CLI runs, then 44's, on a thread of their own,
-        # and 45's CLI runs on another
+        # and 45's CLI runs, then 46's, on another
         placement_pending = (start_placement_phase(want(43), want(44),
-                                                   want(45))
+                                                   want(45), want(46))
                              if want(43) or want(44) or want(45) else None)
         # 39's faulted, elastic and stalled worlds on a thread of its own
         elastic_pending = start_elastic_phase(card) if want(39) else None

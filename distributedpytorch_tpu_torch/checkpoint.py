@@ -53,15 +53,34 @@ statistics, and the optimizer moments, are converted at load, as JAX's
 ``_load_checkpoint_inner`` converts them (:1025-1045,
 ``scan.convert_layout``), and ``serve_restore`` records the model's
 layout (``unknown`` for a model of none).
-Orbax checkpoint directories are not ported yet.  In a world of several
-ranks, rank 0 writes (the caller gates on ``runtime.is_main()``) and every
-rank reads.  A model placed over a model group (``parallel.place``) is
-written whole: every rank gathers its slices first
-(``parallel.full_state``, a collective made before the gate; with
+In a world of several ranks, rank 0 writes a file (the caller gates on
+``runtime.is_main()``) and every rank reads.  A model placed over a model
+group (``parallel.place``) is written whole: every rank gathers its slices
+first (``parallel.full_state``, a collective made before the gate; with
 ``--ckpt-async`` on the caller's thread too) and the file is the one a
 replicated run writes; a placed model takes its slices of the full
 tensors it restores, so one file (the port's or the JAX package's, which
 writes full arrays) loads at any ``--model-parallel``.
+
+``--ckpt-format orbax`` writes a checkpoint DIRECTORY at the same path
+instead (JAX :616-917), on ``torch.distributed.checkpoint`` (DCP; the port
+has no orbax): ``meta.json`` holds JAX's fields (``model_name``,
+``epoch``, ``loss``, ``params_layout``, ``moe``, the structural
+``checksum`` of ``_orbax_checksum``) with the port's ``format_version``,
+and ``state/`` the five-field state as DCP entries: ``params.<name>``,
+``opt_state.<parameter name>.<moment>`` (by name, so that it reshards)
+with ``opt_state.param_groups``, ``step``, ``updates`` and
+``loss_scale``.  Every rank calls ``save_directory`` and writes its own
+slices as chunks of the full tensor (a ``Shard(groups=3)`` tensor, the
+tensor-parallel qkv, through its ``(groups, -1)`` view, recorded in
+``meta.json``'s ``views``); a replicated tensor is written once (DCP's
+dedup), nothing is gathered, and rank 0 finalizes under ``<path>.tmp``
+then swaps it in (JAX ``_orbax_finalize``).  A load reads, on each rank
+alone, the chunks that overlap its own slices, at any
+``--model-parallel`` and into an unplaced model; a directory of another
+block layout is read whole, converted and sliced, as the file is.  A
+directory the JAX package's orbax wrote (a tensorstore payload) is
+refused in one line.
 """
 
 from __future__ import annotations
@@ -73,6 +92,7 @@ import logging
 import os
 import re
 import queue as queue_mod
+import shutil
 import threading
 from typing import Callable, List, Optional, Tuple
 
@@ -80,11 +100,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import faults, parallel, telemetry
+from . import faults, parallel, runtime, telemetry
 from .models import scan
 from .models.convert import (cnn_params_from_jax, optimizer_state_from_jax,
                              params_from_jax)
 from .precision import LossScaleState
+# JAX's _orbax_checksum: the structural checksum of a directory
+from .serving.rollout import DIR_META as _ORBAX_META
+from .serving.rollout import dir_checksum as _orbax_checksum
 
 FORMAT_VERSION = 3
 _READABLE_VERSIONS = (1, 2, 3)  # the port's own files
@@ -92,6 +115,10 @@ _JAX_FORMAT_VERSION = 1
 _JAX_MODELS = ("vit", "cnn", "mlp", "resnet", "alexnet", "vgg",
                "squeezenet", "densenet", "inception")
 _LINEAGE = "ckpt-lineage.json"
+_STATE_DIR = "state"
+_DCP_METADATA = ".metadata"
+# what the JAX package's orbax leaves in state/ (its tensorstore payload)
+_ORBAX_PAYLOAD = ("_METADATA", "manifest.ocdbt")
 _ZIP_MAGIC = b"PK\x03\x04"
 # msgpack extension codes of flax.serialization._MsgpackExtType
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
@@ -168,17 +195,24 @@ def _lineage_entry(path: str) -> Optional[dict]:
     return None
 
 
-def _refuse_dir(path: str) -> None:
-    if os.path.isdir(path):
-        raise ValueError(f"not ported yet: orbax checkpoint directories "
-                         f"({path!r})")
-
-
 def verify_checkpoint(path: str) -> Optional[str]:
-    """None when the file matches its recorded checksum (or none was
-    recorded); otherwise a one-line reason.  Never raises."""
+    """None when the checkpoint matches its recorded checksum (or none was
+    recorded; a directory's is in its meta.json); otherwise a one-line
+    reason.  Never raises."""
     if os.path.isdir(path):
-        return "not ported yet: orbax checkpoint directories"
+        try:
+            with open(os.path.join(path, _ORBAX_META)) as f:
+                meta = json.load(f)
+        except (OSError, ValueError) as e:
+            return f"unreadable {_ORBAX_META} ({e})"
+        want = meta.get("checksum") if isinstance(meta, dict) else None
+        if want is None:
+            return None
+        got = _orbax_checksum(os.path.abspath(path))
+        if got != want:
+            return (f"content checksum mismatch (recorded "
+                    f"{want[:12]}…, found {got[:12]}…)")
+        return None
     rec = _lineage_entry(path)
     if rec is None:
         return None
@@ -195,10 +229,21 @@ def verify_checkpoint(path: str) -> Optional[str]:
 
 def lineage_info(path: str) -> Optional[dict]:
     """The served-model identity ``{"file", "path", "sha256", "epoch"}``:
-    the sha from the ledger when recorded, else computed.  None when the
-    file is unreadable."""
+    the sha from the ledger when recorded, else computed; a directory's
+    is its meta.json checksum.  None when the file is unreadable."""
     path = os.path.abspath(path)
-    name = os.path.basename(path)
+    name = os.path.basename(path.rstrip(os.sep))
+    if os.path.isdir(path):
+        try:
+            with open(os.path.join(path, _ORBAX_META)) as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            return None
+        if not isinstance(meta, dict):
+            return None
+        sha = meta.get("checksum") or _orbax_checksum(path)
+        return {"file": name, "path": path, "sha256": sha,
+                "epoch": meta.get("epoch")}
     rec = _lineage_entry(path)
     if rec is not None and rec.get("sha256"):
         return {"file": name, "path": path, "sha256": rec["sha256"],
@@ -253,13 +298,17 @@ def newest_checkpoint(rsl_path: str, dataset: str,
 
 def rotate_checkpoint(rsl_path: str, dataset: str, model_name: str,
                       epoch: int, keep: int = 1) -> None:
-    """Delete the rolling file ``keep`` epochs back, retaining the newest
-    ``keep`` snapshots (keep=1 is the reference's delete-previous)."""
+    """Delete the rolling file or directory ``keep`` epochs back,
+    retaining the newest ``keep`` snapshots (keep=1 is the reference's
+    delete-previous)."""
     prev = checkpoint_path(rsl_path, dataset, model_name,
                            epoch - max(1, keep))
-    if not os.path.exists(prev):
+    if os.path.isdir(prev):
+        shutil.rmtree(prev)
+    elif os.path.exists(prev):
+        os.remove(prev)
+    else:
         return
-    os.remove(prev)
     _lineage_forget(prev)
 
 
@@ -475,6 +524,432 @@ def save_checkpoint_async(saver: AsyncSaver, path: str, model_name: str,
     saver.submit(write)
 
 
+# -- directories (--ckpt-format orbax) -------------------------------------
+
+_warned_async_world = False
+
+
+def _dir_state(model: nn.Module, optimizer: Optional[torch.optim.Optimizer],
+               step: int, updates: Optional[int],
+               loss_scale: Optional[LossScaleState]) -> tuple:
+    """What this rank writes into ``state/``: ({fqn: (its chunk, the
+    chunk's offsets, the full shape)}, {fqn: a picklable value}, {fqn:
+    the full shape, dim and groups of an entry stored through its
+    ``(groups, -1)`` view}).  Read from the parameters themselves, never
+    from a ZeRO forward's gathered tensors."""
+    placement = parallel.placement_of(model)
+    chunks, views = {}, {}
+
+    def put(fqn: str, name: str, t: torch.Tensor) -> None:
+        t = t.detach()
+        if placement is None:
+            chunks[fqn] = (t, (0,) * t.dim(), tuple(t.shape))
+            return
+        chunks[fqn] = placement.chunk(name, t)
+        shard = placement.shards.get(name) if t.dim() else None
+        if shard is not None and shard.groups > 1:
+            views[fqn] = {"shape": list(placement.full_shape(name, t.shape)),
+                          "dim": shard.dim, "groups": shard.groups}
+
+    for name, t in model.state_dict().items():
+        put("params." + name, name, t)
+    values = {"step": int(step),
+              "updates": int(step if updates is None else updates),
+              "loss_scale": (None if loss_scale is None
+                             else loss_scale.to_dict())}
+    if optimizer is not None:
+        osd = optimizer.state_dict()
+        names = parallel.optimizer_names(model, optimizer)
+        for idx, st in osd["state"].items():
+            for key, v in st.items():
+                fqn = f"opt_state.{names[idx]}.{key}"
+                if isinstance(v, torch.Tensor):
+                    put(fqn, names[idx], v)
+                else:
+                    values[fqn] = v
+        values["opt_state.param_groups"] = [
+            dict(g, params=[names[i] for i in g["params"]])
+            for g in osd["param_groups"]]
+    return chunks, values, views
+
+
+def _dir_meta(model_name: str, model: nn.Module, epoch: int,
+              best_valid_loss: float, views: dict) -> dict:
+    """meta.json's fields but the checksum (JAX ``_orbax_meta``, with the
+    port's format version and the grouped entries' ``views``)."""
+    params = model.state_dict()
+    return {"format_version": FORMAT_VERSION, "model_name": model_name,
+            "epoch": int(epoch), "loss": float(best_valid_loss),
+            "params_layout": scan.params_layout(dict.fromkeys(params)),
+            "moe": _experts(params) > 0, "views": views}
+
+
+def _dir_finalize(path: str, tmp: str, meta: dict) -> None:
+    """meta.json write and the tmp -> dir swap (one writer; JAX
+    ``_orbax_finalize``): the whole checkpoint is under ``tmp`` before
+    this runs, so a crash before or inside it leaves the previous one at
+    ``path``.  The structural checksum goes into meta.json; the swap is
+    retried at fault site ``ckpt.finalize``, which then fires on the
+    final directory."""
+    meta = dict(meta, checksum=_orbax_checksum(tmp))
+
+    def _attempt():
+        with open(os.path.join(tmp, _ORBAX_META), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+
+    faults.retry(_attempt, "ckpt.finalize")
+    faults.fire("ckpt.finalize", path=path)
+    total = sum(os.path.getsize(os.path.join(dp, fn))
+                for dp, _, fns in os.walk(path) for fn in fns)
+    _lineage_record(path, meta["epoch"], meta["checksum"], total)
+    logging.info(f"epoch:{meta['epoch']:04d}: model saved to {path}")
+
+
+def _dir_write(path: str, chunks: dict, values: dict, meta: dict,
+               world: int) -> None:
+    """Every rank of a world of ``world``: the DCP save under
+    ``<path>.tmp``, then rank 0's finalize, between barriers (JAX
+    ``_save_orbax``); a world of one runs no collective."""
+    from . import dcp_io
+
+    tmp = path + ".tmp"
+    if runtime.is_main() and os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    if world > 1:
+        runtime.barrier()   # nobody writes into .tmp before the cleanup
+    faults.fire("ckpt.save", path=path)
+    try:
+        dcp_io.write(os.path.join(tmp, _STATE_DIR), chunks, values,
+                     no_dist=world == 1)
+    except dcp_io.CheckpointException as e:
+        # a BaseException: kept in the cause chain (a peer lost inside it
+        # stays visible to elastic.is_peer_loss)
+        raise RuntimeError(f"checkpoint directory {path!r} not written: "
+                           f"{e}") from e
+    err = None
+    if runtime.is_main():
+        try:
+            _dir_finalize(path, tmp, meta)
+        except Exception as e:  # raised after the barrier, on rank 0
+            err = e
+    if world > 1:
+        runtime.barrier()   # no rank goes on before the swap is visible
+    if err is not None:
+        raise err
+
+
+def save_directory(path: str, model_name: str, model: nn.Module,
+                   epoch: int, best_valid_loss: float,
+                   optimizer: Optional[torch.optim.Optimizer] = None,
+                   step: int = 0, updates: Optional[int] = None,
+                   loss_scale: Optional[LossScaleState] = None) -> None:
+    """Write the checkpoint directory at ``path`` (``--ckpt-format
+    orbax``) in a ``ckpt_save`` span, as JAX's ``save_checkpoint``.
+    EVERY rank calls it: each writes its own slices and nothing is
+    gathered; the arguments are ``save_checkpoint``'s."""
+    with telemetry.get().span("ckpt_save", fmt="orbax", epoch=int(epoch),
+                              file=os.path.basename(path)):
+        chunks, values, views = _dir_state(model, optimizer, step, updates,
+                                           loss_scale)
+        _dir_write(os.path.abspath(path), chunks, values,
+                   _dir_meta(model_name, model, epoch, best_valid_loss,
+                             views), runtime.process_count())
+
+
+def save_directory_async(saver: AsyncSaver, path: str, model_name: str,
+                         model: nn.Module, epoch: int,
+                         best_valid_loss: float,
+                         optimizer: Optional[torch.optim.Optimizer] = None,
+                         step: int = 0, updates: Optional[int] = None,
+                         loss_scale: Optional[LossScaleState] = None
+                         ) -> None:
+    """``save_directory`` with only the snapshot on the caller's path (a
+    ``ckpt_save_blocking`` span: the rank's chunks copied to the CPU);
+    the DCP save and the finalize run on ``saver``'s thread (a
+    ``ckpt_save_background`` span), after every earlier job, so two saves
+    never share ``<path>.tmp`` at once.  In a world of several ranks the
+    finalize's barriers are collectives that must not run beside the
+    step's: it saves synchronously and warns once (JAX
+    ``save_checkpoint_async``)."""
+    global _warned_async_world
+    world = runtime.process_count()
+    if world > 1:
+        if not _warned_async_world:
+            logging.warning(
+                "--ckpt-async with --ckpt-format orbax on a multi-host "
+                "mesh falls back to synchronous saves (the finalize "
+                "barrier is collective and cannot run on a background "
+                "thread)")
+            _warned_async_world = True
+        if saver is not None:
+            saver.wait()    # ordering with any earlier async save
+        save_directory(path, model_name, model, epoch, best_valid_loss,
+                       optimizer, step, updates, loss_scale)
+        return
+    path = os.path.abspath(path)
+    attrs = dict(fmt="orbax", epoch=int(epoch), file=os.path.basename(path))
+    with telemetry.get().span("ckpt_save_blocking", **attrs):
+        chunks, values, views = _dir_state(model, optimizer, step, updates,
+                                           loss_scale)
+        chunks = {k: (_to_cpu(t), off, shape)
+                  for k, (t, off, shape) in chunks.items()}
+        values = _to_cpu(values)
+        meta = _dir_meta(model_name, model, epoch, best_valid_loss, views)
+
+    def write():
+        with telemetry.get().span("ckpt_save_background", **attrs):
+            _dir_write(path, chunks, values, meta, 1)
+
+    saver.submit(write)
+
+
+def _read_orbax_meta(path: str) -> dict:
+    """Read and check ``meta.json``; a failure is JAX's one-line
+    ValueError naming the path (``_read_orbax_meta``)."""
+    meta_path = os.path.join(path, _ORBAX_META)
+    if not os.path.exists(meta_path):
+        raise ValueError(
+            f"{path}: missing {_ORBAX_META} — not an orbax checkpoint "
+            f"directory; expected one produced by this framework's "
+            f"--ckpt-format orbax save (or pass a .ckpt msgpack file)")
+
+    def _attempt():
+        faults.fire("ckpt.restore", path=path)
+        with open(meta_path) as f:
+            return f.read()
+
+    try:
+        raw = faults.retry(_attempt, "ckpt.restore",
+                           transient=_READ_TRANSIENT)
+    except OSError as e:
+        raise ValueError(
+            f"{path}: cannot read {_ORBAX_META} ({e.strerror or e}) — "
+            f"expected the metadata written by this framework's "
+            f"--ckpt-format orbax save") from e
+    try:
+        meta = json.loads(raw)
+        if not isinstance(meta, dict):
+            raise ValueError("not a JSON object")
+    except ValueError as e:
+        raise ValueError(
+            f"{path}: garbage {_ORBAX_META} ({e}) — expected the JSON "
+            f"metadata written by this framework's --ckpt-format orbax "
+            f"save; the directory is corrupt or foreign, restore from "
+            f"an earlier snapshot") from e
+    return meta
+
+
+def _open_dir(path: str) -> Tuple[dict, dict]:
+    """(meta.json, the DCP entries of ``state/``) of a verified directory
+    the port wrote; a JAX-written one is refused in one line."""
+    from . import dcp_io
+
+    meta = _read_orbax_meta(path)
+    state_dir = os.path.join(path, _STATE_DIR)
+    if meta.get("format_version") == _JAX_FORMAT_VERSION or (
+            not os.path.exists(os.path.join(state_dir, _DCP_METADATA))
+            and any(os.path.exists(os.path.join(state_dir, n))
+                    for n in _ORBAX_PAYLOAD)):
+        raise ValueError(
+            f"{path}: written by the JAX package's orbax (tensorstore "
+            f"payload); the port reads directories it wrote and the JAX "
+            f"package's msgpack files; re-save it with --ckpt-format "
+            f"msgpack")
+    if meta.get("format_version") != FORMAT_VERSION:
+        raise ValueError(f"{path}: unsupported checkpoint format "
+                         f"{meta.get('format_version')!r}")
+    reason = verify_checkpoint(path)
+    if reason is not None:
+        raise ValueError(f"{path}: corrupt checkpoint — {reason}")
+    try:
+        return meta, dcp_io.entries(state_dir)
+    except Exception as e:  # any DCP failure -> CLI-catchable ValueError
+        raise ValueError(f"cannot restore checkpoint directory {path!r}: "
+                         f"{e}") from e
+
+
+def _dir_read(path: str, boxes: dict, values: list) -> dict:
+    from . import dcp_io
+
+    try:
+        return dcp_io.read(os.path.join(path, _STATE_DIR), boxes, values)
+    except (Exception, dcp_io.CheckpointException) as e:
+        raise ValueError(f"cannot restore checkpoint directory {path!r}: "
+                         f"{e}") from e
+
+
+def _grouped(view: dict, t: torch.Tensor, offsets: list) -> list:
+    """The boxes of the saved tensor that a view ``t`` at ``offsets`` of
+    the full tensor covers: itself, or, for an entry stored through its
+    ``(groups, -1)`` view, one box a group it crosses."""
+    if not view:
+        return [(t, list(offsets))]
+    d = view["dim"]
+    n = view["shape"][d] // view["groups"]
+    a, b = offsets[d], offsets[d] + t.shape[d]
+    return [(t.narrow(d, lo - a, hi - lo).unsqueeze(d),
+             list(offsets[:d]) + [j, lo - j * n] + list(offsets[d + 1:]))
+            for j in range(a // n, -(-b // n))
+            for lo, hi in [(max(a, j * n), min(b, (j + 1) * n))]]
+
+
+def _saved_shape(view: dict, full: tuple) -> tuple:
+    if not view:
+        return tuple(full)
+    d, g = view["dim"], view["groups"]
+    return tuple(full[:d]) + (g, full[d] // g) + tuple(full[d + 1:])
+
+
+def _dir_payload(path: str, meta: dict, entries: dict,
+                 restore_optimizer: bool) -> dict:
+    """The directory read whole on the CPU as a port file's five fields
+    (its ``opt_state`` an ``optimizer.state_dict()`` indexed as a file's
+    parameters are): what a layout conversion and ``read_checkpoint``
+    take."""
+    from . import dcp_io
+
+    wanted = [k for k in entries
+              if restore_optimizer or not k.startswith("opt_state.")]
+    boxes = {k: [(torch.empty(entries[k].size,
+                              dtype=entries[k].properties.dtype),
+                  [0] * len(entries[k].size))]
+             for k in wanted if dcp_io.is_tensor(entries[k])}
+    values = _dir_read(path, boxes, [k for k in wanted if k not in boxes])
+    views = meta.get("views") or {}
+    full = {k: (b[0][0].flatten(views[k]["dim"], views[k]["dim"] + 1)
+                if k in views else b[0][0]) for k, b in boxes.items()}
+    params = {k[len("params."):]: v for k, v in full.items()
+              if k.startswith("params.")}
+    opt_state = None
+    groups = values.get("opt_state.param_groups")
+    if groups is not None:
+        names = [n for n in params
+                 if not n.endswith(("running_mean", "running_var"))]
+        pos = {n: i for i, n in enumerate(names)}
+        state: dict = {}
+        for k, v in list(full.items()) + list(values.items()):
+            if k.startswith("opt_state.") and k != "opt_state.param_groups":
+                name, key = k[len("opt_state."):].rsplit(".", 1)
+                state.setdefault(pos[name], {})[key] = v
+        opt_state = {"state": state, "param_groups": [
+            dict(g, params=[pos[n] for n in g["params"]]) for g in groups]}
+    return {"format_version": meta["format_version"],
+            "model_name": meta.get("model_name"), "epoch": meta["epoch"],
+            "loss": meta["loss"],
+            "state": {"params": params, "opt_state": opt_state,
+                      "step": values.get("step", 0),
+                      "updates": values.get("updates", 0),
+                      "loss_scale": values.get("loss_scale")}}
+
+
+def _load_dir(path: str, model: nn.Module,
+              optimizer: Optional[torch.optim.Optimizer],
+              restore_optimizer: bool, train_state
+              ) -> Tuple[int, float, int]:
+    """``load_checkpoint`` of a directory: each rank reads the chunks
+    that overlap its own slices (its placement's ``pieces``) straight
+    into them, no full tensor and no gather; a directory of another
+    block layout goes through ``_dir_payload`` and the file's path."""
+    from . import dcp_io
+
+    path = os.path.abspath(path)
+    meta, entries = _open_dir(path)
+    saved = {k[len("params."):]: torch.empty(e.size, device="meta")
+             for k, e in entries.items()
+             if k.startswith("params.") and dcp_io.is_tensor(e)}
+    _check_experts(path, saved, model)
+    if restore_optimizer and (optimizer is None or "opt_state.param_groups"
+                              not in entries):
+        raise ValueError(
+            f"{path}: holds no optimizer state; it cannot resume training "
+            f"(test and serve read it)")
+    src, dst = meta.get("params_layout"), _model_layout(model)
+    if src in scan.KNOWN_LAYOUTS and dst is not None and src != dst:
+        return _restore(path, _dir_payload(path, meta, entries,
+                                           restore_optimizer),
+                        "port", model, optimizer, restore_optimizer,
+                        train_state)
+    placement = parallel.placement_of(model)
+    views = meta.get("views") or {}
+    boxes: dict = {}
+
+    def want(fqn: str, name: str, shape, dtype) -> torch.Tensor:
+        t = torch.empty(shape, dtype=dtype)
+        pieces = ([(t, [0] * t.dim())] if placement is None
+                  else placement.pieces(name, t))
+        full = (tuple(t.shape) if placement is None
+                else placement.full_shape(name, t.shape))
+        view = views.get(fqn)
+        if (view and tuple(view["shape"]) != full) or tuple(
+                entries[fqn].size) != _saved_shape(view, full):
+            raise ValueError(
+                f"{path}: params do not fit the model: {fqn} is "
+                f"{tuple(entries[fqn].size)} in the checkpoint, {full} in "
+                f"the model")
+        boxes[fqn] = [b for v, off in pieces for b in _grouped(view, v, off)]
+        return t
+
+    local = model.state_dict()
+    missing = sorted(k for k in local if "params." + k not in entries)
+    unexpected = sorted(set(saved) - set(local))
+    if missing or unexpected:
+        raise ValueError(f"{path}: params do not fit the model: missing "
+                         f"{missing}, unexpected {unexpected}")
+    params = {k: want("params." + k, k, t.shape, t.dtype)
+              for k, t in local.items()}
+    values = [k for k, e in entries.items() if not dcp_io.is_tensor(e)
+              and (restore_optimizer or not k.startswith("opt_state."))]
+    got = _dir_read(path, {}, values)
+    opt_state = None
+    if restore_optimizer:
+        names = parallel.optimizer_names(model, optimizer)
+        run_groups, i = [], 0
+        for g in optimizer.param_groups:
+            run_groups.append(list(range(i, i + len(g["params"]))))
+            i += len(g["params"])
+        saved_groups = got["opt_state.param_groups"]
+        if len(saved_groups) != len(run_groups) or any(
+                set(s["params"]) != {names[i] for i in r}
+                for s, r in zip(saved_groups, run_groups)):
+            raise ValueError(
+                f"{path}: optimizer state does not fit the optimizer: the "
+                f"checkpoint trains "
+                f"{sorted(n for s in saved_groups for n in s['params'])}, "
+                f"the run {sorted(names.values())} (--feature-extract must "
+                f"match)")
+        by_name = dict(model.named_parameters())
+        state: dict = {}
+        for idx, name in names.items():
+            prefix = f"opt_state.{name}."
+            for k, e in entries.items():
+                key = k[len(prefix):]
+                if not k.startswith(prefix) or "." in key:
+                    continue
+                if not dcp_io.is_tensor(e):
+                    state.setdefault(idx, {})[key] = got[k]
+                    continue
+                shape = by_name[name].shape if len(e.size) else ()
+                state.setdefault(idx, {})[key] = want(
+                    k, name, shape, e.properties.dtype)
+        opt_state = {"state": state, "param_groups": [
+            dict(s, params=r) for s, r in zip(saved_groups, run_groups)]}
+    _dir_read(path, boxes, [])
+    try:
+        model.load_state_dict(params, strict=True)
+    except RuntimeError as e:
+        raise ValueError(f"{path}: params do not fit the model: {e}") from e
+    if opt_state is not None:
+        _set_optimizer_state(path, optimizer, opt_state)
+    step = int(got.get("step", 0))
+    _restore_counters(train_state, step, got)
+    epoch = int(meta["epoch"]) + 1
+    logging.info(f"epoch:{epoch:04d}: model loaded from {path}")
+    return epoch, float(meta["loss"]), step
+
+
 # -- read ----------------------------------------------------------------
 
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:
@@ -568,7 +1043,6 @@ def _read(path: str) -> Tuple[dict, str]:
     Returns (the five fields with ``state["params"]`` as a port
     ``state_dict``, the writer: "port" or "jax").  Every failure is a
     ValueError."""
-    _refuse_dir(path)
 
     def _attempt() -> bytes:
         faults.fire("ckpt.restore", path=path)
@@ -595,14 +1069,28 @@ def _read(path: str) -> Tuple[dict, str]:
 
 
 def read_checkpoint(path: str) -> dict:
-    """Read, checksum against the lineage ledger, decode either format.
-    Returns the five fields with ``state["params"]`` as a port
-    ``state_dict``.  Every failure is a ValueError."""
+    """Read, checksum against the lineage ledger (a directory: against
+    its meta.json), decode any format.  Returns the five fields with
+    ``state["params"]`` as a port ``state_dict`` (a directory's read
+    whole on the CPU).  Every failure is a ValueError."""
+    if os.path.isdir(path):
+        path = os.path.abspath(path)
+        return _dir_payload(path, *_open_dir(path), restore_optimizer=True)
     return _read(path)[0]
 
 
 def get_checkpoint_model_name(path: str) -> str:
-    return str(read_checkpoint(path)["model_name"])
+    """The checkpoint's ``model_name``; a directory's from its meta.json
+    alone (JAX ``get_checkpoint_model_name``)."""
+    if os.path.isdir(path):
+        meta = _read_orbax_meta(os.path.abspath(path))
+        if "model_name" not in meta:
+            raise ValueError(
+                f"{path}: {_ORBAX_META} has no model_name — expected "
+                f"the metadata written by this framework's --ckpt-format "
+                f"orbax save")
+        return str(meta["model_name"])
+    return str(_read(path)[0]["model_name"])
 
 
 def _experts(params) -> int:
@@ -618,16 +1106,11 @@ def _model_layout(model: nn.Module) -> Optional[str]:
         dict.fromkeys(n for n, _ in model.named_parameters()))
 
 
-def _load_params(path: str, payload: dict, model: nn.Module
-                 ) -> Optional[tuple]:
-    """Strict load of the file's params; a file and a model that differ
-    in ``--moe-experts`` fail with one line naming it, as JAX's layout
-    check does (``checkpoint.py:735-752``).  A file of the other layout
-    of the model's family is converted first, as JAX converts at load
-    (:1025-1045).  Returns (the model's layout, the file's vit depth or
-    None) when it converted, else None."""
-    saved, wanted = _experts(payload["state"]["params"]), _experts(
-        model.state_dict())
+def _check_experts(path: str, params: dict, model: nn.Module) -> None:
+    """A checkpoint and a model that differ in ``--moe-experts`` fail with
+    one line naming it; ``params`` may hold meta tensors (a directory's
+    shapes, before any tensor is read)."""
+    saved, wanted = _experts(params), _experts(model.state_dict())
     if saved != wanted:
         def side(e: int) -> str:
             return (f"{e}-expert mixture-of-experts blocks" if e
@@ -637,6 +1120,17 @@ def _load_params(path: str, payload: dict, model: nn.Module
             f"checkpoint at {path} holds {side(saved)}, the requested "
             f"model {side(wanted)} — load with a matching --moe-experts "
             f"(--moe-experts {saved})")
+
+
+def _load_params(path: str, payload: dict, model: nn.Module
+                 ) -> Optional[tuple]:
+    """Strict load of the file's params; a file and a model that differ
+    in ``--moe-experts`` fail with one line naming it, as JAX's layout
+    check does (``checkpoint.py:735-752``).  A file of the other layout
+    of the model's family is converted first, as JAX converts at load
+    (:1025-1045).  Returns (the model's layout, the file's vit depth or
+    None) when it converted, else None."""
+    _check_experts(path, payload["state"]["params"], model)
     params = payload["state"]["params"]
     src, dst = scan.params_layout(params), _model_layout(model)
     converted = None
@@ -698,9 +1192,12 @@ def restore_for_serving(path: str, model: nn.Module) -> int:
     """Load the checkpoint's params into ``model`` (strict: every key,
     every shape) and return the last trained epoch.  Records a
     ``serve_restore`` telemetry event."""
-    payload = read_checkpoint(path)
-    _load_params(path, payload, model)
-    epoch = int(payload["epoch"])
+    if os.path.isdir(path):
+        epoch = load_checkpoint(path, model, restore_optimizer=False)[0] - 1
+    else:
+        payload = read_checkpoint(path)
+        _load_params(path, payload, model)
+        epoch = int(payload["epoch"])
     # the restored model's layout, a file of the other converted to it
     layout = _model_layout(model) or "unknown"
     telemetry.get().event("serve_restore", file=os.path.basename(path),
@@ -723,8 +1220,34 @@ def load_checkpoint(path: str, model: nn.Module,
     ``serve`` read it).  Given the
     trainer's ``train_state`` (``updates``, ``loss_scale``), its update
     count and loss scale are restored too, by the JAX rule of the module
-    docstring."""
+    docstring.  A directory (``--ckpt-format orbax``) restores each
+    rank's slices from the chunks that hold them."""
+    if os.path.isdir(path):
+        return _load_dir(path, model, optimizer, restore_optimizer,
+                         train_state)
     payload, writer = _read(path)
+    return _restore(path, payload, writer, model, optimizer,
+                    restore_optimizer, train_state)
+
+
+def _restore_counters(train_state, step: int, state: dict) -> None:
+    """The trainer's step, applied updates and loss scale from a
+    checkpoint's (the rule of the module docstring)."""
+    if train_state is None:
+        return
+    train_state.step.fill_(step)
+    train_state.updates.fill_(int(state.get("updates", step)))
+    saved = state.get("loss_scale")
+    if train_state.loss_scale is not None and saved is not None:
+        train_state.loss_scale.assign(LossScaleState.from_dict(saved))
+
+
+def _restore(path: str, payload: dict, writer: str, model: nn.Module,
+             optimizer: Optional[torch.optim.Optimizer],
+             restore_optimizer: bool, train_state
+             ) -> Tuple[int, float, int]:
+    """``load_checkpoint`` of a decoded payload (a file's, or a directory
+    read whole)."""
     state = payload["state"]
     if writer == "jax" and restore_optimizer:
         state = _resume_state_from_jax(path, payload, optimizer)
@@ -741,7 +1264,6 @@ def load_checkpoint(path: str, model: nn.Module,
             by_name = _convert_moments(by_name, converted)
         _load_jax_optimizer(path, by_name, model, optimizer)
     elif restore_optimizer:
-        capturable = [g.get("capturable") for g in optimizer.param_groups]
         opt_state = state["opt_state"]
         if converted is not None:
             opt_state = _convert_optimizer_state(
@@ -750,25 +1272,32 @@ def load_checkpoint(path: str, model: nn.Module,
                                                "running_var"))],
                 model, optimizer, converted)
         placement = parallel.placement_of(model)
-        try:
-            if placement is not None:
+        if placement is not None:
+            try:
                 opt_state = placement.local_optimizer_state(
                     parallel.optimizer_names(model, optimizer), opt_state)
-            optimizer.load_state_dict(opt_state)
-        except (ValueError, KeyError) as e:
-            raise ValueError(f"{path}: optimizer state does not fit the "
-                             f"optimizer: {e}") from e
-        _keep_capturable(optimizer, capturable)
+            except KeyError as e:
+                raise ValueError(f"{path}: optimizer state does not fit the "
+                                 f"optimizer: {e}") from e
+        _set_optimizer_state(path, optimizer, opt_state)
     step = int(state.get("step", 0))
-    if train_state is not None:
-        train_state.step.fill_(step)
-        train_state.updates.fill_(int(state.get("updates", step)))
-        saved = state.get("loss_scale")
-        if train_state.loss_scale is not None and saved is not None:
-            train_state.loss_scale.assign(LossScaleState.from_dict(saved))
+    _restore_counters(train_state, step, state)
     epoch = int(payload["epoch"]) + 1
     logging.info(f"epoch:{epoch:04d}: model loaded from {path}")
     return epoch, float(payload["loss"]), step
+
+
+def _set_optimizer_state(path: str, optimizer: torch.optim.Optimizer,
+                         opt_state: dict) -> None:
+    """``optimizer.load_state_dict`` with the run's ``capturable`` kept;
+    a state that does not fit fails with one line."""
+    capturable = [g.get("capturable") for g in optimizer.param_groups]
+    try:
+        optimizer.load_state_dict(opt_state)
+    except (ValueError, KeyError) as e:
+        raise ValueError(f"{path}: optimizer state does not fit the "
+                         f"optimizer: {e}") from e
+    _keep_capturable(optimizer, capturable)
 
 
 def _keep_capturable(optimizer: torch.optim.Optimizer,

@@ -15,7 +15,8 @@ Counterpart of ``distributedpytorch_tpu/cli.py``:
     scale are logged), ``--grad-accum K`` accumulates K
     microbatches a step, and ``--ckpt-async`` hands rank 0's checkpoint
     writes and rotation deletes to a background ``AsyncSaver`` (joined
-    before a preemption exit and closed before telemetry).  Under
+    before a preemption exit and closed before telemetry; a directory of
+    a world of several ranks is saved synchronously, as in JAX).  Under
     ``torchrun`` (or any env:// launch) every
     process is one data-parallel rank (``runtime.py``); a plain launch is
     a world of one.  The data is device-resident (a step gathers its
@@ -98,9 +99,13 @@ vit's blocks as GPipe stages under ``--pipeline-parallel``
 S) mesh, whose seq groups ring inside the stages; a data shard's rows
 are dealt to its M x S ranks), and the loss and metric sums count each
 shard once.  Every rank gathers the full state before rank 0 writes a
-checkpoint, the same file a replicated run writes, and a rank takes its
-slices of any file it restores (a vit file of the other block layout
-converted first).
+checkpoint file, the same file a replicated run writes, and a rank takes
+its slices of any file it restores (a vit file of the other block layout
+converted first).  With ``--ckpt-format orbax`` (JAX ``_save_ckpt``,
+:118-160) every rank writes its own slices into a checkpoint directory
+and nothing is gathered; ``train -f``, ``test -f`` and ``serve -f`` read
+a directory (``os.path.isdir``), each rank the chunks of its slices, at
+any ``--model-parallel``.
 
 The reference's log lines are kept word for word in RSL_PATH/test.log
 (the ``process:`` line adds the backend of a process group; a ``mesh:``
@@ -483,30 +488,41 @@ def _rotate_ckpt(cfg: Config, saver, model_name: str, epoch: int) -> None:
         saver.submit(rotate)
 
 
-def _gather_state(state: TrainState) -> Optional[tuple]:
-    """Under a placement, the full parameters and optimizer state on the
-    CPU (``parallel.full_state``: a collective every rank makes before
-    rank 0 writes), else None."""
-    if parallel.placement_of(state.model) is None:
+def _gather_state(cfg: Config, state: TrainState) -> Optional[tuple]:
+    """Under a placement and ``--ckpt-format msgpack``, the full
+    parameters and optimizer state on the CPU (``parallel.full_state``:
+    a collective every rank makes before rank 0 writes), else None: a
+    directory is written from every rank's own slices."""
+    if cfg.ckpt_format == "orbax" \
+            or parallel.placement_of(state.model) is None:
         return None
     with goodput.get().timed("ckpt_blocking"):
         return parallel.full_state(state.model, state.optimizer)
 
 
-def _save_ckpt(saver, path: str, model_name: str, state: TrainState,
-               epoch: int, best_valid_loss: float,
-               full: Optional[tuple] = None) -> None:
-    """One checkpoint file of rank 0: written now, or with
-    ``--ckpt-async`` snapshotted now and written by ``saver``; ``full``:
-    the gathered state of a placed model (``_gather_state``)."""
-    args = (path, model_name, state.model, epoch, best_valid_loss,
-            state.optimizer, state.step, state.updates, state.loss_scale,
-            full)
-    with goodput.get().timed("ckpt_blocking"):
-        if saver is None:
-            ckpt.save_checkpoint(*args)
-        else:
-            ckpt.save_checkpoint_async(saver, *args)
+def _save_ckpts(cfg: Config, saver, paths: list, model_name: str,
+                state: TrainState, epoch: int, best_valid_loss: float,
+                full: Optional[tuple]) -> None:
+    """The epoch's checkpoints (JAX ``_save_ckpt``): a file of rank 0,
+    written now, or with ``--ckpt-async`` snapshotted now and written by
+    ``saver``, ``full`` the gathered state of a placed model
+    (``_gather_state``); with ``--ckpt-format orbax`` a directory that
+    EVERY rank writes, its own slices (``ckpt.save_directory``)."""
+    orbax = cfg.ckpt_format == "orbax"
+    if not (orbax or runtime.is_main()):
+        return
+    args = (model_name, state.model, epoch, best_valid_loss,
+            state.optimizer, state.step, state.updates, state.loss_scale)
+    for path in paths:
+        with goodput.get().timed("ckpt_blocking"):
+            if orbax and (saver is not None or cfg.ckpt_async):
+                ckpt.save_directory_async(saver, path, *args)
+            elif orbax:
+                ckpt.save_directory(path, *args)
+            elif saver is None:
+                ckpt.save_checkpoint(path, *args, full)
+            else:
+                ckpt.save_checkpoint_async(saver, path, *args, full)
 
 
 def _epoch_logs(epoch: int, improved: bool, epoch_s: float, end: float,
@@ -649,17 +665,16 @@ def _run_train_epochs(cfg: Config, engine: Engine, state: TrainState,
             _epoch_logs(epoch, improved, end - epoch_start, end, start_time,
                         train_loss, train_acc, valid_loss, valid_acc,
                         sps_chip, world)
-            full = _gather_state(state)
+            full = _gather_state(cfg, state)
             if runtime.is_main():
                 _rotate_ckpt(cfg, saver, model_name, epoch)
-                paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
-                                              model_name, epoch)]
-                if improved:
-                    paths.append(ckpt.best_model_path(
-                        cfg.rsl_path, cfg.dataset, model_name))
-                for path in paths:
-                    _save_ckpt(saver, path, model_name, state, epoch,
-                               best_valid_loss, full)
+            paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
+                                          model_name, epoch)]
+            if improved:
+                paths.append(ckpt.best_model_path(
+                    cfg.rsl_path, cfg.dataset, model_name))
+            _save_ckpts(cfg, saver, paths, model_name, state, epoch,
+                        best_valid_loss, full)
             history.append({"epoch": epoch, "train_loss": train_loss,
                             "train_acc": train_acc, "valid_loss": valid_loss,
                             "valid_acc": valid_acc,
@@ -856,20 +871,19 @@ def _run_train_chunked(cfg: Config, engine: Engine, state: TrainState,
                                 "valid_acc": valid_acc,
                                 "train_s": per_epoch_s})
             last = chunk[-1]
-            full = _gather_state(state)
+            full = _gather_state(cfg, state)
             if runtime.is_main():
                 # the rolling files of this chunk's earlier epochs were
                 # never written; the previous chunk's goes
                 for e in [last] + chunk[:-1]:
                     _rotate_ckpt(cfg, saver, model_name, e)
-                paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
-                                              model_name, last)]
-                if chunk_improved:
-                    paths.append(ckpt.best_model_path(
-                        cfg.rsl_path, cfg.dataset, model_name))
-                for path in paths:
-                    _save_ckpt(saver, path, model_name, state, last,
-                               best_valid_loss, full)
+            paths = [ckpt.checkpoint_path(cfg.rsl_path, cfg.dataset,
+                                          model_name, last)]
+            if chunk_improved:
+                paths.append(ckpt.best_model_path(
+                    cfg.rsl_path, cfg.dataset, model_name))
+            _save_ckpts(cfg, saver, paths, model_name, state, last,
+                        best_valid_loss, full)
             epoch = last + 1
         # broad on purpose: any failure of the chunk (a step, a checkpoint
         # write) reaches the same agreement on every rank

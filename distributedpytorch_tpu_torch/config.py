@@ -9,11 +9,12 @@ Counterpart of ``distributedpytorch_tpu/config.py`` (``Config`` at
 same flag spellings and defaults, plus ``--device {cuda,cpu}`` (default
 ``cuda``).
 
-A flag of the JAX CLI that this slice does not support fails loudly with
-one line, ``not ported yet: --X``; it is never ignored.  The flags that
-only exist to be refused are one table each (``REFUSED_EVERYWHERE``,
-``REFUSED_TRAIN_TEST``) and are not Config fields; the settings a Config
-holds are refused by ``check_ported``.  ``train``, ``test`` and ``serve``
+A setting of the JAX CLI that this slice does not support fails loudly
+with one line, ``not ported yet: --X`` (``check_ported``); it is never
+ignored.  ``--ckpt-format msgpack|orbax`` picks the checkpoint file or
+the checkpoint directory that ``train`` writes (``checkpoint.py``);
+``test`` and ``serve`` take it and ignore it, as JAX's do: a directory
+is found by ``os.path.isdir``.  ``train``, ``test`` and ``serve``
 run all nine models of the JAX registry (``resnet`` is the default, as in
 the JAX package); ``train --use-pretrained --pretrained-path FILE`` starts
 from a torchvision ``state_dict``, and ``test``, ``serve`` and a resumed
@@ -190,6 +191,9 @@ class Config:
     scan_layers: bool = False
     grad_accum: int = 1
     ckpt_async: bool = False
+    # a checkpoint file or a directory of every rank's slices (JAX
+    # config.py:162)
+    ckpt_format: str = "msgpack"
     epochs_per_dispatch: int = 1
     # observability (JAX config.py:261-302)
     profile: bool = False
@@ -313,6 +317,10 @@ def check_ported(cfg: Config) -> Config:
     if cfg.device not in DEVICE_CHOICES:
         raise ValueError(f"--device must be one of {DEVICE_CHOICES}, got "
                          f"{cfg.device!r}")
+    if cfg.ckpt_format not in ("msgpack", "orbax"):
+        # the JAX _validate_ckpt_format's check (cli.py:118-127)
+        raise ValueError(f"ckpt_format must be 'msgpack' or 'orbax', got "
+                         f"{cfg.ckpt_format!r}")
     return cfg
 
 
@@ -574,37 +582,12 @@ def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
                         "back to the CPU on its own)")
 
 
-_INT = {"type": int}
-
-# Flags of the JAX CLI that this slice refuses: (flag, how it parses, the
-# value that asks for what the port does anyway).  They have no default,
-# so only a flag given on the command line is looked at; any other value
-# is refused (``refused_flag``), never ignored.
-REFUSED_EVERYWHERE = (
-    ("--ckpt-format", {"choices": ("msgpack", "orbax")}, "msgpack"),
-)
-REFUSED_TRAIN_TEST = REFUSED_EVERYWHERE
-
-
-def _dest(flag: str) -> str:
-    return flag[2:].replace("-", "_")
-
-
-def _refused_args(p: argparse.ArgumentParser, table) -> None:
-    for flag, how, _ok in table:
-        p.add_argument(flag, dest=_dest(flag), default=argparse.SUPPRESS,
-                       help="not ported yet", **how)
-
-
-def refused_flag(args: dict, table) -> Optional[str]:
-    """The first flag of ``table`` given in the parsed ``args`` with a
-    value the port does not run, spelled as on the command line, or
-    None."""
-    for flag, how, ok in table:
-        dest = _dest(flag)
-        if dest in args and args[dest] != ok:
-            return f"{flag} {args[dest]}" if "choices" in how else flag
-    return None
+def _ckpt_format_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--ckpt-format", choices=("msgpack", "orbax"),
+                   default="msgpack", dest="ckpt_format",
+                   help="checkpoint format: single msgpack file (default) "
+                        "or an orbax directory with sharded-as-laid-out "
+                        "state")
 
 
 def _data_remat_args(p: argparse.ArgumentParser) -> None:
@@ -891,7 +874,7 @@ def _train_test_args(p: argparse.ArgumentParser, action: str) -> None:
     _observability_args(p)
     _fault_args(p)
     _elastic_args(p)
-    _refused_args(p, REFUSED_TRAIN_TEST)
+    _ckpt_format_arg(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -917,8 +900,9 @@ def build_parser() -> argparse.ArgumentParser:
     _train_test_args(p_test, "test")
     p_test.add_argument("-f", "--file", metavar="file_path", type=str,
                         dest="checkpoint_file", required=True,
-                        help="model file: the port's own or a msgpack "
-                             ".ckpt written by the JAX package")
+                        help="model file: the port's own file or "
+                             "directory, or a msgpack .ckpt written by the "
+                             "JAX package")
 
     p = sub.add_parser(
         "serve", help="serve a trained checkpoint: micro-batched "
@@ -965,8 +949,9 @@ def build_parser() -> argparse.ArgumentParser:
     _device_arg(p, "serve")
     p.add_argument("-f", "--file", metavar="file_path", type=str,
                    dest="checkpoint_file", required=True,
-                   help="checkpoint to serve: the port's own file or a "
-                        "msgpack .ckpt written by the JAX package")
+                   help="checkpoint to serve: the port's own file or "
+                        "directory, or a msgpack .ckpt written by the JAX "
+                        "package")
     p.add_argument("--serve-port", type=int, default=8100,
                    dest="serve_port", metavar="PORT",
                    help="HTTP port for /predict (default 8100)")
@@ -1004,7 +989,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "alive; 0 disables (default)")
     _fault_args(p)
     _elastic_args(p)
-    _refused_args(p, REFUSED_EVERYWHERE)
+    _ckpt_format_arg(p)
     _fleet_parser(sub)
     _frontdoor_parser(sub)
     _offline_parsers(sub)
@@ -1278,16 +1263,12 @@ def _offline_parsers(sub) -> None:
 
 
 def config_from_argv(argv=None) -> Config:
-    """Parse, then refuse what is not ported yet (ValueError).  Every
+    """Parse, then check what the port runs (ValueError).  Every
     other argument's dest is the name of its Config field."""
     args = vars(build_parser().parse_args(argv))
     fields = {f.name: args[f.name] for f in dataclasses.fields(Config)
               if f.name in args}
     if args["action"] in OFFLINE_ACTIONS:
         return Config(**fields)
-    flag = refused_flag(args, REFUSED_EVERYWHERE
-                        if args["action"] == "serve" else REFUSED_TRAIN_TEST)
-    if flag is not None:
-        raise ValueError(f"not ported yet: {flag}")
     fields["half_precision"] = not args["no_bf16"]
     return check_ported(Config(**fields))

@@ -126,12 +126,19 @@ def is_peer_loss(err: Optional[BaseException]) -> bool:
     """Classify an exception (or one in its cause chain) as "a peer
     vanished mid-collective": a timed-out or failed health agreement, a
     ``DistBackendError``, or a text of the JAX markers or torch's gloo
-    errors for a closed or reset connection."""
+    errors for a closed or reset connection; inside a
+    ``torch.distributed.checkpoint`` ``CheckpointException`` (a
+    checkpoint directory's save), any rank's failure that is one."""
     seen = set()
     while err is not None and id(err) not in seen:
         seen.add(id(err))
         if isinstance(err, (faults.HealthTimeoutError,
                             faults.PeerFailureError)):
+            return True
+        failures = getattr(err, "failures", None)
+        if isinstance(failures, dict) and any(
+                is_peer_loss(f[0] if isinstance(f, tuple) else f)
+                for f in failures.values()):
             return True
         backend_error = getattr(torch.distributed, "DistBackendError", None)
         if backend_error is not None and isinstance(err, backend_error):

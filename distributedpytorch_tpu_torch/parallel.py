@@ -35,10 +35,13 @@ has two strategies on its mesh's 'model' axis, and the port keeps both:
    are its collectives.
 
 ``full_state`` gathers the full tensors of a placed model and its
-optimizer (a collective: every rank calls it), which a checkpoint holds;
-``Placement.local_state_dict`` and ``local_optimizer_state`` take a
+optimizer (a collective: every rank calls it), which a checkpoint file
+holds; ``Placement.local_state_dict`` and ``local_optimizer_state`` take a
 rank's slices of full tensors (no communication), so that one file
-loads at any M.  Gathers run through host memory where
+loads at any M.  A checkpoint directory (``--ckpt-format orbax``) is
+written and read with no gather: ``Placement.chunk`` says where a rank's
+slice lies in the full tensor, ``pieces`` and ``full_shape`` where the
+parts of a slice it restores lie.  Gathers run through host memory where
 ``runtime.staged_through_host`` (gloo on a CUDA device).
 """
 
@@ -214,6 +217,51 @@ class Placement:
             self.mesh, local.unflatten(d, (shard.groups, -1)).unsqueeze(
                 d + 1), d + 1)
         return parts.flatten(d, d + 2)
+
+    def chunk(self, name: str, local: torch.Tensor
+              ) -> Tuple[torch.Tensor, tuple, tuple]:
+        """This rank's slice of ``name`` (or of a moment of its shape) as
+        a chunk of the full tensor: (the chunk, its offsets, the full
+        shape), no communication.  A ``groups`` > 1 slice is a chunk of
+        the full tensor's ``(groups, -1)`` view, on ``dim`` + 1; a tensor
+        that is not sharded is the chunk at offset 0 of itself."""
+        shard = self.shards.get(name) if local.dim() else None
+        if shard is None:
+            return local, (0,) * local.dim(), tuple(local.shape)
+        d = shard.dim
+        if shard.groups > 1:
+            local = local.unflatten(d, (shard.groups, -1))
+            d += 1
+        offsets = [0] * local.dim()
+        offsets[d] = self.mesh.model_index * local.shape[d]
+        shape = list(local.shape)
+        shape[d] *= self.mesh.model_parallel
+        return local, tuple(offsets), tuple(shape)
+
+    def pieces(self, name: str, local: torch.Tensor) -> list:
+        """[(a view of ``local``, its offsets in the full tensor)]: the
+        one slice, or one a group of a ``groups`` > 1 shard (qkv's part
+        of q, of k and of v)."""
+        shard = self.shards.get(name) if local.dim() else None
+        if shard is None:
+            return [(local, [0] * local.dim())]
+        d, n = shard.dim, local.shape[shard.dim] // shard.groups
+        out = []
+        for j in range(shard.groups):
+            offsets = [0] * local.dim()
+            offsets[d] = (j * self.mesh.model_parallel
+                          + self.mesh.model_index) * n
+            out.append((local.narrow(d, j * n, n), offsets))
+        return out
+
+    def full_shape(self, name: str, shape) -> tuple:
+        """The full shape of ``name`` (or of a moment of it) whose slice
+        has ``shape``."""
+        shard = self.shards.get(name) if len(shape) else None
+        shape = list(shape)
+        if shard is not None:
+            shape[shard.dim] *= self.mesh.model_parallel
+        return tuple(shape)
 
     def local_state_dict(self, full: dict) -> dict:
         """A full state dict's entries sliced for this rank (no

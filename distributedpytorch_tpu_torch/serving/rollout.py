@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 #: ledger filename, mirrored from checkpoint.py (which owns writes).
 LINEAGE_FILE = "ckpt-lineage.json"
+DIR_META = "meta.json"  # a checkpoint directory's metadata
 
 ROLLOUT_DEFAULTS: Dict[str, Any] = {
     "fraction": 0.34,          # canary share of the routable fleet
@@ -149,10 +150,11 @@ def decide_rollout(cfg: Optional[Dict[str, Any]],
 
 def newest_lineage_entry(watch_dir: str) -> Optional[Dict[str, Any]]:
     """The newest verifiable checkpoint the ledger names: highest
-    epoch, ties broken by ledger order (later write wins).  Only plain
-    checkpoint FILES qualify — the rollout reload path hands a replica's
-    ``/admin/reload`` a path, and replicas serve ``.ckpt`` files.  None
-    when there is no ledger or no live entry."""
+    epoch, ties broken by ledger order (later write wins).  A checkpoint
+    file or a checkpoint directory (``--ckpt-format orbax``, its ledger
+    sha the structural checksum of its meta.json) qualifies — the
+    rollout reload path hands a replica's ``/admin/reload`` a path.
+    None when there is no ledger or no live entry."""
     path = os.path.join(watch_dir, LINEAGE_FILE)
     try:
         with open(path, encoding="utf-8") as f:
@@ -165,7 +167,8 @@ def newest_lineage_entry(watch_dir: str) -> Optional[Dict[str, Any]]:
         if not isinstance(rec, dict) or not rec.get("sha256"):
             continue
         fpath = os.path.join(watch_dir, str(rec.get("file", "")))
-        if not os.path.isfile(fpath):
+        if not (os.path.isfile(fpath) or os.path.isfile(
+                os.path.join(fpath, DIR_META))):
             continue
         if best is None or int(rec.get("epoch", -1)) \
                 >= int(best.get("epoch", -1)):
@@ -175,14 +178,36 @@ def newest_lineage_entry(watch_dir: str) -> Optional[Dict[str, Any]]:
 
 def verify_sha(path: str, sha256: str) -> bool:
     """Content check before a canary reload: the file still hashes to
-    what the ledger recorded (a torn or half-rotated checkpoint must
-    never reach a serving replica)."""
+    what the ledger recorded, a directory's payload still sums to its
+    structural checksum (a torn or half-rotated checkpoint must never
+    reach a serving replica)."""
+    if os.path.isdir(path):
+        return dir_checksum(path) == str(sha256)
     try:
         with open(path, "rb") as f:
             got = hashlib.sha256(f.read()).hexdigest()
     except OSError:
         return False
     return got == str(sha256)
+
+
+def dir_checksum(root: str) -> str:
+    """A checkpoint directory's structural checksum, as the port's
+    checkpoint.py records it: sha256 over the sorted relpath:size
+    listing of every payload file, meta.json excluded."""
+    entries = []
+    for dirpath, _, fnames in os.walk(root):
+        for fn in fnames:
+            if dirpath == root and fn == DIR_META:
+                continue
+            full = os.path.join(dirpath, fn)
+            entries.append(f"{os.path.relpath(full, root)}:"
+                           f"{os.path.getsize(full)}")
+    h = hashlib.sha256()
+    for line in sorted(entries):
+        h.update(line.encode())
+        h.update(b"\n")
+    return h.hexdigest()
 
 
 # -- the impure shell --------------------------------------------------

@@ -26,7 +26,10 @@ labels and valid rows with its affine draws (float32 numpy), and
 optionally ``remat`` (none, blocks or full: ``--remat``), ``optimizer``
 (SGD by default), ``resume`` (a checkpoint restored, optimizer state
 too, before the steps; its gathered state is written as ``resumed``),
-``ckpt`` (a file rank 0 writes after the steps, from the gathered state)
+``ckpt`` (a file rank 0 writes after the steps, from the gathered state),
+``ckpt_dir`` (a checkpoint directory every rank writes after the steps,
+``--ckpt-format orbax``, with ``Placement.join`` and ``full_state``
+made to raise, as they are while a ``resume`` directory is read)
 and ``saved_bytes`` (the bytes the first step's forward saves for the
 backward, parameters left out) and, on the card, ``peak_memory`` (the
 last step's ``torch.cuda.max_memory_allocated`` and the bytes allocated
@@ -38,7 +41,7 @@ in as the rank's slices, and the state written is the gathered whole)
 and takes one optimizer step per entry through
 ``Engine.train_step_affine`` (in ``precision``, f32 by default; with
 ``overflow`` = (step, rank), that rank's loss numerator of that step is
-multiplied by inf), then writes its parameters, the elements of
+multiplied by inf), then writes its parameters (and its optimizer state, gathered), the elements of
 parameters and optimizer state it holds, the steps' metrics, its step and applied-update counts, its loss scale (or None)
 and its kernel launches (all, and on the tensor cores) to OUT.pt.  An
 ``arch`` with ``scan_layers`` builds the stacked vit (``models/scan.py``;
@@ -73,6 +76,7 @@ full attention), TF32 off.  Imports no JAX.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -192,6 +196,25 @@ def local_elements(model, optimizer) -> tuple:
     return sum(p.numel() for p in model.parameters()), moments
 
 
+@contextlib.contextmanager
+def no_gather(on: bool):
+    """With ``on``, ``Placement.join`` and ``parallel.full_state`` raise:
+    a checkpoint directory is written and read with neither."""
+    if not on:
+        yield
+        return
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a checkpoint directory gathered a tensor")
+
+    saved = parallel.Placement.join, parallel.full_state
+    parallel.Placement.join = parallel.full_state = refuse
+    try:
+        yield
+    finally:
+        parallel.Placement.join, parallel.full_state = saved
+
+
 def run_vit(spec, device, mesh) -> dict:
     from distributedpytorch_tpu_torch import checkpoint as ckpt
 
@@ -219,8 +242,9 @@ def run_vit(spec, device, mesh) -> dict:
                         else placement.take(name, full))
     resumed = None
     if spec.get("resume"):
-        ckpt.load_checkpoint(spec["resume"], model, state.optimizer,
-                             train_state=state)
+        with no_gather(os.path.isdir(spec["resume"])):
+            ckpt.load_checkpoint(spec["resume"], model, state.optimizer,
+                                 train_state=state)
         resumed = parallel.full_state(model, state.optimizer)
     before, before_tc = kernel_launches(), tensor_core_launches()
     metrics = []
@@ -258,6 +282,11 @@ def run_vit(spec, device, mesh) -> dict:
                         m["valid"].item()])
         if peak:
             peak_memory = (torch.cuda.max_memory_allocated(), held)
+    if spec.get("ckpt_dir"):
+        with no_gather(True):
+            ckpt.save_directory(spec["ckpt_dir"], "vit", model, 0, 1.0,
+                                state.optimizer, state.step, state.updates,
+                                state.loss_scale)
     params, opt_state = parallel.full_state(model, state.optimizer)
     if spec.get("ckpt"):
         if runtime.is_main():
@@ -265,7 +294,8 @@ def run_vit(spec, device, mesh) -> dict:
                                  state.optimizer, state.step, state.updates,
                                  state.loss_scale, (params, opt_state))
         runtime.barrier()
-    result = {"state": params, "resumed": resumed, "saved_bytes": saved,
+    result = {"state": params, "opt_state": opt_state, "resumed": resumed,
+              "saved_bytes": saved,
               "peak_memory": peak_memory,
               "elements": local_elements(model, state.optimizer),
               "metrics": metrics,

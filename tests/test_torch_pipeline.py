@@ -710,7 +710,8 @@ def test_test_and_serve_refuse_as_jax(tmp_path):
     """``test``'s seq-parallel guard (cli.py:1347-1358) and ``serve``'s
     refusal of the four flags (:1500-1509), word for word; --scan-layers
     with the pipeline is refused by the registry as JAX's refuses it
-    (registry.py:118-122), and orbax stays not ported."""
+    (registry.py:118-122), and the pipeline takes --ckpt-format orbax
+    (its stacked directory, tests/test_torch_orbax.py)."""
     message = _jax_error(jax_cli.run_test, JaxConfig(
         action="test", data_path=str(tmp_path / "nodata"),
         rsl_path=str(tmp_path / "jax"), dataset="synthetic",
@@ -728,9 +729,8 @@ def test_test_and_serve_refuse_as_jax(tmp_path):
                                       "--device", "cpu", *flag])
     argv = ["train", "-d", "/d", "--model", "vit", "--model-parallel", "2",
             "--pipeline-parallel", "--device", "cpu"]
-    with pytest.raises(ValueError, match="^not ported yet: --ckpt-format "
-                                         "orbax$"):
-        tconfig.config_from_argv(argv + ["--ckpt-format", "orbax"])
+    assert tconfig.config_from_argv(
+        argv + ["--ckpt-format", "orbax"]).ckpt_format == "orbax"
     cfg = tconfig.config_from_argv(argv + ["--scan-layers"])
     message = _jax_error(lambda: jax_registry.get_model(
         "vit", 10, scan_layers=True, pipeline_parallel=True))

@@ -235,8 +235,12 @@ def test_port_checkpoint_corruption_is_refused(tmp_path):
 
 
 def test_orbax_directory_is_not_ported(tmp_path):
-    with pytest.raises(ValueError, match="not ported yet: orbax"):
+    """A directory without meta.json is refused with JAX's one line
+    (checkpoint directories are ported: tests/test_torch_orbax.py)."""
+    with pytest.raises(ValueError, match="missing meta.json — not an orbax "
+                                         "checkpoint directory") as e:
         ckpt.read_checkpoint(str(tmp_path))
+    assert "\n" not in str(e.value)
 
 
 # -- the CLI ------------------------------------------------------------
@@ -487,6 +491,8 @@ NOT_PORTED = [
     (["--flightrec"], "--flightrec"),
     # ported: taken, its serve.* sites live
     (["--fault-plan", "data.read:ioerror:0"], "--fault-plan"),
+    # ported: taken and ignored, as the JAX serve takes it (a directory
+    # is found by os.path.isdir)
     (["--ckpt-format", "orbax"], "--ckpt-format orbax"),
     # ported presets, refused as the JAX package refuses them
     (["--precision", "bf16_full", "--no-bf16"], "--precision bf16_full"),
@@ -520,6 +526,7 @@ def test_flag_not_ported_fails_loudly(extra, flag, capsys):
              "--flightrec": ("flightrec", True),
              "--moe-experts": ("moe_experts", 4),
              "--scan-layers": ("scan_layers", True),
+             "--ckpt-format orbax": ("ckpt_format", "orbax"),
              "--attention ring": ("attention", "ring"),
              "--attention ring_flash": ("attention", "ring_flash")}
     if flag in taken:
@@ -599,16 +606,16 @@ def test_cli_without_device_cpu_refuses_to_run_without_gpu(tmp_path,
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax, flax or the JAX
-    package appearing in sys.modules."""
+    """Every module of the port imports without jax, flax, orbax,
+    tensorstore or the JAX package appearing in sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import distributedpytorch_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "              'distributedpytorch_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "              'tensorstore', 'distributedpytorch_tpu'))\n"
         "assert not bad, bad\n"
         "print(' '.join(n for n in sys.modules if n.startswith(p.__name__)))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -681,6 +681,10 @@ REFUSED_MESSAGES = {
     "--remat full": dict.fromkeys(("train", "test"), None),
     # ported: the stacked block runs (tests/test_torch_scan.py)
     "--scan-layers": dict.fromkeys(("train", "test"), None),
+    # ported: checkpoint directories on torch.distributed.checkpoint
+    # (tests/test_torch_orbax.py); test takes it and ignores it, as the
+    # JAX test does
+    "--ckpt-format orbax": dict.fromkeys(("train", "test"), None),
     **{flag: dict.fromkeys(("train", "test"), None) for flag in (
         "--aot-warmup", "--profile", "--anomaly-capture",
         "--anomaly-window", "--compilation-cache-dir", "--no-compile-cache",
@@ -787,7 +791,7 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                        health_timeout=0.0, max_reconfigures=3,
                        fault_plan=None, moe_experts=0, model_parallel=1,
                        pipeline_parallel=False, pipeline_microbatches=0,
-                       scan_layers=False)
+                       scan_layers=False, ckpt_format="msgpack")
         changed = {"--grad-accum": {"grad_accum": 3},
                    "--ckpt-async": {"ckpt_async": True},
                    "--epochs-per-dispatch": {"epochs_per_dispatch": 2},
@@ -816,7 +820,8 @@ def test_refused_flag_fails_loudly(action, extra, flag):
                    "--pipeline-parallel": {"pipeline_parallel": True},
                    "--pipeline-microbatches": {
                        "pipeline_microbatches": 2},
-                   "--scan-layers": {"scan_layers": True}}[flag]
+                   "--scan-layers": {"scan_layers": True},
+                   "--ckpt-format orbax": {"ckpt_format": "orbax"}}[flag]
         assert {k: getattr(cfg, k) for k in default} == \
             {**default, **changed}
         return
